@@ -12,11 +12,16 @@ Phases, each of which raises (and exits non-zero) on failure:
    ([16, 6,603,710], the inputs the main path hands each kernel), each
    timed with CUDA events beside its plain version, a one-call PyTorch
    yardstick where one exists, and its memory/compute bound: Krum's two
-   distance passes, fused candidate selection (median and trimmed mean,
-   float32 and bfloat16, bit-equal), the count sketch (twice, bit-equal to
-   itself) and the pairwise pass on the [16, 1000] sketches Sketchguard
-   filters on; plus Krum's selection on the same inputs through the
-   kernels and through the plain versions;
+   distance passes (the pairwise pass with the center row it subtracts as
+   it loads; each distance case also with its device time from
+   torch.profiler and bit-equal on a repeat call), fused candidate
+   selection (median and trimmed mean, float32 and bfloat16, bit-equal),
+   the count sketch (twice, bit-equal to itself) and the pairwise pass on
+   the [16, 1000] sketches Sketchguard filters on; plus Krum's selection on
+   the same inputs through the kernels and through the plain versions;
+   then the two distance passes once more at N = 64 ([64, 1,048,576],
+   k-regular(4) offsets), which a flagship round does not make, so that
+   the multi-tile paths are timed;
 3b. one round of the tiny CNN on the card against the same round on the CPU
    (same initial parameters, same injected draws), for each of four seeds,
    for Krum, median, trimmed mean, geometric median, BALANCE, Sketchguard
@@ -56,9 +61,11 @@ SMOKE_ROUNDS = 3
 REPS = 20
 PLAIN_REPS = 5
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and float32 (non-tensor) peak.
+# NVIDIA H100 SXM data sheet: HBM3 rate, float32 (non-tensor) and dense
+# TF32 tensor-core peaks.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 
 def card_line() -> str:
@@ -90,10 +97,41 @@ def time_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved: float, flops: float):
+def device_ms(fn, reps: int = REPS):
+    """Mean milliseconds per call of device time: the self time of every
+    CUDA kernel that ``reps`` calls launch, summed from a torch.profiler
+    trace, over ``reps``.  None when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        total_us += float(ev.self_cuda_time_total if us is None else us)
+    return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def bound(bytes_moved: float, flops: float, tf32_flops: float = 0.0):
+    """Least time in ms: bytes over the memory rate, or float32 operations
+    plus TF32 tensor-core operations over their peaks, the larger."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = (flops / F32_FLOP_PER_S + tf32_flops / TF32_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _pairwise_work(n, m, p, same):
+    """(bytes, float32 ops, TF32 ops) of one pairwise call with a center:
+    a (and b unless same), the center row and the output moved once; per
+    value read, its centering, its norm's multiply-add and the hi/lo
+    split's subtraction in float32; the Gram as three TF32 products."""
+    rows = n if same else n + m
+    return ((rows + 1) * p * 4 + n * m * 4, 4.0 * rows * p, 3 * 2.0 * n * m * p)
 
 
 def check_kernels(results: dict) -> None:
@@ -104,7 +142,6 @@ def check_kernels(results: dict) -> None:
     from murmura_tpu_torch.aggregation.base import AggContext
     from murmura_tpu_torch.aggregation.krum import make_krum
     from murmura_tpu_torch.models.registry import build_model
-    from murmura_tpu_torch.ops import agg_kernels as K
     from murmura_tpu_torch.ops.flatten import model_dimension
 
     dev = torch.device("cuda")
@@ -115,45 +152,8 @@ def check_kernels(results: dict) -> None:
     deltas = sorted({abs(b - a) for a in offsets for b in offsets if a != b})
     print(f"[kernels] shapes: N={n} P={p} offsets={offsets} deltas={deltas}", flush=True)
 
-    # Nodes scattered around a common model with distinct spreads (so that
-    # Krum's scores have no near-ties), three of them broadcasting noise.
-    g = torch.Generator(device=dev).manual_seed(1234)
-    spread = 0.01 * (1.0 + torch.arange(n, device=dev, dtype=torch.float32) / n)
-    own = 0.05 * torch.randn((1, p), generator=g, device=dev) + spread[:, None] * torch.randn(
-        (n, p), generator=g, device=dev
-    )
-    bcast = own.clone()
-    bcast[:3] += 10.0 * torch.randn((3, p), generator=g, device=dev)  # 3 noisy rows
-    # The pairwise kernel sees rows centered on the mean of its first
-    # operand (aggregation/base.pairwise_l2_distances).
-    ca = bcast - bcast.mean(dim=0, keepdim=True)
-    co = own - bcast.mean(dim=0, keepdim=True)
-    torch.cuda.synchronize()
-    bytes_1 = n * p * 4  # one [16, P] float32 tensor
-
-    cases = [
-        ("pairwise_sq_distances", "(bcast, bcast)", (ca, None),
-         lambda a, b: K.pairwise_sq_distances(a, b),
-         lambda a, b: K.pairwise_sq_distances_plain(a, b),
-         lambda a, b: torch.cdist(a, a if b is None else b,
-                                  compute_mode="use_mm_for_euclid_dist") ** 2,
-         bytes_1 + n * n * 4, 2.0 * n * n * p + 2.0 * n * p),
-        ("pairwise_sq_distances", "(own, bcast)", (co, ca),
-         lambda a, b: K.pairwise_sq_distances(a, b),
-         lambda a, b: K.pairwise_sq_distances_plain(a, b),
-         lambda a, b: torch.cdist(a, b, compute_mode="use_mm_for_euclid_dist") ** 2,
-         2 * bytes_1 + n * n * 4, 2.0 * n * n * p + 4.0 * n * p),
-        ("circulant_sq_distances", f"(own, bcast, offsets {offsets})", (own, bcast),
-         lambda a, b: K.circulant_sq_distances(a, b, offsets),
-         lambda a, b: K.circulant_sq_distances_plain(a, b, offsets),
-         None, 2 * bytes_1 + len(offsets) * n * 4, 3.0 * len(offsets) * n * p),
-        ("circulant_sq_distances", f"(bcast, bcast, deltas {deltas})", (bcast, bcast),
-         lambda a, b: K.circulant_sq_distances(a, b, deltas),
-         lambda a, b: K.circulant_sq_distances_plain(a, b, deltas),
-         None, bytes_1 + len(deltas) * n * 4, 3.0 * len(deltas) * n * p),
-    ]
-    for case in cases:
-        _check_distances(results, *case)
+    own, bcast = krum_inputs(n, p, 1234)
+    _distance_cases(results, own, bcast, offsets, in_round=True)
 
     # Krum's selection on the same round inputs, through the kernels (card)
     # and through the plain versions (the same tensors on the CPU).
@@ -175,73 +175,161 @@ def check_kernels(results: dict) -> None:
                   f"{'==' if same else '!='} plain", flush=True)
             if not same:
                 raise AssertionError("Krum's selection differs between kernel and plain")
-    del ca, co
     check_candidate_select(results, own, bcast, offsets)
     own_sk, bcast_sk = check_count_sketch(results, own, bcast)
     del own, bcast
     # Sketchguard's filter: the pairwise kernel on the [16, S] sketches,
     # centred on the mean of own's sketches (pairwise_l2_distances).
     s = own_sk.shape[1]
-    centre = own_sk.mean(dim=0, keepdim=True)
-    a, b = (own_sk - centre).contiguous(), (bcast_sk - centre).contiguous()
     _check_distances(
-        results, "pairwise_sq_distances", f"(own, bcast sketches [{n}, {s}])", (a, b),
-        lambda a, b: K.pairwise_sq_distances(a, b),
-        lambda a, b: K.pairwise_sq_distances_plain(a, b),
-        lambda a, b: torch.cdist(a, b, compute_mode="use_mm_for_euclid_dist") ** 2,
-        2 * n * s * 4 + n * n * 4, 2.0 * n * n * s + 4.0 * n * s)
+        results, "pairwise_sq_distances", f"(own, bcast sketches [{n}, {s}])",
+        (own_sk, bcast_sk, own_sk.mean(dim=0)), *_pairwise_fns(),
+        *_pairwise_work(n, n, s, False))
+    torch.cuda.empty_cache()
+    check_distances_n64(results)
+
+
+def krum_inputs(n: int, p: int, seed: int):
+    """(own, bcast) [n, p] float32 on the card: nodes scattered around a
+    common model with distinct spreads (so that Krum's scores have no
+    near-ties), three of them broadcasting noise of std 10."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    spread = 0.01 * (1.0 + torch.arange(n, device=dev, dtype=torch.float32) / n)
+    own = 0.05 * torch.randn((1, p), generator=g, device=dev) + spread[:, None] * torch.randn(
+        (n, p), generator=g, device=dev
+    )
+    bcast = own.clone()
+    bcast[:3] += 10.0 * torch.randn((3, p), generator=g, device=dev)
+    torch.cuda.synchronize()
+    return own, bcast
+
+
+def _pairwise_fns():
+    """(kernel, plain version, yardstick) of a pairwise case (a, b, c); the
+    yardstick is cdist on the rows as they are (centering leaves distances
+    unchanged)."""
+    import torch
+
+    from murmura_tpu_torch.ops import agg_kernels as K
+
+    return (
+        lambda a, b, c: K.pairwise_sq_distances(a, b, center=c),
+        lambda a, b, c: K.pairwise_sq_distances_plain(a, b, center=c),
+        lambda a, b, c: torch.cdist(a, a if b is None else b,
+                                    compute_mode="use_mm_for_euclid_dist") ** 2,
+    )
+
+
+def _distance_cases(results, own, bcast, offsets, in_round, tag=""):
+    """Krum's four distance calls on (own, bcast) with k-regular offsets:
+    pairwise (bcast, bcast) and (own, bcast), each centered on the mean of
+    its first operand as pairwise_l2_distances centers it, and circulant
+    (own, bcast, offsets) and (bcast, bcast, deltas)."""
+    from murmura_tpu_torch.ops import agg_kernels as K
+
+    n, p = own.shape
+    deltas = sorted({abs(b - a) for a in offsets for b in offsets if a != b})
+    bytes_1 = n * p * 4  # one [N, P] float32 tensor
+    kw = {"in_round": in_round}
+    _check_distances(results, "pairwise_sq_distances", f"(bcast, bcast){tag}",
+                     (bcast, None, bcast.mean(dim=0)), *_pairwise_fns(),
+                     *_pairwise_work(n, n, p, True), **kw)
+    _check_distances(results, "pairwise_sq_distances", f"(own, bcast){tag}",
+                     (own, bcast, own.mean(dim=0)), *_pairwise_fns(),
+                     *_pairwise_work(n, n, p, False), **kw)
+    _check_distances(results, "circulant_sq_distances",
+                     f"(own, bcast, offsets {offsets}){tag}", (own, bcast),
+                     lambda a, b: K.circulant_sq_distances(a, b, offsets),
+                     lambda a, b: K.circulant_sq_distances_plain(a, b, offsets),
+                     None, 2 * bytes_1 + len(offsets) * n * 4,
+                     3.0 * len(offsets) * n * p, **kw)
+    _check_distances(results, "circulant_sq_distances",
+                     f"(bcast, bcast, deltas {deltas}){tag}", (bcast, bcast),
+                     lambda a, b: K.circulant_sq_distances(a, b, deltas),
+                     lambda a, b: K.circulant_sq_distances_plain(a, b, deltas),
+                     None, bytes_1 + len(deltas) * n * 4,
+                     3.0 * len(deltas) * n * p, **kw)
+
+
+def check_distances_n64(results: dict) -> None:
+    """The two distance passes at N = 64 ([64, 1,048,576] float32 built
+    like the flagship's inputs, k-regular(4) offsets): four pairwise output
+    tiles a side, and 256 circulant pairs.  No main-path round makes these
+    calls."""
+    import torch
+
+    n, p = 64, 1 << 20
+    offsets = [1, 2, n - 2, n - 1]
+    own, bcast = krum_inputs(n, p, 4321)
+    print(f"[kernels] shapes: N={n} P={p} offsets={offsets}", flush=True)
+    _distance_cases(results, own, bcast, offsets, in_round=False, tag=f" N={n}")
+    del own, bcast
     torch.cuda.empty_cache()
 
 
-def _check_distances(results, name, label, ab, kern, plain, library, nbytes, flops):
-    """One distance kernel case against its plain version, then timed."""
+def _check_distances(results, name, label, args, kern, plain, library, nbytes, flops,
+                     tf32_flops=0.0, in_round=True):
+    """One distance kernel case against its plain version and against a
+    repeat of itself (bit-equal), then timed, with its device time."""
     import torch
 
-    a, b = ab
-    got = kern(a, b)
+    got = kern(*args)
+    again = kern(*args)
     torch.cuda.synchronize()
-    ref = plain(a, b)
+    ref = plain(*args)
     torch.cuda.synchronize()
     err = (got - ref).abs()
     if name == "pairwise_sq_distances":
-        sa = (a * a).sum(-1)
-        sb = sa if b is None else (b * b).sum(-1)
+        a, b, c = args
+        sa = ((a - c) ** 2).sum(-1)
+        sb = sa if b is None else ((b - c) ** 2).sum(-1)
         limit = 1e-5 * (sa[:, None] + sb[None, :])
-        rule = "|d2 - plain| <= 1e-5 (|a_i|^2 + |b_j|^2)"
+        rule = "|d2 - plain| <= 1e-5 (|a_i - c|^2 + |b_j - c|^2)"
     else:
         limit = 1e-5 * torch.clamp(ref.abs(), min=1.0)
         rule = "|d2 - plain| <= 1e-5 max(1, |plain|)"
     max_err = float(err.max())
-    ok = bool((err <= limit).all()) and bool(torch.isfinite(got).all())
+    repeat = torch.equal(got, again)
+    ok = bool((err <= limit).all()) and bool(torch.isfinite(got).all()) and repeat
     print(f"[kernels] {name} {label}: max |d2 - plain| = {max_err:.6g}, "
-          f"limit {rule} (max limit {float(limit.max()):.6g}): "
-          f"{'ok' if ok else 'FAILED'}", flush=True)
+          f"limit {rule} (max limit {float(limit.max()):.6g}); repeat call bit-equal: "
+          f"{repeat}: {'ok' if ok else 'FAILED'}", flush=True)
     if not ok:
-        raise AssertionError(f"{name} {label} disagrees with its plain version")
+        raise AssertionError(f"{name} {label} disagrees with its plain version or itself")
+    del got, again, ref, err, limit
     _record(results, name, label, max_err,
-            lambda: kern(a, b), lambda: plain(a, b),
-            None if library is None else (lambda: library(a, b)), nbytes, flops)
+            lambda: kern(*args), lambda: plain(*args),
+            None if library is None else (lambda: library(*args)), nbytes, flops,
+            in_round=in_round, tf32_flops=tf32_flops, profile=True)
 
 
 def _record(results, name, label, max_err, kern, plain, library, nbytes, flops,
-            in_round=True):
+            in_round=True, tf32_flops=0.0, profile=False):
     """Time a checked kernel beside its plain version and yardstick.
-    ``in_round``: the case is one of the calls a main-path round makes."""
+    ``in_round``: the case is one of the calls a main-path round makes;
+    ``profile``: also take its device time from a profiler trace."""
     import torch
 
     ms = time_ms(kern)
+    dev_ms = device_ms(kern) if profile else None
     plain_ms = time_ms(plain, PLAIN_REPS)
     lib_ms = time_ms(library) if library is not None else None
     torch.cuda.synchronize()
-    bound_ms, bound_by = bound(nbytes, flops)
-    print(f"[kernels] {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    bound_ms, bound_by = bound(nbytes, flops, tf32_flops)
+    shown = "" if not profile else (
+        f" (device {dev_ms:.4f} ms)" if dev_ms is not None else " (device time not measured)")
+    print(f"[kernels] {name} {label}: kernel {ms:.4f} ms{shown}, plain {plain_ms:.4f} ms, "
           f"library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
           f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP)", flush=True)
+          f"{flops / 1e9:.2f} GFLOP float32, {tf32_flops / 1e9:.2f} GFLOP TF32), "
+          f"{bound_ms / ms:.1%} of the bound", flush=True)
     results.setdefault(name, []).append({
-        "case": label, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "in_round": in_round,
+        "case": label, "max_abs_err": max_err, "ms": ms, "device_ms": dev_ms,
+        "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "in_round": in_round,
     })
 
 

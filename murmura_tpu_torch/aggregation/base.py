@@ -62,14 +62,13 @@ def pairwise_l2_distances(
     nodes' vectors cluster around a common point whose norm dwarfs their
     pairwise distances, and |a|^2 + |b|^2 - 2ab would cancel
     catastrophically in float32.  Centering leaves the distances unchanged.
-    The kernel takes float32, so bf16 parameters are widened here.
+    The kernel subtracts the center row as it loads the values, so no
+    centered copy of ``a`` or ``b`` is made.  The kernel takes float32, so
+    bf16 parameters are widened here.
     """
-    same = b is None
-    a32 = a.to(torch.float32)
-    center = a32.mean(dim=0, keepdim=True)
-    a32 = (a32 - center).contiguous()
-    b32 = None if same else (b.to(torch.float32) - center).contiguous()
-    d2 = agg_kernels.pairwise_sq_distances(a32, b32)
+    a32 = a.to(torch.float32).contiguous()
+    b32 = None if b is None else b.to(torch.float32).contiguous()
+    d2 = agg_kernels.pairwise_sq_distances(a32, b32, center=a32.mean(dim=0))
     return torch.sqrt(torch.clamp(d2, min=0.0))
 
 

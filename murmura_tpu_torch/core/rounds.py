@@ -106,10 +106,12 @@ def build_round_program(
     attack: Optional[Attack] = None,
     seed: int = 42,
     param_dtype: Optional[str] = None,
-    device="cpu",
+    device="cuda",
     init_params: Any = None,
 ) -> RoundProgram:
-    """Round step for a network of ``data.num_nodes`` nodes on ``device``.
+    """Round step for a network of ``data.num_nodes`` nodes on ``device``
+    (the card unless the caller asks for the CPU; without CUDA a ``cuda``
+    device raises).
 
     ``init_params`` (a node-stacked pytree of tensors or numpy arrays in the
     JAX package's layout) replaces the seeded initialisation — the weight
@@ -118,6 +120,11 @@ def build_round_program(
     """
     device = torch.device(device)
     if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: build_round_program runs on the card "
+                "by default; pass device='cpu' to run on the CPU"
+            )
         pin_full_float32()
     n = data.num_nodes
     if model.evidential:

@@ -8,7 +8,15 @@ chip_smoke.py).  Tolerances follow tests/test_pallas_agg.py: rtol 1e-5,
 atol 1e-4 on squared circulant distances; rtol 1e-4, atol 1e-2 on
 pairwise distances (the Gram identity cancels; the pairwise inputs are
 scaled so that the diagonal's cancellation noise, amplified by the square
-root, stays inside that atol at the widest P here)."""
+root, stays inside that atol at the widest P here).
+
+The pairwise plain version takes the center row the kernel subtracts as it
+loads, and ``pairwise_l2_distances`` hands it the mean of ``a`` instead of
+centered copies; its CPU result stays bit-equal to subtracting first.  The
+launch plans (tile width, ring, grid) are plain Python and are checked
+here; ``build_round_program`` defaults to the card and raises without one."""
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +32,7 @@ from murmura_tpu_torch.aggregation.base import (
     circulant_neighbor_distances,
     pairwise_l2_distances,
 )
+from murmura_tpu_torch.core.rounds import build_round_program
 from murmura_tpu_torch.ops import agg_kernels as K
 
 
@@ -86,6 +95,139 @@ class TestPairwisePlain:
         ref = jax_pairwise_distances(jnp.asarray(a))
         got = pairwise_l2_distances(torch.from_numpy(a))
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-2)
+
+
+class TestPairwiseCenter:
+    @pytest.mark.parametrize("n,p,m", [(8, 256, 8), (12, 300, 5), (16, 1001, 16), (5, 1, 3)])
+    @pytest.mark.parametrize("same", [True, False])
+    def test_plain_center_matches_pallas_interpret(self, n, p, m, same):
+        # Rows far from the origin, so that the center matters; the Pallas
+        # kernel gets them centered, as its caller hands them.
+        a, b = _arrs(n * 5 + p + m, n, p, m, scale=0.1)
+        a, b = a + 3.0, b + 3.0
+        c = a.mean(axis=0).astype(np.float32)
+        ref = pallas_agg.pairwise_sq_distances(
+            jnp.asarray(a - c), jnp.asarray(a - c if same else b - c), interpret=True
+        )
+        got = K.pairwise_sq_distances_plain(
+            torch.from_numpy(a), None if same else torch.from_numpy(b),
+            center=torch.from_numpy(c),
+        )
+        assert got.shape == (n, n if same else m)
+        np.testing.assert_allclose(
+            np.sqrt(np.maximum(got.numpy(), 0)),
+            np.sqrt(np.maximum(np.asarray(ref), 0)),
+            rtol=1e-4, atol=1e-2,
+        )
+
+    @pytest.mark.parametrize("n,p,m", [(8, 256, 8), (10, 320, 6), (16, 1001, 16), (5, 1, 3)])
+    @pytest.mark.parametrize("same", [True, False])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_l2_distances_bit_equal_to_centered_copies(self, n, p, m, same, dtype):
+        a, b = (torch.from_numpy(x + 2.0).to(dtype) for x in _arrs(n + 2 * p + m, n, p, m))
+        got = pairwise_l2_distances(a, None if same else b)
+        # The arithmetic before the center moved into the kernel: centered
+        # float32 copies of both operands, then the Gram/norm formula.
+        a32 = a.to(torch.float32)
+        center = a32.mean(dim=0, keepdim=True)
+        ac = (a32 - center).contiguous()
+        bc = ac if same else (b.to(torch.float32) - center).contiguous()
+        sq_a = (ac * ac).sum(-1)
+        sq_b = sq_a if same else (bc * bc).sum(-1)
+        want = torch.sqrt(torch.clamp(sq_a[:, None] + sq_b[None, :] - 2.0 * (ac @ bc.T), min=0.0))
+        assert torch.equal(got, want)
+
+    def test_center_none_is_the_old_formula(self):
+        a, b = (torch.from_numpy(x) for x in _arrs(4, 6, 77, 5))
+        zero = torch.zeros(77)
+        assert torch.equal(
+            K.pairwise_sq_distances_plain(a, b), K.pairwise_sq_distances_plain(a, b, center=zero)
+        )
+
+
+class TestLaunchPlans:
+    FLAGSHIP_P = 6_603_710  # leaf.femnist.baseline
+    H100_SMS = 132
+
+    def test_flagship_plans(self):
+        pw = K.pairwise_plan(16, 16, self.FLAGSHIP_P, False, self.H100_SMS)
+        # 256-column tiles, a 3-slot ring of 34 kB slots, two blocks an SM.
+        assert pw == {"tc_log2": 8, "smem": 104448, "tm": 1, "tn": 1, "gx": 264}
+        # One tensor, one output tile: no b rows, so 512-column tiles.
+        pw_same = K.pairwise_plan(16, 16, self.FLAGSHIP_P, True, self.H100_SMS)
+        assert pw_same == {"tc_log2": 9, "smem": 105984, "tm": 1, "tn": 1, "gx": 264}
+        # N = 64, one tensor: blocks of 64 x 32 (eight warp tiles) that
+        # stage only rows of a; two tensors: 64 x 32 with rows of b would
+        # force 64-column tiles, so 32 x 32 blocks of 128 columns.
+        pw64 = K.pairwise_plan(64, 64, 1 << 20, True, self.H100_SMS)
+        assert (pw64["tm"], pw64["tn"], pw64["tc_log2"]) == (4, 2, 7)
+        pw64 = K.pairwise_plan(64, 64, 1 << 20, False, self.H100_SMS)
+        assert (pw64["tm"], pw64["tn"], pw64["tc_log2"]) == (2, 2, 7)
+        two = K.circulant_plan(16, self.FLAGSHIP_P, 4, False, 2, self.H100_SMS)
+        assert two == {"tc_log2": 8, "smem": 99072, "gx": 264, "gy": 1}
+        # One tensor: half the rows, twice the columns a tile.
+        one = K.circulant_plan(16, self.FLAGSHIP_P, 4, True, 2, self.H100_SMS)
+        assert one["tc_log2"] == 9 and one["smem"] <= 110 * 1024
+
+    @pytest.mark.parametrize(
+        "n,p,k,same,vec",
+        [(16, 100_003, 4, False, 1), (3, 1, 2, False, 1), (70, 5000, 3, True, 2),
+         (40, 777, 39, False, 1), (64, 1_048_576, 4, False, 2), (300, 4096, 8, False, 2),
+         (2000, 64, 4, False, 2)],
+    )
+    def test_circulant_plan_fits(self, n, p, k, same, vec):
+        plan = K.circulant_plan(n, p, k, same, vec, self.H100_SMS)
+        tc = 1 << plan["tc_log2"]
+        rows = n if same else 2 * n
+        assert tc >= vec
+        assert K.STAGES * rows * (tc + vec) * 4 <= plan["smem"] <= K.SMEM_MAX
+        assert plan["smem"] >= K.THREADS * K.CI_KT * 4  # the final reduction
+        units = -(-k // K.CI_KT) * n
+        assert plan["gy"] * min(units, K.THREADS) >= units
+        assert 1 <= plan["gx"] <= max(1, -(-p // tc))
+
+    def test_circulant_plan_refuses_rows_beyond_shared_memory(self):
+        with pytest.raises(ValueError, match="rows do not fit"):
+            K.circulant_plan(5000, 1000, 4, False, 2, self.H100_SMS)
+        K.circulant_plan(4000, 1000, 4, True, 2, self.H100_SMS)  # one tensor: fits
+
+    @pytest.mark.parametrize("same", [True, False])
+    @pytest.mark.parametrize("n,m,p", [(16, 16, 1000), (33, 20, 4099), (1, 17, 300), (256, 256, 1 << 20)])
+    def test_pairwise_plan_fits(self, n, m, p, same):
+        m = n if same else m
+        plan = K.pairwise_plan(n, m, p, same, self.H100_SMS)
+        tc = 1 << plan["tc_log2"]
+        tm, tn = plan["tm"], plan["tn"]
+        assert tm * tn in (1, 2, 4, 8) and tm <= -(-n // 16) and tn <= -(-m // 16)
+        one_block_row = -(-n // (16 * tm)) == 1
+        rows = 16 * tm + (0 if same and one_block_row else 16 * tn)
+        assert tc % 8 == 0 and tc >= 128
+        assert K.STAGES * (rows * (tc + 8) + tc) * 4 <= plan["smem"] <= K.SMEM_MAX
+        assert 1 <= plan["gx"] <= -(-p // tc)
+
+    def test_pairwise_plan_refuses_too_many_tiles(self):
+        with pytest.raises(ValueError, match="output blocks"):
+            K.pairwise_plan(20000, 20000, 100, False, self.H100_SMS)
+
+    def test_copy_width_follows_alignment(self):
+        x = torch.zeros((4, 10))
+        assert K._vec(10, x, x) == 2
+        assert K._vec(9, x[:, :9].contiguous()) == 1  # odd P: odd rows 4-byte aligned
+        assert K._vec(10, x.view(-1)[1:31].view(3, 10)) == 1  # base off by one float
+        assert K._vec(10, x, None) == 2
+
+
+def test_build_round_program_runs_on_the_card_by_default(monkeypatch):
+    assert inspect.signature(build_round_program).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from murmura_tpu_torch.aggregation import build_aggregator
+    from murmura_tpu_torch.data.registry import build_federated_data
+    from murmura_tpu_torch.models.cnn import make_femnist_cnn
+
+    data = build_federated_data("leaf.femnist", {"num_samples": 40}, num_nodes=4, seed=0)
+    agg = build_aggregator("fedavg", {}, model_dim=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_round_program(make_femnist_cnn(variant="tiny"), agg, data)
 
 
 class TestCirculantPlain:

@@ -7,7 +7,8 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed:
 
 (``--noconftest`` because tests/conftest.py pins JAX to the CPU.)
 Tolerances are chip_smoke.py's: |d2 - plain| <= 1e-5 (|a_i|^2 + |b_j|^2)
-for the pairwise kernel, whose Gram identity cancels in float32;
+for the pairwise kernel (norms of the centered rows when it takes a
+center), whose Gram identity cancels in float32;
 |d2 - plain| <= 1e-5 max(1, |plain|) for the circulant kernel's direct sums;
 bit-equal for candidate selection (no reduction across threads, the same
 sum order and reciprocal as the plain version); and for the count sketch
@@ -21,7 +22,7 @@ import pytest
 import torch
 import yaml
 
-from murmura_tpu_torch.aggregation.base import AggContext
+from murmura_tpu_torch.aggregation.base import AggContext, pairwise_l2_distances
 from murmura_tpu_torch.aggregation.krum import make_krum
 from murmura_tpu_torch.ops import agg_kernels as K
 from murmura_tpu_torch.ops import candidate_kernels as C
@@ -52,7 +53,9 @@ def _pairwise_ok(got, ref, a, b):
 
 
 @pytest.mark.parametrize(
-    "n,p,m", [(16, 100_003, 16), (5, 1, 5), (33, 4099, 20), (1, 300, 17), (16, 128, 16)]
+    "n,p,m",
+    [(16, 100_003, 16), (5, 1, 5), (33, 4099, 20), (1, 300, 17), (16, 128, 16),
+     (256, 20_011, 256)],
 )
 def test_pairwise_kernel_matches_plain(dev, n, p, m):
     a, b = _rows(p, n, p, dev), _rows(p + 1, m, p, dev)
@@ -82,11 +85,76 @@ def test_circulant_kernel_matches_plain(dev, n, p, offsets):
         assert bool(torch.all((got - ref).abs() <= 1e-5 * torch.clamp(ref.abs(), min=1.0)))
 
 
+@pytest.mark.parametrize(
+    "n,p,m", [(16, 100_003, 16), (33, 4099, 20), (1, 300, 17), (256, 20_000, 256)]
+)
+def test_pairwise_kernel_with_center_matches_plain(dev, n, p, m):
+    # Rows far from the origin: the kernel subtracts the center as it loads.
+    a, b = _rows(p, n, p, dev) + 5.0, _rows(p + 1, m, p, dev) + 5.0
+    c = a.mean(dim=0)
+    for bb in (None, b):
+        got = K.pairwise_sq_distances(a, bb, center=c)
+        torch.cuda.synchronize()
+        ref = K.pairwise_sq_distances_plain(a, bb, center=c)
+        assert got.shape == (n, n if bb is None else m)
+        assert _pairwise_ok(got, ref, a - c, None if bb is None else bb - c)
+
+
+def _unaligned(x):
+    """x's values in a tensor whose storage starts one float later (4 bytes
+    off an 8-byte boundary)."""
+    flat = torch.empty(x.numel() + 1, device=x.device)
+    flat[1:] = x.reshape(-1)
+    return flat[1:].view(x.shape)
+
+
+@pytest.mark.parametrize("p", [100_001, 100_002, 100_003, 100_004])  # P = 1, 2, 3, 0 mod 4
+def test_distance_kernels_at_every_alignment(dev, p):
+    # Odd rows start 4 (odd P) or 8 (P = 2 mod 4) bytes off a 16-byte line.
+    n, offs = 5, [1, 2, 3, 4]
+    a, b = _rows(p, n, p, dev) + 1.0, _rows(p + 1, n, p, dev) + 1.0
+    c = a.mean(dim=0)
+    for x, y, cc in ((a, b, c), (_unaligned(a), _unaligned(b), _unaligned(c))):
+        for bb in (None, y):
+            for center in (None, cc):
+                got = K.pairwise_sq_distances(x, bb, center=center)
+                ref = K.pairwise_sq_distances_plain(x, bb, center=center)
+                xc = x if center is None else x - center
+                bc = None if bb is None else (bb if center is None else bb - center)
+                assert _pairwise_ok(got, ref, xc, bc), (p, bb is None, center is None)
+        for o in (x, y):
+            got = K.circulant_sq_distances(o, y, offs)
+            ref = K.circulant_sq_distances_plain(o, y, offs)
+            assert bool(torch.all((got - ref).abs() <= 1e-5 * torch.clamp(ref.abs(), min=1.0)))
+
+
 def test_kernels_are_deterministic(dev):
     a, b = _rows(0, 16, 200_000, dev), _rows(1, 16, 200_000, dev)
+    c = a.mean(dim=0)
     assert torch.equal(K.pairwise_sq_distances(a, b), K.pairwise_sq_distances(a, b))
+    for bb in (None, b):
+        assert torch.equal(K.pairwise_sq_distances(a, bb, center=c),
+                           K.pairwise_sq_distances(a, bb, center=c))
     offs = [1, 2, 14, 15]
-    assert torch.equal(K.circulant_sq_distances(a, b, offs), K.circulant_sq_distances(a, b, offs))
+    for o in (a, b):
+        assert torch.equal(K.circulant_sq_distances(o, b, offs),
+                           K.circulant_sq_distances(o, b, offs))
+
+
+@pytest.mark.parametrize("same", [True, False])
+def test_l2_distances_make_no_centered_copy(dev, same):
+    n, p = 16, 4_000_000
+    a, b = _rows(0, n, p, dev), _rows(1, n, p, dev)
+    args = (a,) if same else (a, b)
+    pairwise_l2_distances(*args)  # builds the kernel and caches its plan
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    d = pairwise_l2_distances(*args)
+    torch.cuda.synchronize()
+    # A centered copy of a or b would add a whole [16, P] float32 tensor.
+    assert torch.cuda.max_memory_allocated() - before < 0.5 * n * p * 4
+    assert d.shape == (n, n) and bool(torch.isfinite(d).all())
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -99,6 +167,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         K.circulant_sq_distances(a, a, list(range(K.MAX_OFFSETS + 1)))
     with pytest.raises(ValueError, match="different devices"):
         K.circulant_sq_distances(a, a.cpu(), [1])
+    with pytest.raises(ValueError, match="center"):
+        K.pairwise_sq_distances(a, center=a[0, :60].contiguous())
+    with pytest.raises(ValueError, match="center"):
+        K.pairwise_sq_distances(a, center=a[:, 0])  # not contiguous
+    with pytest.raises(TypeError, match="float32"):
+        K.pairwise_sq_distances(a, center=a[0].to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("circulant", [False, True])

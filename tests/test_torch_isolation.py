@@ -52,7 +52,8 @@ for name, params in (("krum", {"num_compromised": 1}),
                      ("median", {"exchange_offsets": [1, 2, 6, 7]}),
                      ("sketchguard", {"sketch_size": 100})):
     agg = build_aggregator(name, params, model_dim=dim)
-    prog = build_round_program(model, agg, data, attack=attack, batch_size=8, seed=1)
+    prog = build_round_program(model, agg, data, attack=attack, batch_size=8, seed=1,
+                               device="cpu")
     assert prog.model_dim == dim
     flat, _, _ = prog.train_step(prog.init_flat, prog.init_agg_state, adj, comp, 0.0,
                                  generators=round_generators(1, 0, "cpu"))

@@ -105,7 +105,7 @@ def _round_pair(setup, jax_agg, agg):
     prog = build_round_program(
         make_femnist_cnn(variant="tiny"), agg, data,
         attack=make_gaussian_attack(N, 0.2, noise_std=10.0, seed=SEED),
-        init_params=init, **hp,
+        init_params=init, device="cpu", **hp,
     )
     init_ref = np.asarray(jax.vmap(lambda t: ravel_pytree(t)[0])(init))
     assert np.array_equal(prog.init_flat.numpy(), init_ref)
@@ -162,7 +162,7 @@ def test_seeded_round_runs_and_freezes_compromised(setup):
     prog = build_round_program(
         make_femnist_cnn(variant="tiny"),
         make_krum(num_compromised=3, max_candidates=5), data,
-        attack=attack, local_epochs=1, batch_size=16, lr=0.05, seed=SEED,
+        attack=attack, local_epochs=1, batch_size=16, lr=0.05, seed=SEED, device="cpu",
     )
     from murmura_tpu_torch.core.rounds import round_generators
 

@@ -16,7 +16,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    it loads; each distance case also with its device time from
    torch.profiler and bit-equal on a repeat call), fused candidate
    selection (median and trimmed mean, float32 and bfloat16, bit-equal),
-   the count sketch (twice, bit-equal to itself) and the pairwise pass on
+   the count sketch (twice, bit-equal to itself, with its device time
+   split between its walk and its sum pass) and the pairwise pass on
    the [16, 1000] sketches Sketchguard filters on; plus Krum's selection on
    the same inputs through the kernels and through the plain versions;
    then the two distance passes once more at N = 64 ([64, 1,048,576],
@@ -97,10 +98,11 @@ def time_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = REPS):
-    """Mean milliseconds per call of device time: the self time of every
-    CUDA kernel that ``reps`` calls launch, summed from a torch.profiler
-    trace, over ``reps``.  None when the trace holds no device time."""
+def device_split(fn, reps: int = REPS) -> dict:
+    """Mean milliseconds per call of device time by kernel name (the name
+    up to its argument list): the self time of every CUDA kernel that
+    ``reps`` calls launch, from a torch.profiler trace, over ``reps``.
+    Empty when the trace holds no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -110,11 +112,14 @@ def device_ms(fn, reps: int = REPS):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    split: dict = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
-        total_us += float(ev.self_cuda_time_total if us is None else us)
-    return total_us / 1e3 / reps if total_us > 0 else None
+        us = float(ev.self_cuda_time_total if us is None else us)
+        if us > 0:
+            name = ev.key.replace("(anonymous namespace)::", "").split("(")[0].strip()
+            split[name] = split.get(name, 0.0) + us / 1e3 / reps
+    return split
 
 
 def bound(bytes_moved: float, flops: float, tf32_flops: float = 0.0):
@@ -314,7 +319,8 @@ def _record(results, name, label, max_err, kern, plain, library, nbytes, flops,
     import torch
 
     ms = time_ms(kern)
-    dev_ms = device_ms(kern) if profile else None
+    split = device_split(kern) if profile else {}
+    dev_ms = sum(split.values()) if split else None
     plain_ms = time_ms(plain, PLAIN_REPS)
     lib_ms = time_ms(library) if library is not None else None
     torch.cuda.synchronize()
@@ -326,8 +332,12 @@ def _record(results, name, label, max_err, kern, plain, library, nbytes, flops,
           f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
           f"{flops / 1e9:.2f} GFLOP float32, {tf32_flops / 1e9:.2f} GFLOP TF32), "
           f"{bound_ms / ms:.1%} of the bound", flush=True)
+    if len(split) > 1:
+        print(f"[kernels] {name} {label}: device ms by kernel "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()), flush=True)
     results.setdefault(name, []).append({
         "case": label, "max_abs_err": max_err, "ms": ms, "device_ms": dev_ms,
+        "device_split": split,
         "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "in_round": in_round,
     })
@@ -392,6 +402,10 @@ def check_count_sketch(results: dict, own, bcast):
     t = tables.plain_on(own.device)
     print(f"[kernels] count_sketch tables for P={p}, S={s}: "
           f"{time.perf_counter() - t0:.2f} s on the host", flush=True)
+    sms = torch.cuda.get_device_properties(own.device).multi_processor_count
+    print(f"[kernels] count_sketch plan for [{rows}, {p}]: slices of {tables.slice_len} "
+          f"columns, {tables.starts.shape[0]} slices, "
+          f"{SK.sketch_plan(rows, p, s, tables.slice_len, sms)}", flush=True)
     sketches = []
     for which, v in (("own", own), ("bcast", bcast)):
         label = f"({which} [{rows}, {p}] float32, S {s})"
@@ -418,7 +432,7 @@ def check_count_sketch(results: dict, own, bcast):
         _record(results, "count_sketch", label, max_err,
                 lambda: SK.count_sketch(v, tables), lambda: SK.count_sketch_plain(v, tables),
                 lambda: torch.zeros((rows, s), device=v.device).index_add_(1, t["hash"], signed),
-                nbytes, 2.0 * rows * p)
+                nbytes, 2.0 * rows * p, profile=True)
         sketches.append(got)
         del signed, again, ref, scale, err
     return sketches

@@ -233,20 +233,44 @@ def test_candidate_kernel_sorts_nan_and_inf_as_plain(dev):
         assert torch.equal(torch.isnan(got), torch.isnan(ref))
 
 
-@pytest.mark.parametrize("rows,p,s", [(16, 100_003, 1000), (5, 40_000, 7), (33, 20_011, 4096), (1, 16_384, 1000)])
-def test_count_sketch_kernel_matches_plain(dev, rows, p, s):
-    v = _rows(p + s, rows, p, dev)
-    tables = build_sketch_tables(p, s, 42)
+def _check_count_sketch(v, tables):
+    """The kernel against the plain version within the limit, one launch
+    a call, and bit-equal on a repeat call."""
+    rows, s = v.shape[0], tables.sketch_size
     before = SK.LAUNCHES["count_sketch"]
     got = SK.count_sketch(v, tables)
     torch.cuda.synchronize()
     assert SK.LAUNCHES["count_sketch"] == before + 1
     ref = SK.count_sketch_plain(v, tables)
-    h = tables.plain_on(dev)["hash"]
-    scale = torch.zeros((rows, s), device=dev).index_add_(1, h, v.abs())
+    h = tables.plain_on(v.device)["hash"]
+    scale = torch.zeros((rows, s), device=v.device).index_add_(1, h, v.abs())
     assert got.shape == (rows, s)
     assert bool(torch.all((got - ref).abs() <= 1e-4 * scale))
     assert torch.equal(got, SK.count_sketch(v, tables))  # the same from run to run
+    assert SK.LAUNCHES["count_sketch"] == before + 2
+
+
+# P = 0, 1, 2, 3 mod 4 (8- and 4-byte copies, tail slices); R = 1, 5, 16, 33
+# (33 leaves a row group of one row); S = 7, 1000, 4096 (1, 2 and 8 buckets
+# a thread) and 5000 (two bucket chunks); P = 20,011 and 16,384 give fewer
+# slices than blocks.
+@pytest.mark.parametrize(
+    "rows,p,s",
+    [(16, 100_003, 1000), (5, 40_000, 7), (33, 20_011, 4096), (1, 16_384, 1000),
+     (16, 100_004, 1000), (16, 100_001, 7), (16, 100_002, 4096), (1, 100_002, 7),
+     (5, 100_001, 4096), (33, 100_000, 1000), (16, 20_011, 1000), (16, 1_000_002, 1000),
+     (5, 30_000, 5000), (1, 1, 3)],
+)
+def test_count_sketch_kernel_matches_plain(dev, rows, p, s):
+    _check_count_sketch(_rows(p + s, rows, p, dev), build_sketch_tables(p, s, 42))
+
+
+@pytest.mark.parametrize("p", [100_001, 100_003])
+def test_count_sketch_kernel_on_rows_one_float_off(dev, p):
+    # The rows v[1:] of an odd-P tensor: contiguous, 4-byte aligned only.
+    v = _rows(p, 6, p, dev)[1:]
+    assert v.is_contiguous() and v.data_ptr() % 8 == 4
+    _check_count_sketch(v, build_sketch_tables(p, 1000, 42))
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's two distance kernels, ``pairwise_l2_distances`` around
-the pairwise one, and the count sketch, on one CUDA card, for the
-``murmura_tpu_torch`` package found under ``--root`` (default: this
-checkout).
+the pairwise one, the count sketch and fused candidate selection, on one
+CUDA card, for the ``murmura_tpu_torch`` package found under ``--root``
+(default: this checkout).
 
     python3 bench_torch_distances.py [--root DIR] [--reps 20]
 
@@ -13,7 +13,10 @@ flagship's [16, 6,603,710] float32 (P of leaf.femnist.baseline) and
 (bcast, bcast, deltas), ``pairwise_l2_distances(bcast)`` and
 ``(own, bcast)``, which include the centering, and ``count_sketch`` of own
 and of bcast with Sketchguard's tables (S = 1000, seed 42, built once per
-shape by the package under test).  A package whose pairwise wrapper takes
+shape by the package under test); then ``candidate_select`` at
+[16, 6,603,710] (float32 median and trim 1, bfloat16 trim 1 and median)
+and [64, 6,603,710] bfloat16 (trim 1 and median), k-regular(4) offsets.  A
+package whose pairwise wrapper takes
 no center gets its rows centered before the timed kernel calls.  To
 compare two trees, unpack the other one into a directory that .gitignore
 lists, pass it as ``--root`` and run the two in turns (A, B, B, A) in one
@@ -29,6 +32,23 @@ five rounds of ``--reps`` calls each, on the same inputs; each line has the
 median CUDA-event ms of the rounds, and, for the variants that compute the
 whole sketch, whether they agree with the plain version and with
 themselves on a repeat call.
+
+    python3 bench_torch_distances.py --candidate-variants
+
+does the same for the candidate-select kernel (``CANDIDATE_VARIANTS``: the
+copies alone, the sort alone, the NaN-aware comparator on every warp, the
+window with median and trim known only at run time) at [16, 6,603,710]
+float32 median and trim 1 and bfloat16 trim 1, and at [64, 6,603,710]
+bfloat16 trim 1; the variants that compute the whole result are checked
+bit-equal to the plain version and to themselves.
+
+    python3 bench_torch_distances.py --circulant-split --reps 5
+
+times the circulant pass (two tensors, k-regular(4) offsets) as one
+launch and as the wrapper's split into 138-row launches, at every tile
+width one launch takes on the way to the row cap (``SPLIT_ROWS``) and at
+P = 4,096 and 262,144: CUDA-event and device ms of each, both checked
+against the plain version.
 """
 
 import argparse
@@ -82,39 +102,186 @@ SKETCH_VARIANTS = [
 ]
 
 
-def sketch_variants(reps: int) -> int:
-    """Build SKETCH_VARIANTS from csrc/count_sketch.cu, time them in turns."""
+_FAST_F32 = """  const float lo = fminf(a, b);
+  const float hi = max_nan(a, b);"""
+_AFTER_F32 = """  const bool s = after(a, b);
+  const float lo = s ? b : a;
+  const float hi = s ? a : b;"""
+_FAST_BF16 = """  const __nv_bfloat162 lo = __hmin2(a, b);
+  const __nv_bfloat162 hi = __hmax2_nan(a, b);"""
+_AFTER_BF16 = """  const bool s0 = after(__low2float(a), __low2float(b));
+  const bool s1 = after(__high2float(a), __high2float(b));
+  const __nv_bfloat162 lo = __halves2bfloat162(s0 ? b.x : a.x, s1 ? b.y : a.y);
+  const __nv_bfloat162 hi = __halves2bfloat162(s0 ? a.x : b.x, s1 ? a.y : b.y);"""
+_GENERIC = "// Generic m: insertion sort"
+_WINDOW_RT = """template <int M, int C>
+__device__ __forceinline__ float window_rt(const float (&v)[M][C], int c, int trim, int median,
+                                           float inv_keep) {
+  if (median) return __fmul_rn(0.5f, __fadd_rn(v[(M - 1) / 2][c], v[M / 2][c]));
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    if (j == trim) acc = v[j][c];
+    else if (j > trim && j < M - trim) acc = __fadd_rn(acc, v[j][c]);
+  }
+  return __fmul_rn(acc, inv_keep);
+}
+
+"""
+# (label, {source text of csrc/candidate_select.cu: replacement}).
+CANDIDATE_VARIANTS = [
+    ("kernel", {}),
+    ("copies only (no sort)",
+     {"for (int e = tid; e < items; e += NT) {": "for (int e = tid; e < 0; e += NT) {"}),
+    ("sort only (copies of the first three tiles only)",
+     {"if (next < count) load(next,": "if (next < count && next < STAGES) load(next,"}),
+    ("NaN-aware comparator of PR 2 (a > b, or a NaN and b not; two selects)",
+     {_FAST_F32: _AFTER_F32, _FAST_BF16: _AFTER_BF16}),
+    ("median and trim at run time",
+     {_GENERIC: _WINDOW_RT + _GENERIC,
+      "window<M, MODE, CPT>(x, cc, inv_keep)": "window_rt<M, CPT>(x, cc, trim, median, inv_keep)"}),
+]
+
+
+def _build_variants(name: str, variants) -> list:
+    """Build each variant of csrc/<name>.cu (its source with a few lines
+    replaced), one nvcc a variant, all at once; their loaded libraries."""
     import ctypes
-    import math
     import subprocess
 
-    import torch
-
-    import chip_smoke
     from murmura_tpu_torch.ops import _build
-    from murmura_tpu_torch.ops import sketch_kernels as SK
-    from murmura_tpu_torch.ops.sketch import make_sketch_tables
 
-    src = (_build.CSRC / "count_sketch.cu").read_text()
+    src = (_build.CSRC / f"{name}.cu").read_text()
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
-    for i, (label, subs, *_rest) in enumerate(SKETCH_VARIANTS):
+    for i, (label, subs, *_rest) in enumerate(variants):
         text = src
         for old, new in subs.items():
             if old not in text:
-                raise RuntimeError(f"variant {label!r}: its source text is gone from count_sketch.cu")
+                raise RuntimeError(f"variant {label!r}: its source text is gone from {name}.cu")
             text = text.replace(old, new)
-        (out_dir / f"v{i}.cu").write_text(text)
+        (out_dir / f"{name}_v{i}.cu").write_text(text)
         procs.append(subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out_dir / f"v{i}.so"),
-             str(out_dir / f"v{i}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out_dir / f"{name}_v{i}.so"),
+             str(out_dir / f"{name}_v{i}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = []
     for i, proc in enumerate(procs):
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"variant {SKETCH_VARIANTS[i][0]!r} does not build:\n{log}")
-        lib = ctypes.CDLL(str(out_dir / f"v{i}.so"))
+            raise RuntimeError(f"variant {variants[i][0]!r} does not build:\n{log}")
+        libs.append(ctypes.CDLL(str(out_dir / f"{name}_v{i}.so")))
+    return libs
+
+
+def candidate_variants(reps: int) -> int:
+    """Build CANDIDATE_VARIANTS from csrc/candidate_select.cu, time them in
+    turns."""
+    import torch
+
+    import chip_smoke
+    from murmura_tpu_torch.ops import candidate_kernels as C
+
+    libs = [C.bind(lib) for lib in _build_variants("candidate_select", CANDIDATE_VARIANTS)]
+    print(chip_smoke.card_line(), flush=True)
+    for n, cases in ((16, ((torch.float32, True, 0), (torch.float32, False, 1),
+                           (torch.bfloat16, False, 1))),
+                     (64, ((torch.bfloat16, False, 1),))):
+        offsets = [1, 2, n - 2, n - 1]
+        own, bcast = chip_smoke.krum_inputs(n, FLAGSHIP_P, 1234 if n == 16 else 6464)
+        for dtype, median, trim in cases:
+            o, b = own.to(dtype), bcast.to(dtype)
+            out = torch.empty_like(o)
+            calls = [(label, lambda lib=lib: C.launch(lib, o, b, offsets, trim, median, out))
+                     for lib, (label, _) in zip(libs, CANDIDATE_VARIANTS)]
+            ref = C.candidate_select_plain(o, b, offsets, trim=trim, median=median)
+            times = {label: [] for label, _ in calls}
+            for _ in range(5):
+                for label, call in calls:
+                    times[label].append(chip_smoke.time_ms(call, reps))
+            case = (f"[{n}, {FLAGSHIP_P}] {str(dtype).replace('torch.', '')} "
+                    f"{'median' if median else f'trim {trim}'}")
+            for label, call in calls:
+                rec = {"case": case, "variant": label, "ms": sorted(times[label])[2],
+                       "ms_rounds": times[label]}
+                if "only" not in label:
+                    call()
+                    got = out.clone()
+                    call()
+                    rec["equal_to_plain"] = bool(torch.equal(got, ref))
+                    rec["repeat_bit_equal"] = bool(torch.equal(got, out))
+                print(json.dumps(rec), flush=True)
+            del o, b, out, ref, calls
+            torch.cuda.empty_cache()
+        del own, bcast
+        torch.cuda.empty_cache()
+    return 0
+
+
+# Circulant rows N of a two-tensor call at which one launch's plan takes
+# each tile width on the way to the row cap (8-byte copies): 16 columns
+# (139, 260), 8 (469), 4 (782), 2 (1,173), then one block an SM: 4 (1,614)
+# and 2 (2,421, the cap); and the P of the sweep.
+SPLIT_ROWS = (139, 260, 469, 782, 1173, 1614, 2421)
+SPLIT_P = (4096, 262_144)
+
+
+def circulant_split_sweep(reps: int) -> int:
+    """Time the circulant pass (own, bcast, k-regular(4) offsets) as one
+    launch and as the split into circulant_split_rows-row launches, at each
+    N of SPLIT_ROWS and P of SPLIT_P: CUDA-event and profiler device ms,
+    both checked against the plain version."""
+    import torch
+
+    import chip_smoke
+    from murmura_tpu_torch.ops import agg_kernels as K
+
+    print(chip_smoke.card_line(), flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for p in SPLIT_P:
+        for n in SPLIT_ROWS:
+            own, bcast = chip_smoke.krum_inputs(n, p, n)
+            offsets = [1, 2, n - 2, n - 1]
+            vec = K._vec(p, own, bcast)
+            plan = K.circulant_plan(n, p, len(offsets), False, vec, sms)
+            rows = K.circulant_split_rows(vec)
+            ref = K.circulant_sq_distances_plain(own, bcast, offsets)
+            limit = 1e-5 * torch.clamp(ref.abs(), min=1.0)
+            ways = (
+                ("one launch", lambda: K.circulant_launch(own, bcast, offsets)),
+                ("split", lambda: K.circulant_split_call(own, bcast, offsets, rows,
+                                                         K.circulant_launch)),
+            )
+            for way, fn in ways:
+                ok = bool(((fn() - ref).abs() <= limit).all())
+                ms = chip_smoke.time_ms(fn, reps)
+                dev = chip_smoke.device_split(fn, reps)
+                print(json.dumps({
+                    "n": n, "p": p, "way": way, "tile_columns": 1 << plan["tc_log2"],
+                    "blocks": plan["gx"] * plan["gy"], "smem": plan["smem"],
+                    "launches": 1 if way == "one launch" else len(K.circulant_split(n, offsets, rows)),
+                    "ms": ms, "device_ms": sum(dev.values()) if dev else None,
+                    "within_limit": ok,
+                }), flush=True)
+            del own, bcast, ref, limit
+            torch.cuda.empty_cache()
+    return 0
+
+
+def sketch_variants(reps: int) -> int:
+    """Build SKETCH_VARIANTS from csrc/count_sketch.cu, time them in turns."""
+    import ctypes
+    import math
+
+    import torch
+
+    import chip_smoke
+    from murmura_tpu_torch.ops import sketch_kernels as SK
+    from murmura_tpu_torch.ops.sketch import make_sketch_tables
+
+    libs = []
+    for lib in _build_variants("count_sketch", SKETCH_VARIANTS):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.sketch_count.argtypes = [vp, vp, vp, i32, i64, i32, i32, i32, i32, i32, i32, i32,
                                      vp, vp, vp]
@@ -172,6 +339,10 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--sketch-variants", action="store_true",
                     help="time this checkout's count-sketch kernel beside SKETCH_VARIANTS")
+    ap.add_argument("--candidate-variants", action="store_true",
+                    help="time this checkout's candidate-select kernel beside CANDIDATE_VARIANTS")
+    ap.add_argument("--circulant-split", action="store_true",
+                    help="time the circulant pass as one launch and split, over SPLIT_ROWS x SPLIT_P")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     if not (root / "murmura_tpu_torch").is_dir():
@@ -187,6 +358,10 @@ def main() -> int:
 
     if args.sketch_variants:
         return sketch_variants(args.reps)
+    if args.candidate_variants:
+        return candidate_variants(args.reps)
+    if args.circulant_split:
+        return circulant_split_sweep(args.reps)
     sys.path.insert(0, str(root))
     from murmura_tpu_torch.aggregation.base import pairwise_l2_distances
     from murmura_tpu_torch.ops import agg_kernels as K
@@ -230,6 +405,27 @@ def main() -> int:
         del own, bcast, cb, co, tables
         if not fused:
             del bb, ob, bo
+        torch.cuda.empty_cache()
+    from murmura_tpu_torch.ops import candidate_kernels as C
+
+    for n, cases in ((16, ((torch.float32, True, 0), (torch.float32, False, 1),
+                           (torch.bfloat16, False, 1), (torch.bfloat16, True, 0))),
+                     (64, ((torch.bfloat16, False, 1), (torch.bfloat16, True, 0)))):
+        offsets = [1, 2, n - 2, n - 1]
+        own, bcast = chip_smoke.krum_inputs(n, FLAGSHIP_P, 1234 if n == 16 else 6464)
+        for dtype, median, trim in cases:
+            o, b = own.to(dtype), bcast.to(dtype)
+            fn = lambda: C.candidate_select(o, b, offsets, trim=trim, median=median)  # noqa: E731
+            ms = chip_smoke.time_ms(fn, args.reps)
+            split = chip_smoke.device_split(fn, args.reps)
+            label = (f"candidate_select ({str(dtype).replace('torch.', '')}, "
+                     f"{'median' if median else f'trim {trim}'}, offsets {offsets})")
+            print(json.dumps({"root": str(root), "n": n, "p": FLAGSHIP_P, "case": label, "ms": ms,
+                              "device_ms": sum(split.values()) if split else None,
+                              "device_split": split}), flush=True)
+            del o, b
+            torch.cuda.empty_cache()
+        del own, bcast
         torch.cuda.empty_cache()
     return 0
 

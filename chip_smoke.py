@@ -22,11 +22,24 @@ Phases, each of which raises (and exits non-zero) on failure:
    the same inputs through the kernels and through the plain versions;
    then the two distance passes once more at N = 64 ([64, 1,048,576],
    k-regular(4) offsets), which a flagship round does not make, so that
-   the multi-tile paths are timed;
+   the multi-tile paths are timed; candidate selection at [64, 6,603,710]
+   bfloat16 (the 64-node flagship's parameter dtype), median and trim 1;
+   and the circulant pass at N = 2,500 (two tensors) and N = 5,000 (one
+   tensor), past the rows shared memory holds, and at N = 1,000 (two
+   tensors, P = 262,144), where one launch would take 2-column tiles: the
+   wrapper splits each into launches of at most 138 rows; and N = 400 (one
+   tensor, P = 262,144), one launch of 16-column tiles (the last two also
+   timed the other way);
 3b. one round of the tiny CNN on the card against the same round on the CPU
    (same initial parameters, same injected draws), for each of four seeds,
    for Krum, median, trimmed mean, geometric median, BALANCE, Sketchguard
    and fedavg;
+3c. one round of the tiny CNN at 64 nodes, k-regular(4), ppermute, in the
+   parameter dtype the configs take by default from 64 nodes up
+   (bfloat16), for the median and the trimmed mean, the counters set to 0
+   just before and read just after: one candidate-select launch, no plain
+   call, finite parameters, and the kernel equal bit for bit to the plain
+   version on the round's own pre-aggregation states;
 4. main path: ``examples/configs/femnist_krum_tpu.yaml`` as committed
    (baseline CNN at full width, 16 nodes, k-regular(4), bf16 compute, 20%
    gaussian std 10), rounds cut to 3, through the port's ``run`` entry,
@@ -192,6 +205,8 @@ def check_kernels(results: dict) -> None:
         *_pairwise_work(n, n, s, False))
     torch.cuda.empty_cache()
     check_distances_n64(results)
+    check_candidate_select_n64(results)
+    check_circulant_beyond_cap(results)
 
 
 def krum_inputs(n: int, p: int, seed: int):
@@ -275,13 +290,65 @@ def check_distances_n64(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def check_circulant_beyond_cap(results: dict) -> None:
+    """The circulant pass at N that no main-path round makes (float32,
+    k-regular(4) offsets): N = 2,500 with two tensors and N = 5,000 with one
+    at P = 4,096, past the row cap; N = 1,000 with two at P = 262,144, where
+    one launch would take 2-column tiles (all three split by the wrapper
+    into launches of at most circulant_split_rows rows); and N = 400 with
+    one at P = 262,144, one launch of 16-column tiles.  The last two are
+    also timed the other way (one launch, or the split)."""
+    import torch
+
+    from murmura_tpu_torch.ops import agg_kernels as K
+
+    for n, same, p in ((2500, False, 4096), (5000, True, 4096), (1000, False, 262_144),
+                       (400, True, 262_144)):
+        offsets = [1, 2, n - 2, n - 1]
+        own, bcast = krum_inputs(n, p, n)
+        own = bcast if same else own
+        tensors = 1 if same else 2
+        vec = K._vec(p, own, bcast)
+        split = K.circulant_needs_split(n, same, vec)
+        label = (f"({'bcast, bcast' if same else 'own, bcast'}, offsets {offsets}) "
+                 f"N={n} P={p}, {'split' if split else 'one launch'}")
+        _check_distances(results, "circulant_sq_distances", label, (own, bcast),
+                         lambda a, b: K.circulant_sq_distances(a, b, offsets),
+                         lambda a, b: K.circulant_sq_distances_plain(a, b, offsets),
+                         None, tensors * n * p * 4 + len(offsets) * n * 4,
+                         3.0 * len(offsets) * n * p, in_round=False)
+        if n <= K.circulant_row_cap(vec) * (2 if same else 1):
+            rows = K.circulant_split_rows(vec)
+            plan = K.circulant_plan(n, p, len(offsets), same, vec, K._sm_count(own.device))
+            if split:
+                other = f"one launch of {1 << plan['tc_log2']}-column tiles"
+                fn = lambda: K.circulant_launch(own, bcast, offsets)  # noqa: E731
+            else:
+                other = f"the split into {len(K.circulant_split(n, offsets, rows))} launches"
+                fn = lambda: K.circulant_split_call(own, bcast, offsets, rows,  # noqa: E731
+                                                    K.circulant_launch)
+            ref = K.circulant_sq_distances_plain(own, bcast, offsets)
+            if not bool(((fn() - ref).abs() <= 1e-5 * torch.clamp(ref.abs(), min=1.0)).all()):
+                raise AssertionError(f"circulant_sq_distances {label}: {other} disagrees")
+            print(f"[kernels] circulant_sq_distances {label}: as {other} "
+                  f"{time_ms(fn):.4f} ms (the wrapper's time is above)", flush=True)
+            del ref
+        del own, bcast
+    torch.cuda.empty_cache()
+
+
 def _check_distances(results, name, label, args, kern, plain, library, nbytes, flops,
                      tf32_flops=0.0, in_round=True):
     """One distance kernel case against its plain version and against a
-    repeat of itself (bit-equal), then timed, with its device time."""
+    repeat of itself (bit-equal), then timed, with its device time and its
+    launches a call."""
     import torch
 
+    from murmura_tpu_torch.ops import agg_kernels as K
+
+    before = K.LAUNCHES[name]
     got = kern(*args)
+    launches = K.LAUNCHES[name] - before
     again = kern(*args)
     torch.cuda.synchronize()
     ref = plain(*args)
@@ -301,7 +368,7 @@ def _check_distances(results, name, label, args, kern, plain, library, nbytes, f
     ok = bool((err <= limit).all()) and bool(torch.isfinite(got).all()) and repeat
     print(f"[kernels] {name} {label}: max |d2 - plain| = {max_err:.6g}, "
           f"limit {rule} (max limit {float(limit.max()):.6g}); repeat call bit-equal: "
-          f"{repeat}: {'ok' if ok else 'FAILED'}", flush=True)
+          f"{repeat}; {launches} launch(es) a call: {'ok' if ok else 'FAILED'}", flush=True)
     if not ok:
         raise AssertionError(f"{name} {label} disagrees with its plain version or itself")
     del got, again, ref, err, limit
@@ -343,34 +410,40 @@ def _record(results, name, label, max_err, kern, plain, library, nbytes, flops,
     })
 
 
-def check_candidate_select(results: dict, own, bcast, offsets) -> None:
+def check_candidate_select(results: dict, own, bcast, offsets, cases=None, tag="",
+                           in_round=None) -> None:
     """Fused candidate selection at the main path's shape: median and
     trimmed mean (trim 1 of m = 5) in float32, and the trimmed mean in
-    bfloat16 (the parameter dtype from 64 nodes up).  Limit: bit-equal to
-    the plain version.  A median round makes the first call, a trimmed-mean
-    round the second."""
+    bfloat16 (the parameter dtype from 64 nodes up), or the given
+    (dtype, median, trim) cases.  Limit: bit-equal to the plain version,
+    and to itself on a repeat call.  A median round makes the first call, a
+    trimmed-mean round the second."""
     import torch
 
     from murmura_tpu_torch.ops import candidate_kernels as C
 
     m = len(offsets) + 1
     n, p = own.shape
-    for dtype, median, trim in ((torch.float32, True, 0), (torch.float32, False, 1),
-                                (torch.bfloat16, False, 1)):
+    cases = cases or ((torch.float32, True, 0), (torch.float32, False, 1),
+                      (torch.bfloat16, False, 1))
+    for dtype, median, trim in cases:
         o, b = own.to(dtype), bcast.to(dtype)
         label = (f"({str(dtype).replace('torch.', '')}, "
-                 f"{'median' if median else f'trim {trim}'}, m {m})")
+                 f"{'median' if median else f'trim {trim}'}, m {m}){tag}")
         got = C.candidate_select(o, b, offsets, trim=trim, median=median)
+        again = C.candidate_select(o, b, offsets, trim=trim, median=median)
         torch.cuda.synchronize()
         ref = C.candidate_select_plain(o, b, offsets, trim=trim, median=median)
         torch.cuda.synchronize()
         max_err = float((got.float() - ref.float()).abs().max())
-        ok = torch.equal(got, ref) and bool(torch.isfinite(got).all())
+        repeat = torch.equal(got, again)
+        ok = torch.equal(got, ref) and repeat and bool(torch.isfinite(got).all())
         print(f"[kernels] candidate_select {label}: max |out - plain| = {max_err:.6g}, "
-              f"limit bit-equal: {'ok' if ok else 'FAILED'}", flush=True)
+              f"limit bit-equal; repeat call bit-equal: {repeat}: "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
         if not ok:
             raise AssertionError(f"candidate_select {label} disagrees with its plain version")
-        del got, ref
+        del got, again, ref
         item = o.element_size()
         # Read own and bcast once, write the output once; about m^2/2
         # compare-exchanges and m adds per output.
@@ -378,9 +451,35 @@ def check_candidate_select(results: dict, own, bcast, offsets) -> None:
                 lambda: C.candidate_select(o, b, offsets, trim=trim, median=median),
                 lambda: C.candidate_select_plain(o, b, offsets, trim=trim, median=median),
                 None, 3 * n * p * item, (m * (m - 1) / 2 + m) * n * p,
-                in_round=dtype == torch.float32 and median)
+                in_round=(dtype == torch.float32 and median) if in_round is None else in_round,
+                profile=True)
         del o, b
         torch.cuda.empty_cache()
+
+
+def check_candidate_select_n64(results: dict) -> None:
+    """Candidate selection at [64, 6,603,710] in bfloat16, the 64-node
+    flagship's parameter dtype, median and trim 1 (k-regular(4) offsets).
+    No main-path round of phase 4 makes these calls."""
+    import torch
+
+    from murmura_tpu_torch.models.registry import build_model
+    from murmura_tpu_torch.ops.flatten import model_dimension
+
+    dev = torch.device("cuda")
+    model = build_model("leaf.femnist.baseline", {})
+    p = model_dimension(model.init(torch.Generator(device=dev).manual_seed(0), dev))
+    n = 64
+    offsets = [1, 2, n - 2, n - 1]
+    own, bcast = krum_inputs(n, p, 6464)
+    own, bcast = own.to(torch.bfloat16), bcast.to(torch.bfloat16)
+    torch.cuda.empty_cache()
+    print(f"[kernels] shapes: N={n} P={p} offsets={offsets} bfloat16", flush=True)
+    check_candidate_select(results, own, bcast, offsets,
+                           ((torch.bfloat16, False, 1), (torch.bfloat16, True, 0)),
+                           tag=f" N={n}", in_round=False)
+    del own, bcast
+    torch.cuda.empty_cache()
 
 
 def check_count_sketch(results: dict, own, bcast):
@@ -538,6 +637,81 @@ def check_round_against_cpu(device: str = "cuda") -> None:
             raise AssertionError(f"a {label} round on the card disagrees with the CPU round")
 
 
+def check_round_n64_bf16() -> dict:
+    """Phase 3c: one tiny-CNN round at 64 nodes, k-regular(4), ppermute,
+    parameters in the dtype the configs take by default from 64 nodes up,
+    for the median and the trimmed mean, through ``cli.run``.  The counters
+    are set to 0 just before each run and read just after; the states the
+    rule hands the candidate kernel are kept and the kernel is held against
+    the plain version on them afterwards (bit-equal)."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from murmura_tpu_torch import cli
+    from murmura_tpu_torch.aggregation import robust_stats
+
+    mods = _kernel_modules()
+    C = robust_stats.candidate_kernels
+    runs = {}
+    for rule, params in (("median", {}), ("trimmed_mean", {"trim_ratio": 0.2})):
+        cfg = {
+            "experiment": {"name": f"n64-{rule}", "seed": 5, "rounds": 1, "verbose": False},
+            "topology": {"type": "k-regular", "num_nodes": 64, "k": 4},
+            "aggregation": {"algorithm": rule, "params": params},
+            "attack": {"enabled": True, "type": "gaussian", "percentage": 0.2,
+                       "params": {"noise_std": 10.0}},
+            "training": {"local_epochs": 1, "batch_size": 16, "lr": 0.02},
+            "data": {"adapter": "leaf.femnist", "params": {"num_samples": 64 * 40}},
+            "model": {"factory": "leaf.femnist.tiny", "params": {}},
+            "backend": "tpu",
+            "tpu": {"exchange": "ppermute", "compute_dtype": "bfloat16"},
+        }
+        SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+        path = SMOKE_DIR / f"n64_{rule}.yaml"
+        path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+        seen = []
+        kernel = C.candidate_select
+
+        def keep(own, bcast, offsets, trim=0, median=False):
+            seen.append((own.clone(), bcast.clone(), list(offsets), trim, median))
+            return kernel(own, bcast, offsets, trim=trim, median=median)
+
+        C.candidate_select = keep
+        try:
+            for mod in mods:
+                mod.reset_counts()
+            _, network = cli.run(path, output=SMOKE_DIR / f"history_n64_{rule}.json",
+                                 device="cuda")
+            torch.cuda.synchronize()
+            launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+            plain = {k: v for mod in mods for k, v in mod.PLAIN_CALLS.items()}
+        finally:
+            C.candidate_select = kernel
+        own, bcast, offsets, trim, median = seen[0]
+        got = C.candidate_select(own, bcast, offsets, trim=trim, median=median)
+        ref = C.candidate_select_plain(own, bcast, offsets, trim=trim, median=median)
+        equal = torch.equal(got, ref)
+        finite = bool(torch.isfinite(network.flat).all())
+        ok = (launches["candidate_select"] == 1 and not any(plain.values()) and equal and finite
+              and len(seen) == 1 and own.dtype == torch.bfloat16)
+        print(f"[round64] {rule}: tiny CNN, 64 nodes, ppermute, parameters "
+              f"{str(network.flat.dtype).replace('torch.', '')}, state [{own.shape[0]}, "
+              f"{own.shape[1]}] {str(own.dtype).replace('torch.', '')}, offsets {offsets}, "
+              f"{'median' if median else f'trim {trim}'}; launches {launches}, plain-version "
+              f"calls {plain}; kernel == plain on the round's states: {equal}; final "
+              f"parameters finite: {finite}; round seconds "
+              f"{[round(t, 4) for t in network.round_times]}: {'ok' if ok else 'FAILED'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"the 64-node bfloat16 {rule} round failed its checks")
+        runs[f"{rule}:n64-bf16"] = {"launches": {"candidate_select": launches["candidate_select"]},
+                                    "s_per_round": list(np.asarray(network.round_times))}
+        del network, seen, own, bcast, got, ref
+        torch.cuda.empty_cache()
+    return runs
+
+
 # Each rule's stats in the history (the JAX package's agg_* keys).
 RULE_STATS = {
     "krum": ("selected_index", "krum_score", "selected_own"),
@@ -554,10 +728,10 @@ MAIN_RUNS = [
     ("krum:allgather", FLAGSHIP, "allgather", None, {"pairwise_sq_distances": (2, "==")}),
     ("krum:ppermute", FLAGSHIP, "ppermute", None, {"circulant_sq_distances": (2, "==")}),
     ("median:ppermute", FLAGSHIP, "ppermute", {"algorithm": "median", "params": {}},
-     {"candidate_select": (1, ">=")}),
+     {"candidate_select": (1, "==")}),
     ("trimmed_mean:ppermute", FLAGSHIP, "ppermute",
      {"algorithm": "trimmed_mean", "params": {"trim_ratio": 0.2}},
-     {"candidate_select": (1, ">=")}),
+     {"candidate_select": (1, "==")}),
     # max_iters 8: 8 Weiszfeld steps and the final weights, 9 distance calls.
     ("geometric_median:allgather", FLAGSHIP, "allgather",
      {"algorithm": "geometric_median", "params": {}}, {"pairwise_sq_distances": (9, "==")}),
@@ -675,13 +849,18 @@ def main() -> int:
           flush=True)
     for name, (secs, log) in _build.BUILD_LOG.items():
         usage = [ln.strip() for ln in log.splitlines() if "registers" in ln or "Compiling" in ln]
-        print(f"[build] {name}.cu: nvcc {secs:.2f} s; " + " | ".join(usage), flush=True)
+        spills = sum("spill stores" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln
+                     for ln in log.splitlines())
+        print(f"[build] {name}.cu: nvcc {secs:.2f} s; {spills} kernel(s) spill; "
+              + " | ".join(usage), flush=True)
 
     results: dict = {}
     check_kernels(results)
     check_round_against_cpu()
+    round64 = check_round_n64_bf16()
 
     mains = {run[0]: run_main_path(*run) for run in MAIN_RUNS}
+    mains.update(round64)
     replaces = {
         "pairwise_sq_distances": "murmura_tpu/ops/pallas_agg.py:319",
         "circulant_sq_distances": "murmura_tpu/ops/pallas_agg.py:225",

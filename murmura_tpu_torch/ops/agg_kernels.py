@@ -13,6 +13,12 @@ PyTorch versions.
     [k, N] squared distances D2[o, i] = |own_i - bcast[(i + o) mod N]|^2 for
     all k offsets in one pass (circulant Krum, ``tpu.exchange: ppermute``).
     Replaces ``murmura_tpu/ops/pallas_agg.py: circulant_sq_distances``.
+    The kernel stages all N rows in shared memory; where they would leave
+    it tiles narrower than 16 columns (past 260 rows for two tensors, and
+    past the cap) the wrapper splits the call into launches of at most
+    :func:`circulant_split_rows` rows (:func:`circulant_split`), each on
+    contiguous row views with the one offset 0, and reads own k times
+    instead of once.
 
 The kernels live in ``csrc/agg_distances.cu`` (design and bound notes
 there).  Each wrapper checks device, dtype (float32), contiguity and shapes,
@@ -28,7 +34,7 @@ took.
 import ctypes
 import functools
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,6 +62,16 @@ _RING_TARGET = 110 * 1024
 # every row is copied in segments of at least 512 bytes; a block tile
 # shrinks before its tile would.
 _PW_MIN_TC = 128
+# A circulant call whose one launch would take tiles narrower than this is
+# split (circulant_needs_split): in narrow tiles a warp copies a few 8-byte
+# words a row.  On an H100 (bench_torch_distances.py --circulant-split),
+# one launch of 16-column tiles beat the split at every N and P measured;
+# at P = 262,144 one launch of 8-column tiles took 1.8x the split's time,
+# of 4 and 2 columns 7-60x.
+_ONE_LAUNCH_MIN_TC = 16
+# The tile width of a split call's launches: each takes the most rows whose
+# two-tensor ring holds tiles this wide with two blocks an SM.
+_SPLIT_MIN_TC = 32
 # P-chunk budget of the plain circulant version (bytes per [N, chunk] copy),
 # the JAX package's _CIRCULANT_CHUNK_BYTES.
 _PLAIN_CHUNK_BYTES = 256 * 1024 * 1024
@@ -183,7 +199,8 @@ def pairwise_plan(n: int, m: int, p: int, same: bool, sms: int) -> Dict[str, int
 @functools.lru_cache(maxsize=256)
 def circulant_plan(n: int, p: int, k: int, same: bool, vec: int, sms: int) -> Dict[str, int]:
     """Tile width, shared memory and grid of one circulant launch.  Raises
-    when N rows do not fit shared memory."""
+    when N rows do not fit shared memory (the wrapper splits such calls
+    first, and those whose tiles would be narrow: :func:`circulant_needs_split`)."""
     rows = n if same else 2 * n
     ring = _ring(lambda tc: rows * (tc + vec) * 4, vec, THREADS * CI_KT * 4)
     if ring is None:
@@ -197,6 +214,61 @@ def circulant_plan(n: int, p: int, k: int, same: bool, vec: int, sms: int) -> Di
     gy = math.ceil(units / min(units, THREADS))
     gx = _grid_x(math.ceil(p / (1 << tc_log2)), smem, gy, sms)
     return {"tc_log2": tc_log2, "smem": smem, "gx": gx, "gy": gy}
+
+
+def circulant_row_cap(vec: int) -> int:
+    """The most rows N of a two-tensor circulant launch that shared memory
+    holds: 2N rows of the narrowest tile (``vec`` columns, one of padding)
+    in every ring slot."""
+    return SMEM_MAX // (STAGES * 2 * (2 * vec) * 4)
+
+
+def circulant_split_rows(vec: int) -> int:
+    """Rows a launch of a split call takes (see _SPLIT_MIN_TC)."""
+    return _RING_TARGET // (STAGES * 2 * (_SPLIT_MIN_TC + vec) * 4)
+
+
+def circulant_needs_split(n: int, same: bool, vec: int) -> bool:
+    """Whether the wrapper splits a call: when its N rows would leave
+    :func:`circulant_plan` tiles narrower than _ONE_LAUNCH_MIN_TC columns
+    (a ring of such tiles does not fit two blocks an SM), or no tile at
+    all: past 260 rows for two tensors, 521 for one (8-byte copies)."""
+    rows = n if same else 2 * n
+    return STAGES * rows * (_ONE_LAUNCH_MIN_TC + vec) * 4 > _RING_TARGET
+
+
+def circulant_split(n: int, offsets: Sequence[int], cap: int) -> List[Tuple[int, int, int, int]]:
+    """The launches of a circulant call whose N rows exceed ``cap``: for
+    each offset index q and each chunk of at most ``cap`` own rows, the
+    pieces (q, i0, i1, j0) such that D2[q, i0:i1] is the offset-0 distance
+    between own[i0:i1] and bcast[j0:j0 + i1 - i0].  A chunk whose bcast rows
+    wrap past row N - 1 is split there, so every view is contiguous."""
+    pieces = []
+    for q, o in enumerate(offsets):
+        o = int(o) % n
+        for i0 in range(0, n, cap):
+            i1 = min(n, i0 + cap)
+            j0 = (i0 + o) % n
+            wrap = i0 + n - j0  # own row whose bcast row is row 0
+            if j0 + (i1 - i0) <= n:
+                pieces.append((q, i0, i1, j0))
+            else:
+                pieces += [(q, i0, wrap, j0), (q, wrap, i1, 0)]
+    return pieces
+
+
+def circulant_split_call(
+    own: torch.Tensor, bcast: torch.Tensor, offsets: Sequence[int], cap: int,
+    call: Callable[[torch.Tensor, torch.Tensor, Sequence[int]], torch.Tensor],
+) -> torch.Tensor:
+    """[k, N] distances from one ``call(own_view, bcast_view, [0])`` a piece
+    of :func:`circulant_split` (the kernel on the card, the plain version in
+    the CPU tests)."""
+    n = own.shape[0]
+    out = torch.empty((len(offsets), n), dtype=torch.float32, device=own.device)
+    for q, i0, i1, j0 in circulant_split(n, offsets, cap):
+        out[q, i0:i1] = call(own[i0:i1], bcast[j0:j0 + i1 - i0], [0])[0]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -294,16 +366,36 @@ def circulant_sq_distances(
     own: torch.Tensor, bcast: torch.Tensor, offsets: Sequence[int]
 ) -> torch.Tensor:
     """[k, N] squared distances |own_i - bcast[(i + o) mod N]|^2 (own and
-    bcast the same tensor: the kernel reads it once)."""
+    bcast the same tensor: the kernel reads it once).  A call of many rows
+    is split into launches of at most :func:`circulant_split_rows` rows."""
     if own.device.type == "cpu" and bcast.device.type == "cpu":
         return circulant_sq_distances_plain(own, bcast, offsets)
+    _check_circulant(own, bcast, offsets)
+    n, p = bcast.shape
+    vec = _vec(p, own, bcast)
+    if circulant_needs_split(n, own.data_ptr() == bcast.data_ptr(), vec):
+        return circulant_split_call(own, bcast, offsets, circulant_split_rows(vec),
+                                    circulant_launch)
+    return circulant_launch(own, bcast, offsets)
+
+
+def _check_circulant(own: torch.Tensor, bcast: torch.Tensor, offsets: Sequence[int]) -> None:
     name = "circulant_sq_distances"
     check_cuda(name, own, bcast)
     if own.shape != bcast.shape:
         raise ValueError(f"{name}: own {tuple(own.shape)} != bcast {tuple(bcast.shape)}")
+    if not 1 <= len(offsets) <= MAX_OFFSETS:
+        raise ValueError(f"{name}: takes 1..{MAX_OFFSETS} offsets, got {len(offsets)}")
+
+
+def circulant_launch(
+    own: torch.Tensor, bcast: torch.Tensor, offsets: Sequence[int]
+) -> torch.Tensor:
+    """One launch of the circulant kernel on CUDA tensors, however narrow
+    the plan's tiles (:func:`circulant_sq_distances` splits first)."""
+    name = "circulant_sq_distances"
+    _check_circulant(own, bcast, offsets)
     k = len(offsets)
-    if not 1 <= k <= MAX_OFFSETS:
-        raise ValueError(f"{name}: takes 1..{MAX_OFFSETS} offsets, got {k}")
     n, p = bcast.shape
     same = own.data_ptr() == bcast.data_ptr()
     vec = _vec(p, own, bcast)

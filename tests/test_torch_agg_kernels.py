@@ -271,6 +271,76 @@ class TestCirculantPlain:
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
 
 
+class TestCirculantSplit:
+    """Past the rows shared memory holds, the circulant wrapper splits a
+    call into launches on contiguous row views with the one offset 0."""
+
+    H100_SMS = 132
+
+    @pytest.mark.parametrize("vec,cap", [(2, 2421), (1, 4842)])
+    def test_row_cap_is_where_the_plan_stops_fitting(self, vec, cap):
+        assert K.circulant_row_cap(vec) == cap
+        K.circulant_plan(cap, 1000, 1, False, vec, self.H100_SMS)
+        K.circulant_plan(2 * cap, 1000, 4, True, vec, self.H100_SMS)  # one tensor
+        with pytest.raises(ValueError, match="rows do not fit"):
+            K.circulant_plan(cap + 1, 1000, 1, False, vec, self.H100_SMS)
+
+    @pytest.mark.parametrize("vec,rows", [(2, 138), (1, 142)])
+    def test_split_launches_keep_32_column_tiles(self, vec, rows):
+        assert K.circulant_split_rows(vec) == rows
+        plan = K.circulant_plan(rows, 100_000, 1, False, vec, self.H100_SMS)
+        assert plan["tc_log2"] == 5 and plan["smem"] <= K._RING_TARGET  # two blocks an SM
+        assert K.circulant_plan(rows + 1, 100_000, 1, False, vec, self.H100_SMS)["tc_log2"] < 5
+
+    @pytest.mark.parametrize(
+        "vec,same,last", [(2, False, 260), (2, True, 521), (1, False, 276), (1, True, 552)]
+    )
+    def test_split_starts_where_tiles_narrow_below_16_columns(self, vec, same, last):
+        assert not K.circulant_needs_split(last, same, vec)
+        assert K.circulant_plan(last, 100_000, 4, same, vec, self.H100_SMS)["tc_log2"] == 4
+        assert K.circulant_needs_split(last + 1, same, vec)
+        assert K.circulant_plan(last + 1, 100_000, 4, same, vec, self.H100_SMS)["tc_log2"] < 4
+        for n in (16, 64, 139):  # the flagships' calls, and 16-column tiles, stay one launch
+            assert not K.circulant_needs_split(n, same, vec)
+        assert K.circulant_needs_split(5000, same, vec)  # past the row cap too
+        # A split call's launches take 32-column tiles and are never split again.
+        assert not K.circulant_needs_split(K.circulant_split_rows(vec), False, vec)
+
+    @pytest.mark.parametrize(
+        "n,offsets,cap",
+        [(40, [1, 2, 38, 39], 16), (2500, [1, 2, 2498, 2499], 2421), (2500, [1, 7], 138),
+         (5000, [1, 7, 4999], 2421), (16, [3, 5], 16), (9, list(range(1, 9)), 4),
+         (7, [0, 7, 13], 3)],
+    )
+    def test_split_covers_every_pair_once_with_contiguous_views(self, n, offsets, cap):
+        pieces = K.circulant_split(n, offsets, cap)
+        seen = np.zeros((len(offsets), n), dtype=int)
+        for q, i0, i1, j0 in pieces:
+            assert 0 < i1 - i0 <= cap  # every launch at or under the cap
+            assert 0 <= j0 and j0 + (i1 - i0) <= n  # bcast rows contiguous, no wrap
+            for i in range(i0, i1):
+                assert j0 + (i - i0) == (i + offsets[q]) % n
+            seen[q, i0:i1] += 1
+        assert (seen == 1).all()
+
+    @pytest.mark.parametrize("same", [False, True])
+    def test_split_with_the_plain_version_equals_the_whole_call(self, same):
+        own, b = (torch.from_numpy(x) for x in _arrs(40, 40, 301))
+        own = b if same else own
+        offsets = [1, 2, 17, 38, 39]
+        calls = []
+
+        def plain(o, bb, offs):
+            calls.append(o.shape[0])
+            return K.circulant_sq_distances_plain(o, bb, offs)
+
+        got = K.circulant_split_call(own, b, offsets, 16, plain)
+        assert max(calls) <= 16 and len(calls) == len(K.circulant_split(40, offsets, 16))
+        want = K.circulant_sq_distances_plain(own, b, offsets)
+        assert got.shape == want.shape == (len(offsets), 40)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=0)
+
+
 class TestWrapperDispatch:
     def test_cpu_tensors_take_the_plain_versions(self):
         K.reset_counts()

@@ -51,7 +51,7 @@ def _np(t):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("median,trim", [(True, 0), (False, 0), (False, 1)])
-@pytest.mark.parametrize("n", [16, 12, 10])
+@pytest.mark.parametrize("n", [64, 16, 12, 10])
 def test_plain_equals_pallas_interpret_and_lax(n, median, trim, dtype):
     p = 3001
     offsets = _offsets(n)
@@ -104,3 +104,49 @@ def test_wrapper_counts_and_refusals():
     with pytest.raises(ValueError, match="CUDA tensors"):
         m = torch.empty((4, 8), device="meta")
         C.candidate_select(m, m, [1], median=True)
+
+
+class TestLaunchPlan:
+    """The wrapper's plan (plain Python; the kernel runs on the card)."""
+
+    FLAGSHIP_P = 6_603_710  # leaf.femnist.baseline, 2 mod 4
+    H100_SMS = 132
+
+    def test_flagship_plans(self):
+        # [16, P] float32: 256-column tiles, a 96 kB ring, two blocks an SM.
+        assert C.candidate_plan(16, self.FLAGSHIP_P, 4, 8, self.H100_SMS) == {
+            "tc_log2": 8, "smem": 98304, "grid": 264}
+        # bfloat16: twice the columns in the same bytes; at N = 64, 128.
+        assert C.candidate_plan(16, self.FLAGSHIP_P, 2, 4, self.H100_SMS) == {
+            "tc_log2": 9, "smem": 98304, "grid": 264}
+        assert C.candidate_plan(64, self.FLAGSHIP_P, 2, 4, self.H100_SMS) == {
+            "tc_log2": 7, "smem": 98304, "grid": 264}
+
+    @pytest.mark.parametrize("elem,last", [(4, 302), (2, 605)])
+    def test_large_n_takes_the_direct_path(self, elem, last):
+        plan = C.candidate_plan(last, 10_000, elem, 4, self.H100_SMS)
+        assert plan["tc_log2"] == 5 and plan["smem"] <= C.SMEM_MAX
+        assert plan["grid"] == self.H100_SMS  # one block an SM
+        assert C.candidate_plan(last + 1, 10_000, elem, 4, self.H100_SMS)["grid"] == 0
+        assert C.candidate_plan(1300, 257, elem, 4, self.H100_SMS)["grid"] == 0
+
+    def test_rows_that_cp_async_cannot_copy_take_the_direct_path(self):
+        assert C.candidate_plan(16, 1001, 2, 0, self.H100_SMS)["grid"] == 0
+
+    def test_fewer_tiles_than_blocks(self):
+        plan = C.candidate_plan(5, 100, 4, 4, self.H100_SMS)
+        assert plan["grid"] == -(-100 // (1 << plan["tc_log2"])) == 1
+
+    @pytest.mark.parametrize(
+        "dtype,p,copy,store",
+        [(torch.float32, 1000, 16, 4), (torch.float32, 1002, 8, 2), (torch.float32, 1001, 4, 1),
+         (torch.bfloat16, 1000, 16, 4), (torch.bfloat16, 1002, 4, 2), (torch.bfloat16, 1004, 8, 4),
+         (torch.bfloat16, 1001, 0, 1)],
+    )
+    def test_copy_and_store_widths_follow_alignment(self, dtype, p, copy, store):
+        x = torch.zeros((3, p), dtype=dtype)
+        assert x.data_ptr() % 64 == 0
+        assert C.copy_bytes(p, x, x) == copy
+        assert C.store_elems(p, x) == store
+        off = torch.zeros(3 * p + 1, dtype=dtype)[1:].view(3, p)  # one element off
+        assert C.copy_bytes(p, off, x) == (4 if dtype == torch.float32 else 0)

@@ -128,6 +128,32 @@ def test_distance_kernels_at_every_alignment(dev, p):
             assert bool(torch.all((got - ref).abs() <= 1e-5 * torch.clamp(ref.abs(), min=1.0)))
 
 
+@pytest.mark.parametrize("n,same", [(2500, False), (5000, True), (1000, False), (600, True)])
+def test_circulant_kernel_beyond_the_row_cap(dev, n, same):
+    # Past the rows shared memory holds (2,421 for two tensors, 4,842 for
+    # one, 8-byte copies), and wherever the plan's tiles would be narrower
+    # than 16 columns (past 260 rows for two tensors, 521 for one), the
+    # wrapper splits the call into launches of at most circulant_split_rows
+    # rows.
+    p, offsets = 300, [1, 2, n - 2, n - 1]
+    b = _rows(p + 1, n, p, dev)
+    own = b if same else _rows(p, n, p, dev)
+    vec = K._vec(p, own, b)
+    assert K.circulant_needs_split(n, same, vec)
+    before = K.LAUNCHES["circulant_sq_distances"]
+    got = K.circulant_sq_distances(own, b, offsets)
+    torch.cuda.synchronize()
+    rows = K.circulant_split_rows(vec)
+    assert K.LAUNCHES["circulant_sq_distances"] - before == len(K.circulant_split(n, offsets, rows))
+    ref = K.circulant_sq_distances_plain(own, b, offsets)
+    assert got.shape == (len(offsets), n)
+    assert bool(torch.all((got - ref).abs() <= 1e-5 * torch.clamp(ref.abs(), min=1.0)))
+    assert torch.equal(got, K.circulant_sq_distances(own, b, offsets))
+    if n <= (2 * K.circulant_row_cap(vec) if same else K.circulant_row_cap(vec)):
+        one = K.circulant_launch(own, b, offsets)  # one launch still fits: within the limit
+        assert bool(torch.all((one - ref).abs() <= 1e-5 * torch.clamp(ref.abs(), min=1.0)))
+
+
 def test_kernels_are_deterministic(dev):
     a, b = _rows(0, 16, 200_000, dev), _rows(1, 16, 200_000, dev)
     c = a.mean(dim=0)
@@ -202,9 +228,18 @@ def _offsets(n, k):
     return [1 + j % (n - 1) for j in range(k)]
 
 
+# P = 1, 3, 3, 1, 2, 0, 1, 0, 1 mod 4 (16-, 8- and 4-byte copies; bfloat16
+# rows on 4 bytes at P = 2 mod 4 and on 2 bytes, the direct path, at odd P);
+# (7, 64) and (1300, 257) give fewer column tiles than blocks; N = 300 is
+# the staged path at one block an SM, N = 1,300 the direct path; m = 17
+# the generic sort.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m", [2, 5, 9, 17])
-@pytest.mark.parametrize("n,p", [(5, 1001), (16, 100_003), (33, 4099), (1300, 257)])
+@pytest.mark.parametrize(
+    "n,p",
+    [(5, 1001), (16, 100_003), (33, 4099), (1300, 257), (16, 100_002), (16, 100_004),
+     (16, 100_001), (7, 64), (300, 4097)],
+)
 def test_candidate_kernel_equals_plain(dev, n, p, m, dtype):
     own, b = (x.to(dtype) for x in (_rows(p, n, p, dev), _rows(p + 1, n, p, dev)))
     offsets = _offsets(n, m - 1)
@@ -220,15 +255,36 @@ def test_candidate_kernel_equals_plain(dev, n, p, m, dtype):
         assert torch.equal(got, again)
 
 
-def test_candidate_kernel_sorts_nan_and_inf_as_plain(dev):
-    own, b = _rows(0, 16, 5000, dev), _rows(1, 16, 5000, dev)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_candidate_kernel_on_rows_one_element_off(dev, dtype):
+    # 4-byte copies (float32) or the direct path (bfloat16 on 2 bytes).
+    n, p = 16, 100_002
+    flat = torch.empty(n * p + 1, dtype=dtype, device=dev)
+    flat[1:] = _rows(0, n, p, dev).to(dtype).reshape(-1)
+    own, b = flat[1:].view(n, p), _rows(1, n, p, dev).to(dtype)
+    for median, trim in ((True, 0), (False, 1)):
+        got = C.candidate_select(own, b, [1, 2, 14, 15], trim=trim, median=median)
+        ref = C.candidate_select_plain(own, b, [1, 2, 14, 15], trim=trim, median=median)
+        assert torch.equal(got, ref)
+
+
+# bfloat16 is sorted in bf16x2 pairs: NaN and +-inf fall in both halves of a
+# pair (every 3rd, 5th, 7th, 11th column), on rows that start on 16 bytes
+# (P = 5,000) and on 4 (P = 5,002 = 2 mod 4); m = 3 and 5 are the static
+# networks, m = 9 the generic sort.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [5000, 5002])
+@pytest.mark.parametrize("offsets", [[1, 15], [1, 2, 14, 15], list(range(1, 9))])
+def test_candidate_kernel_sorts_nan_and_inf_as_plain(dev, dtype, p, offsets):
+    own, b = _rows(0, 16, p, dev), _rows(1, 16, p, dev)
     own[3, ::7] = float("nan")
     b[5, ::5] = float("inf")
     b[9, ::3] = -float("inf")
     b[2, ::11] = float("nan")
+    own, b = own.to(dtype), b.to(dtype)
     for median, trim in ((True, 0), (False, 1)):
-        got = C.candidate_select(own, b, [1, 2, 14, 15], trim=trim, median=median)
-        ref = C.candidate_select_plain(own, b, [1, 2, 14, 15], trim=trim, median=median)
+        got = C.candidate_select(own, b, offsets, trim=trim, median=median)
+        ref = C.candidate_select_plain(own, b, offsets, trim=trim, median=median)
         assert torch.equal(torch.nan_to_num(got, nan=7.0), torch.nan_to_num(ref, nan=7.0))
         assert torch.equal(torch.isnan(got), torch.isnan(ref))
 

@@ -30,27 +30,39 @@ Phases, each of which raises (and exits non-zero) on failure:
    wrapper splits each into launches of at most 138 rows; and N = 400 (one
    tensor, P = 262,144), one launch of 16-column tiles (the last two also
    timed the other way);
-3b. one round of the tiny CNN on the card against the same round on the CPU
-   (same initial parameters, same injected draws), for each of four seeds,
-   for Krum, median, trimmed mean, geometric median, BALANCE, Sketchguard
-   and fedavg;
-3c. one round of the tiny CNN at 64 nodes, k-regular(4), ppermute, in the
-   parameter dtype the configs take by default from 64 nodes up
-   (bfloat16), for the median and the trimmed mean, the counters set to 0
-   just before and read just after: one candidate-select launch, no plain
-   call, finite parameters, and the kernel equal bit for bit to the plain
-   version on the round's own pre-aggregation states;
+3b. one round on the card against the same round on the CPU (same initial
+   parameters, same injected draws), for each of four seeds, for Krum,
+   median, trimmed mean, geometric median, BALANCE, Sketchguard, fedavg and
+   UBAR (both exchanges) on the tiny CNN, and Krum on the evidential
+   wearable MLP with dropout 0.3 and injected masks; the dense geometric
+   median's line prints its derived bound beside the measured delta;
+3c. one round of the tiny CNN at 64 nodes, k-regular(4), in the parameter
+   dtype the configs take by default from 64 nodes up (bfloat16), for
+   every ported rule (Krum, geometric median, BALANCE, UBAR and
+   Sketchguard in both exchanges, median and trimmed mean under ppermute,
+   fedavg), the counters set to 0 just before and read just after: the
+   launches each rule makes, no plain call, every kernel call held against
+   its plain version on the round's own inputs, and the rule run again on
+   the CPU on the round's (own, bcast, adj): equal decisions and outputs
+   within the bfloat16 bound of PERF.md section 2; and once more Krum
+   allgather from the nodes' own initialisations, where its scores tie,
+   each device's pick held within the score noise of the exact best;
 4. main path: ``examples/configs/femnist_krum_tpu.yaml`` as committed
    (baseline CNN at full width, 16 nodes, k-regular(4), bf16 compute, 20%
    gaussian std 10), rounds cut to 3, through the port's ``run`` entry,
    once per (rule, exchange): Krum, geometric median and BALANCE under
    allgather and ppermute, median and trimmed mean under ppermute,
-   Sketchguard under both; then
-   ``examples/configs/basic_fedavg.yaml`` as committed, cut to 3 rounds.
+   Sketchguard under both, UBAR (rho 0.8) under ppermute; then
+   ``basic_fedavg.yaml``, ``ubar_attack.yaml`` (UBAR, erdos graph),
+   ``uci_har_byzantine.yaml`` (Krum on the wearable MLP),
+   ``uci_har_dirichlet.yaml`` and ``pamap2_dirichlet.yaml`` (fedavg, the
+   evidential round at full width), each as committed, cut to 3 rounds.
    The counters are set to 0 before each run and read after it: every
    kernel of that run must launch every round, no plain version may run,
    the history must have the JAX package's keys for the rule and finite
-   values;
+   values (and the evidential columns for an evidential model); each run
+   prints its peak device memory, and UBAR's its probe forwards' share of
+   the round;
 5. output: one ``{"kernels": [...]}`` JSON line, the card line, and the
    ``{"ok": true, "device": ...}`` line last.
 
@@ -60,6 +72,8 @@ result.
 """
 
 import argparse
+import contextlib
+import gc
 import json
 import shutil
 import subprocess
@@ -70,6 +84,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP = ROOT / "examples" / "configs" / "femnist_krum_tpu.yaml"
 BASIC_FEDAVG = ROOT / "examples" / "configs" / "basic_fedavg.yaml"
+UBAR_ATTACK = ROOT / "examples" / "configs" / "ubar_attack.yaml"
+UCI_HAR_BYZANTINE = ROOT / "examples" / "configs" / "uci_har_byzantine.yaml"
+UCI_HAR_DIRICHLET = ROOT / "examples" / "configs" / "uci_har_dirichlet.yaml"
+PAMAP2_DIRICHLET = ROOT / "examples" / "configs" / "pamap2_dirichlet.yaml"
 SMOKE_DIR = ROOT / "build" / "murmura_tpu_torch" / "smoke"
 SMOKE_ROUNDS = 3
 REPS = 20
@@ -537,7 +555,33 @@ def check_count_sketch(results: dict, own, bcast):
     return sketches
 
 
-# Phase 3b's rules: (label, rule, params, stats that must be equal).
+@contextlib.contextmanager
+def kept_calls(mod, attr: str, sink: list, tag=None):
+    """While open, ``mod.attr`` keeps a copy of the arguments of every call
+    in ``sink`` (as (tag, args, kwargs)) before it runs."""
+    import torch
+
+    real = getattr(mod, attr)
+
+    def clone(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def wrapper(*args, **kwargs):
+        sink.append((tag, tuple(clone(a) for a in args), {k: clone(v) for k, v in kwargs.items()}))
+        return real(*args, **kwargs)
+
+    setattr(mod, attr, wrapper)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, real)
+
+
+# Phase 3b's rules: (label, rule, params, stats that must be equal).  The
+# params' "circulant" runs the rule under ppermute's offsets; "wearable"
+# runs the round on the evidential wearable MLP (UCI HAR widths, dropout
+# 0.3, injected masks) instead of the tiny CNN.
+UBAR_STAGES = ("agg_stage1_acceptance_rate", "agg_stage2_acceptance_rate")
 ROUND_RULES = [
     ("krum dense", "krum", {"num_compromised": 1}, ("agg_selected_index",)),
     ("krum circulant", "krum", {"num_compromised": 1, "circulant": True}, ("agg_selected_index",)),
@@ -550,6 +594,11 @@ ROUND_RULES = [
     ("sketchguard dense", "sketchguard", {}, ("agg_acceptance_rate",)),
     ("sketchguard circulant", "sketchguard", {"circulant": True}, ("agg_acceptance_rate",)),
     ("fedavg dense", "fedavg", {}, ()),
+    # rho 0.8 shortlists 3 of the 4 neighbours, so the loss probe decides.
+    ("ubar dense", "ubar", {"rho": 0.8}, UBAR_STAGES),
+    ("ubar circulant", "ubar", {"rho": 0.8, "circulant": True}, UBAR_STAGES),
+    ("krum dense, wearable MLP, dropout 0.3", "krum", {"num_compromised": 1, "wearable": True},
+     ("agg_selected_index",)),
 ]
 
 
@@ -557,71 +606,171 @@ ROUND_RULES = [
 ROUND_SEEDS = (7, 11, 19, 23)
 
 
+def _round_inputs(n: int, seed: int, wearable: bool):
+    """(model, data, initial parameters, injected draws) of one phase-3b
+    round: one common model plus per-node offsets of distinct scales (so
+    that Krum's scores and UBAR's probe losses are far apart compared with
+    float32 summation noise), a shuffle key and, for the wearable MLP, one
+    dropout mask a layer and step."""
+    import numpy as np
+    import torch
+
+    from murmura_tpu_torch.data.registry import build_federated_data
+    from murmura_tpu_torch.models.cnn import make_femnist_cnn
+    from murmura_tpu_torch.models.mlp import make_wearable_mlp
+    from murmura_tpu_torch.ops.flatten import tree_map
+
+    if wearable:
+        model = make_wearable_mlp()
+        data = build_federated_data("wearables.uci_har", {
+            "num_samples": 640, "partition_method": "dirichlet", "alpha": 0.5},
+            num_nodes=n, seed=seed)
+    else:
+        model = make_femnist_cnn(variant="tiny")
+        data = build_federated_data("leaf.femnist", {"num_samples": 640}, num_nodes=n, seed=seed)
+    rng = np.random.default_rng(seed)
+    template = model.init(torch.Generator().manual_seed(seed), "cpu")
+    scale = 0.02 * (1.0 + np.arange(n) / n)
+    init = tree_map(
+        lambda t: (t.numpy()[None] + scale.reshape((n,) + (1,) * t.dim())
+                   * rng.normal(size=(n,) + tuple(t.shape))).astype(np.float32),
+        template,
+    )
+    draws = {"u": [rng.random(data.mask.shape).astype(np.float32)]}
+    if model.dropout_widths:
+        steps, batch = int(data.steps_per_epoch(16).max()), int(data.effective_batch(16).max())
+        keep = 1.0 - model.dropout
+        draws["dropout"] = [[[rng.random((n, batch, w)) < keep for w in model.dropout_widths]
+                             for _ in range(steps)]]
+    return model, data, init, draws
+
+
+def gm_dense_bound(own, bcast, adj, steps, z, m_cap: int, nu: float = 1e-6,
+                   eps: float = 1e-5) -> float:
+    """The derived bound on the scaled card-against-CPU delta of a float32
+    dense geometric-median round (PERF.md section 2), from the rule's inputs,
+    its CPU output ``z`` and ``steps``: one (z_t, d2_err_t) a Weiszfeld
+    step, z_t the iterate whose distances the step's pairwise call took on
+    the card and d2_err_t that call's measured discrepancy [i, j] (kernel
+    against plain version), or None for the kernel's limit eps (|b_j - c|^2
+    + |z_i - c|^2), c the broadcast mean.  A discrepancy dD2_ij moves the
+    weight w_ij = 1/d_ij by the relative rho_ij = |dD2_ij| / (2 d_ij^2), and
+    the step's weighted mean in coordinate p by sum_j rho_ij w_ij |b_jp -
+    z_ip| / W_i, taken at its largest p; the [N, N] @ [N, P] mean adds 2 m u
+    max|x| (m terms, u = 2^-24).  Summed over the steps (first order: a step
+    carries an earlier step's error at most at its own size) and scaled by
+    max(1, max|z|)."""
+    import torch
+
+    from murmura_tpu_torch.aggregation.base import candidate_indices
+
+    own, bcast, z = (t.double().cpu() for t in (own, bcast, z))
+    adj = adj.cpu()
+    n = own.shape[0]
+    ci, cv = candidate_indices(adj, m_cap)
+    nb = torch.zeros((n, n), dtype=torch.float64)
+    nb[torch.arange(n)[:, None], ci] = cv.double()
+    nb *= 1.0 - torch.eye(n, dtype=torch.float64)
+    c = bcast.mean(dim=0)
+    total = 0.0
+    for z_t, d2_err in steps:
+        z_t = z_t.double().cpu()
+        d = torch.clamp(torch.cdist(z_t, bcast), min=nu)  # [i, j] = |b_j - z_i|
+        if d2_err is None:
+            d2_err = eps * (((z_t - c) ** 2).sum(-1)[:, None]
+                            + ((bcast - c) ** 2).sum(-1)[None, :])
+        w = nb / d
+        coef = d2_err.double().cpu() / (2 * d * d) * w
+        w_total = 1.0 / torch.clamp((own - z_t).norm(dim=-1), min=nu) + w.sum(dim=1)
+        total += max(float((coef[i] @ (bcast - z_t[i]).abs()).max() / w_total[i])
+                     for i in range(n))
+    sums = 2.0 * m_cap * 2.0 ** -24 * float(torch.maximum(own.abs().max(), bcast.abs().max()))
+    return (total + (len(steps) + 1) * sums) / max(1.0, float(z.abs().max()))
+
+
 def check_round_against_cpu(device: str = "cuda") -> None:
-    """Phase 3b: one round of the tiny CNN (16 nodes, k-regular(4), float32
-    compute, 20% gaussian std 10) per rule and seed on the card and on the
-    CPU, from the same initial parameters and the same injected draws
-    (shuffle and noise).  The card runs the kernels, the CPU their plain
-    versions; on every seed the post-round parameters must agree to a
-    scaled delta of 1e-4, and Krum's selection and the filters' acceptance
-    must be equal.  Every seed runs before a failure is raised, so the line
-    shows the largest delta."""
+    """Phase 3b: one round (16 nodes, k-regular(4), float32 compute, 20%
+    gaussian std 10) per rule and seed on the card and on the CPU, from the
+    same initial parameters and the same injected draws (shuffle, noise and
+    dropout masks), on the tiny CNN, or on the wearable MLP for the row that
+    says so.  The card runs the kernels, the CPU their plain versions; on
+    every seed the post-round parameters must agree to a scaled delta of
+    1e-4, and Krum's selection, the filters' acceptance and UBAR's two
+    stages must be equal.  The dense geometric median's line also prints
+    the derived bound on its delta (gm_dense_bound).  Every seed runs
+    before a failure is raised, so the line shows the largest delta."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from murmura_tpu_torch.aggregation import build_aggregator
     from murmura_tpu_torch.attacks.gaussian import make_gaussian_attack
     from murmura_tpu_torch.core.rounds import build_round_program
-    from murmura_tpu_torch.data.registry import build_federated_data
-    from murmura_tpu_torch.models.cnn import make_femnist_cnn
-    from murmura_tpu_torch.ops.flatten import model_dimension, tree_map
+    from murmura_tpu_torch.ops import agg_kernels as K
+    from murmura_tpu_torch.ops.flatten import model_dimension
     from murmura_tpu_torch.topology.generators import create_topology
 
     n, offsets = 16, [1, 2, 14, 15]
-    model = make_femnist_cnn(variant="tiny")
     adj = create_topology("k-regular", n, k=4).mask()
     inputs = {}
-    for seed in ROUND_SEEDS:
-        data = build_federated_data("leaf.femnist", {"num_samples": 640}, num_nodes=n, seed=seed)
-        rng = np.random.default_rng(seed)
-        template = model.init(torch.Generator().manual_seed(seed), "cpu")
-        # One common model plus per-node offsets of distinct scales, so that
-        # Krum's scores are far apart compared with float32 summation noise.
-        scale = 0.02 * (1.0 + np.arange(n) / n)
-        init = tree_map(
-            lambda t: (t.numpy()[None] + scale.reshape((n,) + (1,) * t.dim())
-                       * rng.normal(size=(n,) + tuple(t.shape))).astype(np.float32),
-            template,
-        )
-        u = rng.random(data.mask.shape).astype(np.float32)
-        inputs[seed] = (data, init, u, model_dimension(template))
     for label, rule, params, equal_stats in ROUND_RULES:
-        kw = {k: v for k, v in params.items() if k != "circulant"}
+        wearable = bool(params.get("wearable"))
+        kw = {k: v for k, v in params.items() if k not in ("circulant", "wearable")}
         if params.get("circulant"):
             kw["exchange_offsets"] = offsets
         if rule in ("krum", "median", "trimmed_mean", "geometric_median"):
             kw["max_candidates"] = len(offsets) + 1
-        deltas, unequal, ok = [], [], True
-        for seed, (data, init, u, model_dim) in inputs.items():
-            out = {}
+        deltas, bounds, unequal, ok = [], [], [], True
+        for seed in ROUND_SEEDS:
+            if (seed, wearable) not in inputs:
+                inputs[seed, wearable] = _round_inputs(n, seed, wearable)
+            model, data, init, draws = inputs[seed, wearable]
+            template = model.init(torch.Generator().manual_seed(0), "cpu")
+            out, seen, gram = {}, [], []
             for dev in (device, "cpu"):
                 attack = make_gaussian_attack(n, 0.2, noise_std=10.0, seed=seed)
+                agg = build_aggregator(rule, kw, model_dim=model_dimension(template))
+                if dev == "cpu":
+                    real = agg.aggregate
+
+                    def keep(own, bcast, adj_, *rest, real=real):
+                        seen.append((own.clone(), bcast.clone(), adj_.clone()))
+                        return real(own, bcast, adj_, *rest)
+
+                    agg = dataclasses.replace(agg, aggregate=keep)
                 prog = build_round_program(
-                    model, build_aggregator(rule, kw, model_dim=model_dim), data,
+                    model, agg, data,
                     attack=attack, local_epochs=1, batch_size=16, lr=0.05, seed=seed,
                     device=dev, init_params=init,
                 )
                 noise = np.random.default_rng(seed + 1).normal(
                     size=(int(attack.compromised.sum()), prog.model_dim)).astype(np.float32)
                 comp = torch.as_tensor(attack.compromised.astype(np.float32)).to(dev)
-                flat, _, metrics = prog.train_step(
-                    prog.init_flat, prog.init_agg_state, torch.as_tensor(adj).to(dev), comp, 0.0,
-                    draws={"u": [u], "noise": noise},
-                )
+                sink = gram if dev != "cpu" and label == "geometric_median dense" else []
+                with kept_calls(K, "pairwise_sq_distances", sink):
+                    flat, _, metrics = prog.train_step(
+                        prog.init_flat, prog.init_agg_state, torch.as_tensor(adj).to(dev), comp,
+                        0.0, draws={**draws, "noise": noise},
+                    )
                 out[dev] = (flat.cpu().double(), {k: v.cpu() for k, v in metrics.items()})
             (f_card, m_card), (f_cpu, m_cpu) = out[device], out["cpu"]
             delta = float((f_card - f_cpu).abs().max() / max(1.0, float(f_cpu.abs().max())))
             deltas.append(delta)
+            if label == "geometric_median dense":
+                # Each Weiszfeld step's distance call on the card (the last
+                # call only feeds the stats): its iterate z_t and its Gram
+                # discrepancy, kernel against plain version, as [z_i, b_j].
+                iters = 8
+                if len(gram) != iters + 1:
+                    raise AssertionError(f"{len(gram)} pairwise calls, want {iters + 1}")
+                steps = [(args[1], (K.pairwise_sq_distances(*args, **kwargs)
+                                    - K.pairwise_sq_distances_plain(*args, **kwargs)).abs().T.cpu())
+                         for _, args, kwargs in gram[:iters]]
+                m_cap = len(offsets) + 1
+                bounds.append((gm_dense_bound(*seen[0], [(z_t, None) for z_t, _ in steps],
+                                              f_cpu, m_cap),
+                               gm_dense_bound(*seen[0], steps, f_cpu, m_cap)))
             unequal += [f"{k} (seed {seed})" for k in equal_stats
                         if not torch.equal(m_card[k], m_cpu[k])]
             ok = ok and delta <= 1e-4 and bool(torch.isfinite(f_card).all())
@@ -630,31 +779,203 @@ def check_round_against_cpu(device: str = "cuda") -> None:
         if equal_stats:
             shown = (f"; {', '.join(equal_stats)} == CPU on every seed" if not unequal
                      else f"; differs from the CPU: {', '.join(unequal)}")
-        print(f"[round] {label}, tiny CNN, card vs CPU, seeds {list(ROUND_SEEDS)}: scaled "
+        if bounds:
+            shown += (
+                "; derived bound from the kernel's limit "
+                f"{', '.join(f'{b[0]:.3g}' for b in bounds)}, from this round's Gram "
+                f"discrepancy {', '.join(f'{b[1]:.3g}' for b in bounds)} (every delta under "
+                f"both: {all(d <= min(b) for d, b in zip(deltas, bounds))})")
+        what = "wearable MLP" if params.get("wearable") else "tiny CNN"
+        print(f"[round] {label}, {what}, card vs CPU, seeds {list(ROUND_SEEDS)}: scaled "
               f"param delta {', '.join(f'{d:.3g}' for d in deltas)} (largest "
               f"{max(deltas):.3g}, limit 1e-4){shown}: {'ok' if ok else 'FAILED'}", flush=True)
         if not ok:
             raise AssertionError(f"a {label} round on the card disagrees with the CPU round")
 
 
+# Phase 3c's rounds: (rule, exchange, params, {kernel: launches}, spread).
+# Krum with num_compromised 1 selects (c < (m - 2) / 2 at m = 5).  spread:
+# the nodes start from one model plus offsets of distinct scales, so that
+# the decisions are exact; the one row without it starts from the nodes'
+# own initialisations, as every 64-node config does, and is held by
+# krum_tie_check.
+N64_RULES = [
+    ("median", "ppermute", {}, {"candidate_select": 1}, True),
+    ("trimmed_mean", "ppermute", {"trim_ratio": 0.2}, {"candidate_select": 1}, True),
+    ("krum", "allgather", {"num_compromised": 1}, {"pairwise_sq_distances": 2}, True),
+    ("krum", "allgather", {"num_compromised": 1}, {"pairwise_sq_distances": 2}, False),
+    ("krum", "ppermute", {"num_compromised": 1}, {"circulant_sq_distances": 2}, True),
+    ("geometric_median", "allgather", {}, {"pairwise_sq_distances": 9}, True),
+    ("geometric_median", "ppermute", {}, {"circulant_sq_distances": 9}, True),
+    ("balance", "allgather", {}, {"pairwise_sq_distances": 1}, True),
+    ("balance", "ppermute", {}, {"circulant_sq_distances": 1}, True),
+    ("ubar", "allgather", {}, {"pairwise_sq_distances": 1}, True),
+    ("ubar", "ppermute", {}, {"circulant_sq_distances": 1}, True),
+    ("sketchguard", "allgather", {}, {"count_sketch": 2, "pairwise_sq_distances": 1}, True),
+    ("sketchguard", "ppermute", {}, {"count_sketch": 2, "pairwise_sq_distances": 1}, True),
+    ("fedavg", "allgather", {}, {}, True),
+]
+# The stats that are decisions: equal between the card and the CPU.
+DECISIONS = {
+    "krum": ("selected_index", "selected_own"),
+    "median": ("num_candidates",),
+    "trimmed_mean": ("num_candidates", "trimmed_per_side"),
+    "geometric_median": ("num_candidates",),
+    "balance": ("acceptance_rate",),
+    "sketchguard": ("acceptance_rate",),
+    "ubar": ("stage1_acceptance_rate", "stage2_acceptance_rate"),
+    "fedavg": ("num_neighbors",),
+}
+
+
+def bf16_roundings(rule: str, circulant: bool, alpha: float = 0.5) -> float:
+    """r of the bfloat16 output bound |card - CPU| <= r 2^-7 m (PERF.md
+    section 2): the bfloat16 roundings, weighted, that the output passes
+    through after the first float32 sum whose order differs between the
+    card and the CPU.  Krum copies a row and the candidate kernel is
+    bit-equal: 0.  fedavg rounds its mean once: 1.  BALANCE, Sketchguard
+    and UBAR round the neighbour mean, (1 - alpha) times it and the blend:
+    3 + 2 alpha relative to max(|out|, |own|).  The geometric median rounds
+    each of its 9 weighted means once (dense) or twice (circulant)."""
+    if rule in ("krum", "median", "trimmed_mean"):
+        return 0.0
+    if rule == "fedavg":
+        return 1.0
+    if rule == "geometric_median":
+        return 9.0 * (2 if circulant else 1)
+    return 3.0 + 2.0 * alpha
+
+
+def _kernel_fns():
+    """{kernel: (module, name of the kernel wrapper, its plain version)}."""
+    from murmura_tpu_torch.ops import agg_kernels, candidate_kernels, sketch_kernels
+
+    return {
+        "pairwise_sq_distances": (agg_kernels, "pairwise_sq_distances",
+                                  "pairwise_sq_distances_plain"),
+        "circulant_sq_distances": (agg_kernels, "circulant_sq_distances",
+                                   "circulant_sq_distances_plain"),
+        "candidate_select": (candidate_kernels, "candidate_select", "candidate_select_plain"),
+        "count_sketch": (sketch_kernels, "count_sketch", "count_sketch_plain"),
+    }
+
+
+def _within_kernel_limit(name, args, kwargs, got, ref):
+    """(ok, max |got - ref|) under the kernel's limit of PERF.md section 2."""
+    import torch
+
+    err = (got.float() - ref.float()).abs()
+    if name == "pairwise_sq_distances":
+        a = args[0].float()
+        b = a if len(args) < 2 or args[1] is None else args[1].float()
+        c = kwargs.get("center")
+        c = torch.zeros_like(a[0]) if c is None else c
+        limit = 1e-5 * (((a - c) ** 2).sum(-1)[:, None] + ((b - c) ** 2).sum(-1)[None, :])
+    elif name == "circulant_sq_distances":
+        limit = 1e-5 * torch.clamp(ref.abs(), min=1.0)
+    elif name == "count_sketch":
+        v, tables = args
+        h = tables.plain_on(v.device)["hash"]
+        limit = 1e-4 * torch.zeros_like(ref).index_add_(1, h, v.abs())
+    else:
+        limit = torch.zeros_like(err)
+    return bool((err <= limit).all()) and bool(torch.isfinite(got).all()), float(err.max())
+
+
+def krum_tie_check(own, bcast, adj, c: int, selected, new, eps: float = 1e-5):
+    """Phase 3c's check of a dense Krum round whose scores may tie to within
+    the Gram identity's float32 noise (nodes from their own
+    initialisations).  Per node, every candidate's exact score s (float64,
+    from the bfloat16 states) is recomputed on the CPU.  A float32 squared
+    distance within the pairwise kernel's limit dD2 = eps (|x - mu|^2 +
+    |y - mu|^2) of the exact one (mu the mean the call centres on: own's
+    for the self candidate's distances, bcast's for the others) moves the
+    distance by e = min(sqrt(dD2), dD2 / d) and a score by E_a = (m - c -
+    2) max_b e_ab.  A device's pick j must then satisfy s_j - min s <= E_j
+    + E_argmin, and its output row must be the picked candidate's row, bit
+    for bit.  Returns (ok, largest gap / its tolerance, nodes where the
+    pick is not the exact argmin)."""
+    import torch
+
+    from murmura_tpu_torch.aggregation.base import candidate_indices
+
+    own, bcast, adj = own.cpu(), bcast.cpu(), adj.cpu()
+    selected, new = selected.cpu(), new.cpu()
+    n = own.shape[0]
+    o64, b64 = own.double(), bcast.double()
+    c_own, c_b = o64.mean(dim=0), b64.mean(dim=0)
+    ci, cv = candidate_indices(adj, n)
+    ok, worst, off_argmin = True, 0.0, 0
+    for i in range(n):
+        idx = ci[i][cv[i]]
+        rows = torch.stack([o64[i] if j == i else b64[j] for j in idx.tolist()])
+        is_self = idx == i
+        m = len(idx)
+        d = torch.cdist(rows, rows)
+        r2 = ((rows - c_b) ** 2).sum(-1)
+        r2_own = ((rows - c_own) ** 2).sum(-1)
+        # A pair's distance comes from the own-centred call when either end
+        # is the self candidate, else from the bcast-centred call.
+        pair_self = is_self[:, None] | is_self[None, :]
+        dd2 = eps * torch.where(pair_self, r2_own[:, None] + r2_own[None, :],
+                                r2[:, None] + r2[None, :])
+        e = torch.minimum(dd2.sqrt(), dd2 / torch.clamp(d, min=1e-300))
+        eye = torch.eye(m, dtype=torch.bool)
+        take = max(1, m - c - 2)
+        s = torch.sort(d.masked_fill(eye, float("inf")), dim=1).values[:, :take].sum(1)
+        big_e = take * e.masked_fill(eye, 0.0).max(dim=1).values
+        pick = int((idx == int(selected[i])).nonzero()[0, 0])
+        best = int(torch.argmin(s))
+        tol = float(big_e[pick] + big_e[best])
+        gap = float(s[pick] - s[best])
+        want = own[i] if int(selected[i]) == i else bcast[int(selected[i])]
+        ok = ok and gap <= tol and torch.equal(new[i], want)
+        worst = max(worst, gap / tol if tol > 0 else (0.0 if gap == 0 else float("inf")))
+        off_argmin += pick != best
+    return ok, worst, off_argmin
+
+
 def check_round_n64_bf16() -> dict:
-    """Phase 3c: one tiny-CNN round at 64 nodes, k-regular(4), ppermute,
-    parameters in the dtype the configs take by default from 64 nodes up,
-    for the median and the trimmed mean, through ``cli.run``.  The counters
-    are set to 0 just before each run and read just after; the states the
-    rule hands the candidate kernel are kept and the kernel is held against
-    the plain version on them afterwards (bit-equal)."""
+    """Phase 3c: one tiny-CNN round at 64 nodes, k-regular(4), parameters in
+    the dtype the configs take by default from 64 nodes up (bfloat16), for
+    every ported rule in the exchanges of N64_RULES, through ``cli.run``.
+    The counters are set to 0 just before each run and read just after; the
+    inputs of every kernel launch and of the rule are kept.  Afterwards each
+    kernel call is held against its plain version on those inputs, within
+    the kernel's limit, and the rule runs again on the CPU on the kept
+    (own, bcast, adj): its decisions must equal the card's, and its
+    output must lie within |card - CPU| <= r 2^-7 m element by element
+    (bf16_roundings; m = max(|CPU out|, |own|), or for the geometric median
+    the largest |value| among the node's candidates).  The nodes start from
+    one common model plus offsets of distinct scales, as in phase 3b, except
+    on the one Krum row that starts them from their own initialisations as
+    the configs do: there Krum's scores tie to within the Gram identity's
+    float32 noise, either device may pick either of the tied nodes, and
+    krum_tie_check holds each pick within that noise of the exact best."""
+    import dataclasses
+
     import numpy as np
     import torch
     import yaml
 
     from murmura_tpu_torch import cli
-    from murmura_tpu_torch.aggregation import robust_stats
+    from murmura_tpu_torch.aggregation.base import candidate_indices
+    from murmura_tpu_torch.core import rounds
+    from murmura_tpu_torch.ops.flatten import tree_map
+    from murmura_tpu_torch.utils import factories
+
+    def spread_init(model, n, seed, device):
+        g = torch.Generator(device=device).manual_seed(int(seed))
+        template = model.init(g, device)
+        scale = 0.02 * (1.0 + torch.arange(n, device=device) / n)
+        return tree_map(lambda t: t[None] + scale.reshape((n,) + (1,) * t.dim()) * torch.randn(
+            (n,) + tuple(t.shape), generator=g, device=device), template)
 
     mods = _kernel_modules()
-    C = robust_stats.candidate_kernels
+    fns = _kernel_fns()
     runs = {}
-    for rule, params in (("median", {}), ("trimmed_mean", {"trim_ratio": 0.2})):
+    for rule, exchange, params, expect, spread in N64_RULES:
+        tag = f"{rule}:{exchange}:n64-bf16" + ("" if spread else "-own-init")
         cfg = {
             "experiment": {"name": f"n64-{rule}", "seed": 5, "rounds": 1, "verbose": False},
             "topology": {"type": "k-regular", "num_nodes": 64, "k": 4},
@@ -665,49 +986,122 @@ def check_round_n64_bf16() -> dict:
             "data": {"adapter": "leaf.femnist", "params": {"num_samples": 64 * 40}},
             "model": {"factory": "leaf.femnist.tiny", "params": {}},
             "backend": "tpu",
-            "tpu": {"exchange": "ppermute", "compute_dtype": "bfloat16"},
+            "tpu": {"exchange": exchange, "compute_dtype": "bfloat16"},
         }
         SMOKE_DIR.mkdir(parents=True, exist_ok=True)
-        path = SMOKE_DIR / f"n64_{rule}.yaml"
+        path = SMOKE_DIR / f"{tag.replace(':', '_')}.yaml"
         path.write_text(yaml.safe_dump(cfg, sort_keys=False))
-        seen = []
-        kernel = C.candidate_select
+        calls, rule_calls = [], []
+        real_build = factories.build_aggregator
 
-        def keep(own, bcast, offsets, trim=0, median=False):
-            seen.append((own.clone(), bcast.clone(), list(offsets), trim, median))
-            return kernel(own, bcast, offsets, trim=trim, median=median)
+        def build(name, agg_params, model_dim=0):
+            agg = real_build(name, agg_params, model_dim=model_dim)
 
-        C.candidate_select = keep
+            def aggregate(own, bcast, adj, round_idx, state, ctx):
+                kept = (own.clone(), bcast.clone(), adj.clone(), round_idx,
+                        {k: v.clone() for k, v in state.items()}, ctx)
+                new, new_state, stats = agg.aggregate(own, bcast, adj, round_idx, state, ctx)
+                rule_calls.append((agg, kept, new.clone(), {k: v.clone() for k, v in stats.items()}))
+                return new, new_state, stats
+
+            return dataclasses.replace(agg, aggregate=aggregate)
+
+        factories.build_aggregator = build
+        real_init = rounds.init_stacked_params
+        if spread:
+            rounds.init_stacked_params = spread_init
         try:
-            for mod in mods:
-                mod.reset_counts()
-            _, network = cli.run(path, output=SMOKE_DIR / f"history_n64_{rule}.json",
-                                 device="cuda")
-            torch.cuda.synchronize()
-            launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
-            plain = {k: v for mod in mods for k, v in mod.PLAIN_CALLS.items()}
+            with contextlib.ExitStack() as stack:
+                for k, (mod, attr, _) in fns.items():
+                    stack.enter_context(kept_calls(mod, attr, calls, tag=k))
+                for mod in mods:
+                    mod.reset_counts()
+                _, network = cli.run(
+                    path, output=SMOKE_DIR / f"history_{tag.replace(':', '_')}.json", device="cuda")
+                torch.cuda.synchronize()
+                launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+                plain = {k: v for mod in mods for k, v in mod.PLAIN_CALLS.items()}
         finally:
-            C.candidate_select = kernel
-        own, bcast, offsets, trim, median = seen[0]
-        got = C.candidate_select(own, bcast, offsets, trim=trim, median=median)
-        ref = C.candidate_select_plain(own, bcast, offsets, trim=trim, median=median)
-        equal = torch.equal(got, ref)
+            factories.build_aggregator = real_build
+            rounds.init_stacked_params = real_init
+        # Every kernel call against its plain version on its own inputs.
+        kernel_errs, kernels_ok = {}, True
+        for name, args, kwargs in calls:
+            mod, attr, plain_attr = fns[name]
+            got = getattr(mod, attr)(*args, **kwargs)
+            ref = getattr(mod, plain_attr)(*args, **kwargs)
+            ok_k, err = _within_kernel_limit(name, args, kwargs, got, ref)
+            kernels_ok = kernels_ok and ok_k
+            kernel_errs[name] = max(kernel_errs.get(name, 0.0), err)
+            del got, ref
+        # The rule again on the CPU on the kept inputs.
+        agg, (own, bcast, adj, round_idx, state, ctx), new_card, stats_card = rule_calls[0]
+        if ctx.probe_x is not None:
+            ctx = dataclasses.replace(ctx, probe_x=ctx.probe_x.cpu(), probe_y=ctx.probe_y.cpu(),
+                                      probe_mask=ctx.probe_mask.cpu())
+        new_cpu, _, stats_cpu = agg.aggregate(
+            own.cpu(), bcast.cpu(), adj.cpu(), round_idx, {k: v.cpu() for k, v in state.items()},
+            ctx)
+        decisions = DECISIONS[rule] if spread else ()
+        unequal = [k for k in decisions if not torch.equal(stats_card[k].cpu(), stats_cpu[k])]
+        r = bf16_roundings(rule, exchange == "ppermute")
+        cpu32, card32 = new_cpu.float(), new_card.cpu().float()
+        if rule == "geometric_median":
+            ci, _ = candidate_indices(adj.cpu(), 5)
+            cand = torch.cat([own.cpu()[:, None], bcast.cpu()[ci[:, 1:]]], dim=1)
+            mag = cand.float().abs().max(dim=1).values
+            del cand
+        else:
+            mag = torch.maximum(cpu32.abs(), own.cpu().float().abs())
+        diff = (card32 - cpu32).abs()
+        if spread:
+            out_ok = bool((diff <= r * 2.0 ** -7 * mag).all())
+            slack = float((diff / torch.clamp(r * 2.0 ** -7 * mag, min=1e-30)).max()) if r else 0.0
+            held = (f"decisions {list(decisions)} "
+                    f"{'== CPU' if not unequal else f'differ: {unequal}'}; output max "
+                    f"|card - CPU| {float(diff.max()):.3g}, bound r 2^-7 m with r {r:g}, "
+                    f"largest share of the bound {slack:.3g}")
+        else:
+            # Both devices' picks are held to the exact scores.
+            held = []
+            out_ok = True
+            for who, sel, out in (("card", stats_card["selected_index"], new_card),
+                                  ("CPU", stats_cpu["selected_index"], new_cpu)):
+                ok_w, share, off_argmin = krum_tie_check(
+                    own, bcast, adj, params["num_compromised"], sel, out)
+                out_ok = out_ok and ok_w
+                held.append(f"{who} {'ok' if ok_w else 'FAILED'} (largest share of the "
+                            f"tolerance {share:.3g}, {off_argmin} node(s) off the exact argmin)")
+            picks_differ = int((stats_card["selected_index"].cpu()
+                                != stats_cpu["selected_index"]).sum())
+            held = (f"own initialisations: each pick within the kernel limit's score noise "
+                    f"of the exact best and its row copied bit for bit: {', '.join(held)}; "
+                    f"card and CPU picked differently on {picks_differ} node(s)")
+        counts_ok = (all(launches[k] == v for k, v in expect.items())
+                     and all(v == 0 for k, v in launches.items() if k not in expect)
+                     and not any(plain.values()))
         finite = bool(torch.isfinite(network.flat).all())
-        ok = (launches["candidate_select"] == 1 and not any(plain.values()) and equal and finite
-              and len(seen) == 1 and own.dtype == torch.bfloat16)
-        print(f"[round64] {rule}: tiny CNN, 64 nodes, ppermute, parameters "
-              f"{str(network.flat.dtype).replace('torch.', '')}, state [{own.shape[0]}, "
-              f"{own.shape[1]}] {str(own.dtype).replace('torch.', '')}, offsets {offsets}, "
-              f"{'median' if median else f'trim {trim}'}; launches {launches}, plain-version "
-              f"calls {plain}; kernel == plain on the round's states: {equal}; final "
-              f"parameters finite: {finite}; round seconds "
-              f"{[round(t, 4) for t in network.round_times]}: {'ok' if ok else 'FAILED'}",
-              flush=True)
+        ok = (counts_ok and kernels_ok and not unequal and out_ok and finite
+              and network.flat.dtype == torch.bfloat16 and len(rule_calls) == 1)
+        loss_note = ""
+        if "own_loss" in stats_card:
+            rel = (stats_card["own_loss"].cpu() - stats_cpu["own_loss"]).abs() / stats_cpu["own_loss"]
+            loss_note = f"; own_loss card vs CPU max rel {float(rel.max()):.3g} (not gated)"
+        print(f"[round64] {tag}: tiny CNN, 64 nodes, parameters "
+              f"{str(network.flat.dtype).replace('torch.', '')}; launches {launches} (want "
+              f"{expect}), plain-version calls {plain}; {len(calls)} kernel call(s) against "
+              f"their plain versions on the round's inputs, max err {kernel_errs}: "
+              f"{'within limits' if kernels_ok else 'OUTSIDE LIMITS'}; {held}{loss_note}; "
+              f"final parameters finite: "
+              f"{finite}; round seconds {[round(t, 4) for t in network.round_times]}: "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
         if not ok:
-            raise AssertionError(f"the 64-node bfloat16 {rule} round failed its checks")
-        runs[f"{rule}:n64-bf16"] = {"launches": {"candidate_select": launches["candidate_select"]},
-                                    "s_per_round": list(np.asarray(network.round_times))}
-        del network, seen, own, bcast, got, ref
+            raise AssertionError(f"the 64-node bfloat16 round {tag} failed its checks")
+        runs[tag] = {
+            "launches": {k: launches[k] for k in expect},
+            "s_per_round": list(np.asarray(network.round_times))}
+        del network, calls, rule_calls, own, bcast, new_card, new_cpu
+        gc.collect()
         torch.cuda.empty_cache()
     return runs
 
@@ -721,6 +1115,7 @@ RULE_STATS = {
     "balance": ("acceptance_rate", "threshold"),
     "sketchguard": ("acceptance_rate", "threshold", "compression_ratio"),
     "fedavg": ("num_neighbors",),
+    "ubar": ("stage1_acceptance_rate", "stage2_acceptance_rate", "own_loss"),
 }
 # Phase 4's runs: (label, config, exchange, aggregation or None for the
 # config's own, {kernel: launches a round, exact or at least}).
@@ -746,6 +1141,14 @@ MAIN_RUNS = [
     ("sketchguard:ppermute", FLAGSHIP, "ppermute", {"algorithm": "sketchguard", "params": {}},
      {"count_sketch": (2, "=="), "pairwise_sq_distances": (1, "==")}),
     ("fedavg:basic_fedavg", BASIC_FEDAVG, None, None, {}),
+    ("ubar:erdos", UBAR_ATTACK, None, None, {"pairwise_sq_distances": (1, "==")}),
+    # rho 0.8 as in ubar_attack.yaml: 3 of the 4 neighbours shortlisted.
+    ("ubar:ppermute", FLAGSHIP, "ppermute", {"algorithm": "ubar", "params": {"rho": 0.8}},
+     {"circulant_sq_distances": (1, "==")}),
+    ("krum:uci_har_byzantine", UCI_HAR_BYZANTINE, None, None,
+     {"pairwise_sq_distances": (2, "==")}),
+    ("fedavg:uci_har_dirichlet", UCI_HAR_DIRICHLET, None, None, {}),
+    ("fedavg:pamap2_dirichlet", PAMAP2_DIRICHLET, None, None, {}),
 ]
 
 
@@ -755,9 +1158,42 @@ def _kernel_modules():
     return (agg_kernels, candidate_kernels, sketch_kernels)
 
 
+@contextlib.contextmanager
+def timed_probes(events: list):
+    """While open, UBAR's probe forwards (the cross-evaluation and the own
+    loss) record a pair of CUDA events around each call into ``events``:
+    device-stream time, with no synchronisation added to the round."""
+    import torch
+
+    from murmura_tpu_torch.aggregation import ubar
+
+    names = ("pairwise_probe_eval", "circulant_probe_eval", "self_probe_metrics")
+    real = {name: getattr(ubar, name) for name in names}
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            events.append((start, end))
+            return out
+        return wrapper
+
+    for name in names:
+        setattr(ubar, name, timed(real[name]))
+    try:
+        yield
+    finally:
+        for name in names:
+            setattr(ubar, name, real[name])
+
+
 def run_main_path(label, config, exchange, aggregation, expect) -> dict:
     """Phase 4: one config through ``murmura_tpu_torch.cli.run`` on the card,
-    the kernel counters set to 0 just before and read just after."""
+    the kernel counters set to 0 just before and read just after, with the
+    run's peak device memory and, for UBAR, its probe forwards' time."""
     import numpy as np
     import torch
     import yaml
@@ -779,14 +1215,24 @@ def run_main_path(label, config, exchange, aggregation, expect) -> dict:
     out = SMOKE_DIR / f"history_{name}.json"
 
     mods = _kernel_modules()
-    for mod in mods:
-        mod.reset_counts()
-    t0 = time.perf_counter()
-    history, network = cli.run(cfg, output=out, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
-    plain = {k: v for mod in mods for k, v in mod.PLAIN_CALLS.items()}
+    probe_events: list = []
+    # An earlier run's last parameters sit in a reference cycle that only
+    # the cycle collector frees; collect it so that this run's peak is its
+    # own.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    with timed_probes(probe_events):
+        for mod in mods:
+            mod.reset_counts()
+        t0 = time.perf_counter()
+        history, network = cli.run(cfg, output=out, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+        plain = {k: v for mod in mods for k, v in mod.PLAIN_CALLS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     print(f"[main:{label}] launches {launches}, plain-version calls {plain}", flush=True)
     for kernel, (per_round, op) in expect.items():
@@ -805,19 +1251,33 @@ def run_main_path(label, config, exchange, aggregation, expect) -> dict:
     for k, v in hist.items():
         if v and not np.all(np.isfinite(np.asarray(v, dtype=np.float64))):
             raise AssertionError(f"history[{k!r}] is not finite: {v}")
+    evidential = ("mean_vacuity", "mean_entropy", "mean_strength")
+    if network.program.evidential and any(len(hist[k]) != SMOKE_ROUNDS for k in evidential):
+        raise AssertionError(f"an evidential run's history lacks {evidential}")
     if not torch.isfinite(network.flat).all():
         raise AssertionError("final parameters are not finite")
     rt = network.round_times
     extra = ""
-    if "agg_acceptance_rate" in hist:
-        extra = f"; acceptance rate {hist['agg_acceptance_rate']}"
+    for k in ("agg_acceptance_rate", "agg_stage1_acceptance_rate", "agg_stage2_acceptance_rate",
+              "mean_vacuity", "mean_entropy", "mean_strength"):
+        if hist.get(k):
+            extra += f"; {k.replace('agg_', '')} {[round(v, 4) for v in hist[k]]}"
+    probe_ms = sum(a.elapsed_time(b) for a, b in probe_events)
+    if probe_events:
+        steady = float(np.sum(rt[1:]))
+        steady_ms = sum(a.elapsed_time(b) for a, b in probe_events[len(probe_events) // len(rt):])
+        extra += (f"; probe forwards {probe_ms:.2f} ms in {len(probe_events)} calls, "
+                  f"{steady_ms / 1e3 / steady:.1%} of the steady rounds")
     print(f"[main:{label}] P={network.program.model_dim} N={network.program.num_nodes} "
           f"round seconds {[round(t, 4) for t in rt]}; steady s/round "
-          f"{np.mean(rt[1:]):.4f}; run wall {wall:.2f} s; final mean accuracy "
-          f"{hist['mean_accuracy'][-1]:.4f}{extra}", flush=True)
+          f"{np.mean(rt[1:]):.4f}; run wall {wall:.2f} s; peak device memory {peak_gb:.2f} GB "
+          f"({base_gb:.2f} GB held before the run); "
+          f"final mean accuracy {hist['mean_accuracy'][-1]:.4f}{extra}", flush=True)
     del network
+    gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": {k: launches[k] for k in expect}, "s_per_round": rt}
+    return {"launches": {k: launches[k] for k in expect}, "s_per_round": rt,
+            "peak_gb": peak_gb, "probe_ms": probe_ms}
 
 
 def main() -> int:

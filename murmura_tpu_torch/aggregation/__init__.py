@@ -1,6 +1,6 @@
 """Aggregation rules (the PyTorch counterpart of
-murmura_tpu/aggregation/__init__.py).  UBAR and evidential trust are refused
-by name until their slice lands."""
+murmura_tpu/aggregation/__init__.py).  Evidential trust is refused by name
+until its slice lands."""
 
 from typing import Any, Dict
 
@@ -14,6 +14,7 @@ from murmura_tpu_torch.aggregation.robust_stats import (
     make_trimmed_mean,
 )
 from murmura_tpu_torch.aggregation.sketchguard import make_sketchguard
+from murmura_tpu_torch.aggregation.ubar import make_ubar
 
 AGGREGATORS = {
     "fedavg": make_fedavg,
@@ -23,8 +24,9 @@ AGGREGATORS = {
     "median": make_coordinate_median,
     "trimmed_mean": make_trimmed_mean,
     "geometric_median": make_geometric_median,
+    "ubar": make_ubar,
 }
-NOT_PORTED = ("ubar", "evidential_trust")
+NOT_PORTED = ("evidential_trust",)
 
 
 def build_aggregator(name: str, params: Dict[str, Any], model_dim: int = 0) -> AggregatorDef:
@@ -70,4 +72,5 @@ __all__ = [
     "make_krum",
     "make_sketchguard",
     "make_trimmed_mean",
+    "make_ubar",
 ]

@@ -12,9 +12,10 @@ A rule is one function over the whole network:
 """
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.func import vmap
 
 from murmura_tpu_torch.ops import agg_kernels
 
@@ -25,12 +26,25 @@ AggState = Dict[str, torch.Tensor]
 @dataclass(frozen=True)
 class AggContext:
     """Per-round context handed to aggregation rules.  Only the fields a
-    ported rule reads are here; the others arrive with their rules.
+    ported rule reads are here; the others arrive with their levers.
 
     Attributes:
+        apply_fn: single-model forward in eval mode, (params, x) -> outputs.
+        unravel: flat [..., P] -> params pytree (views).
+        probe_x/probe_y/probe_mask: per-node probe batches [N, B, ...] that
+            the loss-probe rules (UBAR's stage 2) evaluate models on.
+        evidential: whether ``apply_fn`` outputs Dirichlet alphas.
+        num_classes: output arity.
         total_rounds: T of the threshold schedules (BALANCE, Sketchguard).
     """
 
+    apply_fn: Optional[Callable] = None
+    unravel: Optional[Callable] = None
+    probe_x: Optional[torch.Tensor] = None
+    probe_y: Optional[torch.Tensor] = None
+    probe_mask: Optional[torch.Tensor] = None
+    evidential: bool = False
+    num_classes: int = 0
     total_rounds: int = 1
 
 
@@ -187,3 +201,28 @@ def candidate_indices(adj: torch.Tensor, m_cap: int):
     cand_idx = torch.argsort(-rank, dim=1, stable=True)[:, :m_cap]
     valid = torch.gather(rank, 1, cand_idx) > 0.0
     return cand_idx, valid
+
+
+def rank_mask(values: torch.Tensor, valid: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Boolean mask of the ``k`` smallest valid entries of each row
+    (``values`` [..., M], ``valid`` [..., M], ``k`` [...]).  Both argsorts
+    are stable, as JAX's are: invalid entries are all +inf and colluding
+    senders broadcast equal rows, so ties are common and must rank by
+    position."""
+    masked = torch.where(valid, values, torch.full_like(values, float("inf")))
+    order = torch.argsort(masked, dim=-1, stable=True)
+    ranks = torch.argsort(order, dim=-1, stable=True)
+    return valid & (ranks < k[..., None])
+
+
+@torch.no_grad()
+def self_probe_metrics(
+    own: torch.Tensor, ctx: AggContext, metric_fn: Callable
+) -> Dict[str, Any]:
+    """Each node's own state on its own probe batch (the diagonal of the
+    cross-evaluation), vmapped over the nodes: dict of [N] metrics."""
+
+    def one(params_i, x_i, y_i, m_i):
+        return metric_fn(ctx.apply_fn(params_i, x_i), y_i, m_i)
+
+    return vmap(one)(ctx.unravel(own), ctx.probe_x, ctx.probe_y, ctx.probe_mask)

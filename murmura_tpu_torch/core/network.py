@@ -17,6 +17,13 @@ from murmura_tpu_torch.core.rounds import RoundProgram, round_generators
 from murmura_tpu_torch.topology.base import Topology
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A metric on the host; bfloat16 stats (a rule's over bfloat16
+    parameters) are widened, exactly, since numpy has no bfloat16."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def empty_history() -> Dict[str, List[Any]]:
     """The history schema (the JAX package's, key for key)."""
     return {
@@ -37,11 +44,12 @@ def record_round_metrics(
     round_num: int,
     metrics: Dict[str, np.ndarray],
     compromised: np.ndarray,
+    evidential: bool,
     has_attack: bool,
 ) -> None:
     """Append one evaluated round to ``history``.  The ``mean_vacuity`` /
-    ``mean_entropy`` / ``mean_strength`` columns stay empty: they belong to
-    evidential models, which the port does not run yet."""
+    ``mean_entropy`` / ``mean_strength`` columns fill for evidential models
+    only."""
     acc = np.asarray(metrics["accuracy"])
     loss = np.asarray(metrics["loss"])
     comp = np.asarray(compromised) > 0
@@ -53,6 +61,9 @@ def record_round_metrics(
     if has_attack and comp.any():
         history["honest_accuracy"].append(float(acc[~comp].mean()))
         history["compromised_accuracy"].append(float(acc[comp].mean()))
+    if evidential:
+        for k in ("vacuity", "entropy", "strength"):
+            history[f"mean_{k}"].append(float(np.asarray(metrics[k]).mean()))
     for k, v in metrics.items():
         if k.startswith("agg_"):
             arr = np.asarray(v, dtype=np.float64)
@@ -118,7 +129,7 @@ class Network:
             self.current_round = round_idx + 1
             if self.current_round % eval_every == 0:
                 metrics = {**self.program.eval_step(self.flat), **agg_metrics}
-                metrics = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+                metrics = {k: _host(v) for k, v in metrics.items()}
                 self._record(self.current_round, metrics, verbose)
             self._sync()
             self.round_times.append(time.perf_counter() - t0)
@@ -127,7 +138,8 @@ class Network:
     def _record(self, round_num: int, metrics: Dict[str, np.ndarray], verbose: bool):
         acc = np.asarray(metrics["accuracy"])
         record_round_metrics(
-            self.history, round_num, metrics, self.compromised, self.attack is not None
+            self.history, round_num, metrics, self.compromised,
+            self.program.evidential, self.attack is not None,
         )
         if verbose:
             comp = self.compromised > 0

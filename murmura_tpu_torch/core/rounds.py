@@ -8,17 +8,23 @@ murmura_tpu/core/rounds.py).
    once — per-node effective batch ``min(B, max(2, n_i))``, sample
    positions ``pos % n_i``, the update masked by ``t < steps_i`` and by the
    honest mask (compromised nodes stay frozen), the update math in float32
-   cast back to the parameter dtype;
+   cast back to the parameter dtype; the loss is masked cross-entropy, or
+   the annealed evidential loss for an evidential model, with dropout masks
+   per node, step and layer where the model has dropout;
 2. the attack on the broadcast copy only;
-3. the aggregation rule over (own, bcast, adj);
+3. the aggregation rule over (own, bcast, adj), with each node's probe
+   batch (the first ``probe_size`` samples of its shard) in the context
+   for the loss-probe rules, whose forwards run in eval mode;
 4. ``eval_step`` (run by the orchestrator on the ``eval_every`` cadence):
-   per-node masked loss and accuracy over the held-out arrays.
+   per-node masked loss and accuracy over the held-out arrays, and the
+   Dirichlet vacuity, entropy and strength for an evidential model.
 
 The node-stacked flat ``[N, P]`` tensor is the one copy of the parameters;
 per-node gradients come from ``torch.func.vmap(torch.func.grad(...))`` over
-views into it.  The random draws (the epoch shuffle ``u`` and the attack's
-[C, P] noise) come from per-round ``torch.Generator``s, or are injected
-through ``draws`` so that a test can feed the JAX package's own draws.
+views into it.  The random draws (the epoch shuffle ``u``, the dropout
+masks and the attack's [C, P] noise) come from per-round
+``torch.Generator``s, or are injected through ``draws`` so that a test can
+feed the JAX package's own draws.
 """
 
 from dataclasses import dataclass
@@ -39,11 +45,19 @@ from murmura_tpu_torch.ops.flatten import (
     tree_to_torch,
     tree_unflatten,
 )
-from murmura_tpu_torch.ops.losses import masked_cross_entropy
+from murmura_tpu_torch.ops.losses import (
+    evidential_loss,
+    masked_cross_entropy,
+    uncertainty_metrics,
+)
 
 
 # Eval samples per chunk (the JAX package's default eval_chunk).
 EVAL_CHUNK = 1024
+
+# Weight of the evidential loss's KL term once annealed in (the JAX
+# factories' lambda_weight).
+EVIDENTIAL_LAMBDA = 0.1
 
 
 def pin_full_float32() -> None:
@@ -69,6 +83,7 @@ class RoundProgram:
     model_dim: int
     unravel: Callable
     device: torch.device
+    evidential: bool = False
 
 
 def round_generators(seed: int, round_idx: int, device) -> Dict[str, torch.Generator]:
@@ -105,6 +120,7 @@ def build_round_program(
     total_rounds: int = 20,
     attack: Optional[Attack] = None,
     seed: int = 42,
+    probe_size: Optional[int] = None,
     param_dtype: Optional[str] = None,
     device="cuda",
     init_params: Any = None,
@@ -116,7 +132,10 @@ def build_round_program(
     ``init_params`` (a node-stacked pytree of tensors or numpy arrays in the
     JAX package's layout) replaces the seeded initialisation — the weight
     carry-over the tests use.  ``total_rounds`` is the T of the rules'
-    threshold schedules.
+    threshold schedules.  ``probe_size`` is the samples a node hands the
+    loss-probe rules (default: the round's batch).  An evidential model's
+    KL term is annealed as ``min(1, round / max(1, total_rounds // 2)) *
+    EVIDENTIAL_LAMBDA``.
     """
     device = torch.device(device)
     if device.type == "cuda":
@@ -127,13 +146,15 @@ def build_round_program(
             )
         pin_full_float32()
     n = data.num_nodes
-    if model.evidential:
-        raise ValueError("evidential models are not ported to the PyTorch package yet")
+    num_classes = data.num_classes or model.num_classes
+    evidential = model.evidential
 
     eff_batch_np = data.effective_batch(batch_size)
     steps_np = data.steps_per_epoch(batch_size)
     max_steps = int(steps_np.max())
     global_batch = int(eff_batch_np.max())
+    annealing_rounds = max(1, total_rounds // 2)
+    p_size = int(min(data.max_samples, probe_size or global_batch))
 
     if init_params is None:
         stacked = init_stacked_params(model, n, seed, device)
@@ -159,15 +180,32 @@ def build_round_program(
         "eval_y": dev(eval_y, torch.int64),
         "eval_mask": dev(eval_mask, torch.float32),
     }
+    d["probe_x"] = d["x"][:, :p_size]
+    d["probe_y"] = d["y"][:, :p_size]
+    d["probe_mask"] = d["mask"][:, :p_size]
     nodes = torch.arange(n, device=device)
 
-    def node_loss(params_i, xb, yb, mb):
-        loss, _ = masked_cross_entropy(model.apply(params_i, xb), yb, mb)
+    def node_loss(params_i, xb, yb, mb, masks_i, lambda_t):
+        outputs = model.apply(params_i, xb, masks_i)
+        if evidential:
+            return evidential_loss(outputs, yb, mb, num_classes, lambda_t)
+        loss, _ = masked_cross_entropy(outputs, yb, mb)
         return loss
 
-    grad_fn = vmap(grad(node_loss))
+    grad_fn = vmap(grad(node_loss), in_dims=(0, 0, 0, 0, 0, None))
+    keep = 1.0 - model.dropout
 
-    def local_training(flat, train_mask, generator, u_draws):
+    def dropout_masks(generator, injected):
+        """This step's masks, one bool [N, B, width] a dropout layer."""
+        if injected is not None:
+            return [torch.as_tensor(np.asarray(m), dtype=torch.bool).to(device)
+                    for m in injected]
+        return [
+            torch.rand((n, global_batch, w), generator=generator, device=device) < keep
+            for w in model.dropout_widths
+        ]
+
+    def local_training(flat, train_mask, generator, u_draws, mask_draws, lambda_t):
         """local_epochs x masked-batch SGD; updates ``flat`` in place."""
         j = torch.arange(global_batch, device=device)
         batch_mask = (j[None, :] < d["eff_batch"][:, None]).to(torch.float32)
@@ -188,7 +226,12 @@ def build_round_program(
                 idx = torch.gather(perm, 1, pos)  # [N, B]
                 xb = d["x"][nodes[:, None], idx]
                 yb = d["y"][nodes[:, None], idx]
-                grads = grad_fn(params, xb, yb, batch_mask)
+                masks = []
+                if model.dropout_widths:
+                    masks = dropout_masks(
+                        generator, None if mask_draws is None else mask_draws[epoch][t]
+                    )
+                grads = grad_fn(params, xb, yb, batch_mask, masks, lambda_t)
                 update = train_mask * (t < d["steps"]).to(torch.float32)  # [N]
                 with torch.no_grad():
                     for p, g in zip(tree_leaves(params), tree_leaves(grads)):
@@ -196,7 +239,16 @@ def build_round_program(
                         p.copy_((p - (lr * ub) * g.to(torch.float32)).to(p.dtype))
         return flat
 
-    ctx = AggContext(total_rounds=total_rounds)
+    ctx = AggContext(
+        apply_fn=model.apply,
+        unravel=unravel,
+        probe_x=d["probe_x"],
+        probe_y=d["probe_y"],
+        probe_mask=d["probe_mask"],
+        evidential=evidential,
+        num_classes=num_classes,
+        total_rounds=total_rounds,
+    )
 
     def train_step(
         flat: torch.Tensor,
@@ -207,8 +259,14 @@ def build_round_program(
         generators: Optional[Dict[str, torch.Generator]] = None,
         draws: Optional[Dict[str, Any]] = None,
     ):
+        """One round.  ``draws`` injects what the generators would draw:
+        ``u`` one [N, S] uniform shuffle key an epoch; ``noise`` the attack's
+        [C, P] normal draws; ``dropout`` the keep masks, indexed
+        ``[epoch][step][layer]``, each a bool [N, B, width_l] (node, batch
+        slot, unit) for the layers of ``model.dropout_widths``."""
         generators = generators or {}
         draws = draws or {}
+        lambda_t = min(1.0, round_idx / max(1, annealing_rounds)) * EVIDENTIAL_LAMBDA
         honest = 1.0 - compromised
         train_mask = (
             torch.ones_like(honest)
@@ -216,7 +274,8 @@ def build_round_program(
             else honest
         )
         own_flat = local_training(
-            flat.clone(), train_mask, generators.get("train"), draws.get("u")
+            flat.clone(), train_mask, generators.get("train"), draws.get("u"),
+            draws.get("dropout"), lambda_t,
         )
         if attack is not None:
             noise = draws.get("noise")
@@ -241,19 +300,28 @@ def build_round_program(
         params = unravel(flat)
         s = x.shape[1]
         chunk = max(1, min(EVAL_CHUNK, s))
-        loss = torch.zeros(n, device=device)
-        correct = torch.zeros(n, device=device)
+        names = ("loss", "accuracy") + (
+            ("vacuity", "entropy", "strength") if evidential else ())
+        sums = {k: torch.zeros(n, device=device) for k in names}
         count = torch.zeros(n, device=device)
         for c0 in range(0, s, chunk):
             xc, yc, mc = x[:, c0:c0 + chunk], y[:, c0:c0 + chunk], mask[:, c0:c0 + chunk]
             outputs = apply_nodes(params, xc)  # [N, c, K]
-            logp = torch.log_softmax(outputs, dim=-1)
-            nll = -torch.gather(logp, -1, yc[..., None])[..., 0]
-            loss += (nll * mc).sum(dim=1)
-            correct += ((torch.argmax(outputs, -1) == yc).to(torch.float32) * mc).sum(dim=1)
+            if evidential:
+                unc = uncertainty_metrics(outputs)
+                p_y = torch.gather(unc["probs"], -1, yc[..., None])[..., 0]
+                nll = -torch.log(p_y + 1e-10)
+                for k in ("vacuity", "entropy", "strength"):
+                    sums[k] += (unc[k] * mc).sum(dim=1)
+            else:
+                logp = torch.log_softmax(outputs, dim=-1)
+                nll = -torch.gather(logp, -1, yc[..., None])[..., 0]
+            sums["loss"] += (nll * mc).sum(dim=1)
+            sums["accuracy"] += (
+                (torch.argmax(outputs, -1) == yc).to(torch.float32) * mc).sum(dim=1)
             count += mc.sum(dim=1)
         total = torch.clamp(count, min=1.0)
-        return {"loss": loss / total, "accuracy": correct / total}
+        return {k: v / total for k, v in sums.items()}
 
     init_agg_state = {
         k: torch.as_tensor(np.asarray(v)).to(device) for k, v in agg.init_state(n).items()
@@ -268,4 +336,5 @@ def build_round_program(
         model_dim=model_dim,
         unravel=unravel,
         device=device,
+        evidential=evidential,
     )

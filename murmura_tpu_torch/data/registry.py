@@ -1,9 +1,10 @@
 # Copy of murmura_tpu/data/registry.py, cut to the adapters the port runs.
 """Dataset adapter registry: config adapter strings -> FederatedArrays.
 
-``synthetic`` and ``leaf.femnist`` (on-disk LEAF JSON or its
-shape-identical synthetic stand-in) are ported; the other adapters are
-refused by name.
+``synthetic``, ``leaf.femnist`` (on-disk LEAF JSON or its
+shape-identical synthetic stand-in) and ``wearables.<uci_har|pamap2|
+ppg_dalia>`` (on-disk files or their shape-identical synthetic stand-ins)
+are ported; the other adapters are refused by name.
 """
 
 from typing import Any, Dict, Optional
@@ -71,7 +72,14 @@ def build_federated_data(
 
         return load_femnist_federated(params, num_nodes, seed, max_samples)
 
+    if adapter.startswith("wearables."):
+        from murmura_tpu_torch.data.wearables import load_wearable_federated
+
+        return load_wearable_federated(
+            adapter.split(".", 1)[1], params, num_nodes, seed, max_samples
+        )
+
     raise ValueError(
         f"dataset adapter '{adapter}' is not ported to the PyTorch package "
-        "yet (ported: synthetic, leaf.femnist)"
+        "yet (ported: synthetic, leaf.femnist, wearables.*)"
     )

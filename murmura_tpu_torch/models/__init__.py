@@ -1,4 +1,5 @@
-"""Models: the FEMNIST CNN family as functional (init, apply) pairs."""
+"""Models as functional (init, apply) pairs: the FEMNIST CNN family, the MLP
+and the evidential wearable MLPs."""
 
 from murmura_tpu_torch.models.core import Model
 from murmura_tpu_torch.models.registry import build_model

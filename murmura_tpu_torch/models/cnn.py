@@ -64,7 +64,7 @@ def make_femnist_cnn(
             )
         return params
 
-    def apply(params, x):
+    def apply(params, x, masks=None):  # no dropout: masks are not read
         if x.dim() == 3:
             x = x[..., None]
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW

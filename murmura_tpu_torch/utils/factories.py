@@ -52,6 +52,12 @@ def unported_sections(config: Config) -> List[str]:
         out.append("population (cohort streaming)")
     if config.sweep is not None:
         out.append("sweep (gang-batched seeds)")
+    if config.frontier is not None:
+        out.append("frontier (the robustness frontier search)")
+    if config.grid is not None:
+        out.append("grid (the multi-tenant grid)")
+    if config.serve is not None:
+        out.append("serve (the daemon)")
     d = config.durability
     if d.checkpoint_dir is not None or d.resume or d.retries or d.require_tpu:
         out.append("durability (checkpoint/resume/retries/require_tpu)")
@@ -85,7 +91,8 @@ def resolved_param_dtype(config: Config) -> Optional[str]:
 
 def build_attack(config: Config) -> Optional[Attack]:
     """The gaussian attack; its seed is attack.params.seed, else the
-    experiment seed."""
+    experiment seed; its std is attack.params.noise_std, or ``std`` as the
+    reference configs name it."""
     if not config.attack.enabled or not config.attack.type:
         return None
     p = config.attack.params
@@ -99,14 +106,24 @@ def build_attack(config: Config) -> Optional[Attack]:
 
 
 def resolve_model(config: Config, data):
-    """Build the model with the data/model shape check."""
+    """Build the model with the data/model shape check.  A wearable model
+    takes its input width from the data (window parameters change it)
+    unless the config pins ``input_dim``; its other widths default to the
+    kind's (models/registry.py)."""
     import numpy as np
 
     model_params = dict(config.model.params)
     if config.backend == "tpu":
         model_params.setdefault("compute_dtype", config.tpu.compute_dtype)
-        if config.tpu.conv_impl != "direct":
+        factory_lc = config.model.factory.lower()
+        if config.tpu.conv_impl != "direct" and "femnist" in factory_lc:
             model_params.setdefault("conv_impl", config.tpu.conv_impl)
+    if (
+        "wearables." in config.model.factory
+        and "input_dim" not in model_params
+        and data.x.ndim == 3
+    ):
+        model_params["input_dim"] = int(data.x.shape[-1])
     try:
         model = build_model(config.model.factory, model_params)
     except ValueError as e:
@@ -193,6 +210,7 @@ def build_network_from_config(config: Config, device="cuda") -> Network:
         total_rounds=config.experiment.rounds,
         attack=attack,
         seed=seed,
+        probe_size=config.training.batch_size,
         param_dtype=resolved_param_dtype(config),
         device=device,
     )

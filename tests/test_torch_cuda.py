@@ -413,3 +413,50 @@ def test_cli_run_of_the_new_rules_goes_through_their_kernels(
         assert launches["pairwise_sq_distances"] == 2  # the sketch-space filter
     assert not any(v for mod in mods for v in mod.PLAIN_CALLS.values())
     assert all(np.isfinite(history["mean_accuracy"]))
+
+
+@pytest.mark.parametrize("circulant", [False, True])
+def test_ubar_decisions_on_the_card_equal_the_cpu(dev, circulant):
+    # A tiny UBAR call (the plain MLP, 12 nodes, k-regular(4), two std-10
+    # broadcasts, rho 0.8): stage 1 through the distance kernel on the
+    # card, its plain version on the CPU; equal acceptances, the probe
+    # losses and the output within float32 rounding.
+    from murmura_tpu_torch.aggregation.ubar import make_ubar
+    from murmura_tpu_torch.models.mlp import make_mlp
+    from murmura_tpu_torch.ops.flatten import make_flatteners
+
+    n, offsets = 12, [1, 2, 10, 11]
+    model = make_mlp(20, (32, 16), 5)
+    template = model.init(torch.Generator().manual_seed(0), "cpu")
+    ravel, unravel, p = make_flatteners(template)
+    g = np.random.default_rng(0)
+    spread = 0.05 * (1.0 + np.arange(n) / n)
+    own = (ravel(template).numpy()[None] + spread[:, None] * g.normal(size=(n, p)))
+    own = own.astype(np.float32)
+    bcast = own.copy()
+    bcast[[2, 7]] += (10.0 * g.normal(size=(2, p))).astype(np.float32)
+    probe = (g.normal(size=(n, 10, 20)).astype(np.float32), g.integers(0, 5, size=(n, 10)),
+             (g.random((n, 10)) < 0.9).astype(np.float32))
+    adj = np.zeros((n, n), np.float32)
+    for o in offsets:
+        adj[np.arange(n), (np.arange(n) + o) % n] = 1.0
+    kw = {"rho": 0.8, "exchange_offsets": offsets} if circulant else {"rho": 0.8}
+    rule = make_ubar(**kw)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        px, py, pm = (torch.as_tensor(a).to(d) for a in probe)
+        ctx = AggContext(apply_fn=model.apply, unravel=unravel, probe_x=px,
+                         probe_y=py.long(), probe_mask=pm, num_classes=5)
+        K.reset_counts()
+        new, _, stats = rule.aggregate(torch.from_numpy(own).to(d), torch.from_numpy(bcast).to(d),
+                                       torch.from_numpy(adj).to(d), 0.0, {}, ctx)
+        out[d.type] = (new.cpu(), {k: v.cpu() for k, v in stats.items()}, dict(K.LAUNCHES),
+                       dict(K.PLAIN_CALLS))
+    kernel = "circulant_sq_distances" if circulant else "pairwise_sq_distances"
+    (new_c, st_c, launches, plain), (new_p, st_p, _, _) = out["cuda"], out["cpu"]
+    assert launches[kernel] == 1 and not any(plain.values())
+    for k in ("stage1_acceptance_rate", "stage2_acceptance_rate"):
+        assert torch.equal(st_c[k], st_p[k]), k
+    assert float(st_c["stage2_acceptance_rate"].min()) < 1.0
+    torch.testing.assert_close(st_c["own_loss"], st_p["own_loss"], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(new_c, new_p, rtol=1e-5, atol=1e-5)

@@ -2,9 +2,10 @@
 and it never moves to the CPU unless asked to.
 
 - In a fresh interpreter, importing every module of ``murmura_tpu_torch``
-  and running one CPU round each of Krum, the circulant median and
-  Sketchguard loads no ``jax`` and no ``murmura_tpu.*`` module (counted
-  against what the interpreter had loaded at start).
+  and running one CPU round each of Krum, the circulant median,
+  Sketchguard, UBAR (both exchanges) and an evidential wearable-MLP round
+  loads no ``jax`` and no ``murmura_tpu.*`` module (counted against what
+  the interpreter had loaded at start).
 - An AST scan of the port and of chip_smoke.py finds no such import.
 - Without CUDA, ``python -m murmura_tpu_torch run`` without ``--device
   cpu`` fails with a message, and chip_smoke.py exits non-zero, printing
@@ -39,6 +40,7 @@ from murmura_tpu_torch.attacks.gaussian import make_gaussian_attack
 from murmura_tpu_torch.core.rounds import build_round_program, round_generators
 from murmura_tpu_torch.data.registry import build_federated_data
 from murmura_tpu_torch.models.cnn import make_femnist_cnn
+from murmura_tpu_torch.models.registry import build_model
 from murmura_tpu_torch.ops.flatten import model_dimension
 from murmura_tpu_torch.topology.generators import create_topology
 
@@ -50,11 +52,19 @@ model = make_femnist_cnn(variant="tiny")
 dim = model_dimension(model.init(torch.Generator().manual_seed(0), "cpu"))
 for name, params in (("krum", {"num_compromised": 1}),
                      ("median", {"exchange_offsets": [1, 2, 6, 7]}),
-                     ("sketchguard", {"sketch_size": 100})):
+                     ("sketchguard", {"sketch_size": 100}),
+                     ("ubar", {"rho": 0.8}),
+                     ("ubar", {"rho": 0.8, "exchange_offsets": [1, 2, 6, 7]}),
+                     ("wearables", {"num_compromised": 1})):
+    if name == "wearables":
+        data = build_federated_data("wearables.uci_har", {"num_samples": 160}, num_nodes=8,
+                                    seed=1)
+        model = build_model("wearables.uci_har", {})
+        name = "krum"
     agg = build_aggregator(name, params, model_dim=dim)
     prog = build_round_program(model, agg, data, attack=attack, batch_size=8, seed=1,
                                device="cpu")
-    assert prog.model_dim == dim
+    assert prog.model_dim == model_dimension(model.init(torch.Generator().manual_seed(0), "cpu"))
     flat, _, _ = prog.train_step(prog.init_flat, prog.init_agg_state, adj, comp, 0.0,
                                  generators=round_generators(1, 0, "cpu"))
     assert bool(torch.isfinite(flat).all())

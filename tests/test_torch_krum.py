@@ -136,9 +136,9 @@ def test_candidate_indices_match_jax():
 
 @pytest.mark.parametrize("rule", ["fedavg", "median", "trimmed_mean", "ubar"])
 def test_other_rules_refused_by_name(rule):
-    # UBAR is not ported; the ported rules refuse their unported sparse
-    # edge-mask exchange by name instead of running another exchange.
-    params = {} if rule == "ubar" else {"exchange_offsets": [1], "sparse_exchange": True}
+    # The ported rules refuse their unported sparse edge-mask exchange by
+    # name instead of running another exchange.
+    params = {"exchange_offsets": [1], "sparse_exchange": True}
     with pytest.raises(ValueError, match="not ported"):
         build_aggregator(rule, params)
 

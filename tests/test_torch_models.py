@@ -116,8 +116,7 @@ def test_baseline_dimension():
     assert model_dimension(params) == 6_603_710
 
 
-@pytest.mark.parametrize("factory", ["mlp", "leaf.celeba", "leaf.shakespeare",
-                                     "wearables.uci_har"])
+@pytest.mark.parametrize("factory", ["leaf.celeba", "leaf.shakespeare"])
 def test_other_factories_refused_by_name(factory):
     with pytest.raises(ValueError, match="not ported"):
         build_model(factory, {})

@@ -194,6 +194,10 @@ def test_seeded_round_runs_and_freezes_compromised(setup):
                           "holdout_fraction": 0.0}),
         ("synthetic", {"num_samples": 300, "input_dim": 12, "num_classes": 4,
                        "partition_method": "dirichlet", "alpha": 0.3}),
+        ("wearables.uci_har", {"partition_method": "dirichlet", "alpha": 0.5}),
+        ("wearables.pamap2", {"partition_method": "dirichlet", "alpha": 0.3,
+                              "num_samples": 600}),
+        ("wearables.ppg_dalia", {"partition_method": "natural", "holdout_fraction": 0.0}),
     ],
 )
 def test_data_matches_jax(adapter, params):
@@ -246,6 +250,8 @@ RULE_PARAMS = {
     "geometric_median": {"max_candidates": len(OFFSETS) + 1},
     "balance": {},
     "sketchguard": {},
+    # rho 0.8 shortlists 3 of the 4 neighbours, so the loss probe filters.
+    "ubar": {"rho": 0.8},
 }
 
 
@@ -254,7 +260,8 @@ RULE_PARAMS = {
 def test_one_round_of_each_rule_matches_jax(setup, rule, mode):
     """The other ported rules in the same round: parameters to a scaled
     delta of 1e-4, the same stats, and equal acceptance and candidate
-    counts."""
+    counts; UBAR's probe losses within rtol 1e-4 (forwards over the
+    round's trained states)."""
     kw = dict(RULE_PARAMS[rule])
     if mode == "ppermute":
         kw["exchange_offsets"] = OFFSETS
@@ -267,9 +274,16 @@ def test_one_round_of_each_rule_matches_jax(setup, rule, mode):
     )
     assert _scaled_delta(flat.numpy(), j_flat) <= 1e-4
     assert set(metrics) == set(j_metrics)
-    for k in ("agg_acceptance_rate", "agg_num_candidates", "agg_num_neighbors"):
+    for k in ("agg_acceptance_rate", "agg_num_candidates", "agg_num_neighbors",
+              "agg_stage1_acceptance_rate", "agg_stage2_acceptance_rate"):
         if k in metrics:
             assert np.array_equal(metrics[k].numpy(), np.asarray(j_metrics[k])), k
+    if rule == "ubar":
+        np.testing.assert_allclose(
+            metrics["agg_own_loss"].numpy(), np.asarray(j_metrics["agg_own_loss"]), rtol=1e-4)
+        # The three std-10 senders never pass the probe, and stage 2 dropped
+        # some shortlisted neighbour.
+        assert float(metrics["agg_stage2_acceptance_rate"].min()) < 1.0
     if rule in ("balance", "sketchguard"):
         # The three std-10 rows are rejected somewhere: the filter decided.
         assert float(metrics["agg_acceptance_rate"].min()) < 1.0

@@ -12,7 +12,8 @@
   cites are the JAX package's.
 - Every example config the port does not run is refused by name, and
   ``basic_fedavg.yaml`` (fedavg, fully connected, the LEAF FEMNIST CNN)
-  runs.
+  runs; so do ``ubar_attack.yaml`` (UBAR on an erdos graph) and UBAR on
+  the flagship under ppermute, cut to the tiny CNN.
 - The tiny flagship with ``aggregation: sketchguard`` (carried state, the
   ``total_rounds`` schedule) runs through both CLIs with the same history
   keys, the same acceptance and accuracy in the same band.
@@ -20,6 +21,7 @@
 
 import ast
 import json
+import math
 import os
 import subprocess
 import sys
@@ -143,8 +145,12 @@ def test_lever_refusals_are_the_jax_packages():
         assert levers.refusal_reason(*key) == jax_levers.refusal_reason(*key)
 
 
+PORTED = {"femnist_krum_tpu", "basic_fedavg", "ubar_attack", "uci_har_byzantine",
+          "uci_har_dirichlet", "pamap2_dirichlet"}
+
+
 @pytest.mark.parametrize(
-    "path", [p for p in EXAMPLES if p not in (FLAGSHIP, BASIC_FEDAVG)], ids=lambda p: p.stem
+    "path", [p for p in EXAMPLES if p.stem not in PORTED], ids=lambda p: p.stem
 )
 def test_unported_examples_refused_by_name(path):
     config = load_config(path)
@@ -164,6 +170,56 @@ def test_basic_fedavg_runs_on_cpu():
     assert history["agg_num_neighbors"] == [4.0, 4.0]  # fully connected, 5 nodes
     assert all(0.0 <= a <= 1.0 for a in history["mean_accuracy"])
     assert bool(torch.isfinite(network.flat).all())
+
+
+@pytest.mark.parametrize("which", ["ubar_attack", "flagship_ppermute"])
+def test_ubar_runs_on_cpu(tmp_path, which):
+    # The committed config with the tiny CNN, 12 nodes, fewer samples and
+    # two rounds; the flagship with algorithm: ubar under ppermute.
+    if which == "ubar_attack":
+        raw = yaml.safe_load((ROOT / "examples" / "configs" / "ubar_attack.yaml").read_text())
+        raw["topology"]["num_nodes"] = 12
+    else:
+        raw = yaml.safe_load(FLAGSHIP.read_text())
+        raw["aggregation"] = {"algorithm": "ubar", "params": {"rho": 0.8}}
+        raw["tpu"]["exchange"] = "ppermute"
+    raw["experiment"].update(rounds=2, verbose=False)
+    raw["model"] = {"factory": "leaf.femnist.tiny", "params": {}}
+    raw["data"]["params"] = {"num_samples": 40 * raw["topology"]["num_nodes"]}
+    raw["training"].update(local_epochs=1, batch_size=16)
+    path = tmp_path / f"{which}.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    network = build_network_from_config(load_config(path), device="cpu")
+    history = network.train(rounds=2)
+    for k in ("agg_stage1_acceptance_rate", "agg_stage2_acceptance_rate", "agg_own_loss"):
+        assert len(history[k]) == 2 and all(v == v for v in history[k]), k
+    # The std-10 broadcasts are never accepted, so some neighbour is dropped.
+    assert min(history["agg_stage1_acceptance_rate"]) < 1.0
+    assert bool(torch.isfinite(network.flat).all())
+
+
+@pytest.mark.parametrize("algorithm", ["balance", "sketchguard", "ubar"])
+def test_bfloat16_params_train_records_finite_stats(tmp_path, algorithm):
+    # These rules' stats come out in the parameters' dtype; numpy has no
+    # bfloat16, so Network.train must widen them before the host copy.
+    raw = yaml.safe_load(FLAGSHIP.read_text())
+    raw["experiment"].update(rounds=2, verbose=False)
+    raw["topology"] = {"type": "k-regular", "num_nodes": 8, "k": 4}
+    raw["aggregation"] = {"algorithm": algorithm, "params": {}}
+    raw["model"] = {"factory": "leaf.femnist.tiny", "params": {}}
+    raw["data"]["params"] = {"num_samples": 8 * 40}
+    raw["training"].update(local_epochs=1, batch_size=16)
+    raw["tpu"]["param_dtype"] = "bfloat16"
+    path = tmp_path / f"{algorithm}_bf16.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    network = build_network_from_config(load_config(path), device="cpu")
+    history = network.train(rounds=2)
+    assert network.flat.dtype == torch.bfloat16
+    stats = [k for k in history if k.startswith("agg_")]
+    assert stats
+    for k in stats:
+        assert len(history[k]) == 2, k
+        assert all(isinstance(v, float) and math.isfinite(v) for v in history[k]), k
 
 
 def test_distributed_backend_refused_by_name(tmp_path):

@@ -29,18 +29,25 @@ Phases, each of which raises (and exits non-zero) on failure:
    tensors, P = 262,144), where one launch would take 2-column tiles: the
    wrapper splits each into launches of at most 138 rows; and N = 400 (one
    tensor, P = 262,144), one launch of 16-column tiles (the last two also
-   timed the other way);
+   timed the other way); and the wearable-MLP runs' calls at [10, 178,310]:
+   the two pairwise calls and the candidate select's generic path (m = 10,
+   trim 3);
 3b. one round on the card against the same round on the CPU (same initial
    parameters, same injected draws), for each of four seeds, for Krum,
    median, trimmed mean, geometric median, BALANCE, Sketchguard, fedavg and
-   UBAR (both exchanges) on the tiny CNN, and Krum on the evidential
-   wearable MLP with dropout 0.3 and injected masks; the dense geometric
-   median's line prints its derived bound beside the measured delta;
+   UBAR (both exchanges) on the tiny CNN under the gaussian attack; the
+   geometric median under ALIE (dense, and circulant with the coalition
+   estimator), the circulant trimmed mean under IPM, BALANCE under directed
+   deviation and the dense trimmed mean under label flip; and Krum and
+   evidential trust (both exchanges) on the evidential wearable MLP with
+   dropout 0.3 and injected masks; the dense geometric median's lines
+   print the derived bound beside the measured delta;
 3c. one round of the tiny CNN at 64 nodes, k-regular(4), in the parameter
    dtype the configs take by default from 64 nodes up (bfloat16), for
    every ported rule (Krum, geometric median, BALANCE, UBAR and
    Sketchguard in both exchanges, median and trimmed mean under ppermute,
-   fedavg), the counters set to 0 just before and read just after: the
+   fedavg; evidential trust in both exchanges on the evidential wearable
+   MLP), the counters set to 0 just before and read just after: the
    launches each rule makes, no plain call, every kernel call held against
    its plain version on the round's own inputs, and the rule run again on
    the CPU on the round's (own, bcast, adj): equal decisions and outputs
@@ -56,13 +63,20 @@ Phases, each of which raises (and exits non-zero) on failure:
    ``basic_fedavg.yaml``, ``ubar_attack.yaml`` (UBAR, erdos graph),
    ``uci_har_byzantine.yaml`` (Krum on the wearable MLP),
    ``uci_har_dirichlet.yaml`` and ``pamap2_dirichlet.yaml`` (fedavg, the
-   evidential round at full width), each as committed, cut to 3 rounds.
+   evidential round at full width), ``uci_har_evidential_trust.yaml``,
+   ``alie_geometric_median.yaml`` and ``label_flip_poisoning.yaml``, each
+   as committed, cut to 3 rounds; evidential trust and label flip again on
+   backend: tpu under ppermute (the fully-connected graph is the circulant
+   of offsets 1-9: the trimmed mean's m = 10 takes the candidate kernel's
+   generic path); and the flagship under ALIE with the geometric median in
+   both exchanges.
    The counters are set to 0 before each run and read after it: every
-   kernel of that run must launch every round, no plain version may run,
+   kernel of that run must launch every round, no other kernel and no
+   plain version may run,
    the history must have the JAX package's keys for the rule and finite
    values (and the evidential columns for an evidential model); each run
-   prints its peak device memory, and UBAR's its probe forwards' share of
-   the round;
+   prints its peak device memory, and UBAR's and evidential trust's their
+   probe forwards' share of the round;
 5. output: one ``{"kernels": [...]}`` JSON line, the card line, and the
    ``{"ok": true, "device": ...}`` line last.
 
@@ -88,6 +102,9 @@ UBAR_ATTACK = ROOT / "examples" / "configs" / "ubar_attack.yaml"
 UCI_HAR_BYZANTINE = ROOT / "examples" / "configs" / "uci_har_byzantine.yaml"
 UCI_HAR_DIRICHLET = ROOT / "examples" / "configs" / "uci_har_dirichlet.yaml"
 PAMAP2_DIRICHLET = ROOT / "examples" / "configs" / "pamap2_dirichlet.yaml"
+UCI_HAR_EVIDENTIAL_TRUST = ROOT / "examples" / "configs" / "uci_har_evidential_trust.yaml"
+ALIE_GEOMETRIC_MEDIAN = ROOT / "examples" / "configs" / "alie_geometric_median.yaml"
+LABEL_FLIP_POISONING = ROOT / "examples" / "configs" / "label_flip_poisoning.yaml"
 SMOKE_DIR = ROOT / "build" / "murmura_tpu_torch" / "smoke"
 SMOKE_ROUNDS = 3
 REPS = 20
@@ -212,6 +229,7 @@ def check_kernels(results: dict) -> None:
             if not same:
                 raise AssertionError("Krum's selection differs between kernel and plain")
     check_candidate_select(results, own, bcast, offsets)
+    check_wearable_shapes(results)
     own_sk, bcast_sk = check_count_sketch(results, own, bcast)
     del own, bcast
     # Sketchguard's filter: the pairwise kernel on the [16, S] sketches,
@@ -225,6 +243,37 @@ def check_kernels(results: dict) -> None:
     check_distances_n64(results)
     check_candidate_select_n64(results)
     check_circulant_beyond_cap(results)
+
+
+def check_wearable_shapes(results: dict) -> None:
+    """The kernel calls of the 10-node wearable-MLP runs ([10, 178,310]
+    float32, the UCI HAR MLP on the fully-connected graph): the two
+    pairwise calls of Krum (uci_har_byzantine.yaml) and the (iterate,
+    bcast) call of the geometric median (alie_geometric_median.yaml), and
+    the trimmed mean's candidate select under ppermute (offsets 1-9, m =
+    10, trim 3 of trim ratio 0.3: the kernel's generic path;
+    label_flip_poisoning.yaml on backend: tpu)."""
+    import torch
+
+    from murmura_tpu_torch.models.registry import build_model
+    from murmura_tpu_torch.ops.flatten import model_dimension
+
+    dev = torch.device("cuda")
+    model = build_model("wearables.uci_har", {})
+    n = 10
+    p = model_dimension(model.init(torch.Generator(device=dev).manual_seed(0), dev))
+    print(f"[kernels] shapes: N={n} P={p} (the UCI HAR MLP, fully connected)", flush=True)
+    own, bcast = krum_inputs(n, p, 1010)
+    _check_distances(results, "pairwise_sq_distances", f"(bcast, bcast) N={n} P={p}",
+                     (bcast, None, bcast.mean(dim=0)), *_pairwise_fns(),
+                     *_pairwise_work(n, n, p, True))
+    _check_distances(results, "pairwise_sq_distances", f"(own, bcast) N={n} P={p}",
+                     (own, bcast, own.mean(dim=0)), *_pairwise_fns(),
+                     *_pairwise_work(n, n, p, False))
+    check_candidate_select(results, own, bcast, list(range(1, n)),
+                           ((torch.float32, False, 3),), tag=f" N={n}", in_round=True)
+    del own, bcast
+    torch.cuda.empty_cache()
 
 
 def krum_inputs(n: int, p: int, seed: int):
@@ -580,7 +629,8 @@ def kept_calls(mod, attr: str, sink: list, tag=None):
 # Phase 3b's rules: (label, rule, params, stats that must be equal).  The
 # params' "circulant" runs the rule under ppermute's offsets; "wearable"
 # runs the round on the evidential wearable MLP (UCI HAR widths, dropout
-# 0.3, injected masks) instead of the tiny CNN.
+# 0.3, injected masks) instead of the tiny CNN; "attack" (type, params)
+# replaces the gaussian attack of std 10.
 UBAR_STAGES = ("agg_stage1_acceptance_rate", "agg_stage2_acceptance_rate")
 ROUND_RULES = [
     ("krum dense", "krum", {"num_compromised": 1}, ("agg_selected_index",)),
@@ -599,6 +649,22 @@ ROUND_RULES = [
     ("ubar circulant", "ubar", {"rho": 0.8, "circulant": True}, UBAR_STAGES),
     ("krum dense, wearable MLP, dropout 0.3", "krum", {"num_compromised": 1, "wearable": True},
      ("agg_selected_index",)),
+    # The other attacks, and evidential trust on the wearable MLP (trust
+    # threshold 0.1 as in uci_har_evidential_trust.yaml).
+    ("geometric_median dense", "geometric_median",
+     {"attack": ("alie", {"z": 1.5})}, ()),
+    ("geometric_median circulant", "geometric_median",
+     {"circulant": True, "attack": ("alie", {"estimator": "coalition"})}, ()),
+    ("trimmed_mean circulant", "trimmed_mean",
+     {"trim_ratio": 0.2, "circulant": True, "attack": ("ipm", {})}, ()),
+    ("balance dense", "balance",
+     {"attack": ("directed_deviation", {})}, ("agg_acceptance_rate",)),
+    ("trimmed_mean dense", "trimmed_mean",
+     {"trim_ratio": 0.2, "attack": ("label_flip", {})}, ()),
+    ("evidential_trust dense", "evidential_trust",
+     {"trust_threshold": 0.1, "wearable": True}, ("agg_acceptance_rate",)),
+    ("evidential_trust circulant", "evidential_trust",
+     {"trust_threshold": 0.1, "circulant": True, "wearable": True}, ("agg_acceptance_rate",)),
 ]
 
 
@@ -690,7 +756,8 @@ def gm_dense_bound(own, bcast, adj, steps, z, m_cap: int, nu: float = 1e-6,
 
 def check_round_against_cpu(device: str = "cuda") -> None:
     """Phase 3b: one round (16 nodes, k-regular(4), float32 compute, 20%
-    gaussian std 10) per rule and seed on the card and on the CPU, from the
+    compromised: gaussian std 10 unless the row names another attack) per
+    rule and seed on the card and on the CPU, from the
     same initial parameters and the same injected draws (shuffle, noise and
     dropout masks), on the tiny CNN, or on the wearable MLP for the row that
     says so.  The card runs the kernels, the CPU their plain versions; on
@@ -705,7 +772,7 @@ def check_round_against_cpu(device: str = "cuda") -> None:
     import torch
 
     from murmura_tpu_torch.aggregation import build_aggregator
-    from murmura_tpu_torch.attacks.gaussian import make_gaussian_attack
+    from murmura_tpu_torch.attacks import ATTACKS
     from murmura_tpu_torch.core.rounds import build_round_program
     from murmura_tpu_torch.ops import agg_kernels as K
     from murmura_tpu_torch.ops.flatten import model_dimension
@@ -716,7 +783,9 @@ def check_round_against_cpu(device: str = "cuda") -> None:
     inputs = {}
     for label, rule, params, equal_stats in ROUND_RULES:
         wearable = bool(params.get("wearable"))
-        kw = {k: v for k, v in params.items() if k not in ("circulant", "wearable")}
+        kind, attack_kw = params.get("attack", ("gaussian", {"noise_std": 10.0}))
+        kw = {k: v for k, v in params.items() if k not in ("circulant", "wearable", "attack")}
+        dense_gm = rule == "geometric_median" and not params.get("circulant")
         if params.get("circulant"):
             kw["exchange_offsets"] = offsets
         if rule in ("krum", "median", "trimmed_mean", "geometric_median"):
@@ -729,7 +798,10 @@ def check_round_against_cpu(device: str = "cuda") -> None:
             template = model.init(torch.Generator().manual_seed(0), "cpu")
             out, seen, gram = {}, [], []
             for dev in (device, "cpu"):
-                attack = make_gaussian_attack(n, 0.2, noise_std=10.0, seed=seed)
+                attack = ATTACKS[kind](n, 0.2, seed=seed, **attack_kw)
+                if attack.data_poison_fn is not None:
+                    data = dataclasses.replace(data, y=attack.data_poison_fn(
+                        inputs[seed, wearable][1].y, data.mask, data.num_classes))
                 agg = build_aggregator(rule, kw, model_dim=model_dimension(template))
                 if dev == "cpu":
                     real = agg.aggregate
@@ -747,7 +819,7 @@ def check_round_against_cpu(device: str = "cuda") -> None:
                 noise = np.random.default_rng(seed + 1).normal(
                     size=(int(attack.compromised.sum()), prog.model_dim)).astype(np.float32)
                 comp = torch.as_tensor(attack.compromised.astype(np.float32)).to(dev)
-                sink = gram if dev != "cpu" and label == "geometric_median dense" else []
+                sink = gram if dev != "cpu" and dense_gm else []
                 with kept_calls(K, "pairwise_sq_distances", sink):
                     flat, _, metrics = prog.train_step(
                         prog.init_flat, prog.init_agg_state, torch.as_tensor(adj).to(dev), comp,
@@ -757,7 +829,7 @@ def check_round_against_cpu(device: str = "cuda") -> None:
             (f_card, m_card), (f_cpu, m_cpu) = out[device], out["cpu"]
             delta = float((f_card - f_cpu).abs().max() / max(1.0, float(f_cpu.abs().max())))
             deltas.append(delta)
-            if label == "geometric_median dense":
+            if dense_gm:
                 # Each Weiszfeld step's distance call on the card (the last
                 # call only feeds the stats): its iterate z_t and its Gram
                 # discrepancy, kernel against plain version, as [z_i, b_j].
@@ -785,7 +857,8 @@ def check_round_against_cpu(device: str = "cuda") -> None:
                 f"{', '.join(f'{b[0]:.3g}' for b in bounds)}, from this round's Gram "
                 f"discrepancy {', '.join(f'{b[1]:.3g}' for b in bounds)} (every delta under "
                 f"both: {all(d <= min(b) for d, b in zip(deltas, bounds))})")
-        what = "wearable MLP" if params.get("wearable") else "tiny CNN"
+        what = (("wearable MLP" if wearable else "tiny CNN") + f", {kind} attack"
+                + (f" {attack_kw}" if "attack" in params else ""))
         print(f"[round] {label}, {what}, card vs CPU, seeds {list(ROUND_SEEDS)}: scaled "
               f"param delta {', '.join(f'{d:.3g}' for d in deltas)} (largest "
               f"{max(deltas):.3g}, limit 1e-4){shown}: {'ok' if ok else 'FAILED'}", flush=True)
@@ -814,6 +887,10 @@ N64_RULES = [
     ("sketchguard", "allgather", {}, {"count_sketch": 2, "pairwise_sq_distances": 1}, True),
     ("sketchguard", "ppermute", {}, {"count_sketch": 2, "pairwise_sq_distances": 1}, True),
     ("fedavg", "allgather", {}, {}, True),
+    # On the evidential wearable MLP (UCI HAR widths, dropout 0.3), the
+    # trust threshold of uci_har_evidential_trust.yaml.
+    ("evidential_trust", "allgather", {"trust_threshold": 0.1}, {}, True),
+    ("evidential_trust", "ppermute", {"trust_threshold": 0.1}, {}, True),
 ]
 # The stats that are decisions: equal between the card and the CPU.
 DECISIONS = {
@@ -825,6 +902,7 @@ DECISIONS = {
     "sketchguard": ("acceptance_rate",),
     "ubar": ("stage1_acceptance_rate", "stage2_acceptance_rate"),
     "fedavg": ("num_neighbors",),
+    "evidential_trust": ("acceptance_rate",),
 }
 
 
@@ -833,9 +911,10 @@ def bf16_roundings(rule: str, circulant: bool, alpha: float = 0.5) -> float:
     section 2): the bfloat16 roundings, weighted, that the output passes
     through after the first float32 sum whose order differs between the
     card and the CPU.  Krum copies a row and the candidate kernel is
-    bit-equal: 0.  fedavg rounds its mean once: 1.  BALANCE, Sketchguard
-    and UBAR round the neighbour mean, (1 - alpha) times it and the blend:
-    3 + 2 alpha relative to max(|out|, |own|).  The geometric median rounds
+    bit-equal: 0.  fedavg rounds its mean once: 1.  BALANCE, Sketchguard,
+    UBAR and evidential trust round the neighbour mean, (1 - alpha) times it
+    and the blend: 3 + 2 alpha relative to max(|out|, |own|) (evidential
+    trust adds trust_weight_term).  The geometric median rounds
     each of its 9 weighted means once (dense) or twice (circulant)."""
     if rule in ("krum", "median", "trimmed_mean"):
         return 0.0
@@ -844,6 +923,37 @@ def bf16_roundings(rule: str, circulant: bool, alpha: float = 0.5) -> float:
     if rule == "geometric_median":
         return 9.0 * (2 if circulant else 1)
     return 3.0 + 2.0 * alpha
+
+
+def trust_weight_term(state_card, state_cpu, threshold, adj, bcast, bf16_weights: bool,
+                      alpha: float = 0.5):
+    """[N, P] addition to evidential trust's bfloat16 output bound for the
+    trust weights themselves, which the card and the CPU take from their own
+    probe forwards: w_ij = trust_ij on the accepted edges (the carried trust
+    of a first round), cast to bfloat16 on the dense path, which normalises
+    by the cast weights.  A weight moved by dw_ij moves the neighbour mean
+    by sum_j dw_ij (b_j - mean_i) / W_i, at most 2 (sum_j |dw_ij| / W_i)
+    max_{j accepted} |b_j| (the mean is a convex combination; first order),
+    and the output by (1 - alpha) times that.  Zero where the two devices'
+    weights are equal.  Returns (term, max |dw|)."""
+    import torch
+
+    def weights(state):
+        trust = state["smoothed_trust"].cpu()
+        w = torch.where((trust >= threshold) & (adj.cpu() > 0), trust, 0.0)
+        return w.to(torch.bfloat16).float() if bf16_weights else w
+
+    w_card, w_cpu = weights(state_card), weights(state_cpu)
+    dw = (w_card - w_cpu).abs()
+    b = bcast.cpu().float().abs()
+    term = torch.zeros_like(b)
+    if float(dw.max()) == 0.0:
+        return term, 0.0
+    total = torch.clamp(w_cpu.sum(dim=1), min=1e-12)
+    for i in torch.nonzero(dw.sum(dim=1) > 0)[:, 0].tolist():
+        acc = (w_cpu[i] > 0) | (w_card[i] > 0)
+        term[i] = (1.0 - alpha) * 2.0 * float(dw[i].sum() / total[i]) * b[acc].max(dim=0).values
+    return term, float(dw.max())
 
 
 def _kernel_fns():
@@ -951,7 +1061,9 @@ def check_round_n64_bf16() -> dict:
     on the one Krum row that starts them from their own initialisations as
     the configs do: there Krum's scores tie to within the Gram identity's
     float32 noise, either device may pick either of the tied nodes, and
-    krum_tie_check holds each pick within that noise of the exact best."""
+    krum_tie_check holds each pick within that noise of the exact best.
+    Evidential trust takes its weights from each device's own probe
+    forwards, so its bound adds trust_weight_term."""
     import dataclasses
 
     import numpy as np
@@ -988,6 +1100,10 @@ def check_round_n64_bf16() -> dict:
             "backend": "tpu",
             "tpu": {"exchange": exchange, "compute_dtype": "bfloat16"},
         }
+        if rule == "evidential_trust":
+            # Trust reads Dirichlet outputs: the evidential wearable MLP.
+            cfg["data"] = {"adapter": "wearables.uci_har", "params": {"num_samples": 64 * 40}}
+            cfg["model"] = {"factory": "wearables.uci_har", "params": {}}
         SMOKE_DIR.mkdir(parents=True, exist_ok=True)
         path = SMOKE_DIR / f"{tag.replace(':', '_')}.yaml"
         path.write_text(yaml.safe_dump(cfg, sort_keys=False))
@@ -1001,7 +1117,8 @@ def check_round_n64_bf16() -> dict:
                 kept = (own.clone(), bcast.clone(), adj.clone(), round_idx,
                         {k: v.clone() for k, v in state.items()}, ctx)
                 new, new_state, stats = agg.aggregate(own, bcast, adj, round_idx, state, ctx)
-                rule_calls.append((agg, kept, new.clone(), {k: v.clone() for k, v in stats.items()}))
+                rule_calls.append((agg, kept, new.clone(), {k: v.clone() for k, v in stats.items()},
+                                   {k: v.clone() for k, v in new_state.items()}))
                 return new, new_state, stats
 
             return dataclasses.replace(agg, aggregate=aggregate)
@@ -1035,11 +1152,12 @@ def check_round_n64_bf16() -> dict:
             kernel_errs[name] = max(kernel_errs.get(name, 0.0), err)
             del got, ref
         # The rule again on the CPU on the kept inputs.
-        agg, (own, bcast, adj, round_idx, state, ctx), new_card, stats_card = rule_calls[0]
+        (agg, (own, bcast, adj, round_idx, state, ctx), new_card, stats_card,
+         state_card) = rule_calls[0]
         if ctx.probe_x is not None:
             ctx = dataclasses.replace(ctx, probe_x=ctx.probe_x.cpu(), probe_y=ctx.probe_y.cpu(),
                                       probe_mask=ctx.probe_mask.cpu())
-        new_cpu, _, stats_cpu = agg.aggregate(
+        new_cpu, state_cpu, stats_cpu = agg.aggregate(
             own.cpu(), bcast.cpu(), adj.cpu(), round_idx, {k: v.cpu() for k, v in state.items()},
             ctx)
         decisions = DECISIONS[rule] if spread else ()
@@ -1054,13 +1172,23 @@ def check_round_n64_bf16() -> dict:
         else:
             mag = torch.maximum(cpu32.abs(), own.cpu().float().abs())
         diff = (card32 - cpu32).abs()
+        extra, trust_note = 0.0, ""
+        if rule == "evidential_trust":
+            extra, dw = trust_weight_term(state_card, state_cpu, float(stats_cpu["threshold"][0]),
+                                          adj, bcast, bf16_weights=exchange == "allgather")
+            trust_rel = float(((state_card["smoothed_trust"].cpu() - state_cpu["smoothed_trust"])
+                               .abs() / state_cpu["smoothed_trust"].abs().clamp(min=1e-30)).max())
+            trust_note = (f"; trust card vs CPU max rel {trust_rel:.3g}, weights' max |card - "
+                          f"CPU| {dw:.3g} (trust_weight_term, {int((extra > 0).any(1).sum())} "
+                          f"node(s) with a weight term)")
         if spread:
-            out_ok = bool((diff <= r * 2.0 ** -7 * mag).all())
-            slack = float((diff / torch.clamp(r * 2.0 ** -7 * mag, min=1e-30)).max()) if r else 0.0
+            limit = r * 2.0 ** -7 * mag + extra
+            out_ok = bool((diff <= limit).all())
+            slack = float((diff / torch.clamp(limit, min=1e-30)).max()) if r else 0.0
             held = (f"decisions {list(decisions)} "
                     f"{'== CPU' if not unequal else f'differ: {unequal}'}; output max "
                     f"|card - CPU| {float(diff.max()):.3g}, bound r 2^-7 m with r {r:g}, "
-                    f"largest share of the bound {slack:.3g}")
+                    f"largest share of the bound {slack:.3g}{trust_note}")
         else:
             # Both devices' picks are held to the exact scores.
             held = []
@@ -1087,7 +1215,8 @@ def check_round_n64_bf16() -> dict:
         if "own_loss" in stats_card:
             rel = (stats_card["own_loss"].cpu() - stats_cpu["own_loss"]).abs() / stats_cpu["own_loss"]
             loss_note = f"; own_loss card vs CPU max rel {float(rel.max()):.3g} (not gated)"
-        print(f"[round64] {tag}: tiny CNN, 64 nodes, parameters "
+        what = "wearable MLP" if rule == "evidential_trust" else "tiny CNN"
+        print(f"[round64] {tag}: {what}, 64 nodes, parameters "
               f"{str(network.flat.dtype).replace('torch.', '')}; launches {launches} (want "
               f"{expect}), plain-version calls {plain}; {len(calls)} kernel call(s) against "
               f"their plain versions on the round's inputs, max err {kernel_errs}: "
@@ -1116,9 +1245,13 @@ RULE_STATS = {
     "sketchguard": ("acceptance_rate", "threshold", "compression_ratio"),
     "fedavg": ("num_neighbors",),
     "ubar": ("stage1_acceptance_rate", "stage2_acceptance_rate", "own_loss"),
+    "evidential_trust": ("acceptance_rate", "mean_trust", "mean_vacuity", "mean_entropy",
+                         "threshold"),
 }
 # Phase 4's runs: (label, config, exchange, aggregation or None for the
-# config's own, {kernel: launches a round, exact or at least}).
+# config's own, {kernel: launches a round, exact or at least}[, attack
+# replacing the config's]).  An exchange runs the config on backend: tpu.
+# No other kernel may launch.
 MAIN_RUNS = [
     ("krum:allgather", FLAGSHIP, "allgather", None, {"pairwise_sq_distances": (2, "==")}),
     ("krum:ppermute", FLAGSHIP, "ppermute", None, {"circulant_sq_distances": (2, "==")}),
@@ -1149,6 +1282,21 @@ MAIN_RUNS = [
      {"pairwise_sq_distances": (2, "==")}),
     ("fedavg:uci_har_dirichlet", UCI_HAR_DIRICHLET, None, None, {}),
     ("fedavg:pamap2_dirichlet", PAMAP2_DIRICHLET, None, None, {}),
+    ("evidential_trust:uci_har", UCI_HAR_EVIDENTIAL_TRUST, None, None, {}),
+    # The fully-connected graph of 10 nodes is the circulant with offsets 1-9.
+    ("evidential_trust:ppermute", UCI_HAR_EVIDENTIAL_TRUST, "ppermute", None, {}),
+    ("geometric_median:alie", ALIE_GEOMETRIC_MEDIAN, None, None,
+     {"pairwise_sq_distances": (9, "==")}),
+    ("geometric_median:alie_flagship", FLAGSHIP, "allgather",
+     {"algorithm": "geometric_median", "params": {}}, {"pairwise_sq_distances": (9, "==")},
+     {"enabled": True, "type": "alie", "percentage": 0.2, "params": {}}),
+    ("geometric_median:alie_ppermute", FLAGSHIP, "ppermute",
+     {"algorithm": "geometric_median", "params": {}}, {"circulant_sq_distances": (9, "==")},
+     {"enabled": True, "type": "alie", "percentage": 0.2, "params": {}}),
+    ("trimmed_mean:label_flip", LABEL_FLIP_POISONING, None, None, {}),
+    # m = 10 candidates (own + 9 offsets), trim 3: the kernel's generic path.
+    ("trimmed_mean:label_flip_ppermute", LABEL_FLIP_POISONING, "ppermute", None,
+     {"candidate_select": (1, "==")}),
 ]
 
 
@@ -1160,15 +1308,18 @@ def _kernel_modules():
 
 @contextlib.contextmanager
 def timed_probes(events: list):
-    """While open, UBAR's probe forwards (the cross-evaluation and the own
-    loss) record a pair of CUDA events around each call into ``events``:
-    device-stream time, with no synchronisation added to the round."""
+    """While open, the probe forwards of UBAR (the cross-evaluation and the
+    own loss) and of evidential trust (the cross-evaluation) record a pair
+    of CUDA events around each call into ``events``: device-stream time,
+    with no synchronisation added to the round."""
     import torch
 
-    from murmura_tpu_torch.aggregation import ubar
+    from murmura_tpu_torch.aggregation import evidential_trust, ubar
 
-    names = ("pairwise_probe_eval", "circulant_probe_eval", "self_probe_metrics")
-    real = {name: getattr(ubar, name) for name in names}
+    patched = [(ubar, "pairwise_probe_eval"), (ubar, "circulant_probe_eval"),
+               (ubar, "self_probe_metrics"), (evidential_trust, "pairwise_probe_eval"),
+               (evidential_trust, "circulant_probe_eval")]
+    real = {(mod, name): getattr(mod, name) for mod, name in patched}
 
     def timed(fn):
         def wrapper(*args, **kwargs):
@@ -1181,19 +1332,20 @@ def timed_probes(events: list):
             return out
         return wrapper
 
-    for name in names:
-        setattr(ubar, name, timed(real[name]))
+    for mod, name in patched:
+        setattr(mod, name, timed(real[mod, name]))
     try:
         yield
     finally:
-        for name in names:
-            setattr(ubar, name, real[name])
+        for mod, name in patched:
+            setattr(mod, name, real[mod, name])
 
 
-def run_main_path(label, config, exchange, aggregation, expect) -> dict:
+def run_main_path(label, config, exchange, aggregation, expect, attack=None) -> dict:
     """Phase 4: one config through ``murmura_tpu_torch.cli.run`` on the card,
     the kernel counters set to 0 just before and read just after, with the
-    run's peak device memory and, for UBAR, its probe forwards' time."""
+    run's peak device memory and, for UBAR and evidential trust, its probe
+    forwards' time."""
     import numpy as np
     import torch
     import yaml
@@ -1204,9 +1356,12 @@ def run_main_path(label, config, exchange, aggregation, expect) -> dict:
     raw = yaml.safe_load(config.read_text())
     raw["experiment"]["rounds"] = SMOKE_ROUNDS
     if exchange is not None:
-        raw["tpu"]["exchange"] = exchange
+        raw["backend"] = "tpu"
+        raw.setdefault("tpu", {})["exchange"] = exchange
     if aggregation is not None:
         raw["aggregation"] = aggregation
+    if attack is not None:
+        raw["attack"] = attack
     rule = raw["aggregation"]["algorithm"]
     SMOKE_DIR.mkdir(parents=True, exist_ok=True)
     name = label.replace(":", "_")
@@ -1242,6 +1397,9 @@ def run_main_path(label, config, exchange, aggregation, expect) -> dict:
                                  f"{SMOKE_ROUNDS} rounds (want {op} {per_round} a round)")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the card path: {plain}")
+    stray = {k: v for k, v in launches.items() if v and k not in expect}
+    if stray:
+        raise AssertionError(f"kernels this run should not launch did: {stray}")
     hist = json.loads(out.read_text())
     want = set(empty_history()) | {f"agg_{k}" for k in RULE_STATS[rule]}
     if set(hist) != want:
@@ -1259,7 +1417,8 @@ def run_main_path(label, config, exchange, aggregation, expect) -> dict:
     rt = network.round_times
     extra = ""
     for k in ("agg_acceptance_rate", "agg_stage1_acceptance_rate", "agg_stage2_acceptance_rate",
-              "mean_vacuity", "mean_entropy", "mean_strength"):
+              "agg_mean_trust", "agg_threshold", "agg_trimmed_per_side",
+              "mean_vacuity", "mean_entropy", "mean_strength", "honest_accuracy"):
         if hist.get(k):
             extra += f"; {k.replace('agg_', '')} {[round(v, 4) for v in hist[k]]}"
     probe_ms = sum(a.elapsed_time(b) for a, b in probe_events)

@@ -1,11 +1,11 @@
 """Aggregation rules (the PyTorch counterpart of
-murmura_tpu/aggregation/__init__.py).  Evidential trust is refused by name
-until its slice lands."""
+murmura_tpu/aggregation/__init__.py): all nine of the JAX package's."""
 
 from typing import Any, Dict
 
 from murmura_tpu_torch.aggregation.balance import make_balance
 from murmura_tpu_torch.aggregation.base import AggContext, AggregatorDef
+from murmura_tpu_torch.aggregation.evidential_trust import make_evidential_trust
 from murmura_tpu_torch.aggregation.fedavg import make_fedavg
 from murmura_tpu_torch.aggregation.krum import make_krum
 from murmura_tpu_torch.aggregation.robust_stats import (
@@ -25,8 +25,8 @@ AGGREGATORS = {
     "trimmed_mean": make_trimmed_mean,
     "geometric_median": make_geometric_median,
     "ubar": make_ubar,
+    "evidential_trust": make_evidential_trust,
 }
-NOT_PORTED = ("evidential_trust",)
 
 
 def build_aggregator(name: str, params: Dict[str, Any], model_dim: int = 0) -> AggregatorDef:
@@ -36,11 +36,6 @@ def build_aggregator(name: str, params: Dict[str, Any], model_dim: int = 0) -> A
     ``AggContext`` (core/rounds.py), so a ``total_rounds`` param is
     dropped."""
     algo = name.lower()
-    if algo in NOT_PORTED:
-        raise ValueError(
-            f"aggregation rule '{name}' is not ported to the PyTorch package "
-            f"yet (ported: {', '.join(sorted(AGGREGATORS))})"
-        )
     if algo not in AGGREGATORS:
         raise ValueError(f"Unknown aggregation algorithm: {name}")
     params = dict(params or {})
@@ -67,6 +62,7 @@ __all__ = [
     "build_aggregator",
     "make_balance",
     "make_coordinate_median",
+    "make_evidential_trust",
     "make_fedavg",
     "make_geometric_median",
     "make_krum",

@@ -4,8 +4,8 @@ PyTorch counterpart of murmura_tpu/aggregation/probe.py).
 "Evaluate model j on node i's data" is a batched forward: one model at a
 time over every node's probe batch at once ([N*B] samples), so memory
 stays at O(N * B * K) a step and no [N, N*B, ...] activation exists.
-``evidential_trust_metric`` and ``combined_probe_metric`` arrive with
-evidential trust and DMTT.
+``combined_probe_metric`` (the cross-evaluation DMTT shares with the probe
+rules) arrives with DMTT.
 """
 
 from typing import Callable, Dict, Sequence
@@ -15,6 +15,7 @@ import torch
 from torch.func import vmap
 
 from murmura_tpu_torch.aggregation.base import AggContext
+from murmura_tpu_torch.ops.losses import uncertainty_metrics
 
 MetricFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
 
@@ -76,3 +77,22 @@ def accuracy_vacuity_metric(outputs, y, mask) -> Dict[str, torch.Tensor]:
     denom = torch.clamp(mask.sum(), min=1.0)
     acc = ((torch.argmax(outputs, -1) == y).to(torch.float32) * mask).sum() / denom
     return {"accuracy": acc, "vacuity": torch.zeros_like(acc)}
+
+
+def evidential_trust_metric(outputs, y, mask) -> Dict[str, torch.Tensor]:
+    """Masked means over a probe batch of Dirichlet alphas [B, K], in
+    float32: accuracy and the uncertainty metrics (vacuity K / S, entropy
+    of the normalised alphas, strength S)."""
+    alpha = outputs.to(torch.float32)
+    unc = uncertainty_metrics(alpha)
+    denom = torch.clamp(mask.sum(), min=1.0)
+
+    def mean(values):
+        return (values * mask).sum() / denom
+
+    return {
+        "accuracy": mean((torch.argmax(alpha, -1) == y).to(torch.float32)),
+        "vacuity": mean(unc["vacuity"]),
+        "entropy": mean(unc["entropy"]),
+        "strength": mean(unc["strength"]),
+    }

@@ -12,7 +12,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from murmura_tpu_torch.attacks.base import Attack, select_compromised
+from murmura_tpu_torch.attacks.base import Attack, check_rows, select_compromised
 
 
 def make_gaussian_attack(
@@ -30,10 +30,7 @@ def make_gaussian_attack(
         generator: Optional[torch.Generator] = None,
         noise: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        if flat.shape[0] != num_nodes:
-            raise ValueError(
-                f"gaussian attack built for {num_nodes} nodes got {flat.shape[0]} rows"
-            )
+        check_rows("gaussian", flat, num_nodes)
         if not len(comp_idx):
             return flat
         idx = torch.as_tensor(comp_idx, device=flat.device)

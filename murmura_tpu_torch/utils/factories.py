@@ -1,9 +1,10 @@
 """Config -> object wiring (the PyTorch counterpart of the plain path of
 murmura_tpu/utils/factories.py).
 
-``build_network_from_config`` builds data, model, topology, the gaussian
-attack, the aggregation rule and the round program, and refuses by name
-every part of the configuration surface the port does not run yet — a
+``build_network_from_config`` builds data, model, topology, the attack
+(with its label poison), the aggregation rule and the round program, and
+refuses by name every part of the configuration surface the port does not
+run yet — a
 refused section is an error, never a silent fallback.
 """
 
@@ -13,7 +14,7 @@ import torch
 
 from murmura_tpu_torch.aggregation import build_aggregator
 from murmura_tpu_torch.attacks import ATTACKS
-from murmura_tpu_torch.attacks.base import Attack
+from murmura_tpu_torch.attacks.base import Attack, select_compromised
 from murmura_tpu_torch.config.schema import Config
 from murmura_tpu_torch.core.network import Network
 from murmura_tpu_torch.core.rounds import build_round_program
@@ -89,20 +90,57 @@ def resolved_param_dtype(config: Config) -> Optional[str]:
     return "bfloat16" if config.topology.num_nodes >= 64 else "float32"
 
 
+def select_compromised_count(n: int, pct: float, seed: int) -> int:
+    """Size of the compromised set a (n, pct, seed) selection yields."""
+    return int(select_compromised(n, pct, seed).sum())
+
+
 def build_attack(config: Config) -> Optional[Attack]:
-    """The gaussian attack; its seed is attack.params.seed, else the
-    experiment seed; its std is attack.params.noise_std, or ``std`` as the
-    reference configs name it."""
+    """The configured attack.  Its seed is attack.params.seed, else the
+    experiment seed; each type reads its own params as the JAX factories
+    do (gaussian ``noise_std`` or ``std``, directed ``lambda_param``, ALIE
+    ``z`` and ``estimator``, IPM ``epsilon``, label flip
+    ``flip_fraction``)."""
     if not config.attack.enabled or not config.attack.type:
         return None
+    n = config.topology.num_nodes
+    pct = config.attack.percentage
     p = config.attack.params
     seed = int(p.get("seed", config.experiment.seed))
-    return ATTACKS[config.attack.type](
-        num_nodes=config.topology.num_nodes,
-        attack_percentage=config.attack.percentage,
-        noise_std=float(p.get("noise_std", p.get("std", 10.0))),
-        seed=seed,
-    )
+    kind = config.attack.type
+    if kind == "gaussian":
+        return ATTACKS[kind](num_nodes=n, attack_percentage=pct, seed=seed,
+                             noise_std=float(p.get("noise_std", p.get("std", 10.0))))
+    if kind == "directed_deviation":
+        return ATTACKS[kind](num_nodes=n, attack_percentage=pct, seed=seed,
+                             lambda_param=float(p.get("lambda_param", -5.0)))
+    if kind == "alie":
+        estimator = str(p.get("estimator", "omniscient"))
+        if estimator not in ("omniscient", "coalition"):
+            raise ConfigError(
+                f"attack.params.estimator must be 'omniscient' or 'coalition', "
+                f"got {estimator!r}"
+            )
+        if estimator == "coalition" and select_compromised_count(n, pct, seed) < 2:
+            # With one colluder sigma is 0 and mu - z*sigma is its own benign
+            # state: a run labelled ALIE that attacks nothing.
+            raise ConfigError(
+                "the ALIE coalition estimator needs at least 2 compromised nodes "
+                "(mu/sigma over the coalition sample is degenerate with 1); raise "
+                "attack.percentage, or use the omniscient estimator"
+            )
+        return ATTACKS[kind](num_nodes=n, attack_percentage=pct, seed=seed,
+                             z=p.get("z"), estimator=estimator)
+    if kind == "ipm":
+        return ATTACKS[kind](num_nodes=n, attack_percentage=pct, seed=seed,
+                             epsilon=p.get("epsilon"))
+    if kind == "label_flip":
+        ff = float(p.get("flip_fraction", 1.0))
+        if not 0.0 < ff <= 1.0:
+            raise ConfigError(f"attack.params.flip_fraction must be in (0, 1], got {ff}")
+        return ATTACKS[kind](num_nodes=n, attack_percentage=pct, seed=seed,
+                             flip_fraction=ff)
+    raise ConfigError(f"attack.type: {kind} is not ported")
 
 
 def resolve_model(config: Config, data):
@@ -174,6 +212,20 @@ def build_network_from_config(config: Config, device="cuda") -> Network:
         seed=config.topology.seed,
     )
     attack = build_attack(config)
+    if attack is not None and attack.data_poison_fn is not None:
+        if data.x_test is None:
+            # Without a held-out split the evaluation reads the training
+            # shard, flipped labels included: the metric would measure the
+            # poison, not its damage.
+            raise ConfigError(
+                "data-poisoning attacks need a clean eval split: this "
+                "adapter/config evaluates on the training shard "
+                "(holdout_fraction: 0.0); set holdout_fraction > 0 or "
+                "use an adapter with test shards"
+            )
+        # Before the round program copies the labels: the probe batches
+        # see the poisoned labels too.
+        data.y = attack.data_poison_fn(data.y, data.mask, data.num_classes)
 
     # tpu.pallas_agg selects nothing here: on the card the distance kernels
     # are the implementation, with no alternative path to opt out to.
@@ -191,6 +243,11 @@ def build_network_from_config(config: Config, device="cuda") -> Network:
         agg_params.setdefault(
             "max_candidates", int(topology.mask().sum(axis=1).max()) + 1
         )
+    # Evidential trust probes max_eval_samples a node; UBAR one batch.
+    if config.aggregation.algorithm == "evidential_trust":
+        probe_size = int(agg_params.get("max_eval_samples", 100))
+    else:
+        probe_size = config.training.batch_size
     model_dim = 0
     if config.aggregation.algorithm == "sketchguard":
         # Only Sketchguard's tables need the model dimension up front.
@@ -210,7 +267,7 @@ def build_network_from_config(config: Config, device="cuda") -> Network:
         total_rounds=config.experiment.rounds,
         attack=attack,
         seed=seed,
-        probe_size=config.training.batch_size,
+        probe_size=probe_size,
         param_dtype=resolved_param_dtype(config),
         device=device,
     )

@@ -460,3 +460,37 @@ def test_ubar_decisions_on_the_card_equal_the_cpu(dev, circulant):
     assert float(st_c["stage2_acceptance_rate"].min()) < 1.0
     torch.testing.assert_close(st_c["own_loss"], st_p["own_loss"], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(new_c, new_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "name,exchange,kernel,per_round",
+    [("uci_har_evidential_trust", None, None, 0),
+     ("alie_geometric_median", None, "pairwise_sq_distances", 9),
+     ("label_flip_poisoning", None, None, 0),
+     # m = 10 candidates on the fully-connected 10-node graph: the generic path.
+     ("label_flip_poisoning", "ppermute", "candidate_select", 1)],
+)
+def test_cli_run_of_the_lever_free_configs(dev, tmp_path, name, exchange, kernel, per_round):
+    # As committed but for fewer synthetic samples and two rounds.
+    from pathlib import Path
+
+    from murmura_tpu_torch import cli
+
+    root = Path(__file__).resolve().parents[1]
+    raw = yaml.safe_load((root / "examples" / "configs" / f"{name}.yaml").read_text())
+    raw["experiment"].update(rounds=2, verbose=False)
+    raw["data"]["params"]["num_samples"] = 400
+    if exchange is not None:
+        raw["backend"] = "tpu"
+        raw["tpu"] = {"exchange": exchange}
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    mods = (K, C, SK)
+    for mod in mods:
+        mod.reset_counts()
+    history, network = cli.run(path, output=tmp_path / "h.json", device="cuda")
+    launches = {**K.LAUNCHES, **C.LAUNCHES, **SK.LAUNCHES}
+    assert launches == {k: (2 * per_round if k == kernel else 0) for k in launches}
+    assert not any(v for mod in mods for v in mod.PLAIN_CALLS.values())
+    assert all(np.isfinite(v).all() for v in history.values())
+    assert bool(torch.isfinite(network.flat).all())

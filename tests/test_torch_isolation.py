@@ -3,7 +3,8 @@ and it never moves to the CPU unless asked to.
 
 - In a fresh interpreter, importing every module of ``murmura_tpu_torch``
   and running one CPU round each of Krum, the circulant median,
-  Sketchguard, UBAR (both exchanges) and an evidential wearable-MLP round
+  Sketchguard, UBAR (both exchanges), an evidential wearable-MLP round,
+  evidential trust (both exchanges) and the geometric median under ALIE
   loads no ``jax`` and no ``murmura_tpu.*`` module (counted against what
   the interpreter had loaded at start).
 - An AST scan of the port and of chip_smoke.py finds no such import.
@@ -55,7 +56,14 @@ for name, params in (("krum", {"num_compromised": 1}),
                      ("sketchguard", {"sketch_size": 100}),
                      ("ubar", {"rho": 0.8}),
                      ("ubar", {"rho": 0.8, "exchange_offsets": [1, 2, 6, 7]}),
-                     ("wearables", {"num_compromised": 1})):
+                     ("wearables", {"num_compromised": 1}),
+                     ("evidential_trust", {}),
+                     ("evidential_trust", {"exchange_offsets": [1, 2, 6, 7]}),
+                     ("alie", {})):
+    if name == "alie":
+        from murmura_tpu_torch.attacks.alie import make_alie_attack
+        attack = make_alie_attack(8, 0.25, seed=1)
+        name = "geometric_median"
     if name == "wearables":
         data = build_federated_data("wearables.uci_har", {"num_samples": 160}, num_nodes=8,
                                     seed=1)

@@ -13,7 +13,9 @@
 - Every example config the port does not run is refused by name, and
   ``basic_fedavg.yaml`` (fedavg, fully connected, the LEAF FEMNIST CNN)
   runs; so do ``ubar_attack.yaml`` (UBAR on an erdos graph) and UBAR on
-  the flagship under ppermute, cut to the tiny CNN.
+  the flagship under ppermute, cut to the tiny CNN; and the three
+  lever-free configs of evidential trust, ALIE and label flip, with the
+  JAX package's history keys.
 - The tiny flagship with ``aggregation: sketchguard`` (carried state, the
   ``total_rounds`` schedule) runs through both CLIs with the same history
   keys, the same acceptance and accuracy in the same band.
@@ -33,6 +35,7 @@ import yaml
 
 from murmura_tpu.config import load_config as jax_load_config
 from murmura_tpu import levers as jax_levers
+from murmura_tpu.core.network import empty_history as jax_empty_history
 from murmura_tpu_torch import levers
 from murmura_tpu_torch.config import load_config
 from murmura_tpu_torch.utils.factories import ConfigError, build_network_from_config
@@ -146,7 +149,8 @@ def test_lever_refusals_are_the_jax_packages():
 
 
 PORTED = {"femnist_krum_tpu", "basic_fedavg", "ubar_attack", "uci_har_byzantine",
-          "uci_har_dirichlet", "pamap2_dirichlet"}
+          "uci_har_dirichlet", "pamap2_dirichlet", "uci_har_evidential_trust",
+          "alie_geometric_median", "label_flip_poisoning"}
 
 
 @pytest.mark.parametrize(
@@ -170,6 +174,39 @@ def test_basic_fedavg_runs_on_cpu():
     assert history["agg_num_neighbors"] == [4.0, 4.0]  # fully connected, 5 nodes
     assert all(0.0 <= a <= 1.0 for a in history["mean_accuracy"])
     assert bool(torch.isfinite(network.flat).all())
+
+
+# The rule stats each lever-free config records (the JAX package's agg_* keys).
+LEVER_FREE = {
+    "uci_har_evidential_trust": ("acceptance_rate", "mean_trust", "mean_vacuity",
+                                 "mean_entropy", "threshold"),
+    "alie_geometric_median": ("num_candidates", "max_weight_share", "mean_dist_to_gm"),
+    "label_flip_poisoning": ("num_candidates", "trimmed_per_side"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LEVER_FREE))
+def test_lever_free_configs_run_on_cpu(name):
+    # As committed except for the data size (fewer synthetic samples) and
+    # two rounds; the wearable MLP keeps its published widths.
+    config = load_config(ROOT / "examples" / "configs" / f"{name}.yaml")
+    config.data.params = {**config.data.params, "num_samples": 40 * config.topology.num_nodes}
+    config.experiment.rounds = 2
+    config.experiment.verbose = False
+    network = build_network_from_config(config, device="cpu")
+    history = network.train(rounds=2)
+    assert set(history) == set(jax_empty_history()) | {f"agg_{k}" for k in LEVER_FREE[name]}
+    for k, v in history.items():
+        assert len(v) == 2 and all(math.isfinite(x) for x in v), k
+    assert bool(torch.isfinite(network.flat).all())
+    if name == "uci_har_evidential_trust":
+        # The probe takes max_eval_samples (100) a node, not the batch (32).
+        s = network.program.data["x"].shape[1]
+        assert network.program.data["probe_x"].shape[1] == min(100, s) > 32
+        assert min(history["agg_acceptance_rate"]) < 1.0  # the std-10 senders rejected
+    if name == "label_flip_poisoning":
+        # The compromised nodes train on rotated labels.
+        assert network.attack.trains_locally and network.attack.data_poison_fn is not None
 
 
 @pytest.mark.parametrize("which", ["ubar_attack", "flagship_ppermute"])

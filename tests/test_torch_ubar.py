@@ -24,6 +24,7 @@ import pytest
 import torch
 from jax.flatten_util import ravel_pytree
 
+from murmura_tpu.aggregation import AGGREGATORS as JAX_AGGREGATORS
 from murmura_tpu.aggregation.base import AggContext as JaxCtx
 from murmura_tpu.aggregation.base import rank_mask as jax_rank_mask
 from murmura_tpu.aggregation.probe import accuracy_vacuity_metric as jax_acc_metric
@@ -32,7 +33,7 @@ from murmura_tpu.aggregation.probe import circulant_probe_eval as jax_circulant_
 from murmura_tpu.aggregation.probe import pairwise_probe_eval as jax_pairwise_probe
 from murmura_tpu.aggregation.ubar import make_ubar as jax_make_ubar
 from murmura_tpu.models.mlp import make_mlp as jax_mlp
-from murmura_tpu_torch.aggregation import NOT_PORTED, build_aggregator
+from murmura_tpu_torch.aggregation import AGGREGATORS, build_aggregator
 from murmura_tpu_torch.aggregation.base import AggContext, rank_mask
 from murmura_tpu_torch.aggregation.probe import (
     accuracy_vacuity_metric,
@@ -180,7 +181,10 @@ def test_ubar_fallback_to_best_loss_matches_jax():
 
 
 def test_ubar_is_registered():
-    assert NOT_PORTED == ("evidential_trust",)
+    # Every rule of the JAX package is ported: UBAR and evidential trust
+    # build by name, and an unknown name is refused.
+    assert set(AGGREGATORS) == set(JAX_AGGREGATORS)
     assert build_aggregator("ubar", {"rho": 0.8}).name == "ubar"
-    with pytest.raises(ValueError, match="not ported"):
-        build_aggregator("evidential_trust", {})
+    assert build_aggregator("evidential_trust", {}).name == "evidential_trust"
+    with pytest.raises(ValueError, match="Unknown aggregation algorithm"):
+        build_aggregator("no_such_rule", {})

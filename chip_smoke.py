@@ -31,7 +31,11 @@ Phases, each of which raises (and exits non-zero) on failure:
    tensor, P = 262,144), one launch of 16-column tiles (the last two also
    timed the other way); and the wearable-MLP runs' calls at [10, 178,310]:
    the two pairwise calls and the candidate select's generic path (m = 10,
-   trim 3);
+   trim 3); then the compressed exchange's codec (plain tensor code, no
+   kernel row) on the card against the CPU at [16, 6,603,710] float32 and
+   bfloat16: int8 ``q`` and ``scale``, and top-k's decoded tensor,
+   residual and reference with ties planted at the k-th magnitude, all
+   bit-equal, each timed;
 3b. one round on the card against the same round on the CPU (same initial
    parameters, same injected draws), for each of four seeds, for Krum,
    median, trimmed mean, geometric median, BALANCE, Sketchguard, fedavg and
@@ -41,13 +45,20 @@ Phases, each of which raises (and exits non-zero) on failure:
    deviation and the dense trimmed mean under label flip; and Krum and
    evidential trust (both exchanges) on the evidential wearable MLP with
    dropout 0.3 and injected masks; the dense geometric median's lines
-   print the derived bound beside the measured delta;
+   print the derived bound beside the measured delta; Krum under the fault
+   model (a dead node, a node with no alive neighbour, a NaN-injected node,
+   an attack row overflowing to inf: the fault stats exactly equal); Krum
+   (both exchanges) and the median (ppermute) under int8 and Krum under
+   top-k, error feedback on, each held to equal decisions and the derived
+   ``codec_bound``, printed with the codes that differ;
 3c. one round of the tiny CNN at 64 nodes, k-regular(4), in the parameter
    dtype the configs take by default from 64 nodes up (bfloat16), for
    every ported rule (Krum, geometric median, BALANCE, UBAR and
    Sketchguard in both exchanges, median and trimmed mean under ppermute,
    fedavg; evidential trust in both exchanges on the evidential wearable
-   MLP), the counters set to 0 just before and read just after: the
+   MLP), and Krum and the median under int8 ppermute and Krum under
+   chaos_churn.yaml's faults, the counters set to 0 just before and read
+   just after: the
    launches each rule makes, no plain call, every kernel call held against
    its plain version on the round's own inputs, and the rule run again on
    the CPU on the round's (own, bcast, adj): equal decisions and outputs
@@ -68,8 +79,16 @@ Phases, each of which raises (and exits non-zero) on failure:
    as committed, cut to 3 rounds; evidential trust and label flip again on
    backend: tpu under ppermute (the fully-connected graph is the circulant
    of offsets 1-9: the trimmed mean's m = 10 takes the candidate kernel's
-   generic path); and the flagship under ALIE with the geometric median in
-   both exchanges.
+   generic path); the flagship under ALIE with the geometric median in
+   both exchanges; ``chaos_churn.yaml`` (5 rounds) and
+   ``compressed_exchange.yaml``; the flagship's Krum under chaos_churn's
+   faults: section (both exchanges), under int8 (both exchanges, and the
+   median under ppermute) and under top-k; and the flagship's Krum over 6
+   rounds per round and fused in chunks of 2 (tpu.rounds_per_dispatch),
+   the histories within a scaled 1e-4, no synchronising call inside a
+   chunk.  A faulted run holds its alive and quarantined counts to the
+   schedule and every kernel input finite; a compressed run prints its
+   payload bytes an edge.
    The counters are set to 0 before each run and read after it: every
    kernel of that run must launch every round, no other kernel and no
    plain version may run,
@@ -77,7 +96,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    values (and the evidential columns for an evidential model); each run
    prints its peak device memory, and UBAR's and evidential trust's their
    probe forwards' share of the round;
-5. output: one ``{"kernels": [...]}`` JSON line, the card line, and the
+5. output: the codec's times beside the flagship round's, one
+   ``{"kernels": [...]}`` JSON line, the card line, and the
    ``{"ok": true, "device": ...}`` line last.
 
 It imports nothing of JAX or of the JAX package.  Without CUDA, or run
@@ -105,6 +125,8 @@ PAMAP2_DIRICHLET = ROOT / "examples" / "configs" / "pamap2_dirichlet.yaml"
 UCI_HAR_EVIDENTIAL_TRUST = ROOT / "examples" / "configs" / "uci_har_evidential_trust.yaml"
 ALIE_GEOMETRIC_MEDIAN = ROOT / "examples" / "configs" / "alie_geometric_median.yaml"
 LABEL_FLIP_POISONING = ROOT / "examples" / "configs" / "label_flip_poisoning.yaml"
+CHAOS_CHURN = ROOT / "examples" / "configs" / "chaos_churn.yaml"
+COMPRESSED_EXCHANGE = ROOT / "examples" / "configs" / "compressed_exchange.yaml"
 SMOKE_DIR = ROOT / "build" / "murmura_tpu_torch" / "smoke"
 SMOKE_ROUNDS = 3
 REPS = 20
@@ -243,6 +265,84 @@ def check_kernels(results: dict) -> None:
     check_distances_n64(results)
     check_candidate_select_n64(results)
     check_circulant_beyond_cap(results)
+
+
+def check_codec() -> dict:
+    """Phase 3, the compressed exchange's codec (plain tensor code; no
+    kernel row): on the card against the CPU on the same input, at the
+    flagship's [16, P] in float32 and bfloat16.  int8 of block 256 (a third
+    of one row zero, so some blocks are all zero): ``q`` and ``scale``
+    bit-equal.  Top-k of ratio 0.05 with error feedback, two chained calls,
+    the first from a zero reference with each row's k-th magnitude planted
+    on 1.5 k entries of both signs (bfloat16 rows tie on their own): the
+    decoded tensor, the residual and the reference bit-equal.  Each timed
+    by CUDA events.  Returns {case: ms a call}."""
+    import torch
+
+    from murmura_tpu_torch.models.registry import build_model
+    from murmura_tpu_torch.ops.compress import (
+        CompressionSpec, compress_exchange, init_compress_state, quantize_int8)
+    from murmura_tpu_torch.ops.flatten import model_dimension
+
+    dev = torch.device("cuda")
+    model = build_model("leaf.femnist.baseline", {})
+    p = model_dimension(model.init(torch.Generator(device=dev).manual_seed(0), dev))
+    n = 16
+    ms = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        g = torch.Generator().manual_seed(77)
+        x = torch.randn((n, p), generator=g) * torch.logspace(-3, 2, n)[:, None]
+        x[1, : p // 3] = 0.0
+        x = x.to(dtype)
+        xc = x.to(dev)
+        q_cpu, q_card = quantize_int8(x, 256), quantize_int8(xc, 256)
+        ok = torch.equal(q_card.q.cpu(), q_cpu.q) and torch.equal(q_card.scale.cpu(), q_cpu.scale)
+        ms[f"quantize_int8 {dname}"] = time_ms(lambda: quantize_int8(xc, 256))
+        int8 = CompressionSpec("int8", block=256, error_feedback=True)
+        st = init_compress_state(int8, xc)
+        ms[f"int8 exchange {dname}"] = time_ms(lambda: compress_exchange(int8, xc, st, True))
+        print(f"[codec] int8 {dname} [{n}, {p}] block 256: q, scale card == CPU: {ok}; "
+              f"quantize {ms[f'quantize_int8 {dname}']:.3f} ms, compress_exchange with error "
+              f"feedback {ms[f'int8 exchange {dname}']:.3f} ms", flush=True)
+        if not ok:
+            raise AssertionError(f"the int8 codec differs between the card and the CPU ({dname})")
+        del q_cpu, q_card, st
+
+        topk = CompressionSpec("topk", topk_ratio=0.05, error_feedback=True)
+        k = topk.topk_k(p)
+        y = torch.randn((n, p), generator=g)
+        kth = y.abs().float().topk(k, dim=1).values[:, -1:]
+        pos = torch.stack([torch.randperm(p, generator=g)[: 3 * k // 2] for _ in range(n)])
+        signs = torch.where(torch.rand(pos.shape, generator=g) < 0.5, 1.0, -1.0)
+        y.scatter_(1, pos, kth * signs)
+        y = y.to(dtype)
+        states = {"cpu": init_compress_state(topk, torch.zeros_like(y)),
+                  "card": init_compress_state(topk, torch.zeros_like(y).to(dev))}
+        equal = True
+        for step, inp in enumerate((y, (y.float() + 0.01 * torch.randn(
+                (n, p), generator=g)).to(dtype))):
+            res = {}
+            for where, t in (("cpu", inp), ("card", inp.to(dev))):
+                _, dec, up, _ = compress_exchange(topk, t, states[where], False)
+                states[where] = {**states[where], **up}
+                res[where] = (dec, up)
+            equal = equal and torch.equal(res["card"][0].cpu(), res["cpu"][0]) and all(
+                torch.equal(res["card"][1][key].cpu(), res["cpu"][1][key]) for key in res["cpu"][1])
+        yc = y.to(dev)
+        st = states["card"]
+        ms[f"top-k exchange {dname}"] = time_ms(lambda: compress_exchange(topk, yc, st, False))
+        mag = y.abs().float()
+        ties = int(((mag == mag.topk(k, dim=1).values[:, -1:]).sum(dim=1) > 1).sum())
+        print(f"[codec] top-k {dname} [{n}, {p}] ratio 0.05 (k = {k}), error feedback, two "
+              f"chained calls, {ties} of {n} rows with ties at the k-th magnitude: decoded, "
+              f"residual and reference card == CPU: {equal}; compress_exchange "
+              f"{ms[f'top-k exchange {dname}']:.3f} ms", flush=True)
+        if not equal:
+            raise AssertionError(f"the top-k codec differs between the card and the CPU ({dname})")
+        del x, xc, y, yc, states, st, res
+        torch.cuda.empty_cache()
+    return ms
 
 
 def check_wearable_shapes(results: dict) -> None:
@@ -632,6 +732,10 @@ def kept_calls(mod, attr: str, sink: list, tag=None):
 # 0.3, injected masks) instead of the tiny CNN; "attack" (type, params)
 # replaces the gaussian attack of std 10.
 UBAR_STAGES = ("agg_stage1_acceptance_rate", "agg_stage2_acceptance_rate")
+# The codecs of the compressed runs: int8 of block 256 and top-k of ratio
+# 0.05, each with error feedback.
+INT8_EF = {"algorithm": "int8", "block": 256, "error_feedback": True}
+TOPK_EF = {"algorithm": "topk", "topk_ratio": 0.05, "error_feedback": True}
 ROUND_RULES = [
     ("krum dense", "krum", {"num_compromised": 1}, ("agg_selected_index",)),
     ("krum circulant", "krum", {"num_compromised": 1, "circulant": True}, ("agg_selected_index",)),
@@ -665,6 +769,21 @@ ROUND_RULES = [
      {"trust_threshold": 0.1, "wearable": True}, ("agg_acceptance_rate",)),
     ("evidential_trust circulant", "evidential_trust",
      {"trust_threshold": 0.1, "circulant": True, "wearable": True}, ("agg_acceptance_rate",)),
+    # The fault model (FAULT_* nodes; 1 of 16 an IPM attacker, epsilon
+    # 1e39), and the compressed exchange with error feedback.
+    ("krum dense, faulted", "krum",
+     {"num_compromised": 1, "faults": True, "pct": 1 / 16,
+      "attack": ("ipm", {"epsilon": 1e39})},
+     ("agg_alive", "agg_quarantined", "agg_attack_scrubbed", "agg_selected_index")),
+    ("krum dense, int8", "krum",
+     {"num_compromised": 1, "compression": INT8_EF}, ("agg_selected_index",)),
+    ("krum circulant, int8", "krum",
+     {"num_compromised": 1, "circulant": True, "compression": INT8_EF},
+     ("agg_selected_index",)),
+    ("median circulant, int8", "median",
+     {"circulant": True, "compression": INT8_EF}, ("agg_num_candidates",)),
+    ("krum dense, top-k", "krum",
+     {"num_compromised": 1, "compression": TOPK_EF}, ("agg_selected_index",)),
 ]
 
 
@@ -754,6 +873,56 @@ def gm_dense_bound(own, bcast, adj, steps, z, m_cap: int, nu: float = 1e-6,
     return (total + (len(steps) + 1) * sums) / max(1.0, float(z.abs().max()))
 
 
+def codec_bound(spec, x_card, x_cpu, ref, own_card, own_cpu, out_cpu):
+    """The derived bound on the scaled card-against-CPU delta of a
+    compressed round whose rule copies a candidate row or takes a
+    coordinate-wise order statistic of the candidates (Krum, the median):
+    each output element then moves by at most the largest move of a
+    candidate element: an own row's (|own_card - own_cpu|, from training)
+    or a decoded row's.  A decoded element moves by at most the codec's
+    input delta carried through, plus one step where its code differs
+    between the devices.  int8: |q_a s_a - q_b s_b| <= |q_a| |s_a - s_b| +
+    s_b |q_a - q_b| <= max_block |dx| + s_b |dq| (|q| <= 127, s = max|x| /
+    127).  top-k (the same reference on both): |dx| where both devices pick
+    the element, max |x - ref| where only one does.  ``x_*`` are the codec
+    inputs (broadcast plus residual, float32).  The codes of the card are
+    recomputed on the CPU from the card's input (the codec is bit-equal
+    between the devices: phase 3).  Returns (bound scaled by max(1,
+    max|out|), codes or picks that differ, max |dx|)."""
+    import torch
+
+    from murmura_tpu_torch.ops.compress import quantize_int8, topk_mask
+
+    xa, xb = x_card.cpu(), x_cpu.cpu()
+    dx = (xa - xb).abs()
+    n, p = xb.shape
+    if spec.algorithm == "int8":
+        qa, qb = quantize_int8(xa, spec.block), quantize_int8(xb, spec.block)
+        pad = qb.q.shape[1] - p
+        dx_blk = torch.nn.functional.pad(dx, (0, pad)).reshape(n, -1, spec.block).amax(-1)
+        dq = (qa.q.to(torch.int16) - qb.q.to(torch.int16)).abs().to(torch.float32)
+        step = (dq.reshape(n, -1, spec.block) * qb.scale[:, :, None]).reshape(n, -1)[:, :p]
+        elem = torch.repeat_interleave(dx_blk, spec.block, dim=1)[:, :p] + step
+        differ = int((dq > 0).sum())
+    else:
+        ref = ref.cpu().float()
+        da, db = xa - ref, xb - ref
+        k = spec.topk_k(p)
+        ma, mb = topk_mask(da.abs(), k), topk_mask(db.abs(), k)
+        elem = torch.where(ma & mb, dx, 0.0) + torch.where(
+            ma ^ mb, torch.maximum(da.abs(), db.abs()), 0.0)
+        differ = int((ma ^ mb).sum())
+    d_own = float((own_card.cpu().float() - own_cpu.cpu().float()).abs().max())
+    total = max(d_own, float(elem.max()))
+    return total / max(1.0, float(out_cpu.abs().max())), differ, float(dx.max())
+
+
+# The faulted rows of phase 3b: node 5 dead, node 6's one link goes to node
+# 5 (no alive neighbour), node 2 emits NaN, and one IPM attacker whose
+# broadcast overflows to inf (epsilon 1e39).
+FAULT_DEAD, FAULT_ISOLATED, FAULT_NAN = 5, 6, 2
+
+
 def check_round_against_cpu(device: str = "cuda") -> None:
     """Phase 3b: one round (16 nodes, k-regular(4), float32 compute, 20%
     compromised: gaussian std 10 unless the row names another attack) per
@@ -764,8 +933,13 @@ def check_round_against_cpu(device: str = "cuda") -> None:
     every seed the post-round parameters must agree to a scaled delta of
     1e-4, and Krum's selection, the filters' acceptance and UBAR's two
     stages must be equal.  The dense geometric median's line also prints
-    the derived bound on its delta (gm_dense_bound).  Every seed runs
-    before a failure is raised, so the line shows the largest delta."""
+    the derived bound on its delta (gm_dense_bound).  The faulted row (a
+    dead node, a node with no alive neighbour, a NaN-injected node, an
+    attack row overflowing to inf) holds the fault stats exactly equal.
+    The compressed rows (int8 or top-k, with error feedback from a non-zero
+    residual) hold the decisions equal and the delta within codec_bound,
+    printed beside it with the codes that differ.  Every seed runs before a
+    failure is raised, so the line shows the largest delta."""
     import dataclasses
 
     import numpy as np
@@ -773,62 +947,110 @@ def check_round_against_cpu(device: str = "cuda") -> None:
 
     from murmura_tpu_torch.aggregation import build_aggregator
     from murmura_tpu_torch.attacks import ATTACKS
+    from murmura_tpu_torch.core import rounds as rounds_mod
     from murmura_tpu_torch.core.rounds import build_round_program
+    from murmura_tpu_torch.faults.schedule import FaultSpec
     from murmura_tpu_torch.ops import agg_kernels as K
+    from murmura_tpu_torch.ops.compress import RESIDUAL_KEY, CompressionSpec
     from murmura_tpu_torch.ops.flatten import model_dimension
     from murmura_tpu_torch.topology.generators import create_topology
 
     n, offsets = 16, [1, 2, 14, 15]
-    adj = create_topology("k-regular", n, k=4).mask()
+    base_adj = create_topology("k-regular", n, k=4).mask()
+    fault_adj = base_adj.copy()
+    fault_adj[FAULT_ISOLATED, :] = fault_adj[:, FAULT_ISOLATED] = 0.0
+    fault_adj[FAULT_ISOLATED, FAULT_DEAD] = fault_adj[FAULT_DEAD, FAULT_ISOLATED] = 1.0
+    alive_np = np.ones(n, np.float32)
+    alive_np[FAULT_DEAD] = 0.0
     inputs = {}
     for label, rule, params, equal_stats in ROUND_RULES:
         wearable = bool(params.get("wearable"))
+        faulted = bool(params.get("faults"))
+        comp_kw = params.get("compression")
         kind, attack_kw = params.get("attack", ("gaussian", {"noise_std": 10.0}))
-        kw = {k: v for k, v in params.items() if k not in ("circulant", "wearable", "attack")}
+        pct = params.get("pct", 0.2)
+        kw = {k: v for k, v in params.items()
+              if k not in ("circulant", "wearable", "attack", "faults", "compression", "pct")}
         dense_gm = rule == "geometric_median" and not params.get("circulant")
         if params.get("circulant"):
             kw["exchange_offsets"] = offsets
         if rule in ("krum", "median", "trimmed_mean", "geometric_median"):
             kw["max_candidates"] = len(offsets) + 1
+        adj = fault_adj if faulted else base_adj
         deltas, bounds, unequal, ok = [], [], [], True
+        codec_notes, fault_notes = [], []
         for seed in ROUND_SEEDS:
             if (seed, wearable) not in inputs:
                 inputs[seed, wearable] = _round_inputs(n, seed, wearable)
             model, data, init, draws = inputs[seed, wearable]
             template = model.init(torch.Generator().manual_seed(0), "cpu")
-            out, seen, gram = {}, [], []
+            out, seen, gram, codec_in, rule_in = {}, [], [], {}, {}
+            spec = None if comp_kw is None else CompressionSpec(**comp_kw)
             for dev in (device, "cpu"):
-                attack = ATTACKS[kind](n, 0.2, seed=seed, **attack_kw)
+                attack = ATTACKS[kind](n, pct, seed=seed, **attack_kw)
                 if attack.data_poison_fn is not None:
                     data = dataclasses.replace(data, y=attack.data_poison_fn(
                         inputs[seed, wearable][1].y, data.mask, data.num_classes))
                 agg = build_aggregator(rule, kw, model_dim=model_dimension(template))
-                if dev == "cpu":
-                    real = agg.aggregate
+                real = agg.aggregate
 
-                    def keep(own, bcast, adj_, *rest, real=real):
+                def keep(own, bcast, adj_, *rest, real=real, dev=dev):
+                    rule_in[dev] = own.clone()
+                    if dev == "cpu":
                         seen.append((own.clone(), bcast.clone(), adj_.clone()))
-                        return real(own, bcast, adj_, *rest)
+                    return real(own, bcast, adj_, *rest)
 
-                    agg = dataclasses.replace(agg, aggregate=keep)
+                agg = dataclasses.replace(agg, aggregate=keep)
                 prog = build_round_program(
                     model, agg, data,
                     attack=attack, local_epochs=1, batch_size=16, lr=0.05, seed=seed,
                     device=dev, init_params=init,
+                    faults=FaultSpec(nan_inject_nodes=(FAULT_NAN,)) if faulted else None,
+                    compression=spec,
                 )
                 noise = np.random.default_rng(seed + 1).normal(
                     size=(int(attack.compromised.sum()), prog.model_dim)).astype(np.float32)
                 comp = torch.as_tensor(attack.compromised.astype(np.float32)).to(dev)
+                state = dict(prog.init_agg_state)
+                if spec is not None and spec.error_feedback:
+                    state[RESIDUAL_KEY] = torch.as_tensor(
+                        0.01 * np.random.default_rng(seed + 2).normal(
+                            size=tuple(prog.init_flat.shape)).astype(np.float32)).to(dev)
+                real_codec = rounds_mod.compress_exchange
+
+                def codec(spec_, bcast, agg_state, *rest, dev=dev):
+                    x = bcast.float()
+                    if spec_.error_feedback:
+                        x = x + agg_state[RESIDUAL_KEY].float()
+                    codec_in[dev] = (x, agg_state.get("compress_ref"))
+                    return real_codec(spec_, bcast, agg_state, *rest)
+
                 sink = gram if dev != "cpu" and dense_gm else []
-                with kept_calls(K, "pairwise_sq_distances", sink):
-                    flat, _, metrics = prog.train_step(
-                        prog.init_flat, prog.init_agg_state, torch.as_tensor(adj).to(dev), comp,
-                        0.0, draws={**draws, "noise": noise},
-                    )
+                alive = torch.as_tensor(alive_np).to(dev) if faulted else None
+                rounds_mod.compress_exchange = codec
+                try:
+                    with kept_calls(K, "pairwise_sq_distances", sink):
+                        flat, _, metrics = prog.train_step(
+                            prog.init_flat, state, torch.as_tensor(adj).to(dev), comp, 0.0,
+                            draws={**draws, "noise": noise}, alive=alive)
+                finally:
+                    rounds_mod.compress_exchange = real_codec
                 out[dev] = (flat.cpu().double(), {k: v.cpu() for k, v in metrics.items()})
             (f_card, m_card), (f_cpu, m_cpu) = out[device], out["cpu"]
             delta = float((f_card - f_cpu).abs().max() / max(1.0, float(f_cpu.abs().max())))
             deltas.append(delta)
+            limit = 1e-4
+            if spec is not None:
+                (x_card, ref), (x_cpu, _) = codec_in[device], codec_in["cpu"]
+                b, differ, dx = codec_bound(spec, x_card, x_cpu, ref, rule_in[device],
+                                            rule_in["cpu"], f_cpu)
+                limit = b
+                codec_notes.append(f"seed {seed}: bound {b:.3g}, codec input max |dx| "
+                                   f"{dx:.3g}, {differ} {'codes' if spec.algorithm == 'int8' else 'picks'} differ")
+            if faulted:
+                fault_notes.append(
+                    "/".join(f"{float(m_card[k]):g}" for k in
+                             ("agg_alive", "agg_quarantined", "agg_attack_scrubbed")))
             if dense_gm:
                 # Each Weiszfeld step's distance call on the card (the last
                 # call only feeds the stats): its iterate z_t and its Gram
@@ -836,16 +1058,16 @@ def check_round_against_cpu(device: str = "cuda") -> None:
                 iters = 8
                 if len(gram) != iters + 1:
                     raise AssertionError(f"{len(gram)} pairwise calls, want {iters + 1}")
-                steps = [(args[1], (K.pairwise_sq_distances(*args, **kwargs)
-                                    - K.pairwise_sq_distances_plain(*args, **kwargs)).abs().T.cpu())
-                         for _, args, kwargs in gram[:iters]]
+                steps = [(args_[1], (K.pairwise_sq_distances(*args_, **kwargs)
+                                     - K.pairwise_sq_distances_plain(*args_, **kwargs)).abs().T.cpu())
+                         for _, args_, kwargs in gram[:iters]]
                 m_cap = len(offsets) + 1
                 bounds.append((gm_dense_bound(*seen[0], [(z_t, None) for z_t, _ in steps],
                                               f_cpu, m_cap),
                                gm_dense_bound(*seen[0], steps, f_cpu, m_cap)))
             unequal += [f"{k} (seed {seed})" for k in equal_stats
                         if not torch.equal(m_card[k], m_cpu[k])]
-            ok = ok and delta <= 1e-4 and bool(torch.isfinite(f_card).all())
+            ok = ok and delta <= limit and bool(torch.isfinite(f_card).all())
         ok = ok and not unequal
         shown = ""
         if equal_stats:
@@ -857,16 +1079,24 @@ def check_round_against_cpu(device: str = "cuda") -> None:
                 f"{', '.join(f'{b[0]:.3g}' for b in bounds)}, from this round's Gram "
                 f"discrepancy {', '.join(f'{b[1]:.3g}' for b in bounds)} (every delta under "
                 f"both: {all(d <= min(b) for d, b in zip(deltas, bounds))})")
+        if codec_notes:
+            shown += f"; derived codec bound (gated): {'; '.join(codec_notes)}"
+        if fault_notes:
+            shown += f"; alive/quarantined/attack_scrubbed by seed {', '.join(fault_notes)}"
+        limit_note = "codec_bound" if spec is not None else "1e-4"
         what = (("wearable MLP" if wearable else "tiny CNN") + f", {kind} attack"
                 + (f" {attack_kw}" if "attack" in params else ""))
         print(f"[round] {label}, {what}, card vs CPU, seeds {list(ROUND_SEEDS)}: scaled "
               f"param delta {', '.join(f'{d:.3g}' for d in deltas)} (largest "
-              f"{max(deltas):.3g}, limit 1e-4){shown}: {'ok' if ok else 'FAILED'}", flush=True)
+              f"{max(deltas):.3g}, limit {limit_note}){shown}: {'ok' if ok else 'FAILED'}",
+              flush=True)
         if not ok:
             raise AssertionError(f"a {label} round on the card disagrees with the CPU round")
 
 
-# Phase 3c's rounds: (rule, exchange, params, {kernel: launches}, spread).
+# Phase 3c's rounds: (rule, exchange, params, {kernel: launches}, spread[,
+# config sections: "compression", or "faults" naming the config whose
+# faults: section to take]).
 # Krum with num_compromised 1 selects (c < (m - 2) / 2 at m = 5).  spread:
 # the nodes start from one model plus offsets of distinct scales, so that
 # the decisions are exact; the one row without it starts from the nodes'
@@ -891,6 +1121,13 @@ N64_RULES = [
     # trust threshold of uci_har_evidential_trust.yaml.
     ("evidential_trust", "allgather", {"trust_threshold": 0.1}, {}, True),
     ("evidential_trust", "ppermute", {"trust_threshold": 0.1}, {}, True),
+    # int8 with error feedback (the rule gets the float32 dequantization,
+    # own stays bfloat16), and chaos_churn.yaml's fault model.
+    ("krum", "ppermute", {"num_compromised": 1}, {"circulant_sq_distances": 2}, True,
+     {"compression": INT8_EF}),
+    ("median", "ppermute", {}, {"candidate_select": 1}, True, {"compression": INT8_EF}),
+    ("krum", "allgather", {"num_compromised": 1}, {"pairwise_sq_distances": 2}, True,
+     {"faults": "chaos_churn"}),
 ]
 # The stats that are decisions: equal between the card and the CPU.
 DECISIONS = {
@@ -1086,8 +1323,10 @@ def check_round_n64_bf16() -> dict:
     mods = _kernel_modules()
     fns = _kernel_fns()
     runs = {}
-    for rule, exchange, params, expect, spread in N64_RULES:
-        tag = f"{rule}:{exchange}:n64-bf16" + ("" if spread else "-own-init")
+    for rule, exchange, params, expect, spread, *extra in N64_RULES:
+        sections = extra[0] if extra else {}
+        tag = (f"{rule}:{exchange}:n64-bf16" + ("" if spread else "-own-init")
+               + "".join(f"-{k}" for k in sections))
         cfg = {
             "experiment": {"name": f"n64-{rule}", "seed": 5, "rounds": 1, "verbose": False},
             "topology": {"type": "k-regular", "num_nodes": 64, "k": 4},
@@ -1100,6 +1339,10 @@ def check_round_n64_bf16() -> dict:
             "backend": "tpu",
             "tpu": {"exchange": exchange, "compute_dtype": "bfloat16"},
         }
+        if "compression" in sections:
+            cfg["compression"] = dict(sections["compression"])
+        if "faults" in sections:
+            cfg["faults"] = config_section(sections["faults"], "faults")
         if rule == "evidential_trust":
             # Trust reads Dirichlet outputs: the evidential wearable MLP.
             cfg["data"] = {"adapter": "wearables.uci_har", "params": {"num_samples": 64 * 40}}
@@ -1230,7 +1473,6 @@ def check_round_n64_bf16() -> dict:
             "launches": {k: launches[k] for k in expect},
             "s_per_round": list(np.asarray(network.round_times))}
         del network, calls, rule_calls, own, bcast, new_card, new_cpu
-        gc.collect()
         torch.cuda.empty_cache()
     return runs
 
@@ -1249,9 +1491,12 @@ RULE_STATS = {
                          "threshold"),
 }
 # Phase 4's runs: (label, config, exchange, aggregation or None for the
-# config's own, {kernel: launches a round, exact or at least}[, attack
-# replacing the config's]).  An exchange runs the config on backend: tpu.
-# No other kernel may launch.
+# config's own, {kernel: launches a round, exact or at least}[, options:
+# "attack" replacing the config's, "sections" added to it (compression:,
+# or faults: taken from the named config), "rounds" instead of
+# SMOKE_ROUNDS]).  An exchange runs the config on backend: tpu.  No other
+# kernel may launch.
+ALIE_20 = {"enabled": True, "type": "alie", "percentage": 0.2, "params": {}}
 MAIN_RUNS = [
     ("krum:allgather", FLAGSHIP, "allgather", None, {"pairwise_sq_distances": (2, "==")}),
     ("krum:ppermute", FLAGSHIP, "ppermute", None, {"circulant_sq_distances": (2, "==")}),
@@ -1289,15 +1534,37 @@ MAIN_RUNS = [
      {"pairwise_sq_distances": (9, "==")}),
     ("geometric_median:alie_flagship", FLAGSHIP, "allgather",
      {"algorithm": "geometric_median", "params": {}}, {"pairwise_sq_distances": (9, "==")},
-     {"enabled": True, "type": "alie", "percentage": 0.2, "params": {}}),
+     {"attack": ALIE_20}),
     ("geometric_median:alie_ppermute", FLAGSHIP, "ppermute",
      {"algorithm": "geometric_median", "params": {}}, {"circulant_sq_distances": (9, "==")},
-     {"enabled": True, "type": "alie", "percentage": 0.2, "params": {}}),
+     {"attack": ALIE_20}),
     ("trimmed_mean:label_flip", LABEL_FLIP_POISONING, None, None, {}),
     # m = 10 candidates (own + 9 offsets), trim 3: the kernel's generic path.
     ("trimmed_mean:label_flip_ppermute", LABEL_FLIP_POISONING, "ppermute", None,
      {"candidate_select": (1, "==")}),
+    # The fault model and the compressed exchange: the two configs as
+    # committed, and the flagship under chaos_churn.yaml's faults: section,
+    # under int8 (block 256) and under top-k (ratio 0.05), error feedback on.
+    ("krum:chaos_churn", CHAOS_CHURN, None, None, {"pairwise_sq_distances": (2, "==")},
+     {"rounds": 5}),
+    ("krum:compressed_exchange", COMPRESSED_EXCHANGE, None, None,
+     {"pairwise_sq_distances": (2, "==")}),
+    ("krum:faults_flagship", FLAGSHIP, "allgather", None, {"pairwise_sq_distances": (2, "==")},
+     {"sections": {"faults": "chaos_churn"}}),
+    ("krum:faults_ppermute", FLAGSHIP, "ppermute", None, {"circulant_sq_distances": (2, "==")},
+     {"sections": {"faults": "chaos_churn"}}),
+    ("krum:int8_flagship", FLAGSHIP, "allgather", None, {"pairwise_sq_distances": (2, "==")},
+     {"sections": {"compression": INT8_EF}}),
+    ("krum:int8_ppermute", FLAGSHIP, "ppermute", None, {"circulant_sq_distances": (2, "==")},
+     {"sections": {"compression": INT8_EF}}),
+    ("median:int8_ppermute", FLAGSHIP, "ppermute", {"algorithm": "median", "params": {}},
+     {"candidate_select": (1, "==")}, {"sections": {"compression": INT8_EF}}),
+    ("krum:topk_flagship", FLAGSHIP, "allgather", None, {"pairwise_sq_distances": (2, "==")},
+     {"sections": {"compression": TOPK_EF}}),
 ]
+# Fused dispatch: the flagship's Krum allgather over FUSED_ROUNDS rounds,
+# per round and with tpu.rounds_per_dispatch 2, in the same call.
+FUSED_ROUNDS = 6
 
 
 def _kernel_modules():
@@ -1341,11 +1608,104 @@ def timed_probes(events: list):
             setattr(mod, name, real[mod, name])
 
 
-def run_main_path(label, config, exchange, aggregation, expect, attack=None) -> dict:
+def config_section(name: str, key: str) -> dict:
+    """The ``key:`` section of examples/configs/<name>.yaml."""
+    import yaml
+
+    return yaml.safe_load((ROOT / "examples" / "configs" / f"{name}.yaml").read_text())[key]
+
+
+@contextlib.contextmanager
+def finite_kernel_inputs(flags: list):
+    """While open, every kernel wrapper records, for each floating-point
+    tensor it is handed, whether all of it is finite: a device bool in
+    ``flags``, so the round is not synchronised."""
+    import torch
+
+    patched = []
+    for name, (mod, attr, _) in _kernel_fns().items():
+        real = getattr(mod, attr)
+
+        def wrapper(*args, real=real, name=name, **kwargs):
+            for a in (*args, *kwargs.values()):
+                if isinstance(a, torch.Tensor) and a.is_floating_point():
+                    flags.append((name, torch.isfinite(a).all()))
+            return real(*args, **kwargs)
+
+        setattr(mod, attr, wrapper)
+        patched.append((mod, attr, real))
+    try:
+        yield
+    finally:
+        for mod, attr, real in patched:
+            setattr(mod, attr, real)
+
+
+@contextlib.contextmanager
+def sync_free_chunks(events: list):
+    """While open, every fused chunk after the first of its size runs under
+    ``torch.cuda.set_sync_debug_mode("warn")`` (the first makes the
+    wrappers' one-time device copies: the attack's compromised rows, the
+    circulant offsets), and each synchronising call inside it lands in
+    ``events`` as "file:line: message".  The mode's other warning (that it
+    is a prototype) is not an event."""
+    import warnings
+
+    import torch
+
+    from murmura_tpu_torch.core import network as net_mod
+
+    real_build = net_mod.build_multi_round
+
+    def build(program, chunk, eval_every):
+        fn = real_build(program, chunk, eval_every)
+        calls = []
+
+        def run(*args, **kwargs):
+            calls.append(1)
+            if len(calls) == 1:
+                return fn(*args, **kwargs)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    events.extend(f"{w.filename}:{w.lineno}: {str(w.message).splitlines()[0]}"
+                                  for w in caught
+                                  if "called a synchronizing CUDA operation" in str(w.message))
+
+        return run
+
+    net_mod.build_multi_round = build
+    try:
+        yield
+    finally:
+        net_mod.build_multi_round = real_build
+
+
+def history_delta(got: dict, ref: dict) -> float:
+    """Largest scaled difference of two histories' values, key by key:
+    max |got - ref| / max(1, max |ref|)."""
+    import numpy as np
+
+    worst = 0.0
+    for k, v in ref.items():
+        a, b = np.asarray(got[k], np.float64), np.asarray(v, np.float64)
+        if b.size:
+            worst = max(worst, float(np.max(np.abs(a - b)) / max(1.0, float(np.max(np.abs(b))))))
+    return worst
+
+
+def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> dict:
     """Phase 4: one config through ``murmura_tpu_torch.cli.run`` on the card,
     the kernel counters set to 0 just before and read just after, with the
     run's peak device memory and, for UBAR and evidential trust, its probe
-    forwards' time."""
+    forwards' time.  A faulted run also holds its alive and quarantined
+    counts to the schedule and every kernel input finite; a compressed run
+    prints its payload bytes an edge; a fused run (tpu.rounds_per_dispatch
+    above 1) allows no synchronising call inside a chunk (sync_free_chunks)."""
     import numpy as np
     import torch
     import yaml
@@ -1353,16 +1713,30 @@ def run_main_path(label, config, exchange, aggregation, expect, attack=None) -> 
     from murmura_tpu_torch import cli
     from murmura_tpu_torch.core.network import empty_history
 
+    opts = opts or {}
+    rounds = opts.get("rounds", SMOKE_ROUNDS)
     raw = yaml.safe_load(config.read_text())
-    raw["experiment"]["rounds"] = SMOKE_ROUNDS
+    raw["experiment"]["rounds"] = rounds
     if exchange is not None:
         raw["backend"] = "tpu"
         raw.setdefault("tpu", {})["exchange"] = exchange
     if aggregation is not None:
         raw["aggregation"] = aggregation
-    if attack is not None:
-        raw["attack"] = attack
+    if opts.get("attack") is not None:
+        raw["attack"] = opts["attack"]
+    sections = opts.get("sections", {})
+    if "compression" in sections:
+        raw["compression"] = dict(sections["compression"])
+    if "faults" in sections:
+        raw["faults"] = config_section(sections["faults"], "faults")
+    if "rounds_per_dispatch" in sections:
+        raw["backend"] = "tpu"
+        raw.setdefault("tpu", {})["rounds_per_dispatch"] = sections["rounds_per_dispatch"]
     rule = raw["aggregation"]["algorithm"]
+    faults = raw.get("faults", {}) or {}
+    faulted = bool(faults.get("enabled"))
+    compression = (raw.get("compression") or {}).get("algorithm", "none") != "none"
+    fused = (raw.get("tpu") or {}).get("rounds_per_dispatch", 1) > 1
     SMOKE_DIR.mkdir(parents=True, exist_ok=True)
     name = label.replace(":", "_")
     cfg = SMOKE_DIR / f"{name}.yaml"
@@ -1371,14 +1745,17 @@ def run_main_path(label, config, exchange, aggregation, expect, attack=None) -> 
 
     mods = _kernel_modules()
     probe_events: list = []
-    # An earlier run's last parameters sit in a reference cycle that only
-    # the cycle collector frees; collect it so that this run's peak is its
-    # own.
-    gc.collect()
+    finite_flags: list = []
+    sync_events: list = []
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base_gb = torch.cuda.memory_allocated() / 1e9
-    with timed_probes(probe_events):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(timed_probes(probe_events))
+        if faulted:
+            stack.enter_context(finite_kernel_inputs(finite_flags))
+        if fused:
+            stack.enter_context(sync_free_chunks(sync_events))
         for mod in mods:
             mod.reset_counts()
         t0 = time.perf_counter()
@@ -1391,10 +1768,10 @@ def run_main_path(label, config, exchange, aggregation, expect, attack=None) -> 
 
     print(f"[main:{label}] launches {launches}, plain-version calls {plain}", flush=True)
     for kernel, (per_round, op) in expect.items():
-        want = per_round * SMOKE_ROUNDS
+        want = per_round * rounds
         if not (launches[kernel] == want if op == "==" else launches[kernel] >= want):
             raise AssertionError(f"{kernel} launched {launches[kernel]} times in "
-                                 f"{SMOKE_ROUNDS} rounds (want {op} {per_round} a round)")
+                                 f"{rounds} rounds (want {op} {per_round} a round)")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the card path: {plain}")
     stray = {k: v for k, v in launches.items() if v and k not in expect}
@@ -1402,15 +1779,25 @@ def run_main_path(label, config, exchange, aggregation, expect, attack=None) -> 
         raise AssertionError(f"kernels this run should not launch did: {stray}")
     hist = json.loads(out.read_text())
     want = set(empty_history()) | {f"agg_{k}" for k in RULE_STATS[rule]}
+    if faulted:
+        want.add("agg_alive")
+        if faults.get("nan_quarantine", True):
+            want.add("agg_quarantined")
+            if raw.get("attack", {}).get("enabled"):
+                want.add("agg_attack_scrubbed")
+    if compression:
+        want.add("agg_compress_error")
+        if raw["compression"].get("error_feedback"):
+            want.add("agg_compress_residual_norm")
     if set(hist) != want:
         raise AssertionError(f"history keys {sorted(hist)} != {sorted(want)}")
-    if len(hist["round"]) != SMOKE_ROUNDS:
+    if len(hist["round"]) != rounds:
         raise AssertionError(f"history has {len(hist['round'])} rounds")
     for k, v in hist.items():
         if v and not np.all(np.isfinite(np.asarray(v, dtype=np.float64))):
             raise AssertionError(f"history[{k!r}] is not finite: {v}")
     evidential = ("mean_vacuity", "mean_entropy", "mean_strength")
-    if network.program.evidential and any(len(hist[k]) != SMOKE_ROUNDS for k in evidential):
+    if network.program.evidential and any(len(hist[k]) != rounds for k in evidential):
         raise AssertionError(f"an evidential run's history lacks {evidential}")
     if not torch.isfinite(network.flat).all():
         raise AssertionError("final parameters are not finite")
@@ -1418,9 +1805,34 @@ def run_main_path(label, config, exchange, aggregation, expect, attack=None) -> 
     extra = ""
     for k in ("agg_acceptance_rate", "agg_stage1_acceptance_rate", "agg_stage2_acceptance_rate",
               "agg_mean_trust", "agg_threshold", "agg_trimmed_per_side",
-              "mean_vacuity", "mean_entropy", "mean_strength", "honest_accuracy"):
+              "mean_vacuity", "mean_entropy", "mean_strength", "honest_accuracy",
+              "agg_compress_error", "agg_compress_residual_norm"):
         if hist.get(k):
             extra += f"; {k.replace('agg_', '')} {[round(v, 4) for v in hist[k]]}"
+    if faulted:
+        sched = network.fault_schedule
+        inject = list(faults.get("nan_inject_nodes", []))
+        alive = [float(sched.alive_at(r).sum()) for r in range(rounds)]
+        quarantined = [float(sched.alive_at(r)[inject].sum()) for r in range(rounds)]
+        finite = all(bool(f) for _, f in finite_flags)
+        extra += (f"; alive {hist['agg_alive']} (schedule {alive}), quarantined "
+                  f"{hist.get('agg_quarantined')} (schedule {quarantined}), attack scrubbed "
+                  f"{hist.get('agg_attack_scrubbed')}; {len(finite_flags)} kernel inputs, "
+                  f"all finite: {finite}")
+        if hist["agg_alive"] != alive or hist.get("agg_quarantined", quarantined) != quarantined:
+            raise AssertionError("the alive or quarantined counts differ from the schedule")
+        if not finite:
+            bad = sorted({k for k, f in finite_flags if not bool(f)})
+            raise AssertionError(f"a non-finite input reached a kernel: {bad}")
+    if compression:
+        spec = network.program.compression
+        p = network.program.model_dim
+        item = network.flat.element_size()
+        extra += (f"; payload {spec.payload_bytes(p, item):,} bytes an edge against "
+                  f"{p * item:,} uncompressed ({p * item / spec.payload_bytes(p, item):.2f}x)")
+    if fused:
+        extra += (f"; {len(sync_events)} synchronising call(s) inside the chunks after the "
+                  f"first" + (f": {sorted(set(sync_events))[:5]}" if sync_events else ""))
     probe_ms = sum(a.elapsed_time(b) for a, b in probe_events)
     if probe_events:
         steady = float(np.sum(rt[1:]))
@@ -1432,11 +1844,45 @@ def run_main_path(label, config, exchange, aggregation, expect, attack=None) -> 
           f"{np.mean(rt[1:]):.4f}; run wall {wall:.2f} s; peak device memory {peak_gb:.2f} GB "
           f"({base_gb:.2f} GB held before the run); "
           f"final mean accuracy {hist['mean_accuracy'][-1]:.4f}{extra}", flush=True)
-    del network
+    if sync_events:
+        raise AssertionError("a fused chunk synchronised with the host")
+    del network, history
+    held_gb = torch.cuda.memory_allocated() / 1e9
     gc.collect()
+    print(f"[main:{label}] held once the run is dropped, before the cycle collector: "
+          f"{held_gb:.2f} GB, after it {torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
     torch.cuda.empty_cache()
     return {"launches": {k: launches[k] for k in expect}, "s_per_round": rt,
-            "peak_gb": peak_gb, "probe_ms": probe_ms}
+            "peak_gb": peak_gb, "probe_ms": probe_ms, "history": hist}
+
+
+def run_fused_pair() -> dict:
+    """Phase 4, fused dispatch: the flagship's Krum allgather over
+    FUSED_ROUNDS rounds per round, then with tpu.rounds_per_dispatch 2, in
+    the same call.  The two histories must agree to a scaled delta of 1e-4
+    (cuDNN may pick another backward algorithm between the runs; the CPU
+    tests hold them bit-equal); whether they are bit-equal is printed, with
+    both runs' steady seconds a round."""
+    import numpy as np
+
+    expect = {"pairwise_sq_distances": (2, "==")}
+    runs = {}
+    for label, dispatch in (("krum:per_round_flagship", 1), ("krum:fused_flagship", 2)):
+        sections = {"rounds_per_dispatch": dispatch} if dispatch > 1 else {}
+        runs[label] = run_main_path(label, FLAGSHIP, "allgather", None, expect,
+                                    {"rounds": FUSED_ROUNDS, "sections": sections})
+    ref, got = runs["krum:per_round_flagship"], runs["krum:fused_flagship"]
+    delta = history_delta(got["history"], ref["history"])
+    same = got["history"] == ref["history"]
+    steady = {k: float(np.mean(v["s_per_round"][2:])) for k, v in runs.items()}
+    print(f"[main:fused] {FUSED_ROUNDS} rounds per round and in chunks of 2: history "
+          f"bit-equal {same}, scaled delta {delta:.3g} (limit 1e-4); steady s/round (rounds "
+          f"3-{FUSED_ROUNDS}) per round {steady['krum:per_round_flagship']:.4f}, fused "
+          f"{steady['krum:fused_flagship']:.4f}: {'ok' if delta <= 1e-4 else 'FAILED'}",
+          flush=True)
+    if delta > 1e-4:
+        raise AssertionError("the fused history differs from per-round dispatch")
+    return runs
 
 
 def main() -> int:
@@ -1475,11 +1921,19 @@ def main() -> int:
 
     results: dict = {}
     check_kernels(results)
+    codec_ms = check_codec()
     check_round_against_cpu()
     round64 = check_round_n64_bf16()
 
     mains = {run[0]: run_main_path(*run) for run in MAIN_RUNS}
+    mains.update(run_fused_pair())
     mains.update(round64)
+    flagship_s = float(sum(mains["krum:allgather"]["s_per_round"][1:])
+                       / (len(mains["krum:allgather"]["s_per_round"]) - 1))
+    print("[codec] ms a call on the card beside the flagship Krum allgather round's "
+          f"{flagship_s * 1e3:.1f} ms: "
+          + ", ".join(f"{k} {v:.3f} ms ({v / (flagship_s * 1e3):.2%})"
+                      for k, v in codec_ms.items()), flush=True)
     replaces = {
         "pairwise_sq_distances": "murmura_tpu/ops/pallas_agg.py:319",
         "circulant_sq_distances": "murmura_tpu/ops/pallas_agg.py:225",

@@ -75,7 +75,7 @@ def make_balance(
             ar = torch.arange(len(offsets), device=own.device)
             fallback = (count < min_neighbors)[None, :] & (ar[:, None] == closest[None, :])
             accept_k = (accept_k | fallback).to(own.dtype)
-            neighbor_avg = circulant_masked_mean(bcast, accept_k, offsets)
+            neighbor_avg = circulant_masked_mean(bcast, accept_k, offsets, out_dtype=own.dtype)
             accepted_count = accept_k.sum(dim=0)
             degree = torch.full((n,), float(len(offsets)), dtype=own.dtype, device=own.device)
         else:
@@ -89,4 +89,5 @@ def make_balance(
         stats = {"acceptance_rate": accepted_count / degree, "threshold": threshold}
         return new_flat, state, stats
 
-    return AggregatorDef(name="balance", aggregate=aggregate)
+    return AggregatorDef(name="balance", aggregate=aggregate,
+                         quantized_exchange=offsets is not None)

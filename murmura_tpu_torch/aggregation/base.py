@@ -55,6 +55,11 @@ class AggregatorDef:
     name: str
     aggregate: Callable[..., Tuple[torch.Tensor, AggState, Stats]]
     init_state: Callable[[int], AggState] = field(default=lambda num_nodes: {})
+    # Under an int8 compressed exchange the rule receives the broadcast as
+    # float32 dequantized values (the circulant rules, whose JAX twins read
+    # the int8 payload through ``dequantize_f32``); its output stays in the
+    # dtype of ``own``.
+    quantized_exchange: bool = False
 
 
 def refuse_sparse_exchange(rule: str, sparse_exchange: bool) -> None:
@@ -129,12 +134,14 @@ def circulant_weighted_sum(
 
 
 def circulant_masked_mean(
-    bcast: torch.Tensor, accept_k: torch.Tensor, offsets
+    bcast: torch.Tensor, accept_k: torch.Tensor, offsets, out_dtype=None
 ) -> torch.Tensor:
-    """Weighted neighbor mean from per-offset acceptance ``accept_k[k, N]``."""
+    """Weighted neighbor mean from per-offset acceptance ``accept_k[k, N]``,
+    written in ``out_dtype`` (default: bcast's)."""
     cnt = accept_k.sum(dim=0)
     w_norm = accept_k / torch.clamp(cnt, min=1e-12)[None, :]
-    return circulant_weighted_sum(bcast, w_norm, offsets, out_dtype=bcast.dtype)
+    out_dtype = bcast.dtype if out_dtype is None else out_dtype
+    return circulant_weighted_sum(bcast, w_norm, offsets, out_dtype=out_dtype)
 
 
 def candidate_chunk_dispatch(own, bcast, chunk_apply, stack_height: int) -> torch.Tensor:

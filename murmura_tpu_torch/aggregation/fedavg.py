@@ -40,4 +40,5 @@ def make_fedavg(
         new_flat = ((own + neighbor_sum) / (1.0 + degree)[:, None]).to(own.dtype)
         return new_flat, state, {"num_neighbors": degree}
 
-    return AggregatorDef(name="fedavg", aggregate=aggregate)
+    return AggregatorDef(name="fedavg", aggregate=aggregate,
+                         quantized_exchange=offsets is not None)

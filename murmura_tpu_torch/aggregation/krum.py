@@ -31,6 +31,7 @@ from murmura_tpu_torch.aggregation.base import (
     pairwise_l2_distances,
     refuse_sparse_exchange,
 )
+from murmura_tpu_torch.ops.agg_kernels import _offsets_on
 
 
 def make_krum(
@@ -83,12 +84,12 @@ def make_krum(
             w = torch.zeros_like(w)  # every node keeps its own state
         ar = torch.arange(1, m, device=own.device)
         accept_k = (w[None, :] == ar[:, None]).to(own.dtype)
-        neighbor_sel = circulant_masked_mean(bcast, accept_k, offsets)
+        neighbor_sel = circulant_masked_mean(bcast, accept_k, offsets, out_dtype=own.dtype)
         selected_own = w == 0
         new_flat = torch.where(selected_own[:, None], own, neighbor_sel)
-        offs = torch.tensor([0] + offsets, device=own.device)
         stats = {
-            "selected_index": (torch.arange(n, device=own.device) + offs[w]) % n,
+            "selected_index": (torch.arange(n, device=own.device)
+                               + _offsets_on(tuple([0] + offsets), own.device)[w]) % n,
             "krum_score": best,
             "selected_own": selected_own.to(torch.float32),
         }
@@ -141,4 +142,5 @@ def make_krum(
     return AggregatorDef(
         name="krum",
         aggregate=aggregate if offsets is None else aggregate_circulant,
+        quantized_exchange=offsets is not None,
     )

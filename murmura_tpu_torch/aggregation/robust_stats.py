@@ -50,6 +50,13 @@ def _sorted_valid(cand, valid):
     return torch.sort(torch.where(valid[:, :, None], cand, inf), dim=1).values
 
 
+def _candidate_select(own, bcast, offsets, **kw):
+    """The candidate kernel over own and bcast in bcast's dtype (float32
+    under an int8 exchange, where own may be bfloat16), written in own's."""
+    return candidate_kernels.candidate_select(
+        own.to(bcast.dtype), bcast, offsets, **kw).to(own.dtype)
+
+
 def _take(ranked, idx):
     """ranked[i, idx[i], :] for each node i, as [N, c]."""
     return torch.gather(ranked, 1, idx[:, None, None].expand(-1, 1, ranked.shape[2]))[:, 0]
@@ -80,13 +87,14 @@ def make_coordinate_median(
 
     def aggregate_circulant(own, bcast, adj, round_idx, state, ctx: AggContext):
         m = len(offsets) + 1
-        new_flat = candidate_kernels.candidate_select(own, bcast, offsets, median=True)
+        new_flat = _candidate_select(own, bcast, offsets, median=True)
         return new_flat, state, {
             "num_candidates": torch.full((own.shape[0],), float(m), device=own.device)
         }
 
     return AggregatorDef(
-        name="median", aggregate=aggregate if offsets is None else aggregate_circulant
+        name="median", aggregate=aggregate if offsets is None else aggregate_circulant,
+        quantized_exchange=offsets is not None,
     )
 
 
@@ -135,14 +143,15 @@ def make_trimmed_mean(
         n = own.shape[0]
         m = len(offsets) + 1
         trim = int(beta * m)  # static: every node has exactly m candidates
-        new_flat = candidate_kernels.candidate_select(own, bcast, offsets, trim=trim)
+        new_flat = _candidate_select(own, bcast, offsets, trim=trim)
         return new_flat, state, {
             "num_candidates": torch.full((n,), float(m), device=own.device),
             "trimmed_per_side": torch.full((n,), float(trim), device=own.device),
         }
 
     return AggregatorDef(
-        name="trimmed_mean", aggregate=aggregate if offsets is None else aggregate_circulant
+        name="trimmed_mean", aggregate=aggregate if offsets is None else aggregate_circulant,
+        quantized_exchange=offsets is not None,
     )
 
 
@@ -249,4 +258,5 @@ def make_geometric_median(
     return AggregatorDef(
         name="geometric_median",
         aggregate=aggregate if offsets is None else aggregate_circulant,
+        quantized_exchange=offsets is not None,
     )

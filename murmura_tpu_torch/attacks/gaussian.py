@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from murmura_tpu_torch.attacks.base import Attack, check_rows, select_compromised
+from murmura_tpu_torch.ops.agg_kernels import _offsets_on
 
 
 def make_gaussian_attack(
@@ -33,7 +34,8 @@ def make_gaussian_attack(
         check_rows("gaussian", flat, num_nodes)
         if not len(comp_idx):
             return flat
-        idx = torch.as_tensor(comp_idx, device=flat.device)
+        # A device copy made once, so that a round makes no host sync.
+        idx = _offsets_on(tuple(comp_idx.tolist()), flat.device)
         shape = (len(comp_idx),) + tuple(flat.shape[1:])
         if noise is None:
             noise = torch.randn(

@@ -64,7 +64,8 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
     )
     network = build_network_from_config(config, device=dev)
     history = network.train(
-        rounds=config.experiment.rounds, verbose=config.experiment.verbose
+        rounds=config.experiment.rounds, verbose=config.experiment.verbose,
+        rounds_per_dispatch=config.tpu.rounds_per_dispatch,
     )
     display_results(history)
     if output is not None:

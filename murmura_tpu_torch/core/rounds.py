@@ -4,6 +4,9 @@ murmura_tpu/core/rounds.py).
     train_step(flat[N, P], agg_state, adj[N, N], compromised[N], round_idx,
                generators=None, draws=None) -> (flat', agg_state', metrics)
 
+and, for a program built with a ``FaultSpec``, the [N] alive mask as
+``alive=``.
+
 1. local training: ``local_epochs`` x masked-batch SGD on every node at
    once — per-node effective batch ``min(B, max(2, n_i))``, sample
    positions ``pos % n_i``, the update masked by ``t < steps_i`` and by the
@@ -12,9 +15,22 @@ murmura_tpu/core/rounds.py).
    the annealed evidential loss for an evidential model, with dropout masks
    per node, step and layer where the model has dropout;
 2. the attack on the broadcast copy only;
+2b. with a ``FaultSpec`` (faults/schedule.py), in the JAX package's order:
+   the adjacency re-masked by ``alive`` both ways and dead nodes frozen in
+   training; NaN rows injected from ``nan_inject_from_round``; the
+   quarantine sentinel (a non-finite row is *replaced* by its pre-round
+   value and its edges dropped both ways: a multiplicative mask would not
+   do, 0 * NaN = NaN in every Gram path and kernel); after the attack, a
+   non-finite broadcast row replaced by its sender's own row and its
+   sender column dropped;
+2c. with a ``CompressionSpec`` the codec on the broadcast
+   (ops/compress.py), its residual and reference carried in ``agg_state``
+   under keys the rule never sees;
 3. the aggregation rule over (own, bcast, adj), with each node's probe
    batch (the first ``probe_size`` samples of its shard) in the context
-   for the loss-probe rules, whose forwards run in eval mode;
+   for the loss-probe rules, whose forwards run in eval mode; when
+   faulted, a node with no alive neighbour keeps its own state, and dead
+   or quarantined nodes keep their pre-round state;
 4. ``eval_step`` (run by the orchestrator on the ``eval_every`` cadence):
    per-node masked loss and accuracy over the held-out arrays, and the
    Dirichlet vacuity, entropy and strength for an evidential model.
@@ -32,12 +48,26 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+# torch.func.grad imports torch._dynamo on its first call, and that import
+# runs torch.fx.wrap, whose frame holds itself (torch/fx/_symbolic_trace.py,
+# ``currentframe = inspect.currentframe()``): a reference cycle that keeps
+# every frame below it, the first run's Network and its parameters among
+# them, until the cycle collector runs.  Imported here, the cycle holds
+# import frames only.
+import torch._dynamo  # noqa: F401
 from torch.func import grad, vmap
 
 from murmura_tpu_torch.aggregation.base import AggContext, AggregatorDef
 from murmura_tpu_torch.attacks.base import Attack
 from murmura_tpu_torch.data.base import FederatedArrays
+from murmura_tpu_torch.faults.schedule import FaultSpec
 from murmura_tpu_torch.models.core import Model
+from murmura_tpu_torch.ops.compress import (
+    COMPRESS_STATE_KEYS,
+    CompressionSpec,
+    compress_exchange,
+    init_compress_state,
+)
 from murmura_tpu_torch.ops.flatten import (
     make_flatteners,
     tree_leaves,
@@ -84,6 +114,9 @@ class RoundProgram:
     unravel: Callable
     device: torch.device
     evidential: bool = False
+    # Built with a FaultSpec: train_step needs the [N] ``alive`` mask.
+    faulted: bool = False
+    compression: Optional[CompressionSpec] = None
 
 
 def round_generators(seed: int, round_idx: int, device) -> Dict[str, torch.Generator]:
@@ -124,6 +157,8 @@ def build_round_program(
     param_dtype: Optional[str] = None,
     device="cuda",
     init_params: Any = None,
+    faults: Optional[FaultSpec] = None,
+    compression: Optional[CompressionSpec] = None,
 ) -> RoundProgram:
     """Round step for a network of ``data.num_nodes`` nodes on ``device``
     (the card unless the caller asks for the CPU; without CUDA a ``cuda``
@@ -250,20 +285,23 @@ def build_round_program(
         total_rounds=total_rounds,
     )
 
-    def train_step(
-        flat: torch.Tensor,
-        agg_state: Dict[str, torch.Tensor],
-        adj: torch.Tensor,
-        compromised: torch.Tensor,
-        round_idx: float,
-        generators: Optional[Dict[str, torch.Generator]] = None,
-        draws: Optional[Dict[str, Any]] = None,
-    ):
-        """One round.  ``draws`` injects what the generators would draw:
-        ``u`` one [N, S] uniform shuffle key an epoch; ``noise`` the attack's
-        [C, P] normal draws; ``dropout`` the keep masks, indexed
-        ``[epoch][step][layer]``, each a bool [N, B, width_l] (node, batch
-        slot, unit) for the layers of ``model.dropout_widths``."""
+    if faults is not None and faults.nan_inject_nodes:
+        inject_rows = torch.zeros(n, dtype=torch.bool, device=device)
+        inject_rows[list(faults.nan_inject_nodes)] = True
+    else:
+        inject_rows = None
+
+    def both_ways(adj, flags):
+        """Drop the edges whose receiver or sender has flag 0."""
+        return adj * flags[:, None] * flags[None, :]
+
+    def round_body(flat, agg_state, adj, compromised, alive, round_idx, generators, draws):
+        """One round; ``alive`` is None on an unfaulted program.  ``draws``
+        injects what the generators would draw: ``u`` one [N, S] uniform
+        shuffle key an epoch; ``noise`` the attack's [C, P] normal draws;
+        ``dropout`` the keep masks, indexed ``[epoch][step][layer]``, each a
+        bool [N, B, width_l] (node, batch slot, unit) for the layers of
+        ``model.dropout_widths``."""
         generators = generators or {}
         draws = draws or {}
         lambda_t = min(1.0, round_idx / max(1, annealing_rounds)) * EVIDENTIAL_LAMBDA
@@ -273,10 +311,31 @@ def build_round_program(
             if attack is not None and attack.trains_locally
             else honest
         )
+        if alive is not None:
+            # Dead nodes freeze like compromised ones.  The adjacency is
+            # re-masked by alive here even though the schedule's masked
+            # adjacency folds it in already (alive * alive == alive).
+            adj = both_ways(adj, alive)
+            train_mask = train_mask * alive
+            pre_flat = flat
         own_flat = local_training(
             flat.clone(), train_mask, generators.get("train"), draws.get("u"),
             draws.get("dropout"), lambda_t,
         )
+        fault_stats = {}
+        if inject_rows is not None and round_idx >= faults.nan_inject_from_round:
+            own_flat = torch.where(
+                inject_rows[:, None], torch.full_like(own_flat, float("nan")), own_flat
+            )
+        finite = None
+        if faults is not None and faults.nan_quarantine:
+            # A non-finite update quarantines the node for the round: its
+            # row is replaced, not masked, before any rule math.
+            finite = torch.isfinite(own_flat).all(dim=1)
+            alive_f = alive if alive is not None else torch.ones_like(compromised)
+            fault_stats["quarantined"] = ((1.0 - finite.to(torch.float32)) * alive_f).sum()
+            own_flat = torch.where(finite[:, None], own_flat, pre_flat)
+            adj = both_ways(adj, finite.to(adj.dtype))
         if attack is not None:
             noise = draws.get("noise")
             if noise is not None:
@@ -284,13 +343,59 @@ def build_round_program(
             bcast = attack.apply(
                 own_flat, compromised, generators.get("attack"), noise=noise
             )
+            if finite is not None:
+                # An attack that overflows to inf/NaN: its broadcast row is
+                # replaced by the sender's own row and dropped from every
+                # receiver; the sender's own state is untouched.
+                bfin = torch.isfinite(bcast).all(dim=1)
+                bcast = torch.where(bfin[:, None], bcast, own_flat)
+                adj = adj * bfin.to(adj.dtype)[None, :]
+                fault_stats["attack_scrubbed"] = (1.0 - bfin.to(torch.float32)).sum()
         else:
             bcast = own_flat
-        new_flat, agg_state, agg_stats = agg.aggregate(
-            own_flat, bcast, adj, round_idx, agg_state, ctx
+        compress_stats = {}
+        if compression is not None:
+            bcast, _, updates, compress_stats = compress_exchange(
+                compression, bcast, agg_state, agg.quantized_exchange
+            )
+            agg_state = {**agg_state, **updates}
+        rule_state = {k: v for k, v in agg_state.items() if k not in COMPRESS_STATE_KEYS}
+        new_flat, rule_state, agg_stats = agg.aggregate(
+            own_flat, bcast, adj, round_idx, rule_state, ctx
         )
+        agg_state = {**agg_state, **rule_state}
+        if alive is not None:
+            # No alive neighbour: the node keeps its own state.  Dead nodes
+            # freeze at the pre-round value, quarantined ones roll back.
+            deg = adj.sum(dim=1)
+            new_flat = torch.where((deg > 0)[:, None], new_flat, own_flat)
+            keep = alive > 0
+            if finite is not None:
+                keep = keep & finite
+            new_flat = torch.where(keep[:, None], new_flat, pre_flat)
+            fault_stats["alive"] = alive.sum()
         metrics = {f"agg_{k}": v for k, v in agg_stats.items()}
+        metrics.update({f"agg_{k}": v for k, v in fault_stats.items()})
+        metrics.update({f"agg_{k}": v for k, v in compress_stats.items()})
         return new_flat, agg_state, metrics
+
+    def train_step(
+        flat: torch.Tensor,
+        agg_state: Dict[str, torch.Tensor],
+        adj: torch.Tensor,
+        compromised: torch.Tensor,
+        round_idx: float,
+        generators: Optional[Dict[str, torch.Generator]] = None,
+        draws: Optional[Dict[str, Any]] = None,
+        alive: Optional[torch.Tensor] = None,
+    ):
+        """One round (round_body); a faulted program needs ``alive``."""
+        if faults is not None and alive is None:
+            raise ValueError("a faulted round program needs the [N] alive mask")
+        if faults is None and alive is not None:
+            raise ValueError("an alive mask was given to a round program built without faults")
+        return round_body(flat, agg_state, adj, compromised, alive, round_idx,
+                          generators, draws)
 
     apply_nodes = vmap(model.apply)
 
@@ -326,6 +431,16 @@ def build_round_program(
     init_agg_state = {
         k: torch.as_tensor(np.asarray(v)).to(device) for k, v in agg.init_state(n).items()
     }
+    if compression is not None:
+        clash = set(COMPRESS_STATE_KEYS) & set(init_agg_state)
+        if clash:
+            raise ValueError(
+                f"aggregator '{agg.name}' carries state keys {sorted(clash)} "
+                "reserved for the compressed exchange"
+            )
+        # The top-k reference starts at the initial broadcast, which a
+        # deployment sends in full once at set-up.
+        init_agg_state.update(init_compress_state(compression, init_flat))
     return RoundProgram(
         train_step=train_step,
         eval_step=eval_step,
@@ -337,4 +452,40 @@ def build_round_program(
         unravel=unravel,
         device=device,
         evidential=evidential,
+        faulted=faults is not None,
+        compression=compression,
     )
+
+
+def build_multi_round(program: RoundProgram, chunk: int, eval_every: int) -> Callable:
+    """Fuse ``chunk`` rounds into one call (the counterpart of the JAX
+    package's ``build_multi_round``, a ``lax.scan`` there, the rounds'
+    launches queued back to back here):
+
+        multi_round(flat, agg_state, seed, adj_stack[chunk, N, N],
+                    compromised, round0, alive_stack=None)
+            -> (flat', agg_state', rows)
+
+    Round ``round0 + i`` takes ``adj_stack[i]`` (and, on a faulted program,
+    ``alive_stack[i]``, which it then requires) and its generators from
+    (seed, round), so the history does not
+    depend on the chunking.  ``rows`` holds one (round number, metrics) pair
+    per round on the ``eval_every`` cadence, the eval and ``agg_*`` metrics
+    left on the device.  Nothing here synchronises with the host.
+    """
+
+    def multi_round(flat, agg_state, seed, adj_stack, compromised, round0, alive_stack=None):
+        rows = []
+        for i in range(chunk):
+            r = round0 + i
+            flat, agg_state, metrics = program.train_step(
+                flat, agg_state, adj_stack[i], compromised, float(r),
+                generators=round_generators(seed, r, program.device),
+                alive=None if alive_stack is None else alive_stack[i],
+            )
+            if (r + 1) % eval_every == 0:
+                rows.append((r + 1, {**program.eval_step(flat), **metrics}))
+        return flat, agg_state, rows
+
+    return multi_round
+

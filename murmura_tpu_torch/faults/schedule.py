@@ -1,0 +1,279 @@
+# Copy of murmura_tpu/faults/schedule.py without its LEVER_MANIFEST block.
+"""Deterministic operational-fault model: churn, link drops, stragglers.
+
+The reproduction could only stress the *adversarial* axis (attacks/) — a
+node that crashes, recovers, straggles, or emits NaNs took the run down
+instead of degrading it.  :class:`FaultSchedule` is the operational twin of
+the attack model: a seeded, precomputed per-round description of which
+nodes are alive, which links dropped, and who straggles — the same
+shape of object as the mobility model's time-varying G^t
+(topology/dynamic.py) and consumed the same way, as per-round *values* fed
+to an unchanged compiled round program.
+
+Determinism is the load-bearing property: every consumer — the simulation
+orchestrator folding masks into the adjacency, each ZMQ node process
+re-resolving its expected-neighbor set, and the :class:`FaultInjector`
+deciding whom to SIGKILL — reconstructs the identical schedule from the
+seed with zero communication (the MobilityModel contract, dynamic.py:1-8).
+To keep the random stream identical regardless of which probabilities are
+zero, every per-round draw happens with a fixed shape in a fixed order.
+
+Churn is a two-state Markov chain per node: an alive node crashes with
+``crash_prob``; a node dead for at least ``min_down_rounds`` recovers with
+``recovery_prob``.  ``alive_at(0)`` is the first transition from the
+all-alive state, so a nonzero ``crash_prob`` can produce churn from the
+very first round.
+"""
+
+from dataclasses import dataclass, field
+from typing import Tuple
+
+import numpy as np
+
+
+@dataclass(frozen=True)
+class FaultSpec:
+    """Trace-time fault behavior baked into the round program.
+
+    The *schedule* (who is alive when) stays host-side and reaches the
+    compiled step as input values; this spec controls what the traced
+    program itself contains: the ``alive`` argument and update-mask
+    freeze always (its presence IS what makes a program "faulted"), the
+    NaN sentinel when ``nan_quarantine``, and deterministic divergence
+    injection for chaos tests.  A program built with ``faults=None`` is
+    byte-identical to one built before this subsystem existed.
+    """
+
+    nan_quarantine: bool = True
+    nan_inject_nodes: Tuple[int, ...] = field(default_factory=tuple)
+    nan_inject_from_round: int = 0
+
+
+class FaultSchedule:
+    """Seeded per-round alive/link/straggler masks for ``num_nodes`` peers.
+
+    Args:
+        num_nodes: Network size N.
+        crash_prob: Per-round P(alive -> dead) per node.
+        recovery_prob: Per-round P(dead -> alive) per node, gated on having
+            been down for at least ``min_down_rounds`` rounds.
+        min_down_rounds: Minimum rounds a crashed node stays down before a
+            recovery draw can succeed.
+        link_drop_prob: Per-round per-undirected-edge drop probability.
+            Drops are symmetric: if (i, j) is down, neither direction
+            delivers that round — matching a failed transport link, and
+            keeping the ZMQ backend's sender/receiver expectations
+            consistent without communication.
+        straggler_prob: Per-round P(node straggles).  A straggling node
+            misses the round deadline for *delivery*: its outgoing
+            contributions are dropped (column zeroed in
+            :meth:`masked_adjacency`) but it still receives and aggregates
+            — the deadline-based partial-aggregation semantics of the
+            distributed backend (node_process.py), applied to the jitted
+            backends.  With bounded staleness armed
+            (``exchange.max_staleness``, core/stale.py) the schedule
+            becomes a DELAY model instead of a pure drop: receivers
+            aggregate the straggler's last delivered payload at age >= 1
+            until the bound expires — the jitted twin of the ZMQ
+            backend's "physically late, may deliver next window"
+            behavior, closing the documented semantic gap between the
+            two realizations (docs/ROBUSTNESS.md "Bounded staleness").
+        straggler_factor: Training-time multiplier the distributed backend
+            uses to *realize* a straggle as an actual delay (sleep); the
+            jitted backends only consume the boolean.
+        seed: RNG seed; same seed => identical schedule in every process.
+    """
+
+    def __init__(
+        self,
+        num_nodes: int,
+        *,
+        crash_prob: float = 0.0,
+        recovery_prob: float = 0.0,
+        min_down_rounds: int = 1,
+        link_drop_prob: float = 0.0,
+        straggler_prob: float = 0.0,
+        straggler_factor: float = 2.0,
+        seed: int = 777,
+    ):
+        if not 0.0 <= crash_prob <= 1.0:
+            raise ValueError(f"crash_prob must be in [0, 1], got {crash_prob}")
+        if not 0.0 <= recovery_prob <= 1.0:
+            raise ValueError(
+                f"recovery_prob must be in [0, 1], got {recovery_prob}"
+            )
+        if not 0.0 <= link_drop_prob <= 1.0:
+            raise ValueError(
+                f"link_drop_prob must be in [0, 1], got {link_drop_prob}"
+            )
+        if not 0.0 <= straggler_prob <= 1.0:
+            raise ValueError(
+                f"straggler_prob must be in [0, 1], got {straggler_prob}"
+            )
+        if min_down_rounds < 1:
+            raise ValueError(
+                f"min_down_rounds must be >= 1, got {min_down_rounds}"
+            )
+        self.num_nodes = num_nodes
+        self.crash_prob = crash_prob
+        self.recovery_prob = recovery_prob
+        self.min_down_rounds = min_down_rounds
+        self.link_drop_prob = link_drop_prob
+        self.straggler_prob = straggler_prob
+        self.straggler_factor = straggler_factor
+        self.seed = seed
+
+        self._rng = np.random.default_rng(seed)
+        # Lazily extended per-round records (MobilityModel idiom): index r
+        # holds the state *during* round r.
+        self._alive = []  # list of [N] float32
+        self._link_up = []  # list of [N, N] float32 (1 = link up)
+        self._straggle = []  # list of [N] bool
+        # Markov chain state after the last generated round.
+        self._state_alive = np.ones(num_nodes, dtype=bool)
+        self._down_rounds = np.zeros(num_nodes, dtype=np.int64)
+
+    # ------------------------------------------------------------------
+
+    def _advance(self) -> None:
+        """Generate one more round.  All draws happen with fixed shapes in
+        a fixed order so the stream — and therefore every later round — is
+        identical across parameterizations that share a seed."""
+        n = self.num_nodes
+        crash_u = self._rng.random(n)
+        recover_u = self._rng.random(n)
+        link_u = self._rng.random((n, n))
+        straggle_u = self._rng.random(n)
+
+        alive = self._state_alive
+        crash = alive & (crash_u < self.crash_prob)
+        recover = (
+            (~alive)
+            & (self._down_rounds >= self.min_down_rounds)
+            & (recover_u < self.recovery_prob)
+        )
+        new_alive = (alive & ~crash) | recover
+        self._down_rounds = np.where(new_alive, 0, self._down_rounds + 1)
+        self._state_alive = new_alive
+
+        drop = np.triu(link_u < self.link_drop_prob, k=1)
+        link_up = 1.0 - (drop | drop.T).astype(np.float32)
+        np.fill_diagonal(link_up, 0.0)
+
+        self._alive.append(new_alive.astype(np.float32))
+        self._link_up.append(link_up)
+        self._straggle.append(straggle_u < self.straggler_prob)
+
+    def _ensure(self, round_idx: int) -> None:
+        if round_idx < 0:
+            raise ValueError(f"round_idx must be >= 0, got {round_idx}")
+        while len(self._alive) <= round_idx:
+            self._advance()
+
+    # ------------------------------------------------------------------
+
+    def alive_at(self, round_idx: int) -> np.ndarray:
+        """[N] float32 alive mask during ``round_idx`` (1 = up)."""
+        self._ensure(round_idx)
+        return self._alive[round_idx].copy()
+
+    def link_mask_at(self, round_idx: int) -> np.ndarray:
+        """[N, N] float32 link-up mask (symmetric, zero diagonal)."""
+        self._ensure(round_idx)
+        return self._link_up[round_idx].copy()
+
+    def straggler_at(self, round_idx: int) -> np.ndarray:
+        """[N] bool: nodes whose round-``round_idx`` update misses the
+        delivery deadline."""
+        self._ensure(round_idx)
+        return self._straggle[round_idx].copy()
+
+    def alive_stack(self, round0: int, k: int) -> np.ndarray:
+        """[k, N] alive masks for rounds ``round0 .. round0+k-1`` — the
+        fused-dispatch twin of the orchestrator's adj_stack."""
+        self._ensure(round0 + k - 1)
+        return np.stack([self._alive[round0 + i] for i in range(k)])
+
+    def delivering_at(self, round_idx: int) -> np.ndarray:
+        """[N] float32: senders whose round-``round_idx`` payload meets
+        the delivery deadline under the schedule's own masks (alive and
+        not straggling).  The host-side view of the stale layer's
+        delivery inference — an APPROXIMATION of it: core/stale.py
+        infers delivery from the fully-folded adjacency, so in-jit
+        sentinels (quarantine/scrub) and total link isolation can veto
+        senders this method reports as delivering.  Consumed by
+        bench_breakdown's staleness cells as the schedule-side count
+        next to the observed in-jit stale-edge counts."""
+        self._ensure(round_idx)
+        return self._alive[round_idx] * (
+            1.0 - self._straggle[round_idx].astype(np.float32)
+        )
+
+    def masked_adjacency(self, adj: np.ndarray, round_idx: int) -> np.ndarray:
+        """Fold this round's faults into an adjacency mask.
+
+        ``adj * alive_i * alive_j * link_mask`` — the exact no-recompile
+        trick the ``compromised`` mask uses (core/rounds.py): the compiled
+        round's structure never changes, only this input's values.  A
+        straggler's *column* is zeroed (its update misses everyone's
+        deadline) while its row survives (it still aggregates what it
+        received).  The zero diagonal is re-asserted last (MUR301): the
+        aggregation rules' neighbor masks lean on it.
+        """
+        self._ensure(round_idx)
+        alive = self._alive[round_idx]
+        out = np.asarray(adj, dtype=np.float32)
+        out = out * alive[:, None] * alive[None, :]
+        out = out * self._link_up[round_idx]
+        out = out * (1.0 - self._straggle[round_idx].astype(np.float32))[None, :]
+        np.fill_diagonal(out, 0.0)
+        return out
+
+    def masked_edge_mask(
+        self, edge_mask: np.ndarray, offsets, round_idx: int
+    ) -> np.ndarray:
+        """Fold this round's faults into a sparse [k, N] edge mask.
+
+        The sparse-exchange twin of :meth:`masked_adjacency`
+        (topology/sparse.py): entry ``[j, i]`` is the edge
+        ``i <- (i + offsets[j]) % N``, so the same multiplicative fold —
+        receiver alive, sender alive, link up, sender not straggling —
+        runs per offset row instead of over an [N, N] matrix.  Same
+        contract (MUR301): masks may only *remove* edges.
+        """
+        self._ensure(round_idx)
+        alive = self._alive[round_idx]
+        link = self._link_up[round_idx]
+        not_straggling = 1.0 - self._straggle[round_idx].astype(np.float32)
+        out = np.asarray(edge_mask, dtype=np.float32).copy()
+        idx = np.arange(self.num_nodes)
+        for j, o in enumerate(offsets):
+            sender = (idx + int(o)) % self.num_nodes
+            out[j] *= (
+                alive * alive[sender] * link[idx, sender]
+                * not_straggling[sender]
+            )
+        return out
+
+    # ------------------------------------------------------------------
+    # Transition views (FaultInjector / node self-enforcement)
+
+    def died_at(self, round_idx: int) -> np.ndarray:
+        """[N] bool: nodes that were alive in round ``round_idx - 1`` (or
+        at the all-alive origin for round 0) and are dead in ``round_idx``
+        — the injector's SIGKILL set for this round."""
+        self._ensure(round_idx)
+        prev = (
+            np.ones(self.num_nodes, dtype=bool)
+            if round_idx == 0
+            else self._alive[round_idx - 1] > 0
+        )
+        return prev & (self._alive[round_idx] <= 0)
+
+    def recovered_at(self, round_idx: int) -> np.ndarray:
+        """[N] bool: nodes dead in round ``round_idx - 1`` and alive in
+        ``round_idx`` — the injector's respawn set for this round."""
+        self._ensure(round_idx)
+        if round_idx == 0:
+            return np.zeros(self.num_nodes, dtype=bool)
+        return (self._alive[round_idx - 1] <= 0) & (self._alive[round_idx] > 0)

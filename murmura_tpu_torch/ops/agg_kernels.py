@@ -357,8 +357,9 @@ def circulant_sq_distances_plain(
 
 @functools.lru_cache(maxsize=64)
 def _offsets_on(offsets: Tuple[int, ...], device: torch.device) -> torch.Tensor:
-    """The offsets (already reduced mod N) as an int32 device tensor, made
-    once per (offsets, device) so that a call makes no host-to-device copy."""
+    """Small host integers (offsets reduced mod N, row indices) as an int32
+    device tensor, made once per (values, device) so that a call makes no
+    host-to-device copy."""
     return torch.tensor(offsets, dtype=torch.int32, device=device)
 
 

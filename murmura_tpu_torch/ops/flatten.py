@@ -38,16 +38,19 @@ def tree_map(fn: Callable, tree: Any) -> Any:
 def tree_unflatten(template: Any, leaves) -> Any:
     """The pytree of ``template``'s structure holding ``leaves`` (in
     :func:`tree_leaves` order)."""
-    it = iter(leaves)
+    return _rebuild(template, iter(leaves))
 
-    def rebuild(node):
-        if isinstance(node, dict):
-            return {k: rebuild(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(rebuild(v) for v in node)
-        return next(it)
 
-    return rebuild(template)
+def _rebuild(node: Any, it) -> Any:
+    # A module-level function, not a recursive closure: a closure that calls
+    # itself sits in a reference cycle, which would keep the iterator, and
+    # with it every leaf (views into a round's [N, P] tensor), alive until
+    # the cycle collector ran.
+    if isinstance(node, dict):
+        return {k: _rebuild(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_rebuild(v, it) for v in node)
+    return next(it)
 
 
 def make_flatteners(

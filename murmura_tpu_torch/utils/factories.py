@@ -2,9 +2,9 @@
 murmura_tpu/utils/factories.py).
 
 ``build_network_from_config`` builds data, model, topology, the attack
-(with its label poison), the aggregation rule and the round program, and
-refuses by name every part of the configuration surface the port does not
-run yet — a
+(with its label poison), the aggregation rule, the fault schedule and
+spec, the compression spec and the round program, and refuses by name
+every part of the configuration surface the port does not run yet — a
 refused section is an error, never a silent fallback.
 """
 
@@ -19,7 +19,9 @@ from murmura_tpu_torch.config.schema import Config
 from murmura_tpu_torch.core.network import Network
 from murmura_tpu_torch.core.rounds import build_round_program
 from murmura_tpu_torch.data.registry import build_federated_data
+from murmura_tpu_torch.faults.schedule import FaultSchedule, FaultSpec
 from murmura_tpu_torch.models.registry import build_model
+from murmura_tpu_torch.ops.compress import CompressionSpec
 from murmura_tpu_torch.ops.flatten import model_dimension
 from murmura_tpu_torch.topology.generators import create_topology
 
@@ -35,10 +37,6 @@ def unported_sections(config: Config) -> List[str]:
     out = []
     if config.backend == "distributed":
         out.append("backend: distributed (the ZMQ multi-process backend)")
-    if config.faults.enabled:
-        out.append("faults (the operational fault model)")
-    if config.compression.algorithm != "none":
-        out.append(f"compression.algorithm: {config.compression.algorithm}")
     if config.exchange.max_staleness > 0:
         out.append("exchange.max_staleness (bounded-staleness gossip)")
     if config.exchange.pipeline:
@@ -64,8 +62,6 @@ def unported_sections(config: Config) -> List[str]:
         out.append("durability (checkpoint/resume/retries/require_tpu)")
     if config.telemetry.enabled:
         out.append("telemetry")
-    if config.tpu.rounds_per_dispatch > 1:
-        out.append("tpu.rounds_per_dispatch > 1 (fused multi-round dispatch)")
     if config.tpu.param_shards > 1:
         out.append("tpu.param_shards > 1 (param-axis sharding)")
     if config.tpu.multihost:
@@ -88,6 +84,48 @@ def resolved_param_dtype(config: Config) -> Optional[str]:
     if config.tpu.param_dtype is not None:
         return config.tpu.param_dtype
     return "bfloat16" if config.topology.num_nodes >= 64 else "float32"
+
+
+def build_fault_schedule(config: Config) -> Optional[FaultSchedule]:
+    """FaultSchedule from config.faults, or None when the model is off."""
+    f = config.faults
+    if not f.enabled:
+        return None
+    return FaultSchedule(
+        config.topology.num_nodes,
+        crash_prob=f.crash_prob,
+        recovery_prob=f.recovery_prob,
+        min_down_rounds=f.min_down_rounds,
+        link_drop_prob=f.link_drop_prob,
+        straggler_prob=f.straggler_prob,
+        straggler_factor=f.straggler_factor,
+        seed=f.seed,
+    )
+
+
+def build_fault_spec(config: Config) -> Optional[FaultSpec]:
+    """The round program's FaultSpec from config.faults, or None when off."""
+    f = config.faults
+    if not f.enabled:
+        return None
+    return FaultSpec(
+        nan_quarantine=f.nan_quarantine,
+        nan_inject_nodes=tuple(f.nan_inject_nodes),
+        nan_inject_from_round=f.nan_inject_from_round,
+    )
+
+
+def build_compression_spec(config: Config) -> Optional[CompressionSpec]:
+    """CompressionSpec from config.compression, or None when off."""
+    c = config.compression
+    if c.algorithm == "none":
+        return None
+    return CompressionSpec(
+        algorithm=c.algorithm,
+        block=c.block,
+        topk_ratio=c.topk_ratio,
+        error_feedback=c.error_feedback,
+    )
 
 
 def select_compromised_count(n: int, pct: float, seed: int) -> int:
@@ -270,5 +308,8 @@ def build_network_from_config(config: Config, device="cuda") -> Network:
         probe_size=probe_size,
         param_dtype=resolved_param_dtype(config),
         device=device,
+        faults=build_fault_spec(config),
+        compression=build_compression_spec(config),
     )
-    return Network(program, topology, attack=attack, seed=seed)
+    return Network(program, topology, attack=attack, seed=seed,
+                   fault_schedule=build_fault_schedule(config))

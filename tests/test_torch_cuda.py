@@ -494,3 +494,70 @@ def test_cli_run_of_the_lever_free_configs(dev, tmp_path, name, exchange, kernel
     assert not any(v for mod in mods for v in mod.PLAIN_CALLS.values())
     assert all(np.isfinite(v).all() for v in history.values())
     assert bool(torch.isfinite(network.flat).all())
+
+
+# The compressed exchange's codec: plain tensor code, held bit-equal between
+# the card and the CPU on the same inputs (a code that moved would move its
+# element by a whole scale step).
+
+def _codec_rows(seed, n, p, dtype):
+    g = np.random.default_rng(seed)
+    x = g.normal(size=(n, p)) * g.uniform(1e-3, 1e2, size=(n, 1))
+    x[1, : p // 3] = 0.0
+    return torch.from_numpy(x.astype(np.float32)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,block", [(1_000_003, 256), (4096, 256), (77, 64)])
+def test_int8_codec_card_equals_cpu(dev, dtype, p, block):
+    from murmura_tpu_torch.ops.compress import quantize_int8
+
+    x = _codec_rows(p, 8, p, dtype)
+    cpu, card = quantize_int8(x, block), quantize_int8(x.to(dev), block)
+    assert torch.equal(card.q.cpu(), cpu.q) and torch.equal(card.scale.cpu(), cpu.scale)
+    assert torch.equal(card.dequantize_f32().cpu(), cpu.dequantize_f32())
+
+
+def test_topk_card_equals_cpu_with_ties(dev):
+    from murmura_tpu_torch.ops.compress import topk_mask
+
+    g = np.random.default_rng(3)
+    p, k = 200_003, 10_000
+    x = g.normal(size=(6, p)).astype(np.float32)
+    for i in range(5):
+        kth = np.sort(np.abs(x[i]))[::-1][k - 1]
+        pos = g.choice(p, size=3 * k // 2, replace=False)
+        x[i, pos] = np.where(g.random(len(pos)) < 0.5, kth, -kth)
+    x[5] = 0.25
+    t = torch.from_numpy(x)
+    mask = topk_mask(t.abs(), k)
+    assert (mask.sum(dim=1) == k).all()
+    assert torch.equal(topk_mask(t.abs().to(dev), k).cpu(), mask)
+
+
+@pytest.mark.parametrize("algorithm", ["int8", "topk"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compress_exchange_card_equals_cpu(dev, algorithm, dtype):
+    from murmura_tpu_torch.ops.compress import (
+        CompressionSpec, compress_exchange, init_compress_state)
+
+    spec = CompressionSpec(algorithm, block=256, topk_ratio=0.05, error_feedback=True)
+    init = _codec_rows(5, 8, 300_007, dtype)
+    states = {"cpu": init_compress_state(spec, init),
+              "card": init_compress_state(spec, init.to(dev))}
+    g = np.random.default_rng(9)
+    for r in range(3):
+        x = (init.float() + torch.from_numpy(
+            (0.1 * (r + 1) * g.normal(size=tuple(init.shape))).astype(np.float32))).to(dtype)
+        out = {}
+        for where, t in (("cpu", x), ("card", x.to(dev))):
+            ex, dec, up, stats = compress_exchange(spec, t, states[where], True)
+            states[where] = {**states[where], **up}
+            out[where] = (ex, dec, up, stats)
+        for a, b in zip(out["card"][:2], out["cpu"][:2]):
+            assert torch.equal(a.cpu(), b)
+        for key in out["cpu"][2]:
+            assert torch.equal(out["card"][2][key].cpu(), out["cpu"][2][key]), (r, key)
+        for key in out["cpu"][3]:
+            torch.testing.assert_close(out["card"][3][key].cpu(), out["cpu"][3][key],
+                                       rtol=1e-5, atol=0)

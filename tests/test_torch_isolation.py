@@ -4,7 +4,8 @@ and it never moves to the CPU unless asked to.
 - In a fresh interpreter, importing every module of ``murmura_tpu_torch``
   and running one CPU round each of Krum, the circulant median,
   Sketchguard, UBAR (both exchanges), an evidential wearable-MLP round,
-  evidential trust (both exchanges) and the geometric median under ALIE
+  evidential trust (both exchanges), the geometric median under ALIE, and
+  a faulted, int8-compressed Krum round under ppermute fused into a chunk,
   loads no ``jax`` and no ``murmura_tpu.*`` module (counted against what
   the interpreter had loaded at start).
 - An AST scan of the port and of chip_smoke.py finds no such import.
@@ -77,6 +78,20 @@ for name, params in (("krum", {"num_compromised": 1}),
                                  generators=round_generators(1, 0, "cpu"))
     assert bool(torch.isfinite(flat).all())
     prog.eval_step(flat)
+from murmura_tpu_torch.core.rounds import build_multi_round
+from murmura_tpu_torch.faults.schedule import FaultSchedule, FaultSpec
+from murmura_tpu_torch.ops.compress import CompressionSpec
+agg = build_aggregator("krum", {"num_compromised": 1, "exchange_offsets": [1, 2, 6, 7]})
+prog = build_round_program(model, agg, data, attack=attack, batch_size=8, seed=1, device="cpu",
+                           faults=FaultSpec(nan_inject_nodes=(2,)),
+                           compression=CompressionSpec("int8", error_feedback=True))
+sched = FaultSchedule(8, crash_prob=0.3, recovery_prob=0.5, seed=1)
+adj_stack = torch.from_numpy(np.stack([sched.masked_adjacency(adj.numpy(), r) for r in range(2)]))
+flat, state, rows = build_multi_round(prog, 2, 1)(
+    prog.init_flat, prog.init_agg_state, 1, adj_stack, comp, 0,
+    alive_stack=torch.from_numpy(sched.alive_stack(0, 2)))
+assert bool(torch.isfinite(flat).all()) and len(rows) == 2
+assert "agg_quarantined" in rows[0][1] and "compress_residual" in state
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "murmura_tpu"})
 print("LOADED", bad)

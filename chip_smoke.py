@@ -50,7 +50,12 @@ Phases, each of which raises (and exits non-zero) on failure:
    an attack row overflowing to inf: the fault stats exactly equal); Krum
    (both exchanges) and the median (ppermute) under int8 and Krum under
    top-k, error feedback on, each held to equal decisions and the derived
-   ``codec_bound``, printed with the codes that differ;
+   ``codec_bound``, printed with the codes that differ; the faulted Krum
+   row also with its audit taps (exactly equal); and Krum (both
+   exchanges) under bounded staleness from a hand-made cache (a straggler
+   whose cache is warm, one past the bound, a scrubbed sender with a warm
+   cache, a dead receiver): the stale stats, taps and new ages exactly
+   equal, the card's new cache bit-equal to the broadcast its rule took;
 3c. one round of the tiny CNN at 64 nodes, k-regular(4), in the parameter
    dtype the configs take by default from 64 nodes up (bfloat16), for
    every ported rule (Krum, geometric median, BALANCE, UBAR and
@@ -86,9 +91,20 @@ Phases, each of which raises (and exits non-zero) on failure:
    median under ppermute) and under top-k; and the flagship's Krum over 6
    rounds per round and fused in chunks of 2 (tpu.rounds_per_dispatch),
    the histories within a scaled 1e-4, no synchronising call inside a
-   chunk.  A faulted run holds its alive and quarantined counts to the
-   schedule and every kernel input finite; a compressed run prints its
-   payload bytes an edge.
+   chunk; then telemetry and bounded staleness: ``telemetry_audit_report.yaml``
+   and ``stale_gossip.yaml`` (5 rounds each), the flagship under
+   stale_gossip's ``faults:``, ``exchange:`` and ``telemetry:`` sections
+   (both exchanges), under telemetry_audit_report's ``telemetry:`` section
+   (4 rounds, its steady seconds printed beside the plain Krum run's), the
+   flagship with a profiler window over rounds 2-3 of 4 (the first trace of
+   a steady round: the card's busy share, its top device ops, the four
+   kernels' share, the longest idle stretches), and the fused pair once
+   more under stale_gossip's sections.  A faulted run holds its alive and
+   quarantined counts to the schedule and every kernel input finite; a
+   compressed run prints its payload bytes an edge; a telemetry run reads
+   its run dir back with the port's report (the memory event's peak equal
+   to the allocator's, the audit taps to the schedule) and prints its
+   per-node audit and its stale stats.
    The counters are set to 0 before each run and read after it: every
    kernel of that run must launch every round, no other kernel and no
    plain version may run,
@@ -127,6 +143,8 @@ ALIE_GEOMETRIC_MEDIAN = ROOT / "examples" / "configs" / "alie_geometric_median.y
 LABEL_FLIP_POISONING = ROOT / "examples" / "configs" / "label_flip_poisoning.yaml"
 CHAOS_CHURN = ROOT / "examples" / "configs" / "chaos_churn.yaml"
 COMPRESSED_EXCHANGE = ROOT / "examples" / "configs" / "compressed_exchange.yaml"
+TELEMETRY_AUDIT_REPORT = ROOT / "examples" / "configs" / "telemetry_audit_report.yaml"
+STALE_GOSSIP = ROOT / "examples" / "configs" / "stale_gossip.yaml"
 SMOKE_DIR = ROOT / "build" / "murmura_tpu_torch" / "smoke"
 SMOKE_ROUNDS = 3
 REPS = 20
@@ -732,6 +750,13 @@ def kept_calls(mod, attr: str, sink: list, tag=None):
 # 0.3, injected masks) instead of the tiny CNN; "attack" (type, params)
 # replaces the gaussian attack of std 10.
 UBAR_STAGES = ("agg_stage1_acceptance_rate", "agg_stage2_acceptance_rate")
+# The faulted rows' audit taps (telemetry.audit_taps), and what the stale
+# rows hold exactly equal.
+FAULT_TAPS = ("agg_tap_quarantined", "agg_tap_attack_scrubbed", "agg_tap_alive",
+              "agg_tap_selected_by", "agg_tap_considered_by")
+STALE_EQUAL = ("agg_stale_used", "agg_stale_expired", "agg_tap_stale_used",
+               "agg_tap_stale_age", "agg_alive", "agg_quarantined", "agg_selected_index",
+               "agg_tap_quarantined", "agg_tap_alive", "agg_tap_selected_by")
 # The codecs of the compressed runs: int8 of block 256 and top-k of ratio
 # 0.05, each with error feedback.
 INT8_EF = {"algorithm": "int8", "block": 256, "error_feedback": True}
@@ -774,7 +799,16 @@ ROUND_RULES = [
     ("krum dense, faulted", "krum",
      {"num_compromised": 1, "faults": True, "pct": 1 / 16,
       "attack": ("ipm", {"epsilon": 1e39})},
-     ("agg_alive", "agg_quarantined", "agg_attack_scrubbed", "agg_selected_index")),
+     ("agg_alive", "agg_quarantined", "agg_attack_scrubbed", "agg_selected_index")
+     + FAULT_TAPS),
+    # Bounded staleness (max 2, discount 0.7) on the faulted graph, from a
+    # hand-made cache (STALE_*): a straggler whose cache is warm, one whose
+    # cache is past the bound, the NaN-injected sender with a warm cache,
+    # and the dead node as a receiver; the audit taps on.
+    ("krum dense, stale", "krum", {"num_compromised": 1, "faults": True, "stale": True},
+     STALE_EQUAL),
+    ("krum circulant, stale", "krum",
+     {"num_compromised": 1, "faults": True, "stale": True, "circulant": True}, STALE_EQUAL),
     ("krum dense, int8", "krum",
      {"num_compromised": 1, "compression": INT8_EF}, ("agg_selected_index",)),
     ("krum circulant, int8", "krum",
@@ -921,6 +955,10 @@ def codec_bound(spec, x_card, x_cpu, ref, own_card, own_cpu, out_cpu):
 # 5 (no alive neighbour), node 2 emits NaN, and one IPM attacker whose
 # broadcast overflows to inf (epsilon 1e39).
 FAULT_DEAD, FAULT_ISOLATED, FAULT_NAN = 5, 6, 2
+# The stale rows: node 4 (a neighbour of the dead node) straggles with a
+# cache one round old, node 12 with one past the bound; node 2 (NaN) has a
+# warm cache that the scrub gate withholds.
+STALE_WARM, STALE_EXPIRED = 4, 12
 
 
 def check_round_against_cpu(device: str = "cuda") -> None:
@@ -935,7 +973,11 @@ def check_round_against_cpu(device: str = "cuda") -> None:
     stages must be equal.  The dense geometric median's line also prints
     the derived bound on its delta (gm_dense_bound).  The faulted row (a
     dead node, a node with no alive neighbour, a NaN-injected node, an
-    attack row overflowing to inf) holds the fault stats exactly equal.
+    attack row overflowing to inf) holds the fault stats and the audit taps
+    exactly equal.  The stale rows (bounded staleness from a hand-made
+    cache, STALE_*) hold the stale stats and taps, the new ages and Krum's
+    picks exactly equal, and the card's new cache bit-equal to the
+    broadcast its rule was handed.
     The compressed rows (int8 or top-k, with error feedback from a non-zero
     residual) hold the decisions equal and the delta within codec_bound,
     printed beside it with the codes that differ.  Every seed runs before a
@@ -949,6 +991,7 @@ def check_round_against_cpu(device: str = "cuda") -> None:
     from murmura_tpu_torch.attacks import ATTACKS
     from murmura_tpu_torch.core import rounds as rounds_mod
     from murmura_tpu_torch.core.rounds import build_round_program
+    from murmura_tpu_torch.core.stale import AGE_KEY, CACHE_KEY, StalenessSpec
     from murmura_tpu_torch.faults.schedule import FaultSpec
     from murmura_tpu_torch.ops import agg_kernels as K
     from murmura_tpu_torch.ops.compress import RESIDUAL_KEY, CompressionSpec
@@ -962,23 +1005,27 @@ def check_round_against_cpu(device: str = "cuda") -> None:
     fault_adj[FAULT_ISOLATED, FAULT_DEAD] = fault_adj[FAULT_DEAD, FAULT_ISOLATED] = 1.0
     alive_np = np.ones(n, np.float32)
     alive_np[FAULT_DEAD] = 0.0
+    stale_adj = base_adj.copy()
+    stale_adj[:, [STALE_WARM, STALE_EXPIRED]] = 0.0
     inputs = {}
     for label, rule, params, equal_stats in ROUND_RULES:
         wearable = bool(params.get("wearable"))
         faulted = bool(params.get("faults"))
+        stale = bool(params.get("stale"))
         comp_kw = params.get("compression")
         kind, attack_kw = params.get("attack", ("gaussian", {"noise_std": 10.0}))
         pct = params.get("pct", 0.2)
         kw = {k: v for k, v in params.items()
-              if k not in ("circulant", "wearable", "attack", "faults", "compression", "pct")}
+              if k not in ("circulant", "wearable", "attack", "faults", "compression", "pct",
+                           "stale")}
         dense_gm = rule == "geometric_median" and not params.get("circulant")
         if params.get("circulant"):
             kw["exchange_offsets"] = offsets
         if rule in ("krum", "median", "trimmed_mean", "geometric_median"):
             kw["max_candidates"] = len(offsets) + 1
-        adj = fault_adj if faulted else base_adj
+        adj = stale_adj if stale else fault_adj if faulted else base_adj
         deltas, bounds, unequal, ok = [], [], [], True
-        codec_notes, fault_notes = [], []
+        codec_notes, fault_notes, stale_notes = [], [], []
         for seed in ROUND_SEEDS:
             if (seed, wearable) not in inputs:
                 inputs[seed, wearable] = _round_inputs(n, seed, wearable)
@@ -996,6 +1043,7 @@ def check_round_against_cpu(device: str = "cuda") -> None:
 
                 def keep(own, bcast, adj_, *rest, real=real, dev=dev):
                     rule_in[dev] = own.clone()
+                    rule_in[dev, "bcast"] = bcast.clone()
                     if dev == "cpu":
                         seen.append((own.clone(), bcast.clone(), adj_.clone()))
                     return real(own, bcast, adj_, *rest)
@@ -1006,7 +1054,8 @@ def check_round_against_cpu(device: str = "cuda") -> None:
                     attack=attack, local_epochs=1, batch_size=16, lr=0.05, seed=seed,
                     device=dev, init_params=init,
                     faults=FaultSpec(nan_inject_nodes=(FAULT_NAN,)) if faulted else None,
-                    compression=spec,
+                    compression=spec, audit_taps=faulted,
+                    staleness=StalenessSpec(2, 0.7, base_mask=base_adj) if stale else None,
                 )
                 noise = np.random.default_rng(seed + 1).normal(
                     size=(int(attack.compromised.sum()), prog.model_dim)).astype(np.float32)
@@ -1015,6 +1064,15 @@ def check_round_against_cpu(device: str = "cuda") -> None:
                 if spec is not None and spec.error_feedback:
                     state[RESIDUAL_KEY] = torch.as_tensor(
                         0.01 * np.random.default_rng(seed + 2).normal(
+                            size=tuple(prog.init_flat.shape)).astype(np.float32)).to(dev)
+                if stale:
+                    # Every sender delivered a round earlier (age 0), one
+                    # three rounds earlier; each cache row near its sender.
+                    age = np.zeros(n, np.float32)
+                    age[STALE_EXPIRED] = 2.0
+                    state[AGE_KEY] = torch.as_tensor(age).to(dev)
+                    state[CACHE_KEY] = prog.init_flat + torch.as_tensor(
+                        0.01 * np.random.default_rng(seed + 3).normal(
                             size=tuple(prog.init_flat.shape)).astype(np.float32)).to(dev)
                 real_codec = rounds_mod.compress_exchange
 
@@ -1030,12 +1088,15 @@ def check_round_against_cpu(device: str = "cuda") -> None:
                 rounds_mod.compress_exchange = codec
                 try:
                     with kept_calls(K, "pairwise_sq_distances", sink):
-                        flat, _, metrics = prog.train_step(
+                        flat, new_state, metrics = prog.train_step(
                             prog.init_flat, state, torch.as_tensor(adj).to(dev), comp, 0.0,
                             draws={**draws, "noise": noise}, alive=alive)
                 finally:
                     rounds_mod.compress_exchange = real_codec
                 out[dev] = (flat.cpu().double(), {k: v.cpu() for k, v in metrics.items()})
+                if stale:
+                    rule_in[dev, "state"] = {k: new_state[k].cpu()
+                                             for k in (AGE_KEY, CACHE_KEY)}
             (f_card, m_card), (f_cpu, m_cpu) = out[device], out["cpu"]
             delta = float((f_card - f_cpu).abs().max() / max(1.0, float(f_cpu.abs().max())))
             deltas.append(delta)
@@ -1047,10 +1108,23 @@ def check_round_against_cpu(device: str = "cuda") -> None:
                 limit = b
                 codec_notes.append(f"seed {seed}: bound {b:.3g}, codec input max |dx| "
                                    f"{dx:.3g}, {differ} {'codes' if spec.algorithm == 'int8' else 'picks'} differ")
-            if faulted:
+            if faulted and not stale:
                 fault_notes.append(
                     "/".join(f"{float(m_card[k]):g}" for k in
                              ("agg_alive", "agg_quarantined", "agg_attack_scrubbed")))
+            if stale:
+                s_card, s_cpu = rule_in[device, "state"], rule_in["cpu", "state"]
+                ages_equal = torch.equal(s_card[AGE_KEY], s_cpu[AGE_KEY])
+                cache_served = torch.equal(s_card[CACHE_KEY], rule_in[device, "bcast"].cpu())
+                served = m_card["agg_tap_stale_age"]
+                exercised = (float(served[STALE_WARM]) == 1.0 and float(served[FAULT_NAN]) == 0.0
+                             and float(m_card["agg_stale_expired"]) > 0)
+                stale_notes.append(
+                    f"seed {seed}: used {float(m_card['agg_stale_used']):g}, expired "
+                    f"{float(m_card['agg_stale_expired']):g}, ages equal {ages_equal}, "
+                    f"card cache == its served broadcast {cache_served}, schedule exercised "
+                    f"{exercised}")
+                ok = ok and ages_equal and cache_served and exercised
             if dense_gm:
                 # Each Weiszfeld step's distance call on the card (the last
                 # call only feeds the stats): its iterate z_t and its Gram
@@ -1083,6 +1157,8 @@ def check_round_against_cpu(device: str = "cuda") -> None:
             shown += f"; derived codec bound (gated): {'; '.join(codec_notes)}"
         if fault_notes:
             shown += f"; alive/quarantined/attack_scrubbed by seed {', '.join(fault_notes)}"
+        if stale_notes:
+            shown += f"; {'; '.join(stale_notes)}"
         limit_note = "codec_bound" if spec is not None else "1e-4"
         what = (("wearable MLP" if wearable else "tiny CNN") + f", {kind} attack"
                 + (f" {attack_kw}" if "attack" in params else ""))
@@ -1493,10 +1569,23 @@ RULE_STATS = {
 # Phase 4's runs: (label, config, exchange, aggregation or None for the
 # config's own, {kernel: launches a round, exact or at least}[, options:
 # "attack" replacing the config's, "sections" added to it (compression:,
-# or faults: taken from the named config), "rounds" instead of
-# SMOKE_ROUNDS]).  An exchange runs the config on backend: tpu.  No other
+# or faults:, exchange:, telemetry: taken from the named config), "rounds"
+# instead of SMOKE_ROUNDS, "profile" (start, rounds) for a profiler window,
+# "memory_stats" to sample memory events]).  An exchange runs the config on backend: tpu.  No other
 # kernel may launch.
 ALIE_20 = {"enabled": True, "type": "alie", "percentage": 0.2, "params": {}}
+# stale_gossip.yaml's lever sections, taken onto the flagship.
+STALE_SECTIONS = {"faults": "stale_gossip", "exchange": "stale_gossip",
+                  "telemetry": "stale_gossip"}
+# The audit taps each rule adds (telemetry.audit_taps).
+RULE_TAPS = {"krum": ("selected_by", "considered_by")}
+# The four kernels' device-side names, for the trace's split.
+KERNEL_SYMBOLS = {
+    "pairwise_sq_distances": ("pairwise_kernel", "pairwise_finalize_kernel"),
+    "circulant_sq_distances": ("circulant_kernel", "sum_blocks_kernel"),
+    "candidate_select": ("staged_kernel", "direct_kernel"),
+    "count_sketch": ("sketch_walk_kernel", "sketch_sum_kernel"),
+}
 MAIN_RUNS = [
     ("krum:allgather", FLAGSHIP, "allgather", None, {"pairwise_sq_distances": (2, "==")}),
     ("krum:ppermute", FLAGSHIP, "ppermute", None, {"circulant_sq_distances": (2, "==")}),
@@ -1561,6 +1650,24 @@ MAIN_RUNS = [
      {"candidate_select": (1, "==")}, {"sections": {"compression": INT8_EF}}),
     ("krum:topk_flagship", FLAGSHIP, "allgather", None, {"pairwise_sq_distances": (2, "==")},
      {"sections": {"compression": TOPK_EF}}),
+    # Telemetry and bounded staleness: the two configs as committed, the
+    # flagship under stale_gossip.yaml's faults:, exchange: and telemetry:
+    # sections (both exchanges) and under telemetry_audit_report.yaml's
+    # telemetry: section, and the flagship with a profiler window over
+    # rounds 2-3 of 4 (the trace's split of a steady round is printed).
+    ("krum:telemetry_audit_report", TELEMETRY_AUDIT_REPORT, None, None,
+     {"pairwise_sq_distances": (2, "==")}, {"rounds": 5}),
+    ("krum:stale_gossip", STALE_GOSSIP, None, None, {"pairwise_sq_distances": (2, "==")},
+     {"rounds": 5}),
+    ("krum:stale_flagship", FLAGSHIP, "allgather", None, {"pairwise_sq_distances": (2, "==")},
+     {"sections": STALE_SECTIONS, "memory_stats": True}),
+    ("krum:stale_ppermute", FLAGSHIP, "ppermute", None, {"circulant_sq_distances": (2, "==")},
+     {"sections": STALE_SECTIONS, "memory_stats": True}),
+    ("krum:telemetry_flagship", FLAGSHIP, "allgather", None,
+     {"pairwise_sq_distances": (2, "==")},
+     {"rounds": 4, "sections": {"telemetry": "telemetry_audit_report"}}),
+    ("krum:profiled_flagship", FLAGSHIP, "allgather", None, {"pairwise_sq_distances": (2, "==")},
+     {"rounds": 4, "profile": (1, 2)}),
 ]
 # Fused dispatch: the flagship's Krum allgather over FUSED_ROUNDS rounds,
 # per round and with tpu.rounds_per_dispatch 2, in the same call.
@@ -1685,6 +1792,129 @@ def sync_free_chunks(events: list):
         net_mod.build_multi_round = real_build
 
 
+def _launch_context(events: list) -> dict:
+    """For each device event's correlation id, (innermost host op, outermost
+    ``murmura.*`` phase) around the host call that launched it: the runtime
+    call (cudaLaunchKernel, a memcpy) carries the id, and the ``cpu_op`` and
+    ``user_annotation`` ranges of its thread that contain it name the op and
+    the phase (core/rounds.py's record_function ranges).  Autograd runs the
+    backward pass on a thread of its own, outside the ranges of the thread
+    that asked for the gradient, so a launch with no phase on its thread
+    takes the phase whose range, on any thread, holds its time.  One sweep
+    a thread over its nested ranges."""
+    import bisect
+
+    by_tid: dict = {}
+    phases_any = []
+    for e in events:
+        if e.get("cat") in ("cpu_op", "user_annotation"):
+            by_tid.setdefault(e.get("tid"), []).append((e["ts"], 0, -e["dur"], e))
+            if e["name"].startswith("murmura."):
+                phases_any.append((e["ts"], e["ts"] + e["dur"], e["name"]))
+        elif (e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and (e.get("args") or {}).get("correlation") is not None):
+            by_tid.setdefault(e.get("tid"), []).append((e["ts"], 1, 0, e))
+    phases_any.sort()
+    phase_starts = [a for a, _, _ in phases_any]
+
+    def phase_at(t):
+        i = bisect.bisect_right(phase_starts, t) - 1
+        while i >= 0:
+            a, b, name = phases_any[i]
+            if b >= t:
+                return name
+            i -= 1
+            if i >= 0 and phases_any[i][1] < a:
+                break
+        return "(no phase)"
+
+    out = {}
+    for items in by_tid.values():
+        stack: list = []
+        for t, kind, _, e in sorted(items, key=lambda x: x[:3]):
+            while stack and stack[-1]["ts"] + stack[-1]["dur"] < t:
+                stack.pop()
+            if kind == 0:
+                stack.append(e)
+                continue
+            ops = [r["name"] for r in stack if r["cat"] == "cpu_op"]
+            phases = [r["name"] for r in stack if r["name"].startswith("murmura.")]
+            out[e["args"]["correlation"]] = (ops[-1] if ops else "(no op)",
+                                            phases[0] if phases else phase_at(t))
+    return out
+
+
+def trace_split(path: Path, top: int = 10, gaps: int = 5) -> dict:
+    """The split of a profiler window from its Chrome trace (the ``run``
+    entry's torch.profiler window, core/network.py): the window's span
+    (first to last event, host or device), the share of it in which the
+    card ran something (the union of kernel, copy and set intervals), the
+    ``top`` device kernels and the ``top`` host ops by the device time they
+    launched, with their shares of the window, the device time and host
+    time of each round phase (core/rounds.py's ``murmura.*`` ranges), the
+    four kernels' share, and the ``gaps`` longest stretches with nothing on
+    the card (ms, and ms from the window's start)."""
+    trace = json.loads(Path(path).read_text())
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        raise AssertionError(f"the trace {path} holds no device activity")
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
+    merged = [list(spans[0])]
+    for a, b in spans[1:]:
+        if a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    busy = sum(b - a for a, b in merged)
+    idle = [(merged[0][0] - t0, 0.0)]
+    idle += [(b2[0] - b1[1], b1[1] - t0) for b1, b2 in zip(merged, merged[1:])]
+    idle.append((t1 - merged[-1][1], merged[-1][1] - t0))
+    context = _launch_context(events)
+    by_name: dict = {}
+    by_op: dict = {}
+    by_phase: dict = {}
+    for e in device:
+        name = e["name"].replace("(anonymous namespace)::", "").replace("at::native::", "")
+        name = name.split("(")[0].strip()[:160] or e["name"][:160]
+        by_name[name] = by_name.get(name, 0.0) + e["dur"]
+        op, phase = context.get((e.get("args") or {}).get("correlation"),
+                                ("(no op)", "(no phase)"))
+        by_op[op] = by_op.get(op, 0.0) + e["dur"]
+        by_phase[phase] = by_phase.get(phase, 0.0) + e["dur"]
+    host_phase: dict = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"].startswith("murmura."):
+            host_phase[e["name"]] = host_phase.get(e["name"], 0.0) + e["dur"]
+    symbols = {sym: k for k, syms in KERNEL_SYMBOLS.items() for sym in syms}
+    ours: dict = {}
+    for name, us in by_name.items():
+        for sym, kernel in symbols.items():
+            if name.endswith(sym) or f"{sym}<" in name or name.split("<")[0].endswith(sym):
+                ours[kernel] = ours.get(kernel, 0.0) + us
+                break
+    window = t1 - t0
+
+    def ranked(d):
+        return [(k, us / 1e3, us / window) for k, us in sorted(d.items(), key=lambda kv: -kv[1])]
+
+    return {
+        "window_ms": window / 1e3,
+        "device_busy_share": busy / window,
+        "device_ms": busy / 1e3,
+        "device_ops": len(device),
+        "top": ranked(by_name)[:top],
+        "top_ops": ranked(by_op)[:top],
+        "phases": {k: (ms, share, host_phase.get(k, 0.0) / 1e3)
+                   for k, ms, share in ranked(by_phase)},
+        "kernels_ms": {k: us / 1e3 for k, us in ours.items()},
+        "kernels_share": sum(ours.values()) / window,
+        "gaps": [(g / 1e3, at / 1e3) for g, at in sorted(idle, reverse=True)[:gaps]],
+    }
+
+
 def history_delta(got: dict, ref: dict) -> float:
     """Largest scaled difference of two histories' values, key by key:
     max |got - ref| / max(1, max |ref|)."""
@@ -1698,6 +1928,87 @@ def history_delta(got: dict, ref: dict) -> float:
     return worst
 
 
+def read_telemetry(label, run_dir, tel, network, rounds, faults, peak_bytes) -> str:
+    """Read a phase-4 run's telemetry dir back through the port's report
+    (the gates and prints of run_main_path's docstring); returns a summary
+    for the run's line."""
+    import numpy as np
+    import torch
+
+    from murmura_tpu_torch.telemetry.report import build_report
+    from murmura_tpu_torch.telemetry.writer import events_of_type
+
+    rep = build_report(run_dir)
+    notes = [f"telemetry {run_dir.relative_to(ROOT)}: {rep['time']['rounds_timed']} "
+             f"phase_times ({', '.join(rep['time']['by_mode'])})"]
+    if rep["time"]["rounds_timed"] != rounds:
+        raise AssertionError(f"{rep['time']['rounds_timed']} phase_times records")
+    if tel.get("memory_stats"):
+        mem = events_of_type(run_dir, "memory")
+        ev_peak = mem[-1]["stats"]["peak_bytes_in_use"]
+        notes.append(f"memory event peak {ev_peak:,} B, torch.cuda.max_memory_allocated "
+                     f"{peak_bytes:,} B, limit {mem[-1]['stats']['bytes_limit']:,} B "
+                     f"({mem[-1]['device_kind']})")
+        if ev_peak != peak_bytes or mem[-1]["device_kind"] != torch.cuda.get_device_name(0):
+            raise AssertionError("the memory event disagrees with the allocator")
+    rounds_ev = events_of_type(run_dir, "round")
+    sched = network.fault_schedule
+    if tel.get("audit_taps") and sched is not None:
+        taps = [e["metrics"]["agg_tap_alive"] for e in rounds_ev]
+        if taps != [sched.alive_at(r).tolist() for r in range(rounds)]:
+            raise AssertionError("agg_tap_alive differs from the schedule's alive rows")
+        frm = int(faults.get("nan_inject_from_round", 0))
+        for node in faults.get("nan_inject_nodes", []):
+            want = float(sum(sched.alive_at(r)[node] for r in range(frm, rounds)))
+            got = rep["faults"]["quarantined_rounds"][node]
+            notes.append(f"node {node} quarantined {got:g} rounds, alive {want:g} of them")
+            if got != want:
+                raise AssertionError(f"node {node}'s quarantined total differs from the schedule")
+        notes.append("agg_tap_alive == the schedule's alive rows")
+        t, f = rep.get("taps", {}), rep["faults"]
+        cols = [("selected_by", t.get("selected_by")), ("considered_by", t.get("considered_by")),
+                ("rejections", t.get("rejections")),
+                ("quarantined", f.get("quarantined_rounds")), ("alive", f.get("alive_rounds"))]
+        cols = [(k, v) for k, v in cols if v is not None]
+        print(f"[main:{label}] per-node audit over {rounds} rounds: "
+              + "; ".join(f"{k} {[round(x, 1) for x in v]}" for k, v in cols), flush=True)
+    if "staleness" in rep:
+        st = rep["staleness"]
+        notes.append(f"stale edge-serves {st['total_stale_edges']:g}, served ages "
+                     f"{st.get('age_histogram', {})}, stale in-edges a node "
+                     f"{[round(x, 1) for x in st['stale_in_edges']]}")
+    if "influence" in rep:
+        notes.append(f"declared influence {rep['influence']['kind']}")
+    prof = [e for e in events_of_type(run_dir, "profile") if e["status"] == "stopped"]
+    if tel.get("profile_rounds"):
+        if len(prof) != 1:
+            raise AssertionError(f"{len(prof)} profiler windows closed, want 1")
+        rt = network.round_times
+        first = tel["profile_start_round"]
+        window_s = sum(rt[first:first + tel["profile_rounds"]])
+        split = trace_split(Path(prof[0]["trace_file"]))
+        print(f"[trace:{label}] window rounds {first + 1}-{first + tel['profile_rounds']} "
+              f"(1-based), {split['window_ms']:.2f} ms traced ({window_s * 1e3:.2f} ms of "
+              f"round time under the profiler); the card busy "
+              f"{split['device_busy_share']:.2%} of it ({split['device_ms']:.2f} ms, "
+              f"{split['device_ops']} device ops); the four kernels "
+              f"{split['kernels_share']:.2%} ({split['kernels_ms']})", flush=True)
+        print(f"[trace:{label}] device ms, share of the window and host ms by round phase: "
+              + "; ".join(f"{k} {ms:.2f} ms {sh:.2%} (host {h:.2f} ms)"
+                          for k, (ms, sh, h) in split["phases"].items()), flush=True)
+        print(f"[trace:{label}] the top device kernels:", flush=True)
+        for name, ms, share in split["top"]:
+            print(f"[trace:{label}]   {ms:9.3f} ms  {share:7.2%}  {name}", flush=True)
+        print(f"[trace:{label}] the top host ops by the device time they launched:",
+              flush=True)
+        for name, ms, share in split["top_ops"]:
+            print(f"[trace:{label}]   {ms:9.3f} ms  {share:7.2%}  {name}", flush=True)
+        print(f"[trace:{label}] longest idle stretches (ms, at ms): "
+              + ", ".join(f"{g:.2f} at {at:.2f}" for g, at in split["gaps"]), flush=True)
+        notes.append(f"trace {Path(prof[0]['trace_file']).name}")
+    return "; ".join(notes)
+
+
 def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> dict:
     """Phase 4: one config through ``murmura_tpu_torch.cli.run`` on the card,
     the kernel counters set to 0 just before and read just after, with the
@@ -1705,7 +2016,15 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
     forwards' time.  A faulted run also holds its alive and quarantined
     counts to the schedule and every kernel input finite; a compressed run
     prints its payload bytes an edge; a fused run (tpu.rounds_per_dispatch
-    above 1) allows no synchronising call inside a chunk (sync_free_chunks)."""
+    above 1) allows no synchronising call inside a chunk (sync_free_chunks).
+    A run with telemetry writes its run dir under SMOKE_DIR/runs and reads
+    it back with the port's report: its ``memory`` events' peak must equal
+    ``torch.cuda.max_memory_allocated``, its ``agg_tap_alive`` rows the
+    schedule's alive rows, a NaN-injected node's quarantined total the
+    rounds it was alive; the per-node audit table, the stale stats and the
+    served ages are printed.  ``opts["profile"] = (start, rounds)`` opens
+    the profiler window over those rounds and prints the trace's split
+    (trace_split)."""
     import numpy as np
     import torch
     import yaml
@@ -1727,8 +2046,13 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
     sections = opts.get("sections", {})
     if "compression" in sections:
         raw["compression"] = dict(sections["compression"])
-    if "faults" in sections:
-        raw["faults"] = config_section(sections["faults"], "faults")
+    for key in ("faults", "exchange", "telemetry"):
+        if key in sections:
+            raw[key] = config_section(sections[key], key)
+    if "profile" in opts:
+        start, count = opts["profile"]
+        raw["telemetry"] = {"enabled": True, "profile_start_round": start,
+                            "profile_rounds": count}
     if "rounds_per_dispatch" in sections:
         raw["backend"] = "tpu"
         raw.setdefault("tpu", {})["rounds_per_dispatch"] = sections["rounds_per_dispatch"]
@@ -1737,8 +2061,14 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
     faulted = bool(faults.get("enabled"))
     compression = (raw.get("compression") or {}).get("algorithm", "none") != "none"
     fused = (raw.get("tpu") or {}).get("rounds_per_dispatch", 1) > 1
+    stale = (raw.get("exchange") or {}).get("max_staleness", 0) > 0
+    tel = raw.get("telemetry") or {}
+    audit = bool(tel.get("enabled") and tel.get("audit_taps"))
     SMOKE_DIR.mkdir(parents=True, exist_ok=True)
     name = label.replace(":", "_")
+    if tel.get("enabled"):
+        tel["dir"] = str(SMOKE_DIR / "runs" / name)
+        tel["memory_stats"] = tel.get("memory_stats", False) or opts.get("memory_stats", False)
     cfg = SMOKE_DIR / f"{name}.yaml"
     cfg.write_text(yaml.safe_dump(raw, sort_keys=False))
     out = SMOKE_DIR / f"history_{name}.json"
@@ -1764,7 +2094,8 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
         wall = time.perf_counter() - t0
         launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
         plain = {k: v for mod in mods for k, v in mod.PLAIN_CALLS.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak_gb = peak_bytes / 1e9
 
     print(f"[main:{label}] launches {launches}, plain-version calls {plain}", flush=True)
     for kernel, (per_round, op) in expect.items():
@@ -1789,6 +2120,15 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
         want.add("agg_compress_error")
         if raw["compression"].get("error_feedback"):
             want.add("agg_compress_residual_norm")
+    if stale:
+        want |= {"agg_stale_used", "agg_stale_expired"}
+    if audit:
+        want |= {f"agg_tap_{k}" for k in RULE_TAPS.get(rule, ())}
+        if faulted:
+            want |= {f"agg_tap_{k[4:]}" for k in want & {
+                "agg_alive", "agg_quarantined", "agg_attack_scrubbed"}}
+        if stale:
+            want |= {"agg_tap_stale_used", "agg_tap_stale_age"}
     if set(hist) != want:
         raise AssertionError(f"history keys {sorted(hist)} != {sorted(want)}")
     if len(hist["round"]) != rounds:
@@ -1833,6 +2173,12 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
     if fused:
         extra += (f"; {len(sync_events)} synchronising call(s) inside the chunks after the "
                   f"first" + (f": {sorted(set(sync_events))[:5]}" if sync_events else ""))
+    if stale:
+        extra += (f"; stale used a round {hist['agg_stale_used']}, expired "
+                  f"{hist['agg_stale_expired']}")
+    if tel.get("enabled"):
+        extra += "; " + read_telemetry(label, Path(tel["dir"]), tel, network, rounds, faults,
+                                       peak_bytes)
     probe_ms = sum(a.elapsed_time(b) for a, b in probe_events)
     if probe_events:
         steady = float(np.sum(rt[1:]))
@@ -1856,29 +2202,31 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
             "peak_gb": peak_gb, "probe_ms": probe_ms, "history": hist}
 
 
-def run_fused_pair() -> dict:
-    """Phase 4, fused dispatch: the flagship's Krum allgather over
-    FUSED_ROUNDS rounds per round, then with tpu.rounds_per_dispatch 2, in
-    the same call.  The two histories must agree to a scaled delta of 1e-4
-    (cuDNN may pick another backward algorithm between the runs; the CPU
-    tests hold them bit-equal); whether they are bit-equal is printed, with
-    both runs' steady seconds a round."""
+def run_fused_pair(tag: str = "flagship", sections=None) -> dict:
+    """Phase 4, fused dispatch: the flagship's Krum allgather (with the
+    config ``sections`` added) over FUSED_ROUNDS rounds per round, then with
+    tpu.rounds_per_dispatch 2, in the same call.  The two histories must
+    agree to a scaled delta of 1e-4 (cuDNN may pick another backward
+    algorithm between the runs; the CPU tests hold them bit-equal); whether
+    they are bit-equal is printed, with both runs' steady seconds a round."""
     import numpy as np
 
     expect = {"pairwise_sq_distances": (2, "==")}
     runs = {}
-    for label, dispatch in (("krum:per_round_flagship", 1), ("krum:fused_flagship", 2)):
-        sections = {"rounds_per_dispatch": dispatch} if dispatch > 1 else {}
+    per_round, fused = f"krum:per_round_{tag}", f"krum:fused_{tag}"
+    for label, dispatch in ((per_round, 1), (fused, 2)):
+        extra = {"rounds_per_dispatch": dispatch} if dispatch > 1 else {}
         runs[label] = run_main_path(label, FLAGSHIP, "allgather", None, expect,
-                                    {"rounds": FUSED_ROUNDS, "sections": sections})
-    ref, got = runs["krum:per_round_flagship"], runs["krum:fused_flagship"]
+                                    {"rounds": FUSED_ROUNDS,
+                                     "sections": {**(sections or {}), **extra}})
+    ref, got = runs[per_round], runs[fused]
     delta = history_delta(got["history"], ref["history"])
     same = got["history"] == ref["history"]
     steady = {k: float(np.mean(v["s_per_round"][2:])) for k, v in runs.items()}
-    print(f"[main:fused] {FUSED_ROUNDS} rounds per round and in chunks of 2: history "
+    print(f"[main:fused_{tag}] {FUSED_ROUNDS} rounds per round and in chunks of 2: history "
           f"bit-equal {same}, scaled delta {delta:.3g} (limit 1e-4); steady s/round (rounds "
-          f"3-{FUSED_ROUNDS}) per round {steady['krum:per_round_flagship']:.4f}, fused "
-          f"{steady['krum:fused_flagship']:.4f}: {'ok' if delta <= 1e-4 else 'FAILED'}",
+          f"3-{FUSED_ROUNDS}) per round {steady[per_round]:.4f}, fused "
+          f"{steady[fused]:.4f}: {'ok' if delta <= 1e-4 else 'FAILED'}",
           flush=True)
     if delta > 1e-4:
         raise AssertionError("the fused history differs from per-round dispatch")
@@ -1898,6 +2246,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    import numpy as np
+
     # Full float32 on the card: cuDNN runs float32 convolutions in TF32 by
     # default, which would blur every float32 comparison below.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1927,6 +2277,13 @@ def main() -> int:
 
     mains = {run[0]: run_main_path(*run) for run in MAIN_RUNS}
     mains.update(run_fused_pair())
+    mains.update(run_fused_pair("stale_flagship", STALE_SECTIONS))
+    steady = {k: float(np.mean(mains[k]["s_per_round"][1:]))
+              for k in ("krum:allgather", "krum:telemetry_flagship")}
+    print(f"[main:telemetry] steady s/round (rounds 2 on), the flagship's Krum allgather "
+          f"{steady['krum:allgather']:.4f} plain, {steady['krum:telemetry_flagship']:.4f} with "
+          "telemetry_audit_report.yaml's telemetry: section (taps, phase times, memory "
+          "events); no claim", flush=True)
     mains.update(round64)
     flagship_s = float(sum(mains["krum:allgather"]["s_per_round"][1:])
                        / (len(mains["krum:allgather"]["s_per_round"]) - 1))

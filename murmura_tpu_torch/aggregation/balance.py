@@ -16,6 +16,7 @@ import torch
 from murmura_tpu_torch.aggregation.base import (
     AggContext,
     AggregatorDef,
+    InfluenceDecl,
     blend_with_own,
     circulant_masked_mean,
     circulant_neighbor_distances,
@@ -78,16 +79,35 @@ def make_balance(
             neighbor_avg = circulant_masked_mean(bcast, accept_k, offsets, out_dtype=own.dtype)
             accepted_count = accept_k.sum(dim=0)
             degree = torch.full((n,), float(len(offsets)), dtype=own.dtype, device=own.device)
+            if ctx.audit:
+                # accept_k[o_idx, i]: receiver i accepted sender (i + o) % n.
+                tap_selected_by = sum(
+                    torch.roll(accept_k[i].to(torch.float32), o) for i, o in enumerate(offsets)
+                )
+                tap_considered_by = torch.full((n,), float(len(offsets)), device=own.device)
         else:
             dist = pairwise_l2_distances(own, bcast)
             accepted = accept_with_closest_fallback(dist, adj, threshold, min_neighbors)
             neighbor_avg = masked_neighbor_mean(bcast, accepted)
             accepted_count = accepted.sum(dim=1)
             degree = torch.clamp(adj.sum(dim=1), min=1.0)
+            if ctx.audit:
+                # Sender-side taps: column sums of the acceptance mask.
+                tap_selected_by = accepted.to(torch.float32).sum(dim=0)
+                tap_considered_by = adj.to(torch.float32).sum(dim=0)
 
         new_flat = blend_with_own(own, neighbor_avg, accepted_count > 0, alpha)
         stats = {"acceptance_rate": accepted_count / degree, "threshold": threshold}
+        if ctx.audit:
+            stats["tap_selected_by"] = tap_selected_by
+            stats["tap_considered_by"] = tap_considered_by
         return new_flat, state, stats
 
-    return AggregatorDef(name="balance", aggregate=aggregate,
-                         quantized_exchange=offsets is not None)
+    return AggregatorDef(
+        name="balance", aggregate=aggregate, quantized_exchange=offsets is not None,
+        influence=InfluenceDecl(
+            "unbounded",
+            note="distance-threshold accept-filter: benign inputs accept "
+            "every neighbor; exclusion is data-dependent, not structural",
+        ),
+    )

@@ -36,6 +36,9 @@ class AggContext:
         evidential: whether ``apply_fn`` outputs Dirichlet alphas.
         num_classes: output arity.
         total_rounds: T of the threshold schedules (BALANCE, Sketchguard).
+        audit: telemetry.audit_taps — the tapping rules (Krum, BALANCE,
+            UBAR, evidential trust) add per-node ``tap_*`` decision tensors
+            to their stats; nothing else in the round changes.
     """
 
     apply_fn: Optional[Callable] = None
@@ -46,6 +49,46 @@ class AggContext:
     evidential: bool = False
     num_classes: int = 0
     total_rounds: int = 1
+    audit: bool = False
+
+
+# Copy of InfluenceDecl from murmura_tpu/aggregation/base.py.
+@dataclass(frozen=True)
+class InfluenceDecl:
+    """A rule's declared Byzantine influence contract: how many distinct
+    neighbours' broadcast values can enter one output coordinate.
+
+    ``kind="bounded"`` declares a cap, ``bound(k)`` for a node with k
+    neighbours (Krum's single winner: 1; the coordinate median's middle
+    pair; the trimmed mean's kept interior).  ``kind="unbounded"`` admits
+    that every neighbour's value can reach the output, or that the cap is
+    data-dependent and vanishes on benign inputs; ``note`` says why.  The
+    report prints it next to the observed audit-tap rejection counts.
+    """
+
+    kind: str  # "bounded" | "unbounded"
+    bound: Optional[Callable[[int], int]] = None
+    note: str = ""
+
+    def __post_init__(self):
+        if self.kind not in ("bounded", "unbounded"):
+            raise ValueError(
+                f"influence kind must be 'bounded' or 'unbounded', got {self.kind!r}"
+            )
+        if self.kind == "bounded" and self.bound is None:
+            raise ValueError("bounded influence declarations need a bound()")
+        if self.kind == "unbounded" and self.bound is not None:
+            raise ValueError("unbounded influence declarations must not carry a bound()")
+
+    def describe(self, k: Optional[int] = None) -> str:
+        """Human-readable contract line (the report's rendering)."""
+        if self.kind == "unbounded":
+            base = "unbounded"
+        elif k is None:
+            base = "bounded"
+        else:
+            base = f"bounded: <= {self.bound(k)} of {k} neighbors per coordinate"
+        return f"{base} — {self.note}" if self.note else base
 
 
 @dataclass(frozen=True)
@@ -60,6 +103,7 @@ class AggregatorDef:
     # the int8 payload through ``dequantize_f32``); its output stays in the
     # dtype of ``own``.
     quantized_exchange: bool = False
+    influence: Optional[InfluenceDecl] = None
 
 
 def refuse_sparse_exchange(rule: str, sparse_exchange: bool) -> None:

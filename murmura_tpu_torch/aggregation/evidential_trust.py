@@ -37,6 +37,7 @@ from murmura_tpu_torch.aggregation.balance import time_factor
 from murmura_tpu_torch.aggregation.base import (
     AggContext,
     AggregatorDef,
+    InfluenceDecl,
     blend_with_own,
     circulant_weighted_sum,
     masked_neighbor_mean,
@@ -139,6 +140,16 @@ def make_evidential_trust(
             "mean_entropy": metrics["entropy"].mean(dim=0),
             "threshold": threshold.expand(n),
         }
+        if ctx.audit:
+            # Sender-side taps: accepted[o_idx, i] / trust[o_idx, i] are
+            # receiver i's verdict on sender (i + o) % n.
+            stats["tap_selected_by"] = sum(
+                torch.roll(accepted[i].to(torch.float32), o) for i, o in enumerate(offsets)
+            )
+            stats["tap_considered_by"] = torch.full((n,), float(k), device=own.device)
+            stats["tap_trust_received"] = sum(
+                torch.roll(trust[i].to(torch.float32), o) for i, o in enumerate(offsets)
+            ) / float(k)
         return new_flat, new_state, stats
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):
@@ -193,6 +204,18 @@ def make_evidential_trust(
             "mean_entropy": masked(metrics["entropy"]),
             "threshold": threshold.expand(n),
         }
+        if ctx.audit:
+            # Receiver-side taps on the dense path (the JAX rule's choice: a
+            # sender-side column sum would add a collective there).
+            stats["tap_accepted"] = accepted.to(torch.float32).sum(dim=1)
+            stats["tap_considered"] = adj.to(torch.float32).sum(dim=1)
         return new_flat, new_state, stats
 
-    return AggregatorDef(name="evidential_trust", aggregate=aggregate, init_state=init_state)
+    return AggregatorDef(
+        name="evidential_trust", aggregate=aggregate, init_state=init_state,
+        influence=InfluenceDecl(
+            "unbounded",
+            note="trust-normalized mean over accepted neighbors: benign "
+            "inputs trust everyone; exclusion is data-dependent",
+        ),
+    )

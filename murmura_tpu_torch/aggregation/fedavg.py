@@ -14,6 +14,7 @@ import torch
 from murmura_tpu_torch.aggregation.base import (
     AggContext,
     AggregatorDef,
+    InfluenceDecl,
     circulant_weighted_sum,
     refuse_sparse_exchange,
 )
@@ -40,5 +41,11 @@ def make_fedavg(
         new_flat = ((own + neighbor_sum) / (1.0 + degree)[:, None]).to(own.dtype)
         return new_flat, state, {"num_neighbors": degree}
 
-    return AggregatorDef(name="fedavg", aggregate=aggregate,
-                         quantized_exchange=offsets is not None)
+    return AggregatorDef(
+        name="fedavg", aggregate=aggregate, quantized_exchange=offsets is not None,
+        influence=InfluenceDecl(
+            "unbounded",
+            note="every neighbor's state enters the degree-normalized "
+            "mean; a single Byzantine row moves it arbitrarily",
+        ),
+    )

@@ -25,6 +25,7 @@ import torch
 from murmura_tpu_torch.aggregation.base import (
     AggContext,
     AggregatorDef,
+    InfluenceDecl,
     candidate_indices,
     circulant_masked_mean,
     circulant_neighbor_distances,
@@ -93,6 +94,14 @@ def make_krum(
             "krum_score": best,
             "selected_own": selected_own.to(torch.float32),
         }
+        if ctx.audit:
+            # Sender-side taps: accept_k[o_idx, i] says receiver i selected
+            # sender (i + o) % n, so selected_by[s] = sum_o accept_k[o_idx,
+            # (s - o) % n]; every sender is considered by its k receivers.
+            stats["tap_selected_by"] = sum(
+                torch.roll(accept_k[i].to(torch.float32), o) for i, o in enumerate(offsets)
+            )
+            stats["tap_considered_by"] = torch.full((n,), float(k), device=own.device)
         return new_flat, state, stats
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):
@@ -137,10 +146,23 @@ def make_krum(
             "krum_score": best,
             "selected_own": selected_own.to(torch.float32),
         }
+        if ctx.audit:
+            # Sender-side taps: how many peers picked node s's broadcast as
+            # their winner (self-selections excluded), and how many had it
+            # as a candidate (its in-degree under the round's adjacency).
+            picked = (winners[:, None] == node[None, :]) & ~selected_own[:, None]
+            stats["tap_selected_by"] = picked.to(torch.float32).sum(dim=0)
+            stats["tap_considered_by"] = adj.to(torch.float32).sum(dim=0)
         return new_flat, state, stats
 
     return AggregatorDef(
         name="krum",
         aggregate=aggregate if offsets is None else aggregate_circulant,
         quantized_exchange=offsets is not None,
+        influence=InfluenceDecl(
+            "bounded",
+            bound=lambda k: 1,
+            note="single Krum winner: at most one neighbor's state is "
+            "ever adopted; scores only decide which",
+        ),
     )

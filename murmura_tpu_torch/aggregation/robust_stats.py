@@ -16,6 +16,7 @@ import torch
 from murmura_tpu_torch.aggregation.base import (
     AggContext,
     AggregatorDef,
+    InfluenceDecl,
     candidate_chunk_dispatch,
     candidate_indices,
     circulant_neighbor_distances,
@@ -95,6 +96,12 @@ def make_coordinate_median(
     return AggregatorDef(
         name="median", aggregate=aggregate if offsets is None else aggregate_circulant,
         quantized_exchange=offsets is not None,
+        influence=InfluenceDecl(
+            "bounded",
+            bound=lambda k: 1 if (k + 1) % 2 else 2,
+            note="coordinate-wise median: the middle element (or pair) of "
+            "the sorted candidate stack",
+        ),
     )
 
 
@@ -152,6 +159,12 @@ def make_trimmed_mean(
     return AggregatorDef(
         name="trimmed_mean", aggregate=aggregate if offsets is None else aggregate_circulant,
         quantized_exchange=offsets is not None,
+        influence=InfluenceDecl(
+            "bounded",
+            bound=lambda k: (k + 1) - 2 * int(beta * (k + 1)),
+            note=f"beta-trimmed mean (beta={beta}): only the sorted "
+            "interior is averaged; the trimmed tails never contribute",
+        ),
     )
 
 
@@ -259,4 +272,9 @@ def make_geometric_median(
         name="geometric_median",
         aggregate=aggregate if offsets is None else aggregate_circulant,
         quantized_exchange=offsets is not None,
+        influence=InfluenceDecl(
+            "unbounded",
+            note="Weiszfeld weights are positive for every candidate; "
+            "robustness is norm-bounded drag, not exclusion",
+        ),
     )

@@ -19,6 +19,7 @@ from murmura_tpu_torch.aggregation.balance import accept_with_closest_fallback, 
 from murmura_tpu_torch.aggregation.base import (
     AggContext,
     AggregatorDef,
+    InfluenceDecl,
     blend_with_own,
     circulant_masked_mean,
     masked_neighbor_mean,
@@ -94,4 +95,11 @@ def make_sketchguard(
         }
         return new_flat, new_state, stats
 
-    return AggregatorDef(name="sketchguard", aggregate=aggregate, init_state=init_state)
+    return AggregatorDef(
+        name="sketchguard", aggregate=aggregate, init_state=init_state,
+        influence=InfluenceDecl(
+            "unbounded",
+            note="sketch-space distance accept-filter: benign inputs "
+            "accept every neighbor; exclusion is data-dependent",
+        ),
+    )

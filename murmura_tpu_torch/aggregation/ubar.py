@@ -20,6 +20,7 @@ import torch
 from murmura_tpu_torch.aggregation.base import (
     AggContext,
     AggregatorDef,
+    InfluenceDecl,
     blend_with_own,
     circulant_masked_mean,
     circulant_neighbor_distances,
@@ -82,7 +83,14 @@ def make_ubar(
         accepted = _accept(shortlist, losses, own_loss, own.dtype)  # [N, k]
         neighbor_avg = circulant_masked_mean(bcast, accepted.T, offsets)
         new_flat = blend_with_own(own, neighbor_avg, accepted.sum(dim=1) > 0, alpha)
-        return new_flat, state, stats(shortlist, accepted, float(k), own_loss, own.dtype)
+        out = stats(shortlist, accepted, float(k), own_loss, own.dtype)
+        if ctx.audit:
+            # accepted[i, o_idx]: receiver i accepted sender (i + o) % n.
+            out["tap_selected_by"] = sum(
+                torch.roll(accepted[:, i].to(torch.float32), o) for i, o in enumerate(offsets)
+            )
+            out["tap_considered_by"] = torch.full((n,), float(k), device=own.device)
+        return new_flat, state, out
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):
         if offsets is not None:
@@ -97,6 +105,20 @@ def make_ubar(
         neighbor_avg = masked_neighbor_mean(bcast, accepted)
         new_flat = blend_with_own(own, neighbor_avg, accepted.sum(dim=1) > 0, alpha)
         deg_safe = torch.clamp(degree, min=1.0)
-        return new_flat, state, stats(shortlist, accepted, deg_safe, own_loss, own.dtype)
+        out = stats(shortlist, accepted, deg_safe, own_loss, own.dtype)
+        if ctx.audit:
+            # Sender-side taps: who passed the loss probe, per sender.
+            out["tap_selected_by"] = accepted.to(torch.float32).sum(dim=0)
+            out["tap_considered_by"] = adj.to(torch.float32).sum(dim=0)
+        return new_flat, state, out
 
-    return AggregatorDef(name="ubar", aggregate=aggregate)
+    return AggregatorDef(
+        name="ubar", aggregate=aggregate,
+        influence=InfluenceDecl(
+            "bounded",
+            bound=lambda k: max(min_neighbors, int(rho * k)),
+            note=f"stage-1 distance shortlist caps accepted neighbors at "
+            f"max({min_neighbors}, floor({rho}*degree)); stage 2 only "
+            "shrinks it",
+        ),
+    )

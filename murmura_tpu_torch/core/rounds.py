@@ -26,6 +26,10 @@ and, for a program built with a ``FaultSpec``, the [N] alive mask as
 2c. with a ``CompressionSpec`` the codec on the broadcast
    (ops/compress.py), its residual and reference carried in ``agg_state``
    under keys the rule never sees;
+2d. with a ``StalenessSpec`` (core/stale.py) the bounded-staleness fold:
+   a disrupted sender's base-graph edges re-added at weight
+   ``discount ** age`` with its cached payload, the cache and ages carried
+   in ``agg_state`` under keys the rule never sees;
 3. the aggregation rule over (own, bcast, adj), with each node's probe
    batch (the first ``probe_size`` samples of its shard) in the context
    for the loss-probe rules, whose forwards run in eval mode; when
@@ -41,6 +45,12 @@ views into it.  The random draws (the epoch shuffle ``u``, the dropout
 masks and the attack's [C, P] noise) come from per-round
 ``torch.Generator``s, or are injected through ``draws`` so that a test can
 feed the JAX package's own draws.
+
+The phases run inside ``torch.profiler.record_function`` ranges named as
+the JAX package's ``named_scope``s (``murmura.train``,
+``murmura.exchange``, ``murmura.compress``, ``murmura.stale``,
+``murmura.aggregate``, ``murmura.eval``), so a profiler trace splits a
+round by phase.
 """
 
 from dataclasses import dataclass
@@ -56,9 +66,16 @@ import torch
 # import frames only.
 import torch._dynamo  # noqa: F401
 from torch.func import grad, vmap
+from torch.profiler import record_function
 
 from murmura_tpu_torch.aggregation.base import AggContext, AggregatorDef
 from murmura_tpu_torch.attacks.base import Attack
+from murmura_tpu_torch.core.stale import (
+    STALE_STATE_KEYS,
+    StalenessSpec,
+    init_stale_state,
+    make_stale_fold,
+)
 from murmura_tpu_torch.data.base import FederatedArrays
 from murmura_tpu_torch.faults.schedule import FaultSpec
 from murmura_tpu_torch.models.core import Model
@@ -159,6 +176,8 @@ def build_round_program(
     init_params: Any = None,
     faults: Optional[FaultSpec] = None,
     compression: Optional[CompressionSpec] = None,
+    audit_taps: bool = False,
+    staleness: Optional[StalenessSpec] = None,
 ) -> RoundProgram:
     """Round step for a network of ``data.num_nodes`` nodes on ``device``
     (the card unless the caller asks for the CPU; without CUDA a ``cuda``
@@ -171,6 +190,12 @@ def build_round_program(
     loss-probe rules (default: the round's batch).  An evidential model's
     KL term is annealed as ``min(1, round / max(1, total_rounds // 2)) *
     EVIDENTIAL_LAMBDA``.
+
+    ``audit_taps`` (telemetry.audit_taps): the rules that tap add their
+    per-node ``tap_*`` stats and a faulted round its ``tap_quarantined``,
+    ``tap_attack_scrubbed`` and ``tap_alive`` flags, all as ``agg_tap_*``
+    metrics; nothing else in the round changes.  ``staleness`` arms the
+    bounded-staleness fold (step 2d), which needs ``faults``.
     """
     device = torch.device(device)
     if device.type == "cuda":
@@ -183,6 +208,34 @@ def build_round_program(
     n = data.num_nodes
     num_classes = data.num_classes or model.num_classes
     evidential = model.evidential
+
+    if staleness is not None:
+        if faults is None:
+            raise ValueError(
+                "bounded staleness (exchange.max_staleness) requires the "
+                "fault model (build_round_program(faults=...)): without "
+                "a fault schedule nothing ever misses a round and the "
+                "cache layer would be dead weight in every program"
+            )
+        if staleness.base_mask is None:
+            raise ValueError(
+                "StalenessSpec.base_mask must carry the static base "
+                "exchange graph (the topology mask / all-active sparse "
+                "edge mask) — re-added edges are drawn from it"
+            )
+        if tuple(np.shape(staleness.base_mask)) != (n, n):
+            raise ValueError(
+                f"staleness base mask shape "
+                f"{tuple(np.shape(staleness.base_mask))} does not match "
+                f"this build's exchange layout {(n, n)}"
+            )
+        stale_fold = make_stale_fold(staleness, audit=audit_taps, device=device)
+    else:
+        stale_fold = None
+    # The fold carries one decoded row a sender (a fresh/stale mix), so
+    # under staleness every rule takes the receiver-side decoded broadcast.
+    quantized_payload = agg.quantized_exchange and stale_fold is None
+    reserved = set(COMPRESS_STATE_KEYS) | (set(STALE_STATE_KEYS) if stale_fold is not None else set())
 
     eff_batch_np = data.effective_batch(batch_size)
     steps_np = data.steps_per_epoch(batch_size)
@@ -283,6 +336,7 @@ def build_round_program(
         evidential=evidential,
         num_classes=num_classes,
         total_rounds=total_rounds,
+        audit=audit_taps,
     )
 
     if faults is not None and faults.nan_inject_nodes:
@@ -318,10 +372,11 @@ def build_round_program(
             adj = both_ways(adj, alive)
             train_mask = train_mask * alive
             pre_flat = flat
-        own_flat = local_training(
-            flat.clone(), train_mask, generators.get("train"), draws.get("u"),
-            draws.get("dropout"), lambda_t,
-        )
+        with record_function("murmura.train"):
+            own_flat = local_training(
+                flat.clone(), train_mask, generators.get("train"), draws.get("u"),
+                draws.get("dropout"), lambda_t,
+            )
         fault_stats = {}
         if inject_rows is not None and round_idx >= faults.nan_inject_from_round:
             own_flat = torch.where(
@@ -334,15 +389,20 @@ def build_round_program(
             finite = torch.isfinite(own_flat).all(dim=1)
             alive_f = alive if alive is not None else torch.ones_like(compromised)
             fault_stats["quarantined"] = ((1.0 - finite.to(torch.float32)) * alive_f).sum()
+            if audit_taps:
+                # Which node diverged, not just how many.
+                fault_stats["tap_quarantined"] = (1.0 - finite.to(torch.float32)) * alive_f
             own_flat = torch.where(finite[:, None], own_flat, pre_flat)
             adj = both_ways(adj, finite.to(adj.dtype))
+        bfin = None
         if attack is not None:
             noise = draws.get("noise")
             if noise is not None:
                 noise = torch.as_tensor(np.asarray(noise)).to(device)
-            bcast = attack.apply(
-                own_flat, compromised, generators.get("attack"), noise=noise
-            )
+            with record_function("murmura.exchange"):
+                bcast = attack.apply(
+                    own_flat, compromised, generators.get("attack"), noise=noise
+                )
             if finite is not None:
                 # An attack that overflows to inf/NaN: its broadcast row is
                 # replaced by the sender's own row and dropped from every
@@ -351,18 +411,42 @@ def build_round_program(
                 bcast = torch.where(bfin[:, None], bcast, own_flat)
                 adj = adj * bfin.to(adj.dtype)[None, :]
                 fault_stats["attack_scrubbed"] = (1.0 - bfin.to(torch.float32)).sum()
+                if audit_taps:
+                    fault_stats["tap_attack_scrubbed"] = 1.0 - bfin.to(torch.float32)
         else:
             bcast = own_flat
         compress_stats = {}
         if compression is not None:
-            bcast, _, updates, compress_stats = compress_exchange(
-                compression, bcast, agg_state, agg.quantized_exchange
-            )
+            with record_function("murmura.compress"):
+                bcast, _, updates, compress_stats = compress_exchange(
+                    compression, bcast, agg_state, quantized_payload
+                )
             agg_state = {**agg_state, **updates}
-        rule_state = {k: v for k, v in agg_state.items() if k not in COMPRESS_STATE_KEYS}
-        new_flat, rule_state, agg_stats = agg.aggregate(
-            own_flat, bcast, adj, round_idx, rule_state, ctx
-        )
+        stale_stats = {}
+        if stale_fold is not None:
+            # Between the codec and the rule: the sentinels' verdicts gate
+            # the senders (a caught row's cached copy is withheld), alive
+            # and finite the receivers (their fresh edges were zeroed both
+            # ways); an attack-scrubbed sender still receives.
+            scrub_ok = torch.ones_like(compromised)
+            if finite is not None:
+                scrub_ok = scrub_ok * finite.to(torch.float32)
+            if bfin is not None:
+                scrub_ok = scrub_ok * bfin.to(torch.float32)
+            recv_ok = alive
+            if finite is not None:
+                recv_ok = recv_ok * finite.to(torch.float32)
+            with record_function("murmura.stale"):
+                bcast, adj, updates, stale_stats = stale_fold(
+                    bcast, adj, {k: agg_state[k] for k in STALE_STATE_KEYS}, recv_ok,
+                    scrub_ok,
+                )
+            agg_state = {**agg_state, **updates}
+        rule_state = {k: v for k, v in agg_state.items() if k not in reserved}
+        with record_function("murmura.aggregate"):
+            new_flat, rule_state, agg_stats = agg.aggregate(
+                own_flat, bcast, adj, round_idx, rule_state, ctx
+            )
         agg_state = {**agg_state, **rule_state}
         if alive is not None:
             # No alive neighbour: the node keeps its own state.  Dead nodes
@@ -374,9 +458,12 @@ def build_round_program(
                 keep = keep & finite
             new_flat = torch.where(keep[:, None], new_flat, pre_flat)
             fault_stats["alive"] = alive.sum()
+            if audit_taps:
+                fault_stats["tap_alive"] = alive
         metrics = {f"agg_{k}": v for k, v in agg_stats.items()}
         metrics.update({f"agg_{k}": v for k, v in fault_stats.items()})
         metrics.update({f"agg_{k}": v for k, v in compress_stats.items()})
+        metrics.update({f"agg_{k}": v for k, v in stale_stats.items()})
         return new_flat, agg_state, metrics
 
     def train_step(
@@ -400,6 +487,7 @@ def build_round_program(
     apply_nodes = vmap(model.apply)
 
     @torch.no_grad()
+    @record_function("murmura.eval")
     def eval_step(flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         x, y, mask = d["eval_x"], d["eval_y"], d["eval_mask"]
         params = unravel(flat)
@@ -441,6 +529,15 @@ def build_round_program(
         # The top-k reference starts at the initial broadcast, which a
         # deployment sends in full once at set-up.
         init_agg_state.update(init_compress_state(compression, init_flat))
+    if staleness is not None:
+        clash = set(STALE_STATE_KEYS) & set(init_agg_state)
+        if clash:
+            raise ValueError(
+                f"aggregator '{agg.name}' carries state keys {sorted(clash)} "
+                "reserved for the bounded-staleness exchange"
+            )
+        init_agg_state.update(
+            init_stale_state(staleness, n, model_dim, init_flat.dtype, device))
     return RoundProgram(
         train_step=train_step,
         eval_step=eval_step,

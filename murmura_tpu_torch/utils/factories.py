@@ -3,13 +3,16 @@ murmura_tpu/utils/factories.py).
 
 ``build_network_from_config`` builds data, model, topology, the attack
 (with its label poison), the aggregation rule, the fault schedule and
-spec, the compression spec and the round program, and refuses by name
+spec, the compression and staleness specs, the telemetry writer and the
+round program, and refuses by name
 every part of the configuration surface the port does not run yet — a
 refused section is an error, never a silent fallback.
 """
 
+import os
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from murmura_tpu_torch.aggregation import build_aggregator
@@ -18,6 +21,7 @@ from murmura_tpu_torch.attacks.base import Attack, select_compromised
 from murmura_tpu_torch.config.schema import Config
 from murmura_tpu_torch.core.network import Network
 from murmura_tpu_torch.core.rounds import build_round_program
+from murmura_tpu_torch.core.stale import StalenessSpec
 from murmura_tpu_torch.data.registry import build_federated_data
 from murmura_tpu_torch.faults.schedule import FaultSchedule, FaultSpec
 from murmura_tpu_torch.models.registry import build_model
@@ -37,8 +41,6 @@ def unported_sections(config: Config) -> List[str]:
     out = []
     if config.backend == "distributed":
         out.append("backend: distributed (the ZMQ multi-process backend)")
-    if config.exchange.max_staleness > 0:
-        out.append("exchange.max_staleness (bounded-staleness gossip)")
     if config.exchange.pipeline:
         out.append("exchange.pipeline (pipelined rounds)")
     if config.topology.type in ("exponential", "one_peer"):
@@ -60,14 +62,10 @@ def unported_sections(config: Config) -> List[str]:
     d = config.durability
     if d.checkpoint_dir is not None or d.resume or d.retries or d.require_tpu:
         out.append("durability (checkpoint/resume/retries/require_tpu)")
-    if config.telemetry.enabled:
-        out.append("telemetry")
     if config.tpu.param_shards > 1:
         out.append("tpu.param_shards > 1 (param-axis sharding)")
     if config.tpu.multihost:
         out.append("tpu.multihost")
-    if config.tpu.profile_dir is not None:
-        out.append("tpu.profile_dir (the JAX profiler trace)")
     a = config.attack
     if a.enabled and a.type is not None and a.type not in ATTACKS:
         out.append(f"attack.type: {a.type}")
@@ -125,6 +123,44 @@ def build_compression_spec(config: Config) -> Optional[CompressionSpec]:
         block=c.block,
         topk_ratio=c.topk_ratio,
         error_feedback=c.error_feedback,
+    )
+
+
+def build_staleness_spec(config: Config, topology) -> Optional[StalenessSpec]:
+    """StalenessSpec from config.exchange, or None when off.  The base mask
+    is the topology's static [N, N] mask, the unfaulted graph re-added
+    stale edges are drawn from (the sparse topologies are not ported)."""
+    e = config.exchange
+    if e.max_staleness <= 0:
+        return None
+    return StalenessSpec(
+        max_staleness=e.max_staleness,
+        discount=e.staleness_discount,
+        base_mask=np.asarray(topology.mask(), dtype=np.float32),
+    )
+
+
+def default_telemetry_dir(config: Config) -> str:
+    """The run directory of a telemetry-enabled config when
+    ``telemetry.dir`` is unset: ``murmura_runs/<experiment name>``."""
+    return config.telemetry.dir or os.path.join("murmura_runs", config.experiment.name)
+
+
+def build_telemetry_writer(config: Config):
+    """TelemetryWriter from config.telemetry, or None when off."""
+    t = config.telemetry
+    if not t.enabled:
+        return None
+    from murmura_tpu_torch.telemetry.writer import TelemetryWriter
+
+    return TelemetryWriter(
+        default_telemetry_dir(config),
+        config=config,
+        phase_times=t.phase_times,
+        memory_stats=t.memory_stats,
+        profile_dir=t.profile_dir,
+        profile_start_round=t.profile_start_round,
+        profile_rounds=t.profile_rounds,
     )
 
 
@@ -310,6 +346,10 @@ def build_network_from_config(config: Config, device="cuda") -> Network:
         device=device,
         faults=build_fault_spec(config),
         compression=build_compression_spec(config),
+        audit_taps=config.telemetry.audit_taps,
+        staleness=build_staleness_spec(config, topology),
     )
     return Network(program, topology, attack=attack, seed=seed,
-                   fault_schedule=build_fault_schedule(config))
+                   fault_schedule=build_fault_schedule(config),
+                   telemetry=build_telemetry_writer(config),
+                   profile_dir=config.tpu.profile_dir)

@@ -561,3 +561,67 @@ def test_compress_exchange_card_equals_cpu(dev, algorithm, dtype):
         for key in out["cpu"][3]:
             torch.testing.assert_close(out["card"][3][key].cpu(), out["cpu"][3][key],
                                        rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("discount", [0.7, 1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stale_fold_card_equals_cpu(dev, discount, dtype):
+    """Three chained folds on k-regular(4) at N = 16, P = 300,007: stragglers
+    with warm and cold caches, a scrubbed sender, a dead receiver.  The
+    served rows, the cache, the ages, the re-added edges and the stats
+    bit-equal; the weights discount ** age within rtol 1e-6 (each device's
+    float32 exp)."""
+    from murmura_tpu_torch.core.stale import (
+        AGE_KEY, CACHE_KEY, StalenessSpec, init_stale_state, make_stale_fold)
+    from murmura_tpu_torch.topology.generators import create_topology
+
+    n, p = 16, 300_007
+    base = create_topology("k-regular", n, k=4).mask()
+    spec = StalenessSpec(2, discount, base_mask=base)
+    folds = {"cpu": make_stale_fold(spec, audit=True),
+             "card": make_stale_fold(spec, audit=True, device=dev)}
+    states = {"cpu": init_stale_state(spec, n, p, dtype),
+              "card": init_stale_state(spec, n, p, dtype, dev)}
+    g = np.random.default_rng(4)
+    for r in range(3):
+        bcast = torch.from_numpy(g.normal(size=(n, p)).astype(np.float32)).to(dtype)
+        adj = base.copy()
+        adj[:, [1, 6] if r else [6]] = 0.0  # 1 delivers in round 0, 6 never
+        recv, scrub = np.ones(n, np.float32), np.ones(n, np.float32)
+        recv[9] = 0.0
+        adj[9, :] = 0.0
+        if r == 2:
+            scrub[3] = 0.0
+            adj[:, 3] = 0.0
+        out = {}
+        for where, d in (("cpu", "cpu"), ("card", dev)):
+            b, a, up, st = folds[where](
+                bcast.to(d), torch.from_numpy(adj).to(d), states[where],
+                torch.from_numpy(recv).to(d), torch.from_numpy(scrub).to(d))
+            states[where] = up
+            out[where] = (b, a, up, st)
+        (cb, ca, cu, cs), (gb, ga, gu, gs) = out["cpu"], out["card"]
+        assert torch.equal(gb.cpu(), cb) and torch.equal(gu[CACHE_KEY].cpu(), cu[CACHE_KEY])
+        assert torch.equal(gu[AGE_KEY].cpu(), cu[AGE_KEY])
+        assert torch.equal(ga.cpu() > 0, ca > 0)
+        torch.testing.assert_close(ga.cpu(), ca, rtol=1e-6, atol=0)
+        for k in cs:
+            assert torch.equal(gs[k].cpu(), cs[k]), (r, k)
+    assert float(cs["stale_used"]) > 0 and float(cs["stale_expired"]) > 0
+
+
+def test_memory_event_reads_the_card(dev, tmp_path):
+    from murmura_tpu_torch.telemetry.writer import TelemetryWriter, events_of_type
+
+    x = torch.empty((64, 1 << 20), device=dev)  # 256 MiB
+    w = TelemetryWriter(tmp_path / "run", memory_stats=True)
+    w.memory_event(0, dev)
+    w.close()
+    (e,) = events_of_type(tmp_path / "run", "memory")
+    assert e["device_kind"] == torch.cuda.get_device_name(dev)
+    stats = e["stats"]
+    assert set(stats) == {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+    assert stats["peak_bytes_in_use"] == torch.cuda.max_memory_allocated(dev)
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"] >= x.numel() * 4
+    assert stats["bytes_limit"] == torch.cuda.get_device_properties(dev).total_memory
+    del x

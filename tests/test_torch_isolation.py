@@ -4,10 +4,12 @@ and it never moves to the CPU unless asked to.
 - In a fresh interpreter, importing every module of ``murmura_tpu_torch``
   and running one CPU round each of Krum, the circulant median,
   Sketchguard, UBAR (both exchanges), an evidential wearable-MLP round,
-  evidential trust (both exchanges), the geometric median under ALIE, and
-  a faulted, int8-compressed Krum round under ppermute fused into a chunk,
-  loads no ``jax`` and no ``murmura_tpu.*`` module (counted against what
-  the interpreter had loaded at start).
+  evidential trust (both exchanges), the geometric median under ALIE, a
+  faulted, int8-compressed Krum round under ppermute fused into a chunk,
+  and two stale Krum rounds with audit taps through a Network that writes
+  a telemetry run dir, read back by the port's report, loads no ``jax``
+  and no ``murmura_tpu.*`` module (counted against what the interpreter
+  had loaded at start).
 - An AST scan of the port and of chip_smoke.py finds no such import.
 - Without CUDA, ``python -m murmura_tpu_torch run`` without ``--device
   cpu`` fails with a message, and chip_smoke.py exits non-zero, printing
@@ -92,6 +94,24 @@ flat, state, rows = build_multi_round(prog, 2, 1)(
     alive_stack=torch.from_numpy(sched.alive_stack(0, 2)))
 assert bool(torch.isfinite(flat).all()) and len(rows) == 2
 assert "agg_quarantined" in rows[0][1] and "compress_residual" in state
+import tempfile
+from murmura_tpu_torch.core.network import Network
+from murmura_tpu_torch.core.stale import StalenessSpec
+from murmura_tpu_torch.telemetry.report import build_report
+from murmura_tpu_torch.telemetry.writer import TelemetryWriter
+agg = build_aggregator("krum", {})
+prog = build_round_program(model, agg, data, batch_size=8, seed=1, device="cpu",
+                           faults=FaultSpec(), audit_taps=True,
+                           staleness=StalenessSpec(2, 0.7, base_mask=adj.numpy()))
+sched = FaultSchedule(8, straggler_prob=0.3, link_drop_prob=0.3, seed=1)
+with tempfile.TemporaryDirectory() as run_dir:
+    writer = TelemetryWriter(run_dir, memory_stats=True)
+    net = Network(prog, create_topology("k-regular", 8, k=4), seed=1, fault_schedule=sched,
+                  telemetry=writer)
+    hist = net.train(2)
+    writer.close()
+    assert "agg_tap_stale_used" in hist and "stale_cache" in net.agg_state
+    assert build_report(run_dir)["staleness"]["stale_in_edges"]
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "murmura_tpu"})
 print("LOADED", bad)

@@ -56,6 +56,10 @@ Phases, each of which raises (and exits non-zero) on failure:
    whose cache is warm, one past the bound, a scrubbed sender with a warm
    cache, a dead receiver): the stale stats, taps and new ages exactly
    equal, the card's new cache bit-equal to the broadcast its rule took;
+   and pipelined Krum (both exchanges): two chained rounds from one
+   initial state with injected draws, so that the second aggregates a
+   valid buffer: the picks equal every round, the parameters within a
+   scaled 1e-4, ``agg_pipe_valid`` [0, 1];
 3c. one round of the tiny CNN at 64 nodes, k-regular(4), in the parameter
    dtype the configs take by default from 64 nodes up (bfloat16), for
    every ported rule (Krum, geometric median, BALANCE, UBAR and
@@ -99,7 +103,21 @@ Phases, each of which raises (and exits non-zero) on failure:
    flagship with a profiler window over rounds 2-3 of 4 (the first trace of
    a steady round: the card's busy share, its top device ops, the four
    kernels' share, the longest idle stretches), and the fused pair once
-   more under stale_gossip's sections.  A faulted run holds its alive and
+   more under stale_gossip's sections; then durability and pipelined
+   rounds: ``resumable_run.yaml`` as committed (30 rounds, a snapshot every
+   5) and ``pipelined_rounds.yaml`` as committed (12 rounds,
+   ``tpu.recompile_guard`` on), the flagship under pipelined_rounds'
+   ``exchange:`` and ``tpu:`` sections (both exchanges) and as the fused
+   pair, the flagship fused under ``tpu.transfer_guard`` (no raise), and
+   the flagship under resumable_run's ``durability:``, ``compression:`` and
+   ``telemetry:`` sections (6 rounds, a snapshot every 2, both exchanges):
+   once uninterrupted, then through ``python -m murmura_tpu_torch run`` in
+   a subprocess SIGKILLed after its round-2 snapshot and run again, which
+   resumes: the kernel launched twice a round for the rounds it ran,
+   decisions equal, the history within a scaled 1e-4 of the uninterrupted
+   run's (bit-equality printed), the telemetry stream appended with one
+   ``run_resumed``, each snapshot's bytes and save or restore seconds
+   printed.  A faulted run holds its alive and
    quarantined counts to the schedule and every kernel input finite; a
    compressed run prints its payload bytes an edge; a telemetry run reads
    its run dir back with the port's report (the memory event's peak equal
@@ -112,7 +130,9 @@ Phases, each of which raises (and exits non-zero) on failure:
    values (and the evidential columns for an evidential model); each run
    prints its peak device memory, and UBAR's and evidential trust's their
    probe forwards' share of the round;
-5. output: the codec's times beside the flagship round's, one
+5. output: the pipelined flagship's steady seconds a round beside the
+   serialized one's, the resumed runs' equality and snapshot costs, the
+   codec's times beside the flagship round's, one
    ``{"kernels": [...]}`` JSON line, the card line, and the
    ``{"ok": true, "device": ...}`` line last.
 
@@ -145,6 +165,8 @@ CHAOS_CHURN = ROOT / "examples" / "configs" / "chaos_churn.yaml"
 COMPRESSED_EXCHANGE = ROOT / "examples" / "configs" / "compressed_exchange.yaml"
 TELEMETRY_AUDIT_REPORT = ROOT / "examples" / "configs" / "telemetry_audit_report.yaml"
 STALE_GOSSIP = ROOT / "examples" / "configs" / "stale_gossip.yaml"
+RESUMABLE_RUN = ROOT / "examples" / "configs" / "resumable_run.yaml"
+PIPELINED_ROUNDS = ROOT / "examples" / "configs" / "pipelined_rounds.yaml"
 SMOKE_DIR = ROOT / "build" / "murmura_tpu_torch" / "smoke"
 SMOKE_ROUNDS = 3
 REPS = 20
@@ -1170,6 +1192,75 @@ def check_round_against_cpu(device: str = "cuda") -> None:
             raise AssertionError(f"a {label} round on the card disagrees with the CPU round")
 
 
+def check_pipelined_against_cpu(device: str = "cuda") -> None:
+    """Phase 3b, pipelined rounds: Krum (num_compromised 1) on the tiny CNN,
+    16 nodes, k-regular(4), 20% gaussian std 10, built with pipeline=True,
+    two chained rounds on the card and on the CPU from the same initial
+    parameters and injected draws (each round its own attack noise), so
+    that round 1 aggregates a valid buffer (round 0 the placeholder), in
+    both exchanges and on each of ROUND_SEEDS.  Every round's Krum picks and
+    ``agg_pipe_valid`` ([0, 1]) must be equal, the parameters within a
+    scaled delta of 1e-4.  (Seed 19's round-1 training sits at a near-tie
+    of the CNN (a max-pool window or a ReLU): sums in another order move
+    one weight, node 4's 603rd, by a discrete 8.65e-5 on the card in some
+    calls, and so does a 3e-8 relative perturbation of the round's start on
+    the CPU, in 3 of 8 draws; PERF.md, section 6.)"""
+    import numpy as np
+    import torch
+
+    from murmura_tpu_torch.aggregation import build_aggregator
+    from murmura_tpu_torch.attacks import ATTACKS
+    from murmura_tpu_torch.core.rounds import build_round_program
+    from murmura_tpu_torch.topology.generators import create_topology
+
+    n, offsets = 16, [1, 2, 14, 15]
+    adj = create_topology("k-regular", n, k=4).mask()
+    for circulant in (False, True):
+        kw = {"num_compromised": 1, "max_candidates": len(offsets) + 1}
+        if circulant:
+            kw["exchange_offsets"] = offsets
+        deltas, unequal, valid = [], [], []
+        for seed in ROUND_SEEDS:
+            model, data, init, draws = _round_inputs(n, seed, False)
+            out = {}
+            for dev in (device, "cpu"):
+                attack = ATTACKS["gaussian"](n, 0.2, seed=seed, noise_std=10.0)
+                prog = build_round_program(
+                    model, build_aggregator("krum", kw), data, attack=attack, local_epochs=1,
+                    batch_size=16, lr=0.05, seed=seed, device=dev, init_params=init,
+                    pipeline=True)
+                comp = torch.as_tensor(attack.compromised.astype(np.float32)).to(dev)
+                flat, state, rows = prog.init_flat, dict(prog.init_agg_state), []
+                for r in range(2):
+                    noise = np.random.default_rng(seed + 1 + r).normal(
+                        size=(int(attack.compromised.sum()), prog.model_dim)).astype(np.float32)
+                    flat, state, metrics = prog.train_step(
+                        flat, state, torch.as_tensor(adj).to(dev), comp, float(r),
+                        draws={**draws, "noise": noise})
+                    rows.append((flat.cpu().double(), metrics["agg_selected_index"].cpu(),
+                                 float(metrics["agg_pipe_valid"])))
+                out[dev] = rows
+            for r, ((f_card, sel_card, v_card), (f_cpu, sel_cpu, v_cpu)) in enumerate(
+                    zip(out[device], out["cpu"])):
+                deltas.append(float((f_card - f_cpu).abs().max()
+                                    / max(1.0, float(f_cpu.abs().max()))))
+                if not torch.equal(sel_card, sel_cpu):
+                    unequal.append(f"seed {seed} round {r}")
+                valid.append((v_card, v_cpu) == (float(r), float(r)))
+        ok = max(deltas) <= 1e-4 and not unequal and all(valid)
+        label = "circulant" if circulant else "dense"
+        print(f"[round] krum {label}, pipelined, two chained rounds, tiny CNN, gaussian attack, "
+              f"card vs CPU, seeds {list(ROUND_SEEDS)}: scaled param delta by seed and round "
+              f"{', '.join(f'{d:.3g}' for d in deltas)} (largest {max(deltas):.3g}, limit "
+              f"1e-4); agg_selected_index "
+              + ("== CPU every round" if not unequal else f"differs: {', '.join(unequal)}")
+              + f"; agg_pipe_valid [0, 1] on both: {all(valid)}: {'ok' if ok else 'FAILED'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"a pipelined krum {label} round on the card disagrees with "
+                                 "the CPU")
+
+
 # Phase 3c's rounds: (rule, exchange, params, {kernel: launches}, spread[,
 # config sections: "compression", or "faults" naming the config whose
 # faults: section to take]).
@@ -1577,6 +1668,11 @@ ALIE_20 = {"enabled": True, "type": "alie", "percentage": 0.2, "params": {}}
 # stale_gossip.yaml's lever sections, taken onto the flagship.
 STALE_SECTIONS = {"faults": "stale_gossip", "exchange": "stale_gossip",
                   "telemetry": "stale_gossip"}
+# pipelined_rounds.yaml's and resumable_run.yaml's lever sections, taken
+# onto the flagship.
+PIPELINE_SECTIONS = {"exchange": "pipelined_rounds", "tpu": "pipelined_rounds"}
+RESUME_SECTIONS = {"durability": "resumable_run", "compression": "resumable_run",
+                   "telemetry": "resumable_run"}
 # The audit taps each rule adds (telemetry.audit_taps).
 RULE_TAPS = {"krum": ("selected_by", "considered_by")}
 # The four kernels' device-side names, for the trace's split.
@@ -1668,6 +1764,23 @@ MAIN_RUNS = [
      {"rounds": 4, "sections": {"telemetry": "telemetry_audit_report"}}),
     ("krum:profiled_flagship", FLAGSHIP, "allgather", None, {"pairwise_sq_distances": (2, "==")},
      {"rounds": 4, "profile": (1, 2)}),
+    # Durability and pipelined rounds: the two configs as committed
+    # (resumable_run: 30 rounds, a snapshot every 5; pipelined_rounds: 12
+    # rounds, tpu.recompile_guard on), the flagship under pipelined_rounds'
+    # exchange: and tpu: sections (both exchanges; round 0 aggregates the
+    # placeholder buffer through the kernel too), and the flagship fused in
+    # chunks of 2 under tpu.transfer_guard.
+    ("krum:resumable_run", RESUMABLE_RUN, None, None, {"pairwise_sq_distances": (2, "==")},
+     {"rounds": 30}),
+    ("krum:pipelined_rounds", PIPELINED_ROUNDS, None, None, {"pairwise_sq_distances": (2, "==")},
+     {"rounds": 12}),
+    ("krum:pipelined_flagship", FLAGSHIP, "allgather", None, {"pairwise_sq_distances": (2, "==")},
+     {"sections": PIPELINE_SECTIONS}),
+    ("krum:pipelined_ppermute", FLAGSHIP, "ppermute", None, {"circulant_sq_distances": (2, "==")},
+     {"sections": PIPELINE_SECTIONS}),
+    ("krum:transfer_guard_fused", FLAGSHIP, "allgather", None,
+     {"pairwise_sq_distances": (2, "==")},
+     {"rounds": 4, "sections": {"rounds_per_dispatch": 2, "tpu": {"transfer_guard": True}}}),
 ]
 # Fused dispatch: the flagship's Krum allgather over FUSED_ROUNDS rounds,
 # per round and with tpu.rounds_per_dispatch 2, in the same call.
@@ -2009,6 +2122,55 @@ def read_telemetry(label, run_dir, tel, network, rounds, faults, peak_bytes) -> 
     return "; ".join(notes)
 
 
+def smoke_config(name, config, exchange, aggregation, opts):
+    """Phase 4's config for one run (run_main_path's docstring), written to
+    SMOKE_DIR/<name>.yaml; returns (raw, its path, the history path).  A
+    ``durability:`` section gets its checkpoint_dir under SMOKE_DIR/ckpts
+    (emptied first) and ``opts["checkpoint_every"]`` if given."""
+    import yaml
+
+    raw = yaml.safe_load(config.read_text())
+    raw["experiment"]["rounds"] = opts.get("rounds", SMOKE_ROUNDS)
+    if exchange is not None:
+        raw["backend"] = "tpu"
+        raw.setdefault("tpu", {})["exchange"] = exchange
+    if aggregation is not None:
+        raw["aggregation"] = aggregation
+    if opts.get("attack") is not None:
+        raw["attack"] = opts["attack"]
+    sections = opts.get("sections", {})
+    for key in ("compression", "faults", "exchange", "telemetry", "durability"):
+        if key in sections:
+            value = sections[key]
+            raw[key] = dict(value) if isinstance(value, dict) else config_section(value, key)
+    if "tpu" in sections:
+        value = sections["tpu"]
+        raw.setdefault("tpu", {}).update(
+            value if isinstance(value, dict) else config_section(value, "tpu"))
+    if "profile" in opts:
+        start, count = opts["profile"]
+        raw["telemetry"] = {"enabled": True, "profile_start_round": start,
+                            "profile_rounds": count}
+    if "rounds_per_dispatch" in sections:
+        raw["backend"] = "tpu"
+        raw.setdefault("tpu", {})["rounds_per_dispatch"] = sections["rounds_per_dispatch"]
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    tel = raw.get("telemetry") or {}
+    if tel.get("enabled"):
+        tel["dir"] = str(SMOKE_DIR / "runs" / name)
+        tel["memory_stats"] = tel.get("memory_stats", False) or opts.get("memory_stats", False)
+        shutil.rmtree(tel["dir"], ignore_errors=True)
+    if raw.get("durability"):
+        ckpt = SMOKE_DIR / "ckpts" / name
+        shutil.rmtree(ckpt, ignore_errors=True)
+        raw["durability"]["checkpoint_dir"] = str(ckpt)
+        if "checkpoint_every" in opts:
+            raw["durability"]["checkpoint_every"] = opts["checkpoint_every"]
+    cfg = SMOKE_DIR / f"{name}.yaml"
+    cfg.write_text(yaml.safe_dump(raw, sort_keys=False))
+    return raw, cfg, SMOKE_DIR / f"history_{name}.json"
+
+
 def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> dict:
     """Phase 4: one config through ``murmura_tpu_torch.cli.run`` on the card,
     the kernel counters set to 0 just before and read just after, with the
@@ -2027,51 +2189,24 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
     (trace_split)."""
     import numpy as np
     import torch
-    import yaml
 
     from murmura_tpu_torch import cli
     from murmura_tpu_torch.core.network import empty_history
 
     opts = opts or {}
     rounds = opts.get("rounds", SMOKE_ROUNDS)
-    raw = yaml.safe_load(config.read_text())
-    raw["experiment"]["rounds"] = rounds
-    if exchange is not None:
-        raw["backend"] = "tpu"
-        raw.setdefault("tpu", {})["exchange"] = exchange
-    if aggregation is not None:
-        raw["aggregation"] = aggregation
-    if opts.get("attack") is not None:
-        raw["attack"] = opts["attack"]
-    sections = opts.get("sections", {})
-    if "compression" in sections:
-        raw["compression"] = dict(sections["compression"])
-    for key in ("faults", "exchange", "telemetry"):
-        if key in sections:
-            raw[key] = config_section(sections[key], key)
-    if "profile" in opts:
-        start, count = opts["profile"]
-        raw["telemetry"] = {"enabled": True, "profile_start_round": start,
-                            "profile_rounds": count}
-    if "rounds_per_dispatch" in sections:
-        raw["backend"] = "tpu"
-        raw.setdefault("tpu", {})["rounds_per_dispatch"] = sections["rounds_per_dispatch"]
+    name = label.replace(":", "_")
+    raw, cfg, out = smoke_config(name, config, exchange, aggregation, opts)
     rule = raw["aggregation"]["algorithm"]
     faults = raw.get("faults", {}) or {}
     faulted = bool(faults.get("enabled"))
     compression = (raw.get("compression") or {}).get("algorithm", "none") != "none"
-    fused = (raw.get("tpu") or {}).get("rounds_per_dispatch", 1) > 1
+    tpu = raw.get("tpu") or {}
+    fused = tpu.get("rounds_per_dispatch", 1) > 1
     stale = (raw.get("exchange") or {}).get("max_staleness", 0) > 0
+    pipelined = bool((raw.get("exchange") or {}).get("pipeline"))
     tel = raw.get("telemetry") or {}
     audit = bool(tel.get("enabled") and tel.get("audit_taps"))
-    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
-    name = label.replace(":", "_")
-    if tel.get("enabled"):
-        tel["dir"] = str(SMOKE_DIR / "runs" / name)
-        tel["memory_stats"] = tel.get("memory_stats", False) or opts.get("memory_stats", False)
-    cfg = SMOKE_DIR / f"{name}.yaml"
-    cfg.write_text(yaml.safe_dump(raw, sort_keys=False))
-    out = SMOKE_DIR / f"history_{name}.json"
 
     mods = _kernel_modules()
     probe_events: list = []
@@ -2084,7 +2219,8 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
         stack.enter_context(timed_probes(probe_events))
         if faulted:
             stack.enter_context(finite_kernel_inputs(finite_flags))
-        if fused:
+        if fused and not tpu.get("transfer_guard"):
+            # (Under tpu.transfer_guard the Network raises on a sync itself.)
             stack.enter_context(sync_free_chunks(sync_events))
         for mod in mods:
             mod.reset_counts()
@@ -2122,6 +2258,8 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
             want.add("agg_compress_residual_norm")
     if stale:
         want |= {"agg_stale_used", "agg_stale_expired"}
+    if pipelined:
+        want.add("agg_pipe_valid")
     if audit:
         want |= {f"agg_tap_{k}" for k in RULE_TAPS.get(rule, ())}
         if faulted:
@@ -2133,6 +2271,8 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
         raise AssertionError(f"history keys {sorted(hist)} != {sorted(want)}")
     if len(hist["round"]) != rounds:
         raise AssertionError(f"history has {len(hist['round'])} rounds")
+    if pipelined and hist["agg_pipe_valid"] != [0.0] + [1.0] * (rounds - 1):
+        raise AssertionError(f"agg_pipe_valid {hist['agg_pipe_valid']}, want [0, 1, ...]")
     for k, v in hist.items():
         if v and not np.all(np.isfinite(np.asarray(v, dtype=np.float64))):
             raise AssertionError(f"history[{k!r}] is not finite: {v}")
@@ -2176,6 +2316,15 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
     if stale:
         extra += (f"; stale used a round {hist['agg_stale_used']}, expired "
                   f"{hist['agg_stale_expired']}")
+    if pipelined:
+        extra += (f"; pipelined, agg_pipe_valid {hist['agg_pipe_valid']}, recompile_guard "
+                  f"{network.recompile_guard}")
+    if tpu.get("transfer_guard"):
+        extra += "; tpu.transfer_guard on: no synchronising call raised inside a chunk"
+    if network.checkpoints:
+        extra += "; snapshots " + ", ".join(
+            f"{c['action']} round {c['round']} {c['bytes']:,} B in {c['seconds']:.3f} s"
+            for c in network.checkpoints)
     if tel.get("enabled"):
         extra += "; " + read_telemetry(label, Path(tel["dir"]), tel, network, rounds, faults,
                                        peak_bytes)
@@ -2192,6 +2341,7 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
           f"final mean accuracy {hist['mean_accuracy'][-1]:.4f}{extra}", flush=True)
     if sync_events:
         raise AssertionError("a fused chunk synchronised with the host")
+    checkpoints = list(network.checkpoints)
     del network, history
     held_gb = torch.cuda.memory_allocated() / 1e9
     gc.collect()
@@ -2199,7 +2349,8 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
           f"{held_gb:.2f} GB, after it {torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
     torch.cuda.empty_cache()
     return {"launches": {k: launches[k] for k in expect}, "s_per_round": rt,
-            "peak_gb": peak_gb, "probe_ms": probe_ms, "history": hist}
+            "peak_gb": peak_gb, "probe_ms": probe_ms, "history": hist,
+            "checkpoints": checkpoints}
 
 
 def run_fused_pair(tag: str = "flagship", sections=None) -> dict:
@@ -2231,6 +2382,117 @@ def run_fused_pair(tag: str = "flagship", sections=None) -> dict:
     if delta > 1e-4:
         raise AssertionError("the fused history differs from per-round dispatch")
     return runs
+
+
+# The flagship under RESUME_SECTIONS: rounds, and the snapshot cadence.
+RESUME_ROUNDS, RESUME_EVERY = 6, 2
+# ``python -m murmura_tpu_torch run ...`` (cli.main), then the kernel
+# counters of the process on one line.
+_CLI_WITH_COUNTS = """
+import json, sys
+from murmura_tpu_torch import cli
+from murmura_tpu_torch.ops import agg_kernels, candidate_kernels, sketch_kernels
+cli.main(sys.argv[1:])
+mods = (agg_kernels, candidate_kernels, sketch_kernels)
+print("COUNTS " + json.dumps({
+    "launches": {k: v for m in mods for k, v in m.LAUNCHES.items()},
+    "plain": {k: v for m in mods for k, v in m.PLAIN_CALLS.items()}}))
+"""
+
+
+def _snapshot_round(ckpt: Path) -> int:
+    """The round meta.json commits to, or -1 before the first snapshot."""
+    try:
+        return int(json.loads((ckpt / "meta.json").read_text())["round"])
+    except (OSError, ValueError, KeyError):
+        return -1
+
+
+def run_kill_resume(exchange: str) -> dict:
+    """Phase 4, durability on the flagship's Krum under resumable_run.yaml's
+    durability:, compression: (int8, error feedback) and telemetry:
+    sections, RESUME_ROUNDS rounds, a snapshot every RESUME_EVERY: first
+    uninterrupted through run_main_path (its kernel counts and snapshot
+    sizes and times), then through ``python -m murmura_tpu_torch run`` in a
+    subprocess, SIGKILLed once meta.json names round RESUME_EVERY or later,
+    and the same command again, which resumes.  The resumed run must launch
+    the distance kernel twice a round for the rounds it ran and no plain
+    version, take Krum's decisions (``agg_selected_index``,
+    ``agg_selected_own``) of the uninterrupted run, and agree with its
+    history to a scaled 1e-4 (cuDNN may pick another algorithm in a new
+    process); whether it is bit-equal is printed, with the telemetry
+    stream's seam (one ``run_resumed``, appended), and each snapshot's bytes
+    and save or restore seconds."""
+    from murmura_tpu_torch.telemetry.writer import events_of_type
+
+    kernel = "pairwise_sq_distances" if exchange == "allgather" else "circulant_sq_distances"
+    expect = {kernel: (2, "==")}
+    opts = {"rounds": RESUME_ROUNDS, "sections": RESUME_SECTIONS,
+            "checkpoint_every": RESUME_EVERY}
+    ref = run_main_path(f"krum:durable_{exchange}", FLAGSHIP, exchange, None, expect, opts)
+    name = f"krum_killed_{exchange}"
+    raw, cfg, out = smoke_config(name, FLAGSHIP, exchange, None, opts)
+    ckpt, run_dir = Path(raw["durability"]["checkpoint_dir"]), Path(raw["telemetry"]["dir"])
+    cmd = [sys.executable, "-c", _CLI_WITH_COUNTS, "run", str(cfg), "--device", "cuda",
+           "-o", str(out)]
+    t0 = time.perf_counter()
+    with open(SMOKE_DIR / f"{name}.killed.log", "w") as log:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            while proc.poll() is None and _snapshot_round(ckpt) < RESUME_EVERY:
+                time.sleep(0.005)
+            running = proc.poll() is None
+            proc.kill()
+        finally:
+            proc.wait()
+    killed_s = time.perf_counter() - t0
+    stopped = _snapshot_round(ckpt)
+    if not running:
+        raise AssertionError(f"the run exited ({proc.returncode}) before it could be killed")
+    t0 = time.perf_counter()
+    resumed = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+    resumed_s = time.perf_counter() - t0
+    (SMOKE_DIR / f"{name}.resumed.log").write_text(resumed.stdout + resumed.stderr)
+    if resumed.returncode != 0:
+        raise AssertionError(f"the resumed run failed: {resumed.stderr[-3000:]}")
+    if f"Resumed from round {stopped}" not in resumed.stdout:
+        raise AssertionError(f"the run did not resume from round {stopped}")
+    counts = json.loads(resumed.stdout.rsplit("COUNTS ", 1)[1].splitlines()[0])
+    want = 2 * (RESUME_ROUNDS - stopped)
+    stray = {k: v for k, v in counts["launches"].items() if v and k != kernel}
+    if counts["launches"][kernel] != want or any(counts["plain"].values()) or stray:
+        raise AssertionError(f"the resumed run's counts {counts}, want {kernel} {want}")
+    hist, ref_hist = json.loads(out.read_text()), ref["history"]
+    same = hist == ref_hist
+    delta = history_delta(hist, ref_hist)
+    decisions = all(hist[k] == ref_hist[k] for k in ("agg_selected_index", "agg_selected_own"))
+    runs = [e["status"] for e in events_of_type(run_dir, "run")]
+    seam = (runs == ["started", "resumed"] and len(events_of_type(run_dir, "run_resumed")) == 1
+            and not (run_dir / "events.jsonl.prev").exists())
+    snaps = [(e["action"], e["round"], e["bytes"], e["duration_s"])
+             for e in events_of_type(run_dir, "checkpoint")]
+    ok = delta <= 1e-4 and decisions and seam and hist["round"] == list(
+        range(1, RESUME_ROUNDS + 1))
+    print(f"[main:resume_{exchange}] the flagship's Krum {exchange} under resumable_run.yaml's "
+          f"durability:, compression: and telemetry: sections, {RESUME_ROUNDS} rounds, a "
+          f"snapshot every {RESUME_EVERY}: killed (SIGKILL) after {killed_s:.2f} s with the "
+          f"snapshot at round {stopped}, resumed in {resumed_s:.2f} s (process wall); "
+          f"{kernel} launched {counts['launches'][kernel]} times in the {RESUME_ROUNDS - stopped} "
+          f"resumed rounds, plain-version calls {sum(counts['plain'].values())}; history "
+          f"bit-equal to the uninterrupted run {same}, scaled delta {delta:.3g} (limit 1e-4), "
+          f"decisions equal {decisions}; telemetry stream {runs}, one run_resumed and appended: "
+          f"{seam}; snapshots of the killed and resumed processes "
+          + ", ".join(f"{a} round {r} {b:,} B in {d:.3f} s" for a, r, b, d in snaps)
+          + f": {'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError("the resumed flagship run differs from the uninterrupted one")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(SMOKE_DIR / "ckpts" / f"krum_durable_{exchange}", ignore_errors=True)
+    return {f"krum:durable_{exchange}": ref,
+            f"krum:resumed_{exchange}": {"launches": {kernel: counts["launches"][kernel]},
+                                         "history": hist, "snapshots": snaps,
+                                         "stopped": stopped, "bit_equal": same,
+                                         "delta": delta}}
 
 
 def main() -> int:
@@ -2273,17 +2535,43 @@ def main() -> int:
     check_kernels(results)
     codec_ms = check_codec()
     check_round_against_cpu()
+    check_pipelined_against_cpu()
     round64 = check_round_n64_bf16()
 
     mains = {run[0]: run_main_path(*run) for run in MAIN_RUNS}
     mains.update(run_fused_pair())
     mains.update(run_fused_pair("stale_flagship", STALE_SECTIONS))
+    mains.update(run_fused_pair("pipelined_flagship", PIPELINE_SECTIONS))
+    for exchange in ("allgather", "ppermute"):
+        mains.update(run_kill_resume(exchange))
     steady = {k: float(np.mean(mains[k]["s_per_round"][1:]))
               for k in ("krum:allgather", "krum:telemetry_flagship")}
     print(f"[main:telemetry] steady s/round (rounds 2 on), the flagship's Krum allgather "
           f"{steady['krum:allgather']:.4f} plain, {steady['krum:telemetry_flagship']:.4f} with "
           "telemetry_audit_report.yaml's telemetry: section (taps, phase times, memory "
           "events); no claim", flush=True)
+    pipe = {k: float(np.mean(mains[k]["s_per_round"][2:]))
+            for k in ("krum:per_round_flagship", "krum:per_round_pipelined_flagship",
+                      "krum:fused_pipelined_flagship")}
+    print(f"[pipeline] steady s/round (rounds 3-{FUSED_ROUNDS}), the flagship's Krum allgather "
+          f"per round: serialized {pipe['krum:per_round_flagship']:.4f}, pipelined "
+          f"{pipe['krum:per_round_pipelined_flagship']:.4f}, pipelined fused in chunks of 2 "
+          f"{pipe['krum:fused_pipelined_flagship']:.4f}; 3 rounds, rounds 2-3: serialized "
+          f"{steady['krum:allgather']:.4f}, pipelined "
+          f"{float(np.mean(mains['krum:pipelined_flagship']['s_per_round'][1:])):.4f} "
+          f"(allgather), {float(np.mean(mains['krum:pipelined_ppermute']['s_per_round'][1:])):.4f}"
+          f" (ppermute) against serialized "
+          f"{float(np.mean(mains['krum:ppermute']['s_per_round'][1:])):.4f}; one stream, no "
+          "overlap: no claim", flush=True)
+    for exchange in ("allgather", "ppermute"):
+        r, d = mains[f"krum:resumed_{exchange}"], mains[f"krum:durable_{exchange}"]
+        print(f"[resume] {exchange}: killed with the snapshot at round {r['stopped']}, resumed: "
+              f"bit-equal {r['bit_equal']}, scaled delta {r['delta']:.3g}; the uninterrupted "
+              "run's snapshots " + ", ".join(
+                  f"round {c['round']} {c['bytes']:,} B in {c['seconds']:.3f} s"
+                  for c in d["checkpoints"]) + "; the killed and resumed processes' "
+              + ", ".join(f"{a} round {rr} {b:,} B in {s_:.3f} s"
+                          for a, rr, b, s_ in r["snapshots"]), flush=True)
     mains.update(round64)
     flagship_s = float(sum(mains["krum:allgather"]["s_per_round"][1:])
                        / (len(mains["krum:allgather"]["s_per_round"]) - 1))

@@ -999,6 +999,16 @@ class TPUConfig(_Strict):
     Controls how the ``nodes`` axis of the stacked network state is laid out
     over a :class:`jax.sharding.Mesh` and how the per-round neighbor exchange
     is realized as XLA collectives.
+    In the PyTorch port: ``exchange``, ``param_dtype``, ``compute_dtype``,
+    ``conv_impl``, ``rounds_per_dispatch`` and ``profile_dir`` are read as in
+    the JAX package; ``transfer_guard`` and ``recompile_guard`` are read by
+    the Network (core/network.py): the first raises on a host
+    synchronisation inside a fused chunk after its key's first, the second
+    on a rebuilt chunk program or a kernel build after its key's first
+    chunk.  ``donate_state``, ``compilation_cache_dir`` and ``num_devices``
+    stay unread: they steer XLA only (buffer donation, its compile cache,
+    the mesh size) and change no result.  ``pallas_agg`` selects nothing:
+    on the card the CUDA kernels are the only path.
     """
 
     num_devices: Optional[int] = Field(

@@ -8,9 +8,29 @@ and records the per-node ``agg_*`` rule statistics exactly as the JAX
 package does.  With a telemetry writer (telemetry/writer.py) it emits the
 round, phase_times and memory events, finalizes the manifest when
 ``train`` returns, and opens the profiler window (a ``torch.profiler``
-trace, written as Chrome trace JSON) over the configured rounds.
+trace, written as Chrome trace JSON) over the configured rounds.  With a
+checkpoint directory it snapshots the whole run state on the chunk
+cadence (durability/snapshot.py) and restores it exactly.
+
+The two runtime guards of the ``tpu:`` section keep their names:
+
+- ``transfer_guard``: every chunk after the first of its (chunk, eval_every)
+  key runs under ``torch.cuda.set_sync_debug_mode("error")``, so a call that
+  synchronises with the host inside it raises (the first makes the
+  one-time device copies of the attack's rows and the circulant offsets).
+  The staging of the chunk's inputs and its one copy-out stay outside, as
+  explicit transfers (the JAX package's ``device_put`` and ``device_get``
+  under ``transfer_guard("disallow")``).  On the CPU there is nothing to
+  synchronise and the guard does nothing.
+- ``recompile_guard``: eager torch compiles no program a round.  Its two
+  analogues of a recompile raise :class:`RecompileError`: a new
+  ``build_multi_round`` entry for a key that has already run, and an
+  ``nvcc`` build (ops/_build.py) that starts during a chunk that is not
+  the first of its key.  A shorter last chunk is a new key, whose first
+  chunk may build, as the JAX package's ``chunk_warmup`` allows.
 """
 
+import contextlib
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -21,7 +41,25 @@ import torch
 from murmura_tpu_torch.attacks.base import Attack
 from murmura_tpu_torch.core.rounds import RoundProgram, build_multi_round
 from murmura_tpu_torch.faults.schedule import FaultSchedule
+from murmura_tpu_torch.ops import _build
 from murmura_tpu_torch.topology.base import Topology
+from murmura_tpu_torch.utils.checkpoint import committed_bytes
+
+
+class RecompileError(RuntimeError):
+    """tpu.recompile_guard: a program was rebuilt, or a kernel compiled,
+    after its key's first chunk."""
+
+
+@contextlib.contextmanager
+def _sync_errors():
+    """Raise on any call that synchronises the card with the host."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
 
 
 def effective_adjacency(topology, fault_schedule, round_idx: int) -> np.ndarray:
@@ -122,11 +160,15 @@ class Network:
         fault_schedule: Optional[FaultSchedule] = None,
         telemetry=None,
         profile_dir: Optional[str] = None,
+        transfer_guard: bool = False,
+        recompile_guard: bool = False,
     ):
         """``telemetry``: a TelemetryWriter, or None (no events, and the
         history and round program are unchanged either way).
         ``profile_dir`` (tpu.profile_dir): trace every ``train`` call with
-        torch.profiler into this directory."""
+        torch.profiler into this directory.  ``transfer_guard`` and
+        ``recompile_guard``: the tpu: section's runtime guards (module
+        docstring)."""
         n = program.num_nodes
         if topology.num_nodes != n:
             raise ValueError(
@@ -167,6 +209,12 @@ class Network:
         # Host-side in-degree of each staged round's adjacency (before the
         # round's own folds), popped when the round is recorded.
         self._in_degree: Dict[int, np.ndarray] = {}
+        self.transfer_guard = transfer_guard
+        self.recompile_guard = recompile_guard
+        # (chunk, eval_every) keys whose first chunk has run.
+        self._warmed: set = set()
+        # One record a snapshot saved or restored: action, round, bytes, seconds.
+        self.checkpoints: List[Dict[str, Any]] = []
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -199,6 +247,8 @@ class Network:
         verbose: bool = False,
         eval_every: int = 1,
         rounds_per_dispatch: int = 1,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 0,
     ) -> Dict[str, List[Any]]:
         """Run ``rounds`` FL rounds, evaluating every ``eval_every``-th.
 
@@ -215,11 +265,15 @@ class Network:
                 synchronised once a chunk, and ``round_times`` the chunk's
                 time over its rounds.  1 (the default) makes every round a
                 chunk of its own, timed alone.
+            checkpoint_dir: snapshot the run here (:meth:`save_checkpoint`)
+                after each chunk that crosses a multiple of
+                ``checkpoint_every`` rounds, and after the last chunk.
         """
         first = self.current_round
         whole = self._start_profiler() if self.profile_dir else None
         try:
-            self._train_chunks(rounds, verbose, eval_every, rounds_per_dispatch)
+            self._train_chunks(rounds, verbose, eval_every, rounds_per_dispatch,
+                               checkpoint_dir, checkpoint_every)
         finally:
             if whole is not None:
                 self._stop_profiler(whole, self.profile_dir,
@@ -233,23 +287,36 @@ class Network:
                 self.telemetry.finalize(history=self.history)
         return self.history
 
-    def _train_chunks(self, rounds, verbose, eval_every, rounds_per_dispatch) -> None:
+    def _train_chunks(self, rounds, verbose, eval_every, rounds_per_dispatch, checkpoint_dir,
+                      checkpoint_every) -> None:
         done = 0
         while done < rounds:
             k = min(rounds_per_dispatch, rounds - done)
-            if (k, eval_every) not in self._fused:
-                self._fused[k, eval_every] = build_multi_round(self.program, k, eval_every)
+            key = (k, eval_every)
+            if key not in self._fused:
+                if self.recompile_guard and key in self._warmed:
+                    raise RecompileError(
+                        f"tpu.recompile_guard: the fused program for {key} (chunk, "
+                        "eval_every) was built again after it had run"
+                    )
+                self._fused[key] = build_multi_round(self.program, k, eval_every)
+            warmup = key not in self._warmed
+            builds = len(_build.STARTED)
             round0 = self.current_round
             self._profile_window_start(round0, span=k)
             t0 = time.perf_counter()
             adj_stack, alive_stack = self._stage(list(range(round0, round0 + k)))
-            self.flat, self.agg_state, rows = self._fused[k, eval_every](
-                self.flat, self.agg_state, self.seed, adj_stack, self._comp, round0,
-                alive_stack=alive_stack,
-            )
+            guard = (_sync_errors() if self.transfer_guard and not warmup
+                     and self.device.type == "cuda" else contextlib.nullcontext())
+            with guard:
+                self.flat, self.agg_state, rows = self._fused[key](
+                    self.flat, self.agg_state, self.seed, adj_stack, self._comp, round0,
+                    alive_stack=alive_stack,
+                )
             rows = _host_rows(rows)
             self._sync()
             elapsed = time.perf_counter() - t0
+            self._warmed.add(key)
             self.current_round = round0 + k
             # One amortised entry a round: the rounds of a chunk are not
             # timed one by one.
@@ -260,15 +327,103 @@ class Network:
                     self.telemetry.phase_times(
                         round0, "per_round", elapsed,
                         evaluated=bool(self.current_round % eval_every == 0),
-                        deferred=False,
+                        deferred=False, **self._phase_overlap(),
                     )
                 else:
                     for i in range(k):
-                        self.telemetry.phase_times(round0 + i, "fused", elapsed / k, chunk=k)
+                        self.telemetry.phase_times(round0 + i, "fused", elapsed / k, chunk=k,
+                                                   **self._phase_overlap())
                 self.telemetry.memory_event(self.current_round - 1, self.device)
                 self._profile_window_stop(self.current_round)
             for round_num, metrics in rows:
                 self._record(round_num, metrics, verbose)
+            # After the bookkeeping, so that a raise leaves the round counter
+            # and the history aligned with the parameters.
+            if self.recompile_guard and not warmup and len(_build.STARTED) > builds:
+                raise RecompileError(
+                    f"tpu.recompile_guard: kernel build(s) {_build.STARTED[builds:]} "
+                    f"started in rounds {round0}-{round0 + k - 1}, after the first chunk "
+                    f"of {key} (chunk, eval_every)"
+                )
+            crossed = checkpoint_every and (
+                self.current_round // checkpoint_every > round0 // checkpoint_every)
+            if checkpoint_dir and (crossed or done >= rounds):
+                self.save_checkpoint(checkpoint_dir)
+
+    def _phase_overlap(self) -> Dict[str, str]:
+        """The ``overlap`` marker of a pipelined program's phase_times: its
+        wall time is the round's critical path, and its train and delayed
+        aggregate phases are not to be summed (telemetry/report.py renders
+        the critical path).  A serialized program's records carry none."""
+        return {"overlap": "pipelined"} if self.program.pipelined else {}
+
+    # ------------------------------------------------------------------
+    # durability (durability/snapshot.py)
+
+    def save_checkpoint(self, directory: str) -> None:
+        """Snapshot the whole run state into ``directory`` (fsync'd; a crash
+        leaves the previous snapshot or this one)."""
+        from murmura_tpu_torch.durability.snapshot import save_run_snapshot
+
+        t0 = time.perf_counter()
+        nbytes = save_run_snapshot(directory, self)
+        self._log_checkpoint("save", self.current_round, nbytes, time.perf_counter() - t0,
+                             directory)
+
+    def restore_checkpoint(self, directory: str) -> int:
+        """Restore the run state from ``directory``; returns the round to
+        continue from.  Emits ``run_resumed`` into the telemetry stream
+        (which the writer appends to when opened with ``resume=True``)."""
+        from murmura_tpu_torch.durability.snapshot import restore_run_snapshot
+
+        t0 = time.perf_counter()
+        round_num = restore_run_snapshot(directory, self)
+        # Staged rounds' in-degrees belong to the run that was stopped.
+        self._in_degree.clear()
+        self._log_checkpoint("restore", round_num, committed_bytes(directory),
+                             time.perf_counter() - t0, directory)
+        if self.telemetry is not None:
+            self.telemetry.emit("run_resumed", round=round_num, path=str(directory),
+                                run_id=self.telemetry.run_id)
+        return round_num
+
+    def _log_checkpoint(self, action, round_num, nbytes, seconds, directory) -> None:
+        self.checkpoints.append({"action": action, "round": round_num, "bytes": nbytes,
+                                 "seconds": seconds})
+        if self.telemetry is not None:
+            self.telemetry.checkpoint_event(round_num, seconds, action=action,
+                                            path=str(directory), bytes=nbytes)
+
+    # What a snapshot of this orchestrator carries beyond the base sections.
+
+    def _durability_history(self):
+        return self.history
+
+    def _durability_set_history(self, history) -> None:
+        self.history = history
+
+    def _durability_extra_state(self):
+        """(arrays, meta) extra sections: the telemetry run id, stable
+        across resumes."""
+        meta = {}
+        if self.telemetry is not None:
+            meta["telemetry_run_id"] = self.telemetry.run_id
+        return {}, meta
+
+    def _durability_validate_extra(self, arrays, meta) -> None:
+        """Refuse, before anything is assigned, a snapshot with extra
+        sections this orchestrator does not understand (a gang's or a
+        population's)."""
+        foreign = sorted(set(arrays) | ({"gang", "population"} & set(meta)))
+        if foreign:
+            raise ValueError(
+                f"snapshot carries extra sections {foreign} this orchestrator does not "
+                "understand — it was written by a population/gang run; rebuild with the "
+                "matching config"
+            )
+
+    def _durability_restore_extra(self, arrays, meta) -> None:
+        """Nothing beyond the base sections to apply."""
 
     # ------------------------------------------------------------------
     # the profiler (telemetry's round window, and tpu.profile_dir's trace

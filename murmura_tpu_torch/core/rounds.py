@@ -39,6 +39,13 @@ and, for a program built with a ``FaultSpec``, the [N] alive mask as
    per-node masked loss and accuracy over the held-out arrays, and the
    Dirichlet vacuity, entropy and strength for an evidential model.
 
+Steps 1-2d are ``produce_exchange``, step 3 and the guards the
+aggregation.  A program built with ``pipeline=True`` (core/pipeline.py)
+runs them in another order: it first aggregates the exchange that round
+r-1 produced and left in the buffer carried in ``agg_state``, then
+produces round r's, adds the delayed displacement to round r's trained
+rows and swaps the buffer (``agg_pipe_valid`` is 0 on the warm-up round).
+
 The node-stacked flat ``[N, P]`` tensor is the one copy of the parameters;
 per-node gradients come from ``torch.func.vmap(torch.func.grad(...))`` over
 views into it.  The random draws (the epoch shuffle ``u``, the dropout
@@ -49,8 +56,8 @@ feed the JAX package's own draws.
 The phases run inside ``torch.profiler.record_function`` ranges named as
 the JAX package's ``named_scope``s (``murmura.train``,
 ``murmura.exchange``, ``murmura.compress``, ``murmura.stale``,
-``murmura.aggregate``, ``murmura.eval``), so a profiler trace splits a
-round by phase.
+``murmura.aggregate``, ``murmura.pipeline``, ``murmura.eval``), so a
+profiler trace splits a round by phase.
 """
 
 from dataclasses import dataclass
@@ -70,7 +77,16 @@ from torch.profiler import record_function
 
 from murmura_tpu_torch.aggregation.base import AggContext, AggregatorDef
 from murmura_tpu_torch.attacks.base import Attack
+from murmura_tpu_torch.core.pipeline import (
+    ADJ_KEY as PIPE_ADJ_KEY,
+    BCAST_KEY as PIPE_BCAST_KEY,
+    OWN_KEY as PIPE_OWN_KEY,
+    VALID_KEY as PIPE_VALID_KEY,
+    init_pipeline_state,
+    pipeline_state_keys,
+)
 from murmura_tpu_torch.core.stale import (
+    CACHE_KEY as STALE_CACHE_KEY,
     STALE_STATE_KEYS,
     StalenessSpec,
     init_stale_state,
@@ -134,6 +150,10 @@ class RoundProgram:
     # Built with a FaultSpec: train_step needs the [N] ``alive`` mask.
     faulted: bool = False
     compression: Optional[CompressionSpec] = None
+    # Built with pipeline=True: train_step is the pipelined round.
+    pipelined: bool = False
+    # The production stage alone, for core/pipeline.run_delayed_reference.
+    train_flat: Optional[Callable] = None
 
 
 def round_generators(seed: int, round_idx: int, device) -> Dict[str, torch.Generator]:
@@ -178,6 +198,7 @@ def build_round_program(
     compression: Optional[CompressionSpec] = None,
     audit_taps: bool = False,
     staleness: Optional[StalenessSpec] = None,
+    pipeline: bool = False,
 ) -> RoundProgram:
     """Round step for a network of ``data.num_nodes`` nodes on ``device``
     (the card unless the caller asks for the CPU; without CUDA a ``cuda``
@@ -196,6 +217,12 @@ def build_round_program(
     ``tap_attack_scrubbed`` and ``tap_alive`` flags, all as ``agg_tap_*``
     metrics; nothing else in the round changes.  ``staleness`` arms the
     bounded-staleness fold (step 2d), which needs ``faults``.
+    ``pipeline`` (exchange.pipeline) builds the pipelined round
+    (core/pipeline.py): round r adds the displacement of round r-1's
+    buffered aggregation to its own training, the buffer carried in
+    ``agg_state``.  The JAX package refuses it with DMTT, adaptive attacks
+    and population, none of which the port runs (the schema refuses the
+    combinations by name).
     """
     device = torch.device(device)
     if device.type == "cuda":
@@ -232,10 +259,13 @@ def build_round_program(
         stale_fold = make_stale_fold(staleness, audit=audit_taps, device=device)
     else:
         stale_fold = None
-    # The fold carries one decoded row a sender (a fresh/stale mix), so
-    # under staleness every rule takes the receiver-side decoded broadcast.
-    quantized_payload = agg.quantized_exchange and stale_fold is None
+    # The fold and the pipeline buffer carry one decoded row a sender (a
+    # fresh/stale mix, or a buffered one), so under either every rule takes
+    # the receiver-side decoded broadcast.
+    quantized_payload = agg.quantized_exchange and stale_fold is None and not pipeline
     reserved = set(COMPRESS_STATE_KEYS) | (set(STALE_STATE_KEYS) if stale_fold is not None else set())
+    pipe_keys = pipeline_state_keys(stale=stale_fold is not None)
+    pipe_reserved = reserved | set(pipe_keys)
 
     eff_batch_np = data.effective_batch(batch_size)
     steps_np = data.steps_per_epoch(batch_size)
@@ -349,13 +379,20 @@ def build_round_program(
         """Drop the edges whose receiver or sender has flag 0."""
         return adj * flags[:, None] * flags[None, :]
 
-    def round_body(flat, agg_state, adj, compromised, alive, round_idx, generators, draws):
-        """One round; ``alive`` is None on an unfaulted program.  ``draws``
-        injects what the generators would draw: ``u`` one [N, S] uniform
-        shuffle key an epoch; ``noise`` the attack's [C, P] normal draws;
-        ``dropout`` the keep masks, indexed ``[epoch][step][layer]``, each a
-        bool [N, B, width_l] (node, batch slot, unit) for the layers of
-        ``model.dropout_widths``."""
+    def produce_exchange(flat, agg_state, adj, compromised, alive, round_idx, generators,
+                         draws):
+        """Steps 1-2d of the round, the production of its exchange: local
+        training, the sentinels, the attack, the codec and the stale fold,
+        shared by the serialized and pipelined rounds and by ``train_flat``.
+        ``alive`` is None on an unfaulted program.  ``draws`` injects what
+        the generators would draw: ``u`` one [N, S] uniform shuffle key an
+        epoch; ``noise`` the attack's [C, P] normal draws; ``dropout`` the
+        keep masks, indexed ``[epoch][step][layer]``, each a bool [N, B,
+        width_l] (node, batch slot, unit) for the layers of
+        ``model.dropout_widths``.  Returns the post-scrub ``own_flat``,
+        ``bcast`` and ``adj`` as the serialized aggregation consumes them,
+        ``pre_flat`` and ``finite`` (the quarantine bookkeeping), the
+        updated ``agg_state`` and the stage stats."""
         generators = generators or {}
         draws = draws or {}
         lambda_t = min(1.0, round_idx / max(1, annealing_rounds)) * EVIDENTIAL_LAMBDA
@@ -365,6 +402,7 @@ def build_round_program(
             if attack is not None and attack.trains_locally
             else honest
         )
+        pre_flat = None
         if alive is not None:
             # Dead nodes freeze like compromised ones.  The adjacency is
             # re-masked by alive here even though the schedule's masked
@@ -442,10 +480,28 @@ def build_round_program(
                     scrub_ok,
                 )
             agg_state = {**agg_state, **updates}
+        return {
+            "own_flat": own_flat, "bcast": bcast, "adj": adj, "pre_flat": pre_flat,
+            "finite": finite, "agg_state": agg_state, "fault_stats": fault_stats,
+            "compress_stats": compress_stats, "stale_stats": stale_stats,
+        }
+
+    def stats_metrics(agg_stats, prod):
+        metrics = {f"agg_{k}": v for k, v in agg_stats.items()}
+        for group in ("fault_stats", "compress_stats", "stale_stats"):
+            metrics.update({f"agg_{k}": v for k, v in prod[group].items()})
+        return metrics
+
+    def round_body(flat, agg_state, adj, compromised, alive, round_idx, generators, draws):
+        """One serialized round: produce the exchange, aggregate it, then
+        the fault guards."""
+        prod = produce_exchange(flat, agg_state, adj, compromised, alive, round_idx,
+                                generators, draws)
+        own_flat, adj, agg_state = prod["own_flat"], prod["adj"], prod["agg_state"]
         rule_state = {k: v for k, v in agg_state.items() if k not in reserved}
         with record_function("murmura.aggregate"):
             new_flat, rule_state, agg_stats = agg.aggregate(
-                own_flat, bcast, adj, round_idx, rule_state, ctx
+                own_flat, prod["bcast"], adj, round_idx, rule_state, ctx
             )
         agg_state = {**agg_state, **rule_state}
         if alive is not None:
@@ -454,17 +510,83 @@ def build_round_program(
             deg = adj.sum(dim=1)
             new_flat = torch.where((deg > 0)[:, None], new_flat, own_flat)
             keep = alive > 0
-            if finite is not None:
-                keep = keep & finite
-            new_flat = torch.where(keep[:, None], new_flat, pre_flat)
-            fault_stats["alive"] = alive.sum()
+            if prod["finite"] is not None:
+                keep = keep & prod["finite"]
+            new_flat = torch.where(keep[:, None], new_flat, prod["pre_flat"])
+            prod["fault_stats"]["alive"] = alive.sum()
             if audit_taps:
-                fault_stats["tap_alive"] = alive
-        metrics = {f"agg_{k}": v for k, v in agg_stats.items()}
-        metrics.update({f"agg_{k}": v for k, v in fault_stats.items()})
-        metrics.update({f"agg_{k}": v for k, v in compress_stats.items()})
-        metrics.update({f"agg_{k}": v for k, v in stale_stats.items()})
+                prod["fault_stats"]["tap_alive"] = alive
+        return new_flat, agg_state, stats_metrics(agg_stats, prod)
+
+    def round_body_pipelined(flat, agg_state, adj, compromised, alive, round_idx, generators,
+                             draws):
+        """One pipelined round (core/pipeline.py): stage A aggregates the
+        buffered round r-1 exchange, stage B produces round r's, stage C
+        adds the delayed displacement and swaps the buffer.  Stage A comes
+        first in program order, so that it can later run beside training."""
+        # ---- stage A: the delayed aggregation of the buffer ----
+        valid = agg_state[PIPE_VALID_KEY]
+        buf_own = agg_state[PIPE_OWN_KEY]
+        if stale_fold is not None:
+            # The stale cache is the post-fold broadcast of round r-1: read
+            # it before stage B advances it to round r's.
+            buf_bcast = agg_state[STALE_CACHE_KEY].to(buf_own.dtype)
+        else:
+            buf_bcast = agg_state[PIPE_BCAST_KEY]
+        buf_adj = agg_state[PIPE_ADJ_KEY]
+        rule_state = {k: v for k, v in agg_state.items() if k not in pipe_reserved}
+        with record_function("murmura.aggregate"):
+            # The buffer belongs to round r-1; round 0's is the invalid
+            # placeholder, whose output and state are discarded below.
+            agg_out, rule_state_new, agg_stats = agg.aggregate(
+                buf_own, buf_bcast, buf_adj, max(round_idx - 1.0, 0.0), rule_state, ctx
+            )
+        if alive is not None:
+            # The zero-alive-neighbour guard at the buffered graph.
+            deg_b = buf_adj.sum(dim=1)
+            agg_out = torch.where((deg_b > 0)[:, None], agg_out, buf_own)
+        # where, not multiply: a non-finite placeholder output is dropped.
+        disp = torch.where(valid > 0, agg_out - buf_own, torch.zeros_like(buf_own))
+        del agg_out  # not held through stage B's training
+        rule_state = {
+            k: torch.where(valid > 0, v, rule_state[k]) if k in rule_state else v
+            for k, v in rule_state_new.items()
+        }
+        # ---- stage B: the production of round r's exchange ----
+        prod = produce_exchange(flat, agg_state, adj, compromised, alive, round_idx,
+                                generators, draws)
+        own_flat, agg_state = prod["own_flat"], prod["agg_state"]
+        # ---- stage C: combine and swap the buffer ----
+        with record_function("murmura.pipeline"):
+            new_flat = own_flat + disp.to(own_flat.dtype)
+            if alive is not None:
+                # Dead and quarantined rows: own_flat already equals the
+                # pre-round rows there, so the keep-mask discards the
+                # displacement.
+                keep = alive > 0
+                if prod["finite"] is not None:
+                    keep = keep & prod["finite"]
+                new_flat = torch.where(keep[:, None], new_flat, prod["pre_flat"])
+                prod["fault_stats"]["alive"] = alive.sum()
+                if audit_taps:
+                    prod["fault_stats"]["tap_alive"] = alive
+        buffer = {PIPE_OWN_KEY: own_flat, PIPE_ADJ_KEY: prod["adj"],
+                  PIPE_VALID_KEY: torch.ones_like(valid)}
+        if stale_fold is None:
+            buffer[PIPE_BCAST_KEY] = prod["bcast"]
+        agg_state = {**agg_state, **rule_state, **buffer}
+        metrics = stats_metrics(agg_stats, prod)
+        # 0 on the warm-up round: its agg_* stats describe the placeholder.
+        metrics["agg_pipe_valid"] = valid
         return new_flat, agg_state, metrics
+
+    body = round_body_pipelined if pipeline else round_body
+
+    def check_alive(alive):
+        if faults is not None and alive is None:
+            raise ValueError("a faulted round program needs the [N] alive mask")
+        if faults is None and alive is not None:
+            raise ValueError("an alive mask was given to a round program built without faults")
 
     def train_step(
         flat: torch.Tensor,
@@ -476,13 +598,22 @@ def build_round_program(
         draws: Optional[Dict[str, Any]] = None,
         alive: Optional[torch.Tensor] = None,
     ):
-        """One round (round_body); a faulted program needs ``alive``."""
-        if faults is not None and alive is None:
-            raise ValueError("a faulted round program needs the [N] alive mask")
-        if faults is None and alive is not None:
-            raise ValueError("an alive mask was given to a round program built without faults")
-        return round_body(flat, agg_state, adj, compromised, alive, round_idx,
-                          generators, draws)
+        """One round (round_body, or round_body_pipelined on a pipelined
+        program); a faulted program needs ``alive``."""
+        check_alive(alive)
+        return body(flat, agg_state, adj, compromised, alive, round_idx, generators, draws)
+
+    def train_flat(flat, agg_state, adj, compromised, round_idx, generators=None, draws=None,
+                   alive=None):
+        """The production stage alone (for core/pipeline.run_delayed_reference):
+        (the trained post-scrub [N, P] rows, [N] 1 where the node's update
+        was finite)."""
+        check_alive(alive)
+        prod = produce_exchange(flat, agg_state, adj, compromised, alive, round_idx,
+                                generators, draws)
+        ok = (prod["finite"].to(torch.float32) if prod["finite"] is not None
+              else torch.ones_like(compromised))
+        return prod["own_flat"], ok
 
     apply_nodes = vmap(model.apply)
 
@@ -538,6 +669,15 @@ def build_round_program(
             )
         init_agg_state.update(
             init_stale_state(staleness, n, model_dim, init_flat.dtype, device))
+    if pipeline:
+        clash = set(pipe_keys) & set(init_agg_state)
+        if clash:
+            raise ValueError(
+                f"aggregator '{agg.name}' carries state keys {sorted(clash)} "
+                "reserved for the pipelined exchange"
+            )
+        init_agg_state.update(init_pipeline_state(
+            n, model_dim, init_flat.dtype, stale=staleness is not None, device=device))
     return RoundProgram(
         train_step=train_step,
         eval_step=eval_step,
@@ -551,6 +691,8 @@ def build_round_program(
         evidential=evidential,
         faulted=faults is not None,
         compression=compression,
+        pipelined=pipeline,
+        train_flat=train_flat,
     )
 
 

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "murmura_tpu_torch"
@@ -32,6 +32,9 @@ NVCC_FLAGS = (
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds, ptxas report) of the builds this process ran.
 BUILD_LOG: Dict[str, tuple] = {}
+# The sources whose nvcc this process started, in order (the recompile
+# guard of core/network.py reads its length).
+STARTED: List[str] = []
 
 
 def _nvcc() -> str:
@@ -69,6 +72,7 @@ def build_all(names=SOURCES) -> Dict[str, Path]:
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
+        STARTED.append(name)
         jobs[name] = (proc, tmp, out, time.perf_counter())
     failed = []
     for name, (proc, tmp, out, t0) in jobs.items():

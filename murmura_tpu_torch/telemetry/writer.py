@@ -7,14 +7,15 @@ the append-only JSONL event stream (schema.py):
 - **Crash-safe**: events append line at a time (a crash loses at most the
   line in flight); the manifest is only ever replaced atomically through
   :func:`murmura_tpu_torch.utils.checkpoint.durable_replace`.
-- **One run a directory**: a run into a directory that holds a stream
-  rotates the old stream and manifest to ``*.prev`` (one generation kept),
-  so a re-run never doubles the report's sums.
+- **One run a directory**: a fresh run into a directory that holds a
+  stream rotates the old stream and manifest to ``*.prev`` (one generation
+  kept), so a re-run never doubles the report's sums; a run resumed from
+  its snapshot (``resume=True``) appends to its own stream instead, keeps
+  its ``run_id`` and marks the manifest ``resumed``.
 
-Left out against the JAX package: resuming a run's stream (it arrives
-with durability), counters, the serve daemon's lifecycle events and the
-bench manifest (serve, the bench), and the ``record_taps`` toggle (the
-port records every tap its round computes).
+Left out against the JAX package: counters, the serve daemon's lifecycle
+events and the bench manifest (serve, the bench), and the ``record_taps``
+toggle (the port records every tap its round computes).
 """
 
 import json
@@ -87,6 +88,11 @@ class TelemetryWriter:
         profile_dir / profile_start_round / profile_rounds: the profiler
             window (core/network.py opens and closes it at round
             boundaries).
+        resume: the caller continues a prior run in this directory (a
+            restore from its snapshot): append to the existing stream, keep
+            its run_id and creation time, mark the manifest ``resumed`` and
+            emit ``run`` with status ``resumed``.  False: a prior stream is a
+            stale run and is rotated to ``*.prev``.
     """
 
     def __init__(
@@ -99,6 +105,7 @@ class TelemetryWriter:
         profile_dir: Optional[str] = None,
         profile_start_round: int = 0,
         profile_rounds: int = 0,
+        resume: bool = False,
     ):
         self.run_dir = Path(run_dir)
         self.run_dir.mkdir(parents=True, exist_ok=True)
@@ -109,26 +116,30 @@ class TelemetryWriter:
         self.profile_rounds = int(profile_rounds)
 
         events_path = self.run_dir / EVENTS_FILE
-        if events_path.exists() and events_path.stat().st_size > 0:
+        has_prior = events_path.exists() and events_path.stat().st_size > 0
+        if has_prior and not resume:
             os.replace(events_path, self.run_dir / (EVENTS_FILE + ".prev"))
             mpath = self.run_dir / MANIFEST_FILE
             if mpath.exists():
                 os.replace(mpath, self.run_dir / (MANIFEST_FILE + ".prev"))
-        self.run_id = uuid.uuid4().hex[:12]
-        self._seq = 0
+        resumed = has_prior and resume
+        existing = (read_manifest(self.run_dir) if resumed else None) or {}
+        self.run_id = existing.get("run_id") or uuid.uuid4().hex[:12]
+        # Sequence numbers continue the stream's, so they stay unique in it.
+        self._seq = sum(1 for _ in iter_events(self.run_dir)) if resumed else 0
         self._events = open(events_path, "a", encoding="utf-8")
         self._manifest: Dict[str, Any] = {
             "schema_version": MANIFEST_SCHEMA_VERSION,
             "kind": KIND_RUN,
             "run_id": self.run_id,
-            "created_unix": time.time(),
+            "created_unix": existing.get("created_unix", time.time()),
             "finalized": False,
-            "resumed": False,
+            "resumed": bool(resumed),
         }
         if config is not None:
             self._manifest["config"] = _jsonable(config.model_dump())
         self._write_manifest()
-        self.emit("run", status="started")
+        self.emit("run", status="resumed" if resumed else "started")
 
     # ------------------------------------------------------------------
     # events
@@ -161,6 +172,13 @@ class TelemetryWriter:
             return
         self.emit("memory", round=int(round_idx), device_kind=device_kind(device),
                   stats=device_memory_stats(device))
+
+    def checkpoint_event(self, round_idx: int, duration_s: float, action: str = "save",
+                         path: Optional[str] = None, **extra) -> None:
+        """A snapshot saved or restored (``action``) at ``round_idx``;
+        ``extra`` adds fields (the port records the snapshot's ``bytes``)."""
+        self.emit("checkpoint", round=int(round_idx), action=action,
+                  duration_s=float(duration_s), path=path, **extra)
 
     # ------------------------------------------------------------------
     # manifest

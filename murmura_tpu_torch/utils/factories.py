@@ -4,7 +4,7 @@ murmura_tpu/utils/factories.py).
 ``build_network_from_config`` builds data, model, topology, the attack
 (with its label poison), the aggregation rule, the fault schedule and
 spec, the compression and staleness specs, the telemetry writer and the
-round program, and refuses by name
+round program (pipelined under ``exchange.pipeline``), and refuses by name
 every part of the configuration surface the port does not run yet — a
 refused section is an error, never a silent fallback.
 """
@@ -28,6 +28,7 @@ from murmura_tpu_torch.models.registry import build_model
 from murmura_tpu_torch.ops.compress import CompressionSpec
 from murmura_tpu_torch.ops.flatten import model_dimension
 from murmura_tpu_torch.topology.generators import create_topology
+from murmura_tpu_torch.utils.checkpoint import has_checkpoint
 
 
 class ConfigError(ValueError):
@@ -41,8 +42,6 @@ def unported_sections(config: Config) -> List[str]:
     out = []
     if config.backend == "distributed":
         out.append("backend: distributed (the ZMQ multi-process backend)")
-    if config.exchange.pipeline:
-        out.append("exchange.pipeline (pipelined rounds)")
     if config.topology.type in ("exponential", "one_peer"):
         out.append(f"topology.type: {config.topology.type} (sparse topologies)")
     if config.mobility is not None:
@@ -59,9 +58,6 @@ def unported_sections(config: Config) -> List[str]:
         out.append("grid (the multi-tenant grid)")
     if config.serve is not None:
         out.append("serve (the daemon)")
-    d = config.durability
-    if d.checkpoint_dir is not None or d.resume or d.retries or d.require_tpu:
-        out.append("durability (checkpoint/resume/retries/require_tpu)")
     if config.tpu.param_shards > 1:
         out.append("tpu.param_shards > 1 (param-axis sharding)")
     if config.tpu.multihost:
@@ -146,8 +142,10 @@ def default_telemetry_dir(config: Config) -> str:
     return config.telemetry.dir or os.path.join("murmura_runs", config.experiment.name)
 
 
-def build_telemetry_writer(config: Config):
-    """TelemetryWriter from config.telemetry, or None when off."""
+def build_telemetry_writer(config: Config, resume: bool = False):
+    """TelemetryWriter from config.telemetry, or None when off.  ``resume``:
+    the run continues from its snapshot, so the writer appends to the run
+    dir's stream instead of rotating it."""
     t = config.telemetry
     if not t.enabled:
         return None
@@ -161,6 +159,7 @@ def build_telemetry_writer(config: Config):
         profile_dir=t.profile_dir,
         profile_start_round=t.profile_start_round,
         profile_rounds=t.profile_rounds,
+        resume=resume,
     )
 
 
@@ -255,8 +254,13 @@ def resolve_model(config: Config, data):
     return model
 
 
-def build_network_from_config(config: Config, device="cuda") -> Network:
-    """Full wiring: data + model + aggregator + attack -> Network on ``device``."""
+def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None) -> Network:
+    """Full wiring: data + model + aggregator + attack -> Network on ``device``.
+
+    ``checkpoint_dir``: the snapshot directory this run will resume from,
+    when given; the telemetry writer then appends to its stream exactly
+    when a snapshot exists there (a resume with no snapshot yet is a fresh
+    run).  The caller restores the snapshot (Network.restore_checkpoint)."""
     refused = unported_sections(config)
     if refused:
         raise ConfigError(
@@ -348,8 +352,12 @@ def build_network_from_config(config: Config, device="cuda") -> Network:
         compression=build_compression_spec(config),
         audit_taps=config.telemetry.audit_taps,
         staleness=build_staleness_spec(config, topology),
+        pipeline=config.exchange.pipeline,
     )
+    resume = checkpoint_dir is not None and has_checkpoint(checkpoint_dir)
     return Network(program, topology, attack=attack, seed=seed,
                    fault_schedule=build_fault_schedule(config),
-                   telemetry=build_telemetry_writer(config),
-                   profile_dir=config.tpu.profile_dir)
+                   telemetry=build_telemetry_writer(config, resume=resume),
+                   profile_dir=config.tpu.profile_dir,
+                   transfer_guard=config.tpu.transfer_guard,
+                   recompile_guard=config.tpu.recompile_guard)

@@ -5,7 +5,10 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
-(``--noconftest`` because tests/conftest.py pins JAX to the CPU.)
+(``--noconftest`` because tests/conftest.py pins JAX to the CPU.)  Beside the
+kernels: the CLI runs launch them (a pipelined Krum round too, from its
+warm-up round on), and ``tpu.transfer_guard`` raises on a synchronising
+call forced inside a fused chunk.
 Tolerances are chip_smoke.py's: |d2 - plain| <= 1e-5 (|a_i|^2 + |b_j|^2)
 for the pairwise kernel (norms of the centered rows when it takes a
 center), whose Gram identity cancels in float32;
@@ -625,3 +628,65 @@ def test_memory_event_reads_the_card(dev, tmp_path):
     assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"] >= x.numel() * 4
     assert stats["bytes_limit"] == torch.cuda.get_device_properties(dev).total_memory
     del x
+
+
+def _tiny_krum(mode, **sections):
+    cfg = {
+        "experiment": {"name": "cuda-tiny", "seed": 7, "rounds": 2, "verbose": False},
+        "topology": {"type": "k-regular", "num_nodes": 16, "k": 4},
+        "aggregation": {"algorithm": "krum", "params": {"num_compromised": 1}},
+        "attack": {"enabled": True, "type": "gaussian", "percentage": 0.2,
+                   "params": {"noise_std": 10.0}},
+        "training": {"local_epochs": 1, "batch_size": 16, "lr": 0.02},
+        "data": {"adapter": "leaf.femnist", "params": {"num_samples": 640}},
+        "model": {"factory": "leaf.femnist.tiny", "params": {}},
+        "backend": "tpu",
+        "tpu": {"exchange": mode, "compute_dtype": "bfloat16"},
+    }
+    for k, v in sections.items():
+        cfg[k] = {**cfg.get(k, {}), **v}
+    return cfg
+
+
+@pytest.mark.parametrize("exchange", ["allgather", "ppermute"])
+def test_pipelined_krum_round_launches_its_kernel(dev, tmp_path, exchange):
+    # Round 0 aggregates the placeholder buffer through the rule too: two
+    # distance calls a round from the first round on.
+    from murmura_tpu_torch import cli
+
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(_tiny_krum(exchange, exchange={"pipeline": True})))
+    K.reset_counts()
+    history, network = cli.run(path, output=tmp_path / "h.json", device="cuda")
+    kernel = "pairwise_sq_distances" if exchange == "allgather" else "circulant_sq_distances"
+    assert K.LAUNCHES[kernel] == 4 and not any(K.PLAIN_CALLS.values())
+    assert history["agg_pipe_valid"] == [0.0, 1.0]
+    assert network.program.pipelined and bool(torch.isfinite(network.flat).all())
+
+
+@pytest.mark.parametrize("force_sync", [False, True])
+def test_transfer_guard_raises_on_a_sync_inside_a_chunk(dev, force_sync):
+    from murmura_tpu_torch.config import Config
+    from murmura_tpu_torch.utils.factories import build_network_from_config
+
+    config = Config.model_validate(_tiny_krum("allgather", tpu={"transfer_guard": True}))
+    network = build_network_from_config(config, device="cuda")
+    assert network.transfer_guard
+    step = network.program.train_step
+
+    def step_that_syncs(*args, **kwargs):
+        out = step(*args, **kwargs)
+        if force_sync:
+            float(out[0][0, 0])  # a device-to-host copy inside the round
+        return out
+
+    network.program.train_step = step_that_syncs
+    # The first chunk of a key may synchronise: the one-time device copies.
+    network.train(2, rounds_per_dispatch=2)
+    if force_sync:
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            network.train(2, rounds_per_dispatch=2)
+    else:
+        network.train(2, rounds_per_dispatch=2)
+        assert network.history["round"] == [1, 2, 3, 4]
+    assert torch.cuda.get_sync_debug_mode() == 0

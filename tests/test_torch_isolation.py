@@ -6,10 +6,12 @@ and it never moves to the CPU unless asked to.
   Sketchguard, UBAR (both exchanges), an evidential wearable-MLP round,
   evidential trust (both exchanges), the geometric median under ALIE, a
   faulted, int8-compressed Krum round under ppermute fused into a chunk,
-  and two stale Krum rounds with audit taps through a Network that writes
-  a telemetry run dir, read back by the port's report, loads no ``jax``
-  and no ``murmura_tpu.*`` module (counted against what the interpreter
-  had loaded at start).
+  two stale Krum rounds with audit taps through a Network that writes
+  a telemetry run dir, read back by the port's report, and two pipelined
+  Krum rounds snapshotted, restored into a new Network and resumed for a
+  round (durability/ and core/pipeline.py, the retry envelope around it),
+  loads no ``jax`` and no ``murmura_tpu.*`` module (counted against what
+  the interpreter had loaded at start).
 - An AST scan of the port and of chip_smoke.py finds no such import.
 - Without CUDA, ``python -m murmura_tpu_torch run`` without ``--device
   cpu`` fails with a message, and chip_smoke.py exits non-zero, printing
@@ -112,6 +114,20 @@ with tempfile.TemporaryDirectory() as run_dir:
     writer.close()
     assert "agg_tap_stale_used" in hist and "stale_cache" in net.agg_state
     assert build_report(run_dir)["staleness"]["stale_in_edges"]
+from murmura_tpu_torch.durability import RetryPolicy, run_with_retry
+topo = create_topology("k-regular", 8, k=4)
+with tempfile.TemporaryDirectory() as ckpt:
+    def pipelined():
+        prog = build_round_program(model, build_aggregator("krum", {}), data, batch_size=8,
+                                   seed=1, device="cpu", pipeline=True)
+        return Network(prog, topo, seed=1)
+    net = pipelined()
+    net.train(2, checkpoint_dir=ckpt)
+    resumed = pipelined()
+    assert run_with_retry(lambda i: resumed.restore_checkpoint(ckpt),
+                          policy=RetryPolicy(max_retries=1)) == 2
+    hist = resumed.train(1)
+    assert hist["agg_pipe_valid"] == [0.0, 1.0, 1.0]
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "murmura_tpu"})
 print("LOADED", bad)

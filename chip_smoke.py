@@ -35,7 +35,10 @@ Phases, each of which raises (and exits non-zero) on failure:
    kernel row) on the card against the CPU at [16, 6,603,710] float32 and
    bfloat16: int8 ``q`` and ``scale``, and top-k's decoded tensor,
    residual and reference with ties planted at the k-th magnitude, all
-   bit-equal, each timed;
+   bit-equal, each timed; and the circulant pass at the exponential
+   graph's offsets on the sparse runs' shapes, [256, 2,890] (k = 8, and
+   Krum's pass at the offsets' differences) and [64, P] of the tiny CNN
+   (k = 6);
 3b. one round on the card against the same round on the CPU (same initial
    parameters, same injected draws), for each of four seeds, for Krum,
    median, trimmed mean, geometric median, BALANCE, Sketchguard, fedavg and
@@ -59,7 +62,10 @@ Phases, each of which raises (and exits non-zero) on failure:
    and pipelined Krum (both exchanges): two chained rounds from one
    initial state with injected draws, so that the second aggregates a
    valid buffer: the picks equal every round, the parameters within a
-   scaled 1e-4, ``agg_pipe_valid`` [0, 1];
+   scaled 1e-4, ``agg_pipe_valid`` [0, 1]; and every rule under the sparse
+   [k, N] edge mask of the exponential graph of 16 nodes (all edges but
+   one, and one_peer's round 1), two seeds: decisions equal, parameters
+   within a scaled 1e-4;
 3c. one round of the tiny CNN at 64 nodes, k-regular(4), in the parameter
    dtype the configs take by default from 64 nodes up (bfloat16), for
    every ported rule (Krum, geometric median, BALANCE, UBAR and
@@ -73,7 +79,9 @@ Phases, each of which raises (and exits non-zero) on failure:
    the CPU on the round's (own, bcast, adj): equal decisions and outputs
    within the bfloat16 bound of PERF.md section 2; and once more Krum
    allgather from the nodes' own initialisations, where its scores tie,
-   each device's pick held within the score noise of the exact best;
+   each device's pick held within the score noise of the exact best; and
+   every rule once more on the exponential graph of 64 nodes (k = 6, the
+   sparse exchange);
 4. main path: ``examples/configs/femnist_krum_tpu.yaml`` as committed
    (baseline CNN at full width, 16 nodes, k-regular(4), bf16 compute, 20%
    gaussian std 10), rounds cut to 3, through the port's ``run`` entry,
@@ -117,7 +125,21 @@ Phases, each of which raises (and exits non-zero) on failure:
    decisions equal, the history within a scaled 1e-4 of the uninterrupted
    run's (bit-equality printed), the telemetry stream appended with one
    ``run_resumed``, each snapshot's bytes and save or restore seconds
-   printed.  A faulted run holds its alive and
+   printed; then the sparse exchange: the flagship's Krum on the
+   exponential graph and on one_peer, and population_1m.yaml's scenario
+   without its population: block (Krum, 256 nodes, k = 8, the 32-64-10
+   MLP); then gangs (core/gang.py): ``sweep_seeds.yaml`` as committed (4
+   members fused in chunks of 5, 10 rounds) and per round (the two held to
+   a scaled 1e-4, bit-equality printed), the flagship as a gang of 4 seeds
+   in both exchanges (``run --seeds 4``, ``training.max_samples`` 48: the
+   seeds' LEAF shards differ in size), each gang's members also run one by
+   one in the call (launches S times a single run's, each history within a
+   scaled 1e-4 of its single run's, bit-equality printed, the gang's steady
+   seconds a round beside the members' summed, the peak memory of both),
+   and sweep_seeds.yaml under resumable_run.yaml's sections (30 rounds, a
+   snapshot every 5) killed (SIGKILL) in a ``sweep`` subprocess after its
+   first snapshot and resumed: every member's history bit-equal to the
+   uninterrupted gang's.  A faulted run holds its alive and
    quarantined counts to the schedule and every kernel input finite; a
    compressed run prints its payload bytes an edge; a telemetry run reads
    its run dir back with the port's report (the memory event's peak equal
@@ -131,7 +153,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    prints its peak device memory, and UBAR's and evidential trust's their
    probe forwards' share of the round;
 5. output: the pipelined flagship's steady seconds a round beside the
-   serialized one's, the resumed runs' equality and snapshot costs, the
+   serialized one's, the gangs' beside their members' summed, the resumed
+   runs' equality and snapshot costs, the
    codec's times beside the flagship round's, one
    ``{"kernels": [...]}`` JSON line, the card line, and the
    ``{"ok": true, "device": ...}`` line last.
@@ -167,6 +190,8 @@ TELEMETRY_AUDIT_REPORT = ROOT / "examples" / "configs" / "telemetry_audit_report
 STALE_GOSSIP = ROOT / "examples" / "configs" / "stale_gossip.yaml"
 RESUMABLE_RUN = ROOT / "examples" / "configs" / "resumable_run.yaml"
 PIPELINED_ROUNDS = ROOT / "examples" / "configs" / "pipelined_rounds.yaml"
+SWEEP_SEEDS = ROOT / "examples" / "configs" / "sweep_seeds.yaml"
+POPULATION_1M = ROOT / "examples" / "configs" / "population_1m.yaml"
 SMOKE_DIR = ROOT / "build" / "murmura_tpu_torch" / "smoke"
 SMOKE_ROUNDS = 3
 REPS = 20
@@ -305,6 +330,7 @@ def check_kernels(results: dict) -> None:
     check_distances_n64(results)
     check_candidate_select_n64(results)
     check_circulant_beyond_cap(results)
+    check_circulant_exponential(results)
 
 
 def check_codec() -> dict:
@@ -540,6 +566,41 @@ def check_circulant_beyond_cap(results: dict) -> None:
             print(f"[kernels] circulant_sq_distances {label}: as {other} "
                   f"{time_ms(fn):.4f} ms (the wrapper's time is above)", flush=True)
             del ref
+        del own, bcast
+    torch.cuda.empty_cache()
+
+
+def check_circulant_exponential(results: dict) -> None:
+    """The circulant pass at the exponential graph's offsets, on the sparse
+    runs' shapes: [256, 2,890] (population_1m.yaml's 32-64-10 MLP, k = 8,
+    phase 4) and [64, P] of the tiny CNN (k = 6, phase 3c's sparse rows),
+    float32: own against bcast at the offsets and bcast against bcast at
+    their differences (Krum's two passes).  N = 256 stays under the
+    wrapper's 260-row limit: one launch a call."""
+    import torch
+
+    from murmura_tpu_torch.models.cnn import make_femnist_cnn
+    from murmura_tpu_torch.models.mlp import make_mlp
+    from murmura_tpu_torch.ops import agg_kernels as K
+    from murmura_tpu_torch.ops.flatten import model_dimension
+    from murmura_tpu_torch.topology.sparse import exponential_offsets
+
+    def dim(model):
+        return model_dimension(model.init(torch.Generator().manual_seed(0), "cpu"))
+
+    for n, p in ((256, dim(make_mlp(32, (64,), 10))), (64, dim(make_femnist_cnn(variant="tiny")))):
+        offsets = list(exponential_offsets(n))
+        deltas = sorted({abs(b - a) for a in offsets for b in offsets if a != b})
+        own, bcast = krum_inputs(n, p, n + 7)
+        for what, a, offs in (("own, bcast, exponential offsets", own, offsets),
+                              ("bcast, bcast, their differences", bcast, deltas)):
+            tensors = 1 if a is bcast else 2
+            _check_distances(results, "circulant_sq_distances",
+                             f"({what} {offs}) N={n} P={p}", (a, bcast),
+                             lambda x, y, o=offs: K.circulant_sq_distances(x, y, o),
+                             lambda x, y, o=offs: K.circulant_sq_distances_plain(x, y, o),
+                             None, tensors * n * p * 4 + len(offs) * n * 4,
+                             3.0 * len(offs) * n * p, in_round=False)
         del own, bcast
     torch.cuda.empty_cache()
 
@@ -1261,9 +1322,92 @@ def check_pipelined_against_cpu(device: str = "cuda") -> None:
                                  "the CPU")
 
 
+# Phase 3b's sparse rows: every rule under the [k, N] edge mask of the
+# exponential graph of 16 nodes (offsets 1, 2, 4, 8): (rule, params, on the
+# evidential wearable MLP).
+SPARSE_OFFSETS = (1, 2, 4, 8)
+SPARSE_RULES = [
+    ("krum", {"num_compromised": 1}, False),
+    ("fedavg", {}, False),
+    ("median", {}, False),
+    ("trimmed_mean", {"trim_ratio": 0.2}, False),
+    ("geometric_median", {}, False),
+    ("balance", {}, False),
+    ("sketchguard", {}, False),
+    ("ubar", {"rho": 0.8}, False),
+    ("evidential_trust", {"trust_threshold": 0.1}, True),
+]
+
+
+def check_sparse_rounds_against_cpu(device: str = "cuda") -> None:
+    """Phase 3b, the sparse exchange: one round of every rule on the card and
+    on the CPU from the same initial parameters and injected draws (16
+    nodes, the tiny CNN, or the evidential wearable MLP for evidential
+    trust; 20% gaussian std 10), under two [k, N] edge masks of the
+    exponential graph: all edges but one (node 7's broadcast to node 5
+    dropped), and one_peer's round 1 (offset 2 alone), on two of
+    ROUND_SEEDS.  The rule's decisions (DECISIONS) must be equal and the
+    parameters within a scaled delta of 1e-4."""
+    import numpy as np
+    import torch
+
+    from murmura_tpu_torch.aggregation import build_aggregator
+    from murmura_tpu_torch.attacks import ATTACKS
+    from murmura_tpu_torch.core.rounds import build_round_program
+    from murmura_tpu_torch.ops.flatten import model_dimension
+    from murmura_tpu_torch.topology.generators import create_topology
+
+    n = 16
+    dropped = create_topology("exponential", n).edge_mask(0)
+    dropped[SPARSE_OFFSETS.index(2), 5] = 0.0  # receiver 5 from sender 7
+    masks = {"exponential, edge 7 -> 5 dropped": dropped,
+             "one_peer round 1": create_topology("one_peer", n).edge_mask(1)}
+    seeds = ROUND_SEEDS[:2]
+    inputs = {}
+    for rule, params, wearable in SPARSE_RULES:
+        kw = dict(params, exchange_offsets=list(SPARSE_OFFSETS), sparse_exchange=True)
+        for mask_label, mask in masks.items():
+            deltas, unequal, finite = [], [], True
+            for seed in seeds:
+                if (seed, wearable) not in inputs:
+                    inputs[seed, wearable] = _round_inputs(n, seed, wearable)
+                model, data, init, draws = inputs[seed, wearable]
+                dim = model_dimension(model.init(torch.Generator().manual_seed(0), "cpu"))
+                out = {}
+                for dev in (device, "cpu"):
+                    attack = ATTACKS["gaussian"](n, 0.2, seed=seed, noise_std=10.0)
+                    prog = build_round_program(
+                        model, build_aggregator(rule, kw, model_dim=dim), data, attack=attack,
+                        local_epochs=1, batch_size=16, lr=0.05, seed=seed, device=dev,
+                        init_params=init, sparse_offsets=SPARSE_OFFSETS)
+                    noise = np.random.default_rng(seed + 1).normal(
+                        size=(int(attack.compromised.sum()), prog.model_dim)).astype(np.float32)
+                    comp = torch.as_tensor(attack.compromised.astype(np.float32)).to(dev)
+                    flat, _, metrics = prog.train_step(
+                        prog.init_flat, dict(prog.init_agg_state), torch.as_tensor(mask).to(dev),
+                        comp, 0.0, draws={**draws, "noise": noise})
+                    out[dev] = (flat.cpu().double(), {k: v.cpu() for k, v in metrics.items()})
+                (f_card, m_card), (f_cpu, m_cpu) = out[device], out["cpu"]
+                finite = finite and bool(torch.isfinite(f_card).all())
+                deltas.append(float((f_card - f_cpu).abs().max()
+                                    / max(1.0, float(f_cpu.abs().max()))))
+                unequal += [f"{k} (seed {seed})" for k in DECISIONS[rule]
+                            if not torch.equal(m_card[f"agg_{k}"], m_cpu[f"agg_{k}"])]
+            ok = max(deltas) <= 1e-4 and not unequal and finite
+            print(f"[round] {rule} sparse ({mask_label}), "
+                  f"{'wearable MLP' if wearable else 'tiny CNN'}, gaussian attack, card vs CPU, "
+                  f"seeds {list(seeds)}: scaled param delta {', '.join(f'{d:.3g}' for d in deltas)}"
+                  f" (limit 1e-4); {', '.join(DECISIONS[rule])} "
+                  + ("== CPU on every seed" if not unequal else f"differ: {', '.join(unequal)}")
+                  + f": {'ok' if ok else 'FAILED'}", flush=True)
+            if not ok:
+                raise AssertionError(f"a sparse {rule} round on the card disagrees with the CPU")
+
+
 # Phase 3c's rounds: (rule, exchange, params, {kernel: launches}, spread[,
 # config sections: "compression", or "faults" naming the config whose
-# faults: section to take]).
+# faults: section to take]).  The exchange "exponential" runs the rule on
+# the exponential graph (the sparse [k, N] edge-mask exchange).
 # Krum with num_compromised 1 selects (c < (m - 2) / 2 at m = 5).  spread:
 # the nodes start from one model plus offsets of distinct scales, so that
 # the decisions are exact; the one row without it starts from the nodes'
@@ -1295,6 +1439,19 @@ N64_RULES = [
     ("median", "ppermute", {}, {"candidate_select": 1}, True, {"compression": INT8_EF}),
     ("krum", "allgather", {"num_compromised": 1}, {"pairwise_sq_distances": 2}, True,
      {"faults": "chaos_churn"}),
+    # The sparse exchange: every rule on the exponential graph of 64 nodes
+    # (k = 6), the [k, N] edge mask all ones.  The median and the trimmed
+    # mean take the masked stack in plain tensor code (no kernel), as the
+    # JAX package does.
+    ("krum", "exponential", {"num_compromised": 1}, {"circulant_sq_distances": 2}, True),
+    ("geometric_median", "exponential", {}, {"circulant_sq_distances": 9}, True),
+    ("balance", "exponential", {}, {"circulant_sq_distances": 1}, True),
+    ("ubar", "exponential", {}, {"circulant_sq_distances": 1}, True),
+    ("sketchguard", "exponential", {}, {"count_sketch": 2, "circulant_sq_distances": 1}, True),
+    ("median", "exponential", {}, {}, True),
+    ("trimmed_mean", "exponential", {"trim_ratio": 0.2}, {}, True),
+    ("fedavg", "exponential", {}, {}, True),
+    ("evidential_trust", "exponential", {"trust_threshold": 0.1}, {}, True),
 ]
 # The stats that are decisions: equal between the card and the CPU.
 DECISIONS = {
@@ -1494,9 +1651,11 @@ def check_round_n64_bf16() -> dict:
         sections = extra[0] if extra else {}
         tag = (f"{rule}:{exchange}:n64-bf16" + ("" if spread else "-own-init")
                + "".join(f"-{k}" for k in sections))
+        sparse = exchange == "exponential"
         cfg = {
             "experiment": {"name": f"n64-{rule}", "seed": 5, "rounds": 1, "verbose": False},
-            "topology": {"type": "k-regular", "num_nodes": 64, "k": 4},
+            "topology": ({"type": "exponential", "num_nodes": 64} if sparse
+                         else {"type": "k-regular", "num_nodes": 64, "k": 4}),
             "aggregation": {"algorithm": rule, "params": params},
             "attack": {"enabled": True, "type": "gaussian", "percentage": 0.2,
                        "params": {"noise_std": 10.0}},
@@ -1504,7 +1663,7 @@ def check_round_n64_bf16() -> dict:
             "data": {"adapter": "leaf.femnist", "params": {"num_samples": 64 * 40}},
             "model": {"factory": "leaf.femnist.tiny", "params": {}},
             "backend": "tpu",
-            "tpu": {"exchange": exchange, "compute_dtype": "bfloat16"},
+            "tpu": {"exchange": "ppermute" if sparse else exchange, "compute_dtype": "bfloat16"},
         }
         if "compression" in sections:
             cfg["compression"] = dict(sections["compression"])
@@ -1572,11 +1731,16 @@ def check_round_n64_bf16() -> dict:
             ctx)
         decisions = DECISIONS[rule] if spread else ()
         unequal = [k for k in decisions if not torch.equal(stats_card[k].cpu(), stats_cpu[k])]
-        r = bf16_roundings(rule, exchange == "ppermute")
+        r = bf16_roundings(rule, exchange != "allgather")
         cpu32, card32 = new_cpu.float(), new_card.cpu().float()
+        offsets = network.program.sparse_offsets
         if rule == "geometric_median":
-            ci, _ = candidate_indices(adj.cpu(), 5)
-            cand = torch.cat([own.cpu()[:, None], bcast.cpu()[ci[:, 1:]]], dim=1)
+            if sparse:
+                cand = torch.stack([own.cpu()] + [torch.roll(bcast.cpu(), -o, 0)
+                                                  for o in offsets], dim=1)
+            else:
+                ci, _ = candidate_indices(adj.cpu(), 5)
+                cand = torch.cat([own.cpu()[:, None], bcast.cpu()[ci[:, 1:]]], dim=1)
             mag = cand.float().abs().max(dim=1).values
             del cand
         else:
@@ -1584,8 +1748,15 @@ def check_round_n64_bf16() -> dict:
         diff = (card32 - cpu32).abs()
         extra, trust_note = 0.0, ""
         if rule == "evidential_trust":
+            edges = adj
+            if sparse:
+                # The edge mask as the dense [receiver, sender] matrix.
+                edges = torch.zeros((64, 64))
+                ar = torch.arange(64)
+                for j, o in enumerate(offsets):
+                    edges[ar, (ar + o) % 64] = adj.cpu()[j].float()
             extra, dw = trust_weight_term(state_card, state_cpu, float(stats_cpu["threshold"][0]),
-                                          adj, bcast, bf16_weights=exchange == "allgather")
+                                          edges, bcast, bf16_weights=exchange == "allgather")
             trust_rel = float(((state_card["smoothed_trust"].cpu() - state_cpu["smoothed_trust"])
                                .abs() / state_cpu["smoothed_trust"].abs().clamp(min=1e-30)).max())
             trust_note = (f"; trust card vs CPU max rel {trust_rel:.3g}, weights' max |card - "
@@ -1781,6 +1952,19 @@ MAIN_RUNS = [
     ("krum:transfer_guard_fused", FLAGSHIP, "allgather", None,
      {"pairwise_sq_distances": (2, "==")},
      {"rounds": 4, "sections": {"rounds_per_dispatch": 2, "tpu": {"transfer_guard": True}}}),
+    # The sparse exchange: the flagship on the exponential graph and on
+    # one_peer (offsets 1, 2, 4, 8; the circulant pass at the offsets and at
+    # their differences each round), and population_1m.yaml's scenario
+    # without its population: block (Krum, 256 nodes, k = 8, the 32-64-10
+    # MLP), the shape the population engine will run.
+    ("krum:exponential_flagship", FLAGSHIP, "allgather", None,
+     {"circulant_sq_distances": (2, "==")},
+     {"topology": {"type": "exponential", "num_nodes": 16}}),
+    ("krum:one_peer_flagship", FLAGSHIP, "allgather", None,
+     {"circulant_sq_distances": (2, "==")},
+     {"topology": {"type": "one_peer", "num_nodes": 16}}),
+    ("krum:population_1m_scenario", POPULATION_1M, None, None,
+     {"circulant_sq_distances": (2, "==")}, {"drop": ("population",)}),
 ]
 # Fused dispatch: the flagship's Krum allgather over FUSED_ROUNDS rounds,
 # per round and with tpu.rounds_per_dispatch 2, in the same call.
@@ -1863,7 +2047,8 @@ def finite_kernel_inputs(flags: list):
 
 @contextlib.contextmanager
 def sync_free_chunks(events: list):
-    """While open, every fused chunk after the first of its size runs under
+    """While open, every fused chunk (a single run's or a gang's) after the
+    first of its size runs under
     ``torch.cuda.set_sync_debug_mode("warn")`` (the first makes the
     wrappers' one-time device copies: the attack's compromised rows, the
     circulant offsets), and each synchronising call inside it lands in
@@ -1873,12 +2058,14 @@ def sync_free_chunks(events: list):
 
     import torch
 
+    from murmura_tpu_torch.core import gang as gang_mod
     from murmura_tpu_torch.core import network as net_mod
 
-    real_build = net_mod.build_multi_round
+    builders = ((net_mod, "build_multi_round"), (gang_mod, "build_gang_multi_round"))
+    real = {mod: getattr(mod, attr) for mod, attr in builders}
 
-    def build(program, chunk, eval_every):
-        fn = real_build(program, chunk, eval_every)
+    def watched(real_build, *build_args):
+        fn = real_build(*build_args)
         calls = []
 
         def run(*args, **kwargs):
@@ -1898,11 +2085,13 @@ def sync_free_chunks(events: list):
 
         return run
 
-    net_mod.build_multi_round = build
+    for mod, attr in builders:
+        setattr(mod, attr, lambda *a, real_build=real[mod]: watched(real_build, *a))
     try:
         yield
     finally:
-        net_mod.build_multi_round = real_build
+        for mod, attr in builders:
+            setattr(mod, attr, real[mod])
 
 
 def _launch_context(events: list) -> dict:
@@ -2126,11 +2315,19 @@ def smoke_config(name, config, exchange, aggregation, opts):
     """Phase 4's config for one run (run_main_path's docstring), written to
     SMOKE_DIR/<name>.yaml; returns (raw, its path, the history path).  A
     ``durability:`` section gets its checkpoint_dir under SMOKE_DIR/ckpts
-    (emptied first) and ``opts["checkpoint_every"]`` if given."""
+    (emptied first) and ``opts["checkpoint_every"]`` if given;
+    ``opts["drop"]`` removes sections, ``opts["topology"]`` replaces the
+    topology and ``opts["max_samples"]`` sets training.max_samples."""
     import yaml
 
     raw = yaml.safe_load(config.read_text())
     raw["experiment"]["rounds"] = opts.get("rounds", SMOKE_ROUNDS)
+    for key in opts.get("drop", ()):
+        raw.pop(key, None)
+    if "topology" in opts:
+        raw["topology"] = dict(opts["topology"])
+    if "max_samples" in opts:
+        raw["training"]["max_samples"] = opts["max_samples"]
     if exchange is not None:
         raw["backend"] = "tpu"
         raw.setdefault("tpu", {})["exchange"] = exchange
@@ -2495,7 +2692,268 @@ def run_kill_resume(exchange: str) -> dict:
                                          "delta": delta}}
 
 
+# Gangs (core/gang.py): sweep_seeds.yaml as committed, and the flagship as
+# a gang of GANG_SEEDS seeds.  The flagship's LEAF shards differ in size
+# between seeds (seeds 7-10: 191-231 training samples a node), which a gang
+# refuses in both packages, so its gang runs and their single runs pin
+# training.max_samples (the test splits take the same cap).
+GANG_SEEDS = 4
+GANG_MAX_SAMPLES = 48
+GANG_RESUME_ROUNDS = 30
+
+
+def _steady(times, first_chunk: int = 1) -> float:
+    """Mean seconds a round after the first chunk."""
+    import numpy as np
+
+    return float(np.mean(times[first_chunk:]))
+
+
+def run_gang(label, config, exchange, expect, opts=None) -> dict:
+    """Phase 4, a gang: ``config`` through the port's CLI on the card (its
+    ``sweep:`` block through ``cli.sweep``, else ``cli.run(...,
+    num_seeds=GANG_SEEDS)``), the counters set to 0 just before and read
+    just after: every kernel of ``expect`` launched its per-round count
+    times the members every round, no other kernel, no plain version, and
+    every member's history with the single run's keys, finite.  Unless
+    ``opts["singles"]`` is False, each member then runs alone (``cli.run``,
+    its seed, the sweep block dropped) in the same call: the members'
+    launches must sum to the gang's, and each member's history must agree
+    with its single run's to a scaled 1e-4 (bit-equality printed).  Prints
+    the gang's steady seconds a round beside the members' summed, and the
+    peak device memory of both (a recorded number: no claim)."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from murmura_tpu_torch import cli
+
+    opts = opts or {}
+    rounds = opts.get("rounds", SMOKE_ROUNDS)
+    name = label.replace(":", "_")
+    raw, cfg, out = smoke_config(name, config, exchange, None, opts)
+    swept = raw.get("sweep") is not None
+    chunk = (raw.get("tpu") or {}).get("rounds_per_dispatch", 1)
+    mods = _kernel_modules()
+    sync_events: list = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        if chunk > 1:
+            stack.enter_context(sync_free_chunks(sync_events))
+        for mod in mods:
+            mod.reset_counts()
+        t0 = time.perf_counter()
+        if swept:
+            histories, gang = cli.sweep(cfg, output=out, device="cuda")
+        else:
+            histories, gang = cli.run(cfg, output=out, device="cuda", num_seeds=GANG_SEEDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+        plain = {k: v for mod in mods for k, v in mod.PLAIN_CALLS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    size = gang.gang_size
+    for kernel, (per_round, _) in expect.items():
+        if launches[kernel] != per_round * rounds * size:
+            raise AssertionError(f"{kernel} launched {launches[kernel]} times in {rounds} "
+                                 f"rounds of {size} members (want {per_round} a member a round)")
+    stray = {k: v for k, v in launches.items() if v and k not in expect}
+    if any(plain.values()) or stray:
+        raise AssertionError(f"plain versions {plain} or stray kernels {stray} on a gang run")
+    for member, hist in histories.items():
+        if len(hist["round"]) != rounds or not all(
+                np.all(np.isfinite(np.asarray(v, dtype=np.float64))) for v in hist.values() if v):
+            raise AssertionError(f"member {member}'s history is short or not finite")
+    if not torch.isfinite(gang.flats).all():
+        raise AssertionError("a member's final parameters are not finite")
+    if sync_events:
+        raise AssertionError(f"a fused gang chunk synchronised with the host: {sync_events[:5]}")
+    members, shape = gang.members, (gang.program.num_nodes, gang.program.model_dim)
+    gang_s = _steady(gang.round_times, chunk)
+    rec = {"launches": {k: launches[k] for k in expect}, "s_per_round": gang.round_times,
+           "peak_gb": peak_gb, "histories": histories, "gang_size": size}
+    # Dropped before the members run alone, so that their peaks are theirs.
+    del gang
+    gc.collect()
+    torch.cuda.empty_cache()
+    note = ""
+    if opts.get("singles", True):
+        single_s, single_peak, same, deltas, summed = [], [], [], [], {k: 0 for k in expect}
+        for member in members:
+            one = dict(raw)
+            one.pop("sweep", None)
+            one["experiment"] = dict(raw["experiment"], seed=member.seed)
+            if (one.get("attack") or {}).get("enabled"):
+                # The gang's one placement: the base seed's, pinned.
+                one["attack"] = dict(one["attack"])
+                one["attack"]["params"] = {"seed": raw["experiment"]["seed"],
+                                           **(one["attack"].get("params") or {})}
+            path = SMOKE_DIR / f"{name}_{member.label}.yaml"
+            path.write_text(yaml.safe_dump(one, sort_keys=False))
+            torch.cuda.reset_peak_memory_stats()
+            for mod in mods:
+                mod.reset_counts()
+            hist, net = cli.run(path, output=SMOKE_DIR / f"history_{path.stem}.json",
+                                device="cuda")
+            torch.cuda.synchronize()
+            for k in expect:
+                summed[k] += next(mod.LAUNCHES[k] for mod in mods if k in mod.LAUNCHES)
+            single_s.append(_steady(net.round_times, chunk))
+            single_peak.append(torch.cuda.max_memory_allocated() / 1e9)
+            same.append(hist == histories[member.label])
+            deltas.append(history_delta(histories[member.label], hist))
+            del net
+        gc.collect()
+        torch.cuda.empty_cache()
+        ok = summed == {k: launches[k] for k in expect} and max(deltas) <= 1e-4
+        note = (f"; the members run one by one in this call: launches {summed} (the gang's "
+                f"{'==' if summed == rec['launches'] else '!='} their sum), steady s/round "
+                f"{', '.join(f'{s:.4f}' for s in single_s)}, summed {sum(single_s):.4f} against "
+                f"the gang's {gang_s:.4f} ({sum(single_s) / gang_s:.2f}x; recorded, no claim), "
+                f"peak {max(single_peak):.2f} GB alone; each member's history bit-equal to its "
+                f"single run {same}, scaled delta {max(deltas):.3g} (limit 1e-4)")
+        rec.update(single_s=single_s, summed_single_s=sum(single_s), bit_equal=same,
+                   delta=max(deltas), single_peak_gb=max(single_peak))
+        if not ok:
+            raise AssertionError(f"the gang {label} differs from its members run alone")
+    print(f"[gang:{label}] {size} members {[m.label for m in members]}, N="
+          f"{shape[0]} P={shape[1]}, {rounds} rounds, chunks of "
+          f"{chunk}; launches {launches} (want {expect} a member a round), plain-version calls "
+          f"{plain}; round seconds {[round(t, 4) for t in rec['s_per_round']]}, steady s/round "
+          f"{gang_s:.4f}; run wall {wall:.2f} s; peak device memory {peak_gb:.2f} GB{note}",
+          flush=True)
+    return rec
+
+
+def run_gang_kill_resume() -> dict:
+    """Phase 4, a gang's durability: sweep_seeds.yaml (4 members, chunks of
+    5) under resumable_run.yaml's durability:, compression: (int8, error
+    feedback) and telemetry: sections, GANG_RESUME_ROUNDS rounds, a snapshot
+    every 5: first uninterrupted (run_gang), then through ``python -m
+    murmura_tpu_torch sweep`` in a subprocess, SIGKILLed once meta.json
+    names round 5 or later, and the same command again, which resumes all
+    members.  The resumed process must launch the distance kernel twice a
+    member a round for the rounds it ran and no plain version, and every
+    member's history must be bit-equal to the uninterrupted gang's; each
+    member's telemetry stream appended with one ``run_resumed``."""
+    from murmura_tpu_torch.telemetry.writer import events_of_type
+
+    kernel = "pairwise_sq_distances"
+    opts = {"rounds": GANG_RESUME_ROUNDS, "sections": RESUME_SECTIONS, "singles": False}
+    ref = run_gang("krum:gang_durable", SWEEP_SEEDS, None, {kernel: (2, "==")}, opts)
+    name = "krum_gang_killed"
+    raw, cfg, out = smoke_config(name, SWEEP_SEEDS, None, None, opts)
+    ckpt, run_dir = Path(raw["durability"]["checkpoint_dir"]), Path(raw["telemetry"]["dir"])
+    cmd = [sys.executable, "-c", _CLI_WITH_COUNTS, "sweep", str(cfg), "--device", "cuda",
+           "-o", str(out)]
+    t0 = time.perf_counter()
+    with open(SMOKE_DIR / f"{name}.killed.log", "w") as log:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            while proc.poll() is None and _snapshot_round(ckpt) < 5:
+                time.sleep(0.005)
+            running = proc.poll() is None
+            proc.kill()
+        finally:
+            proc.wait()
+    killed_s = time.perf_counter() - t0
+    stopped = _snapshot_round(ckpt)
+    if not running:
+        raise AssertionError(f"the gang exited ({proc.returncode}) before it could be killed")
+    t0 = time.perf_counter()
+    resumed = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+    resumed_s = time.perf_counter() - t0
+    (SMOKE_DIR / f"{name}.resumed.log").write_text(resumed.stdout + resumed.stderr)
+    if resumed.returncode != 0:
+        raise AssertionError(f"the resumed gang failed: {resumed.stderr[-3000:]}")
+    if f"from round {stopped}" not in resumed.stdout:
+        raise AssertionError(f"the gang did not resume from round {stopped}")
+    counts = json.loads(resumed.stdout.rsplit("COUNTS ", 1)[1].splitlines()[0])
+    size = ref["gang_size"]
+    want = 2 * size * (GANG_RESUME_ROUNDS - stopped)
+    stray = {k: v for k, v in counts["launches"].items() if v and k != kernel}
+    if counts["launches"][kernel] != want or any(counts["plain"].values()) or stray:
+        raise AssertionError(f"the resumed gang's counts {counts}, want {kernel} {want}")
+    got = json.loads(out.read_text())
+    same = got == ref["histories"]
+    seams = []
+    for label in got:
+        runs = [e["status"] for e in events_of_type(run_dir / label, "run")]
+        seams.append(runs == ["started", "resumed"]
+                     and len(events_of_type(run_dir / label, "run_resumed")) == 1)
+    ok = same and all(seams)
+    print(f"[gang:resume] sweep_seeds.yaml under resumable_run.yaml's durability:, "
+          f"compression: and telemetry: sections, {size} members, {GANG_RESUME_ROUNDS} rounds in "
+          f"chunks of 5, a snapshot every 5: killed (SIGKILL) after {killed_s:.2f} s with the "
+          f"snapshot at round {stopped}, resumed in {resumed_s:.2f} s (process wall); {kernel} "
+          f"launched {counts['launches'][kernel]} times in the {GANG_RESUME_ROUNDS - stopped} "
+          f"resumed rounds (want {want}), plain-version calls {sum(counts['plain'].values())}; "
+          f"every member's history bit-equal to the uninterrupted gang's: {same}; each "
+          f"member's telemetry stream started, resumed, one run_resumed: {all(seams)}: "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError("the resumed gang differs from the uninterrupted one")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(SMOKE_DIR / "ckpts" / "krum_gang_durable", ignore_errors=True)
+    return {"krum:gang_durable": ref,
+            "krum:gang_resumed": {"launches": {kernel: counts["launches"][kernel]},
+                                  "stopped": stopped, "bit_equal": same}}
+
+
+def run_gangs() -> dict:
+    """Phase 4's gangs: sweep_seeds.yaml as committed (fused chunks of 5)
+    with its members alone, the same sweep per round (its histories against
+    the fused gang's: bit-equality printed, a scaled 1e-4 gated), the
+    flagship as a gang of GANG_SEEDS seeds in both exchanges (3 rounds)
+    with its members alone, and the killed and resumed gang."""
+    gangs = {}
+    sweep_rounds = 10
+    gangs["krum:gang_sweep_seeds"] = run_gang(
+        "krum:gang_sweep_seeds", SWEEP_SEEDS, None, {"pairwise_sq_distances": (2, "==")},
+        {"rounds": sweep_rounds})
+    gangs["krum:gang_sweep_seeds_per_round"] = run_gang(
+        "krum:gang_sweep_seeds_per_round", SWEEP_SEEDS, None,
+        {"pairwise_sq_distances": (2, "==")},
+        {"rounds": sweep_rounds, "singles": False,
+         "sections": {"tpu": {"rounds_per_dispatch": 1}}})
+    fused = gangs["krum:gang_sweep_seeds"]["histories"]
+    per_round = gangs["krum:gang_sweep_seeds_per_round"]["histories"]
+    delta = max(history_delta(fused[k], per_round[k]) for k in fused)
+    print(f"[gang:sweep_seeds] per round against fused in chunks of 5: every member's history "
+          f"bit-equal {fused == per_round}, scaled delta {delta:.3g} (limit 1e-4): "
+          f"{'ok' if delta <= 1e-4 else 'FAILED'}", flush=True)
+    if delta > 1e-4:
+        raise AssertionError("the per-round gang differs from the fused one")
+    for exchange, kernel in (("allgather", "pairwise_sq_distances"),
+                             ("ppermute", "circulant_sq_distances")):
+        label = f"krum:gang_flagship_{exchange}"
+        gangs[label] = run_gang(label, FLAGSHIP, exchange, {kernel: (2, "==")},
+                                {"max_samples": GANG_MAX_SAMPLES})
+    gangs.update(run_gang_kill_resume())
+    return gangs
+
+
+def print_gang_summary(gangs: dict) -> None:
+    """Phase 5's gang lines: each gang's steady seconds a round beside its
+    members' run alone, summed, and the peaks (recorded, no claim)."""
+    for exchange in ("allgather", "ppermute"):
+        g = gangs[f"krum:gang_flagship_{exchange}"]
+        steady_g = _steady(g["s_per_round"])
+        print(f"[gang] the flagship's Krum {exchange} (training.max_samples "
+              f"{GANG_MAX_SAMPLES}) as a gang of {g['gang_size']}: steady s/round {steady_g:.4f} "
+              f"against its members alone {g['summed_single_s']:.4f} summed "
+              f"({g['summed_single_s'] / steady_g:.2f}x), peak {g['peak_gb']:.2f} GB against "
+              f"{g['single_peak_gb']:.2f} GB for one member alone; launches "
+              f"{g['launches']} in {SMOKE_ROUNDS} rounds; recorded, no claim", flush=True)
+    sg = gangs["krum:gang_sweep_seeds"]
+    print(f"[gang] sweep_seeds.yaml, {sg['gang_size']} members fused in chunks of 5: steady "
+          f"s/round {_steady(sg['s_per_round'], 5):.4f} against its members alone "
+          f"{sg['summed_single_s']:.4f} summed; recorded, no claim", flush=True)
+
+
 def main() -> int:
+    started = time.perf_counter()
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     if not (ROOT / "murmura_tpu_torch" / "csrc").is_dir() or not FLAGSHIP.exists():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -2536,6 +2994,7 @@ def main() -> int:
     codec_ms = check_codec()
     check_round_against_cpu()
     check_pipelined_against_cpu()
+    check_sparse_rounds_against_cpu()
     round64 = check_round_n64_bf16()
 
     mains = {run[0]: run_main_path(*run) for run in MAIN_RUNS}
@@ -2544,6 +3003,9 @@ def main() -> int:
     mains.update(run_fused_pair("pipelined_flagship", PIPELINE_SECTIONS))
     for exchange in ("allgather", "ppermute"):
         mains.update(run_kill_resume(exchange))
+    gangs = run_gangs()
+    mains.update(gangs)
+    print_gang_summary(gangs)
     steady = {k: float(np.mean(mains[k]["s_per_round"][1:]))
               for k in ("krum:allgather", "krum:telemetry_flagship")}
     print(f"[main:telemetry] steady s/round (rounds 2 on), the flagship's Krum allgather "
@@ -2615,6 +3077,7 @@ def main() -> int:
             "library_ms": None if None in libs else sum(libs),
             "cases": rows,
         })
+    print(f"[time] every phase in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

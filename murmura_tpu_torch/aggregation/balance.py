@@ -6,7 +6,8 @@ L2 distance <= threshold; accept the closest neighbor when fewer than
 ``min_neighbors`` pass; output alpha*own + (1-alpha)*mean(accepted), or
 own when nothing was accepted.  Dense distances come from the pairwise
 kernel, circulant ones (``tpu.exchange: ppermute``) from the circulant
-kernel.
+kernel; under the sparse exchange the [k, N] edge mask excludes inactive
+edges from acceptance, the closest-neighbour fallback and the degree.
 """
 
 from typing import Optional, Sequence
@@ -18,11 +19,12 @@ from murmura_tpu_torch.aggregation.base import (
     AggregatorDef,
     InfluenceDecl,
     blend_with_own,
+    circulant_in_degree,
     circulant_masked_mean,
     circulant_neighbor_distances,
+    exchange_offsets_of,
     masked_neighbor_mean,
     pairwise_l2_distances,
-    refuse_sparse_exchange,
 )
 
 
@@ -60,8 +62,7 @@ def make_balance(
     sparse_exchange: bool = False,
     **_params,
 ) -> AggregatorDef:
-    refuse_sparse_exchange("balance", sparse_exchange)
-    offsets = None if exchange_offsets is None else [int(o) for o in exchange_offsets]
+    offsets = exchange_offsets_of(exchange_offsets, sparse_exchange)
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):
         n = own.shape[0]
@@ -70,21 +71,35 @@ def make_balance(
 
         if offsets is not None:
             d_k = circulant_neighbor_distances(own, bcast, offsets)  # [k, N]
-            accept_k = d_k <= threshold[None, :]
-            count = accept_k.sum(dim=0)
-            closest = torch.argmin(d_k, dim=0)  # offset index per node
             ar = torch.arange(len(offsets), device=own.device)
-            fallback = (count < min_neighbors)[None, :] & (ar[:, None] == closest[None, :])
+            if sparse_exchange:
+                edge_b = adj > 0
+                accept_k = edge_b & (d_k <= threshold[None, :])
+                count = accept_k.sum(dim=0)
+                closest = torch.argmin(
+                    torch.where(edge_b, d_k, torch.full_like(d_k, float("inf"))), dim=0)
+                has_any = edge_b.any(dim=0)
+                fallback = (((count < min_neighbors) & has_any)[None, :]
+                            & (ar[:, None] == closest[None, :]) & edge_b)
+                degree = torch.clamp(adj.sum(dim=0), min=1.0).to(own.dtype)
+            else:
+                accept_k = d_k <= threshold[None, :]
+                count = accept_k.sum(dim=0)
+                closest = torch.argmin(d_k, dim=0)  # offset index per node
+                fallback = (count < min_neighbors)[None, :] & (ar[:, None] == closest[None, :])
+                degree = torch.full((n,), float(len(offsets)), dtype=own.dtype,
+                                    device=own.device)
             accept_k = (accept_k | fallback).to(own.dtype)
             neighbor_avg = circulant_masked_mean(bcast, accept_k, offsets, out_dtype=own.dtype)
             accepted_count = accept_k.sum(dim=0)
-            degree = torch.full((n,), float(len(offsets)), dtype=own.dtype, device=own.device)
             if ctx.audit:
                 # accept_k[o_idx, i]: receiver i accepted sender (i + o) % n.
                 tap_selected_by = sum(
                     torch.roll(accept_k[i].to(torch.float32), o) for i, o in enumerate(offsets)
                 )
-                tap_considered_by = torch.full((n,), float(len(offsets)), device=own.device)
+                tap_considered_by = (
+                    circulant_in_degree(adj, offsets) if sparse_exchange
+                    else torch.full((n,), float(len(offsets)), device=own.device))
         else:
             dist = pairwise_l2_distances(own, bcast)
             accepted = accept_with_closest_fallback(dist, adj, threshold, min_neighbors)

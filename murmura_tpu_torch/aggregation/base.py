@@ -8,7 +8,11 @@ A rule is one function over the whole network:
         -> (new_flat[N, P], new_state, stats)
 
 ``own`` holds each node's true state, ``bcast`` the states as broadcast
-(post-attack); ``stats`` are per-node tensors.
+(post-attack); ``stats`` are per-node tensors.  A rule built with
+``sparse_exchange`` (a sparse topology's offsets as ``exchange_offsets``)
+takes the [k, N] edge mask as ``adj``: ``adj[j, i]`` is the edge ``i <- (i
++ offsets[j]) % N``, and its circulant path weighs or masks each offset's
+candidates by it.
 """
 
 from dataclasses import dataclass, field
@@ -106,14 +110,21 @@ class AggregatorDef:
     influence: Optional[InfluenceDecl] = None
 
 
-def refuse_sparse_exchange(rule: str, sparse_exchange: bool) -> None:
-    """The sparse [k, N] edge-mask exchange is not ported: a rule built
-    with it raises instead of running another exchange."""
-    if sparse_exchange:
-        raise ValueError(
-            f"{rule}'s sparse [k, N] edge-mask exchange is not ported to the "
-            "PyTorch package yet"
-        )
+def exchange_offsets_of(exchange_offsets, sparse_exchange: bool):
+    """The rule's circulant offsets as ints (None: the dense path); the
+    sparse edge-mask exchange runs on the circulant path, so it needs them."""
+    offsets = None if exchange_offsets is None else [int(o) for o in exchange_offsets]
+    if sparse_exchange and offsets is None:
+        raise ValueError("sparse_exchange requires exchange_offsets")
+    return offsets
+
+
+def circulant_in_degree(edge_k: torch.Tensor, offsets) -> torch.Tensor:
+    """[N] sender in-degree under a [k, N] edge mask, by rolls: ``edge_k[j,
+    i]`` says receiver i reads sender (i + offsets[j]) % N, so sender s is
+    read by receiver (s - o) % N."""
+    return sum(torch.roll(edge_k[j].to(torch.float32), o) for j, o in enumerate(offsets))
+
 
 
 def pairwise_l2_distances(

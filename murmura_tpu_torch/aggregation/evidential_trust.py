@@ -23,9 +23,10 @@ ppermute``) evaluates the k circulant neighbours ([k, N]) and reads and
 writes the state at those edges only, on a copy.
 
 The probe takes ``max_eval_samples`` samples a node (the factories size the
-probe batch from it).  Not ported: the reuse of DMTT's shared
-cross-evaluation (``ctx.probe_cross``, with DMTT) and the audit taps
-(telemetry); the sparse [k, N] edge-mask exchange is refused.
+probe batch from it).  Under the sparse exchange the [k, N] edge mask
+keeps inactive edges from being observed (their state untouched),
+accepted or counted in the statistics.  Not ported: the reuse of DMTT's
+shared cross-evaluation (``ctx.probe_cross``, with DMTT).
 """
 
 from typing import Optional, Sequence
@@ -41,7 +42,8 @@ from murmura_tpu_torch.aggregation.base import (
     blend_with_own,
     circulant_weighted_sum,
     masked_neighbor_mean,
-    refuse_sparse_exchange,
+    circulant_in_degree,
+    exchange_offsets_of,
 )
 from murmura_tpu_torch.aggregation.probe import (
     circulant_probe_eval,
@@ -66,8 +68,7 @@ def make_evidential_trust(
     sparse_exchange: bool = False,
     **_params,
 ) -> AggregatorDef:
-    refuse_sparse_exchange("evidential_trust", sparse_exchange)
-    offsets = None if exchange_offsets is None else [int(o) for o in exchange_offsets]
+    offsets = exchange_offsets_of(exchange_offsets, sparse_exchange)
 
     def init_state(num_nodes: int):
         return {
@@ -112,44 +113,78 @@ def make_evidential_trust(
             median = torch.sort(strength, dim=0).values[(k - 1) // 2][None, :]
             trust_new = guard(trust_new, vacuity, strength, median)
 
+        # Under the sparse exchange an inactive edge is not observed (its
+        # state untouched), cannot be accepted, and leaves the statistics.
+        edge_b = adj > 0 if sparse_exchange else None
         if use_adaptive_trust:
             seen = state["trust_seen"][rows, cols]
-            smoothed = (trust_momentum * trust_new
-                        + (1.0 - trust_momentum) * state["smoothed_trust"][rows, cols])
+            old_t = state["smoothed_trust"][rows, cols]
+            smoothed = trust_momentum * trust_new + (1.0 - trust_momentum) * old_t
             trust = torch.where(seen > 0, smoothed, trust_new)
             # The state tensors belong to the caller: write a copy.
             new_state = {"smoothed_trust": state["smoothed_trust"].clone(),
                          "trust_seen": state["trust_seen"].clone()}
-            new_state["smoothed_trust"][rows, cols] = trust
-            new_state["trust_seen"][rows, cols] = 1.0
+            if sparse_exchange:
+                new_state["smoothed_trust"][rows, cols] = torch.where(edge_b, trust, old_t)
+                new_state["trust_seen"][rows, cols] = torch.where(
+                    edge_b, torch.ones_like(seen), seen)
+            else:
+                new_state["smoothed_trust"][rows, cols] = trust
+                new_state["trust_seen"][rows, cols] = 1.0
         else:
             trust = trust_new
             new_state = state
 
         threshold = current_threshold(round_idx, ctx.total_rounds, own.device)
         accepted = trust >= threshold  # [k, N]
+        if sparse_exchange:
+            accepted = accepted & edge_b
         weights = torch.where(accepted, trust, 0.0)
         total = weights.sum(dim=0)
         norm_w = weights / torch.clamp(total, min=1e-12)[None, :]
         neighbor_agg = circulant_weighted_sum(bcast, norm_w, offsets, out_dtype=own.dtype)
         new_flat = blend_with_own(own, neighbor_agg, total > 0, self_weight)
-        stats = {
-            "acceptance_rate": accepted.sum(dim=0) / float(k),
-            "mean_trust": trust.mean(dim=0),
-            "mean_vacuity": vacuity.mean(dim=0),
-            "mean_entropy": metrics["entropy"].mean(dim=0),
-            "threshold": threshold.expand(n),
-        }
+        if sparse_exchange:
+            deg = torch.clamp(adj.to(torch.float32).sum(dim=0), min=1.0)
+
+            def masked_mean(m):
+                # A mean rescaled by k/deg: with an all-ones mask the scale
+                # is exactly 1, so the stat is the static path's bit for bit.
+                return torch.where(edge_b, m, 0.0).mean(dim=0) * (float(k) / deg)
+
+            stats = {
+                "acceptance_rate": accepted.sum(dim=0) / deg,
+                "mean_trust": masked_mean(trust),
+                "mean_vacuity": masked_mean(vacuity),
+                "mean_entropy": masked_mean(metrics["entropy"]),
+                "threshold": threshold.expand(n),
+            }
+        else:
+            stats = {
+                "acceptance_rate": accepted.sum(dim=0) / float(k),
+                "mean_trust": trust.mean(dim=0),
+                "mean_vacuity": vacuity.mean(dim=0),
+                "mean_entropy": metrics["entropy"].mean(dim=0),
+                "threshold": threshold.expand(n),
+            }
         if ctx.audit:
             # Sender-side taps: accepted[o_idx, i] / trust[o_idx, i] are
             # receiver i's verdict on sender (i + o) % n.
             stats["tap_selected_by"] = sum(
                 torch.roll(accepted[i].to(torch.float32), o) for i, o in enumerate(offsets)
             )
-            stats["tap_considered_by"] = torch.full((n,), float(k), device=own.device)
-            stats["tap_trust_received"] = sum(
-                torch.roll(trust[i].to(torch.float32), o) for i, o in enumerate(offsets)
-            ) / float(k)
+            if sparse_exchange:
+                in_deg = circulant_in_degree(adj, offsets)
+                stats["tap_considered_by"] = in_deg
+                stats["tap_trust_received"] = sum(
+                    torch.roll((trust * adj.to(trust.dtype))[i].to(torch.float32), o)
+                    for i, o in enumerate(offsets)
+                ) / torch.clamp(in_deg, min=1.0)
+            else:
+                stats["tap_considered_by"] = torch.full((n,), float(k), device=own.device)
+                stats["tap_trust_received"] = sum(
+                    torch.roll(trust[i].to(torch.float32), o) for i, o in enumerate(offsets)
+                ) / float(k)
         return new_flat, new_state, stats
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):

@@ -3,7 +3,8 @@ counterpart of murmura_tpu/aggregation/fedavg.py).
 
 Dense: one adjacency product over the broadcast, normalised by 1 + degree.
 Circulant (``tpu.exchange: ppermute``): the product is a sum of fixed
-circular shifts (``circulant_weighted_sum``).  Neither needs a kernel of
+circular shifts (``circulant_weighted_sum``), each weighed by its row of
+the [k, N] edge mask under the sparse exchange.  Neither needs a kernel of
 its own: the JAX package computes both outside Pallas.
 """
 
@@ -16,7 +17,7 @@ from murmura_tpu_torch.aggregation.base import (
     AggregatorDef,
     InfluenceDecl,
     circulant_weighted_sum,
-    refuse_sparse_exchange,
+    exchange_offsets_of,
 )
 
 
@@ -25,13 +26,17 @@ def make_fedavg(
     sparse_exchange: bool = False,
     **_params,
 ) -> AggregatorDef:
-    refuse_sparse_exchange("fedavg", sparse_exchange)
-    offsets = None if exchange_offsets is None else [int(o) for o in exchange_offsets]
+    offsets = exchange_offsets_of(exchange_offsets, sparse_exchange)
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):
-        degree = adj.sum(dim=1)
+        # The [k, N] edge mask's columns are the receivers.
+        degree = adj.sum(dim=0) if sparse_exchange else adj.sum(dim=1)
         if offsets is not None:
-            w_k = torch.ones((len(offsets), own.shape[0]), dtype=torch.float32, device=own.device)
+            if sparse_exchange:
+                w_k = adj.to(torch.float32)
+            else:
+                w_k = torch.ones((len(offsets), own.shape[0]), dtype=torch.float32,
+                                 device=own.device)
             neighbor_sum = circulant_weighted_sum(bcast, w_k, offsets, out_dtype=own.dtype)
         else:
             # float32 accumulation over the stored operands (widening is exact).

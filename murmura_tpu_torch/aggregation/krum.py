@@ -15,7 +15,9 @@ ppermute``): every candidate-pair distance is an entry of a rolled "delta
 vector" B_d[j] = |bcast_j - bcast_{j+d}|, so the circulant kernel computes
 |own_i - bcast_{i+o}| for the k offsets and B_d for the distinct offset
 differences d, and the [m, m, N] pair distances are assembled from [N]
-rolls.
+rolls.  Under the sparse exchange ``adj`` is the [k, N] edge mask: the
+candidate count m_i, the trim depth and the constraint c < (m_i - 2)/2
+become per node, and an all-ones mask gives the static path bit for bit.
 """
 
 from typing import Optional, Sequence
@@ -27,10 +29,11 @@ from murmura_tpu_torch.aggregation.base import (
     AggregatorDef,
     InfluenceDecl,
     candidate_indices,
+    circulant_in_degree,
     circulant_masked_mean,
     circulant_neighbor_distances,
+    exchange_offsets_of,
     pairwise_l2_distances,
-    refuse_sparse_exchange,
 )
 from murmura_tpu_torch.ops.agg_kernels import _offsets_on
 
@@ -44,8 +47,7 @@ def make_krum(
 ) -> AggregatorDef:
     c = int(num_compromised)
     mc = None if max_candidates is None else int(max_candidates)
-    offsets = None if exchange_offsets is None else [int(o) for o in exchange_offsets]
-    refuse_sparse_exchange("krum", sparse_exchange)
+    offsets = exchange_offsets_of(exchange_offsets, sparse_exchange)
 
     def aggregate_circulant(own, bcast, adj, round_idx, state, ctx: AggContext):
         n = own.shape[0]
@@ -76,13 +78,32 @@ def make_krum(
             rows.append(torch.stack(cols))
         pair = torch.stack(rows)  # [m, m, N]
 
-        num_closest = max(1, m - c - 2)
-        ranked = torch.sort(pair, dim=1).values
-        scores = ranked[:, :num_closest, :].sum(dim=1)  # [m, N]
-        best = scores.min(dim=0).values
-        w = torch.argmin(scores, dim=0)
-        if not ok:
-            w = torch.zeros_like(w)  # every node keeps its own state
+        if sparse_exchange:
+            # Self is always a candidate; the mask's rows are the others.
+            valid = torch.cat([torch.ones((1, n), dtype=adj.dtype, device=adj.device),
+                               adj], dim=0) > 0  # [m, N]
+            m_i = valid.sum(dim=0)  # [N]
+            pair_valid = valid[:, None, :] & valid[None, :, :]
+            masked = torch.where(pair_valid, pair, torch.full_like(pair, float("inf")))
+            num_closest = torch.clamp(m_i - c - 2, min=1)
+            ranked = torch.sort(masked, dim=1).values
+            take = (torch.arange(m, device=own.device)[None, :, None]
+                    < num_closest[None, None, :])
+            scores = torch.where(take & torch.isfinite(ranked), ranked,
+                                 torch.zeros_like(ranked)).sum(dim=1)  # [m, N]
+            scores = torch.where(valid, scores, torch.full_like(scores, float("inf")))
+            w = torch.argmin(scores, dim=0)
+            best = scores.min(dim=0).values
+            # Too few candidates for the constraint: the node keeps its own.
+            w = torch.where(c < (m_i - 2) / 2, w, torch.zeros_like(w))
+        else:
+            num_closest = max(1, m - c - 2)
+            ranked = torch.sort(pair, dim=1).values
+            scores = ranked[:, :num_closest, :].sum(dim=1)  # [m, N]
+            best = scores.min(dim=0).values
+            w = torch.argmin(scores, dim=0)
+            if not ok:
+                w = torch.zeros_like(w)  # every node keeps its own state
         ar = torch.arange(1, m, device=own.device)
         accept_k = (w[None, :] == ar[:, None]).to(own.dtype)
         neighbor_sel = circulant_masked_mean(bcast, accept_k, offsets, out_dtype=own.dtype)
@@ -101,7 +122,9 @@ def make_krum(
             stats["tap_selected_by"] = sum(
                 torch.roll(accept_k[i].to(torch.float32), o) for i, o in enumerate(offsets)
             )
-            stats["tap_considered_by"] = torch.full((n,), float(k), device=own.device)
+            stats["tap_considered_by"] = (
+                circulant_in_degree(adj, offsets) if sparse_exchange
+                else torch.full((n,), float(k), device=own.device))
         return new_flat, state, stats
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):

@@ -7,6 +7,11 @@ P-chunked, and reduced along the candidate axis (plain tensor code, as in
 the JAX package).  Circulant (``tpu.exchange: ppermute``): the median and
 the trimmed mean go through the fused candidate-select kernel, and the
 geometric median's Weiszfeld steps through the circulant distance kernel.
+Under the sparse exchange (the [k, N] edge mask) the candidate counts are
+per node: the median and the trimmed mean then take the masked circulant
+stack in plain tensor code, never the candidate kernel (whose candidate
+count is fixed), as the JAX package does; the geometric median weighs
+each offset's Weiszfeld weight by the mask.
 """
 
 from typing import Optional, Sequence
@@ -19,10 +24,11 @@ from murmura_tpu_torch.aggregation.base import (
     InfluenceDecl,
     candidate_chunk_dispatch,
     candidate_indices,
+    circulant_candidate_map,
     circulant_neighbor_distances,
     circulant_weighted_sum,
+    exchange_offsets_of,
     pairwise_l2_distances,
-    refuse_sparse_exchange,
 )
 from murmura_tpu_torch.ops import candidate_kernels
 
@@ -63,6 +69,25 @@ def _take(ranked, idx):
     return torch.gather(ranked, 1, idx[:, None, None].expand(-1, 1, ranked.shape[2]))[:, 0]
 
 
+def _edge_valid(adj):
+    """[m, N] candidate validity under a [k, N] edge mask: self first,
+    always a candidate."""
+    n = adj.shape[1]
+    return torch.cat([torch.ones((1, n), dtype=adj.dtype, device=adj.device), adj]) > 0
+
+
+def _sorted_stack(cand, valid):
+    """The [m, N, c] circulant candidate stack sorted along axis 0, masked-out
+    candidates +inf-padded to the end."""
+    inf = torch.tensor(float("inf"), dtype=cand.dtype, device=cand.device)
+    return torch.sort(torch.where(valid[:, :, None], cand, inf), dim=0).values
+
+
+def _take0(ranked, idx):
+    """ranked[idx[i], i, :] for each node i, as [N, c]."""
+    return torch.gather(ranked, 0, idx[None, :, None].expand(1, -1, ranked.shape[2]))[0]
+
+
 def make_coordinate_median(
     max_candidates: Optional[int] = None,
     exchange_offsets: Optional[Sequence[int]] = None,
@@ -70,9 +95,8 @@ def make_coordinate_median(
     **_params,
 ) -> AggregatorDef:
     """Coordinate-wise median over own + neighbor states."""
-    refuse_sparse_exchange("median", sparse_exchange)
     mc = None if max_candidates is None else int(max_candidates)
-    offsets = None if exchange_offsets is None else [int(o) for o in exchange_offsets]
+    offsets = exchange_offsets_of(exchange_offsets, sparse_exchange)
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):
         n = own.shape[0]
@@ -86,7 +110,20 @@ def make_coordinate_median(
         new_flat, valid = _dense_candidate_map(own, bcast, adj, m_cap, coord_median)
         return new_flat, state, {"num_candidates": valid.sum(dim=1).to(torch.float32)}
 
+    def aggregate_sparse(own, bcast, adj, round_idx, state, ctx: AggContext):
+        valid = _edge_valid(adj)  # [m, N]
+        cnt = valid.sum(dim=0)  # [N] >= 1
+
+        def coord_median(cand):  # [m, N, c] -> [N, c]
+            ranked = _sorted_stack(cand, valid)
+            return 0.5 * (_take0(ranked, (cnt - 1) // 2) + _take0(ranked, cnt // 2))
+
+        new_flat = circulant_candidate_map(own, bcast, offsets, coord_median)
+        return new_flat, state, {"num_candidates": cnt.to(torch.float32)}
+
     def aggregate_circulant(own, bcast, adj, round_idx, state, ctx: AggContext):
+        if sparse_exchange:
+            return aggregate_sparse(own, bcast, adj, round_idx, state, ctx)
         m = len(offsets) + 1
         new_flat = _candidate_select(own, bcast, offsets, median=True)
         return new_flat, state, {
@@ -118,9 +155,8 @@ def make_trimmed_mean(
     beta = float(trim_ratio)
     if not 0.0 <= beta < 0.5:
         raise ValueError(f"trim_ratio must be in [0, 0.5), got {beta}")
-    refuse_sparse_exchange("trimmed_mean", sparse_exchange)
     mc = None if max_candidates is None else int(max_candidates)
-    offsets = None if exchange_offsets is None else [int(o) for o in exchange_offsets]
+    offsets = exchange_offsets_of(exchange_offsets, sparse_exchange)
 
     def trim_of(cnt):
         return torch.floor(beta * cnt).to(cnt.dtype)
@@ -146,7 +182,29 @@ def make_trimmed_mean(
             "trimmed_per_side": trim_of(cnt).to(torch.float32),
         }
 
+    def aggregate_sparse(own, bcast, adj, round_idx, state, ctx: AggContext):
+        m = len(offsets) + 1
+        valid = _edge_valid(adj)  # [m, N]
+        cnt = valid.sum(dim=0)  # [N]
+        trim_i = trim_of(cnt)
+
+        def coord_trimmed(cand):  # [m, N, c] -> [N, c]
+            ranked = _sorted_stack(cand, valid)
+            pos = torch.arange(m, device=cand.device)[:, None, None]
+            keep = (pos >= trim_i[None, :, None]) & (pos < (cnt - trim_i)[None, :, None])
+            kept = torch.where(keep, ranked, torch.zeros_like(ranked)).sum(dim=0)
+            denom = torch.clamp(cnt - 2 * trim_i, min=1)[:, None]
+            return kept / denom.to(kept.dtype)
+
+        new_flat = circulant_candidate_map(own, bcast, offsets, coord_trimmed)
+        return new_flat, state, {
+            "num_candidates": cnt.to(torch.float32),
+            "trimmed_per_side": trim_i.to(torch.float32),
+        }
+
     def aggregate_circulant(own, bcast, adj, round_idx, state, ctx: AggContext):
+        if sparse_exchange:
+            return aggregate_sparse(own, bcast, adj, round_idx, state, ctx)
         n = own.shape[0]
         m = len(offsets) + 1
         trim = int(beta * m)  # static: every node has exactly m candidates
@@ -190,9 +248,8 @@ def make_geometric_median(
     nu = float(smoothing)
     if not nu > 0.0:
         raise ValueError(f"smoothing must be > 0, got {smoothing}")
-    refuse_sparse_exchange("geometric_median", sparse_exchange)
     mc = None if max_candidates is None else int(max_candidates)
-    offsets = None if exchange_offsets is None else [int(o) for o in exchange_offsets]
+    offsets = exchange_offsets_of(exchange_offsets, sparse_exchange)
 
     def self_distance(own, z):
         return torch.sqrt(torch.square((own - z).to(torch.float32)).sum(dim=-1))
@@ -242,6 +299,15 @@ def make_geometric_median(
         n = own.shape[0]
         k = len(offsets)
         dev = own.device
+        # Under the sparse exchange the [k, N] edge mask multiplies every
+        # Weiszfeld weight, so a masked-out candidate weighs 0 (an all-ones
+        # mask changes nothing: 1 * x == x).
+        edge_w = adj.to(torch.float32) if sparse_exchange else None
+
+        def neighbor_weights(d_k):
+            if sparse_exchange:
+                return edge_w / torch.clamp(d_k, min=nu)
+            return 1.0 / torch.clamp(d_k, min=nu)
 
         def weighted_mean(w_self, w_k):
             acc = w_self[:, None] * own + circulant_weighted_sum(
@@ -253,18 +319,25 @@ def make_geometric_median(
         def distances(z):
             return self_distance(own, z), circulant_neighbor_distances(z, bcast, offsets)
 
-        z = weighted_mean(torch.ones(n, device=dev), torch.ones((k, n), device=dev))
+        ones_k = edge_w if sparse_exchange else torch.ones((k, n), device=dev)
+        z = weighted_mean(torch.ones(n, device=dev), ones_k)
         for _ in range(iters):
             d_self, d_k = distances(z)
-            z = weighted_mean(1.0 / torch.clamp(d_self, min=nu), 1.0 / torch.clamp(d_k, min=nu))
+            z = weighted_mean(1.0 / torch.clamp(d_self, min=nu), neighbor_weights(d_k))
         d_self, d_k = distances(z)
         w_self = 1.0 / torch.clamp(d_self, min=nu)
-        w_k = 1.0 / torch.clamp(d_k, min=nu)
+        w_k = neighbor_weights(d_k)
         tot = torch.clamp(w_self + w_k.sum(dim=0), min=1e-30)
+        if sparse_exchange:
+            cnt = 1.0 + edge_w.sum(dim=0)
+            mean_dist = (d_self + (d_k * edge_w).sum(dim=0)) / cnt
+        else:
+            cnt = torch.full((n,), float(k + 1), device=dev)
+            mean_dist = (d_self + d_k.sum(dim=0)) / float(k + 1)
         stats = {
-            "num_candidates": torch.full((n,), float(k + 1), device=dev),
+            "num_candidates": cnt,
             "max_weight_share": torch.maximum(w_self, w_k.max(dim=0).values) / tot,
-            "mean_dist_to_gm": (d_self + d_k.sum(dim=0)) / float(k + 1),
+            "mean_dist_to_gm": mean_dist,
         }
         return z.to(own.dtype), state, stats
 

@@ -7,7 +7,9 @@ full states.  The threshold is boosted 1.5x when the mean of the last 3
 acceptance rates drops below 0.3; the acceptance window is the rule's
 carried state.  Under ``tpu.exchange: ppermute`` the filter still runs on
 the [N, N] sketch distances and only the full-state mean goes through the
-circulant shifts.
+circulant shifts; under the sparse exchange the filter too runs on the
+circulant [k, N] sketch distances (the circulant kernel), gated by the
+edge mask, so nothing [N, N] is built.
 """
 
 from typing import Optional, Sequence
@@ -22,9 +24,10 @@ from murmura_tpu_torch.aggregation.base import (
     InfluenceDecl,
     blend_with_own,
     circulant_masked_mean,
+    circulant_neighbor_distances,
+    exchange_offsets_of,
     masked_neighbor_mean,
     pairwise_l2_distances,
-    refuse_sparse_exchange,
 )
 from murmura_tpu_torch.ops.sketch import build_sketch_tables, count_sketch
 
@@ -42,9 +45,8 @@ def make_sketchguard(
     sparse_exchange: bool = False,
     **_params,
 ) -> AggregatorDef:
-    refuse_sparse_exchange("sketchguard", sparse_exchange)
     tables = build_sketch_tables(model_dim, sketch_size, network_seed)
-    offsets = None if exchange_offsets is None else [int(o) for o in exchange_offsets]
+    offsets = exchange_offsets_of(exchange_offsets, sparse_exchange)
     # The threshold logic reads only the last 3 rates of the window, so a
     # window under 3 disables the attack factor (the JAX package's rule).
     window = max(1, int(attack_detection_window))
@@ -54,6 +56,40 @@ def make_sketchguard(
             "acc_window": np.zeros((num_nodes, window), dtype=np.float32),
             "window_len": np.zeros((num_nodes,), dtype=np.int32),
         }
+
+    def window_state(state, acc_rate):
+        return {
+            "acc_window": torch.cat([state["acc_window"][:, 1:], acc_rate[:, None]], dim=1),
+            "window_len": torch.clamp(state["window_len"] + 1, max=window),
+        }
+
+    def sparse_filter(own, bcast, adj, own_sk, bcast_sk, threshold, state):
+        """The sparse exchange's filter, in circulant sketch space: [k, N]
+        per-offset sketch distances by the circulant kernel instead of the
+        [N, N] pairwise matrix, the [k, N] edge mask gating acceptance, the
+        closest-neighbour fallback and the degree."""
+        n = own.shape[0]
+        edge_b = adj > 0
+        d_k = circulant_neighbor_distances(own_sk, bcast_sk, offsets)  # [k, N]
+        accept_b = edge_b & (d_k <= threshold[None, :])
+        count = accept_b.sum(dim=0)
+        closest = torch.argmin(
+            torch.where(edge_b, d_k, torch.full_like(d_k, float("inf"))), dim=0)
+        ar = torch.arange(len(offsets), device=own.device)
+        fallback = (((count < min_neighbors) & edge_b.any(dim=0))[None, :]
+                    & (ar[:, None] == closest[None, :]) & edge_b)
+        accept_k = (accept_b | fallback).to(own.dtype)
+        neighbor_avg = circulant_masked_mean(bcast, accept_k, offsets)
+        new_flat = blend_with_own(own, neighbor_avg, accept_k.sum(dim=0) > 0, alpha)
+        acc_rate = accept_k.sum(dim=0) / torch.clamp(adj.sum(dim=0), min=1.0)
+        stats = {
+            "acceptance_rate": acc_rate,
+            "threshold": threshold,
+            "compression_ratio": torch.full(
+                (n,), model_dim / sketch_size, dtype=own.dtype, device=own.device
+            ),
+        }
+        return new_flat, window_state(state, acc_rate), stats
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):
         n = own.shape[0]
@@ -68,6 +104,8 @@ def make_sketchguard(
         tf = time_factor(round_idx, ctx.total_rounds, gamma, kappa).to(own.device)
         threshold = tf * attack_factor * own_sk_norm
 
+        if sparse_exchange:
+            return sparse_filter(own, bcast, adj, own_sk, bcast_sk, threshold, state)
         sk_dist = pairwise_l2_distances(own_sk, bcast_sk)
         accepted = accept_with_closest_fallback(sk_dist, adj, threshold, min_neighbors)
         if offsets is not None:
@@ -82,10 +120,7 @@ def make_sketchguard(
 
         degree = torch.clamp(adj.sum(dim=1), min=1.0)
         acc_rate = accepted.sum(dim=1) / degree
-        new_state = {
-            "acc_window": torch.cat([state["acc_window"][:, 1:], acc_rate[:, None]], dim=1),
-            "window_len": torch.clamp(state["window_len"] + 1, max=window),
-        }
+        new_state = window_state(state, acc_rate)
         stats = {
             "acceptance_rate": acc_rate,
             "threshold": threshold,

@@ -10,7 +10,9 @@ alpha * own + (1 - alpha) * the mean of the accepted neighbours.
 
 The dense mode cross-evaluates every broadcast model on every node's probe
 batch ([N, N] losses); the circulant mode (``exchange_offsets``, ``tpu.exchange:
-ppermute``) evaluates only the k circulant neighbours ([k, N]).
+ppermute``) evaluates only the k circulant neighbours ([k, N]); under the
+sparse exchange the [k, N] edge mask limits the shortlist to live edges
+and sizes it by each node's live degree.
 """
 
 from typing import Optional, Sequence
@@ -27,7 +29,8 @@ from murmura_tpu_torch.aggregation.base import (
     masked_neighbor_mean,
     pairwise_l2_distances,
     rank_mask,
-    refuse_sparse_exchange,
+    circulant_in_degree,
+    exchange_offsets_of,
     self_probe_metrics,
 )
 from murmura_tpu_torch.aggregation.probe import (
@@ -59,8 +62,7 @@ def make_ubar(
     sparse_exchange: bool = False,
     **_params,
 ) -> AggregatorDef:
-    refuse_sparse_exchange("ubar", sparse_exchange)
-    offsets = None if exchange_offsets is None else [int(o) for o in exchange_offsets]
+    offsets = exchange_offsets_of(exchange_offsets, sparse_exchange)
 
     def stats(shortlist, accepted, stage1_denom, own_loss, dtype):
         shortlist_count = torch.clamp(shortlist.sum(dim=1).to(dtype), min=1.0)
@@ -73,23 +75,33 @@ def make_ubar(
     def aggregate_circulant(own, bcast, adj, round_idx, state, ctx: AggContext):
         n, k = own.shape[0], len(offsets)
         d_nk = circulant_neighbor_distances(own, bcast, offsets).T  # [N, k]
-        num_select = max(min_neighbors, int(rho * k))
-        shortlist = rank_mask(
-            d_nk, torch.ones_like(d_nk, dtype=torch.bool),
-            torch.full((n,), num_select, dtype=torch.int64, device=own.device),
-        )
+        if sparse_exchange:
+            # The shortlist's size follows each receiver's live degree.
+            deg = adj.sum(dim=0)  # [N]
+            num_select = torch.clamp(torch.floor(rho * deg).to(torch.int32), min=min_neighbors)
+            shortlist = rank_mask(d_nk, adj.T > 0, num_select)
+            stage1_denom = torch.clamp(deg, min=1.0)
+        else:
+            num_select = max(min_neighbors, int(rho * k))
+            shortlist = rank_mask(
+                d_nk, torch.ones_like(d_nk, dtype=torch.bool),
+                torch.full((n,), num_select, dtype=torch.int64, device=own.device),
+            )
+            stage1_denom = float(k)
         losses = circulant_probe_eval(bcast, offsets, ctx, ce_loss_metric)["loss"].T
         own_loss = self_probe_metrics(own, ctx, ce_loss_metric)["loss"]
         accepted = _accept(shortlist, losses, own_loss, own.dtype)  # [N, k]
         neighbor_avg = circulant_masked_mean(bcast, accepted.T, offsets)
         new_flat = blend_with_own(own, neighbor_avg, accepted.sum(dim=1) > 0, alpha)
-        out = stats(shortlist, accepted, float(k), own_loss, own.dtype)
+        out = stats(shortlist, accepted, stage1_denom, own_loss, own.dtype)
         if ctx.audit:
             # accepted[i, o_idx]: receiver i accepted sender (i + o) % n.
             out["tap_selected_by"] = sum(
                 torch.roll(accepted[:, i].to(torch.float32), o) for i, o in enumerate(offsets)
             )
-            out["tap_considered_by"] = torch.full((n,), float(k), device=own.device)
+            out["tap_considered_by"] = (
+                circulant_in_degree(adj, offsets) if sparse_exchange
+                else torch.full((n,), float(k), device=own.device))
         return new_flat, state, out
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):

@@ -1,9 +1,11 @@
 """Command line:
 
     python -m murmura_tpu_torch run <yaml> [-o history.json]
-        [--device cuda|cpu] [--verbose|--quiet] [--profile]
+        [--device cuda|cpu] [--verbose|--quiet] [--profile] [--seeds N]
         [--checkpoint-dir DIR] [--checkpoint-every N] [--resume|--no-resume]
         [--require-tpu] [--retries N]
+    python -m murmura_tpu_torch sweep <yaml> [--seeds 1,2,3] [-o histories.json]
+        [--device cuda|cpu] [--verbose|--quiet] and the durability flags
     python -m murmura_tpu_torch report <run_dir> [--json]
 
 The run goes to the CUDA card by default.  Without CUDA it stops with an
@@ -14,6 +16,13 @@ run directory (manifest and event stream, schema v2), which ``report``
 renders as plain text or JSON.  ``--profile`` turns telemetry on and
 traces the configured round window (the whole run when none is set) with
 torch.profiler, written as Chrome trace JSON under ``<run_dir>/trace``.
+
+``sweep`` runs the config's ``sweep:`` members (or the ``--seeds`` list)
+as one gang (core/gang.py) and ``run --seeds N`` the seeds experiment.seed
+.. +N-1 (1 is a single run): it prints the members' final round and writes
+one history a member, keyed by member label; with telemetry one run dir a
+member, ``<run_dir>/<member label>``.  ``--seeds`` below 1, and with
+``--profile``, is refused.
 
 Durability (the JAX package's flags, over the config's ``durability:``
 block; an explicit flag wins): ``--checkpoint-dir`` snapshots the whole run
@@ -36,6 +45,7 @@ import sys
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from murmura_tpu_torch.utils.checkpoint import has_checkpoint
@@ -116,6 +126,15 @@ def enforce_require_tpu(config, device: torch.device, require_tpu_flag: bool) ->
                     else "durability.require_tpu/MURMURA_REQUIRE_TPU")
 
 
+def _writers(network) -> list:
+    """The telemetry writers of a Network (one or none) or a gang (one a
+    member, or none)."""
+    t = network.telemetry
+    if t is None:
+        return []
+    return list(t) if isinstance(t, list) else [t]
+
+
 def train_with_retries(network, train, *, retries, config, checkpoint_dir):
     """Call ``train()``; with ``retries``, a classified-transient failure
     restores the network from its last snapshot and trains again (``train``
@@ -144,9 +163,9 @@ def train_with_retries(network, train, *, retries, config, checkpoint_dir):
         reason = f"{type(exc).__name__}: {exc}"[:300]
         print(f"Transient failure ({reason}); retry {try_idx}/{retries} in {delay:.1f}s",
               flush=True)
-        if network.telemetry is not None:
-            network.telemetry.emit("backend_degraded", reason=reason, retry=try_idx,
-                                   delay_s=round(delay, 2), round=network.current_round)
+        for t in _writers(network):
+            t.emit("backend_degraded", reason=reason, retry=try_idx,
+                   delay_s=round(delay, 2), round=network.current_round)
 
     return run_with_retry(
         attempt,
@@ -161,11 +180,13 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
         verbose: Optional[bool] = None, profile: bool = False, *,
         checkpoint_dir: Optional[Path] = None, checkpoint_every: Optional[int] = None,
         resume: Optional[bool] = None, require_tpu: bool = False,
-        retries: Optional[int] = None):
+        retries: Optional[int] = None, num_seeds: Optional[int] = None):
     """Run an experiment from a config file; returns (history, network).
     ``profile`` turns telemetry on and, where no ``telemetry.profile_rounds``
     is set, traces the whole run.  The durability arguments are the flags
-    of the module docstring (None: the config's ``durability:`` value)."""
+    of the module docstring (None: the config's ``durability:`` value).
+    ``num_seeds`` above 1 runs the seeds experiment.seed .. +N-1 as a gang
+    and returns (histories by member label, gang) instead."""
     from murmura_tpu_torch.config import load_config
     from murmura_tpu_torch.utils.factories import (
         build_network_from_config,
@@ -176,6 +197,21 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
     config = load_config(config_path)
     if verbose is not None:
         config.experiment.verbose = verbose
+    if num_seeds is not None and num_seeds < 1:
+        raise UsageError(
+            f"--seeds must be >= 1 (got {num_seeds}); 1 = normal run, "
+            "N > 1 gang-batches N seeds"
+        )
+    if num_seeds is not None and num_seeds > 1:
+        if profile:
+            raise UsageError(
+                "--seeds (gang-batched execution) does not combine with "
+                "--profile; profile a single run instead"
+            )
+        base = config.experiment.seed
+        return run_sweep(config, [base + i for i in range(num_seeds)], output, dev,
+                         checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+                         resume=resume, require_tpu=require_tpu, retries=retries)
     checkpoint_dir, checkpoint_every, resume, retries = resolve_durability(
         config, checkpoint_dir, checkpoint_every, resume, retries)
     enforce_require_tpu(config, dev, require_tpu)
@@ -223,6 +259,92 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
     return history, network
 
 
+def display_sweep(gang, histories) -> None:
+    """The members' final recorded round, and the spread of their accuracy."""
+    print("Sweep results (final round)")
+    print(f"{'Member':<24}  {'Mean acc':>9}  {'Std':>7}  {'Loss':>8}")
+    for member, h in zip(gang.members, histories):
+        if h["round"]:
+            print(f"{member.label:<24}  {h['mean_accuracy'][-1]:>9.4f}  "
+                  f"{h['std_accuracy'][-1]:>7.4f}  {h['mean_loss'][-1]:>8.4f}")
+        else:
+            print(f"{member.label:<24}  {'-':>9}  {'-':>7}  {'-':>8}")
+    finals = [h["mean_accuracy"][-1] for h in histories if h["round"]]
+    if finals:
+        print(f"Across {len(finals)} member(s): mean accuracy {np.mean(finals):.4f} "
+              f"± {np.std(finals):.4f}")
+
+
+def run_sweep(config, seeds, output: Optional[Path], dev: torch.device, *,
+              checkpoint_dir=None, checkpoint_every=None, resume=None, require_tpu=False,
+              retries=None):
+    """Run a gang (``sweep`` and ``run --seeds``): build it, resume it from
+    its snapshot where asked, train it inside the retry envelope as a
+    single run trains, print the members' final round and write their
+    histories keyed by member label; returns (that dict, gang)."""
+    from murmura_tpu_torch.utils.factories import build_gang_from_config, default_telemetry_dir
+
+    checkpoint_dir, checkpoint_every, resume, retries = resolve_durability(
+        config, checkpoint_dir, checkpoint_every, resume, retries)
+    enforce_require_tpu(config, dev, require_tpu)
+    gang = build_gang_from_config(config, seeds=seeds, device=dev,
+                                  checkpoint_dir=checkpoint_dir if resume else None)
+    print(
+        f"murmura_tpu_torch sweep {config.experiment.name} "
+        f"(backend={config.backend}, nodes={config.topology.num_nodes}, "
+        f"rounds={config.experiment.rounds}, gang={gang.gang_size} member(s), device={dev})",
+        flush=True,
+    )
+    try:
+        if resume:
+            if has_checkpoint(checkpoint_dir):
+                done = gang.restore_checkpoint(str(checkpoint_dir))
+                print(f"Resumed all {gang.gang_size} member(s) from round {done}", flush=True)
+            else:
+                print(f"No checkpoint in {checkpoint_dir}; starting from round 0", flush=True)
+        histories = train_with_retries(
+            gang,
+            lambda: gang.train(
+                rounds=max(0, config.experiment.rounds - gang.current_round),
+                verbose=config.experiment.verbose,
+                rounds_per_dispatch=config.tpu.rounds_per_dispatch,
+                checkpoint_dir=str(checkpoint_dir) if checkpoint_dir else None,
+                checkpoint_every=checkpoint_every,
+            ),
+            retries=retries, config=config, checkpoint_dir=checkpoint_dir,
+        )
+    finally:
+        for t in _writers(gang):
+            t.close()
+    display_sweep(gang, histories)
+    combined = {m.label: h for m, h in zip(gang.members, histories)}
+    if output is not None:
+        output.parent.mkdir(parents=True, exist_ok=True)
+        output.write_text(json.dumps(combined, indent=2))
+        print(f"Per-member histories written to {output}")
+    if config.telemetry.enabled:
+        print(f"Per-member telemetry runs under {default_telemetry_dir(config)}/<member> — "
+              "render one with `python -m murmura_tpu_torch report <dir>`")
+    return combined, gang
+
+
+def sweep(config_path: Path, seeds: Optional[List[int]] = None,
+          output: Optional[Path] = None, device: str = "cuda",
+          verbose: Optional[bool] = None, **durability):
+    """Run a config's ``sweep:`` members, or the ``seeds`` list, as one gang;
+    returns (histories by member label, gang).  ``durability``: the
+    keyword arguments of :func:`run_sweep`."""
+    from murmura_tpu_torch.config import load_config
+
+    dev = resolve_device(device)
+    config = load_config(config_path)
+    if verbose is not None:
+        config.experiment.verbose = verbose
+    if seeds is None and config.sweep is None:
+        raise UsageError("config has no sweep block; add one or pass --seeds 1,2,3")
+    return run_sweep(config, seeds, output, dev, **durability)
+
+
 def report(run_dir: Path, as_json: bool = False) -> None:
     """Render a telemetry run directory (either package's) as plain text,
     or print its report dict as JSON (without the manifest, which the run
@@ -240,33 +362,46 @@ def report(run_dir: Path, as_json: bool = False) -> None:
 def main(argv: Optional[List[str]] = None) -> None:
     parser = argparse.ArgumentParser(prog="python -m murmura_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    p_run = sub.add_parser("run", help="Run an experiment from a config file")
-    p_run.add_argument("config_path", type=Path)
+    # The flags run and sweep share: the device, verbosity and durability.
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument("config_path", type=Path)
+    common.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="cuda (default) or cpu; never chosen for you")
+    common.add_argument("--verbose", dest="verbose", action="store_true", default=None)
+    common.add_argument("--quiet", dest="verbose", action="store_false")
+    common.add_argument("--checkpoint-dir", type=Path, default=None,
+                        help="snapshot the whole run state here (default: "
+                             "durability.checkpoint_dir)")
+    common.add_argument("--checkpoint-every", type=int, default=None,
+                        help="rounds between snapshots (default: durability.checkpoint_every)")
+    common.add_argument("--resume", dest="resume", action="store_true", default=None,
+                        help="resume from --checkpoint-dir if a snapshot exists (the "
+                             "telemetry stream appends; default: durability.resume)")
+    common.add_argument("--no-resume", dest="resume", action="store_false")
+    common.add_argument("--require-tpu", action="store_true",
+                        help="refuse any device but the CUDA card (env twin "
+                             "MURMURA_REQUIRE_TPU=1, config twin durability.require_tpu)")
+    common.add_argument("--retries", type=int, default=None,
+                        help="retry training on transient errors, restoring the last "
+                             "snapshot, with exponential backoff; needs --checkpoint-dir "
+                             "(default: durability.retries)")
+    p_run = sub.add_parser("run", parents=[common],
+                           help="Run an experiment from a config file")
     p_run.add_argument("-o", "--output", type=Path, default=None,
                        help="Write history JSON here")
-    p_run.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                       help="cuda (default) or cpu; never chosen for you")
-    p_run.add_argument("--verbose", dest="verbose", action="store_true", default=None)
-    p_run.add_argument("--quiet", dest="verbose", action="store_false")
     p_run.add_argument("--profile", action="store_true",
                        help="turn telemetry on and trace the round window (the whole "
                             "run when telemetry.profile_rounds is 0) with torch.profiler")
-    p_run.add_argument("--checkpoint-dir", type=Path, default=None,
-                       help="snapshot the whole run state here (default: "
-                            "durability.checkpoint_dir)")
-    p_run.add_argument("--checkpoint-every", type=int, default=None,
-                       help="rounds between snapshots (default: durability.checkpoint_every)")
-    p_run.add_argument("--resume", dest="resume", action="store_true", default=None,
-                       help="resume from --checkpoint-dir if a snapshot exists (the "
-                            "telemetry stream appends; default: durability.resume)")
-    p_run.add_argument("--no-resume", dest="resume", action="store_false")
-    p_run.add_argument("--require-tpu", action="store_true",
-                       help="refuse any device but the CUDA card (env twin "
-                            "MURMURA_REQUIRE_TPU=1, config twin durability.require_tpu)")
-    p_run.add_argument("--retries", type=int, default=None,
-                       help="retry training on transient errors, restoring the last "
-                            "snapshot, with exponential backoff; needs --checkpoint-dir "
-                            "(default: durability.retries)")
+    p_run.add_argument("--seeds", dest="num_seeds", type=int, default=None,
+                       help="run the seeds experiment.seed .. +N-1 as one gang (the sweep "
+                            "command with num_seeds: N); 1 is a single run")
+    p_sweep = sub.add_parser("sweep", parents=[common],
+                             help="Run a config's sweep members as one gang")
+    p_sweep.add_argument("-o", "--output", type=Path, default=None,
+                         help="write the member histories, keyed by member label, here")
+    p_sweep.add_argument("--seeds", default=None,
+                         help="comma-separated member seeds overriding the config's "
+                              "sweep block (e.g. --seeds 1,2,3)")
     p_rep = sub.add_parser("report", help="Render a telemetry run directory")
     p_rep.add_argument("run_dir", type=Path)
     p_rep.add_argument("--json", dest="as_json", action="store_true",
@@ -286,10 +421,25 @@ def main(argv: Optional[List[str]] = None) -> None:
     from murmura_tpu_torch.durability.dispatch import BackendRequirementError
     from murmura_tpu_torch.utils.factories import ConfigError
 
+    durability = dict(checkpoint_dir=args.checkpoint_dir,
+                      checkpoint_every=args.checkpoint_every, resume=args.resume,
+                      require_tpu=args.require_tpu, retries=args.retries)
     try:
-        run(args.config_path, args.output, args.device, args.verbose, args.profile,
-            checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
-            resume=args.resume, require_tpu=args.require_tpu, retries=args.retries)
+        if args.command == "sweep":
+            seeds = None
+            if args.seeds is not None:
+                try:
+                    seeds = [int(x) for x in args.seeds.split(",") if x.strip()]
+                except ValueError:
+                    raise UsageError(
+                        f"--seeds must be comma-separated ints, got {args.seeds!r}") from None
+                if not seeds:
+                    raise UsageError("--seeds parsed to an empty list")
+            sweep(args.config_path, seeds, args.output, args.device, args.verbose,
+                  **durability)
+        else:
+            run(args.config_path, args.output, args.device, args.verbose, args.profile,
+                num_seeds=args.num_seeds, **durability)
     except (pydantic.ValidationError, ConfigError) as e:
         print(f"Config error: {e}", file=sys.stderr)
         raise SystemExit(1)

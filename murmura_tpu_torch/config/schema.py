@@ -638,6 +638,11 @@ class SweepConfig(_Strict):
     to today; with it, each member's history is byte-identical on CPU to
     the single run with that member's seed (gang-parity contract,
     tests/test_gang.py).
+
+    The PyTorch port folds the members into the node axis for training and
+    eval and loops the rule over them (core/gang.py); it compiles no
+    program, so it runs no padding members and ``bucket`` stays unread: it
+    steers XLA only.
     """
 
     seeds: Optional[List[int]] = Field(

@@ -1,0 +1,583 @@
+"""Gang-batched multi-seed execution (the PyTorch counterpart of
+murmura_tpu/core/gang.py).
+
+A gang runs S experiments that differ in seed, and optionally in learning
+rate and attack intensity, side by side on one device, with one history a
+member.  The JAX package ``vmap``s the whole round over a member axis.  The
+port cannot: its kernels are ``ctypes`` calls on ``data_ptr()``, which
+``torch.func.vmap`` cannot batch through.  So a gang round has two stages:
+
+1. **Training and eval, one pass over all members.**  The members are
+   folded into the node axis: S members x N nodes are S*N rows, trained by
+   one ``RoundProgram.train_rows`` call over the members' stacked data and
+   evaluated by one ``eval_step``.  Each member draws its shuffle keys and
+   dropout masks from its own ``round_generators(seed, round)``, in the
+   order its single run draws them, so the draws are bit-equal to the
+   single runs'.  A member's learning rate becomes a per-row factor.
+2. **The exchange and the rule, a loop over members.**  Each member's
+   trained rows go to its own ``train_step(..., trained=rows)``: the
+   sentinels, the attack (its noise from the member's generator), the
+   codec, the stale fold and the rule on that member's [N, P] rows and
+   carried state.  Every kernel of the rule launches once a member.
+
+The attack's compromised placement is one set for the whole gang, seeded
+by ``attack.params.seed`` (default: the base experiment seed), so a single
+run with that seed pinned reproduces a member.  The topology, the fault
+schedule and the per-round adjacency (or sparse edge mask) are shared.
+
+The JAX package pads the member axis to a power of two so that XLA
+compiles a few shapes; the port compiles nothing a round and runs no
+padding lanes (``sweep.bucket`` is read and changes nothing).  Not ported
+yet: ``reset_run``, ``_admit_members``, ``freeze_member`` and
+``min_batch``, which serve the frontier search and the serve daemon.
+"""
+
+import contextlib
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from murmura_tpu_torch.core.network import (
+    RecompileError,
+    _host_rows,
+    _sync_errors,
+    check_exchange_layout,
+    empty_history,
+    record_round_metrics,
+    stage_rounds,
+    static_exchange_input,
+)
+from murmura_tpu_torch.core.rounds import (
+    EVAL_DATA_KEYS,
+    TRAIN_DATA_KEYS,
+    RoundProgram,
+    round_generators,
+)
+from murmura_tpu_torch.ops import _build
+from murmura_tpu_torch.utils.checkpoint import committed_bytes
+
+
+# Copy of GangMember, resolve_members and gang_hp_inputs from
+# murmura_tpu/core/gang.py.
+@dataclass(frozen=True)
+class GangMember:
+    """One experiment of the gang: a seed plus optional hyperparameter
+    overrides."""
+
+    seed: int
+    lr: Optional[float] = None
+    attack_scale: Optional[float] = None
+
+    @property
+    def label(self) -> str:
+        parts = [f"seed_{self.seed}"]
+        if self.lr is not None:
+            parts.append(f"lr_{self.lr:g}")
+        if self.attack_scale is not None:
+            parts.append(f"atk_{self.attack_scale:g}")
+        return "-".join(parts)
+
+
+def resolve_members(config, seeds: Optional[Sequence[int]] = None) -> List[GangMember]:
+    """The gang's member list from ``config.sweep`` (or an explicit seed
+    list: the CLI's ``--seeds``).
+
+    ``noise_std`` member overrides are resolved here into the
+    ``attack_scale`` multiplier (scale = noise_std / the configured
+    gaussian noise_std), so the round program needs only one knob.
+    """
+    def _distinct(members: List[GangMember]) -> List[GangMember]:
+        # Member labels key the sweep output JSON and the per-member
+        # telemetry run dirs: a duplicate would silently collapse one
+        # member's results onto another's.
+        labels = [m.label for m in members]
+        if len(labels) != len(set(labels)):
+            raise ValueError(
+                f"sweep members are not distinct (labels: {labels}) — two "
+                "identical members would just duplicate work"
+            )
+        return members
+
+    if seeds is not None:
+        return _distinct([GangMember(seed=int(s)) for s in seeds])
+    sweep = config.sweep
+    if sweep is None:
+        raise ValueError("config has no sweep block and no explicit seeds")
+    if sweep.seeds is not None:
+        return _distinct([GangMember(seed=int(s)) for s in sweep.seeds])
+    if sweep.num_seeds is not None:
+        base = config.experiment.seed
+        return [GangMember(seed=base + i) for i in range(sweep.num_seeds)]
+    p = config.attack.params
+    base_noise = float(p.get("noise_std", p.get("std", 10.0)))
+    members = []
+    for m in sweep.members:
+        scale = m.attack_scale
+        if m.noise_std is not None:
+            if base_noise <= 0:
+                raise ValueError(
+                    "sweep member noise_std override needs a positive "
+                    "attack.params.noise_std to scale against"
+                )
+            scale = m.noise_std / base_noise
+        members.append(GangMember(
+            seed=int(m.seed if m.seed is not None else config.experiment.seed),
+            lr=m.lr,
+            attack_scale=scale,
+        ))
+    return _distinct(members)
+
+
+def gang_hp_inputs(members: Sequence[GangMember]) -> Tuple[str, ...]:
+    """The hyperparameters some member overrides: with ``lr`` every member
+    trains with a per-row learning rate, with ``attack_scale`` every
+    member's program scales its attack's perturbation (by 1.0 where the
+    member sets none), as in the JAX package.  A seed-only gang lifts none
+    and its members run the single runs' arithmetic."""
+    hp = []
+    if any(m.lr is not None for m in members):
+        hp.append("lr")
+    if any(m.attack_scale is not None for m in members):
+        hp.append("attack_scale")
+    return tuple(hp)
+
+
+def check_member_compatible(progs: Sequence[RoundProgram], members) -> None:
+    """Refuse member programs that cannot train as one stack: the gang
+    trains every member with member 0's schedule (the step count, the batch
+    width) over the members' stacked data, so every shape must agree, or a
+    member would silently train differently than its single run."""
+    base = progs[0]
+
+    def shapes(prog):
+        return {k: (tuple(v.shape), v.dtype) for k, v in prog.data.items()}
+
+    base_shapes = shapes(base)
+    for i, prog in enumerate(progs[1:], start=1):
+        label = members[i].label
+        if prog.num_nodes != base.num_nodes or prog.model_dim != base.model_dim:
+            raise ValueError(
+                f"gang member {label}: num_nodes/model_dim mismatch with "
+                "member 0 — members must share the network and model shape"
+            )
+        got = shapes(prog)
+        if got != base_shapes:
+            diff = sorted(k for k in set(got) | set(base_shapes)
+                          if got.get(k) != base_shapes.get(k))
+            raise ValueError(
+                f"gang member {label}: data arrays differ from member 0's "
+                f"in {diff} — per-seed partitions must produce identical "
+                "shapes to train as one stack (pin training.max_samples or "
+                "use an equal-shard partitioner)"
+            )
+        for k in ("steps", "eff_batch"):
+            if int(prog.data[k].max()) != int(base.data[k].max()):
+                raise ValueError(
+                    f"gang member {label}: batch schedule (max {k}) differs "
+                    "from member 0's — the stacked training would silently "
+                    "truncate this member's; equalize per-node sample counts "
+                    "across seeds"
+                )
+
+
+def build_gang_step(programs: Sequence[RoundProgram], members: Sequence[GangMember],
+                    compromised: torch.Tensor, data: Dict[str, torch.Tensor],
+                    step_lr: Optional[torch.Tensor]):
+    """One gang round over the [S, N, P] stack:
+
+        step(flats, agg_states, adj, round_idx, alive=None, draws=None)
+            -> (flats', agg_states', [metrics of each member])
+
+    Training folds the members into S*N rows (one ``train_rows`` over the
+    stacked ``data``, each member's draws from its own generators); the
+    exchange and the rule run member by member (``train_step(...,
+    trained=rows)``).  ``step_lr`` is the [S*N] per-row learning rate, or
+    None for the programs' own.  ``draws`` (tests) injects one dict a
+    member of what its generators would draw, in ``train_step``'s layout."""
+    prog0 = programs[0]
+    seeds = [m.seed for m in members]
+    dev = prog0.device
+
+    def stacked_draws(draws):
+        """The members' training draws as the stack's: each epoch's ``u``
+        and each step's dropout masks concatenated in member order."""
+        if draws is None:
+            return None
+        out = {}
+        if draws[0].get("u") is not None:
+            out["u"] = [np.concatenate([np.asarray(d["u"][e]) for d in draws])
+                        for e in range(len(draws[0]["u"]))]
+        if draws[0].get("dropout") is not None:
+            out["dropout"] = [
+                [[np.concatenate([np.asarray(d["dropout"][e][t][l]) for d in draws])
+                  for l in range(len(step_masks))]
+                 for t, step_masks in enumerate(epoch)]
+                for e, epoch in enumerate(draws[0]["dropout"])
+            ]
+        return out
+
+    def step(flats, agg_states, adj, round_idx, alive=None, draws=None):
+        s_count, n, p = flats.shape
+        gens = [round_generators(seed, round_idx, dev) for seed in seeds]
+        train_mask = torch.cat([prog.training_mask(compromised, alive) for prog in programs])
+        with record_function("murmura.train"):
+            trained = prog0.train_rows(
+                flats.reshape(s_count * n, p).clone(), train_mask, float(round_idx),
+                [g["train"] for g in gens], data=data, step_lr=step_lr,
+                draws=stacked_draws(draws),
+            )
+        outs, states, metrics = [], [], []
+        for s, prog in enumerate(programs):
+            noise = None if draws is None else {"noise": draws[s].get("noise")}
+            new_flat, state, m = prog.train_step(
+                flats[s], agg_states[s], adj, compromised, float(round_idx),
+                generators=gens[s], draws=noise, alive=alive,
+                trained=trained[s * n:(s + 1) * n],
+            )
+            outs.append(new_flat)
+            states.append(state)
+            metrics.append(m)
+        return torch.stack(outs), states, metrics
+
+    return step
+
+
+def build_gang_multi_round(step, program: RoundProgram, data, chunk: int, eval_every: int):
+    """Fuse ``chunk`` gang rounds into one call (the gang's
+    ``build_multi_round``):
+
+        multi_round(flats, agg_states, adj_stack, round0, alive_stack=None)
+            -> (flats', agg_states', rows)
+
+    ``rows`` holds one (round number, [metrics of each member]) pair per
+    round on the ``eval_every`` cadence, the metrics left on the device;
+    eval runs once over all S*N rows.  Nothing here synchronises with the
+    host."""
+
+    def multi_round(flats, agg_states, adj_stack, round0, alive_stack=None):
+        rows = []
+        for i in range(chunk):
+            r = round0 + i
+            flats, agg_states, metrics = step(
+                flats, agg_states, adj_stack[i], r,
+                None if alive_stack is None else alive_stack[i],
+            )
+            if (r + 1) % eval_every == 0:
+                s_count, n, p = flats.shape
+                ev = program.eval_step(flats.reshape(s_count * n, p), data=data)
+                rows.append((r + 1, [
+                    {**{k: v[s * n:(s + 1) * n] for k, v in ev.items()}, **metrics[s]}
+                    for s in range(s_count)
+                ]))
+        return flats, agg_states, rows
+
+    return multi_round
+
+
+class GangNetwork:
+    """Orchestrates S experiments as one gang: the counterpart of
+    :class:`~murmura_tpu_torch.core.network.Network` with one history, one
+    telemetry writer (optional) and one carried state a member.  Rounds run
+    per round or fused into chunks (``rounds_per_dispatch``) exactly as a
+    single run's, under the same ``transfer_guard`` and ``recompile_guard``
+    (core/network.py's docstring), and the whole gang snapshots and resumes
+    through durability/snapshot.py.
+
+    Args:
+        programs: one RoundProgram a member, each built with that member's
+            seed (its data, initial parameters) and learning rate.
+        members: the resolved member list.
+        topology / attack / fault_schedule: shared by the members.
+        base_lr: the learning rate of a member without an override.
+        telemetry_writers: one TelemetryWriter a member, or None.
+    """
+
+    def __init__(
+        self,
+        programs: Sequence[RoundProgram],
+        members: Sequence[GangMember],
+        topology,
+        attack=None,
+        fault_schedule=None,
+        base_lr: float = 0.01,
+        transfer_guard: bool = False,
+        recompile_guard: bool = False,
+        telemetry_writers: Optional[Sequence] = None,
+    ):
+        if len(programs) != len(members):
+            raise ValueError("one RoundProgram per member required")
+        if not programs:
+            raise ValueError("a gang needs at least one member")
+        check_member_compatible(programs, members)
+        program = programs[0]
+        check_exchange_layout(program, topology)
+        n = program.num_nodes
+        if topology.num_nodes != n:
+            raise ValueError(f"Topology has {topology.num_nodes} nodes, gang stack has {n}")
+        if fault_schedule is not None and not program.faulted:
+            raise ValueError(
+                "A fault schedule was supplied but the round programs were built "
+                "without faults (build_round_program(faults=...))"
+            )
+        self.programs = list(programs)
+        self.program = program
+        self.members = list(members)
+        self.gang_size = len(members)
+        self.topology = topology
+        self.attack = attack
+        self.fault_schedule = fault_schedule
+        self.device = program.device
+        self.transfer_guard = transfer_guard
+        self.recompile_guard = recompile_guard
+        self.telemetry = list(telemetry_writers or [])
+        if self.telemetry and len(self.telemetry) != self.gang_size:
+            raise ValueError("one telemetry writer per member required")
+
+        # One placement for the whole gang (the module docstring).
+        self.compromised = (attack.compromised.astype(np.float32) if attack is not None
+                            else np.zeros(n, dtype=np.float32))
+        self._comp = torch.as_tensor(self.compromised).to(self.device)
+        self.flats = torch.stack([p.init_flat for p in programs])  # [S, N, P]
+        self.agg_states: List[Dict[str, torch.Tensor]] = [
+            dict(p.init_agg_state) for p in programs]
+        # The members' training and eval data, stacked on the node axis.
+        self._data = {k: torch.cat([p.data[k] for p in programs])
+                      for k in TRAIN_DATA_KEYS + EVAL_DATA_KEYS}
+        step_lr = None
+        if "lr" in gang_hp_inputs(members):
+            lrs = [m.lr if m.lr is not None else base_lr for m in members]
+            step_lr = torch.as_tensor(np.repeat(np.asarray(lrs, np.float32), n)).to(self.device)
+        self._step = build_gang_step(programs, members, self._comp, self._data, step_lr)
+        self._fused: Dict[Tuple[int, int], Any] = {}
+        self._warmed: set = set()
+        static = static_exchange_input(topology, fault_schedule)
+        self._static_host = static
+        self._static_adj = None if static is None else torch.as_tensor(static).to(self.device)
+        self._in_degree: Dict[int, np.ndarray] = {}
+        self.histories: List[Dict[str, List[Any]]] = [
+            empty_history() for _ in range(self.gang_size)]
+        self._last_stats: List[Dict[str, np.ndarray]] = [{} for _ in range(self.gang_size)]
+        self.round_times: List[float] = []
+        self.current_round = 0
+        self.checkpoints: List[Dict[str, Any]] = []
+
+    # The snapshot's view of the gang (durability/snapshot.py): the members'
+    # parameters as one [S, N, P] tensor, their carried states stacked key
+    # by key, and the member seeds.
+
+    @property
+    def flat(self) -> torch.Tensor:
+        return self.flats
+
+    @flat.setter
+    def flat(self, value: torch.Tensor) -> None:
+        self.flats = value
+
+    @property
+    def agg_state(self) -> Dict[str, torch.Tensor]:
+        return {k: torch.stack([st[k] for st in self.agg_states]) for k in self.agg_states[0]}
+
+    @agg_state.setter
+    def agg_state(self, stacked: Dict[str, torch.Tensor]) -> None:
+        self.agg_states = [{k: v[s] for k, v in stacked.items()}
+                           for s in range(self.gang_size)]
+
+    @property
+    def seed(self) -> List[int]:
+        return [m.seed for m in self.members]
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+
+    def train(
+        self,
+        rounds: int,
+        verbose: bool = False,
+        eval_every: int = 1,
+        rounds_per_dispatch: int = 1,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 0,
+    ) -> List[Dict[str, List[Any]]]:
+        """Run the gang for ``rounds`` rounds; returns the member histories
+        (``self.histories``).  The arguments are :meth:`Network.train`'s: a
+        chunk of ``rounds_per_dispatch`` rounds is staged once and copied
+        back once, and ``checkpoint_dir`` snapshots the whole gang (every
+        member's parameters, carried state and history) after each chunk
+        that crosses a multiple of ``checkpoint_every`` rounds and after
+        the last."""
+        try:
+            self._train_chunks(rounds, verbose, eval_every, rounds_per_dispatch,
+                               checkpoint_dir, checkpoint_every)
+        finally:
+            for t, h in zip(self.telemetry, self.histories):
+                t.finalize(history=h)
+        return self.histories
+
+    def _train_chunks(self, rounds, verbose, eval_every, rounds_per_dispatch, checkpoint_dir,
+                      checkpoint_every) -> None:
+        mode = "gang_per_round" if rounds_per_dispatch == 1 else "gang_fused"
+        done = 0
+        while done < rounds:
+            k = min(rounds_per_dispatch, rounds - done)
+            key = (k, eval_every)
+            if key not in self._fused:
+                if self.recompile_guard and key in self._warmed:
+                    raise RecompileError(
+                        f"tpu.recompile_guard: the gang's fused program for {key} (chunk, "
+                        "eval_every) was built again after it had run"
+                    )
+                self._fused[key] = build_gang_multi_round(
+                    self._step, self.program, self._data, k, eval_every)
+            warmup = key not in self._warmed
+            builds = len(_build.STARTED)
+            round0 = self.current_round
+            t0 = time.perf_counter()
+            adj_stack, alive_stack, in_deg = stage_rounds(
+                self.topology, self.fault_schedule, self.program, self._static_host,
+                self._static_adj, list(range(round0, round0 + k)),
+                degrees=bool(self.telemetry))
+            self._in_degree.update(in_deg)
+            guard = (_sync_errors() if self.transfer_guard and not warmup
+                     and self.device.type == "cuda" else contextlib.nullcontext())
+            with guard:
+                self.flats, self.agg_states, rows = self._fused[key](
+                    self.flats, self.agg_states, adj_stack, round0, alive_stack=alive_stack)
+            # One device-to-host copy for every member's rows of the chunk.
+            flat_rows = _host_rows([(r, m) for r, ms in rows for m in ms])
+            self._sync()
+            elapsed = time.perf_counter() - t0
+            self._warmed.add(key)
+            self.current_round = round0 + k
+            self.round_times.extend([elapsed / k] * k)
+            done += k
+            for t in self.telemetry:
+                for i in range(k):
+                    extra = {"chunk": k} if rounds_per_dispatch > 1 else {}
+                    if self.program.pipelined:
+                        extra["overlap"] = "pipelined"
+                    t.phase_times(round0 + i, mode, elapsed / k, gang=self.gang_size, **extra)
+                t.memory_event(self.current_round - 1, self.device)
+            s_count = self.gang_size
+            for i in range(0, len(flat_rows), s_count):
+                group = flat_rows[i:i + s_count]
+                self._record_all(group[0][0], [m for _, m in group], verbose)
+            if self.recompile_guard and not warmup and len(_build.STARTED) > builds:
+                raise RecompileError(
+                    f"tpu.recompile_guard: kernel build(s) {_build.STARTED[builds:]} "
+                    f"started in rounds {round0}-{round0 + k - 1}, after the first chunk "
+                    f"of {key} (chunk, eval_every)"
+                )
+            crossed = checkpoint_every and (
+                self.current_round // checkpoint_every > round0 // checkpoint_every)
+            if checkpoint_dir and (crossed or done >= rounds):
+                self.save_checkpoint(checkpoint_dir)
+
+    def _record_all(self, round_num: int, member_metrics, verbose: bool) -> None:
+        """One evaluated round's per-member metrics into the member
+        histories (the single run's ``record_round_metrics``, so a member's
+        row is its single run's), with the member-shared in-degree of the
+        round's staged graph in each member's telemetry."""
+        in_deg = None
+        if self.telemetry:
+            in_deg = self._in_degree.pop(round_num - 1)
+            self._in_degree = {r: v for r, v in self._in_degree.items() if r >= round_num}
+        for s, metrics in enumerate(member_metrics):
+            record_round_metrics(self.histories[s], round_num, metrics, self.compromised,
+                                 self.program.evidential, self.attack is not None)
+            self._last_stats[s] = {k[len("agg_"):]: v for k, v in metrics.items()
+                                   if k.startswith("agg_")}
+            if self.telemetry:
+                self.telemetry[s].round_event(round_num, metrics, in_degree=in_deg)
+        if verbose:
+            line = ", ".join(f"{m.label}={np.asarray(mm['accuracy']).mean():.4f}"
+                             for m, mm in zip(self.members, member_metrics))
+            print(f"Round {round_num}: {line}", flush=True)
+
+    def get_node_statistics(self, member: int = 0) -> Dict[int, Dict[str, Any]]:
+        """Per-node rule statistics of one member's last recorded round."""
+        stats = self._last_stats[member]
+        return {i: {k: float(np.asarray(v).reshape(-1)[i]) if np.ndim(v) else float(v)
+                    for k, v in stats.items()}
+                for i in range(self.program.num_nodes)}
+
+    # ------------------------------------------------------------------
+    # durability (durability/snapshot.py): the whole gang in one snapshot.
+
+    def save_checkpoint(self, directory: str) -> None:
+        """Snapshot every member's parameters, carried state and history."""
+        from murmura_tpu_torch.durability.snapshot import save_run_snapshot
+
+        t0 = time.perf_counter()
+        nbytes = save_run_snapshot(directory, self)
+        self._log_checkpoint("save", self.current_round, nbytes, time.perf_counter() - t0,
+                             directory)
+
+    def restore_checkpoint(self, directory: str) -> int:
+        """Restore the whole gang; returns the round to continue from.  Each
+        member's telemetry stream gets ``run_resumed``."""
+        from murmura_tpu_torch.durability.snapshot import restore_run_snapshot
+
+        t0 = time.perf_counter()
+        round_num = restore_run_snapshot(directory, self)
+        self._in_degree.clear()
+        self._log_checkpoint("restore", round_num, committed_bytes(directory),
+                             time.perf_counter() - t0, directory)
+        for t in self.telemetry:
+            t.emit("run_resumed", round=round_num, path=str(directory), run_id=t.run_id)
+        return round_num
+
+    def _log_checkpoint(self, action, round_num, nbytes, seconds, directory) -> None:
+        self.checkpoints.append({"action": action, "round": round_num, "bytes": nbytes,
+                                 "seconds": seconds})
+        for t in self.telemetry:
+            t.checkpoint_event(round_num, seconds, action=action, path=str(directory),
+                               bytes=nbytes)
+
+    def _labels(self) -> List[str]:
+        return [m.label for m in self.members]
+
+    def _durability_history(self):
+        return {"gang_members": self.histories, "labels": self._labels()}
+
+    def _durability_set_history(self, history) -> None:
+        self.histories = history["gang_members"]
+
+    def _durability_extra_state(self):
+        meta: Dict[str, Any] = {"gang": {"gang_size": self.gang_size,
+                                         "labels": self._labels()}}
+        if self.telemetry:
+            meta["telemetry_run_ids"] = [t.run_id for t in self.telemetry]
+        return {}, meta
+
+    def _durability_validate_extra(self, arrays, meta) -> None:
+        """Refuse, before any member's state is overwritten, a single run's
+        snapshot and a gang snapshot of another member set (the same count
+        of other seeds has the same shapes, so only the labels tell)."""
+        gm = meta.get("gang")
+        if gm is None:
+            raise ValueError(
+                "snapshot carries no gang section — it was written by a "
+                "single run; resume it with `run --resume` instead"
+            )
+        if arrays or "population" in meta:
+            raise ValueError(
+                f"snapshot carries sections {sorted(set(arrays) | {'population'} & set(meta))} "
+                "a gang does not understand; rebuild with the matching config"
+            )
+        labels, ours = gm.get("labels"), self._labels()
+        if labels != ours:
+            raise ValueError(
+                f"gang snapshot members {labels} != this gang's {ours} — "
+                "resuming into a different member set would misattribute "
+                "every lane; rebuild with the sweep that wrote the snapshot"
+            )
+
+    def _durability_restore_extra(self, arrays, meta) -> None:
+        """Nothing beyond the base sections to apply."""

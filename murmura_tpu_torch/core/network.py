@@ -43,6 +43,7 @@ from murmura_tpu_torch.core.rounds import RoundProgram, build_multi_round
 from murmura_tpu_torch.faults.schedule import FaultSchedule
 from murmura_tpu_torch.ops import _build
 from murmura_tpu_torch.topology.base import Topology
+from murmura_tpu_torch.topology.sparse import SparseTopology
 from murmura_tpu_torch.utils.checkpoint import committed_bytes
 
 
@@ -72,6 +73,61 @@ def effective_adjacency(topology, fault_schedule, round_idx: int) -> np.ndarray:
     return adj
 
 
+def effective_edge_mask(topology, fault_schedule, round_idx: int) -> np.ndarray:
+    """One round's [k, N] sparse edge mask (topology/sparse.py): the
+    SparseTopology's schedule (static all-ones, or one_peer's single
+    offset) with the fault schedule's masks folded in on the host, the
+    sparse twin of :func:`effective_adjacency`; O(k·N), never O(N^2)."""
+    mask = topology.edge_mask(round_idx)
+    if fault_schedule is not None:
+        mask = fault_schedule.masked_edge_mask(mask, topology.offsets, round_idx)
+    return mask
+
+
+def round_exchange_input(topology, fault_schedule, round_idx: int) -> np.ndarray:
+    """The adjacency input of one round: the [k, N] edge mask of a sparse
+    topology, else the [N, N] adjacency."""
+    if isinstance(topology, SparseTopology):
+        return effective_edge_mask(topology, fault_schedule, round_idx)
+    return effective_adjacency(topology, fault_schedule, round_idx)
+
+
+def sender_in_degree(topology, mask: np.ndarray) -> np.ndarray:
+    """[N] host-side in-degree of each sender (how many receivers read its
+    broadcast) under a round's adjacency input."""
+    if isinstance(topology, SparseTopology):
+        return topology.in_degree_from_edge_mask(mask)
+    return mask.sum(axis=0)
+
+
+def check_exchange_layout(program: RoundProgram, topology) -> None:
+    """A sparse round program needs the sparse topology of its offsets, and
+    a dense one a dense topology."""
+    sparse_topology = isinstance(topology, SparseTopology)
+    if program.sparse != sparse_topology:
+        raise ValueError(
+            "the round program was built with sparse_offsets but the topology is not "
+            "a SparseTopology" if program.sparse else
+            "the topology is a SparseTopology but the round program was built for the "
+            "dense [N, N] adjacency (build it with sparse_offsets=topology.offsets)"
+        )
+    if program.sparse and tuple(topology.offsets) != tuple(program.sparse_offsets):
+        raise ValueError(
+            f"sparse topology offsets {tuple(topology.offsets)} != round program "
+            f"offsets {tuple(program.sparse_offsets)}"
+        )
+
+
+def static_exchange_input(topology, fault_schedule) -> Optional[np.ndarray]:
+    """The adjacency input of every round where it never changes (no fault
+    schedule and a static schedule), else None."""
+    if fault_schedule is not None:
+        return None
+    if isinstance(topology, SparseTopology):
+        return topology.edge_mask(0) if topology.schedule == "static" else None
+    return topology.mask()
+
+
 def effective_alive(fault_schedule, num_nodes: int, round_idx: int) -> np.ndarray:
     """[N] float32 alive mask for a faulted program's extra input."""
     if fault_schedule is not None:
@@ -98,6 +154,32 @@ def _host_rows(rows: List[Tuple[int, Dict[str, torch.Tensor]]]):
             off += t.numel()
         out.append((round_num, host))
     return out
+
+
+def stage_rounds(topology, fault_schedule, program: RoundProgram, static_host, static_adj,
+                 rounds: List[int], degrees: bool = False):
+    """(adjacency stack, alive stack or None, {round: host sender in-degree})
+    of ``rounds`` for ``program`` on its device: views of ``static_adj``
+    where the graph never changes, else one copy each; the in-degrees only
+    when ``degrees`` (telemetry's round events)."""
+    k, n, dev = len(rounds), program.num_nodes, program.device
+    if static_adj is not None:
+        in_deg = {}
+        if degrees:
+            deg = sender_in_degree(topology, static_host)
+            in_deg = {r: deg for r in rounds}
+        adj = static_adj[None].expand(k, -1, -1)
+        if not program.faulted:
+            return adj, None, in_deg
+        return adj, torch.ones((k, n), device=dev), in_deg
+    adj = np.stack([round_exchange_input(topology, fault_schedule, r) for r in rounds])
+    in_deg = ({r: sender_in_degree(topology, a) for r, a in zip(rounds, adj)}
+              if degrees else {})
+    alive = None
+    if program.faulted:
+        alive = torch.as_tensor(
+            np.stack([effective_alive(fault_schedule, n, r) for r in rounds])).to(dev)
+    return torch.as_tensor(adj).to(dev), alive, in_deg
 
 
 def empty_history() -> Dict[str, List[Any]]:
@@ -180,6 +262,7 @@ class Network:
                 "built without faults (build_round_program(faults=...)); "
                 "the alive mask would silently never reach the round step"
             )
+        check_exchange_layout(program, topology)
         self.program = program
         self.topology = topology
         self.attack = attack
@@ -198,11 +281,11 @@ class Network:
         self.round_times: List[float] = []
         self.current_round = 0
         self._fused: Dict[Tuple[int, int], Any] = {}
-        # With no fault schedule the graph never changes: staged once.
-        self._static_adj = (
-            torch.as_tensor(topology.mask()).to(self.device)
-            if fault_schedule is None else None
-        )
+        # With no fault schedule (and a static sparse schedule) the graph
+        # never changes: staged once.
+        static = static_exchange_input(topology, fault_schedule)
+        self._static_host = static
+        self._static_adj = None if static is None else torch.as_tensor(static).to(self.device)
         self.telemetry = telemetry
         self.profile_dir = profile_dir
         self._profiler = None  # the open window: (torch.profiler, its first round)
@@ -221,25 +304,15 @@ class Network:
             torch.cuda.synchronize(self.device)
 
     def _stage(self, rounds: List[int]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """The [k, N, N] adjacency stack of ``rounds`` and, for a faulted
-        program, their [k, N] alive stack: each staged in one copy under a
-        fault schedule, else views of the static graph and of all-alive."""
-        k, n = len(rounds), self.program.num_nodes
-        if self._static_adj is not None:
-            if self.telemetry is not None:
-                deg = self.topology.mask().sum(axis=0)
-                self._in_degree.update({r: deg for r in rounds})
-            adj = self._static_adj[None].expand(k, -1, -1)
-            if not self.program.faulted:
-                return adj, None
-            return adj, torch.ones((k, n), device=self.device)
-        adj = np.stack([effective_adjacency(self.topology, self.fault_schedule, r)
-                        for r in rounds])
-        if self.telemetry is not None:
-            self._in_degree.update({r: a.sum(axis=0) for r, a in zip(rounds, adj)})
-        alive = np.stack([effective_alive(self.fault_schedule, n, r) for r in rounds])
-        return (torch.as_tensor(adj).to(self.device),
-                torch.as_tensor(alive).to(self.device))
+        """The adjacency stack of ``rounds`` ([k, N, N], or [k, K, N] edge
+        masks on a sparse program) and, for a faulted program, their [k, N]
+        alive stack: each staged in one copy where the graph changes, else
+        views of the static graph and of all-alive."""
+        adj, alive, in_deg = stage_rounds(self.topology, self.fault_schedule, self.program,
+                                          self._static_host, self._static_adj, rounds,
+                                          degrees=self.telemetry is not None)
+        self._in_degree.update(in_deg)
+        return adj, alive
 
     def train(
         self,

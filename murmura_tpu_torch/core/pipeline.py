@@ -55,16 +55,19 @@ def pipeline_state_keys(stale: bool) -> Tuple[str, ...]:
 
 
 def init_pipeline_state(
-    num_nodes: int, model_dim: int, dtype: torch.dtype, *, stale: bool = False,
-    device="cpu",
+    num_nodes: int, model_dim: int, dtype: torch.dtype, *,
+    sparse_offsets: Tuple[int, ...] = (), stale: bool = False, device="cpu",
 ) -> Dict[str, torch.Tensor]:
     """The invalid initial buffer: zero ``[N, P]`` rows in the parameter
-    dtype, the dense all-ones off-diagonal ``[N, N]`` float32 adjacency and
-    ``pipe_valid`` 0.  (The sparse ``[N, k]`` edge-mask form comes with the
-    sparse topologies.)"""
+    dtype, the dense all-ones off-diagonal ``[N, N]`` float32 adjacency
+    (in sparse mode the all-ones ``[N, k]`` edge mask, stored node-leading:
+    the transpose of the round's ``[k, N]`` input) and ``pipe_valid`` 0."""
     zeros = torch.zeros((num_nodes, model_dim), dtype=dtype, device=device)
-    adj0 = (np.ones((num_nodes, num_nodes), np.float32)
-            - np.eye(num_nodes, dtype=np.float32))
+    if sparse_offsets:
+        adj0 = np.ones((num_nodes, len(sparse_offsets)), np.float32)
+    else:
+        adj0 = (np.ones((num_nodes, num_nodes), np.float32)
+                - np.eye(num_nodes, dtype=np.float32))
     state = {
         ADJ_KEY: torch.from_numpy(adj0).to(device),
         OWN_KEY: zeros,
@@ -98,10 +101,10 @@ def run_delayed_reference(net, rounds: int, eval_every: int = 1):
     calls see the same shuffle and noise.
     """
     from murmura_tpu_torch.core.network import (
-        effective_adjacency,
         effective_alive,
         empty_history,
         record_round_metrics,
+        round_exchange_input,
     )
     from murmura_tpu_torch.core.rounds import round_generators
 
@@ -119,7 +122,7 @@ def run_delayed_reference(net, rounds: int, eval_every: int = 1):
     history = empty_history()
     disp = torch.zeros_like(flat)
     for r in range(rounds):
-        adj = torch.as_tensor(effective_adjacency(net.topology, net.fault_schedule, r)).to(dev)
+        adj = torch.as_tensor(round_exchange_input(net.topology, net.fault_schedule, r)).to(dev)
         alive = None
         if prog.faulted:
             alive = torch.as_tensor(effective_alive(net.fault_schedule, prog.num_nodes, r)).to(dev)

@@ -5,7 +5,11 @@ murmura_tpu/core/rounds.py).
                generators=None, draws=None) -> (flat', agg_state', metrics)
 
 and, for a program built with a ``FaultSpec``, the [N] alive mask as
-``alive=``.
+``alive=``.  A program built with ``sparse_offsets`` (a sparse topology,
+topology/sparse.py) takes the [k, N] per-offset edge mask where the dense
+one takes the [N, N] adjacency: ``adj[j, i]`` is the edge ``i <- (i +
+offsets[j]) % N``, and every adjacency fold below runs on it through rolls
+of [N] node flags, so nothing O(N^2) is built.
 
 1. local training: ``local_epochs`` x masked-batch SGD on every node at
    once — per-node effective batch ``min(B, max(2, n_i))``, sample
@@ -48,8 +52,14 @@ rows and swaps the buffer (``agg_pipe_valid`` is 0 on the warm-up round).
 
 The node-stacked flat ``[N, P]`` tensor is the one copy of the parameters;
 per-node gradients come from ``torch.func.vmap(torch.func.grad(...))`` over
-views into it.  The random draws (the epoch shuffle ``u``, the dropout
-masks and the attack's [C, P] noise) come from per-round
+views into it.  Local training and eval take any stack of rows
+(``RoundProgram.train_rows`` and ``eval_step(flat, data=...)``): a gang
+(core/gang.py) passes its S members' N rows each as one [S*N, P] stack,
+each member's draws from that member's own generators, and then hands each
+member's trained rows to its ``train_step(..., trained=rows)``, which skips
+local training and runs the rest of the round.  The random draws (the
+epoch shuffle ``u``, the dropout masks and the attack's [C, P] noise) come
+from per-round
 ``torch.Generator``s, or are injected through ``draws`` so that a test can
 feed the JAX package's own draws.
 
@@ -61,7 +71,7 @@ profiler trace splits a round by phase.
 """
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -118,6 +128,11 @@ from murmura_tpu_torch.ops.losses import (
 # Eval samples per chunk (the JAX package's default eval_chunk).
 EVAL_CHUNK = 1024
 
+# The per-node data a round trains on and evaluates on: what a gang stacks
+# over its members (core/gang.py).
+TRAIN_DATA_KEYS = ("x", "y", "mask", "num_samples", "eff_batch", "steps")
+EVAL_DATA_KEYS = ("eval_x", "eval_y", "eval_mask")
+
 # Weight of the evidential loss's KL term once annealed in (the JAX
 # factories' lambda_weight).
 EVIDENTIAL_LAMBDA = 0.1
@@ -154,6 +169,20 @@ class RoundProgram:
     pipelined: bool = False
     # The production stage alone, for core/pipeline.run_delayed_reference.
     train_flat: Optional[Callable] = None
+    # Local training over any stack of rows (a gang's members folded into
+    # the node axis): train_rows(flat_rows, train_mask_rows, round_idx,
+    # generators, data=None, step_lr=None, draws=None) -> trained rows.
+    train_rows: Optional[Callable] = None
+    # The [N] training mask of a round: honest (or everyone, for an attack
+    # that trains locally) and, on a faulted program, alive.
+    training_mask: Optional[Callable] = None
+    # The circulant offsets of a sparse program (its adjacency input is the
+    # [k, N] edge mask); () for the dense [N, N] adjacency.
+    sparse_offsets: Tuple[int, ...] = ()
+
+    @property
+    def sparse(self) -> bool:
+        return bool(self.sparse_offsets)
 
 
 def round_generators(seed: int, round_idx: int, device) -> Dict[str, torch.Generator]:
@@ -199,6 +228,8 @@ def build_round_program(
     audit_taps: bool = False,
     staleness: Optional[StalenessSpec] = None,
     pipeline: bool = False,
+    sparse_offsets: Optional[Sequence[int]] = None,
+    attack_scale: Optional[float] = None,
 ) -> RoundProgram:
     """Round step for a network of ``data.num_nodes`` nodes on ``device``
     (the card unless the caller asks for the CPU; without CUDA a ``cuda``
@@ -223,6 +254,12 @@ def build_round_program(
     ``agg_state``.  The JAX package refuses it with DMTT, adaptive attacks
     and population, none of which the port runs (the schema refuses the
     combinations by name).
+
+    ``sparse_offsets`` (a sparse topology's offsets) makes the adjacency
+    input the [k, N] edge mask.  ``attack_scale`` (a gang member's
+    ``attack_scale``, the JAX package's ``hp_attack_scale``) scales the
+    perturbation the attack added to the broadcast, in float32, before the
+    sentinel scrub; None leaves the broadcast as the attack made it.
     """
     device = torch.device(device)
     if device.type == "cuda":
@@ -235,6 +272,13 @@ def build_round_program(
     n = data.num_nodes
     num_classes = data.num_classes or model.num_classes
     evidential = model.evidential
+    sparse_offsets = tuple(int(o) for o in sparse_offsets) if sparse_offsets else ()
+    sparse = bool(sparse_offsets)
+    if attack_scale is not None and attack is None:
+        raise ValueError(
+            "attack_scale was given but no attack is configured: there is no "
+            "broadcast perturbation to scale"
+        )
 
     if staleness is not None:
         if faults is None:
@@ -250,13 +294,15 @@ def build_round_program(
                 "exchange graph (the topology mask / all-active sparse "
                 "edge mask) — re-added edges are drawn from it"
             )
-        if tuple(np.shape(staleness.base_mask)) != (n, n):
+        expect = (len(sparse_offsets), n) if sparse else (n, n)
+        if tuple(np.shape(staleness.base_mask)) != expect:
             raise ValueError(
                 f"staleness base mask shape "
                 f"{tuple(np.shape(staleness.base_mask))} does not match "
-                f"this build's exchange layout {(n, n)}"
+                f"this build's exchange layout {expect}"
             )
-        stale_fold = make_stale_fold(staleness, audit=audit_taps, device=device)
+        stale_fold = make_stale_fold(staleness, sparse_offsets=sparse_offsets,
+                                     audit=audit_taps, device=device)
     else:
         stale_fold = None
     # The fold and the pipeline buffer carry one decoded row a sender (a
@@ -301,7 +347,6 @@ def build_round_program(
     d["probe_x"] = d["x"][:, :p_size]
     d["probe_y"] = d["y"][:, :p_size]
     d["probe_mask"] = d["mask"][:, :p_size]
-    nodes = torch.arange(n, device=device)
 
     def node_loss(params_i, xb, yb, mb, masks_i, lambda_t):
         outputs = model.apply(params_i, xb, masks_i)
@@ -313,49 +358,84 @@ def build_round_program(
     grad_fn = vmap(grad(node_loss), in_dims=(0, 0, 0, 0, 0, None))
     keep = 1.0 - model.dropout
 
-    def dropout_masks(generator, injected):
-        """This step's masks, one bool [N, B, width] a dropout layer."""
+    def member_draws(generators, draw):
+        """One draw a member from its own generator, stacked on the row
+        axis in member order: each member's rows get exactly the values its
+        single run would draw (a single run's one draw is taken as is)."""
+        parts = [draw(g) for g in generators]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def dropout_masks(generators, rows_each, injected):
+        """This step's masks, one bool [rows, B, width] a dropout layer."""
         if injected is not None:
             return [torch.as_tensor(np.asarray(m), dtype=torch.bool).to(device)
                     for m in injected]
         return [
-            torch.rand((n, global_batch, w), generator=generator, device=device) < keep
+            member_draws(generators, lambda g: torch.rand(
+                (rows_each, global_batch, w), generator=g, device=device) < keep)
             for w in model.dropout_widths
         ]
 
-    def local_training(flat, train_mask, generator, u_draws, mask_draws, lambda_t):
-        """local_epochs x masked-batch SGD; updates ``flat`` in place."""
+    def local_training(flat, dd, train_mask, generators, u_draws, mask_draws, lambda_t,
+                       step_lr):
+        """local_epochs x masked-batch SGD over the rows of ``flat`` (a
+        member's N, or a gang's S*N, with the matching rows of the data
+        ``dd``); updates ``flat`` in place.  ``generators``: one "train"
+        generator a member, in row order; ``step_lr`` the learning rate, a
+        float or one value a row."""
+        rows = flat.shape[0]
+        rows_each = rows // len(generators)
+        rows_idx = torch.arange(rows, device=device)
         j = torch.arange(global_batch, device=device)
-        batch_mask = (j[None, :] < d["eff_batch"][:, None]).to(torch.float32)
-        samples = torch.clamp(d["num_samples"], min=1)[:, None]
+        batch_mask = (j[None, :] < dd["eff_batch"][:, None]).to(torch.float32)
+        samples = torch.clamp(dd["num_samples"], min=1)[:, None]
         params = unravel(flat)
         for epoch in range(local_epochs):
             if u_draws is not None:
                 u = torch.as_tensor(u_draws[epoch], dtype=torch.float32).to(device)
             else:
-                u = torch.rand(
-                    d["mask"].shape, generator=generator, device=device,
-                    dtype=torch.float32,
-                )
+                u = member_draws(generators, lambda g: torch.rand(
+                    (rows_each,) + tuple(dd["mask"].shape[1:]), generator=g,
+                    device=device, dtype=torch.float32,
+                ))
             # Shuffle valid samples to the front: invalid slots sort last.
-            perm = torch.argsort(u + (1.0 - d["mask"]) * 10.0, dim=1, stable=True)
+            perm = torch.argsort(u + (1.0 - dd["mask"]) * 10.0, dim=1, stable=True)
             for t in range(max_steps):
-                pos = (t * d["eff_batch"][:, None] + j[None, :]) % samples
-                idx = torch.gather(perm, 1, pos)  # [N, B]
-                xb = d["x"][nodes[:, None], idx]
-                yb = d["y"][nodes[:, None], idx]
+                pos = (t * dd["eff_batch"][:, None] + j[None, :]) % samples
+                idx = torch.gather(perm, 1, pos)  # [rows, B]
+                xb = dd["x"][rows_idx[:, None], idx]
+                yb = dd["y"][rows_idx[:, None], idx]
                 masks = []
                 if model.dropout_widths:
                     masks = dropout_masks(
-                        generator, None if mask_draws is None else mask_draws[epoch][t]
+                        generators, rows_each,
+                        None if mask_draws is None else mask_draws[epoch][t],
                     )
                 grads = grad_fn(params, xb, yb, batch_mask, masks, lambda_t)
-                update = train_mask * (t < d["steps"]).to(torch.float32)  # [N]
+                update = train_mask * (t < dd["steps"]).to(torch.float32)  # [rows]
+                lr_update = step_lr * update
                 with torch.no_grad():
                     for p, g in zip(tree_leaves(params), tree_leaves(grads)):
-                        ub = update.reshape((n,) + (1,) * (p.dim() - 1))
-                        p.copy_((p - (lr * ub) * g.to(torch.float32)).to(p.dtype))
+                        lr_ub = lr_update.reshape((rows,) + (1,) * (p.dim() - 1))
+                        p.copy_((p - lr_ub * g.to(torch.float32)).to(p.dtype))
         return flat
+
+    def lambda_of(round_idx):
+        """The evidential KL weight of round ``round_idx``."""
+        return min(1.0, round_idx / max(1, annealing_rounds)) * EVIDENTIAL_LAMBDA
+
+    def train_rows(flat, train_mask, round_idx, generators, data=None, step_lr=None,
+                   draws=None):
+        """Local training of the rows of ``flat`` in place (RoundProgram.
+        train_rows): ``data`` the matching rows of the training arrays
+        (default: this program's), ``generators`` one per member of the
+        stack, ``step_lr`` a float or an [rows] tensor (default: lr)."""
+        draws = draws or {}
+        return local_training(
+            flat, d if data is None else data, train_mask, list(generators),
+            draws.get("u"), draws.get("dropout"), lambda_of(round_idx),
+            lr if step_lr is None else step_lr,
+        )
 
     ctx = AggContext(
         apply_fn=model.apply,
@@ -375,12 +455,42 @@ def build_round_program(
     else:
         inject_rows = None
 
+    def sender_view(vec):
+        """[k, N] sender-side view of an [N] node flag: row j holds
+        vec[(i + offsets[j]) % N] at column i."""
+        return torch.stack([torch.roll(vec, -o) for o in sparse_offsets])
+
     def both_ways(adj, flags):
         """Drop the edges whose receiver or sender has flag 0."""
+        if sparse:
+            return adj * flags[None, :] * sender_view(flags)
         return adj * flags[:, None] * flags[None, :]
 
+    def drop_senders(adj, flags):
+        """Drop the edges whose sender has flag 0."""
+        if sparse:
+            return adj * sender_view(flags)
+        return adj * flags[None, :]
+
+    def in_degree(adj):
+        """[N] live in-edges of each receiver."""
+        return adj.sum(dim=0) if sparse else adj.sum(dim=1)
+
+    def training_mask(compromised, alive):
+        """The round's [N] training mask: honest nodes (every node under an
+        attack that trains locally), alive ones on a faulted program."""
+        honest = 1.0 - compromised
+        train_mask = (
+            torch.ones_like(honest)
+            if attack is not None and attack.trains_locally
+            else honest
+        )
+        if alive is not None:
+            train_mask = train_mask * alive
+        return train_mask
+
     def produce_exchange(flat, agg_state, adj, compromised, alive, round_idx, generators,
-                         draws):
+                         draws, trained=None):
         """Steps 1-2d of the round, the production of its exchange: local
         training, the sentinels, the attack, the codec and the stale fold,
         shared by the serialized and pipelined rounds and by ``train_flat``.
@@ -389,32 +499,28 @@ def build_round_program(
         epoch; ``noise`` the attack's [C, P] normal draws; ``dropout`` the
         keep masks, indexed ``[epoch][step][layer]``, each a bool [N, B,
         width_l] (node, batch slot, unit) for the layers of
-        ``model.dropout_widths``.  Returns the post-scrub ``own_flat``,
+        ``model.dropout_widths``.  ``trained`` (a gang's member rows,
+        trained by ``train_rows`` with the others) replaces local training.
+        Returns the post-scrub ``own_flat``,
         ``bcast`` and ``adj`` as the serialized aggregation consumes them,
         ``pre_flat`` and ``finite`` (the quarantine bookkeeping), the
         updated ``agg_state`` and the stage stats."""
         generators = generators or {}
         draws = draws or {}
-        lambda_t = min(1.0, round_idx / max(1, annealing_rounds)) * EVIDENTIAL_LAMBDA
-        honest = 1.0 - compromised
-        train_mask = (
-            torch.ones_like(honest)
-            if attack is not None and attack.trains_locally
-            else honest
-        )
+        train_mask = training_mask(compromised, alive)
         pre_flat = None
         if alive is not None:
             # Dead nodes freeze like compromised ones.  The adjacency is
             # re-masked by alive here even though the schedule's masked
             # adjacency folds it in already (alive * alive == alive).
             adj = both_ways(adj, alive)
-            train_mask = train_mask * alive
             pre_flat = flat
-        with record_function("murmura.train"):
-            own_flat = local_training(
-                flat.clone(), train_mask, generators.get("train"), draws.get("u"),
-                draws.get("dropout"), lambda_t,
-            )
+        if trained is not None:
+            own_flat = trained
+        else:
+            with record_function("murmura.train"):
+                own_flat = train_rows(flat.clone(), train_mask, round_idx,
+                                      [generators.get("train")], draws=draws)
         fault_stats = {}
         if inject_rows is not None and round_idx >= faults.nan_inject_from_round:
             own_flat = torch.where(
@@ -441,13 +547,19 @@ def build_round_program(
                 bcast = attack.apply(
                     own_flat, compromised, generators.get("attack"), noise=noise
                 )
+            if attack_scale is not None:
+                # A gang member's attack intensity: the perturbation the
+                # attack added, scaled in float32 (0 turns it off); before the
+                # scrub, so an amplified-to-inf row is still caught.
+                bcast = (own_flat.to(torch.float32) + attack_scale
+                         * (bcast - own_flat).to(torch.float32)).to(own_flat.dtype)
             if finite is not None:
                 # An attack that overflows to inf/NaN: its broadcast row is
                 # replaced by the sender's own row and dropped from every
                 # receiver; the sender's own state is untouched.
                 bfin = torch.isfinite(bcast).all(dim=1)
                 bcast = torch.where(bfin[:, None], bcast, own_flat)
-                adj = adj * bfin.to(adj.dtype)[None, :]
+                adj = drop_senders(adj, bfin.to(adj.dtype))
                 fault_stats["attack_scrubbed"] = (1.0 - bfin.to(torch.float32)).sum()
                 if audit_taps:
                     fault_stats["tap_attack_scrubbed"] = 1.0 - bfin.to(torch.float32)
@@ -492,11 +604,12 @@ def build_round_program(
             metrics.update({f"agg_{k}": v for k, v in prod[group].items()})
         return metrics
 
-    def round_body(flat, agg_state, adj, compromised, alive, round_idx, generators, draws):
+    def round_body(flat, agg_state, adj, compromised, alive, round_idx, generators, draws,
+                   trained):
         """One serialized round: produce the exchange, aggregate it, then
         the fault guards."""
         prod = produce_exchange(flat, agg_state, adj, compromised, alive, round_idx,
-                                generators, draws)
+                                generators, draws, trained)
         own_flat, adj, agg_state = prod["own_flat"], prod["adj"], prod["agg_state"]
         rule_state = {k: v for k, v in agg_state.items() if k not in reserved}
         with record_function("murmura.aggregate"):
@@ -507,7 +620,7 @@ def build_round_program(
         if alive is not None:
             # No alive neighbour: the node keeps its own state.  Dead nodes
             # freeze at the pre-round value, quarantined ones roll back.
-            deg = adj.sum(dim=1)
+            deg = in_degree(adj)
             new_flat = torch.where((deg > 0)[:, None], new_flat, own_flat)
             keep = alive > 0
             if prod["finite"] is not None:
@@ -519,7 +632,7 @@ def build_round_program(
         return new_flat, agg_state, stats_metrics(agg_stats, prod)
 
     def round_body_pipelined(flat, agg_state, adj, compromised, alive, round_idx, generators,
-                             draws):
+                             draws, trained):
         """One pipelined round (core/pipeline.py): stage A aggregates the
         buffered round r-1 exchange, stage B produces round r's, stage C
         adds the delayed displacement and swaps the buffer.  Stage A comes
@@ -534,6 +647,9 @@ def build_round_program(
         else:
             buf_bcast = agg_state[PIPE_BCAST_KEY]
         buf_adj = agg_state[PIPE_ADJ_KEY]
+        if sparse:
+            # Stored node-leading [N, k]; the rules take [k, N].
+            buf_adj = buf_adj.T
         rule_state = {k: v for k, v in agg_state.items() if k not in pipe_reserved}
         with record_function("murmura.aggregate"):
             # The buffer belongs to round r-1; round 0's is the invalid
@@ -543,7 +659,7 @@ def build_round_program(
             )
         if alive is not None:
             # The zero-alive-neighbour guard at the buffered graph.
-            deg_b = buf_adj.sum(dim=1)
+            deg_b = in_degree(buf_adj)
             agg_out = torch.where((deg_b > 0)[:, None], agg_out, buf_own)
         # where, not multiply: a non-finite placeholder output is dropped.
         disp = torch.where(valid > 0, agg_out - buf_own, torch.zeros_like(buf_own))
@@ -554,7 +670,7 @@ def build_round_program(
         }
         # ---- stage B: the production of round r's exchange ----
         prod = produce_exchange(flat, agg_state, adj, compromised, alive, round_idx,
-                                generators, draws)
+                                generators, draws, trained)
         own_flat, agg_state = prod["own_flat"], prod["agg_state"]
         # ---- stage C: combine and swap the buffer ----
         with record_function("murmura.pipeline"):
@@ -570,7 +686,8 @@ def build_round_program(
                 prod["fault_stats"]["alive"] = alive.sum()
                 if audit_taps:
                     prod["fault_stats"]["tap_alive"] = alive
-        buffer = {PIPE_OWN_KEY: own_flat, PIPE_ADJ_KEY: prod["adj"],
+        buffer = {PIPE_OWN_KEY: own_flat,
+                  PIPE_ADJ_KEY: prod["adj"].T if sparse else prod["adj"],
                   PIPE_VALID_KEY: torch.ones_like(valid)}
         if stale_fold is None:
             buffer[PIPE_BCAST_KEY] = prod["bcast"]
@@ -597,11 +714,14 @@ def build_round_program(
         generators: Optional[Dict[str, torch.Generator]] = None,
         draws: Optional[Dict[str, Any]] = None,
         alive: Optional[torch.Tensor] = None,
+        trained: Optional[torch.Tensor] = None,
     ):
         """One round (round_body, or round_body_pipelined on a pipelined
-        program); a faulted program needs ``alive``."""
+        program); a faulted program needs ``alive``.  ``trained`` (a gang's
+        member rows, trained by ``train_rows``) replaces local training."""
         check_alive(alive)
-        return body(flat, agg_state, adj, compromised, alive, round_idx, generators, draws)
+        return body(flat, agg_state, adj, compromised, alive, round_idx, generators, draws,
+                    trained)
 
     def train_flat(flat, agg_state, adj, compromised, round_idx, generators=None, draws=None,
                    alive=None):
@@ -619,8 +739,12 @@ def build_round_program(
 
     @torch.no_grad()
     @record_function("murmura.eval")
-    def eval_step(flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x, y, mask = d["eval_x"], d["eval_y"], d["eval_mask"]
+    def eval_step(flat: torch.Tensor, data=None) -> Dict[str, torch.Tensor]:
+        """Per-row eval metrics of ``flat``'s rows against the matching rows
+        of ``data``'s eval arrays (default: this program's)."""
+        dd = d if data is None else data
+        x, y, mask = dd["eval_x"], dd["eval_y"], dd["eval_mask"]
+        n = flat.shape[0]
         params = unravel(flat)
         s = x.shape[1]
         chunk = max(1, min(EVAL_CHUNK, s))
@@ -677,7 +801,8 @@ def build_round_program(
                 "reserved for the pipelined exchange"
             )
         init_agg_state.update(init_pipeline_state(
-            n, model_dim, init_flat.dtype, stale=staleness is not None, device=device))
+            n, model_dim, init_flat.dtype, sparse_offsets=sparse_offsets,
+            stale=staleness is not None, device=device))
     return RoundProgram(
         train_step=train_step,
         eval_step=eval_step,
@@ -693,6 +818,9 @@ def build_round_program(
         compression=compression,
         pipelined=pipeline,
         train_flat=train_flat,
+        train_rows=train_rows,
+        training_mask=training_mask,
+        sparse_offsets=sparse_offsets,
     )
 
 

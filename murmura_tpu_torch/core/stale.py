@@ -1,4 +1,4 @@
-# Copy of murmura_tpu/core/stale.py, dense mode, without its LEVER_MANIFEST block.
+# Copy of murmura_tpu/core/stale.py without its LEVER_MANIFEST block.
 """Bounded-staleness gossip: the stale-tolerant exchange layer.
 
 Without it a neighbour whose payload misses the round (a straggler, a
@@ -29,12 +29,14 @@ the fractional re-added weight; selection rules (Krum, median, trimmed
 mean) treat any positive weight as a full candidate.  The weights reach
 the rule unchanged, never binarised.
 
-Only the dense [N, N] mode is ported; the sparse [k, N] edge-mask mode
-arrives with the sparse topologies.
+In sparse mode (a sparse topology, topology/sparse.py) the adjacency is
+the [k, N] edge mask and the base graph the all-active [k, N] mask of the
+static exponential family; every step runs on [N] node flags rolled onto
+the offsets, never on an [N, N] matrix.
 """
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,7 +53,8 @@ class StalenessSpec:
     """Bounded-staleness spec (config: ``exchange:``).
 
     ``base_mask`` is the unfaulted exchange graph the re-added edges are
-    drawn from: the static [N, N] topology mask, zero diagonal.
+    drawn from: the static [N, N] topology mask, zero diagonal, or the
+    all-active [k, N] edge mask of a sparse topology.
     """
 
     max_staleness: int
@@ -90,8 +93,10 @@ def init_stale_state(
     }
 
 
-def make_stale_fold(spec: StalenessSpec, audit: bool = False, device="cpu"):
-    """The staleness fold of one round program on ``device``.
+def make_stale_fold(spec: StalenessSpec, sparse_offsets: Tuple[int, ...] = (),
+                    audit: bool = False, device="cpu"):
+    """The staleness fold of one round program on ``device``; with
+    ``sparse_offsets``, of a sparse program (the [k, N] edge mask).
 
     ``audit`` (telemetry.audit_taps) also emits the per-node
     ``tap_stale_used`` / ``tap_stale_age`` stats.
@@ -99,24 +104,36 @@ def make_stale_fold(spec: StalenessSpec, audit: bool = False, device="cpu"):
     Returns ``fold(bcast, adj, state, recv_ok, scrub_ok) -> (bcast_eff,
     adj_eff, state_updates, stats)`` where ``bcast`` is the round's
     exchanged [N, P] tensor (post-attack, post-sentinel, post-codec: finite);
-    ``adj`` the fully folded [N, N] adjacency; ``state`` the
+    ``adj`` the fully folded [N, N] adjacency ([k, N] edge mask in sparse
+    mode); ``state`` the
     :data:`STALE_STATE_KEYS` entries; ``recv_ok`` the [N] receiver
     eligibility (alive and not quarantined: re-added edges mirror the fresh
     folds' receiver side); ``scrub_ok`` the [N] product of this round's
     sender sentinel verdicts (0 = quarantined or attack-scrubbed), the gate
     that withholds a caught row's cached copy.
 
-    Every step is elementwise over [N] / [N, N] tensors plus one column sum:
-    nothing synchronises with the host.
+    Every step is elementwise over [N] / [N, N] tensors plus one column sum
+    (dense), or rolls of [N] rows onto the offsets (sparse): nothing
+    synchronises with the host.
     """
+    sparse_offsets = tuple(int(o) for o in sparse_offsets)
+    sparse = bool(sparse_offsets)
     base = np.asarray(spec.base_mask, dtype=np.float32)
-    if base.ndim != 2 or base.shape[0] != base.shape[1]:
-        raise ValueError(f"dense staleness base mask must be square [N, N], got {base.shape}")
-    if np.diagonal(base).any():
-        raise ValueError(
-            "dense staleness base mask must have a zero diagonal "
-            "(re-added edges must never include self-loops)"
-        )
+    if sparse:
+        if base.ndim != 2 or base.shape[0] != len(sparse_offsets):
+            raise ValueError(
+                f"sparse staleness base mask must be [k, N] with k = "
+                f"{len(sparse_offsets)} offsets, got {base.shape}"
+            )
+    else:
+        if base.ndim != 2 or base.shape[0] != base.shape[1]:
+            raise ValueError(
+                f"dense staleness base mask must be square [N, N], got {base.shape}")
+        if np.diagonal(base).any():
+            raise ValueError(
+                "dense staleness base mask must have a zero diagonal "
+                "(re-added edges must never include self-loops)"
+            )
     # On the device once: a copy a round would synchronise a fused chunk.
     base_c = torch.from_numpy(base).to(device)
     max_staleness = float(spec.max_staleness)
@@ -126,6 +143,18 @@ def make_stale_fold(spec: StalenessSpec, audit: bool = False, device="cpu"):
     # (a small integer) times it is then one float32 rounding on every
     # device and in either package.
     log_discount = float(np.float32(np.log(discount))) if discount < 1.0 else 0.0
+
+    def sender_view(vec):
+        """[k, N]: row j holds vec[(i + offsets[j]) % N] at column i."""
+        return torch.stack([torch.roll(vec, -o) for o in sparse_offsets])
+
+    def sender_out_degree(adj):
+        """[N] live out-edges of each sender: column sums, or the [k, N]
+        rows rolled back onto the sender index."""
+        if sparse:
+            return sum(torch.roll(adj[j].to(torch.float32), o)
+                       for j, o in enumerate(sparse_offsets))
+        return adj.sum(dim=0)
 
     def fold(bcast, adj, state, recv_ok, scrub_ok):
         n = recv_ok.shape[0]
@@ -140,7 +169,7 @@ def make_stale_fold(spec: StalenessSpec, audit: bool = False, device="cpu"):
         # Delivery: a sender with at least one live out-edge put its payload
         # in the network this round; a zeroed column means straggle, death,
         # quarantine, scrub or total link isolation.
-        deliver = (adj.sum(dim=0) > 0).to(torch.float32)
+        deliver = (sender_out_degree(adj) > 0).to(torch.float32)
         age_new = torch.where(
             deliver > 0, torch.zeros_like(age), torch.clamp(age + 1.0, max=age_cap)
         )
@@ -154,7 +183,10 @@ def make_stale_fold(spec: StalenessSpec, audit: bool = False, device="cpu"):
         # Re-added edges: base-graph in-edges of stale senders, gated by the
         # receiver.  A delivering sender's column carries w_sender = 0, so
         # no live edge is counted twice.
-        readd = base_c * recv_ok[:, None] * w_sender[None, :]
+        if sparse:
+            readd = base_c * recv_ok[None, :] * sender_view(w_sender)
+        else:
+            readd = base_c * recv_ok[:, None] * w_sender[None, :]
         adj_eff = adj + readd
 
         # One payload version a sender: fresh rows pass, stale rows take the
@@ -168,7 +200,12 @@ def make_stale_fold(spec: StalenessSpec, audit: bool = False, device="cpu"):
         # "Expired" counts age expiry only (a round-0 cold cache reads as
         # infinitely old); a scrub-withheld sender is not expired.
         expired = (1.0 - deliver) * scrub_ok * (age_new > max_staleness).to(torch.float32)
-        expired_edges = base_c * recv_ok[:, None] * expired[None, :]
+        if sparse:
+            used_in = used.sum(dim=0)  # stale in-edges of each receiver
+            expired_edges = base_c * recv_ok[None, :] * sender_view(expired)
+        else:
+            used_in = used.sum(dim=1)
+            expired_edges = base_c * recv_ok[:, None] * expired[None, :]
         stats = {
             "stale_used": used.sum(),
             "stale_expired": (expired_edges > 0).to(torch.float32).sum(),
@@ -177,8 +214,8 @@ def make_stale_fold(spec: StalenessSpec, audit: bool = False, device="cpu"):
             # Which receivers aggregated stale rows, and how old each served
             # sender's payload was (0 = fresh or not served: a usable cache
             # that no eligible receiver took was not served).
-            served = (used.sum(dim=0) > 0).to(torch.float32)
-            stats["tap_stale_used"] = used.sum(dim=1)
+            served = (sender_out_degree(used) > 0).to(torch.float32)
+            stats["tap_stale_used"] = used_in
             stats["tap_stale_age"] = age_new * usable * served
         return bcast_eff, adj_eff, updates, stats
 

@@ -10,6 +10,12 @@ reference, the stale cache and ages, the pipeline buffer), the run's seed,
 the round counter, the history and the round times; plus the
 orchestrator's **extra sections** through the ``_durability_*`` hooks of
 :class:`~murmura_tpu_torch.core.network.Network` (the telemetry run id).
+A gang (:class:`~murmura_tpu_torch.core.gang.GangNetwork`) saves its
+members' parameters as one ``[S, N, P]`` tensor, their carried states
+stacked key by key, the list of member seeds, one history a member under
+``gang_members`` with the member labels, and a ``gang`` extra section; a
+gang refuses a single run's snapshot and one of another member set, and a
+single run refuses a gang's, each before anything is assigned.
 
 Resuming is exact because every random stream of the port is a pure
 function of (seed, round): the round generators (core/rounds.py), the
@@ -138,18 +144,20 @@ def restore_run_snapshot(directory, network) -> int:
             f"{_describe(network.flat)}: it was written by a different config; "
             "rebuild with the matching config"
         )
-    if set(agg_state) != set(network.agg_state):
+    live = network.agg_state
+    if set(agg_state) != set(live):
         raise ValueError(
             f"snapshot agg_state keys {sorted(agg_state)} differ from this run's "
-            f"{sorted(network.agg_state)}: it was written by a different config "
+            f"{sorted(live)}: it was written by a different config "
             "(rule, compression, staleness or pipeline); rebuild with the matching config"
         )
     for k, v in agg_state.items():
-        if _describe(v) != _describe(network.agg_state[k]):
+        if _describe(v) != _describe(live[k]):
             raise ValueError(
                 f"snapshot agg_state[{k!r}] {_describe(v)} does not match this run's "
-                f"{_describe(network.agg_state[k])}; rebuild with the matching config"
+                f"{_describe(live[k])}; rebuild with the matching config"
             )
+    del live
     network.flat = flat
     network.agg_state = agg_state
     network.current_round = round_num

@@ -13,6 +13,7 @@ _REFUSALS: Dict[Tuple[str, str, Optional[str]], str] = {
     ("adaptive", "dmtt", None): "adaptive attacks do not compose with dmtt (the claims channel is a second feedback path the adaptation state does not model)",
     ("mobility", "sparse", None): "sparse topologies do not compose with mobility (G^t is a dense per-round graph); drop the mobility block or use a dense topology",
     ("dmtt", "sparse", None): "sparse topologies do not compose with dmtt (claim verification needs the dense exchange graph)",
+    ("sparse", "sweep", "tpu_backend"): "sparse topologies (exponential/one_peer) are not gang-batchable on backend: tpu yet (the gang mesh lacks the [k, N] edge-mask sharding layout) — use backend: simulation for sparse gangs, or run sparse tpu experiments unganged",
     ("population", "sweep", None): "population does not compose with sweep (gang batching) yet — run cohort-streaming experiments unganged",
     ("dmtt", "population", None): "population does not compose with dmtt (trust state is keyed by node identity, which cohort swaps reassign)",
     ("compression", "dmtt", None): "compression does not compose with dmtt (claim cross-evaluation consumes the uncompressed broadcast)",

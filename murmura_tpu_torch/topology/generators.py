@@ -1,10 +1,10 @@
-# Copy of the dense families of murmura_tpu/topology/generators.py.
+# Copy of murmura_tpu/topology/generators.py.
 """Topology generators: ring, fully connected, seeded Erdős–Rényi with
 isolated-node fixup, circulant k-regular (odd k bumped to k+1; k >= n
-degenerates to fully connected), as dense adjacency matrices.
-
-The sparse offset-list families (``exponential``, ``one_peer``) are not
-ported yet and are refused by name.
+degenerates to fully connected), as dense adjacency matrices; and the
+sparse offset-list families ``exponential`` and ``one_peer``, as
+:class:`~murmura_tpu_torch.topology.sparse.SparseTopology` (the round
+program then takes a [k, N] edge mask instead of the [N, N] adjacency).
 """
 
 from typing import Optional
@@ -12,9 +12,10 @@ from typing import Optional
 import numpy as np
 
 from murmura_tpu_torch.topology.base import Topology
+from murmura_tpu_torch.topology.sparse import SparseTopology, exponential_offsets
 
 SPARSE_TOPOLOGY_TYPES = ("exponential", "one_peer")
-TOPOLOGY_TYPES = ("ring", "fully", "erdos", "k-regular")
+TOPOLOGY_TYPES = ("ring", "fully", "erdos", "k-regular") + SPARSE_TOPOLOGY_TYPES
 
 
 def create_topology(
@@ -24,7 +25,7 @@ def create_topology(
     k: Optional[int] = None,
     seed: int = 12345,
     **_ignored,
-) -> Topology:
+) -> "Topology | SparseTopology":
     """Create a topology by name."""
     t = topology_type.lower()
     if t == "ring":
@@ -35,11 +36,10 @@ def create_topology(
         return erdos_renyi(num_nodes, 0.3 if p is None else p, seed)
     if t in ("k-regular", "kregular"):
         return k_regular(num_nodes, 4 if k is None else k)
-    if t in SPARSE_TOPOLOGY_TYPES or t == "one-peer":
-        raise ValueError(
-            f"topology '{topology_type}' is a sparse offset-list family, "
-            "which the PyTorch port does not run yet"
-        )
+    if t == "exponential":
+        return exponential(num_nodes)
+    if t in ("one_peer", "one-peer"):
+        return one_peer(num_nodes)
     raise ValueError(f"Unknown topology type: {topology_type}")
 
 
@@ -80,6 +80,19 @@ def erdos_renyi(n: int, p: float, seed: int = 12345) -> Topology:
             if i != j:
                 adj[i, j] = adj[j, i] = True
     return Topology(num_nodes=n, adjacency=adj)
+
+
+def exponential(n: int) -> SparseTopology:
+    """Static exponential graph (arXiv:2110.13363): directed circulant with
+    offsets ``2^i mod n``, degree O(log n), never ``[N, N]``."""
+    return SparseTopology(num_nodes=n, offsets=exponential_offsets(n))
+
+
+def one_peer(n: int) -> SparseTopology:
+    """One-peer exponential graph: the offsets of :func:`exponential`, only
+    offset ``t mod k`` active in round ``t`` (per-round degree 1), the
+    activation carried by the edge mask's values."""
+    return SparseTopology(num_nodes=n, offsets=exponential_offsets(n), schedule="one_peer")
 
 
 def k_regular(n: int, k: int) -> Topology:

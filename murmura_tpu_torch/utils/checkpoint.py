@@ -115,10 +115,10 @@ def save_checkpoint(
 ) -> int:
     """Write a checkpoint; returns the bytes written (payload and meta).
 
-    ``params`` is the node-stacked flat ``[N, P]`` tensor, ``agg_state`` the
-    whole carried state, ``rng`` the run's seed (the port's generators are
-    a pure function of (seed, round)); each tensor is copied to the host
-    once.  ``extra_arrays`` land in ``extra.<round>.pt`` and their names in
+    ``params`` is the node-stacked flat ``[N, P]`` tensor (a gang's ``[S,
+    N, P]``), ``agg_state`` the whole carried state, ``rng`` the run's seed
+    (a gang's list of member seeds; the port's generators are a pure
+    function of (seed, round)); each tensor is copied to the host once.  ``extra_arrays`` land in ``extra.<round>.pt`` and their names in
     ``meta.json["sections"]``, ``extra_meta`` (json-able) in
     ``meta.json["extra_meta"]``.
     """
@@ -128,7 +128,7 @@ def save_checkpoint(
     blob = _to_bytes({
         "params": _host(params),
         "agg_state": {k: _host(v) for k, v in agg_state.items()},
-        "rng": torch.tensor(int(rng), dtype=torch.int64),
+        "rng": torch.tensor(rng, dtype=torch.int64),
         # Duplicated in meta.json; restore cross-checks the two.
         "round": torch.tensor(int(round_num), dtype=torch.int64),
     })
@@ -183,7 +183,8 @@ def restore_checkpoint(directory, device="cpu") -> Tuple[
     Dict[str, torch.Tensor], Dict[str, Any],
 ]:
     """Load (params, agg_state, rng, round, history, round_times,
-    extra_arrays, extra_meta), the tensors onto ``device``.  Validation
+    extra_arrays, extra_meta), the tensors onto ``device``; ``rng`` is the
+    seed (an int) or a gang's list of seeds.  Validation
     against a live run is the caller's (durability/snapshot.py)."""
     d = Path(directory)
     meta = _read_meta(d)
@@ -217,7 +218,7 @@ def restore_checkpoint(directory, device="cpu") -> Tuple[
     return (
         state["params"],
         dict(state["agg_state"]),
-        int(state["rng"]),
+        state["rng"].tolist(),
         int(meta["round"]),
         meta["history"],
         list(meta["round_times"]),

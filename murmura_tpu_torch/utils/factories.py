@@ -4,9 +4,13 @@ murmura_tpu/utils/factories.py).
 ``build_network_from_config`` builds data, model, topology, the attack
 (with its label poison), the aggregation rule, the fault schedule and
 spec, the compression and staleness specs, the telemetry writer and the
-round program (pipelined under ``exchange.pipeline``), and refuses by name
-every part of the configuration surface the port does not run yet — a
-refused section is an error, never a silent fallback.
+round program (pipelined under ``exchange.pipeline``; on the [k, N] edge
+mask for a sparse topology), and refuses by name every part of the
+configuration surface the port does not run yet — a refused section is an
+error, never a silent fallback.  ``build_gang_from_config`` builds the same
+per member of a gang (core/gang.py): data, initial parameters and draws
+from each member's seed, one attack placement, topology and fault schedule
+for all.
 """
 
 import os
@@ -22,12 +26,14 @@ from murmura_tpu_torch.config.schema import Config
 from murmura_tpu_torch.core.network import Network
 from murmura_tpu_torch.core.rounds import build_round_program
 from murmura_tpu_torch.core.stale import StalenessSpec
+from murmura_tpu_torch.levers import refusal_reason
 from murmura_tpu_torch.data.registry import build_federated_data
 from murmura_tpu_torch.faults.schedule import FaultSchedule, FaultSpec
 from murmura_tpu_torch.models.registry import build_model
 from murmura_tpu_torch.ops.compress import CompressionSpec
 from murmura_tpu_torch.ops.flatten import model_dimension
 from murmura_tpu_torch.topology.generators import create_topology
+from murmura_tpu_torch.topology.sparse import SparseTopology
 from murmura_tpu_torch.utils.checkpoint import has_checkpoint
 
 
@@ -42,16 +48,12 @@ def unported_sections(config: Config) -> List[str]:
     out = []
     if config.backend == "distributed":
         out.append("backend: distributed (the ZMQ multi-process backend)")
-    if config.topology.type in ("exponential", "one_peer"):
-        out.append(f"topology.type: {config.topology.type} (sparse topologies)")
     if config.mobility is not None:
         out.append("mobility")
     if config.dmtt is not None:
         out.append("dmtt")
     if config.population is not None and config.population.enabled:
         out.append("population (cohort streaming)")
-    if config.sweep is not None:
-        out.append("sweep (gang-batched seeds)")
     if config.frontier is not None:
         out.append("frontier (the robustness frontier search)")
     if config.grid is not None:
@@ -124,16 +126,28 @@ def build_compression_spec(config: Config) -> Optional[CompressionSpec]:
 
 def build_staleness_spec(config: Config, topology) -> Optional[StalenessSpec]:
     """StalenessSpec from config.exchange, or None when off.  The base mask
-    is the topology's static [N, N] mask, the unfaulted graph re-added
-    stale edges are drawn from (the sparse topologies are not ported)."""
+    is the unfaulted graph re-added stale edges are drawn from: the
+    topology's static [N, N] mask, or the all-active [k, N] edge mask of a
+    sparse topology (one_peer's round-varying mask is refused by the
+    schema)."""
     e = config.exchange
     if e.max_staleness <= 0:
         return None
+    if isinstance(topology, SparseTopology):
+        base = np.ones((len(topology.offsets), topology.num_nodes), np.float32)
+    else:
+        base = np.asarray(topology.mask(), dtype=np.float32)
     return StalenessSpec(
         max_staleness=e.max_staleness,
         discount=e.staleness_discount,
-        base_mask=np.asarray(topology.mask(), dtype=np.float32),
+        base_mask=base,
     )
+
+
+def sparse_offsets_of(topology):
+    """A sparse topology's offsets (its round program takes the [k, N] edge
+    mask), else None."""
+    return tuple(topology.offsets) if isinstance(topology, SparseTopology) else None
 
 
 def default_telemetry_dir(config: Config) -> str:
@@ -254,61 +268,19 @@ def resolve_model(config: Config, data):
     return model
 
 
-def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None) -> Network:
-    """Full wiring: data + model + aggregator + attack -> Network on ``device``.
-
-    ``checkpoint_dir``: the snapshot directory this run will resume from,
-    when given; the telemetry writer then appends to its stream exactly
-    when a snapshot exists there (a resume with no snapshot yet is a fresh
-    run).  The caller restores the snapshot (Network.restore_checkpoint)."""
-    refused = unported_sections(config)
-    if refused:
-        raise ConfigError(
-            "the PyTorch port does not run these config sections yet: "
-            + "; ".join(refused)
-        )
-    device = torch.device(device)
-    n = config.topology.num_nodes
-    seed = config.experiment.seed
-
-    try:
-        data = build_federated_data(
-            config.data.adapter,
-            config.data.params,
-            num_nodes=n,
-            seed=seed,
-            max_samples=config.training.max_samples,
-        )
-    except ValueError as e:
-        raise ConfigError(str(e)) from None
-    model = resolve_model(config, data)
-    topology = create_topology(
-        config.topology.type,
-        num_nodes=n,
-        p=config.topology.p,
-        k=config.topology.k,
-        seed=config.topology.seed,
-    )
-    attack = build_attack(config)
-    if attack is not None and attack.data_poison_fn is not None:
-        if data.x_test is None:
-            # Without a held-out split the evaluation reads the training
-            # shard, flipped labels included: the metric would measure the
-            # poison, not its damage.
-            raise ConfigError(
-                "data-poisoning attacks need a clean eval split: this "
-                "adapter/config evaluates on the training shard "
-                "(holdout_fraction: 0.0); set holdout_fraction > 0 or "
-                "use an adapter with test shards"
-            )
-        # Before the round program copies the labels: the probe batches
-        # see the poisoned labels too.
-        data.y = attack.data_poison_fn(data.y, data.mask, data.num_classes)
-
-    # tpu.pallas_agg selects nothing here: on the card the distance kernels
-    # are the implementation, with no alternative path to opt out to.
+def build_rule(config: Config, model, topology):
+    """The aggregation rule of ``config`` for ``topology`` and its probe
+    size: a sparse topology always runs the [k, N] edge-mask exchange (the
+    circulant paths under the edge mask, whatever ``tpu.exchange`` says),
+    ``tpu.exchange: ppermute`` the circulant paths of a circulant topology.
+    ``tpu.pallas_agg`` selects nothing here: on the card the distance
+    kernels are the implementation, with no alternative path to opt out to."""
     agg_params = dict(config.aggregation.params)
-    if config.backend == "tpu" and config.tpu.exchange == "ppermute":
+    sparse = isinstance(topology, SparseTopology)
+    if sparse:
+        agg_params["exchange_offsets"] = list(topology.offsets)
+        agg_params["sparse_exchange"] = True
+    elif config.backend == "tpu" and config.tpu.exchange == "ppermute":
         offsets = topology.circulant_offsets()
         if offsets is None:
             raise ConfigError(
@@ -316,7 +288,8 @@ def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None
                 f"(ring/k-regular); '{config.topology.type}' is not"
             )
         agg_params["exchange_offsets"] = offsets
-    if config.aggregation.algorithm in ("krum", "median", "trimmed_mean", "geometric_median"):
+    if (config.aggregation.algorithm in ("krum", "median", "trimmed_mean", "geometric_median")
+            and not sparse):
         # Static graph: bound the per-node candidate block at max-degree + 1.
         agg_params.setdefault(
             "max_candidates", int(topology.mask().sum(axis=1).max()) + 1
@@ -334,14 +307,62 @@ def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None
         agg = build_aggregator(config.aggregation.algorithm, agg_params, model_dim=model_dim)
     except ValueError as e:
         raise ConfigError(str(e)) from None
+    return agg, probe_size
 
+
+def build_topology(config: Config):
+    """The config's topology: dense, or a SparseTopology (exponential,
+    one_peer)."""
+    return create_topology(
+        config.topology.type,
+        num_nodes=config.topology.num_nodes,
+        p=config.topology.p,
+        k=config.topology.k,
+        seed=config.topology.seed,
+    )
+
+
+def build_program(config: Config, topology, attack, seed: int, device, rule=None,
+                  lr: Optional[float] = None, attack_scale: Optional[float] = None):
+    """The round program of one run (a single run, or one gang member):
+    data from ``seed`` with the attack's label poison, and the model and
+    rule (``rule``: a (model, agg, probe_size) already built for this
+    config, else built here from the data).  Returns (program, rule)."""
+    try:
+        data = build_federated_data(
+            config.data.adapter,
+            config.data.params,
+            num_nodes=config.topology.num_nodes,
+            seed=seed,
+            max_samples=config.training.max_samples,
+        )
+    except ValueError as e:
+        raise ConfigError(str(e)) from None
+    if attack is not None and attack.data_poison_fn is not None:
+        if data.x_test is None:
+            # Without a held-out split the evaluation reads the training
+            # shard, flipped labels included: the metric would measure the
+            # poison, not its damage.
+            raise ConfigError(
+                "data-poisoning attacks need a clean eval split: this "
+                "adapter/config evaluates on the training shard "
+                "(holdout_fraction: 0.0); set holdout_fraction > 0 or "
+                "use an adapter with test shards"
+            )
+        # Before the round program copies the labels: the probe batches
+        # see the poisoned labels too.
+        data.y = attack.data_poison_fn(data.y, data.mask, data.num_classes)
+    if rule is None:
+        model = resolve_model(config, data)
+        rule = (model, *build_rule(config, model, topology))
+    model, agg, probe_size = rule
     program = build_round_program(
         model,
         agg,
         data,
         local_epochs=config.training.local_epochs,
         batch_size=config.training.batch_size,
-        lr=config.training.lr,
+        lr=config.training.lr if lr is None else lr,
         total_rounds=config.experiment.rounds,
         attack=attack,
         seed=seed,
@@ -353,7 +374,34 @@ def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None
         audit_taps=config.telemetry.audit_taps,
         staleness=build_staleness_spec(config, topology),
         pipeline=config.exchange.pipeline,
+        sparse_offsets=sparse_offsets_of(topology),
+        attack_scale=attack_scale,
     )
+    return program, rule
+
+
+def refuse_unported(config: Config) -> None:
+    """Raise ConfigError naming every section the port does not run yet."""
+    refused = unported_sections(config)
+    if refused:
+        raise ConfigError(
+            "the PyTorch port does not run these config sections yet: "
+            + "; ".join(refused)
+        )
+
+
+def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None) -> Network:
+    """Full wiring: data + model + aggregator + attack -> Network on ``device``.
+
+    ``checkpoint_dir``: the snapshot directory this run will resume from,
+    when given; the telemetry writer then appends to its stream exactly
+    when a snapshot exists there (a resume with no snapshot yet is a fresh
+    run).  The caller restores the snapshot (Network.restore_checkpoint)."""
+    refuse_unported(config)
+    seed = config.experiment.seed
+    topology = build_topology(config)
+    attack = build_attack(config)
+    program, _ = build_program(config, topology, attack, seed, torch.device(device))
     resume = checkpoint_dir is not None and has_checkpoint(checkpoint_dir)
     return Network(program, topology, attack=attack, seed=seed,
                    fault_schedule=build_fault_schedule(config),
@@ -361,3 +409,69 @@ def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None
                    profile_dir=config.tpu.profile_dir,
                    transfer_guard=config.tpu.transfer_guard,
                    recompile_guard=config.tpu.recompile_guard)
+
+
+def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint_dir=None):
+    """Gang wiring (core/gang.py): the ``sweep`` and ``run --seeds`` path.
+
+    As :func:`build_network_from_config`, except that the data, the initial
+    parameters and the draws come from each member's seed, and a member's
+    ``lr`` and ``attack_scale`` overrides reach its training and attack.
+    The attack's placement (seeded by ``attack.params.seed``, else the base
+    experiment seed), the topology, the model and rule and the fault
+    schedule are the gang's.  ``seeds``: an explicit member seed list (the
+    CLI's ``--seeds``), else ``config.sweep`` defines the members.
+    ``checkpoint_dir``: as there, for each member's telemetry stream."""
+    from murmura_tpu_torch.core.gang import GangNetwork, gang_hp_inputs, resolve_members
+
+    if config.backend == "distributed":
+        raise ConfigError(
+            "gang-batched sweeps need the jitted backends; backend: "
+            "distributed trains in per-node OS processes (run seeds as "
+            "separate invocations there)"
+        )
+    if config.population is not None and config.population.enabled:
+        # The CLI's --seeds reaches here with sweep unset, so the schema's
+        # population x sweep check never saw this pair.
+        raise ConfigError(refusal_reason("population", "sweep"))
+    refuse_unported(config)
+    try:
+        members = resolve_members(config, seeds)
+    except ValueError as e:
+        raise ConfigError(str(e)) from None
+    topology = build_topology(config)
+    if isinstance(topology, SparseTopology) and config.backend == "tpu":
+        raise ConfigError(refusal_reason("sparse", "sweep", "tpu_backend"))
+    attack = build_attack(config)
+    hp = gang_hp_inputs(members)
+    programs, rule = [], None
+    for member in members:
+        scale = None
+        if "attack_scale" in hp:
+            scale = member.attack_scale if member.attack_scale is not None else 1.0
+        program, rule = build_program(config, topology, attack, member.seed,
+                                      torch.device(device), rule=rule, lr=member.lr,
+                                      attack_scale=scale)
+        programs.append(program)
+    writers = None
+    if config.telemetry.enabled:
+        # One run dir a member, <run dir>/<member label>, each of which
+        # ``report`` reads as a single run's.
+        resume = checkpoint_dir is not None and has_checkpoint(checkpoint_dir)
+        base_dir = default_telemetry_dir(config)
+        writers = []
+        for member in members:
+            mcfg = config.model_copy(deep=True)
+            mcfg.experiment.seed = member.seed
+            mcfg.telemetry.dir = os.path.join(base_dir, member.label)
+            writers.append(build_telemetry_writer(mcfg, resume=resume))
+    try:
+        return GangNetwork(programs, members, topology, attack=attack,
+                           fault_schedule=build_fault_schedule(config),
+                           base_lr=config.training.lr,
+                           transfer_guard=config.tpu.transfer_guard,
+                           recompile_guard=config.tpu.recompile_guard,
+                           telemetry_writers=writers)
+    except ValueError as e:
+        # Members that cannot train as one stack (ragged shards).
+        raise ConfigError(str(e)) from None

@@ -7,8 +7,9 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed:
 
 (``--noconftest`` because tests/conftest.py pins JAX to the CPU.)  Beside the
 kernels: the CLI runs launch them (a pipelined Krum round too, from its
-warm-up round on), and ``tpu.transfer_guard`` raises on a synchronising
-call forced inside a fused chunk.
+warm-up round on; a sparse Krum run twice a round; a gang once a member),
+and ``tpu.transfer_guard`` raises on a synchronising call forced inside a
+fused chunk.
 Tolerances are chip_smoke.py's: |d2 - plain| <= 1e-5 (|a_i|^2 + |b_j|^2)
 for the pairwise kernel (norms of the centered rows when it takes a
 center), whose Gram identity cancels in float32;
@@ -690,3 +691,64 @@ def test_transfer_guard_raises_on_a_sync_inside_a_chunk(dev, force_sync):
         network.train(2, rounds_per_dispatch=2)
         assert network.history["round"] == [1, 2, 3, 4]
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.parametrize("n,p", [(16, 100_003), (64, 20_011), (256, 2_762)])
+def test_circulant_kernel_at_the_exponential_offsets(dev, n, p):
+    # The sparse exchange's distance pass: offsets 2^i mod N (k = 4, 6, 8),
+    # Krum's bcast-bcast pass at their differences too.  N = 256 stays under
+    # the wrapper's 260-row limit: one launch a call.
+    from murmura_tpu_torch.topology.sparse import exponential_offsets
+
+    offsets = list(exponential_offsets(n))
+    deltas = sorted({abs(a - b) for a in offsets for b in offsets if a != b})
+    own, b = _rows(n + p, n, p, dev), _rows(n + p + 1, n, p, dev)
+    for a, offs in ((own, offsets), (b, deltas)):
+        before = K.LAUNCHES["circulant_sq_distances"]
+        got = K.circulant_sq_distances(a, b, offs)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["circulant_sq_distances"] == before + 1
+        ref = K.circulant_sq_distances_plain(a, b, offs)
+        assert got.shape == (len(offs), n)
+        assert bool(torch.all((got - ref).abs() <= 1e-5 * torch.clamp(ref.abs(), min=1.0)))
+
+
+@pytest.mark.parametrize("kind", ["exponential", "one_peer"])
+def test_sparse_krum_run_launches_its_kernel(dev, tmp_path, kind):
+    from murmura_tpu_torch import cli
+
+    cfg = _tiny_krum("allgather")
+    cfg["topology"] = {"type": kind, "num_nodes": 16}
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    K.reset_counts()
+    history, network = cli.run(path, output=tmp_path / "h.json", device="cuda")
+    # Own-to-broadcast at the 4 offsets, broadcast-to-broadcast at their
+    # differences: two launches a round.
+    assert K.LAUNCHES["circulant_sq_distances"] == 2 * len(history["round"])
+    assert not K.LAUNCHES["pairwise_sq_distances"] and not any(K.PLAIN_CALLS.values())
+    assert network.program.sparse_offsets == (1, 2, 4, 8)
+    assert bool(torch.isfinite(network.flat).all())
+
+
+@pytest.mark.parametrize("exchange", ["allgather", "ppermute"])
+def test_gang_launches_each_kernel_once_a_member(dev, tmp_path, exchange):
+    from murmura_tpu_torch import cli
+
+    # The synthetic adapter's equal shards: a gang refuses members whose
+    # LEAF shards differ in size between seeds.
+    cfg = _tiny_krum(exchange)
+    cfg["data"] = {"adapter": "synthetic",
+                   "params": {"num_samples": 640, "input_shape": [28, 28, 1], "num_classes": 62}}
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    kernel = "pairwise_sq_distances" if exchange == "allgather" else "circulant_sq_distances"
+    K.reset_counts()
+    history, _ = cli.run(path, output=tmp_path / "h.json", device="cuda")
+    single = K.LAUNCHES[kernel]
+    K.reset_counts()
+    histories, gang = cli.run(path, output=tmp_path / "g.json", device="cuda", num_seeds=3)
+    assert single == 2 * len(history["round"])
+    assert K.LAUNCHES[kernel] == 3 * single and not any(K.PLAIN_CALLS.values())
+    assert list(histories) == [m.label for m in gang.members]
+    assert bool(torch.isfinite(gang.flats).all())

@@ -18,7 +18,8 @@ own/bcast/adj, state and probe batches.
   whose alphas overflow the sum), with the guard on and off: the same
   acceptances, the NaN reaching ``mean_vacuity`` and ``mean_entropy`` where
   JAX lets it through, and ``record_round_metrics`` taking it;
-- the sparse exchange refused by name;
+- the sparse exchange without its offsets refused by name (its branch:
+  tests/test_torch_sparse.py);
 - one evidential wearable-MLP round (UCI HAR widths, dropout 0.3, 8 nodes
   fully connected, a gaussian attack of std 10) in both exchanges, fed the
   JAX round's own shuffle, dropout masks and noise: post-round parameters
@@ -294,8 +295,8 @@ def test_nan_and_inf_strength_rows_match_jax(offsets, guard):
 
 
 def test_sparse_exchange_refused_by_name():
-    with pytest.raises(ValueError, match="not ported"):
-        build_aggregator("evidential_trust", {"exchange_offsets": [1], "sparse_exchange": True})
+    with pytest.raises(ValueError, match="sparse_exchange requires exchange_offsets"):
+        build_aggregator("evidential_trust", {"sparse_exchange": True})
 
 
 def _jax_masks(key, widths, batch, keep):

@@ -10,8 +10,10 @@ and it never moves to the CPU unless asked to.
   a telemetry run dir, read back by the port's report, and two pipelined
   Krum rounds snapshotted, restored into a new Network and resumed for a
   round (durability/ and core/pipeline.py, the retry envelope around it),
-  loads no ``jax`` and no ``murmura_tpu.*`` module (counted against what
-  the interpreter had loaded at start).
+  a gang round of two seeds (core/gang.py, through the CLI's ``sweep``)
+  and a sparse round on the exponential and one_peer graphs
+  (topology/sparse.py), loads no ``jax`` and no ``murmura_tpu.*`` module
+  (counted against what the interpreter had loaded at start).
 - An AST scan of the port and of chip_smoke.py finds no such import.
 - Without CUDA, ``python -m murmura_tpu_torch run`` without ``--device
   cpu`` fails with a message, and chip_smoke.py exits non-zero, printing
@@ -128,6 +130,23 @@ with tempfile.TemporaryDirectory() as ckpt:
                           policy=RetryPolicy(max_retries=1)) == 2
     hist = resumed.train(1)
     assert hist["agg_pipe_valid"] == [0.0, 1.0, 1.0]
+import yaml
+from murmura_tpu_torch import cli
+from murmura_tpu_torch.config.schema import Config
+from murmura_tpu_torch.utils.factories import build_network_from_config
+raw = yaml.safe_load(open("examples/configs/sweep_seeds.yaml"))
+raw["experiment"]["rounds"] = 1
+with tempfile.TemporaryDirectory() as tmp:
+    cfg = tmp + "/sweep.yaml"
+    with open(cfg, "w") as f:
+        yaml.safe_dump(raw, f)
+    histories, gang = cli.sweep(cfg, seeds=[1, 2], device="cpu")
+    assert list(histories) == ["seed_1", "seed_2"] and gang.flats.shape[0] == 2
+raw.pop("sweep")
+for kind in ("exponential", "one_peer"):
+    raw["topology"] = {"type": kind, "num_nodes": 8}
+    net = build_network_from_config(Config.model_validate(raw), device="cpu")
+    assert net.program.sparse and net.train(1)["round"] == [1]
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "murmura_tpu"})
 print("LOADED", bad)

@@ -136,10 +136,10 @@ def test_candidate_indices_match_jax():
 
 @pytest.mark.parametrize("rule", ["fedavg", "median", "trimmed_mean", "ubar"])
 def test_other_rules_refused_by_name(rule):
-    # The ported rules refuse their unported sparse edge-mask exchange by
-    # name instead of running another exchange.
-    params = {"exchange_offsets": [1], "sparse_exchange": True}
-    with pytest.raises(ValueError, match="not ported"):
+    # The sparse edge-mask exchange without its offsets is refused by name
+    # instead of running another exchange.
+    params = {"sparse_exchange": True}
+    with pytest.raises(ValueError, match="sparse_exchange requires exchange_offsets"):
         build_aggregator(rule, params)
 
 

@@ -174,10 +174,12 @@ def test_fully_connected_without_candidate_cap(rule):
 
 @pytest.mark.parametrize("rule", sorted(AGGREGATORS))
 def test_sparse_exchange_refused_by_name(rule):
-    kw = {"exchange_offsets": [1], "sparse_exchange": True}
+    # The sparse edge-mask exchange runs on the circulant paths
+    # (tests/test_torch_sparse.py); without offsets it is refused by name.
+    kw = {"sparse_exchange": True}
     if rule == "sketchguard":
         kw["model_dim"] = 10
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="sparse_exchange requires exchange_offsets"):
         AGGREGATORS[rule](**kw)
 
 

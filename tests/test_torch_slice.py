@@ -31,9 +31,9 @@
   schedule alone decides them), ``agg_pipe_valid`` [0, 1, ...] and each
   package's ``checkpoint`` events; the accuracy in the same band, except
   stale_gossip's (see ``BAND_EXEMPT``); and ``report <run_dir> --json``
-  renders the port's telemetry run dir.  The config whose lever is still
-  missing (gang sweeps) is refused, naming that lever and not the levers
-  ported so far.
+  renders the port's telemetry run dir.  The configs whose levers are
+  still missing (population, the frontier search) are refused, naming
+  that lever and not the levers ported so far.
 """
 
 import ast
@@ -167,7 +167,7 @@ PORTED = {"femnist_krum_tpu", "basic_fedavg", "ubar_attack", "uci_har_byzantine"
           "uci_har_dirichlet", "pamap2_dirichlet", "uci_har_evidential_trust",
           "alie_geometric_median", "label_flip_poisoning", "chaos_churn",
           "compressed_exchange", "telemetry_audit_report", "stale_gossip",
-          "resumable_run", "pipelined_rounds"}
+          "resumable_run", "pipelined_rounds", "sweep_seeds"}
 
 
 @pytest.mark.parametrize(
@@ -181,7 +181,8 @@ def test_unported_examples_refused_by_name(path):
 
 # Configs refused for a lever the port still lacks: the lever the message names.
 STILL_REFUSED = {
-    "sweep_seeds": "sweep",
+    "population_1m": "population",
+    "frontier_krum": "frontier",
 }
 
 
@@ -193,7 +194,8 @@ def test_configs_with_missing_levers_name_them(name):
     assert STILL_REFUSED[name] in str(err.value)
     # The levers ported so far are no longer among the refusals.
     for lever in ("faults", "compression", "rounds_per_dispatch", "telemetry",
-                  "max_staleness", "durability", "pipeline"):
+                  "max_staleness", "durability", "pipeline", "sweep", "exponential",
+                  "one_peer"):
         assert lever not in str(err.value)
 
 

@@ -139,7 +139,23 @@ Phases, each of which raises (and exits non-zero) on failure:
    and sweep_seeds.yaml under resumable_run.yaml's sections (30 rounds, a
    snapshot every 5) killed (SIGKILL) in a ``sweep`` subprocess after its
    first snapshot and resumed: every member's history bit-equal to the
-   uninterrupted gang's.  A faulted run holds its alive and
+   uninterrupted gang's; then cohort streaming and DMTT:
+   ``population_1m.yaml`` as committed (50 rounds, a stratified cohort of
+   256 of 1,000,000 users a round, the bank memory-mapped; its swap times
+   and activated users printed) beside its scenario without the
+   ``population:`` block (now 50 rounds too), Krum's circulant kernel
+   twice a round in both; the same config over 3 rounds (3 swaps) on the
+   card and on the CPU from one spread initial state on the CPU's draws
+   (cohorts equal, Krum's picks equal or tie-aware, the bank within a
+   scaled 1e-4); population_1m under a ``durability:`` section (a snapshot
+   every 5 rounds, the bank embedded) run to the end and SIGKILLed after a
+   snapshot in a ``run`` subprocess and resumed: history and final
+   snapshot bit-equal; and ``dmtt_mobility.yaml`` as committed (30 rounds,
+   no kernel; the DMTT cross-evaluation's share of a round printed) and
+   over 3 rounds on the card and on the CPU (the cross-evaluation's
+   accuracies, the TopB masks and the agg_dmtt_* counts equal or
+   tie-aware, the trust state within rtol 1e-5, the parameters within a
+   scaled 1e-4).  A faulted run holds its alive and
    quarantined counts to the schedule and every kernel input finite; a
    compressed run prints its payload bytes an edge; a telemetry run reads
    its run dir back with the port's report (the memory event's peak equal
@@ -149,12 +165,15 @@ Phases, each of which raises (and exits non-zero) on failure:
    kernel of that run must launch every round, no other kernel and no
    plain version may run,
    the history must have the JAX package's keys for the rule and finite
-   values (and the evidential columns for an evidential model); each run
-   prints its peak device memory, and UBAR's and evidential trust's their
-   probe forwards' share of the round;
+   values (and the evidential columns for an evidential model, the
+   agg_dmtt_* columns for a DMTT run); each run prints its peak device
+   memory, and UBAR's, evidential trust's and DMTT's their probe forwards'
+   share of the round;
 5. output: the pipelined flagship's steady seconds a round beside the
    serialized one's, the gangs' beside their members' summed, the resumed
-   runs' equality and snapshot costs, the
+   runs' equality and snapshot costs, population_1m's steady seconds,
+   peak memory and swap times beside its scenario's, dmtt_mobility's
+   steady seconds and cross-evaluation share, the
    codec's times beside the flagship round's, one
    ``{"kernels": [...]}`` JSON line, the card line, and the
    ``{"ok": true, "device": ...}`` line last.
@@ -192,6 +211,7 @@ RESUMABLE_RUN = ROOT / "examples" / "configs" / "resumable_run.yaml"
 PIPELINED_ROUNDS = ROOT / "examples" / "configs" / "pipelined_rounds.yaml"
 SWEEP_SEEDS = ROOT / "examples" / "configs" / "sweep_seeds.yaml"
 POPULATION_1M = ROOT / "examples" / "configs" / "population_1m.yaml"
+DMTT_MOBILITY = ROOT / "examples" / "configs" / "dmtt_mobility.yaml"
 SMOKE_DIR = ROOT / "build" / "murmura_tpu_torch" / "smoke"
 SMOKE_ROUNDS = 3
 REPS = 20
@@ -1964,8 +1984,18 @@ MAIN_RUNS = [
      {"circulant_sq_distances": (2, "==")},
      {"topology": {"type": "one_peer", "num_nodes": 16}}),
     ("krum:population_1m_scenario", POPULATION_1M, None, None,
-     {"circulant_sq_distances": (2, "==")}, {"drop": ("population",)}),
+     {"circulant_sq_distances": (2, "==")}, {"drop": ("population",), "rounds": 50}),
+    # Cohort streaming and DMTT: population_1m.yaml as committed (50 rounds,
+    # a stratified cohort of 256 from 1,000,000 users every round, the
+    # 1M-user bank memory-mapped), beside the scenario above in the same
+    # call, and dmtt_mobility.yaml as committed (30 rounds, fedavg: no
+    # kernel; the DMTT cross-evaluation's share of a round printed).
+    ("krum:population_1m", POPULATION_1M, None, None,
+     {"circulant_sq_distances": (2, "==")}, {"rounds": 50}),
+    ("fedavg:dmtt_mobility", DMTT_MOBILITY, None, None, {}, {"rounds": 30}),
 ]
+# The DMTT round's per-node stats (the JAX package's agg_dmtt_* keys).
+DMTT_STATS = ("agg_dmtt_collab_count", "agg_dmtt_received_count", "agg_dmtt_mean_topo_trust")
 # Fused dispatch: the flagship's Krum allgather over FUSED_ROUNDS rounds,
 # per round and with tpu.rounds_per_dispatch 2, in the same call.
 FUSED_ROUNDS = 6
@@ -1980,16 +2010,18 @@ def _kernel_modules():
 @contextlib.contextmanager
 def timed_probes(events: list):
     """While open, the probe forwards of UBAR (the cross-evaluation and the
-    own loss) and of evidential trust (the cross-evaluation) record a pair
-    of CUDA events around each call into ``events``: device-stream time,
-    with no synchronisation added to the round."""
+    own loss), of evidential trust (the cross-evaluation) and of a DMTT round
+    (its shared cross-evaluation) record a pair of CUDA events around each
+    call into ``events``: device-stream time, with no synchronisation added
+    to the round."""
     import torch
 
     from murmura_tpu_torch.aggregation import evidential_trust, ubar
+    from murmura_tpu_torch.core import rounds
 
     patched = [(ubar, "pairwise_probe_eval"), (ubar, "circulant_probe_eval"),
                (ubar, "self_probe_metrics"), (evidential_trust, "pairwise_probe_eval"),
-               (evidential_trust, "circulant_probe_eval")]
+               (evidential_trust, "circulant_probe_eval"), (rounds, "pairwise_probe_eval")]
     real = {(mod, name): getattr(mod, name) for mod, name in patched}
 
     def timed(fn):
@@ -2010,6 +2042,38 @@ def timed_probes(events: list):
     finally:
         for mod, name in patched:
             setattr(mod, name, real[mod, name])
+
+
+@contextlib.contextmanager
+def timed_swap_parts(parts: dict):
+    """While open, a population run's swap records the host seconds of its
+    parts into ``parts`` (name -> list): ``stage`` (the bank gather, the
+    pinned copies and the queued copies to the card; the prefetch inside
+    the round too), ``write_back`` (the bank's scatter into its rows, the
+    device-to-host copy excluded) and ``rebind`` (the slots' data shards);
+    the rest of ``swap_s`` is that copy, the composition and the draw."""
+    from murmura_tpu_torch.population import bank, engine
+
+    patched = [(bank.PopulationBank, "scatter", "write_back"),
+               (engine.PopulationNetwork, "_stage_cohort_rows", "stage"),
+               (engine.PopulationNetwork, "_rebind_data", "rebind")]
+    real = {(cls, name): getattr(cls, name) for cls, name, _ in patched}
+
+    def timed(fn, part):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            parts.setdefault(part, []).append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    for cls, name, part in patched:
+        setattr(cls, name, timed(real[cls, name], part))
+    try:
+        yield
+    finally:
+        for cls, name, _ in patched:
+            setattr(cls, name, real[cls, name])
 
 
 def config_section(name: str, key: str) -> dict:
@@ -2407,6 +2471,7 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
 
     mods = _kernel_modules()
     probe_events: list = []
+    swap_parts: dict = {}
     finite_flags: list = []
     sync_events: list = []
     torch.cuda.empty_cache()
@@ -2414,6 +2479,7 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
     base_gb = torch.cuda.memory_allocated() / 1e9
     with contextlib.ExitStack() as stack:
         stack.enter_context(timed_probes(probe_events))
+        stack.enter_context(timed_swap_parts(swap_parts))
         if faulted:
             stack.enter_context(finite_kernel_inputs(finite_flags))
         if fused and not tpu.get("transfer_guard"):
@@ -2457,6 +2523,8 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
         want |= {"agg_stale_used", "agg_stale_expired"}
     if pipelined:
         want.add("agg_pipe_valid")
+    if raw.get("dmtt") is not None:
+        want |= set(DMTT_STATS)
     if audit:
         want |= {f"agg_tap_{k}" for k in RULE_TAPS.get(rule, ())}
         if faulted:
@@ -2518,6 +2586,18 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
                   f"{network.recompile_guard}")
     if tpu.get("transfer_guard"):
         extra += "; tpu.transfer_guard on: no synchronising call raised inside a chunk"
+    if hasattr(network, "swap_times"):
+        swaps = network.swap_times
+        extra += (f"; population: {len(swaps)} swaps, swap_s median {np.median(swaps):.6f} "
+                  f"max {max(swaps):.6f} (the first {swaps[0]:.6f}), "
+                  f"{network.bank.activated:,} of {network.population.virtual_size:,} users "
+                  f"activated, bank {'memory-mapped' if network.bank.path else 'in RAM'}; "
+                  "median s of its parts: " + ", ".join(
+                      f"{k} {np.median(v):.6f} ({len(v)} calls)"
+                      for k, v in sorted(swap_parts.items())))
+    if raw.get("dmtt") is not None:
+        extra += "; " + "; ".join(f"{k[9:]} {[round(v, 3) for v in hist[k]]}"
+                                  for k in DMTT_STATS)
     if network.checkpoints:
         extra += "; snapshots " + ", ".join(
             f"{c['action']} round {c['round']} {c['bytes']:,} B in {c['seconds']:.3f} s"
@@ -2526,11 +2606,15 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
         extra += "; " + read_telemetry(label, Path(tel["dir"]), tel, network, rounds, faults,
                                        peak_bytes)
     probe_ms = sum(a.elapsed_time(b) for a, b in probe_events)
+    probe_share = None
     if probe_events:
         steady = float(np.sum(rt[1:]))
         steady_ms = sum(a.elapsed_time(b) for a, b in probe_events[len(probe_events) // len(rt):])
+        probe_share = steady_ms / 1e3 / steady
         extra += (f"; probe forwards {probe_ms:.2f} ms in {len(probe_events)} calls, "
-                  f"{steady_ms / 1e3 / steady:.1%} of the steady rounds")
+                  f"{probe_share:.1%} of the steady rounds")
+    swap_s = list(getattr(network, "swap_times", []))
+    activated = network.bank.activated if swap_s else None
     print(f"[main:{label}] P={network.program.model_dim} N={network.program.num_nodes} "
           f"round seconds {[round(t, 4) for t in rt]}; steady s/round "
           f"{np.mean(rt[1:]):.4f}; run wall {wall:.2f} s; peak device memory {peak_gb:.2f} GB "
@@ -2539,6 +2623,8 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
     if sync_events:
         raise AssertionError("a fused chunk synchronised with the host")
     checkpoints = list(network.checkpoints)
+    if swap_s:
+        network.bank.close()  # the 1M-user bank's temporary directory
     del network, history
     held_gb = torch.cuda.memory_allocated() / 1e9
     gc.collect()
@@ -2547,7 +2633,8 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
     torch.cuda.empty_cache()
     return {"launches": {k: launches[k] for k in expect}, "s_per_round": rt,
             "peak_gb": peak_gb, "probe_ms": probe_ms, "history": hist,
-            "checkpoints": checkpoints}
+            "checkpoints": checkpoints, "swap_s": swap_s, "activated": activated,
+            "probe_share": probe_share, "swap_parts": swap_parts}
 
 
 def run_fused_pair(tag: str = "flagship", sections=None) -> dict:
@@ -2952,6 +3039,346 @@ def print_gang_summary(gangs: dict) -> None:
           f"{sg['summed_single_s']:.4f} summed; recorded, no claim", flush=True)
 
 
+def _inject_cpu_draws(network, seed: int, log: list, noise: bool = False):
+    """Replace ``network``'s round step by one that feeds it the draws the
+    CPU's round generators give (the shuffle key, and with ``noise`` the
+    attack's normal draw) and appends each round's (round, agg_state,
+    metrics) to ``log``, on the host.  The card and CPU programs then train
+    on the same draws."""
+    import dataclasses
+
+    import torch
+
+    from murmura_tpu_torch.core.rounds import round_generators
+
+    prog = network.program
+    step = prog.train_step
+    shape = tuple(prog.data["mask"].shape)
+    n_comp = int(network.compromised.sum())
+
+    def wrapped(flat, agg_state, adj, compromised, round_idx, **kwargs):
+        gens = round_generators(seed, int(round_idx), "cpu")
+        draws = {"u": [torch.rand(shape, generator=gens["train"])]}
+        if noise:
+            draws["noise"] = torch.randn((n_comp, prog.model_dim), generator=gens["attack"])
+        out = step(flat, agg_state, adj, compromised, round_idx, draws=draws, **kwargs)
+        log.append((int(round_idx), {k: v.cpu() for k, v in out[1].items()},
+                    {k: v.cpu() for k, v in out[2].items()}))
+        return out
+
+    network.program = dataclasses.replace(prog, train_step=wrapped)
+
+
+def _spread_rows(flat, seed: int = 0):
+    """Every node near node 0's row at distinct scales: decisions off
+    float32 ties (the parity tests' spread)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    base = flat.to(torch.float32).cpu()
+    n = base.shape[0]
+    scale = 0.05 * (1.0 + torch.arange(n, dtype=torch.float32) / n)[:, None]
+    return (base[:1] + scale * torch.randn(base.shape, generator=g)).to(flat.dtype)
+
+
+# Krum's score noise on the card: the circulant kernel's limit, relative.
+KRUM_SCORE_EPS = 1e-5
+
+
+def check_population_against_cpu(rounds: int = 3, device: str = "cuda") -> dict:
+    """Phase 4: population_1m.yaml over ``rounds`` rounds (one swap a
+    round) on the card and on the CPU, from one spread initial state (the
+    first swap teleports it into every slot) on the CPU's draws: the
+    cohorts equal; Krum's picks equal on every node, or, where one
+    differs, the two devices' winning scores within KRUM_SCORE_EPS of each
+    other (tie-aware); the bank's activation equal and its rows, the
+    history and the parameters within a scaled 1e-4 (held when no pick
+    differed)."""
+    import numpy as np
+    import torch
+
+    from murmura_tpu_torch.config import load_config
+    from murmura_tpu_torch.utils.factories import build_network_from_config
+
+    config = load_config(POPULATION_1M)
+    config.experiment.rounds = rounds
+    config.experiment.verbose = False
+    nets = {"card": build_network_from_config(config, device=device),
+            "cpu": build_network_from_config(config, device="cpu")}
+    spread = _spread_rows(nets["cpu"].flat)
+    logs, cohorts = {}, {}
+    for dev, net in nets.items():
+        net.flat = spread.to(net.device)
+        logs[dev], cohorts[dev] = [], []
+        _inject_cpu_draws(net, config.experiment.seed, logs[dev])
+        swap = net._swap_to
+
+        def recorded(draw_idx, round_idx, net=net, swap=swap, dev=dev):
+            swap(draw_idx, round_idx)
+            cohorts[dev].append(np.array(net.cohort))
+
+        net._swap_to = recorded
+    t0 = time.perf_counter()
+    nets["card"].train(rounds)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nets["cpu"].train(rounds)
+    cpu_s = time.perf_counter() - t0
+    card, cpu = nets["card"], nets["cpu"]
+    same_cohorts = (len(cohorts["card"]) == len(cohorts["cpu"]) == rounds
+                    and all(np.array_equal(a, b) for a, b in zip(cohorts["card"],
+                                                                 cohorts["cpu"])))
+    differ, ties = 0, True
+    for (_, _, ma), (_, _, mb) in zip(logs["card"], logs["cpu"]):
+        diff = ma["agg_selected_index"] != mb["agg_selected_index"]
+        differ += int(diff.sum())
+        sa, sb = ma["agg_krum_score"][diff].double(), mb["agg_krum_score"][diff].double()
+        ties = ties and bool(((sa - sb).abs() <= KRUM_SCORE_EPS * sb.abs().clamp(min=1.0)).all())
+    same_activation = np.array_equal(card.bank._has_row, cpu.bank._has_row)
+    ids = cpu.bank.activated_users
+    rows_ref = cpu.bank.rows_of(ids)
+    bank_delta = float(np.abs(card.bank.rows_of(ids) - rows_ref).max()
+                       / max(1.0, float(np.abs(rows_ref).max())))
+    hist_delta = history_delta(card.history, cpu.history)
+    flat_delta = float((card.flat.cpu().double() - cpu.flat.double()).abs().max()
+                       / max(1.0, float(cpu.flat.double().abs().max())))
+    close = max(bank_delta, hist_delta, flat_delta) <= 1e-4
+    ok = same_cohorts and same_activation and ties and (close or differ > 0)
+    print(f"[population:card_vs_cpu] population_1m.yaml, {rounds} rounds across {rounds} "
+          f"swaps, one spread initial state, the CPU's draws: cohorts equal {same_cohorts}; "
+          f"Krum picks differing on {differ} of {rounds * card.program.num_nodes} node-rounds "
+          f"(those within the score noise {KRUM_SCORE_EPS:g}: {ties}); activation equal "
+          f"{same_activation} ({len(ids):,} users); scaled deltas: bank rows {bank_delta:.3g}, "
+          f"history {hist_delta:.3g}, parameters {flat_delta:.3g} (limit 1e-4"
+          f"{', not held: a pick differed' if differ else ''}); card {card_s:.2f} s, CPU "
+          f"{cpu_s:.2f} s: {'ok' if ok else 'FAILED'}", flush=True)
+    for net in nets.values():
+        net.bank.close()
+    if not ok:
+        raise AssertionError("the population run on the card differs from the CPU's")
+    return {"cohorts": same_cohorts, "differ": differ, "bank_delta": bank_delta,
+            "hist_delta": hist_delta}
+
+
+# population_1m.yaml under a durability: section for the kill and resume.
+POP_RESUME_ROUNDS, POP_RESUME_EVERY = 50, 5
+
+
+def _cli_counts(stdout: str) -> dict:
+    return json.loads(stdout.rsplit("COUNTS ", 1)[1].splitlines()[0])
+
+
+def run_population_kill_resume(device: str = "cuda") -> dict:
+    """Phase 4: population_1m.yaml as committed (50 rounds) with a snapshot
+    every 5 rounds, its 1M-user bank embedded in each snapshot (the bank's
+    temporary directory dies with the process): once through ``python -m
+    murmura_tpu_torch run`` to the end, once SIGKILLed after a snapshot and
+    run again, which resumes.  The resumed history and final snapshot
+    (parameters, cohort, bank rows and activation) must be bit-equal to the
+    uninterrupted run's, and the resumed process must launch the circulant
+    kernel twice a round for the rounds it ran, with no plain call."""
+    from murmura_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    opts = {"rounds": POP_RESUME_ROUNDS,
+            "sections": {"durability": {"checkpoint_every": POP_RESUME_EVERY,
+                                        "resume": True}}}
+    runs = {}
+    for tag in ("ref", "killed"):
+        raw, cfg, out = smoke_config(f"population_{tag}", POPULATION_1M, None, None, opts)
+        runs[tag] = (Path(raw["durability"]["checkpoint_dir"]), cfg, out)
+
+    def cmd(tag):
+        _, cfg, out = runs[tag]
+        return [sys.executable, "-c", _CLI_WITH_COUNTS, "run", str(cfg), "--device", device,
+                "--quiet", "-o", str(out)]
+
+    t0 = time.perf_counter()
+    ref = subprocess.run(cmd("ref"), cwd=ROOT, capture_output=True, text=True, timeout=900)
+    ref_s = time.perf_counter() - t0
+    (SMOKE_DIR / "population_ref.log").write_text(ref.stdout + ref.stderr)
+    if ref.returncode != 0:
+        raise AssertionError(f"the uninterrupted population run failed: {ref.stderr[-3000:]}")
+    ckpt = runs["killed"][0]
+    t0 = time.perf_counter()
+    with open(SMOKE_DIR / "population_killed.log", "w") as log:
+        proc = subprocess.Popen(cmd("killed"), cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            while proc.poll() is None and _snapshot_round(ckpt) < POP_RESUME_EVERY:
+                time.sleep(0.002)
+            running = proc.poll() is None
+            proc.kill()
+        finally:
+            proc.wait()
+    killed_s = time.perf_counter() - t0
+    stopped = _snapshot_round(ckpt)
+    if not running:
+        raise AssertionError(f"the run exited ({proc.returncode}) before it could be killed")
+    t0 = time.perf_counter()
+    resumed = subprocess.run(cmd("killed"), cwd=ROOT, capture_output=True, text=True,
+                             timeout=900)
+    resumed_s = time.perf_counter() - t0
+    (SMOKE_DIR / "population_resumed.log").write_text(resumed.stdout + resumed.stderr)
+    if resumed.returncode != 0:
+        raise AssertionError(f"the resumed population run failed: {resumed.stderr[-3000:]}")
+    if f"Resumed from round {stopped}" not in resumed.stdout:
+        raise AssertionError(f"the run did not resume from round {stopped}")
+    counts = _cli_counts(resumed.stdout)
+    want = 2 * (POP_RESUME_ROUNDS - stopped)
+    calls = counts["launches"] if device == "cuda" else counts["plain"]
+    launches_ok = (calls["circulant_sq_distances"] == want
+                   and not any(counts["plain" if device == "cuda" else "launches"].values())
+                   and not any(v for k, v in counts["launches"].items()
+                               if k != "circulant_sq_distances"))
+    hist = json.loads(runs["killed"][2].read_text())
+    same_hist = hist == json.loads(runs["ref"][2].read_text())
+    a, b = restore_checkpoint(ckpt), restore_checkpoint(runs["ref"][0])
+    same_snap = (a[3] == b[3] == POP_RESUME_ROUNDS and bool((a[0] == b[0]).all())
+                 and a[6].keys() == b[6].keys()
+                 and all(bool((a[6][k] == b[6][k]).all()) for k in a[6])
+                 # The bank_path of an embedded bank names each process's
+                 # temporary directory.
+                 and {**a[7]["population"], "bank_path": None}
+                 == {**b[7]["population"], "bank_path": None})
+    ok = same_hist and same_snap and launches_ok
+    pm = b[7]["population"]
+    print(f"[population:resume] population_1m.yaml, {POP_RESUME_ROUNDS} rounds, a snapshot "
+          f"every {POP_RESUME_EVERY} (bank {pm['bank_mode']}, {pm['activated']:,} users "
+          f"activated at the end): uninterrupted in {ref_s:.2f} s (process wall); killed "
+          f"(SIGKILL) after {killed_s:.2f} s with the snapshot at round {stopped}, resumed in "
+          f"{resumed_s:.2f} s; circulant_sq_distances launched "
+          f"{calls['circulant_sq_distances']} times in the "
+          f"{POP_RESUME_ROUNDS - stopped} resumed rounds (want {want}), plain calls "
+          f"{sum(counts['plain'].values())}; history bit-equal {same_hist}, final snapshot "
+          f"(parameters, cohort, bank rows and activation) bit-equal {same_snap}: "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    for tag in runs:
+        shutil.rmtree(runs[tag][0], ignore_errors=True)
+    if not ok:
+        raise AssertionError("the resumed population run differs from the uninterrupted one")
+    return {"stopped": stopped, "bit_equal": same_hist and same_snap}
+
+
+# DMTT, card against CPU: rounds compared, and the tolerance of the trust
+# state (the card's elementwise kernels may contract a product and a sum
+# into one fused multiply-add, one rounding fewer per EMA step).
+DMTT_CHECK_ROUNDS = 3
+DMTT_TRUST_RTOL = 1e-5
+# A TopB pick may differ only where the CPU's collaboration scores of a
+# row lie within this of each other at the B-th place (one float32 exp's
+# ulp among three terms below 1, a few 1e-8, with room).
+DMTT_Q_MARGIN = 1e-5
+
+
+def _top_b_margins(prev, state, cross, adj, params):
+    """Per row, the gap between the B-th and (B+1)-th largest collaboration
+    score among the G^t candidates (inf where a row has B or fewer), from
+    the trust state before (``prev``) and after (``state``) a round and its
+    cross-evaluation, as dmtt_round_update computes them."""
+    import torch
+
+    from murmura_tpu_torch.dmtt import protocol as P
+
+    collab = torch.where(prev["dmtt_selected"] > 0, prev["dmtt_collab"], adj) > 0
+    exchange = collab & collab.T
+    s_model = torch.where(exchange, P.model_score(cross["accuracy"], cross["vacuity"], params),
+                          torch.full_like(adj, 0.5))
+    t = P.topo_trust(state["dmtt_alpha"], state["dmtt_beta"], params)
+    q = P.collab_score(s_model, t, state["dmtt_c_hat"], params)
+    n = adj.shape[0]
+    cand = (adj > 0) & ~torch.eye(n, dtype=torch.bool)
+    out = []
+    for i in range(n):
+        vals = torch.sort(q[i][cand[i]], descending=True).values
+        b = params.budget_B
+        out.append(float(vals[b - 1] - vals[b]) if len(vals) > b else float("inf"))
+    return out
+
+
+def check_dmtt_against_cpu(device: str = "cuda") -> dict:
+    """Phase 4: dmtt_mobility.yaml (fedavg, the topology liar wrapping
+    gaussian std 10, 16 nodes on the mobility graph) over DMTT_CHECK_ROUNDS
+    rounds on the card and on the CPU, from the CPU's initial parameters on
+    the CPU's draws (the shuffle key and the attack's noise): per round the
+    probe cross-evaluation's accuracies, the exchange and collaborator
+    masks and the agg_dmtt_* counts equal (a row whose TopB scores lie
+    within DMTT_Q_MARGIN at the B-th place may differ: tie-aware), the trust
+    state (dmtt_c_hat, dmtt_alpha, dmtt_beta) and the mean topology trust
+    within rtol DMTT_TRUST_RTOL, the parameters within a scaled 1e-4."""
+    import numpy as np
+    import torch
+
+    from murmura_tpu_torch.config import load_config
+    from murmura_tpu_torch.core import rounds as rounds_mod
+    from murmura_tpu_torch.utils.factories import build_network_from_config
+
+    config = load_config(DMTT_MOBILITY)
+    config.experiment.rounds = DMTT_CHECK_ROUNDS
+    config.experiment.verbose = False
+    nets = {"card": build_network_from_config(config, device=device),
+            "cpu": build_network_from_config(config, device="cpu")}
+    nets["card"].flat = nets["cpu"].flat.to(device)
+    logs, crosses = {}, {}
+    real = rounds_mod.pairwise_probe_eval
+    for dev, net in nets.items():
+        logs[dev], crosses[dev] = [], []
+        _inject_cpu_draws(net, config.experiment.seed, logs[dev], noise=True)
+
+        def capture(bcast, ctx, metric, dev=dev):
+            out = real(bcast, ctx, metric)
+            crosses[dev].append({k: v.cpu() for k, v in out.items()})
+            return out
+
+        rounds_mod.pairwise_probe_eval = capture
+        try:
+            net.train(DMTT_CHECK_ROUNDS)
+        finally:
+            rounds_mod.pairwise_probe_eval = real
+    from murmura_tpu_torch.dmtt.protocol import init_dmtt_state
+
+    params = nets["cpu"].program.dmtt
+    prev = init_dmtt_state(nets["cpu"].program.num_nodes)
+    acc_equal, masks_equal, counts_equal, tie_rows = True, True, True, 0
+    trust_rel, flat_delta = 0.0, 0.0
+    for r in range(DMTT_CHECK_ROUNDS):
+        _, sa, ma = logs["card"][r]
+        _, sb, mb = logs["cpu"][r]
+        ca, cb = crosses["card"][r], crosses["cpu"][r]
+        acc_equal = acc_equal and torch.equal(ca["accuracy"], cb["accuracy"])
+        diff_rows = (sa["dmtt_collab"] != sb["dmtt_collab"]).any(dim=1)
+        if diff_rows.any():
+            adj = torch.from_numpy(nets["cpu"].mobility.adjacency_at(r).astype(np.float32))
+            margins = _top_b_margins(prev, sb, cb, adj, params)
+            tied = all(margins[i] <= DMTT_Q_MARGIN for i in np.flatnonzero(diff_rows.numpy()))
+            masks_equal = masks_equal and tied
+            tie_rows += int(diff_rows.sum())
+        for k in ("agg_dmtt_collab_count", "agg_dmtt_received_count", "agg_num_neighbors"):
+            counts_equal = counts_equal and (torch.equal(ma[k], mb[k]) or bool(diff_rows.any()))
+        for k in ("dmtt_c_hat", "dmtt_alpha", "dmtt_beta"):
+            trust_rel = max(trust_rel, float(((sa[k] - sb[k]).abs()
+                                              / sb[k].abs().clamp(min=1e-30)).max()))
+        trust_rel = max(trust_rel, float(((ma["agg_dmtt_mean_topo_trust"]
+                                           - mb["agg_dmtt_mean_topo_trust"]).abs()
+                                          / mb["agg_dmtt_mean_topo_trust"].abs()
+                                          .clamp(min=1e-30)).max()))
+        prev = sb
+    card, cpu = nets["card"], nets["cpu"]
+    flat_delta = float((card.flat.cpu().double() - cpu.flat.double()).abs().max()
+                       / max(1.0, float(cpu.flat.double().abs().max())))
+    ok = (acc_equal and masks_equal and counts_equal and trust_rel <= DMTT_TRUST_RTOL
+          and (flat_delta <= 1e-4 or tie_rows > 0))
+    print(f"[dmtt:card_vs_cpu] dmtt_mobility.yaml, {DMTT_CHECK_ROUNDS} rounds on G^t, the "
+          f"CPU's initial parameters and draws: cross-evaluation accuracies equal {acc_equal}; "
+          f"exchange/collaborator masks equal except {tie_rows} row(s) within the TopB margin "
+          f"{DMTT_Q_MARGIN:g} ({masks_equal}); agg_dmtt_* counts equal {counts_equal}; trust "
+          f"state largest relative difference {trust_rel:.3g} (limit {DMTT_TRUST_RTOL:g}); "
+          f"parameters scaled delta {flat_delta:.3g} (limit 1e-4); card history "
+          f"collab_count {card.history['agg_dmtt_collab_count']}: "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError("the DMTT round on the card differs from the CPU's")
+    return {"trust_rel": trust_rel, "flat_delta": flat_delta, "tie_rows": tie_rows}
+
+
 def main() -> int:
     started = time.perf_counter()
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
@@ -3006,6 +3433,32 @@ def main() -> int:
     gangs = run_gangs()
     mains.update(gangs)
     print_gang_summary(gangs)
+    pop_check = check_population_against_cpu()
+    pop_resume = run_population_kill_resume()
+    dmtt_check = check_dmtt_against_cpu()
+    pop, scen, dm = (mains["krum:population_1m"], mains["krum:population_1m_scenario"],
+                     mains["fedavg:dmtt_mobility"])
+    pop_s, scen_s = float(np.mean(pop["s_per_round"][1:])), float(np.mean(scen["s_per_round"][1:]))
+    print(f"[population] population_1m.yaml as committed ({len(pop['s_per_round'])} rounds): "
+          f"steady s/round {pop_s:.4f}, peak {pop['peak_gb']:.3f} GB; without its population: "
+          f"block {scen_s:.4f}, peak {scen['peak_gb']:.3f} GB; the engine's cost "
+          f"{(pop_s - scen_s) * 1e3:.2f} ms a round in the round times, which exclude "
+          f"the swap (as the JAX package's do): swap_s median "
+          f"{float(np.median(pop['swap_s'])):.6f} max {max(pop['swap_s']):.6f} (parts, "
+          "median s: " + ", ".join(f"{k} {np.median(v):.6f}"
+                                   for k, v in sorted(pop["swap_parts"].items()))
+          + f"); steady wall a round with the swap "
+          f"{pop_s + float(np.median(pop['swap_s'])):.4f}; "
+          f"{pop['activated']:,} users activated; card vs CPU: cohorts equal "
+          f"{pop_check['cohorts']}, {pop_check['differ']} picks differing, bank "
+          f"{pop_check['bank_delta']:.3g}; killed at round {pop_resume['stopped']} and resumed "
+          f"bit-equal {pop_resume['bit_equal']}; no claim", flush=True)
+    print(f"[dmtt] dmtt_mobility.yaml as committed ({len(dm['s_per_round'])} rounds): steady "
+          f"s/round {float(np.mean(dm['s_per_round'][1:])):.4f}, peak {dm['peak_gb']:.3f} GB; "
+          f"the DMTT cross-evaluation {dm['probe_share']:.1%} of the steady rounds "
+          f"({dm['probe_ms']:.2f} ms in all); card vs CPU: trust state within "
+          f"{dmtt_check['trust_rel']:.3g} relative, parameters {dmtt_check['flat_delta']:.3g}, "
+          f"{dmtt_check['tie_rows']} TopB row(s) on a tie; no claim", flush=True)
     steady = {k: float(np.mean(mains[k]["s_per_round"][1:]))
               for k in ("krum:allgather", "krum:telemetry_flagship")}
     print(f"[main:telemetry] steady s/round (rounds 2 on), the flagship's Krum allgather "

@@ -43,6 +43,10 @@ class AggContext:
         audit: telemetry.audit_taps — the tapping rules (Krum, BALANCE,
             UBAR, evidential trust) add per-node ``tap_*`` decision tensors
             to their stats; nothing else in the round changes.
+        probe_cross: the round's [N, N] probe cross-evaluation
+            (``probe.combined_probe_metric``, entry [i, j] model j on node
+            i's probe batch) when a DMTT round has already computed it; the
+            dense probe rules read it instead of evaluating again.
     """
 
     apply_fn: Optional[Callable] = None
@@ -54,6 +58,7 @@ class AggContext:
     num_classes: int = 0
     total_rounds: int = 1
     audit: bool = False
+    probe_cross: Optional[Dict[str, torch.Tensor]] = None
 
 
 # Copy of InfluenceDecl from murmura_tpu/aggregation/base.py.

@@ -25,8 +25,8 @@ writes the state at those edges only, on a copy.
 The probe takes ``max_eval_samples`` samples a node (the factories size the
 probe batch from it).  Under the sparse exchange the [k, N] edge mask
 keeps inactive edges from being observed (their state untouched),
-accepted or counted in the statistics.  Not ported: the reuse of DMTT's
-shared cross-evaluation (``ctx.probe_cross``, with DMTT).
+accepted or counted in the statistics.  The dense path reads a DMTT
+round's shared cross-evaluation (``ctx.probe_cross``) where there is one.
 """
 
 from typing import Optional, Sequence
@@ -192,7 +192,10 @@ def make_evidential_trust(
             return aggregate_circulant(own, bcast, adj, round_idx, state, ctx)
         n = own.shape[0]
         adj_b = adj.to(torch.bool)
-        metrics = pairwise_probe_eval(bcast, ctx, evidential_trust_metric)  # [N_i, N_j]
+        if ctx.probe_cross is not None and "entropy" in ctx.probe_cross:
+            metrics = ctx.probe_cross  # a DMTT round's cross-evaluation
+        else:
+            metrics = pairwise_probe_eval(bcast, ctx, evidential_trust_metric)  # [N_i, N_j]
         vacuity = metrics["vacuity"]
         trust_new = trust_from_metrics(vacuity, metrics["accuracy"])
         if strength_guard:

@@ -4,8 +4,9 @@ PyTorch counterpart of murmura_tpu/aggregation/probe.py).
 "Evaluate model j on node i's data" is a batched forward: one model at a
 time over every node's probe batch at once ([N*B] samples), so memory
 stays at O(N * B * K) a step and no [N, N*B, ...] activation exists.
-``combined_probe_metric`` (the cross-evaluation DMTT shares with the probe
-rules) arrives with DMTT.
+``combined_probe_metric`` emits every probe consumer's metrics from one
+cross-evaluation, which a DMTT round computes once and hands to the probe
+rules (``AggContext.probe_cross``).
 """
 
 from typing import Callable, Dict, Sequence
@@ -96,3 +97,16 @@ def evidential_trust_metric(outputs, y, mask) -> Dict[str, torch.Tensor]:
         "entropy": mean(unc["entropy"]),
         "strength": mean(unc["strength"]),
     }
+
+
+def combined_probe_metric(evidential: bool) -> MetricFn:
+    """One metric for every probe consumer of a round, so that the [N, N]
+    cross-evaluation runs once: DMTT's model score reads accuracy and
+    vacuity, UBAR's stage 2 the loss, evidential trust vacuity, entropy and
+    strength.  The forwards dominate; the extra reductions cost little."""
+    base = evidential_trust_metric if evidential else accuracy_vacuity_metric
+
+    def metric(outputs, y, mask):
+        return {**base(outputs, y, mask), **ce_loss_metric(outputs, y, mask)}
+
+    return metric

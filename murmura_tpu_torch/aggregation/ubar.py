@@ -111,7 +111,10 @@ def make_ubar(
         dist = pairwise_l2_distances(own, bcast)
         num_select = torch.clamp((rho * degree).to(torch.int32), min=min_neighbors)
         shortlist = rank_mask(dist, adj.to(torch.bool), num_select)
-        losses = pairwise_probe_eval(bcast, ctx, ce_loss_metric)["loss"]  # [N, N]
+        if ctx.probe_cross is not None and "loss" in ctx.probe_cross:
+            losses = ctx.probe_cross["loss"]  # [N, N], a DMTT round's cross-evaluation
+        else:
+            losses = pairwise_probe_eval(bcast, ctx, ce_loss_metric)["loss"]  # [N, N]
         own_loss = self_probe_metrics(own, ctx, ce_loss_metric)["loss"]
         accepted = _accept(shortlist, losses, own_loss, own.dtype)
         neighbor_avg = masked_neighbor_mean(bcast, accepted)

@@ -78,10 +78,13 @@ class Attack:
     ``trains_locally``: the compromised nodes run local SGD (a data
     poisoning attack, or ALIE's coalition estimator) instead of staying
     frozen.  ``data_poison_fn``: the build-time transform (y [N, S],
-    sample_mask [N, S], num_classes) -> y' of a data-poisoning attack."""
+    sample_mask [N, S], num_classes) -> y' of a data-poisoning attack.
+    ``claims_fn``: the DMTT topology claims (true adjacency [N, N],
+    compromised [N]) -> claimed adjacency [N, N] of a topology liar."""
 
     name: str
     compromised: np.ndarray  # [N] bool
     apply: Callable
     trains_locally: bool = False
     data_poison_fn: Optional[Callable] = field(default=None)
+    claims_fn: Optional[Callable] = field(default=None)

@@ -219,10 +219,14 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
         config.telemetry.enabled = True
         if config.telemetry.profile_rounds == 0:
             config.telemetry.profile_rounds = config.experiment.rounds
+    population = ""
+    if config.population is not None and config.population.enabled:
+        population = (f", population={config.population.virtual_size} virtual users "
+                      f"/ {config.population.sampler} cohorts")
     print(
         f"murmura_tpu_torch experiment {config.experiment.name} "
         f"(backend={config.backend}, nodes={config.topology.num_nodes}, "
-        f"rounds={config.experiment.rounds}, device={dev})",
+        f"rounds={config.experiment.rounds}{population}, device={dev})",
         flush=True,
     )
     network = build_network_from_config(

@@ -314,6 +314,11 @@ class GangNetwork:
             raise ValueError("a gang needs at least one member")
         check_member_compatible(programs, members)
         program = programs[0]
+        if any(p.dmtt is not None for p in programs):
+            raise ValueError(
+                "the PyTorch port's gang does not run dmtt yet: build the members "
+                "without DMTTParams, or run the seeds as separate runs"
+            )
         check_exchange_layout(program, topology)
         n = program.num_nodes
         if topology.num_nodes != n:

@@ -2,9 +2,10 @@
 murmura_tpu/core/network.py).
 
 Drives the round program across rounds, per round or fused into chunks of
-rounds (``rounds_per_dispatch``), folds the fault schedule into each
-round's adjacency and alive mask, keeps the JAX package's history schema,
-and records the per-node ``agg_*`` rule statistics exactly as the JAX
+rounds (``rounds_per_dispatch``), takes each round's graph from the
+mobility model where there is one (G^t, topology/dynamic.py), folds the
+fault schedule into each round's adjacency and alive mask, keeps the JAX
+package's history schema, and records the per-node ``agg_*`` rule statistics exactly as the JAX
 package does.  With a telemetry writer (telemetry/writer.py) it emits the
 round, phase_times and memory events, finalizes the manifest when
 ``train`` returns, and opens the profiler window (a ``torch.profiler``
@@ -63,11 +64,14 @@ def _sync_errors():
         torch.cuda.set_sync_debug_mode(prev)
 
 
-def effective_adjacency(topology, fault_schedule, round_idx: int) -> np.ndarray:
-    """One round's [N, N] adjacency: the static mask with the fault
-    schedule's alive, link and straggler masks folded in (mobility, the
-    JAX package's other source of a per-round graph, is not ported)."""
-    adj = topology.mask()
+def effective_adjacency(topology, mobility, fault_schedule, round_idx: int) -> np.ndarray:
+    """One round's [N, N] adjacency: the mobility model's G^t (else the
+    static mask) with the fault schedule's alive, link and straggler masks
+    folded in."""
+    if mobility is not None:
+        adj = mobility.adjacency_at(round_idx).astype(np.float32)
+    else:
+        adj = topology.mask()
     if fault_schedule is not None:
         adj = fault_schedule.masked_adjacency(adj, round_idx)
     return adj
@@ -84,12 +88,13 @@ def effective_edge_mask(topology, fault_schedule, round_idx: int) -> np.ndarray:
     return mask
 
 
-def round_exchange_input(topology, fault_schedule, round_idx: int) -> np.ndarray:
+def round_exchange_input(topology, fault_schedule, round_idx: int,
+                         mobility=None) -> np.ndarray:
     """The adjacency input of one round: the [k, N] edge mask of a sparse
     topology, else the [N, N] adjacency."""
     if isinstance(topology, SparseTopology):
         return effective_edge_mask(topology, fault_schedule, round_idx)
-    return effective_adjacency(topology, fault_schedule, round_idx)
+    return effective_adjacency(topology, mobility, fault_schedule, round_idx)
 
 
 def sender_in_degree(topology, mask: np.ndarray) -> np.ndarray:
@@ -118,10 +123,11 @@ def check_exchange_layout(program: RoundProgram, topology) -> None:
         )
 
 
-def static_exchange_input(topology, fault_schedule) -> Optional[np.ndarray]:
+def static_exchange_input(topology, fault_schedule, mobility=None) -> Optional[np.ndarray]:
     """The adjacency input of every round where it never changes (no fault
-    schedule and a static schedule), else None."""
-    if fault_schedule is not None:
+    schedule, no mobility and a static schedule), else None: each round (or
+    chunk) then stages its own."""
+    if fault_schedule is not None or mobility is not None:
         return None
     if isinstance(topology, SparseTopology):
         return topology.edge_mask(0) if topology.schedule == "static" else None
@@ -157,7 +163,7 @@ def _host_rows(rows: List[Tuple[int, Dict[str, torch.Tensor]]]):
 
 
 def stage_rounds(topology, fault_schedule, program: RoundProgram, static_host, static_adj,
-                 rounds: List[int], degrees: bool = False):
+                 rounds: List[int], degrees: bool = False, mobility=None):
     """(adjacency stack, alive stack or None, {round: host sender in-degree})
     of ``rounds`` for ``program`` on its device: views of ``static_adj``
     where the graph never changes, else one copy each; the in-degrees only
@@ -172,7 +178,8 @@ def stage_rounds(topology, fault_schedule, program: RoundProgram, static_host, s
         if not program.faulted:
             return adj, None, in_deg
         return adj, torch.ones((k, n), device=dev), in_deg
-    adj = np.stack([round_exchange_input(topology, fault_schedule, r) for r in rounds])
+    adj = np.stack([round_exchange_input(topology, fault_schedule, r, mobility)
+                    for r in rounds])
     in_deg = ({r: sender_in_degree(topology, a) for r, a in zip(rounds, adj)}
               if degrees else {})
     alive = None
@@ -244,9 +251,12 @@ class Network:
         profile_dir: Optional[str] = None,
         transfer_guard: bool = False,
         recompile_guard: bool = False,
+        mobility=None,
     ):
-        """``telemetry``: a TelemetryWriter, or None (no events, and the
-        history and round program are unchanged either way).
+        """``mobility``: a MobilityModel (topology/dynamic.py) whose G^t is
+        each round's graph, before the fault fold; the topology then only
+        fixes N.  ``telemetry``: a TelemetryWriter, or None (no events, and
+        the history and round program are unchanged either way).
         ``profile_dir`` (tpu.profile_dir): trace every ``train`` call with
         torch.profiler into this directory.  ``transfer_guard`` and
         ``recompile_guard``: the tpu: section's runtime guards (module
@@ -263,8 +273,14 @@ class Network:
                 "the alive mask would silently never reach the round step"
             )
         check_exchange_layout(program, topology)
+        if mobility is not None and program.sparse:
+            raise ValueError(
+                "sparse exchange mode does not compose with mobility (G^t is a dense "
+                "per-round graph)"
+            )
         self.program = program
         self.topology = topology
+        self.mobility = mobility
         self.attack = attack
         self.seed = seed
         self.fault_schedule = fault_schedule
@@ -281,9 +297,9 @@ class Network:
         self.round_times: List[float] = []
         self.current_round = 0
         self._fused: Dict[Tuple[int, int], Any] = {}
-        # With no fault schedule (and a static sparse schedule) the graph
-        # never changes: staged once.
-        static = static_exchange_input(topology, fault_schedule)
+        # With no fault schedule, no mobility (and a static sparse schedule)
+        # the graph never changes: staged once.
+        static = static_exchange_input(topology, fault_schedule, mobility)
         self._static_host = static
         self._static_adj = None if static is None else torch.as_tensor(static).to(self.device)
         self.telemetry = telemetry
@@ -310,7 +326,8 @@ class Network:
         views of the static graph and of all-alive."""
         adj, alive, in_deg = stage_rounds(self.topology, self.fault_schedule, self.program,
                                           self._static_host, self._static_adj, rounds,
-                                          degrees=self.telemetry is not None)
+                                          degrees=self.telemetry is not None,
+                                          mobility=self.mobility)
         self._in_degree.update(in_deg)
         return adj, alive
 

@@ -122,7 +122,8 @@ def run_delayed_reference(net, rounds: int, eval_every: int = 1):
     history = empty_history()
     disp = torch.zeros_like(flat)
     for r in range(rounds):
-        adj = torch.as_tensor(round_exchange_input(net.topology, net.fault_schedule, r)).to(dev)
+        adj = torch.as_tensor(round_exchange_input(net.topology, net.fault_schedule, r,
+                                                   net.mobility)).to(dev)
         alive = None
         if prog.faulted:
             alive = torch.as_tensor(effective_alive(net.fault_schedule, prog.num_nodes, r)).to(dev)

@@ -34,6 +34,14 @@ of [N] node flags, so nothing O(N^2) is built.
    a disrupted sender's base-graph edges re-added at weight
    ``discount ** age`` with its cached payload, the cache and ages carried
    in ``agg_state`` under keys the rule never sees;
+2e. with ``DMTTParams`` (dmtt/protocol.py) the trust protocol, between the
+   production and the aggregation: the topology claims (a liar's
+   ``claims_fn``, else the true graph), the dense [N, N] probe
+   cross-evaluation of the broadcast (``probe.combined_probe_metric``),
+   ``dmtt_round_update``, whose exchange mask becomes the rule's adjacency,
+   and the cross-evaluation handed to the probe rules as
+   ``ctx.probe_cross``; the trust state carried in ``agg_state`` under
+   ``DMTT_STATE_KEYS``, which the rule never sees;
 3. the aggregation rule over (own, bcast, adj), with each node's probe
    batch (the first ``probe_size`` samples of its shard) in the context
    for the loss-probe rules, whose forwards run in eval mode; when
@@ -43,8 +51,13 @@ of [N] node flags, so nothing O(N^2) is built.
    per-node masked loss and accuracy over the held-out arrays, and the
    Dirichlet vacuity, entropy and strength for an evidential model.
 
-Steps 1-2d are ``produce_exchange``, step 3 and the guards the
-aggregation.  A program built with ``pipeline=True`` (core/pipeline.py)
+``train_step(..., data=)`` runs the round on other rows of the data
+arrays than the program's own (the population engine's cohort, whose
+slots train, probe and evaluate on their users' shards), the program's
+data left as it is.
+
+Steps 1-2d are ``produce_exchange``, step 2e the DMTT gate (serialized
+rounds only), step 3 and the guards the aggregation.  A program built with ``pipeline=True`` (core/pipeline.py)
 runs them in another order: it first aggregates the exchange that round
 r-1 produced and left in the buffer carried in ``agg_state``, then
 produces round r's, adds the delayed displacement to round r's trained
@@ -65,12 +78,13 @@ feed the JAX package's own draws.
 
 The phases run inside ``torch.profiler.record_function`` ranges named as
 the JAX package's ``named_scope``s (``murmura.train``,
-``murmura.exchange``, ``murmura.compress``, ``murmura.stale``,
+``murmura.exchange`` (the attack, and DMTT's claims, cross-evaluation and
+trust update), ``murmura.compress``, ``murmura.stale``,
 ``murmura.aggregate``, ``murmura.pipeline``, ``murmura.eval``), so a
 profiler trace splits a round by phase.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -86,6 +100,7 @@ from torch.func import grad, vmap
 from torch.profiler import record_function
 
 from murmura_tpu_torch.aggregation.base import AggContext, AggregatorDef
+from murmura_tpu_torch.aggregation.probe import combined_probe_metric, pairwise_probe_eval
 from murmura_tpu_torch.attacks.base import Attack
 from murmura_tpu_torch.core.pipeline import (
     ADJ_KEY as PIPE_ADJ_KEY,
@@ -103,6 +118,7 @@ from murmura_tpu_torch.core.stale import (
     make_stale_fold,
 )
 from murmura_tpu_torch.data.base import FederatedArrays
+from murmura_tpu_torch.dmtt.protocol import DMTTParams, dmtt_round_update, init_dmtt_state
 from murmura_tpu_torch.faults.schedule import FaultSpec
 from murmura_tpu_torch.models.core import Model
 from murmura_tpu_torch.ops.compress import (
@@ -136,6 +152,16 @@ EVAL_DATA_KEYS = ("eval_x", "eval_y", "eval_mask")
 # Weight of the evidential loss's KL term once annealed in (the JAX
 # factories' lambda_weight).
 EVIDENTIAL_LAMBDA = 0.1
+
+# The DMTT trust state carried in agg_state (dmtt/protocol.py), which the
+# rule never sees.
+DMTT_STATE_KEYS = (
+    "dmtt_c_hat",
+    "dmtt_alpha",
+    "dmtt_beta",
+    "dmtt_collab",
+    "dmtt_selected",
+)
 
 
 def pin_full_float32() -> None:
@@ -179,6 +205,8 @@ class RoundProgram:
     # The circulant offsets of a sparse program (its adjacency input is the
     # [k, N] edge mask); () for the dense [N, N] adjacency.
     sparse_offsets: Tuple[int, ...] = ()
+    # The DMTT parameters of a program that runs the trust protocol.
+    dmtt: Optional[DMTTParams] = None
 
     @property
     def sparse(self) -> bool:
@@ -230,6 +258,7 @@ def build_round_program(
     pipeline: bool = False,
     sparse_offsets: Optional[Sequence[int]] = None,
     attack_scale: Optional[float] = None,
+    dmtt: Optional[DMTTParams] = None,
 ) -> RoundProgram:
     """Round step for a network of ``data.num_nodes`` nodes on ``device``
     (the card unless the caller asks for the CPU; without CUDA a ``cuda``
@@ -251,15 +280,17 @@ def build_round_program(
     ``pipeline`` (exchange.pipeline) builds the pipelined round
     (core/pipeline.py): round r adds the displacement of round r-1's
     buffered aggregation to its own training, the buffer carried in
-    ``agg_state``.  The JAX package refuses it with DMTT, adaptive attacks
-    and population, none of which the port runs (the schema refuses the
-    combinations by name).
+    ``agg_state``.  It does not compose with DMTT (refused here) nor with
+    population (refused by the schema).
 
     ``sparse_offsets`` (a sparse topology's offsets) makes the adjacency
     input the [k, N] edge mask.  ``attack_scale`` (a gang member's
     ``attack_scale``, the JAX package's ``hp_attack_scale``) scales the
     perturbation the attack added to the broadcast, in float32, before the
     sentinel scrub; None leaves the broadcast as the attack made it.
+    ``dmtt`` runs the trust protocol (step 2e) on the dense exchange; it
+    refuses the sparse exchange, compression, staleness and pipelining, as
+    the JAX package does.
     """
     device = torch.device(device)
     if device.type == "cuda":
@@ -279,6 +310,25 @@ def build_round_program(
             "attack_scale was given but no attack is configured: there is no "
             "broadcast perturbation to scale"
         )
+    if dmtt is not None:
+        for clash, why in (
+            (sparse, "sparse exchange mode does not compose with DMTT (claim "
+                     "verification needs the dense per-round exchange graph)"),
+            (compression is not None,
+             "compressed exchange does not compose with DMTT (the claim "
+             "cross-evaluation consumes the uncompressed broadcast)"),
+            (staleness is not None,
+             "bounded staleness does not compose with DMTT (the exchange graph "
+             "is trust-gated per round; serving a cached row would bypass the "
+             "round's claim verification)"),
+            (pipeline, "pipelined rounds do not compose with DMTT (the claim "
+                       "exchange and trust gate run between production and "
+                       "aggregation every round; delaying the aggregation would "
+                       "verify claims against a different round's graph)"),
+        ):
+            if clash:
+                raise ValueError(why)
+    claims_fn = attack.claims_fn if attack is not None else None
 
     if staleness is not None:
         if faults is None:
@@ -309,7 +359,8 @@ def build_round_program(
     # fresh/stale mix, or a buffered one), so under either every rule takes
     # the receiver-side decoded broadcast.
     quantized_payload = agg.quantized_exchange and stale_fold is None and not pipeline
-    reserved = set(COMPRESS_STATE_KEYS) | (set(STALE_STATE_KEYS) if stale_fold is not None else set())
+    reserved = (set(COMPRESS_STATE_KEYS) | set(DMTT_STATE_KEYS)
+                | (set(STALE_STATE_KEYS) if stale_fold is not None else set()))
     pipe_keys = pipeline_state_keys(stale=stale_fold is not None)
     pipe_reserved = reserved | set(pipe_keys)
 
@@ -490,7 +541,7 @@ def build_round_program(
         return train_mask
 
     def produce_exchange(flat, agg_state, adj, compromised, alive, round_idx, generators,
-                         draws, trained=None):
+                         draws, trained=None, data=None):
         """Steps 1-2d of the round, the production of its exchange: local
         training, the sentinels, the attack, the codec and the stale fold,
         shared by the serialized and pipelined rounds and by ``train_flat``.
@@ -500,7 +551,8 @@ def build_round_program(
         keep masks, indexed ``[epoch][step][layer]``, each a bool [N, B,
         width_l] (node, batch slot, unit) for the layers of
         ``model.dropout_widths``.  ``trained`` (a gang's member rows,
-        trained by ``train_rows`` with the others) replaces local training.
+        trained by ``train_rows`` with the others) replaces local training;
+        ``data`` (train_step's) the rows of the training arrays it trains on.
         Returns the post-scrub ``own_flat``,
         ``bcast`` and ``adj`` as the serialized aggregation consumes them,
         ``pre_flat`` and ``finite`` (the quarantine bookkeeping), the
@@ -520,7 +572,7 @@ def build_round_program(
         else:
             with record_function("murmura.train"):
                 own_flat = train_rows(flat.clone(), train_mask, round_idx,
-                                      [generators.get("train")], draws=draws)
+                                      [generators.get("train")], data=data, draws=draws)
         fault_stats = {}
         if inject_rows is not None and round_idx >= faults.nan_inject_from_round:
             own_flat = torch.where(
@@ -598,23 +650,49 @@ def build_round_program(
             "compress_stats": compress_stats, "stale_stats": stale_stats,
         }
 
-    def stats_metrics(agg_stats, prod):
+    def stats_metrics(agg_stats, prod, dmtt_stats=None):
         metrics = {f"agg_{k}": v for k, v in agg_stats.items()}
+        metrics.update({f"agg_{k}": v for k, v in (dmtt_stats or {}).items()})
         for group in ("fault_stats", "compress_stats", "stale_stats"):
             metrics.update({f"agg_{k}": v for k, v in prod[group].items()})
         return metrics
 
+    def step_ctx(data):
+        """The rules' context for rows of ``data`` (their probe batches), or
+        the program's own."""
+        if data is None:
+            return ctx
+        return replace(ctx, probe_x=data["probe_x"], probe_y=data["probe_y"],
+                       probe_mask=data["probe_mask"])
+
+    def dmtt_exchange(bcast, adj, compromised, agg_state, rule_ctx):
+        """Step 2e: (the exchange mask, agg_state with the new trust state,
+        the context with the shared cross-evaluation, the dmtt stats)."""
+        with record_function("murmura.exchange"):
+            claims = claims_fn(adj, compromised) if claims_fn is not None else adj
+            cross = pairwise_probe_eval(bcast, rule_ctx, combined_probe_metric(evidential))
+            exchange, dmtt_state, dmtt_stats = dmtt_round_update(
+                {k: agg_state[k] for k in DMTT_STATE_KEYS}, adj, claims,
+                cross["accuracy"], cross["vacuity"], dmtt)
+        return exchange, {**agg_state, **dmtt_state}, replace(rule_ctx, probe_cross=cross), \
+            dmtt_stats
+
     def round_body(flat, agg_state, adj, compromised, alive, round_idx, generators, draws,
-                   trained):
-        """One serialized round: produce the exchange, aggregate it, then
-        the fault guards."""
+                   trained, data):
+        """One serialized round: produce the exchange, the DMTT gate,
+        aggregate, then the fault guards."""
         prod = produce_exchange(flat, agg_state, adj, compromised, alive, round_idx,
-                                generators, draws, trained)
+                                generators, draws, trained, data)
         own_flat, adj, agg_state = prod["own_flat"], prod["adj"], prod["agg_state"]
+        rule_ctx = step_ctx(data)
+        dmtt_stats = None
+        if dmtt is not None:
+            adj, agg_state, rule_ctx, dmtt_stats = dmtt_exchange(
+                prod["bcast"], adj, compromised, agg_state, rule_ctx)
         rule_state = {k: v for k, v in agg_state.items() if k not in reserved}
         with record_function("murmura.aggregate"):
             new_flat, rule_state, agg_stats = agg.aggregate(
-                own_flat, prod["bcast"], adj, round_idx, rule_state, ctx
+                own_flat, prod["bcast"], adj, round_idx, rule_state, rule_ctx
             )
         agg_state = {**agg_state, **rule_state}
         if alive is not None:
@@ -629,10 +707,10 @@ def build_round_program(
             prod["fault_stats"]["alive"] = alive.sum()
             if audit_taps:
                 prod["fault_stats"]["tap_alive"] = alive
-        return new_flat, agg_state, stats_metrics(agg_stats, prod)
+        return new_flat, agg_state, stats_metrics(agg_stats, prod, dmtt_stats)
 
     def round_body_pipelined(flat, agg_state, adj, compromised, alive, round_idx, generators,
-                             draws, trained):
+                             draws, trained, data):
         """One pipelined round (core/pipeline.py): stage A aggregates the
         buffered round r-1 exchange, stage B produces round r's, stage C
         adds the delayed displacement and swaps the buffer.  Stage A comes
@@ -655,7 +733,8 @@ def build_round_program(
             # The buffer belongs to round r-1; round 0's is the invalid
             # placeholder, whose output and state are discarded below.
             agg_out, rule_state_new, agg_stats = agg.aggregate(
-                buf_own, buf_bcast, buf_adj, max(round_idx - 1.0, 0.0), rule_state, ctx
+                buf_own, buf_bcast, buf_adj, max(round_idx - 1.0, 0.0), rule_state,
+                step_ctx(data)
             )
         if alive is not None:
             # The zero-alive-neighbour guard at the buffered graph.
@@ -670,7 +749,7 @@ def build_round_program(
         }
         # ---- stage B: the production of round r's exchange ----
         prod = produce_exchange(flat, agg_state, adj, compromised, alive, round_idx,
-                                generators, draws, trained)
+                                generators, draws, trained, data)
         own_flat, agg_state = prod["own_flat"], prod["agg_state"]
         # ---- stage C: combine and swap the buffer ----
         with record_function("murmura.pipeline"):
@@ -715,13 +794,16 @@ def build_round_program(
         draws: Optional[Dict[str, Any]] = None,
         alive: Optional[torch.Tensor] = None,
         trained: Optional[torch.Tensor] = None,
+        data: Optional[Dict[str, torch.Tensor]] = None,
     ):
         """One round (round_body, or round_body_pipelined on a pipelined
         program); a faulted program needs ``alive``.  ``trained`` (a gang's
-        member rows, trained by ``train_rows``) replaces local training."""
+        member rows, trained by ``train_rows``) replaces local training.
+        ``data``: rows of the data arrays (every key of ``RoundProgram.data``)
+        to train and probe on instead of the program's own."""
         check_alive(alive)
         return body(flat, agg_state, adj, compromised, alive, round_idx, generators, draws,
-                    trained)
+                    trained, data)
 
     def train_flat(flat, agg_state, adj, compromised, round_idx, generators=None, draws=None,
                    alive=None):
@@ -774,6 +856,8 @@ def build_round_program(
     init_agg_state = {
         k: torch.as_tensor(np.asarray(v)).to(device) for k, v in agg.init_state(n).items()
     }
+    if dmtt is not None:
+        init_agg_state.update(init_dmtt_state(n, device))
     if compression is not None:
         clash = set(COMPRESS_STATE_KEYS) & set(init_agg_state)
         if clash:
@@ -821,6 +905,7 @@ def build_round_program(
         train_rows=train_rows,
         training_mask=training_mask,
         sparse_offsets=sparse_offsets,
+        dmtt=dmtt,
     )
 
 

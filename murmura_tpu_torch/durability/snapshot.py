@@ -1,6 +1,7 @@
 # Copy of SNAPSHOT_BASE_SECTIONS, RESERVED_AGG_STATE_KEY_GROUPS,
-# discover_state_key_groups, save_run_snapshot, restore_run_snapshot and
-# snapshot_roundtrip_missing_sections from murmura_tpu/durability/snapshot.py.
+# discover_state_key_groups, save_run_snapshot, restore_run_snapshot,
+# embed_bool_mask, unpack_bool_mask and snapshot_roundtrip_missing_sections
+# from murmura_tpu/durability/snapshot.py.
 """The run-state snapshot of the port's Network.
 
 A snapshot carries the **base sections** (:data:`SNAPSHOT_BASE_SECTIONS`):
@@ -9,7 +10,9 @@ every reserved carried-state key group lives: the codec's residual and
 reference, the stale cache and ages, the pipeline buffer), the run's seed,
 the round counter, the history and the round times; plus the
 orchestrator's **extra sections** through the ``_durability_*`` hooks of
-:class:`~murmura_tpu_torch.core.network.Network` (the telemetry run id).
+:class:`~murmura_tpu_torch.core.network.Network` (the telemetry run id; a
+population run's cohort, swap count and bank,
+:class:`~murmura_tpu_torch.population.engine.PopulationNetwork`).
 A gang (:class:`~murmura_tpu_torch.core.gang.GangNetwork`) saves its
 members' parameters as one ``[S, N, P]`` tensor, their carried states
 stacked key by key, the list of member seeds, one history a member under
@@ -37,8 +40,7 @@ Every module-level ``*_STATE_KEYS`` tuple of the port must be listed in
 finds them by an AST scan; tests/test_torch_durability.py holds the two in
 bijection), and a payload with every reserved key must survive the
 save/restore roundtrip bit for bit (:func:`snapshot_roundtrip_missing_sections`).
-``ATTACK_STATE_KEYS`` and ``DMTT_STATE_KEYS`` join when adaptive attacks
-and DMTT are ported.
+``ATTACK_STATE_KEYS`` joins when adaptive attacks are ported.
 """
 
 import ast
@@ -46,6 +48,7 @@ import importlib
 from pathlib import Path
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 from murmura_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
@@ -61,6 +64,7 @@ SNAPSHOT_BASE_SECTIONS: Tuple[str, ...] = (
 
 RESERVED_AGG_STATE_KEY_GROUPS: Dict[str, str] = {
     "COMPRESS_STATE_KEYS": "murmura_tpu_torch.ops.compress",
+    "DMTT_STATE_KEYS": "murmura_tpu_torch.core.rounds",
     "PIPELINE_STATE_KEYS": "murmura_tpu_torch.core.pipeline",
     "STALE_STATE_KEYS": "murmura_tpu_torch.core.stale",
 }
@@ -165,6 +169,16 @@ def restore_run_snapshot(directory, network) -> int:
     network.round_times = times
     network._durability_restore_extra(extra_arrays, extra_meta)
     return round_num
+
+
+def embed_bool_mask(mask: np.ndarray) -> np.ndarray:
+    """Pack a boolean mask for the snapshot (8x smaller; a 1M-user
+    activation mask costs about 125 KB)."""
+    return np.packbits(np.asarray(mask, dtype=bool))
+
+
+def unpack_bool_mask(packed: np.ndarray, size: int) -> np.ndarray:
+    return np.unpackbits(np.asarray(packed, dtype=np.uint8))[:size].astype(bool)
 
 
 def snapshot_roundtrip_missing_sections(directory, payload_sections: Dict[str, Any]):

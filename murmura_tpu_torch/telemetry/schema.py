@@ -13,9 +13,12 @@
 Event types (the ``type`` field of each line) the port writes: ``run``
 (started / resumed), ``round`` (per-node metric arrays, ``agg_tap_*``
 audit taps included, and the host-side ``in_degree`` of the round's
-adjacency), ``phase_times`` (``per_round`` wall times, or ``fused``
-``elapsed/k`` over a chunk of k), ``memory`` (the card's allocator
-counters) and ``profile`` (a profiler window started / stopped).  Every
+adjacency), ``phase_times`` (``per_round`` wall times, ``fused``
+``elapsed/k`` over a chunk of k, or a population run's ``population``
+round with its ``cohort_draw``), ``cohort`` (a population run's swap: its
+draw, the users swapped out, the activated users and ``swap_s``),
+``memory`` (the card's allocator counters) and ``profile`` (a profiler
+window started / stopped).  Every
 line carries ``t``, the host wall-clock time at emit (v2).
 """
 

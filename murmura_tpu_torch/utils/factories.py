@@ -1,13 +1,15 @@
 """Config -> object wiring (the PyTorch counterpart of the plain path of
 murmura_tpu/utils/factories.py).
 
-``build_network_from_config`` builds data, model, topology, the attack
-(with its label poison), the aggregation rule, the fault schedule and
-spec, the compression and staleness specs, the telemetry writer and the
-round program (pipelined under ``exchange.pipeline``; on the [k, N] edge
-mask for a sparse topology), and refuses by name every part of the
-configuration surface the port does not run yet — a refused section is an
-error, never a silent fallback.  ``build_gang_from_config`` builds the same
+``build_network_from_config`` builds data, model, topology, the mobility
+model, the attack (with its label poison, or a topology liar's claims), the
+aggregation rule, the fault schedule and spec, the compression and
+staleness specs, the DMTT parameters, the telemetry writer and the round
+program (pipelined under ``exchange.pipeline``; on the [k, N] edge mask
+for a sparse topology), and a PopulationNetwork where ``population`` is
+enabled; it refuses by name every part of the configuration surface the
+port does not run yet — a refused section is an error, never a silent
+fallback.  ``build_gang_from_config`` builds the same
 per member of a gang (core/gang.py): data, initial parameters and draws
 from each member's seed, one attack placement, topology and fault schedule
 for all.
@@ -28,10 +30,13 @@ from murmura_tpu_torch.core.rounds import build_round_program
 from murmura_tpu_torch.core.stale import StalenessSpec
 from murmura_tpu_torch.levers import refusal_reason
 from murmura_tpu_torch.data.registry import build_federated_data
+from murmura_tpu_torch.dmtt.protocol import DMTTParams
 from murmura_tpu_torch.faults.schedule import FaultSchedule, FaultSpec
 from murmura_tpu_torch.models.registry import build_model
 from murmura_tpu_torch.ops.compress import CompressionSpec
 from murmura_tpu_torch.ops.flatten import model_dimension
+from murmura_tpu_torch.population import PopulationNetwork, PopulationSpec
+from murmura_tpu_torch.topology.dynamic import MobilityModel
 from murmura_tpu_torch.topology.generators import create_topology
 from murmura_tpu_torch.topology.sparse import SparseTopology
 from murmura_tpu_torch.utils.checkpoint import has_checkpoint
@@ -48,12 +53,6 @@ def unported_sections(config: Config) -> List[str]:
     out = []
     if config.backend == "distributed":
         out.append("backend: distributed (the ZMQ multi-process backend)")
-    if config.mobility is not None:
-        out.append("mobility")
-    if config.dmtt is not None:
-        out.append("dmtt")
-    if config.population is not None and config.population.enabled:
-        out.append("population (cohort streaming)")
     if config.frontier is not None:
         out.append("frontier (the robustness frontier search)")
     if config.grid is not None:
@@ -124,6 +123,44 @@ def build_compression_spec(config: Config) -> Optional[CompressionSpec]:
     )
 
 
+def build_mobility(config: Config) -> Optional[MobilityModel]:
+    """MobilityModel from config.mobility, or None without one."""
+    m = config.mobility
+    if m is None:
+        return None
+    return MobilityModel(
+        num_nodes=config.topology.num_nodes,
+        area_size=m.area_size,
+        comm_range=m.comm_range,
+        max_speed=m.max_speed,
+        seed=m.seed,
+        ensure_connected=m.ensure_connected,
+    )
+
+
+def build_dmtt_params(config: Config) -> Optional[DMTTParams]:
+    """DMTTParams from config.dmtt, or None without it."""
+    if config.dmtt is None:
+        return None
+    return DMTTParams(**config.dmtt.model_dump(exclude={"allow_static"}))
+
+
+def build_population_spec(config: Config) -> Optional[PopulationSpec]:
+    """PopulationSpec from config.population, or None when off."""
+    p = config.population
+    if p is None or not p.enabled:
+        return None
+    return PopulationSpec(
+        virtual_size=p.virtual_size,
+        sampler=p.sampler,
+        seed=p.seed,
+        rounds_per_cohort=p.rounds_per_cohort,
+        data_binding=p.data_binding,
+        bank_dir=p.bank_dir,
+        inherit=p.inherit,
+    )
+
+
 def build_staleness_spec(config: Config, topology) -> Optional[StalenessSpec]:
     """StalenessSpec from config.exchange, or None when off.  The base mask
     is the unfaulted graph re-added stale edges are drawn from: the
@@ -187,7 +224,8 @@ def build_attack(config: Config) -> Optional[Attack]:
     experiment seed; each type reads its own params as the JAX factories
     do (gaussian ``noise_std`` or ``std``, directed ``lambda_param``, ALIE
     ``z`` and ``estimator``, IPM ``epsilon``, label flip
-    ``flip_fraction``)."""
+    ``flip_fraction``; a topology liar's ``model_attack_type``, gaussian or
+    directed_deviation with their params, or none for claims only)."""
     if not config.attack.enabled or not config.attack.type:
         return None
     n = config.topology.num_nodes
@@ -227,6 +265,25 @@ def build_attack(config: Config) -> Optional[Attack]:
             raise ConfigError(f"attack.params.flip_fraction must be in (0, 1], got {ff}")
         return ATTACKS[kind](num_nodes=n, attack_percentage=pct, seed=seed,
                              flip_fraction=ff)
+    if kind == "topology_liar":
+        inner = None
+        inner_type = p.get("model_attack_type")
+        if inner_type == "gaussian":
+            inner = ATTACKS["gaussian"](num_nodes=n, attack_percentage=pct, seed=seed,
+                                        noise_std=float(p.get("noise_std", 10.0)))
+        elif inner_type == "directed_deviation":
+            inner = ATTACKS["directed_deviation"](num_nodes=n, attack_percentage=pct,
+                                                  seed=seed,
+                                                  lambda_param=float(p.get("lambda_param", -5.0)))
+        elif inner_type is not None:
+            # A typo must not degrade to topology lies only: the run would
+            # measure another threat model.
+            raise ConfigError(
+                f"topology_liar model_attack_type '{inner_type}' is not supported; use "
+                "'gaussian' or 'directed_deviation' (or omit for topology lies only)"
+            )
+        return ATTACKS[kind](num_nodes=n, attack_percentage=pct, seed=seed,
+                             model_attack=inner)
     raise ConfigError(f"attack.type: {kind} is not ported")
 
 
@@ -281,6 +338,11 @@ def build_rule(config: Config, model, topology):
         agg_params["exchange_offsets"] = list(topology.offsets)
         agg_params["sparse_exchange"] = True
     elif config.backend == "tpu" and config.tpu.exchange == "ppermute":
+        if config.mobility is not None or config.dmtt is not None:
+            raise ConfigError(
+                "tpu.exchange: ppermute requires a static circulant topology "
+                "(mobility/dmtt graphs change per round)"
+            )
         offsets = topology.circulant_offsets()
         if offsets is None:
             raise ConfigError(
@@ -289,8 +351,9 @@ def build_rule(config: Config, model, topology):
             )
         agg_params["exchange_offsets"] = offsets
     if (config.aggregation.algorithm in ("krum", "median", "trimmed_mean", "geometric_median")
-            and not sparse):
+            and not sparse and config.mobility is None and config.dmtt is None):
         # Static graph: bound the per-node candidate block at max-degree + 1.
+        # A mobility or DMTT graph changes every round: no static bound.
         agg_params.setdefault(
             "max_candidates", int(topology.mask().sum(axis=1).max()) + 1
         )
@@ -376,6 +439,7 @@ def build_program(config: Config, topology, attack, seed: int, device, rule=None
         pipeline=config.exchange.pipeline,
         sparse_offsets=sparse_offsets_of(topology),
         attack_scale=attack_scale,
+        dmtt=build_dmtt_params(config),
     )
     return program, rule
 
@@ -391,7 +455,8 @@ def refuse_unported(config: Config) -> None:
 
 
 def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None) -> Network:
-    """Full wiring: data + model + aggregator + attack -> Network on ``device``.
+    """Full wiring: data + model + aggregator + attack -> Network on ``device``
+    (a PopulationNetwork when ``population`` is enabled).
 
     ``checkpoint_dir``: the snapshot directory this run will resume from,
     when given; the telemetry writer then appends to its stream exactly
@@ -403,12 +468,20 @@ def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None
     attack = build_attack(config)
     program, _ = build_program(config, topology, attack, seed, torch.device(device))
     resume = checkpoint_dir is not None and has_checkpoint(checkpoint_dir)
-    return Network(program, topology, attack=attack, seed=seed,
-                   fault_schedule=build_fault_schedule(config),
-                   telemetry=build_telemetry_writer(config, resume=resume),
-                   profile_dir=config.tpu.profile_dir,
-                   transfer_guard=config.tpu.transfer_guard,
-                   recompile_guard=config.tpu.recompile_guard)
+    kwargs = dict(attack=attack, seed=seed, fault_schedule=build_fault_schedule(config),
+                  telemetry=build_telemetry_writer(config, resume=resume),
+                  profile_dir=config.tpu.profile_dir,
+                  transfer_guard=config.tpu.transfer_guard,
+                  recompile_guard=config.tpu.recompile_guard,
+                  mobility=build_mobility(config))
+    spec = build_population_spec(config)
+    if spec is not None:
+        try:
+            return PopulationNetwork(program, topology, population=spec, **kwargs)
+        except ValueError as e:
+            # A bank file of another size under population.bank_dir.
+            raise ConfigError(str(e)) from None
+    return Network(program, topology, **kwargs)
 
 
 def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint_dir=None):
@@ -434,6 +507,13 @@ def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint
         # The CLI's --seeds reaches here with sweep unset, so the schema's
         # population x sweep check never saw this pair.
         raise ConfigError(refusal_reason("population", "sweep"))
+    unported = [name for name in ("mobility", "dmtt") if getattr(config, name) is not None]
+    if unported:
+        raise ConfigError(
+            f"the PyTorch port's gang does not run {' or '.join(unported)} yet "
+            "(the JAX gang shares one mobility model across members); run the "
+            "seeds as separate invocations"
+        )
     refuse_unported(config)
     try:
         members = resolve_members(config, seeds)

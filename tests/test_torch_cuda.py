@@ -7,9 +7,12 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed:
 
 (``--noconftest`` because tests/conftest.py pins JAX to the CPU.)  Beside the
 kernels: the CLI runs launch them (a pipelined Krum round too, from its
-warm-up round on; a sparse Krum run twice a round; a gang once a member),
-and ``tpu.transfer_guard`` raises on a synchronising call forced inside a
-fused chunk.
+warm-up round on; a sparse Krum run twice a round; a gang once a member;
+a population run twice a round), and ``tpu.transfer_guard`` raises on a
+synchronising call forced inside a fused chunk and not across a
+population run's swaps.  The population engine's swap on the card (pinned
+prefetch buffers, the teleport composition, the write-back) and the DMTT
+trust update, card against CPU, have their tests too.
 Tolerances are chip_smoke.py's: |d2 - plain| <= 1e-5 (|a_i|^2 + |b_j|^2)
 for the pairwise kernel (norms of the centered rows when it takes a
 center), whose Gram identity cancels in float32;
@@ -752,3 +755,131 @@ def test_gang_launches_each_kernel_once_a_member(dev, tmp_path, exchange):
     assert K.LAUNCHES[kernel] == 3 * single and not any(K.PLAIN_CALLS.values())
     assert list(histories) == [m.label for m in gang.members]
     assert bool(torch.isfinite(gang.flats).all())
+
+
+def _population_cfg(**population):
+    return {
+        "experiment": {"name": "cuda-pop", "seed": 3, "rounds": 3, "verbose": False},
+        "topology": {"type": "exponential", "num_nodes": 8},
+        "aggregation": {"algorithm": "krum", "params": {"num_compromised": 0}},
+        "training": {"local_epochs": 1, "batch_size": 16, "lr": 0.05},
+        "data": {"adapter": "synthetic",
+                 "params": {"num_samples": 320, "input_dim": 16, "num_classes": 4}},
+        "model": {"factory": "mlp",
+                  "params": {"input_dim": 16, "hidden_dims": [16], "num_classes": 4}},
+        "backend": "tpu",
+        "tpu": {"transfer_guard": True},
+        "population": {"enabled": True, "virtual_size": 24, "sampler": "uniform", "seed": 9,
+                       **population},
+    }
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_population_swap_on_the_card(dev, dtype):
+    from murmura_tpu_torch.config.schema import Config
+    from murmura_tpu_torch.utils.factories import build_network_from_config
+
+    raw = _population_cfg()
+    raw["tpu"]["param_dtype"] = dtype
+    config = Config.model_validate(raw)
+    net = build_network_from_config(config, device="cuda")
+    cpu = build_network_from_config(config, device="cpu")
+    # One spread initial state for both (the first swap teleports it into
+    # the cohort), so that Krum's picks sit off float32 ties.
+    g = torch.Generator().manual_seed(0)
+    base = cpu.flat.to(torch.float32)
+    scale = 0.05 * (1.0 + torch.arange(8.0) / 8)[:, None]
+    spread = (base[:1] + scale * torch.randn(base.shape, generator=g)).to(cpu.flat.dtype)
+    cpu.flat, net.flat = spread, spread.to(dev)
+    # The card draws the CPU's shuffle keys, copied to it before the run
+    # (a copy inside a round would trip tpu.transfer_guard).
+    from murmura_tpu_torch.core.rounds import round_generators
+
+    train_step = net.program.train_step
+    shape = tuple(cpu.program.data["mask"].shape)
+    keys = [torch.rand(shape, generator=round_generators(3, r, "cpu")["train"]).to(dev)
+            for r in range(3)]
+
+    def cpu_draws(*args, **kwargs):
+        return train_step(*args, **kwargs, draws={"u": [keys[int(args[4])]]})
+
+    import dataclasses
+
+    net.program = dataclasses.replace(net.program, train_step=cpu_draws)
+    K.reset_counts()
+    # Three swaps under tpu.transfer_guard: the write-backs sit outside its
+    # region, so nothing raises.
+    history = net.train(3)
+    assert K.LAUNCHES["circulant_sq_distances"] == 6 and not any(K.PLAIN_CALLS.values())
+    cpu.train(3)
+    assert np.array_equal(net.cohort, cpu.cohort)
+    assert np.array_equal(net.bank._has_row, cpu.bank._has_row)
+    ids = net.bank.activated_users
+    delta = np.abs(net.bank.rows_of(ids) - cpu.bank.rows_of(ids)).max()
+    assert delta <= 1e-4 * max(1.0, float(np.abs(cpu.bank.rows_of(ids)).max()))
+    assert all(np.isfinite(v).all() for v in history.values())
+    # The prefetch: pinned host buffers, the copy queued without a wait.
+    net._prefetch(3)
+    rows_host, known_host = net._prefetched[4]
+    assert rows_host.is_pinned() and known_host.is_pinned()
+    assert net._prefetched[2].device.type == "cuda"
+    # The swap: the write-back of the outgoing rows, then the teleport
+    # composition on the card.
+    outgoing = net.flat.to(torch.float32).cpu().numpy()
+    out_users = net.cohort.copy()
+    incoming = net._draw(3)
+    net.bank.scatter(out_users, outgoing)
+    known = net.bank.has_rows(incoming)[:, None]
+    rows = net.bank.gather(incoming, net._slot_init)
+    net._swap_to(3, 3)
+    assert np.array_equal(net.bank.rows_of(out_users), outgoing)
+    want = torch.from_numpy(np.where(known, rows, outgoing)).to(getattr(torch, dtype))
+    assert net.flat.device.type == "cuda" and torch.equal(net.flat.cpu(), want)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dmtt_round_update_card_equals_cpu(dev, seed):
+    from murmura_tpu_torch.attacks.topology_liar import false_claims
+    from murmura_tpu_torch.dmtt import protocol as P
+    from murmura_tpu_torch.topology.dynamic import MobilityModel
+
+    n = 16
+    rng = np.random.default_rng(seed)
+    params = P.DMTTParams()
+    mob = MobilityModel(n, comm_range=40.0, seed=seed)
+    comp = torch.from_numpy((rng.random(n) < 0.25).astype(np.float32))
+    states = {"cpu": P.init_dmtt_state(n), "cuda": P.init_dmtt_state(n, dev)}
+    for r in range(5):
+        adj = torch.from_numpy(mob.adjacency_at(r).astype(np.float32))
+        acc = torch.from_numpy(rng.integers(0, 17, (n, n)).astype(np.float32) / 16.0)
+        vac = torch.from_numpy(rng.random((n, n)).astype(np.float32))
+        out = {}
+        for name, d in (("cpu", "cpu"), ("cuda", dev)):
+            out[name] = P.dmtt_round_update(
+                states[name], adj.to(d), false_claims(adj, comp).to(d), acc.to(d),
+                vac.to(d), params)
+            states[name] = out[name][1]
+        (ex_a, st_a, stats_a), (ex_b, st_b, stats_b) = out["cpu"], out["cuda"]
+        assert torch.equal(ex_a, ex_b.cpu()), r
+        assert torch.equal(st_a["dmtt_collab"], st_b["dmtt_collab"].cpu()), r
+        for k in ("dmtt_c_hat", "dmtt_alpha", "dmtt_beta"):
+            np.testing.assert_allclose(st_b[k].cpu().numpy(), st_a[k].numpy(), rtol=1e-6)
+        for k in ("dmtt_collab_count", "dmtt_received_count"):
+            assert torch.equal(stats_a[k], stats_b[k].cpu()), k
+        np.testing.assert_allclose(stats_b["dmtt_mean_topo_trust"].cpu().numpy(),
+                                   stats_a["dmtt_mean_topo_trust"].numpy(), rtol=1e-6)
+
+
+def test_dmtt_mobility_run_on_the_card(dev, tmp_path):
+    from murmura_tpu_torch import cli
+
+    cfg = yaml.safe_load(open("examples/configs/dmtt_mobility.yaml"))
+    cfg["experiment"].update(rounds=3, verbose=False)
+    path = tmp_path / "dmtt.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    K.reset_counts()
+    history, network = cli.run(path, output=tmp_path / "h.json", device="cuda")
+    assert not any(K.LAUNCHES.values()) and not any(K.PLAIN_CALLS.values())
+    assert network.mobility is not None and network.flat.device.type == "cuda"
+    assert len(history["agg_dmtt_collab_count"]) == 3
+    assert all(np.isfinite(v).all() for v in history.values())

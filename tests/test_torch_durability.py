@@ -217,6 +217,7 @@ def test_snapshot_roundtrip_detects_a_corrupted_key(tmp_path, monkeypatch):
 def test_registry_equals_the_packages_state_key_groups():
     found = S.discover_state_key_groups(PORT)
     assert found == S.RESERVED_AGG_STATE_KEY_GROUPS
+    assert found["DMTT_STATE_KEYS"] == "murmura_tpu_torch.core.rounds"
     assert set(S.resolve_reserved_agg_state_keys()) == set(found)
 
 

@@ -112,7 +112,7 @@ def test_config_wiring_builds_the_jax_schedule_and_spec():
     topo = create_topology("ring", N)
     for r in range(30):
         assert np.array_equal(got.alive_at(r), ref.alive_at(r))
-        assert np.array_equal(effective_adjacency(topo, got, r),
+        assert np.array_equal(effective_adjacency(topo, None, got, r),
                               jax_effective_adjacency(jax_topology("ring", N), None, ref, r))
     spec, jspec = factories.build_fault_spec(cfg), jax_factories.build_fault_spec(jcfg)
     assert (spec.nan_quarantine, spec.nan_inject_nodes, spec.nan_inject_from_round) == (

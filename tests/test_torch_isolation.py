@@ -10,10 +10,13 @@ and it never moves to the CPU unless asked to.
   a telemetry run dir, read back by the port's report, and two pipelined
   Krum rounds snapshotted, restored into a new Network and resumed for a
   round (durability/ and core/pipeline.py, the retry envelope around it),
-  a gang round of two seeds (core/gang.py, through the CLI's ``sweep``)
-  and a sparse round on the exponential and one_peer graphs
-  (topology/sparse.py), loads no ``jax`` and no ``murmura_tpu.*`` module
-  (counted against what the interpreter had loaded at start).
+  a gang round of two seeds (core/gang.py, through the CLI's ``sweep``),
+  a sparse round on the exponential and one_peer graphs
+  (topology/sparse.py), two population rounds across a swap (population/,
+  a memory-mapped million-user bank) and two DMTT rounds under mobility
+  and the topology liar (dmtt/, topology/dynamic.py), loads no ``jax`` and
+  no ``murmura_tpu.*`` module (counted against what the interpreter had
+  loaded at start).
 - An AST scan of the port and of chip_smoke.py finds no such import.
 - Without CUDA, ``python -m murmura_tpu_torch run`` without ``--device
   cpu`` fails with a message, and chip_smoke.py exits non-zero, printing
@@ -147,6 +150,15 @@ for kind in ("exponential", "one_peer"):
     raw["topology"] = {"type": kind, "num_nodes": 8}
     net = build_network_from_config(Config.model_validate(raw), device="cpu")
     assert net.program.sparse and net.train(1)["round"] == [1]
+raw["population"] = {"enabled": True, "virtual_size": 1000000, "sampler": "stratified"}
+net = build_network_from_config(Config.model_validate(raw), device="cpu")
+assert net.train(2)["round"] == [1, 2] and net.cohorts_seen == 2 and net.bank.path
+net.bank.close()
+raw = yaml.safe_load(open("examples/configs/dmtt_mobility.yaml"))
+raw["experiment"].update(rounds=2, verbose=False)
+raw["data"]["params"]["num_samples"] = 320
+net = build_network_from_config(Config.model_validate(raw), device="cpu")
+assert net.mobility is not None and len(net.train(2)["agg_dmtt_collab_count"]) == 2
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "murmura_tpu"})
 print("LOADED", bad)

@@ -327,7 +327,7 @@ def test_history_bit_equal_with_telemetry_off_and_on(tmp_path):
     assert [e["round"] for e in events_of_type(run, "memory")] == [0, 1, 2]
     # in_degree: the column sums of the adjacency staged for the round.
     for e in events_of_type(run, "round"):
-        adj = effective_adjacency(net.topology, net.fault_schedule, e["round"] - 1)
+        adj = effective_adjacency(net.topology, None, net.fault_schedule, e["round"] - 1)
         assert e["in_degree"] == adj.sum(axis=0).tolist()
         assert len(e["metrics"]["agg_tap_alive"]) == 8
 

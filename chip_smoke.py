@@ -65,7 +65,13 @@ Phases, each of which raises (and exits non-zero) on failure:
    scaled 1e-4, ``agg_pipe_valid`` [0, 1]; and every rule under the sparse
    [k, N] edge mask of the exponential graph of 16 nodes (all edges but
    one, and one_peer's round 1), two seeds: decisions equal, parameters
-   within a scaled 1e-4;
+   within a scaled 1e-4; and adaptive attacks (``check_adaptive_against_cpu``):
+   the bisection around gaussian std 10 (40% compromised) under Krum
+   (dense, circulant, the exponential graph) and BALANCE (dense), three
+   chained rounds, two seeds: picks and the bracket (``atk_scale``,
+   ``atk_lo``, ``atk_hi``) equal, the acceptance EMA within rtol 1e-6,
+   parameters within a scaled 1e-4; adaptive ALIE on the dense geometric
+   median (no taps): ``atk_z`` equal;
 3c. one round of the tiny CNN at 64 nodes, k-regular(4), in the parameter
    dtype the configs take by default from 64 nodes up (bfloat16), for
    every ported rule (Krum, geometric median, BALANCE, UBAR and
@@ -155,7 +161,22 @@ Phases, each of which raises (and exits non-zero) on failure:
    over 3 rounds on the card and on the CPU (the cross-evaluation's
    accuracies, the TopB masks and the agg_dmtt_* counts equal or
    tie-aware, the trust state within rtol 1e-5, the parameters within a
-   scaled 1e-4).  A faulted run holds its alive and
+   scaled 1e-4); then adaptive attacks: the flagship with
+   ``attack.adaptive`` on (the bisection, 6 rounds, both exchanges; its
+   ``agg_atk_*`` columns printed), ``alie_geometric_median.yaml`` with
+   adaptive ALIE, and the flagship's trimmed mean under ppermute with
+   adaptive IPM (the candidate select); and the frontier, through the
+   port's ``frontier`` command with ``-o`` under SMOKE_DIR:
+   ``frontier_krum.yaml`` as committed (20 cells, 2 stages of 4 strengths
+   x 2 seeds, 6 rounds fused) and the flagship's scenario under a
+   ``frontier:`` block (Krum and BALANCE x ALIE and gaussian x dense and
+   sparse, gangs of 3 at [16, 6,603,710] float32, backend: simulation):
+   the counters set to 0 around each cell, each cell's kernel launched
+   twice (Krum) or once (BALANCE) a round a member in every stage, none
+   for the other rules, no plain call, ``compiles`` 1 in every cell, the
+   artifact with the JAX schema's keys, ``report --frontier`` rendering
+   it; each cell's breaking point, the stages' seconds a round, the total
+   seconds and the peak memory printed.  A faulted run holds its alive and
    quarantined counts to the schedule and every kernel input finite; a
    compressed run prints its payload bytes an edge; a telemetry run reads
    its run dir back with the port's report (the memory event's peak equal
@@ -173,7 +194,9 @@ Phases, each of which raises (and exits non-zero) on failure:
    serialized one's, the gangs' beside their members' summed, the resumed
    runs' equality and snapshot costs, population_1m's steady seconds,
    peak memory and swap times beside its scenario's, dmtt_mobility's
-   steady seconds and cross-evaluation share, the
+   steady seconds and cross-evaluation share, the adaptive flagship's
+   steady seconds beside the static run's, the frontiers' total seconds,
+   stage seconds a round and peaks, the
    codec's times beside the flagship round's, one
    ``{"kernels": [...]}`` JSON line, the card line, and the
    ``{"ok": true, "device": ...}`` line last.
@@ -210,6 +233,7 @@ STALE_GOSSIP = ROOT / "examples" / "configs" / "stale_gossip.yaml"
 RESUMABLE_RUN = ROOT / "examples" / "configs" / "resumable_run.yaml"
 PIPELINED_ROUNDS = ROOT / "examples" / "configs" / "pipelined_rounds.yaml"
 SWEEP_SEEDS = ROOT / "examples" / "configs" / "sweep_seeds.yaml"
+FRONTIER_KRUM = ROOT / "examples" / "configs" / "frontier_krum.yaml"
 POPULATION_1M = ROOT / "examples" / "configs" / "population_1m.yaml"
 DMTT_MOBILITY = ROOT / "examples" / "configs" / "dmtt_mobility.yaml"
 SMOKE_DIR = ROOT / "build" / "murmura_tpu_torch" / "smoke"
@@ -1487,6 +1511,163 @@ DECISIONS = {
 }
 
 
+# Phase 3b's adaptive rows: (label, rule, params, sparse offsets or None).
+# The bisection around the gaussian attack (std 10), 40% compromised.
+ADAPTIVE_RULES = [
+    ("krum dense", "krum", {"num_compromised": 1}, None),
+    ("krum circulant", "krum", {"num_compromised": 1, "exchange_offsets": [1, 2, 14, 15]}, None),
+    ("krum sparse exponential", "krum",
+     {"num_compromised": 1, "exchange_offsets": list(SPARSE_OFFSETS), "sparse_exchange": True},
+     SPARSE_OFFSETS),
+    ("balance dense", "balance", {}, None),
+]
+ADAPTIVE_ROUNDS = 3
+
+
+def check_adaptive_against_cpu(device: str = "cuda") -> None:
+    """Phase 3b, adaptive attacks: three chained rounds on the card and on
+    the CPU, the tiny CNN, 16 nodes, the bisection around the gaussian
+    attack (std 10, 40% compromised), for each ADAPTIVE_RULES row on two
+    of ROUND_SEEDS.  Each device carries its own attack state from round
+    to round (the closed loop under test); each round takes the same
+    injected draws (its own attack noise) and starts both devices from the
+    same parameters: round 0 from the spread initial state, round r from
+    the CPU's round r-1 output plus fresh offsets of distinct scales.
+    (Without the offsets, nodes that copied one Krum winner train into
+    near-copies whose dense scores tie within the Gram identity's float32
+    cancellation, which the std-10 rows inflate: the card then picks the
+    other near-copy, as PERF.md section 2 says.)  Every round the picks
+    (Krum's selection, BALANCE's ``tap_selected_by``) must be equal,
+    ``atk_scale``, ``atk_lo`` and ``atk_hi`` bit-equal, ``atk_accept_ema``
+    within rtol 1e-6 (the card may fuse its multiply-add), the parameters
+    within a scaled 1e-4 plus the scaled delta of the round's trained rows
+    alone (``train_flat`` on both devices): Krum copies a candidate row and
+    BALANCE takes a convex combination of candidates, so the rule adds
+    nothing to a training difference.  (The tiny CNN's training can sit at
+    a near-tie, a max-pool window or a ReLU, where another summation order
+    moves one node's weights by a discrete step: on an H100, seed 7's
+    round 1 moved node 2 by 8.6e-4 scaled, everything else by under 1e-7;
+    PERF.md, section 6.)  Then adaptive ALIE (omniscient) on the dense
+    geometric median, which has no taps: the attacker escalates blind, and
+    its ``atk_z`` must be equal on both devices (the parameters' delta
+    printed, the median's derived bound of section 2 not gated here)."""
+    import numpy as np
+    import torch
+
+    from murmura_tpu_torch.aggregation import build_aggregator
+    from murmura_tpu_torch.attacks import ATTACKS
+    from murmura_tpu_torch.attacks.adaptive import (
+        make_adaptive_alie_attack,
+        make_bisection_attack,
+    )
+    from murmura_tpu_torch.core.rounds import build_round_program
+    from murmura_tpu_torch.topology.generators import create_topology
+
+    n = 16
+    dense_adj = create_topology("k-regular", n, k=4).mask().astype(np.float32)
+    seeds = ROUND_SEEDS[:2]
+    inputs = {seed: _round_inputs(n, seed, False) for seed in seeds}
+    spread = 0.02 * (1.0 + np.arange(n) / n)
+
+    def lockstep(rule, kw, offsets, make_attack, seed):
+        """Per round: (card (flat, picks, state), CPU (flat, picks, state))."""
+        model, data, init, draws = inputs[seed]
+        progs, comps, states = {}, {}, {}
+        for dev in (device, "cpu"):
+            attack = make_attack(seed)
+            progs[dev] = build_round_program(
+                model, build_aggregator(rule, kw), data, attack=attack, local_epochs=1,
+                batch_size=16, lr=0.05, seed=seed, device=dev, init_params=init,
+                sparse_offsets=offsets)
+            comps[dev] = torch.as_tensor(attack.compromised.astype(np.float32)).to(dev)
+            states[dev] = dict(progs[dev].init_agg_state)
+        comp = attack.compromised
+        adj = np.ones((len(offsets), n), np.float32) if offsets else dense_adj
+        start, rows = progs["cpu"].init_flat.clone(), []
+        for r in range(ADAPTIVE_ROUNDS):
+            rng = np.random.default_rng(seed + 1 + r)
+            noise = rng.normal(size=(int(comp.sum()), progs["cpu"].model_dim)).astype(np.float32)
+            if r:
+                start = start + torch.as_tensor(
+                    (spread[:, None] * rng.normal(size=tuple(start.shape))).astype(np.float32))
+            out = {}
+            for dev in (device, "cpu"):
+                trained, _ = progs[dev].train_flat(
+                    start.to(dev), states[dev], torch.as_tensor(adj).to(dev), comps[dev],
+                    float(r), draws={**draws, "noise": noise})
+                flat, states[dev], metrics = progs[dev].train_step(
+                    start.to(dev), states[dev], torch.as_tensor(adj).to(dev), comps[dev],
+                    float(r), draws={**draws, "noise": noise})
+                picks = metrics.get("agg_selected_index", metrics.get("agg_tap_selected_by"))
+                out[dev] = (flat.cpu().double(), None if picks is None else picks.cpu(),
+                            {k: v.cpu()[comp] for k, v in states[dev].items()
+                             if k.startswith("atk_")}, trained.cpu().double())
+            start = out["cpu"][0].float()
+            rows.append((out[device], out["cpu"]))
+        return rows
+
+    def bisection(seed):
+        return make_bisection_attack(ATTACKS["gaussian"](n, 0.4, seed=seed, noise_std=10.0))
+
+    for label, rule, kw, offsets in ADAPTIVE_RULES:
+        deltas, unequal, ema_rel, where, over = [], [], 0.0, [], []
+        for seed in seeds:
+            rows = lockstep(rule, kw, offsets, bisection, seed)
+            for r, ((f_card, p_card, s_card, t_card), (f_cpu, p_cpu, s_cpu, t_cpu)) in enumerate(
+                    rows):
+                deltas.append(float((f_card - f_cpu).abs().max()
+                                    / max(1.0, float(f_cpu.abs().max()))))
+                trained = float((t_card - t_cpu).abs().max() / max(1.0, float(t_cpu.abs().max())))
+                if deltas[-1] > 1e-4 + trained:
+                    over.append(f"seed {seed} round {r}")
+                if deltas[-1] > 1e-4:
+                    node = int((f_card - f_cpu).abs().amax(dim=1).argmax())
+                    where.append(f"seed {seed} round {r} node {node}: {deltas[-1]:.3g} "
+                                 f"(training alone {trained:.3g})")
+                if not torch.equal(p_card, p_cpu):
+                    unequal.append(f"seed {seed} round {r} picks")
+                for k in ("atk_scale", "atk_lo", "atk_hi"):
+                    if not torch.equal(s_card[k], s_cpu[k]):
+                        unequal.append(f"seed {seed} round {r} {k}")
+                ema = s_cpu["atk_accept_ema"].double()
+                rel = float(((s_card["atk_accept_ema"].double() - ema).abs()
+                             / ema.abs().clamp(min=1e-30)).max())
+                ema_rel = max(ema_rel, rel)
+        last = rows[-1][0][2]
+        ok = not over and not unequal and ema_rel <= 1e-6
+        print(f"[round] {label}, adaptive (bisection around gaussian std 10, 40%), "
+              f"{ADAPTIVE_ROUNDS} chained rounds, tiny CNN, card vs CPU, seeds {list(seeds)}: "
+              f"scaled param delta largest {max(deltas):.3g} (limit 1e-4 plus the trained rows' "
+              f"delta; over 1e-4: {'; '.join(where) or 'none'}); picks and "
+              "atk_scale/lo/hi " + ("equal every round" if not unequal
+                                    else f"differ: {', '.join(unequal)}")
+              + f"; atk_accept_ema rel {ema_rel:.3g} (limit 1e-6); seed {seeds[-1]}'s last "
+              f"atk_scale / atk_lo / atk_hi of the compromised rows "
+              f"{sorted(set(last['atk_scale'].tolist()))} / {sorted(set(last['atk_lo'].tolist()))}"
+              f" / {sorted(set(last['atk_hi'].tolist()))}: {'ok' if ok else 'FAILED'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"an adaptive {label} round on the card disagrees with the CPU")
+
+    def alie(seed):
+        return make_adaptive_alie_attack(n, 0.4, seed=seed)
+
+    zs, deltas = [], []
+    for seed in seeds:
+        rows = lockstep("geometric_median", {}, None, alie, seed)
+        for (f_card, _, s_card, _), (f_cpu, _, s_cpu, _) in rows:
+            zs.append(torch.equal(s_card["atk_z"], s_cpu["atk_z"]))
+            deltas.append(float((f_card - f_cpu).abs().max() / max(1.0, float(f_cpu.abs().max()))))
+    z_last = sorted(set(rows[-1][0][2]["atk_z"].tolist()))
+    print(f"[round] geometric_median dense, adaptive ALIE (no taps: blind escalation), "
+          f"{ADAPTIVE_ROUNDS} chained rounds, card vs CPU, seeds {list(seeds)}: atk_z equal "
+          f"every round {all(zs)} (the compromised rows' last {z_last}); scaled param delta "
+          f"largest {max(deltas):.3g} (the dense geometric median's derived bound, section 2 "
+          f"of PERF.md): {'ok' if all(zs) else 'FAILED'}", flush=True)
+    if not all(zs):
+        raise AssertionError("adaptive ALIE's z differs between the card and the CPU")
+
+
 def bf16_roundings(rule: str, circulant: bool, alpha: float = 0.5) -> float:
     """r of the bfloat16 output bound |card - CPU| <= r 2^-7 m (PERF.md
     section 2): the bfloat16 roundings, weighted, that the output passes
@@ -1856,6 +2037,7 @@ RULE_STATS = {
 # "memory_stats" to sample memory events]).  An exchange runs the config on backend: tpu.  No other
 # kernel may launch.
 ALIE_20 = {"enabled": True, "type": "alie", "percentage": 0.2, "params": {}}
+ADAPTIVE_FLAGSHIP_ROUNDS = 6
 # stale_gossip.yaml's lever sections, taken onto the flagship.
 STALE_SECTIONS = {"faults": "stale_gossip", "exchange": "stale_gossip",
                   "telemetry": "stale_gossip"}
@@ -1865,7 +2047,8 @@ PIPELINE_SECTIONS = {"exchange": "pipelined_rounds", "tpu": "pipelined_rounds"}
 RESUME_SECTIONS = {"durability": "resumable_run", "compression": "resumable_run",
                    "telemetry": "resumable_run"}
 # The audit taps each rule adds (telemetry.audit_taps).
-RULE_TAPS = {"krum": ("selected_by", "considered_by")}
+RULE_TAPS = {"krum": ("selected_by", "considered_by"),
+             "balance": ("selected_by", "considered_by")}
 # The four kernels' device-side names, for the trace's split.
 KERNEL_SYMBOLS = {
     "pairwise_sq_distances": ("pairwise_kernel", "pairwise_finalize_kernel"),
@@ -1993,6 +2176,21 @@ MAIN_RUNS = [
     ("krum:population_1m", POPULATION_1M, None, None,
      {"circulant_sq_distances": (2, "==")}, {"rounds": 50}),
     ("fedavg:dmtt_mobility", DMTT_MOBILITY, None, None, {}, {"rounds": 30}),
+    # Adaptive attacks: the flagship with attack.adaptive on (the bisection
+    # around its gaussian attack, 6 rounds, both exchanges),
+    # alie_geometric_median.yaml with adaptive ALIE, and the flagship's
+    # trimmed mean under ppermute with adaptive IPM (the candidate select).
+    ("krum:adaptive_flagship", FLAGSHIP, "allgather", None,
+     {"pairwise_sq_distances": (2, "==")}, {"rounds": ADAPTIVE_FLAGSHIP_ROUNDS, "adaptive": True}),
+    ("krum:adaptive_ppermute", FLAGSHIP, "ppermute", None,
+     {"circulant_sq_distances": (2, "==")}, {"rounds": ADAPTIVE_FLAGSHIP_ROUNDS, "adaptive": True}),
+    ("geometric_median:adaptive_alie", ALIE_GEOMETRIC_MEDIAN, None, None,
+     {"pairwise_sq_distances": (9, "==")}, {"adaptive": True}),
+    ("trimmed_mean:adaptive_ipm_ppermute", FLAGSHIP, "ppermute",
+     {"algorithm": "trimmed_mean", "params": {"trim_ratio": 0.2}},
+     {"candidate_select": (1, "==")},
+     {"attack": {"enabled": True, "type": "ipm", "percentage": 0.2, "params": {},
+                 "adaptive": {"enabled": True}}}),
 ]
 # The DMTT round's per-node stats (the JAX package's agg_dmtt_* keys).
 DMTT_STATS = ("agg_dmtt_collab_count", "agg_dmtt_received_count", "agg_dmtt_mean_topo_trust")
@@ -2381,7 +2579,8 @@ def smoke_config(name, config, exchange, aggregation, opts):
     ``durability:`` section gets its checkpoint_dir under SMOKE_DIR/ckpts
     (emptied first) and ``opts["checkpoint_every"]`` if given;
     ``opts["drop"]`` removes sections, ``opts["topology"]`` replaces the
-    topology and ``opts["max_samples"]`` sets training.max_samples."""
+    topology, ``opts["max_samples"]`` sets training.max_samples and
+    ``opts["adaptive"]`` turns attack.adaptive on."""
     import yaml
 
     raw = yaml.safe_load(config.read_text())
@@ -2399,6 +2598,8 @@ def smoke_config(name, config, exchange, aggregation, opts):
         raw["aggregation"] = aggregation
     if opts.get("attack") is not None:
         raw["attack"] = opts["attack"]
+    if opts.get("adaptive"):
+        raw["attack"]["adaptive"] = {"enabled": True}
     sections = opts.get("sections", {})
     for key in ("compression", "faults", "exchange", "telemetry", "durability"):
         if key in sections:
@@ -2467,7 +2668,9 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
     stale = (raw.get("exchange") or {}).get("max_staleness", 0) > 0
     pipelined = bool((raw.get("exchange") or {}).get("pipeline"))
     tel = raw.get("telemetry") or {}
-    audit = bool(tel.get("enabled") and tel.get("audit_taps"))
+    adaptive = bool(((raw.get("attack") or {}).get("adaptive") or {}).get("enabled"))
+    # An adaptive attack turns the audit taps on: they are its feedback.
+    audit = bool(tel.get("enabled") and tel.get("audit_taps")) or adaptive
 
     mods = _kernel_modules()
     probe_events: list = []
@@ -2532,6 +2735,8 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
                 "agg_alive", "agg_quarantined", "agg_attack_scrubbed"}}
         if stale:
             want |= {"agg_tap_stale_used", "agg_tap_stale_age"}
+    if adaptive:
+        want |= {f"agg_{k}" for k in network.attack.state_keys} | {"agg_atk_accept"}
     if set(hist) != want:
         raise AssertionError(f"history keys {sorted(hist)} != {sorted(want)}")
     if len(hist["round"]) != rounds:
@@ -2598,6 +2803,10 @@ def run_main_path(label, config, exchange, aggregation, expect, opts=None) -> di
     if raw.get("dmtt") is not None:
         extra += "; " + "; ".join(f"{k[9:]} {[round(v, 3) for v in hist[k]]}"
                                   for k in DMTT_STATS)
+    if adaptive:
+        extra += f"; {network.attack.name}: " + "; ".join(
+            f"{k[4:]} {[round(v, 4) for v in hist[k]]}" for k in sorted(hist)
+            if k.startswith("agg_atk_"))
     if network.checkpoints:
         extra += "; snapshots " + ", ".join(
             f"{c['action']} round {c['round']} {c['bytes']:,} B in {c['seconds']:.3f} s"
@@ -3021,6 +3230,133 @@ def run_gangs() -> dict:
     return gangs
 
 
+# The kernel a frontier cell's rule launches, and how often a round and a
+# member (the dense cells take the pairwise pass, the sparse ones the
+# circulant pass at the exponential offsets; the medians and fedavg none).
+FRONTIER_LAUNCHES = {"krum": 2, "balance": 1}
+# The flagship-width frontier: the flagship's scenario under a frontier:
+# block, backend: simulation (a sparse gang is refused on backend: tpu),
+# so its cells run in float32.
+FLAGSHIP_FRONTIER = {"rules": ["krum", "balance"], "attacks": ["alie", "gaussian"],
+                     "topologies": ["dense", "sparse"], "points": 2, "seeds": [7],
+                     "stages": 2, "rounds": 3}
+# The artifact's keys (the JAX package's run_frontier writes these).
+FRONTIER_KEYS = {"schema_version", "generated_by", "experiment", "grid", "cells"}
+FRONTIER_CELL_KEYS = {"rule", "attack", "topology", "percentage", "degree", "benign_accuracy",
+                      "curve", "breaking_point", "declared_influence", "stages", "compiles"}
+
+
+def run_frontier_smoke(label: str, config: Path, frontier=None) -> dict:
+    """Phase 4, a frontier: ``config`` (with ``frontier`` as its frontier:
+    block and backend: simulation where given) through the port's
+    ``frontier`` command (``murmura_tpu_torch.cli.main``, the function
+    ``python -m murmura_tpu_torch frontier`` runs), ``-o`` under SMOKE_DIR.
+    The counters are set to 0 just before each cell and read just after:
+    each cell must launch its rule's kernel (FRONTIER_LAUNCHES) that many
+    times a round for each of its members in every stage it ran, no other
+    kernel and no plain version; its ``compiles`` must be 1 (the stage
+    reset builds nothing).  The artifact must load with the JAX schema's
+    keys and ``report --frontier`` must render it.  Prints each cell's
+    breaking point, each stage's seconds a round and the total seconds,
+    and the run's peak device memory."""
+    import io
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from murmura_tpu_torch import cli
+    from murmura_tpu_torch import frontier as frontier_mod
+    from murmura_tpu_torch.core.gang import GangNetwork
+
+    raw = yaml.safe_load(config.read_text())
+    if frontier is not None:
+        raw["frontier"] = dict(frontier)
+        raw["backend"] = "simulation"
+        raw.pop("tpu", None)
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    name = label.replace(":", "_")
+    cfg, out = SMOKE_DIR / f"{name}.yaml", SMOKE_DIR / f"{name}.json"
+    cfg.write_text(yaml.safe_dump(raw, sort_keys=False))
+    out.unlink(missing_ok=True)
+    f = raw["frontier"]
+    members = (1 + f["points"]) * len(f["seeds"])
+    rounds = f.get("rounds") or raw["experiment"]["rounds"]
+    mods = _kernel_modules()
+    cells, stages = [], []
+    real_cell, real_train = frontier_mod.run_cell, GangNetwork.train
+
+    def counted_cell(*args, **kwargs):
+        for mod in mods:
+            mod.reset_counts()
+        t0 = time.perf_counter()
+        cell = real_cell(*args, **kwargs)
+        torch.cuda.synchronize()
+        cells.append((cell, {k: v for mod in mods for k, v in mod.LAUNCHES.items()},
+                      {k: v for mod in mods for k, v in mod.PLAIN_CALLS.items()},
+                      time.perf_counter() - t0))
+        return cell
+
+    def timed_train(self, rounds, *args, **kwargs):
+        out_ = real_train(self, rounds, *args, **kwargs)
+        stages.append(float(np.mean(self.round_times)))
+        return out_
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    frontier_mod.run_cell, GangNetwork.train = counted_cell, timed_train
+    t0 = time.perf_counter()
+    try:
+        stdout = io.StringIO()
+        with contextlib.redirect_stdout(stdout):
+            cli.main(["frontier", str(cfg), "-o", str(out)])
+    finally:
+        frontier_mod.run_cell, GangNetwork.train = real_cell, real_train
+    total = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    art = json.loads(out.read_text())
+    if set(art) != FRONTIER_KEYS or any(set(c) != FRONTIER_CELL_KEYS for c in art["cells"]):
+        raise AssertionError(f"the frontier artifact's keys {sorted(art)} are not the JAX "
+                             "schema's")
+    launches = {k: 0 for k in ("pairwise_sq_distances", "circulant_sq_distances")}
+    lines, k_stage = [], 0
+    for (cell, got, plain, secs), c in zip(cells, art["cells"]):
+        kernel = ("pairwise_sq_distances" if cell.topology == "dense"
+                  else "circulant_sq_distances")
+        want = {kernel: FRONTIER_LAUNCHES.get(cell.rule, 0) * members * rounds
+                * cell.stages_run}
+        stray = {k: v for k, v in got.items() if v and k not in want}
+        if got.get(kernel, 0) != want[kernel] or stray or any(plain.values()):
+            raise AssertionError(f"frontier cell {cell.rule} x {cell.attack} x {cell.topology}: "
+                                 f"launches {got}, plain {plain}, want {want}")
+        if c["compiles"] != 1:
+            raise AssertionError(f"frontier cell {cell.rule} x {cell.attack} x "
+                                 f"{cell.topology}: compiles {c['compiles']}, want 1")
+        launches[kernel] += got[kernel]
+        bp = c["breaking_point"]
+        per_stage = stages[k_stage:k_stage + cell.stages_run]
+        k_stage += cell.stages_run
+        lines.append(f"{cell.rule} x {cell.attack} x {cell.topology}: held <= "
+                     f"{bp['last_held']}, broken at {bp['first_broken']}, benign "
+                     f"{c['benign_accuracy']:.3f}, {cell.stages_run} stage(s) s/round "
+                     f"{[round(t, 4) for t in per_stage]}, {want[kernel]} launches, "
+                     f"{secs:.2f} s")
+    rendered = io.StringIO()
+    with contextlib.redirect_stdout(rendered):
+        cli.main(["report", "--frontier", str(out)])
+    if "Breaking point vs declared influence bound" not in rendered.getvalue():
+        raise AssertionError("report --frontier did not render the artifact")
+    print(f"[frontier:{label}] {len(art['cells'])} cells, {members} members a gang, "
+          f"{rounds} rounds fused a stage, compiles 1 in every cell, 0 plain calls, "
+          f"launches {launches}; total {total:.2f} s; peak device memory {peak_gb:.2f} GB; "
+          f"report --frontier rendered {len(rendered.getvalue().splitlines())} lines",
+          flush=True)
+    for line in lines:
+        print(f"[frontier:{label}] {line}", flush=True)
+    return {"launches": launches, "total_s": total, "peak_gb": peak_gb,
+            "stage_s": stages, "cells": len(art["cells"])}
+
+
 def print_gang_summary(gangs: dict) -> None:
     """Phase 5's gang lines: each gang's steady seconds a round beside its
     members' run alone, summed, and the peaks (recorded, no claim)."""
@@ -3422,6 +3758,7 @@ def main() -> int:
     check_round_against_cpu()
     check_pipelined_against_cpu()
     check_sparse_rounds_against_cpu()
+    check_adaptive_against_cpu()
     round64 = check_round_n64_bf16()
 
     mains = {run[0]: run_main_path(*run) for run in MAIN_RUNS}
@@ -3436,6 +3773,10 @@ def main() -> int:
     pop_check = check_population_against_cpu()
     pop_resume = run_population_kill_resume()
     dmtt_check = check_dmtt_against_cpu()
+    frontiers = {"frontier:frontier_krum": run_frontier_smoke("frontier_krum", FRONTIER_KRUM),
+                 "frontier:flagship": run_frontier_smoke("flagship", FLAGSHIP,
+                                                         FLAGSHIP_FRONTIER)}
+    mains.update(frontiers)
     pop, scen, dm = (mains["krum:population_1m"], mains["krum:population_1m_scenario"],
                      mains["fedavg:dmtt_mobility"])
     pop_s, scen_s = float(np.mean(pop["s_per_round"][1:])), float(np.mean(scen["s_per_round"][1:]))
@@ -3487,6 +3828,19 @@ def main() -> int:
                   for c in d["checkpoints"]) + "; the killed and resumed processes' "
               + ", ".join(f"{a} round {rr} {b:,} B in {s_:.3f} s"
                           for a, rr, b, s_ in r["snapshots"]), flush=True)
+    for exchange in ("allgather", "ppermute"):
+        ad = mains[f"krum:adaptive_{'flagship' if exchange == 'allgather' else exchange}"]
+        print(f"[adaptive] the flagship's Krum {exchange} with attack.adaptive (the bisection "
+              f"around gaussian std 10), {ADAPTIVE_FLAGSHIP_ROUNDS} rounds: steady s/round "
+              f"{float(np.mean(ad['s_per_round'][1:])):.4f} against the static run's "
+              f"{float(np.mean(mains[f'krum:{exchange}']['s_per_round'][1:])):.4f} "
+              f"({SMOKE_ROUNDS} rounds); peak {ad['peak_gb']:.2f} GB; no claim", flush=True)
+    fk, ff = frontiers["frontier:frontier_krum"], frontiers["frontier:flagship"]
+    print(f"[frontier] frontier_krum.yaml as committed: {fk['cells']} cells in "
+          f"{fk['total_s']:.2f} s, peak {fk['peak_gb']:.3f} GB; the flagship-width frontier "
+          f"(gangs of {1 + FLAGSHIP_FRONTIER['points']} at [16, P] float32): {ff['cells']} cells "
+          f"in {ff['total_s']:.2f} s, stage s/round {[round(t, 4) for t in ff['stage_s']]}, "
+          f"peak {ff['peak_gb']:.2f} GB; no claim", flush=True)
     mains.update(round64)
     flagship_s = float(sum(mains["krum:allgather"]["s_per_round"][1:])
                        / (len(mains["krum:allgather"]["s_per_round"]) - 1))

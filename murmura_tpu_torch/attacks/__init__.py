@@ -1,5 +1,6 @@
-"""Byzantine attacks.  The adaptive attacks (a lever) are refused by name
-until their slice lands."""
+"""Byzantine attacks: the static ones below, and their closed-loop twins
+in attacks/adaptive.py (``attack.adaptive``), which the factories build
+around them."""
 
 from murmura_tpu_torch.attacks.alie import make_alie_attack
 from murmura_tpu_torch.attacks.base import Attack, select_compromised

@@ -6,7 +6,10 @@
         [--require-tpu] [--retries N]
     python -m murmura_tpu_torch sweep <yaml> [--seeds 1,2,3] [-o histories.json]
         [--device cuda|cpu] [--verbose|--quiet] and the durability flags
+    python -m murmura_tpu_torch frontier <yaml> [-o frontier.json]
+        [--device cuda|cpu] [--require-tpu]
     python -m murmura_tpu_torch report <run_dir> [--json]
+    python -m murmura_tpu_torch report --frontier <frontier.json> [--json]
 
 The run goes to the CUDA card by default.  Without CUDA it stops with an
 error unless ``--device cpu`` asks for the CPU; it never drops to the CPU
@@ -23,6 +26,14 @@ as one gang (core/gang.py) and ``run --seeds N`` the seeds experiment.seed
 one history a member, keyed by member label; with telemetry one run dir a
 member, ``<run_dir>/<member label>``.  ``--seeds`` below 1, and with
 ``--profile``, is refused.
+
+``frontier`` runs the config's ``frontier:`` grid (frontier.py): each
+(rule x adaptive attack x topology) cell as one gang of strength x seed
+members with successive halving between stages, printing each cell's
+progress, then writes the artifact (``-o``, the JAX package's default
+``frontier.json`` in the working directory) and prints its table, which
+``report --frontier`` renders again (``--json``: the grid and one summary
+row a cell).
 
 Durability (the JAX package's flags, over the config's ``durability:``
 block; an explicit flag wins): ``--checkpoint-dir`` snapshots the whole run
@@ -349,6 +360,42 @@ def sweep(config_path: Path, seeds: Optional[List[int]] = None,
     return run_sweep(config, seeds, output, dev, **durability)
 
 
+def frontier(config_path: Path, output: Path = Path("frontier.json"), device: str = "cuda",
+             require_tpu: bool = False) -> dict:
+    """Run the config's frontier grid on ``device``, write the artifact to
+    ``output`` and print its table; returns the artifact."""
+    from murmura_tpu_torch.config import load_config
+    from murmura_tpu_torch.frontier import run_frontier, write_frontier
+    from murmura_tpu_torch.telemetry.report import render_frontier
+
+    dev = resolve_device(device)
+    config = load_config(config_path)
+    enforce_require_tpu(config, dev, require_tpu)
+    f = config.frontier
+    grid = f"{f.rules} x {f.attacks} x {f.topologies}" if f is not None else "default grid"
+    print(f"murmura_tpu_torch frontier {config.experiment.name} "
+          f"(nodes={config.topology.num_nodes}, {grid}, device={dev})", flush=True)
+    artifact = run_frontier(config, progress=lambda line: print(line, flush=True), device=dev)
+    path = write_frontier(artifact, output)
+    print(f"Frontier artifact written to {path}")
+    render_frontier(artifact)
+    return artifact
+
+
+def report_frontier(path: Path, as_json: bool = False) -> None:
+    """Render a frontier artifact, or print its grid and per-cell summary
+    as one JSON object."""
+    from murmura_tpu_torch.frontier import frontier_break_summary, load_frontier
+    from murmura_tpu_torch.telemetry.report import render_frontier
+
+    artifact = load_frontier(path)
+    if as_json:
+        print(json.dumps({"grid": artifact.get("grid"),
+                          "summary": frontier_break_summary(artifact)}))
+    else:
+        render_frontier(artifact)
+
+
 def report(run_dir: Path, as_json: bool = False) -> None:
     """Render a telemetry run directory (either package's) as plain text,
     or print its report dict as JSON (without the manifest, which the run
@@ -406,16 +453,32 @@ def main(argv: Optional[List[str]] = None) -> None:
     p_sweep.add_argument("--seeds", default=None,
                          help="comma-separated member seeds overriding the config's "
                               "sweep block (e.g. --seeds 1,2,3)")
-    p_rep = sub.add_parser("report", help="Render a telemetry run directory")
-    p_rep.add_argument("run_dir", type=Path)
+    p_front = sub.add_parser("frontier", help="Run a config's robustness frontier grid")
+    p_front.add_argument("config_path", type=Path)
+    p_front.add_argument("-o", "--output", type=Path, default=Path("frontier.json"),
+                         help="write the frontier artifact here (default: frontier.json)")
+    p_front.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                         help="cuda (default) or cpu; never chosen for you")
+    p_front.add_argument("--require-tpu", action="store_true",
+                         help="refuse any device but the CUDA card")
+    p_rep = sub.add_parser("report", help="Render a telemetry run directory or a frontier "
+                                          "artifact")
+    p_rep.add_argument("run_dir", type=Path, nargs="?", default=None)
+    p_rep.add_argument("--frontier", dest="frontier_path", type=Path, default=None,
+                       help="render a frontier artifact (the frontier command's) instead")
     p_rep.add_argument("--json", dest="as_json", action="store_true",
                        help="print the report as one JSON object")
     args = parser.parse_args(argv)
 
     if args.command == "report":
         try:
-            report(args.run_dir, args.as_json)
-        except FileNotFoundError as e:
+            if args.frontier_path is not None:
+                report_frontier(args.frontier_path, args.as_json)
+            elif args.run_dir is None:
+                raise ValueError("report needs a RUN_DIR or --frontier <frontier.json>")
+            else:
+                report(args.run_dir, args.as_json)
+        except (OSError, ValueError) as e:
             print(str(e), file=sys.stderr)
             raise SystemExit(1)
         return
@@ -425,10 +488,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     from murmura_tpu_torch.durability.dispatch import BackendRequirementError
     from murmura_tpu_torch.utils.factories import ConfigError
 
-    durability = dict(checkpoint_dir=args.checkpoint_dir,
-                      checkpoint_every=args.checkpoint_every, resume=args.resume,
-                      require_tpu=args.require_tpu, retries=args.retries)
     try:
+        if args.command == "frontier":
+            frontier(args.config_path, args.output, args.device, args.require_tpu)
+            return
+        durability = dict(checkpoint_dir=args.checkpoint_dir,
+                          checkpoint_every=args.checkpoint_every, resume=args.resume,
+                          require_tpu=args.require_tpu, retries=args.retries)
         if args.command == "sweep":
             seeds = None
             if args.seeds is not None:

@@ -27,9 +27,14 @@ schedule and the per-round adjacency (or sparse edge mask) are shared.
 
 The JAX package pads the member axis to a power of two so that XLA
 compiles a few shapes; the port compiles nothing a round and runs no
-padding lanes (``sweep.bucket`` is read and changes nothing).  Not ported
-yet: ``reset_run``, ``_admit_members``, ``freeze_member`` and
-``min_batch``, which serve the frontier search and the serve daemon.
+padding lanes (``sweep.bucket`` is read and changes nothing).
+
+A member's learning rate and attack scale are values the gang passes to
+its programs each round, so :meth:`GangNetwork.reset_run` (the frontier's
+stage reset) can change them and return every member to its round-0 state
+without building a program.  Not ported yet: ``reset_run``'s re-tenanting
+mode (``member_programs``) with ``_admit_members``, ``freeze_member`` and
+``min_batch``, which serve the grid and the serve daemon.
 """
 
 import contextlib
@@ -185,8 +190,7 @@ def check_member_compatible(progs: Sequence[RoundProgram], members) -> None:
 
 
 def build_gang_step(programs: Sequence[RoundProgram], members: Sequence[GangMember],
-                    compromised: torch.Tensor, data: Dict[str, torch.Tensor],
-                    step_lr: Optional[torch.Tensor]):
+                    compromised: torch.Tensor, data: Dict[str, torch.Tensor], knobs: dict):
     """One gang round over the [S, N, P] stack:
 
         step(flats, agg_states, adj, round_idx, alive=None, draws=None)
@@ -195,9 +199,11 @@ def build_gang_step(programs: Sequence[RoundProgram], members: Sequence[GangMemb
     Training folds the members into S*N rows (one ``train_rows`` over the
     stacked ``data``, each member's draws from its own generators); the
     exchange and the rule run member by member (``train_step(...,
-    trained=rows)``).  ``step_lr`` is the [S*N] per-row learning rate, or
-    None for the programs' own.  ``draws`` (tests) injects one dict a
-    member of what its generators would draw, in ``train_step``'s layout."""
+    trained=rows)``).  ``knobs`` is read every round: its ``step_lr`` the
+    [S*N] per-row learning rate (None: the programs' own) and its
+    ``attack_scales`` one scale a member (None: the programs' own).
+    ``draws`` (tests) injects one dict a member of what its generators
+    would draw, in ``train_step``'s layout."""
     prog0 = programs[0]
     seeds = [m.seed for m in members]
     dev = prog0.device
@@ -227,9 +233,10 @@ def build_gang_step(programs: Sequence[RoundProgram], members: Sequence[GangMemb
         with record_function("murmura.train"):
             trained = prog0.train_rows(
                 flats.reshape(s_count * n, p).clone(), train_mask, float(round_idx),
-                [g["train"] for g in gens], data=data, step_lr=step_lr,
+                [g["train"] for g in gens], data=data, step_lr=knobs["step_lr"],
                 draws=stacked_draws(draws),
             )
+        scales = knobs["attack_scales"]
         outs, states, metrics = [], [], []
         for s, prog in enumerate(programs):
             noise = None if draws is None else {"noise": draws[s].get("noise")}
@@ -237,6 +244,7 @@ def build_gang_step(programs: Sequence[RoundProgram], members: Sequence[GangMemb
                 flats[s], agg_states[s], adj, compromised, float(round_idx),
                 generators=gens[s], draws=noise, alive=alive,
                 trained=trained[s * n:(s + 1) * n],
+                attack_scale=None if scales is None else scales[s],
             )
             outs.append(new_flat)
             states.append(state)
@@ -294,6 +302,8 @@ class GangNetwork:
         topology / attack / fault_schedule: shared by the members.
         base_lr: the learning rate of a member without an override.
         telemetry_writers: one TelemetryWriter a member, or None.
+        retain_init: keep host copies of the round-0 parameters and carried
+            state for :meth:`reset_run`.
     """
 
     def __init__(
@@ -307,6 +317,7 @@ class GangNetwork:
         transfer_guard: bool = False,
         recompile_guard: bool = False,
         telemetry_writers: Optional[Sequence] = None,
+        retain_init: bool = False,
     ):
         if len(programs) != len(members):
             raise ValueError("one RoundProgram per member required")
@@ -349,15 +360,24 @@ class GangNetwork:
         self.flats = torch.stack([p.init_flat for p in programs])  # [S, N, P]
         self.agg_states: List[Dict[str, torch.Tensor]] = [
             dict(p.init_agg_state) for p in programs]
+        # The round-0 state reset_run returns to, on the host.
+        self._init_host = None
+        if retain_init:
+            self._init_host = (self.flats.cpu().clone(),
+                               [{k: v.cpu().clone() for k, v in st.items()}
+                                for st in self.agg_states])
         # The members' training and eval data, stacked on the node axis.
         self._data = {k: torch.cat([p.data[k] for p in programs])
                       for k in TRAIN_DATA_KEYS + EVAL_DATA_KEYS}
-        step_lr = None
-        if "lr" in gang_hp_inputs(members):
-            lrs = [m.lr if m.lr is not None else base_lr for m in members]
-            step_lr = torch.as_tensor(np.repeat(np.asarray(lrs, np.float32), n)).to(self.device)
-        self._step = build_gang_step(programs, members, self._comp, self._data, step_lr)
+        self._base_lr = base_lr
+        self._hp = gang_hp_inputs(members)
+        self._knobs: Dict[str, Any] = {}
+        self._set_knobs(self.members)
+        self._step = build_gang_step(programs, members, self._comp, self._data, self._knobs)
         self._fused: Dict[Tuple[int, int], Any] = {}
+        # Chunk programs built (one a (chunk, eval_every) key); a stage
+        # reset builds none.
+        self.program_builds = 0
         self._warmed: set = set()
         static = static_exchange_input(topology, fault_schedule)
         self._static_host = static
@@ -398,6 +418,77 @@ class GangNetwork:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _set_knobs(self, members: Sequence[GangMember]) -> None:
+        """The per-member values the gang step reads every round: the
+        [S*N] learning rates where some member overrides lr, the attack
+        scales (1.0 where a member sets none) where some member overrides
+        attack_scale; None leaves the programs' own."""
+        n = self.program.num_nodes
+        step_lr = scales = None
+        if "lr" in self._hp:
+            lrs = [m.lr if m.lr is not None else self._base_lr for m in members]
+            step_lr = torch.as_tensor(np.repeat(np.asarray(lrs, np.float32), n)).to(self.device)
+        if "attack_scale" in self._hp:
+            scales = [m.attack_scale if m.attack_scale is not None else 1.0 for m in members]
+        self._knobs.update(step_lr=step_lr, attack_scales=scales)
+
+    def reset_run(self, members: Sequence[GangMember], member_programs=None,
+                  telemetry_writers=None) -> None:
+        """The stage reset (the frontier's): the same seeds, new learning
+        rates and attack scales, every member back at round 0 from the
+        host copies kept by ``retain_init`` (parameters and carried state),
+        histories, round times and the round counter cleared.  It builds
+        no data, model, program or kernel, so the next ``train`` reuses the
+        chunk programs already built.  Only the values the gang lifted
+        (``gang_hp_inputs`` at construction) can change.
+
+        ``member_programs`` (re-tenanting the gang with new members'
+        programs) is not ported: it belongs to the grid and the serve
+        daemon."""
+        if member_programs is not None:
+            raise ValueError(
+                "reset_run(member_programs=...) re-tenants the gang (the grid's and "
+                "the serve daemon's admission path), which the PyTorch port does not "
+                "run yet; a stage reset takes the members alone"
+            )
+        if telemetry_writers is not None:
+            raise ValueError(
+                "reset_run(telemetry_writers=...) is only meaningful on the "
+                "re-tenanting path (member_programs given) — a stage reset keeps "
+                "the gang's writers"
+            )
+        if self._init_host is None:
+            raise ValueError(
+                "reset_run() needs the gang built with retain_init=True (the "
+                "stacked host init arrays are the reset source)"
+            )
+        members = list(members)
+        if len(members) != self.gang_size:
+            raise ValueError(
+                f"reset_run got {len(members)} members for a gang of {self.gang_size} — "
+                "the bucket shape must not change (that is the whole point of the reset)"
+            )
+        for i, (old, new) in enumerate(zip(self.members, members)):
+            if new.seed != old.seed:
+                raise ValueError(
+                    f"reset_run member {i} changes seed {old.seed} -> {new.seed} — data "
+                    "shards and init params were built per original seed; only "
+                    "lr/attack_scale may vary across stages"
+                )
+        labels = [m.label for m in members]
+        if len(labels) != len(set(labels)):
+            raise ValueError(f"reset_run members are not distinct (labels: {labels})")
+        self.members = members
+        self._set_knobs(members)
+        flats, states = self._init_host
+        self.flats = flats.to(self.device)
+        self.agg_states = [{k: v.to(self.device) for k, v in st.items()} for st in states]
+        self.histories = [empty_history() for _ in range(self.gang_size)]
+        self._last_stats = [{} for _ in range(self.gang_size)]
+        self._in_degree.clear()
+        self.round_times = []
+        self.current_round = 0
 
     # ------------------------------------------------------------------
 
@@ -440,6 +531,7 @@ class GangNetwork:
                     )
                 self._fused[key] = build_gang_multi_round(
                     self._step, self.program, self._data, k, eval_every)
+                self.program_builds += 1
             warmup = key not in self._warmed
             builds = len(_build.STARTED)
             round0 = self.current_round

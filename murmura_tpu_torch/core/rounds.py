@@ -18,7 +18,8 @@ of [N] node flags, so nothing O(N^2) is built.
    cast back to the parameter dtype; the loss is masked cross-entropy, or
    the annealed evidential loss for an evidential model, with dropout masks
    per node, step and layer where the model has dropout;
-2. the attack on the broadcast copy only;
+2. the attack on the broadcast copy only (an adaptive attack at the
+   strength its state in ``agg_state`` sets, attacks/adaptive.py);
 2b. with a ``FaultSpec`` (faults/schedule.py), in the JAX package's order:
    the adjacency re-masked by ``alive`` both ways and dead nodes frozen in
    training; NaN rows injected from ``nan_inject_from_round``; the
@@ -46,7 +47,9 @@ of [N] node flags, so nothing O(N^2) is built.
    batch (the first ``probe_size`` samples of its shard) in the context
    for the loss-probe rules, whose forwards run in eval mode; when
    faulted, a node with no alive neighbour keeps its own state, and dead
-   or quarantined nodes keep their pre-round state;
+   or quarantined nodes keep their pre-round state; between the rule and
+   those guards an adaptive attack reads the rule's audit taps and updates
+   its state;
 4. ``eval_step`` (run by the orchestrator on the ``eval_every`` cadence):
    per-node masked loss and accuracy over the held-out arrays, and the
    Dirichlet vacuity, entropy and strength for an evidential model.
@@ -101,6 +104,7 @@ from torch.profiler import record_function
 
 from murmura_tpu_torch.aggregation.base import AggContext, AggregatorDef
 from murmura_tpu_torch.aggregation.probe import combined_probe_metric, pairwise_probe_eval
+from murmura_tpu_torch.attacks.adaptive import AdaptiveAttack, acceptance_feedback
 from murmura_tpu_torch.attacks.base import Attack
 from murmura_tpu_torch.core.pipeline import (
     ADJ_KEY as PIPE_ADJ_KEY,
@@ -120,6 +124,7 @@ from murmura_tpu_torch.core.stale import (
 from murmura_tpu_torch.data.base import FederatedArrays
 from murmura_tpu_torch.dmtt.protocol import DMTTParams, dmtt_round_update, init_dmtt_state
 from murmura_tpu_torch.faults.schedule import FaultSpec
+from murmura_tpu_torch.levers import refusal_reason
 from murmura_tpu_torch.models.core import Model
 from murmura_tpu_torch.ops.compress import (
     COMPRESS_STATE_KEYS,
@@ -291,6 +296,14 @@ def build_round_program(
     ``dmtt`` runs the trust protocol (step 2e) on the dense exchange; it
     refuses the sparse exchange, compression, staleness and pipelining, as
     the JAX package does.
+
+    An adaptive ``attack`` (attacks/adaptive.py) turns ``audit_taps`` on:
+    the taps are its feedback.  Its state rides ``agg_state`` under its
+    ``state_keys``, which the rule never sees; after the rule,
+    ``acceptance_feedback`` and ``update_attack_state`` write the next
+    round's state, and the metrics gain ``agg_atk_*`` (the state masked to
+    the compromised rows) and ``agg_atk_accept``.  It refuses DMTT and the
+    pipelined round.
     """
     device = torch.device(device)
     if device.type == "cuda":
@@ -329,6 +342,13 @@ def build_round_program(
             if clash:
                 raise ValueError(why)
     claims_fn = attack.claims_fn if attack is not None else None
+    adaptive = isinstance(attack, AdaptiveAttack)
+    if adaptive:
+        if dmtt is not None:
+            raise ValueError(refusal_reason("adaptive", "dmtt"))
+        if pipeline:
+            raise ValueError(refusal_reason("adaptive", "pipeline"))
+        audit_taps = True
 
     if staleness is not None:
         if faults is None:
@@ -360,7 +380,8 @@ def build_round_program(
     # the receiver-side decoded broadcast.
     quantized_payload = agg.quantized_exchange and stale_fold is None and not pipeline
     reserved = (set(COMPRESS_STATE_KEYS) | set(DMTT_STATE_KEYS)
-                | (set(STALE_STATE_KEYS) if stale_fold is not None else set()))
+                | (set(STALE_STATE_KEYS) if stale_fold is not None else set())
+                | (set(attack.state_keys) if adaptive else set()))
     pipe_keys = pipeline_state_keys(stale=stale_fold is not None)
     pipe_reserved = reserved | set(pipe_keys)
 
@@ -541,7 +562,7 @@ def build_round_program(
         return train_mask
 
     def produce_exchange(flat, agg_state, adj, compromised, alive, round_idx, generators,
-                         draws, trained=None, data=None):
+                         draws, trained=None, data=None, scale=None):
         """Steps 1-2d of the round, the production of its exchange: local
         training, the sentinels, the attack, the codec and the stale fold,
         shared by the serialized and pipelined rounds and by ``train_flat``.
@@ -553,10 +574,12 @@ def build_round_program(
         ``model.dropout_widths``.  ``trained`` (a gang's member rows,
         trained by ``train_rows`` with the others) replaces local training;
         ``data`` (train_step's) the rows of the training arrays it trains on.
+        ``scale``: the attack scale of this call (default: the build's).
         Returns the post-scrub ``own_flat``,
         ``bcast`` and ``adj`` as the serialized aggregation consumes them,
         ``pre_flat`` and ``finite`` (the quarantine bookkeeping), the
-        updated ``agg_state`` and the stage stats."""
+        updated ``agg_state``, the stage stats and an adaptive attack's
+        state of this round."""
         generators = generators or {}
         draws = draws or {}
         train_mask = training_mask(compromised, alive)
@@ -591,19 +614,31 @@ def build_round_program(
             own_flat = torch.where(finite[:, None], own_flat, pre_flat)
             adj = both_ways(adj, finite.to(adj.dtype))
         bfin = None
+        attack_state = None
+        if scale is None:
+            scale = attack_scale
         if attack is not None:
             noise = draws.get("noise")
             if noise is not None:
                 noise = torch.as_tensor(np.asarray(noise)).to(device)
             with record_function("murmura.exchange"):
-                bcast = attack.apply(
-                    own_flat, compromised, generators.get("attack"), noise=noise
-                )
-            if attack_scale is not None:
+                if adaptive:
+                    # Last round's state (the feedback after the rule wrote
+                    # it) sets this round's strength a compromised row.
+                    attack_state = {k: agg_state[k] for k in attack.state_keys}
+                    bcast = attack.apply_adaptive(
+                        own_flat, compromised, generators.get("attack"), attack_state,
+                        noise=noise,
+                    )
+                else:
+                    bcast = attack.apply(
+                        own_flat, compromised, generators.get("attack"), noise=noise
+                    )
+            if scale is not None:
                 # A gang member's attack intensity: the perturbation the
                 # attack added, scaled in float32 (0 turns it off); before the
                 # scrub, so an amplified-to-inf row is still caught.
-                bcast = (own_flat.to(torch.float32) + attack_scale
+                bcast = (own_flat.to(torch.float32) + scale
                          * (bcast - own_flat).to(torch.float32)).to(own_flat.dtype)
             if finite is not None:
                 # An attack that overflows to inf/NaN: its broadcast row is
@@ -648,13 +683,15 @@ def build_round_program(
             "own_flat": own_flat, "bcast": bcast, "adj": adj, "pre_flat": pre_flat,
             "finite": finite, "agg_state": agg_state, "fault_stats": fault_stats,
             "compress_stats": compress_stats, "stale_stats": stale_stats,
+            "attack_state": attack_state,
         }
 
-    def stats_metrics(agg_stats, prod, dmtt_stats=None):
+    def stats_metrics(agg_stats, prod, dmtt_stats=None, attack_stats=None):
         metrics = {f"agg_{k}": v for k, v in agg_stats.items()}
         metrics.update({f"agg_{k}": v for k, v in (dmtt_stats or {}).items()})
         for group in ("fault_stats", "compress_stats", "stale_stats"):
             metrics.update({f"agg_{k}": v for k, v in prod[group].items()})
+        metrics.update({f"agg_{k}": v for k, v in (attack_stats or {}).items()})
         return metrics
 
     def step_ctx(data):
@@ -678,11 +715,11 @@ def build_round_program(
             dmtt_stats
 
     def round_body(flat, agg_state, adj, compromised, alive, round_idx, generators, draws,
-                   trained, data):
+                   trained, data, scale):
         """One serialized round: produce the exchange, the DMTT gate,
-        aggregate, then the fault guards."""
+        aggregate, an adaptive attack's feedback, then the fault guards."""
         prod = produce_exchange(flat, agg_state, adj, compromised, alive, round_idx,
-                                generators, draws, trained, data)
+                                generators, draws, trained, data, scale)
         own_flat, adj, agg_state = prod["own_flat"], prod["adj"], prod["agg_state"]
         rule_ctx = step_ctx(data)
         dmtt_stats = None
@@ -695,6 +732,18 @@ def build_round_program(
                 own_flat, prod["bcast"], adj, round_idx, rule_state, rule_ctx
             )
         agg_state = {**agg_state, **rule_state}
+        attack_stats = None
+        if adaptive:
+            # The attacker reads the taps the rule just emitted for its rows
+            # (a scrub or quarantine is a rejection, a dead row no
+            # observation) and writes next round's state.
+            accept, observed = acceptance_feedback(agg_stats, prod["fault_stats"],
+                                                   in_degree(adj), alive)
+            attack_state = attack.update_attack_state(prod["attack_state"], accept, observed,
+                                                      compromised)
+            agg_state = {**agg_state, **attack_state}
+            attack_stats = dict(attack.strength_stats(attack_state, compromised))
+            attack_stats["atk_accept"] = accept * compromised
         if alive is not None:
             # No alive neighbour: the node keeps its own state.  Dead nodes
             # freeze at the pre-round value, quarantined ones roll back.
@@ -707,10 +756,10 @@ def build_round_program(
             prod["fault_stats"]["alive"] = alive.sum()
             if audit_taps:
                 prod["fault_stats"]["tap_alive"] = alive
-        return new_flat, agg_state, stats_metrics(agg_stats, prod, dmtt_stats)
+        return new_flat, agg_state, stats_metrics(agg_stats, prod, dmtt_stats, attack_stats)
 
     def round_body_pipelined(flat, agg_state, adj, compromised, alive, round_idx, generators,
-                             draws, trained, data):
+                             draws, trained, data, scale):
         """One pipelined round (core/pipeline.py): stage A aggregates the
         buffered round r-1 exchange, stage B produces round r's, stage C
         adds the delayed displacement and swaps the buffer.  Stage A comes
@@ -749,7 +798,7 @@ def build_round_program(
         }
         # ---- stage B: the production of round r's exchange ----
         prod = produce_exchange(flat, agg_state, adj, compromised, alive, round_idx,
-                                generators, draws, trained, data)
+                                generators, draws, trained, data, scale)
         own_flat, agg_state = prod["own_flat"], prod["agg_state"]
         # ---- stage C: combine and swap the buffer ----
         with record_function("murmura.pipeline"):
@@ -795,15 +844,20 @@ def build_round_program(
         alive: Optional[torch.Tensor] = None,
         trained: Optional[torch.Tensor] = None,
         data: Optional[Dict[str, torch.Tensor]] = None,
+        attack_scale: Optional[float] = None,
     ):
         """One round (round_body, or round_body_pipelined on a pipelined
         program); a faulted program needs ``alive``.  ``trained`` (a gang's
         member rows, trained by ``train_rows``) replaces local training.
         ``data``: rows of the data arrays (every key of ``RoundProgram.data``)
-        to train and probe on instead of the program's own."""
+        to train and probe on instead of the program's own.
+        ``attack_scale``: this round's attack scale in place of the build's
+        (a gang member's, which a stage reset changes)."""
         check_alive(alive)
+        if attack_scale is not None and attack is None:
+            raise ValueError("attack_scale was given but no attack is configured")
         return body(flat, agg_state, adj, compromised, alive, round_idx, generators, draws,
-                    trained, data)
+                    trained, data, attack_scale)
 
     def train_flat(flat, agg_state, adj, compromised, round_idx, generators=None, draws=None,
                    alive=None):
@@ -877,6 +931,17 @@ def build_round_program(
             )
         init_agg_state.update(
             init_stale_state(staleness, n, model_dim, init_flat.dtype, device))
+    if adaptive:
+        clash = set(attack.state_keys) & set(init_agg_state)
+        if clash:
+            raise ValueError(
+                f"aggregator '{agg.name}' carries state keys {sorted(clash)} "
+                "reserved for the adaptive attack"
+            )
+        init_agg_state.update({
+            k: torch.as_tensor(np.asarray(v)).to(device)
+            for k, v in attack.init_attack_state(n).items()
+        })
     if pipeline:
         clash = set(pipe_keys) & set(init_agg_state)
         if clash:

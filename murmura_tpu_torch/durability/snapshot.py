@@ -40,7 +40,9 @@ Every module-level ``*_STATE_KEYS`` tuple of the port must be listed in
 finds them by an AST scan; tests/test_torch_durability.py holds the two in
 bijection), and a payload with every reserved key must survive the
 save/restore roundtrip bit for bit (:func:`snapshot_roundtrip_missing_sections`).
-``ATTACK_STATE_KEYS`` joins when adaptive attacks are ported.
+The groups: the codec's, DMTT's, the pipeline's, the stale fold's and the
+adaptive attack's (``ATTACK_STATE_KEYS``: a run killed mid-bisection
+resumes with the attacker's bracket restored).
 """
 
 import ast
@@ -63,6 +65,7 @@ SNAPSHOT_BASE_SECTIONS: Tuple[str, ...] = (
 )
 
 RESERVED_AGG_STATE_KEY_GROUPS: Dict[str, str] = {
+    "ATTACK_STATE_KEYS": "murmura_tpu_torch.attacks.adaptive",
     "COMPRESS_STATE_KEYS": "murmura_tpu_torch.ops.compress",
     "DMTT_STATE_KEYS": "murmura_tpu_torch.core.rounds",
     "PIPELINE_STATE_KEYS": "murmura_tpu_torch.core.pipeline",

@@ -1,11 +1,12 @@
-# Copy of build_report and its helpers from murmura_tpu/telemetry/report.py, rendered as plain text.
+# Copy of build_report, render_frontier and their helpers from murmura_tpu/telemetry/report.py, rendered as plain text.
 """``python -m murmura_tpu_torch report <run_dir>``: read a run manifest and
 event stream back.
 
 Reads only the telemetry schema (schema.py), so it renders a run directory
 either package wrote.  Sections appear only when their data exists.
 ``render_report`` prints plain text (the JAX package's renderer draws
-``rich`` tables; the port's CLI prints plain lines).
+``rich`` tables; the port's CLI prints plain lines); ``render_frontier``
+does the same for a frontier artifact (``report --frontier``).
 """
 
 import math
@@ -351,3 +352,65 @@ def render_report(run_dir, out=print) -> Dict[str, Any]:
         out(f"{len(extra)} forward-compat 'extra' event(s) — keys this version does not "
             "understand were preserved, not dropped")
     return report
+
+
+def _bar(frac: float, width: int = 16) -> str:
+    """An accuracy-fraction bar for the curve rows."""
+    if not math.isfinite(frac):
+        return "?" * width
+    filled = int(round(max(0.0, min(1.0, frac)) * width))
+    return "█" * filled + "·" * (width - filled)
+
+
+def render_frontier(artifact: Dict[str, Any], out=print) -> None:
+    """Print a frontier artifact (frontier.py) as plain text through
+    ``out``: one table of each cell's empirical breaking point beside its
+    declared influence bound, then each cell's honest-accuracy curve over
+    attack strength, with the attacker's converged state.
+
+    Read ``declared`` and ``broken at`` together: the first is what the
+    rule's contract admits a coordinate, the second where an adversary
+    that adapts pushed the rule off its honest-accuracy cliff."""
+    from murmura_tpu_torch.frontier import frontier_break_summary
+
+    grid = artifact.get("grid") or {}
+    out(f"murmura frontier — {artifact.get('experiment', '?')} "
+        f"(nodes={grid.get('num_nodes', '?')}, rounds={grid.get('rounds', '?')}, "
+        f"seeds={grid.get('seeds', '?')}, break < {grid.get('break_fraction', '?')} x benign)")
+    rows = []
+    for row in frontier_break_summary(artifact):
+        held, broken, kind = row["last_held"], row["first_broken"], row["declared_kind"]
+        declared = ("undeclared" if kind is None
+                    else f"bounded ≤ {row['declared_bound']}" if kind == "bounded"
+                    else str(kind))
+        pct = row.get("percentage")
+        rows.append([
+            str(row["rule"]), str(row["attack"]), str(row["topology"]),
+            "-" if pct is None else f"{pct:g}", str(row["degree"]),
+            _fmt(row["benign_accuracy"], 3),
+            "-" if held is None else f"{held:.3g}",
+            "never" if broken is None else f"{broken:.3g}",
+            declared, str(row["compiles"]),
+        ])
+    _table("Breaking point vs declared influence bound (per cell)",
+           ["rule", "attack", "topology", "pct", "deg", "benign acc", "held ≤", "broken at",
+            "declared", "compiles"], rows, out)
+    for cell in artifact.get("cells", []):
+        benign = cell.get("benign_accuracy") or float("nan")
+        curve = []
+        for row in cell.get("curve", []):
+            frac = (row["mean"] / benign if benign and math.isfinite(benign) and benign > 0
+                    else float("nan"))
+            adaptive = row.get("adaptive") or {}
+            summary = ""
+            if adaptive:
+                # The mean converged state over the seeds.
+                keys = sorted({k for d in adaptive.values() for k in d})
+                summary = "  ".join(
+                    f"{k}={_fmt(_mean([d.get(k, float('nan')) for d in adaptive.values()]), 2)}"
+                    for k in ("atk_lo", "atk_z", "atk_accept_ema") if k in keys)
+            curve.append([f"{row['strength']:.3g}", _fmt(row["mean"], 3),
+                          _fmt(row.get("std", float("nan")), 3), _bar(frac), summary])
+        _table(f"{cell['rule']} x {cell['attack']} x {cell['topology']} — honest accuracy vs "
+               f"strength (benign {_fmt(benign, 3)})",
+               ["strength", "mean acc", "std", "vs benign", "attacker state"], curve, out)

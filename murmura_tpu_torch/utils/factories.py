@@ -9,7 +9,9 @@ program (pipelined under ``exchange.pipeline``; on the [k, N] edge mask
 for a sparse topology), and a PopulationNetwork where ``population`` is
 enabled; it refuses by name every part of the configuration surface the
 port does not run yet — a refused section is an error, never a silent
-fallback.  ``build_gang_from_config`` builds the same
+fallback.  A ``frontier:`` block is read only by the frontier search
+(frontier.py); ``run`` runs the base experiment.
+``build_gang_from_config`` builds the same
 per member of a gang (core/gang.py): data, initial parameters and draws
 from each member's seed, one attack placement, topology and fault schedule
 for all.
@@ -23,6 +25,11 @@ import torch
 
 from murmura_tpu_torch.aggregation import build_aggregator
 from murmura_tpu_torch.attacks import ATTACKS
+from murmura_tpu_torch.attacks.adaptive import (
+    make_adaptive_alie_attack,
+    make_adaptive_ipm_attack,
+    make_bisection_attack,
+)
 from murmura_tpu_torch.attacks.base import Attack, select_compromised
 from murmura_tpu_torch.config.schema import Config
 from murmura_tpu_torch.core.network import Network
@@ -53,8 +60,6 @@ def unported_sections(config: Config) -> List[str]:
     out = []
     if config.backend == "distributed":
         out.append("backend: distributed (the ZMQ multi-process backend)")
-    if config.frontier is not None:
-        out.append("frontier (the robustness frontier search)")
     if config.grid is not None:
         out.append("grid (the multi-tenant grid)")
     if config.serve is not None:
@@ -66,8 +71,6 @@ def unported_sections(config: Config) -> List[str]:
     a = config.attack
     if a.enabled and a.type is not None and a.type not in ATTACKS:
         out.append(f"attack.type: {a.type}")
-    if a.adaptive.enabled:
-        out.append("attack.adaptive (closed-loop attacks)")
     return out
 
 
@@ -225,7 +228,11 @@ def build_attack(config: Config) -> Optional[Attack]:
     do (gaussian ``noise_std`` or ``std``, directed ``lambda_param``, ALIE
     ``z`` and ``estimator``, IPM ``epsilon``, label flip
     ``flip_fraction``; a topology liar's ``model_attack_type``, gaussian or
-    directed_deviation with their params, or none for claims only)."""
+    directed_deviation with their params, or none for claims only).
+
+    With ``attack.adaptive.enabled`` the attack becomes its closed-loop
+    twin (attacks/adaptive.py): ALIE adaptive ALIE, IPM adaptive IPM, and
+    gaussian and directed deviation the scale bisection around them."""
     if not config.attack.enabled or not config.attack.type:
         return None
     n = config.topology.num_nodes
@@ -233,12 +240,24 @@ def build_attack(config: Config) -> Optional[Attack]:
     p = config.attack.params
     seed = int(p.get("seed", config.experiment.seed))
     kind = config.attack.type
+    ad = config.attack.adaptive
+    if ad.enabled and config.backend == "distributed":
+        # The schema refuses this too; a config built in code gets the same.
+        raise ConfigError("adaptive attacks are not wired into backend: distributed")
+
+    def bisect(inner: Attack) -> Attack:
+        if not ad.enabled:
+            return inner
+        return make_bisection_attack(inner, scale_init=ad.scale_init, scale_max=ad.scale_max,
+                                     growth=ad.growth, accept_target=ad.accept_target,
+                                     ema_beta=ad.ema_beta)
+
     if kind == "gaussian":
-        return ATTACKS[kind](num_nodes=n, attack_percentage=pct, seed=seed,
-                             noise_std=float(p.get("noise_std", p.get("std", 10.0))))
+        return bisect(ATTACKS[kind](num_nodes=n, attack_percentage=pct, seed=seed,
+                                    noise_std=float(p.get("noise_std", p.get("std", 10.0)))))
     if kind == "directed_deviation":
-        return ATTACKS[kind](num_nodes=n, attack_percentage=pct, seed=seed,
-                             lambda_param=float(p.get("lambda_param", -5.0)))
+        return bisect(ATTACKS[kind](num_nodes=n, attack_percentage=pct, seed=seed,
+                                    lambda_param=float(p.get("lambda_param", -5.0))))
     if kind == "alie":
         estimator = str(p.get("estimator", "omniscient"))
         if estimator not in ("omniscient", "coalition"):
@@ -254,9 +273,19 @@ def build_attack(config: Config) -> Optional[Attack]:
                 "(mu/sigma over the coalition sample is degenerate with 1); raise "
                 "attack.percentage, or use the omniscient estimator"
             )
+        if ad.enabled:
+            return make_adaptive_alie_attack(
+                num_nodes=n, attack_percentage=pct, z=p.get("z"), seed=seed,
+                estimator=estimator, eta=ad.eta, accept_target=ad.accept_target,
+                ema_beta=ad.ema_beta, z_min=ad.z_min, z_cap=ad.z_cap)
         return ATTACKS[kind](num_nodes=n, attack_percentage=pct, seed=seed,
                              z=p.get("z"), estimator=estimator)
     if kind == "ipm":
+        if ad.enabled:
+            # IPM walks its own knob (epsilon), not the generic bisection.
+            return make_adaptive_ipm_attack(
+                num_nodes=n, attack_percentage=pct, epsilon=p.get("epsilon"), seed=seed,
+                eta=ad.eta, accept_target=ad.accept_target, ema_beta=ad.ema_beta)
         return ATTACKS[kind](num_nodes=n, attack_percentage=pct, seed=seed,
                              epsilon=p.get("epsilon"))
     if kind == "label_flip":
@@ -484,8 +513,10 @@ def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None
     return Network(program, topology, **kwargs)
 
 
-def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint_dir=None):
-    """Gang wiring (core/gang.py): the ``sweep`` and ``run --seeds`` path.
+def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint_dir=None,
+                           retain_init=False):
+    """Gang wiring (core/gang.py): the ``sweep`` and ``run --seeds`` path,
+    and each frontier cell's gang.
 
     As :func:`build_network_from_config`, except that the data, the initial
     parameters and the draws come from each member's seed, and a member's
@@ -494,7 +525,9 @@ def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint
     experiment seed), the topology, the model and rule and the fault
     schedule are the gang's.  ``seeds``: an explicit member seed list (the
     CLI's ``--seeds``), else ``config.sweep`` defines the members.
-    ``checkpoint_dir``: as there, for each member's telemetry stream."""
+    ``checkpoint_dir``: as there, for each member's telemetry stream.
+    ``retain_init``: keep host copies of the round-0 state, which
+    ``GangNetwork.reset_run`` (the frontier's stage reset) restores."""
     from murmura_tpu_torch.core.gang import GangNetwork, gang_hp_inputs, resolve_members
 
     if config.backend == "distributed":
@@ -551,7 +584,7 @@ def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint
                            base_lr=config.training.lr,
                            transfer_guard=config.tpu.transfer_guard,
                            recompile_guard=config.tpu.recompile_guard,
-                           telemetry_writers=writers)
+                           telemetry_writers=writers, retain_init=retain_init)
     except ValueError as e:
         # Members that cannot train as one stack (ragged shards).
         raise ConfigError(str(e)) from None

@@ -8,7 +8,8 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed:
 (``--noconftest`` because tests/conftest.py pins JAX to the CPU.)  Beside the
 kernels: the CLI runs launch them (a pipelined Krum round too, from its
 warm-up round on; a sparse Krum run twice a round; a gang once a member;
-a population run twice a round), and ``tpu.transfer_guard`` raises on a
+a population run twice a round; an adaptive Krum round, card against CPU,
+in both exchanges; a gang's stage reset), and ``tpu.transfer_guard`` raises on a
 synchronising call forced inside a fused chunk and not across a
 population run's swaps.  The population engine's swap on the card (pinned
 prefetch buffers, the teleport composition, the write-back) and the DMTT
@@ -883,3 +884,100 @@ def test_dmtt_mobility_run_on_the_card(dev, tmp_path):
     assert network.mobility is not None and network.flat.device.type == "cuda"
     assert len(history["agg_dmtt_collab_count"]) == 3
     assert all(np.isfinite(v).all() for v in history.values())
+
+
+def _adaptive_cfg(mode, members=None):
+    cfg = _tiny_krum(mode)
+    cfg["attack"].update(percentage=0.4, params={"noise_std": 0.02, "seed": 7},
+                         adaptive={"enabled": True})
+    cfg["data"] = {"adapter": "synthetic",
+                   "params": {"num_samples": 320, "input_shape": [8], "num_classes": 4}}
+    cfg["model"] = {"factory": "mlp",
+                    "params": {"input_dim": 8, "hidden_dims": [16], "num_classes": 4}}
+    if members is not None:
+        cfg["sweep"] = {"members": members}
+    return cfg
+
+
+@pytest.mark.parametrize("exchange", ["allgather", "ppermute"])
+def test_adaptive_krum_round_card_equals_cpu(dev, exchange):
+    # Three chained rounds of the bisection around gaussian std 0.02 (40%
+    # compromised) from one spread start and the same injected draws: the
+    # card's kernel against the CPU's plain version, the picks and the
+    # bracket equal, the acceptance EMA within rtol 1e-6.
+    from murmura_tpu_torch.config import Config
+    from murmura_tpu_torch.core.rounds import build_round_program
+    from murmura_tpu_torch.data.registry import build_federated_data
+    from murmura_tpu_torch.models.mlp import make_mlp
+    from murmura_tpu_torch.utils.factories import build_attack, build_rule, build_topology
+
+    config = Config.model_validate(_adaptive_cfg(exchange))
+    topology = build_topology(config)
+    model = make_mlp(8, [16], 4)
+    agg, _ = build_rule(config, model, topology)
+    data = build_federated_data("synthetic", dict(config.data.params), num_nodes=16, seed=7)
+    rng = np.random.default_rng(7)
+    template = model.init(torch.Generator().manual_seed(7), "cpu")
+    scale = 0.05 * (1.0 + np.arange(16) / 16)
+    from murmura_tpu_torch.ops.flatten import tree_map
+
+    init = tree_map(lambda t: (t.numpy()[None] + scale.reshape((16,) + (1,) * t.dim())
+                               * rng.normal(size=(16,) + tuple(t.shape))).astype(np.float32),
+                    template)
+    u = rng.random(data.mask.shape).astype(np.float32)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        attack = build_attack(config)
+        prog = build_round_program(model, agg, data, attack=attack, batch_size=16, lr=0.02,
+                                   seed=7, device=d, init_params=init)
+        comp = torch.as_tensor(attack.compromised.astype(np.float32)).to(d)
+        adj = torch.as_tensor(topology.mask()).to(d)
+        flat, state, rows = prog.init_flat, prog.init_agg_state, []
+        K.reset_counts()
+        for r in range(3):
+            noise = np.random.default_rng(r).normal(
+                size=(int(comp.sum()), prog.model_dim)).astype(np.float32)
+            flat, state, m = prog.train_step(flat, state, adj, comp, float(r),
+                                             draws={"u": [u], "noise": noise})
+            rows.append((flat.cpu().double(), m["agg_selected_index"].cpu(),
+                         {k: state[k].cpu() for k in attack.state_keys}))
+        runs[d.type] = (rows, dict(K.LAUNCHES), dict(K.PLAIN_CALLS))
+    kernel = "pairwise_sq_distances" if exchange == "allgather" else "circulant_sq_distances"
+    (card, launches, plain), (cpu, _, _) = runs["cuda"], runs["cpu"]
+    assert launches[kernel] == 6 and not any(plain.values())
+    for (f_card, p_card, s_card), (f_cpu, p_cpu, s_cpu) in zip(card, cpu):
+        assert torch.equal(p_card, p_cpu)
+        for k in ("atk_scale", "atk_lo", "atk_hi"):
+            assert torch.equal(s_card[k], s_cpu[k]), k
+        np.testing.assert_allclose(s_card["atk_accept_ema"], s_cpu["atk_accept_ema"], rtol=1e-6)
+        assert float((f_card - f_cpu).abs().max()) / max(1.0, float(f_cpu.abs().max())) <= 1e-4
+
+
+def test_gang_stage_reset_on_the_card(dev):
+    # A stage reset builds nothing and launches each member's kernel as a
+    # fresh gang of the new members does, to the same decisions.
+    from murmura_tpu_torch.config import Config
+    from murmura_tpu_torch.core.gang import GangMember
+    from murmura_tpu_torch.utils.factories import build_gang_from_config
+
+    first = [{"seed": 7, "attack_scale": 0.0}, {"seed": 7, "attack_scale": 1.0}]
+    second = [{"seed": 7, "attack_scale": 0.0}, {"seed": 7, "attack_scale": 3.0}]
+    gang = build_gang_from_config(Config.model_validate(_adaptive_cfg("allgather", first)),
+                                  device="cuda", retain_init=True)
+    K.reset_counts()
+    gang.train(2, eval_every=2, rounds_per_dispatch=2)
+    gang.reset_run([GangMember(**m) for m in second])
+    got = gang.train(2, eval_every=2, rounds_per_dispatch=2)
+    assert gang.program_builds == 1
+    assert K.LAUNCHES["pairwise_sq_distances"] == 2 * 2 * 2 * 2 and not any(K.PLAIN_CALLS.values())
+    fresh = build_gang_from_config(Config.model_validate(_adaptive_cfg("allgather", second)),
+                                   device="cuda")
+    ref = fresh.train(2, eval_every=2, rounds_per_dispatch=2)
+    for g, r in zip(got, ref):
+        assert g["agg_selected_index"] == r["agg_selected_index"]
+        assert g["agg_atk_scale"] == r["agg_atk_scale"]
+    for s in range(2):
+        for k in ("atk_scale", "atk_lo", "atk_hi"):
+            assert torch.equal(gang.agg_states[s][k], fresh.agg_states[s][k]), k
+    delta = (gang.flats - fresh.flats).abs().max() / max(1.0, float(fresh.flats.abs().max()))
+    assert float(delta) <= 1e-5

@@ -13,10 +13,12 @@ and it never moves to the CPU unless asked to.
   a gang round of two seeds (core/gang.py, through the CLI's ``sweep``),
   a sparse round on the exponential and one_peer graphs
   (topology/sparse.py), two population rounds across a swap (population/,
-  a memory-mapped million-user bank) and two DMTT rounds under mobility
-  and the topology liar (dmtt/, topology/dynamic.py), loads no ``jax`` and
-  no ``murmura_tpu.*`` module (counted against what the interpreter had
-  loaded at start).
+  a memory-mapped million-user bank), two DMTT rounds under mobility
+  and the topology liar (dmtt/, topology/dynamic.py), an adaptive round
+  (the bisection around the gaussian attack under Krum,
+  attacks/adaptive.py) and one frontier cell of two stages with its stage
+  reset (frontier.py), loads no ``jax`` and no ``murmura_tpu.*`` module
+  (counted against what the interpreter had loaded at start).
 - An AST scan of the port and of chip_smoke.py finds no such import.
 - Without CUDA, ``python -m murmura_tpu_torch run`` without ``--device
   cpu`` fails with a message, and chip_smoke.py exits non-zero, printing
@@ -159,6 +161,20 @@ raw["experiment"].update(rounds=2, verbose=False)
 raw["data"]["params"]["num_samples"] = 320
 net = build_network_from_config(Config.model_validate(raw), device="cpu")
 assert net.mobility is not None and len(net.train(2)["agg_dmtt_collab_count"]) == 2
+from murmura_tpu_torch.attacks.adaptive import make_bisection_attack
+from murmura_tpu_torch.frontier import run_cell
+attack = make_bisection_attack(make_gaussian_attack(8, 0.25, seed=1))
+prog = build_round_program(model, build_aggregator("krum", {"num_compromised": 1}), data,
+                           attack=attack, batch_size=8, seed=1, device="cpu")
+flat, state, metrics = prog.train_step(prog.init_flat, prog.init_agg_state, adj, comp, 0.0,
+                                       generators=round_generators(1, 0, "cpu"))
+assert "atk_scale" in state and "agg_atk_accept" in metrics
+raw = yaml.safe_load(open("examples/configs/frontier_krum.yaml"))
+raw["frontier"].update(rules=["krum"], attacks=["gaussian"], topologies=["dense"], points=2,
+                       seeds=[7], stages=2, rounds=1)
+cfg = Config.model_validate(raw)
+cell = run_cell(cfg, cfg.frontier, "krum", "gaussian", "dense", [7], device="cpu")
+assert cell.compiles == 1 and cell.curve
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "murmura_tpu"})
 print("LOADED", bad)

@@ -33,10 +33,12 @@
   streaming over a million users) and ``dmtt_mobility.yaml`` (DMTT under
   mobility and the topology liar: round 1's collaborator and received
   counts equal, before the probe accuracies of the two RNGs' trained
-  models can differ), each cut to 3 rounds; the accuracy in the same band,
+  models can differ), each cut to 3 rounds; so does ``frontier_krum.yaml``,
+  whose ``run`` is its base experiment (the ``frontier:`` block is read by
+  the frontier command alone); the accuracy in the same band,
   except stale_gossip's (see ``BAND_EXEMPT``); and ``report <run_dir>
   --json`` renders the port's telemetry run dir.  The configs whose levers
-  are still missing (the frontier search, the grid, param-axis sharding)
+  are still missing (the grid, param-axis sharding)
   are refused, naming that lever and not the levers ported so far.
 """
 
@@ -172,7 +174,7 @@ PORTED = {"femnist_krum_tpu", "basic_fedavg", "ubar_attack", "uci_har_byzantine"
           "alie_geometric_median", "label_flip_poisoning", "chaos_churn",
           "compressed_exchange", "telemetry_audit_report", "stale_gossip",
           "resumable_run", "pipelined_rounds", "sweep_seeds", "population_1m",
-          "dmtt_mobility"}
+          "dmtt_mobility", "frontier_krum"}
 
 
 @pytest.mark.parametrize(
@@ -186,7 +188,6 @@ def test_unported_examples_refused_by_name(path):
 
 # Configs refused for a lever the port still lacks: the lever the message names.
 STILL_REFUSED = {
-    "frontier_krum": "frontier",
     "serve_grid": "grid",
     "sharded_model": "param_shards",
 }
@@ -201,7 +202,8 @@ def test_configs_with_missing_levers_name_them(name):
     # The levers ported so far are no longer among the refusals.
     for lever in ("faults", "compression", "rounds_per_dispatch", "telemetry",
                   "max_staleness", "durability", "pipeline", "sweep", "exponential",
-                  "one_peer", "population", "mobility", "dmtt", "topology_liar"):
+                  "one_peer", "population", "mobility", "dmtt", "topology_liar",
+                  "adaptive", "frontier"):
         assert lever not in str(err.value)
 
 
@@ -225,7 +227,8 @@ FULL_ROUNDS = {"pipelined_rounds": 12}
 
 @pytest.mark.parametrize(
     "name", ["chaos_churn", "compressed_exchange", "telemetry_audit_report", "stale_gossip",
-             "resumable_run", "pipelined_rounds", "population_1m", "dmtt_mobility"])
+             "resumable_run", "pipelined_rounds", "population_1m", "dmtt_mobility",
+             "frontier_krum"])
 def test_lever_configs_cli_match_jax_package(tmp_path, name):
     raw = yaml.safe_load((ROOT / "examples" / "configs" / f"{name}.yaml").read_text())
     rounds = FULL_ROUNDS.get(name, 3)

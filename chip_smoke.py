@@ -176,7 +176,28 @@ Phases, each of which raises (and exits non-zero) on failure:
    for the other rules, no plain call, ``compiles`` 1 in every cell, the
    artifact with the JAX schema's keys, ``report --frontier`` rendering
    it; each cell's breaking point, the stages' seconds a round, the total
-   seconds and the peak memory printed.  A faulted run holds its alive and
+   seconds and the peak memory printed; then the grid, through the port's
+   ``grid`` command: ``serve_grid.yaml`` as committed in a subprocess (50
+   cells, 5 buckets of 10 in ``expand_cells`` order, gangs of 10 at
+   [12, P] of the MLP, ``compiles`` 1 a bucket plus at most one ``nvcc``
+   build a kernel, the pairwise kernel 2 S (Krum) and S (BALANCE) times a
+   round, the manifest read back by ``report --grid``) and the flagship
+   under a ``grid:`` block (ppermute, 12 cells, 3 buckets, gangs of 4 at
+   [16, 6,603,710]: Krum's and BALANCE's circulant passes and the
+   median's candidate select per bucket, the counters set to 0 around
+   each bucket; its wall, seconds a gang round and peak printed); and the
+   serve daemon: ``python -m murmura_tpu_torch serve`` subprocesses on
+   serve_grid.yaml's base experiment (three tenants, capacity 2, a
+   snapshot every round), one uninterrupted and one SIGKILLed after its
+   first snapshot and started again over its state dir: every submission
+   done, decisions equal the reference's, histories within a scaled 1e-4,
+   the later generation recording no build, ``metrics``, ``top``, ``runs``
+   and ``report --trace`` over the live daemon (``validate_spans`` on the
+   trace), admission latency and recovery time printed; and one
+   flagship-width daemon in this process (allgather, 2 tenants, 2
+   rounds): its second generation builds nothing, and ``freeze_member``
+   on one lane leaves the other's history equal to its run without the
+   eviction.  A faulted run holds its alive and
    quarantined counts to the schedule and every kernel input finite; a
    compressed run prints its payload bytes an edge; a telemetry run reads
    its run dir back with the port's report (the memory event's peak equal
@@ -196,7 +217,7 @@ Phases, each of which raises (and exits non-zero) on failure:
    peak memory and swap times beside its scenario's, dmtt_mobility's
    steady seconds and cross-evaluation share, the adaptive flagship's
    steady seconds beside the static run's, the frontiers' total seconds,
-   stage seconds a round and peaks, the
+   stage seconds a round and peaks, the grids' and the daemons' times, the
    codec's times beside the flagship round's, one
    ``{"kernels": [...]}`` JSON line, the card line, and the
    ``{"ok": true, "device": ...}`` line last.
@@ -3357,6 +3378,513 @@ def run_frontier_smoke(label: str, config: Path, frontier=None) -> dict:
             "stage_s": stages, "cells": len(art["cells"])}
 
 
+# The grid scheduler and the serve daemon.  serve_grid.yaml's buckets, one
+# a rule of 10 cells, and the kernel its dense (allgather) round launches a
+# member: Krum's two pairwise passes, BALANCE's one; fedavg, the median and
+# the trimmed mean none.
+SERVE_GRID = ROOT / "examples" / "configs" / "serve_grid.yaml"
+GRID_PAIRWISE = {"krum": 2, "balance": 1}
+# The flagship at full width under a grid block, ppermute: per round and
+# member Krum's two circulant passes, BALANCE's one, the median's one
+# candidate select.
+FLAGSHIP_GRID = {"rules": ["krum", "median", "balance"], "attacks": ["gaussian"],
+                 "topologies": ["dense"], "strengths": [0.0, 1.0], "seeds": [42, 43],
+                 "rounds": 2}
+FLAGSHIP_GRID_LAUNCHES = {"krum": ("circulant_sq_distances", 2),
+                          "balance": ("circulant_sq_distances", 1),
+                          "median": ("candidate_select", 1)}
+# The daemon's tenants: serve_grid.yaml's base experiment (Krum on the
+# 8-16-4 MLP, 12 nodes) as (seed, lr), one fingerprint, two generations in
+# a bucket of capacity 2; 12 rounds each (4 as committed) so that the
+# SIGKILL lands inside the first generation, a snapshot every round.
+DAEMON_TENANTS = ((7, 0.05), (11, 0.02), (13, 0.05))
+DAEMON_ROUNDS = 12
+
+
+def _run_cli(argv) -> str:
+    """``cli.main(argv)`` in this process; returns what it printed."""
+    import io
+
+    from murmura_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main([str(a) for a in argv])
+    return out.getvalue()
+
+
+def run_serve_grid_smoke() -> dict:
+    """Phase 4, the grid: serve_grid.yaml as committed through ``python -m
+    murmura_tpu_torch grid`` in a subprocess (the process's counters from
+    its start): 50 cells in 5 buckets, one a rule of 10 cells in
+    ``expand_cells`` order, gangs of 10 at [12, P] of the MLP; ``compiles``
+    1 a bucket plus at most one ``nvcc`` build a kernel in the first bucket
+    that launches it; the pairwise kernel launched 2 S (Krum) and S
+    (BALANCE) times a round, no other kernel, no plain version; finite
+    accuracies; the manifest read back through ``report --grid``."""
+    import numpy as np
+    import torch
+
+    from murmura_tpu_torch.config import load_config
+    from murmura_tpu_torch.models.registry import build_model
+    from murmura_tpu_torch.ops.flatten import model_dimension
+    from murmura_tpu_torch.serve.scheduler import expand_cells
+
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    out = SMOKE_DIR / "serve_grid.json"
+    out.unlink(missing_ok=True)
+    cmd = [sys.executable, "-c", _CLI_WITH_COUNTS, "grid", str(SERVE_GRID), "-o", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    (SMOKE_DIR / "serve_grid.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"the grid command failed: {proc.stderr[-3000:]}")
+    counts = _cli_counts(proc.stdout)
+    art = json.loads(out.read_text())
+    config = load_config(SERVE_GRID)
+    g = config.grid
+    cells = expand_cells(config, g)
+    p = model_dimension(build_model(config.model.factory, dict(config.model.params))
+                        .init(torch.Generator().manual_seed(0), "cpu"))
+    buckets = art["buckets"]
+    plan_ok = ([b["rule"] for b in buckets] == list(g.rules)
+               and [b["cells"] for b in buckets]
+               == [[c.cell_id for c in cells if c.rule == rule] for rule in g.rules]
+               and all(b["gang_size"] == 10 and b["batch"] == 16 for b in buckets)
+               and art["total_cells"] == 50 and len(buckets) == 5)
+    first, compiles_ok = set(), art["total_compiles"] == sum(b["compiles"] for b in buckets)
+    for b in buckets:
+        kernels = {"pairwise_sq_distances"} if b["rule"] in GRID_PAIRWISE else set()
+        compiles_ok = compiles_ok and 1 <= b["compiles"] <= 1 + len(kernels - first)
+        first |= kernels
+    rounds = art["grid"]["rounds"]
+    want = sum(GRID_PAIRWISE.get(b["rule"], 0) * b["gang_size"] * rounds for b in buckets)
+    got = counts["launches"]
+    launches_ok = (got["pairwise_sq_distances"] == want and not any(counts["plain"].values())
+                   and not any(v for k, v in got.items() if k != "pairwise_sq_distances"))
+    finite = all(np.isfinite(c["final_accuracy"]) for c in art["cells"])
+    rendered = _run_cli(["report", "--grid", out])
+    read_back = ("Buckets (one gang each)" in rendered
+                 and all(c["id"] in rendered for c in art["cells"]))
+    ok = plan_ok and compiles_ok and launches_ok and finite and read_back
+    for b in buckets:
+        mean_round = art["cells"][[c["bucket"] for c in art["cells"]].index(b["key"])][
+            "phase_times"]["mean_round_s"]
+        print(f"[grid:serve_grid] bucket {b['key']} {b['rule']} x {b['attack']} x "
+              f"{b['topology']}: {len(b['cells'])} cells ({b['cells'][0]} .. "
+              f"{b['cells'][-1]}), gang {b['gang_size']}/{b['batch']} at [12, {p}], "
+              f"compiles {b['compiles']}, wall {b['wall_s']:.4f} s, {mean_round:.4f} s a gang "
+              f"round", flush=True)
+    print(f"[grid:serve_grid] serve_grid.yaml as committed through the grid command: "
+          f"{art['total_cells']} cells in {len(buckets)} buckets (the expected partition "
+          f"{plan_ok}), total_compiles {art['total_compiles']} (the rule {compiles_ok}); "
+          f"pairwise_sq_distances launched {got['pairwise_sq_distances']} times (want {want}), "
+          f"plain calls {sum(counts['plain'].values())}; accuracies finite {finite}; "
+          f"buckets' wall {sum(b['wall_s'] for b in buckets):.4f} s, process {wall:.2f} s; "
+          f"report --grid read it back ({len(rendered.splitlines())} lines): "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError("serve_grid.yaml through the grid command failed its checks")
+    return {"launches": {"pairwise_sq_distances": got["pairwise_sq_distances"]},
+            "buckets_s": sum(b["wall_s"] for b in buckets), "process_s": wall,
+            "compiles": art["total_compiles"]}
+
+
+def run_flagship_grid_smoke() -> dict:
+    """Phase 4, the flagship at full width under FLAGSHIP_GRID (ppermute,
+    ``training.max_samples`` GANG_MAX_SAMPLES) through the port's ``grid``
+    command in this process: 12 cells in 3 buckets, gangs of 4 at
+    [16, 6,603,710]; the counters set to 0 just before each bucket's
+    rounds and read just after: its kernel (FLAGSHIP_GRID_LAUNCHES) that
+    many times a round a member, no other, no plain version; each bucket's
+    wall, seconds a gang round and peak memory (from its gang's build)."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from murmura_tpu_torch.core.gang import GangNetwork
+    from murmura_tpu_torch.utils import factories
+
+    raw = yaml.safe_load(FLAGSHIP.read_text())
+    raw["tpu"]["exchange"] = "ppermute"
+    raw["training"]["max_samples"] = GANG_MAX_SAMPLES
+    raw["grid"] = dict(FLAGSHIP_GRID)
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    cfg, out = SMOKE_DIR / "flagship_grid.yaml", SMOKE_DIR / "flagship_grid.json"
+    cfg.write_text(yaml.safe_dump(raw, sort_keys=False))
+    out.unlink(missing_ok=True)
+    mods = _kernel_modules()
+    rows = []
+    real_build, real_train = factories.build_gang_from_config, GangNetwork.train
+
+    def measured_build(*args, **kwargs):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return real_build(*args, **kwargs)
+
+    def counted_train(self, rounds, *args, **kwargs):
+        for mod in mods:
+            mod.reset_counts()
+        t0 = time.perf_counter()
+        hist = real_train(self, rounds, *args, **kwargs)
+        torch.cuda.synchronize()
+        rows.append({"wall": time.perf_counter() - t0,
+                     "s_round": float(np.mean(self.round_times)),
+                     "launches": {k: v for m in mods for k, v in m.LAUNCHES.items()},
+                     "plain": {k: v for m in mods for k, v in m.PLAIN_CALLS.items()},
+                     "shape": tuple(self.flats.shape), "dtype": str(self.flats.dtype),
+                     "gang_size": self.gang_size, "rounds": rounds,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        return hist
+
+    factories.build_gang_from_config, GangNetwork.train = measured_build, counted_train
+    t0 = time.perf_counter()
+    try:
+        printed = _run_cli(["grid", cfg, "-o", out])
+    finally:
+        factories.build_gang_from_config, GangNetwork.train = real_build, real_train
+    total = time.perf_counter() - t0
+    art = json.loads(out.read_text())
+    buckets = art["buckets"]
+    ok = (art["total_cells"] == 12 and [b["rule"] for b in buckets] == FLAGSHIP_GRID["rules"]
+          and len(rows) == 3 and all(np.isfinite(c["final_accuracy"]) for c in art["cells"]))
+    launches = {"circulant_sq_distances": 0, "candidate_select": 0}
+    for b, row in zip(buckets, rows):
+        kernel, per = FLAGSHIP_GRID_LAUNCHES[b["rule"]]
+        want = per * row["gang_size"] * row["rounds"]
+        stray = {k: v for k, v in row["launches"].items() if v and k != kernel}
+        bucket_ok = (row["launches"][kernel] == want and not stray
+                     and not any(row["plain"].values()) and row["gang_size"] == 4
+                     and row["shape"] == (4, 16, 6_603_710))
+        ok = ok and bucket_ok
+        launches[kernel] += row["launches"][kernel]
+        print(f"[grid:flagship] bucket {b['key']} {b['rule']}: gang {row['gang_size']} at "
+              f"{list(row['shape'][1:])} {row['dtype']}, {row['rounds']} rounds fused, {kernel} "
+              f"launched {row['launches'][kernel]} times (want {want}), plain "
+              f"{sum(row['plain'].values())}, compiles {b['compiles']}; wall {b['wall_s']:.3f} s, "
+              f"{row['s_round']:.4f} s a gang round; peak device memory {row['peak_gb']:.2f} GB: "
+              f"{'ok' if bucket_ok else 'FAILED'}", flush=True)
+    print(f"[grid:flagship] the flagship under a grid block (ppermute, max_samples "
+          f"{GANG_MAX_SAMPLES}): {art['total_cells']} cells in {len(buckets)} buckets, "
+          f"total_compiles {art['total_compiles']}, {total:.2f} s in all (the buckets' wall "
+          f"{sum(b['wall_s'] for b in buckets):.3f} s); the grid command printed "
+          f"{len(printed.splitlines())} lines: {'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError("the flagship-width grid failed its checks")
+    return {"launches": launches, "total_s": total,
+            "s_round": [r["s_round"] for r in rows], "peak_gb": max(r["peak_gb"] for r in rows)}
+
+
+def _wait_for(pred, timeout: float, what: str, proc=None) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"{what}: the process exited ({proc.returncode})")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(0.002)
+
+
+def _answers(sock: str) -> bool:
+    """Whether a daemon answers a ping on ``sock`` (a killed daemon leaves
+    its socket file behind)."""
+    from murmura_tpu_torch.serve.protocol import send_request
+
+    try:
+        return bool(send_request(sock, {"op": "ping"}, retries=0, timeout=5.0)["ok"])
+    except OSError:
+        return False
+
+
+def _start_daemon(tag: str, cfg: Path):
+    log = open(SMOKE_DIR / f"serve_{tag}.log", "a")
+    proc = subprocess.Popen([sys.executable, "-m", "murmura_tpu_torch", "serve", str(cfg)],
+                            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    return proc, log
+
+
+def _records(state: Path) -> dict:
+    return {p.stem: json.loads(p.read_text())
+            for p in sorted((state / "submissions").glob("*.json"))}
+
+
+def run_serve_daemon_smoke() -> dict:
+    """Phase 4, the serve daemon on the card, as ``python -m
+    murmura_tpu_torch serve`` subprocesses on serve_grid.yaml's base
+    experiment with a serve: block (capacity 2, a snapshot every round):
+    a reference daemon runs DAEMON_TENANTS (one fingerprint, two
+    generations or more) to the end; a second, given the first two, is
+    SIGKILLed once its first generation's first snapshot landed and started
+    again over the same state dir, which recovers that generation; the
+    third tenant reaches it through the ``submit`` command.  Every submission must end ``done`` with Krum's decisions
+    equal to the reference's and the histories within a scaled 1e-4
+    (bit-equality printed: a new process may take another cuDNN
+    algorithm); the second generation's tenant must record no build.
+    Then ``metrics`` (ending ``# EOF``), ``top --iterations 1``, ``runs``
+    and ``report --trace`` read the live daemon and its state dir, and
+    ``validate_spans`` holds on the trace.  Prints the admission latency
+    (``admitted`` to the tenant's first round) and the recovery time."""
+    import yaml
+
+    from murmura_tpu_torch.serve.protocol import send_request
+    from murmura_tpu_torch.telemetry.spans import build_spans, validate_spans
+    from murmura_tpu_torch.telemetry.writer import iter_events
+
+    base = yaml.safe_load(SERVE_GRID.read_text())
+    base.pop("grid")
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+
+    def setup(tag):
+        state = SMOKE_DIR / f"serve_{tag}"
+        shutil.rmtree(state, ignore_errors=True)
+        raw = dict(base, serve={"state_dir": str(state), "capacity": 2, "checkpoint_every": 1,
+                                "poll_interval_s": 0.02})
+        cfg = SMOKE_DIR / f"serve_{tag}.yaml"
+        cfg.write_text(yaml.safe_dump(raw, sort_keys=False))
+        (SMOKE_DIR / f"serve_{tag}.log").unlink(missing_ok=True)
+        return state, cfg, str(state / "daemon.sock")
+
+    tenants = []
+    for seed, lr in DAEMON_TENANTS:
+        raw = yaml.safe_load(yaml.safe_dump(base))
+        raw["experiment"].update(name=f"tenant-{seed}", seed=seed, rounds=DAEMON_ROUNDS)
+        raw["training"]["lr"] = lr
+        tenants.append(raw)
+    procs = []
+
+    def finish(sock, proc, log):
+        send_request(sock, {"op": "shutdown"}, retries=2)
+        proc.wait(timeout=120)
+        log.close()
+
+    def wait_done(sock, proc):
+        _wait_for(lambda: all(r["state"] in ("done", "failed", "evicted") for r in
+                              send_request(sock, {"op": "list"})["submissions"])
+                  and len(send_request(sock, {"op": "list"})["submissions"]) == 3,
+                  600, "the daemon's submissions", proc)
+
+    try:
+        # The reference daemon, uninterrupted.
+        ref_state, ref_cfg, ref_sock = setup("ref")
+        proc, log = _start_daemon("ref", ref_cfg)
+        procs.append(proc)
+        t0 = time.perf_counter()
+        _wait_for(lambda: _answers(ref_sock), 300, "the reference daemon's socket", proc)
+        bound_s = time.perf_counter() - t0
+        for raw in tenants:
+            send_request(ref_sock, {"op": "submit", "config": raw})
+        wait_done(ref_sock, proc)
+        ref_ping = send_request(ref_sock, {"op": "ping"})
+        finish(ref_sock, proc, log)
+        ref = _records(ref_state)
+
+        # The victim: SIGKILLed after its first snapshot, started again.
+        state, cfg, sock = setup("victim")
+        proc, log = _start_daemon("victim", cfg)
+        procs.append(proc)
+        _wait_for(lambda: _answers(sock), 300, "the daemon's socket", proc)
+        fp = [send_request(sock, {"op": "submit", "config": raw})["bucket"]
+              for raw in tenants[:2]][0]
+        meta = state / "buckets" / fp / "gen_1" / "meta.json"
+        _wait_for(meta.exists, 300, "the first generation's snapshot", proc)
+        proc.kill()
+        proc.wait()
+        log.close()
+        killed_round = _snapshot_round(meta.parent)
+        at_kill = {k: r["state"] for k, r in _records(state).items()}
+        t0 = time.perf_counter()
+        proc, log = _start_daemon("victim", cfg)
+        procs.append(proc)
+        _wait_for(lambda: _answers(sock), 300, "the revived daemon's socket", proc)
+        rebound_s = time.perf_counter() - t0
+        # The third tenant through the submit command, into the revived daemon.
+        path = SMOKE_DIR / "serve_tenant_3.yaml"
+        path.write_text(yaml.safe_dump(tenants[2], sort_keys=False))
+        sub = subprocess.run([sys.executable, "-m", "murmura_tpu_torch", "submit", str(path),
+                              "--socket", sock], cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+        if sub.returncode != 0 or f"submitted sub-00003 (bucket {fp})" not in sub.stdout:
+            raise AssertionError(f"submit failed: {sub.stdout[-2000:]} {sub.stderr[-2000:]}")
+        wait_done(sock, proc)
+        recovered_s = time.perf_counter() - t0
+        got = _records(state)
+
+        # The observability plane over the live daemon and its state dir.
+        metrics = _run_cli(["metrics", sock])
+        top = _run_cli(["top", "--socket", sock, "--iterations", "1"])
+        runs = _run_cli(["runs", state])
+        ping = send_request(sock, {"op": "ping"})
+        run_dir = state / "telemetry" / "sub-00001"
+        trace = SMOKE_DIR / "serve_trace.json"
+        traced = _run_cli(["report", run_dir, "--trace", trace])
+        finish(sock, proc, log)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    states_ok = all(r["state"] == "done" for r in got.values()) and len(got) == 3
+    decisions_ok, bit_equal, delta = True, True, 0.0
+    for sub_id, rec in got.items():
+        a, b = rec["history"], ref[sub_id]["history"]
+        for k in ("agg_selected_index", "agg_selected_own"):
+            decisions_ok = decisions_ok and a[k] == b[k]
+        bit_equal = bit_equal and a == b
+        delta = max(delta, history_delta(a, b))
+    # The later generation(s) ran on the warm bucket the recovery rebuilt.
+    gen2 = [k for k, r in got.items() if r["gen"] >= 2]
+    gen2_built = [json.loads((state / "telemetry" / k / "manifest.json").read_text())
+                  ["counters"] for k in gen2]
+    no_build = bool(gen2) and all(not c for c in gen2_built)
+    total = sum(e["wall_s"] for e in iter_events(run_dir) if e["type"] == "phase_times")
+    problems = validate_spans(build_spans(run_dir), phase_total=total)
+    chrome = json.loads(trace.read_text())
+    plane_ok = (metrics.rstrip().endswith("# EOF") and "murmura_rounds_total{tenant=\"sub-00003\"}"
+                in metrics and "murmura top — pid" in top and "sub-00003" in top
+                and sum(" submission " in line for line in runs.splitlines()) == 3
+                and "trace span(s)" in traced
+                and not problems and chrome["traceEvents"])
+
+    def admission(sub_id):
+        """From the tenant's submission, or the end of the generation
+        before its own (whichever is later; a recovered tenant: its
+        ``resumed`` event), to the start of its first round: the member
+        programs' build, the writers and the splice into the lanes."""
+        events = list(iter_events(state / "telemetry" / sub_id))
+        t0 = [e["t"] for e in events if e["type"] == "serve"
+              and e["event"] in ("submitted", "resumed")][-1]
+        gen = got[sub_id]["gen"]
+        t0 = max([t0] + [e["t"] for k, r in got.items() if r["gen"] == gen - 1
+                         for e in iter_events(state / "telemetry" / k)
+                         if e["type"] == "serve" and e["event"] == "generation_done"])
+        first = [e for e in events if e["type"] == "phase_times" and e["t"] > t0][0]
+        return first["t"] - first["wall_s"] - t0
+
+    ok = states_ok and decisions_ok and delta <= 1e-4 and no_build and plane_ok
+    print(f"[serve:daemon] serve_grid.yaml's base experiment as {len(tenants)} tenants "
+          f"({DAEMON_ROUNDS} rounds, capacity 2, a snapshot every round), the reference "
+          f"daemon's socket bound in {bound_s:.2f} s, its lifetime counters "
+          f"{ref_ping['counters']}; the victim SIGKILLed with generation 1's snapshot at round "
+          f"{killed_round} (ledger then {at_kill}), started again: socket bound in "
+          f"{rebound_s:.2f} s, every submission done {recovered_s:.2f} s after the restart "
+          f"({states_ok}); "
+          f"lifetime counters after recovery {ping['counters']}; Krum's decisions equal the "
+          f"reference's {decisions_ok}, histories bit-equal {bit_equal}, scaled delta "
+          f"{delta:.3g} (limit 1e-4); the later generation ({gen2}) recorded no build "
+          f"{no_build}: "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    print(f"[serve:daemon] admission latency (submitted, or the previous generation's end, or "
+          f"resumed, to the first round's start): "
+          + ", ".join(f"{k} {admission(k):.4f} s (gen {got[k]['gen']})" for k in got)
+          + f"; metrics {len(metrics.splitlines())} lines ending # EOF, top "
+          f"{len(top.splitlines())} lines, runs {len(runs.splitlines())} rows, report --trace "
+          f"{len(chrome['traceEvents'])} events, validate_spans {problems or 'clean'}",
+          flush=True)
+    (SMOKE_DIR / "serve_metrics.prom").write_text(metrics)
+    if not ok:
+        raise AssertionError("the serve daemon failed its checks")
+    return {"recovered_s": recovered_s, "rebound_s": rebound_s, "bit_equal": bit_equal,
+            "delta": delta, "admission_s": {k: admission(k) for k in got}}
+
+
+def run_flagship_daemon_smoke() -> dict:
+    """Phase 4, one flagship-width daemon in this process (allgather,
+    ``training.max_samples`` GANG_MAX_SAMPLES, 2 rounds, capacity 2): a
+    first generation of two tenants builds the bucket; a second of the
+    same two tenants builds nothing (the daemon's ``_compile_count``
+    unchanged), its
+    second lane evicted after round 1 (``freeze_member``): the first
+    lane's history must equal its run in the first generation (decisions
+    equal, a scaled 1e-4, bit-equality printed), the evicted one stop at
+    round 1; the counters set to 0 around the second generation: Krum's
+    pairwise pass twice a round for both lanes (the frozen one computes),
+    no plain version."""
+    import torch
+    import yaml
+
+    from murmura_tpu_torch.config.schema import Config
+    from murmura_tpu_torch.serve.daemon import ServeDaemon
+
+    raw = yaml.safe_load(FLAGSHIP.read_text())
+    raw["training"]["max_samples"] = GANG_MAX_SAMPLES
+    raw["experiment"].update(rounds=2, verbose=False)
+    state = SMOKE_DIR / "serve_flagship"
+    shutil.rmtree(state, ignore_errors=True)
+    tenants = []
+    for seed, lr in ((42, raw["training"]["lr"]), (43, raw["training"]["lr"] * 0.5)):
+        t = yaml.safe_load(yaml.safe_dump(raw))
+        t["experiment"].update(seed=seed, name=f"flagship-{seed}")
+        t["training"]["lr"] = lr
+        tenants.append(t)
+    daemon_raw = dict(raw, serve={"state_dir": str(state), "capacity": 2,
+                                  "checkpoint_every": 2})
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    daemon = ServeDaemon(Config.model_validate(daemon_raw), device="cuda")
+    t0 = time.perf_counter()
+    first = [daemon.submit_config(t)["id"] for t in tenants]
+    daemon.drain()
+    gen1_s = time.perf_counter() - t0
+    gang = next(iter(daemon._buckets.values()))["gang"]
+    built, builds = daemon._compile_count(), gang.program_builds
+    second = [daemon.submit_config(t)["id"] for t in tenants]
+    real_train = gang.train
+
+    def evicting_train(rounds, **kwargs):
+        real_train(rounds=1, **kwargs)
+        daemon.evict(second[1], "chip smoke eviction")
+        return real_train(rounds=rounds - 1, **kwargs)
+
+    mods = _kernel_modules()
+    for mod in mods:
+        mod.reset_counts()
+    gang.train = evicting_train
+    t0 = time.perf_counter()
+    try:
+        daemon.drain()
+    finally:
+        del gang.train
+    torch.cuda.synchronize()
+    gen2_s = time.perf_counter() - t0
+    launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    plain = {k: v for m in mods for k, v in m.PLAIN_CALLS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    recs = daemon._ledger
+    a, b = recs[second[0]]["history"], recs[first[0]]["history"]
+    decisions = all(a[k] == b[k] for k in ("agg_selected_index", "agg_selected_own"))
+    delta = history_delta(a, b)
+    frozen = json.loads((state / "telemetry" / second[1] / "manifest.json").read_text())
+    no_build = daemon._compile_count() == built and gang.program_builds == builds
+    want = 2 * 2 * 2
+    launches_ok = (launches["pairwise_sq_distances"] == want and not any(plain.values())
+                   and not any(v for k, v in launches.items() if k != "pairwise_sq_distances"))
+    ok = (no_build and decisions and delta <= 1e-4 and launches_ok
+          and recs[second[1]]["state"] == "evicted" and recs[second[0]]["state"] == "done"
+          and frozen["history"]["round"] == [1] and gang.member_active == [True, False])
+    print(f"[serve:flagship] the flagship as a daemon bucket (allgather, max_samples "
+          f"{GANG_MAX_SAMPLES}, 2 tenants x 2 rounds, capacity 2, gang at "
+          f"{list(gang.flats.shape)} {gang.flats.dtype}): generation 1 in {gen1_s:.2f} s "
+          f"(bucket build included); generation 2 in {gen2_s:.2f} s built nothing {no_build} "
+          f"(builds {built}), lane 1 evicted after round 1 (history rounds "
+          f"{frozen['history']['round']}), lane 0 against its generation-1 run: decisions "
+          f"equal {decisions}, bit-equal {a == b}, scaled delta {delta:.3g} (limit 1e-4); "
+          f"pairwise_sq_distances {launches['pairwise_sq_distances']} (want {want}), plain "
+          f"{sum(plain.values())}; peak {peak_gb:.2f} GB: {'ok' if ok else 'FAILED'}",
+          flush=True)
+    del daemon, gang
+    shutil.rmtree(state, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the flagship-width daemon failed its checks")
+    return {"launches": {"pairwise_sq_distances": launches["pairwise_sq_distances"]},
+            "gen1_s": gen1_s, "gen2_s": gen2_s, "peak_gb": peak_gb}
+
+
 def print_gang_summary(gangs: dict) -> None:
     """Phase 5's gang lines: each gang's steady seconds a round beside its
     members' run alone, summed, and the peaks (recorded, no claim)."""
@@ -3777,6 +4305,11 @@ def main() -> int:
                  "frontier:flagship": run_frontier_smoke("flagship", FLAGSHIP,
                                                          FLAGSHIP_FRONTIER)}
     mains.update(frontiers)
+    grids = {"grid:serve_grid": run_serve_grid_smoke(), "grid:flagship": run_flagship_grid_smoke()}
+    mains.update(grids)
+    daemon = run_serve_daemon_smoke()
+    flagship_daemon = run_flagship_daemon_smoke()
+    mains["serve:flagship"] = flagship_daemon
     pop, scen, dm = (mains["krum:population_1m"], mains["krum:population_1m_scenario"],
                      mains["fedavg:dmtt_mobility"])
     pop_s, scen_s = float(np.mean(pop["s_per_round"][1:])), float(np.mean(scen["s_per_round"][1:]))
@@ -3841,6 +4374,21 @@ def main() -> int:
           f"(gangs of {1 + FLAGSHIP_FRONTIER['points']} at [16, P] float32): {ff['cells']} cells "
           f"in {ff['total_s']:.2f} s, stage s/round {[round(t, 4) for t in ff['stage_s']]}, "
           f"peak {ff['peak_gb']:.2f} GB; no claim", flush=True)
+    sg, fg = grids["grid:serve_grid"], grids["grid:flagship"]
+    print(f"[grid] serve_grid.yaml as committed: 50 cells in 5 buckets, {sg['buckets_s']:.3f} s "
+          f"of bucket wall ({sg['process_s']:.2f} s the grid process), total_compiles "
+          f"{sg['compiles']}; the flagship-width grid (gangs of 4 at [16, 6,603,710], ppermute): "
+          f"12 cells in {fg['total_s']:.2f} s, s a gang round "
+          f"{[round(t, 4) for t in fg['s_round']]}, peak {fg['peak_gb']:.2f} GB; no claim",
+          flush=True)
+    print(f"[serve] the daemon on serve_grid.yaml's base experiment: recovered after the SIGKILL, "
+          f"socket answering {daemon['rebound_s']:.2f} s and every submission done "
+          f"{daemon['recovered_s']:.2f} s after the restart, histories bit-equal "
+          f"{daemon['bit_equal']} (scaled delta {daemon['delta']:.3g}); admission latency "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in daemon["admission_s"].items())
+          + f"; the flagship daemon: generation 1 {flagship_daemon['gen1_s']:.2f} s (the bucket "
+          f"built), generation 2 {flagship_daemon['gen2_s']:.2f} s, peak "
+          f"{flagship_daemon['peak_gb']:.2f} GB; no claim", flush=True)
     mains.update(round64)
     flagship_s = float(sum(mains["krum:allgather"]["s_per_round"][1:])
                        / (len(mains["krum:allgather"]["s_per_round"]) - 1))

@@ -8,8 +8,17 @@
         [--device cuda|cpu] [--verbose|--quiet] and the durability flags
     python -m murmura_tpu_torch frontier <yaml> [-o frontier.json]
         [--device cuda|cpu] [--require-tpu]
-    python -m murmura_tpu_torch report <run_dir> [--json]
+    python -m murmura_tpu_torch grid <yaml> [-o grid.json] [--plan-only]
+        [--device cuda|cpu] [--require-tpu]
+    python -m murmura_tpu_torch serve <yaml> [--device cuda|cpu] [--require-tpu]
+    python -m murmura_tpu_torch submit <yaml> --socket SOCK [--wait] [--poll-s S]
+    python -m murmura_tpu_torch metrics <socket|run_dir>
+    python -m murmura_tpu_torch top --socket SOCK [--interval S] [--iterations N]
+    python -m murmura_tpu_torch runs [roots...] [--json]
+    python -m murmura_tpu_torch report <run_dir> [--json] [--trace out.json]
+    python -m murmura_tpu_torch report --latest [--json] [--trace out.json]
     python -m murmura_tpu_torch report --frontier <frontier.json> [--json]
+    python -m murmura_tpu_torch report --grid <grid.json> [--json]
 
 The run goes to the CUDA card by default.  Without CUDA it stops with an
 error unless ``--device cpu`` asks for the CPU; it never drops to the CPU
@@ -34,6 +43,21 @@ progress, then writes the artifact (``-o``, the JAX package's default
 ``frontier.json`` in the working directory) and prints its table, which
 ``report --frontier`` renders again (``--json``: the grid and one summary
 row a cell).
+
+``grid`` runs the config's ``grid:`` block (serve/scheduler.py): its cells
+partitioned into one bucket a structural class, each bucket one gang on the
+fused path, then the manifest (``-o``, default ``grid.json`` in the working
+directory) and its tables, which ``report --grid`` renders again;
+``--plan-only`` prints the buckets and runs nothing.  ``serve`` runs the
+multi-tenant daemon of the config's ``serve:`` block (serve/daemon.py) on
+its socket (``serve.socket``, default ``<state_dir>/daemon.sock``) until a
+``shutdown`` request; started again over the same state dir it resumes
+what was running.  ``submit`` hands it one experiment (``--wait``: until
+the submission ends).  ``metrics`` prints OpenMetrics text, scraped from a
+daemon's socket or folded from a run directory; ``top`` the daemon's live
+table; ``runs`` the index of every run dir and serve ledger under the
+roots; ``report --latest`` the newest of those run dirs, and ``--trace``
+writes a run's spans as Chrome trace JSON instead of tables.
 
 Durability (the JAX package's flags, over the config's ``durability:``
 block; an explicit flag wins): ``--checkpoint-dir`` snapshots the whole run
@@ -410,6 +434,172 @@ def report(run_dir: Path, as_json: bool = False) -> None:
         render_report(run_dir)
 
 
+def grid(config_path: Path, output: Path = Path("grid.json"), device: str = "cuda",
+         require_tpu: bool = False, plan_only: bool = False) -> Optional[dict]:
+    """Run the config's grid on ``device`` (or, with ``plan_only``, print
+    its bucket plan and run nothing), write the manifest to ``output`` and
+    print its tables; returns the manifest."""
+    from murmura_tpu_torch.config import load_config
+    from murmura_tpu_torch.serve.scheduler import plan_grid, run_grid, write_grid
+    from murmura_tpu_torch.telemetry.report import render_grid
+
+    dev = resolve_device(device)
+    config = load_config(config_path)
+    enforce_require_tpu(config, dev, require_tpu)
+    g = config.grid
+    desc = f"{g.rules} x {g.attacks} x {g.topologies}" if g is not None else "default grid"
+    print(f"murmura_tpu_torch grid {config.experiment.name} "
+          f"(nodes={config.topology.num_nodes}, {desc}, device={dev})", flush=True)
+    if plan_only:
+        buckets = plan_grid(config)
+        for b in buckets:
+            print(f"  bucket {b.key} {b.rule} x {b.attack} x {b.topology}: {len(b.cells)} cells")
+        print(f"{sum(len(b.cells) for b in buckets)} cells in {len(buckets)} buckets")
+        return None
+    artifact = run_grid(config, progress=lambda line: print(line, flush=True), device=dev)
+    path = write_grid(artifact, output)
+    print(f"Grid manifest written to {path} ({artifact['total_cells']} cells, "
+          f"{artifact['total_compiles']} compiles)")
+    render_grid(artifact)
+    return artifact
+
+
+def report_grid(path: Path, as_json: bool = False) -> None:
+    """Render a grid manifest, or print its grid, buckets and totals as one
+    JSON object."""
+    from murmura_tpu_torch.serve.scheduler import load_grid
+    from murmura_tpu_torch.telemetry.report import render_grid
+
+    artifact = load_grid(path)
+    if as_json:
+        print(json.dumps({k: artifact.get(k) for k in ("grid", "buckets", "total_cells",
+                                                       "total_compiles")}))
+    else:
+        render_grid(artifact)
+
+
+def serve(config_path: Path, device: str = "cuda", require_tpu: bool = False) -> None:
+    """Run the daemon of the config's ``serve:`` block until a shutdown."""
+    from murmura_tpu_torch.config import load_config
+    from murmura_tpu_torch.serve.daemon import ServeDaemon
+    from murmura_tpu_torch.utils.factories import ConfigError
+
+    dev = resolve_device(device)
+    config = load_config(config_path)
+    enforce_require_tpu(config, dev, require_tpu)
+    try:
+        daemon = ServeDaemon(config, device=dev)
+    except ValueError as e:  # no serve: section
+        raise ConfigError(str(e)) from None
+    print(f"murmura_tpu_torch serve: listening on {daemon.socket_path} "
+          f"(state_dir={daemon.state_dir}, capacity={daemon.capacity}, device={dev})",
+          flush=True)
+    try:
+        daemon.serve_forever()
+    except KeyboardInterrupt:
+        daemon.close()
+    print("murmura_tpu_torch serve: stopped", flush=True)
+
+
+def submit(config_path: Path, socket_path: Path, wait: bool = False,
+           poll_s: float = 0.5) -> dict:
+    """Submit one experiment to a running daemon; with ``wait`` poll its
+    status until it ends and return its record (exit 1 unless ``done``)."""
+    import time
+
+    import yaml
+
+    from murmura_tpu_torch.serve.protocol import send_request
+
+    with open(config_path, encoding="utf-8") as fh:
+        raw = yaml.safe_load(fh)
+    resp = send_request(str(socket_path), {"op": "submit", "config": raw})
+    if not resp.get("ok"):
+        print(str(resp.get("error")), file=sys.stderr)
+        raise SystemExit(1)
+    print(f"submitted {resp['id']} (bucket {resp['bucket']})", flush=True)
+    if not wait:
+        return resp
+    while True:
+        sub = send_request(str(socket_path), {"op": "status", "id": resp["id"]}).get(
+            "submission", {})
+        if sub.get("state") in ("done", "failed", "evicted"):
+            print(f"{resp['id']} {sub['state']} (final_accuracy={sub.get('final_accuracy')})",
+                  flush=True)
+            if sub["state"] != "done":
+                raise SystemExit(1)
+            return sub
+        time.sleep(poll_s)
+
+
+def metrics(target: Path) -> None:
+    """Print OpenMetrics text: a live scrape of a daemon's socket, or the
+    same registry folded from a run directory's manifest and stream."""
+    import stat
+
+    from murmura_tpu_torch.telemetry.metrics import (
+        MetricsRegistry,
+        fold_run_events,
+        render_openmetrics,
+        scrape_socket,
+    )
+
+    if stat.S_ISSOCK(target.stat().st_mode):
+        print(scrape_socket(str(target)))
+        return
+    if not target.is_dir():
+        raise ValueError("metrics needs a daemon socket or a telemetry run directory")
+    reg = MetricsRegistry()
+    fold_run_events(reg, target)
+    print(render_openmetrics(reg))
+
+
+def runs(roots: List[Path], as_json: bool = False) -> None:
+    """Print the index of every run dir and serve ledger under ``roots``
+    (the working directory when none), newest first."""
+    from murmura_tpu_torch.telemetry.registry import index_runs, render_rows
+
+    rows = index_runs(roots or [Path(".")])
+    if as_json:
+        for row in rows:
+            print(json.dumps(row))
+    elif not rows:
+        print("no telemetry runs found")
+    else:
+        print(render_rows(rows))
+
+
+def _report_command(args) -> None:
+    if args.frontier_path is not None:
+        report_frontier(args.frontier_path, args.as_json)
+        return
+    if args.grid_path is not None:
+        report_grid(args.grid_path, args.as_json)
+        return
+    run_dir = args.run_dir
+    if run_dir is None and args.latest:
+        from murmura_tpu_torch.telemetry.registry import find_latest
+
+        row = find_latest([Path(".")])
+        if row is None:
+            raise ValueError("--latest: no telemetry runs found under the current directory")
+        run_dir = Path(row["path"])
+        print(f"latest: {run_dir}", file=sys.stderr)
+    if run_dir is None:
+        raise ValueError("report needs a RUN_DIR (or --latest, --frontier <frontier.json>, "
+                         "--grid <grid.json>)")
+    if args.trace_path is not None:
+        from murmura_tpu_torch.telemetry.spans import write_chrome_trace
+
+        if not run_dir.is_dir():
+            raise FileNotFoundError(f"{run_dir} is not a run directory")
+        n = write_chrome_trace(args.trace_path, [run_dir])
+        print(f"wrote {n} trace span(s) to {args.trace_path} (Chrome trace JSON: Perfetto, "
+              "chrome://tracing)")
+        return
+    report(run_dir, args.as_json)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     parser = argparse.ArgumentParser(prog="python -m murmura_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -461,24 +651,73 @@ def main(argv: Optional[List[str]] = None) -> None:
                          help="cuda (default) or cpu; never chosen for you")
     p_front.add_argument("--require-tpu", action="store_true",
                          help="refuse any device but the CUDA card")
-    p_rep = sub.add_parser("report", help="Render a telemetry run directory or a frontier "
-                                          "artifact")
+    p_grid = sub.add_parser("grid", help="Run a config's rule x attack x topology x strength "
+                                         "x seed grid, one gang a bucket")
+    p_grid.add_argument("config_path", type=Path)
+    p_grid.add_argument("-o", "--output", type=Path, default=Path("grid.json"),
+                        help="write the grid manifest here (default: grid.json)")
+    p_grid.add_argument("--plan-only", action="store_true",
+                        help="print the bucket plan and run nothing")
+    p_serve = sub.add_parser("serve", help="Run the multi-tenant daemon of a config's serve: "
+                                           "block")
+    p_serve.add_argument("config_path", type=Path)
+    for p_dev in (p_grid, p_serve):
+        p_dev.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                           help="cuda (default) or cpu; never chosen for you")
+        p_dev.add_argument("--require-tpu", action="store_true",
+                           help="refuse any device but the CUDA card")
+    p_sub = sub.add_parser("submit", help="Submit one experiment to a running daemon")
+    p_sub.add_argument("config_path", type=Path)
+    p_sub.add_argument("--socket", dest="socket_path", type=Path, required=True,
+                       help="the daemon's unix socket (serve.socket, <state_dir>/daemon.sock)")
+    p_sub.add_argument("--wait", action="store_true",
+                       help="wait until the submission ends and print its record")
+    p_sub.add_argument("--poll-s", type=float, default=0.5, help="status poll interval")
+    p_met = sub.add_parser("metrics", help="OpenMetrics text of a daemon socket or a run dir")
+    p_met.add_argument("target", type=Path)
+    p_top = sub.add_parser("top", help="A daemon's live table")
+    p_top.add_argument("--socket", dest="socket_path", type=Path, required=True)
+    p_top.add_argument("--interval", dest="interval_s", type=float, default=1.0)
+    p_top.add_argument("--iterations", type=int, default=None,
+                       help="stop after N refreshes (default: until interrupted)")
+    p_runs = sub.add_parser("runs", help="Index every run dir and serve ledger under roots")
+    p_runs.add_argument("roots", type=Path, nargs="*")
+    p_runs.add_argument("--json", dest="as_json", action="store_true",
+                        help="one JSON object a run")
+    p_rep = sub.add_parser("report", help="Render a telemetry run directory, a frontier "
+                                          "artifact or a grid manifest")
     p_rep.add_argument("run_dir", type=Path, nargs="?", default=None)
     p_rep.add_argument("--frontier", dest="frontier_path", type=Path, default=None,
                        help="render a frontier artifact (the frontier command's) instead")
+    p_rep.add_argument("--grid", dest="grid_path", type=Path, default=None,
+                       help="render a grid manifest (the grid command's) instead")
+    p_rep.add_argument("--latest", action="store_true",
+                       help="report the newest run dir under the working directory")
+    p_rep.add_argument("--trace", dest="trace_path", type=Path, default=None,
+                       help="write the run's spans as Chrome trace JSON here instead")
     p_rep.add_argument("--json", dest="as_json", action="store_true",
                        help="print the report as one JSON object")
     args = parser.parse_args(argv)
 
-    if args.command == "report":
+    if args.command in ("report", "metrics", "runs", "top", "submit"):
         try:
-            if args.frontier_path is not None:
-                report_frontier(args.frontier_path, args.as_json)
-            elif args.run_dir is None:
-                raise ValueError("report needs a RUN_DIR or --frontier <frontier.json>")
+            if args.command == "report":
+                _report_command(args)
+            elif args.command == "metrics":
+                metrics(args.target)
+            elif args.command == "runs":
+                runs(args.roots, args.as_json)
+            elif args.command == "submit":
+                submit(args.config_path, args.socket_path, args.wait, args.poll_s)
             else:
-                report(args.run_dir, args.as_json)
-        except (OSError, ValueError) as e:
+                from murmura_tpu_torch.telemetry.top import run_top
+
+                try:
+                    run_top(str(args.socket_path), interval_s=args.interval_s,
+                            iterations=args.iterations)
+                except KeyboardInterrupt:
+                    pass
+        except (OSError, ValueError, RuntimeError) as e:
             print(str(e), file=sys.stderr)
             raise SystemExit(1)
         return
@@ -491,6 +730,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     try:
         if args.command == "frontier":
             frontier(args.config_path, args.output, args.device, args.require_tpu)
+            return
+        if args.command == "grid":
+            grid(args.config_path, args.output, args.device, args.require_tpu, args.plan_only)
+            return
+        if args.command == "serve":
+            serve(args.config_path, args.device, args.require_tpu)
             return
         durability = dict(checkpoint_dir=args.checkpoint_dir,
                           checkpoint_every=args.checkpoint_every, resume=args.resume,

@@ -25,16 +25,23 @@ by ``attack.params.seed`` (default: the base experiment seed), so a single
 run with that seed pinned reproduces a member.  The topology, the fault
 schedule and the per-round adjacency (or sparse edge mask) are shared.
 
-The JAX package pads the member axis to a power of two so that XLA
-compiles a few shapes; the port compiles nothing a round and runs no
-padding lanes (``sweep.bucket`` is read and changes nothing).
+The JAX package pads the member axis to a power of two (``next_bucket``)
+so that XLA compiles a few shapes; the port compiles nothing a round and
+runs no padding lanes.  It reports the same ``batch`` (the lane count the
+JAX gang would compile, ``min_batch`` pre-growing it), so manifests and
+metrics agree, and trains the members' rows alone.
 
 A member's learning rate and attack scale are values the gang passes to
-its programs each round, so :meth:`GangNetwork.reset_run` (the frontier's
-stage reset) can change them and return every member to its round-0 state
-without building a program.  Not ported yet: ``reset_run``'s re-tenanting
-mode (``member_programs``) with ``_admit_members``, ``freeze_member`` and
-``min_batch``, which serve the grid and the serve daemon.
+its programs each round, so :meth:`GangNetwork.reset_run` can change them
+without building a program: the stage reset (the frontier's) returns
+every member to its round-0 state, and re-tenanting (the grid's and the
+serve daemon's admission, ``member_programs``) splices a new generation's
+values into the lanes: each member's RoundProgram (its data rows, initial
+parameters, carried state and the closures built from its seed), its seed,
+lr and attack scale.  The gang's step and its chunk programs stay; no
+chunk program is built and no kernel compiled.  :meth:`freeze_member`
+stops recording one lane while it keeps computing, as the JAX package's
+vmap lane does.
 """
 
 import contextlib
@@ -66,8 +73,18 @@ from murmura_tpu_torch.ops import _build
 from murmura_tpu_torch.utils.checkpoint import committed_bytes
 
 
-# Copy of GangMember, resolve_members and gang_hp_inputs from
+# Copy of next_bucket, GangMember, resolve_members and gang_hp_inputs from
 # murmura_tpu/core/gang.py.
+def next_bucket(size: int) -> int:
+    """Smallest power of two >= size: the JAX gang's compile-shape bucket."""
+    if size < 1:
+        raise ValueError(f"gang size must be >= 1, got {size}")
+    b = 1
+    while b < size:
+        b *= 2
+    return b
+
+
 @dataclass(frozen=True)
 class GangMember:
     """One experiment of the gang: a seed plus optional hyperparameter
@@ -189,24 +206,22 @@ def check_member_compatible(progs: Sequence[RoundProgram], members) -> None:
                 )
 
 
-def build_gang_step(programs: Sequence[RoundProgram], members: Sequence[GangMember],
-                    compromised: torch.Tensor, data: Dict[str, torch.Tensor], knobs: dict):
+def build_gang_step(lanes: Dict[str, Any], compromised: torch.Tensor, knobs: dict):
     """One gang round over the [S, N, P] stack:
 
         step(flats, agg_states, adj, round_idx, alive=None, draws=None)
             -> (flats', agg_states', [metrics of each member])
 
     Training folds the members into S*N rows (one ``train_rows`` over the
-    stacked ``data``, each member's draws from its own generators); the
+    stacked data, each member's draws from its own generators); the
     exchange and the rule run member by member (``train_step(...,
-    trained=rows)``).  ``knobs`` is read every round: its ``step_lr`` the
-    [S*N] per-row learning rate (None: the programs' own) and its
-    ``attack_scales`` one scale a member (None: the programs' own).
-    ``draws`` (tests) injects one dict a member of what its generators
-    would draw, in ``train_step``'s layout."""
-    prog0 = programs[0]
-    seeds = [m.seed for m in members]
-    dev = prog0.device
+    trained=rows)``).  ``lanes`` is read every round: its ``programs`` (one
+    RoundProgram a member), ``seeds`` and ``data`` (the members' data
+    stacked on the node axis), which re-tenanting replaces.  ``knobs`` too:
+    its ``step_lr`` the [S*N] per-row learning rate (None: the programs'
+    own) and its ``attack_scales`` one scale a member (None: the programs'
+    own).  ``draws`` (tests) injects one dict a member of what its
+    generators would draw, in ``train_step``'s layout."""
 
     def stacked_draws(draws):
         """The members' training draws as the stack's: each epoch's ``u``
@@ -227,13 +242,15 @@ def build_gang_step(programs: Sequence[RoundProgram], members: Sequence[GangMemb
         return out
 
     def step(flats, agg_states, adj, round_idx, alive=None, draws=None):
+        programs, seeds = lanes["programs"], lanes["seeds"]
+        prog0 = programs[0]
         s_count, n, p = flats.shape
-        gens = [round_generators(seed, round_idx, dev) for seed in seeds]
+        gens = [round_generators(seed, round_idx, prog0.device) for seed in seeds]
         train_mask = torch.cat([prog.training_mask(compromised, alive) for prog in programs])
         with record_function("murmura.train"):
             trained = prog0.train_rows(
                 flats.reshape(s_count * n, p).clone(), train_mask, float(round_idx),
-                [g["train"] for g in gens], data=data, step_lr=knobs["step_lr"],
+                [g["train"] for g in gens], data=lanes["data"], step_lr=knobs["step_lr"],
                 draws=stacked_draws(draws),
             )
         scales = knobs["attack_scales"]
@@ -254,7 +271,7 @@ def build_gang_step(programs: Sequence[RoundProgram], members: Sequence[GangMemb
     return step
 
 
-def build_gang_multi_round(step, program: RoundProgram, data, chunk: int, eval_every: int):
+def build_gang_multi_round(step, lanes: Dict[str, Any], chunk: int, eval_every: int):
     """Fuse ``chunk`` gang rounds into one call (the gang's
     ``build_multi_round``):
 
@@ -263,8 +280,8 @@ def build_gang_multi_round(step, program: RoundProgram, data, chunk: int, eval_e
 
     ``rows`` holds one (round number, [metrics of each member]) pair per
     round on the ``eval_every`` cadence, the metrics left on the device;
-    eval runs once over all S*N rows.  Nothing here synchronises with the
-    host."""
+    eval runs once over all S*N rows of ``lanes``' data.  Nothing here
+    synchronises with the host."""
 
     def multi_round(flats, agg_states, adj_stack, round0, alive_stack=None):
         rows = []
@@ -276,7 +293,8 @@ def build_gang_multi_round(step, program: RoundProgram, data, chunk: int, eval_e
             )
             if (r + 1) % eval_every == 0:
                 s_count, n, p = flats.shape
-                ev = program.eval_step(flats.reshape(s_count * n, p), data=data)
+                ev = lanes["programs"][0].eval_step(flats.reshape(s_count * n, p),
+                                                    data=lanes["data"])
                 rows.append((r + 1, [
                     {**{k: v[s * n:(s + 1) * n] for k, v in ev.items()}, **metrics[s]}
                     for s in range(s_count)
@@ -304,6 +322,10 @@ class GangNetwork:
         telemetry_writers: one TelemetryWriter a member, or None.
         retain_init: keep host copies of the round-0 parameters and carried
             state for :meth:`reset_run`.
+        min_batch / bucket: the reported ``batch``, the JAX gang's compiled
+            lane count, ``next_bucket(max(S, min_batch))`` (``S`` without
+            ``bucket``); re-tenanting admits 1..batch members.  No lane
+            beyond the members' runs.
     """
 
     def __init__(
@@ -318,6 +340,8 @@ class GangNetwork:
         recompile_guard: bool = False,
         telemetry_writers: Optional[Sequence] = None,
         retain_init: bool = False,
+        min_batch: int = 1,
+        bucket: bool = True,
     ):
         if len(programs) != len(members):
             raise ValueError("one RoundProgram per member required")
@@ -339,10 +363,9 @@ class GangNetwork:
                 "A fault schedule was supplied but the round programs were built "
                 "without faults (build_round_program(faults=...))"
             )
-        self.programs = list(programs)
-        self.program = program
         self.members = list(members)
         self.gang_size = len(members)
+        self.batch = next_bucket(max(self.gang_size, min_batch)) if bucket else self.gang_size
         self.topology = topology
         self.attack = attack
         self.fault_schedule = fault_schedule
@@ -357,23 +380,16 @@ class GangNetwork:
         self.compromised = (attack.compromised.astype(np.float32) if attack is not None
                             else np.zeros(n, dtype=np.float32))
         self._comp = torch.as_tensor(self.compromised).to(self.device)
-        self.flats = torch.stack([p.init_flat for p in programs])  # [S, N, P]
-        self.agg_states: List[Dict[str, torch.Tensor]] = [
-            dict(p.init_agg_state) for p in programs]
-        # The round-0 state reset_run returns to, on the host.
+        # What the gang step reads every round, which re-tenanting replaces.
+        self._lanes: Dict[str, Any] = {}
+        self._retain_init = retain_init
         self._init_host = None
-        if retain_init:
-            self._init_host = (self.flats.cpu().clone(),
-                               [{k: v.cpu().clone() for k, v in st.items()}
-                                for st in self.agg_states])
-        # The members' training and eval data, stacked on the node axis.
-        self._data = {k: torch.cat([p.data[k] for p in programs])
-                      for k in TRAIN_DATA_KEYS + EVAL_DATA_KEYS}
+        self._set_lanes(programs)
         self._base_lr = base_lr
         self._hp = gang_hp_inputs(members)
         self._knobs: Dict[str, Any] = {}
         self._set_knobs(self.members)
-        self._step = build_gang_step(programs, members, self._comp, self._data, self._knobs)
+        self._step = build_gang_step(self._lanes, self._comp, self._knobs)
         self._fused: Dict[Tuple[int, int], Any] = {}
         # Chunk programs built (one a (chunk, eval_every) key); a stage
         # reset builds none.
@@ -389,6 +405,37 @@ class GangNetwork:
         self.round_times: List[float] = []
         self.current_round = 0
         self.checkpoints: List[Dict[str, Any]] = []
+        # freeze_member: a frozen lane keeps computing and stops recording.
+        self.member_active: List[bool] = [True] * self.gang_size
+
+    @property
+    def programs(self) -> List[RoundProgram]:
+        return self._lanes["programs"]
+
+    @property
+    def program(self) -> RoundProgram:
+        return self._lanes["programs"][0]
+
+    @property
+    def _data(self) -> Dict[str, torch.Tensor]:
+        return self._lanes["data"]
+
+    def _set_lanes(self, programs: Sequence[RoundProgram]) -> None:
+        """Make ``programs`` the lanes' value sources: their seeds, their
+        data stacked on the node axis, their round-0 parameters and carried
+        state (with host copies where ``retain_init`` asked for them)."""
+        self._lanes.update(
+            programs=list(programs), seeds=[m.seed for m in self.members],
+            data={k: torch.cat([p.data[k] for p in programs])
+                  for k in TRAIN_DATA_KEYS + EVAL_DATA_KEYS})
+        self.flats = torch.stack([p.init_flat for p in programs])  # [S, N, P]
+        self.agg_states: List[Dict[str, torch.Tensor]] = [
+            dict(p.init_agg_state) for p in programs]
+        if self._retain_init:
+            # The round-0 state a stage reset returns to, on the host.
+            self._init_host = (self.flats.cpu().clone(),
+                               [{k: v.cpu().clone() for k, v in st.items()}
+                                for st in self.agg_states])
 
     # The snapshot's view of the gang (durability/snapshot.py): the members'
     # parameters as one [S, N, P] tensor, their carried states stacked key
@@ -435,23 +482,23 @@ class GangNetwork:
 
     def reset_run(self, members: Sequence[GangMember], member_programs=None,
                   telemetry_writers=None) -> None:
-        """The stage reset (the frontier's): the same seeds, new learning
-        rates and attack scales, every member back at round 0 from the
-        host copies kept by ``retain_init`` (parameters and carried state),
-        histories, round times and the round counter cleared.  It builds
-        no data, model, program or kernel, so the next ``train`` reuses the
-        chunk programs already built.  Only the values the gang lifted
-        (``gang_hp_inputs`` at construction) can change.
+        """A value-only reset for a fresh run over the gang's step and chunk
+        programs: the next ``train`` builds none.  Two modes, as in the JAX
+        package:
 
-        ``member_programs`` (re-tenanting the gang with new members'
-        programs) is not ported: it belongs to the grid and the serve
-        daemon."""
+        - **Stage reset** (``member_programs=None``, the frontier's): the
+          same seeds, new learning rates and attack scales, every member
+          back at round 0 from the host copies kept by ``retain_init``.
+          Only the values the gang lifted (``gang_hp_inputs`` at
+          construction) can change.
+        - **Re-tenanting** (``member_programs`` given, the grid's and the
+          serve daemon's admission): 1..``batch`` new members, each with
+          its own RoundProgram (``build_gang_member_programs``), spliced
+          into the lanes (:meth:`_admit_members`).
+        """
         if member_programs is not None:
-            raise ValueError(
-                "reset_run(member_programs=...) re-tenants the gang (the grid's and "
-                "the serve daemon's admission path), which the PyTorch port does not "
-                "run yet; a stage reset takes the members alone"
-            )
+            self._admit_members(members, member_programs, telemetry_writers)
+            return
         if telemetry_writers is not None:
             raise ValueError(
                 "reset_run(telemetry_writers=...) is only meaningful on the "
@@ -484,11 +531,69 @@ class GangNetwork:
         flats, states = self._init_host
         self.flats = flats.to(self.device)
         self.agg_states = [{k: v.to(self.device) for k, v in st.items()} for st in states]
+        self._clear_run()
+
+    def _clear_run(self) -> None:
         self.histories = [empty_history() for _ in range(self.gang_size)]
         self._last_stats = [{} for _ in range(self.gang_size)]
         self._in_degree.clear()
         self.round_times = []
         self.current_round = 0
+        self.member_active = [True] * self.gang_size
+
+    def _admit_members(self, members: Sequence[GangMember],
+                       member_programs: Sequence[RoundProgram],
+                       telemetry_writers: Optional[Sequence]) -> None:
+        """The re-tenanting half of :meth:`reset_run`: a new generation of
+        1..``batch`` members (new seeds allowed, duplicate labels allowed:
+        serve tenants are told apart by submission id) takes the lanes.
+        Their programs must be gang-compatible with the template's (the
+        construction check); each brings its data rows, round-0 parameters
+        and carried state and its seed's closures, and the gang's lifted
+        lr and attack scale become the new members'.  The gang's step and
+        chunk programs are kept: nothing is built."""
+        members = list(members)
+        progs = list(member_programs)
+        if len(progs) != len(members):
+            raise ValueError("one RoundProgram per admitted member required")
+        if not 1 <= len(members) <= self.batch:
+            raise ValueError(
+                f"cannot admit {len(members)} members into a bucket of batch {self.batch} — "
+                "the compiled shape is fixed; a larger tenant set needs a bigger bucket "
+                "(a new compile)"
+            )
+        # The template (lane 0's program) against every admitted one.
+        check_member_compatible([self.program, *progs], [self.members[0], *members])
+        writers = self.telemetry if telemetry_writers is None else list(telemetry_writers)
+        if writers and len(writers) != len(members):
+            raise ValueError(
+                f"{len(writers)} telemetry writers for {len(members)} admitted members — "
+                "pass one writer per member (or an empty list) when re-tenanting"
+            )
+        self.members = members
+        self.gang_size = len(members)
+        self.telemetry = writers
+        self._set_lanes(progs)
+        self._set_knobs(members)
+        # The new programs make their one-time device copies in their first
+        # chunk, as a fresh gang's do (tpu.transfer_guard exempts it).
+        self._warmed.clear()
+        self._clear_run()
+
+    def freeze_member(self, member: int, reason: str) -> None:
+        """Degrade one lane gracefully: its history freezes at the current
+        round and a ``backend_degraded`` event lands in its telemetry; the
+        lane keeps computing (as the JAX package's vmap lane does), so the
+        surviving members see the same shapes and numbers before and after.
+        Idempotent."""
+        if not 0 <= member < self.gang_size:
+            raise ValueError(f"member {member} out of range for gang of {self.gang_size}")
+        if not self.member_active[member]:
+            return
+        self.member_active[member] = False
+        if self.telemetry:
+            self.telemetry[member].emit("backend_degraded", member=self.members[member].label,
+                                        reason=reason, round=self.current_round)
 
     # ------------------------------------------------------------------
 
@@ -508,11 +613,17 @@ class GangNetwork:
         member's parameters, carried state and history) after each chunk
         that crosses a multiple of ``checkpoint_every`` rounds and after
         the last."""
+        builds = self.program_builds + len(_build.STARTED)
         try:
             self._train_chunks(rounds, verbose, eval_every, rounds_per_dispatch,
                                checkpoint_dir, checkpoint_every)
         finally:
+            # What this call built (chunk programs and nvcc builds): the JAX
+            # package's compile count in every member's manifest.
+            built = self.program_builds + len(_build.STARTED) - builds
             for t, h in zip(self.telemetry, self.histories):
+                if built:
+                    t.add_counters({"compiles": built})
                 t.finalize(history=h)
         return self.histories
 
@@ -529,8 +640,8 @@ class GangNetwork:
                         f"tpu.recompile_guard: the gang's fused program for {key} (chunk, "
                         "eval_every) was built again after it had run"
                     )
-                self._fused[key] = build_gang_multi_round(
-                    self._step, self.program, self._data, k, eval_every)
+                self._fused[key] = build_gang_multi_round(self._step, self._lanes, k,
+                                                          eval_every)
                 self.program_builds += 1
             warmup = key not in self._warmed
             builds = len(_build.STARTED)
@@ -586,6 +697,9 @@ class GangNetwork:
             in_deg = self._in_degree.pop(round_num - 1)
             self._in_degree = {r: v for r, v in self._in_degree.items() if r >= round_num}
         for s, metrics in enumerate(member_metrics):
+            if not self.member_active[s]:
+                # A frozen lane (freeze_member) computed and is not recorded.
+                continue
             record_round_metrics(self.histories[s], round_num, metrics, self.compromised,
                                  self.program.evidential, self.attack is not None)
             self._last_stats[s] = {k[len("agg_"):]: v for k, v in metrics.items()
@@ -648,7 +762,8 @@ class GangNetwork:
 
     def _durability_extra_state(self):
         meta: Dict[str, Any] = {"gang": {"gang_size": self.gang_size,
-                                         "labels": self._labels()}}
+                                         "labels": self._labels(),
+                                         "member_active": list(self.member_active)}}
         if self.telemetry:
             meta["telemetry_run_ids"] = [t.run_id for t in self.telemetry]
         return {}, meta
@@ -677,4 +792,7 @@ class GangNetwork:
             )
 
     def _durability_restore_extra(self, arrays, meta) -> None:
-        """Nothing beyond the base sections to apply."""
+        """The frozen lanes."""
+        active = meta["gang"].get("member_active")
+        if active is not None and len(active) == self.gang_size:
+            self.member_active = [bool(a) for a in active]

@@ -1,4 +1,5 @@
-# Copy of build_report, render_frontier and their helpers from murmura_tpu/telemetry/report.py, rendered as plain text.
+# Copy of build_report, render_frontier, render_grid and their helpers from
+# murmura_tpu/telemetry/report.py, rendered as plain text.
 """``python -m murmura_tpu_torch report <run_dir>``: read a run manifest and
 event stream back.
 
@@ -6,7 +7,9 @@ Reads only the telemetry schema (schema.py), so it renders a run directory
 either package wrote.  Sections appear only when their data exists.
 ``render_report`` prints plain text (the JAX package's renderer draws
 ``rich`` tables; the port's CLI prints plain lines); ``render_frontier``
-does the same for a frontier artifact (``report --frontier``).
+and ``render_grid`` do the same for a frontier artifact and a grid
+manifest (``report --frontier``, ``report --grid``), with the JAX tables'
+rows (``grid_tables``).
 """
 
 import math
@@ -414,3 +417,53 @@ def render_frontier(artifact: Dict[str, Any], out=print) -> None:
         _table(f"{cell['rule']} x {cell['attack']} x {cell['topology']} — honest accuracy vs "
                f"strength (benign {_fmt(benign, 3)})",
                ["strength", "mean acc", "std", "vs benign", "attacker state"], curve, out)
+
+
+def grid_tables(artifact: Dict[str, Any]):
+    """A grid manifest's two tables as (title, header, rows) triples: the
+    buckets (cells, lanes, compiles, wall), then the cells (accuracy and
+    seconds a round); each row's cells are the strings the JAX package's
+    ``render_grid`` puts in its table."""
+    buckets = []
+    for b in artifact.get("buckets", []):
+        buckets.append([
+            str(b.get("key")), str(b.get("rule")), str(b.get("attack")),
+            str(b.get("topology")), str(len(b.get("cells", []))),
+            f"{b.get('gang_size', '?')}/{b.get('batch', '?')}",
+            str(b.get("compiles")), _fmt(b.get("wall_s", float("nan")), 2),
+        ])
+    cells = []
+    for c in artifact.get("cells", []):
+        phase = c.get("phase_times") or {}
+        cells.append([
+            str(c.get("id")), str(c.get("bucket")),
+            f"{c.get('strength', float('nan')):g}", str(c.get("seed")),
+            _fmt(c.get("final_accuracy"), 3),
+            _fmt(c.get("honest_accuracy"), 3),
+            _fmt(phase.get("mean_round_s", float("nan")), 3),
+        ])
+    return [
+        ("Buckets (one gang each)",
+         ["bucket", "rule", "attack", "topology", "cells", "lanes", "compiles", "wall s"],
+         buckets),
+        ("Cells (accuracy by rule x attack x strength x seed)",
+         ["cell", "bucket", "strength", "seed", "final acc", "honest acc", "mean round s"],
+         cells),
+    ]
+
+
+def render_grid(artifact: Dict[str, Any], out=print) -> None:
+    """Print a grid manifest (serve/scheduler.py) as plain text through
+    ``out``: the headline, the bucket table, then the cell table.
+
+    Read ``total_compiles`` against ``total_cells`` first: the scheduler's
+    job is to make the first much smaller than the second (1 chunk program
+    a bucket, plus each kernel's one ``nvcc`` build in a fresh process)."""
+    grid = artifact.get("grid") or {}
+    out(f"murmura grid — {artifact.get('experiment', '?')} "
+        f"(nodes={grid.get('num_nodes', '?')}, rounds={grid.get('rounds', '?')}, "
+        f"seeds={grid.get('seeds', '?')}): {artifact.get('total_cells', '?')} cells in "
+        f"{len(artifact.get('buckets', []))} buckets, "
+        f"{artifact.get('total_compiles', '?')} compiles")
+    for title, header, rows in grid_tables(artifact):
+        _table(title, header, rows, out)

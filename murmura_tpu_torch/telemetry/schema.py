@@ -17,8 +17,10 @@ adjacency), ``phase_times`` (``per_round`` wall times, ``fused``
 ``elapsed/k`` over a chunk of k, or a population run's ``population``
 round with its ``cohort_draw``), ``cohort`` (a population run's swap: its
 draw, the users swapped out, the activated users and ``swap_s``),
-``memory`` (the card's allocator counters) and ``profile`` (a profiler
-window started / stopped).  Every
+``memory`` (the card's allocator counters), ``profile`` (a profiler
+window started / stopped), ``checkpoint`` and ``run_resumed`` (a snapshot
+saved or restored), ``backend_degraded`` (a retry, a frozen gang lane) and
+``serve`` (a serve daemon's lifecycle transition of the tenant).  Every
 line carries ``t``, the host wall-clock time at emit (v2).
 """
 

@@ -13,13 +13,16 @@ the append-only JSONL event stream (schema.py):
   its snapshot (``resume=True``) appends to its own stream instead, keeps
   its ``run_id`` and marks the manifest ``resumed``.
 
-Left out against the JAX package: counters, the serve daemon's lifecycle
-events and the bench manifest (serve, the bench), and the ``record_taps``
-toggle (the port records every tap its round computes).
+The manifest's ``counters`` accumulate across ``add_counters`` calls and
+across a resume (the gang's ``compiles``, the serve daemon's
+``serve_compiles`` and the retry envelope's totals); ``serve_event`` writes
+the daemon's lifecycle transitions into a tenant's stream.  Left out
+against the JAX package: the bench manifest (the port has no bench).
 """
 
 import json
 import os
+import threading
 import time
 import uuid
 from pathlib import Path
@@ -81,6 +84,8 @@ class TelemetryWriter:
 
     Args:
         run_dir: directory to create; one run a directory.
+        run_id: a stable id (the serve daemon's submission id); generated,
+            or kept from the manifest on a resume, when omitted.
         config: optional validated Config, snapshotted (``model_dump``) into
             the manifest so that a report describes itself.
         phase_times: write one ``phase_times`` record a round.
@@ -99,6 +104,7 @@ class TelemetryWriter:
         self,
         run_dir,
         *,
+        run_id: Optional[str] = None,
         config=None,
         phase_times: bool = True,
         memory_stats: bool = False,
@@ -124,8 +130,13 @@ class TelemetryWriter:
                 os.replace(mpath, self.run_dir / (MANIFEST_FILE + ".prev"))
         resumed = has_prior and resume
         existing = (read_manifest(self.run_dir) if resumed else None) or {}
-        self.run_id = existing.get("run_id") or uuid.uuid4().hex[:12]
+        self.run_id = run_id or existing.get("run_id") or uuid.uuid4().hex[:12]
+        self._counters: Dict[str, float] = dict(existing.get("counters") or {})
         # Sequence numbers continue the stream's, so they stay unique in it.
+        # The lock keeps them unique and each line whole when two threads
+        # emit (the serve daemon's listener records an eviction while its
+        # generation thread records rounds).
+        self._emit_lock = threading.Lock()
         self._seq = sum(1 for _ in iter_events(self.run_dir)) if resumed else 0
         self._events = open(events_path, "a", encoding="utf-8")
         self._manifest: Dict[str, Any] = {
@@ -144,13 +155,23 @@ class TelemetryWriter:
     # ------------------------------------------------------------------
     # events
 
-    def emit(self, etype: str, **fields) -> None:
+    def emit(self, etype: str, _t: Optional[float] = None, **fields) -> None:
         """Append one event line, flushed whole.  Every line carries ``t``,
-        the emit wall-clock time (schema v2)."""
-        rec = {"type": etype, "seq": self._seq, "t": time.time(), **_jsonable(fields)}
-        self._seq += 1
-        self._events.write(json.dumps(rec) + "\n")
-        self._events.flush()
+        the emit wall-clock time (schema v2); ``_t`` backdates an event
+        whose real time predates the writer (the daemon's ``submitted``)."""
+        fields = _jsonable(fields)
+        with self._emit_lock:
+            rec = {"type": etype, "seq": self._seq,
+                   "t": float(_t) if _t is not None else time.time(), **fields}
+            self._seq += 1
+            self._events.write(json.dumps(rec) + "\n")
+            self._events.flush()
+
+    def serve_event(self, event: str, _t: Optional[float] = None, **context) -> None:
+        """One serve-daemon lifecycle transition (``serve`` events:
+        submitted, admitted, generation_start, generation_done, evicted,
+        resumed): the stream's side of the daemon's ledger."""
+        self.emit("serve", _t=_t, event=str(event), **context)
 
     def phase_times(self, round_idx: int, mode: str, wall_s: float, **extra) -> None:
         """One round's time record: ``per_round`` = the round's wall time,
@@ -180,19 +201,30 @@ class TelemetryWriter:
         self.emit("checkpoint", round=int(round_idx), action=action,
                   duration_s=float(duration_s), path=path, **extra)
 
+    def add_counters(self, counters: Dict[str, float]) -> None:
+        """Add to the manifest's counter totals (written at the next
+        manifest write)."""
+        for k, v in counters.items():
+            try:
+                self._counters[k] = self._counters.get(k, 0.0) + float(v)
+            except (TypeError, ValueError):
+                continue
+
     # ------------------------------------------------------------------
     # manifest
 
     def _write_manifest(self) -> None:
-        blob = {**self._manifest, "counters": {}}
+        blob = {**self._manifest, "counters": dict(self._counters)}
         durable_replace(
             self.run_dir, MANIFEST_FILE, json.dumps(_jsonable(blob), indent=2).encode("utf-8")
         )
 
-    def finalize(self, history: Dict[str, list]) -> Path:
+    def finalize(self, history: Optional[Dict[str, list]] = None) -> Path:
         """Atomically commit the manifest.  Callable more than once: each
-        ``train`` call re-finalizes with the latest history."""
-        self._manifest["history"] = history
+        ``train`` call re-finalizes with the latest history (None keeps the
+        last one)."""
+        if history is not None:
+            self._manifest["history"] = history
         self._manifest["finalized"] = True
         self._manifest["finalized_unix"] = time.time()
         self._manifest["num_events"] = self._seq
@@ -200,7 +232,8 @@ class TelemetryWriter:
         return self.run_dir / MANIFEST_FILE
 
     def close(self) -> None:
-        self._events.close()
+        with self._emit_lock:
+            self._events.close()
 
 
 # ----------------------------------------------------------------------

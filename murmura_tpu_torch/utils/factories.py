@@ -9,12 +9,13 @@ program (pipelined under ``exchange.pipeline``; on the [k, N] edge mask
 for a sparse topology), and a PopulationNetwork where ``population`` is
 enabled; it refuses by name every part of the configuration surface the
 port does not run yet — a refused section is an error, never a silent
-fallback.  A ``frontier:`` block is read only by the frontier search
-(frontier.py); ``run`` runs the base experiment.
-``build_gang_from_config`` builds the same
-per member of a gang (core/gang.py): data, initial parameters and draws
-from each member's seed, one attack placement, topology and fault schedule
-for all.
+fallback.  The ``frontier:``, ``grid:`` and ``serve:`` blocks are read only
+by their drivers (frontier.py, serve/); ``run`` runs the base experiment.
+``build_gang_from_config`` builds the same per member of a gang
+(core/gang.py): data, initial parameters and draws from each member's
+seed, one attack placement, topology and fault schedule for all;
+``build_gang_member_programs`` builds a generation's member programs alone,
+for a warm gang to admit.
 """
 
 import os
@@ -60,10 +61,6 @@ def unported_sections(config: Config) -> List[str]:
     out = []
     if config.backend == "distributed":
         out.append("backend: distributed (the ZMQ multi-process backend)")
-    if config.grid is not None:
-        out.append("grid (the multi-tenant grid)")
-    if config.serve is not None:
-        out.append("serve (the daemon)")
     if config.tpu.param_shards > 1:
         out.append("tpu.param_shards > 1 (param-axis sharding)")
     if config.tpu.multihost:
@@ -513,22 +510,10 @@ def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None
     return Network(program, topology, **kwargs)
 
 
-def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint_dir=None,
-                           retain_init=False):
-    """Gang wiring (core/gang.py): the ``sweep`` and ``run --seeds`` path,
-    and each frontier cell's gang.
-
-    As :func:`build_network_from_config`, except that the data, the initial
-    parameters and the draws come from each member's seed, and a member's
-    ``lr`` and ``attack_scale`` overrides reach its training and attack.
-    The attack's placement (seeded by ``attack.params.seed``, else the base
-    experiment seed), the topology, the model and rule and the fault
-    schedule are the gang's.  ``seeds``: an explicit member seed list (the
-    CLI's ``--seeds``), else ``config.sweep`` defines the members.
-    ``checkpoint_dir``: as there, for each member's telemetry stream.
-    ``retain_init``: keep host copies of the round-0 state, which
-    ``GangNetwork.reset_run`` (the frontier's stage reset) restores."""
-    from murmura_tpu_torch.core.gang import GangNetwork, gang_hp_inputs, resolve_members
+def _gang_members_and_programs(config: Config, device, seeds=None, members=None):
+    """The checks a gang's wiring shares with an admission, and the member
+    programs: (members, topology, attack, programs)."""
+    from murmura_tpu_torch.core.gang import gang_hp_inputs, resolve_members
 
     if config.backend == "distributed":
         raise ConfigError(
@@ -548,10 +533,11 @@ def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint
             "seeds as separate invocations"
         )
     refuse_unported(config)
-    try:
-        members = resolve_members(config, seeds)
-    except ValueError as e:
-        raise ConfigError(str(e)) from None
+    if members is None:
+        try:
+            members = resolve_members(config, seeds)
+        except ValueError as e:
+            raise ConfigError(str(e)) from None
     topology = build_topology(config)
     if isinstance(topology, SparseTopology) and config.backend == "tpu":
         raise ConfigError(refusal_reason("sparse", "sweep", "tpu_backend"))
@@ -566,6 +552,45 @@ def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint
                                       torch.device(device), rule=rule, lr=member.lr,
                                       attack_scale=scale)
         programs.append(program)
+    return members, topology, attack, programs
+
+
+def build_gang_member_programs(config: Config, members, device="cuda"):
+    """One generation's member programs (the serve daemon's admission path):
+    each member's data, initial parameters and learning rate from its seed,
+    exactly as :func:`build_gang_from_config` builds them, without a gang.
+    They are value sources for a warm gang
+    (``GangNetwork.reset_run(member_programs=...)``), so they must come from
+    a config whose structural fingerprint is the gang's
+    (serve/scheduler.py)."""
+    if config.backend == "distributed":
+        raise ConfigError(
+            "gang-batched serving needs the jitted backends; backend: "
+            "distributed trains in per-node OS processes"
+        )
+    return _gang_members_and_programs(config, device, members=list(members))[3]
+
+
+def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint_dir=None,
+                           retain_init=False, min_batch=1):
+    """Gang wiring (core/gang.py): the ``sweep`` and ``run --seeds`` path,
+    each frontier cell's and grid bucket's gang, and each serve bucket's.
+
+    As :func:`build_network_from_config`, except that the data, the initial
+    parameters and the draws come from each member's seed, and a member's
+    ``lr`` and ``attack_scale`` overrides reach its training and attack.
+    The attack's placement (seeded by ``attack.params.seed``, else the base
+    experiment seed), the topology, the model and rule and the fault
+    schedule are the gang's.  ``seeds``: an explicit member seed list (the
+    CLI's ``--seeds``), else ``config.sweep`` defines the members.
+    ``checkpoint_dir``: as there, for each member's telemetry stream.
+    ``retain_init``: keep host copies of the round-0 state, which
+    ``GangNetwork.reset_run`` (the frontier's stage reset) restores.
+    ``min_batch``: the lane count the gang reports and admits up to (the
+    serve daemon's capacity)."""
+    from murmura_tpu_torch.core.gang import GangNetwork
+
+    members, topology, attack, programs = _gang_members_and_programs(config, device, seeds)
     writers = None
     if config.telemetry.enabled:
         # One run dir a member, <run dir>/<member label>, each of which
@@ -578,13 +603,15 @@ def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint
             mcfg.experiment.seed = member.seed
             mcfg.telemetry.dir = os.path.join(base_dir, member.label)
             writers.append(build_telemetry_writer(mcfg, resume=resume))
+    bucket = config.sweep.bucket if config.sweep is not None else True
     try:
         return GangNetwork(programs, members, topology, attack=attack,
                            fault_schedule=build_fault_schedule(config),
                            base_lr=config.training.lr,
                            transfer_guard=config.tpu.transfer_guard,
                            recompile_guard=config.tpu.recompile_guard,
-                           telemetry_writers=writers, retain_init=retain_init)
+                           telemetry_writers=writers, retain_init=retain_init,
+                           min_batch=min_batch, bucket=bucket)
     except ValueError as e:
         # Members that cannot train as one stack (ragged shards).
         raise ConfigError(str(e)) from None

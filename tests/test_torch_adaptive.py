@@ -553,8 +553,12 @@ def test_reset_run_refusals():
         gang.reset_run(same[:1])
     with pytest.raises(ValueError, match="not distinct"):
         gang.reset_run([same[1], same[1], same[2]])
-    with pytest.raises(ValueError, match="grid's and the serve daemon's"):
-        gang.reset_run(same, member_programs=[gang.program] * 3)
+    with pytest.raises(ValueError, match="only meaningful on the re-tenanting path"):
+        gang.reset_run(same, telemetry_writers=[])
+    # Re-tenanting (the grid's and the serve daemon's admission) takes up to
+    # the gang's batch, next_bucket(3) = 4, as in the JAX package.
+    with pytest.raises(ValueError, match="cannot admit 5 members into a bucket of batch 4"):
+        gang.reset_run(same + same[:2], member_programs=[gang.program] * 5)
 
 
 def test_adaptive_attack_runs_under_population():

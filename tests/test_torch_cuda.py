@@ -9,7 +9,8 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed:
 kernels: the CLI runs launch them (a pipelined Krum round too, from its
 warm-up round on; a sparse Krum run twice a round; a gang once a member;
 a population run twice a round; an adaptive Krum round, card against CPU,
-in both exchanges; a gang's stage reset), and ``tpu.transfer_guard`` raises on a
+in both exchanges; a gang's stage reset; a serve bucket's warm admission
+and a one-bucket grid), and ``tpu.transfer_guard`` raises on a
 synchronising call forced inside a fused chunk and not across a
 population run's swaps.  The population engine's swap on the card (pinned
 prefetch buffers, the teleport composition, the write-back) and the DMTT
@@ -981,3 +982,64 @@ def test_gang_stage_reset_on_the_card(dev):
             assert torch.equal(gang.agg_states[s][k], fresh.agg_states[s][k]), k
     delta = (gang.flats - fresh.flats).abs().max() / max(1.0, float(fresh.flats.abs().max()))
     assert float(delta) <= 1e-5
+
+
+def _serve_grid_raw():
+    from pathlib import Path
+
+    return yaml.safe_load((Path(__file__).resolve().parents[1] / "examples" / "configs"
+                           / "serve_grid.yaml").read_text())
+
+
+def test_warm_bucket_admission_on_the_card(dev):
+    # A serve bucket's second generation splices new tenants into the warm
+    # lanes: no chunk program, no nvcc build, each member's kernel launched
+    # as in the first, and the same decisions as a fresh gang of those
+    # tenants.
+    from murmura_tpu_torch.config import Config
+    from murmura_tpu_torch.core.gang import GangMember
+    from murmura_tpu_torch.ops import _build
+    from murmura_tpu_torch.utils.factories import (
+        build_gang_from_config,
+        build_gang_member_programs,
+    )
+
+    raw = _serve_grid_raw()
+    raw.pop("grid")
+    raw["experiment"]["rounds"] = 2
+    raw["sweep"] = {"members": [{"seed": 7, "lr": 0.05}]}
+    cfg = Config.model_validate(raw)
+    gang = build_gang_from_config(cfg, device="cuda", min_batch=2)
+    gang.train(2)
+    built = (gang.program_builds, len(_build.STARTED))
+    tenants = [GangMember(seed=11, lr=0.05), GangMember(seed=13, lr=0.02)]
+    progs = [build_gang_member_programs(cfg, [m], device="cuda")[0] for m in tenants]
+    K.reset_counts()
+    gang.reset_run(tenants, member_programs=progs)
+    got = gang.train(2)
+    assert (gang.program_builds, len(_build.STARTED)) == built and gang.batch == 2
+    assert K.LAUNCHES["pairwise_sq_distances"] == 2 * 2 * 2 and not any(K.PLAIN_CALLS.values())
+    fresh_raw = dict(raw, sweep={"members": [{"seed": 11, "lr": 0.05}, {"seed": 13, "lr": 0.02}]})
+    ref = build_gang_from_config(Config.model_validate(fresh_raw), device="cuda").train(2)
+    for g, r in zip(got, ref):
+        assert g["agg_selected_index"] == r["agg_selected_index"]
+        np.testing.assert_allclose(g["mean_loss"], r["mean_loss"], rtol=1e-4)
+
+
+def test_one_bucket_grid_on_the_card(dev, tmp_path):
+    # serve_grid.yaml's Krum bucket at [12, P] through the grid command: one
+    # chunk program, Krum's two pairwise passes a round for each member.
+    from murmura_tpu_torch import cli
+    from murmura_tpu_torch.serve.scheduler import load_grid
+
+    raw = _serve_grid_raw()
+    raw["grid"].update(rules=["krum"], rounds=2)
+    path = tmp_path / "grid.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    K.reset_counts()
+    cli.main(["grid", str(path), "-o", str(tmp_path / "grid.json")])
+    art = load_grid(tmp_path / "grid.json")
+    (bucket,) = art["buckets"]
+    assert bucket["gang_size"] == 10 and bucket["batch"] == 16 and bucket["compiles"] >= 1
+    assert K.LAUNCHES["pairwise_sq_distances"] == 2 * 10 * 2 and not any(K.PLAIN_CALLS.values())
+    assert all(np.isfinite(c["final_accuracy"]) for c in art["cells"])

@@ -16,9 +16,12 @@ and it never moves to the CPU unless asked to.
   a memory-mapped million-user bank), two DMTT rounds under mobility
   and the topology liar (dmtt/, topology/dynamic.py), an adaptive round
   (the bisection around the gaussian attack under Krum,
-  attacks/adaptive.py) and one frontier cell of two stages with its stage
-  reset (frontier.py), loads no ``jax`` and no ``murmura_tpu.*`` module
-  (counted against what the interpreter had loaded at start).
+  attacks/adaptive.py), one frontier cell of two stages with its stage
+  reset (frontier.py) and one grid bucket (serve/scheduler.py) whose
+  manifest and daemon-free telemetry readers (telemetry/metrics.py,
+  spans.py, registry.py, report.render_grid) run too, loads no ``jax`` and
+  no ``murmura_tpu.*`` module (counted against what the interpreter had
+  loaded at start).
 - An AST scan of the port and of chip_smoke.py finds no such import.
 - Without CUDA, ``python -m murmura_tpu_torch run`` without ``--device
   cpu`` fails with a message, and chip_smoke.py exits non-zero, printing
@@ -175,6 +178,23 @@ raw["frontier"].update(rules=["krum"], attacks=["gaussian"], topologies=["dense"
 cfg = Config.model_validate(raw)
 cell = run_cell(cfg, cfg.frontier, "krum", "gaussian", "dense", [7], device="cpu")
 assert cell.compiles == 1 and cell.curve
+import murmura_tpu_torch.serve
+from murmura_tpu_torch.serve.scheduler import run_grid
+from murmura_tpu_torch.telemetry import metrics, registry, report, spans
+raw = yaml.safe_load(open("examples/configs/serve_grid.yaml"))
+raw["grid"].update(rules=["krum"], strengths=[0.0, 1.0], seeds=[7], rounds=1)
+art = run_grid(Config.model_validate(raw), device="cpu")
+assert art["total_cells"] == 2 and art["total_compiles"] == 1
+report.render_grid(art, out=lambda line: None)
+with tempfile.TemporaryDirectory() as tmp:
+    cfg = Config.model_validate({**raw, "telemetry": {"enabled": True, "dir": tmp + "/run"}})
+    cfg.grid = None
+    build_network_from_config(cfg, device="cpu").train(1)
+    text = metrics.render_openmetrics(metrics.fold_run_events(metrics.MetricsRegistry(),
+                                                              tmp + "/run"))
+    assert "murmura_rounds_total 1" in text and text.endswith("# EOF\n")
+    assert spans.validate_spans(spans.build_spans(tmp + "/run")) == []
+    assert [r["kind"] for r in registry.index_runs([tmp])] == ["run"]
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "murmura_tpu"})
 print("LOADED", bad)

@@ -38,7 +38,11 @@ Phases, each of which raises (and exits non-zero) on failure:
    bit-equal, each timed; and the circulant pass at the exponential
    graph's offsets on the sparse runs' shapes, [256, 2,890] (k = 8, and
    Krum's pass at the offsets' differences) and [64, P] of the tiny CNN
-   (k = 6);
+   (k = 6); and Krum's four distance calls at the two newest models'
+   widths, [16, 818,137] (the char-LSTM) and [16, 3,370,818] (the CelebA
+   CNN), with the median's candidate select at the latter; every median
+   case of the candidate select also timed against ``torch.median`` on
+   the candidate stack gathered beforehand (and equal to it);
 3b. one round on the card against the same round on the CPU (same initial
    parameters, same injected draws), for each of four seeds, for Krum,
    median, trimmed mean, geometric median, BALANCE, Sketchguard, fedavg and
@@ -71,7 +75,12 @@ Phases, each of which raises (and exits non-zero) on failure:
    chained rounds, two seeds: picks and the bracket (``atk_scale``,
    ``atk_lo``, ``atk_hi``) equal, the acceptance EMA within rtol 1e-6,
    parameters within a scaled 1e-4; adaptive ALIE on the dense geometric
-   median (no taps): ``atk_z`` equal;
+   median (no taps): ``atk_z`` equal; and one dense Krum round
+   (num_compromised 1) of the char-LSTM and of the CelebA CNN at full
+   width, float32, card against CPU from one spread start on injected
+   draws (``check_models_against_cpu``): picks equal, parameters within a
+   scaled 1e-4 plus the trained rows' own delta, the LSTM's tokens int64
+   on the card;
 3c. one round of the tiny CNN at 64 nodes, k-regular(4), in the parameter
    dtype the configs take by default from 64 nodes up (bfloat16), for
    every ported rule (Krum, geometric median, BALANCE, UBAR and
@@ -197,7 +206,16 @@ Phases, each of which raises (and exits non-zero) on failure:
    flagship-width daemon in this process (allgather, 2 tenants, 2
    rounds): its second generation builds nothing, and ``freeze_member``
    on one lane leaves the other's history equal to its run without the
-   eviction.  A faulted run holds its alive and
+   eviction; then the model surface (``run_model_surface``): the
+   flagship's scenario with the LEAF Shakespeare char-LSTM on
+   ``leaf.shakespeare`` (Krum, both exchanges) and the LEAF CelebA CNN on
+   ``leaf.celeba`` (Krum allgather, the median under ppermute, and Krum
+   under ``tpu.conv_impl: im2col``, its history's scaled delta and round
+   times beside the direct run's), synthetic fallbacks, 64 samples a node,
+   3 rounds; and ``dmtt_mobility.yaml`` (30 rounds, max_samples 64)
+   through ``run --seeds 3``, each member also run alone: histories within
+   a scaled 1e-4, the trust state within rtol 1e-5, no kernel launched.
+   A faulted run holds its alive and
    quarantined counts to the schedule and every kernel input finite; a
    compressed run prints its payload bytes an edge; a telemetry run reads
    its run dir back with the port's report (the memory event's peak equal
@@ -218,7 +236,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    steady seconds and cross-evaluation share, the adaptive flagship's
    steady seconds beside the static run's, the frontiers' total seconds,
    stage seconds a round and peaks, the grids' and the daemons' times, the
-   codec's times beside the flagship round's, one
+   codec's times beside the flagship round's, the DMTT gang's and the
+   model surface's summaries, one
    ``{"kernels": [...]}`` JSON line, the card line, and the
    ``{"ok": true, "device": ...}`` line last.
 
@@ -778,15 +797,34 @@ def check_candidate_select(results: dict, own, bcast, offsets, cases=None, tag="
             raise AssertionError(f"candidate_select {label} disagrees with its plain version")
         del got, again, ref
         item = o.element_size()
+        library = stack = None
+        if median and m % 2 == 1:
+            # One PyTorch call computes the median on the candidate stack
+            # gathered beforehand ([m, N, P]: own, then bcast rolled by each
+            # offset), as the count sketch's yardstick takes pre-signed
+            # rows; m odd, so torch's lower median is the median.  No one
+            # call computes the trimmed mean.
+            stack = torch.stack([o] + [torch.roll(b, -off, dims=0) for off in offsets])
+            lib_out = torch.median(stack, dim=0).values
+            lib_same = torch.equal(lib_out, C.candidate_select(o, b, offsets, trim=0,
+                                                               median=True))
+            print(f"[kernels] candidate_select {label}: torch.median on the pre-gathered "
+                  f"[{m}, {n}, {p}] stack equals the kernel: {lib_same}", flush=True)
+            if not lib_same:
+                raise AssertionError(f"candidate_select {label} disagrees with torch.median")
+            del lib_out
+
+            def library():
+                return torch.median(stack, dim=0)
         # Read own and bcast once, write the output once; about m^2/2
         # compare-exchanges and m adds per output.
         _record(results, "candidate_select", label, max_err,
                 lambda: C.candidate_select(o, b, offsets, trim=trim, median=median),
                 lambda: C.candidate_select_plain(o, b, offsets, trim=trim, median=median),
-                None, 3 * n * p * item, (m * (m - 1) / 2 + m) * n * p,
+                library, 3 * n * p * item, (m * (m - 1) / 2 + m) * n * p,
                 in_round=(dtype == torch.float32 and median) if in_round is None else in_round,
                 profile=True)
-        del o, b
+        del o, b, library, stack
         torch.cuda.empty_cache()
 
 
@@ -2599,17 +2637,19 @@ def smoke_config(name, config, exchange, aggregation, opts):
     SMOKE_DIR/<name>.yaml; returns (raw, its path, the history path).  A
     ``durability:`` section gets its checkpoint_dir under SMOKE_DIR/ckpts
     (emptied first) and ``opts["checkpoint_every"]`` if given;
-    ``opts["drop"]`` removes sections, ``opts["topology"]`` replaces the
-    topology, ``opts["max_samples"]`` sets training.max_samples and
-    ``opts["adaptive"]`` turns attack.adaptive on."""
+    ``opts["drop"]`` removes sections, ``opts["topology"]``, ``opts["data"]``
+    and ``opts["model"]`` replace those sections, ``opts["max_samples"]``
+    sets training.max_samples and ``opts["adaptive"]`` turns
+    attack.adaptive on."""
     import yaml
 
     raw = yaml.safe_load(config.read_text())
     raw["experiment"]["rounds"] = opts.get("rounds", SMOKE_ROUNDS)
     for key in opts.get("drop", ()):
         raw.pop(key, None)
-    if "topology" in opts:
-        raw["topology"] = dict(opts["topology"])
+    for key in ("topology", "data", "model"):
+        if key in opts:
+            raw[key] = dict(opts[key])
     if "max_samples" in opts:
         raw["training"]["max_samples"] = opts["max_samples"]
     if exchange is not None:
@@ -3032,13 +3072,18 @@ def run_gang(label, config, exchange, expect, opts=None) -> dict:
     num_seeds=GANG_SEEDS)``), the counters set to 0 just before and read
     just after: every kernel of ``expect`` launched its per-round count
     times the members every round, no other kernel, no plain version, and
-    every member's history with the single run's keys, finite.  Unless
-    ``opts["singles"]`` is False, each member then runs alone (``cli.run``,
-    its seed, the sweep block dropped) in the same call: the members'
-    launches must sum to the gang's, and each member's history must agree
-    with its single run's to a scaled 1e-4 (bit-equality printed).  Prints
-    the gang's steady seconds a round beside the members' summed, and the
-    peak device memory of both (a recorded number: no claim)."""
+    every member's history with the single run's keys, finite
+    (``opts["num_seeds"]`` members through ``run --seeds``, default
+    GANG_SEEDS).  Unless ``opts["singles"]`` is False, each member then
+    runs alone (``cli.run``, its seed, the sweep block dropped) in the same
+    call: the members' launches must sum to the gang's, and each member's
+    history must agree with its single run's to a scaled 1e-4
+    (bit-equality printed); under DMTT each member's final trust state
+    (``dmtt_c_hat``, ``dmtt_alpha``, ``dmtt_beta``) within
+    DMTT_TRUST_RTOL of its single run's and its mean topology trust column
+    too, the TopB masks' equality printed.  Prints the gang's steady
+    seconds a round beside the members' summed, and the peak device memory
+    of both (a recorded number: no claim)."""
     import numpy as np
     import torch
     import yaml
@@ -3064,7 +3109,8 @@ def run_gang(label, config, exchange, expect, opts=None) -> dict:
         if swept:
             histories, gang = cli.sweep(cfg, output=out, device="cuda")
         else:
-            histories, gang = cli.run(cfg, output=out, device="cuda", num_seeds=GANG_SEEDS)
+            histories, gang = cli.run(cfg, output=out, device="cuda",
+                                      num_seeds=opts.get("num_seeds", GANG_SEEDS))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
@@ -3090,6 +3136,11 @@ def run_gang(label, config, exchange, expect, opts=None) -> dict:
     gang_s = _steady(gang.round_times, chunk)
     rec = {"launches": {k: launches[k] for k in expect}, "s_per_round": gang.round_times,
            "peak_gb": peak_gb, "histories": histories, "gang_size": size}
+    dmtt = raw.get("dmtt") is not None
+    if dmtt:
+        from murmura_tpu_torch.core.rounds import DMTT_STATE_KEYS
+
+        gang_trust = [{k: st[k].cpu() for k in DMTT_STATE_KEYS} for st in gang.agg_states]
     # Dropped before the members run alone, so that their peaks are theirs.
     del gang
     gc.collect()
@@ -3097,7 +3148,8 @@ def run_gang(label, config, exchange, expect, opts=None) -> dict:
     note = ""
     if opts.get("singles", True):
         single_s, single_peak, same, deltas, summed = [], [], [], [], {k: 0 for k in expect}
-        for member in members:
+        trust_rel, masks_equal = 0.0, []
+        for s_idx, member in enumerate(members):
             one = dict(raw)
             one.pop("sweep", None)
             one["experiment"] = dict(raw["experiment"], seed=member.seed)
@@ -3120,11 +3172,29 @@ def run_gang(label, config, exchange, expect, opts=None) -> dict:
             single_peak.append(torch.cuda.max_memory_allocated() / 1e9)
             same.append(hist == histories[member.label])
             deltas.append(history_delta(histories[member.label], hist))
+            if dmtt:
+                # The member's trust state against its single run's: the
+                # scores within DMTT_TRUST_RTOL, the TopB masks printed.
+                for k in ("dmtt_c_hat", "dmtt_alpha", "dmtt_beta"):
+                    a, b = gang_trust[s_idx][k].double(), net.agg_state[k].cpu().double()
+                    trust_rel = max(trust_rel, float(((a - b).abs() / b.abs().clamp(min=1e-30))
+                                                     .max()))
+                masks_equal.append(all(torch.equal(gang_trust[s_idx][k], net.agg_state[k].cpu())
+                                       for k in ("dmtt_collab", "dmtt_selected")))
+                col = "agg_dmtt_mean_topo_trust"
+                a, b = np.asarray(histories[member.label][col]), np.asarray(hist[col])
+                trust_rel = max(trust_rel, float(np.max(np.abs(a - b) / np.abs(b))))
             del net
         gc.collect()
         torch.cuda.empty_cache()
-        ok = summed == {k: launches[k] for k in expect} and max(deltas) <= 1e-4
-        note = (f"; the members run one by one in this call: launches {summed} (the gang's "
+        ok = (summed == {k: launches[k] for k in expect} and max(deltas) <= 1e-4
+              and trust_rel <= DMTT_TRUST_RTOL)
+        if dmtt:
+            note = (f"; each member's dmtt_c_hat, dmtt_alpha, dmtt_beta and mean topology "
+                    f"trust within {trust_rel:.3g} relative of its single run's (limit "
+                    f"{DMTT_TRUST_RTOL:g}), TopB masks equal {masks_equal}")
+            rec.update(trust_rel=trust_rel, masks_equal=masks_equal)
+        note += (f"; the members run one by one in this call: launches {summed} (the gang's "
                 f"{'==' if summed == rec['launches'] else '!='} their sum), steady s/round "
                 f"{', '.join(f'{s:.4f}' for s in single_s)}, summed {sum(single_s):.4f} against "
                 f"the gang's {gang_s:.4f} ({sum(single_s) / gang_s:.2f}x; recorded, no claim), "
@@ -3134,9 +3204,11 @@ def run_gang(label, config, exchange, expect, opts=None) -> dict:
                    delta=max(deltas), single_peak_gb=max(single_peak))
         if not ok:
             raise AssertionError(f"the gang {label} differs from its members run alone")
+    kernels = (f"launches {launches} (want {expect} a member a round)" if expect else
+               f"no kernel launched, as none should be (launch counters {launches})")
     print(f"[gang:{label}] {size} members {[m.label for m in members]}, N="
           f"{shape[0]} P={shape[1]}, {rounds} rounds, chunks of "
-          f"{chunk}; launches {launches} (want {expect} a member a round), plain-version calls "
+          f"{chunk}; {kernels}, plain-version calls "
           f"{plain}; round seconds {[round(t, 4) for t in rec['s_per_round']]}, steady s/round "
           f"{gang_s:.4f}; run wall {wall:.2f} s; peak device memory {peak_gb:.2f} GB{note}",
           flush=True)
@@ -4243,6 +4315,183 @@ def check_dmtt_against_cpu(device: str = "cuda") -> dict:
     return {"trust_rel": trust_rel, "flat_delta": flat_delta, "tie_rows": tie_rows}
 
 
+# The model surface: the flagship's scenario (16 nodes, k-regular(4), 20%
+# gaussian std 10, bfloat16 compute) with its data and model replaced by
+# the LEAF Shakespeare char-LSTM (vocab 81, embed 8, hidden 256, 2 layers,
+# seq_len 80) and the LEAF CelebA CNN (84x84x3, channels 32-64-128, fc
+# 256), each on its adapter's synthetic fallback, training.max_samples
+# capped at SURFACE_MAX_SAMPLES, SMOKE_ROUNDS rounds.  The last run is the
+# CelebA Krum run under tpu.conv_impl: im2col, held beside the direct one.
+SURFACE_MAX_SAMPLES = 64
+SHAKESPEARE = {"data": {"adapter": "leaf.shakespeare", "params": {}},
+               "model": {"factory": "leaf.shakespeare", "params": {}}}
+CELEBA = {"data": {"adapter": "leaf.celeba", "params": {}},
+          "model": {"factory": "leaf.celeba", "params": {}}}
+SURFACE_RUNS = (
+    ("krum:shakespeare", "allgather", None, {"pairwise_sq_distances": (2, "==")}, SHAKESPEARE),
+    ("krum:shakespeare_ppermute", "ppermute", None, {"circulant_sq_distances": (2, "==")},
+     SHAKESPEARE),
+    ("krum:celeba", "allgather", None, {"pairwise_sq_distances": (2, "==")}, CELEBA),
+    ("median:celeba_ppermute", "ppermute", {"algorithm": "median", "params": {}},
+     {"candidate_select": (1, "==")}, CELEBA),
+    ("krum:celeba_im2col", "allgather", None, {"pairwise_sq_distances": (2, "==")},
+     {**CELEBA, "sections": {"tpu": {"conv_impl": "im2col"}}}),
+)
+# The DMTT gang: dmtt_mobility.yaml as committed (30 rounds) through ``run
+# --seeds DMTT_GANG_SEEDS``; its dirichlet shards differ in size between
+# seeds, which a gang refuses in both packages, so training.max_samples is
+# pinned (every node of seeds 42-44 holds at least 70 training samples).
+DMTT_GANG_SEEDS = 3
+DMTT_GANG_MAX_SAMPLES = 64
+
+
+def check_model_widths(results: dict) -> None:
+    """Phase 3 at the two new models' widths, [16, 818,137] (the
+    char-LSTM) and [16, 3,370,818] (the CelebA CNN), float32 (the
+    parameter dtype at 16 nodes): Krum's four distance calls (k-regular(4)
+    offsets), and at the CelebA width the median's candidate select, each
+    against its plain version, timed beside its bound.  The phase-4 runs
+    of these models make the same calls."""
+    import torch
+
+    n, offsets = 16, [1, 2, 14, 15]
+    for p, model in ((818_137, "char-LSTM"), (3_370_818, "CelebA CNN")):
+        own, bcast = krum_inputs(n, p, p)
+        print(f"[kernels] shapes: N={n} P={p} ({model}) offsets={offsets}", flush=True)
+        _distance_cases(results, own, bcast, offsets, in_round=False, tag=f" P={p}")
+        if p == 3_370_818:
+            check_candidate_select(results, own, bcast, offsets, ((torch.float32, True, 0),),
+                                   tag=f" P={p}", in_round=False)
+        del own, bcast
+        torch.cuda.empty_cache()
+
+
+def check_models_against_cpu(device: str = "cuda") -> dict:
+    """Phase 3b for the two new models at full width: one round of dense
+    Krum (num_compromised 1, so that it selects) on the card and on the
+    CPU from one spread initial state (node 0's parameters plus offsets of
+    distinct scales) with injected draws (the shuffle key and the attack's
+    noise), float32 compute (in bfloat16 a one-ulp flip of h would carry
+    through the 80 recurrent steps), 16 nodes, k-regular(4), the adapter's
+    synthetic fallback capped at 8 samples a node (one local step): each
+    device trains once (``train_flat``) and its ``train_step`` takes those
+    rows (``trained=``).  The picks equal; the post-round parameters within
+    a scaled 1e-4 plus the trained rows' own delta (Krum copies a
+    candidate, so the rule adds nothing to a training difference; a CNN's
+    training can sit at a max-pool or ReLU near-tie, which moves one
+    node's update by a discrete step), that delta printed with its node;
+    the char-LSTM's tokens int64 on the card."""
+    import numpy as np
+    import torch
+
+    from murmura_tpu_torch.aggregation.krum import make_krum
+    from murmura_tpu_torch.attacks.gaussian import make_gaussian_attack
+    from murmura_tpu_torch.core.rounds import build_round_program
+    from murmura_tpu_torch.data.registry import build_federated_data
+    from murmura_tpu_torch.models.registry import build_model
+    from murmura_tpu_torch.ops.flatten import tree_map
+
+    n, seed, offsets = 16, 7, [1, 2, 14, 15]
+    adj = torch.zeros((n, n))
+    for o in offsets:
+        adj[torch.arange(n), (torch.arange(n) + o) % n] = 1.0
+    out = {}
+    for name in ("leaf.shakespeare", "leaf.celeba"):
+        t0 = time.perf_counter()
+        data = build_federated_data(name, {}, num_nodes=n, seed=seed, max_samples=8)
+        model = build_model(name, {})
+        attack = make_gaussian_attack(n, 0.2, noise_std=10.0, seed=seed)
+        comp = torch.from_numpy(attack.compromised.astype(np.float32))
+        rng = np.random.default_rng(seed)
+        template = model.init(torch.Generator().manual_seed(seed), "cpu")
+        scale = 0.05 * (1.0 + np.arange(n) / n)
+        init = tree_map(lambda t: (t.numpy()[None] + scale.reshape((n,) + (1,) * t.dim())
+                                   * rng.normal(size=(n,) + tuple(t.shape))).astype(np.float32),
+                        template)
+        kw = {"num_compromised": 1, "max_candidates": len(offsets) + 1}
+        res = {}
+        for dev in (device, "cpu"):
+            prog = build_round_program(model, make_krum(**kw), data, attack=attack,
+                                       init_params=init, device=dev, batch_size=8, lr=0.05,
+                                       seed=seed)
+            if "draws" not in res:
+                res["draws"] = {"u": [rng.random(tuple(prog.data["mask"].shape))
+                                      .astype(np.float32)],
+                                "noise": rng.normal(size=(int(comp.sum()), prog.model_dim))
+                                .astype(np.float32)}
+            a, c = adj.to(dev), comp.to(dev)
+            trained, _ = prog.train_flat(prog.init_flat, prog.init_agg_state, a, c, 0.0,
+                                         draws=res["draws"])
+            flat, _, metrics = prog.train_step(prog.init_flat, prog.init_agg_state, a, c, 0.0,
+                                               draws=res["draws"], trained=trained)
+            res[dev] = (trained.cpu(), flat.cpu(), metrics["agg_selected_index"].cpu(),
+                        prog.data["x"].dtype, prog.model_dim)
+            del prog, trained, flat
+        card, cpu = res[device], res["cpu"]
+
+        def scaled(a, b):
+            return float((a.double() - b.double()).abs().max()
+                         / max(1.0, float(b.abs().max())))
+
+        d_train, d_flat = scaled(card[0], cpu[0]), scaled(card[1], cpu[1])
+        node = int((card[0].double() - cpu[0].double()).abs().amax(dim=1).argmax())
+        picks = torch.equal(card[2], cpu[2])
+        tokens = card[3] == (torch.int64 if "shakespeare" in name else torch.float32)
+        limit = 1e-4 + d_train
+        ok = picks and d_flat <= limit and tokens
+        print(f"[models] {name} krum dense, P={card[4]}, float32, card vs CPU: picks equal "
+              f"{picks} {card[2].tolist()}, post-round scaled delta {d_flat:.3g} (limit 1e-4 "
+              f"+ the trained rows' {d_train:.3g}, largest at node {node}, "
+              f"{'compromised' if comp[node] else 'honest'}, picked by "
+              f"{(card[2] == node).sum().item()} node(s)), inputs {card[3]} on the card; "
+              f"{time.perf_counter() - t0:.2f} s: {'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name}: the card's round differs from the CPU's")
+        out[name] = {"delta": d_flat, "train_delta": d_train}
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_model_surface() -> dict:
+    """Phase 4's model surface (SURFACE_RUNS) through run_main_path, each
+    run's wall printed, then the CelebA CNN's im2col run beside its direct
+    run: their histories' scaled delta (bfloat16 convolutions against
+    bfloat16 products: another rounding, so recorded, not gated) and their
+    steady seconds a round."""
+    import numpy as np
+
+    runs = {}
+    t_all = time.perf_counter()
+    for label, exchange, aggregation, expect, opts in SURFACE_RUNS:
+        opts = dict(opts, max_samples=SURFACE_MAX_SAMPLES)
+        t0 = time.perf_counter()
+        runs[label] = run_main_path(label, FLAGSHIP, exchange, aggregation, expect, opts)
+        print(f"[models] {label}: {time.perf_counter() - t0:.2f} s of wall", flush=True)
+    direct, im2col = runs["krum:celeba"], runs["krum:celeba_im2col"]
+    delta = history_delta(im2col["history"], direct["history"])
+    print(f"[models] the CelebA CNN, Krum allgather, tpu.conv_impl im2col against direct: "
+          f"history scaled delta {delta:.3g} (bfloat16: recorded, not gated), steady s/round "
+          f"im2col {np.mean(im2col['s_per_round'][1:]):.4f}, direct "
+          f"{np.mean(direct['s_per_round'][1:]):.4f}; peak {im2col['peak_gb']:.2f} GB against "
+          f"{direct['peak_gb']:.2f} GB; the surface runs took {time.perf_counter() - t_all:.2f} s",
+          flush=True)
+    runs["krum:celeba_im2col"]["delta_direct"] = delta
+    return runs
+
+
+def run_dmtt_gang() -> dict:
+    """Phase 4's DMTT gang: dmtt_mobility.yaml through ``run --seeds
+    DMTT_GANG_SEEDS`` (run_gang: each member also run alone in the call,
+    attack.params.seed pinned to the base seed; histories within a scaled
+    1e-4, the trust state within DMTT_TRUST_RTOL).  fedavg: no kernel."""
+    t0 = time.perf_counter()
+    rec = run_gang("fedavg:gang_dmtt_mobility", DMTT_MOBILITY, None, {},
+                   {"rounds": 30, "num_seeds": DMTT_GANG_SEEDS,
+                    "max_samples": DMTT_GANG_MAX_SAMPLES})
+    print(f"[dmtt] the gang phase took {time.perf_counter() - t0:.2f} s of wall", flush=True)
+    return {"fedavg:gang_dmtt_mobility": rec}
+
+
 def main() -> int:
     started = time.perf_counter()
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
@@ -4282,12 +4531,16 @@ def main() -> int:
 
     results: dict = {}
     check_kernels(results)
+    check_model_widths(results)
     codec_ms = check_codec()
     check_round_against_cpu()
     check_pipelined_against_cpu()
     check_sparse_rounds_against_cpu()
     check_adaptive_against_cpu()
     round64 = check_round_n64_bf16()
+    t_models = time.perf_counter()
+    model_checks = check_models_against_cpu()
+    print(f"[models] card against CPU in {time.perf_counter() - t_models:.2f} s", flush=True)
 
     mains = {run[0]: run_main_path(*run) for run in MAIN_RUNS}
     mains.update(run_fused_pair())
@@ -4301,6 +4554,10 @@ def main() -> int:
     pop_check = check_population_against_cpu()
     pop_resume = run_population_kill_resume()
     dmtt_check = check_dmtt_against_cpu()
+    surface = run_model_surface()
+    mains.update(surface)
+    dmtt_gang = run_dmtt_gang()
+    mains.update(dmtt_gang)
     frontiers = {"frontier:frontier_krum": run_frontier_smoke("frontier_krum", FRONTIER_KRUM),
                  "frontier:flagship": run_frontier_smoke("flagship", FLAGSHIP,
                                                          FLAGSHIP_FRONTIER)}
@@ -4333,6 +4590,21 @@ def main() -> int:
           f"({dm['probe_ms']:.2f} ms in all); card vs CPU: trust state within "
           f"{dmtt_check['trust_rel']:.3g} relative, parameters {dmtt_check['flat_delta']:.3g}, "
           f"{dmtt_check['tie_rows']} TopB row(s) on a tie; no claim", flush=True)
+    dg = dmtt_gang["fedavg:gang_dmtt_mobility"]
+    print(f"[dmtt:gang] dmtt_mobility.yaml as a gang of {dg['gang_size']} through run --seeds "
+          f"(training.max_samples {DMTT_GANG_MAX_SAMPLES}, {len(dg['s_per_round'])} rounds): "
+          f"steady s a gang round {_steady(dg['s_per_round']):.4f} against the members' summed "
+          f"single-run rounds {dg['summed_single_s']:.4f}; members bit-equal to their single "
+          f"runs {dg['bit_equal']}, history scaled delta {dg['delta']:.3g}, trust state within "
+          f"{dg['trust_rel']:.3g} relative, TopB masks equal {dg['masks_equal']}; no kernel "
+          f"launched (fedavg); peak {dg['peak_gb']:.3f} GB; no claim", flush=True)
+    print("[models] the char-LSTM and the CelebA CNN at full width, 16 nodes, bfloat16 compute, "
+          f"max_samples {SURFACE_MAX_SAMPLES}: steady s/round "
+          + ", ".join(f"{k} {np.mean(surface[k]['s_per_round'][1:]):.4f} "
+                      f"({surface[k]['peak_gb']:.2f} GB)" for k in surface)
+          + "; float32 card vs CPU scaled deltas "
+          + ", ".join(f"{k} {v['delta']:.3g}" for k, v in model_checks.items())
+          + "; no claim", flush=True)
     steady = {k: float(np.mean(mains[k]["s_per_round"][1:]))
               for k in ("krum:allgather", "krum:telemetry_flagship")}
     print(f"[main:telemetry] steady s/round (rounds 2 on), the flagship's Krum allgather "

@@ -19,6 +19,7 @@
     python -m murmura_tpu_torch report --latest [--json] [--trace out.json]
     python -m murmura_tpu_torch report --frontier <frontier.json> [--json]
     python -m murmura_tpu_torch report --grid <grid.json> [--json]
+    python -m murmura_tpu_torch list-components [CATEGORY]
 
 The run goes to the CUDA card by default.  Without CUDA it stops with an
 error unless ``--device cpu`` asks for the CPU; it never drops to the CPU
@@ -58,6 +59,8 @@ daemon's socket or folded from a run directory; ``top`` the daemon's live
 table; ``runs`` the index of every run dir and serve ledger under the
 roots; ``report --latest`` the newest of those run dirs, and ``--trace``
 writes a run's spans as Chrome trace JSON instead of tables.
+``list-components`` prints what the port runs, a row a category (one
+category when named), from its own registries.
 
 Durability (the JAX package's flags, over the config's ``durability:``
 block; an explicit flag wins): ``--checkpoint-dir`` snapshots the whole run
@@ -569,6 +572,44 @@ def runs(roots: List[Path], as_json: bool = False) -> None:
         print(render_rows(rows))
 
 
+def component_rows() -> Dict[str, str]:
+    """``list-components``' rows: the JAX package's categories, filled from
+    the port's registries.  The backends row names what the port runs."""
+    from murmura_tpu_torch.aggregation import AGGREGATORS
+    from murmura_tpu_torch.attacks import ATTACKS
+    from murmura_tpu_torch.topology.generators import TOPOLOGY_TYPES
+
+    return {
+        "topologies": ", ".join(TOPOLOGY_TYPES),
+        "aggregators": ", ".join(sorted(AGGREGATORS)),
+        "attacks": ", ".join(sorted(ATTACKS)),
+        "backends": "simulation, tpu (the node axis on one CUDA card); distributed is not "
+                    "ported yet",
+        "models": (
+            "mlp, leaf.femnist[.tiny/.small/.baseline/.large/.xlarge], "
+            "leaf.celeba, leaf.shakespeare, wearables.{uci_har,pamap2,ppg_dalia}"
+        ),
+        "datasets": (
+            "synthetic, synthetic_sequences, leaf.{femnist,celeba,shakespeare}, "
+            "wearables.{uci_har,pamap2,ppg_dalia}"
+        ),
+    }
+
+
+def list_components(component_type: Optional[str] = None) -> None:
+    """Print the component table, or one category's row."""
+    rows = component_rows()
+    if component_type is not None:
+        if component_type not in rows:
+            raise ValueError(f"Unknown component type: {component_type}\n"
+                             f"Available: {', '.join(rows)}")
+        rows = {component_type: rows[component_type]}
+    width = max(len(k) for k in rows)
+    print("murmura_tpu_torch components")
+    for k, v in rows.items():
+        print(f"{k:<{width}}  {v}")
+
+
 def _report_command(args) -> None:
     if args.frontier_path is not None:
         report_frontier(args.frontier_path, args.as_json)
@@ -697,11 +738,17 @@ def main(argv: Optional[List[str]] = None) -> None:
                        help="write the run's spans as Chrome trace JSON here instead")
     p_rep.add_argument("--json", dest="as_json", action="store_true",
                        help="print the report as one JSON object")
+    p_list = sub.add_parser("list-components", help="List the components the port runs")
+    p_list.add_argument("component_type", nargs="?", default=None,
+                        help="one category (topologies, aggregators, attacks, backends, "
+                             "models, datasets)")
     args = parser.parse_args(argv)
 
-    if args.command in ("report", "metrics", "runs", "top", "submit"):
+    if args.command in ("report", "metrics", "runs", "top", "submit", "list-components"):
         try:
-            if args.command == "report":
+            if args.command == "list-components":
+                list_components(args.component_type)
+            elif args.command == "report":
                 _report_command(args)
             elif args.command == "metrics":
                 metrics(args.target)

@@ -22,8 +22,13 @@ port cannot: its kernels are ``ctypes`` calls on ``data_ptr()``, which
 
 The attack's compromised placement is one set for the whole gang, seeded
 by ``attack.params.seed`` (default: the base experiment seed), so a single
-run with that seed pinned reproduces a member.  The topology, the fault
-schedule and the per-round adjacency (or sparse edge mask) are shared.
+run with that seed pinned reproduces a member.  The topology, the mobility
+model, the fault schedule and the per-round adjacency (G^t under mobility,
+or the sparse edge mask) are shared.  Under DMTT each member carries its
+own trust state (``DMTT_STATE_KEYS`` in its carried state), makes its own
+topology claims and cross-evaluates the broadcast on its own probe rows,
+inside its own ``train_step``: nothing of one member's trust reaches
+another's.
 
 The JAX package pads the member axis to a power of two (``next_bucket``)
 so that XLA compiles a few shapes; the port compiles nothing a round and
@@ -317,7 +322,8 @@ class GangNetwork:
         programs: one RoundProgram a member, each built with that member's
             seed (its data, initial parameters) and learning rate.
         members: the resolved member list.
-        topology / attack / fault_schedule: shared by the members.
+        topology / attack / fault_schedule / mobility: shared by the members
+            (``mobility``: a MobilityModel whose G^t is each round's graph).
         base_lr: the learning rate of a member without an override.
         telemetry_writers: one TelemetryWriter a member, or None.
         retain_init: keep host copies of the round-0 parameters and carried
@@ -342,6 +348,7 @@ class GangNetwork:
         retain_init: bool = False,
         min_batch: int = 1,
         bucket: bool = True,
+        mobility=None,
     ):
         if len(programs) != len(members):
             raise ValueError("one RoundProgram per member required")
@@ -349,12 +356,12 @@ class GangNetwork:
             raise ValueError("a gang needs at least one member")
         check_member_compatible(programs, members)
         program = programs[0]
-        if any(p.dmtt is not None for p in programs):
-            raise ValueError(
-                "the PyTorch port's gang does not run dmtt yet: build the members "
-                "without DMTTParams, or run the seeds as separate runs"
-            )
         check_exchange_layout(program, topology)
+        if mobility is not None and program.sparse:
+            raise ValueError(
+                "sparse exchange mode does not compose with mobility (G^t is a dense "
+                "per-round graph)"
+            )
         n = program.num_nodes
         if topology.num_nodes != n:
             raise ValueError(f"Topology has {topology.num_nodes} nodes, gang stack has {n}")
@@ -367,6 +374,7 @@ class GangNetwork:
         self.gang_size = len(members)
         self.batch = next_bucket(max(self.gang_size, min_batch)) if bucket else self.gang_size
         self.topology = topology
+        self.mobility = mobility
         self.attack = attack
         self.fault_schedule = fault_schedule
         self.device = program.device
@@ -395,7 +403,7 @@ class GangNetwork:
         # reset builds none.
         self.program_builds = 0
         self._warmed: set = set()
-        static = static_exchange_input(topology, fault_schedule)
+        static = static_exchange_input(topology, fault_schedule, mobility)
         self._static_host = static
         self._static_adj = None if static is None else torch.as_tensor(static).to(self.device)
         self._in_degree: Dict[int, np.ndarray] = {}
@@ -650,7 +658,7 @@ class GangNetwork:
             adj_stack, alive_stack, in_deg = stage_rounds(
                 self.topology, self.fault_schedule, self.program, self._static_host,
                 self._static_adj, list(range(round0, round0 + k)),
-                degrees=bool(self.telemetry))
+                degrees=bool(self.telemetry), mobility=self.mobility)
             self._in_degree.update(in_deg)
             guard = (_sync_errors() if self.transfer_guard and not warmup
                      and self.device.type == "cuda" else contextlib.nullcontext())

@@ -404,15 +404,21 @@ def build_round_program(
     def dev(a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(device)
 
+    def dev_inputs(a):
+        """Model inputs: integer tokens stay integer (int64, what an
+        embedding lookup takes), anything else becomes float32."""
+        a = np.asarray(a)
+        return dev(a, torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32)
+
     eval_x, eval_y, eval_mask = data.eval_arrays
     d = {
-        "x": dev(data.x, torch.float32),
+        "x": dev_inputs(data.x),
         "y": dev(data.y, torch.int64),
         "mask": dev(data.mask, torch.float32),
         "num_samples": dev(data.num_samples, torch.int64),
         "eff_batch": dev(eff_batch_np, torch.int64),
         "steps": dev(steps_np, torch.int64),
-        "eval_x": dev(eval_x, torch.float32),
+        "eval_x": dev_inputs(eval_x),
         "eval_y": dev(eval_y, torch.int64),
         "eval_mask": dev(eval_mask, torch.float32),
     }

@@ -1,10 +1,11 @@
-# Copy of murmura_tpu/data/registry.py, cut to the adapters the port runs.
+# Copy of murmura_tpu/data/registry.py.
 """Dataset adapter registry: config adapter strings -> FederatedArrays.
 
-``synthetic``, ``leaf.femnist`` (on-disk LEAF JSON or its
-shape-identical synthetic stand-in) and ``wearables.<uci_har|pamap2|
-ppg_dalia>`` (on-disk files or their shape-identical synthetic stand-ins)
-are ported; the other adapters are refused by name.
+``synthetic``, ``synthetic_sequences`` (alias ``synthetic_seq``: int32
+next-character tokens), ``leaf.<femnist|celeba|shakespeare>`` (on-disk
+LEAF JSON or its shape-identical synthetic stand-in) and
+``wearables.<uci_har|pamap2|ppg_dalia>`` (on-disk files or their
+shape-identical synthetic stand-ins).
 """
 
 from typing import Any, Dict, Optional
@@ -16,7 +17,7 @@ from murmura_tpu_torch.data.base import (
     stack_partitions,
 )
 from murmura_tpu_torch.data.partitioners import dirichlet_partition, iid_partition
-from murmura_tpu_torch.data.synthetic import make_synthetic
+from murmura_tpu_torch.data.synthetic import make_synthetic, make_synthetic_sequences
 
 
 def _partition(labels, num_nodes: int, params: Dict[str, Any], seed: int):
@@ -67,10 +68,27 @@ def build_federated_data(
             test_partitions=test_parts,
         )
 
-    if adapter == "leaf.femnist":
-        from murmura_tpu_torch.data.leaf import load_femnist_federated
+    if adapter in ("synthetic_sequences", "synthetic_seq"):
+        x, y = make_synthetic_sequences(
+            num_samples=int(params.get("num_samples", 2000)),
+            seq_len=int(params.get("seq_len", 80)),
+            vocab_size=int(params.get("vocab_size", 81)),
+            seed=seed,
+        )
+        parts = _partition(y, num_nodes, params, seed)
+        parts, test_parts = _with_holdout(parts, params, seed)
+        return stack_partitions(
+            x, y, parts, max_samples=max_samples,
+            num_classes=int(params.get("vocab_size", 81)),
+            test_partitions=test_parts,
+        )
 
-        return load_femnist_federated(params, num_nodes, seed, max_samples)
+    if adapter.startswith("leaf."):
+        from murmura_tpu_torch.data.leaf import load_leaf_federated
+
+        return load_leaf_federated(
+            adapter.split(".", 1)[1], params, num_nodes, seed, max_samples
+        )
 
     if adapter.startswith("wearables."):
         from murmura_tpu_torch.data.wearables import load_wearable_federated
@@ -79,7 +97,4 @@ def build_federated_data(
             adapter.split(".", 1)[1], params, num_nodes, seed, max_samples
         )
 
-    raise ValueError(
-        f"dataset adapter '{adapter}' is not ported to the PyTorch package "
-        "yet (ported: synthetic, leaf.femnist, wearables.*)"
-    )
+    raise ValueError(f"Unknown dataset adapter: {adapter}")

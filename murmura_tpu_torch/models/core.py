@@ -98,19 +98,47 @@ def resolve_dtype(compute_dtype) -> Optional[torch.dtype]:
     raise ValueError(f"Unknown compute_dtype: {compute_dtype!r}")
 
 
-def dense(p: Params, x: torch.Tensor, dtype=None) -> torch.Tensor:
+def matmul(x: torch.Tensor, w: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``x @ w`` under the dense rule: with a compute dtype, operands rounded
+    to it and a float32 product; without, mixed operands promoted."""
     if dtype is None:
-        w = p["w"]
         if w.dtype != x.dtype:
             common = torch.promote_types(x.dtype, w.dtype)
             x, w = x.to(common), w.to(common)
-        return x @ w + p["b"]
-    y = x.to(dtype).to(torch.float32) @ p["w"].to(dtype).to(torch.float32)
-    return y + p["b"]
+        return x @ w
+    return x.to(dtype).to(torch.float32) @ w.to(dtype).to(torch.float32)
 
 
-def conv2d(p: Params, x: torch.Tensor, dtype=None) -> torch.Tensor:
-    """SAME-padded stride-1 conv of NCHW activations with an HWIO kernel."""
+def dense(p: Params, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    return matmul(x, p["w"], dtype) + p["b"]
+
+
+def conv2d(p: Params, x: torch.Tensor, dtype=None, impl: str = "direct") -> torch.Tensor:
+    """SAME-padded stride-1 conv of NCHW activations with an HWIO kernel.
+
+    ``impl="im2col"`` (``tpu.conv_impl``) writes the conv as patch
+    extraction and one product, ``[B, H*W, cin*kh*kw] @ [cin*kh*kw,
+    cout]``, as the JAX package's ``conv2d`` does: ``F.unfold`` orders a
+    patch's features input-channel-major (cin, kh, kw), the order of
+    ``conv_general_dilated_patches``, so the HWIO kernel is transposed to
+    (cin, kh, kw, cout) before the reshape.  Same parameters, same bf16
+    rule (patches, kernel and product in bf16, the result cast to
+    float32)."""
+    if impl == "im2col":
+        kh, kw, cin, cout = p["w"].shape
+        b, _, h, w_ = x.shape
+        if dtype is not None:
+            x = x.to(dtype)
+        pat = F.unfold(x, (kh, kw), padding=(kh // 2, kw // 2))  # [B, cin*kh*kw, H*W]
+        wm = p["w"].permute(2, 0, 1, 3).reshape(cin * kh * kw, cout)
+        if dtype is not None:
+            wm = wm.to(dtype)
+        y = (pat.transpose(1, 2) @ wm).transpose(1, 2).reshape(b, cout, h, w_)
+        if dtype is not None:
+            y = y.to(torch.float32)
+        return y + p["b"][:, None, None]
+    if impl != "direct":
+        raise ValueError(f"Unknown conv_impl: {impl!r} (direct or im2col)")
     w = p["w"].permute(3, 2, 0, 1)  # HWIO -> OIHW
     if dtype is not None:
         x = x.to(dtype)

@@ -1,15 +1,19 @@
 """Model factory registry: config factory strings -> Model builders.
 
-The port runs the FEMNIST CNN family (``leaf.femnist[.variant]`` /
-``examples.leaf.LEAFFEMNISTModel``), the plain ``mlp`` and the evidential
-wearable MLPs (``examples.wearables.<kind>`` / ``wearables.<kind>``); the
-CelebA CNN and the LSTM are refused by name.
+Every model family of the JAX package: the FEMNIST CNN family
+(``leaf.femnist[.variant]`` / ``examples.leaf.LEAFFEMNISTModel``), the
+CelebA CNN (``leaf.celeba`` / ``examples.leaf.LEAFCelebAModel``), the
+Shakespeare char-LSTM (``leaf.shakespeare``), the plain ``mlp`` and the
+evidential wearable MLPs (``examples.wearables.<kind>`` /
+``wearables.<kind>``), with the JAX package's defaults and parameter names.
+The two CNNs take ``conv_impl`` (``direct`` or ``im2col``).
 """
 
 from typing import Any, Dict
 
-from murmura_tpu_torch.models.cnn import FEMNIST_VARIANTS, make_femnist_cnn
+from murmura_tpu_torch.models.cnn import FEMNIST_VARIANTS, make_celeba_cnn, make_femnist_cnn
 from murmura_tpu_torch.models.core import Model
+from murmura_tpu_torch.models.lstm import make_char_lstm
 from murmura_tpu_torch.models.mlp import make_mlp, make_wearable_mlp
 
 # The wearable datasets' default widths (the JAX package's registry): UCI
@@ -43,14 +47,24 @@ def build_model(factory: str, params: Dict[str, Any]) -> Model:
         if variant is None:
             tail = lowered.rsplit(".", 1)[-1]
             variant = tail if tail in FEMNIST_VARIANTS else "baseline"
-        conv_impl = params.pop("conv_impl", "direct")
-        if conv_impl != "direct":
-            raise ValueError(
-                f"conv_impl '{conv_impl}' is not ported; the PyTorch port "
-                "runs the direct convolution"
-            )
         return make_femnist_cnn(
             num_classes=int(params.pop("num_classes", 62)), variant=variant,
+            compute_dtype=compute_dtype,
+            conv_impl=params.pop("conv_impl", "direct"),
+        )
+    if "celeba" in lowered:
+        return make_celeba_cnn(
+            num_classes=int(params.pop("num_classes", 2)),
+            compute_dtype=compute_dtype,
+            conv_impl=params.pop("conv_impl", "direct"),
+        )
+    if "shakespeare" in lowered:
+        return make_char_lstm(
+            vocab_size=int(params.pop("vocab_size", 81)),
+            embed_dim=int(params.pop("embed_dim", 8)),
+            hidden=int(params.pop("hidden", 256)),
+            num_layers=int(params.pop("num_layers", 2)),
+            seq_len=int(params.pop("seq_len", 80)),
             compute_dtype=compute_dtype,
         )
     for prefix in ("examples.wearables.", "wearables."):
@@ -66,7 +80,4 @@ def build_model(factory: str, params: Dict[str, Any]) -> Model:
                 name=f"wearables.{kind}",
                 compute_dtype=compute_dtype,
             )
-    raise ValueError(
-        f"model factory '{factory}' is not ported to the PyTorch package yet "
-        "(ported: the leaf.femnist CNN family, mlp, wearables.*)"
-    )
+    raise ValueError(f"Unknown model factory: {factory!r}")

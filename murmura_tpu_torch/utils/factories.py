@@ -13,7 +13,8 @@ fallback.  The ``frontier:``, ``grid:`` and ``serve:`` blocks are read only
 by their drivers (frontier.py, serve/); ``run`` runs the base experiment.
 ``build_gang_from_config`` builds the same per member of a gang
 (core/gang.py): data, initial parameters and draws from each member's
-seed, one attack placement, topology and fault schedule for all;
+seed, one attack placement, topology, mobility model and fault schedule
+for all (each member its own DMTT trust state);
 ``build_gang_member_programs`` builds a generation's member programs alone,
 for a warm gang to admit.
 """
@@ -324,7 +325,10 @@ def resolve_model(config: Config, data):
     if config.backend == "tpu":
         model_params.setdefault("compute_dtype", config.tpu.compute_dtype)
         factory_lc = config.model.factory.lower()
-        if config.tpu.conv_impl != "direct" and "femnist" in factory_lc:
+        if config.tpu.conv_impl != "direct" and (
+            "femnist" in factory_lc or "celeba" in factory_lc
+        ):
+            # A CNN-only lever: the other models have no im2col form.
             model_params.setdefault("conv_impl", config.tpu.conv_impl)
     if (
         "wearables." in config.model.factory
@@ -525,13 +529,6 @@ def _gang_members_and_programs(config: Config, device, seeds=None, members=None)
         # The CLI's --seeds reaches here with sweep unset, so the schema's
         # population x sweep check never saw this pair.
         raise ConfigError(refusal_reason("population", "sweep"))
-    unported = [name for name in ("mobility", "dmtt") if getattr(config, name) is not None]
-    if unported:
-        raise ConfigError(
-            f"the PyTorch port's gang does not run {' or '.join(unported)} yet "
-            "(the JAX gang shares one mobility model across members); run the "
-            "seeds as separate invocations"
-        )
     refuse_unported(config)
     if members is None:
         try:
@@ -580,8 +577,9 @@ def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint
     parameters and the draws come from each member's seed, and a member's
     ``lr`` and ``attack_scale`` overrides reach its training and attack.
     The attack's placement (seeded by ``attack.params.seed``, else the base
-    experiment seed), the topology, the model and rule and the fault
-    schedule are the gang's.  ``seeds``: an explicit member seed list (the
+    experiment seed), the topology, the mobility model, the model and rule
+    and the fault schedule are the gang's; under DMTT each member's program
+    carries its own trust state.  ``seeds``: an explicit member seed list (the
     CLI's ``--seeds``), else ``config.sweep`` defines the members.
     ``checkpoint_dir``: as there, for each member's telemetry stream.
     ``retain_init``: keep host copies of the round-0 state, which
@@ -611,7 +609,8 @@ def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint
                            transfer_guard=config.tpu.transfer_guard,
                            recompile_guard=config.tpu.recompile_guard,
                            telemetry_writers=writers, retain_init=retain_init,
-                           min_batch=min_batch, bucket=bucket)
+                           min_batch=min_batch, bucket=bucket,
+                           mobility=build_mobility(config))
     except ValueError as e:
         # Members that cannot train as one stack (ragged shards).
         raise ConfigError(str(e)) from None

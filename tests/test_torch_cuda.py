@@ -14,7 +14,11 @@ and a one-bucket grid), and ``tpu.transfer_guard`` raises on a
 synchronising call forced inside a fused chunk and not across a
 population run's swaps.  The population engine's swap on the card (pinned
 prefetch buffers, the teleport composition, the write-back) and the DMTT
-trust update, card against CPU, have their tests too.
+trust update, card against CPU, have their tests too, as do the
+char-LSTM's and the CelebA CNN's forward and backward at their published
+widths (both ``conv_impl``s), ``im2col`` against ``direct``, and one DMTT
+gang round under mobility, each card against CPU within a scaled 1e-4
+(``im2col`` against ``direct`` 1e-5 in float32, 2e-2 in bfloat16).
 Tolerances are chip_smoke.py's: |d2 - plain| <= 1e-5 (|a_i|^2 + |b_j|^2)
 for the pairwise kernel (norms of the centered rows when it takes a
 center), whose Gram identity cancels in float32;
@@ -1043,3 +1047,99 @@ def test_one_bucket_grid_on_the_card(dev, tmp_path):
     assert bucket["gang_size"] == 10 and bucket["batch"] == 16 and bucket["compiles"] >= 1
     assert K.LAUNCHES["pairwise_sq_distances"] == 2 * 10 * 2 and not any(K.PLAIN_CALLS.values())
     assert all(np.isfinite(c["final_accuracy"]) for c in art["cells"])
+
+
+def _scaled(a, b):
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("factory", ["leaf.shakespeare", "leaf.celeba", "celeba_im2col"])
+def test_new_models_forward_and_backward_card_equals_cpu(dev, factory):
+    # The published widths in float32 (TF32 off): logits and every
+    # gradient within a scaled 1e-4 of the CPU's (float32 sums in another
+    # order; the LSTM's over 80 steps), int64 tokens into the embedding.
+    from murmura_tpu_torch.models.registry import build_model
+    from murmura_tpu_torch.ops.flatten import tree_leaves, tree_map
+    from murmura_tpu_torch.ops.losses import masked_cross_entropy
+
+    params = {"conv_impl": "im2col"} if factory == "celeba_im2col" else {}
+    model = build_model(factory.replace("celeba_im2col", "leaf.celeba"), params)
+    cpu_params = model.init(torch.Generator().manual_seed(3), "cpu")
+    rng = np.random.default_rng(3)
+    if "shakespeare" in factory:
+        x = torch.from_numpy(rng.integers(0, 81, size=(4, 80))).long()
+    else:
+        x = torch.from_numpy(rng.random((4, 84, 84, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, model.num_classes, size=4)).long()
+    m = torch.ones(4)
+    out = {}
+    for d in ("cpu", dev):
+        p = tree_map(lambda t: t.to(d), cpu_params)
+
+        def loss(q):
+            logits = model.apply(q, x.to(d))
+            return masked_cross_entropy(logits, y.to(d), m.to(d))[0], logits
+
+        grads, logits = torch.func.grad(loss, has_aux=True)(p)
+        out[str(d)] = (logits, tree_leaves(grads))
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out["cuda"]
+    assert _scaled(l_card, l_cpu) <= 1e-4
+    for a, b in zip(g_card, g_cpu):
+        assert _scaled(a, b) <= 1e-4
+
+
+def test_im2col_equals_direct_on_the_card(dev):
+    from murmura_tpu_torch.models.core import conv2d
+
+    rng = np.random.default_rng(5)
+    for k, cin, cout in ((3, 3, 32), (3, 32, 64), (5, 1, 32)):
+        p = {"w": torch.from_numpy(rng.normal(size=(k, k, cin, cout)).astype(np.float32)
+                                   * 0.1).to(dev),
+             "b": torch.from_numpy(rng.normal(size=(cout,)).astype(np.float32)).to(dev)}
+        x = torch.from_numpy(rng.normal(size=(4, cin, 21, 21)).astype(np.float32)).to(dev)
+        assert _scaled(conv2d(p, x, None, "im2col"), conv2d(p, x, None, "direct")) <= 1e-5
+        bf = torch.bfloat16
+        got, ref = conv2d(p, x, bf, "im2col"), conv2d(p, x, bf, "direct")
+        assert _scaled(got, ref) <= 2e-2
+
+
+def test_dmtt_gang_round_card_equals_cpu(dev):
+    # One gang round of dmtt_mobility shrunk to 8 nodes (2 seeds), the
+    # card's gang and the CPU's from the same parameters on the same
+    # injected draws: parameters within a scaled 1e-4, the TopB masks
+    # equal, the trust state within rtol 1e-5 (the DMTT card tolerance).
+    from murmura_tpu_torch.config import Config
+    from murmura_tpu_torch.core.network import effective_adjacency
+    from murmura_tpu_torch.utils.factories import build_gang_from_config
+
+    raw = yaml.safe_load(open("examples/configs/dmtt_mobility.yaml"))
+    raw["experiment"].update(rounds=1, verbose=False)
+    raw["topology"]["num_nodes"] = 8
+    raw["data"]["params"]["num_samples"] = 960
+    raw["training"]["max_samples"] = 24
+    raw["attack"]["params"]["seed"] = 42
+    gangs = {d: build_gang_from_config(Config.model_validate(raw), seeds=[42, 43], device=d)
+             for d in ("cpu", "cuda")}
+    cpu_gang, card_gang = gangs["cpu"], gangs["cuda"]
+    s_count, n, p = cpu_gang.flats.shape
+    rng = np.random.default_rng(1)
+    masks = [prog.data["mask"] for prog in cpu_gang.programs]
+    draws = [{"u": [rng.random(tuple(mk.shape)).astype(np.float32)],
+              "noise": rng.normal(size=(int(cpu_gang.compromised.sum()), p)).astype(np.float32)}
+             for mk in masks]
+    adj = torch.from_numpy(effective_adjacency(cpu_gang.topology, cpu_gang.mobility, None, 0))
+    out = {}
+    for d, gang in gangs.items():
+        flats = cpu_gang.flats.clone().to(d)
+        out[d] = gang._step(flats, gang.agg_states, adj.to(d), 0, draws=draws)
+    (f_cpu, st_cpu, _), (f_card, st_card, m_card) = out["cpu"], out["cuda"]
+    assert card_gang.flats.device.type == "cuda"
+    assert _scaled(f_card, f_cpu) <= 1e-4
+    for s in range(s_count):
+        for k in ("dmtt_collab", "dmtt_selected"):
+            assert torch.equal(st_card[s][k].cpu(), st_cpu[s][k]), k
+        for k in ("dmtt_c_hat", "dmtt_alpha", "dmtt_beta"):
+            np.testing.assert_allclose(st_card[s][k].cpu().numpy(), st_cpu[s][k].numpy(),
+                                       rtol=1e-5)
+        assert m_card[s]["agg_dmtt_collab_count"].device.type == "cuda"

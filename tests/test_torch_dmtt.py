@@ -31,10 +31,9 @@ package, on the CPU.
 - the Network under mobility (each round's staged graph is G^t, the
   telemetry in-degree too), fused bit-equal to per round, a DMTT run
   resumed mid-run bit-equal, and the refusals (sparse, compression,
-  staleness, pipelining, ppermute, the gang).
+  staleness, pipelining, ppermute); the gang under DMTT is
+  tests/test_torch_gang_dmtt.py's.
 """
-
-import copy
 
 import jax
 import jax.numpy as jnp
@@ -75,7 +74,6 @@ from murmura_tpu_torch.telemetry.writer import events_of_type
 from murmura_tpu_torch.topology.dynamic import MobilityModel
 from murmura_tpu_torch.utils.factories import (
     ConfigError,
-    build_gang_from_config,
     build_network_from_config,
 )
 
@@ -554,23 +552,3 @@ def create_sparse():
     from murmura_tpu_torch.topology.generators import create_topology
 
     return create_topology("exponential", N)
-
-
-@pytest.mark.parametrize("drop", ["dmtt", "neither"])
-def test_gang_refuses_mobility_and_dmtt_by_name(drop):
-    raw = _raw()
-    if drop == "dmtt":
-        raw["dmtt"] = None
-        raw["attack"] = {"enabled": False}
-    with pytest.raises(ConfigError, match="gang does not run mobility"):
-        build_gang_from_config(Config.model_validate(copy.deepcopy(raw)), seeds=[1, 2],
-                               device="cpu")
-
-
-def test_gang_network_refuses_dmtt_programs():
-    from murmura_tpu_torch.core.gang import GangMember, GangNetwork
-
-    net = _net(mobility=None, dmtt={"budget_B": 3, "allow_static": True},
-               attack={"enabled": False})
-    with pytest.raises(ValueError, match="gang does not run dmtt"):
-        GangNetwork([net.program, net.program], [GangMember(1), GangMember(2)], net.topology)

@@ -14,7 +14,9 @@ and it never moves to the CPU unless asked to.
   a sparse round on the exponential and one_peer graphs
   (topology/sparse.py), two population rounds across a swap (population/,
   a memory-mapped million-user bank), two DMTT rounds under mobility
-  and the topology liar (dmtt/, topology/dynamic.py), an adaptive round
+  and the topology liar (dmtt/, topology/dynamic.py), a DMTT gang round
+  of two seeds under mobility, a char-LSTM Krum round on int64 tokens
+  (models/lstm.py, the synthetic_sequences adapter), an adaptive round
   (the bisection around the gaussian attack under Krum,
   attacks/adaptive.py), one frontier cell of two stages with its stage
   reset (frontier.py) and one grid bucket (serve/scheduler.py) whose
@@ -164,6 +166,22 @@ raw["experiment"].update(rounds=2, verbose=False)
 raw["data"]["params"]["num_samples"] = 320
 net = build_network_from_config(Config.model_validate(raw), device="cpu")
 assert net.mobility is not None and len(net.train(2)["agg_dmtt_collab_count"]) == 2
+from murmura_tpu_torch.utils.factories import build_gang_from_config
+raw["topology"]["num_nodes"] = 8
+raw["data"]["params"]["num_samples"] = 960
+raw["training"]["max_samples"] = 24
+raw["attack"]["params"]["seed"] = 42
+gang = build_gang_from_config(Config.model_validate(raw), seeds=[42, 43], device="cpu")
+assert gang.mobility is not None and len(gang.train(1)[1]["agg_dmtt_collab_count"]) == 1
+seq = build_federated_data("synthetic_sequences", {"num_samples": 160, "seq_len": 10,
+                                                   "vocab_size": 20}, num_nodes=8, seed=1)
+lstm = build_model("leaf.shakespeare", {"vocab_size": 20, "hidden": 8, "seq_len": 10})
+prog = build_round_program(lstm, build_aggregator("krum", {"num_compromised": 1}), seq,
+                           attack=make_gaussian_attack(8, 0.25, seed=1), batch_size=8, seed=1,
+                           device="cpu")
+flat, _, _ = prog.train_step(prog.init_flat, prog.init_agg_state, adj, comp, 0.0,
+                             generators=round_generators(1, 0, "cpu"))
+assert prog.data["x"].dtype == torch.int64 and bool(torch.isfinite(flat).all())
 from murmura_tpu_torch.attacks.adaptive import make_bisection_attack
 from murmura_tpu_torch.frontier import run_cell
 attack = make_bisection_attack(make_gaussian_attack(8, 0.25, seed=1))

@@ -116,12 +116,6 @@ def test_baseline_dimension():
     assert model_dimension(params) == 6_603_710
 
 
-@pytest.mark.parametrize("factory", ["leaf.celeba", "leaf.shakespeare"])
-def test_other_factories_refused_by_name(factory):
-    with pytest.raises(ValueError, match="not ported"):
-        build_model(factory, {})
-
-
 def test_registry_resolves_variants():
     assert build_model("leaf.femnist.tiny", {}).name == "leaf.femnist.tiny"
     assert build_model("examples.leaf.LEAFFEMNISTModel", {}).name == "leaf.femnist.baseline"

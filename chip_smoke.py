@@ -43,6 +43,13 @@ Phases, each of which raises (and exits non-zero) on failure:
    CNN), with the median's candidate select at the latter; every median
    case of the candidate select also timed against ``torch.median`` on
    the candidate stack gathered beforehand (and equal to it);
+   and each of the four kernels on the 4 column blocks of the flagship's
+   [16, P] inputs, P padded to 6,603,712 (``check_column_blocks``, the
+   blocks a param group of 4 aggregates): the pairwise, circulant and
+   count-sketch blocks summed against the full-width plain version within
+   the kernel's limit (summed over the blocks), the candidate select's
+   blocks bit-equal to the full-width call's columns, one block call of
+   each timed;
 3b. one round on the card against the same round on the CPU (same initial
    parameters, same injected draws), for each of four seeds, for Krum,
    median, trimmed mean, geometric median, BALANCE, Sketchguard, fedavg and
@@ -214,7 +221,27 @@ Phases, each of which raises (and exits non-zero) on failure:
    times beside the direct run's), synthetic fallbacks, 64 samples a node,
    3 rounds; and ``dmtt_mobility.yaml`` (30 rounds, max_samples 64)
    through ``run --seeds 3``, each member also run alone: histories within
-   a scaled 1e-4, the trust state within rtol 1e-5, no kernel launched.
+   a scaled 1e-4, the trust state within rtol 1e-5, no kernel launched;
+   then param-axis sharding (``run_sharded_smoke``):
+   ``sharded_model.yaml`` as committed through ``python -m
+   murmura_tpu_torch run`` (layout (1, 1, 1) on this card: one process on
+   the padded flat vector, 20 rounds) against ``tpu.param_shards: 1`` in
+   this process; the same config in a param group of 4 ranks on cuda:0
+   (``parallel/launch.launch``, gloo staged through pinned host memory),
+   5 rounds, its Krum rule checked each round in lockstep against the
+   full-width rule on the same gathered inputs (``_lockstep_check``: the
+   group's squared distances within 3x the full-width kernel's measured
+   relative error, a pick that differs within the tie those errors allow,
+   the rows bit-equal or the picked candidate's), and chained against the
+   one-process run: the round-1 trained rows and the parameters after
+   every round before the first round whose picks differ within a scaled
+   1e-4 (the later rounds' distance printed), 2 pairwise launches a rank
+   a round, no plain call, no JAX in a rank; and bench_scaling.py's
+   acceptance cell (16 nodes, the MLP 1000-7200-6200-62, Krum, 3 rounds)
+   in a group of 8 on cuda:0 against its one-process run, each rank's
+   peak device memory printed beside the one-process peak and the
+   analytic flat bytes.  Several ranks on one card check the collective
+   code; their round times are no speed of sharding.
    A faulted run holds its alive and
    quarantined counts to the schedule and every kernel input finite; a
    compressed run prints its payload bytes an edge; a telemetry run reads
@@ -415,6 +442,7 @@ def check_kernels(results: dict) -> None:
     check_candidate_select_n64(results)
     check_circulant_beyond_cap(results)
     check_circulant_exponential(results)
+    check_column_blocks(results)
 
 
 def check_codec() -> dict:
@@ -4492,6 +4520,746 @@ def run_dmtt_gang() -> dict:
     return {"fedavg:gang_dmtt_mobility": rec}
 
 
+# ---------------------------------------------------------------------------
+# Param-axis sharding (parallel/): the kernels on column blocks, and
+# sharded_model.yaml and bench_scaling.py's acceptance cell in param groups
+# on this one card.
+
+SHARDED_MODEL = ROOT / "examples" / "configs" / "sharded_model.yaml"
+# Column blocks of the flagship's [16, P] round tensors, as a group of 4
+# holds them.
+BLOCKS = 4
+SHARDED_CHECK_ROUNDS = 5
+# bench_scaling.py's --sharded acceptance cell (SHARDED_POINTS[1]): 16
+# nodes, the MLP 1000-7200-6200-62 (51.9M parameters a node), Krum, 3
+# rounds, batch 4, 8 samples a node, float32, in a group of 8.
+ACCEPTANCE_WORLD = 8
+ACCEPTANCE = {
+    "experiment": {"name": "sharded-krum-16x8", "seed": 7, "rounds": 3},
+    "topology": {"type": "k-regular", "num_nodes": 16, "k": 4},
+    "aggregation": {"algorithm": "krum", "params": {"num_compromised": 1}},
+    "training": {"local_epochs": 1, "batch_size": 4, "lr": 0.05},
+    "data": {"adapter": "synthetic",
+             "params": {"num_samples": 128, "input_shape": [1000], "num_classes": 62}},
+    "model": {"factory": "mlp",
+              "params": {"input_dim": 1000, "hidden_dims": [7200, 6200], "num_classes": 62}},
+    "backend": "tpu",
+    "tpu": {"param_shards": ACCEPTANCE_WORLD, "compute_dtype": "float32",
+            "param_dtype": "float32"},
+}
+
+
+def check_column_blocks(results: dict) -> dict:
+    """Phase 3, sharded: each of the four kernels on the 4 column blocks of the
+    flagship's [16, P] inputs (P padded to a multiple of 4 with zero
+    columns, as a param-sharded program pads it), each block a contiguous
+    [16, P_pad / 4] tensor, as a rank holds it.  The blocks' results summed
+    (pairwise, circulant, count sketch) against the full-width plain
+    version within the kernel's limit summed over the blocks (the pairwise
+    and sketch limits are sums of per-column norms, so the blocks' limits
+    add up to the full width's; the circulant's 1e-5 max(1, |plain_b|)
+    per block), and printed beside the full-width kernel call; the
+    candidate select's blocks bit-equal to the full-width call's columns.
+    Each block call timed (its row in the kernels line, not in a round)."""
+    import torch
+
+    from murmura_tpu_torch.models.registry import build_model
+    from murmura_tpu_torch.ops import agg_kernels as K
+    from murmura_tpu_torch.ops import candidate_kernels as C
+    from murmura_tpu_torch.ops import sketch_kernels as SK
+    from murmura_tpu_torch.ops.flatten import model_dimension, padded_dim
+    from murmura_tpu_torch.ops.sketch import build_sketch_tables
+    from murmura_tpu_torch.ops.sketch_kernels import SketchTables
+
+    t_all = time.perf_counter()
+    dev = torch.device("cuda")
+    n, offsets = 16, [1, 2, 14, 15]
+    p = model_dimension(build_model("leaf.femnist.baseline", {}).init(
+        torch.Generator(device=dev).manual_seed(0), dev))
+    p_pad = padded_dim(p, BLOCKS)
+    c = p_pad // BLOCKS
+    own, bcast = krum_inputs(n, p, 1234)
+    own = torch.nn.functional.pad(own, (0, p_pad - p))
+    bcast = torch.nn.functional.pad(bcast, (0, p_pad - p))
+    cols = [(i * c, (i + 1) * c) for i in range(BLOCKS)]
+    blocks = [(own[:, a:b].contiguous(), bcast[:, a:b].contiguous()) for a, b in cols]
+    center = own.mean(dim=0)
+    centers = [center[a:b].contiguous() for a, b in cols]
+    label = f"column block of {BLOCKS} [{n}, {c:,}] (P {p:,} padded to {p_pad:,})"
+    print(f"[blocks] {label}", flush=True)
+    out = {"p_pad": p_pad, "block": c}
+
+    def summed(fn):
+        total = None
+        for i in range(BLOCKS):
+            part = fn(i)
+            total = part if total is None else total + part
+        return total
+
+    def verdict(name, max_err, vs_kernel, ok):
+        print(f"[blocks] {name}: blocks summed against the full-width plain version "
+              f"max |err| {max_err:.6g} (against the full-width kernel call "
+              f"{vs_kernel:.6g}): {'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} on column blocks disagrees with the full width")
+
+    # Pairwise (own, bcast), centered on own's mean: Krum's second call.
+    full = K.pairwise_sq_distances_plain(own, bcast, center=center)
+    got = summed(lambda i: K.pairwise_sq_distances(*blocks[i], center=centers[i]))
+    sa, sb = ((own - center) ** 2).sum(-1), ((bcast - center) ** 2).sum(-1)
+    err = (got - full).abs()
+    kern_full = K.pairwise_sq_distances(own, bcast, center=center)
+    verdict("pairwise_sq_distances (own, bcast)", float(err.max()),
+            float((got - kern_full).abs().max()),
+            bool((err <= 1e-5 * (sa[:, None] + sb[None, :])).all()))
+    o0, b0 = blocks[0]
+    nbytes, flops, tf32 = _pairwise_work(n, n, c, False)
+    _record(results, "pairwise_sq_distances", f"(own, bcast) {label}", float(err.max()),
+            lambda: K.pairwise_sq_distances(o0, b0, center=centers[0]),
+            lambda: K.pairwise_sq_distances_plain(o0, b0, center=centers[0]), None,
+            nbytes, flops, in_round=False, tf32_flops=tf32)
+    del full, got, err, kern_full
+    # Circulant (own, bcast, offsets).
+    plains = [K.circulant_sq_distances_plain(o, b, offsets) for o, b in blocks]
+    full = K.circulant_sq_distances_plain(own, bcast, offsets)
+    got = summed(lambda i: K.circulant_sq_distances(*blocks[i], offsets))
+    limit = summed(lambda i: 1e-5 * torch.clamp(plains[i].abs(), min=1.0))
+    err = (got - full).abs()
+    verdict(f"circulant_sq_distances (own, bcast, {offsets})", float(err.max()),
+            float((got - K.circulant_sq_distances(own, bcast, offsets)).abs().max()),
+            bool((err <= limit).all()))
+    _record(results, "circulant_sq_distances", f"(own, bcast, offsets {offsets}) {label}",
+            float(err.max()), lambda: K.circulant_sq_distances(o0, b0, offsets),
+            lambda: K.circulant_sq_distances_plain(o0, b0, offsets), None,
+            2 * n * c * 4 + len(offsets) * n * 4, 3.0 * len(offsets) * n * c, in_round=False)
+    del plains, full, got, limit, err
+    # Candidate select: column-local, so each block bit-equal to the full
+    # call's columns.
+    m = len(offsets) + 1
+    for kw, tag in (({"median": True}, "median"), ({"trim": 1}, "trim 1")):
+        whole = C.candidate_select(own, bcast, offsets, **kw)
+        same = all(torch.equal(C.candidate_select(o, b, offsets, **kw), whole[:, a:e])
+                   for (o, b), (a, e) in zip(blocks, cols))
+        print(f"[blocks] candidate_select {tag}: every block bit-equal to the full-width "
+              f"call's columns: {same}", flush=True)
+        if not same:
+            raise AssertionError("candidate_select on column blocks differs from the full width")
+        _record(results, "candidate_select", f"{tag} {label}", 0.0,
+                lambda kw=kw: C.candidate_select(o0, b0, offsets, **kw),
+                lambda kw=kw: C.candidate_select_plain(o0, b0, offsets, **kw), None,
+                3 * n * c * 4, (m * (m - 1) / 2 + m) * n * c, in_round=False)
+        del whole
+    # Count sketch: each block with its columns of Sketchguard's tables
+    # (S = 1000, seed 42), the [16, S] partials summed.
+    tables = build_sketch_tables(p_pad, 1000, 42)
+    parts = [SketchTables(tables.hash[a:b], tables.sign[a:b], 1000) for a, b in cols]
+    t = tables.plain_on(dev)
+    full = SK.count_sketch_plain(own, tables)
+    got = summed(lambda i: SK.count_sketch(blocks[i][0], parts[i]))
+    scale = torch.zeros((n, 1000), device=dev).index_add_(1, t["hash"], own.abs())
+    err = (got - full).abs()
+    verdict("count_sketch (own)", float(err.max()),
+            float((got - SK.count_sketch(own, tables)).abs().max()),
+            bool((err <= 1e-4 * scale).all()))
+    nbytes = n * c * 4 + parts[0].entries.nbytes + parts[0].starts.nbytes + n * 1000 * 4
+    _record(results, "count_sketch", f"(own) {label}", float(err.max()),
+            lambda: SK.count_sketch(o0, parts[0]), lambda: SK.count_sketch_plain(o0, parts[0]),
+            None, nbytes, 2.0 * n * c, in_round=False)
+    del own, bcast, blocks, o0, b0, full, got, scale, err
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_all
+    print(f"[blocks] the column-block checks took {out['seconds']:.2f} s", flush=True)
+    return out
+
+
+def _recording(program, keys, sink: list):
+    """Wrap ``program.train_step`` so that each round's ``keys`` metrics
+    (per node) land in ``sink`` as numpy arrays."""
+    step = program.train_step
+
+    def recording(*args, **kwargs):
+        out = step(*args, **kwargs)
+        sink.append({k: out[2][k].detach().float().cpu().numpy() for k in keys})
+        return out
+
+    program.train_step = recording
+
+
+@contextlib.contextmanager
+def _rule_hook(hook):
+    """``factories.build_rule`` wrapped while the block runs: the rule it
+    builds calls ``hook(aggregate, args, out)`` after every round's call
+    (``aggregate`` the unwrapped rule)."""
+    import dataclasses
+
+    from murmura_tpu_torch.utils import factories
+
+    real = factories.build_rule
+
+    def build_rule(cfg, model, topology):
+        agg, probe = real(cfg, model, topology)
+
+        def aggregate(*args):
+            out = agg.aggregate(*args)
+            hook(agg.aggregate, args, out)
+            return out
+
+        return dataclasses.replace(agg, aggregate=aggregate), probe
+
+    factories.build_rule = build_rule
+    try:
+        yield
+    finally:
+        factories.build_rule = real
+
+
+def _unsharded(config, rounds: int, keep: bool = False) -> dict:
+    """``config`` in one process on this card (the unsharded program on the
+    padded flat vector; in a rank of a group the caller turns the group
+    off first), ``rounds`` rounds one at a time.  Returns the history, the
+    round times, the peak device memory, the kernel counts and each
+    round's Krum picks; with ``keep``, also what a group's run is held
+    against, unpadded, on the host: the round-1 trained rows (the rule's
+    ``own``) and the parameters after every round."""
+    import torch
+
+    from murmura_tpu_torch.ops import agg_kernels, candidate_kernels, sketch_kernels
+    from murmura_tpu_torch.utils.factories import build_network_from_config
+
+    for mod in (agg_kernels, candidate_kernels, sketch_kernels):
+        mod.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    picks, flats, own, dim = [], [], [], []
+
+    def keep_own(_aggregate, args, _out):
+        if keep and int(args[3]) == 0:
+            own.append(args[0].float().cpu().numpy()[:, :dim[0]])
+
+    with _rule_hook(keep_own):
+        net = build_network_from_config(config, device="cuda")
+    dim.append(net.program.model_dim)
+    _recording(net.program, ("agg_selected_index",), picks)
+    for _ in range(rounds):
+        net.train(1)
+        if keep:
+            flats.append(net.flat.float().cpu().numpy()[:, :dim[0]])
+    torch.cuda.synchronize()
+    out = {"model_dim": net.program.model_dim, "flat_dim": net.program.flat_dim,
+           "history": json.loads(json.dumps(net.history)),
+           "round_times": list(net.round_times),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": dict(agg_kernels.LAUNCHES),
+           "plain": sum(m.PLAIN_CALLS[k] for m in (agg_kernels, candidate_kernels,
+                                                   sketch_kernels) for k in m.PLAIN_CALLS),
+           "picks": [p_["agg_selected_index"] for p_ in picks]}
+    if keep:
+        out.update(own=own[0], flats=flats)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _perturbed(config, flats: list) -> list:
+    """The yardstick of the chained comparison: ``config`` in one process
+    again, its initial parameters each moved by one float32 rounding
+    (x (1 + r 2^-23), r = +-1 from a seeded draw), its parameters after
+    each round against the unperturbed run's ``flats``, scaled: how far
+    the config carries a difference of float32 rounding's size."""
+    import torch
+
+    from murmura_tpu_torch.utils.factories import build_network_from_config
+
+    net = build_network_from_config(config, device="cuda")
+    g = torch.Generator(device=net.flat.device).manual_seed(0)
+    sign = torch.randint(0, 2, net.flat.shape, generator=g, device=net.flat.device) * 2 - 1
+    net.flat = net.flat + net.flat * (sign.to(net.flat.dtype) * 2.0 ** -23)
+    del sign
+    out = []
+    for ref in flats:
+        net.train(1)
+        out.append(_scaled_on(net.flat, ref))
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _scaled_np(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(1.0, float(np.max(np.abs(b)))))
+
+
+def _row_deltas(got, ref):
+    """Per row, max |got_i - ref_i| in float64 on ``got``'s device (its first
+    ``ref.shape[1]`` columns against the host array ``ref``, a row at a
+    time), and the scale max(1, max |ref|)."""
+    import numpy as np
+    import torch
+
+    rows, den = [], 1.0
+    for i in range(ref.shape[0]):
+        y = torch.from_numpy(np.array(ref[i], dtype=np.float32)).to(got.device, torch.float64)
+        rows.append(float((got[i, :y.shape[0]].double() - y).abs().max()))
+        den = max(den, float(y.abs().max()))
+        del y
+    return rows, den
+
+
+def _scaled_on(got, ref) -> float:
+    """:func:`_scaled_np` of a device tensor against a host array, on the
+    device (:func:`_row_deltas`)."""
+    rows, den = _row_deltas(got, ref)
+    return max(rows) / den
+
+
+def _chained_check(got, ref, block: int, from_neighbour) -> dict:
+    """The parameters after a round (``got``, on the device) against the
+    one-process run's (``ref``, on the host), element by element: |got -
+    ref| over its bound, 1e-4 max(1, max |ref|) (the parameters' scaled
+    1e-4), plus, on a row that took a neighbour's int8-decoded broadcast
+    (``from_neighbour[i]``, ``block`` > 0), one code step of its block,
+    max |ref block| / 127: a codec input that moved by less than a step can
+    round to the adjacent code, which moves the decoded element by a whole
+    step.  Returns the scaled distance, the largest ratio and the number
+    of elements past the plain 1e-4."""
+    import numpy as np
+    import torch
+
+    rows, den = _row_deltas(got, ref)
+    worst, steps = 0.0, 0
+    for i in range(ref.shape[0]):
+        y = torch.from_numpy(np.array(ref[i], dtype=np.float32)).to(got.device, torch.float64)
+        d = (got[i, :y.shape[0]].double() - y).abs()
+        bound = torch.full_like(d, 1e-4 * den)
+        if block and from_neighbour[i]:
+            pad = -y.shape[0] % block
+            amax = torch.nn.functional.pad(y.abs(), (0, pad)).reshape(-1, block).amax(dim=1)
+            bound += torch.repeat_interleave(amax / 127.0, block)[:y.shape[0]]
+        worst = max(worst, float((d / bound).max()))
+        steps += int((d > 1e-4 * den).sum())
+        del y, d, bound
+    return {"scaled": max(rows) / den, "ratio": worst, "steps": steps}
+
+
+def _exact_sq(a, b, chunk: int = 1 << 22):
+    """[N, M] squared distances between the rows of ``a`` and ``b`` in
+    float64 (the Gram identity in float64, P-chunked), as the reference."""
+    import torch
+
+    out = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.float64, device=a.device)
+    for c0 in range(0, a.shape[1], chunk):
+        a64, b64 = a[:, c0:c0 + chunk].double(), b[:, c0:c0 + chunk].double()
+        out += (a64 * a64).sum(1)[:, None] + (b64 * b64).sum(1)[None, :] - 2.0 * (a64 @ b64.T)
+        del a64, b64
+    return out
+
+
+def _sq_norms_about(x, y, chunk: int = 1 << 22):
+    """|x_i - mean(x)|^2 and |y_j - mean(x)|^2 in float64, P-chunked: the
+    scale of the pairwise kernel's error on (x, y) centred on x's mean (its
+    limit is 1e-5 of their sum, PERF.md §2)."""
+    import torch
+
+    nx = torch.zeros(x.shape[0], dtype=torch.float64, device=x.device)
+    ny = torch.zeros(y.shape[0], dtype=torch.float64, device=y.device)
+    for c0 in range(0, x.shape[1], chunk):
+        xs = x[:, c0:c0 + chunk].double()
+        mu = xs.mean(dim=0)
+        nx += ((xs - mu) ** 2).sum(1)
+        ny += ((y[:, c0:c0 + chunk].double() - mu) ** 2).sum(1)
+        del xs, mu
+    return nx, ny
+
+
+# The float32 unit roundoff: a sum of W partials adds at most (W - 1) of it
+# times the partials' magnitudes, each at most 2 (|a - c|^2 + |b - c|^2).
+_U32 = 2.0 ** -24
+
+
+def _krum_lockstep_gate(o, b, adj, c: int, sel, ref_sel, sharded: dict, full: dict,
+                        world: int) -> dict:
+    """The distance and tie gates of one lockstep round (rank 0, the gathered
+    own ``o`` and broadcast ``b``).
+
+    Distances: kappa, the largest |d2 - exact| / (|a_i - mu|^2 + |b_j -
+    mu|^2) over a matrix (mu the mean the call centres on: bcast's for
+    (bcast, bcast), own's for (own, bcast); float64 exact values; the
+    diagonal of (bcast, bcast) left out, as Krum masks it).  The group's
+    kappa must stay within delta = 3 kappa_full + 2 (W - 1) u32: three
+    times the full-width kernel's measured kappa, plus the float32 sum of
+    the W block partials.  A lost or doubled block would put it near 1/W.
+
+    Ties: on each node whose pick differs from the full-width rule's, every
+    candidate's exact score s (the sum of its m - c - 2 smallest exact
+    distances) is recomputed; a squared distance within delta (|a - mu|^2
+    + |b - mu|^2) of the exact one moves the distance by e = min(sqrt(dD2),
+    dD2 / d) and a score by E = (m - c - 2) max e, plus its float32
+    rounding.  The group's pick p must satisfy s_p - min s <= E_p +
+    E_argmin: a pick the measured noise cannot explain fails."""
+    import torch
+
+    from murmura_tpu_torch.aggregation.base import candidate_indices
+
+    n = o.shape[0]
+    exact = {"bb": _exact_sq(b, b), "ob": _exact_sq(o, b)}
+    nb, _ = _sq_norms_about(b, b)
+    no, nbo = _sq_norms_about(o, b)
+    scale = {"bb": nb[:, None] + nb[None, :], "ob": no[:, None] + nbo[None, :]}
+    off = ~torch.eye(n, dtype=torch.bool, device=o.device)
+    keep = {"bb": off, "ob": torch.ones_like(off)}
+
+    def kappa(d2):
+        return max(float(((d2[k].double() - exact[k]).abs() / scale[k])[keep[k]].max())
+                   for k in exact)
+
+    k_full, k_sh = kappa(full), kappa(sharded)
+    limit = 3.0 * k_full + 2.0 * (world - 1) * _U32
+    delta = {k: limit * scale[k] for k in exact}
+    ci, cv = candidate_indices(adj, n)
+    worst, ties = 0.0, []
+    for i in (sel != ref_sel).nonzero().flatten().tolist():
+        idx = ci[i][cv[i]]
+        m = len(idx)
+        take = max(1, m - c - 2)
+        mine = idx == i
+        ii, jj = idx[:, None], idx[None, :]
+
+        def pairs(t):
+            # Candidate-pair entries: the self candidate's from the (own,
+            # bcast) matrix, the others' from (bcast, bcast).
+            v = torch.where(mine[:, None], t["ob"][i][jj].expand(m, m), t["bb"][ii, jj])
+            return torch.where(mine[None, :], t["ob"][i][ii].expand(m, m), v)
+
+        d = pairs(exact).clamp(min=0.0).sqrt()
+        dd = pairs(delta)
+        e = torch.minimum(dd.sqrt(), dd / d.clamp(min=1e-300))
+        eye = torch.eye(m, dtype=torch.bool, device=d.device)
+        s = torch.sort(d.masked_fill(eye, float("inf")), dim=1).values[:, :take].sum(1)
+        big_e = take * e.masked_fill(eye, 0.0).max(dim=1).values + (take + 1) * 2 * _U32 * s
+        pick = int((idx == int(sel[i])).nonzero()[0, 0])
+        best = int(torch.argmin(s))
+        gap, tol = float(s[pick] - s[best]), float(big_e[pick] + big_e[best])
+        ratio = gap / tol if tol > 0 else (0.0 if gap <= 0 else float("inf"))
+        worst = max(worst, ratio)
+        ties.append({"node": i, "pick": int(sel[i]), "full_pick": int(ref_sel[i]),
+                     "gap": gap, "tol": tol, "rel_gap": gap / max(float(s[best]), 1e-300)})
+    del exact, scale, delta
+    return {"kappa": (k_sh, k_full), "dist_ok": k_sh <= limit, "tie_worst": worst,
+            "tie_ok": worst <= 1.0, "ties": ties}
+
+
+def _lockstep_check(group, agg_fn, c: int, args, out, checks: list, peak: list,
+                    ref_own) -> None:
+    """One sharded Krum round against the unsharded rule on the same
+    inputs, in rank 0 (own, bcast and the new rows gathered from the
+    column blocks; the comparison's kernel launches not counted).  Krum's
+    two squared-distance matrices as the group computes them (each rank's
+    block through the pairwise kernel, the partials all-reduced) and as
+    the full-width kernel computes them on the gathered rows go through
+    :func:`_krum_lockstep_gate`.  Rows: where the picks agree, the new rows
+    bit-equal to the reference rule's; where a pick differs, the row is the
+    picked candidate's, bit for bit.  In round 1 the gathered trained rows
+    are also measured against the one-process run's (``ref_own``, rank 0's,
+    on the host)."""
+    import torch
+
+    from murmura_tpu_torch.ops import agg_kernels, candidate_kernels, sketch_kernels
+    from murmura_tpu_torch.ops.agg_kernels import pairwise_sq_distances
+    from murmura_tpu_torch.parallel.mesh import (
+        all_reduce_sum_,
+        gather_columns,
+        param_group_scope,
+    )
+
+    own, bcast, adj, round_idx, state, ctx = args
+    new, _, stats = out
+    cuda = group.device.type == "cuda"
+    mods = (agg_kernels, candidate_kernels, sketch_kernels)
+    counts = [(dict(m.LAUNCHES), dict(m.PLAIN_CALLS)) for m in mods]
+    if cuda:
+        peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+
+    def sq(a, b):
+        a32, b32 = a.float().contiguous(), None if b is None else b.float().contiguous()
+        return pairwise_sq_distances(a32, b32, center=a32.mean(dim=0))
+
+    sharded = {tag: all_reduce_sum_(sq(a, b), group) for tag, (a, b) in
+               (("bb", (bcast, None)), ("ob", (own, bcast)))}
+    whole = [gather_columns(t.contiguous(), group, dst=0) for t in (own, bcast, new)]
+    if group.rank == 0:
+        o, b, new_w = whole
+        with param_group_scope(None):
+            ref_new, _, ref_stats = agg_fn(o, b, adj, round_idx, state, ctx)
+            full = {"bb": sq(b, None), "ob": sq(o, b)}
+        sel, ref_sel = stats["selected_index"], ref_stats["selected_index"]
+        gate = _krum_lockstep_gate(o, b, adj, c, sel, ref_sel, sharded, full, group.world)
+        node = torch.arange(len(sel), device=sel.device)
+        want = torch.where((sel == node)[:, None], o, b[sel])
+        same = sel == ref_sel
+        rows_ok = (torch.equal(new_w[same], ref_new[same])
+                   and torch.equal(new_w[~same], want[~same]))
+        record = {"round": int(round_idx), "differ": int((~same).sum()),
+                  "rows_ok": bool(rows_ok), **gate,
+                  "ok": bool(rows_ok) and gate["dist_ok"] and gate["tie_ok"],
+                  "picks": sel.cpu().numpy()}
+        if int(round_idx) == 0:
+            rows, den = _row_deltas(o, ref_own)
+            record["trained"] = [d / den for d in rows]
+        checks.append(record)
+        del o, b, new_w, ref_new, ref_stats, full, want
+    del whole, sharded
+    for m, (launches, plain) in zip(mods, counts):
+        m.LAUNCHES.update(launches)
+        m.PLAIN_CALLS.update(plain)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _lockstep_rank(config, ref_config, rounds: int) -> dict:
+    """A rank of phase 4's sharded runs.  Rank 0 first runs ``ref_config``
+    in one process (:func:`_unsharded`, the group turned off, the other
+    ranks waiting at a barrier) and the yardstick (:func:`_perturbed`),
+    keeping both on the host.  Then every rank runs ``config`` in the
+    group, ``rounds`` rounds one at a time, its Krum rule checked every
+    round by :func:`_lockstep_check`; after each round rank 0 gathers the
+    parameters and holds them against the one-process run's
+    (:func:`_chained_check`).  Returns this rank's launches, plain calls,
+    peak device memory (the group's rounds, without the checks' and
+    gathers' own) and forbidden modules; rank 0's also its history, round
+    times, checks, layout, the chained checks and the one-process run's
+    picks, yardstick, peak memory, round times and widths."""
+    import numpy as np
+    import torch
+
+    from murmura_tpu_torch.ops import agg_kernels, candidate_kernels, sketch_kernels
+    from murmura_tpu_torch.parallel.launch import forbidden_modules
+    from murmura_tpu_torch.parallel.mesh import (
+        active_param_group,
+        barrier,
+        gather_rows,
+        process_group,
+        set_process_group,
+    )
+    from murmura_tpu_torch.utils.factories import build_network_from_config
+
+    group = process_group()
+    ref = None
+    if group.rank == 0:
+        set_process_group(None)
+        try:
+            ref = _unsharded(ref_config, rounds, keep=True)
+            ref["perturbed"] = _perturbed(ref_config, ref["flats"])
+        finally:
+            set_process_group(group)
+    barrier(group)
+    c = int(config.aggregation.params.get("num_compromised", 0))
+    block = config.compression.block if config.compression.algorithm == "int8" else 0
+    checks, peak = [], [0]
+
+    def check(aggregate, args, out):
+        _lockstep_check(active_param_group(), aggregate, c, args, out, checks, peak,
+                        None if ref is None else ref["own"])
+
+    with _rule_hook(check):
+        net = build_network_from_config(config, device=group.device)
+    mods = (agg_kernels, candidate_kernels, sketch_kernels)
+    cuda = group.device.type == "cuda"
+    for m in mods:
+        m.reset_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    chained = []
+    for r in range(rounds):
+        net.train(1)
+        if cuda:
+            peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+        flat = gather_rows(net.flat, net.group, dst=0)
+        if group.rank == 0:
+            picks = checks[-1]["picks"]
+            chained.append(_chained_check(flat, ref["flats"][r], block,
+                                          picks != np.arange(len(picks))))
+        del flat
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    out = {"launches": {k: v for m in mods for k, v in m.LAUNCHES.items()},
+           "plain": sum(v for m in mods for v in m.PLAIN_CALLS.values()),
+           "peak_bytes": peak[0] if cuda else None, "forbidden_modules": forbidden_modules()}
+    if group.rank == 0:
+        out.update(history=net.history, round_times=list(net.round_times), checks=checks,
+                   layout=net.group.describe(), chained=chained,
+                   ref={k: ref[k] for k in ("picks", "perturbed", "peak_bytes", "round_times",
+                                            "model_dim", "flat_dim")})
+    return out
+
+
+def _sharded_group(config, ref_config, world: int, rounds: int, label: str) -> dict:
+    """``config`` in a group of ``world`` ranks on cuda:0 (gloo, staged)
+    against ``ref_config``'s one-process run, which rank 0 makes first
+    (:func:`_lockstep_rank`).  Gates: each round's rule in
+    lockstep (:func:`_lockstep_check`: the group's distances, a differing
+    pick's tie, the rows); the round-1 trained rows, which each rank
+    computes for its own rows, within a scaled 1e-4 of the one-process
+    run's; the parameters after round 1 (:func:`_chained_check`: a scaled
+    1e-4, plus one int8 code step on a row that took a neighbour's decoded
+    broadcast), and after each later round before the first whose picks
+    differ while the config itself keeps a float32 rounding of its initial
+    parameters within 1e-4 (the yardstick, :func:`_perturbed`).  Past
+    that, a flipped near-tie or the config's own growth of rounding
+    differences makes the two runs different experiments (PERF.md §2):
+    their distance is printed beside the yardstick's.  Each rank's
+    pairwise launches 2 a round, no plain call, no JAX."""
+    import numpy as np
+
+    from murmura_tpu_torch.parallel.launch import launch
+
+    t0 = time.perf_counter()
+    ranks = launch(_lockstep_rank, (config, ref_config, rounds), world=world,
+                   device_type="cuda", one_device=True)
+    wall = time.perf_counter() - t0
+    rec = ranks[0]
+    ref_picks, perturbed = rec["ref"]["picks"], rec["ref"]["perturbed"]
+    checks = rec["checks"]
+    lockstep = len(checks) == rounds and all(ch["ok"] for ch in checks)
+    picks = [ch["picks"] for ch in checks]
+    differing = [r + 1 for r, (a, b) in enumerate(zip(picks, ref_picks))
+                 if not np.array_equal(a, b)]
+    first = differing[0] if differing else rounds + 1
+    last = 0 if first == 1 else 1
+    while 0 < last < first - 1 and perturbed[last] <= 1e-4:
+        last += 1
+    trained = checks[0]["trained"]
+    held = rec["chained"][:last]
+    chain_ok = max(trained) <= 1e-4 and all(ch["ratio"] <= 1.0 for ch in held)
+    launches = [r["launches"] for r in ranks]
+    plain = sum(r["plain"] for r in ranks)
+    each = all(lc["pairwise_sq_distances"] == 2 * rounds for lc in launches)
+    forbidden = sorted({m for r in ranks for m in r["forbidden_modules"]})
+    selected = any(not np.array_equal(p_, np.arange(len(p_))) for p_ in picks)
+    ok = lockstep and chain_ok and each and plain == 0 and not forbidden and selected
+    ties = [t for ch in checks for t in ch["ties"]]
+    print(f"[sharded:{label}] {rec['layout']}", flush=True)
+    print(f"[sharded:{label}] world {world} on cuda:0, {rounds} rounds in {wall:.2f} s of "
+          f"wall (spawn, build, the one-process run in rank 0 and the rounds).  In lockstep with the full-width rule on the "
+          f"same inputs: picks differing {[ch['differ'] for ch in checks]}; distance kappa "
+          f"(group / full-width kernel) "
+          + ", ".join(f"{k[0]:.3g} / {k[1]:.3g}" for k in (ch["kappa"] for ch in checks))
+          + "; differing picks' tie gap / tolerance "
+          + (", ".join(f"round {ch['round'] + 1} node {t['node']} {t['pick']} not "
+                       f"{t['full_pick']}: {t['gap']:.3g} / {t['tol']:.3g} (relative gap "
+                       f"{t['rel_gap']:.3g})" for ch in checks for t in ch["ties"])
+             or "none")
+          + f"; rows bit-equal or the picked candidate's {[ch['rows_ok'] for ch in checks]}.  "
+          f"Chained against the one-process run: round-1 trained rows by node "
+          f"{[float(f'{d:.3g}') for d in trained]} scaled; picks first differ in round "
+          f"{first if differing else None}; parameters after each round (scaled, bound "
+          f"ratio, elements past 1e-4) "
+          + ", ".join(f"({ch['scaled']:.3g}, {ch['ratio']:.3g}, {ch['steps']})"
+                      for ch in rec["chained"])
+          + f", gated through round {last}; the one-process run against itself from "
+          f"initial parameters one float32 rounding apart "
+          f"{[float(f'{d:.3g}') for d in perturbed]}; Krum selected: {selected}; pairwise launches by "
+          f"rank {[lc['pairwise_sq_distances'] for lc in launches]}, plain calls {plain}, "
+          f"forbidden modules {forbidden}; s a round on rank 0 "
+          f"{[round(t, 4) for t in rec['round_times']]}: {'ok' if ok else 'FAILED'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"the sharded run {label} disagrees with the unsharded rule or run")
+    return {"launches": {k: sum(lc[k] for lc in launches) for k in launches[0]},
+            "launches_by_rank": launches, "wall": wall, "trained": max(trained),
+            "chained": rec["chained"], "gated_through": last, "perturbed": perturbed,
+            "first_differing_round": first if differing else None,
+            "tie_worst": max((t["gap"] / t["tol"] for t in ties), default=0.0),
+            "round_times": rec["round_times"], "peaks": [r["peak_bytes"] for r in ranks],
+            "one_process": rec["ref"]}
+
+
+def run_sharded_smoke() -> dict:
+    """Phase 4, param-axis sharding.  (b) ``python -m murmura_tpu_torch run
+    examples/configs/sharded_model.yaml`` as committed in a subprocess:
+    layout (1, 1, 1) on this one card, 20 rounds, one process on the padded
+    flat vector; against the same config at ``tpu.param_shards: 1`` in this
+    process (history within a scaled 1e-4, bit-equality printed).  (c)
+    the same config in a group of 4 on cuda:0 (:func:`_sharded_group`), 5
+    rounds, against the one-process run's first 5.  (d) bench_scaling.py's
+    acceptance cell at world 8 on cuda:0 against its one-process run, each
+    rank's peak device memory beside the one-process peak and the analytic
+    flat bytes."""
+    import torch
+    import yaml
+
+    from murmura_tpu_torch.config.schema import Config
+
+    t_all = time.perf_counter()
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    out = {}
+    # (b) the CLI as committed, in a subprocess with its counters.
+    hist_path = SMOKE_DIR / "sharded_model.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_WITH_COUNTS, "run", str(SHARDED_MODEL), "--device",
+         "cuda", "-o", str(hist_path)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"sharded_model.yaml failed on the card:\n{proc.stdout[-2000:]}"
+                             f"\n{proc.stderr[-4000:]}")
+    layout = [ln for ln in proc.stdout.splitlines() if ln.startswith("param layout")]
+    counts = _cli_counts(proc.stdout)
+    cli_hist = json.loads(hist_path.read_text())
+    raw = yaml.safe_load(SHARDED_MODEL.read_text())
+    rounds = raw["experiment"]["rounds"]
+    one = dict(raw, tpu={**raw["tpu"], "param_shards": 1})
+    ref = _unsharded(Config.model_validate(one), rounds)
+    delta = max(_scaled_np(cli_hist[k], v) for k, v in ref["history"].items() if v)
+    bit_equal = cli_hist == ref["history"]
+    launches_ok = (counts["launches"]["pairwise_sq_distances"] == 2 * rounds
+                   and not any(counts["plain"].values()))
+    ok = (layout == ["param layout (seed, nodes, param) (1, 1, 1) over 1 cuda device(s): "
+                     "one process, unsharded, on the padded flat vector"]
+          and cli_hist["round"] == list(range(1, rounds + 1)) and delta <= 1e-4
+          and launches_ok)
+    print(f"[sharded:committed] {layout}; sharded_model.yaml as committed, {rounds} rounds, "
+          f"{cli_wall:.2f} s of process wall: history within {delta:.3g} scaled of "
+          f"tpu.param_shards 1 (bit-equal {bit_equal}), launches {counts['launches']}, plain "
+          f"{counts['plain']}; final mean accuracy {cli_hist['mean_accuracy'][-1]:.4f}; "
+          f"param_shards 1 steady s/round {_steady(ref['round_times']):.4f}, peak "
+          f"{ref['peak_bytes'] / 1e9:.3f} GB: {'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError("sharded_model.yaml on one card disagrees with param_shards 1")
+    out["sharded:committed"] = {"launches": counts["launches"], "wall": cli_wall,
+                                "delta": delta, "bit_equal": bit_equal}
+    # (c) the same config in a group of 4 on cuda:0.
+    out["sharded:world4"] = _sharded_group(Config.model_validate(raw),
+                                           Config.model_validate(one), 4,
+                                           SHARDED_CHECK_ROUNDS, "world4")
+    del ref
+    # (d) the acceptance cell in a group of 8, against its one-process run.
+    acc = Config.model_validate(ACCEPTANCE)
+    res = _sharded_group(acc, acc, ACCEPTANCE_WORLD, acc.experiment.rounds, "acceptance")
+    ref = res["one_process"]
+    p_pad = ref["flat_dim"]
+    whole = 16 * p_pad * 4
+    print(f"[sharded:acceptance] P {ref['model_dim']:,} (padded {p_pad:,}): analytic flat "
+          f"bytes a rank 16 x P_pad/{ACCEPTANCE_WORLD} x 4 B = {whole // ACCEPTANCE_WORLD:,} "
+          f"against 16 x P_pad x 4 B = {whole:,} in one process; peak device memory by rank "
+          f"{[round(b / 1e9, 3) for b in res['peaks']]} GB against the one-process "
+          f"{ref['peak_bytes'] / 1e9:.3f} GB; one process s/round "
+          f"{[round(t, 4) for t in ref['round_times']]}", flush=True)
+    res.update(one_process_peak=ref["peak_bytes"], flat_bytes=whole)
+    out["sharded:acceptance"] = res
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[sharded] the sharding runs took {time.perf_counter() - t_all:.2f} s", flush=True)
+    return out
+
+
+
 def main() -> int:
     started = time.perf_counter()
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
@@ -4567,6 +5335,8 @@ def main() -> int:
     daemon = run_serve_daemon_smoke()
     flagship_daemon = run_flagship_daemon_smoke()
     mains["serve:flagship"] = flagship_daemon
+    sharded = run_sharded_smoke()
+    mains.update(sharded)
     pop, scen, dm = (mains["krum:population_1m"], mains["krum:population_1m_scenario"],
                      mains["fedavg:dmtt_mobility"])
     pop_s, scen_s = float(np.mean(pop["s_per_round"][1:])), float(np.mean(scen["s_per_round"][1:]))
@@ -4661,6 +5431,17 @@ def main() -> int:
           + f"; the flagship daemon: generation 1 {flagship_daemon['gen1_s']:.2f} s (the bucket "
           f"built), generation 2 {flagship_daemon['gen2_s']:.2f} s, peak "
           f"{flagship_daemon['peak_gb']:.2f} GB; no claim", flush=True)
+    w4, acc = sharded["sharded:world4"], sharded["sharded:acceptance"]
+    print(f"[sharded] sharded_model.yaml on this card: one process, {SHARDED_MODEL.stem} "
+          f"history within {sharded['sharded:committed']['delta']:.3g} scaled of "
+          f"param_shards 1; a group of 4 on cuda:0 (gloo, staged): s a round on rank 0 "
+          f"{[round(t, 4) for t in w4['round_times']]}, round-1 trained rows "
+          f"{w4['trained']:.3g} scaled from one process, picks first differ in round "
+          f"{w4['first_differing_round']}; the acceptance cell in a group of {ACCEPTANCE_WORLD}: s a round "
+          f"{[round(t, 4) for t in acc['round_times']]}, peak a rank "
+          f"{max(acc['peaks']) / 1e9:.3f} GB against {acc['one_process_peak'] / 1e9:.3f} GB in "
+          f"one process; {len(acc['peaks'])} ranks share one card: a check of the collective "
+          "code, not a speed of sharding; no claim", flush=True)
     mains.update(round64)
     flagship_s = float(sum(mains["krum:allgather"]["s_per_round"][1:])
                        / (len(mains["krum:allgather"]["s_per_round"]) - 1))
@@ -4696,6 +5477,9 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": sum(by_run.values()),
             "launches_by_run": by_run,
+            # The param groups' runs (summed over their ranks), also in the
+            # totals above.
+            "sharded": {lab: n for lab, n in by_run.items() if lab.startswith("sharded:")},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in round_rows),
             "plain_ms": sum(r["plain_ms"] for r in round_rows),

@@ -25,6 +25,7 @@ from murmura_tpu_torch.aggregation.base import (
     exchange_offsets_of,
     masked_neighbor_mean,
     pairwise_l2_distances,
+    row_norms,
 )
 
 
@@ -66,7 +67,7 @@ def make_balance(
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):
         n = own.shape[0]
-        own_norm = torch.sqrt(torch.sum(own * own, dim=-1))
+        own_norm = row_norms(own)
         threshold = time_factor(round_idx, ctx.total_rounds, gamma, kappa).to(own.device) * own_norm
 
         if offsets is not None:

@@ -13,6 +13,11 @@ A rule is one function over the whole network:
 takes the [k, N] edge mask as ``adj``: ``adj[j, i]`` is the edge ``i <- (i
 + offsets[j]) % N``, and its circulant path weighs or masks each offset's
 candidates by it.
+
+Under a param group (parallel/mesh.py) a rule runs on its rank's column
+block of ``own`` and ``bcast``: the distance helpers and :func:`row_norms`
+sum their partials over the group before the square root, and everything
+else a rule does is column-local or works on those replicated results.
 """
 
 from dataclasses import dataclass, field
@@ -22,6 +27,7 @@ import torch
 from torch.func import vmap
 
 from murmura_tpu_torch.ops import agg_kernels
+from murmura_tpu_torch.parallel.mesh import reduce_partial_
 
 Stats = Dict[str, torch.Tensor]
 AggState = Dict[str, torch.Tensor]
@@ -132,8 +138,14 @@ def circulant_in_degree(edge_k: torch.Tensor, offsets) -> torch.Tensor:
 
 
 
+def row_norms(x: torch.Tensor) -> torch.Tensor:
+    """[N] L2 norm of each row, in ``x``'s dtype (a column block's squared
+    partial summed over the active param group first)."""
+    return torch.sqrt(reduce_partial_(torch.sum(x * x, dim=-1)))
+
+
 def pairwise_l2_distances(
-    a: torch.Tensor, b: Optional[torch.Tensor] = None
+    a: torch.Tensor, b: Optional[torch.Tensor] = None, replicated: bool = False
 ) -> torch.Tensor:
     """L2 distance matrix D[i, j] = |a_i - b_j| through the pairwise kernel.
 
@@ -144,24 +156,33 @@ def pairwise_l2_distances(
     The kernel subtracts the center row as it loads the values, so no
     centered copy of ``a`` or ``b`` is made.  The kernel takes float32, so
     bf16 parameters are widened here.
+
+    Under a param group the operands are column blocks and the squared
+    partials are summed over the group (the center is column-local);
+    ``replicated`` operands (whole on every rank: Sketchguard's sketches)
+    are not summed.
     """
     a32 = a.to(torch.float32).contiguous()
     b32 = None if b is None else b.to(torch.float32).contiguous()
     d2 = agg_kernels.pairwise_sq_distances(a32, b32, center=a32.mean(dim=0))
+    d2 = reduce_partial_(d2, replicated)
     return torch.sqrt(torch.clamp(d2, min=0.0))
 
 
 def circulant_neighbor_distances(
-    own: torch.Tensor, bcast: torch.Tensor, offsets: Sequence[int]
+    own: torch.Tensor, bcast: torch.Tensor, offsets: Sequence[int],
+    replicated: bool = False,
 ) -> torch.Tensor:
     """[k, N] distances D[o, i] = |own_i - bcast[(i + o) mod N]| through the
-    circulant kernel (no Gram identity, so no centering is needed)."""
+    circulant kernel (no Gram identity, so no centering is needed); the
+    squared partials summed over a param group unless ``replicated``, as
+    in :func:`pairwise_l2_distances`."""
     d2 = agg_kernels.circulant_sq_distances(
         own.to(torch.float32).contiguous(),
         bcast.to(torch.float32).contiguous(),
         offsets,
     )
-    return torch.sqrt(d2)
+    return torch.sqrt(reduce_partial_(d2, replicated))
 
 
 # Per-rolled-copy budget (bytes) of the circulant helpers' P chunks.

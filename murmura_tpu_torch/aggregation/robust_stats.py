@@ -29,6 +29,7 @@ from murmura_tpu_torch.aggregation.base import (
     circulant_weighted_sum,
     exchange_offsets_of,
     pairwise_l2_distances,
+    row_norms,
 )
 from murmura_tpu_torch.ops import candidate_kernels
 
@@ -252,7 +253,7 @@ def make_geometric_median(
     offsets = exchange_offsets_of(exchange_offsets, sparse_exchange)
 
     def self_distance(own, z):
-        return torch.sqrt(torch.square((own - z).to(torch.float32)).sum(dim=-1))
+        return row_norms((own - z).to(torch.float32))
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):
         n = own.shape[0]

@@ -10,6 +10,11 @@ the [N, N] sketch distances and only the full-state mean goes through the
 circulant shifts; under the sparse exchange the filter too runs on the
 circulant [k, N] sketch distances (the circulant kernel), gated by the
 edge mask, so nothing [N, N] is built.
+
+Under a param group each rank sketches its column block with the tables'
+columns of that block and the [N, S] partials are summed over the group
+(the same sum in another order); the sketch distances then run on whole,
+replicated sketches and are not summed again (``replicated=True``).
 """
 
 from typing import Optional, Sequence
@@ -30,6 +35,8 @@ from murmura_tpu_torch.aggregation.base import (
     pairwise_l2_distances,
 )
 from murmura_tpu_torch.ops.sketch import build_sketch_tables, count_sketch
+from murmura_tpu_torch.ops.sketch_kernels import SketchTables
+from murmura_tpu_torch.parallel.mesh import active_param_group, reduce_partial_
 
 
 def make_sketchguard(
@@ -50,6 +57,22 @@ def make_sketchguard(
     # The threshold logic reads only the last 3 rates of the window, so a
     # window under 3 disables the attack factor (the JAX package's rule).
     window = max(1, int(attack_detection_window))
+    block_tables = {}
+
+    def local_tables() -> SketchTables:
+        """The tables of the active group's column block (all of them off
+        a group), built once a block."""
+        group = active_param_group()
+        if group is None:
+            return tables
+        c0, c1 = group.cols
+        if (c0, c1) not in block_tables:
+            block_tables[(c0, c1)] = SketchTables(tables.hash[c0:c1], tables.sign[c0:c1],
+                                                  sketch_size)
+        return block_tables[(c0, c1)]
+
+    def sketch(x):
+        return reduce_partial_(count_sketch(x.to(torch.float32), local_tables()))
 
     def init_state(num_nodes: int):
         return {
@@ -70,7 +93,8 @@ def make_sketchguard(
         closest-neighbour fallback and the degree."""
         n = own.shape[0]
         edge_b = adj > 0
-        d_k = circulant_neighbor_distances(own_sk, bcast_sk, offsets)  # [k, N]
+        d_k = circulant_neighbor_distances(own_sk, bcast_sk, offsets,
+                                           replicated=True)  # [k, N]
         accept_b = edge_b & (d_k <= threshold[None, :])
         count = accept_b.sum(dim=0)
         closest = torch.argmin(
@@ -94,8 +118,8 @@ def make_sketchguard(
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):
         n = own.shape[0]
         # Two launches, one per tensor: stacking them would copy [2N, P].
-        own_sk = count_sketch(own.to(torch.float32), tables)
-        bcast_sk = count_sketch(bcast.to(torch.float32), tables)
+        own_sk = sketch(own)
+        bcast_sk = sketch(bcast)
         own_sk_norm = torch.sqrt(torch.sum(own_sk * own_sk, dim=-1))
 
         window_active = (state["window_len"] >= 3) & (window >= 3)
@@ -106,7 +130,7 @@ def make_sketchguard(
 
         if sparse_exchange:
             return sparse_filter(own, bcast, adj, own_sk, bcast_sk, threshold, state)
-        sk_dist = pairwise_l2_distances(own_sk, bcast_sk)
+        sk_dist = pairwise_l2_distances(own_sk, bcast_sk, replicated=True)
         accepted = accept_with_closest_fallback(sk_dist, adj, threshold, min_neighbors)
         if offsets is not None:
             # Only the k offset columns of the accepted mask can be nonzero.

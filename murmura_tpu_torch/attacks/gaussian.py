@@ -5,6 +5,8 @@ state + N(0, noise_std^2) noise.
 Noise is drawn for the C compromised rows only, from a ``torch.Generator``
 on the tensor's device.  ``noise`` injects a [C, P] standard-normal draw
 instead (the RNG seam the tests use to feed the JAX package's draw).
+Under a param group the draw (or the injected noise) is the whole width's,
+cut to the rank's column block, so that it keeps the unsharded run's bits.
 """
 
 from typing import Optional
@@ -14,6 +16,7 @@ import torch
 
 from murmura_tpu_torch.attacks.base import Attack, check_rows, select_compromised
 from murmura_tpu_torch.ops.agg_kernels import _offsets_on
+from murmura_tpu_torch.parallel.mesh import full_width, local_columns
 
 
 def make_gaussian_attack(
@@ -36,12 +39,12 @@ def make_gaussian_attack(
             return flat
         # A device copy made once, so that a round makes no host sync.
         idx = _offsets_on(tuple(comp_idx.tolist()), flat.device)
-        shape = (len(comp_idx),) + tuple(flat.shape[1:])
+        shape = (len(comp_idx), full_width(flat.shape[1]))
         if noise is None:
             noise = torch.randn(
                 shape, generator=generator, device=flat.device, dtype=torch.float32
             )
-        noise = noise.to(torch.float32) * noise_std * compromised_mask[idx, None]
+        noise = local_columns(noise).to(torch.float32) * noise_std * compromised_mask[idx, None]
         out = flat.clone()
         out[idx] = (flat[idx].to(torch.float32) + noise).to(flat.dtype)
         return out

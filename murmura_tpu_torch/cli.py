@@ -30,6 +30,15 @@ renders as plain text or JSON.  ``--profile`` turns telemetry on and
 traces the configured round window (the whole run when none is set) with
 torch.profiler, written as Chrome trace JSON under ``<run_dir>/trace``.
 
+A config with ``tpu.param_shards`` > 1 (param-axis sharding) is laid out
+as the JAX package lays its mesh, over the devices there are
+(parallel/mesh.py ``plan_layout``; on the CPU ``tpu.num_devices``, else
+``param_shards``): a param axis above 1 runs that many ranks of one
+``torch.distributed`` group (parallel/launch.py), over gloo on the CPU and
+over NCCL with rank r on ``cuda:r``; rank 0 prints and writes.  On one
+card the layout is (1, 1, 1): one process, unsharded, on the padded flat
+vector.  The layout is printed on a line of its own.
+
 ``sweep`` runs the config's ``sweep:`` members (or the ``--seeds`` list)
 as one gang (core/gang.py) and ``run --seeds N`` the seeds experiment.seed
 .. +N-1 (1 is a single run): it prints the members' final round and writes
@@ -86,6 +95,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from murmura_tpu_torch.parallel.mesh import plan_layout, process_group
 from murmura_tpu_torch.utils.checkpoint import has_checkpoint
 
 
@@ -253,6 +263,21 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
     checkpoint_dir, checkpoint_every, resume, retries = resolve_durability(
         config, checkpoint_dir, checkpoint_every, resume, retries)
     enforce_require_tpu(config, dev, require_tpu)
+    group = process_group()
+    if group is None and config.backend == "tpu" and config.tpu.param_shards > 1:
+        layout, n_dev = plan_layout(config.topology.num_nodes, config.tpu.param_shards,
+                                    dev.type, config.tpu.num_devices)
+        world = layout[2]
+        how = (f"{world} ranks over {'nccl' if dev.type == 'cuda' else 'gloo'}" if world > 1
+               else "one process, unsharded, on the padded flat vector")
+        print(f"param layout (seed, nodes, param) {layout} over {n_dev} {dev.type} "
+              f"device(s): {how}", flush=True)
+        if world > 1:
+            from murmura_tpu_torch.parallel.launch import launch
+
+            args = (config_path, output, device, verbose, profile, checkpoint_dir,
+                    checkpoint_every, resume, require_tpu, retries)
+            return launch(_cli_rank, args, world=world, device_type=dev.type)[0], None
     if profile:
         config.telemetry.enabled = True
         if config.telemetry.profile_rounds == 0:
@@ -269,6 +294,8 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
     )
     network = build_network_from_config(
         config, device=dev, checkpoint_dir=checkpoint_dir if resume else None)
+    if network.group is not None:
+        print(network.group.describe(), flush=True)
     try:
         if resume:
             if has_checkpoint(checkpoint_dir):
@@ -291,6 +318,8 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
         if network.telemetry is not None:
             network.telemetry.close()
     display_results(history)
+    if group is not None and group.rank != 0:
+        return history, network
     if output is not None:
         output.parent.mkdir(parents=True, exist_ok=True)
         output.write_text(json.dumps(history, indent=2))
@@ -299,6 +328,15 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
         print(f"Telemetry run written to {default_telemetry_dir(config)} — render it "
               "with `python -m murmura_tpu_torch report <dir>`")
     return history, network
+
+
+def _cli_rank(config_path, output, device, verbose, profile, checkpoint_dir,
+              checkpoint_every, resume, require_tpu, retries):
+    """One rank of a sharded ``run`` (parallel/launch.py): the same run, in
+    the rank's group; returns the history."""
+    return run(config_path, output, device, verbose, profile, checkpoint_dir=checkpoint_dir,
+               checkpoint_every=checkpoint_every, resume=resume, require_tpu=require_tpu,
+               retries=retries)[0]
 
 
 def display_sweep(gang, histories) -> None:

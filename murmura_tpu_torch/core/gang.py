@@ -762,6 +762,20 @@ class GangNetwork:
     def _labels(self) -> List[str]:
         return [m.label for m in self.members]
 
+    def _durability_params(self):
+        return self.flat, self.agg_state
+
+    def _durability_layout(self):
+        from murmura_tpu_torch.durability.snapshot import describe_state
+
+        return describe_state(self.flat, self.agg_state)
+
+    def _durability_set_params(self, flat, agg_state) -> None:
+        self.flat, self.agg_state = flat, agg_state
+
+    def _durability_writes(self) -> bool:
+        return True
+
     def _durability_history(self):
         return {"gang_members": self.histories, "labels": self._labels()}
 

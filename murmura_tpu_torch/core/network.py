@@ -13,6 +13,13 @@ trace, written as Chrome trace JSON) over the configured rounds.  With a
 checkpoint directory it snapshots the whole run state on the chunk
 cadence (durability/snapshot.py) and restores it exactly.
 
+Over a param group's round program (parallel/mesh.py) every rank runs the
+same Network: ``flat`` is the rank's own node rows and the carried [N, P]
+state its column blocks, eval's metrics come back whole on every rank (so
+each keeps the same history), the snapshot is gathered into the ordinary
+layout and written by rank 0 alone, and only rank 0 has a telemetry
+writer (utils/factories.py).
+
 The two runtime guards of the ``tpu:`` section keep their names:
 
 - ``transfer_guard``: every chunk after the first of its (chunk, eval_every)
@@ -43,6 +50,7 @@ from murmura_tpu_torch.attacks.base import Attack
 from murmura_tpu_torch.core.rounds import RoundProgram, build_multi_round
 from murmura_tpu_torch.faults.schedule import FaultSchedule
 from murmura_tpu_torch.ops import _build
+from murmura_tpu_torch.parallel.mesh import barrier, gather_columns, gather_rows
 from murmura_tpu_torch.topology.base import Topology
 from murmura_tpu_torch.topology.sparse import SparseTopology
 from murmura_tpu_torch.utils.checkpoint import committed_bytes
@@ -279,6 +287,11 @@ class Network:
                 "per-round graph)"
             )
         self.program = program
+        self.group = program.group
+        if self.group is not None and self.group.staged and transfer_guard:
+            raise ValueError(
+                "tpu.transfer_guard does not compose with a gloo param group on CUDA "
+                "tensors: its all_to_all is staged through host memory every round")
         self.topology = topology
         self.mobility = mobility
         self.attack = attack
@@ -457,6 +470,9 @@ class Network:
 
         t0 = time.perf_counter()
         nbytes = save_run_snapshot(directory, self)
+        if self.group is not None:
+            # Rank 0 writes: no rank goes on before the snapshot is committed.
+            barrier(self.group)
         self._log_checkpoint("save", self.current_round, nbytes, time.perf_counter() - t0,
                              directory)
 
@@ -489,15 +505,59 @@ class Network:
     def _durability_history(self):
         return self.history
 
+    def _durability_params(self):
+        """(flat, agg_state) in the snapshot's layout, the whole [N, P]:
+        a param group's row and column blocks gathered to rank 0 (a
+        collective; (None, None) on the other ranks)."""
+        if self.group is None:
+            return self.flat, self.agg_state
+        sharded = self.program.sharded_state_keys
+        flat = gather_rows(self.flat, self.group, dst=0)
+        state = {k: gather_columns(v, self.group, dst=0) if k in sharded else v
+                 for k, v in self.agg_state.items()}
+        if self.group.rank != 0:
+            return None, None
+        return flat, state
+
+    def _durability_layout(self):
+        """The snapshot layout's (shape, dtype) of the flat and of each
+        agg_state key, without gathering anything."""
+        from murmura_tpu_torch.durability.snapshot import describe_state
+
+        flat_desc, state_desc = describe_state(self.flat, self.agg_state)
+        if self.group is None:
+            return flat_desc, state_desc
+        whole = (self.program.num_nodes, self.program.flat_dim)
+        for k in self.program.sharded_state_keys:
+            state_desc[k] = (whole, state_desc[k][1])
+        return (whole, flat_desc[1]), state_desc
+
+    def _durability_set_params(self, flat, agg_state) -> None:
+        """Assign a restored snapshot, cut to a param group's blocks."""
+        if self.group is not None:
+            lo, hi = self.group.rows
+            c0, c1 = self.group.cols
+            flat = flat[lo:hi].contiguous()
+            agg_state = {k: v[:, c0:c1].contiguous() if k in self.program.sharded_state_keys
+                         else v for k, v in agg_state.items()}
+        self.flat, self.agg_state = flat, agg_state
+
+    def _durability_writes(self) -> bool:
+        """Whether this process writes the snapshot (rank 0 of a group)."""
+        return self.group is None or self.group.rank == 0
+
     def _durability_set_history(self, history) -> None:
         self.history = history
 
     def _durability_extra_state(self):
         """(arrays, meta) extra sections: the telemetry run id, stable
-        across resumes."""
+        across resumes, and a padded program's shard count (the flat pad is
+        a function of it)."""
         meta = {}
         if self.telemetry is not None:
             meta["telemetry_run_id"] = self.telemetry.run_id
+        if self.program.param_shards > 1:
+            meta["param_shards"] = int(self.program.param_shards)
         return {}, meta
 
     def _durability_validate_extra(self, arrays, meta) -> None:
@@ -510,6 +570,17 @@ class Network:
                 f"snapshot carries extra sections {foreign} this orchestrator does not "
                 "understand — it was written by a population/gang run; rebuild with the "
                 "matching config"
+            )
+        snap_shards = int(meta.get("param_shards", 1))
+        ours = int(self.program.param_shards)
+        if snap_shards != ours:
+            raise ValueError(
+                f"snapshot was written by a param-sharded run with "
+                f"tpu.param_shards={snap_shards} but this run has "
+                f"param_shards={ours} — the flat pad (and the mesh "
+                "layout the cache rows restore into) is a function of "
+                "the shard count; rebuild with the matching "
+                "tpu.param_shards"
             )
 
     def _durability_restore_extra(self, arrays, meta) -> None:

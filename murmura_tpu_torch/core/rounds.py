@@ -54,6 +54,18 @@ of [N] node flags, so nothing O(N^2) is built.
    per-node masked loss and accuracy over the held-out arrays, and the
    Dirichlet vacuity, entropy and strength for an evidential model.
 
+A program built with ``param_shards`` > 1 pads the flat vector to a
+multiple of the shard count (``flat_dim``, the pad columns exact zeros,
+zeroed again after every round as the JAX package's ravel does).  Built
+with a ``group`` (parallel/mesh.py) it is one rank of a param group:
+``flat`` is the rank's own node rows ``[R_r, flat_dim]``, local training
+and eval run on them (the draws taken whole and cut to the rows, so that
+every draw keeps the unsharded run's bits), ``rows_to_columns`` turns the
+trained rows into the rank's ``[N, flat_dim / W]`` column block, the whole
+aggregation side (steps 2-3, the carried [N, P] state included) runs on
+column blocks under ``param_group_scope``, and ``columns_to_rows`` returns
+the new rows; eval's per-node metrics are gathered over the group.
+
 ``train_step(..., data=)`` runs the round on other rows of the data
 arrays than the program's own (the population engine's cohort, whose
 slots train, probe and evaluate on their users' shards), the program's
@@ -134,6 +146,7 @@ from murmura_tpu_torch.ops.compress import (
 )
 from murmura_tpu_torch.ops.flatten import (
     make_flatteners,
+    make_sharded_flatteners,
     tree_leaves,
     tree_map,
     tree_to_torch,
@@ -144,6 +157,15 @@ from murmura_tpu_torch.ops.losses import (
     masked_cross_entropy,
     uncertainty_metrics,
 )
+from murmura_tpu_torch.parallel.mesh import (
+    ParamGroup,
+    all_columns,
+    block,
+    columns_to_rows,
+    gather_rows,
+    param_group_scope,
+    rows_to_columns,
+)
 
 
 # Eval samples per chunk (the JAX package's default eval_chunk).
@@ -153,6 +175,10 @@ EVAL_CHUNK = 1024
 # over its members (core/gang.py).
 TRAIN_DATA_KEYS = ("x", "y", "mask", "num_samples", "eff_batch", "steps")
 EVAL_DATA_KEYS = ("eval_x", "eval_y", "eval_mask")
+
+# The rules whose probe forwards need whole neighbour rows: not run over a
+# param group.
+PROBE_RULES = ("ubar", "evidential_trust")
 
 # Weight of the evidential loss's KL term once annealed in (the JAX
 # factories' lambda_weight).
@@ -212,6 +238,14 @@ class RoundProgram:
     sparse_offsets: Tuple[int, ...] = ()
     # The DMTT parameters of a program that runs the trust protocol.
     dmtt: Optional[DMTTParams] = None
+    # Param-axis sharding: the shard count the flat vector is padded for,
+    # its padded width (== model_dim unless padded), the rank's bound group
+    # (None: one process) and the agg_state keys held as [N, flat_dim / W]
+    # column blocks under a group.
+    param_shards: int = 1
+    flat_dim: int = 0
+    group: Optional[ParamGroup] = None
+    sharded_state_keys: Tuple[str, ...] = ()
 
     @property
     def sparse(self) -> bool:
@@ -230,11 +264,18 @@ def round_generators(seed: int, round_idx: int, device) -> Dict[str, torch.Gener
     return gens
 
 
-def init_stacked_params(model: Model, n: int, seed: int, device) -> Any:
-    """Initial [N, ...]-stacked params, node after node from one generator."""
+def init_stacked_params(model: Model, n: int, seed: int, device,
+                        rows: Optional[Tuple[int, int]] = None) -> Any:
+    """Initial [N, ...]-stacked params, node after node from one generator;
+    ``rows`` keeps the nodes [lo, hi) of that stream only."""
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
-    per_node = [model.init(g, device) for _ in range(n)]
+    lo, hi = (0, n) if rows is None else rows
+    per_node = []
+    for i in range(hi):
+        params = model.init(g, device)
+        if i >= lo:
+            per_node.append(params)
     leaves = [tree_leaves(p) for p in per_node]
     return tree_unflatten(
         per_node[0], [torch.stack(group) for group in zip(*leaves)]
@@ -264,6 +305,8 @@ def build_round_program(
     sparse_offsets: Optional[Sequence[int]] = None,
     attack_scale: Optional[float] = None,
     dmtt: Optional[DMTTParams] = None,
+    param_shards: int = 1,
+    group: Optional[ParamGroup] = None,
 ) -> RoundProgram:
     """Round step for a network of ``data.num_nodes`` nodes on ``device``
     (the card unless the caller asks for the CPU; without CUDA a ``cuda``
@@ -296,6 +339,15 @@ def build_round_program(
     ``dmtt`` runs the trust protocol (step 2e) on the dense exchange; it
     refuses the sparse exchange, compression, staleness and pipelining, as
     the JAX package does.
+
+    ``param_shards`` (tpu.param_shards) pads the flat vector to a multiple
+    of the shard count; with it DMTT, top-k compression and an int8 block
+    that does not divide the shard-local width are refused in the JAX
+    package's words.  ``group`` (a rank's ParamGroup, its world the shard
+    count or a divisor of it, as the layout's fallback picks) builds that
+    rank's program (module docstring); it also refuses
+    a gang's trained rows, another ``data=`` and the probe rules (UBAR and
+    evidential trust, whose probe forwards need whole neighbour rows).
 
     An adaptive ``attack`` (attacks/adaptive.py) turns ``audit_taps`` on:
     the taps are its feedback.  Its state rides ``agg_state`` under its
@@ -341,6 +393,38 @@ def build_round_program(
         ):
             if clash:
                 raise ValueError(why)
+    param_shards = int(param_shards)
+    if param_shards < 1:
+        raise ValueError(f"param_shards must be >= 1, got {param_shards}")
+    if group is not None and param_shards % group.world:
+        raise ValueError(
+            f"the param group's {group.world} ranks do not divide the program's "
+            f"param_shards={param_shards}")
+    if group is not None and group.world > n:
+        raise ValueError(
+            f"a param group of {group.world} ranks needs at least {group.world} nodes "
+            f"(each rank trains its own node rows), but there are {n}: lower "
+            f"tpu.param_shards (or tpu.num_devices) to at most {n}")
+    if param_shards > 1:
+        if dmtt is not None:
+            raise ValueError(
+                "param-axis sharding does not compose with DMTT (the "
+                "N x N claim cross-evaluation unravels every broadcast "
+                "row into a full model per pair — there is no sharded "
+                "formulation of that sweep)"
+            )
+        if compression is not None and compression.algorithm == "topk":
+            raise ValueError(
+                "param-axis sharding does not compose with topk "
+                "compression: the per-row global top-k needs the full "
+                "[P] row resident on one device, defeating the shard — "
+                "use the int8 codec (its per-block scales shard with P)"
+            )
+    if group is not None and agg.name in PROBE_RULES:
+        raise ValueError(
+            f"param-axis sharding over a process group does not run {agg.name} yet: "
+            "its probe forwards (aggregation/probe.py) need whole neighbour rows, "
+            "which a rank holds only as a column block")
     claims_fn = attack.claims_fn if attack is not None else None
     adaptive = isinstance(attack, AdaptiveAttack)
     if adaptive:
@@ -392,12 +476,38 @@ def build_round_program(
     annealing_rounds = max(1, total_rounds // 2)
     p_size = int(min(data.max_samples, probe_size or global_batch))
 
-    if init_params is None:
+    rows = None if group is None else block(n, group.world, group.rank)
+    if init_params is None and rows is None:
         stacked = init_stacked_params(model, n, seed, device)
+    elif init_params is None:
+        stacked = init_stacked_params(model, n, seed, device, rows=rows)
     else:
         stacked = tree_to_torch(init_params, device, torch.float32)
+        if rows is not None:
+            stacked = tree_map(lambda l: l[rows[0]:rows[1]].contiguous(), stacked)
     template = tree_map(lambda l: l[0], stacked)
-    ravel, unravel, model_dim = make_flatteners(template)
+    if param_shards > 1:
+        ravel, unravel, model_dim, flat_dim = make_sharded_flatteners(template, param_shards)
+    else:
+        ravel, unravel, model_dim = make_flatteners(template)
+        flat_dim = model_dim
+    if group is not None:
+        group = group.bind(n, flat_dim)
+    if param_shards > 1 and compression is not None:
+        # int8 per-block scales must shard with the payload: a block that
+        # straddled a shard boundary would take its scale across shards.
+        local = flat_dim // param_shards
+        if local % compression.block:
+            raise ValueError(
+                f"compression.block={compression.block} does not divide "
+                f"the shard-local flat width {local} (flat_dim "
+                f"{flat_dim} over {param_shards} param shards) — a quant "
+                "block straddling a shard boundary would compute its "
+                "scale across shards; pick a block dividing "
+                f"{local} (or adjust tpu.param_shards)"
+            )
+    # The width of every carried [N, P] tensor: a column block under a group.
+    state_width = flat_dim if group is None else group.local_cols
     pdt = torch.float32 if param_dtype in (None, "float32") else getattr(torch, param_dtype)
     init_flat = ravel(stacked, batch_dims=1).to(pdt).contiguous()
 
@@ -425,6 +535,10 @@ def build_round_program(
     d["probe_x"] = d["x"][:, :p_size]
     d["probe_y"] = d["y"][:, :p_size]
     d["probe_mask"] = d["mask"][:, :p_size]
+    # The rows a rank trains and evaluates (all of them in one process).
+    own_rows = slice(0, n) if group is None else slice(*group.rows)
+    d_own = d if group is None else {
+        k: d[k][own_rows] for k in TRAIN_DATA_KEYS + EVAL_DATA_KEYS}
 
     def node_loss(params_i, xb, yb, mb, masks_i, lambda_t):
         outputs = model.apply(params_i, xb, masks_i)
@@ -462,7 +576,11 @@ def build_round_program(
         generator a member, in row order; ``step_lr`` the learning rate, a
         float or one value a row."""
         rows = flat.shape[0]
-        rows_each = rows // len(generators)
+        rows_each, cut = rows // len(generators), None
+        if group is not None:
+            # Each draw is the whole network's, cut to this rank's rows, so
+            # that it keeps the unsharded run's bits.
+            rows_each, cut = n, own_rows
         rows_idx = torch.arange(rows, device=device)
         j = torch.arange(global_batch, device=device)
         batch_mask = (j[None, :] < dd["eff_batch"][:, None]).to(torch.float32)
@@ -476,6 +594,8 @@ def build_round_program(
                     (rows_each,) + tuple(dd["mask"].shape[1:]), generator=g,
                     device=device, dtype=torch.float32,
                 ))
+            if cut is not None:
+                u = u[cut]
             # Shuffle valid samples to the front: invalid slots sort last.
             perm = torch.argsort(u + (1.0 - dd["mask"]) * 10.0, dim=1, stable=True)
             for t in range(max_steps):
@@ -489,6 +609,8 @@ def build_round_program(
                         generators, rows_each,
                         None if mask_draws is None else mask_draws[epoch][t],
                     )
+                    if cut is not None:
+                        masks = [m[cut] for m in masks]
                 grads = grad_fn(params, xb, yb, batch_mask, masks, lambda_t)
                 update = train_mask * (t < dd["steps"]).to(torch.float32)  # [rows]
                 lr_update = step_lr * update
@@ -510,7 +632,7 @@ def build_round_program(
         stack, ``step_lr`` a float or an [rows] tensor (default: lr)."""
         draws = draws or {}
         return local_training(
-            flat, d if data is None else data, train_mask, list(generators),
+            flat, d_own if data is None else data, train_mask, list(generators),
             draws.get("u"), draws.get("dropout"), lambda_of(round_idx),
             lr if step_lr is None else step_lr,
         )
@@ -600,8 +722,14 @@ def build_round_program(
             own_flat = trained
         else:
             with record_function("murmura.train"):
-                own_flat = train_rows(flat.clone(), train_mask, round_idx,
+                own_flat = train_rows(flat.clone(), train_mask[own_rows], round_idx,
                                       [generators.get("train")], data=data, draws=draws)
+        if group is not None:
+            # The trained rows (and the pre-round ones, for the guards) turn
+            # into this rank's column block of every node.
+            own_flat = rows_to_columns(own_flat, group)
+            if pre_flat is not None:
+                pre_flat = rows_to_columns(pre_flat, group)
         fault_stats = {}
         if inject_rows is not None and round_idx >= faults.nan_inject_from_round:
             own_flat = torch.where(
@@ -611,7 +739,7 @@ def build_round_program(
         if faults is not None and faults.nan_quarantine:
             # A non-finite update quarantines the node for the round: its
             # row is replaced, not masked, before any rule math.
-            finite = torch.isfinite(own_flat).all(dim=1)
+            finite = all_columns(torch.isfinite(own_flat).all(dim=1))
             alive_f = alive if alive is not None else torch.ones_like(compromised)
             fault_stats["quarantined"] = ((1.0 - finite.to(torch.float32)) * alive_f).sum()
             if audit_taps:
@@ -650,7 +778,7 @@ def build_round_program(
                 # An attack that overflows to inf/NaN: its broadcast row is
                 # replaced by the sender's own row and dropped from every
                 # receiver; the sender's own state is untouched.
-                bfin = torch.isfinite(bcast).all(dim=1)
+                bfin = all_columns(torch.isfinite(bcast).all(dim=1))
                 bcast = torch.where(bfin[:, None], bcast, own_flat)
                 adj = drop_senders(adj, bfin.to(adj.dtype))
                 fault_stats["attack_scrubbed"] = (1.0 - bfin.to(torch.float32)).sum()
@@ -858,12 +986,26 @@ def build_round_program(
         ``data``: rows of the data arrays (every key of ``RoundProgram.data``)
         to train and probe on instead of the program's own.
         ``attack_scale``: this round's attack scale in place of the build's
-        (a gang member's, which a stage reset changes)."""
+        (a gang member's, which a stage reset changes).  Under a group
+        ``flat`` and the returned parameters are the rank's own rows."""
         check_alive(alive)
         if attack_scale is not None and attack is None:
             raise ValueError("attack_scale was given but no attack is configured")
-        return body(flat, agg_state, adj, compromised, alive, round_idx, generators, draws,
-                    trained, data, attack_scale)
+        if group is not None and (trained is not None or data is not None):
+            raise ValueError(
+                "a param group's round trains its own rows of its own data: a gang's "
+                "trained rows and another data= are not run sharded")
+        with param_group_scope(group):
+            new_flat, agg_state, metrics = body(flat, agg_state, adj, compromised, alive,
+                                                round_idx, generators, draws, trained, data,
+                                                attack_scale)
+        if group is not None:
+            new_flat = columns_to_rows(new_flat, group)
+        if flat_dim > model_dim:
+            # The pad stays exact zeros, as the JAX package's ravel remakes
+            # it every round (a picked broadcast row carries its attack's pad).
+            new_flat[:, model_dim:] = 0
+        return new_flat, agg_state, metrics
 
     def train_flat(flat, agg_state, adj, compromised, round_idx, generators=None, draws=None,
                    alive=None):
@@ -883,8 +1025,14 @@ def build_round_program(
     @record_function("murmura.eval")
     def eval_step(flat: torch.Tensor, data=None) -> Dict[str, torch.Tensor]:
         """Per-row eval metrics of ``flat``'s rows against the matching rows
-        of ``data``'s eval arrays (default: this program's)."""
-        dd = d if data is None else data
+        of ``data``'s eval arrays (default: this program's).  Under a group
+        each rank evaluates its own rows and every rank gets all N."""
+        metrics = eval_rows(flat, d_own if data is None else data)
+        if group is None:
+            return metrics
+        return {k: gather_rows(v, group) for k, v in metrics.items()}
+
+    def eval_rows(flat: torch.Tensor, dd) -> Dict[str, torch.Tensor]:
         x, y, mask = dd["eval_x"], dd["eval_y"], dd["eval_mask"]
         n = flat.shape[0]
         params = unravel(flat)
@@ -927,7 +1075,9 @@ def build_round_program(
             )
         # The top-k reference starts at the initial broadcast, which a
         # deployment sends in full once at set-up.
-        init_agg_state.update(init_compress_state(compression, init_flat))
+        init_agg_state.update(init_compress_state(
+            compression, init_flat if group is None else
+            torch.zeros((n, state_width), dtype=init_flat.dtype, device=device)))
     if staleness is not None:
         clash = set(STALE_STATE_KEYS) & set(init_agg_state)
         if clash:
@@ -936,7 +1086,7 @@ def build_round_program(
                 "reserved for the bounded-staleness exchange"
             )
         init_agg_state.update(
-            init_stale_state(staleness, n, model_dim, init_flat.dtype, device))
+            init_stale_state(staleness, n, state_width, init_flat.dtype, device))
     if adaptive:
         clash = set(attack.state_keys) & set(init_agg_state)
         if clash:
@@ -956,7 +1106,7 @@ def build_round_program(
                 "reserved for the pipelined exchange"
             )
         init_agg_state.update(init_pipeline_state(
-            n, model_dim, init_flat.dtype, sparse_offsets=sparse_offsets,
+            n, state_width, init_flat.dtype, sparse_offsets=sparse_offsets,
             stale=staleness is not None, device=device))
     return RoundProgram(
         train_step=train_step,
@@ -972,11 +1122,18 @@ def build_round_program(
         faulted=faults is not None,
         compression=compression,
         pipelined=pipeline,
-        train_flat=train_flat,
+        # Under a group the production stage ends in a column block.
+        train_flat=train_flat if group is None else None,
         train_rows=train_rows,
         training_mask=training_mask,
         sparse_offsets=sparse_offsets,
         dmtt=dmtt,
+        param_shards=param_shards,
+        flat_dim=flat_dim,
+        group=group,
+        sharded_state_keys=() if group is None else tuple(sorted(
+            k for k in (*COMPRESS_STATE_KEYS, STALE_CACHE_KEY, PIPE_OWN_KEY, PIPE_BCAST_KEY)
+            if k in init_agg_state)),
     )
 
 

@@ -27,6 +27,16 @@ So the snapshot needs only the carried state, and the ``rng`` section is
 the seed: a restore into a run with another seed is refused, since its
 resumed stream would silently differ.
 
+The parameters and carried state come from the orchestrator's
+``_durability_params`` hook in the snapshot's layout: the whole
+``[N, P]``.  A param group's ranks (parallel/mesh.py) gather their row and
+column blocks into that layout, rank 0 alone writes (``_durability_writes``),
+``param_shards`` rides the extra meta, and a restore reads the ordinary
+layout on every rank and cuts each rank's blocks back out
+(``_durability_set_params``), so a snapshot's values do not depend on the
+layout; a snapshot of another shard count is refused (its flat pad
+differs).
+
 Storage rides :mod:`murmura_tpu_torch.utils.checkpoint` (fsync'd, with
 ``meta.json`` as the commit point).  A restore validates everything
 (the flat shape and dtype, the ``agg_state`` keys, shapes and dtypes, the
@@ -110,13 +120,16 @@ def discover_state_key_groups(pkg_root) -> Dict[str, str]:
 
 def save_run_snapshot(directory, network) -> int:
     """Write ``network``'s complete run state to ``directory``; returns the
-    bytes written.  A crash at any point leaves the previous complete
-    snapshot or the new one."""
+    bytes written (0 on a rank that does not write).  A crash at any point
+    leaves the previous complete snapshot or the new one."""
+    flat, agg_state = network._durability_params()
     extra_arrays, extra_meta = network._durability_extra_state()
+    if not network._durability_writes():
+        return 0
     return save_checkpoint(
         directory,
-        params=network.flat,
-        agg_state=network.agg_state,
+        params=flat,
+        agg_state=agg_state,
         rng=network.seed,
         round_num=network.current_round,
         history=network._durability_history(),
@@ -128,6 +141,12 @@ def save_run_snapshot(directory, network) -> int:
 
 def _describe(t: torch.Tensor):
     return tuple(t.shape), t.dtype
+
+
+def describe_state(flat: torch.Tensor, agg_state: Dict[str, torch.Tensor]):
+    """(flat's (shape, dtype), {key: (shape, dtype)}): what a restore checks
+    a snapshot against."""
+    return _describe(flat), {k: _describe(v) for k, v in agg_state.items()}
 
 
 def restore_run_snapshot(directory, network) -> int:
@@ -145,13 +164,13 @@ def restore_run_snapshot(directory, network) -> int:
             f"{network.seed}: the resumed rounds would draw another stream; rebuild "
             "with the matching experiment.seed"
         )
-    if _describe(flat) != _describe(network.flat):
+    live_flat, live = network._durability_layout()
+    if _describe(flat) != live_flat:
         raise ValueError(
             f"snapshot params {_describe(flat)} do not match this run's "
-            f"{_describe(network.flat)}: it was written by a different config; "
+            f"{live_flat}: it was written by a different config; "
             "rebuild with the matching config"
         )
-    live = network.agg_state
     if set(agg_state) != set(live):
         raise ValueError(
             f"snapshot agg_state keys {sorted(agg_state)} differ from this run's "
@@ -159,14 +178,12 @@ def restore_run_snapshot(directory, network) -> int:
             "(rule, compression, staleness or pipeline); rebuild with the matching config"
         )
     for k, v in agg_state.items():
-        if _describe(v) != _describe(live[k]):
+        if _describe(v) != live[k]:
             raise ValueError(
                 f"snapshot agg_state[{k!r}] {_describe(v)} does not match this run's "
-                f"{_describe(live[k])}; rebuild with the matching config"
+                f"{live[k]}; rebuild with the matching config"
             )
-    del live
-    network.flat = flat
-    network.agg_state = agg_state
+    network._durability_set_params(flat, agg_state)
     network.current_round = round_num
     network._durability_set_history(history)
     network.round_times = times

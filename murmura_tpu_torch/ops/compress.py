@@ -38,6 +38,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from murmura_tpu_torch.parallel.mesh import reduce_partial_
+
 # Round-program-level agg_state keys: carried by the round step, never
 # handed to the aggregation rule's state.
 RESIDUAL_KEY = "compress_residual"
@@ -192,10 +194,13 @@ def compress_exchange(
         err = outgoing - decoded.to(torch.float32)
     if spec.error_feedback:
         state_updates[RESIDUAL_KEY] = err.to(agg_state[RESIDUAL_KEY].dtype)
-    stats = {"compress_error": torch.sqrt(torch.sum(err * err, dim=1))}
+    # Row norms: under a param group the column block's partials are
+    # summed over the group (the int8 blocks never straddle a shard).
+    stats = {"compress_error": torch.sqrt(reduce_partial_(torch.sum(err * err, dim=1)))}
     if spec.error_feedback:
         res = state_updates[RESIDUAL_KEY].to(torch.float32)
-        stats["compress_residual_norm"] = torch.sqrt(torch.sum(res * res, dim=1))
+        stats["compress_residual_norm"] = torch.sqrt(
+            reduce_partial_(torch.sum(res * res, dim=1)))
     return exchanged, decoded, state_updates, stats
 
 

@@ -82,6 +82,41 @@ def make_flatteners(
     return ravel, unravel, dim
 
 
+# Copy of padded_dim and make_sharded_flatteners from
+# murmura_tpu/ops/flatten.py.
+def padded_dim(dim: int, multiple: int) -> int:
+    """``dim`` rounded up to a whole multiple of ``multiple``: the padded
+    flat width of a param-sharded program, which lets the param axis split
+    the flat vector into equal column blocks for any model size."""
+    if multiple < 1:
+        raise ValueError(f"pad multiple must be >= 1, got {multiple}")
+    return -(-int(dim) // int(multiple)) * int(multiple)
+
+
+def make_sharded_flatteners(
+    template: Any, param_shards: int
+) -> Tuple[Callable[..., torch.Tensor], Callable[[torch.Tensor], Any], int, int]:
+    """(ravel, unravel, dim, flat_dim) with the flat vector zero-padded so
+    ``param_shards`` divides its width.
+
+    ``ravel`` emits rows whose last ``flat_dim - dim`` columns are exact
+    zeros; ``unravel`` views the first ``dim`` columns, so local training
+    never writes the pad.  Exact-zero padding is inert through every
+    consumer: distances add (0-0)^2, means of zeros stay zero.  Where the
+    shard count divides the dimension this is :func:`make_flatteners`
+    exactly (flat_dim == dim)."""
+    ravel0, unravel, dim = make_flatteners(template)
+    flat_dim = padded_dim(dim, param_shards)
+    if flat_dim == dim:
+        return ravel0, unravel, dim, dim
+    pad = flat_dim - dim
+
+    def ravel(tree: Any, batch_dims: int = 0) -> torch.Tensor:
+        return torch.nn.functional.pad(ravel0(tree, batch_dims), (0, pad))
+
+    return ravel, unravel, dim, flat_dim
+
+
 def model_dimension(template: Any) -> int:
     """Total float parameter count."""
     return sum(int(np.prod(tuple(l.shape))) for l in tree_leaves(template))

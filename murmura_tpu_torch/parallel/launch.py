@@ -1,0 +1,133 @@
+"""The param group's launcher (the JAX package needs no processes: GSPMD
+places its collectives).
+
+:func:`launch` runs ``fn(*args)`` in W spawned ranks of one
+``torch.distributed`` group and returns every rank's return value:
+
+- the ``spawn`` start method and a ``file://`` rendezvous in a temporary
+  directory, so no TCP port is taken;
+- ``init_process_group(timeout=...)``, so that a rank that dies fails the
+  others' collectives instead of leaving them waiting;
+- a rank's exception ends the run: the other ranks are stopped and the
+  parent raises with that rank's traceback (a :class:`ConfigError` as a
+  ConfigError, which the CLI renders as a message);
+- on CUDA the kernels are built once, in the parent, before the ranks
+  start (otherwise W ranks would run ``nvcc`` at once);
+- each rank sets its card (``torch.cuda.set_device``) before its first
+  kernel: the distance kernels lift their shared-memory cap once a process,
+  on the card that is current then.
+
+Rank r runs on ``cuda:r`` over NCCL, or on the CPU over gloo.  With
+``one_device`` every rank shares ``cuda:0`` over gloo (a test seam: a check
+of the collective code on CUDA tensors, not a layout the CLI picks).  Ranks
+other than 0 print nothing.
+
+The CLI's ``run`` launches its ranks (cli.py) when the config's layout has
+a param axis above 1; the tests and ``chip_smoke.py`` launch their own
+module-level functions.
+"""
+
+import os
+import pickle
+import sys
+import tempfile
+import time
+import traceback
+from datetime import timedelta
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import torch
+
+from murmura_tpu_torch.parallel.mesh import (
+    ParamGroup,
+    plan_layout,
+    process_group,
+    set_process_group,
+)
+
+# Seconds a collective may wait for the other ranks.
+GROUP_TIMEOUT_S = 600
+# What a rank must not have loaded (the port stands alone).
+FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "optax", "murmura_tpu")
+
+
+class GroupError(RuntimeError):
+    """A rank of the group failed; the message carries its traceback."""
+
+
+def forbidden_modules() -> List[str]:
+    """Modules of JAX or of the JAX package loaded in this process."""
+    return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES)
+
+
+def _rank_main(rank: int, fn: Callable, args: Sequence, world: int, backend: str,
+               device_type: str, one_device: bool, tmp: str, timeout_s: float) -> None:
+    import torch.distributed as dist
+
+    if device_type == "cuda":
+        index = 0 if one_device else rank
+        torch.cuda.set_device(index)
+        device = torch.device("cuda", index)
+    else:
+        device = torch.device("cpu")
+        # One rank a share of the cores: W ranks of the machine's thread
+        # count would oversubscribe it W times.
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=timeout_s))
+    set_process_group(ParamGroup(rank, world, backend, device))
+    try:
+        result = fn(*args)
+    except BaseException as e:
+        with open(Path(tmp) / f"error.{rank}", "wb") as f:
+            pickle.dump((time.time(), type(e).__name__, str(e), traceback.format_exc()), f)
+        raise
+    with open(Path(tmp) / f"result.{rank}", "wb") as f:
+        pickle.dump(result, f)
+    dist.destroy_process_group()
+
+
+def launch(fn: Callable, args: Sequence = (), *, world: int, device_type: str = "cpu",
+           one_device: bool = False, timeout_s: float = GROUP_TIMEOUT_S) -> List[Any]:
+    """``fn(*args)`` in ``world`` ranks (module-level and picklable, as
+    ``spawn`` needs); returns the ranks' return values in rank order."""
+    import torch.multiprocessing as mp
+
+    if world < 2:
+        raise ValueError(f"a param group needs at least 2 ranks, got {world}")
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available: the group's ranks run on the card")
+        if not one_device and world > torch.cuda.device_count():
+            raise ValueError(f"Requested {world} devices but only "
+                             f"{torch.cuda.device_count()} available")
+        from murmura_tpu_torch.ops import _build
+
+        _build.build_all()
+    backend = "nccl" if device_type == "cuda" and not one_device else "gloo"
+    with tempfile.TemporaryDirectory(prefix="murmura-group-") as tmp:
+        try:
+            mp.start_processes(_rank_main, args=(fn, tuple(args), world, backend, device_type,
+                                                 one_device, tmp, timeout_s),
+                               nprocs=world, join=True, start_method="spawn")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            raise _rank_failure(Path(tmp), e) from None
+        return [pickle.loads((Path(tmp) / f"result.{r}").read_bytes()) for r in range(world)]
+
+
+def _rank_failure(tmp: Path, exc: Exception) -> Exception:
+    """The exception the parent raises for a failed rank: the earliest a
+    rank recorded (the others' are mostly their collectives failing after
+    it; a ConfigError as itself), else the exit."""
+    records = sorted((pickle.loads(p.read_bytes()), p.suffix[1:]) for p in tmp.glob("error.*"))
+    if not records:
+        return GroupError(f"a rank of the param group failed: {exc}")
+    (_, name, message, tb), rank = records[0]
+    if name == "ConfigError":
+        from murmura_tpu_torch.utils.factories import ConfigError
+
+        return ConfigError(message)
+    return GroupError(f"rank {rank} of the param group failed:\n{tb}")

@@ -11,6 +11,10 @@ enabled; it refuses by name every part of the configuration surface the
 port does not run yet — a refused section is an error, never a silent
 fallback.  The ``frontier:``, ``grid:`` and ``serve:`` blocks are read only
 by their drivers (frontier.py, serve/); ``run`` runs the base experiment.
+With ``tpu.param_shards`` > 1 the round program pads the flat vector for
+the shard count; in a rank of a param group (parallel/launch.py sets the
+process's group) it is that rank's sharded program, and only rank 0 gets
+the telemetry writer and the profiler directory.
 ``build_gang_from_config`` builds the same per member of a gang
 (core/gang.py): data, initial parameters and draws from each member's
 seed, one attack placement, topology, mobility model and fault schedule
@@ -35,7 +39,7 @@ from murmura_tpu_torch.attacks.adaptive import (
 from murmura_tpu_torch.attacks.base import Attack, select_compromised
 from murmura_tpu_torch.config.schema import Config
 from murmura_tpu_torch.core.network import Network
-from murmura_tpu_torch.core.rounds import build_round_program
+from murmura_tpu_torch.core.rounds import PROBE_RULES, build_round_program
 from murmura_tpu_torch.core.stale import StalenessSpec
 from murmura_tpu_torch.levers import refusal_reason
 from murmura_tpu_torch.data.registry import build_federated_data
@@ -43,7 +47,8 @@ from murmura_tpu_torch.dmtt.protocol import DMTTParams
 from murmura_tpu_torch.faults.schedule import FaultSchedule, FaultSpec
 from murmura_tpu_torch.models.registry import build_model
 from murmura_tpu_torch.ops.compress import CompressionSpec
-from murmura_tpu_torch.ops.flatten import model_dimension
+from murmura_tpu_torch.ops.flatten import model_dimension, padded_dim
+from murmura_tpu_torch.parallel.mesh import process_group
 from murmura_tpu_torch.population import PopulationNetwork, PopulationSpec
 from murmura_tpu_torch.topology.dynamic import MobilityModel
 from murmura_tpu_torch.topology.generators import create_topology
@@ -57,13 +62,24 @@ class ConfigError(ValueError):
     mismatch).  The CLI renders these as messages, not tracebacks."""
 
 
+# What param-axis sharding does not run yet (ROADMAP Queue A).
+SHARDING_UNPORTED = {
+    "sweep": "sweep with tpu.param_shards > 1 (a gang over a param group)",
+    "probe_rules": "aggregation.algorithm: {} with tpu.param_shards > 1 (its probe forwards "
+                   "need whole neighbour rows)",
+}
+
+
 def unported_sections(config: Config) -> List[str]:
     """Every enabled part of the config the port does not run yet."""
     out = []
     if config.backend == "distributed":
         out.append("backend: distributed (the ZMQ multi-process backend)")
     if config.tpu.param_shards > 1:
-        out.append("tpu.param_shards > 1 (param-axis sharding)")
+        if config.sweep is not None:
+            out.append(SHARDING_UNPORTED["sweep"])
+        if config.aggregation.algorithm in PROBE_RULES:
+            out.append(SHARDING_UNPORTED["probe_rules"].format(config.aggregation.algorithm))
     if config.tpu.multihost:
         out.append("tpu.multihost")
     a = config.attack
@@ -195,11 +211,13 @@ def default_telemetry_dir(config: Config) -> str:
 
 
 def build_telemetry_writer(config: Config, resume: bool = False):
-    """TelemetryWriter from config.telemetry, or None when off.  ``resume``:
-    the run continues from its snapshot, so the writer appends to the run
-    dir's stream instead of rotating it."""
+    """TelemetryWriter from config.telemetry, or None when off (and on a
+    param group's ranks other than 0).  ``resume``: the run continues from
+    its snapshot, so the writer appends to the run dir's stream instead of
+    rotating it."""
     t = config.telemetry
-    if not t.enabled:
+    group = process_group()
+    if not t.enabled or (group is not None and group.rank != 0):
         return None
     from murmura_tpu_torch.telemetry.writer import TelemetryWriter
 
@@ -394,13 +412,21 @@ def build_rule(config: Config, model, topology):
         probe_size = config.training.batch_size
     model_dim = 0
     if config.aggregation.algorithm == "sketchguard":
-        # Only Sketchguard's tables need the model dimension up front.
-        model_dim = model_dimension(model.init(torch.Generator().manual_seed(0), "cpu"))
+        # Only Sketchguard's tables need the model dimension up front: the
+        # padded width its [N, P] operands have.
+        model_dim = padded_dim(model_dimension(model.init(torch.Generator().manual_seed(0),
+                                                          "cpu")),
+                               param_shards_of(config))
     try:
         agg = build_aggregator(config.aggregation.algorithm, agg_params, model_dim=model_dim)
     except ValueError as e:
         raise ConfigError(str(e)) from None
     return agg, probe_size
+
+
+def param_shards_of(config: Config) -> int:
+    """tpu.param_shards where it applies (backend: tpu), else 1."""
+    return config.tpu.param_shards if config.backend == "tpu" else 1
 
 
 def build_topology(config: Config):
@@ -449,28 +475,35 @@ def build_program(config: Config, topology, attack, seed: int, device, rule=None
         model = resolve_model(config, data)
         rule = (model, *build_rule(config, model, topology))
     model, agg, probe_size = rule
-    program = build_round_program(
-        model,
-        agg,
-        data,
-        local_epochs=config.training.local_epochs,
-        batch_size=config.training.batch_size,
-        lr=config.training.lr if lr is None else lr,
-        total_rounds=config.experiment.rounds,
-        attack=attack,
-        seed=seed,
-        probe_size=probe_size,
-        param_dtype=resolved_param_dtype(config),
-        device=device,
-        faults=build_fault_spec(config),
-        compression=build_compression_spec(config),
-        audit_taps=config.telemetry.audit_taps,
-        staleness=build_staleness_spec(config, topology),
-        pipeline=config.exchange.pipeline,
-        sparse_offsets=sparse_offsets_of(topology),
-        attack_scale=attack_scale,
-        dmtt=build_dmtt_params(config),
-    )
+    try:
+        program = build_round_program(
+            model,
+            agg,
+            data,
+            local_epochs=config.training.local_epochs,
+            batch_size=config.training.batch_size,
+            lr=config.training.lr if lr is None else lr,
+            total_rounds=config.experiment.rounds,
+            attack=attack,
+            seed=seed,
+            probe_size=probe_size,
+            param_dtype=resolved_param_dtype(config),
+            device=device,
+            faults=build_fault_spec(config),
+            compression=build_compression_spec(config),
+            audit_taps=config.telemetry.audit_taps,
+            staleness=build_staleness_spec(config, topology),
+            pipeline=config.exchange.pipeline,
+            sparse_offsets=sparse_offsets_of(topology),
+            attack_scale=attack_scale,
+            dmtt=build_dmtt_params(config),
+            param_shards=param_shards_of(config),
+            group=process_group(),
+        )
+    except ValueError as e:
+        # The round program's refusals (an int8 block straddling a shard,
+        # a group wider than the nodes, ...) render as config messages.
+        raise ConfigError(str(e)) from None
     return program, rule
 
 
@@ -498,9 +531,11 @@ def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None
     attack = build_attack(config)
     program, _ = build_program(config, topology, attack, seed, torch.device(device))
     resume = checkpoint_dir is not None and has_checkpoint(checkpoint_dir)
+    group = process_group()
     kwargs = dict(attack=attack, seed=seed, fault_schedule=build_fault_schedule(config),
                   telemetry=build_telemetry_writer(config, resume=resume),
-                  profile_dir=config.tpu.profile_dir,
+                  profile_dir=(config.tpu.profile_dir
+                               if group is None or group.rank == 0 else None),
                   transfer_guard=config.tpu.transfer_guard,
                   recompile_guard=config.tpu.recompile_guard,
                   mobility=build_mobility(config))
@@ -530,6 +565,10 @@ def _gang_members_and_programs(config: Config, device, seeds=None, members=None)
         # population x sweep check never saw this pair.
         raise ConfigError(refusal_reason("population", "sweep"))
     refuse_unported(config)
+    if param_shards_of(config) > 1:
+        # The CLI's --seeds reaches here with sweep unset.
+        raise ConfigError("the PyTorch port does not run these config sections yet: "
+                          + SHARDING_UNPORTED["sweep"])
     if members is None:
         try:
             members = resolve_members(config, seeds)

@@ -1143,3 +1143,30 @@ def test_dmtt_gang_round_card_equals_cpu(dev):
             np.testing.assert_allclose(st_card[s][k].cpu().numpy(), st_cpu[s][k].numpy(),
                                        rtol=1e-5)
         assert m_card[s]["agg_dmtt_collab_count"].device.type == "cuda"
+
+
+@pytest.mark.parametrize("rule,exchange", [("krum", "allgather"), ("median", "ppermute")])
+def test_sharded_group_on_one_card_matches_unsharded(dev, rule, exchange):
+    # A param group of 2 gloo ranks on cuda:0 (parallel/launch.py's test
+    # seam, its all_to_all staged through pinned host memory) against the
+    # unsharded program on the card, one round of tests/torch_sharding_cases
+    # .rule_case: the decisions equal, the parameters within a scaled 1e-4,
+    # each rank's kernels launched (Krum's two pairwise calls, the median's
+    # candidate select), no plain call and no JAX in a rank.
+    import torch_sharding_cases as cases
+    from murmura_tpu_torch.parallel.launch import launch
+
+    spec = {"rule": rule, "exchange": exchange, "device": "cuda", "rounds": 1}
+    group = launch(cases.counted_cases, ([("rule", spec)],), world=2, device_type="cuda",
+                   one_device=True)
+    ref = cases.run_cases([("rule", spec)])["results"][0]
+    got = group[0]["results"][0]
+    assert _scaled(torch.from_numpy(got["flat"]), torch.from_numpy(ref["flat"])) <= 1e-4
+    for k in ("agg_selected_index", "agg_selected_own", "agg_num_candidates"):
+        if k in ref["rounds"][0]:
+            np.testing.assert_array_equal(got["rounds"][0][k], ref["rounds"][0][k], err_msg=k)
+    kernel = "pairwise_sq_distances" if rule == "krum" else "candidate_select"
+    for rank in group:
+        assert rank["launches"][kernel] == (2 if rule == "krum" else 1)
+        assert not any(rank["plain_calls"].values())
+        assert rank["forbidden_modules"] == []

@@ -7,16 +7,16 @@
 - Every bundled example config validates to the same ``model_dump()``
   under both schemas, and the lever refusal messages the copied schema
   cites are the JAX package's.
-- Every example config the port does not run is refused by name, and
-  ``basic_fedavg.yaml`` (fedavg, fully connected, the LEAF FEMNIST CNN)
+- The port runs every bundled example config: ``unported_sections`` names
+  nothing for any of them (``sharded_model.yaml``, the last, runs through
+  tests/test_torch_sharding*.py); ``basic_fedavg.yaml`` (fedavg, fully connected, the LEAF FEMNIST CNN)
   runs; so do ``ubar_attack.yaml`` (UBAR on an erdos graph) and UBAR on
   the flagship under ppermute, cut to the tiny CNN; and the three
   lever-free configs of evidential trust, ALIE and label flip, with the
   JAX package's history keys.
-- ``report <run_dir> --json`` renders the port's telemetry run dir.  The
-  config whose lever is still missing (param-axis sharding) is refused,
-  naming that lever and not the levers ported so far.  The lever configs
-  through both CLIs are in tests/test_torch_slice_levers.py.
+- ``report <run_dir> --json`` renders the port's telemetry run dir, and
+  the distributed backend is refused by name.  The lever configs through
+  both CLIs are in tests/test_torch_slice_levers.py.
 """
 
 import ast
@@ -36,7 +36,11 @@ from murmura_tpu import levers as jax_levers
 from murmura_tpu.core.network import empty_history as jax_empty_history
 from murmura_tpu_torch import levers
 from murmura_tpu_torch.config import load_config
-from murmura_tpu_torch.utils.factories import ConfigError, build_network_from_config
+from murmura_tpu_torch.utils.factories import (
+    ConfigError,
+    build_network_from_config,
+    unported_sections,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = sorted((ROOT / "examples" / "configs").glob("*.yaml"))
@@ -107,36 +111,13 @@ PORTED = {"femnist_krum_tpu", "basic_fedavg", "ubar_attack", "uci_har_byzantine"
           "alie_geometric_median", "label_flip_poisoning", "chaos_churn",
           "compressed_exchange", "telemetry_audit_report", "stale_gossip",
           "resumable_run", "pipelined_rounds", "sweep_seeds", "population_1m",
-          "dmtt_mobility", "frontier_krum", "serve_grid"}
+          "dmtt_mobility", "frontier_krum", "serve_grid", "sharded_model"}
 
 
-@pytest.mark.parametrize(
-    "path", [p for p in EXAMPLES if p.stem not in PORTED], ids=lambda p: p.stem
-)
-def test_unported_examples_refused_by_name(path):
-    config = load_config(path)
-    with pytest.raises((ConfigError, ValueError), match="not ported|does not run"):
-        build_network_from_config(config, device="cpu")
-
-
-# Configs refused for a lever the port still lacks: the lever the message names.
-STILL_REFUSED = {
-    "sharded_model": "param_shards",
-}
-
-
-@pytest.mark.parametrize("name", sorted(STILL_REFUSED))
-def test_configs_with_missing_levers_name_them(name):
-    config = load_config(ROOT / "examples" / "configs" / f"{name}.yaml")
-    with pytest.raises(ConfigError, match="does not run") as err:
-        build_network_from_config(config, device="cpu")
-    assert STILL_REFUSED[name] in str(err.value)
-    # The levers ported so far are no longer among the refusals.
-    for lever in ("faults", "compression", "rounds_per_dispatch", "telemetry",
-                  "max_staleness", "durability", "pipeline", "sweep", "exponential",
-                  "one_peer", "population", "mobility", "dmtt", "topology_liar",
-                  "adaptive", "frontier", "grid", "serve"):
-        assert lever not in str(err.value)
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.stem)
+def test_unported_sections_name_nothing(path):
+    assert path.stem in PORTED
+    assert unported_sections(load_config(path)) == []
 
 
 def test_report_json_renders_the_ports_run_dir(tmp_path):

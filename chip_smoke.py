@@ -51,7 +51,7 @@ Phases, each of which raises (and exits non-zero) on failure:
    blocks bit-equal to the full-width call's columns, one block call of
    each timed;
 3b. one round on the card against the same round on the CPU (same initial
-   parameters, same injected draws), for each of four seeds, for Krum,
+   parameters, same injected draws), for each of two seeds, for Krum,
    median, trimmed mean, geometric median, BALANCE, Sketchguard, fedavg and
    UBAR (both exchanges) on the tiny CNN under the gaussian attack; the
    geometric median under ALIE (dense, and circulant with the coalition
@@ -104,6 +104,14 @@ Phases, each of which raises (and exits non-zero) on failure:
    each device's pick held within the score noise of the exact best; and
    every rule once more on the exponential graph of 64 nodes (k = 6, the
    sparse exchange);
+3e. the ZMQ backend's node runtime (``check_node_runtime_against_cpu``):
+   node 0 of uci_har_byzantine.yaml as a ``LocalNode`` on the card and on
+   the CPU from one start and one draw stream, then Krum and Sketchguard on
+   its [10, 178,310] mini network with the same received states: their
+   kernels launched (2 pairwise; 2 count sketches and 1 pairwise), no plain
+   call, decisions equal (Krum tie-aware), parameters within a scaled 1e-4;
+   and a DMTTNodeProcess of dmtt_mobility.yaml: its probe scores within
+   rtol 1e-5, its claim verification and TopB collaborators equal;
 4. main path: ``examples/configs/femnist_krum_tpu.yaml`` as committed
    (baseline CNN at full width, 16 nodes, k-regular(4), bf16 compute, 20%
    gaussian std 10), rounds cut to 3, through the port's ``run`` entry,
@@ -140,7 +148,7 @@ Phases, each of which raises (and exits non-zero) on failure:
    ``exchange:`` and ``tpu:`` sections (both exchanges) and as the fused
    pair, the flagship fused under ``tpu.transfer_guard`` (no raise), and
    the flagship under resumable_run's ``durability:``, ``compression:`` and
-   ``telemetry:`` sections (6 rounds, a snapshot every 2, both exchanges):
+   ``telemetry:`` sections (4 rounds, a snapshot every 2, both exchanges):
    once uninterrupted, then through ``python -m murmura_tpu_torch run`` in
    a subprocess SIGKILLed after its round-2 snapshot and run again, which
    resumes: the kernel launched twice a round for the rounds it ran,
@@ -158,7 +166,7 @@ Phases, each of which raises (and exits non-zero) on failure:
    one in the call (launches S times a single run's, each history within a
    scaled 1e-4 of its single run's, bit-equality printed, the gang's steady
    seconds a round beside the members' summed, the peak memory of both),
-   and sweep_seeds.yaml under resumable_run.yaml's sections (30 rounds, a
+   and sweep_seeds.yaml under resumable_run.yaml's sections (10 rounds, a
    snapshot every 5) killed (SIGKILL) in a ``sweep`` subprocess after its
    first snapshot and resumed: every member's history bit-equal to the
    uninterrupted gang's; then cohort streaming and DMTT:
@@ -169,8 +177,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    twice a round in both; the same config over 3 rounds (3 swaps) on the
    card and on the CPU from one spread initial state on the CPU's draws
    (cohorts equal, Krum's picks equal or tie-aware, the bank within a
-   scaled 1e-4); population_1m under a ``durability:`` section (a snapshot
-   every 5 rounds, the bank embedded) run to the end and SIGKILLed after a
+   scaled 1e-4); population_1m under a ``durability:`` section (20 rounds,
+   a snapshot every 5, the bank embedded) run to the end and SIGKILLed after a
    snapshot in a ``run`` subprocess and resumed: history and final
    snapshot bit-equal; and ``dmtt_mobility.yaml`` as committed (30 rounds,
    no kernel; the DMTT cross-evaluation's share of a round printed) and
@@ -219,7 +227,7 @@ Phases, each of which raises (and exits non-zero) on failure:
    ``leaf.celeba`` (Krum allgather, the median under ppermute, and Krum
    under ``tpu.conv_impl: im2col``, its history's scaled delta and round
    times beside the direct run's), synthetic fallbacks, 64 samples a node,
-   3 rounds; and ``dmtt_mobility.yaml`` (30 rounds, max_samples 64)
+   3 rounds; and ``dmtt_mobility.yaml`` (10 of its 30 rounds, max_samples 64)
    through ``run --seeds 3``, each member also run alone: histories within
    a scaled 1e-4, the trust state within rtol 1e-5, no kernel launched;
    then param-axis sharding (``run_sharded_smoke``):
@@ -237,11 +245,20 @@ Phases, each of which raises (and exits non-zero) on failure:
    every round before the first round whose picks differ within a scaled
    1e-4 (the later rounds' distance printed), 2 pairwise launches a rank
    a round, no plain call, no JAX in a rank; and bench_scaling.py's
-   acceptance cell (16 nodes, the MLP 1000-7200-6200-62, Krum, 3 rounds)
+   acceptance cell (16 nodes, the MLP 1000-7200-6200-62, Krum, 2 rounds)
    in a group of 8 on cuda:0 against its one-process run, each rank's
    peak device memory printed beside the one-process peak and the
    analytic flat bytes.  Several ranks on one card check the collective
-   code; their round times are no speed of sharding.
+   code; their round times are no speed of sharding.  Then (4e,
+   ``run_distributed_smoke``) uci_har_byzantine.yaml under ``backend:
+   distributed`` (2 rounds) through ``python -m murmura_tpu_torch run``: the
+   monitor and 10 node processes on this card; no node
+   skips a round, every node on the card, 2 pairwise launches a node
+   aggregate and no plain call, the card's picks against those of a CPU
+   replay of the same protocol with the same draws (in this process) equal
+   or within ``krum_tie_check``'s tie on the replay's inputs, per-node
+   losses within rtol 1e-4; boot, train and aggregate seconds and the card
+   memory printed.
    A faulted run holds its alive and
    quarantined counts to the schedule and every kernel input finite; a
    compressed run prints its payload bytes an edge; a telemetry run reads
@@ -1035,8 +1052,10 @@ ROUND_RULES = [
 ]
 
 
-# Phase 3b's seeds: each draws its own data, initial parameters and draws.
-ROUND_SEEDS = (7, 11, 19, 23)
+# Phase 3b's seeds: each draws its own data, initial parameters and draws
+# (cut from four, with 19 and 23, for the script's time budget; PERF.md
+# section 6 has the times of both).
+ROUND_SEEDS = (7, 11)
 
 
 def _round_inputs(n: int, seed: int, wearable: bool):
@@ -2966,8 +2985,9 @@ def run_fused_pair(tag: str = "flagship", sections=None) -> dict:
     return runs
 
 
-# The flagship under RESUME_SECTIONS: rounds, and the snapshot cadence.
-RESUME_ROUNDS, RESUME_EVERY = 6, 2
+# The flagship under RESUME_SECTIONS: rounds (cut from 6 for the script's
+# time budget), and the snapshot cadence.
+RESUME_ROUNDS, RESUME_EVERY = 4, 2
 # ``python -m murmura_tpu_torch run ...`` (cli.main), then the kernel
 # counters of the process on one line.
 _CLI_WITH_COUNTS = """
@@ -3084,7 +3104,8 @@ def run_kill_resume(exchange: str) -> dict:
 # training.max_samples (the test splits take the same cap).
 GANG_SEEDS = 4
 GANG_MAX_SAMPLES = 48
-GANG_RESUME_ROUNDS = 30
+# Cut from 30 for the script's time budget.
+GANG_RESUME_ROUNDS = 10
 
 
 def _steady(times, first_chunk: int = 1) -> float:
@@ -4124,8 +4145,9 @@ def check_population_against_cpu(rounds: int = 3, device: str = "cuda") -> dict:
             "hist_delta": hist_delta}
 
 
-# population_1m.yaml under a durability: section for the kill and resume.
-POP_RESUME_ROUNDS, POP_RESUME_EVERY = 50, 5
+# population_1m.yaml under a durability: section for the kill and resume
+# (cut from 50 rounds for the script's time budget).
+POP_RESUME_ROUNDS, POP_RESUME_EVERY = 20, 5
 
 
 def _cli_counts(stdout: str) -> dict:
@@ -4365,11 +4387,14 @@ SURFACE_RUNS = (
     ("krum:celeba_im2col", "allgather", None, {"pairwise_sq_distances": (2, "==")},
      {**CELEBA, "sections": {"tpu": {"conv_impl": "im2col"}}}),
 )
-# The DMTT gang: dmtt_mobility.yaml as committed (30 rounds) through ``run
-# --seeds DMTT_GANG_SEEDS``; its dirichlet shards differ in size between
+# The DMTT gang: dmtt_mobility.yaml (DMTT_GANG_ROUNDS rounds) through
+# ``run --seeds DMTT_GANG_SEEDS``; its dirichlet shards differ in size between
 # seeds, which a gang refuses in both packages, so training.max_samples is
 # pinned (every node of seeds 42-44 holds at least 70 training samples).
 DMTT_GANG_SEEDS = 3
+# 10 of dmtt_mobility.yaml's 30 rounds (cut from 30 for the
+# script's time budget).
+DMTT_GANG_ROUNDS = 10
 DMTT_GANG_MAX_SAMPLES = 64
 
 
@@ -4514,7 +4539,7 @@ def run_dmtt_gang() -> dict:
     1e-4, the trust state within DMTT_TRUST_RTOL).  fedavg: no kernel."""
     t0 = time.perf_counter()
     rec = run_gang("fedavg:gang_dmtt_mobility", DMTT_MOBILITY, None, {},
-                   {"rounds": 30, "num_seeds": DMTT_GANG_SEEDS,
+                   {"rounds": DMTT_GANG_ROUNDS, "num_seeds": DMTT_GANG_SEEDS,
                     "max_samples": DMTT_GANG_MAX_SAMPLES})
     print(f"[dmtt] the gang phase took {time.perf_counter() - t0:.2f} s of wall", flush=True)
     return {"fedavg:gang_dmtt_mobility": rec}
@@ -4531,11 +4556,12 @@ SHARDED_MODEL = ROOT / "examples" / "configs" / "sharded_model.yaml"
 BLOCKS = 4
 SHARDED_CHECK_ROUNDS = 5
 # bench_scaling.py's --sharded acceptance cell (SHARDED_POINTS[1]): 16
-# nodes, the MLP 1000-7200-6200-62 (51.9M parameters a node), Krum, 3
-# rounds, batch 4, 8 samples a node, float32, in a group of 8.
+# nodes, the MLP 1000-7200-6200-62 (51.9M parameters a node), Krum, 2
+# rounds (3 in bench_scaling.py: cut for the script's time
+# budget), batch 4, 8 samples a node, float32, in a group of 8.
 ACCEPTANCE_WORLD = 8
 ACCEPTANCE = {
-    "experiment": {"name": "sharded-krum-16x8", "seed": 7, "rounds": 3},
+    "experiment": {"name": "sharded-krum-16x8", "seed": 7, "rounds": 2},
     "topology": {"type": "k-regular", "num_nodes": 16, "k": 4},
     "aggregation": {"algorithm": "krum", "params": {"num_compromised": 1}},
     "training": {"local_epochs": 1, "batch_size": 4, "lr": 0.05},
@@ -5260,6 +5286,496 @@ def run_sharded_smoke() -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# The ZMQ multi-process backend (distributed/): one node's round on the card
+# against the CPU (phase 3e), and uci_har_byzantine.yaml as one node process
+# a peer on this card (phase 4e).
+
+# Phase 4e's cuts of uci_har_byzantine.yaml (50 rounds as committed): the
+# rounds, and the wall-clock windows, set from the node processes' boot and
+# round times on this card's hosts (the slowest node ready 23.7 to 47.4 s
+# after its spawn inside this script over thirteen runs on several hosts; a
+# first round's work up to 5.7 s, a later one's under 0.5 s): the grace
+# 1.27 times the slowest boot seen (a host slow enough to boot past it runs
+# the whole script past its time limit in any case), a window about 1.6
+# times the longest first round's work.
+DIST_ROUNDS = 2
+DIST_ROUND_S = 9.0
+DIST_GRACE_S = 60.0
+# Per-node eval loss of a node whose picks agree, card against CPU: the
+# trained and copied rows differ by float32 rounding (about 1e-7 scaled).
+DIST_LOSS_RTOL = 1e-4
+# The least card memory a CUDA context takes, MiB (a node process on this
+# card's host holds about 840).
+CONTEXT_MIB = 300
+
+
+def _byzantine_inputs():
+    """uci_har_byzantine.yaml's config, data (the synthetic fallback), model
+    and node 0's initial parameters (a CPU generator of the experiment
+    seed), as the ZMQ backend's node 0 builds them."""
+    import torch
+
+    from murmura_tpu_torch.config import load_config
+    from murmura_tpu_torch.data.registry import build_federated_data
+    from murmura_tpu_torch.ops.flatten import tree_to_numpy
+    from murmura_tpu_torch.utils.factories import resolve_model
+
+    cfg = load_config(UCI_HAR_BYZANTINE)
+    data = build_federated_data(cfg.data.adapter, cfg.data.params,
+                                num_nodes=cfg.topology.num_nodes, seed=cfg.experiment.seed,
+                                max_samples=cfg.training.max_samples)
+    model = resolve_model(cfg, data)
+    init = tree_to_numpy(model.init(torch.Generator().manual_seed(cfg.experiment.seed), "cpu"))
+    return cfg, data, model, init
+
+
+def check_node_runtime_against_cpu(device: str = "cuda") -> dict:
+    """Phase 3e: node 0 of uci_har_byzantine.yaml (the evidential wearable
+    MLP at UCI HAR widths, P = 178,310, dropout 0.3) as the ZMQ backend's
+    LocalNode on the card and on the CPU: one start, one draw stream (the
+    node's CPU generator), local training, then the rule on its [10, P] mini
+    network with the same nine received states (two of them the config's
+    gaussian std 1 around the node's trained row, seven honest rows at
+    distinct spreads around a point off it).  Krum (f = 2): its two pairwise launches a
+    aggregate, no plain call, the pick equal (or, where it differs, each
+    device's pick within the tie ``krum_tie_check`` allows on the mini
+    network), the parameters within a scaled 1e-4; Sketchguard the same
+    with its two count sketches and one pairwise pass on the sketches.  Then
+    a DMTTNodeProcess of dmtt_mobility.yaml (node 1, its G^t neighbours'
+    states received): the probe evaluation's model scores within rtol 1e-5,
+    the claim verification's Beta evidence and the TopB collaborators
+    equal."""
+    import numpy as np
+    import torch
+
+    from murmura_tpu_torch.aggregation import build_aggregator
+    from murmura_tpu_torch.attacks.base import select_compromised
+    from murmura_tpu_torch.distributed.local import LocalNode
+    from murmura_tpu_torch.ops import agg_kernels, sketch_kernels
+    from murmura_tpu_torch.ops.flatten import model_dimension
+
+    t_phase = time.perf_counter()
+    cfg, data, model, init = _byzantine_inputs()
+    n, t = cfg.topology.num_nodes, cfg.training
+    dim = model_dimension(init)
+    x, y = data.get_client_data(0)
+    ex, ey = data.get_client_eval_data(0)
+    comp = set(np.flatnonzero(select_compromised(n, cfg.attack.percentage,
+                                                 cfg.experiment.seed)).tolist())
+    std = float(cfg.attack.params.get("std", 1.0))
+    out = {}
+    for rule, params, expect in (
+        ("krum", dict(cfg.aggregation.params), {"pairwise_sq_distances": 2}),
+        ("sketchguard", {}, {"count_sketch": 2, "pairwise_sq_distances": 1}),
+    ):
+        nodes = {dev: LocalNode(0, model, build_aggregator(rule, params, model_dim=dim), x, y,
+                                eval_x=ex, eval_y=ey, max_neighbors=n - 1,
+                                local_epochs=t.local_epochs, batch_size=t.batch_size, lr=t.lr,
+                                total_rounds=cfg.experiment.rounds,
+                                annealing_rounds=max(1, cfg.experiment.rounds // 2),
+                                probe_size=t.batch_size, seed=cfg.experiment.seed,
+                                device=dev, init_params=init)
+                 for dev in (device, "cpu")}
+        for node in nodes.values():
+            node.local_train(0)
+        card, cpu = nodes[device], nodes["cpu"]
+        own = cpu.get_flat_state()
+        scale = max(1.0, float(np.abs(own).max()))
+        trained = float(np.abs(card.get_flat_state() - own).max()) / scale
+        # The honest neighbours cluster at distinct spreads around a point
+        # off the node's own row, so Krum picks a neighbour, off any tie.
+        g = np.random.default_rng(1)
+        center = own + 0.05 * g.normal(size=own.shape)
+        states = {j: ((own if j in comp else center)
+                      + (std if j in comp else 0.01 * (1.0 + j / n)) * g.normal(size=own.shape)
+                      ).astype(np.float32) for j in range(1, n)}
+        minis = {dev: node.mini_network(states) for dev, node in nodes.items()}
+        agg_kernels.reset_counts()
+        sketch_kernels.reset_counts()
+        card.aggregate_with_neighbors(states, 0)
+        launches = {**agg_kernels.LAUNCHES, **sketch_kernels.LAUNCHES}
+        plain = {**agg_kernels.PLAIN_CALLS, **sketch_kernels.PLAIN_CALLS}
+        cpu.aggregate_with_neighbors(states, 0)
+        st_card, st_cpu = card.get_aggregator_statistics(), cpu.get_aggregator_statistics()
+        pick_equal = all(st_card[k] == st_cpu[k] for k in ("selected_index", "acceptance_rate")
+                         if k in st_cpu)
+        tie = ""
+        if not pick_equal and rule == "krum":
+            # Each device's pick within the score noise of the exact best.
+            worst = 0.0
+            for dev, node in nodes.items():
+                stack, adj, _ = minis[dev]
+                with torch.no_grad():
+                    new, _, st = node.agg.aggregate(stack, stack, adj, 0.0, {}, node._ctx)
+                ok_dev, w, _ = krum_tie_check(stack, stack, adj, int(params.get("f", 2)),
+                                              st["selected_index"].long(), new)
+                pick_equal = ok_dev if dev == device else (pick_equal and ok_dev)
+                worst = max(worst, w)
+            tie = f" (picks differ: tie-aware, largest gap/tolerance {worst:.3g})"
+        delta = float(np.abs(card.get_flat_state() - cpu.get_flat_state()).max()) / scale
+        ok = (pick_equal and all(launches[k] == v for k, v in expect.items())
+              and not any(plain.values()) and trained <= 1e-4 and (delta <= 1e-4 or tie))
+        print(f"[node-runtime] {rule}: node 0 of uci_har_byzantine.yaml, [{n}, {dim:,}] mini "
+              f"network: card train {card.timings['train_s']:.4f} s, aggregate "
+              f"{card.timings['aggregate_s']:.4f} s (CPU {cpu.timings['train_s']:.4f} s, "
+              f"{cpu.timings['aggregate_s']:.4f} s); launches {launches}, plain {plain}; "
+              f"decision {({k: st_card[k] for k in ('selected_index', 'acceptance_rate') if k in st_card})} "
+              f"equal {pick_equal}{tie}; trained rows {trained:.3g}, parameters {delta:.3g} "
+              f"scaled (limit 1e-4): {'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            raise AssertionError(f"the {rule} node round on the card differs from the CPU's")
+        out[rule] = {"trained": trained, "delta": delta, "train_s": card.timings["train_s"],
+                     "aggregate_s": card.timings["aggregate_s"], "launches": launches}
+    out["dmtt"] = _check_dmtt_node_against_cpu(device)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[node-runtime] phase 3e in {out['seconds']:.2f} s", flush=True)
+    return out
+
+
+def _check_dmtt_node_against_cpu(device: str) -> dict:
+    """Phase 3e's DMTTNodeProcess rows: node 1 of dmtt_mobility.yaml built
+    on the card and on the CPU (one initial state: the node's CPU
+    generator), its round-0 G^t neighbours' states received: the model
+    scores of the probe evaluation within rtol 1e-5, then every other
+    node's claim (the liars' through the attack's claims_fn) verified: the
+    Beta evidence, the TopB collaborators and the mean topology trust
+    equal."""
+    import numpy as np
+    import torch
+
+    from murmura_tpu_torch.config import load_config
+    from murmura_tpu_torch.dmtt.node_process import DMTTNodeProcess
+    from murmura_tpu_torch.utils.factories import build_attack
+
+    cfg = load_config(DMTT_MOBILITY)
+    attack = build_attack(cfg)
+    comp = np.flatnonzero(attack.compromised).tolist()
+    procs = {}
+    for dev in (device, "cpu"):
+        proc = DMTTNodeProcess(cfg, node_id=1, run_id="smoke", t_start=0.0,
+                               compromised_ids=comp, device=dev)
+        proc.device = torch.device(dev)
+        proc._build_node()
+        procs[dev] = proc
+    card, cpu = procs[device], procs["cpu"]
+    own = cpu.node.get_flat_state()
+    true_nb = cpu.current_neighbors(0)
+    g = np.random.default_rng(2)
+    states = {j: (own + 0.05 * (1 + j) * g.normal(size=own.shape)).astype(np.float32)
+              for j in true_nb}
+    t0 = time.perf_counter()
+    s_card = card._score_models(states)
+    probe_s = time.perf_counter() - t0
+    s_cpu = cpu._score_models(states)
+    score_rel = max(abs(s_card[j] - s_cpu[j]) / max(abs(s_cpu[j]), 1e-30) for j in states)
+    n = cfg.topology.num_nodes
+    adj = torch.from_numpy(cpu.mobility.adjacency_at(0).astype(np.float32))
+    comp_mask = torch.zeros(n)
+    comp_mask[comp] = 1.0
+    claimed = attack.claims_fn(adj, comp_mask).numpy()
+    claims = {j: np.flatnonzero(claimed[j]).tolist() for j in range(n) if j != 1}
+    for proc in procs.values():
+        proc._verify_claims(claims, 0)
+        proc._select_collaborators(true_nb, s_cpu)
+    same = (card._alpha == cpu._alpha and card._beta == cpu._beta
+            and card._collaborators == cpu._collaborators
+            and card._mean_topo_trust(true_nb) == cpu._mean_topo_trust(true_nb))
+    ok = score_rel <= 1e-5 and same
+    print(f"[node-runtime] dmtt: node 1 of dmtt_mobility.yaml, {len(states)} G^t neighbours' "
+          f"states scored on the card in {probe_s:.4f} s, model scores within {score_rel:.3g} "
+          f"relative of the CPU's (limit 1e-5); claims of {len(claims)} nodes verified, Beta "
+          f"evidence, collaborators {card._collaborators} and mean topology trust equal {same}: "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError("the DMTT node round on the card differs from the CPU's")
+    return {"score_rel": score_rel, "probe_s": probe_s}
+
+
+def _compute_apps() -> dict:
+    """{pid: used MiB} of the card's compute processes (nvidia-smi), and
+    the card's memory.used in MiB under the key -1."""
+    def query(args):
+        try:
+            return subprocess.run(["nvidia-smi", *args, "--format=csv,noheader,nounits"],
+                                  capture_output=True, text=True, timeout=10).stdout
+        except (OSError, subprocess.TimeoutExpired):
+            return ""
+
+    apps = {}
+    for line in query(["--query-compute-apps=pid,used_memory"]).splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            apps[int(parts[0])] = float(parts[1]) if parts[1].replace(".", "").isdigit() else 0.0
+    used = query(["--query-gpu=memory.used"]).strip().splitlines()
+    apps[-1] = float(used[0]) if used and used[0].replace(".", "").isdigit() else 0.0
+    return apps
+
+
+def _round_events(run_dir: Path) -> dict:
+    """{round: {node: metrics}} from a distributed run's telemetry events
+    (the monitor's ``round`` events)."""
+    out = {}
+    for line in (run_dir / "events.jsonl").read_text().splitlines():
+        e = json.loads(line)
+        if e.get("type") == "round":
+            out[int(e["round"])] = {int(k): v for k, v in e["nodes"].items()}
+    return out
+
+
+def _node_lines(log: str) -> dict:
+    """Per node: pid, boot seconds (its ready line) and device, and each
+    round's train/aggregate seconds, its allocator peak on the card and its
+    kernel counters (its summary line)."""
+    import ast
+    import re
+
+    nodes = {}
+    for m in re.finditer(r"\[node (\d+)\] pid (\d+) ready ([\d.]+) s after spawn", log):
+        nodes.setdefault(int(m[1]), {}).update(pid=int(m[2]), boot_s=float(m[3]))
+    for m in re.finditer(r"\[node (\d+)\] pid \d+ ready [^\n]*? s before round 0, on (\S+)", log):
+        nodes.setdefault(int(m[1]), {}).update(device=m[2])
+    for m in re.finditer(r"\[node (\d+)\] rounds \{(.*?)\}; (?:card memory peak ([\d.]+) MiB; )?"
+                         r"kernel launches (\{.*?\}); plain calls (\{.*?\})", log):
+        rounds = {int(r): (float(a), float(b)) for r, a, b in re.findall(
+            r"(\d+): train ([\d.]+) s aggregate ([\d.]+) s", m[2])}
+        nodes.setdefault(int(m[1]), {}).update(
+            rounds=rounds, peak_mib=float(m[3]) if m[3] else 0.0,
+            launches=ast.literal_eval(m[4]), plain=ast.literal_eval(m[5]))
+    return nodes
+
+
+def _replay_distributed(cfg_path: Path, rounds: int) -> dict:
+    """The spawned run's protocol in this process on the CPU, one thread
+    as a node process on the CPU runs: every node's NodeProcess built as
+    there, then each round every node trains (honest only), sends its outgoing
+    state (a compromised node's under the attack, its noise from the same
+    CPU generator), receives every neighbour's and aggregates, and is
+    evaluated.  Returns {round: {node: (mini-network stack, adj, the Krum
+    rule's full selected_index and output on it, eval loss)}}: the
+    inputs each node's rule took, for the tie check of a pick that differs
+    between the card's run and the CPU's."""
+    import numpy as np
+    import torch
+
+    from murmura_tpu_torch.config import load_config
+    from murmura_tpu_torch.distributed.node_process import NodeProcess
+
+    cfg = load_config(cfg_path)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        attack_nodes = None
+        procs = []
+        for i in range(cfg.topology.num_nodes):
+            proc = NodeProcess(cfg, node_id=i, run_id="replay", t_start=0.0,
+                               compromised_ids=[], device="cpu")
+            proc.device = torch.device("cpu")
+            proc._build_node()
+            if attack_nodes is None:
+                attack_nodes = np.flatnonzero(proc.attack.compromised).tolist() if proc.attack \
+                    else []
+            procs.append(proc)
+        for proc in procs:
+            proc.compromised_ids = set(attack_nodes)
+            proc.is_compromised = proc.node_id in proc.compromised_ids
+        out = {}
+        for r in range(rounds):
+            sent = {}
+            for proc in procs:
+                if not proc.is_compromised:
+                    proc.node.local_train(r)
+                sent[proc.node_id] = proc._attacked_state(proc.node.get_flat_state(), r)
+            out[r + 1] = {}
+            for proc in procs:
+                received = {j: sent[j] for j in proc.current_neighbors(r)}
+                stack, adj, _ = proc.node.mini_network(received)
+                with torch.no_grad():
+                    new, _, st = proc.node.agg.aggregate(stack, stack, adj, float(r), {},
+                                                         proc.node._ctx)
+                proc.node.aggregate_with_neighbors(received, r)
+                out[r + 1][proc.node_id] = (stack, adj, st["selected_index"].long(), new,
+                                            proc.node.evaluate()["loss"])
+        return out
+    finally:
+        torch.set_num_threads(threads)
+
+
+def run_distributed_smoke(card: str = "cuda") -> dict:
+    """Phase 4e: uci_har_byzantine.yaml with ``backend: distributed`` (its
+    rounds cut to DIST_ROUNDS, the windows DIST_ROUND_S after
+    DIST_GRACE_S, ipc transport, telemetry on for the per-node metrics)
+    through ``python -m murmura_tpu_torch run``: the monitor and 10 node
+    processes on this card.  Gates:
+    exit 0; history rounds 1..DIST_ROUNDS; no node skipped a round (a skip
+    fails the phase: arrival sets that differ are not compared); each node
+    on the card: its pid among nvidia-smi's compute processes during round
+    1, or, where nvidia-smi does not list this container's processes (the
+    card's host here lists pid 1 alone), each node reporting its card and a
+    nonzero allocator peak and the card's memory.used in round 1 above its
+    reading before the spawn by CONTEXT_MIB a node; each node's pairwise kernel
+    twice an aggregate, no plain call; card against CPU node by node, the
+    CPU side an in-process replay of the same protocol with the same draws
+    (``_replay_distributed``; the node processes draw on a CPU generator
+    whatever their device, so the replay is what the same run with
+    ``--device cpu`` computes): Krum's picks equal, or both within
+    ``krum_tie_check``'s tie on that node's mini network as the replay
+    rebuilds it, and the eval loss of a node whose picks agree within rtol
+    DIST_LOSS_RTOL (round 2 on only while no pick of an earlier round
+    differed).  Prints each node's boot (spawn to ready), train and
+    aggregate seconds, the node processes' card memory and the wall."""
+    import tempfile
+
+    import yaml
+
+    t_phase = time.perf_counter()
+    raw = yaml.safe_load(UCI_HAR_BYZANTINE.read_text())
+    raw["experiment"].update(rounds=DIST_ROUNDS, verbose=False)
+    raw["backend"] = "distributed"
+    work = SMOKE_DIR / "distributed"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ipc = tempfile.mkdtemp(prefix="mzq")
+    raw["distributed"] = {"transport": "ipc", "ipc_dir": ipc,
+                          "round_duration_s": DIST_ROUND_S, "startup_grace_s": DIST_GRACE_S}
+    raw["telemetry"] = {"enabled": True, "dir": str(work / "telemetry")}
+    cfg, out, log_path = work / "card.yaml", work / "card.history.json", work / "card.log"
+    cfg.write_text(yaml.safe_dump(raw))
+    before = _compute_apps()
+    samples = []
+    t0 = time.perf_counter()
+    # Appends only: the node processes share this file's offset.
+    with open(log_path, "a") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "murmura_tpu_torch", "run", str(cfg),
+                                 "--device", card, "-o", str(out)],
+                                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            while proc.poll() is None:
+                samples.append((time.monotonic(), _compute_apps()))
+                time.sleep(0.5)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            shutil.rmtree(ipc, ignore_errors=True)
+    run_wall = time.perf_counter() - t0
+    text = log_path.read_text()
+    if proc.returncode != 0:
+        print(text[-4000:], flush=True)
+        raise AssertionError(f"the distributed run ({card}) exited {proc.returncode}")
+    h = json.loads(out.read_text())
+    nodes = _node_lines(text)
+    t_start = float(text.split("t_start=", 1)[1].split()[0])
+    events = _round_events(work / "telemetry")
+    t_replay = time.perf_counter()
+    replay = _replay_distributed(cfg, DIST_ROUNDS)
+    replay_s = time.perf_counter() - t_replay
+    n = raw["topology"]["num_nodes"]
+    c = int(raw["aggregation"]["params"].get("f", 0))
+    failures = []
+    if h.get("round") != list(range(1, DIST_ROUNDS + 1)):
+        failures.append(f"history rounds {h.get('round')}")
+    if any(h.get("skipped_nodes", [])) or h.get("reporting_nodes") != [n] * DIST_ROUNDS:
+        failures.append(f"a node skipped or did not report a round (skipped "
+                        f"{h.get('skipped_nodes')}, reporting {h.get('reporting_nodes')})")
+    if sorted(nodes) != list(range(n)) or any(
+            "rounds" not in v or "pid" not in v for v in nodes.values()):
+        failures.append(f"{len(nodes)} node lines of {n}")
+    pids = {v.get("pid") for v in nodes.values()}
+    base_pids = set(before) - {-1}
+    listed, new_mib, used = set(), 0.0, 0.0
+    for t_s, apps in samples:
+        if t_start <= t_s < t_start + DIST_ROUND_S:
+            listed |= set(apps) - {-1}
+            used = max(used, apps.get(-1, 0.0))
+            new_mib = max(new_mib, sum(m for p, m in apps.items() if p not in base_pids | {-1}))
+    base = before.get(-1, 0.0)
+    off = sorted(i for i, v in nodes.items()
+                 if not str(v.get("device", "")).startswith("cuda") or not v.get("peak_mib"))
+    if pids <= listed:
+        on_card = f"all {n} node pids listed by nvidia-smi in round 1"
+    elif not off and used - base >= CONTEXT_MIB * n:
+        # nvidia-smi on this host does not list this container's processes
+        # (it shows pid 1 alone, before the spawn as after): the nodes are
+        # on the card by their own report (each on cuda with an allocator
+        # peak) and by the card's memory.used, which grows by at least a
+        # CUDA context a node process.
+        on_card = (f"nvidia-smi lists {sorted(listed)} (ours {sorted(pids)}), so: every node "
+                   f"reports cuda and an allocator peak, and memory.used grew by "
+                   f"{used - base:.0f} MiB (at least {CONTEXT_MIB} a node)")
+    else:
+        on_card = (f"nvidia-smi listed {sorted(listed)}, memory.used {base:.0f} -> "
+                   f"{used:.0f} MiB")
+        failures.append(f"the {n} node processes not shown on the card ({on_card}; nodes {off} "
+                        f"report no card)")
+    launches = {"pairwise_sq_distances": 0}
+    for i, v in nodes.items():
+        aggs = sum(1 for _, a in v.get("rounds", {}).values() if a > 0)
+        got = v.get("launches", {}).get("pairwise_sq_distances", -1)
+        launches["pairwise_sq_distances"] += max(got, 0)
+        if got != 2 * aggs or any(v.get("plain", {}).values()):
+            failures.append(f"node {i}: {got} pairwise launches for {aggs} aggregates, plain "
+                            f"{v.get('plain')}")
+    differ, ties, loss_rel, compared, worst, unchecked = 0, True, 0.0, 0, 0.0, 0
+    for r in range(1, DIST_ROUNDS + 1):
+        got_round = events.get(r, {})
+        round_differ = 0
+        for i in range(n):
+            a = got_round.get(i)
+            if a is None:
+                continue
+            stack, adj, sel, new, loss = replay[r][i]
+            pa, pb = a["stats"].get("selected_index"), float(sel[0])
+            if pa != pb and differ:
+                # After a differing pick the card's inputs are no longer the
+                # replay's: not compared.
+                unchecked += 1
+            elif pa != pb:
+                round_differ += 1
+                for pick in (pa, pb):
+                    selected, rows = sel.clone(), new.clone()
+                    selected[0] = int(pick)
+                    rows[0] = stack[int(pick)]
+                    ok_tie, w, _ = krum_tie_check(stack, stack, adj, c, selected, rows)
+                    ties = ties and ok_tie
+                    worst = max(worst, w)
+            elif differ == 0:
+                compared += 1
+                loss_rel = max(loss_rel, abs(a["loss"] - loss) / max(abs(loss), 1e-30))
+        differ += round_differ
+    if not ties:
+        failures.append(f"a Krum pick differs between the card and the CPU outside the tie "
+                        f"(largest gap/tolerance {worst:.3g})")
+    if loss_rel > DIST_LOSS_RTOL:
+        failures.append(f"per-node losses {loss_rel:.3g} relative apart")
+    boots = {i: v.get("boot_s") for i, v in sorted(nodes.items())}
+    per_round = {i: {r: (round(a, 4), round(b, 4)) for r, (a, b) in v.get("rounds", {}).items()}
+                 for i, v in sorted(nodes.items())}
+    peaks = sum(v.get("peak_mib", 0.0) for v in nodes.values())
+    wall = time.perf_counter() - t_phase
+    print(f"[distributed] uci_har_byzantine.yaml, backend: distributed, {n} node processes + "
+          f"the monitor on this card ({DIST_ROUNDS} rounds of {DIST_ROUND_S} s after a "
+          f"{DIST_GRACE_S} s grace): boot s (spawn to ready) {boots} (largest "
+          f"{max(boots.values(), default=0.0):.2f}); (train s, aggregate s) by "
+          f"node and round {per_round}; on the card: {on_card}; card memory of the node "
+          f"processes {new_mib:.0f} MiB (nvidia-smi, round 1), memory.used {base:.0f} MiB "
+          f"before the spawn and {used:.0f} MiB in round 1, allocator peaks summed "
+          f"{peaks:.1f} MiB; pairwise launches "
+          f"{launches['pairwise_sq_distances']}, 0 plain; card vs the CPU replay "
+          f"({replay_s:.2f} s): {differ} differing "
+          f"pick(s) (within krum_tie_check's tie on the replayed inputs: {ties}, largest "
+          f"gap/tolerance {worst:.3g}; {unchecked} later node-round(s) not comparable), "
+          f"per-node loss within {loss_rel:.3g} relative on "
+          f"{compared} node-rounds (limit {DIST_LOSS_RTOL:g}); run wall {run_wall:.2f} s; "
+          f"phase {wall:.2f} s: "
+          f"{'ok' if not failures else 'FAILED: ' + '; '.join(failures)}", flush=True)
+    if failures:
+        raise AssertionError("the distributed backend phase failed: " + "; ".join(failures))
+    return {"launches": launches, "plain": {}, "s_per_round": [], "boots": boots,
+            "mem_mib": new_mib if pids <= listed else used - base, "wall": wall,
+            "differ": differ}
+
+
 def main() -> int:
     started = time.perf_counter()
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
@@ -5298,45 +5814,61 @@ def main() -> int:
               + " | ".join(usage), flush=True)
 
     results: dict = {}
-    check_kernels(results)
-    check_model_widths(results)
-    codec_ms = check_codec()
-    check_round_against_cpu()
-    check_pipelined_against_cpu()
-    check_sparse_rounds_against_cpu()
-    check_adaptive_against_cpu()
-    round64 = check_round_n64_bf16()
-    t_models = time.perf_counter()
-    model_checks = check_models_against_cpu()
-    print(f"[models] card against CPU in {time.perf_counter() - t_models:.2f} s", flush=True)
+    phase_s: dict = {}
 
-    mains = {run[0]: run_main_path(*run) for run in MAIN_RUNS}
-    mains.update(run_fused_pair())
-    mains.update(run_fused_pair("stale_flagship", STALE_SECTIONS))
-    mains.update(run_fused_pair("pipelined_flagship", PIPELINE_SECTIONS))
+    def timed(label, fn, *args):
+        t_fn = time.perf_counter()
+        value = fn(*args)
+        dt = time.perf_counter() - t_fn
+        phase_s[label] = phase_s.get(label, 0.0) + dt
+        print(f"[time] {label} {dt:.1f} s (elapsed {time.perf_counter() - started:.1f} s)",
+              flush=True)
+        return value
+
+    timed("3:kernels", check_kernels, results)
+    timed("3:model_widths", check_model_widths, results)
+    codec_ms = timed("3:codec", check_codec)
+    timed("3b:rounds", check_round_against_cpu)
+    timed("3b:pipelined", check_pipelined_against_cpu)
+    timed("3b:sparse", check_sparse_rounds_against_cpu)
+    timed("3b:adaptive", check_adaptive_against_cpu)
+    round64 = timed("3c:n64_bf16", check_round_n64_bf16)
+    t_models = time.perf_counter()
+    model_checks = timed("3b:models", check_models_against_cpu)
+    print(f"[models] card against CPU in {time.perf_counter() - t_models:.2f} s", flush=True)
+    node_runtime = timed("3e:node_runtime", check_node_runtime_against_cpu)
+
+    mains = {run[0]: timed("4:main_runs", run_main_path, *run) for run in MAIN_RUNS}
+    mains.update(timed("4:fused", run_fused_pair))
+    mains.update(timed("4:fused", run_fused_pair, "stale_flagship", STALE_SECTIONS))
+    mains.update(timed("4:fused", run_fused_pair, "pipelined_flagship", PIPELINE_SECTIONS))
     for exchange in ("allgather", "ppermute"):
-        mains.update(run_kill_resume(exchange))
-    gangs = run_gangs()
+        mains.update(timed("4:kill_resume", run_kill_resume, exchange))
+    gangs = timed("4:gangs", run_gangs)
     mains.update(gangs)
     print_gang_summary(gangs)
-    pop_check = check_population_against_cpu()
-    pop_resume = run_population_kill_resume()
-    dmtt_check = check_dmtt_against_cpu()
-    surface = run_model_surface()
+    pop_check = timed("4:population", check_population_against_cpu)
+    pop_resume = timed("4:population", run_population_kill_resume)
+    dmtt_check = timed("4:dmtt", check_dmtt_against_cpu)
+    surface = timed("4:model_surface", run_model_surface)
     mains.update(surface)
-    dmtt_gang = run_dmtt_gang()
+    dmtt_gang = timed("4:dmtt_gang", run_dmtt_gang)
     mains.update(dmtt_gang)
-    frontiers = {"frontier:frontier_krum": run_frontier_smoke("frontier_krum", FRONTIER_KRUM),
-                 "frontier:flagship": run_frontier_smoke("flagship", FLAGSHIP,
-                                                         FLAGSHIP_FRONTIER)}
+    frontiers = {"frontier:frontier_krum": timed("4:frontier", run_frontier_smoke,
+                                                 "frontier_krum", FRONTIER_KRUM),
+                 "frontier:flagship": timed("4:frontier", run_frontier_smoke, "flagship",
+                                            FLAGSHIP, FLAGSHIP_FRONTIER)}
     mains.update(frontiers)
-    grids = {"grid:serve_grid": run_serve_grid_smoke(), "grid:flagship": run_flagship_grid_smoke()}
+    grids = {"grid:serve_grid": timed("4:grid", run_serve_grid_smoke),
+             "grid:flagship": timed("4:grid", run_flagship_grid_smoke)}
     mains.update(grids)
-    daemon = run_serve_daemon_smoke()
-    flagship_daemon = run_flagship_daemon_smoke()
+    daemon = timed("4:serve", run_serve_daemon_smoke)
+    flagship_daemon = timed("4:serve", run_flagship_daemon_smoke)
     mains["serve:flagship"] = flagship_daemon
-    sharded = run_sharded_smoke()
+    sharded = timed("4:sharded", run_sharded_smoke)
     mains.update(sharded)
+    distributed = timed("4e:distributed", run_distributed_smoke)
+    mains["krum:distributed_uci_har_byzantine"] = distributed
     pop, scen, dm = (mains["krum:population_1m"], mains["krum:population_1m_scenario"],
                      mains["fedavg:dmtt_mobility"])
     pop_s, scen_s = float(np.mean(pop["s_per_round"][1:])), float(np.mean(scen["s_per_round"][1:]))
@@ -5488,6 +6020,14 @@ def main() -> int:
             "library_ms": None if None in libs else sum(libs),
             "cases": rows,
         })
+    print("[time] by phase, s: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()),
+          flush=True)
+    print(f"[node-runtime] Krum {node_runtime['krum']['train_s']:.4f} s train, "
+          f"{node_runtime['krum']['aggregate_s']:.4f} s aggregate on the card; Sketchguard "
+          f"{node_runtime['sketchguard']['aggregate_s']:.4f} s aggregate; [distributed] boot "
+          f"largest {max(distributed['boots'].values()):.2f} s, card memory of the 10 node "
+          f"processes {distributed['mem_mib']:.0f} MiB, phase {distributed['wall']:.2f} s; "
+          "no claim", flush=True)
     print(f"[time] every phase in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

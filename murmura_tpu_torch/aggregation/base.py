@@ -108,11 +108,18 @@ class InfluenceDecl:
 
 @dataclass(frozen=True)
 class AggregatorDef:
-    """A named aggregation rule with optional carried state."""
+    """A named aggregation rule with optional carried state.
+
+    ``state_kind`` maps each carried-state key to its indexing scheme:
+    'node' = leading axis is the node id (e.g. acceptance windows), 'edge' =
+    [N, N] directed-edge matrix (e.g. smoothed trust).  The ZMQ backend
+    (distributed/local.py) uses it to project the stacked state onto one
+    process's view."""
 
     name: str
     aggregate: Callable[..., Tuple[torch.Tensor, AggState, Stats]]
     init_state: Callable[[int], AggState] = field(default=lambda num_nodes: {})
+    state_kind: Dict[str, str] = field(default_factory=dict)
     # Under an int8 compressed exchange the rule receives the broadcast as
     # float32 dequantized values (the circulant rules, whose JAX twins read
     # the int8 payload through ``dequantize_f32``); its output stays in the
@@ -308,9 +315,16 @@ def self_probe_metrics(
     own: torch.Tensor, ctx: AggContext, metric_fn: Callable
 ) -> Dict[str, Any]:
     """Each node's own state on its own probe batch (the diagonal of the
-    cross-evaluation), vmapped over the nodes: dict of [N] metrics."""
+    cross-evaluation), vmapped over the nodes: dict of [N] metrics.  A
+    leading probe dim of 1 is one evaluator batch for every row (the ZMQ
+    backend's mini network, distributed/local.py)."""
 
     def one(params_i, x_i, y_i, m_i):
         return metric_fn(ctx.apply_fn(params_i, x_i), y_i, m_i)
 
-    return vmap(one)(ctx.unravel(own), ctx.probe_x, ctx.probe_y, ctx.probe_mask)
+    n = own.shape[0]
+    px, py, pm = (
+        a.expand((n,) + tuple(a.shape[1:])) if a.shape[0] == 1 and n != 1 else a
+        for a in (ctx.probe_x, ctx.probe_y, ctx.probe_mask)
+    )
+    return vmap(one)(ctx.unravel(own), px, py, pm)

@@ -251,6 +251,7 @@ def make_evidential_trust(
 
     return AggregatorDef(
         name="evidential_trust", aggregate=aggregate, init_state=init_state,
+        state_kind={"smoothed_trust": "edge", "trust_seen": "edge"},
         influence=InfluenceDecl(
             "unbounded",
             note="trust-normalized mean over accepted neighbors: benign "

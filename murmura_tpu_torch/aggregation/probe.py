@@ -26,14 +26,22 @@ def pairwise_probe_eval(
     flat: torch.Tensor, ctx: AggContext, metric_fn: MetricFn
 ) -> Dict[str, torch.Tensor]:
     """[N, N] metrics: entry [i, j] is model j (row j of ``flat`` [N, P]) on
-    node i's probe batch.  The models run one after another."""
+    node i's probe batch.  The models run one after another.
+
+    ``probe_x`` may carry a leading dim of 1: a single evaluator whose
+    metric row is broadcast to every row.  The ZMQ backend's LocalNode
+    (distributed/local.py) uses it: its mini network consumes row 0 only,
+    so one probe batch a model (O(M) forwards) replaces the M x M
+    cross-evaluation and gives the same rows."""
+    n = flat.shape[0]
     n_eval, b = ctx.probe_x.shape[:2]
     xs = ctx.probe_x.reshape((n_eval * b,) + tuple(ctx.probe_x.shape[2:]))
     per_j = []
-    for j in range(flat.shape[0]):
+    for j in range(n):
         outputs = ctx.apply_fn(ctx.unravel(flat[j]), xs).reshape(n_eval, b, -1)
         per_j.append(vmap(metric_fn)(outputs, ctx.probe_y, ctx.probe_mask))
-    return {k: torch.stack([m[k] for m in per_j], dim=1) for k in per_j[0]}
+    out = {k: torch.stack([m[k] for m in per_j], dim=1) for k in per_j[0]}
+    return {k: v.expand(n, n) for k, v in out.items()} if n_eval == 1 else out
 
 
 @torch.no_grad()

@@ -156,6 +156,7 @@ def make_sketchguard(
 
     return AggregatorDef(
         name="sketchguard", aggregate=aggregate, init_state=init_state,
+        state_kind={"acc_window": "node", "window_len": "node"},
         influence=InfluenceDecl(
             "unbounded",
             note="sketch-space distance accept-filter: benign inputs "

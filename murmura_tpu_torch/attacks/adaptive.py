@@ -154,7 +154,8 @@ def make_adaptive_alie_attack(
         return {"atk_z": np.full(n, z0, np.float32), "atk_accept_ema": np.ones(n, np.float32)}
 
     def apply_adaptive(flat, compromised_mask, generator, state, noise=None):
-        check_rows("adaptive_alie", flat, num_nodes)
+        if check_rows("adaptive_alie", flat, num_nodes):
+            raise ValueError("adaptive_alie takes the whole network's broadcast, not one node's row")
         if not comp_count:
             return flat
         mu, var = coalition_stats(flat, compromised_mask, estimator)
@@ -206,7 +207,8 @@ def make_adaptive_ipm_attack(
         return {"atk_eps": np.full(n, eps0, np.float32), "atk_accept_ema": np.ones(n, np.float32)}
 
     def apply_adaptive(flat, compromised_mask, generator, state, noise=None):
-        check_rows("adaptive_ipm", flat, num_nodes)
+        if check_rows("adaptive_ipm", flat, num_nodes):
+            raise ValueError("adaptive_ipm takes the whole network's broadcast, not one node's row")
         if not comp_count:
             return flat
         mu = honest_mean(flat, compromised_mask)  # [1, P] float32

@@ -62,13 +62,18 @@ def coalition_stats(flat: torch.Tensor, compromised_mask: torch.Tensor, estimato
     return mu, var
 
 
-def check_rows(name: str, flat: torch.Tensor, num_nodes: int) -> None:
-    """An attack takes the whole network's [N, P] broadcast: no port path
-    builds a per-node view, so any other row count is a fault."""
-    if flat.shape[0] != num_nodes:
-        raise ValueError(
-            f"{name} attack built for {num_nodes} nodes got {flat.shape[0]} rows"
-        )
+def check_rows(name: str, flat: torch.Tensor, num_nodes: int) -> bool:
+    """Whether ``flat`` is one node's [1, P] view (the ZMQ backend's node
+    process attacks its own outgoing row, distributed/node_process.py, with
+    a ones mask) rather than the whole network's [N, P] broadcast; any
+    other row count is a fault."""
+    if flat.shape[0] == num_nodes:
+        return False
+    if flat.shape[0] == 1:
+        return True
+    raise ValueError(
+        f"{name} attack built for {num_nodes} nodes got {flat.shape[0]} rows"
+    )
 
 
 @dataclass(frozen=True)

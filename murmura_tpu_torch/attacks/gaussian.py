@@ -4,7 +4,9 @@ state + N(0, noise_std^2) noise.
 
 Noise is drawn for the C compromised rows only, from a ``torch.Generator``
 on the tensor's device.  ``noise`` injects a [C, P] standard-normal draw
-instead (the RNG seam the tests use to feed the JAX package's draw).
+instead (the RNG seam the tests use to feed the JAX package's draw).  One
+node's [1, P] view (the ZMQ backend's node process) takes a [1, P] draw
+and is perturbed where its mask is set.
 Under a param group the draw (or the injected noise) is the whole width's,
 cut to the rank's column block, so that it keeps the unsharded run's bits.
 """
@@ -34,7 +36,13 @@ def make_gaussian_attack(
         generator: Optional[torch.Generator] = None,
         noise: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        check_rows("gaussian", flat, num_nodes)
+        if check_rows("gaussian", flat, num_nodes):
+            if noise is None:
+                noise = torch.randn(flat.shape, generator=generator, device=flat.device,
+                                    dtype=torch.float32)
+            noise = torch.as_tensor(noise).to(flat.device, torch.float32) * noise_std
+            return torch.where(compromised_mask[:, None] > 0,
+                               (flat.to(torch.float32) + noise).to(flat.dtype), flat)
         if not len(comp_idx):
             return flat
         # A device copy made once, so that a round makes no host sync.

@@ -20,6 +20,8 @@
     python -m murmura_tpu_torch report --frontier <frontier.json> [--json]
     python -m murmura_tpu_torch report --grid <grid.json> [--json]
     python -m murmura_tpu_torch list-components [CATEGORY]
+    python -m murmura_tpu_torch run-node <yaml> --node-id I --t-start T --run-id ID
+        [--host HOST] [--resume|--no-resume] [--device cuda|cpu]
 
 The run goes to the CUDA card by default.  Without CUDA it stops with an
 error unless ``--device cpu`` asks for the CPU; it never drops to the CPU
@@ -38,6 +40,16 @@ as the JAX package lays its mesh, over the devices there are
 over NCCL with rank r on ``cuda:r``; rank 0 prints and writes.  On one
 card the layout is (1, 1, 1): one process, unsharded, on the padded flat
 vector.  The layout is printed on a line of its own.
+
+A config with ``backend: distributed`` runs the ZMQ multi-process backend
+(distributed/runner.py): a monitor process and one process per node on this
+machine, wall-clock rounds of ``distributed.round_duration_s`` after a
+``startup_grace_s``, deadline-based partial aggregation, the same history
+schema; each node on ``cuda:(node_id % device_count)``, or on the CPU with
+``--device cpu``.  ``--checkpoint-dir``/``--resume`` and ``--profile`` are
+refused with it, as in the JAX package.  ``run-node`` is its multi-machine
+worker: one node of a run whose ``run_id`` and ``t_start`` the head's
+``run`` printed.
 
 ``sweep`` runs the config's ``sweep:`` members (or the ``--seeds`` list)
 as one gang (core/gang.py) and ``run --seeds N`` the seeds experiment.seed
@@ -278,6 +290,9 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
             args = (config_path, output, device, verbose, profile, checkpoint_dir,
                     checkpoint_every, resume, require_tpu, retries)
             return launch(_cli_rank, args, world=world, device_type=dev.type)[0], None
+    if config.backend == "distributed":
+        return run_distributed(config, output, dev, profile=profile,
+                               checkpoint_dir=checkpoint_dir, resume=resume)
     if profile:
         config.telemetry.enabled = True
         if config.telemetry.profile_rounds == 0:
@@ -328,6 +343,52 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
         print(f"Telemetry run written to {default_telemetry_dir(config)} — render it "
               "with `python -m murmura_tpu_torch report <dir>`")
     return history, network
+
+
+def run_distributed(config, output: Optional[Path], dev: torch.device, *, profile: bool,
+                    checkpoint_dir, resume):
+    """A ``backend: distributed`` run (distributed/runner.py); returns
+    (history, None)."""
+    from murmura_tpu_torch.distributed.runner import DistributedRunner
+
+    if profile:
+        raise UsageError(
+            "--profile captures a device trace of the jitted round loop; backend: "
+            "distributed trains in per-node worker processes (use the telemetry "
+            "counters instead)"
+        )
+    if resume or checkpoint_dir is not None:
+        raise UsageError(
+            "--checkpoint-dir/--resume are not supported with backend: distributed "
+            "(state lives in per-node processes)"
+        )
+    print(
+        f"murmura_tpu_torch experiment {config.experiment.name} "
+        f"(backend={config.backend}, nodes={config.topology.num_nodes}, "
+        f"rounds={config.experiment.rounds}, device={dev})",
+        flush=True,
+    )
+    history = DistributedRunner(config, device=dev.type).run()
+    display_results(history)
+    if output is not None:
+        output.parent.mkdir(parents=True, exist_ok=True)
+        output.write_text(json.dumps(history, indent=2))
+        print(f"History written to {output}")
+    return history, None
+
+
+def run_node(config_path: Path, node_id: int, t_start: float, run_id: str,
+             host: Optional[str] = None, resume: bool = False, device: str = "cuda") -> None:
+    """The multi-machine worker of the ZMQ backend (reference:
+    cli.py:143-208): node ``node_id`` of the run ``run_id`` that a head's
+    ``run`` started at monotonic ``t_start`` (valid on this machine's
+    clock)."""
+    from murmura_tpu_torch.config import load_config
+    from murmura_tpu_torch.distributed.node_process import run_single_node
+
+    config = load_config(config_path)
+    run_single_node(config, node_id=node_id, t_start=t_start, run_id=run_id, host=host,
+                    resume=resume, device=device)
 
 
 def _cli_rank(config_path, output, device, verbose, profile, checkpoint_dir,
@@ -621,8 +682,8 @@ def component_rows() -> Dict[str, str]:
         "topologies": ", ".join(TOPOLOGY_TYPES),
         "aggregators": ", ".join(sorted(AGGREGATORS)),
         "attacks": ", ".join(sorted(ATTACKS)),
-        "backends": "simulation, tpu (the node axis on one CUDA card); distributed is not "
-                    "ported yet",
+        "backends": "simulation, tpu (the node axis on one CUDA card), distributed (one "
+                    "ZMQ process a node on the card or the CPU)",
         "models": (
             "mlp, leaf.femnist[.tiny/.small/.baseline/.large/.xlarge], "
             "leaf.celeba, leaf.shakespeare, wearables.{uci_har,pamap2,ppg_dalia}"
@@ -776,6 +837,21 @@ def main(argv: Optional[List[str]] = None) -> None:
                        help="write the run's spans as Chrome trace JSON here instead")
     p_rep.add_argument("--json", dest="as_json", action="store_true",
                        help="print the report as one JSON object")
+    p_node = sub.add_parser("run-node", help="Multi-machine ZMQ worker: one node of a "
+                                             "backend: distributed run")
+    p_node.add_argument("config_path", type=Path)
+    p_node.add_argument("--node-id", type=int, required=True, help="this worker's node id")
+    p_node.add_argument("--t-start", type=float, required=True,
+                        help="the shared round-0 start time the head printed")
+    p_node.add_argument("--run-id", type=str, required=True, help="the run id the head printed")
+    p_node.add_argument("--host", type=str, default=None, help="this node's bind host")
+    p_node.add_argument("--resume", dest="resume", action="store_true", default=False,
+                        help="rejoin a running experiment from this node's last per-node "
+                             "checkpoint (faults.enabled crash recovery)")
+    p_node.add_argument("--no-resume", dest="resume", action="store_false")
+    p_node.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="cuda (default, cuda:(node_id %% device_count)) or cpu; never "
+                             "chosen for you")
     p_list = sub.add_parser("list-components", help="List the components the port runs")
     p_list.add_argument("component_type", nargs="?", default=None,
                         help="one category (topologies, aggregators, attacks, backends, "
@@ -821,6 +897,10 @@ def main(argv: Optional[List[str]] = None) -> None:
             return
         if args.command == "serve":
             serve(args.config_path, args.device, args.require_tpu)
+            return
+        if args.command == "run-node":
+            run_node(args.config_path, args.node_id, args.t_start, args.run_id, args.host,
+                     args.resume, args.device)
             return
         durability = dict(checkpoint_dir=args.checkpoint_dir,
                           checkpoint_every=args.checkpoint_every, resume=args.resume,

@@ -184,6 +184,12 @@ PROBE_RULES = ("ubar", "evidential_trust")
 # factories' lambda_weight).
 EVIDENTIAL_LAMBDA = 0.1
 
+
+def evidential_lambda(round_idx, annealing_rounds: int) -> float:
+    """The evidential KL weight of round ``round_idx``: annealed in linearly
+    over ``annealing_rounds`` up to ``EVIDENTIAL_LAMBDA``."""
+    return min(1.0, round_idx / max(1, annealing_rounds)) * EVIDENTIAL_LAMBDA
+
 # The DMTT trust state carried in agg_state (dmtt/protocol.py), which the
 # rule never sees.
 DMTT_STATE_KEYS = (
@@ -620,10 +626,6 @@ def build_round_program(
                         p.copy_((p - lr_ub * g.to(torch.float32)).to(p.dtype))
         return flat
 
-    def lambda_of(round_idx):
-        """The evidential KL weight of round ``round_idx``."""
-        return min(1.0, round_idx / max(1, annealing_rounds)) * EVIDENTIAL_LAMBDA
-
     def train_rows(flat, train_mask, round_idx, generators, data=None, step_lr=None,
                    draws=None):
         """Local training of the rows of ``flat`` in place (RoundProgram.
@@ -633,7 +635,8 @@ def build_round_program(
         draws = draws or {}
         return local_training(
             flat, d_own if data is None else data, train_mask, list(generators),
-            draws.get("u"), draws.get("dropout"), lambda_of(round_idx),
+            draws.get("u"), draws.get("dropout"),
+            evidential_lambda(round_idx, annealing_rounds),
             lr if step_lr is None else step_lr,
         )
 

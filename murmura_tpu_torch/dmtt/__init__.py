@@ -1,6 +1,7 @@
 """DMTT, the dynamic-mobility topology trust protocol, as [N, N] tensor
-transforms carried through the round (dmtt/protocol.py).  The ZMQ node
-process of the JAX package's distributed backend is not ported."""
+transforms carried through the round (dmtt/protocol.py), and the ZMQ
+backend's DMTT node process (dmtt/node_process.py, imported where it is
+run)."""
 
 from murmura_tpu_torch.dmtt.protocol import (
     DMTTParams,

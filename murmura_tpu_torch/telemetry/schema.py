@@ -32,3 +32,12 @@ EVENTS_FILE = "events.jsonl"
 # Manifest ``kind`` values: a training run, or a bench artifact.
 KIND_RUN = "run"
 KIND_BENCH = "bench"
+
+# Copy of MONITOR_KNOWN_KEYS from murmura_tpu/telemetry/schema.py: the
+# metric keys the distributed Monitor understands natively; anything else a
+# node reports is forwarded under ``extra.*``, never silently dropped.
+MONITOR_KNOWN_KEYS = frozenset({
+    "round", "node", "skipped", "compromised",
+    "accuracy", "loss", "vacuity", "entropy", "strength",
+    "stats", "counters",
+})

@@ -73,8 +73,6 @@ SHARDING_UNPORTED = {
 def unported_sections(config: Config) -> List[str]:
     """Every enabled part of the config the port does not run yet."""
     out = []
-    if config.backend == "distributed":
-        out.append("backend: distributed (the ZMQ multi-process backend)")
     if config.tpu.param_shards > 1:
         if config.sweep is not None:
             out.append(SHARDING_UNPORTED["sweep"])
@@ -210,11 +208,12 @@ def default_telemetry_dir(config: Config) -> str:
     return config.telemetry.dir or os.path.join("murmura_runs", config.experiment.name)
 
 
-def build_telemetry_writer(config: Config, resume: bool = False):
+def build_telemetry_writer(config: Config, resume: bool = False, run_id=None):
     """TelemetryWriter from config.telemetry, or None when off (and on a
     param group's ranks other than 0).  ``resume``: the run continues from
     its snapshot, so the writer appends to the run dir's stream instead of
-    rotating it."""
+    rotating it.  ``run_id``: the manifest's run id (the distributed
+    Monitor passes its run's), else generated."""
     t = config.telemetry
     group = process_group()
     if not t.enabled or (group is not None and group.rank != 0):
@@ -223,6 +222,7 @@ def build_telemetry_writer(config: Config, resume: bool = False):
 
     return TelemetryWriter(
         default_telemetry_dir(config),
+        run_id=run_id,
         config=config,
         phase_times=t.phase_times,
         memory_stats=t.memory_stats,
@@ -274,6 +274,14 @@ def build_attack(config: Config) -> Optional[Attack]:
     if kind == "directed_deviation":
         return bisect(ATTACKS[kind](num_nodes=n, attack_percentage=pct, seed=seed,
                                     lambda_param=float(p.get("lambda_param", -5.0))))
+    if kind in ("alie", "ipm") and config.backend == "distributed" and config.dmtt is not None:
+        # The DMTT node process has no coalition branch: a colluding attack
+        # would silently run no attack (the JAX factories' refusal).
+        raise ConfigError(
+            f"attack type '{kind}' is not wired into the DMTT distributed round "
+            "protocol; use backend: simulation/tpu, or a different attack on the "
+            "distributed backend"
+        )
     if kind == "alie":
         estimator = str(p.get("estimator", "omniscient"))
         if estimator not in ("omniscient", "coalition"):
@@ -281,13 +289,16 @@ def build_attack(config: Config) -> Optional[Attack]:
                 f"attack.params.estimator must be 'omniscient' or 'coalition', "
                 f"got {estimator!r}"
             )
-        if estimator == "coalition" and select_compromised_count(n, pct, seed) < 2:
+        if ((config.backend == "distributed" or estimator == "coalition")
+                and select_compromised_count(n, pct, seed) < 2):
             # With one colluder sigma is 0 and mu - z*sigma is its own benign
-            # state: a run labelled ALIE that attacks nothing.
+            # state: a run labelled ALIE that attacks nothing.  The ZMQ
+            # backend always takes the coalition estimator.
             raise ConfigError(
                 "the ALIE coalition estimator needs at least 2 compromised nodes "
                 "(mu/sigma over the coalition sample is degenerate with 1); raise "
-                "attack.percentage, or use the omniscient estimator"
+                "attack.percentage, or use the omniscient estimator on backend: "
+                "simulation/tpu"
             )
         if ad.enabled:
             return make_adaptive_alie_attack(
@@ -305,6 +316,15 @@ def build_attack(config: Config) -> Optional[Attack]:
         return ATTACKS[kind](num_nodes=n, attack_percentage=pct, seed=seed,
                              epsilon=p.get("epsilon"))
     if kind == "label_flip":
+        if config.backend == "distributed":
+            # The node processes build their shards without the poison: an
+            # identity state attack over clean data would be a silent
+            # no-attack run (the JAX factories' refusal).
+            raise ConfigError(
+                "attack type 'label_flip' is not wired into the ZMQ distributed "
+                "backend (per-process data is built without the poison transform); "
+                "use backend: simulation/tpu"
+            )
         ff = float(p.get("flip_fraction", 1.0))
         if not 0.0 < ff <= 1.0:
             raise ConfigError(f"attack.params.flip_fraction must be in (0, 1], got {ff}")
@@ -526,6 +546,14 @@ def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None
     when a snapshot exists there (a resume with no snapshot yet is a fresh
     run).  The caller restores the snapshot (Network.restore_checkpoint)."""
     refuse_unported(config)
+    if config.backend == "distributed":
+        # An in-process Network would be another backend than the config
+        # asks for (the JAX factories build one silently).
+        raise ConfigError(
+            "backend: distributed runs one OS process per node "
+            "(distributed/runner.py DistributedRunner, through the run command); "
+            "build_network_from_config builds the in-process backends only"
+        )
     seed = config.experiment.seed
     topology = build_topology(config)
     attack = build_attack(config)

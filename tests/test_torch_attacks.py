@@ -99,12 +99,23 @@ def test_broadcast_attack_matches_jax(label, kind, kw, dtype):
 
 
 def test_attacks_refuse_a_per_node_view():
-    # The JAX package passes a non-N-row input through; no port path
-    # builds one, so the port raises instead.
+    # One node's [1, P] view is the ZMQ backend's (a node process attacks
+    # its own outgoing row with a ones mask) and follows the JAX package's
+    # per-node branches: ALIE and IPM pass it through (their colluders go
+    # through the coalition estimator instead), directed deviation scales
+    # it, gaussian adds noise.  Any other row count is refused.
+    row = torch.full((1, 5), 2.0)
+    ones = torch.ones(1)
+    noise = torch.arange(5, dtype=torch.float32)[None]
     for kind in ("alie", "ipm", "directed_deviation", "gaussian"):
         atk = ATTACKS[kind](N, 0.25, seed=SEED)
-        with pytest.raises(ValueError, match="built for 16 nodes got 1 rows"):
-            atk.apply(torch.zeros((1, 5)), torch.zeros(1))
+        with pytest.raises(ValueError, match="built for 16 nodes got 2 rows"):
+            atk.apply(torch.zeros((2, 5)), torch.zeros(2))
+        out = atk.apply(row, ones, noise=noise)
+        want = {"alie": row, "ipm": row, "directed_deviation": -5.0 * row,
+                "gaussian": row + 10.0 * noise}[kind]
+        assert torch.equal(out, want), kind
+        assert torch.equal(atk.apply(row, torch.zeros(1), noise=noise), row), kind
 
 
 @pytest.mark.parametrize("n,m", [(10, 2), (16, 3), (16, 8), (16, 9), (64, 12), (5, 1), (3, 0)])

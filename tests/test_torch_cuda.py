@@ -1170,3 +1170,55 @@ def test_sharded_group_on_one_card_matches_unsharded(dev, rule, exchange):
         assert rank["launches"][kernel] == (2 if rule == "krum" else 1)
         assert not any(rank["plain_calls"].values())
         assert rank["forbidden_modules"] == []
+
+
+@pytest.mark.parametrize("rule,params,kernels", [
+    ("krum", {"num_compromised": 1}, {"pairwise_sq_distances": 2}),
+    ("sketchguard", {"sketch_size": 64}, {"count_sketch": 2, "pairwise_sq_distances": 1}),
+])
+def test_local_node_on_the_card_equals_the_cpu(dev, rule, params, kernels):
+    # The ZMQ backend's LocalNode (distributed/local.py): one node with the
+    # UCI HAR evidential MLP (dropout 0.3) trains on the card and on the CPU
+    # from one start with one draw stream (its CPU generator), then
+    # aggregates on its [5, P] mini network with the same four received
+    # states: the rule's kernels launch on the card, no plain call; picks
+    # equal, parameters within a scaled 1e-4.
+    from murmura_tpu_torch.aggregation import build_aggregator
+    from murmura_tpu_torch.distributed.local import LocalNode
+    from murmura_tpu_torch.models.registry import build_model
+    from murmura_tpu_torch.ops import sketch_kernels
+    from murmura_tpu_torch.ops.flatten import model_dimension, tree_to_numpy
+
+    g = np.random.default_rng(3)
+    x = g.normal(size=(96, 561)).astype(np.float32)
+    y = g.integers(0, 6, size=96).astype(np.int32)
+    model = build_model("wearables.uci_har", {})
+    init = tree_to_numpy(model.init(torch.Generator().manual_seed(3), "cpu"))
+    dim = model_dimension(init)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        node = LocalNode(0, model, build_aggregator(rule, params, model_dim=dim), x, y,
+                         max_neighbors=4, batch_size=32, lr=0.01, local_epochs=2, seed=3,
+                         device=d, init_params=init)
+        node.local_train(0)
+        own = node.get_flat_state()
+        states = {j: (own + 0.02 * (1 + j) * g.normal(size=own.shape)).astype(np.float32)
+                  for j in (1, 2, 3, 4)} if d.type == "cuda" else out["states"]
+        K.reset_counts()
+        sketch_kernels.reset_counts()
+        node.aggregate_with_neighbors(states, 0)
+        launches = {**K.LAUNCHES, **sketch_kernels.LAUNCHES}
+        plain = {**K.PLAIN_CALLS, **sketch_kernels.PLAIN_CALLS}
+        out[d.type] = (own, node.get_flat_state(), node.get_aggregator_statistics(),
+                       launches, plain)
+        out["states"] = states
+    (own_c, flat_c, st_c, launches, plain), (own_p, flat_p, st_p, _, _) = out["cuda"], out["cpu"]
+    for k, n in kernels.items():
+        assert launches[k] == n, (k, launches)
+    assert not any(plain.values()), plain
+    scale = max(1.0, float(np.abs(flat_p).max()))
+    assert float(np.abs(own_c - own_p).max()) / scale <= 1e-4
+    assert float(np.abs(flat_c - flat_p).max()) / scale <= 1e-4
+    for k in ("selected_index", "selected_own", "acceptance_rate"):
+        if k in st_p:
+            assert st_c[k] == st_p[k], k

@@ -21,12 +21,15 @@ and it never moves to the CPU unless asked to.
   attacks/adaptive.py), one frontier cell of two stages with its stage
   reset (frontier.py) and one grid bucket (serve/scheduler.py) whose
   manifest and daemon-free telemetry readers (telemetry/metrics.py,
-  spans.py, registry.py, report.render_grid) run too, loads no ``jax`` and
-  no ``murmura_tpu.*`` module (counted against what the interpreter had
-  loaded at start).
+  spans.py, registry.py, report.render_grid) run too, and one round of the
+  ZMQ backend's LocalNode (distributed/local.py: train, Krum on its mini
+  network, eval), loads no ``jax`` and no ``murmura_tpu.*`` module (counted
+  against what the interpreter had loaded at start).
+- Every module of the port imports where ``zmq`` cannot be imported.
 - An AST scan of the port and of chip_smoke.py finds no such import.
 - Without CUDA, ``python -m murmura_tpu_torch run`` without ``--device
-  cpu`` fails with a message, and chip_smoke.py exits non-zero, printing
+  cpu`` fails with a message, as do a distributed node, its LocalNode and
+  the DistributedRunner, and chip_smoke.py exits non-zero, printing
   no result; so does chip_smoke.py copied alone into an empty directory.
 """
 
@@ -213,6 +216,17 @@ with tempfile.TemporaryDirectory() as tmp:
     assert "murmura_rounds_total 1" in text and text.endswith("# EOF\n")
     assert spans.validate_spans(spans.build_spans(tmp + "/run")) == []
     assert [r["kind"] for r in registry.index_runs([tmp])] == ["run"]
+from murmura_tpu_torch.distributed.local import LocalNode
+from murmura_tpu_torch.models.mlp import make_mlp
+rng = np.random.default_rng(0)
+node = LocalNode(0, make_mlp(8, (8,), 3), build_aggregator("krum", {}),
+                 rng.normal(size=(32, 8)).astype(np.float32), rng.integers(0, 3, 32),
+                 max_neighbors=3, batch_size=8, device="cpu")
+node.local_train(0)
+own = node.get_flat_state()
+node.aggregate_with_neighbors({1: own + 0.1, 2: own - 0.1}, 0)
+assert np.isfinite(node.get_flat_state()).all() and node.evaluate()["loss"] > 0
+assert "selected_index" in node.get_aggregator_statistics()
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "murmura_tpu"})
 print("LOADED", bad)
@@ -264,6 +278,55 @@ def test_entry_point_refuses_to_drop_to_cpu():
     )
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
+
+
+def test_port_imports_without_pyzmq():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['zmq'] = None\n"
+        "import murmura_tpu_torch\n"
+        "for info in pkgutil.walk_packages(murmura_tpu_torch.__path__, 'murmura_tpu_torch.'):\n"
+        "    if info.name != 'murmura_tpu_torch.__main__':\n"
+        "        importlib.import_module(info.name)\n"
+        "print('IMPORTED')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and "IMPORTED" in proc.stdout, proc.stderr[-4000:]
+
+
+def test_distributed_nodes_refuse_to_drop_to_cpu(tmp_path):
+    _no_cuda()
+    import numpy as np
+
+    from murmura_tpu_torch.aggregation import build_aggregator
+    from murmura_tpu_torch.config.schema import Config
+    from murmura_tpu_torch.distributed.local import LocalNode
+    from murmura_tpu_torch.distributed.node_process import resolve_node_device
+    from murmura_tpu_torch.distributed.runner import DistributedRunner
+    from murmura_tpu_torch.models.mlp import make_mlp
+
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        resolve_node_device("cuda", 3)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        LocalNode(0, make_mlp(4, (4,), 2), build_aggregator("fedavg", {}),
+                  np.zeros((8, 4), np.float32), np.zeros(8, np.int32), max_neighbors=1)
+    cfg = Config.model_validate({
+        "experiment": {"name": "x", "seed": 1, "rounds": 1},
+        "topology": {"type": "ring", "num_nodes": 3},
+        "aggregation": {"algorithm": "fedavg"},
+        "training": {"local_epochs": 1, "batch_size": 8, "lr": 0.1},
+        "data": {"adapter": "synthetic",
+                 "params": {"num_samples": 48, "input_dim": 4, "num_classes": 2}},
+        "model": {"factory": "mlp",
+                  "params": {"input_dim": 4, "hidden_dims": [4], "num_classes": 2}},
+        "backend": "distributed",
+        "distributed": {"ipc_dir": str(tmp_path)},
+    })
+    runner = DistributedRunner(cfg)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        runner.start()
+    assert runner.node_procs == [] and runner._monitor is None
 
 
 def _smoke(cwd: Path):

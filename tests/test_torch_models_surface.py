@@ -367,7 +367,9 @@ def test_list_components_rows_match_the_jax_cli(monkeypatch, capsys):
     rows = _port_rows(capsys)
     assert list(rows) == ["topologies", "aggregators", "attacks", "backends", "models",
                           "datasets"]
-    assert "distributed is not ported" in rows["backends"]
+    # The JAX package's three backends, all run by the port.
+    assert [b.split(" ")[0] for b in rows["backends"].split(", ")] == [
+        "simulation", "tpu", "distributed"]
     for category in ("aggregators", "attacks", "topologies"):
         assert _port_rows(capsys, category) == _jax_rows(monkeypatch, category)
     for category in ("models", "datasets"):

@@ -4554,14 +4554,27 @@ SHARDED_MODEL = ROOT / "examples" / "configs" / "sharded_model.yaml"
 # Column blocks of the flagship's [16, P] round tensors, as a group of 4
 # holds them.
 BLOCKS = 4
-SHARDED_CHECK_ROUNDS = 5
+# (c)'s rounds: round 1 chained from the initial parameters, rounds 2-3
+# restarted from the one-process run's state (5 chained rounds before).
+SHARDED_CHECK_ROUNDS = 3
+# (e): sharded_model.yaml as a gang of 3 seeds over the group of 4.
+SHARDED_GANG_SEEDS = 3
+SHARDED_GANG_ROUNDS = 3
+# (f) and (g): the probe rules over a param group, 2 rounds each, the
+# second restarted from the one-process run's state.
+PROBE_RULE_ROUNDS = 2
+PROBE_RULE_SHARDS = {"ubar": 4, "evidential_trust": 2}
+PROBE_RULE_CONFIGS = {"ubar": UBAR_ATTACK, "evidential_trust": UCI_HAR_EVIDENTIAL_TRUST}
+# Evidential trust's smoothed trust, group against one process.
+TRUST_RTOL = 1e-5
 # bench_scaling.py's --sharded acceptance cell (SHARDED_POINTS[1]): 16
-# nodes, the MLP 1000-7200-6200-62 (51.9M parameters a node), Krum, 2
-# rounds (3 in bench_scaling.py: cut for the script's time
-# budget), batch 4, 8 samples a node, float32, in a group of 8.
+# nodes, the MLP 1000-7200-6200-62 (51.9M parameters a node), Krum, 1
+# round (3 in bench_scaling.py, 2 before the gang and the probe rules
+# joined phase 4: cut for the script's time budget), batch 4, 8 samples
+# a node, float32, in a group of 8.
 ACCEPTANCE_WORLD = 8
 ACCEPTANCE = {
-    "experiment": {"name": "sharded-krum-16x8", "seed": 7, "rounds": 2},
+    "experiment": {"name": "sharded-krum-16x8", "seed": 7, "rounds": 1},
     "topology": {"type": "k-regular", "num_nodes": 16, "k": 4},
     "aggregation": {"algorithm": "krum", "params": {"num_compromised": 1}},
     "training": {"local_epochs": 1, "batch_size": 4, "lr": 0.05},
@@ -4739,14 +4752,17 @@ def _rule_hook(hook):
         factories.build_rule = real
 
 
-def _unsharded(config, rounds: int, keep: bool = False) -> dict:
+def _unsharded(config, rounds: int, keep: bool = False, restart_dir=None,
+               device="cuda") -> dict:
     """``config`` in one process on this card (the unsharded program on the
     padded flat vector; in a rank of a group the caller turns the group
     off first), ``rounds`` rounds one at a time.  Returns the history, the
     round times, the peak device memory, the kernel counts and each
     round's Krum picks; with ``keep``, also what a group's run is held
     against, unpadded, on the host: the round-1 trained rows (the rule's
-    ``own``) and the parameters after every round."""
+    ``own``) and the parameters after every round.  ``restart_dir``: the
+    whole state after each round but the last is written there
+    (:func:`_save_restart`), for the group to restart from."""
     import torch
 
     from murmura_tpu_torch.ops import agg_kernels, candidate_kernels, sketch_kernels
@@ -4754,7 +4770,7 @@ def _unsharded(config, rounds: int, keep: bool = False) -> dict:
 
     for mod in (agg_kernels, candidate_kernels, sketch_kernels):
         mod.reset_counts()
-    torch.cuda.reset_peak_memory_stats()
+    _peak(device, reset=True)
     picks, flats, own, dim = [], [], [], []
 
     def keep_own(_aggregate, args, _out):
@@ -4762,18 +4778,19 @@ def _unsharded(config, rounds: int, keep: bool = False) -> dict:
             own.append(args[0].float().cpu().numpy()[:, :dim[0]])
 
     with _rule_hook(keep_own):
-        net = build_network_from_config(config, device="cuda")
+        net = build_network_from_config(config, device=device)
     dim.append(net.program.model_dim)
     _recording(net.program, ("agg_selected_index",), picks)
-    for _ in range(rounds):
+    for r in range(rounds):
         net.train(1)
         if keep:
             flats.append(net.flat.float().cpu().numpy()[:, :dim[0]])
-    torch.cuda.synchronize()
+        if restart_dir is not None and r < rounds - 1:
+            _save_restart(net, restart_dir, r)
     out = {"model_dim": net.program.model_dim, "flat_dim": net.program.flat_dim,
            "history": json.loads(json.dumps(net.history)),
            "round_times": list(net.round_times),
-           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "peak_bytes": _peak(device),
            "launches": dict(agg_kernels.LAUNCHES),
            "plain": sum(m.PLAIN_CALLS[k] for m in (agg_kernels, candidate_kernels,
                                                    sketch_kernels) for k in m.PLAIN_CALLS),
@@ -4781,34 +4798,63 @@ def _unsharded(config, rounds: int, keep: bool = False) -> dict:
     if keep:
         out.update(own=own[0], flats=flats)
     del net
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free(device)
     return out
 
 
-def _perturbed(config, flats: list) -> list:
-    """The yardstick of the chained comparison: ``config`` in one process
-    again, its initial parameters each moved by one float32 rounding
-    (x (1 + r 2^-23), r = +-1 from a seeded draw), its parameters after
-    each round against the unperturbed run's ``flats``, scaled: how far
-    the config carries a difference of float32 rounding's size."""
+def _peak(device, reset: bool = False) -> int:
+    """This process's peak device memory since the last reset (set to 0
+    with ``reset``); 0 off the card."""
     import torch
 
-    from murmura_tpu_torch.utils.factories import build_network_from_config
+    if torch.device(device).type != "cuda":
+        return 0
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+        return 0
+    return torch.cuda.max_memory_allocated()
 
-    net = build_network_from_config(config, device="cuda")
-    g = torch.Generator(device=net.flat.device).manual_seed(0)
-    sign = torch.randint(0, 2, net.flat.shape, generator=g, device=net.flat.device) * 2 - 1
-    net.flat = net.flat + net.flat * (sign.to(net.flat.dtype) * 2.0 ** -23)
-    del sign
-    out = []
-    for ref in flats:
-        net.train(1)
-        out.append(_scaled_on(net.flat, ref))
-    del net
+
+def _free(device) -> None:
+    """Collect garbage and return the allocator's cached blocks."""
+    import torch
+
     gc.collect()
-    torch.cuda.empty_cache()
-    return out
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _save_restart(net, directory, r: int) -> None:
+    """The one-process run's whole state after round ``r`` (its parameters
+    and carried state), on the host, as the file the group's ranks restart
+    round ``r + 1`` from (:func:`_restart_from`)."""
+    import torch
+
+    Path(directory).mkdir(parents=True, exist_ok=True)
+    flat, state = net._durability_params()
+    torch.save({"flat": flat.cpu(), "state": {k: v.cpu() for k, v in state.items()}},
+               Path(directory) / f"after_round_{r + 1}.pt")
+
+
+def _restart_from(net, directory, r: int, member=None) -> None:
+    """Set a network or a gang (a rank's, or one process's) to the state the
+    one-process run had after round ``r``: the whole parameters and carried
+    state, padded with zero columns to the program's flat width where the
+    one-process run was not, cut to the rank's blocks.  ``member``: a
+    gang's file, one member's state of it for a single run."""
+    import torch
+
+    snap = torch.load(Path(directory) / f"after_round_{r}.pt", map_location=net.device)
+    flat, state = snap["flat"], snap["state"]
+    if member is not None:
+        flat, state = flat[member], {k: v[member] for k, v in state.items()}
+    width = net.program.flat_dim
+
+    def pad(t):
+        return torch.nn.functional.pad(t, (0, width - t.shape[-1])) if t.shape[-1] < width else t
+
+    state = {k: pad(v) if k in net.program.sharded_state_keys else v for k, v in state.items()}
+    net._durability_set_params(pad(flat), state)
 
 
 def _scaled_np(a, b) -> float:
@@ -5045,19 +5091,24 @@ def _lockstep_check(group, agg_fn, c: int, args, out, checks: list, peak: list,
         torch.cuda.reset_peak_memory_stats()
 
 
-def _lockstep_rank(config, ref_config, rounds: int) -> dict:
+def _lockstep_rank(config, ref_config, rounds: int, restart: bool = False,
+                   tasks=()) -> dict:
     """A rank of phase 4's sharded runs.  Rank 0 first runs ``ref_config``
     in one process (:func:`_unsharded`, the group turned off, the other
-    ranks waiting at a barrier) and the yardstick (:func:`_perturbed`),
-    keeping both on the host.  Then every rank runs ``config`` in the
-    group, ``rounds`` rounds one at a time, its Krum rule checked every
-    round by :func:`_lockstep_check`; after each round rank 0 gathers the
-    parameters and holds them against the one-process run's
-    (:func:`_chained_check`).  Returns this rank's launches, plain calls,
-    peak device memory (the group's rounds, without the checks' and
-    gathers' own) and forbidden modules; rank 0's also its history, round
-    times, checks, layout, the chained checks and the one-process run's
-    picks, yardstick, peak memory, round times and widths."""
+    ranks waiting at a barrier), keeping it on the host.  Then every rank runs
+    ``config`` in the group, ``rounds`` rounds one at a time, its Krum rule
+    checked every round by :func:`_lockstep_check`; after each round rank 0
+    gathers the parameters and holds them against the one-process run's
+    (:func:`_chained_check`).  With ``restart``, round 1 runs from the
+    initial parameters and every later round from the one-process run's
+    state after the round before (:func:`_restart_from`), as the
+    card-against-CPU rows restart.  ``tasks`` ((name, function, args)
+    triples) run after, in the same ranks.  Returns this rank's launches,
+    plain calls, peak device memory (the group's rounds, without the
+    checks' and gathers' own), forbidden modules and the tasks' results;
+    rank 0's also its history, round times, checks, layout, the chained
+    checks and the one-process run's picks, peak memory, round times and
+    widths."""
     import numpy as np
     import torch
 
@@ -5074,11 +5125,12 @@ def _lockstep_rank(config, ref_config, rounds: int) -> dict:
 
     group = process_group()
     ref = None
+    restart_dir = SMOKE_DIR / "restart" / "lockstep" if restart else None
     if group.rank == 0:
         set_process_group(None)
         try:
-            ref = _unsharded(ref_config, rounds, keep=True)
-            ref["perturbed"] = _perturbed(ref_config, ref["flats"])
+            ref = _unsharded(ref_config, rounds, keep=True, restart_dir=restart_dir,
+                             device=group.device)
         finally:
             set_process_group(group)
     barrier(group)
@@ -5100,6 +5152,8 @@ def _lockstep_rank(config, ref_config, rounds: int) -> dict:
         torch.cuda.reset_peak_memory_stats()
     chained = []
     for r in range(rounds):
+        if restart and r > 0:
+            _restart_from(net, restart_dir, r)
         net.train(1)
         if cuda:
             peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
@@ -5118,48 +5172,303 @@ def _lockstep_rank(config, ref_config, rounds: int) -> dict:
     if group.rank == 0:
         out.update(history=net.history, round_times=list(net.round_times), checks=checks,
                    layout=net.group.describe(), chained=chained,
-                   ref={k: ref[k] for k in ("picks", "perturbed", "peak_bytes", "round_times",
+                   ref={k: ref[k] for k in ("picks", "peak_bytes", "round_times",
                                             "model_dim", "flat_dim")})
+    del net
+    _free(group.device)
+    out["tasks"] = {}
+    for name, fn, args in tasks:
+        t_task = time.perf_counter()
+        out["tasks"][name] = fn(*args)
+        out["tasks"][name]["wall"] = time.perf_counter() - t_task
+    out["forbidden_modules"] = forbidden_modules()
     return out
 
 
-def _sharded_group(config, ref_config, world: int, rounds: int, label: str) -> dict:
+def _counted(reset: bool = False):
+    """The three kernel modules' launches and plain calls in this process
+    (set to 0 first with ``reset``)."""
+    from murmura_tpu_torch.ops import agg_kernels, candidate_kernels, sketch_kernels
+
+    mods = (agg_kernels, candidate_kernels, sketch_kernels)
+    if reset:
+        for m in mods:
+            m.reset_counts()
+    return ({k: v for m in mods for k, v in m.LAUNCHES.items()},
+            sum(v for m in mods for v in m.PLAIN_CALLS.values()))
+
+
+def _member_raw(raw: dict, seed: int) -> dict:
+    """A gang member's single run: its seed, the attack placement pinned to
+    the gang's (attack.params.seed: the base experiment seed)."""
+    base = raw["experiment"]["seed"]
+    attack = dict(raw["attack"], params={**raw["attack"].get("params", {}), "seed": base})
+    return dict(raw, experiment={**raw["experiment"], "seed": seed}, attack=attack)
+
+
+def _gang_task(raw: dict, seeds: list, rounds: int) -> dict:
+    """Phase 4 (e), a rank's part: ``raw`` as a gang of ``seeds`` over the
+    group, each round from one state, as (c)'s rounds are.  Rank 0 first
+    runs the same gang in one process (the group turned off), writing its
+    state after each round but the last for the others to restart from,
+    and each round's yardstick: the round run again from that round's
+    starting state moved by one float32 rounding (x (1 + r 2^-23), r = +-1
+    from a seeded draw), its distance from the unmoved round, scaled, the
+    largest over the members.  Then the group's gang: round 1 from the
+    initial parameters, each later round from the one-process gang's
+    state; after each, rank 0 holds every member's gathered parameters
+    against the one-process gang's.  Last, each member's single sharded
+    run (:func:`_member_raw`) in the group, each round from the same
+    state, against the group gang's member: picks, bit-equality, the
+    scaled distance.  Returns this rank's gang launches, plain calls and
+    peak memory; rank 0's the comparisons."""
+    import numpy as np
+    import torch
+
+    from murmura_tpu_torch.config.schema import Config
+    from murmura_tpu_torch.parallel.mesh import (
+        barrier,
+        gather_rows,
+        process_group,
+        set_process_group,
+    )
+    from murmura_tpu_torch.utils.factories import (
+        build_gang_from_config,
+        build_network_from_config,
+    )
+
+    group = process_group()
+    device = group.device
+    cfg = Config.model_validate(raw)
+    restart_dir = SMOKE_DIR / "restart" / "gang"
+
+    def picks_of(gang):
+        sinks = [[] for _ in gang.programs]
+        for prog, sink in zip(gang.programs, sinks):
+            _recording(prog, ("agg_selected_index",), sink)
+        return sinks
+
+    def start(gang, r):
+        if r > 0:
+            _restart_from(gang, restart_dir, r)
+
+    ref = None
+    if group.rank == 0:
+        set_process_group(None)
+        try:
+            gang = build_gang_from_config(cfg, seeds=seeds, device=device)
+            dim = gang.program.model_dim
+            sinks = picks_of(gang)
+            flats = []
+            for r in range(rounds):
+                gang.train(1)
+                flats.append(gang.flats.float().cpu().numpy()[..., :dim])
+                if r < rounds - 1:
+                    _save_restart(gang, restart_dir, r)
+            times = list(gang.round_times)
+            del gang
+            yard_gang = build_gang_from_config(cfg, seeds=seeds, device=device)
+            g = torch.Generator(device=device).manual_seed(0)
+            yard = []
+            for r in range(rounds):
+                start(yard_gang, r)
+                yard_gang.current_round = r
+                f = yard_gang.flats
+                sign = torch.randint(0, 2, f.shape, generator=g, device=device) * 2 - 1
+                yard_gang.flats = f + f * (sign.to(f.dtype) * 2.0 ** -23)
+                yard_gang.train(1)
+                yard.append(max(_scaled_on(yard_gang.flats[s], flats[r][s])
+                                for s in range(len(seeds))))
+            del yard_gang, sign
+            ref = {"flats": flats, "picks": [[x["agg_selected_index"] for x in sk] for sk in sinks],
+                   "yardstick": yard, "round_times": times}
+        finally:
+            set_process_group(group)
+        _free(device)
+    barrier(group)
+    _counted(reset=True)
+    _peak(device, reset=True)
+    gang = build_gang_from_config(cfg, seeds=seeds, device=device)
+    sinks = picks_of(gang)
+    dists, finals, peak = [], [], 0
+    for r in range(rounds):
+        start(gang, r)
+        gang.train(1)
+        peak = max(peak, _peak(device))
+        whole = gather_rows(gang.flats, gang.group, dst=0, stacked=True)
+        if group.rank == 0:
+            dists.append([_scaled_on(whole[s], ref["flats"][r][s]) for s in range(len(seeds))])
+            finals.append(whole.cpu())
+        del whole
+    launches, plain = _counted()
+    out = {"launches": launches, "plain": plain, "peak_bytes": peak,
+           "rows": tuple(gang.flats.shape)}
+    picks = [[x["agg_selected_index"] for x in sk] for sk in sinks]
+    if group.rank == 0:
+        out.update(dists=dists, round_times=list(gang.round_times), picks=picks,
+                   layout=gang.group.describe(),
+                   ref={k: v for k, v in ref.items() if k != "flats"})
+    del gang
+    _free(device)
+    singles = []
+    for s, seed in enumerate(seeds):
+        net = build_network_from_config(Config.model_validate(_member_raw(raw, seed)),
+                                        device=device)
+        sink = []
+        _recording(net.program, ("agg_selected_index",), sink)
+        row = {"picks_equal": [], "bit_equal": [], "scaled": []}
+        for r in range(rounds):
+            if r > 0:
+                _restart_from(net, restart_dir, r, member=s)
+            net.train(1)
+            flat = gather_rows(net.flat, net.group, dst=0)
+            if group.rank == 0:
+                member = finals[r][s].to(flat.device)
+                row["picks_equal"].append(bool(np.array_equal(
+                    sink[r]["agg_selected_index"], picks[s][r])))
+                row["bit_equal"].append(bool(torch.equal(flat, member)))
+                row["scaled"].append(_scaled_on(flat, member.float().cpu().numpy()))
+            del flat
+        singles.append(row)
+        del net
+    out["singles"] = singles
+    return out
+
+
+def _probe_rule_task(raw: dict, rounds: int, rule: str) -> dict:
+    """Phase 4 (f) and (g), a rank's part: ``raw`` (UBAR or evidential
+    trust, param-sharded) in the group against the same config in one
+    process.  Rank 0 first runs the one-process run (the group turned off),
+    ``rounds`` rounds, keeping each round's decisions (UBAR's stage rates,
+    evidential trust's acceptance rates), UBAR's [N, N] probe loss matrix,
+    evidential trust's smoothed trust, the parameters, and its state after
+    each round but the last for the group to restart from.  Then the group:
+    round 1 from the initial parameters, each later round from the
+    one-process run's state after the round before (:func:`_restart_from`),
+    so that each round's inputs are the same state; the same records,
+    gathered parameters held on rank 0.  Returns this rank's launches,
+    plain calls and peak memory; rank 0's the comparisons."""
+    import numpy as np
+    import torch
+
+    from murmura_tpu_torch.aggregation import ubar as ubar_mod
+    from murmura_tpu_torch.config.schema import Config
+    from murmura_tpu_torch.parallel.mesh import (
+        barrier,
+        gather_rows,
+        process_group,
+        set_process_group,
+    )
+    from murmura_tpu_torch.utils.factories import build_network_from_config
+
+    group = process_group()
+    cfg = Config.model_validate(raw)
+    keys = UBAR_STAGES if rule == "ubar" else ("agg_acceptance_rate",)
+    restart_dir = SMOKE_DIR / "restart" / rule
+    real_probe = ubar_mod.pairwise_probe_eval
+
+    def run(device, restart: bool):
+        mats, stats, trust, flats, times = [], [], [], [], []
+
+        def probe(flat, ctx, metric_fn):
+            out = real_probe(flat, ctx, metric_fn)
+            mats.append(out["loss"].float().cpu().numpy())
+            return out
+
+        ubar_mod.pairwise_probe_eval = probe
+        try:
+            net = build_network_from_config(cfg, device=device)
+            _recording(net.program, keys, stats)
+            peak = 0
+            for r in range(rounds):
+                if restart and r > 0:
+                    _restart_from(net, restart_dir, r)
+                net.train(1)
+                peak = max(peak, _peak(device))
+                if "smoothed_trust" in net.agg_state:
+                    trust.append(net.agg_state["smoothed_trust"].float().cpu().numpy())
+                flat = net.flat if net.group is None else gather_rows(net.flat, net.group,
+                                                                      dst=0)
+                if flat is not None:
+                    flats.append(flat.float().cpu().numpy())
+                if not restart and r < rounds - 1:
+                    _save_restart(net, restart_dir, r)
+            times = list(net.round_times)
+        finally:
+            ubar_mod.pairwise_probe_eval = real_probe
+        del net
+        _free(device)
+        return {"mats": mats, "stats": stats, "trust": trust, "flats": flats,
+                "round_times": times, "peak_bytes": peak}
+
+    ref = None
+    if group.rank == 0:
+        set_process_group(None)
+        try:
+            _peak(group.device, reset=True)
+            ref = run(group.device, restart=False)
+        finally:
+            set_process_group(group)
+    barrier(group)
+    _counted(reset=True)
+    _peak(group.device, reset=True)
+    got = run(group.device, restart=True)
+    launches, plain = _counted()
+    out = {"launches": launches, "plain": plain, "peak_bytes": got["peak_bytes"]}
+    if group.rank == 0:
+        out.update(
+            decisions_equal=[all(np.array_equal(a[k], b[k]) for k in keys)
+                             for a, b in zip(got["stats"], ref["stats"])],
+            mat_rel=[float(np.max(np.abs(a - b)) / max(1e-30, float(np.max(np.abs(b)))))
+                     for a, b in zip(got["mats"], ref["mats"])],
+            trust_rel=[float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+                       for a, b in zip(got["trust"], ref["trust"])],
+            flat_scaled=[_scaled_np(a, b) for a, b in zip(got["flats"], ref["flats"])],
+            stats=[{k: v.tolist() for k, v in st.items()} for st in got["stats"]],
+            round_times=got["round_times"], ref_round_times=ref["round_times"],
+            ref_peak_bytes=ref["peak_bytes"])
+    return out
+
+
+def _sharded_group(config, ref_config, world: int, rounds: int, label: str,
+                   restart: bool = False, tasks=()) -> dict:
     """``config`` in a group of ``world`` ranks on cuda:0 (gloo, staged)
     against ``ref_config``'s one-process run, which rank 0 makes first
     (:func:`_lockstep_rank`).  Gates: each round's rule in
     lockstep (:func:`_lockstep_check`: the group's distances, a differing
     pick's tie, the rows); the round-1 trained rows, which each rank
     computes for its own rows, within a scaled 1e-4 of the one-process
-    run's; the parameters after round 1 (:func:`_chained_check`: a scaled
-    1e-4, plus one int8 code step on a row that took a neighbour's decoded
-    broadcast), and after each later round before the first whose picks
-    differ while the config itself keeps a float32 rounding of its initial
-    parameters within 1e-4 (the yardstick, :func:`_perturbed`).  Past
-    that, a flipped near-tie or the config's own growth of rounding
-    differences makes the two runs different experiments (PERF.md §2):
-    their distance is printed beside the yardstick's.  Each rank's
-    pairwise launches 2 a round, no plain call, no JAX."""
+    run's; the parameters after each round that starts from the
+    one-process run's state (round 1, and with ``restart`` every round:
+    the rounds after the first from its state after the round before)
+    whose picks equal its (:func:`_chained_check`: a scaled 1e-4, plus one
+    int8 code step on a row that took a neighbour's decoded broadcast).  A
+    chained later round is printed, not gated: sharded_model.yaml carries
+    a float32 rounding of its initial parameters to 1.02e-3 in one round
+    (PERF.md §6), so a flipped near-tie or the config's own growth
+    of rounding differences makes chained runs different experiments.
+    Each rank's pairwise launches 2 a round, no plain call, no JAX.  ``tasks`` run in the same ranks afterwards
+    (:func:`_lockstep_rank`); the results' ``tasks`` holds each rank's."""
     import numpy as np
 
     from murmura_tpu_torch.parallel.launch import launch
 
     t0 = time.perf_counter()
-    ranks = launch(_lockstep_rank, (config, ref_config, rounds), world=world,
-                   device_type="cuda", one_device=True)
+    ranks = launch(_lockstep_rank, (config, ref_config, rounds, restart, tuple(tasks)),
+                   world=world, device_type="cuda", one_device=True)
     wall = time.perf_counter() - t0
     rec = ranks[0]
-    ref_picks, perturbed = rec["ref"]["picks"], rec["ref"]["perturbed"]
+    ref_picks = rec["ref"]["picks"]
     checks = rec["checks"]
     lockstep = len(checks) == rounds and all(ch["ok"] for ch in checks)
     picks = [ch["picks"] for ch in checks]
     differing = [r + 1 for r, (a, b) in enumerate(zip(picks, ref_picks))
                  if not np.array_equal(a, b)]
     first = differing[0] if differing else rounds + 1
-    last = 0 if first == 1 else 1
-    while 0 < last < first - 1 and perturbed[last] <= 1e-4:
-        last += 1
     trained = checks[0]["trained"]
-    held = rec["chained"][:last]
+    starts = range(rounds) if restart else range(1)
+    held = [rec["chained"][r] for r in starts if r + 1 not in differing]
+    last = len(held)
     chain_ok = max(trained) <= 1e-4 and all(ch["ratio"] <= 1.0 for ch in held)
     launches = [r["launches"] for r in ranks]
     plain = sum(r["plain"] for r in ranks)
@@ -5186,9 +5495,10 @@ def _sharded_group(config, ref_config, world: int, rounds: int, label: str) -> d
           f"ratio, elements past 1e-4) "
           + ", ".join(f"({ch['scaled']:.3g}, {ch['ratio']:.3g}, {ch['steps']})"
                       for ch in rec["chained"])
-          + f", gated through round {last}; the one-process run against itself from "
-          f"initial parameters one float32 rounding apart "
-          f"{[float(f'{d:.3g}') for d in perturbed]}; Krum selected: {selected}; pairwise launches by "
+          + (f", rounds 2-{rounds} restarted from the one-process run's state" if restart
+             and rounds > 1 else "")
+          + f", {last} of {rounds} gated (from the one-process state, picks equal)"
+          + f"; Krum selected: {selected}; pairwise launches by "
           f"rank {[lc['pairwise_sq_distances'] for lc in launches]}, plain calls {plain}, "
           f"forbidden modules {forbidden}; s a round on rank 0 "
           f"{[round(t, 4) for t in rec['round_times']]}: {'ok' if ok else 'FAILED'}",
@@ -5196,12 +5506,151 @@ def _sharded_group(config, ref_config, world: int, rounds: int, label: str) -> d
     if not ok:
         raise AssertionError(f"the sharded run {label} disagrees with the unsharded rule or run")
     return {"launches": {k: sum(lc[k] for lc in launches) for k in launches[0]},
+            "tasks": [r["tasks"] for r in ranks],
             "launches_by_rank": launches, "wall": wall, "trained": max(trained),
-            "chained": rec["chained"], "gated_through": last, "perturbed": perturbed,
+            "chained": rec["chained"], "gated": last,
             "first_differing_round": first if differing else None,
             "tie_worst": max((t["gap"] / t["tol"] for t in ties), default=0.0),
             "round_times": rec["round_times"], "peaks": [r["peak_bytes"] for r in ranks],
             "one_process": rec["ref"]}
+
+
+def probe_rule_raw(rule: str) -> dict:
+    """(f) and (g)'s config: the rule's committed config on ``backend: tpu``
+    at its shard count, float32, ``PROBE_RULE_ROUNDS`` rounds."""
+    import yaml
+
+    raw = yaml.safe_load(PROBE_RULE_CONFIGS[rule].read_text())
+    raw["experiment"].update(rounds=PROBE_RULE_ROUNDS, verbose=False)
+    raw["backend"] = "tpu"
+    raw["tpu"] = {**(raw.get("tpu") or {}), "param_shards": PROBE_RULE_SHARDS[rule],
+                  "param_dtype": "float32"}
+    return raw
+
+
+def report_sharded_gang(ranks: list, seeds: list) -> dict:
+    """(e)'s gates and line.  Every round starts from the one-process
+    gang's state (round 1 from the initial parameters), so each round is a
+    one-round comparison: each member's parameters after it within the
+    yardstick of that round, the distance one float32 rounding of the
+    round's starting state makes in the one-process gang (the config's own
+    sensitivity; a lost or misplaced block moves a member by far more);
+    the same for each member's single sharded run against the member
+    (picks and bit-equality printed); each rank's pairwise launches 2 a
+    member a round, no plain call."""
+    rec, s_count = ranks[0], len(seeds)
+    ref = rec["ref"]
+    rounds = len(rec["dists"])
+    yard = ref["yardstick"]
+    differ = [sum(int(any(a != b for a, b in zip(rec["picks"][s][r], ref["picks"][s][r])))
+                  for s in range(s_count)) for r in range(rounds)]
+    gang_ok = all(max(d) <= y for d, y in zip(rec["dists"], yard))
+    singles = rec["singles"]
+    singles_ok = all(max(x["scaled"][r] for x in singles) <= yard[r] for r in range(rounds))
+    launches = [r["launches"].get("pairwise_sq_distances", 0) for r in ranks]
+    each = all(n == 2 * s_count * rounds for n in launches)
+    plain = sum(r["plain"] for r in ranks)
+    ok = gang_ok and singles_ok and each and plain == 0
+    print(f"[sharded:gang] sharded_model.yaml as a gang of {s_count} seeds {seeds} over the "
+          f"group of 4 on cuda:0, {rounds} rounds (rounds 2-{rounds} from the one-process "
+          f"gang's state), each rank carrying {rec['rows']} (members, own rows, P_pad): "
+          f"members' parameters against the one-process gang's, scaled, by round "
+          + "; ".join(f"{[float(f'{x:.3g}') for x in d]}" for d in rec["dists"])
+          + f", against the yardstick {[float(f'{y:.3g}') for y in yard]}; members whose "
+          f"picks differ by round {differ}; each member's single sharded run against it: "
+          f"scaled {[[float(f'{x:.3g}') for x in row['scaled']] for row in singles]}, picks "
+          f"equal {[row['picks_equal'] for row in singles]}, bit-equal "
+          f"{[row['bit_equal'] for row in singles]}; pairwise launches by rank {launches} "
+          f"(2 a member a round), plain calls {plain}; s a gang round on rank 0 "
+          f"{[round(t, 4) for t in rec['round_times']]}, one process "
+          f"{[round(t, 4) for t in ref['round_times']]}; peak by rank "
+          f"{[round(r['peak_bytes'] / 1e9, 3) for r in ranks]} GB; task wall "
+          f"{rec['wall']:.2f} s: {'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError("the sharded gang disagrees with the one-process gang or its "
+                             "members' single runs")
+    return {"launches": {"pairwise_sq_distances": sum(launches)}, "wall": rec["wall"],
+            "dists": rec["dists"], "yardstick": yard, "picks_differ": differ,
+            "singles": singles, "round_times": rec["round_times"],
+            "peaks": [r["peak_bytes"] for r in ranks]}
+
+
+def report_probe_rule(rule: str, ranks: list, wall: float = None) -> dict:
+    """(f)'s and (g)'s gates and line: each round's decisions equal to the
+    one-process run's (UBAR's stage rates, evidential trust's acceptance
+    rates), UBAR's [N, N] probe loss matrix within 1e-5 of its largest
+    entry, evidential trust's smoothed trust within rtol 1e-5, the
+    parameters within a scaled 1e-4; UBAR's pairwise launches 1 a round a
+    rank; no plain call."""
+    rec = ranks[0]
+    rounds = len(rec["decisions_equal"])
+    launches = [r["launches"].get("pairwise_sq_distances", 0) for r in ranks]
+    plain = sum(r["plain"] for r in ranks)
+    ok = (all(rec["decisions_equal"]) and max(rec["flat_scaled"]) <= 1e-4 and plain == 0
+          and rounds == PROBE_RULE_ROUNDS)
+    if rule == "ubar":
+        ok = ok and max(rec["mat_rel"]) <= 1e-5 and all(n == rounds for n in launches)
+        detail = (f"probe loss matrix [N, N] max |group - one process| / max |one process| "
+                  f"{[float(f'{d:.3g}') for d in rec['mat_rel']]} (bound 1e-5); stage rates "
+                  f"equal {rec['decisions_equal']}, mean stage-1 / stage-2 "
+                  + ", ".join(f"{sum(st[UBAR_STAGES[0]]) / len(st[UBAR_STAGES[0]]):.3f} / "
+                              f"{sum(st[UBAR_STAGES[1]]) / len(st[UBAR_STAGES[1]]):.3f}"
+                              for st in rec["stats"]))
+    else:
+        ok = ok and max(rec["trust_rel"]) <= TRUST_RTOL
+        detail = (f"acceptances equal {rec['decisions_equal']}, mean acceptance "
+                  + ", ".join(f"{sum(st['agg_acceptance_rate']) / len(st['agg_acceptance_rate']):.3f}"
+                              for st in rec["stats"])
+                  + f"; smoothed trust relative {[float(f'{d:.3g}') for d in rec['trust_rel']]} "
+                  f"(rtol {TRUST_RTOL})")
+    wall = rec["wall"] if wall is None else wall
+    print(f"[sharded:{rule}] {PROBE_RULE_CONFIGS[rule].name} at tpu.param_shards "
+          f"{PROBE_RULE_SHARDS[rule]}, float32, in a group of {len(ranks)} on cuda:0 against one "
+          f"process, {rounds} rounds (round 2 from the one-process state): {detail}; "
+          f"parameters scaled {[float(f'{d:.3g}') for d in rec['flat_scaled']]}; pairwise "
+          f"launches by rank {launches}, plain calls {plain}; s a round on rank 0 "
+          f"{[round(t, 4) for t in rec['round_times']]}, one process "
+          f"{[round(t, 4) for t in rec['ref_round_times']]}; peak by rank "
+          f"{[round(r['peak_bytes'] / 1e9, 3) for r in ranks]} GB, one process "
+          f"{rec['ref_peak_bytes'] / 1e9:.3f} GB; {wall:.2f} s: {'ok' if ok else 'FAILED'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"sharded {rule} disagrees with its one-process run")
+    return {"launches": {"pairwise_sq_distances": sum(launches)}, "wall": wall,
+            "mat_rel": rec["mat_rel"], "trust_rel": rec["trust_rel"],
+            "flat_scaled": rec["flat_scaled"], "round_times": rec["round_times"],
+            "peaks": [r["peak_bytes"] for r in ranks], "one_process_peak": rec["ref_peak_bytes"]}
+
+
+def run_sharded_groups(raw: dict, one: dict) -> dict:
+    """Phase 4 (c) ``raw`` (sharded_model.yaml) in a group of 4 on cuda:0
+    against ``one`` (the same at tpu.param_shards 1) in one process, 3
+    rounds, rounds 2-3 restarted from its state; in the same ranks (e) the
+    gang and (f) UBAR; then (g) evidential trust in a group of 2."""
+    from murmura_tpu_torch.config.schema import Config
+    from murmura_tpu_torch.parallel.launch import launch
+
+    out = {}
+    # (c) the same config in a group of 4 on cuda:0, and in its ranks (e)
+    # the gang and (f) UBAR.
+    base = raw["experiment"]["seed"]
+    seeds = list(range(base, base + SHARDED_GANG_SEEDS))
+    gang_raw = dict(raw, experiment={**raw["experiment"], "rounds": SHARDED_GANG_ROUNDS})
+    tasks = [("gang", _gang_task, (gang_raw, seeds, SHARDED_GANG_ROUNDS)),
+             ("ubar", _probe_rule_task, (probe_rule_raw("ubar"), PROBE_RULE_ROUNDS, "ubar"))]
+    w4 = _sharded_group(Config.model_validate(raw), Config.model_validate(one), 4,
+                        SHARDED_CHECK_ROUNDS, "world4", restart=True, tasks=tasks)
+    out["sharded:world4"] = w4
+    out["sharded:gang"] = report_sharded_gang([t["gang"] for t in w4["tasks"]], seeds)
+    out["sharded:ubar"] = report_probe_rule("ubar", [t["ubar"] for t in w4.pop("tasks")])
+    # (g) evidential trust in a group of 2.
+    t0 = time.perf_counter()
+    et = launch(_probe_rule_task, (probe_rule_raw("evidential_trust"), PROBE_RULE_ROUNDS,
+                                   "evidential_trust"),
+                world=PROBE_RULE_SHARDS["evidential_trust"], device_type="cuda", one_device=True)
+    out["sharded:evidential_trust"] = report_probe_rule("evidential_trust", et,
+                                                        time.perf_counter() - t0)
+    return out
 
 
 def run_sharded_smoke() -> dict:
@@ -5210,11 +5659,16 @@ def run_sharded_smoke() -> dict:
     layout (1, 1, 1) on this one card, 20 rounds, one process on the padded
     flat vector; against the same config at ``tpu.param_shards: 1`` in this
     process (history within a scaled 1e-4, bit-equality printed).  (c)
-    the same config in a group of 4 on cuda:0 (:func:`_sharded_group`), 5
-    rounds, against the one-process run's first 5.  (d) bench_scaling.py's
-    acceptance cell at world 8 on cuda:0 against its one-process run, each
-    rank's peak device memory beside the one-process peak and the analytic
-    flat bytes."""
+    the same config in a group of 4 on cuda:0 (:func:`_sharded_group`), 3
+    rounds against the one-process run's, rounds 2-3 restarted from its
+    state (the stale cache and the int8 residual carried on the card past
+    round 1); in the same ranks (e) the config as a gang of 3 seeds
+    (:func:`_gang_task`) and (f) ubar_attack.yaml at tpu.param_shards 4
+    (:func:`_probe_rule_task`).  (g) uci_har_evidential_trust.yaml at
+    tpu.param_shards 2 in a group of 2.  (d) bench_scaling.py's acceptance
+    cell at world 8 on cuda:0 against its one-process run, each rank's peak
+    device memory beside the one-process peak and the analytic flat
+    bytes."""
     import torch
     import yaml
 
@@ -5259,10 +5713,7 @@ def run_sharded_smoke() -> dict:
         raise AssertionError("sharded_model.yaml on one card disagrees with param_shards 1")
     out["sharded:committed"] = {"launches": counts["launches"], "wall": cli_wall,
                                 "delta": delta, "bit_equal": bit_equal}
-    # (c) the same config in a group of 4 on cuda:0.
-    out["sharded:world4"] = _sharded_group(Config.model_validate(raw),
-                                           Config.model_validate(one), 4,
-                                           SHARDED_CHECK_ROUNDS, "world4")
+    out.update(run_sharded_groups(raw, one))
     del ref
     # (d) the acceptance cell in a group of 8, against its one-process run.
     acc = Config.model_validate(ACCEPTANCE)
@@ -5964,12 +6415,17 @@ def main() -> int:
           f"built), generation 2 {flagship_daemon['gen2_s']:.2f} s, peak "
           f"{flagship_daemon['peak_gb']:.2f} GB; no claim", flush=True)
     w4, acc = sharded["sharded:world4"], sharded["sharded:acceptance"]
+    sg, su, se = (sharded[f"sharded:{k}"] for k in ("gang", "ubar", "evidential_trust"))
     print(f"[sharded] sharded_model.yaml on this card: one process, {SHARDED_MODEL.stem} "
           f"history within {sharded['sharded:committed']['delta']:.3g} scaled of "
           f"param_shards 1; a group of 4 on cuda:0 (gloo, staged): s a round on rank 0 "
           f"{[round(t, 4) for t in w4['round_times']]}, round-1 trained rows "
           f"{w4['trained']:.3g} scaled from one process, picks first differ in round "
-          f"{w4['first_differing_round']}; the acceptance cell in a group of {ACCEPTANCE_WORLD}: s a round "
+          f"{w4['first_differing_round']}; its gang of {SHARDED_GANG_SEEDS}: s a gang round "
+          f"{[round(t, 4) for t in sg['round_times']]}, {sg['wall']:.1f} s; UBAR at 4 shards "
+          f"{[round(t, 4) for t in su['round_times']]} s a round, {su['wall']:.1f} s; evidential "
+          f"trust at 2 shards {[round(t, 4) for t in se['round_times']]} s a round, "
+          f"{se['wall']:.1f} s; the acceptance cell in a group of {ACCEPTANCE_WORLD}: s a round "
           f"{[round(t, 4) for t in acc['round_times']]}, peak a rank "
           f"{max(acc['peaks']) / 1e9:.3f} GB against {acc['one_process_peak'] / 1e9:.3f} GB in "
           f"one process; {len(acc['peaks'])} ranks share one card: a check of the collective "

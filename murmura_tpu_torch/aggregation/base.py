@@ -16,8 +16,10 @@ candidates by it.
 
 Under a param group (parallel/mesh.py) a rule runs on its rank's column
 block of ``own`` and ``bcast``: the distance helpers and :func:`row_norms`
-sum their partials over the group before the square root, and everything
-else a rule does is column-local or works on those replicated results.
+sum their partials over the group before the square root, the probe
+forwards (:func:`self_probe_metrics`, aggregation/probe.py) turn the
+rank's own rows back whole and gather their metrics, and everything else
+a rule does is column-local or works on those replicated results.
 """
 
 from dataclasses import dataclass, field
@@ -27,7 +29,12 @@ import torch
 from torch.func import vmap
 
 from murmura_tpu_torch.ops import agg_kernels
-from murmura_tpu_torch.parallel.mesh import reduce_partial_
+from murmura_tpu_torch.parallel.mesh import (
+    active_param_group,
+    columns_to_rows,
+    gather_rows,
+    reduce_partial_,
+)
 
 Stats = Dict[str, torch.Tensor]
 AggState = Dict[str, torch.Tensor]
@@ -317,7 +324,9 @@ def self_probe_metrics(
     """Each node's own state on its own probe batch (the diagonal of the
     cross-evaluation), vmapped over the nodes: dict of [N] metrics.  A
     leading probe dim of 1 is one evaluator batch for every row (the ZMQ
-    backend's mini network, distributed/local.py)."""
+    backend's mini network, distributed/local.py).  Under a param group
+    ``own`` is the rank's column block: the rank evaluates its own rows,
+    turned back whole, and the [N] metrics are gathered."""
 
     def one(params_i, x_i, y_i, m_i):
         return metric_fn(ctx.apply_fn(params_i, x_i), y_i, m_i)
@@ -327,4 +336,10 @@ def self_probe_metrics(
         a.expand((n,) + tuple(a.shape[1:])) if a.shape[0] == 1 and n != 1 else a
         for a in (ctx.probe_x, ctx.probe_y, ctx.probe_mask)
     )
-    return vmap(one)(ctx.unravel(own), px, py, pm)
+    group = active_param_group()
+    if group is None:
+        return vmap(one)(ctx.unravel(own), px, py, pm)
+    lo, hi = group.rows
+    mine = vmap(one)(ctx.unravel(columns_to_rows(own, group)), px[lo:hi], py[lo:hi],
+                     pm[lo:hi])
+    return {k: gather_rows(v, group) for k, v in mine.items()}

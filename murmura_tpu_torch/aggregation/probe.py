@@ -7,6 +7,14 @@ stays at O(N * B * K) a step and no [N, N*B, ...] activation exists.
 ``combined_probe_metric`` emits every probe consumer's metrics from one
 cross-evaluation, which a DMTT round computes once and hands to the probe
 rules (``AggContext.probe_cross``).
+
+Under a param group (parallel/mesh.py) the broadcast arrives as the rank's
+column block: one ``columns_to_rows`` gives the rank whole rows of its own
+senders, ``block(N, W, r)``, each of which it evaluates on every node's
+probe batch (the probe arrays are whole on every rank), and the small
+metric matrices are gathered over the group.  Each model runs on the same
+samples in the same order as in one process, so the matrices keep the
+one-process bits.
 """
 
 from typing import Callable, Dict, Sequence
@@ -17,6 +25,7 @@ from torch.func import vmap
 
 from murmura_tpu_torch.aggregation.base import AggContext
 from murmura_tpu_torch.ops.losses import uncertainty_metrics
+from murmura_tpu_torch.parallel.mesh import active_param_group, columns_to_rows, gather_rows
 
 MetricFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
 
@@ -34,13 +43,21 @@ def pairwise_probe_eval(
     so one probe batch a model (O(M) forwards) replaces the M x M
     cross-evaluation and gives the same rows."""
     n = flat.shape[0]
+    group = active_param_group()
+    # Under a group: whole rows of this rank's own senders.
+    models = flat if group is None else columns_to_rows(flat, group)
     n_eval, b = ctx.probe_x.shape[:2]
     xs = ctx.probe_x.reshape((n_eval * b,) + tuple(ctx.probe_x.shape[2:]))
     per_j = []
-    for j in range(n):
-        outputs = ctx.apply_fn(ctx.unravel(flat[j]), xs).reshape(n_eval, b, -1)
+    for j in range(models.shape[0]):
+        outputs = ctx.apply_fn(ctx.unravel(models[j]), xs).reshape(n_eval, b, -1)
         per_j.append(vmap(metric_fn)(outputs, ctx.probe_y, ctx.probe_mask))
-    out = {k: torch.stack([m[k] for m in per_j], dim=1) for k in per_j[0]}
+    if group is None:
+        out = {k: torch.stack([m[k] for m in per_j], dim=1) for k in per_j[0]}
+    else:
+        # [R_r senders, N_eval] blocks gathered sender-major, then turned.
+        out = {k: gather_rows(torch.stack([m[k] for m in per_j]), group).T.contiguous()
+               for k in per_j[0]}
     return {k: v.expand(n, n) for k, v in out.items()} if n_eval == 1 else out
 
 
@@ -61,6 +78,27 @@ def circulant_probe_eval(
 
     def one(params_i, x_i, y_i, m_i):
         return metric_fn(ctx.apply_fn(params_i, x_i), y_i, m_i)
+
+    group = active_param_group()
+    if group is not None:
+        # Rank r evaluates its own senders j: at offset o, sender j's model
+        # is receiver (j - o) mod N's neighbour.  Gathered sender-major
+        # ([N, k]), entry [o, i] is sender (i + o) mod N's value at o.
+        rows = columns_to_rows(bcast, group)
+        lo, hi = group.rows
+        senders = torch.arange(lo, hi, device=bcast.device)
+        params = ctx.unravel(rows)
+        per_offset = []
+        for o in offsets:
+            recv = (senders - int(o)) % n
+            per_offset.append(vmap(one)(params, ctx.probe_x[recv], ctx.probe_y[recv],
+                                        ctx.probe_mask[recv]))
+        out = {}
+        for k in per_offset[0]:
+            whole = gather_rows(torch.stack([m[k] for m in per_offset], dim=1), group)
+            out[k] = torch.stack([torch.roll(whole[:, idx], -int(o))
+                                  for idx, o in enumerate(offsets)])
+        return out
 
     per_offset = []
     for o in offsets:

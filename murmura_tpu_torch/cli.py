@@ -39,7 +39,10 @@ as the JAX package lays its mesh, over the devices there are
 ``torch.distributed`` group (parallel/launch.py), over gloo on the CPU and
 over NCCL with rank r on ``cuda:r``; rank 0 prints and writes.  On one
 card the layout is (1, 1, 1): one process, unsharded, on the padded flat
-vector.  The layout is printed on a line of its own.
+vector.  The layout is printed on a line of its own.  ``sweep`` and ``run
+--seeds N`` lay the gang out the same way (``plan_gang_param_layout``
+over the JAX gang's lane count) and run the whole gang in each rank
+(core/gang.py).
 
 A config with ``backend: distributed`` runs the ZMQ multi-process backend
 (distributed/runner.py): a monitor process and one process per node on this
@@ -109,6 +112,7 @@ import torch
 
 from murmura_tpu_torch.parallel.mesh import plan_layout, process_group
 from murmura_tpu_torch.utils.checkpoint import has_checkpoint
+from murmura_tpu_torch.utils.seed import set_seed
 
 
 def resolve_device(name: str) -> torch.device:
@@ -275,15 +279,10 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
     checkpoint_dir, checkpoint_every, resume, retries = resolve_durability(
         config, checkpoint_dir, checkpoint_every, resume, retries)
     enforce_require_tpu(config, dev, require_tpu)
+    set_seed(config.experiment.seed)
     group = process_group()
     if group is None and config.backend == "tpu" and config.tpu.param_shards > 1:
-        layout, n_dev = plan_layout(config.topology.num_nodes, config.tpu.param_shards,
-                                    dev.type, config.tpu.num_devices)
-        world = layout[2]
-        how = (f"{world} ranks over {'nccl' if dev.type == 'cuda' else 'gloo'}" if world > 1
-               else "one process, unsharded, on the padded flat vector")
-        print(f"param layout (seed, nodes, param) {layout} over {n_dev} {dev.type} "
-              f"device(s): {how}", flush=True)
+        world = _print_layout(config, dev)
         if world > 1:
             from murmura_tpu_torch.parallel.launch import launch
 
@@ -343,6 +342,19 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
         print(f"Telemetry run written to {default_telemetry_dir(config)} — render it "
               "with `python -m murmura_tpu_torch report <dir>`")
     return history, network
+
+
+def _print_layout(config, dev: torch.device, gang: Optional[int] = None) -> int:
+    """Print a param-sharded config's layout line (of a gang of ``gang``
+    lanes when given); returns the group's world, the param axis."""
+    layout, n_dev = plan_layout(config.topology.num_nodes, config.tpu.param_shards,
+                                dev.type, config.tpu.num_devices, gang=gang)
+    world = layout[2]
+    how = (f"{world} ranks over {'nccl' if dev.type == 'cuda' else 'gloo'}" if world > 1
+           else "one process, unsharded, on the padded flat vector")
+    print(f"param layout (seed, nodes, param) {layout} over {n_dev} {dev.type} "
+          f"device(s): {how}", flush=True)
+    return world
 
 
 def run_distributed(config, output: Optional[Path], dev: torch.device, *, profile: bool,
@@ -423,11 +435,31 @@ def run_sweep(config, seeds, output: Optional[Path], dev: torch.device, *,
     its snapshot where asked, train it inside the retry envelope as a
     single run trains, print the members' final round and write their
     histories keyed by member label; returns (that dict, gang)."""
-    from murmura_tpu_torch.utils.factories import build_gang_from_config, default_telemetry_dir
+    from murmura_tpu_torch.core.gang import next_bucket, resolve_members
+    from murmura_tpu_torch.utils.factories import (
+        ConfigError,
+        build_gang_from_config,
+        default_telemetry_dir,
+    )
 
+    given = dict(checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+                 resume=resume, require_tpu=require_tpu, retries=retries)
     checkpoint_dir, checkpoint_every, resume, retries = resolve_durability(
         config, checkpoint_dir, checkpoint_every, resume, retries)
     enforce_require_tpu(config, dev, require_tpu)
+    group = process_group()
+    if group is None and config.backend == "tpu" and config.tpu.param_shards > 1:
+        try:
+            lanes = len(resolve_members(config, seeds))
+        except ValueError as e:
+            raise ConfigError(str(e)) from None
+        bucket = config.sweep.bucket if config.sweep is not None else True
+        world = _print_layout(config, dev, gang=next_bucket(lanes) if bucket else lanes)
+        if world > 1:
+            from murmura_tpu_torch.parallel.launch import launch
+
+            return launch(_cli_sweep_rank, (config, seeds, output, dev.type, given),
+                          world=world, device_type=dev.type)[0], None
     gang = build_gang_from_config(config, seeds=seeds, device=dev,
                                   checkpoint_dir=checkpoint_dir if resume else None)
     print(
@@ -457,8 +489,12 @@ def run_sweep(config, seeds, output: Optional[Path], dev: torch.device, *,
     finally:
         for t in _writers(gang):
             t.close()
+    if gang.group is not None:
+        print(gang.group.describe(), flush=True)
     display_sweep(gang, histories)
     combined = {m.label: h for m, h in zip(gang.members, histories)}
+    if gang.group is not None and gang.group.rank != 0:
+        return combined, gang
     if output is not None:
         output.parent.mkdir(parents=True, exist_ok=True)
         output.write_text(json.dumps(combined, indent=2))
@@ -467,6 +503,12 @@ def run_sweep(config, seeds, output: Optional[Path], dev: torch.device, *,
         print(f"Per-member telemetry runs under {default_telemetry_dir(config)}/<member> — "
               "render one with `python -m murmura_tpu_torch report <dir>`")
     return combined, gang
+
+
+def _cli_sweep_rank(config, seeds, output, device, durability):
+    """One rank of a sharded gang (``sweep``, ``run --seeds``): the same
+    gang, in the rank's group; returns the histories by member label."""
+    return run_sweep(config, seeds, output, resolve_device(device), **durability)[0]
 
 
 def sweep(config_path: Path, seeds: Optional[List[int]] = None,

@@ -36,6 +36,21 @@ runs no padding lanes.  It reports the same ``batch`` (the lane count the
 JAX gang would compile, ``min_batch`` pre-growing it), so manifests and
 metrics agree, and trains the members' rows alone.
 
+Over a param group (``tpu.param_shards`` > 1, parallel/mesh.py) every
+rank runs the same gang on its own node rows of every member: the
+carried parameters are an ``[S, R_r, P_pad]`` stack.  Rank r trains its
+S * R_r rows in the one ``train_rows`` call, each member's draws taken
+whole from its own generators and cut to the rank's rows (as a single
+group round cuts them); one ``rows_to_columns`` turns the whole trained
+stack into the members' ``[N, P_pad / W]`` column blocks (the members
+become another row block: one all_to_all for every member, where a loop
+of single rounds would make S), the member loop runs the exchange and
+the rule on each member's block, one ``columns_to_rows`` turns the new
+blocks back, and eval's metrics are gathered over the group.  Every rank
+keeps the same histories; rank 0 alone writes telemetry and snapshots,
+the snapshot gathered into the ordinary ``[S, N, P]`` layout with
+``param_shards`` in its meta.
+
 A member's learning rate and attack scale are values the gang passes to
 its programs each round, so :meth:`GangNetwork.reset_run` can change them
 without building a program: the stage reset (the frontier's) returns
@@ -63,6 +78,7 @@ from murmura_tpu_torch.core.network import (
     _host_rows,
     _sync_errors,
     check_exchange_layout,
+    check_snapshot_shards,
     empty_history,
     record_round_metrics,
     stage_rounds,
@@ -75,6 +91,13 @@ from murmura_tpu_torch.core.rounds import (
     round_generators,
 )
 from murmura_tpu_torch.ops import _build
+from murmura_tpu_torch.parallel.mesh import (
+    barrier,
+    columns_to_rows,
+    gather_columns,
+    gather_rows,
+    rows_to_columns,
+)
 from murmura_tpu_torch.utils.checkpoint import committed_bytes
 
 
@@ -220,7 +243,10 @@ def build_gang_step(lanes: Dict[str, Any], compromised: torch.Tensor, knobs: dic
     Training folds the members into S*N rows (one ``train_rows`` over the
     stacked data, each member's draws from its own generators); the
     exchange and the rule run member by member (``train_step(...,
-    trained=rows)``).  ``lanes`` is read every round: its ``programs`` (one
+    trained=rows)``).  Over a param group ``flats`` is the rank's [S, R_r,
+    P_pad] stack, and the members' trained rows (with the pre-round rows
+    on a faulted program) turn to column blocks in one ``rows_to_columns``
+    and back in one ``columns_to_rows`` (the module docstring).  ``lanes`` is read every round: its ``programs`` (one
     RoundProgram a member), ``seeds`` and ``data`` (the members' data
     stacked on the node axis), which re-tenanting replaces.  ``knobs`` too:
     its ``step_lr`` the [S*N] per-row learning rate (None: the programs'
@@ -249,29 +275,45 @@ def build_gang_step(lanes: Dict[str, Any], compromised: torch.Tensor, knobs: dic
     def step(flats, agg_states, adj, round_idx, alive=None, draws=None):
         programs, seeds = lanes["programs"], lanes["seeds"]
         prog0 = programs[0]
-        s_count, n, p = flats.shape
+        group = prog0.group
+        s_count, rows, p = flats.shape
+        own = slice(None) if group is None else slice(*group.rows)
         gens = [round_generators(seed, round_idx, prog0.device) for seed in seeds]
-        train_mask = torch.cat([prog.training_mask(compromised, alive) for prog in programs])
+        train_mask = torch.cat([prog.training_mask(compromised, alive)[own]
+                                for prog in programs])
         with record_function("murmura.train"):
             trained = prog0.train_rows(
-                flats.reshape(s_count * n, p).clone(), train_mask, float(round_idx),
+                flats.reshape(s_count * rows, p).clone(), train_mask, float(round_idx),
                 [g["train"] for g in gens], data=lanes["data"], step_lr=knobs["step_lr"],
                 draws=stacked_draws(draws),
-            )
+            ).reshape(s_count, rows, p)
+        pre = flats
+        if group is not None:
+            # One turn for every member's trained rows, and for the
+            # pre-round rows that a faulted round's guards read.
+            stack = torch.cat([trained, flats]) if prog0.faulted else trained
+            cols = rows_to_columns(stack, group)
+            trained, pre = cols[:s_count], (cols[s_count:] if prog0.faulted
+                                            else [None] * s_count)
         scales = knobs["attack_scales"]
         outs, states, metrics = [], [], []
         for s, prog in enumerate(programs):
             noise = None if draws is None else {"noise": draws[s].get("noise")}
             new_flat, state, m = prog.train_step(
-                flats[s], agg_states[s], adj, compromised, float(round_idx),
-                generators=gens[s], draws=noise, alive=alive,
-                trained=trained[s * n:(s + 1) * n],
+                pre[s], agg_states[s], adj, compromised, float(round_idx),
+                generators=gens[s], draws=noise, alive=alive, trained=trained[s],
                 attack_scale=None if scales is None else scales[s],
             )
             outs.append(new_flat)
             states.append(state)
             metrics.append(m)
-        return torch.stack(outs), states, metrics
+        new = torch.stack(outs)
+        if group is not None:
+            new = columns_to_rows(new, group)
+            if prog0.flat_dim > prog0.model_dim:
+                # The pad stays exact zeros, as a single round keeps it.
+                new[:, :, prog0.model_dim:] = 0
+        return new, states, metrics
 
     return step
 
@@ -285,7 +327,8 @@ def build_gang_multi_round(step, lanes: Dict[str, Any], chunk: int, eval_every: 
 
     ``rows`` holds one (round number, [metrics of each member]) pair per
     round on the ``eval_every`` cadence, the metrics left on the device;
-    eval runs once over all S*N rows of ``lanes``' data.  Nothing here
+    eval runs once over all S*N rows of ``lanes``' data (over a param
+    group, each rank's S*R_r, the metrics gathered).  Nothing here
     synchronises with the host."""
 
     def multi_round(flats, agg_states, adj_stack, round0, alive_stack=None):
@@ -297,9 +340,11 @@ def build_gang_multi_round(step, lanes: Dict[str, Any], chunk: int, eval_every: 
                 None if alive_stack is None else alive_stack[i],
             )
             if (r + 1) % eval_every == 0:
-                s_count, n, p = flats.shape
-                ev = lanes["programs"][0].eval_step(flats.reshape(s_count * n, p),
-                                                    data=lanes["data"])
+                s_count, own_rows, p = flats.shape
+                prog0 = lanes["programs"][0]
+                n = prog0.num_nodes
+                ev = prog0.eval_step(flats.reshape(s_count * own_rows, p),
+                                     data=lanes["data"], members=s_count)
                 rows.append((r + 1, [
                     {**{k: v[s * n:(s + 1) * n] for k, v in ev.items()}, **metrics[s]}
                     for s in range(s_count)
@@ -365,6 +410,11 @@ class GangNetwork:
         n = program.num_nodes
         if topology.num_nodes != n:
             raise ValueError(f"Topology has {topology.num_nodes} nodes, gang stack has {n}")
+        self.group = program.group
+        if self.group is not None and self.group.staged and transfer_guard:
+            raise ValueError(
+                "tpu.transfer_guard does not compose with a gloo param group on CUDA "
+                "tensors: its all_to_all is staged through host memory every round")
         if fault_schedule is not None and not program.faulted:
             raise ValueError(
                 "A fault schedule was supplied but the round programs were built "
@@ -430,11 +480,14 @@ class GangNetwork:
 
     def _set_lanes(self, programs: Sequence[RoundProgram]) -> None:
         """Make ``programs`` the lanes' value sources: their seeds, their
-        data stacked on the node axis, their round-0 parameters and carried
-        state (with host copies where ``retain_init`` asked for them)."""
+        data stacked on the node axis (each member's rank rows over a param
+        group), their round-0 parameters and carried state (with host
+        copies where ``retain_init`` asked for them)."""
+        group = programs[0].group
+        own = slice(None) if group is None else slice(*group.rows)
         self._lanes.update(
             programs=list(programs), seeds=[m.seed for m in self.members],
-            data={k: torch.cat([p.data[k] for p in programs])
+            data={k: torch.cat([p.data[k][own] for p in programs])
                   for k in TRAIN_DATA_KEYS + EVAL_DATA_KEYS})
         self.flats = torch.stack([p.init_flat for p in programs])  # [S, N, P]
         self.agg_states: List[Dict[str, torch.Tensor]] = [
@@ -479,7 +532,7 @@ class GangNetwork:
         [S*N] learning rates where some member overrides lr, the attack
         scales (1.0 where a member sets none) where some member overrides
         attack_scale; None leaves the programs' own."""
-        n = self.program.num_nodes
+        n = self.flats.shape[1]  # the rows of a member (a rank's, over a group)
         step_lr = scales = None
         if "lr" in self._hp:
             lrs = [m.lr if m.lr is not None else self._base_lr for m in members]
@@ -735,6 +788,9 @@ class GangNetwork:
 
         t0 = time.perf_counter()
         nbytes = save_run_snapshot(directory, self)
+        if self.group is not None:
+            # Rank 0 writes: no rank goes on before the snapshot is committed.
+            barrier(self.group)
         self._log_checkpoint("save", self.current_round, nbytes, time.perf_counter() - t0,
                              directory)
 
@@ -763,18 +819,44 @@ class GangNetwork:
         return [m.label for m in self.members]
 
     def _durability_params(self):
-        return self.flat, self.agg_state
+        """The [S, N, P] parameters and the stacked carried state; over a
+        param group the row and column blocks gathered to rank 0 (a
+        collective; (None, None) on the other ranks)."""
+        if self.group is None:
+            return self.flat, self.agg_state
+        sharded = self.program.sharded_state_keys
+        flat = gather_rows(self.flats, self.group, dst=0, stacked=True)
+        state = {k: gather_columns(v, self.group, dst=0) if k in sharded else v
+                 for k, v in self.agg_state.items()}
+        if self.group.rank != 0:
+            return None, None
+        return flat, state
 
     def _durability_layout(self):
         from murmura_tpu_torch.durability.snapshot import describe_state
 
-        return describe_state(self.flat, self.agg_state)
+        flat_desc, state_desc = describe_state(self.flat, self.agg_state)
+        if self.group is None:
+            return flat_desc, state_desc
+        whole = (self.gang_size, self.program.num_nodes, self.program.flat_dim)
+        for k in self.program.sharded_state_keys:
+            state_desc[k] = (whole, state_desc[k][1])
+        return (whole, flat_desc[1]), state_desc
 
     def _durability_set_params(self, flat, agg_state) -> None:
+        """Assign a restored snapshot, cut to a param group's blocks."""
+        if self.group is not None:
+            lo, hi = self.group.rows
+            c0, c1 = self.group.cols
+            flat = flat[:, lo:hi].contiguous()
+            agg_state = {k: v[:, :, c0:c1].contiguous()
+                         if k in self.program.sharded_state_keys else v
+                         for k, v in agg_state.items()}
         self.flat, self.agg_state = flat, agg_state
 
     def _durability_writes(self) -> bool:
-        return True
+        """Whether this process writes the snapshot (rank 0 of a group)."""
+        return self.group is None or self.group.rank == 0
 
     def _durability_history(self):
         return {"gang_members": self.histories, "labels": self._labels()}
@@ -788,12 +870,15 @@ class GangNetwork:
                                          "member_active": list(self.member_active)}}
         if self.telemetry:
             meta["telemetry_run_ids"] = [t.run_id for t in self.telemetry]
+        if self.program.param_shards > 1:
+            meta["param_shards"] = int(self.program.param_shards)
         return {}, meta
 
     def _durability_validate_extra(self, arrays, meta) -> None:
         """Refuse, before any member's state is overwritten, a single run's
-        snapshot and a gang snapshot of another member set (the same count
-        of other seeds has the same shapes, so only the labels tell)."""
+        snapshot, a gang snapshot of another member set (the same count
+        of other seeds has the same shapes, so only the labels tell) and
+        one of another shard count."""
         gm = meta.get("gang")
         if gm is None:
             raise ValueError(
@@ -812,6 +897,7 @@ class GangNetwork:
                 "resuming into a different member set would misattribute "
                 "every lane; rebuild with the sweep that wrote the snapshot"
             )
+        check_snapshot_shards(meta, self.program.param_shards)
 
     def _durability_restore_extra(self, arrays, meta) -> None:
         """The frozen lanes."""

@@ -197,6 +197,21 @@ def stage_rounds(topology, fault_schedule, program: RoundProgram, static_host, s
     return torch.as_tensor(adj).to(dev), alive, in_deg
 
 
+def check_snapshot_shards(meta: Dict[str, Any], ours: int) -> None:
+    """Refuse a snapshot written at another ``tpu.param_shards`` (in the JAX
+    package's words): the flat pad is a function of the shard count."""
+    snap_shards = int(meta.get("param_shards", 1))
+    if snap_shards != int(ours):
+        raise ValueError(
+            f"snapshot was written by a param-sharded run with "
+            f"tpu.param_shards={snap_shards} but this run has "
+            f"param_shards={int(ours)} — the flat pad (and the mesh "
+            "layout the cache rows restore into) is a function of "
+            "the shard count; rebuild with the matching "
+            "tpu.param_shards"
+        )
+
+
 def empty_history() -> Dict[str, List[Any]]:
     """The history schema (the JAX package's, key for key)."""
     return {
@@ -571,17 +586,7 @@ class Network:
                 "understand — it was written by a population/gang run; rebuild with the "
                 "matching config"
             )
-        snap_shards = int(meta.get("param_shards", 1))
-        ours = int(self.program.param_shards)
-        if snap_shards != ours:
-            raise ValueError(
-                f"snapshot was written by a param-sharded run with "
-                f"tpu.param_shards={snap_shards} but this run has "
-                f"param_shards={ours} — the flat pad (and the mesh "
-                "layout the cache rows restore into) is a function of "
-                "the shard count; rebuild with the matching "
-                "tpu.param_shards"
-            )
+        check_snapshot_shards(meta, self.program.param_shards)
 
     def _durability_restore_extra(self, arrays, meta) -> None:
         """Nothing beyond the base sections to apply."""

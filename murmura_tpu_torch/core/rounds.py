@@ -64,7 +64,9 @@ every draw keeps the unsharded run's bits), ``rows_to_columns`` turns the
 trained rows into the rank's ``[N, flat_dim / W]`` column block, the whole
 aggregation side (steps 2-3, the carried [N, P] state included) runs on
 column blocks under ``param_group_scope``, and ``columns_to_rows`` returns
-the new rows; eval's per-node metrics are gathered over the group.
+the new rows; eval's per-node metrics are gathered over the group.  A
+gang's member over a group (core/gang.py) hands ``train_step`` its column
+blocks and takes one back: the gang turns every member's rows at once.
 
 ``train_step(..., data=)`` runs the round on other rows of the data
 arrays than the program's own (the population engine's cohort, whose
@@ -175,10 +177,6 @@ EVAL_CHUNK = 1024
 # over its members (core/gang.py).
 TRAIN_DATA_KEYS = ("x", "y", "mask", "num_samples", "eff_batch", "steps")
 EVAL_DATA_KEYS = ("eval_x", "eval_y", "eval_mask")
-
-# The rules whose probe forwards need whole neighbour rows: not run over a
-# param group.
-PROBE_RULES = ("ubar", "evidential_trust")
 
 # Weight of the evidential loss's KL term once annealed in (the JAX
 # factories' lambda_weight).
@@ -351,9 +349,8 @@ def build_round_program(
     that does not divide the shard-local width are refused in the JAX
     package's words.  ``group`` (a rank's ParamGroup, its world the shard
     count or a divisor of it, as the layout's fallback picks) builds that
-    rank's program (module docstring); it also refuses
-    a gang's trained rows, another ``data=`` and the probe rules (UBAR and
-    evidential trust, whose probe forwards need whole neighbour rows).
+    rank's program (module docstring); its ``train_step`` refuses another
+    ``data=`` (population x sharding is refused by the schema).
 
     An adaptive ``attack`` (attacks/adaptive.py) turns ``audit_taps`` on:
     the taps are its feedback.  Its state rides ``agg_state`` under its
@@ -426,11 +423,6 @@ def build_round_program(
                 "[P] row resident on one device, defeating the shard — "
                 "use the int8 codec (its per-block scales shard with P)"
             )
-    if group is not None and agg.name in PROBE_RULES:
-        raise ValueError(
-            f"param-axis sharding over a process group does not run {agg.name} yet: "
-            "its probe forwards (aggregation/probe.py) need whole neighbour rows, "
-            "which a rank holds only as a column block")
     claims_fn = attack.claims_fn if attack is not None else None
     adaptive = isinstance(attack, AdaptiveAttack)
     if adaptive:
@@ -556,18 +548,27 @@ def build_round_program(
     grad_fn = vmap(grad(node_loss), in_dims=(0, 0, 0, 0, 0, None))
     keep = 1.0 - model.dropout
 
+    def cut_rows(t, members):
+        """Under a group: each member's whole-network draw ``t`` ([S * N,
+        ...], member-major) cut to this rank's rows, so that every draw
+        keeps the unsharded run's bits; ``t`` as it is in one process."""
+        if group is None:
+            return t
+        whole = t.reshape((members, n) + tuple(t.shape[1:]))[:, own_rows]
+        return whole.reshape((-1,) + tuple(t.shape[1:]))
+
     def member_draws(generators, draw):
         """One draw a member from its own generator, stacked on the row
         axis in member order: each member's rows get exactly the values its
         single run would draw (a single run's one draw is taken as is)."""
         parts = [draw(g) for g in generators]
-        return parts[0] if len(parts) == 1 else torch.cat(parts)
+        return cut_rows(parts[0] if len(parts) == 1 else torch.cat(parts), len(parts))
 
     def dropout_masks(generators, rows_each, injected):
         """This step's masks, one bool [rows, B, width] a dropout layer."""
         if injected is not None:
-            return [torch.as_tensor(np.asarray(m), dtype=torch.bool).to(device)
-                    for m in injected]
+            return [cut_rows(torch.as_tensor(np.asarray(m), dtype=torch.bool).to(device),
+                             len(generators)) for m in injected]
         return [
             member_draws(generators, lambda g: torch.rand(
                 (rows_each, global_batch, w), generator=g, device=device) < keep)
@@ -582,11 +583,9 @@ def build_round_program(
         generator a member, in row order; ``step_lr`` the learning rate, a
         float or one value a row."""
         rows = flat.shape[0]
-        rows_each, cut = rows // len(generators), None
-        if group is not None:
-            # Each draw is the whole network's, cut to this rank's rows, so
-            # that it keeps the unsharded run's bits.
-            rows_each, cut = n, own_rows
+        # Under a group each draw is the whole network's, cut to this
+        # rank's rows (cut_rows).
+        rows_each = n if group is not None else rows // len(generators)
         rows_idx = torch.arange(rows, device=device)
         j = torch.arange(global_batch, device=device)
         batch_mask = (j[None, :] < dd["eff_batch"][:, None]).to(torch.float32)
@@ -594,14 +593,13 @@ def build_round_program(
         params = unravel(flat)
         for epoch in range(local_epochs):
             if u_draws is not None:
-                u = torch.as_tensor(u_draws[epoch], dtype=torch.float32).to(device)
+                u = cut_rows(torch.as_tensor(u_draws[epoch], dtype=torch.float32).to(device),
+                             len(generators))
             else:
                 u = member_draws(generators, lambda g: torch.rand(
                     (rows_each,) + tuple(dd["mask"].shape[1:]), generator=g,
                     device=device, dtype=torch.float32,
                 ))
-            if cut is not None:
-                u = u[cut]
             # Shuffle valid samples to the front: invalid slots sort last.
             perm = torch.argsort(u + (1.0 - dd["mask"]) * 10.0, dim=1, stable=True)
             for t in range(max_steps):
@@ -615,8 +613,6 @@ def build_round_program(
                         generators, rows_each,
                         None if mask_draws is None else mask_draws[epoch][t],
                     )
-                    if cut is not None:
-                        masks = [m[cut] for m in masks]
                 grads = grad_fn(params, xb, yb, batch_mask, masks, lambda_t)
                 update = train_mask * (t < dd["steps"]).to(torch.float32)  # [rows]
                 lr_update = step_lr * update
@@ -727,9 +723,10 @@ def build_round_program(
             with record_function("murmura.train"):
                 own_flat = train_rows(flat.clone(), train_mask[own_rows], round_idx,
                                       [generators.get("train")], data=data, draws=draws)
-        if group is not None:
+        if group is not None and trained is None:
             # The trained rows (and the pre-round ones, for the guards) turn
-            # into this rank's column block of every node.
+            # into this rank's column block of every node; a gang's member
+            # comes as column blocks already.
             own_flat = rows_to_columns(own_flat, group)
             if pre_flat is not None:
                 pre_flat = rows_to_columns(pre_flat, group)
@@ -990,19 +987,25 @@ def build_round_program(
         to train and probe on instead of the program's own.
         ``attack_scale``: this round's attack scale in place of the build's
         (a gang member's, which a stage reset changes).  Under a group
-        ``flat`` and the returned parameters are the rank's own rows."""
+        ``flat`` and the returned parameters are the rank's own rows; with
+        ``trained`` (a gang's member) they are column blocks instead:
+        ``trained`` the member's [N, flat_dim / W] trained block, ``flat``
+        its pre-round block (read on a faulted program only), and the new
+        block comes back as it is, its pad zeroed by the gang on the rows."""
         check_alive(alive)
         if attack_scale is not None and attack is None:
             raise ValueError("attack_scale was given but no attack is configured")
-        if group is not None and (trained is not None or data is not None):
+        if group is not None and data is not None:
             raise ValueError(
-                "a param group's round trains its own rows of its own data: a gang's "
-                "trained rows and another data= are not run sharded")
+                "a param group's round trains its own rows of its own data: another "
+                "data= is not run sharded")
         with param_group_scope(group):
             new_flat, agg_state, metrics = body(flat, agg_state, adj, compromised, alive,
                                                 round_idx, generators, draws, trained, data,
                                                 attack_scale)
         if group is not None:
+            if trained is not None:
+                return new_flat, agg_state, metrics
             new_flat = columns_to_rows(new_flat, group)
         if flat_dim > model_dim:
             # The pad stays exact zeros, as the JAX package's ravel remakes
@@ -1026,14 +1029,17 @@ def build_round_program(
 
     @torch.no_grad()
     @record_function("murmura.eval")
-    def eval_step(flat: torch.Tensor, data=None) -> Dict[str, torch.Tensor]:
+    def eval_step(flat: torch.Tensor, data=None, members: int = 1) -> Dict[str, torch.Tensor]:
         """Per-row eval metrics of ``flat``'s rows against the matching rows
         of ``data``'s eval arrays (default: this program's).  Under a group
-        each rank evaluates its own rows and every rank gets all N."""
+        each rank evaluates its own rows and every rank gets all N: of each
+        of ``members`` stacked members (a gang's [S * R_r] rows, S * N
+        metrics back)."""
         metrics = eval_rows(flat, d_own if data is None else data)
         if group is None:
             return metrics
-        return {k: gather_rows(v, group) for k, v in metrics.items()}
+        return {k: gather_rows(v.reshape(members, -1), group, stacked=True).reshape(-1)
+                for k, v in metrics.items()}
 
     def eval_rows(flat: torch.Tensor, dd) -> Dict[str, torch.Tensor]:
         x, y, mask = dd["eval_x"], dd["eval_y"], dd["eval_mask"]

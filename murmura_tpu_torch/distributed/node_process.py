@@ -39,6 +39,7 @@ from murmura_tpu_torch.distributed.messaging import (
     pack_state,
     unpack_state,
 )
+from murmura_tpu_torch.utils.seed import set_seed
 
 
 def resolve_node_device(device: str, node_id: int) -> torch.device:
@@ -141,6 +142,8 @@ class NodeProcess:
             # N node processes share the host's cores.
             torch.set_num_threads(max(1, (os.cpu_count() or 1)
                                       // max(1, self.config.topology.num_nodes)))
+        # Per-node seeding (reference: node_process.py:113).
+        set_seed(self.config.experiment.seed + self.node_id)
         self._build_node()
         if self.resume:
             self._restore_node_checkpoint()

@@ -295,8 +295,9 @@ def run_frontier(config: Config, progress: Optional[Callable[[str], None]] = Non
                  device="cuda") -> Dict[str, Any]:
     """Run the configured grid on ``device``; returns the artifact dict."""
     from murmura_tpu_torch.aggregation import AGGREGATORS
-    from murmura_tpu_torch.utils.factories import ConfigError
+    from murmura_tpu_torch.utils.factories import ConfigError, refuse_sharded_command
 
+    refuse_sharded_command(config, "frontier")
     say = progress or (lambda s: None)
     f = config.frontier or FrontierConfig()
     unknown = sorted(set(f.rules) - set(AGGREGATORS))

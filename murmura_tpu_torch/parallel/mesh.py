@@ -1,4 +1,5 @@
-# Copy of plan_param_layout from murmura_tpu/parallel/mesh.py.
+# Copy of plan_param_layout and plan_gang_param_layout from
+# murmura_tpu/parallel/mesh.py.
 """Param-axis sharding over a ``torch.distributed`` process group (the
 PyTorch counterpart of the param-axis part of murmura_tpu/parallel/mesh.py).
 
@@ -16,6 +17,12 @@ the data itself:
 - :func:`columns_to_rows` returns the new rows (a second
   ``all_to_all_single``), and eval runs on each rank's own rows, its
   metrics gathered with :func:`gather_rows`.
+
+A gang (core/gang.py) over the group holds each member's own rows as one
+``[S, R_r, P_pad]`` stack: the same two turns take it whole (the members
+become another row block, one ``all_to_all`` each way a round for every
+member), as the JAX package's ``[S, N, P]`` param sharding moves the
+members' state at once.
 
 A row-wide reduction over the parameter axis crosses the shards: the rules'
 distance helpers (aggregation/base.py), the fault scrub's finite flags, row
@@ -68,6 +75,43 @@ def plan_param_layout(
     )
 
 
+def plan_gang_param_layout(
+    batch: int, num_nodes: int, param_shards: int, n_dev: int
+) -> Tuple[int, int, int]:
+    """(seed, nodes, param) axis sizes for a param-sharded GANG mesh —
+    the sharding x sweep lift.
+
+    Same largest-dividing-factor policy as :func:`plan_param_layout`:
+    prefer the full requested ``param_shards`` on the param axis (else
+    its largest divisor that divides the device count), then lay the
+    remaining devices as a ("seed", "nodes") gang plane under the
+    ``make_gang_mesh`` policy — seed-major when the whole gang fits,
+    otherwise the largest seed factor whose node remainder divides N.
+    Raises when no factorization fits.
+    """
+    if param_shards < 1:
+        raise ValueError(f"param_shards must be >= 1, got {param_shards}")
+    for s in sorted(
+        (d for d in range(1, param_shards + 1) if param_shards % d == 0),
+        reverse=True,
+    ):
+        if n_dev % s:
+            continue
+        rem = n_dev // s
+        if batch * num_nodes <= rem:
+            return batch, num_nodes, s
+        for g in sorted(range(1, rem + 1), reverse=True):
+            if rem % g == 0 and g <= batch and batch % g == 0:
+                if num_nodes % (rem // g) == 0:
+                    return g, rem // g, s
+    raise ValueError(
+        f"cannot lay a gang of {batch} members x {num_nodes} nodes x "
+        f"{param_shards} param shards onto {n_dev} devices: no "
+        "(seed, nodes, param) factorization divides all three axes — "
+        "adjust tpu.num_devices, tpu.param_shards or the gang size"
+    )
+
+
 def layout_devices(device_type: str, param_shards: int, num_devices: Optional[int]) -> int:
     """The devices a layout is planned over.  On CUDA the visible cards, or
     ``tpu.num_devices`` of them (more than are visible is refused, in the
@@ -86,11 +130,15 @@ def layout_devices(device_type: str, param_shards: int, num_devices: Optional[in
 
 
 def plan_layout(num_nodes: int, param_shards: int, device_type: str,
-                num_devices: Optional[int] = None) -> Tuple[Tuple[int, int, int], int]:
-    """((seed, nodes, param), devices) of a run.  The port runs no node
-    axis: the param axis is the group's world, and devices the node axis
-    would take go unused."""
+                num_devices: Optional[int] = None,
+                gang: Optional[int] = None) -> Tuple[Tuple[int, int, int], int]:
+    """((seed, nodes, param), devices) of a run, or of a gang of ``gang``
+    lanes (the JAX gang's compiled batch) with :func:`plan_gang_param_layout`.
+    The port runs no seed or node axis: the param axis is the group's world,
+    and devices the other axes would take go unused."""
     n_dev = layout_devices(device_type, param_shards, num_devices)
+    if gang is not None:
+        return plan_gang_param_layout(gang, num_nodes, param_shards, n_dev), n_dev
     return plan_param_layout(num_nodes, param_shards, n_dev), n_dev
 
 
@@ -254,8 +302,10 @@ def full_width(width: int) -> int:
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     """A contiguous 2-D byte view of ``t`` (rows along dim 0), so that the
     collectives move any dtype."""
-    t = t.contiguous()
-    return t.reshape(t.shape[0], -1).view(torch.uint8)
+    rows = t.shape[0]
+    # Through 1-D: a contiguous tensor with a size-1 dim may keep any stride
+    # there, which a byte view refuses.
+    return t.contiguous().reshape(-1).view(torch.uint8).reshape(rows, -1)
 
 
 def _all_to_all(out: torch.Tensor, inp: torch.Tensor, out_splits: Sequence[int],
@@ -276,22 +326,36 @@ def _all_to_all(out: torch.Tensor, inp: torch.Tensor, out_splits: Sequence[int],
 
 def rows_to_columns(rows: torch.Tensor, group: ParamGroup) -> torch.Tensor:
     """This rank's [R_r, P_pad] node rows -> its [N, P_pad / W] column
-    block of every node's rows (one all_to_all)."""
-    r, w, c = rows.shape[0], group.world, group.local_cols
-    send = rows.reshape(r, w, c).transpose(0, 1).reshape(w * r, c)
-    out = torch.empty((group.num_nodes, c), dtype=rows.dtype, device=rows.device)
+    block of every node's rows (one all_to_all); a gang's [S, R_r, P_pad]
+    stack -> [S, N, P_pad / W] in the same one all_to_all."""
+    stacked = rows.dim() == 3
+    x = rows if stacked else rows[None]
+    s, r = x.shape[0], x.shape[1]
+    w, c = group.world, group.local_cols
+    # [S, R, P] -> [W, R, S, c]: rank q's columns of every member's row,
+    # node-major, so that each rank's split is whole rows of an [N, S c].
+    send = x.reshape(s, r, w, c).permute(2, 1, 0, 3).reshape(w * r, s * c)
+    out = torch.empty((group.num_nodes, s * c), dtype=rows.dtype, device=rows.device)
     _all_to_all(out, send, group.row_counts(), [r] * w, group)
-    return out
+    if not stacked:
+        return out
+    return out.reshape(group.num_nodes, s, c).transpose(0, 1).contiguous()
 
 
 def columns_to_rows(cols: torch.Tensor, group: ParamGroup) -> torch.Tensor:
     """The reverse turn: this rank's [N, P_pad / W] column block -> its
-    [R_r, P_pad] node rows."""
+    [R_r, P_pad] node rows; a gang's [S, N, P_pad / W] -> [S, R_r, P_pad]."""
+    stacked = cols.dim() == 3
+    x = cols if stacked else cols[None]
+    s = x.shape[0]
     lo, hi = group.rows
     r, w, c = hi - lo, group.world, group.local_cols
-    recv = torch.empty((w * r, c), dtype=cols.dtype, device=cols.device)
-    _all_to_all(recv, cols, [r] * w, group.row_counts(), group)
-    return recv.reshape(w, r, c).transpose(0, 1).reshape(r, w * c)
+    send = x.transpose(0, 1).reshape(group.num_nodes, s * c)
+    recv = torch.empty((w * r, s * c), dtype=cols.dtype, device=cols.device)
+    _all_to_all(recv, send, [r] * w, group.row_counts(), group)
+    # [W, R, S, c] -> [S, R, W c]
+    out = recv.reshape(w, r, s, c).permute(2, 1, 0, 3).reshape(s, r, w * c)
+    return out if stacked else out[0]
 
 
 def _gather(t: torch.Tensor, group: ParamGroup,
@@ -316,17 +380,22 @@ def _gather(t: torch.Tensor, group: ParamGroup,
 
 def gather_columns(cols: torch.Tensor, group: ParamGroup,
                    dst: Optional[int] = None) -> Optional[torch.Tensor]:
-    """Every rank's [N, P_pad / W] column block -> the whole [N, P_pad], on
-    every rank (on rank ``dst`` alone when given; None elsewhere)."""
+    """Every rank's [..., N, P_pad / W] column block -> the whole [..., N,
+    P_pad], on every rank (on rank ``dst`` alone when given; None
+    elsewhere)."""
     parts = _gather(cols, group, dst)
-    return None if parts is None else torch.cat(parts, dim=1)
+    return None if parts is None else torch.cat(parts, dim=-1)
 
 
-def gather_rows(rows: torch.Tensor, group: ParamGroup,
-                dst: Optional[int] = None) -> Optional[torch.Tensor]:
+def gather_rows(rows: torch.Tensor, group: ParamGroup, dst: Optional[int] = None,
+                stacked: bool = False) -> Optional[torch.Tensor]:
     """Every rank's [R_r, ...] rows -> the whole [N, ...], on every rank
     (on rank ``dst`` alone when given; None elsewhere); each block padded to
-    the largest for the gather."""
+    the largest for the gather.  ``stacked``: a gang's [S, R_r, ...] stack,
+    gathered into [S, N, ...]."""
+    if stacked:
+        whole = gather_rows(rows.transpose(0, 1).contiguous(), group, dst)
+        return None if whole is None else whole.transpose(0, 1).contiguous()
     counts = group.row_counts()
     top = max(counts)
     padded = rows

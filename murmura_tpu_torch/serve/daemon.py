@@ -93,7 +93,9 @@ def normalize_submission(raw: Dict[str, Any]) -> Tuple[Config, str]:
     ``frontier``, ``grid`` and ``serve`` sections are refused (a tenant is
     one experiment), the multi-process ``distributed`` backend is refused
     (its lifecycle cannot ride a gang lane), and the telemetry and
-    durability sections are dropped: the daemon owns both.
+    durability sections are dropped: the daemon owns both.  A tenant with
+    ``tpu.param_shards`` > 1 is refused by name: the daemon lays out no
+    param groups.
     """
     if not isinstance(raw, dict):
         raise SubmissionError(
@@ -117,6 +119,12 @@ def normalize_submission(raw: Dict[str, Any]) -> Tuple[Config, str]:
             "backend=distributed cannot be served — the ZMQ process "
             "lifecycle does not fit a gang lane; submit simulation or tpu"
         )
+    from murmura_tpu_torch.utils.factories import ConfigError, refuse_sharded_command
+
+    try:
+        refuse_sharded_command(config, "serve")
+    except ConfigError as e:
+        raise SubmissionError(str(e)) from None
     config.experiment.verbose = False
     return config, structural_fingerprint(config)
 
@@ -131,6 +139,9 @@ class ServeDaemon:
                 "murmura serve needs a `serve:` section (state_dir at "
                 "minimum) in the daemon config"
             )
+        from murmura_tpu_torch.utils.factories import refuse_sharded_command
+
+        refuse_sharded_command(config, "serve")
         s = config.serve
         self.config = config
         self.device = device

@@ -224,8 +224,9 @@ def plan_grid(config: Config, g: Optional[GridConfig] = None) -> List[GridBucket
     (rule x attack x topology) in the order the cells expand, keyed by the
     fingerprint of the class's config.  Builds nothing."""
     from murmura_tpu_torch.aggregation import AGGREGATORS
-    from murmura_tpu_torch.utils.factories import ConfigError
+    from murmura_tpu_torch.utils.factories import ConfigError, refuse_sharded_command
 
+    refuse_sharded_command(config, "grid")
     g = g or config.grid or GridConfig()
     unknown = sorted(set(g.rules) - set(AGGREGATORS))
     if unknown:

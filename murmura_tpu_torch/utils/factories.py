@@ -20,7 +20,11 @@ the telemetry writer and the profiler directory.
 seed, one attack placement, topology, mobility model and fault schedule
 for all (each member its own DMTT trust state);
 ``build_gang_member_programs`` builds a generation's member programs alone,
-for a warm gang to admit.
+for a warm gang to admit.  In a rank of a param group the gang's members
+are that rank's sharded programs (core/gang.py), and only rank 0 gets the
+members' telemetry writers.  The frontier, the grid and the serve daemon,
+which build their gangs here too, refuse ``tpu.param_shards`` > 1 by name
+(:func:`refuse_sharded_command`): they do not lay out param groups.
 """
 
 import os
@@ -39,7 +43,7 @@ from murmura_tpu_torch.attacks.adaptive import (
 from murmura_tpu_torch.attacks.base import Attack, select_compromised
 from murmura_tpu_torch.config.schema import Config
 from murmura_tpu_torch.core.network import Network
-from murmura_tpu_torch.core.rounds import PROBE_RULES, build_round_program
+from murmura_tpu_torch.core.rounds import build_round_program
 from murmura_tpu_torch.core.stale import StalenessSpec
 from murmura_tpu_torch.levers import refusal_reason
 from murmura_tpu_torch.data.registry import build_federated_data
@@ -62,22 +66,29 @@ class ConfigError(ValueError):
     mismatch).  The CLI renders these as messages, not tracebacks."""
 
 
-# What param-axis sharding does not run yet (ROADMAP Queue A).
+# The commands that param-axis sharding does not run yet (ROADMAP Queue A):
+# the JAX package lays each of their gangs on a ("seed", "nodes", "param")
+# mesh; the port would need a param group inside each cell, bucket or
+# served generation.
 SHARDING_UNPORTED = {
-    "sweep": "sweep with tpu.param_shards > 1 (a gang over a param group)",
-    "probe_rules": "aggregation.algorithm: {} with tpu.param_shards > 1 (its probe forwards "
-                   "need whole neighbour rows)",
+    "frontier": "frontier with tpu.param_shards > 1 (each cell's gang over a param group)",
+    "grid": "grid with tpu.param_shards > 1 (each bucket's gang over a param group)",
+    "serve": "serve with tpu.param_shards > 1 (each bucket's gang over a param group)",
 }
+
+
+def refuse_sharded_command(config: Config, command: str) -> None:
+    """Refuse ``command`` (frontier, grid or serve) on a param-sharded
+    config by name: it would otherwise run its gangs unsharded in one
+    process."""
+    if param_shards_of(config) > 1:
+        raise ConfigError("the PyTorch port does not run these config sections yet: "
+                          + SHARDING_UNPORTED[command])
 
 
 def unported_sections(config: Config) -> List[str]:
     """Every enabled part of the config the port does not run yet."""
     out = []
-    if config.tpu.param_shards > 1:
-        if config.sweep is not None:
-            out.append(SHARDING_UNPORTED["sweep"])
-        if config.aggregation.algorithm in PROBE_RULES:
-            out.append(SHARDING_UNPORTED["probe_rules"].format(config.aggregation.algorithm))
     if config.tpu.multihost:
         out.append("tpu.multihost")
     a = config.attack
@@ -462,11 +473,14 @@ def build_topology(config: Config):
 
 
 def build_program(config: Config, topology, attack, seed: int, device, rule=None,
-                  lr: Optional[float] = None, attack_scale: Optional[float] = None):
+                  lr: Optional[float] = None, attack_scale: Optional[float] = None,
+                  init_params=None):
     """The round program of one run (a single run, or one gang member):
     data from ``seed`` with the attack's label poison, and the model and
     rule (``rule``: a (model, agg, probe_size) already built for this
-    config, else built here from the data).  Returns (program, rule)."""
+    config, else built here from the data); ``init_params`` replaces the
+    seeded initial parameters (``build_round_program``'s carry-over).
+    Returns (program, rule)."""
     try:
         data = build_federated_data(
             config.data.adapter,
@@ -519,6 +533,7 @@ def build_program(config: Config, topology, attack, seed: int, device, rule=None
             dmtt=build_dmtt_params(config),
             param_shards=param_shards_of(config),
             group=process_group(),
+            init_params=init_params,
         )
     except ValueError as e:
         # The round program's refusals (an int8 block straddling a shard,
@@ -577,7 +592,8 @@ def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None
     return Network(program, topology, **kwargs)
 
 
-def _gang_members_and_programs(config: Config, device, seeds=None, members=None):
+def _gang_members_and_programs(config: Config, device, seeds=None, members=None,
+                               init_params=None):
     """The checks a gang's wiring shares with an admission, and the member
     programs: (members, topology, attack, programs)."""
     from murmura_tpu_torch.core.gang import gang_hp_inputs, resolve_members
@@ -593,10 +609,6 @@ def _gang_members_and_programs(config: Config, device, seeds=None, members=None)
         # population x sweep check never saw this pair.
         raise ConfigError(refusal_reason("population", "sweep"))
     refuse_unported(config)
-    if param_shards_of(config) > 1:
-        # The CLI's --seeds reaches here with sweep unset.
-        raise ConfigError("the PyTorch port does not run these config sections yet: "
-                          + SHARDING_UNPORTED["sweep"])
     if members is None:
         try:
             members = resolve_members(config, seeds)
@@ -607,14 +619,19 @@ def _gang_members_and_programs(config: Config, device, seeds=None, members=None)
         raise ConfigError(refusal_reason("sparse", "sweep", "tpu_backend"))
     attack = build_attack(config)
     hp = gang_hp_inputs(members)
+    if init_params is not None and len(init_params) != len(members):
+        raise ConfigError(f"{len(init_params)} initial parameter sets for "
+                          f"{len(members)} gang members")
     programs, rule = [], None
-    for member in members:
+    for i, member in enumerate(members):
         scale = None
         if "attack_scale" in hp:
             scale = member.attack_scale if member.attack_scale is not None else 1.0
         program, rule = build_program(config, topology, attack, member.seed,
                                       torch.device(device), rule=rule, lr=member.lr,
-                                      attack_scale=scale)
+                                      attack_scale=scale,
+                                      init_params=None if init_params is None
+                                      else init_params[i])
         programs.append(program)
     return members, topology, attack, programs
 
@@ -636,7 +653,7 @@ def build_gang_member_programs(config: Config, members, device="cuda"):
 
 
 def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint_dir=None,
-                           retain_init=False, min_batch=1):
+                           retain_init=False, min_batch=1, init_params=None):
     """Gang wiring (core/gang.py): the ``sweep`` and ``run --seeds`` path,
     each frontier cell's and grid bucket's gang, and each serve bucket's.
 
@@ -652,12 +669,17 @@ def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint
     ``retain_init``: keep host copies of the round-0 state, which
     ``GangNetwork.reset_run`` (the frontier's stage reset) restores.
     ``min_batch``: the lane count the gang reports and admits up to (the
-    serve daemon's capacity)."""
+    serve daemon's capacity).  ``init_params``: one node-stacked pytree a
+    member (the weight carry-over of ``build_round_program``).  In a rank
+    of a param group the members' programs are that rank's, and ranks other
+    than 0 get no telemetry writer."""
     from murmura_tpu_torch.core.gang import GangNetwork
 
-    members, topology, attack, programs = _gang_members_and_programs(config, device, seeds)
+    members, topology, attack, programs = _gang_members_and_programs(
+        config, device, seeds, init_params=init_params)
     writers = None
-    if config.telemetry.enabled:
+    group = process_group()
+    if config.telemetry.enabled and (group is None or group.rank == 0):
         # One run dir a member, <run dir>/<member label>, each of which
         # ``report`` reads as a single run's.
         resume = checkpoint_dir is not None and has_checkpoint(checkpoint_dir)

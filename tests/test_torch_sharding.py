@@ -7,12 +7,21 @@
   runs every case of tests/torch_sharding_cases.py, and the test process
   runs the same cases in one process on the padded flat vector:
   - the JAX package's tiny sharded round (tests/test_param_sharding.py
-    ``_tiny_program``, Krum, ``shard_step`` on a (1, 1, 4) mesh of the
-    conftest's CPU devices), JAX's initial parameters carried over and its
-    shuffle draw injected, against the port's 4-rank round: rtol 5e-5,
-    atol 5e-6 (the JAX test's own tolerance), picks equal;
+    ``_tiny_program``, Krum, UBAR and evidential trust, ``shard_step`` on
+    a (1, 1, 4) mesh of the conftest's CPU devices), JAX's initial
+    parameters carried over and its shuffle draw injected, against the
+    port's 4-rank round: rtol 5e-5, atol 5e-6 (the JAX test's own
+    tolerance), picks, stage rates and acceptances equal;
+  - the probe forwards on one input, each rank handing in its column
+    block: the dense cross-evaluation bit-equal to one process's (each
+    model runs alone on every probe batch, as there), the circulant one
+    and the self probe within float32 rounding (their forwards are
+    vmapped over the rank's R_r models instead of all N, and torch's
+    batched matmul rounds by batch size: one float32 ulp, 4.8e-7 on a
+    Dirichlet strength of 5.2, measured);
   - each rule of {fedavg, Krum, median, trimmed mean, geometric median,
-    BALANCE, Sketchguard} x {allgather, ppermute}, and Krum pipelined,
+    BALANCE, Sketchguard, UBAR, evidential trust} x {allgather,
+    ppermute}, and Krum pipelined,
     Krum under the adaptive bisection and Krum and the median on the
     sparse exchange, 2 rounds, sharded against unsharded: the decisions
     (picks, candidate counts, acceptance) equal, the float stats and
@@ -23,15 +32,28 @@
     after round 1 resumed bit-equal to the uninterrupted run; the
     carried [N, P] state as column blocks; a snapshot of another shard
     count refused both ways, in the JAX package's words;
+  - the gang over the group (``build_gang_from_config``, core/gang.py):
+    sharded_model.yaml's levers, the median under ppermute and Sketchguard
+    against the port's unsharded gang (decisions equal, parameters within
+    a scaled 1e-4); a member bit-equal to its single sharded run; JAX's
+    gang over its ("seed", "nodes", "param") mesh
+    (test_param_sharding.py's ``_cfg()`` with seeds [7, 8]), its members'
+    initial parameters carried over and their draws injected, within rtol
+    5e-5 / atol 5e-6; a snapshot after round 1 resumed bit-equal, and
+    snapshots refused across shard counts and between a gang and a single
+    run, both ways;
   - the collectives on uneven row blocks; no rank loads JAX;
   - last, rank 1 raises while the others wait in a collective: the launch
     ends with rank 1's traceback and nothing hangs.
 - The refusals, in the JAX package's words: DMTT, top-k, an int8 block
   straddling a shard, population, ``backend: simulation``; and the port's
-  own (a gang, the probe rules).
+  own, by name: the frontier, the grid and the serve daemon over a param
+  group.  ``unported_sections`` names nothing for a sweep, ``run --seeds``,
+  UBAR and evidential trust.
 """
 
 import pickle
+import re
 from pathlib import Path
 
 import numpy as np
@@ -51,11 +73,14 @@ from murmura_tpu_torch.utils.factories import (
     unported_sections,
 )
 
+
+
 # Stats that are decisions: equal, not within a tolerance.
 DECISIONS = ("agg_selected_index", "agg_selected_own", "agg_num_candidates",
              "agg_trimmed_per_side", "agg_num_neighbors", "agg_acceptance_rate",
              "agg_atk_accept", "agg_pipe_valid", "agg_alive", "agg_quarantined",
-             "agg_attack_scrubbed", "agg_stale_used", "agg_stale_expired")
+             "agg_attack_scrubbed", "agg_stale_used", "agg_stale_expired",
+             "agg_stage1_acceptance_rate", "agg_stage2_acceptance_rate")
 RULE_CASES = [{"rule": r, "exchange": e} for r in cases.RULES for e in ("allgather", "ppermute")]
 EXTRA_CASES = [{"rule": "krum", "exchange": "ppermute", "pipeline": True},
                {"rule": "krum", "exchange": "allgather", "adaptive": True},
@@ -124,10 +149,10 @@ def test_sharded_flatteners_match_jax(shards):
 # the group: every case in one spawned group of 4 gloo ranks
 
 
-def _jax_tiny_spec():
-    """The JAX package's tiny sharded round on a (1, 1, 4) mesh, from spread
-    initial parameters: (its spec for the port, its whole [N, P] output,
-    its metrics)."""
+def _jax_tiny_spec(rule="krum"):
+    """The JAX package's tiny sharded round of ``rule`` on a (1, 1, 4) mesh,
+    from spread initial parameters: (its spec for the port, its whole [N,
+    P] output, its metrics)."""
     import jax
     import jax.numpy as jnp
     from jax.flatten_util import ravel_pytree
@@ -136,7 +161,7 @@ def _jax_tiny_spec():
     from murmura_tpu.parallel.mesh import make_param_mesh, shard_step
     from test_param_sharding import _step_args, _tiny_program
 
-    prog = _tiny_program(param_shards=cases.SHARDS)
+    prog = _tiny_program(rule, param_shards=cases.SHARDS)
     n = prog.num_nodes
     rng = np.random.default_rng(cases.SEED)
     scale = 0.05 * (1.0 + np.arange(n) / n)
@@ -159,8 +184,57 @@ def _jax_tiny_spec():
     train_key, _ = jax.random.split(args[2])
     perm_key, _ = jax.random.split(jax.random.split(train_key, 1)[0])
     u = np.array(jax.random.uniform(perm_key, prog.data_arrays["mask"].shape))
-    spec = {"init": init, "u": u, "agg_params": dict(AGG_CASES["krum"])}
+    spec = {"init": init, "u": u, "agg_params": dict(AGG_CASES[rule]), "rule": rule}
     return spec, flat, {k: np.asarray(v) for k, v in metrics.items()}
+
+
+JAX_RULES = ("krum", "ubar", "evidential_trust")
+GANG_SEEDS = [7, 9]
+
+
+def _member_raw(raw, seed):
+    """A gang member's single run: its seed, the attack placement pinned to
+    the gang's (attack.params.seed: the base experiment seed)."""
+    base = raw["experiment"]["seed"]
+    return {**raw, "experiment": {**raw["experiment"], "seed": seed},
+            "attack": {**raw["attack"], "params": {**raw["attack"]["params"], "seed": base}}}
+
+
+def _jax_gang_spec():
+    """The JAX package's gang over its ("seed", "nodes", "param") mesh
+    (test_param_sharding.py ``_cfg()``, seeds [7, 8]), 2 rounds: (the port's
+    spec with the members' initial parameters and draws, each member's
+    whole [N, P] parameters after each round, the histories)."""
+    import jax
+    from jax.flatten_util import ravel_pytree
+
+    from murmura_tpu.config import Config as JaxConfig
+    from murmura_tpu.utils.factories import build_gang_from_config as jax_gang
+    from test_param_sharding import _raw
+
+    raw = _raw()
+    jgang = jax_gang(JaxConfig.model_validate(raw), seeds=[7, 8])
+    assert jgang.mesh.axis_names == ("seed", "nodes", "param")
+    assert dict(jgang.mesh.shape)["param"] == cases.SHARDS
+    s_count = jgang.gang_size
+    init = [jax.tree_util.tree_map(lambda a: np.asarray(a)[s], jgang.params)
+            for s in range(s_count)]
+    masks = np.asarray(jgang._data["mask"])
+    draws, flats = [], []
+    for r in range(2):
+        round_draws = []
+        for s, m in enumerate(jgang.members):
+            key = jax.random.fold_in(jax.random.PRNGKey(m.seed), r)
+            train_key, _ = jax.random.split(key)
+            perm_key, _ = jax.random.split(jax.random.split(train_key, 1)[0])
+            round_draws.append(
+                {"u": [np.array(jax.random.uniform(perm_key, masks[s].shape))]})
+        draws.append(round_draws)
+        jgang.train(rounds=1)
+        flats.append(np.asarray(jax.vmap(jax.vmap(lambda t: ravel_pytree(t)[0]))(
+            jgang.params))[:s_count])
+    spec = {"raw": raw, "seeds": [7, 8], "init": init, "draws": draws, "rounds": 2}
+    return spec, flats, [dict(h) for h in jgang.histories]
 
 
 @pytest.fixture(scope="module")
@@ -169,11 +243,16 @@ def runs(tmp_path_factory):
     snapshots: the group's resume case writes one of 4 shards, which the
     test process reads back; the group refuses the test process's of 2."""
     tmp = tmp_path_factory.mktemp("sharding")
-    jax_spec, jax_flat, jax_metrics = _jax_tiny_spec()
+    jax_tiny = {rule: _jax_tiny_spec(rule) for rule in JAX_RULES}
+    jax_gang_spec, jax_gang_flats, jax_gang_histories = _jax_gang_spec()
     two = build_network_from_config(Config.model_validate(
         cases.tiny_config(tpu={"param_shards": 2})), device="cpu")
     two.train(1)
     two.save_checkpoint(str(tmp / "snap2"))
+    two_gang = build_gang_from_config(Config.model_validate(
+        cases.tiny_config(tpu={"param_shards": 2})), seeds=GANG_SEEDS, device="cpu")
+    two_gang.train(1)
+    two_gang.save_checkpoint(str(tmp / "gang2"))
     levers = cases.tiny_config()
     mobility = cases.tiny_config(
         mobility={"area_size": 100.0, "comm_range": 45.0, "max_speed": 5.0, "seed": 3})
@@ -185,9 +264,25 @@ def runs(tmp_path_factory):
         "fused": {"raw": levers, "rounds": 4, "rounds_per_dispatch": 2},
         "per_round": {"raw": levers, "rounds": 4},
         "mobility": {"raw": mobility, "rounds": 2},
+        # A gang member's single sharded run.
+        "member": {"raw": _member_raw(levers, GANG_SEEDS[1]), "rounds": 2},
     }
-    plan = ([("jax_tiny", jax_spec)] + [("rule", s) for s in RULE_CASES + EXTRA_CASES]
-            + [("network", s) for s in network_specs.values()] + [("gather", {})])
+    gang_specs = {
+        "levers": {"raw": levers, "seeds": GANG_SEEDS, "rounds": 2, "resume": True,
+                   "snapshot_dir": str(tmp / "gang4"),
+                   "refuse_dirs": {"shards": str(tmp / "gang2"), "single": str(tmp / "snap4")}},
+        "median_ppermute": {"raw": cases.tiny_config(
+            aggregation={"algorithm": "median", "params": {}}, tpu={"exchange": "ppermute"}),
+            "seeds": GANG_SEEDS, "rounds": 2},
+        "sketchguard": {"raw": cases.tiny_config(
+            aggregation={"algorithm": "sketchguard", "params": {"sketch_size": 16}}),
+            "seeds": GANG_SEEDS, "rounds": 2},
+        "jax": jax_gang_spec,
+    }
+    plan = ([("jax_tiny", jax_tiny[r][0]) for r in JAX_RULES] + [("probe", {})]
+            + [("rule", s) for s in RULE_CASES + EXTRA_CASES]
+            + [("network", s) for s in network_specs.values()]
+            + [("gang", s) for s in gang_specs.values()] + [("gather", {})])
     # The group's last act: rank 1 raises while the others wait in a
     # collective; the launch must end with rank 1's error, not hang.
     out = tmp / "ranks"
@@ -203,16 +298,19 @@ def runs(tmp_path_factory):
     group = [pickle.loads((out / f"rank{r}.pkl").read_bytes()) for r in range(cases.SHARDS)]
     # The unsharded references (the resume case without its snapshot dir:
     # the group's snapshot stays for the refusals below).
-    local_plan = [(k, {**s, "snapshot_dir": None, "refuse_dir": None}) if k == "network"
-                  else (k, s) for k, s in plan]
+    local_plan = [(k, {**s, "snapshot_dir": None, "refuse_dir": None, "refuse_dirs": None})
+                  if k in ("network", "gang") else (k, s) for k, s in plan]
     local = cases.run_cases(local_plan)
-    names = (["jax_tiny"] + [_case_id(s) for s in RULE_CASES + EXTRA_CASES]
-             + list(network_specs) + ["gather"])
+    names = ([f"jax_tiny:{r}" for r in JAX_RULES] + ["probe"]
+             + [_case_id(s) for s in RULE_CASES + EXTRA_CASES]
+             + list(network_specs) + [f"gang:{k}" for k in gang_specs] + ["gather"])
     return {"group": dict(zip(names, group[0]["results"])),
             "local": dict(zip(names, local["results"])),
             "forbidden": [r["forbidden_modules"] for r in group],
             "gather": [r["results"][-1] for r in group],
-            "jax": (jax_flat, jax_metrics), "tmp": tmp, "failure": failure}
+            "jax": {r: v[1:] for r, v in jax_tiny.items()},
+            "jax_gang": (jax_gang_flats, jax_gang_histories), "two_gang": two_gang,
+            "tmp": tmp, "failure": failure}
 
 
 def _case_id(spec):
@@ -231,8 +329,8 @@ def _assert_rounds_match(got_rounds, ref_rounds):
 
 
 def test_jax_tiny_sharded_round_matches_jax_shard_step(runs):
-    jax_flat, jax_metrics = runs["jax"]
-    got = runs["group"]["jax_tiny"]
+    jax_flat, jax_metrics = runs["jax"]["krum"]
+    got = runs["group"]["jax_tiny:krum"]
     dim = jax_flat.shape[1]
     assert got["flat_dim"] == padded_dim(dim, cases.SHARDS) > dim
     np.testing.assert_allclose(got["flat"][:, :dim], jax_flat, rtol=5e-5, atol=5e-6)
@@ -241,6 +339,40 @@ def test_jax_tiny_sharded_round_matches_jax_shard_step(runs):
                                   jax_metrics["agg_selected_index"])
     # Krum selected somewhere (c = 1 on the whole graph of 8).
     assert not got["metrics"]["agg_selected_own"].all()
+
+
+@pytest.mark.parametrize("rule", ["ubar", "evidential_trust"])
+def test_jax_tiny_probe_rule_round_matches_jax_shard_step(runs, rule):
+    jax_flat, jax_metrics = runs["jax"][rule]
+    got = runs["group"][f"jax_tiny:{rule}"]
+    dim = jax_flat.shape[1]
+    np.testing.assert_allclose(got["flat"][:, :dim], jax_flat, rtol=5e-5, atol=5e-6)
+    assert not got["flat"][:, dim:].any()
+    m = got["metrics"]
+    decisions = (("agg_stage1_acceptance_rate", "agg_stage2_acceptance_rate")
+                 if rule == "ubar" else ("agg_acceptance_rate",))
+    for k in decisions:
+        np.testing.assert_array_equal(m[k], jax_metrics[k], err_msg=k)
+    for k, v in jax_metrics.items():
+        if k not in decisions:
+            np.testing.assert_allclose(m[k], v, rtol=5e-5, atol=5e-6, err_msg=k)
+    if rule == "ubar":
+        # Stage 1 shortlisted and stage 2 accepted somewhere.
+        assert m["agg_stage1_acceptance_rate"].any() and m["agg_stage2_acceptance_rate"].any()
+
+
+def test_probe_matrices_of_the_group_match_one_process(runs):
+    got, ref = runs["group"]["probe"], runs["local"]["probe"]
+    for k, v in ref["dense"].items():
+        # Each model alone on every probe batch, as in one process: the bits.
+        assert got["dense"][k].tobytes() == v.tobytes(), k
+    assert ref["dense"]["vacuity"].shape == (cases.N, cases.N)
+    assert ref["circulant"]["vacuity"].shape == (3, cases.N)
+    for part in ("circulant", "self"):
+        for k, v in ref[part].items():
+            # Vmapped over the rank's models: float32 rounding of the
+            # batched matmul, not a different evaluation.
+            np.testing.assert_allclose(got[part][k], v, rtol=1e-6, atol=0, err_msg=k)
 
 
 @pytest.mark.parametrize("spec", RULE_CASES + EXTRA_CASES, ids=_case_id)
@@ -257,6 +389,76 @@ def test_rule_sharded_matches_unsharded(runs, spec):
         assert any(not r["agg_selected_own"].all() for r in ref["rounds"])
     if spec.get("pipeline"):
         assert [float(r["agg_pipe_valid"]) for r in got["rounds"]] == [0.0, 1.0]
+
+
+@pytest.mark.parametrize("name", ["levers", "median_ppermute", "sketchguard"])
+def test_gang_over_the_group_matches_the_unsharded_gang(runs, name):
+    got, ref = runs["group"][f"gang:{name}"], runs["local"][f"gang:{name}"]["run"]
+    flat_dim = ref["flat"].shape[2]
+    # Rank 0 carries its own 2 node rows of each of the 2 members.
+    assert got["rows"] == (2, cases.N // cases.SHARDS, flat_dim)
+    got = got["run"]
+    assert got["flat"].shape == ref["flat"].shape == (2, cases.N, flat_dim)
+    assert _scaled(got["flat"], ref["flat"]) <= 1e-4
+    for g, r in zip(got["histories"], ref["histories"]):
+        assert set(g) == set(r)
+        for k, v in r.items():
+            if k in DECISIONS or k in ("round", "agg_selected_index"):
+                assert g[k] == v, k
+            else:
+                assert _scaled(g[k], v) <= 1e-4, k
+    for k, v in ref["state"].items():
+        assert got["state"][k].shape == v.shape, k
+        assert _scaled(got["state"][k], v) <= 1e-4, k
+    # The members are different experiments.
+    assert not np.array_equal(ref["flat"][0], ref["flat"][1])
+
+
+def test_gang_member_is_bit_equal_to_its_single_sharded_run(runs):
+    gang, single = runs["group"]["gang:levers"]["run"], runs["group"]["member"]["run"]
+    np.testing.assert_array_equal(gang["flat"][1], single["flat"])
+    assert gang["histories"][1] == single["history"]
+    for k, v in single["state"].items():
+        np.testing.assert_array_equal(gang["state"][k][1], v, err_msg=k)
+
+
+def test_sharded_gang_matches_the_jax_param_mesh_gang(runs):
+    jax_flats, jax_histories = runs["jax_gang"]
+    got = runs["group"]["gang:jax"]["run"]
+    dim = jax_flats[-1].shape[2]
+    np.testing.assert_allclose(got["flat"][:, :, :dim], jax_flats[-1], rtol=5e-5, atol=5e-6)
+    assert not got["flat"][:, :, dim:].any()
+    for g, ref in zip(got["histories"], jax_histories):
+        assert set(g) == set(ref)
+        for k, v in ref.items():
+            if k in DECISIONS or k == "round":
+                assert g[k] == v, k
+            elif v:
+                np.testing.assert_allclose(g[k], v, rtol=5e-5, atol=5e-6, err_msg=k)
+
+
+def test_sharded_gang_resume_is_bit_equal(runs):
+    got = runs["group"]["gang:levers"]
+    assert got["restored_round"] == 1
+    full, resumed = got["run"], got["resumed"]
+    assert resumed["histories"] == full["histories"]
+    np.testing.assert_array_equal(resumed["flat"], full["flat"])
+    for k, v in full["state"].items():
+        np.testing.assert_array_equal(resumed["state"][k], v, err_msg=k)
+
+
+def test_gang_snapshots_refused_across_shard_counts_and_single_runs(runs):
+    refused = runs["group"]["gang:levers"]["refused"]
+    assert "tpu.param_shards=2" in refused["shards"] and "param_shards=4" in refused["shards"]
+    assert "no gang section" in refused["single"]
+    # The other ways: a gang of 2 shards and a single sharded run refuse
+    # the group's gang snapshot.
+    gang4 = str(runs["tmp"] / "gang4")
+    with pytest.raises(ValueError, match="tpu.param_shards=4"):
+        runs["two_gang"].restore_checkpoint(gang4)
+    single = build_network_from_config(Config.model_validate(cases.tiny_config()), device="cpu")
+    with pytest.raises(ValueError, match="gang"):
+        single.restore_checkpoint(gang4)
 
 
 @pytest.mark.parametrize("name", ["resume", "per_round", "mobility"])
@@ -441,20 +643,42 @@ def test_a_group_wider_than_the_nodes_is_refused():
         set_process_group(None)
 
 
-def test_gang_and_probe_rules_refused_by_name(tmp_path):
+def test_unported_sections_names_nothing_for_gangs_and_probe_rules():
     raw = cases.tiny_config()
-    with pytest.raises(ConfigError, match="a gang over a param group"):
-        build_gang_from_config(Config.model_validate(raw), seeds=[1, 2], device="cpu")
-    swept = Config.model_validate({**raw, "sweep": {"num_seeds": 2}})
-    assert unported_sections(swept) == [
-        "sweep with tpu.param_shards > 1 (a gang over a param group)"]
-    for rule in ("ubar", "evidential_trust"):
-        cfg = Config.model_validate(
-            {**raw, "aggregation": {"algorithm": rule, "params": {}}})
-        (reason,) = unported_sections(cfg)
-        assert rule in reason and "whole neighbour rows" in reason
-    # The config itself runs: nothing named.
+    for variant in ({**raw, "sweep": {"num_seeds": 2}},
+                    {**raw, "aggregation": {"algorithm": "ubar", "params": {}}},
+                    {**raw, "aggregation": {"algorithm": "evidential_trust", "params": {}}}):
+        assert unported_sections(Config.model_validate(variant)) == []
     sharded = yaml.safe_load(
         (Path(__file__).resolve().parents[1] / "examples" / "configs"
          / "sharded_model.yaml").read_text())
     assert unported_sections(Config.model_validate(sharded)) == []
+    # ``run --seeds`` reaches the gang with no sweep block: it builds (here
+    # in one process, on the padded flat vector).
+    gang = build_gang_from_config(Config.model_validate(raw), seeds=[1, 2], device="cpu")
+    assert gang.flats.shape == (2, cases.N, 160) and gang.group is None
+
+
+@pytest.mark.parametrize("command", ["frontier", "grid", "serve"])
+def test_commands_over_a_param_group_are_refused_by_name(command, tmp_path):
+    from murmura_tpu_torch.frontier import run_frontier
+    from murmura_tpu_torch.serve.daemon import ServeDaemon, SubmissionError, normalize_submission
+    from murmura_tpu_torch.serve.scheduler import plan_grid
+
+    raw = cases.tiny_config()
+    want = f"{command} with tpu.param_shards > 1 (each "
+    if command == "serve":
+        with pytest.raises(SubmissionError, match=re.escape(want)):
+            normalize_submission(raw)
+        daemon = Config.model_validate({**raw, "serve": {"state_dir": str(tmp_path)}})
+        with pytest.raises(ConfigError, match=re.escape(want)):
+            ServeDaemon(daemon, device="cpu")
+        return
+    with pytest.raises(ConfigError, match=re.escape(want)):
+        if command == "frontier":
+            run_frontier(Config.model_validate(raw), device="cpu")
+        else:
+            plan_grid(Config.model_validate(raw))
+    # At one shard the same config is planned.
+    if command == "grid":
+        assert plan_grid(Config.model_validate(cases.tiny_config(tpu={"param_shards": 1})))

@@ -4,7 +4,8 @@ group (murmura_tpu_torch/parallel/launch.py).  The ranks import this
 module, so it imports neither JAX nor the JAX package.
 
 Every case returns plain numpy (the whole [N, P] parameters gathered over
-the group, the round metrics), so that the two runs compare directly.
+the group, the round metrics; a gang's whole [S, N, P]), so that the two
+runs compare directly.
 """
 
 import pickle
@@ -15,6 +16,12 @@ import numpy as np
 import torch
 
 from murmura_tpu_torch.aggregation import build_aggregator
+from murmura_tpu_torch.aggregation.base import AggContext, self_probe_metrics
+from murmura_tpu_torch.aggregation.probe import (
+    circulant_probe_eval,
+    evidential_trust_metric,
+    pairwise_probe_eval,
+)
 from murmura_tpu_torch.attacks.adaptive import make_bisection_attack
 from murmura_tpu_torch.attacks.gaussian import make_gaussian_attack
 from murmura_tpu_torch.config.schema import Config
@@ -25,17 +32,27 @@ from murmura_tpu_torch.core.rounds import (
 )
 from murmura_tpu_torch.data.base import FederatedArrays
 from murmura_tpu_torch.models.mlp import make_mlp
-from murmura_tpu_torch.ops.flatten import model_dimension, padded_dim, tree_map
+from murmura_tpu_torch.ops.flatten import (
+    make_sharded_flatteners,
+    model_dimension,
+    padded_dim,
+    tree_map,
+)
 from murmura_tpu_torch.parallel.launch import forbidden_modules
-from murmura_tpu_torch.parallel.mesh import gather_columns, gather_rows, process_group
+from murmura_tpu_torch.parallel.mesh import (
+    gather_columns,
+    gather_rows,
+    param_group_scope,
+    process_group,
+)
 from murmura_tpu_torch.topology.generators import create_topology
-from murmura_tpu_torch.utils.factories import build_network_from_config
+from murmura_tpu_torch.utils.factories import build_gang_from_config, build_network_from_config
 
 N = 8
 SEED = 7
 SHARDS = 4
 RULES = ("fedavg", "krum", "median", "trimmed_mean", "geometric_median", "balance",
-         "sketchguard")
+         "sketchguard", "ubar", "evidential_trust")
 # Each rule's params: Krum selects (c = 1 < (5 - 2) / 2), Sketchguard's
 # sketch is narrower than the flat vector.
 RULE_PARAMS = {"krum": {"num_compromised": 1}, "sketchguard": {"sketch_size": 16},
@@ -55,8 +72,8 @@ def tiny_data(n: int = N, s: int = 16, seed: int = 0) -> FederatedArrays:
     )
 
 
-def tiny_model():
-    return make_mlp(input_dim=6, hidden_dims=(9,), num_classes=3)
+def tiny_model(evidential: bool = False):
+    return make_mlp(input_dim=6, hidden_dims=(9,), num_classes=3, evidential=evidential)
 
 
 def spread_init(model, n: int = N, seed: int = SEED):
@@ -96,7 +113,8 @@ def rule_case(spec):
     rule, exchange = spec["rule"], spec["exchange"]
     group = process_group()
     device = torch.device(spec.get("device", "cpu")) if group is None else group.device
-    model = tiny_model()
+    # Evidential trust reads Dirichlet alphas: the evidential head.
+    model = tiny_model(evidential=rule == "evidential_trust")
     dim = model_dimension(model.init(torch.Generator().manual_seed(0), "cpu"))
     params = {**RULE_PARAMS.get(rule, {}), **spec.get("params", {})}
     sparse_offsets = None
@@ -131,12 +149,12 @@ def rule_case(spec):
 
 
 def jax_tiny_case(spec):
-    """The JAX package's tiny sharded round (Krum, the AGG_CASES params, the
-    whole graph, no attack) from ``spec``'s initial parameters and its
-    round key's shuffle draw ``u``."""
+    """The JAX package's tiny sharded round (``spec``'s rule, Krum by
+    default, with the AGG_CASES params, the whole graph, no attack) from
+    ``spec``'s initial parameters and its round key's shuffle draw ``u``."""
     model = tiny_model()
     dim = model_dimension(model.init(torch.Generator().manual_seed(0), "cpu"))
-    agg = build_aggregator("krum", dict(spec["agg_params"]),
+    agg = build_aggregator(spec.get("rule", "krum"), dict(spec["agg_params"]),
                            model_dim=padded_dim(dim, SHARDS))
     prog = build_round_program(
         model, agg, tiny_data(), local_epochs=1, batch_size=8, lr=0.05, total_rounds=4,
@@ -222,11 +240,109 @@ def network_case(spec):
     return out
 
 
+def probe_case(spec):
+    """The probe forwards on one seeded input: the dense [N, N] and the
+    circulant [k, N] cross-evaluations of a broadcast and the self probe of
+    the own rows, each metric of evidential trust's (accuracy, vacuity,
+    entropy, strength); under a group each rank hands in its column block
+    of the same whole tensors."""
+    model = tiny_model(evidential=True)
+    template = model.init(torch.Generator().manual_seed(0), "cpu")
+    _, unravel, dim, flat_dim = make_sharded_flatteners(template, SHARDS)
+    data = tiny_data()
+    rng = np.random.default_rng(spec.get("seed", 3))
+    whole = {k: rng.normal(scale=0.5, size=(N, flat_dim)).astype(np.float32)
+             for k in ("own", "bcast")}
+    for v in whole.values():
+        v[:, dim:] = 0.0
+    group = process_group()
+    if group is not None:
+        group = group.bind(N, flat_dim)
+    c0, c1 = (0, flat_dim) if group is None else group.cols
+    own, bcast = (torch.from_numpy(whole[k][:, c0:c1].copy()) for k in ("own", "bcast"))
+    ctx = AggContext(apply_fn=model.apply, unravel=unravel,
+                     probe_x=torch.from_numpy(data.x[:, :8]),
+                     probe_y=torch.from_numpy(data.y[:, :8].astype(np.int64)),
+                     probe_mask=torch.from_numpy(data.mask[:, :8]))
+    with param_group_scope(group):
+        dense = pairwise_probe_eval(bcast, ctx, evidential_trust_metric)
+        circ = circulant_probe_eval(bcast, [1, 3, 6], ctx, evidential_trust_metric)
+        own_m = self_probe_metrics(own, ctx, evidential_trust_metric)
+    return {"dense": _host(dense), "circulant": _host(circ), "self": _host(own_m)}
+
+
+def _gang_state(gang):
+    """The gang's whole state in the snapshot layout, on the host (rank 0's;
+    None on the other ranks of a group)."""
+    flat, state = gang._durability_params()
+    if flat is None:
+        return None
+    return {"flat": flat.numpy(), "state": {k: v.numpy() for k, v in state.items()},
+            "histories": gang.histories}
+
+
+def _gang_rounds_with_draws(gang, draws, rounds):
+    """``rounds`` gang rounds through the gang's step with injected draws
+    (one dict a member a round, the JAX members' own), each evaluated and
+    recorded as ``train`` records it."""
+    adj = torch.from_numpy(gang.topology.mask())
+    s_count, rows, p = gang.flats.shape
+    n = gang.program.num_nodes
+    for r in range(rounds):
+        gang.flats, gang.agg_states, metrics = gang._step(gang.flats, gang.agg_states, adj, r,
+                                                          draws=draws[r])
+        ev = gang.program.eval_step(gang.flats.reshape(s_count * rows, p), data=gang._data,
+                                    members=s_count)
+        gang._record_all(r + 1, [
+            {**{k: v[s * n:(s + 1) * n].numpy() for k, v in ev.items()},
+             **{k: v.numpy() for k, v in metrics[s].items()}} for s in range(s_count)],
+            verbose=False)
+        gang.current_round = r + 1
+
+
+def gang_case(spec):
+    """A gang through ``build_gang_from_config`` (``spec``: the config's raw
+    dict, seeds, rounds; ``init`` one initial parameter set a member and
+    ``draws`` one list of member draws a round, which then run through the
+    gang's step; with ``resume`` the first round snapshotted into
+    ``snapshot_dir``, a second gang restored from it and trained on;
+    ``refuse_dirs`` snapshots the gang must refuse)."""
+    cfg = Config.model_validate(spec["raw"])
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        gang = build_gang_from_config(cfg, seeds=spec.get("seeds"), device="cpu",
+                                      init_params=spec.get("init"))
+        out["refused"] = {}
+        for name, path in (spec.get("refuse_dirs") or {}).items():
+            try:
+                gang.restore_checkpoint(path)
+                out["refused"][name] = None
+            except ValueError as e:
+                out["refused"][name] = str(e)
+        rounds = spec.get("rounds", 2)
+        snap = spec.get("snapshot_dir") or str(Path(tmp) / "snap")
+        if spec.get("draws") is not None:
+            _gang_rounds_with_draws(gang, spec["draws"], rounds)
+        elif spec.get("resume"):
+            gang.train(1, checkpoint_dir=snap)
+            gang.train(rounds - 1)
+            resumed = build_gang_from_config(cfg, seeds=spec.get("seeds"), device="cpu")
+            out["restored_round"] = resumed.restore_checkpoint(snap)
+            resumed.train(rounds - 1)
+            out["resumed"] = _gang_state(resumed)
+        else:
+            gang.train(rounds)
+        out["run"] = _gang_state(gang)
+        if gang.group is not None:
+            out["rows"] = tuple(gang.flats.shape)
+    return out
+
+
 def run_cases(cases):
     """Every (kind, spec) case in order, with this process's forbidden
     modules; what a param group's ranks run."""
     fns = {"rule": rule_case, "jax_tiny": jax_tiny_case, "network": network_case,
-           "gather": gather_check}
+           "gather": gather_check, "probe": probe_case, "gang": gang_case}
     results = [fns[kind](spec) for kind, spec in cases]
     group = process_group()
     return {"results": results, "forbidden_modules": forbidden_modules(),

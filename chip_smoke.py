@@ -273,7 +273,21 @@ Phases, each of which raises (and exits non-zero) on failure:
    agg_dmtt_* columns for a DMTT run); each run prints its peak device
    memory, and UBAR's, evidential trust's and DMTT's their probe forwards'
    share of the round;
-5. output: the pipelined flagship's steady seconds a round beside the
+5. the contract checker (murmura_tpu_torch/analysis/): ``python -m
+   murmura_tpu_torch check`` with every executable family off, in a
+   subprocess (the lint and the static contracts, on a host with no
+   JAX), started first and waited for last; meanwhile
+   ``run_check_detailed(lint=False, contracts=False, device="cuda")`` in
+   this process, every family on (durability, adaptive, staleness,
+   pipeline, sharded, compose, serve, observe; the sharded family's cells
+   ran in the ranks of phase 4's group of 2 on cuda:0, after evidential
+   trust's, and its verdicts run here), the counters set
+   to 0 just before and read just after: no finding in any family, each
+   family's finding count and seconds printed, each of the four kernels
+   launched at least once (the durability cells: the pairwise pass in the
+   dense cells, the circulant pass and the candidate select in the
+   circulant ones, the count sketch in Sketchguard's) and no plain call;
+6. output: the pipelined flagship's steady seconds a round beside the
    serialized one's, the gangs' beside their members' summed, the resumed
    runs' equality and snapshot costs, population_1m's steady seconds,
    peak memory and swap times beside its scenario's, dmtt_mobility's
@@ -4147,7 +4161,7 @@ def check_population_against_cpu(rounds: int = 3, device: str = "cuda") -> dict:
 
 # population_1m.yaml under a durability: section for the kill and resume
 # (cut from 50 rounds for the script's time budget).
-POP_RESUME_ROUNDS, POP_RESUME_EVERY = 20, 5
+POP_RESUME_ROUNDS, POP_RESUME_EVERY = 10, 5
 
 
 def _cli_counts(stdout: str) -> dict:
@@ -5626,7 +5640,8 @@ def run_sharded_groups(raw: dict, one: dict) -> dict:
     """Phase 4 (c) ``raw`` (sharded_model.yaml) in a group of 4 on cuda:0
     against ``one`` (the same at tpu.param_shards 1) in one process, 3
     rounds, rounds 2-3 restarted from its state; in the same ranks (e) the
-    gang and (f) UBAR; then (g) evidential trust in a group of 2."""
+    gang and (f) UBAR; then (g) evidential trust in a group of 2, the
+    contract checker's sharded cells in its ranks."""
     from murmura_tpu_torch.config.schema import Config
     from murmura_tpu_torch.parallel.launch import launch
 
@@ -5643,14 +5658,36 @@ def run_sharded_groups(raw: dict, one: dict) -> dict:
     out["sharded:world4"] = w4
     out["sharded:gang"] = report_sharded_gang([t["gang"] for t in w4["tasks"]], seeds)
     out["sharded:ubar"] = report_probe_rule("ubar", [t["ubar"] for t in w4.pop("tasks")])
-    # (g) evidential trust in a group of 2.
+    # (g) evidential trust in a group of 2, then in the same ranks the
+    # contract checker's sharded cells (phase 5 reads their records).
     t0 = time.perf_counter()
-    et = launch(_probe_rule_task, (probe_rule_raw("evidential_trust"), PROBE_RULE_ROUNDS,
-                                   "evidential_trust"),
-                world=PROBE_RULE_SHARDS["evidential_trust"], device_type="cuda", one_device=True)
-    out["sharded:evidential_trust"] = report_probe_rule("evidential_trust", et,
-                                                        time.perf_counter() - t0)
+    ranks = launch(_evidential_and_check_task,
+                   (probe_rule_raw("evidential_trust"), PROBE_RULE_ROUNDS),
+                   world=PROBE_RULE_SHARDS["evidential_trust"], device_type="cuda",
+                   one_device=True)
+    check_s = max(r["check"]["seconds"] for r in ranks)
+    out["sharded:evidential_trust"] = report_probe_rule(
+        "evidential_trust", [r["evidential_trust"] for r in ranks],
+        time.perf_counter() - t0 - check_s)
+    out["check:sharded_ranks"] = [r["check"] for r in ranks]
     return out
+
+
+def _evidential_and_check_task(raw: dict, rounds: int) -> dict:
+    """Phase 4 (g), a rank's part (:func:`_probe_rule_task`), then the
+    contract checker's sharded cells in the same group (analysis/sharded.py
+    ``sharded_rank_cases``, the group its ``run_group`` would spawn):
+    phase 5 holds its verdicts to these records."""
+    from murmura_tpu_torch.analysis.sharded import WORLD, group_cases, sharded_rank_cases
+
+    if WORLD != PROBE_RULE_SHARDS["evidential_trust"]:
+        raise AssertionError(f"the checker's group has {WORLD} ranks, (g)'s "
+                             f"{PROBE_RULE_SHARDS['evidential_trust']}")
+    probe = _probe_rule_task(raw, rounds, "evidential_trust")
+    t1 = time.perf_counter()
+    check = sharded_rank_cases(group_cases())
+    return {"evidential_trust": probe,
+            "check": {"results": check, "seconds": time.perf_counter() - t1}}
 
 
 def run_sharded_smoke() -> dict:
@@ -5665,7 +5702,8 @@ def run_sharded_smoke() -> dict:
     round 1); in the same ranks (e) the config as a gang of 3 seeds
     (:func:`_gang_task`) and (f) ubar_attack.yaml at tpu.param_shards 4
     (:func:`_probe_rule_task`).  (g) uci_har_evidential_trust.yaml at
-    tpu.param_shards 2 in a group of 2.  (d) bench_scaling.py's acceptance
+    tpu.param_shards 2 in a group of 2, and in its ranks the contract
+    checker's sharded cells (phase 5's, ``check:sharded_ranks``).  (d) bench_scaling.py's acceptance
     cell at world 8 on cuda:0 against its one-process run, each rank's peak
     device memory beside the one-process peak and the analytic flat
     bytes."""
@@ -6227,6 +6265,81 @@ def run_distributed_smoke(card: str = "cuda") -> dict:
             "differ": differ}
 
 
+KERNEL_NAMES = ("pairwise_sq_distances", "circulant_sq_distances", "candidate_select",
+                "count_sketch")
+CHECK_FAMILIES_OFF = ("--no-durability", "--no-adaptive", "--no-staleness", "--no-pipeline",
+                      "--no-sharded", "--no-compose", "--no-serve", "--no-observe")
+
+
+def run_check_smoke(sharded_ranks: list) -> dict:
+    """Phase 5: the contract checker (murmura_tpu_torch/analysis/) on the
+    card.  The lint and the static contracts through the CLI in a
+    subprocess, started first; meanwhile every family in this process on
+    cuda, the counters set to 0 around it: no finding, every kernel
+    launched, no plain call.  The sharded family reads ``sharded_ranks``,
+    its cells' records from phase 4's group of 2 (one ``{"results",
+    "seconds"}`` a rank), in place of a group of its own."""
+    import threading
+
+    from murmura_tpu_torch.analysis import format_findings, run_check_detailed
+    from murmura_tpu_torch.analysis import sharded as sharded_check
+
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    out_path, err_path = SMOKE_DIR / "check_static.out", SMOKE_DIR / "check_static.err"
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
+        proc = subprocess.Popen([sys.executable, "-m", "murmura_tpu_torch", "check",
+                                 *CHECK_FAMILIES_OFF], cwd=ROOT, stdout=out_f, stderr=err_f)
+    ended: dict = {}
+    waiter = threading.Thread(
+        target=lambda: ended.update(rc=proc.wait(), s=time.perf_counter() - t0), daemon=True)
+    waiter.start()
+    try:
+        timings: dict = {}
+        run_group = sharded_check.run_group
+        sharded_check.run_group = lambda device: [r["results"] for r in sharded_ranks]
+        _counted(reset=True)
+        t1 = time.perf_counter()
+        try:
+            # The lint and the static contracts run in the subprocess.
+            findings, records = run_check_detailed(lint=False, contracts=False, device="cuda",
+                                                   timings=timings)
+        finally:
+            sharded_check.run_group = run_group
+        wall = time.perf_counter() - t1
+        launches, plain = _counted()
+        waiter.join(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stdout, stderr = out_path.read_text(), err_path.read_text()
+    if ended.get("rc") != 0 or stdout.strip() != "murmura check: clean":
+        raise RuntimeError(f"check (the lint and the static contracts) exited "
+                           f"{proc.returncode}:\n{stdout[-4000:]}\n{stderr[-4000:]}")
+    static_s = ended["s"]
+    print(f"[check] the lint and the static contracts, python -m murmura_tpu_torch check "
+          f"{' '.join(CHECK_FAMILIES_OFF)}: clean in {static_s:.1f} s of process wall, beside "
+          "the families below", flush=True)
+    group_s = max(r["seconds"] for r in sharded_ranks)
+    for name, (count, secs) in timings.items():
+        extra = (f" here, its cells {group_s:.1f} s in the ranks of phase 4's group of 2"
+                 if name == "sharded" else "")
+        print(f"[check] {name}: {count} finding(s) in {secs:.1f} s{extra}", flush=True)
+    if findings:
+        raise RuntimeError(f"check on the card: {len(findings)} finding(s)\n"
+                           + format_findings(findings))
+    missing = [k for k in KERNEL_NAMES if not launches.get(k)]
+    if missing or plain:
+        raise RuntimeError(f"check on the card: kernels {missing} never launched, or plain "
+                           f"versions called {plain} times (launches {launches})")
+    composed = sum(r.get("verdict") == "composes" for r in records)
+    print(f"[check] every family clean on the card in {wall:.1f} s ({composed} composed pairs): "
+          f"launches {launches}, plain calls {plain}", flush=True)
+    return {"check:analysis": {"launches": launches, "wall": wall, "static_s": static_s,
+                               "group_s": group_s, "families": timings}}
+
+
 def main() -> int:
     started = time.perf_counter()
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
@@ -6317,9 +6430,11 @@ def main() -> int:
     flagship_daemon = timed("4:serve", run_flagship_daemon_smoke)
     mains["serve:flagship"] = flagship_daemon
     sharded = timed("4:sharded", run_sharded_smoke)
+    check_ranks = sharded.pop("check:sharded_ranks")
     mains.update(sharded)
     distributed = timed("4e:distributed", run_distributed_smoke)
     mains["krum:distributed_uci_har_byzantine"] = distributed
+    mains.update(timed("5:check", run_check_smoke, check_ranks))
     pop, scen, dm = (mains["krum:population_1m"], mains["krum:population_1m_scenario"],
                      mains["fedavg:dmtt_mobility"])
     pop_s, scen_s = float(np.mean(pop["s_per_round"][1:])), float(np.mean(scen["s_per_round"][1:]))

@@ -153,8 +153,8 @@ def make_adaptive_alie_attack(
     def init_attack_state(n: int) -> Dict[str, np.ndarray]:
         return {"atk_z": np.full(n, z0, np.float32), "atk_accept_ema": np.ones(n, np.float32)}
 
-    def apply_adaptive(flat, compromised_mask, generator, state, noise=None):
-        if check_rows("adaptive_alie", flat, num_nodes):
+    def apply_adaptive(flat, compromised_mask, generator, state, noise=None):  # murmura: traced
+        if check_rows("adaptive_alie", flat, num_nodes):  # murmura: ignore[MUR001] check_rows reads flat.shape only
             raise ValueError("adaptive_alie takes the whole network's broadcast, not one node's row")
         if not comp_count:
             return flat
@@ -163,7 +163,7 @@ def make_adaptive_alie_attack(
         malicious = (mu - z_rows * torch.sqrt(var)).to(flat.dtype)
         return torch.where(compromised_mask[:, None] > 0, malicious, flat)
 
-    def update_attack_state(state, accept, observed, compromised_mask):
+    def update_attack_state(state, accept, observed, compromised_mask):  # murmura: traced
         return _walk(state, "atk_z", accept, observed, compromised_mask, eta, accept_target,
                      ema_beta, z_min, cap)
 
@@ -206,8 +206,8 @@ def make_adaptive_ipm_attack(
     def init_attack_state(n: int) -> Dict[str, np.ndarray]:
         return {"atk_eps": np.full(n, eps0, np.float32), "atk_accept_ema": np.ones(n, np.float32)}
 
-    def apply_adaptive(flat, compromised_mask, generator, state, noise=None):
-        if check_rows("adaptive_ipm", flat, num_nodes):
+    def apply_adaptive(flat, compromised_mask, generator, state, noise=None):  # murmura: traced
+        if check_rows("adaptive_ipm", flat, num_nodes):  # murmura: ignore[MUR001] check_rows reads flat.shape only
             raise ValueError("adaptive_ipm takes the whole network's broadcast, not one node's row")
         if not comp_count:
             return flat
@@ -216,7 +216,7 @@ def make_adaptive_ipm_attack(
         malicious = (-eps_rows * mu).to(flat.dtype)
         return torch.where(compromised_mask[:, None] > 0, malicious, flat)
 
-    def update_attack_state(state, accept, observed, compromised_mask):
+    def update_attack_state(state, accept, observed, compromised_mask):  # murmura: traced
         return _walk(state, "atk_eps", accept, observed, compromised_mask, eta, accept_target,
                      ema_beta, eps_min, cap)
 
@@ -272,13 +272,13 @@ def make_bisection_attack(
             "atk_accept_ema": np.ones(n, np.float32),
         }
 
-    def apply_adaptive(flat, compromised_mask, generator, state, noise=None):
+    def apply_adaptive(flat, compromised_mask, generator, state, noise=None):  # murmura: traced
         base = inner.apply(flat, compromised_mask, generator, noise=noise)
         scale = state["atk_scale"].to(torch.float32)[:, None]
         f32 = flat.to(torch.float32)
         return (f32 + scale * (base.to(torch.float32) - f32)).to(flat.dtype)
 
-    def update_attack_state(state, accept, observed, compromised_mask):
+    def update_attack_state(state, accept, observed, compromised_mask):  # murmura: traced
         upd = compromised_mask * observed
         scale, lo, hi = state["atk_scale"], state["atk_lo"], state["atk_hi"]
         ema = _gated(

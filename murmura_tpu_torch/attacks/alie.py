@@ -70,8 +70,8 @@ def make_alie_attack(
     compromised = select_compromised(num_nodes, attack_percentage, seed)
     z_val = resolve_alie_z(num_nodes, int(compromised.sum()), z)
 
-    def apply(flat, compromised_mask, generator=None, noise=None):
-        if check_rows("alie", flat, num_nodes) or not compromised.any():
+    def apply(flat, compromised_mask, generator=None, noise=None):  # murmura: traced
+        if check_rows("alie", flat, num_nodes) or not compromised.any():  # murmura: ignore[MUR001] check_rows reads shapes; compromised is numpy
             return flat
         mu, var = coalition_stats(flat, compromised_mask, estimator)
         malicious = (mu - z_val * torch.sqrt(var)).to(flat.dtype)  # [1, P]

@@ -19,7 +19,7 @@ def make_directed_deviation_attack(
 ) -> Attack:
     compromised = select_compromised(num_nodes, attack_percentage, seed)
 
-    def apply(flat, compromised_mask, generator=None, noise=None):
+    def apply(flat, compromised_mask, generator=None, noise=None):  # murmura: traced
         check_rows("directed_deviation", flat, num_nodes)  # the same product on either view
         lam = torch.tensor(lambda_param, dtype=flat.dtype, device=flat.device)
         return torch.where(compromised_mask[:, None] > 0, lam * flat, flat)

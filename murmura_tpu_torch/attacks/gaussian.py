@@ -30,13 +30,13 @@ def make_gaussian_attack(
     compromised = select_compromised(num_nodes, attack_percentage, seed)
     comp_idx = np.flatnonzero(compromised)
 
-    def apply(
+    def apply(  # murmura: traced
         flat: torch.Tensor,
         compromised_mask: torch.Tensor,
         generator: Optional[torch.Generator] = None,
         noise: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        if check_rows("gaussian", flat, num_nodes):
+        if check_rows("gaussian", flat, num_nodes):  # murmura: ignore[MUR001] check_rows reads flat.shape only
             if noise is None:
                 noise = torch.randn(flat.shape, generator=generator, device=flat.device,
                                     dtype=torch.float32)

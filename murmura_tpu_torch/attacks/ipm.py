@@ -41,8 +41,8 @@ def make_ipm_attack(
     compromised = select_compromised(num_nodes, attack_percentage, seed)
     eps = resolve_ipm_epsilon(epsilon)
 
-    def apply(flat, compromised_mask, generator=None, noise=None):
-        if check_rows("ipm", flat, num_nodes) or not compromised.any():
+    def apply(flat, compromised_mask, generator=None, noise=None):  # murmura: traced
+        if check_rows("ipm", flat, num_nodes) or not compromised.any():  # murmura: ignore[MUR001] check_rows reads shapes; compromised is numpy
             return flat
         malicious = (-eps * honest_mean(flat, compromised_mask)).to(flat.dtype)  # [1, P]
         return torch.where(compromised_mask[:, None] > 0, malicious, flat)

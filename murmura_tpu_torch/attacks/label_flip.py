@@ -51,7 +51,7 @@ def make_label_flip(
     _check_fraction(flip_fraction)
     compromised = select_compromised(num_nodes, attack_percentage, seed)
 
-    def apply(flat, compromised_mask, generator=None, noise=None):
+    def apply(flat, compromised_mask, generator=None, noise=None):  # murmura: traced
         return flat
 
     def data_poison_fn(y, sample_mask, num_classes):

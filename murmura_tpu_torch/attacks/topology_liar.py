@@ -41,7 +41,7 @@ def make_topology_liar_attack(
             "num_nodes/attack_percentage/seed"
         )
 
-    def apply(flat, compromised_mask, generator=None, noise=None):
+    def apply(flat, compromised_mask, generator=None, noise=None):  # murmura: traced
         """The wrapped inner attack's broadcast; pure liars broadcast their
         honest states."""
         if model_attack is None:

@@ -22,6 +22,8 @@
     python -m murmura_tpu_torch list-components [CATEGORY]
     python -m murmura_tpu_torch run-node <yaml> --node-id I --t-start T --run-id ID
         [--host HOST] [--resume|--no-resume] [--device cuda|cpu]
+    python -m murmura_tpu_torch check [PATHS] [--device cuda|cpu] [--json]
+        [--contracts|--no-contracts] [--durability|--no-durability] ...
 
 The run goes to the CUDA card by default.  Without CUDA it stops with an
 error unless ``--device cpu`` asks for the CPU; it never drops to the CPU
@@ -85,6 +87,17 @@ roots; ``report --latest`` the newest of those run dirs, and ``--trace``
 writes a run's spans as Chrome trace JSON instead of tables.
 ``list-components`` prints what the port runs, a row a category (one
 category when named), from its own registries.
+
+``check`` runs the contract checker (analysis/): the lint over PATHS (the
+package by default), the static contracts, and for the package check the
+executable families (``--durability``, ``--adaptive``, ``--staleness``,
+``--pipeline``, ``--sharded``, ``--compose``, ``--serve``, ``--observe``,
+each with its ``--no-`` twin), which build and run tiny networks on the
+card (``--device cpu``: on the CPU).  It prints ``path:line: RULE [name]
+message`` a finding (``--json``: JSON lines) and exits 1 on any finding,
+else prints ``murmura check: clean``.  The JAX package's ``--ir``,
+``--flow``, ``--memory``, ``--update-budgets`` and ``--update-memory``
+read jaxprs or XLA's analyses and are refused by name (exit 2).
 
 Durability (the JAX package's flags, over the config's ``durability:``
 block; an explicit flag wins): ``--checkpoint-dir`` snapshots the whole run
@@ -782,6 +795,58 @@ def _report_command(args) -> None:
     report(run_dir, args.as_json)
 
 
+# The JAX package's check flags that read jaxprs, HLO or XLA's AOT analyses.
+JAX_ONLY_CHECK_FLAGS = {
+    "ir": "--ir: the jaxpr/HLO IR contracts and AOT cost budgets (murmura_tpu/analysis/ir.py "
+          "and budgets.py, MUR200-206) read jaxprs, HLO and XLA's cost analysis",
+    "flow": "--flow: the dataflow contracts (murmura_tpu/analysis/flow.py, MUR800-804) run a "
+            "taint interpreter over jaxprs",
+    "memory": "--memory: the memory contracts (murmura_tpu/analysis/memory.py, MUR1500-1503) "
+              "read XLA's memory_analysis()",
+    "update_budgets": "--update-budgets: rewrites murmura_tpu/analysis/BUDGETS.json from "
+                      "XLA's AOT cost analysis",
+    "update_memory": "--update-memory: rewrites murmura_tpu/analysis/MEMORY.json from XLA's "
+                     "memory_analysis()",
+}
+
+
+# The JAX package's argument names for the --serve and --observe flags.
+CHECK_DESTS = {"serve": "serve_checks", "observe": "observe_checks"}
+
+
+def check(args) -> None:
+    """The ``check`` command: exit 1 on any finding."""
+    from murmura_tpu_torch.analysis import (
+        FAMILIES,
+        format_findings,
+        format_findings_json,
+        run_check_detailed,
+    )
+
+    for flag, why in JAX_ONLY_CHECK_FLAGS.items():
+        if getattr(args, flag):
+            raise UsageError(f"the PyTorch port does not run check {why}; torch has no "
+                             "counterpart (run it with python -m murmura_tpu check)")
+    families = {name: getattr(args, CHECK_DESTS.get(name, name)) for name, _, _ in FAMILIES}
+    paths = list(args.paths) or None
+    if any(on if on is not None else not paths for on in families.values()):
+        resolve_device(args.device)
+    findings, records = run_check_detailed(paths, contracts=args.contracts,
+                                           device=args.device, **families)
+    if args.as_json:
+        out = format_findings_json(findings, records)
+        if out:
+            print(out)
+    elif findings:
+        print(format_findings(findings))
+        print(f"{len(findings)} finding(s) (rule catalogue: murmura_tpu_torch/analysis/"
+              "__init__.py; suppress a line with # murmura: ignore[RULE])")
+    else:
+        print("murmura check: clean")
+    if findings:
+        raise SystemExit(1)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     parser = argparse.ArgumentParser(prog="python -m murmura_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -898,7 +963,39 @@ def main(argv: Optional[List[str]] = None) -> None:
     p_list.add_argument("component_type", nargs="?", default=None,
                         help="one category (topologies, aggregators, attacks, backends, "
                              "models, datasets)")
+    p_check = sub.add_parser("check", help="Lint and contract-check the port (exit 1 on any "
+                                           "finding)")
+    p_check.add_argument("paths", type=Path, nargs="*",
+                         help="files or directories to lint (default: the package; the "
+                              "executable families then default to off)")
+    p_check.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                         help="where the executable families run: cuda (default) or cpu")
+    p_check.add_argument("--contracts", dest="contracts", action="store_true", default=True,
+                         help="run the static contracts (default)")
+    p_check.add_argument("--no-contracts", dest="contracts", action="store_false")
+    for name in ("durability", "adaptive", "staleness", "pipeline", "sharded", "compose",
+                 "serve", "observe"):
+        dest = CHECK_DESTS.get(name, name)
+        p_check.add_argument(f"--{name}", dest=dest, action="store_true", default=None,
+                             help=f"run the {name} family (default: on for the package "
+                                  "check, off for explicit PATHS)")
+        p_check.add_argument(f"--no-{name}", dest=dest, action="store_false")
+    p_check.add_argument("--json", dest="as_json", action="store_true",
+                         help="findings (and the composition grid's rows) as JSON lines")
+    for flag in ("ir", "flow", "memory", "update-budgets", "update-memory"):
+        p_check.add_argument(f"--{flag}", action="store_true", help="refused: JAX only")
     args = parser.parse_args(argv)
+
+    if args.command == "check":
+        try:
+            check(args)
+        except UsageError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            raise SystemExit(2)
+        except RuntimeError as e:
+            print(str(e), file=sys.stderr)
+            raise SystemExit(1)
+        return
 
     if args.command in ("report", "metrics", "runs", "top", "submit", "list-components"):
         try:

@@ -73,10 +73,13 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from murmura_tpu_torch.core.network import (
+from murmura_tpu_torch.analysis.sanitizers import (
     RecompileError,
+    note_program_build,
+    transfer_sanitizer,
+)
+from murmura_tpu_torch.core.network import (
     _host_rows,
-    _sync_errors,
     check_exchange_layout,
     check_snapshot_shards,
     empty_history,
@@ -86,6 +89,7 @@ from murmura_tpu_torch.core.network import (
 )
 from murmura_tpu_torch.core.rounds import (
     EVAL_DATA_KEYS,
+    STAGE_TRAIN,
     TRAIN_DATA_KEYS,
     RoundProgram,
     round_generators,
@@ -281,7 +285,7 @@ def build_gang_step(lanes: Dict[str, Any], compromised: torch.Tensor, knobs: dic
         gens = [round_generators(seed, round_idx, prog0.device) for seed in seeds]
         train_mask = torch.cat([prog.training_mask(compromised, alive)[own]
                                 for prog in programs])
-        with record_function("murmura.train"):
+        with record_function(STAGE_TRAIN):
             trained = prog0.train_rows(
                 flats.reshape(s_count * rows, p).clone(), train_mask, float(round_idx),
                 [g["train"] for g in gens], data=lanes["data"], step_lr=knobs["step_lr"],
@@ -330,6 +334,7 @@ def build_gang_multi_round(step, lanes: Dict[str, Any], chunk: int, eval_every: 
     eval runs once over all S*N rows of ``lanes``' data (over a param
     group, each rank's S*R_r, the metrics gathered).  Nothing here
     synchronises with the host."""
+    note_program_build()
 
     def multi_round(flats, agg_states, adj_stack, round0, alive_stack=None):
         rows = []
@@ -713,7 +718,7 @@ class GangNetwork:
                 self._static_adj, list(range(round0, round0 + k)),
                 degrees=bool(self.telemetry), mobility=self.mobility)
             self._in_degree.update(in_deg)
-            guard = (_sync_errors() if self.transfer_guard and not warmup
+            guard = (transfer_sanitizer() if self.transfer_guard and not warmup
                      and self.device.type == "cuda" else contextlib.nullcontext())
             with guard:
                 self.flats, self.agg_states, rows = self._fused[key](

@@ -31,11 +31,12 @@ The two runtime guards of the ``tpu:`` section keep their names:
   under ``transfer_guard("disallow")``).  On the CPU there is nothing to
   synchronise and the guard does nothing.
 - ``recompile_guard``: eager torch compiles no program a round.  Its two
-  analogues of a recompile raise :class:`RecompileError`: a new
-  ``build_multi_round`` entry for a key that has already run, and an
-  ``nvcc`` build (ops/_build.py) that starts during a chunk that is not
-  the first of its key.  A shorter last chunk is a new key, whose first
-  chunk may build, as the JAX package's ``chunk_warmup`` allows.
+  analogues of a recompile (analysis/sanitizers.py) raise
+  :class:`RecompileError`: a new ``build_multi_round`` entry for a key
+  that has already run, and an ``nvcc`` build (ops/_build.py) that starts
+  during a chunk that is not the first of its key.  A shorter last chunk
+  is a new key, whose first chunk may build, as the JAX package's
+  ``chunk_warmup`` allows.
 """
 
 import contextlib
@@ -46,6 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from murmura_tpu_torch.analysis.sanitizers import RecompileError, transfer_sanitizer
 from murmura_tpu_torch.attacks.base import Attack
 from murmura_tpu_torch.core.rounds import RoundProgram, build_multi_round
 from murmura_tpu_torch.faults.schedule import FaultSchedule
@@ -54,22 +56,6 @@ from murmura_tpu_torch.parallel.mesh import barrier, gather_columns, gather_rows
 from murmura_tpu_torch.topology.base import Topology
 from murmura_tpu_torch.topology.sparse import SparseTopology
 from murmura_tpu_torch.utils.checkpoint import committed_bytes
-
-
-class RecompileError(RuntimeError):
-    """tpu.recompile_guard: a program was rebuilt, or a kernel compiled,
-    after its key's first chunk."""
-
-
-@contextlib.contextmanager
-def _sync_errors():
-    """Raise on any call that synchronises the card with the host."""
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
 
 
 def effective_adjacency(topology, mobility, fault_schedule, round_idx: int) -> np.ndarray:
@@ -424,7 +410,7 @@ class Network:
             self._profile_window_start(round0, span=k)
             t0 = time.perf_counter()
             adj_stack, alive_stack = self._stage(list(range(round0, round0 + k)))
-            guard = (_sync_errors() if self.transfer_guard and not warmup
+            guard = (transfer_sanitizer() if self.transfer_guard and not warmup
                      and self.device.type == "cuda" else contextlib.nullcontext())
             with guard:
                 self.flat, self.agg_state, rows = self._fused[key](

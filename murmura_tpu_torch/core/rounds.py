@@ -118,6 +118,7 @@ from torch.profiler import record_function
 
 from murmura_tpu_torch.aggregation.base import AggContext, AggregatorDef
 from murmura_tpu_torch.aggregation.probe import combined_probe_metric, pairwise_probe_eval
+from murmura_tpu_torch.analysis.sanitizers import note_program_build
 from murmura_tpu_torch.attacks.adaptive import AdaptiveAttack, acceptance_feedback
 from murmura_tpu_torch.attacks.base import Attack
 from murmura_tpu_torch.core.pipeline import (
@@ -172,6 +173,19 @@ from murmura_tpu_torch.parallel.mesh import (
 
 # Eval samples per chunk (the JAX package's default eval_chunk).
 EVAL_CHUNK = 1024
+
+# The round's record_function stage labels, and the order a serialized
+# round opens them in (a pipelined round opens its aggregate and pipeline
+# stages first); analysis/composition.py holds composed programs to it.
+STAGE_TRAIN = "murmura.train"
+STAGE_EXCHANGE = "murmura.exchange"
+STAGE_COMPRESS = "murmura.compress"
+STAGE_STALE = "murmura.stale"
+STAGE_AGGREGATE = "murmura.aggregate"
+STAGE_PIPELINE = "murmura.pipeline"
+STAGE_EVAL = "murmura.eval"
+STAGE_ORDER = (STAGE_TRAIN, STAGE_EXCHANGE, STAGE_COMPRESS, STAGE_STALE, STAGE_AGGREGATE,
+               STAGE_PIPELINE, STAGE_EVAL)
 
 # The per-node data a round trains on and evaluates on: what a gang stacks
 # over its members (core/gang.py).
@@ -575,7 +589,7 @@ def build_round_program(
             for w in model.dropout_widths
         ]
 
-    def local_training(flat, dd, train_mask, generators, u_draws, mask_draws, lambda_t,
+    def local_training(flat, dd, train_mask, generators, u_draws, mask_draws, lambda_t,  # murmura: traced
                        step_lr):
         """local_epochs x masked-batch SGD over the rows of ``flat`` (a
         member's N, or a gang's S*N, with the matching rows of the data
@@ -688,7 +702,7 @@ def build_round_program(
             train_mask = train_mask * alive
         return train_mask
 
-    def produce_exchange(flat, agg_state, adj, compromised, alive, round_idx, generators,
+    def produce_exchange(flat, agg_state, adj, compromised, alive, round_idx, generators,  # murmura: traced
                          draws, trained=None, data=None, scale=None):
         """Steps 1-2d of the round, the production of its exchange: local
         training, the sentinels, the attack, the codec and the stale fold,
@@ -720,7 +734,7 @@ def build_round_program(
         if trained is not None:
             own_flat = trained
         else:
-            with record_function("murmura.train"):
+            with record_function(STAGE_TRAIN):
                 own_flat = train_rows(flat.clone(), train_mask[own_rows], round_idx,
                                       [generators.get("train")], data=data, draws=draws)
         if group is not None and trained is None:
@@ -731,7 +745,7 @@ def build_round_program(
             if pre_flat is not None:
                 pre_flat = rows_to_columns(pre_flat, group)
         fault_stats = {}
-        if inject_rows is not None and round_idx >= faults.nan_inject_from_round:
+        if inject_rows is not None and round_idx >= faults.nan_inject_from_round:  # murmura: ignore[MUR001] round_idx: host float
             own_flat = torch.where(
                 inject_rows[:, None], torch.full_like(own_flat, float("nan")), own_flat
             )
@@ -754,8 +768,8 @@ def build_round_program(
         if attack is not None:
             noise = draws.get("noise")
             if noise is not None:
-                noise = torch.as_tensor(np.asarray(noise)).to(device)
-            with record_function("murmura.exchange"):
+                noise = torch.as_tensor(np.asarray(noise)).to(device)  # murmura: ignore[MUR003] draws: host arrays
+            with record_function(STAGE_EXCHANGE):
                 if adaptive:
                     # Last round's state (the feedback after the rule wrote
                     # it) sets this round's strength a compromised row.
@@ -788,7 +802,7 @@ def build_round_program(
             bcast = own_flat
         compress_stats = {}
         if compression is not None:
-            with record_function("murmura.compress"):
+            with record_function(STAGE_COMPRESS):
                 bcast, _, updates, compress_stats = compress_exchange(
                     compression, bcast, agg_state, quantized_payload
                 )
@@ -807,7 +821,7 @@ def build_round_program(
             recv_ok = alive
             if finite is not None:
                 recv_ok = recv_ok * finite.to(torch.float32)
-            with record_function("murmura.stale"):
+            with record_function(STAGE_STALE):
                 bcast, adj, updates, stale_stats = stale_fold(
                     bcast, adj, {k: agg_state[k] for k in STALE_STATE_KEYS}, recv_ok,
                     scrub_ok,
@@ -839,7 +853,7 @@ def build_round_program(
     def dmtt_exchange(bcast, adj, compromised, agg_state, rule_ctx):
         """Step 2e: (the exchange mask, agg_state with the new trust state,
         the context with the shared cross-evaluation, the dmtt stats)."""
-        with record_function("murmura.exchange"):
+        with record_function(STAGE_EXCHANGE):
             claims = claims_fn(adj, compromised) if claims_fn is not None else adj
             cross = pairwise_probe_eval(bcast, rule_ctx, combined_probe_metric(evidential))
             exchange, dmtt_state, dmtt_stats = dmtt_round_update(
@@ -848,7 +862,7 @@ def build_round_program(
         return exchange, {**agg_state, **dmtt_state}, replace(rule_ctx, probe_cross=cross), \
             dmtt_stats
 
-    def round_body(flat, agg_state, adj, compromised, alive, round_idx, generators, draws,
+    def round_body(flat, agg_state, adj, compromised, alive, round_idx, generators, draws,  # murmura: traced
                    trained, data, scale):
         """One serialized round: produce the exchange, the DMTT gate,
         aggregate, an adaptive attack's feedback, then the fault guards."""
@@ -861,7 +875,7 @@ def build_round_program(
             adj, agg_state, rule_ctx, dmtt_stats = dmtt_exchange(
                 prod["bcast"], adj, compromised, agg_state, rule_ctx)
         rule_state = {k: v for k, v in agg_state.items() if k not in reserved}
-        with record_function("murmura.aggregate"):
+        with record_function(STAGE_AGGREGATE):
             new_flat, rule_state, agg_stats = agg.aggregate(
                 own_flat, prod["bcast"], adj, round_idx, rule_state, rule_ctx
             )
@@ -892,7 +906,7 @@ def build_round_program(
                 prod["fault_stats"]["tap_alive"] = alive
         return new_flat, agg_state, stats_metrics(agg_stats, prod, dmtt_stats, attack_stats)
 
-    def round_body_pipelined(flat, agg_state, adj, compromised, alive, round_idx, generators,
+    def round_body_pipelined(flat, agg_state, adj, compromised, alive, round_idx, generators,  # murmura: traced
                              draws, trained, data, scale):
         """One pipelined round (core/pipeline.py): stage A aggregates the
         buffered round r-1 exchange, stage B produces round r's, stage C
@@ -912,7 +926,7 @@ def build_round_program(
             # Stored node-leading [N, k]; the rules take [k, N].
             buf_adj = buf_adj.T
         rule_state = {k: v for k, v in agg_state.items() if k not in pipe_reserved}
-        with record_function("murmura.aggregate"):
+        with record_function(STAGE_AGGREGATE):
             # The buffer belongs to round r-1; round 0's is the invalid
             # placeholder, whose output and state are discarded below.
             agg_out, rule_state_new, agg_stats = agg.aggregate(
@@ -935,7 +949,7 @@ def build_round_program(
                                 generators, draws, trained, data, scale)
         own_flat, agg_state = prod["own_flat"], prod["agg_state"]
         # ---- stage C: combine and swap the buffer ----
-        with record_function("murmura.pipeline"):
+        with record_function(STAGE_PIPELINE):
             new_flat = own_flat + disp.to(own_flat.dtype)
             if alive is not None:
                 # Dead and quarantined rows: own_flat already equals the
@@ -967,7 +981,7 @@ def build_round_program(
         if faults is None and alive is not None:
             raise ValueError("an alive mask was given to a round program built without faults")
 
-    def train_step(
+    def train_step(  # murmura: traced
         flat: torch.Tensor,
         agg_state: Dict[str, torch.Tensor],
         adj: torch.Tensor,
@@ -1028,7 +1042,7 @@ def build_round_program(
     apply_nodes = vmap(model.apply)
 
     @torch.no_grad()
-    @record_function("murmura.eval")
+    @record_function(STAGE_EVAL)
     def eval_step(flat: torch.Tensor, data=None, members: int = 1) -> Dict[str, torch.Tensor]:
         """Per-row eval metrics of ``flat``'s rows against the matching rows
         of ``data``'s eval arrays (default: this program's).  Under a group
@@ -1162,6 +1176,7 @@ def build_multi_round(program: RoundProgram, chunk: int, eval_every: int) -> Cal
     per round on the ``eval_every`` cadence, the eval and ``agg_*`` metrics
     left on the device.  Nothing here synchronises with the host.
     """
+    note_program_build()
 
     def multi_round(flat, agg_state, seed, adj_stack, compromised, round0, alive_stack=None):
         rows = []

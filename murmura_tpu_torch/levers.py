@@ -1,13 +1,32 @@
-# Copy of the refusal_reason part of murmura_tpu/levers.py, as a static table.
-"""Refusal messages of the lever composition grid.
+# Copy of the refusal_reason and lever-name parts of
+# murmura_tpu/levers.py, as static tables.
+"""The lever composition grid: the levers, their refusal messages, the
+carried-state group each lever owns.
 
 The JAX package assembles these from the ``LEVER_MANIFEST`` of each lever
-module, which imports JAX.  The configuration schema only needs the
-messages, so the port keeps them as a table keyed by the same
-``(a, b, constraint)`` triple the schema's guard sites cite.
+module, which imports JAX.  The port keeps them as tables: the refusals
+keyed by the same ``(a, b, constraint)`` triple the schema's guard sites
+cite.  Every pair of :data:`LEVERS` that no outright refusal names composes
+(a constrained pair composes outside its tagged sub-configuration);
+analysis/composition.py holds the table against the guard sites, a census
+that arms each refusal, and a grid that runs each compatible pair.
 """
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
+
+LEVERS: Tuple[str, ...] = (
+    "adaptive", "compression", "dmtt", "faults", "mobility", "pipeline", "population",
+    "sharding", "sparse", "staleness", "sweep",
+)
+
+# The reserved *_STATE_KEYS group (durability/snapshot.py) each lever rides.
+LEVER_STATE_GROUPS: Dict[str, str] = {
+    "adaptive": "ATTACK_STATE_KEYS",
+    "compression": "COMPRESS_STATE_KEYS",
+    "dmtt": "DMTT_STATE_KEYS",
+    "pipeline": "PIPELINE_STATE_KEYS",
+    "staleness": "STALE_STATE_KEYS",
+}
 
 _REFUSALS: Dict[Tuple[str, str, Optional[str]], str] = {
     ("adaptive", "dmtt", None): "adaptive attacks do not compose with dmtt (the claims channel is a second feedback path the adaptation state does not model)",
@@ -37,3 +56,16 @@ def refusal_reason(a: str, b: str, constraint: Optional[str] = None) -> str:
     """The refusal message for the unordered lever pair ``{a, b}``."""
     earlier, later = sorted((a, b))
     return _REFUSALS[(earlier, later, constraint)]
+
+
+def declared_refusals() -> List[Tuple[str, str, Optional[str]]]:
+    """Every declared refusal as (earlier, later, constraint|None), sorted."""
+    return sorted(_REFUSALS, key=lambda k: (k[1], k[0], k[2] or ""))
+
+
+def compatible_pairs() -> List[Tuple[str, str]]:
+    """Every unordered lever pair (earlier, later) that no outright refusal
+    names, sorted as the JAX package sorts them (by the later lever)."""
+    refused = {(a, b) for a, b, tag in _REFUSALS if tag is None}
+    return sorted(((a, b) for i, b in enumerate(LEVERS) for a in LEVERS[:i]
+                   if (a, b) not in refused), key=lambda p: (p[1], p[0]))

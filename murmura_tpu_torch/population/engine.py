@@ -42,7 +42,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from murmura_tpu_torch.core.network import Network, RecompileError, _host_rows, _sync_errors
+from murmura_tpu_torch.analysis.sanitizers import RecompileError, transfer_sanitizer
+from murmura_tpu_torch.core.network import Network, _host_rows
 from murmura_tpu_torch.core.rounds import round_generators
 from murmura_tpu_torch.ops import _build
 from murmura_tpu_torch.population.bank import PopulationBank
@@ -197,7 +198,7 @@ class PopulationNetwork(Network):
             warmup = "step" not in self._warmed
             builds = len(_build.STARTED)
             adj, alive = self._stage([round_idx])
-            guard = (_sync_errors if self.transfer_guard and not warmup and cuda
+            guard = (transfer_sanitizer if self.transfer_guard and not warmup and cuda
                      else contextlib.nullcontext)
             with guard():
                 self.flat, self.agg_state, metrics = self.program.train_step(

@@ -10,7 +10,8 @@ kernels: the CLI runs launch them (a pipelined Krum round too, from its
 warm-up round on; a sparse Krum run twice a round; a gang once a member;
 a population run twice a round; an adaptive Krum round, card against CPU,
 in both exchanges; a gang's stage reset; a serve bucket's warm admission
-and a one-bucket grid), and ``tpu.transfer_guard`` raises on a
+and a one-bucket grid; the contract checker's Krum dense durability cell,
+analysis/durability.py), and ``tpu.transfer_guard`` raises on a
 synchronising call forced inside a fused chunk and not across a
 population run's swaps.  The population engine's swap on the card (pinned
 prefetch buffers, the teleport composition, the write-back) and the DMTT
@@ -1222,3 +1223,15 @@ def test_local_node_on_the_card_equals_the_cpu(dev, rule, params, kernels):
     for k in ("selected_index", "selected_own", "acceptance_rate"):
         if k in st_p:
             assert st_c[k] == st_p[k], k
+
+
+def test_durability_cell_on_the_card(dev):
+    """The check's Krum dense durability cell on the card: save, restore and
+    replay bit-equal to the uninterrupted run, no build on restore, the
+    pairwise kernel launched and its plain version never called."""
+    from murmura_tpu_torch.analysis import durability as D
+
+    K.reset_counts()
+    assert D.resume_cell_findings("krum", "dense", "cuda") == []
+    assert K.LAUNCHES["pairwise_sq_distances"] > 0
+    assert K.PLAIN_CALLS["pairwise_sq_distances"] == 0

@@ -23,8 +23,12 @@ and it never moves to the CPU unless asked to.
   manifest and daemon-free telemetry readers (telemetry/metrics.py,
   spans.py, registry.py, report.render_grid) run too, and one round of the
   ZMQ backend's LocalNode (distributed/local.py: train, Krum on its mini
-  network, eval), loads no ``jax`` and no ``murmura_tpu.*`` module (counted
-  against what the interpreter had loaded at start).
+  network, eval), and ``check --device cpu`` through the CLI (every family
+  module of murmura_tpu_torch/analysis/ imported; the lint, the static
+  contracts and the serving and observability families run, the other
+  families in test_torch_analysis_families.py), loads no ``jax`` and no
+  ``murmura_tpu.*`` module (counted against what the interpreter had loaded
+  at start).
 - Every module of the port imports where ``zmq`` cannot be imported.
 - An AST scan of the port and of chip_smoke.py finds no such import.
 - Without CUDA, ``python -m murmura_tpu_torch run`` without ``--device
@@ -227,6 +231,16 @@ own = node.get_flat_state()
 node.aggregate_with_neighbors({1: own + 0.1, 2: own - 0.1}, 0)
 assert np.isfinite(node.get_flat_state()).all() and node.evaluate()["loss"] > 0
 assert "selected_index" in node.get_aggregator_statistics()
+import contextlib, importlib, io
+from murmura_tpu_torch import cli
+from murmura_tpu_torch.analysis import FAMILIES
+for _, module, _ in FAMILIES:
+    importlib.import_module("murmura_tpu_torch.analysis." + module)
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    cli.main(["check", "--device", "cpu", "--no-durability", "--no-adaptive", "--no-staleness",
+              "--no-pipeline", "--no-sharded", "--no-compose"])
+assert out.getvalue().strip() == "murmura check: clean", out.getvalue()
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "murmura_tpu"})
 print("LOADED", bad)

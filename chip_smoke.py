@@ -49,7 +49,12 @@ Phases, each of which raises (and exits non-zero) on failure:
    count-sketch blocks summed against the full-width plain version within
    the kernel's limit (summed over the blocks), the candidate select's
    blocks bit-equal to the full-width call's columns, one block call of
-   each timed;
+   each timed; and the node axis's calls at the flagship's node block
+   (``check_node_block_kernels``: receivers [8, 16) of a node axis of 2,
+   a window of 12 rows): the pairwise kernel on the block's [8, 16] rows,
+   the circulant kernel's offset-0 pieces on the window, and the candidate
+   select's window entry, each against its plain version and the block's
+   rows of the whole network's call, timed;
 3b. one round on the card against the same round on the CPU (same initial
    parameters, same injected draws), for each of two seeds, for Krum,
    median, trimmed mean, geometric median, BALANCE, Sketchguard, fedavg and
@@ -249,7 +254,17 @@ Phases, each of which raises (and exits non-zero) on failure:
    in a group of 8 on cuda:0 against its one-process run, each rank's
    peak device memory printed beside the one-process peak and the
    analytic flat bytes.  Several ranks on one card check the collective
-   code; their round times are no speed of sharding.  Then (4e,
+   code; their round times are no speed of sharding.  Before the sharding,
+   ``check_row_count`` (ROADMAP Queue C 2): the flagship's local step on 16
+   rows against 8, op by op and gradient by gradient, bit for bit, and the
+   16 rows trained 8 a launch bit-equal to the 8 alone.  In (g)'s ranks, as
+   a node group, the node axis (``_node_axis_task``): the flagship at full
+   width over a node axis of 2, Krum allgather and ppermute, the median
+   under ppermute and Sketchguard allgather, 2 rounds each, against the
+   same run in one process training 8 rows a launch (decisions equal,
+   parameters within a scaled 1e-4), and the rule alone from the same
+   trained rows (a scaled 1e-4), each rank's launches, peak memory and
+   rows received a round printed.  Then (4e,
    ``run_distributed_smoke``) uci_har_byzantine.yaml under ``backend:
    distributed`` (2 rounds) through ``python -m murmura_tpu_torch run``: the
    monitor and 10 node processes on this card; no node
@@ -474,6 +489,7 @@ def check_kernels(results: dict) -> None:
     check_circulant_beyond_cap(results)
     check_circulant_exponential(results)
     check_column_blocks(results)
+    check_node_block_kernels(results)
 
 
 def check_codec() -> dict:
@@ -648,6 +664,114 @@ def _distance_cases(results, own, bcast, offsets, in_round, tag=""):
                      lambda a, b: K.circulant_sq_distances_plain(a, b, deltas),
                      None, bytes_1 + len(deltas) * n * 4,
                      3.0 * len(deltas) * n * p, **kw)
+
+
+def check_node_block_kernels(results: dict) -> None:
+    """Phase 3, the node axis's kernel calls at the flagship's node block
+    (16 nodes over a node axis of 2: receivers [8, 16) of rank 1; the
+    k-regular(4) offsets -2 .. +2 make a window of 12 rows): the pairwise
+    kernel on the block's [8, 16] rows of (bcast, bcast) and on (own block,
+    bcast), both centred on the whole network's mean; the circulant pieces
+    of the block (one offset-0 launch an offset on the window) and Krum's
+    delta pieces on the window; the candidate select window entry (median
+    and trim 1 in float32, trim 1 in bfloat16).  Each against its plain
+    version as phase 3's cases are, and the window calls also against the
+    block's rows of the whole network's call.  Not in a one-process round
+    (``in_round`` False): the node-axis runs of phase 4 (g) make them."""
+    import torch
+
+    from murmura_tpu_torch.models.registry import build_model
+    from murmura_tpu_torch.ops import agg_kernels as K
+    from murmura_tpu_torch.ops import candidate_kernels as C
+    from murmura_tpu_torch.ops.flatten import model_dimension
+    from murmura_tpu_torch.parallel.mesh import window_frame
+
+    dev = torch.device("cuda")
+    model = build_model("leaf.femnist.baseline", {})
+    p = model_dimension(model.init(torch.Generator(device=dev).manual_seed(0), dev))
+    n, lo, hi = 16, 8, 16
+    offsets = [1, 2, 14, 15]
+    own, bcast = krum_inputs(n, p, 4321)
+    signed, low, high = window_frame(n, offsets)
+    idx = torch.tensor([g % n for g in range(lo + low, hi + high)], device=dev)
+    window = bcast[idx].contiguous()
+    pos = [signed[o] - low for o in offsets]
+    r, w = hi - lo, window.shape[0]
+    mine = own[lo:hi].contiguous()
+    tag = f" node block [{lo}, {hi}) of {n}, window {w} rows"
+    print(f"[kernels] node block: P={p}, receivers [{lo}, {hi}), window rows "
+          f"{idx.tolist()}, positions {pos}", flush=True)
+    center = bcast.mean(dim=0)
+    _check_distances(results, "pairwise_sq_distances", f"(bcast block, bcast){tag}",
+                     (bcast[lo:hi].contiguous(), bcast, center), *_pairwise_fns(),
+                     *_pairwise_work(r, n, p, False), in_round=False)
+    _check_distances(results, "pairwise_sq_distances", f"(own block, bcast){tag}",
+                     (mine, bcast, own.mean(dim=0)), *_pairwise_fns(),
+                     *_pairwise_work(r, n, p, False), in_round=False)
+
+    def window_plain(a, win, positions):
+        return torch.stack([K.circulant_sq_distances_plain(a, win[q:q + a.shape[0]], [0])[0]
+                            for q in positions])
+
+    whole = K.circulant_sq_distances(own, bcast, offsets)[:, lo:hi]
+    got = K.circulant_window_sq_distances(mine, window, pos)
+    block_err = float((got - whole).abs().max())
+    block_ok = bool(((got - whole).abs() <= 1e-5 * torch.clamp(whole.abs(), min=1.0)).all())
+    print(f"[kernels] circulant_sq_distances pieces{tag}: against the block's columns of the "
+          f"whole network's call, max |d2 - whole| = {block_err:.6g} (limit 1e-5 max(1, "
+          f"|whole|)): {'ok' if block_ok else 'FAILED'}", flush=True)
+    if not block_ok:
+        raise AssertionError("the circulant pieces on a window disagree with the whole call")
+    del got, whole
+    _check_distances(results, "circulant_sq_distances", f"(own block, window, {pos}){tag}",
+                     (mine, window),
+                     lambda a, b: K.circulant_window_sq_distances(a, b, pos),
+                     lambda a, b: window_plain(a, b, pos), None,
+                     (r + w) * p * 4 + len(pos) * r * 4, 3.0 * len(pos) * r * p,
+                     in_round=False)
+    deltas = sorted({abs(b - a) for a in pos for b in pos if a != b})
+    for d in deltas[:1] + deltas[-1:]:
+        _check_distances(results, "circulant_sq_distances", f"(window, window, delta {d}){tag}",
+                         (window[:w - d], window),
+                         lambda a, b, d=d: K.circulant_window_sq_distances(a, b, [d]),
+                         lambda a, b, d=d: window_plain(a, b, [d]), None,
+                         w * p * 4 + (w - d) * 4, 3.0 * (w - d) * p, in_round=False)
+    m = len(offsets) + 1
+    for dtype, median, trim in ((torch.float32, True, 0), (torch.float32, False, 1),
+                                (torch.bfloat16, False, 1)):
+        o, b = mine.to(dtype), window.to(dtype)
+        label = (f"window entry ({str(dtype).replace('torch.', '')}, "
+                 f"{'median' if median else f'trim {trim}'}, m {m}){tag}")
+        got = C.candidate_select_window(o, b, pos, trim=trim, median=median)
+        again = C.candidate_select_window(o, b, pos, trim=trim, median=median)
+        ref = C.candidate_select_window_plain(o, b, pos, trim=trim, median=median)
+        whole = C.candidate_select(own.to(dtype), bcast.to(dtype), offsets, trim=trim,
+                                   median=median)[lo:hi]
+        torch.cuda.synchronize()
+        max_err = float((got.float() - ref.float()).abs().max())
+        ok = (torch.equal(got, ref) and torch.equal(got, again) and torch.equal(got, whole)
+              and bool(torch.isfinite(got).all()))
+        print(f"[kernels] candidate_select {label}: max |out - plain| = {max_err:.6g}, limit "
+              f"bit-equal to the plain version, to a repeat call and to the block's rows of "
+              f"the whole network's call: {'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            raise AssertionError(f"candidate_select {label} disagrees")
+        del got, again, ref, whole
+        item = o.element_size()
+        library = stack = None
+        if median:
+            stack = torch.stack([o] + [b[q:q + r] for q in pos])
+
+            def library():
+                return torch.median(stack, dim=0)
+        _record(results, "candidate_select", label, max_err,
+                lambda: C.candidate_select_window(o, b, pos, trim=trim, median=median),
+                lambda: C.candidate_select_window_plain(o, b, pos, trim=trim, median=median),
+                library, (2 * r + w) * p * item, (m * (m - 1) / 2 + m) * r * p,
+                in_round=False, profile=True)
+        del o, b, library, stack
+    del own, bcast, window, mine
+    torch.cuda.empty_cache()
 
 
 def check_distances_n64(results: dict) -> None:
@@ -5666,10 +5790,12 @@ def run_sharded_groups(raw: dict, one: dict) -> dict:
                    world=PROBE_RULE_SHARDS["evidential_trust"], device_type="cuda",
                    one_device=True)
     check_s = max(r["check"]["seconds"] for r in ranks)
+    node_s = max(r["node_axis_s"] for r in ranks)
     out["sharded:evidential_trust"] = report_probe_rule(
         "evidential_trust", [r["evidential_trust"] for r in ranks],
-        time.perf_counter() - t0 - check_s)
+        time.perf_counter() - t0 - check_s - node_s)
     out["check:sharded_ranks"] = [r["check"] for r in ranks]
+    out.update(report_node_axis([r["node_axis"] for r in ranks], node_s))
     return out
 
 
@@ -5686,8 +5812,363 @@ def _evidential_and_check_task(raw: dict, rounds: int) -> dict:
     probe = _probe_rule_task(raw, rounds, "evidential_trust")
     t1 = time.perf_counter()
     check = sharded_rank_cases(group_cases())
+    t2 = time.perf_counter()
+    nodes = _node_axis_task(NODE_AXIS_ROUNDS)
     return {"evidential_trust": probe,
-            "check": {"results": check, "seconds": time.perf_counter() - t1}}
+            "check": {"results": check, "seconds": t2 - t1},
+            "node_axis": nodes, "node_axis_s": time.perf_counter() - t2}
+
+
+# Phase 4 (g)'s node axis: the flagship at full width over a node axis of 2
+# in (g)'s ranks, each case 2 rounds, and its rule once more from the same
+# trained rows on both sides; the decisions each case holds equal.
+NODE_AXIS_ROUNDS = 2
+NODE_AXIS_CASES = (("krum", "allgather"), ("krum", "ppermute"), ("median", "ppermute"),
+                   ("sketchguard", "allgather"))
+NODE_AXIS_DECISIONS = {"krum": ("agg_selected_index",), "median": ("agg_num_candidates",),
+                       "sketchguard": ("agg_acceptance_rate",)}
+
+
+def node_axis_raw(rule: str, exchange: str) -> dict:
+    """The flagship config of one node-axis case: its rule under its
+    exchange, NODE_AXIS_ROUNDS rounds (the node axis comes from the group
+    the rank runs in, not from ``tpu.num_devices``: this card is one)."""
+    import yaml
+
+    raw = yaml.safe_load(FLAGSHIP.read_text())
+    raw["experiment"].update(rounds=NODE_AXIS_ROUNDS, verbose=False)
+    raw["tpu"]["exchange"] = exchange
+    if rule != "krum":
+        raw["aggregation"] = {"algorithm": rule, "params": {}}
+    return raw
+
+
+def _spread_trained(n: int, p: int, device):
+    """[n, p] rows scattered around one common row with distinct spreads
+    (Krum's scores far from a tie), the same bits in every process on this
+    card: the trained rows both sides of the aggregation-alone check take."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(2024)
+    base = 0.05 * torch.randn((1, p), generator=g, device=device)
+    scale = 0.05 * (1.0 + torch.arange(n, device=device, dtype=torch.float32) / n)
+    return base + scale[:, None] * torch.randn((n, p), generator=g, device=device)
+
+
+@contextlib.contextmanager
+def _row_block(rows):
+    """Round programs built through the factories while the block runs
+    train ``rows`` rows a launch (``build_round_program(train_row_block=)``;
+    None: all at once)."""
+    import functools
+
+    from murmura_tpu_torch.utils import factories
+
+    real = factories.build_round_program
+    if rows is not None:
+        factories.build_round_program = functools.partial(real, train_row_block=rows)
+    try:
+        yield
+    finally:
+        factories.build_round_program = real
+
+
+def _node_axis_task(rounds: int) -> dict:
+    """Phase 4 (g), the node axis, a rank's part, in (g)'s group of 2 on
+    cuda:0 (its ranks act as a node group: the same ``torch.distributed``
+    group, rank 0 receivers [0, 8), rank 1 [8, 16)).  For each case of
+    NODE_AXIS_CASES: rank 0 first runs the flagship in one process (the
+    group turned off) through ``build_network_from_config`` and
+    ``Network.train``, ``rounds`` rounds, training 8 rows a launch as each
+    rank does (``_row_block``: ROADMAP Queue C 2; ``check_row_count``
+    shows why), keeping the parameters and the decisions of every round,
+    and the rule alone from ``_spread_trained`` rows (``train_step(...,
+    trained=)``).  Then both ranks run the same over the node group, the
+    kernel counters
+    set to 0 just before and read just after, the parameters gathered to
+    rank 0 after each round.  Returns this rank's launches, plain calls,
+    peak memory, exchange counts and round times; rank 0's also the
+    distances and the decisions of both sides."""
+    import numpy as np
+    import torch
+
+    from murmura_tpu_torch.config.schema import Config
+    from murmura_tpu_torch.core.rounds import round_generators
+    from murmura_tpu_torch.parallel.mesh import (
+        EXCHANGE_COUNTS,
+        NodeGroup,
+        barrier,
+        gather_rows,
+        process_group,
+        reset_exchange_counts,
+        set_process_group,
+    )
+    from murmura_tpu_torch.utils.factories import build_network_from_config
+
+    pgroup = process_group()
+    nodes = NodeGroup(pgroup.rank, pgroup.world, pgroup.backend, pgroup.device)
+    device = pgroup.device
+    out = {}
+
+    def seam(net, trained):
+        """The rule alone on ``trained`` (whole [N, P]; the rank's rows of
+        it over a group): the new parameters (whole, on rank 0) and its
+        decisions."""
+        prog = net.program
+        adj = torch.from_numpy(net.topology.mask().astype(np.float32)).to(device)
+        comp = torch.from_numpy(net.attack.compromised.astype(np.float32)).to(device)
+        rows = trained if prog.group is None else trained[slice(*prog.group.rows)]
+        new, _, metrics = prog.train_step(rows.clone(), prog.init_agg_state, adj, comp, 0.0,
+                                          generators=round_generators(net.seed, 0, device),
+                                          trained=rows.clone())
+        whole = new if prog.group is None else gather_rows(new, prog.group, dst=0)
+        return whole, {k: v.float().cpu().numpy() for k, v in metrics.items()}
+
+    def run(config, keys, host=False):
+        """``config`` through a Network, ``rounds`` rounds: (the network, each
+        round's decisions, the whole parameters after each round on rank 0:
+        on the host with ``host``, so that a reference held through the node
+        run stays out of the rank's peak)."""
+        net = build_network_from_config(config, device=device)
+        stats, flats = [], []
+        _recording(net.program, keys, stats)
+        for _ in range(rounds):
+            net.train(1)
+            flat = net.flat if net.group is None else gather_rows(net.flat, net.group, dst=0)
+            if flat is not None:
+                flats.append(flat.float().cpu() if host else flat.float())
+        return net, stats, flats
+
+    for rule, exchange in NODE_AXIS_CASES:
+        label = f"{rule}_{exchange}"
+        config = Config.model_validate(node_axis_raw(rule, exchange))
+        keys = NODE_AXIS_DECISIONS[rule]
+        rec = {}
+        if nodes.rank == 0:
+            set_process_group(None)
+            try:
+                with _row_block(config.topology.num_nodes // nodes.world):
+                    net, ref_stats, ref_flats = run(config, keys, host=True)
+                p = net.program.model_dim
+                trained = _spread_trained(net.program.num_nodes, p, device)
+                seam_ref, seam_ref_stats = seam(net, trained)
+                seam_ref = seam_ref.float().cpu()
+                del net
+            finally:
+                set_process_group(pgroup)
+            _free(device)
+        barrier(pgroup)
+        set_process_group(nodes)
+        try:
+            _counted(reset=True)
+            reset_exchange_counts()
+            _peak(device, reset=True)
+            t0 = time.perf_counter()
+            net, stats, flats = run(config, keys)
+            wall = time.perf_counter() - t0
+            rec.update(round_times=list(net.round_times), peak_bytes=_peak(device),
+                       exchange=dict(EXCHANGE_COUNTS), rows=tuple(net.flat.shape),
+                       layout=net.group.describe(), wall=wall)
+            p = net.program.model_dim
+            trained = _spread_trained(net.program.num_nodes, p, device)
+            seam_got, seam_stats = seam(net, trained)
+            launches, plain = _counted()
+            rec.update(launches=launches, plain=plain)
+        finally:
+            set_process_group(pgroup)
+        if nodes.rank == 0:
+            rec.update(
+                dists=[_scaled_on(a, b.numpy()) for a, b in zip(flats, ref_flats)],
+                bit_equal=[bool(torch.equal(a.cpu(), b)) for a, b in zip(flats, ref_flats)],
+                decisions_equal=[all(np.array_equal(a[k], b[k]) for k in keys)
+                                 for a, b in zip(stats[:rounds], ref_stats[:rounds])],
+                decisions=[{k: a[k].tolist() for k in keys} for a in stats[:rounds]],
+                seam_dist=_scaled_on(seam_got.float(), seam_ref.numpy()),
+                seam_decisions_equal=all(np.array_equal(seam_stats[k], seam_ref_stats[k])
+                                         for k in keys))
+            del ref_flats, seam_ref
+        del net, flats, seam_got
+        _free(device)
+        out[label] = rec
+    return out
+
+
+def check_row_count(device: str = "cuda") -> dict:
+    """ROADMAP Queue C 2 on the card: which op of the local step rounds
+    differently by the number of rows it trains at once.  The flagship's
+    CNN (bfloat16 compute, its initial parameters and one batch of 32 of
+    each of its 16 nodes): each forward op vmapped over all 16 rows and
+    over rows [8, 16) alone (the node block of rank 1 at a node axis of 2),
+    each fed the 16-row output of the op before, rows [8, 16) held against
+    each other bit for bit; the per-node gradients of every leaf the same
+    way; and the whole local step (``train_rows``, one shuffle draw cut to
+    the block) on 16 rows against 8.  Returns the findings."""
+    import torch
+    from torch.func import grad, vmap
+
+    from murmura_tpu_torch.config.schema import Config
+    from murmura_tpu_torch.core.rounds import TRAIN_DATA_KEYS
+    from murmura_tpu_torch.models.core import conv2d, dense, max_pool
+    from murmura_tpu_torch.ops.flatten import tree_leaves, tree_map
+    from murmura_tpu_torch.ops.losses import masked_cross_entropy
+    from murmura_tpu_torch.utils.factories import build_network_from_config
+
+    raw = node_axis_raw("krum", "allgather")
+    net = build_network_from_config(Config.model_validate(raw), device=device)
+    prog = net.program
+    n = prog.num_nodes
+    lo, hi = n // 2, n
+    cd = torch.bfloat16 if raw["tpu"].get("compute_dtype") == "bfloat16" else None
+    d = prog.data
+    b = int(raw["training"]["batch_size"])
+    x, y = d["x"][:, :b], d["y"][:, :b]
+    mask = torch.ones((n, b), device=x.device)
+    params = prog.unravel(prog.init_flat)
+    block = tree_map(lambda t: t[lo:hi], params)
+
+    def prep(p, a):
+        return (a[..., None] if a.dim() == 3 else a).permute(0, 3, 1, 2)
+
+    ops = [("nhwc->nchw", prep),
+           ("conv1 5x5x32 (bf16)", lambda p, a: conv2d(p["convs"][0], a, cd)),
+           ("relu, pool", lambda p, a: max_pool(torch.relu(a))),
+           ("conv2 5x5x64 (bf16)", lambda p, a: conv2d(p["convs"][1], a, cd)),
+           ("relu, pool", lambda p, a: max_pool(torch.relu(a))),
+           ("flatten", lambda p, a: a.permute(0, 2, 3, 1).reshape(a.shape[0], -1)),
+           ("fc1 3136x2048 (bf16)", lambda p, a: torch.relu(dense(p["fcs"][0], a, cd))),
+           ("fc2 2048x62 (bf16)", lambda p, a: dense(p["fcs"][1], a, cd))]
+
+    def forward(p, a):
+        for _, op in ops:
+            a = op(p, a)
+        return a
+
+    def node_loss(p, xb, yb, mb):
+        return masked_cross_entropy(forward(p, xb), yb, mb)[0]
+
+    def diff(full, part):
+        return float((full[lo:hi].double() - part.double()).abs().max())
+
+    found = {"ops": [], "grads": []}
+    a = x
+    with torch.no_grad():
+        for name, op in ops:
+            full = vmap(op)(params, a)
+            part = vmap(op)(block, a[lo:hi])
+            found["ops"].append((name, bool(torch.equal(full[lo:hi], part)), diff(full, part)))
+            a = full
+    gf = vmap(grad(node_loss))(params, x, y, mask)
+    gb = vmap(grad(node_loss))(block, x[lo:hi], y[lo:hi], mask[lo:hi])
+    names = [f"convs[{i}].{k}" for i in range(2) for k in ("w", "b")] + \
+        [f"fcs[{i}].{k}" for i in range(2) for k in ("w", "b")]
+    for name, f_, b_ in zip(names, tree_leaves(gf), tree_leaves(gb)):
+        found["grads"].append((name, bool(torch.equal(f_[lo:hi], b_)), diff(f_, b_)))
+    g = torch.Generator(device=x.device).manual_seed(3)
+    u = torch.rand(tuple(d["mask"].shape), generator=g, device=x.device)
+    ones = torch.ones(n, device=x.device)
+    whole = prog.train_rows(prog.init_flat.clone(), ones, 0, [None], draws={"u": [u]})
+    part = prog.train_rows(prog.init_flat[lo:hi].clone(), ones[lo:hi], 0, [None],
+                           data={k: d[k][lo:hi] for k in TRAIN_DATA_KEYS},
+                           draws={"u": [u[lo:hi]]})
+    found["trained_scaled"] = _scaled_on(part, whole[lo:hi].float().cpu().numpy())
+    found["trained_equal"] = bool(torch.equal(part, whole[lo:hi]))
+    del whole
+    # A gang's member over a param group: its R_r rows in an [S * R_r]
+    # stack of S = 3 members (here three copies of the block).
+    stack = {k: torch.cat([d[k][lo:hi]] * 3) for k in TRAIN_DATA_KEYS}
+    ones3 = torch.ones(3 * (hi - lo), device=x.device)
+    stacked = prog.train_rows(prog.init_flat[lo:hi].repeat(3, 1), ones3, 0, [None],
+                              data=stack, draws={"u": [u[lo:hi].repeat(3, 1)]})
+    found["stack_scaled"] = _scaled_on(stacked[hi - lo:2 * (hi - lo)],
+                                       part.float().cpu().numpy())
+    with _row_block(hi - lo):
+        blocked = build_network_from_config(Config.model_validate(raw), device=device)
+    by_block = blocked.program.train_rows(prog.init_flat.clone(), ones, 0, [None],
+                                          draws={"u": [u]})
+    found["blocked_equal"] = bool(torch.equal(part, by_block[lo:hi]))
+    by_block = blocked.program.train_rows(prog.init_flat[lo:hi].repeat(3, 1), ones3, 0,
+                                          [None], data=stack,
+                                          draws={"u": [u[lo:hi].repeat(3, 1)]})
+    found["stack_blocked_equal"] = bool(torch.equal(part, by_block[hi - lo:2 * (hi - lo)]))
+    del blocked, by_block, stacked, stack
+    first = next((k for k, eq, _ in found["ops"] + [(f"the gradient of {k}", eq, dd)
+                                                      for k, eq, dd in found["grads"]]
+                  if not eq), None)
+    print(f"[row_count] the flagship's local step on 16 rows against rows [8, 16) alone "
+          f"({card_line()}): forward ops equal on the block "
+          + ", ".join(f"{k} {'==' if eq else f'!= ({dd:.3g})'}" for k, eq, dd in found["ops"])
+          + "; per-node gradients " + ", ".join(f"{k} {'==' if eq else f'!= ({dd:.3g})'}"
+                                                for k, eq, dd in found["grads"])
+          + f"; the first op that differs: {first}; one local step's trained rows scaled "
+          f"{found['trained_scaled']:.3g} (bit-equal {found['trained_equal']}); the block as "
+          f"the second member of a stack of 3 ({3 * (hi - lo)} rows) scaled "
+          f"{found['stack_scaled']:.3g}; trained {hi - lo} rows a launch (train_row_block), "
+          f"the 16 rows' block bit-equal to the block alone: {found['blocked_equal']}, the "
+          f"stack's member: {found['stack_blocked_equal']}", flush=True)
+    found["first"] = first
+    if not (found["blocked_equal"] and found["stack_blocked_equal"]):
+        raise AssertionError("training at a fixed row count is not bit-equal to the block")
+    del net, prog, params, block, gf, gb, part
+    _free(device)
+    return found
+
+
+def report_node_axis(ranks: list, wall: float) -> dict:
+    """Phase 4 (g)'s node-axis gates and lines.  For each case: the
+    decisions equal the one-process run's every round; the parameters after
+    each round within a scaled 1e-4 of the one-process run that trains 8
+    rows a launch as a rank does (bit-equality printed); the rule alone
+    from the same trained rows within a scaled 1e-4, its decisions equal;
+    every kernel of the case launched on both ranks, no plain call.  (A
+    one-process run that trains all 16 rows at once is not the reference:
+    a convolution's bias gradient sums in another order at another row
+    count, ``check_row_count``.)  Returns each case's launches summed over
+    the ranks, for the kernels line."""
+    card = card_line()
+    expect = {"krum_allgather": ("pairwise_sq_distances",),
+              "krum_ppermute": ("circulant_sq_distances",),
+              "median_ppermute": ("candidate_select",),
+              "sketchguard_allgather": ("count_sketch", "pairwise_sq_distances")}
+    out, failed = {}, []
+    for label, names in expect.items():
+        recs = [r[label] for r in ranks]
+        rec = recs[0]
+        launched = all(r["launches"].get(k, 0) > 0 for r in recs for k in names)
+        plain = sum(r["plain"] for r in recs)
+        within = all(d <= 1e-4 for d in rec["dists"])
+        ok = (all(rec["decisions_equal"]) and rec["seam_decisions_equal"]
+              and rec["seam_dist"] <= 1e-4 and within and launched and plain == 0)
+        per_round = [r["exchange"]["rows"] // NODE_AXIS_ROUNDS for r in recs]
+        others = [r["exchange"]["bytes"] / NODE_AXIS_ROUNDS / 1e6 for r in recs]
+        print(f"[node_axis:{label}] the flagship at full width over a node axis of 2 on "
+              f"cuda:0 ({card}; gloo, staged through host memory), {NODE_AXIS_ROUNDS} rounds "
+              f"against one process: decisions equal by round {rec['decisions_equal']}; "
+              f"parameters scaled {[float(f'{x:.3g}') for x in rec['dists']]} (gate 1e-4, "
+              f"bit-equal {rec['bit_equal']}) from one process training 8 rows a launch; "
+              f"the rule alone "
+              f"from the same trained rows: scaled {rec['seam_dist']:.3g} (gate 1e-4), "
+              f"decisions equal {rec['seam_decisions_equal']}; launches by rank "
+              f"{[{k: v for k, v in r['launches'].items() if v} for r in recs]}, plain "
+              f"calls {plain}; rows received a round by rank {per_round} ({others[0]:.1f} MB "
+              f"a round from the other rank); peak by rank "
+              f"{[round(r['peak_bytes'] / 1e9, 3) for r in recs]} GB; s a round on rank 0 "
+              f"{[round(t, 4) for t in rec['round_times']]} (2 ranks share one card through "
+              f"host memory: a check of the collective code, not a speed of the node axis): "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            failed.append(label)
+        out[f"node:{label}"] = {
+            "launches": {k: sum(r["launches"].get(k, 0) for r in recs)
+                         for k in recs[0]["launches"]},
+            "dists": rec["dists"], "bit_equal": rec["bit_equal"],
+            "seam_dist": rec["seam_dist"], "round_times": rec["round_times"],
+            "peaks": [r["peak_bytes"] for r in recs], "rows_a_round": per_round,
+            "mb_from_others_a_round": others}
+    print(f"[node_axis] layout: {ranks[0][NODE_AXIS_CASES[1][0] + '_' + NODE_AXIS_CASES[1][1]]['layout']}; "
+          f"the node-axis cases took {wall:.1f} s in the ranks", flush=True)
+    if failed:
+        raise AssertionError(f"the node axis disagrees with one process: {failed}")
+    return out
 
 
 def run_sharded_smoke() -> dict:
@@ -6429,6 +6910,7 @@ def main() -> int:
     daemon = timed("4:serve", run_serve_daemon_smoke)
     flagship_daemon = timed("4:serve", run_flagship_daemon_smoke)
     mains["serve:flagship"] = flagship_daemon
+    timed("4:row_count", check_row_count)
     sharded = timed("4:sharded", run_sharded_smoke)
     check_ranks = sharded.pop("check:sharded_ranks")
     mains.update(sharded)

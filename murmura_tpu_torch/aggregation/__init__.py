@@ -1,6 +1,7 @@
 """Aggregation rules (the PyTorch counterpart of
 murmura_tpu/aggregation/__init__.py): all nine of the JAX package's."""
 
+from dataclasses import replace
 from typing import Any, Dict
 
 from murmura_tpu_torch.aggregation.balance import make_balance
@@ -34,7 +35,8 @@ def build_aggregator(name: str, params: Dict[str, Any], model_dim: int = 0) -> A
     alias of ``num_compromised``; Sketchguard gets ``model_dim`` for its
     tables; ``total_rounds`` reaches the schedule rules through
     ``AggContext`` (core/rounds.py), so a ``total_rounds`` param is
-    dropped."""
+    dropped.  A rule built with ``exchange_offsets`` carries them
+    (``AggregatorDef.exchange_offsets``), for a node group's exchange."""
     algo = name.lower()
     if algo not in AGGREGATORS:
         raise ValueError(f"Unknown aggregation algorithm: {name}")
@@ -52,7 +54,9 @@ def build_aggregator(name: str, params: Dict[str, Any], model_dim: int = 0) -> A
         params.setdefault("num_compromised", f)
     if algo == "sketchguard":
         params.setdefault("model_dim", model_dim)
-    return AGGREGATORS[algo](**params)
+    agg = AGGREGATORS[algo](**params)
+    offsets = params.get("exchange_offsets")
+    return replace(agg, exchange_offsets=tuple(int(o) for o in offsets)) if offsets else agg
 
 
 __all__ = [

@@ -8,6 +8,8 @@ own when nothing was accepted.  Dense distances come from the pairwise
 kernel, circulant ones (``tpu.exchange: ppermute``) from the circulant
 kernel; under the sparse exchange the [k, N] edge mask excludes inactive
 edges from acceptance, the closest-neighbour fallback and the degree.
+Under a node scope (parallel/mesh.py) it serves its block's receivers:
+[R, N] distance and adjacency rows, or the window's [k, R].
 """
 
 from typing import Optional, Sequence
@@ -22,11 +24,13 @@ from murmura_tpu_torch.aggregation.base import (
     circulant_in_degree,
     circulant_masked_mean,
     circulant_neighbor_distances,
+    circulant_sender_sum,
     exchange_offsets_of,
     masked_neighbor_mean,
     pairwise_l2_distances,
     row_norms,
 )
+from murmura_tpu_torch.parallel.mesh import active_node_group, sender_total_
 
 
 def accept_with_closest_fallback(
@@ -34,7 +38,8 @@ def accept_with_closest_fallback(
 ) -> torch.Tensor:
     """[N, N] float mask of accepted neighbors: within ``threshold`` of the
     node, plus the closest neighbor where fewer than ``min_neighbors``
-    passed (``dist`` [N, N] own-to-broadcast, diagonal ignored)."""
+    passed (``dist`` [N, N] own-to-broadcast, diagonal ignored; a node
+    block's [R, N] rows of each under a node scope)."""
     n = adj.shape[0]
     adj_b = adj.to(torch.bool)
     accepted = adj_b & (dist <= threshold[:, None])
@@ -95,12 +100,12 @@ def make_balance(
             accepted_count = accept_k.sum(dim=0)
             if ctx.audit:
                 # accept_k[o_idx, i]: receiver i accepted sender (i + o) % n.
-                tap_selected_by = sum(
-                    torch.roll(accept_k[i].to(torch.float32), o) for i, o in enumerate(offsets)
-                )
+                group = active_node_group()
+                tap_selected_by = circulant_sender_sum(accept_k, offsets)
                 tap_considered_by = (
                     circulant_in_degree(adj, offsets) if sparse_exchange
-                    else torch.full((n,), float(len(offsets)), device=own.device))
+                    else torch.full((n if group is None else group.num_nodes,),
+                                    float(len(offsets)), device=own.device))
         else:
             dist = pairwise_l2_distances(own, bcast)
             accepted = accept_with_closest_fallback(dist, adj, threshold, min_neighbors)
@@ -109,8 +114,8 @@ def make_balance(
             degree = torch.clamp(adj.sum(dim=1), min=1.0)
             if ctx.audit:
                 # Sender-side taps: column sums of the acceptance mask.
-                tap_selected_by = accepted.to(torch.float32).sum(dim=0)
-                tap_considered_by = adj.to(torch.float32).sum(dim=0)
+                tap_selected_by = sender_total_(accepted.to(torch.float32).sum(dim=0))
+                tap_considered_by = sender_total_(adj.to(torch.float32).sum(dim=0))
 
         new_flat = blend_with_own(own, neighbor_avg, accepted_count > 0, alpha)
         stats = {"acceptance_rate": accepted_count / degree, "threshold": threshold}

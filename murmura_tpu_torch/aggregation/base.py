@@ -20,6 +20,17 @@ sum their partials over the group before the square root, the probe
 forwards (:func:`self_probe_metrics`, aggregation/probe.py) turn the
 rank's own rows back whole and gather their metrics, and everything else
 a rule does is column-local or works on those replicated results.
+
+Under a node group's scope (``node_block_scope``, parallel/mesh.py) a rule
+runs for its rank's block of R receivers: ``own`` is the block's [R, P]
+rows; ``bcast`` the whole [N, P] (the dense exchange's all_gather) or, on
+a circulant path, the block's window of [R + high - low, P] sender rows;
+``adj`` the adjacency's [R, N] rows, or the [k, R] columns of a sparse
+edge mask.  The helpers below take those operands as they come (each
+docstring says how) and return the block's rows; the per-node stats a rule
+returns are the block's, which the round gathers, and a sender-side count
+is summed over the group (:func:`sender_total_`).  Off both scopes every
+hook is the identity.
 """
 
 from dataclasses import dataclass, field
@@ -30,10 +41,13 @@ from torch.func import vmap
 
 from murmura_tpu_torch.ops import agg_kernels
 from murmura_tpu_torch.parallel.mesh import (
+    active_node_group,
     active_param_group,
+    all_reduce_sum_,
     columns_to_rows,
     gather_rows,
     reduce_partial_,
+    sender_total_,
 )
 
 Stats = Dict[str, torch.Tensor]
@@ -133,6 +147,10 @@ class AggregatorDef:
     # dtype of ``own``.
     quantized_exchange: bool = False
     influence: Optional[InfluenceDecl] = None
+    # The circulant offsets the rule reads its senders at (ppermute or the
+    # sparse exchange), () on the dense path: a node group's exchange is
+    # the window of these offsets (parallel/mesh.py).
+    exchange_offsets: Tuple[int, ...] = ()
 
 
 def exchange_offsets_of(exchange_offsets, sparse_exchange: bool):
@@ -144,11 +162,74 @@ def exchange_offsets_of(exchange_offsets, sparse_exchange: bool):
     return offsets
 
 
+def circulant_sender_sum(v_k: torch.Tensor, offsets) -> torch.Tensor:
+    """[N] per-sender sums of a [k, N] per-receiver tensor, by rolls:
+    ``v_k[j, i]`` belongs to receiver i's sender (i + offsets[j]) % N, so
+    sender s collects v_k[j, (s - o) % N].  Under a node scope ``v_k`` is
+    the block's [k, R] columns: each is added at its sender, and the [N]
+    partials are summed over the group."""
+    group = active_node_group()
+    if group is None:
+        return sum(torch.roll(v_k[j].to(torch.float32), o) for j, o in enumerate(offsets))
+    n = group.num_nodes
+    lo, hi = group.rows
+    ids = torch.arange(lo, hi, device=v_k.device)
+    out = torch.zeros(n, dtype=torch.float32, device=v_k.device)
+    for j, o in enumerate(offsets):
+        out.index_add_(0, (ids + int(o)) % n, v_k[j].to(torch.float32))
+    return sender_total_(out)
+
+
 def circulant_in_degree(edge_k: torch.Tensor, offsets) -> torch.Tensor:
-    """[N] sender in-degree under a [k, N] edge mask, by rolls: ``edge_k[j,
-    i]`` says receiver i reads sender (i + offsets[j]) % N, so sender s is
-    read by receiver (s - o) % N."""
-    return sum(torch.roll(edge_k[j].to(torch.float32), o) for j, o in enumerate(offsets))
+    """[N] sender in-degree under a [k, N] edge mask (a node block's [k, R]
+    columns under a node scope): ``edge_k[j, i]`` says receiver i reads
+    sender (i + offsets[j]) % N."""
+    return circulant_sender_sum(edge_k, offsets)
+
+
+def self_mask(rows: int, n: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """[rows, N] ones where a receiver meets itself: ``eye(N)`` in one
+    process, the block's rows of it under a node scope."""
+    group = active_node_group()
+    if group is None:
+        return torch.eye(n, dtype=dtype, device=device)
+    lo = group.rows[0]
+    out = torch.zeros((rows, n), dtype=dtype, device=device)
+    ar = torch.arange(rows, device=device)
+    out[ar, lo + ar] = 1
+    return out
+
+
+def receiver_ids(rows: int, device) -> torch.Tensor:
+    """The node ids of a rule's receivers: 0..N-1 in one process, the
+    block's under a node scope."""
+    group = active_node_group()
+    lo = 0 if group is None else group.rows[0]
+    return torch.arange(lo, lo + rows, device=device)
+
+
+def own_broadcast_rows(bcast: torch.Tensor) -> torch.Tensor:
+    """The broadcast rows of a rule's own receivers: ``bcast`` in one
+    process; under a node scope the block's rows of the whole [N, P], or
+    of its window (which always holds them)."""
+    group = active_node_group()
+    if group is None:
+        return bcast
+    if group.windowed:
+        start, stop = group.own_window_rows()
+        return bcast[start:stop]
+    lo, hi = group.rows
+    return bcast[lo:hi]
+
+
+def window_of(whole: torch.Tensor) -> torch.Tensor:
+    """A node block's window rows of a whole [N, ...] tensor (the tensor
+    itself off a node scope)."""
+    group = active_node_group()
+    if group is None or not group.windowed:
+        return whole
+    idx = torch.tensor(group.window_rows(), dtype=torch.int64, device=whole.device)
+    return whole[idx]
 
 
 
@@ -175,11 +256,37 @@ def pairwise_l2_distances(
     partials are summed over the group (the center is column-local);
     ``replicated`` operands (whole on every rank: Sketchguard's sketches)
     are not summed.
+
+    Under a node scope ``a`` is either whole ([N, P], the gathered
+    broadcast) or the block's [R, P] rows, and the center is always the
+    whole network's mean, as in one process: taken locally from a whole
+    ``a``, else the block's float32 column sums summed over the group over
+    N.  A whole ``a`` with no ``b`` gives the whole [N, N]: the kernel runs
+    on the block's [R, N] rows and the blocks are gathered.
     """
     a32 = a.to(torch.float32).contiguous()
     b32 = None if b is None else b.to(torch.float32).contiguous()
+    group = active_node_group()
+    if group is not None:
+        return _block_l2_distances(a32, b32, group)
     d2 = agg_kernels.pairwise_sq_distances(a32, b32, center=a32.mean(dim=0))
     d2 = reduce_partial_(d2, replicated)
+    return torch.sqrt(torch.clamp(d2, min=0.0))
+
+
+def _block_l2_distances(a32, b32, group) -> torch.Tensor:
+    """:func:`pairwise_l2_distances` under a node scope."""
+    n = group.num_nodes
+    if a32.shape[0] == n:
+        center = a32.mean(dim=0)
+    else:
+        center = all_reduce_sum_(a32.sum(dim=0), group) / n
+    if b32 is None and a32.shape[0] == n:
+        lo, hi = group.rows
+        d2 = gather_rows(agg_kernels.pairwise_sq_distances(a32[lo:hi], a32, center=center),
+                         group)
+    else:
+        d2 = agg_kernels.pairwise_sq_distances(a32, b32, center=center)
     return torch.sqrt(torch.clamp(d2, min=0.0))
 
 
@@ -190,13 +297,42 @@ def circulant_neighbor_distances(
     """[k, N] distances D[o, i] = |own_i - bcast[(i + o) mod N]| through the
     circulant kernel (no Gram identity, so no centering is needed); the
     squared partials summed over a param group unless ``replicated``, as
-    in :func:`pairwise_l2_distances`."""
+    in :func:`pairwise_l2_distances`.  Under a node scope ``own`` is the
+    block's [R, P] rows and ``bcast`` its window: [k, R], one offset-0
+    launch an offset on the window's rows (``circulant_window_sq_distances``)."""
+    group = active_node_group()
+    if group is not None:
+        d2 = agg_kernels.circulant_window_sq_distances(
+            own.to(torch.float32).contiguous(), bcast.to(torch.float32).contiguous(),
+            group.positions(offsets))
+        return torch.sqrt(d2)
     d2 = agg_kernels.circulant_sq_distances(
         own.to(torch.float32).contiguous(),
         bcast.to(torch.float32).contiguous(),
         offsets,
     )
     return torch.sqrt(reduce_partial_(d2, replicated))
+
+
+def window_delta_distances(window: torch.Tensor, deltas: Sequence[int]) -> list:
+    """Under a node scope: for each step d, the [W - d] distances
+    |window[w] - window[w + d]| between the window's rows d apart (one
+    offset-0 launch each), the node block's counterpart of the circulant
+    [D, N] of ``circulant_neighbor_distances(bcast, bcast, deltas)``."""
+    w32 = window.to(torch.float32).contiguous()
+    rows = w32.shape[0]
+    return [torch.sqrt(agg_kernels.circulant_window_sq_distances(w32[:rows - d], w32, [d])[0])
+            for d in deltas]
+
+
+def _senders(bc: torch.Tensor, offsets, rows: int):
+    """For each offset in turn, the [rows, c] sender rows of the receivers:
+    rolls of the whole ``bc`` in one process (made one at a time), slices
+    of a node block's window under a node scope."""
+    group = active_node_group()
+    if group is None:
+        return (torch.roll(bc, -int(o), dims=0) for o in offsets)
+    return (bc[q:q + rows] for q in group.positions(offsets))
 
 
 # Per-rolled-copy budget (bytes) of the circulant helpers' P chunks.
@@ -213,17 +349,20 @@ def circulant_weighted_sum(
     bcast: torch.Tensor, w_k: torch.Tensor, offsets, out_dtype=None
 ) -> torch.Tensor:
     """[N, P] sum_o w_k[o, i] * bcast[(i + o) mod N], accumulated at the
-    promoted precision per P chunk and written in ``out_dtype``."""
+    promoted precision per P chunk and written in ``out_dtype``.  Under a
+    node scope ``bcast`` is the block's window and ``w_k`` its [k, R]
+    columns: [R, P], each sender a slice of the window."""
     n, p = bcast.shape
+    rows = w_k.shape[1]
     acc_dtype = torch.promote_types(bcast.dtype, w_k.dtype)
     out_dtype = acc_dtype if out_dtype is None else out_dtype
     chunk = _p_chunk_len(n, p, bcast.element_size())
-    out = torch.empty((n, p), dtype=out_dtype, device=bcast.device)
+    out = torch.empty((rows, p), dtype=out_dtype, device=bcast.device)
     for c0 in range(0, p, chunk):
         bc = bcast[:, c0:c0 + chunk]
-        acc = torch.zeros(bc.shape, dtype=acc_dtype, device=bcast.device)
-        for idx, o in enumerate(offsets):
-            acc = acc + w_k[idx][:, None] * torch.roll(bc, -int(o), dims=0)
+        acc = torch.zeros((rows, bc.shape[1]), dtype=acc_dtype, device=bcast.device)
+        for idx, sender in enumerate(_senders(bc, offsets, rows)):
+            acc = acc + w_k[idx][:, None] * sender
         out[:, c0:c0 + chunk] = acc.to(out_dtype)
     return out
 
@@ -232,7 +371,8 @@ def circulant_masked_mean(
     bcast: torch.Tensor, accept_k: torch.Tensor, offsets, out_dtype=None
 ) -> torch.Tensor:
     """Weighted neighbor mean from per-offset acceptance ``accept_k[k, N]``,
-    written in ``out_dtype`` (default: bcast's)."""
+    written in ``out_dtype`` (default: bcast's); under a node scope over
+    the block's window and ``accept_k``'s [k, R] columns."""
     cnt = accept_k.sum(dim=0)
     w_norm = accept_k / torch.clamp(cnt, min=1e-12)[None, :]
     out_dtype = bcast.dtype if out_dtype is None else out_dtype
@@ -243,8 +383,9 @@ def candidate_chunk_dispatch(own, bcast, chunk_apply, stack_height: int) -> torc
     """Apply the coordinate-wise ``chunk_apply(own_chunk, bcast_chunk) ->
     [N, c]`` over P chunks whose budget is scaled by ``stack_height`` (the
     [N, c] copies the candidate stack holds per chunk); a small N*P runs in
-    one chunk.  The output takes the dtype of the first chunk's result."""
-    n, p = bcast.shape
+    one chunk.  The output takes the dtype of the first chunk's result and
+    ``own``'s rows (a node block's R under a node scope)."""
+    n, p = own.shape[0], bcast.shape[1]
     chunk = _p_chunk_len(n * stack_height, p, bcast.element_size())
     if chunk >= p:
         return chunk_apply(own, bcast)
@@ -261,17 +402,20 @@ def circulant_candidate_map(own, bcast, offsets, fn) -> torch.Tensor:
     """``fn`` over the circulant candidate stack [m, N, c] (own, then
     bcast[(i + o) mod N] for each offset), P-chunked by the stack height m
     so that no [m, N, P] tensor exists at full size.  ``fn`` maps the stack
-    to [N, c] and must be coordinate-wise along the last axis."""
+    to [N, c] and must be coordinate-wise along the last axis.  Under a
+    node scope the stack is [m, R, c]: the block's own rows, then slices
+    of its window."""
 
     def chunk_apply(oc, bc):
-        return fn(torch.stack([oc] + [torch.roll(bc, -int(o), dims=0) for o in offsets]))
+        return fn(torch.stack([oc, *_senders(bc, offsets, oc.shape[0])]))
 
     return candidate_chunk_dispatch(own, bcast, chunk_apply, len(offsets) + 1)
 
 
 def masked_neighbor_mean(bcast: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Weighted neighbor mean per node, (W @ bcast) / row sum, safe on empty
-    rows and returned in bcast's dtype.  The weights are cast to bcast's
+    rows and returned in bcast's dtype (under a node scope ``weights`` are
+    the block's [R, N] rows over the whole ``bcast``: [R, P]).  The weights are cast to bcast's
     dtype first and the row totals are summed (in float32) from the same
     cast weights as the product, so a bf16 numerator is never normalised by
     an unquantised total.  The product accumulates in float32: the operands
@@ -286,20 +430,22 @@ def blend_with_own(
     own: torch.Tensor, neighbor_avg: torch.Tensor, has_neighbors: torch.Tensor, alpha: float
 ) -> torch.Tensor:
     """alpha*own + (1-alpha)*neighbor_avg where any neighbor was accepted,
-    else own (the BALANCE/Sketchguard output form)."""
+    else own (the BALANCE/Sketchguard output form); row-local, so a node
+    block's rows under a node scope."""
     blended = alpha * own + (1.0 - alpha) * neighbor_avg
     return torch.where(has_neighbors[:, None], blended, own)
 
 
 def candidate_indices(adj: torch.Tensor, m_cap: int):
     """Per-node candidate ordering: self first, then neighbors ascending,
-    non-candidates last (a stable sort), truncated at ``m_cap``.
+    non-candidates last (a stable sort), truncated at ``m_cap``.  Under a
+    node scope ``adj`` is the block's [R, N] rows, and the self candidate
+    of row i is node lo + i.
 
     Returns:
         (cand_idx [N, m] int64, valid [N, m] bool).
     """
-    n = adj.shape[0]
-    rank = adj + 2.0 * torch.eye(n, dtype=adj.dtype, device=adj.device)
+    rank = adj + 2.0 * self_mask(adj.shape[0], adj.shape[1], adj.dtype, adj.device)
     cand_idx = torch.argsort(-rank, dim=1, stable=True)[:, :m_cap]
     valid = torch.gather(rank, 1, cand_idx) > 0.0
     return cand_idx, valid

@@ -5,7 +5,10 @@ Dense: one adjacency product over the broadcast, normalised by 1 + degree.
 Circulant (``tpu.exchange: ppermute``): the product is a sum of fixed
 circular shifts (``circulant_weighted_sum``), each weighed by its row of
 the [k, N] edge mask under the sparse exchange.  Neither needs a kernel of
-its own: the JAX package computes both outside Pallas.
+its own: the JAX package computes both outside Pallas.  Under a node scope
+(parallel/mesh.py) the same code serves a block's receivers: the [R, N]
+adjacency rows over the whole broadcast, or the [k, R] weights over its
+window.
 """
 
 from typing import Optional, Sequence

@@ -18,6 +18,12 @@ differences d, and the [m, m, N] pair distances are assembled from [N]
 rolls.  Under the sparse exchange ``adj`` is the [k, N] edge mask: the
 candidate count m_i, the trim depth and the constraint c < (m_i - 2)/2
 become per node, and an all-ones mask gives the static path bit for bit.
+
+Under a node scope (parallel/mesh.py) the rule serves its block's R
+receivers: dense, the [N, N] of (bcast, bcast) is gathered from the ranks'
+[R, N] row blocks and (own, bcast) is the block's [R, N]; circulant, the
+pair distances are the window's rows d apart (``window_delta_distances``)
+at the window positions of the offsets, sliced where one process rolls.
 """
 
 from typing import Optional, Sequence
@@ -32,10 +38,14 @@ from murmura_tpu_torch.aggregation.base import (
     circulant_in_degree,
     circulant_masked_mean,
     circulant_neighbor_distances,
+    circulant_sender_sum,
     exchange_offsets_of,
     pairwise_l2_distances,
+    receiver_ids,
+    window_delta_distances,
 )
 from murmura_tpu_torch.ops.agg_kernels import _offsets_on
+from murmura_tpu_torch.parallel.mesh import active_node_group, sender_total_
 
 
 def make_krum(
@@ -56,11 +66,17 @@ def make_krum(
         ok = c < (m - 2) / 2  # static on a degree-regular graph
 
         own_d = circulant_neighbor_distances(own, bcast, offsets)  # [k, N]
+        group = active_node_group()
+        # Where each offset's sender lies: the offset (rolls of the whole
+        # bcast), or its window row under a node scope (slices).
+        pos = offsets if group is None else group.positions(offsets)
         deltas = sorted(
-            {abs(o2 - o1) for o1 in offsets for o2 in offsets if o1 != o2}
+            {abs(o2 - o1) for o1 in pos for o2 in pos if o1 != o2}
         )
-        if deltas:
+        if deltas and group is None:
             bcast_d = circulant_neighbor_distances(bcast, bcast, deltas)  # [D, N]
+        elif deltas:
+            bcast_d = window_delta_distances(bcast, deltas)  # D of [W - d]
         didx = {d: i for i, d in enumerate(deltas)}
 
         rows = []
@@ -72,9 +88,10 @@ def make_krum(
                 elif a == 0 or b == 0:
                     cols.append(own_d[max(a, b) - 1])
                 else:
-                    o_a, o_b = offsets[a - 1], offsets[b - 1]
+                    o_a, o_b = pos[a - 1], pos[b - 1]
                     v = bcast_d[didx[abs(o_b - o_a)]]
-                    cols.append(torch.roll(v, -min(o_a, o_b)))
+                    lo = min(o_a, o_b)
+                    cols.append(torch.roll(v, -lo) if group is None else v[lo:lo + n])
             rows.append(torch.stack(cols))
         pair = torch.stack(rows)  # [m, m, N]
 
@@ -109,9 +126,10 @@ def make_krum(
         neighbor_sel = circulant_masked_mean(bcast, accept_k, offsets, out_dtype=own.dtype)
         selected_own = w == 0
         new_flat = torch.where(selected_own[:, None], own, neighbor_sel)
+        n_all = n if group is None else group.num_nodes
         stats = {
-            "selected_index": (torch.arange(n, device=own.device)
-                               + _offsets_on(tuple([0] + offsets), own.device)[w]) % n,
+            "selected_index": (receiver_ids(n, own.device)
+                               + _offsets_on(tuple([0] + offsets), own.device)[w]) % n_all,
             "krum_score": best,
             "selected_own": selected_own.to(torch.float32),
         }
@@ -119,23 +137,21 @@ def make_krum(
             # Sender-side taps: accept_k[o_idx, i] says receiver i selected
             # sender (i + o) % n, so selected_by[s] = sum_o accept_k[o_idx,
             # (s - o) % n]; every sender is considered by its k receivers.
-            stats["tap_selected_by"] = sum(
-                torch.roll(accept_k[i].to(torch.float32), o) for i, o in enumerate(offsets)
-            )
+            stats["tap_selected_by"] = circulant_sender_sum(accept_k, offsets)
             stats["tap_considered_by"] = (
                 circulant_in_degree(adj, offsets) if sparse_exchange
-                else torch.full((n,), float(k), device=own.device))
+                else torch.full((n_all,), float(k), device=own.device))
         return new_flat, state, stats
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):
-        n = own.shape[0]
+        n_all = bcast.shape[0]  # the network's N (own's rows: a node block's)
         dev = own.device
-        m_cap = n if mc is None else min(mc, n)
+        m_cap = n_all if mc is None else min(mc, n_all)
         d_bcast = pairwise_l2_distances(bcast)
         d_own = pairwise_l2_distances(own, bcast)  # [i, j] = |own_i - bcast_j|
 
         cand_idx, valid = candidate_indices(adj, m_cap)  # [N, m] each
-        node = torch.arange(n, device=dev)
+        node = receiver_ids(own.shape[0], dev)
         # [N, m, m] candidate-pair distances; entries involving the self
         # candidate use the own-state distance row.
         d = d_bcast[cand_idx[:, :, None], cand_idx[:, None, :]]
@@ -173,9 +189,10 @@ def make_krum(
             # Sender-side taps: how many peers picked node s's broadcast as
             # their winner (self-selections excluded), and how many had it
             # as a candidate (its in-degree under the round's adjacency).
-            picked = (winners[:, None] == node[None, :]) & ~selected_own[:, None]
-            stats["tap_selected_by"] = picked.to(torch.float32).sum(dim=0)
-            stats["tap_considered_by"] = adj.to(torch.float32).sum(dim=0)
+            senders = torch.arange(n_all, device=dev)
+            picked = (winners[:, None] == senders[None, :]) & ~selected_own[:, None]
+            stats["tap_selected_by"] = sender_total_(picked.to(torch.float32).sum(dim=0))
+            stats["tap_considered_by"] = sender_total_(adj.to(torch.float32).sum(dim=0))
         return new_flat, state, stats
 
     return AggregatorDef(

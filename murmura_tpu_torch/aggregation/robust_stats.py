@@ -12,6 +12,12 @@ per node: the median and the trimmed mean then take the masked circulant
 stack in plain tensor code, never the candidate kernel (whose candidate
 count is fixed), as the JAX package does; the geometric median weighs
 each offset's Weiszfeld weight by the mask.
+
+Under a node scope (parallel/mesh.py) each rule serves its block's R
+receivers: dense, over the [R, N] adjacency rows and the whole broadcast
+(the geometric median's distances as the whole broadcast against the
+block's iterate); circulant, over the block's window, the median and the
+trimmed mean through the candidate kernel's window entry.
 """
 
 from typing import Optional, Sequence
@@ -29,9 +35,12 @@ from murmura_tpu_torch.aggregation.base import (
     circulant_weighted_sum,
     exchange_offsets_of,
     pairwise_l2_distances,
+    receiver_ids,
     row_norms,
+    self_mask,
 )
 from murmura_tpu_torch.ops import candidate_kernels
+from murmura_tpu_torch.parallel.mesh import active_node_group
 
 
 def _dense_candidate_map(own, bcast, adj, m_cap, fn):
@@ -41,9 +50,8 @@ def _dense_candidate_map(own, bcast, adj, m_cap, fn):
     Returns:
         ([N, P] result, valid [N, m]).
     """
-    n = bcast.shape[0]
     cand_idx, valid = candidate_indices(adj, m_cap)
-    is_self = cand_idx == torch.arange(n, device=adj.device)[:, None]
+    is_self = cand_idx == receiver_ids(own.shape[0], adj.device)[:, None]
 
     def chunk_apply(oc, bc):
         cand = torch.where(is_self[:, :, None], oc[:, None, :], bc[cand_idx])
@@ -60,7 +68,12 @@ def _sorted_valid(cand, valid):
 
 def _candidate_select(own, bcast, offsets, **kw):
     """The candidate kernel over own and bcast in bcast's dtype (float32
-    under an int8 exchange, where own may be bfloat16), written in own's."""
+    under an int8 exchange, where own may be bfloat16), written in own's;
+    under a node scope its window entry, over the block's window."""
+    group = active_node_group()
+    if group is not None:
+        return candidate_kernels.candidate_select_window(
+            own.to(bcast.dtype), bcast, group.positions(offsets), **kw).to(own.dtype)
     return candidate_kernels.candidate_select(
         own.to(bcast.dtype), bcast, offsets, **kw).to(own.dtype)
 
@@ -100,7 +113,7 @@ def make_coordinate_median(
     offsets = exchange_offsets_of(exchange_offsets, sparse_exchange)
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):
-        n = own.shape[0]
+        n = bcast.shape[0]  # the network's N (own's rows: a node block's)
         m_cap = n if mc is None else min(mc, n)
 
         def coord_median(cand, valid):
@@ -163,7 +176,7 @@ def make_trimmed_mean(
         return torch.floor(beta * cnt).to(cnt.dtype)
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):
-        n = own.shape[0]
+        n = bcast.shape[0]  # the network's N (own's rows: a node block's)
         m_cap = n if mc is None else min(mc, n)
 
         def coord_trimmed(cand, valid):
@@ -256,13 +269,14 @@ def make_geometric_median(
         return row_norms((own - z).to(torch.float32))
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):
-        n = own.shape[0]
+        n = own.shape[0]  # receivers: a node block's R under a node scope
+        n_all = bcast.shape[0]
         dev = own.device
-        m_cap = n if mc is None else min(mc, n)
-        off_diag = 1.0 - torch.eye(n, device=dev)
-        if m_cap < n:
+        m_cap = n_all if mc is None else min(mc, n_all)
+        off_diag = 1.0 - self_mask(n, n_all, torch.float32, dev)
+        if m_cap < n_all:
             ci, cv = candidate_indices(adj, m_cap)  # [N, m] each
-            nb_mask = torch.zeros((n, n), dtype=torch.float32, device=dev)
+            nb_mask = torch.zeros((n, n_all), dtype=torch.float32, device=dev)
             nb_mask[torch.arange(n, device=dev)[:, None], ci] = cv.to(torch.float32)
             nb_mask = nb_mask * off_diag  # self handled apart
         else:

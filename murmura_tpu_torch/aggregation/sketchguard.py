@@ -15,6 +15,12 @@ Under a param group each rank sketches its column block with the tables'
 columns of that block and the [N, S] partials are summed over the group
 (the same sum in another order); the sketch distances then run on whole,
 replicated sketches and are not summed again (``replicated=True``).
+
+Under a node scope (parallel/mesh.py) each rank sketches its own rows and
+its own broadcast rows, and the [R, S] broadcast sketches are gathered into
+the [N, S] the filter compares (the sparse filter reads the window's rows
+of them); the acceptance window stays whole on every rank, each rank's
+new rates gathered into it.
 """
 
 from typing import Optional, Sequence
@@ -32,11 +38,19 @@ from murmura_tpu_torch.aggregation.base import (
     circulant_neighbor_distances,
     exchange_offsets_of,
     masked_neighbor_mean,
+    own_broadcast_rows,
     pairwise_l2_distances,
+    receiver_ids,
+    window_of,
 )
 from murmura_tpu_torch.ops.sketch import build_sketch_tables, count_sketch
 from murmura_tpu_torch.ops.sketch_kernels import SketchTables
-from murmura_tpu_torch.parallel.mesh import active_param_group, reduce_partial_
+from murmura_tpu_torch.parallel.mesh import (
+    active_param_group,
+    node_rows,
+    reduce_partial_,
+    whole_rows,
+)
 
 
 def make_sketchguard(
@@ -81,6 +95,7 @@ def make_sketchguard(
         }
 
     def window_state(state, acc_rate):
+        acc_rate = whole_rows(acc_rate)
         return {
             "acc_window": torch.cat([state["acc_window"][:, 1:], acc_rate[:, None]], dim=1),
             "window_len": torch.clamp(state["window_len"] + 1, max=window),
@@ -93,7 +108,7 @@ def make_sketchguard(
         closest-neighbour fallback and the degree."""
         n = own.shape[0]
         edge_b = adj > 0
-        d_k = circulant_neighbor_distances(own_sk, bcast_sk, offsets,
+        d_k = circulant_neighbor_distances(own_sk, window_of(bcast_sk), offsets,
                                            replicated=True)  # [k, N]
         accept_b = edge_b & (d_k <= threshold[None, :])
         count = accept_b.sum(dim=0)
@@ -119,11 +134,11 @@ def make_sketchguard(
         n = own.shape[0]
         # Two launches, one per tensor: stacking them would copy [2N, P].
         own_sk = sketch(own)
-        bcast_sk = sketch(bcast)
+        bcast_sk = whole_rows(sketch(own_broadcast_rows(bcast)))
         own_sk_norm = torch.sqrt(torch.sum(own_sk * own_sk, dim=-1))
 
-        window_active = (state["window_len"] >= 3) & (window >= 3)
-        recent = state["acc_window"][:, -3:].mean(dim=1)
+        window_active = (node_rows(state["window_len"]) >= 3) & (window >= 3)
+        recent = node_rows(state["acc_window"])[:, -3:].mean(dim=1)
         attack_factor = torch.where(window_active & (recent < 0.3), 1.5, 1.0)
         tf = time_factor(round_idx, ctx.total_rounds, gamma, kappa).to(own.device)
         threshold = tf * attack_factor * own_sk_norm
@@ -135,7 +150,9 @@ def make_sketchguard(
         if offsets is not None:
             # Only the k offset columns of the accepted mask can be nonzero.
             ar = torch.arange(n, device=own.device)
-            cols = (ar[None, :] + torch.tensor(offsets, device=own.device)[:, None]) % n
+            ids = receiver_ids(n, own.device)
+            cols = ((ids[None, :] + torch.tensor(offsets, device=own.device)[:, None])
+                    % bcast_sk.shape[0])
             accept_k = accepted[ar[None, :], cols]  # [k, N]
             neighbor_avg = circulant_masked_mean(bcast, accept_k, offsets)
         else:

@@ -15,6 +15,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from murmura_tpu_torch.parallel.mesh import active_node_group
+
 
 def select_compromised(num_nodes: int, percentage: float, seed: int = 42) -> np.ndarray:
     """Seeded compromised-node selection: ceil-to-1 when percentage > 0,
@@ -65,9 +67,11 @@ def coalition_stats(flat: torch.Tensor, compromised_mask: torch.Tensor, estimato
 def check_rows(name: str, flat: torch.Tensor, num_nodes: int) -> bool:
     """Whether ``flat`` is one node's [1, P] view (the ZMQ backend's node
     process attacks its own outgoing row, distributed/node_process.py, with
-    a ones mask) rather than the whole network's [N, P] broadcast; any
-    other row count is a fault."""
-    if flat.shape[0] == num_nodes:
+    a ones mask) rather than the whole network's [N, P] broadcast (under a
+    node scope, parallel/mesh.py, the rank's [R, P] block of it); any other
+    row count is a fault."""
+    group = active_node_group()
+    if flat.shape[0] == (num_nodes if group is None else group.rows[1] - group.rows[0]):
         return False
     if flat.shape[0] == 1:
         return True

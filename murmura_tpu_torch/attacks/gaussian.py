@@ -8,7 +8,9 @@ instead (the RNG seam the tests use to feed the JAX package's draw).  One
 node's [1, P] view (the ZMQ backend's node process) takes a [1, P] draw
 and is perturbed where its mask is set.
 Under a param group the draw (or the injected noise) is the whole width's,
-cut to the rank's column block, so that it keeps the unsharded run's bits.
+cut to the rank's column block, so that it keeps the unsharded run's bits;
+under a node scope (parallel/mesh.py) the [C, P] draw is taken whole too,
+and only the rows of the rank's compromised nodes are added to its block.
 """
 
 from typing import Optional
@@ -18,7 +20,7 @@ import torch
 
 from murmura_tpu_torch.attacks.base import Attack, check_rows, select_compromised
 from murmura_tpu_torch.ops.agg_kernels import _offsets_on
-from murmura_tpu_torch.parallel.mesh import full_width, local_columns
+from murmura_tpu_torch.parallel.mesh import active_node_group, full_width, local_columns
 
 
 def make_gaussian_attack(
@@ -53,6 +55,15 @@ def make_gaussian_attack(
                 shape, generator=generator, device=flat.device, dtype=torch.float32
             )
         noise = local_columns(noise).to(torch.float32) * noise_std * compromised_mask[idx, None]
+        group = active_node_group()
+        if group is not None:
+            # The block's compromised rows and their rows of the whole draw.
+            lo, hi = group.rows
+            mine = [c for c, i in enumerate(comp_idx) if lo <= i < hi]
+            if not mine:
+                return flat
+            noise = noise[_offsets_on(tuple(mine), flat.device)]
+            idx = _offsets_on(tuple(int(comp_idx[c]) - lo for c in mine), flat.device)
         out = flat.clone()
         out[idx] = (flat[idx].to(torch.float32) + noise).to(flat.dtype)
         return out

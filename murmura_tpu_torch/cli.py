@@ -46,6 +46,15 @@ vector.  The layout is printed on a line of its own.  ``sweep`` and ``run
 over the JAX gang's lane count) and run the whole gang in each rank
 (core/gang.py).
 
+A ``backend: tpu`` config at ``tpu.param_shards: 1`` lays its node axis
+over every planned device, as the JAX package's ``make_mesh`` does (on
+CUDA the visible cards or ``tpu.num_devices`` of them, on the CPU
+``tpu.num_devices``, else 1): above 1, ``run`` starts that many ranks of a
+node group, rank r training and aggregating its block of N / W nodes
+(core/rounds.py, parallel/mesh.py), and prints the layout, each rank's
+block and, under a circulant exchange, the window rows each receives.  A
+node count the axis does not divide is refused in the JAX package's words.
+
 A config with ``backend: distributed`` runs the ZMQ multi-process backend
 (distributed/runner.py): a monitor process and one process per node on this
 machine, wall-clock rounds of ``distributed.round_duration_s`` after a
@@ -123,7 +132,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from murmura_tpu_torch.parallel.mesh import plan_layout, process_group
+from murmura_tpu_torch.parallel.mesh import NodeGroup, plan_layout, process_group
 from murmura_tpu_torch.utils.checkpoint import has_checkpoint
 from murmura_tpu_torch.utils.seed import set_seed
 
@@ -268,6 +277,7 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
     from murmura_tpu_torch.utils.factories import (
         build_network_from_config,
         default_telemetry_dir,
+        node_axis_of,
     )
 
     dev = resolve_device(device)
@@ -294,14 +304,16 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
     enforce_require_tpu(config, dev, require_tpu)
     set_seed(config.experiment.seed)
     group = process_group()
-    if group is None and config.backend == "tpu" and config.tpu.param_shards > 1:
-        world = _print_layout(config, dev)
+    if group is None and config.backend == "tpu" and (
+            config.tpu.param_shards > 1 or node_axis_of(config, dev.type) > 1):
+        world, axis = _print_layout(config, dev)
         if world > 1:
             from murmura_tpu_torch.parallel.launch import launch
 
             args = (config_path, output, device, verbose, profile, checkpoint_dir,
                     checkpoint_every, resume, require_tpu, retries)
-            return launch(_cli_rank, args, world=world, device_type=dev.type)[0], None
+            return launch(_cli_rank, args, world=world, device_type=dev.type,
+                          axis=axis)[0], None
     if config.backend == "distributed":
         return run_distributed(config, output, dev, profile=profile,
                                checkpoint_dir=checkpoint_dir, resume=resume)
@@ -357,17 +369,48 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
     return history, network
 
 
-def _print_layout(config, dev: torch.device, gang: Optional[int] = None) -> int:
+def _print_layout(config, dev: torch.device, gang: Optional[int] = None):
     """Print a param-sharded config's layout line (of a gang of ``gang``
-    lanes when given); returns the group's world, the param axis."""
+    lanes when given); returns the group's world, the param axis.  At
+    ``tpu.param_shards: 1`` (a single run) it prints the node axis's
+    layout and its group's blocks and exchange instead, after the
+    refusals, and returns (world, axis) of the group to start."""
+    from murmura_tpu_torch.utils.factories import refuse_node_axis
+
     layout, n_dev = plan_layout(config.topology.num_nodes, config.tpu.param_shards,
                                 dev.type, config.tpu.num_devices, gang=gang)
+    if gang is None and config.tpu.param_shards == 1:
+        world = layout[1]
+        refuse_node_axis(config, dev.type)
+        print(f"node layout (seed, nodes, param) {layout} over {n_dev} {dev.type} "
+              f"device(s): {world} ranks over {'nccl' if dev.type == 'cuda' else 'gloo'}",
+              flush=True)
+        print(_node_group_line(config, dev, world), flush=True)
+        return world, "nodes"
     world = layout[2]
     how = (f"{world} ranks over {'nccl' if dev.type == 'cuda' else 'gloo'}" if world > 1
            else "one process, unsharded, on the padded flat vector")
+    unused = (f"; the node axis of {layout[1]} goes unused (the port runs one axis at a "
+              "time)" if layout[1] > 1 and world > 1 and gang is None else "")
     print(f"param layout (seed, nodes, param) {layout} over {n_dev} {dev.type} "
-          f"device(s): {how}", flush=True)
-    return world
+          f"device(s): {how}{unused}", flush=True)
+    return world if gang is not None else (world, "param")
+
+
+def _node_group_line(config, dev: torch.device, world: int) -> str:
+    """The node group's blocks and exchange, as rank 0's
+    ``NodeGroup.describe`` will print them."""
+    from murmura_tpu_torch.utils.factories import build_topology
+    from murmura_tpu_torch.topology.sparse import SparseTopology
+
+    topology = build_topology(config)
+    offsets = None
+    if isinstance(topology, SparseTopology) or config.tpu.exchange == "ppermute":
+        offsets = topology.circulant_offsets()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    device = torch.device(dev.type, 0) if dev.type == "cuda" else torch.device("cpu")
+    group = NodeGroup(0, world, backend, device).bind(config.topology.num_nodes, offsets)
+    return group.describe()
 
 
 def run_distributed(config, output: Optional[Path], dev: torch.device, *, profile: bool,

@@ -18,7 +18,10 @@ same Network: ``flat`` is the rank's own node rows and the carried [N, P]
 state its column blocks, eval's metrics come back whole on every rank (so
 each keeps the same history), the snapshot is gathered into the ordinary
 layout and written by rank 0 alone, and only rank 0 has a telemetry
-writer (utils/factories.py).
+writer (utils/factories.py).  Over a node group's round program the same
+holds with ``flat`` the rank's node rows and the carried state whole on
+every rank; its snapshot records the node axis, and a snapshot of another
+node-axis width is refused both ways.
 
 The two runtime guards of the ``tpu:`` section keep their names:
 
@@ -52,7 +55,7 @@ from murmura_tpu_torch.attacks.base import Attack
 from murmura_tpu_torch.core.rounds import RoundProgram, build_multi_round
 from murmura_tpu_torch.faults.schedule import FaultSchedule
 from murmura_tpu_torch.ops import _build
-from murmura_tpu_torch.parallel.mesh import barrier, gather_columns, gather_rows
+from murmura_tpu_torch.parallel.mesh import NodeGroup, barrier, gather_columns, gather_rows
 from murmura_tpu_torch.topology.base import Topology
 from murmura_tpu_torch.topology.sparse import SparseTopology
 from murmura_tpu_torch.utils.checkpoint import committed_bytes
@@ -198,6 +201,18 @@ def check_snapshot_shards(meta: Dict[str, Any], ours: int) -> None:
         )
 
 
+def check_snapshot_node_axis(meta: Dict[str, Any], ours: int) -> None:
+    """Refuse a snapshot written over another node-axis width: each rank
+    restores its own block of the rows, and a run at another width would
+    restore into blocks the snapshot was not written for."""
+    snap = int(meta.get("node_axis", 1))
+    if snap != int(ours):
+        raise ValueError(
+            f"snapshot was written by a run over a node axis of {snap} ranks but this "
+            f"run has a node axis of {int(ours)} — rebuild with the matching "
+            "tpu.num_devices")
+
+
 def empty_history() -> Dict[str, List[Any]]:
     """The history schema (the JAX package's, key for key)."""
     return {
@@ -291,8 +306,8 @@ class Network:
         self.group = program.group
         if self.group is not None and self.group.staged and transfer_guard:
             raise ValueError(
-                "tpu.transfer_guard does not compose with a gloo param group on CUDA "
-                "tensors: its all_to_all is staged through host memory every round")
+                "tpu.transfer_guard does not compose with a gloo param or node group on "
+                "CUDA tensors: its collectives are staged through host memory every round")
         self.topology = topology
         self.mobility = mobility
         self.attack = attack
@@ -537,10 +552,12 @@ class Network:
         """Assign a restored snapshot, cut to a param group's blocks."""
         if self.group is not None:
             lo, hi = self.group.rows
-            c0, c1 = self.group.cols
             flat = flat[lo:hi].contiguous()
-            agg_state = {k: v[:, c0:c1].contiguous() if k in self.program.sharded_state_keys
-                         else v for k, v in agg_state.items()}
+            sharded = self.program.sharded_state_keys
+            if sharded:
+                c0, c1 = self.group.cols
+                agg_state = {k: v[:, c0:c1].contiguous() if k in sharded else v
+                             for k, v in agg_state.items()}
         self.flat, self.agg_state = flat, agg_state
 
     def _durability_writes(self) -> bool:
@@ -559,7 +576,13 @@ class Network:
             meta["telemetry_run_id"] = self.telemetry.run_id
         if self.program.param_shards > 1:
             meta["param_shards"] = int(self.program.param_shards)
+        if self._node_axis() > 1:
+            meta["node_axis"] = self._node_axis()
         return {}, meta
+
+    def _node_axis(self) -> int:
+        """The node axis this network runs over (1 outside a node group)."""
+        return self.group.world if isinstance(self.group, NodeGroup) else 1
 
     def _durability_validate_extra(self, arrays, meta) -> None:
         """Refuse, before anything is assigned, a snapshot with extra
@@ -573,6 +596,7 @@ class Network:
                 "matching config"
             )
         check_snapshot_shards(meta, self.program.param_shards)
+        check_snapshot_node_axis(meta, self._node_axis())
 
     def _durability_restore_extra(self, arrays, meta) -> None:
         """Nothing beyond the base sections to apply."""

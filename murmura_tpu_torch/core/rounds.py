@@ -68,6 +68,21 @@ the new rows; eval's per-node metrics are gathered over the group.  A
 gang's member over a group (core/gang.py) hands ``train_step`` its column
 blocks and takes one back: the gang turns every member's rows at once.
 
+Built with a :class:`NodeGroup` (parallel/mesh.py, the node axis) it is one
+rank of a node group, the JAX package's node-sharded mesh: ``flat`` is the
+rank's own node rows ``[R_r, P]``, which it trains, attacks, exchanges and
+aggregates.  The [N] flags (alive, the sentinels' verdicts) and the
+adjacency stay whole on every rank, each rank's [R_r] verdicts gathered;
+the attack perturbs the rank's rows of the whole draw; the exchange
+(``exchange_rows``, under ``murmura.exchange``) is one ``all_gather`` of
+the broadcast rows, or on a circulant rule the window of rows its
+receivers' senders hold; the rule runs under ``node_block_scope`` on the
+rank's rows, its [R_r, N] adjacency rows (or [k, R_r] edge-mask columns)
+and the exchanged broadcast, and its per-node stats are gathered; the
+guards run on the rank's rows.  DMTT, compression, staleness, the
+pipelined round, the adaptive attacks, ALIE and IPM (which read other
+ranks' rows) and the probe rules are refused on it by name.
+
 ``train_step(..., data=)`` runs the round on other rows of the data
 arrays than the program's own (the population engine's cohort, whose
 slots train, probe and evaluate on their users' shards), the program's
@@ -102,7 +117,7 @@ profiler trace splits a round by phase.
 """
 
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -161,14 +176,23 @@ from murmura_tpu_torch.ops.losses import (
     uncertainty_metrics,
 )
 from murmura_tpu_torch.parallel.mesh import (
+    NodeGroup,
     ParamGroup,
     all_columns,
     block,
     columns_to_rows,
+    exchange_rows,
     gather_rows,
+    node_block_scope,
     param_group_scope,
     rows_to_columns,
 )
+
+# The attacks a node block cannot apply alone: each reads statistics of
+# other nodes' rows (ALIE's coalition, IPM's honest mean).
+ROW_READING_ATTACKS = ("alie", "ipm")
+# The rules whose probe forwards a node group does not run yet.
+PROBE_RULES = ("ubar", "evidential_trust")
 
 
 # Eval samples per chunk (the JAX package's default eval_chunk).
@@ -258,11 +282,11 @@ class RoundProgram:
     dmtt: Optional[DMTTParams] = None
     # Param-axis sharding: the shard count the flat vector is padded for,
     # its padded width (== model_dim unless padded), the rank's bound group
-    # (None: one process) and the agg_state keys held as [N, flat_dim / W]
-    # column blocks under a group.
+    # (None: one process; a NodeGroup on the node axis) and the agg_state
+    # keys held as [N, flat_dim / W] column blocks under a param group.
     param_shards: int = 1
     flat_dim: int = 0
-    group: Optional[ParamGroup] = None
+    group: Optional[Union[ParamGroup, NodeGroup]] = None
     sharded_state_keys: Tuple[str, ...] = ()
 
     @property
@@ -300,6 +324,28 @@ def init_stacked_params(model: Model, n: int, seed: int, device,
     )
 
 
+def check_node_axis_program(nodes: NodeGroup, n: int, param_shards: int, agg, attack,
+                             dmtt, compression, staleness, pipeline) -> None:
+    """Refuse, by name, what a node group's round does not run yet, and a
+    node axis that does not divide the nodes (in the JAX package's words)."""
+    from murmura_tpu_torch.parallel.mesh import check_node_axis
+
+    check_node_axis(n, nodes.world)
+    refused = [what for what, on in (
+        ("tpu.param_shards > 1 (a node axis beside a param axis)", param_shards > 1),
+        ("DMTT (dmtt:)", dmtt is not None),
+        ("compression", compression is not None),
+        ("bounded staleness (exchange.max_staleness)", staleness is not None),
+        ("the pipelined round (exchange.pipeline)", pipeline),
+        ("an adaptive attack (attack.adaptive)", isinstance(attack, AdaptiveAttack)),
+        (f"the {getattr(attack, 'name', '')} attack (it reads other nodes' rows)",
+         attack is not None and attack.name in ROW_READING_ATTACKS),
+        (f"the {agg.name} rule (its probe forwards)", agg.name in PROBE_RULES),
+    ) if on]
+    if refused:
+        raise ValueError("the node axis does not run these yet: " + "; ".join(refused))
+
+
 def build_round_program(
     model: Model,
     agg: AggregatorDef,
@@ -324,7 +370,8 @@ def build_round_program(
     attack_scale: Optional[float] = None,
     dmtt: Optional[DMTTParams] = None,
     param_shards: int = 1,
-    group: Optional[ParamGroup] = None,
+    group: Optional[Union[ParamGroup, NodeGroup]] = None,
+    train_row_block: Optional[int] = None,
 ) -> RoundProgram:
     """Round step for a network of ``data.num_nodes`` nodes on ``device``
     (the card unless the caller asks for the CPU; without CUDA a ``cuda``
@@ -364,7 +411,17 @@ def build_round_program(
     package's words.  ``group`` (a rank's ParamGroup, its world the shard
     count or a divisor of it, as the layout's fallback picks) builds that
     rank's program (module docstring); its ``train_step`` refuses another
-    ``data=`` (population x sharding is refused by the schema).
+    ``data=`` (population x sharding is refused by the schema).  A
+    ``NodeGroup`` builds a node-axis rank's program (module docstring),
+    which needs ``param_shards`` 1 and a node count the group divides.
+
+    ``train_row_block`` trains the rows in consecutive blocks of that many
+    rows, one vmapped gradient a block, instead of all at once: on the card
+    the per-node gradient of a convolution's bias is a reduction whose
+    order follows the rows a launch takes, so a node block of R rows
+    (a node group's rank) trains bit for bit as one process does only when
+    both take R rows a launch.  The result is the same math; None (the
+    default) takes every row at once.
 
     An adaptive ``attack`` (attacks/adaptive.py) turns ``audit_taps`` on:
     the taps are its feedback.  Its state rides ``agg_state`` under its
@@ -413,11 +470,18 @@ def build_round_program(
     param_shards = int(param_shards)
     if param_shards < 1:
         raise ValueError(f"param_shards must be >= 1, got {param_shards}")
-    if group is not None and param_shards % group.world:
+    # The node axis's group, or None; ``group`` stays the rank's group of
+    # either axis (its rows), ``pgroup`` the param group's (its columns).
+    nodes = group if isinstance(group, NodeGroup) else None
+    pgroup = None if nodes is not None else group
+    if nodes is not None:
+        check_node_axis_program(nodes, n, param_shards, agg, attack, dmtt, compression,
+                                staleness, pipeline)
+    if pgroup is not None and param_shards % pgroup.world:
         raise ValueError(
             f"the param group's {group.world} ranks do not divide the program's "
             f"param_shards={param_shards}")
-    if group is not None and group.world > n:
+    if pgroup is not None and pgroup.world > n:
         raise ValueError(
             f"a param group of {group.world} ranks needs at least {group.world} nodes "
             f"(each rank trains its own node rows), but there are {n}: lower "
@@ -503,8 +567,10 @@ def build_round_program(
     else:
         ravel, unravel, model_dim = make_flatteners(template)
         flat_dim = model_dim
-    if group is not None:
-        group = group.bind(n, flat_dim)
+    if nodes is not None:
+        group = nodes = nodes.bind(n, sparse_offsets or agg.exchange_offsets)
+    elif group is not None:
+        group = pgroup = pgroup.bind(n, flat_dim)
     if param_shards > 1 and compression is not None:
         # int8 per-block scales must shard with the payload: a block that
         # straddled a shard boundary would take its scale across shards.
@@ -519,7 +585,7 @@ def build_round_program(
                 f"{local} (or adjust tpu.param_shards)"
             )
     # The width of every carried [N, P] tensor: a column block under a group.
-    state_width = flat_dim if group is None else group.local_cols
+    state_width = flat_dim if pgroup is None else pgroup.local_cols
     pdt = torch.float32 if param_dtype in (None, "float32") else getattr(torch, param_dtype)
     init_flat = ravel(stacked, batch_dims=1).to(pdt).contiguous()
 
@@ -552,6 +618,19 @@ def build_round_program(
     d_own = d if group is None else {
         k: d[k][own_rows] for k in TRAIN_DATA_KEYS + EVAL_DATA_KEYS}
 
+    def mine(t):
+        """The rows of a whole [N, ...] tensor that the round's [N, P]
+        operands hold: the rank's block on the node axis, all of them
+        otherwise (a param group's column blocks hold every row)."""
+        return t if nodes is None else t[own_rows]
+
+    def whole_flags(flags):
+        """[N] per-node flags from the round's rows: a node block's gathered
+        over the node group, a column block's ANDed over the param group."""
+        if nodes is not None:
+            return gather_rows(flags, nodes)
+        return all_columns(flags)
+
     def node_loss(params_i, xb, yb, mb, masks_i, lambda_t):
         outputs = model.apply(params_i, xb, masks_i)
         if evidential:
@@ -561,6 +640,8 @@ def build_round_program(
 
     grad_fn = vmap(grad(node_loss), in_dims=(0, 0, 0, 0, 0, None))
     keep = 1.0 - model.dropout
+    if train_row_block is not None and int(train_row_block) < 1:
+        raise ValueError(f"train_row_block must be >= 1, got {train_row_block}")
 
     def cut_rows(t, members):
         """Under a group: each member's whole-network draw ``t`` ([S * N,
@@ -597,6 +678,8 @@ def build_round_program(
         generator a member, in row order; ``step_lr`` the learning rate, a
         float or one value a row."""
         rows = flat.shape[0]
+        step = rows if train_row_block is None else int(train_row_block)
+        blocks = [(c0, min(rows, c0 + step)) for c0 in range(0, rows, step)]
         # Under a group each draw is the whole network's, cut to this
         # rank's rows (cut_rows).
         rows_each = n if group is not None else rows // len(generators)
@@ -627,13 +710,19 @@ def build_round_program(
                         generators, rows_each,
                         None if mask_draws is None else mask_draws[epoch][t],
                     )
-                grads = grad_fn(params, xb, yb, batch_mask, masks, lambda_t)
                 update = train_mask * (t < dd["steps"]).to(torch.float32)  # [rows]
                 lr_update = step_lr * update
-                with torch.no_grad():
-                    for p, g in zip(tree_leaves(params), tree_leaves(grads)):
-                        lr_ub = lr_update.reshape((rows,) + (1,) * (p.dim() - 1))
-                        p.copy_((p - lr_ub * g.to(torch.float32)).to(p.dtype))
+                for c0, c1 in blocks:
+                    # One block of rows at a time (all of them by default):
+                    # each block's gradient reads only its own rows.
+                    part = (params if c1 - c0 == rows
+                            else tree_map(lambda l: l[c0:c1], params))
+                    grads = grad_fn(part, xb[c0:c1], yb[c0:c1], batch_mask[c0:c1],
+                                    [m[c0:c1] for m in masks], lambda_t)
+                    with torch.no_grad():
+                        for p, g in zip(tree_leaves(part), tree_leaves(grads)):
+                            lr_ub = lr_update[c0:c1].reshape((c1 - c0,) + (1,) * (p.dim() - 1))
+                            p.copy_((p - lr_ub * g.to(torch.float32)).to(p.dtype))
         return flat
 
     def train_rows(flat, train_mask, round_idx, generators, data=None, step_lr=None,
@@ -737,29 +826,29 @@ def build_round_program(
             with record_function(STAGE_TRAIN):
                 own_flat = train_rows(flat.clone(), train_mask[own_rows], round_idx,
                                       [generators.get("train")], data=data, draws=draws)
-        if group is not None and trained is None:
+        if pgroup is not None and trained is None:
             # The trained rows (and the pre-round ones, for the guards) turn
             # into this rank's column block of every node; a gang's member
             # comes as column blocks already.
-            own_flat = rows_to_columns(own_flat, group)
+            own_flat = rows_to_columns(own_flat, pgroup)
             if pre_flat is not None:
-                pre_flat = rows_to_columns(pre_flat, group)
+                pre_flat = rows_to_columns(pre_flat, pgroup)
         fault_stats = {}
         if inject_rows is not None and round_idx >= faults.nan_inject_from_round:  # murmura: ignore[MUR001] round_idx: host float
             own_flat = torch.where(
-                inject_rows[:, None], torch.full_like(own_flat, float("nan")), own_flat
+                mine(inject_rows)[:, None], torch.full_like(own_flat, float("nan")), own_flat
             )
         finite = None
         if faults is not None and faults.nan_quarantine:
             # A non-finite update quarantines the node for the round: its
             # row is replaced, not masked, before any rule math.
-            finite = all_columns(torch.isfinite(own_flat).all(dim=1))
+            finite = whole_flags(torch.isfinite(own_flat).all(dim=1))
             alive_f = alive if alive is not None else torch.ones_like(compromised)
             fault_stats["quarantined"] = ((1.0 - finite.to(torch.float32)) * alive_f).sum()
             if audit_taps:
                 # Which node diverged, not just how many.
                 fault_stats["tap_quarantined"] = (1.0 - finite.to(torch.float32)) * alive_f
-            own_flat = torch.where(finite[:, None], own_flat, pre_flat)
+            own_flat = torch.where(mine(finite)[:, None], own_flat, pre_flat)
             adj = both_ways(adj, finite.to(adj.dtype))
         bfin = None
         attack_state = None
@@ -792,8 +881,8 @@ def build_round_program(
                 # An attack that overflows to inf/NaN: its broadcast row is
                 # replaced by the sender's own row and dropped from every
                 # receiver; the sender's own state is untouched.
-                bfin = all_columns(torch.isfinite(bcast).all(dim=1))
-                bcast = torch.where(bfin[:, None], bcast, own_flat)
+                bfin = whole_flags(torch.isfinite(bcast).all(dim=1))
+                bcast = torch.where(mine(bfin)[:, None], bcast, own_flat)
                 adj = drop_senders(adj, bfin.to(adj.dtype))
                 fault_stats["attack_scrubbed"] = (1.0 - bfin.to(torch.float32)).sum()
                 if audit_taps:
@@ -869,16 +958,25 @@ def build_round_program(
         prod = produce_exchange(flat, agg_state, adj, compromised, alive, round_idx,
                                 generators, draws, trained, data, scale)
         own_flat, adj, agg_state = prod["own_flat"], prod["adj"], prod["agg_state"]
+        bcast, rule_adj = prod["bcast"], adj
+        if nodes is not None:
+            # The neighbour exchange, and the rule's rows of the graph.
+            with record_function(STAGE_EXCHANGE):
+                bcast = exchange_rows(bcast, nodes)
+            rule_adj = adj[:, own_rows] if sparse else adj[own_rows]
         rule_ctx = step_ctx(data)
         dmtt_stats = None
         if dmtt is not None:
             adj, agg_state, rule_ctx, dmtt_stats = dmtt_exchange(
                 prod["bcast"], adj, compromised, agg_state, rule_ctx)
+            rule_adj = adj
         rule_state = {k: v for k, v in agg_state.items() if k not in reserved}
         with record_function(STAGE_AGGREGATE):
             new_flat, rule_state, agg_stats = agg.aggregate(
-                own_flat, prod["bcast"], adj, round_idx, rule_state, rule_ctx
+                own_flat, bcast, rule_adj, round_idx, rule_state, rule_ctx
             )
+        if nodes is not None:
+            agg_stats = gather_block_stats(agg_stats)
         agg_state = {**agg_state, **rule_state}
         attack_stats = None
         if adaptive:
@@ -896,11 +994,11 @@ def build_round_program(
             # No alive neighbour: the node keeps its own state.  Dead nodes
             # freeze at the pre-round value, quarantined ones roll back.
             deg = in_degree(adj)
-            new_flat = torch.where((deg > 0)[:, None], new_flat, own_flat)
+            new_flat = torch.where(mine(deg > 0)[:, None], new_flat, own_flat)
             keep = alive > 0
             if prod["finite"] is not None:
                 keep = keep & prod["finite"]
-            new_flat = torch.where(keep[:, None], new_flat, prod["pre_flat"])
+            new_flat = torch.where(mine(keep)[:, None], new_flat, prod["pre_flat"])
             prod["fault_stats"]["alive"] = alive.sum()
             if audit_taps:
                 prod["fault_stats"]["tap_alive"] = alive
@@ -975,6 +1073,14 @@ def build_round_program(
 
     body = round_body_pipelined if pipeline else round_body
 
+    def gather_block_stats(stats):
+        """The rule's per-node stats of the rank's block ([R_r, ...])
+        gathered into the whole [N, ...]; sender-side counts (already [N],
+        summed over the group) and scalars as they are."""
+        rows = own_rows.stop - own_rows.start
+        return {k: gather_rows(v, nodes) if v.dim() and v.shape[0] == rows else v
+                for k, v in stats.items()}
+
     def check_alive(alive):
         if faults is not None and alive is None:
             raise ValueError("a faulted round program needs the [N] alive mask")
@@ -1013,14 +1119,15 @@ def build_round_program(
             raise ValueError(
                 "a param group's round trains its own rows of its own data: another "
                 "data= is not run sharded")
-        with param_group_scope(group):
+        scope = node_block_scope(nodes) if nodes is not None else param_group_scope(pgroup)
+        with scope:
             new_flat, agg_state, metrics = body(flat, agg_state, adj, compromised, alive,
                                                 round_idx, generators, draws, trained, data,
                                                 attack_scale)
-        if group is not None:
+        if pgroup is not None:
             if trained is not None:
                 return new_flat, agg_state, metrics
-            new_flat = columns_to_rows(new_flat, group)
+            new_flat = columns_to_rows(new_flat, pgroup)
         if flat_dim > model_dim:
             # The pad stays exact zeros, as the JAX package's ravel remakes
             # it every round (a picked broadcast row carries its attack's pad).
@@ -1099,7 +1206,7 @@ def build_round_program(
         # The top-k reference starts at the initial broadcast, which a
         # deployment sends in full once at set-up.
         init_agg_state.update(init_compress_state(
-            compression, init_flat if group is None else
+            compression, init_flat if pgroup is None else
             torch.zeros((n, state_width), dtype=init_flat.dtype, device=device)))
     if staleness is not None:
         clash = set(STALE_STATE_KEYS) & set(init_agg_state)
@@ -1154,7 +1261,7 @@ def build_round_program(
         param_shards=param_shards,
         flat_dim=flat_dim,
         group=group,
-        sharded_state_keys=() if group is None else tuple(sorted(
+        sharded_state_keys=() if pgroup is None else tuple(sorted(
             k for k in (*COMPRESS_STATE_KEYS, STALE_CACHE_KEY, PIPE_OWN_KEY, PIPE_BCAST_KEY)
             if k in init_agg_state)),
     )

@@ -69,8 +69,18 @@
 //
 // Any N and P work: columns past P are zero in the tile and never stored.
 // The offsets live in a small device array, each already reduced mod N by
-// the caller.  Every entry point launches on the given stream, does not
-// synchronise, allocates nothing and returns cudaGetLastError() as an int.
+// the caller.
+//
+// The window entry (cand_select_window) takes the candidates of a node
+// block instead: own [n, p] (the block's rows) and a window [nb, p] of the
+// broadcast rows its receivers read (parallel/mesh.py exchange_rows), with
+// each offset a row of the window, so that receiver i's candidate at
+// offset u is window[i + offsets[u]], which never passes row nb - 1.  Both
+// entries run the same kernels: the staged path stages n own rows and nb
+// bcast rows a tile, and a candidate row j wraps to j - nb at nb, which
+// the classic entry (nb = n) needs and the window entry never reaches.
+// Every entry point launches on the given stream, does not synchronise,
+// allocates nothing and returns cudaGetLastError() as an int.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -280,20 +290,20 @@ __device__ __forceinline__ float select_generic(float* v, int m, int trim, int m
   return __fmul_rn(acc, inv_keep);
 }
 
-// Stage columns [c0, c0 + tc) of the n rows of own, then the n rows of
-// bcast, into a ring slot ([2n][tc] elements), with cp.async copies of CB
+// Stage columns [c0, c0 + tc) of the n rows of own, then the nb rows of
+// bcast, into a ring slot ([n + nb][tc] elements), with cp.async copies of CB
 // bytes: one warp a row at a time, each lane every 32nd word of it.  Every
 // row is a whole number of CB-byte words from c0 (the wrapper picks CB so);
 // words at or past p are written as zeros.
 template <int CB, typename T>
 __device__ __forceinline__ void stage_tile(T* slot, const T* __restrict__ own,
-                                           const T* __restrict__ bcast, int n, long long p,
-                                           int tc, long long c0) {
+                                           const T* __restrict__ bcast, int n, int nb,
+                                           long long p, int tc, long long c0) {
   const int lane = threadIdx.x % 32;
   const int row_bytes = tc * (int)sizeof(T);
   const long long left = (p - c0) * (long long)sizeof(T);
   const int valid = left < row_bytes ? (int)left : row_bytes;
-  for (int r = threadIdx.x / 32; r < 2 * n; r += NT / 32) {
+  for (int r = threadIdx.x / 32; r < n + nb; r += NT / 32) {
     const char* src =
         reinterpret_cast<const char*>((r < n ? own + (long long)r * p : bcast + (long long)(r - n) * p) + c0);
     char* dst = reinterpret_cast<char*>(slot + r * tc);
@@ -305,11 +315,11 @@ __device__ __forceinline__ void stage_tile(T* slot, const T* __restrict__ own,
 }
 
 template <typename T>
-__device__ __forceinline__ void stage(T* slot, const T* own, const T* bcast, int n, long long p,
-                                      int tc, long long c0, int cb) {
-  if (cb == 16) stage_tile<16>(slot, own, bcast, n, p, tc, c0);
-  else if (cb == 8) stage_tile<8>(slot, own, bcast, n, p, tc, c0);
-  else stage_tile<4>(slot, own, bcast, n, p, tc, c0);
+__device__ __forceinline__ void stage(T* slot, const T* own, const T* bcast, int n, int nb,
+                                      long long p, int tc, long long c0, int cb) {
+  if (cb == 16) stage_tile<16>(slot, own, bcast, n, nb, p, tc, c0);
+  else if (cb == 8) stage_tile<8>(slot, own, bcast, n, nb, p, tc, c0);
+  else stage_tile<4>(slot, own, bcast, n, nb, p, tc, c0);
 }
 
 // The tiles of the P axis a block walks: first, first + step, ... < tiles.
@@ -318,8 +328,8 @@ __device__ __forceinline__ long long tiles_of_block(long long tiles) {
   return first < tiles ? (tiles - first + gridDim.x - 1) / gridDim.x : 0;
 }
 
-// Shared memory: STAGES slots of [2n][tc] elements (own rows, then bcast
-// rows).  Work item e of a tile is (row i = e / G, column group g = e % G)
+// Shared memory: STAGES slots of [n + nb][tc] elements (own rows, then
+// bcast rows).  Work item e of a tile is (row i = e / G, column group g = e % G)
 // with G = tc / CPT; thread t takes items t, t + NT, ...  M == 0 is the
 // generic path (runtime m = k + 1, m other than 3 and 5).  trim and median are read only by
 // the generic path.
@@ -327,7 +337,7 @@ template <typename T, int M, int MODE>
 __global__ void __launch_bounds__(NT, 2)
 staged_kernel(const T* __restrict__ own, const T* __restrict__ bcast,
               const int* __restrict__ offsets, int k, T* __restrict__ out, int n,
-              long long p, int tc_log2, int cb, int ov, int trim, int median,
+              int nb, long long p, int tc_log2, int cb, int ov, int trim, int median,
               float inv_keep) {
   extern __shared__ float4 smem4[];
   T* smem = reinterpret_cast<T*>(smem4);
@@ -335,7 +345,7 @@ staged_kernel(const T* __restrict__ own, const T* __restrict__ bcast,
   const int tc = 1 << tc_log2;
   const int g_log2 = tc_log2 - 2;  // CPT = 4 columns a group
   const int gmask = (1 << g_log2) - 1;
-  const int stage_elems = 2 * n * tc;
+  const int stage_elems = (n + nb) * tc;
   const long long tiles = (p + tc - 1) >> tc_log2;
   const int items = n << g_log2;
 
@@ -347,7 +357,7 @@ staged_kernel(const T* __restrict__ own, const T* __restrict__ bcast,
   }
 
   auto load = [&](long long it, int slot) {
-    stage(smem + slot * stage_elems, own, bcast, n, p, tc,
+    stage(smem + slot * stage_elems, own, bcast, n, nb, p, tc,
           (blockIdx.x + it * gridDim.x) << tc_log2, cb);
   };
 
@@ -379,7 +389,7 @@ staged_kernel(const T* __restrict__ own, const T* __restrict__ bcast,
 #pragma unroll
         for (int u = 0; u < K; ++u) {
           int j = i + off[u];
-          j = j >= n ? j - n : j;
+          j = j >= nb ? j - nb : j;
           Wd::load(sb + j * tc + g, v[u + 1]);
         }
         sort_static<M>(v);
@@ -394,7 +404,7 @@ staged_kernel(const T* __restrict__ own, const T* __restrict__ bcast,
           v[0] = to_f(so[i * tc + g + cc]);
           for (int u = 0; u < k; ++u) {
             int j = i + __ldg(offsets + u);
-            j = j >= n ? j - n : j;
+            j = j >= nb ? j - nb : j;
             v[u + 1] = to_f(sb[j * tc + g + cc]);
           }
           r[cc] = select_generic(v, k + 1, trim, median, inv_keep);
@@ -413,7 +423,7 @@ template <typename T>
 __global__ void __launch_bounds__(NT)
 direct_kernel(const T* __restrict__ own, const T* __restrict__ bcast,
               const int* __restrict__ offsets, int k, T* __restrict__ out, int n,
-              long long p, int trim, int median, float inv_keep) {
+              int nb, long long p, int trim, int median, float inv_keep) {
   const long long c = (long long)blockIdx.x * NT + threadIdx.x;
   if (c >= p) return;  // no barrier below
   for (int i = 0; i < n; ++i) {
@@ -421,7 +431,7 @@ direct_kernel(const T* __restrict__ own, const T* __restrict__ bcast,
     v[0] = to_f(own[(long long)i * p + c]);
     for (int u = 0; u < k; ++u) {
       int j = i + __ldg(offsets + u);
-      j = j >= n ? j - n : j;
+      j = j >= nb ? j - nb : j;
       v[u + 1] = to_f(__ldg(bcast + (long long)j * p + c));
     }
     store1(out + (long long)i * p + c, select_generic(v, k + 1, trim, median, inv_keep));
@@ -435,6 +445,7 @@ struct Args {
   int k;
   void* out;
   int n;
+  int nb;
   long long p;
   int trim;
   int median;
@@ -452,7 +463,7 @@ int launch_direct(const Args& a) {
   const unsigned int blocks = (unsigned int)((a.p + NT - 1) / NT);
   direct_kernel<T><<<blocks, NT, 0, a.st>>>(
       static_cast<const T*>(a.own), static_cast<const T*>(a.bcast), a.offsets, a.k,
-      static_cast<T*>(a.out), a.n, a.p, a.trim, a.median, a.inv_keep);
+      static_cast<T*>(a.out), a.n, a.nb, a.p, a.trim, a.median, a.inv_keep);
   return (int)cudaGetLastError();
 }
 
@@ -467,7 +478,8 @@ int launch_staged(const Args& a) {
   }
   staged_kernel<T, M, MODE><<<a.grid, NT, a.smem, a.st>>>(
       static_cast<const T*>(a.own), static_cast<const T*>(a.bcast), a.offsets, a.k,
-      static_cast<T*>(a.out), a.n, a.p, a.tc_log2, a.cb, a.ov, a.trim, a.median, a.inv_keep);
+      static_cast<T*>(a.out), a.n, a.nb, a.p, a.tc_log2, a.cb, a.ov, a.trim, a.median,
+      a.inv_keep);
   return (int)cudaGetLastError();
 }
 
@@ -525,9 +537,23 @@ void cand_constants(int* out) {
 int cand_select(const void* own, const void* bcast, const int* offsets, int k, void* out,
                 int n, long long p, int trim, int median, float inv_keep, int bf16,
                 int tc_log2, int cb, int ov, int grid, int smem, void* stream) {
-  const Args a{own, bcast, offsets, k, out, n, p, trim, median, inv_keep,
+  const Args a{own, bcast, offsets, k, out, n, n, p, trim, median, inv_keep,
                tc_log2, cb, ov, grid, smem, static_cast<cudaStream_t>(stream)};
   if (k < 1 || k + 1 > MAX_M) return (int)cudaErrorInvalidValue;
+  return bf16 ? select_typed<__nv_bfloat16>(a) : select_typed<float>(a);
+}
+
+// The window entry: own [n, p] (a node block's rows), window [nb, p] (the
+// broadcast rows its receivers read), offsets[k] rows of the window with
+// n - 1 + offsets[u] < nb (the wrapper checks it), out [n, p]; everything
+// else as cand_select, whose plan (staged or direct) covers n + nb rows.
+int cand_select_window(const void* own, const void* window, const int* offsets, int k,
+                       void* out, int n, int nb, long long p, int trim, int median,
+                       float inv_keep, int bf16, int tc_log2, int cb, int ov, int grid,
+                       int smem, void* stream) {
+  const Args a{own, window, offsets, k, out, n, nb, p, trim, median, inv_keep,
+               tc_log2, cb, ov, grid, smem, static_cast<cudaStream_t>(stream)};
+  if (k < 1 || k + 1 > MAX_M || nb < n) return (int)cudaErrorInvalidValue;
   return bf16 ? select_typed<__nv_bfloat16>(a) : select_typed<float>(a);
 }
 

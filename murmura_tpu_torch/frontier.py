@@ -297,7 +297,7 @@ def run_frontier(config: Config, progress: Optional[Callable[[str], None]] = Non
     from murmura_tpu_torch.aggregation import AGGREGATORS
     from murmura_tpu_torch.utils.factories import ConfigError, refuse_sharded_command
 
-    refuse_sharded_command(config, "frontier")
+    refuse_sharded_command(config, "frontier", torch.device(device).type)
     say = progress or (lambda s: None)
     f = config.frontier or FrontierConfig()
     unknown = sorted(set(f.rules) - set(AGGREGATORS))

@@ -380,6 +380,27 @@ def circulant_sq_distances(
     return circulant_launch(own, bcast, offsets)
 
 
+def circulant_window_sq_distances(
+    own: torch.Tensor, window: torch.Tensor, positions: Sequence[int]
+) -> torch.Tensor:
+    """[k, R] squared distances |own_i - window[i + positions[q]]|^2 over a
+    node block's window (parallel/mesh.py ``exchange_rows``; no wrap): one
+    offset-0 call of :func:`circulant_sq_distances` a position, on
+    contiguous row views, as the pieces of :func:`circulant_split` are (the
+    kernel on the card, the plain version on the CPU)."""
+    r = own.shape[0]
+    if window.dim() != 2 or own.dim() != 2 or window.shape[1] != own.shape[1]:
+        raise ValueError(f"circulant_sq_distances: own {tuple(own.shape)} and window "
+                         f"{tuple(window.shape)} must be [R, P] and [W, P]")
+    if min(positions) < 0 or r + max(positions) > window.shape[0]:
+        raise ValueError(f"circulant_sq_distances: window positions {list(positions)} of "
+                         f"{r} receivers pass the window's {window.shape[0]} rows")
+    out = torch.empty((len(positions), r), dtype=torch.float32, device=own.device)
+    for q, p in enumerate(positions):
+        out[q] = circulant_sq_distances(own, window[p:p + r], [0])[0]
+    return out
+
+
 def _check_circulant(own: torch.Tensor, bcast: torch.Tensor, offsets: Sequence[int]) -> None:
     name = "circulant_sq_distances"
     check_cuda(name, own, bcast)

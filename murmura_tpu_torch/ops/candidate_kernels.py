@@ -7,6 +7,12 @@ PyTorch version.
     {bcast[(i + o) mod N]} (median and trimmed mean under ``tpu.exchange:
     ppermute``).  Replaces the Pallas kernel
     ``murmura_tpu/ops/pallas_agg.py: fused_candidate_select``.
+``candidate_select_window(own, window, positions, trim, median)``
+    The same over a node block (parallel/mesh.py): own [R, P] the block's
+    rows, window [W, P] the broadcast rows its receivers read, and the
+    candidate of receiver i at offset q the window row ``i + positions[q]``,
+    with no wrap.  The same kernels, launched through the library's
+    ``cand_select_window`` entry.
 
 The kernel lives in ``csrc/candidate_select.cu`` (design and bound notes
 there).  It takes float32 or bfloat16 and computes in float32, rounding to
@@ -21,7 +27,7 @@ it runs the plain version.  ``LAUNCHES`` and ``PLAIN_CALLS`` count both.
 
 import functools
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -72,6 +78,11 @@ def bind(lib):
         i32, i32, i32, i32, i32, vp,
     ]
     lib.cand_select.restype = i32
+    lib.cand_select_window.argtypes = [
+        vp, vp, vp, i32, vp, i32, i32, i64, i32, i32, ctypes.c_float, i32,
+        i32, i32, i32, i32, i32, vp,
+    ]
+    lib.cand_select_window.restype = i32
     consts = (ctypes.c_int * 6)()
     lib.cand_constants(consts)
     want = (THREADS, STAGES, CPT, MIN_TC, SMEM_MAX, STATIC_M)
@@ -90,17 +101,20 @@ def _lib():
 
 
 @functools.lru_cache(maxsize=256)
-def candidate_plan(n: int, p: int, elem: int, cb: int, sms: int) -> Dict[str, int]:
+def candidate_plan(n: int, p: int, elem: int, cb: int, sms: int,
+                   nb: Optional[int] = None) -> Dict[str, int]:
     """One launch's plan.  Staged path (``grid`` > 0): the widest
-    power-of-two tile of at least MIN_TC columns whose ring of 2N rows
-    leaves room for two blocks on an SM, else one; a persistent grid of at
-    most that many blocks an SM, none without a tile.  Direct path
-    (``grid`` 0): when no such tile fits, or when ``cb`` is 0 (rows that
-    cp.async cannot copy: bfloat16 rows on 2 bytes)."""
+    power-of-two tile of at least MIN_TC columns whose ring of N own rows
+    and ``nb`` bcast rows (N by default) leaves room for two blocks on an
+    SM, else one; a persistent grid of at most that many blocks an SM,
+    none without a tile.  Direct path (``grid`` 0): when no such tile fits,
+    or when ``cb`` is 0 (rows that cp.async cannot copy: bfloat16 rows on 2
+    bytes)."""
+    rows = n + (n if nb is None else nb)
     if cb:
         for limit in (_RING_TARGET, SMEM_MAX):
             for log2 in range(_MAX_TC_LOG2, MIN_TC.bit_length() - 2, -1):
-                smem = STAGES * 2 * n * (1 << log2) * elem
+                smem = STAGES * rows * (1 << log2) * elem
                 if smem <= limit:
                     per_sm = max(1, min(2, _SMEM_SM // (smem + 1024)))
                     tiles = math.ceil(p / (1 << log2))
@@ -207,5 +221,87 @@ def candidate_select(
         raise ValueError(f"{NAME}: empty input {tuple(own.shape)}")
     out = torch.empty_like(own)
     launch(_lib(), own, bcast, offsets, trim, median, out)
+    LAUNCHES[NAME] += 1
+    return out
+
+
+def _check_window(own, window, positions, trim: int, median: bool) -> int:
+    """The candidate count m, after the window entry's checks."""
+    if own.dim() != 2 or window.dim() != 2 or own.shape[1] != window.shape[1]:
+        raise ValueError(
+            f"{NAME}: own {tuple(own.shape)} and window {tuple(window.shape)} must be "
+            "[R, P] and [W, P]")
+    k = len(positions)
+    if not 1 <= k <= MAX_OFFSETS:
+        raise ValueError(f"{NAME}: takes 1..{MAX_OFFSETS} offsets, got {k}")
+    r, w = own.shape[0], window.shape[0]
+    if min(positions) < 0 or r - 1 + max(positions) >= w:
+        raise ValueError(
+            f"{NAME}: window positions {list(positions)} of {r} receivers pass the "
+            f"window's {w} rows")
+    m = k + 1
+    if not median and (trim < 0 or m - 2 * trim < 1):
+        raise ValueError(f"{NAME}: trim {trim} leaves no candidate of {m}")
+    return m
+
+
+def candidate_select_window_plain(
+    own: torch.Tensor, window: torch.Tensor, positions: Sequence[int],
+    trim: int = 0, median: bool = False,
+) -> torch.Tensor:
+    """The plain version over a node block's window: the stack {own_i} ∪
+    {window[i + positions[q]]}, reduced as :func:`candidate_select_plain`
+    reduces it."""
+    m = _check_window(own, window, positions, trim, median)
+    PLAIN_CALLS[NAME] += 1
+    inv = torch.tensor(_inv_keep(m, trim), dtype=torch.float32, device=own.device)
+    r = own.shape[0]
+    out = torch.empty_like(own)
+    p = own.shape[1]
+    # The same P-chunk budget as the rolled stack's (base._p_chunk_len).
+    from murmura_tpu_torch.aggregation.base import _p_chunk_len
+
+    chunk = _p_chunk_len(r * m, p, own.element_size())
+    for c0 in range(0, p, chunk):
+        cand = torch.stack([own[:, c0:c0 + chunk]]
+                           + [window[q:q + r, c0:c0 + chunk] for q in positions])
+        srt = torch.sort(cand.to(torch.float32), dim=0).values
+        if median:
+            res = 0.5 * (srt[(m - 1) // 2] + srt[m // 2])
+        else:
+            acc = srt[trim]
+            for j in range(trim + 1, m - trim):  # ascending, as the kernel sums
+                acc = acc + srt[j]
+            res = acc * inv
+        out[:, c0:c0 + chunk] = res.to(own.dtype)
+    return out
+
+
+def candidate_select_window(
+    own: torch.Tensor, window: torch.Tensor, positions: Sequence[int],
+    trim: int = 0, median: bool = False,
+) -> torch.Tensor:
+    """[R, P] median or trimmed mean over {own_i} ∪ {window[i + positions[q]]}
+    (a node block's candidates; no wrap)."""
+    if own.device.type == "cpu" and window.device.type == "cpu":
+        return candidate_select_window_plain(own, window, positions, trim, median)
+    m = _check_window(own, window, positions, trim, median)
+    check_cuda(NAME, own, window, dtypes=DTYPES)
+    if own.numel() == 0:
+        raise ValueError(f"{NAME}: empty input {tuple(own.shape)}")
+    out = torch.empty_like(own)
+    r, p = own.shape
+    nb = window.shape[0]
+    trim = 0 if median else int(trim)
+    cb = copy_bytes(p, own, window)
+    plan = candidate_plan(r, p, own.element_size(), cb, _sm_count(own.device), nb)
+    offs = _offsets_on(tuple(int(q) for q in positions), own.device)
+    err = _lib().cand_select_window(
+        own.data_ptr(), window.data_ptr(), offs.data_ptr(), m - 1, out.data_ptr(),
+        r, nb, p, trim, int(median), _inv_keep(m, trim), int(own.dtype == torch.bfloat16),
+        plan["tc_log2"], cb, store_elems(p, out), plan["grid"],
+        plan["smem"], torch.cuda.current_stream(own.device).cuda_stream,
+    )
+    raise_on(NAME, err)
     LAUNCHES[NAME] += 1
     return out

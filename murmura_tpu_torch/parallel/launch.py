@@ -1,8 +1,10 @@
-"""The param group's launcher (the JAX package needs no processes: GSPMD
-places its collectives).
+"""The group launcher (the JAX package needs no processes: GSPMD places its
+collectives).
 
 :func:`launch` runs ``fn(*args)`` in W spawned ranks of one
-``torch.distributed`` group and returns every rank's return value:
+``torch.distributed`` group and returns every rank's return value; each
+rank's process group is a :class:`ParamGroup` (``axis="param"``) or a
+:class:`NodeGroup` (``axis="nodes"``):
 
 - the ``spawn`` start method and a ``file://`` rendezvous in a temporary
   directory, so no TCP port is taken;
@@ -23,7 +25,8 @@ of the collective code on CUDA tensors, not a layout the CLI picks).  Ranks
 other than 0 print nothing.
 
 The CLI's ``run`` launches its ranks (cli.py) when the config's layout has
-a param axis above 1; the tests and ``chip_smoke.py`` launch their own
+a param axis above 1, or a node axis above 1 at ``tpu.param_shards: 1``;
+the tests and ``chip_smoke.py`` launch their own
 module-level functions.
 """
 
@@ -40,6 +43,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 from murmura_tpu_torch.parallel.mesh import (
+    NodeGroup,
     ParamGroup,
     plan_layout,
     process_group,
@@ -62,7 +66,8 @@ def forbidden_modules() -> List[str]:
 
 
 def _rank_main(rank: int, fn: Callable, args: Sequence, world: int, backend: str,
-               device_type: str, one_device: bool, tmp: str, timeout_s: float) -> None:
+               device_type: str, one_device: bool, tmp: str, timeout_s: float,
+               axis: str = "param") -> None:
     import torch.distributed as dist
 
     if device_type == "cuda":
@@ -78,7 +83,8 @@ def _rank_main(rank: int, fn: Callable, args: Sequence, world: int, backend: str
         sys.stdout = open(os.devnull, "w")
     dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", rank=rank,
                             world_size=world, timeout=timedelta(seconds=timeout_s))
-    set_process_group(ParamGroup(rank, world, backend, device))
+    cls = NodeGroup if axis == "nodes" else ParamGroup
+    set_process_group(cls(rank, world, backend, device))
     try:
         result = fn(*args)
     except BaseException as e:
@@ -91,13 +97,17 @@ def _rank_main(rank: int, fn: Callable, args: Sequence, world: int, backend: str
 
 
 def launch(fn: Callable, args: Sequence = (), *, world: int, device_type: str = "cpu",
-           one_device: bool = False, timeout_s: float = GROUP_TIMEOUT_S) -> List[Any]:
+           one_device: bool = False, timeout_s: float = GROUP_TIMEOUT_S,
+           axis: str = "param") -> List[Any]:
     """``fn(*args)`` in ``world`` ranks (module-level and picklable, as
-    ``spawn`` needs); returns the ranks' return values in rank order."""
+    ``spawn`` needs) of a param or node group (``axis``); returns the
+    ranks' return values in rank order."""
     import torch.multiprocessing as mp
 
+    if axis not in ("param", "nodes"):
+        raise ValueError(f"a group's axis is 'param' or 'nodes', got {axis!r}")
     if world < 2:
-        raise ValueError(f"a param group needs at least 2 ranks, got {world}")
+        raise ValueError(f"a {axis} group needs at least 2 ranks, got {world}")
     if device_type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available: the group's ranks run on the card")
@@ -111,7 +121,7 @@ def launch(fn: Callable, args: Sequence = (), *, world: int, device_type: str = 
     with tempfile.TemporaryDirectory(prefix="murmura-group-") as tmp:
         try:
             mp.start_processes(_rank_main, args=(fn, tuple(args), world, backend, device_type,
-                                                 one_device, tmp, timeout_s),
+                                                 one_device, tmp, timeout_s, axis),
                                nprocs=world, join=True, start_method="spawn")
         except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
             raise _rank_failure(Path(tmp), e) from None

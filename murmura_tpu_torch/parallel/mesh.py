@@ -1,7 +1,7 @@
 # Copy of plan_param_layout and plan_gang_param_layout from
 # murmura_tpu/parallel/mesh.py.
-"""Param-axis sharding over a ``torch.distributed`` process group (the
-PyTorch counterpart of the param-axis part of murmura_tpu/parallel/mesh.py).
+"""Param-axis sharding and the node axis over a ``torch.distributed``
+process group (the PyTorch counterpart of murmura_tpu/parallel/mesh.py).
 
 The JAX package splits every [N, P] round tensor by columns over the
 ``param`` axis of a ("seed", "nodes", "param") mesh and lets GSPMD place the
@@ -32,16 +32,25 @@ while :func:`param_group_scope` is active, the scope the round program
 opens around a sharded round, so that no rule signature changes.  Off the
 scope every hook is the identity.
 
+The node axis (:class:`NodeGroup`, the JAX package's node-sharded mesh)
+splits the nodes instead: rank r trains, attacks and aggregates its block
+of rows, and the neighbour exchange (:func:`exchange_rows`) is one
+``all_gather`` of the broadcast rows, or under a circulant exchange one
+``all_to_all_single`` that brings each rank exactly the window of rows its
+receivers' senders hold (:func:`window_frame`).  The rules run on the block
+while :func:`node_block_scope` is active (aggregation/base.py).
+
 The launcher (parallel/launch.py) spawns the ranks and sets each one's
 :func:`process_group`.  Over gloo on CUDA tensors (several ranks on one
 card, a check of the collective code) the ``all_to_all`` and ``all_gather``
-steps are staged through pinned host buffers, since gloo takes CUDA
-tensors for ``all_reduce`` and ``broadcast`` only; NCCL takes them all.
+steps of both axes are staged through pinned host buffers, since gloo takes
+CUDA tensors for ``all_reduce`` and ``broadcast`` only; NCCL takes them all.
 """
 
 import contextlib
+import functools
 from dataclasses import dataclass, replace
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -134,12 +143,28 @@ def plan_layout(num_nodes: int, param_shards: int, device_type: str,
                 gang: Optional[int] = None) -> Tuple[Tuple[int, int, int], int]:
     """((seed, nodes, param), devices) of a run, or of a gang of ``gang``
     lanes (the JAX gang's compiled batch) with :func:`plan_gang_param_layout`.
-    The port runs no seed or node axis: the param axis is the group's world,
-    and devices the other axes would take go unused."""
+
+    With ``param_shards`` 1 a run's node axis is every planned device, as the
+    JAX package's ``make_mesh(tpu.num_devices)`` spans them; whether the
+    nodes divide it is checked where the run starts
+    (:func:`check_node_axis`).  Above 1 the param axis is the group's world
+    (:func:`plan_param_layout`), and a node axis the plan leaves beside it
+    goes unused: the port runs one axis at a time.  The port runs no seed
+    axis: a gang runs in one process or over a param group."""
     n_dev = layout_devices(device_type, param_shards, num_devices)
     if gang is not None:
         return plan_gang_param_layout(gang, num_nodes, param_shards, n_dev), n_dev
+    if param_shards == 1:
+        return (1, n_dev, 1), n_dev
     return plan_param_layout(num_nodes, param_shards, n_dev), n_dev
+
+
+def check_node_axis(num_nodes: int, world: int) -> None:
+    """Refuse a node axis that does not divide the nodes, in the JAX
+    package's words (its ``shard_step``)."""
+    if num_nodes % world != 0:
+        raise ValueError(
+            f"num_nodes={num_nodes} not divisible by mesh node axis {world}")
 
 
 def block(total: int, world: int, rank: int) -> Tuple[int, int]:
@@ -208,16 +233,250 @@ class ParamGroup:
                 f"rank 0 on {self.device}, rows {rows}, columns {cols} of {self.flat_dim}")
 
 
+def window_frame(num_nodes: int, offsets: Sequence[int]) -> Tuple[Dict[int, int], int, int]:
+    """The circulant offsets as signed steps, and the window they span.
+
+    Each offset o in [0, N) is taken as o or o - N: the offsets and 0 (the
+    receiver's own row) are cut at their largest circular gap, so that the
+    window ``[i + low, i + high]`` of receiver i's senders is as short as
+    it can be.  Returns ({offset mod N: signed step}, low, high), with
+    low <= 0 <= high."""
+    n = int(num_nodes)
+    points = sorted({int(o) % n for o in offsets} | {0})
+    gaps = [(points[(j + 1) % len(points)] - points[j]) % n or n for j in range(len(points))]
+    start = points[(gaps.index(max(gaps)) + 1) % len(points)]
+    zero = (0 - start) % n
+    signed = {p: (p - start) % n - zero for p in points}
+    return signed, min(signed.values()), max(signed.values())
+
+
+@dataclass(frozen=True)
+class NodeGroup:
+    """One rank's place in a node group: rank r of W trains, attacks,
+    exchanges and aggregates the nodes ``[r N / W, (r + 1) N / W)``
+    (:meth:`rows`), the JAX package's node-sharded mesh.  ``offsets`` (the
+    exchange's circulant offsets, bound by the round program) make the
+    exchange the offset-masked row exchange (:func:`exchange_rows`): the
+    rank receives the window of rows its receivers' senders hold; without
+    them it is the dense ``all_gather`` of every rank's rows."""
+
+    rank: int
+    world: int
+    backend: str
+    device: torch.device
+    num_nodes: int = 0
+    offsets: Tuple[int, ...] = ()
+
+    def bind(self, num_nodes: int, offsets: Optional[Sequence[int]] = None) -> "NodeGroup":
+        """This group over ``num_nodes`` nodes (a multiple of the world), the
+        window exchange over ``offsets`` when given."""
+        check_node_axis(num_nodes, self.world)
+        return replace(self, num_nodes=int(num_nodes),
+                       offsets=tuple(int(o) % int(num_nodes) for o in offsets or ()))
+
+    @property
+    def staged(self) -> bool:
+        """gloo over CUDA tensors: the exchange goes through pinned host
+        buffers."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    @property
+    def rows(self) -> Tuple[int, int]:
+        """[lo, hi) of this rank's node block."""
+        return block(self.num_nodes, self.world, self.rank)
+
+    def row_counts(self) -> List[int]:
+        """Node rows of every rank, in rank order."""
+        return [hi - lo for lo, hi in (block(self.num_nodes, self.world, r)
+                                       for r in range(self.world))]
+
+    @property
+    def windowed(self) -> bool:
+        """Whether the exchange is the offset-masked window (else all_gather)."""
+        return bool(self.offsets)
+
+    def frame(self) -> Tuple[Dict[int, int], int, int]:
+        """:func:`window_frame` of the bound offsets."""
+        return window_frame(self.num_nodes, self.offsets)
+
+    def window_rows(self, rank: Optional[int] = None) -> List[int]:
+        """The node ids of ``rank``'s window (this rank's by default), in
+        window order: ``lo + low`` to ``hi - 1 + high``, mod N."""
+        lo, hi = block(self.num_nodes, self.world, self.rank if rank is None else rank)
+        _, low, high = self.frame()
+        return [(g % self.num_nodes) for g in range(lo + low, hi + high)]
+
+    def positions(self, offsets: Sequence[int]) -> List[int]:
+        """Where receiver 0 of the block finds its sender at each offset:
+        the window row ``signed(o) - low``; receiver i's is that plus i."""
+        signed, low, _ = self.frame()
+        return [signed[int(o) % self.num_nodes] - low for o in offsets]
+
+    def own_window_rows(self) -> Tuple[int, int]:
+        """[start, stop) of the block's own rows within its window."""
+        _, low, _ = self.frame()
+        r = self.rows[1] - self.rows[0]
+        return -low, -low + r
+
+    def describe(self) -> str:
+        """The layout line: world, backend, exchange, each rank's block and,
+        under the window exchange, the rows it receives."""
+        blocks = " ".join(f"[{lo},{hi})" for lo, hi in
+                          (block(self.num_nodes, self.world, r) for r in range(self.world)))
+        staged = ", staged through pinned host memory" if self.staged else ""
+        if not self.windowed:
+            how = f"all_gather of every rank's rows (each receives {self.num_nodes} rows)"
+        else:
+            wins = "; ".join(f"rank {r}: {_ranges(self.window_rows(r))}"
+                             for r in range(self.world))
+            how = (f"window exchange at offsets {list(self.offsets)}, rows received "
+                   f"{wins}")
+        return (f"node group: world {self.world}, backend {self.backend}{staged}, "
+                f"rank 0 on {self.device}, node blocks {blocks}; {how}")
+
+
+def _ranges(ids: Sequence[int]) -> str:
+    """Node ids as runs: ``14-15,0-5``."""
+    runs: List[List[int]] = []
+    for g in ids:
+        if runs and g == runs[-1][1] + 1:
+            runs[-1][1] = g
+        else:
+            runs.append([g, g])
+    return ",".join(f"{a}" if a == b else f"{a}-{b}" for a, b in runs)
+
+
+@functools.lru_cache(maxsize=64)
+def _window_plan(num_nodes: int, world: int, offsets: Tuple[int, ...], rank: int):
+    """The all_to_all of a window exchange, for ``rank``: (the local row
+    indices it sends, receiver by receiver; its send counts; its receive
+    counts, sender by sender; the window positions the received rows fill,
+    in the order they arrive)."""
+    g = NodeGroup(rank, world, "", torch.device("cpu"), num_nodes, offsets)
+    owner = [q for q in range(world) for _ in range(g.row_counts()[q])]
+    lo = g.rows[0]
+    send, send_counts = [], []
+    for q in range(world):
+        mine = [x - lo for x in g.window_rows(q) if owner[x] == rank]
+        send += mine
+        send_counts.append(len(mine))
+    win = g.window_rows()
+    recv_pos = [w for q in range(world) for w, x in enumerate(win) if owner[x] == q]
+    recv_counts = [sum(owner[x] == q for x in win) for q in range(world)]
+    return tuple(send), tuple(send_counts), tuple(recv_counts), tuple(recv_pos)
+
+
+# What this process's exchanges received (rows, bytes), for the tests and
+# the card's report; reset with reset_exchange_counts().
+EXCHANGE_COUNTS: Dict[str, int] = {"calls": 0, "rows": 0, "rows_from_others": 0, "bytes": 0}
+
+
+def reset_exchange_counts() -> None:
+    for k in EXCHANGE_COUNTS:
+        EXCHANGE_COUNTS[k] = 0
+
+
+def _count_exchange(rows: int, own: int, row_bytes: int) -> None:
+    EXCHANGE_COUNTS["calls"] += 1
+    EXCHANGE_COUNTS["rows"] += rows
+    EXCHANGE_COUNTS["rows_from_others"] += rows - own
+    EXCHANGE_COUNTS["bytes"] += (rows - own) * row_bytes
+
+
+def exchange_rows(rows: torch.Tensor, group: NodeGroup) -> torch.Tensor:
+    """The neighbour exchange of a node group: this rank's [R_r, P]
+    broadcast rows -> the whole [N, P] (one ``all_gather``), or under the
+    window exchange the rank's [R_r + high - low, P] window (one
+    ``all_to_all_single`` whose splits carry exactly the rows each
+    receiver's window holds of the sender's block: a rank receives no other
+    row)."""
+    row_bytes = rows[0].numel() * rows.element_size() if rows.shape[0] else 0
+    lo, hi = group.rows
+    if not group.windowed:
+        whole = gather_rows(rows, group)
+        _count_exchange(whole.shape[0], hi - lo, row_bytes)
+        return whole
+    send_idx, send_counts, recv_counts, recv_pos = _window_plan(
+        group.num_nodes, group.world, group.offsets, group.rank)
+    send = rows[_offsets_on(send_idx, rows.device).long()] if send_idx else rows[:0]
+    recv = torch.empty((sum(recv_counts),) + tuple(rows.shape[1:]), dtype=rows.dtype,
+                       device=rows.device)
+    _all_to_all(recv, send, recv_counts, send_counts, group)
+    own = recv_counts[group.rank]
+    _count_exchange(recv.shape[0], own, row_bytes)
+    if list(recv_pos) == list(range(len(recv_pos))):
+        return recv
+    window = torch.empty_like(recv)
+    window[_offsets_on(recv_pos, rows.device).long()] = recv
+    return window
+
+
+@functools.lru_cache(maxsize=64)
+def _offsets_on(values: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """Small host integers as a device tensor, made once per (values,
+    device)."""
+    return torch.tensor(values, dtype=torch.int64, device=device)
+
+
+# The round-time node scope: the bound node group while a node-axis round
+# runs (the counterpart of param_group_scope).
+_NODE_SCOPE: List[Optional[NodeGroup]] = []
+
+
+@contextlib.contextmanager
+def node_block_scope(group: Optional[NodeGroup]):
+    """Activate ``group`` for the node-block helpers (aggregation/base.py,
+    the attacks); None turns them off inside."""
+    _NODE_SCOPE.append(group)
+    try:
+        yield
+    finally:
+        _NODE_SCOPE.pop()
+
+
+def active_node_group() -> Optional[NodeGroup]:
+    """The innermost active node group, or None."""
+    return _NODE_SCOPE[-1] if _NODE_SCOPE else None
+
+
+def node_rows(t: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a whole [N, ...] tensor under a node scope
+    (``t`` off it)."""
+    group = active_node_group()
+    if group is None:
+        return t
+    lo, hi = group.rows
+    return t[lo:hi]
+
+
+def sender_total_(t: torch.Tensor) -> torch.Tensor:
+    """A sum over the receivers of a per-sender count: the block's partial
+    summed over the node group, in place (``t`` off the scope)."""
+    group = active_node_group()
+    if group is None:
+        return t
+    return all_reduce_sum_(t, group)
+
+
+def whole_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's [R_r, ...] block of a per-node tensor gathered into the
+    whole [N, ...] under a node scope (``t`` off it)."""
+    group = active_node_group()
+    if group is None:
+        return t
+    return gather_rows(t, group)
+
+
 # The group of this process, set once by the launcher in each rank.
-_PROCESS_GROUP: List[ParamGroup] = []
+_PROCESS_GROUP: List[Union[ParamGroup, NodeGroup]] = []
 
 
-def set_process_group(group: Optional[ParamGroup]) -> None:
+def set_process_group(group: Optional[Union[ParamGroup, NodeGroup]]) -> None:
     _PROCESS_GROUP[:] = [] if group is None else [group]
 
 
-def process_group() -> Optional[ParamGroup]:
-    """This process's rank in a param group, or None outside one."""
+def process_group() -> Optional[Union[ParamGroup, NodeGroup]]:
+    """This process's rank in a param or node group, or None outside one."""
     return _PROCESS_GROUP[0] if _PROCESS_GROUP else None
 
 

@@ -141,7 +141,7 @@ class ServeDaemon:
             )
         from murmura_tpu_torch.utils.factories import refuse_sharded_command
 
-        refuse_sharded_command(config, "serve")
+        refuse_sharded_command(config, "serve", str(device).split(":")[0])
         s = config.serve
         self.config = config
         self.device = device

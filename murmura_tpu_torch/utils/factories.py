@@ -25,6 +25,12 @@ are that rank's sharded programs (core/gang.py), and only rank 0 gets the
 members' telemetry writers.  The frontier, the grid and the serve daemon,
 which build their gangs here too, refuse ``tpu.param_shards`` > 1 by name
 (:func:`refuse_sharded_command`): they do not lay out param groups.
+A ``backend: tpu`` run at ``tpu.param_shards: 1`` whose planned node axis
+is above 1 (:func:`node_axis_of`) runs as a node group's ranks
+(parallel/launch.py, from the CLI's ``run``); every section that axis does
+not run yet is refused by name (:func:`node_axis_sections`), and so are the
+gangs, the frontier, the grid and the serve daemon at such a layout.  A node
+axis of 1 refuses nothing.
 """
 
 import os
@@ -43,7 +49,7 @@ from murmura_tpu_torch.attacks.adaptive import (
 from murmura_tpu_torch.attacks.base import Attack, select_compromised
 from murmura_tpu_torch.config.schema import Config
 from murmura_tpu_torch.core.network import Network
-from murmura_tpu_torch.core.rounds import build_round_program
+from murmura_tpu_torch.core.rounds import PROBE_RULES, ROW_READING_ATTACKS, build_round_program
 from murmura_tpu_torch.core.stale import StalenessSpec
 from murmura_tpu_torch.levers import refusal_reason
 from murmura_tpu_torch.data.registry import build_federated_data
@@ -52,7 +58,7 @@ from murmura_tpu_torch.faults.schedule import FaultSchedule, FaultSpec
 from murmura_tpu_torch.models.registry import build_model
 from murmura_tpu_torch.ops.compress import CompressionSpec
 from murmura_tpu_torch.ops.flatten import model_dimension, padded_dim
-from murmura_tpu_torch.parallel.mesh import process_group
+from murmura_tpu_torch.parallel.mesh import check_node_axis, layout_devices, process_group
 from murmura_tpu_torch.population import PopulationNetwork, PopulationSpec
 from murmura_tpu_torch.topology.dynamic import MobilityModel
 from murmura_tpu_torch.topology.generators import create_topology
@@ -77,13 +83,79 @@ SHARDING_UNPORTED = {
 }
 
 
-def refuse_sharded_command(config: Config, command: str) -> None:
-    """Refuse ``command`` (frontier, grid or serve) on a param-sharded
-    config by name: it would otherwise run its gangs unsharded in one
+# The commands the node axis does not run yet (ROADMAP Queue A): each runs
+# gangs, which the JAX package lays on its ("seed", "nodes") mesh.
+NODE_AXIS_UNPORTED = {
+    "frontier": "frontier over a node axis above 1 (each cell's gang over a node group)",
+    "grid": "grid over a node axis above 1 (each bucket's gang over a node group)",
+    "serve": "serve over a node axis above 1 (each bucket's gang over a node group)",
+    "gang": "a gang (sweep, run --seeds) over a node axis above 1",
+}
+
+
+def refuse_sharded_command(config: Config, command: str, device_type=None) -> None:
+    """Refuse ``command`` (frontier, grid, serve, or a gang) on a
+    param-sharded config, or at a planned node axis above 1 (on
+    ``device_type``), by name: it would otherwise run its gangs in one
     process."""
-    if param_shards_of(config) > 1:
+    if command in SHARDING_UNPORTED and param_shards_of(config) > 1:
         raise ConfigError("the PyTorch port does not run these config sections yet: "
                           + SHARDING_UNPORTED[command])
+    if node_axis_of(config, device_type) > 1:
+        raise ConfigError("the PyTorch port does not run these config sections yet: "
+                          + NODE_AXIS_UNPORTED[command])
+
+
+def node_axis_of(config: Config, device_type=None) -> int:
+    """The planned node axis of a ``backend: tpu`` run at
+    ``tpu.param_shards: 1`` on ``device_type`` (parallel/mesh.py
+    ``plan_layout``): ``tpu.num_devices``, else the visible cards on CUDA
+    and 1 on the CPU (None: CUDA when a card is visible); 1 otherwise."""
+    if config.backend != "tpu" or config.tpu.param_shards != 1:
+        return 1
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        return 1 if config.tpu.num_devices is None else int(config.tpu.num_devices)
+    return layout_devices(str(device_type), 1, config.tpu.num_devices)
+
+
+def node_axis_sections(config: Config) -> List[str]:
+    """The enabled sections of ``config`` that the node axis does not run
+    yet (ROADMAP Queue A)."""
+    a = config.attack
+    attack_on = a.enabled and a.type is not None
+    rule = config.aggregation.algorithm
+    return [name for name, on in (
+        (f"aggregation.algorithm: {rule} (its probe forwards over a node group)",
+         rule in PROBE_RULES),
+        ("dmtt", config.dmtt is not None),
+        ("compression", config.compression.algorithm != "none"),
+        ("exchange.max_staleness", config.exchange.max_staleness > 0),
+        ("exchange.pipeline", config.exchange.pipeline),
+        ("attack.adaptive", attack_on and a.adaptive.enabled),
+        (f"attack.type: {a.type} (it reads other nodes' rows)",
+         attack_on and a.type in ROW_READING_ATTACKS),
+        ("population", config.population is not None and config.population.enabled),
+    ) if on]
+
+
+def refuse_node_axis(config: Config, device_type) -> None:
+    """Raise ConfigError naming every section a planned node axis above 1
+    does not run yet, or for a node count the axis does not divide (in the
+    JAX package's words); nothing at a node axis of 1."""
+    world = node_axis_of(config, device_type)
+    if world <= 1:
+        return
+    try:
+        check_node_axis(config.topology.num_nodes, world)
+    except ValueError as e:
+        raise ConfigError(str(e)) from None
+    refused = node_axis_sections(config)
+    if refused:
+        raise ConfigError(
+            "the PyTorch port does not run these config sections over a node axis "
+            "above 1 yet: " + "; ".join(refused))
 
 
 def unported_sections(config: Config) -> List[str]:
@@ -561,6 +633,7 @@ def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None
     when a snapshot exists there (a resume with no snapshot yet is a fresh
     run).  The caller restores the snapshot (Network.restore_checkpoint)."""
     refuse_unported(config)
+    refuse_node_axis(config, torch.device(device).type)
     if config.backend == "distributed":
         # An in-process Network would be another backend than the config
         # asks for (the JAX factories build one silently).
@@ -598,6 +671,7 @@ def _gang_members_and_programs(config: Config, device, seeds=None, members=None,
     programs: (members, topology, attack, programs)."""
     from murmura_tpu_torch.core.gang import gang_hp_inputs, resolve_members
 
+    refuse_sharded_command(config, "gang", torch.device(device).type)
     if config.backend == "distributed":
         raise ConfigError(
             "gang-batched sweeps need the jitted backends; backend: "

@@ -19,7 +19,10 @@ trust update, card against CPU, have their tests too, as do the
 char-LSTM's and the CelebA CNN's forward and backward at their published
 widths (both ``conv_impl``s), ``im2col`` against ``direct``, and one DMTT
 gang round under mobility, each card against CPU within a scaled 1e-4
-(``im2col`` against ``direct`` 1e-5 in float32, 2e-2 in bfloat16).
+(``im2col`` against ``direct`` 1e-5 in float32, 2e-2 in bfloat16).  A node
+block's kernels (the node axis): the candidate select's window entry,
+bit-equal to its plain version and to the block's rows of the whole
+network's call, and the circulant kernel's offset-0 pieces on a window.
 Tolerances are chip_smoke.py's: |d2 - plain| <= 1e-5 (|a_i|^2 + |b_j|^2)
 for the pairwise kernel (norms of the centered rows when it takes a
 center), whose Gram identity cancels in float32;
@@ -1235,3 +1238,67 @@ def test_durability_cell_on_the_card(dev):
     assert D.resume_cell_findings("krum", "dense", "cuda") == []
     assert K.LAUNCHES["pairwise_sq_distances"] > 0
     assert K.PLAIN_CALLS["pairwise_sq_distances"] == 0
+
+
+# ---------------------------------------------------------------------------
+# A node block's kernels (the node axis, parallel/mesh.py): the candidate
+# select window entry and the circulant pieces on a window.
+
+
+def _block_window(bcast, lo, hi, offsets):
+    """(the window rows of receivers [lo, hi) at ``offsets``, their
+    positions), as parallel/mesh.py lays them."""
+    from murmura_tpu_torch.parallel.mesh import window_frame
+
+    n = bcast.shape[0]
+    signed, low, high = window_frame(n, offsets)
+    idx = torch.tensor([g % n for g in range(lo + low, hi + high)], device=bcast.device)
+    return bcast[idx].contiguous(), [signed[o % n] - low for o in offsets]
+
+
+# (N, block, offsets, P): the ring block of the flagship's node axis of 2
+# (offsets -2 .. +2), the exponential offsets on 12 nodes over 4 ranks
+# (rows of a non-adjacent rank), m = 3 and the generic m = 9, P on 16-, 8-
+# and 4-byte rows, and a block large enough for the direct path.
+WINDOW_CASES = [(16, (8, 16), [1, 2, 14, 15], 100_003), (16, (0, 8), [1, 2, 14, 15], 100_002),
+                (12, (0, 3), [1, 2, 4, 8], 4099), (16, (4, 8), [1, 15], 5001),
+                (16, (12, 16), list(range(1, 9)), 777), (1200, (0, 600), [1, 2, 1198, 1199], 257)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,rows,offsets,p", WINDOW_CASES)
+def test_candidate_window_entry_equals_plain_and_the_whole_call(dev, dtype, n, rows, offsets, p):
+    own, b = (x.to(dtype) for x in (_rows(p, n, p, dev), _rows(p + 1, n, p, dev)))
+    lo, hi = rows
+    window, pos = _block_window(b, lo, hi, offsets)
+    m = len(offsets) + 1
+    for median, trim in ((True, 0), (False, 0), (False, (m - 1) // 2)):
+        before = C.LAUNCHES["candidate_select"]
+        got = C.candidate_select_window(own[lo:hi].contiguous(), window, pos, trim=trim,
+                                        median=median)
+        torch.cuda.synchronize()
+        assert C.LAUNCHES["candidate_select"] == before + 1
+        assert got.dtype == dtype and got.shape == (hi - lo, p)
+        ref = C.candidate_select_window_plain(own[lo:hi].contiguous(), window, pos, trim=trim,
+                                              median=median)
+        assert torch.equal(got, ref), (median, trim)
+        # The block's rows of the whole network's call, bit for bit.
+        whole = C.candidate_select(own, b, offsets, trim=trim, median=median)
+        assert torch.equal(got, whole[lo:hi]), (median, trim)
+
+
+@pytest.mark.parametrize("n,rows,offsets,p", WINDOW_CASES[:5])
+def test_circulant_pieces_on_a_window_match_plain(dev, n, rows, offsets, p):
+    own, b = _rows(p, n, p, dev), _rows(p + 1, n, p, dev)
+    lo, hi = rows
+    window, pos = _block_window(b, lo, hi, offsets)
+    before = K.LAUNCHES["circulant_sq_distances"]
+    got = K.circulant_window_sq_distances(own[lo:hi].contiguous(), window, pos)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["circulant_sq_distances"] == before + len(offsets)
+    ref = K.circulant_window_sq_distances(own[lo:hi].cpu(), window.cpu(), pos).to(dev)
+    tol = 1e-5 * torch.clamp(ref.abs(), min=1.0)
+    assert got.shape == (len(offsets), hi - lo)
+    assert bool(torch.all((got - ref).abs() <= tol))
+    whole = K.circulant_sq_distances_plain(own.cpu(), b.cpu(), offsets).to(dev)[:, lo:hi]
+    assert bool(torch.all((got - whole).abs() <= tol))

@@ -26,9 +26,10 @@ and it never moves to the CPU unless asked to.
   network, eval), and ``check --device cpu`` through the CLI (every family
   module of murmura_tpu_torch/analysis/ imported; the lint, the static
   contracts and the serving and observability families run, the other
-  families in test_torch_analysis_families.py), loads no ``jax`` and no
-  ``murmura_tpu.*`` module (counted against what the interpreter had loaded
-  at start).
+  families in test_torch_analysis_families.py), and a Krum round over a
+  node group of 2 spawned ranks (``launch(..., axis="nodes")``), loads no
+  ``jax`` and no ``murmura_tpu.*`` module (counted against what the
+  interpreter had loaded at start), and neither does either rank.
 - Every module of the port imports where ``zmq`` cannot be imported.
 - An AST scan of the port and of chip_smoke.py finds no such import.
 - Without CUDA, ``python -m murmura_tpu_torch run`` without ``--device
@@ -241,6 +242,12 @@ with contextlib.redirect_stdout(out):
     cli.main(["check", "--device", "cpu", "--no-durability", "--no-adaptive", "--no-staleness",
               "--no-pipeline", "--no-sharded", "--no-compose"])
 assert out.getvalue().strip() == "murmura check: clean", out.getvalue()
+sys.path.insert(0, "tests")
+import torch_node_axis_cases
+from murmura_tpu_torch.parallel.launch import launch
+ranks = launch(torch_node_axis_cases.run_cases,
+               ([("rule", {"rule": "krum", "exchange": "ppermute"})],), world=2, axis="nodes")
+assert [r["forbidden_modules"] for r in ranks] == [[], []], [r["forbidden_modules"] for r in ranks]
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "murmura_tpu"})
 print("LOADED", bad)

@@ -264,7 +264,20 @@ Phases, each of which raises (and exits non-zero) on failure:
    same run in one process training 8 rows a launch (decisions equal,
    parameters within a scaled 1e-4), and the rule alone from the same
    trained rows (a scaled 1e-4), each rank's launches, peak memory and
-   rows received a round printed.  Then (4e,
+   rows received a round printed.  In the same ranks re-bound as a seed
+   group, the seed axis (``_seed_axis_task``): the flagship at full width
+   as a gang of 4 (``run --seeds 4``, allgather and ppermute), one
+   flagship-width frontier cell (Krum x gaussian x dense, 3 strengths x 2
+   seeds, 2 stages) and one median-under-ppermute grid bucket of 4 lanes,
+   2 rounds each, against the same command in one process (both sides
+   training one member's rows a launch): every member bit-equal, the
+   artifact and the manifest equal, each rank's launches that many a member
+   it holds, summed equal to one process's; and in its param group
+   (``_param_commands_task``) sharded_model.yaml's frontier cell and Krum
+   grid bucket at ``tpu.param_shards: 2``, every Krum call in lockstep
+   (tie-aware) and the members bit-equal to one process where no pick
+   differed.  Phase 4 (e)'s gang trains R_r rows a launch on both sides
+   under the same tie-aware gate.  Then (4e,
    ``run_distributed_smoke``) uci_har_byzantine.yaml under ``backend:
    distributed`` (2 rounds) through ``python -m murmura_tpu_torch run``: the
    monitor and 10 node processes on this card; no node
@@ -3148,6 +3161,36 @@ def _snapshot_round(ckpt: Path) -> int:
         return -1
 
 
+def _start_killed(cmd, ckpt: Path, at: int, log_path: Path):
+    """Start ``cmd`` in a subprocess and, from a watcher thread, SIGKILL it
+    once ``ckpt``'s meta.json names round ``at`` or later, so that this
+    process works meanwhile (a subprocess's boot takes 20-30 s on some of
+    the card's hosts).  Returns (the thread, its record): join the thread,
+    then read whether the process was still running when it was killed
+    (``running``) and its seconds."""
+    import threading
+
+    rec: dict = {}
+
+    def watch():
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+            try:
+                while proc.poll() is None and _snapshot_round(ckpt) < at:
+                    time.sleep(0.005)
+                rec["running"] = proc.poll() is None
+                rec["returncode"] = proc.returncode
+                proc.kill()
+            finally:
+                proc.wait()
+        rec["seconds"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=watch, daemon=True)
+    thread.start()
+    return thread, rec
+
+
 def run_kill_resume(exchange: str) -> dict:
     """Phase 4, durability on the flagship's Krum under resumable_run.yaml's
     durability:, compression: (int8, error feedback) and telemetry:
@@ -3169,26 +3212,21 @@ def run_kill_resume(exchange: str) -> dict:
     expect = {kernel: (2, "==")}
     opts = {"rounds": RESUME_ROUNDS, "sections": RESUME_SECTIONS,
             "checkpoint_every": RESUME_EVERY}
-    ref = run_main_path(f"krum:durable_{exchange}", FLAGSHIP, exchange, None, expect, opts)
     name = f"krum_killed_{exchange}"
     raw, cfg, out = smoke_config(name, FLAGSHIP, exchange, None, opts)
     ckpt, run_dir = Path(raw["durability"]["checkpoint_dir"]), Path(raw["telemetry"]["dir"])
     cmd = [sys.executable, "-c", _CLI_WITH_COUNTS, "run", str(cfg), "--device", "cuda",
            "-o", str(out)]
-    t0 = time.perf_counter()
-    with open(SMOKE_DIR / f"{name}.killed.log", "w") as log:
-        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
-        try:
-            while proc.poll() is None and _snapshot_round(ckpt) < RESUME_EVERY:
-                time.sleep(0.005)
-            running = proc.poll() is None
-            proc.kill()
-        finally:
-            proc.wait()
-    killed_s = time.perf_counter() - t0
+    # The process to kill boots while the uninterrupted run runs here.
+    watcher, killed = _start_killed(cmd, ckpt, RESUME_EVERY, SMOKE_DIR / f"{name}.killed.log")
+    try:
+        ref = run_main_path(f"krum:durable_{exchange}", FLAGSHIP, exchange, None, expect, opts)
+    finally:
+        watcher.join()
+    killed_s = killed["seconds"]
     stopped = _snapshot_round(ckpt)
-    if not running:
-        raise AssertionError(f"the run exited ({proc.returncode}) before it could be killed")
+    if not killed["running"]:
+        raise AssertionError(f"the run exited ({killed['returncode']}) before it could be killed")
     t0 = time.perf_counter()
     resumed = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
     resumed_s = time.perf_counter() - t0
@@ -3417,26 +3455,22 @@ def run_gang_kill_resume() -> dict:
 
     kernel = "pairwise_sq_distances"
     opts = {"rounds": GANG_RESUME_ROUNDS, "sections": RESUME_SECTIONS, "singles": False}
-    ref = run_gang("krum:gang_durable", SWEEP_SEEDS, None, {kernel: (2, "==")}, opts)
     name = "krum_gang_killed"
     raw, cfg, out = smoke_config(name, SWEEP_SEEDS, None, None, opts)
     ckpt, run_dir = Path(raw["durability"]["checkpoint_dir"]), Path(raw["telemetry"]["dir"])
     cmd = [sys.executable, "-c", _CLI_WITH_COUNTS, "sweep", str(cfg), "--device", "cuda",
            "-o", str(out)]
-    t0 = time.perf_counter()
-    with open(SMOKE_DIR / f"{name}.killed.log", "w") as log:
-        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
-        try:
-            while proc.poll() is None and _snapshot_round(ckpt) < 5:
-                time.sleep(0.005)
-            running = proc.poll() is None
-            proc.kill()
-        finally:
-            proc.wait()
-    killed_s = time.perf_counter() - t0
+    # The process to kill boots while the uninterrupted gang runs here.
+    watcher, killed = _start_killed(cmd, ckpt, 5, SMOKE_DIR / f"{name}.killed.log")
+    try:
+        ref = run_gang("krum:gang_durable", SWEEP_SEEDS, None, {kernel: (2, "==")}, opts)
+    finally:
+        watcher.join()
+    killed_s = killed["seconds"]
     stopped = _snapshot_round(ckpt)
-    if not running:
-        raise AssertionError(f"the gang exited ({proc.returncode}) before it could be killed")
+    if not killed["running"]:
+        raise AssertionError(f"the gang exited ({killed['returncode']}) before it could be "
+                             "killed")
     t0 = time.perf_counter()
     resumed = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
     resumed_s = time.perf_counter() - t0
@@ -3925,24 +3959,20 @@ def run_serve_daemon_smoke() -> dict:
                   600, "the daemon's submissions", proc)
 
     try:
-        # The reference daemon, uninterrupted.
+        # The reference daemon, uninterrupted, and the victim, which is
+        # SIGKILLed after its first snapshot and started again: the two boot
+        # side by side.
         ref_state, ref_cfg, ref_sock = setup("ref")
-        proc, log = _start_daemon("ref", ref_cfg)
-        procs.append(proc)
+        state, cfg, sock = setup("victim")
         t0 = time.perf_counter()
-        _wait_for(lambda: _answers(ref_sock), 300, "the reference daemon's socket", proc)
+        ref_proc, ref_log = _start_daemon("ref", ref_cfg)
+        procs.append(ref_proc)
+        proc, log = _start_daemon("victim", cfg)
+        procs.append(proc)
+        _wait_for(lambda: _answers(ref_sock), 300, "the reference daemon's socket", ref_proc)
         bound_s = time.perf_counter() - t0
         for raw in tenants:
             send_request(ref_sock, {"op": "submit", "config": raw})
-        wait_done(ref_sock, proc)
-        ref_ping = send_request(ref_sock, {"op": "ping"})
-        finish(ref_sock, proc, log)
-        ref = _records(ref_state)
-
-        # The victim: SIGKILLed after its first snapshot, started again.
-        state, cfg, sock = setup("victim")
-        proc, log = _start_daemon("victim", cfg)
-        procs.append(proc)
         _wait_for(lambda: _answers(sock), 300, "the daemon's socket", proc)
         fp = [send_request(sock, {"op": "submit", "config": raw})["bucket"]
               for raw in tenants[:2]][0]
@@ -3953,6 +3983,10 @@ def run_serve_daemon_smoke() -> dict:
         log.close()
         killed_round = _snapshot_round(meta.parent)
         at_kill = {k: r["state"] for k, r in _records(state).items()}
+        wait_done(ref_sock, ref_proc)
+        ref_ping = send_request(ref_sock, {"op": "ping"})
+        finish(ref_sock, ref_proc, ref_log)
+        ref = _records(ref_state)
         t0 = time.perf_counter()
         proc, log = _start_daemon("victim", cfg)
         procs.append(proc)
@@ -4316,27 +4350,23 @@ def run_population_kill_resume(device: str = "cuda") -> dict:
         return [sys.executable, "-c", _CLI_WITH_COUNTS, "run", str(cfg), "--device", device,
                 "--quiet", "-o", str(out)]
 
+    ckpt = runs["killed"][0]
+    # The uninterrupted run and the run to kill, side by side.
     t0 = time.perf_counter()
-    ref = subprocess.run(cmd("ref"), cwd=ROOT, capture_output=True, text=True, timeout=900)
+    watcher, killed = _start_killed(cmd("killed"), ckpt, POP_RESUME_EVERY,
+                                    SMOKE_DIR / "population_killed.log")
+    try:
+        ref = subprocess.run(cmd("ref"), cwd=ROOT, capture_output=True, text=True, timeout=900)
+    finally:
+        watcher.join()
     ref_s = time.perf_counter() - t0
     (SMOKE_DIR / "population_ref.log").write_text(ref.stdout + ref.stderr)
     if ref.returncode != 0:
         raise AssertionError(f"the uninterrupted population run failed: {ref.stderr[-3000:]}")
-    ckpt = runs["killed"][0]
-    t0 = time.perf_counter()
-    with open(SMOKE_DIR / "population_killed.log", "w") as log:
-        proc = subprocess.Popen(cmd("killed"), cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
-        try:
-            while proc.poll() is None and _snapshot_round(ckpt) < POP_RESUME_EVERY:
-                time.sleep(0.002)
-            running = proc.poll() is None
-            proc.kill()
-        finally:
-            proc.wait()
-    killed_s = time.perf_counter() - t0
+    killed_s = killed["seconds"]
     stopped = _snapshot_round(ckpt)
-    if not running:
-        raise AssertionError(f"the run exited ({proc.returncode}) before it could be killed")
+    if not killed["running"]:
+        raise AssertionError(f"the run exited ({killed['returncode']}) before it could be killed")
     t0 = time.perf_counter()
     resumed = subprocess.run(cmd("killed"), cwd=ROOT, capture_output=True, text=True,
                              timeout=900)
@@ -4793,8 +4823,9 @@ def check_column_blocks(results: dict) -> dict:
     nbytes, flops, tf32 = _pairwise_work(n, n, c, False)
     _record(results, "pairwise_sq_distances", f"(own, bcast) {label}", float(err.max()),
             lambda: K.pairwise_sq_distances(o0, b0, center=centers[0]),
-            lambda: K.pairwise_sq_distances_plain(o0, b0, center=centers[0]), None,
-            nbytes, flops, in_round=False, tf32_flops=tf32)
+            lambda: K.pairwise_sq_distances_plain(o0, b0, center=centers[0]),
+            lambda: _pairwise_fns()[2](o0, b0, None), nbytes, flops, in_round=False,
+            tf32_flops=tf32)
     del full, got, err, kern_full
     # Circulant (own, bcast, offsets).
     plains = [K.circulant_sq_distances_plain(o, b, offsets) for o, b in blocks]
@@ -4821,11 +4852,25 @@ def check_column_blocks(results: dict) -> dict:
               f"call's columns: {same}", flush=True)
         if not same:
             raise AssertionError("candidate_select on column blocks differs from the full width")
+        library = stack = None
+        if kw.get("median") and m % 2 == 1:
+            # torch.median on the block's candidate stack gathered
+            # beforehand, as at full width (check_candidate_select).
+            stack = torch.stack([o0] + [torch.roll(b0, -off, dims=0) for off in offsets])
+            lib_same = torch.equal(torch.median(stack, dim=0).values,
+                                   C.candidate_select(o0, b0, offsets, **kw))
+            print(f"[blocks] candidate_select {tag}: torch.median on the block's pre-gathered "
+                  f"[{m}, {n}, {c:,}] stack equals the kernel: {lib_same}", flush=True)
+            if not lib_same:
+                raise AssertionError("candidate_select on a block disagrees with torch.median")
+
+            def library(stack=stack):
+                return torch.median(stack, dim=0)
         _record(results, "candidate_select", f"{tag} {label}", 0.0,
                 lambda kw=kw: C.candidate_select(o0, b0, offsets, **kw),
-                lambda kw=kw: C.candidate_select_plain(o0, b0, offsets, **kw), None,
+                lambda kw=kw: C.candidate_select_plain(o0, b0, offsets, **kw), library,
                 3 * n * c * 4, (m * (m - 1) / 2 + m) * n * c, in_round=False)
-        del whole
+        del whole, library, stack
     # Count sketch: each block with its columns of Sketchguard's tables
     # (S = 1000, seed 42), the [16, S] partials summed.
     tables = build_sketch_tables(p_pad, 1000, 42)
@@ -4839,10 +4884,15 @@ def check_column_blocks(results: dict) -> dict:
             float((got - SK.count_sketch(own, tables)).abs().max()),
             bool((err <= 1e-4 * scale).all()))
     nbytes = n * c * 4 + parts[0].entries.nbytes + parts[0].starts.nbytes + n * 1000 * 4
+    # The yardstick: index_add_ of the block's pre-signed rows, as at full
+    # width (check_count_sketch).
+    t0_ = parts[0].plain_on(dev)
+    signed0 = t0_["sign"] * o0
     _record(results, "count_sketch", f"(own) {label}", float(err.max()),
             lambda: SK.count_sketch(o0, parts[0]), lambda: SK.count_sketch_plain(o0, parts[0]),
-            None, nbytes, 2.0 * n * c, in_round=False)
-    del own, bcast, blocks, o0, b0, full, got, scale, err
+            lambda: torch.zeros((n, 1000), device=dev).index_add_(1, t0_["hash"], signed0),
+            nbytes, 2.0 * n * c, in_round=False)
+    del own, bcast, blocks, o0, b0, full, got, scale, err, signed0, t0_
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_all
     print(f"[blocks] the column-block checks took {out['seconds']:.2f} s", flush=True)
@@ -5215,7 +5265,7 @@ def _lockstep_check(group, agg_fn, c: int, args, out, checks: list, peak: list,
                   "rows_ok": bool(rows_ok), **gate,
                   "ok": bool(rows_ok) and gate["dist_ok"] and gate["tie_ok"],
                   "picks": sel.cpu().numpy()}
-        if int(round_idx) == 0:
+        if int(round_idx) == 0 and ref_own is not None:
             rows, den = _row_deltas(o, ref_own)
             record["trained"] = [d / den for d in rows]
         checks.append(record)
@@ -5346,25 +5396,31 @@ def _member_raw(raw: dict, seed: int) -> dict:
 
 def _gang_task(raw: dict, seeds: list, rounds: int) -> dict:
     """Phase 4 (e), a rank's part: ``raw`` as a gang of ``seeds`` over the
-    group, each round from one state, as (c)'s rounds are.  Rank 0 first
-    runs the same gang in one process (the group turned off), writing its
-    state after each round but the last for the others to restart from,
-    and each round's yardstick: the round run again from that round's
-    starting state moved by one float32 rounding (x (1 + r 2^-23), r = +-1
-    from a seeded draw), its distance from the unmoved round, scaled, the
-    largest over the members.  Then the group's gang: round 1 from the
-    initial parameters, each later round from the one-process gang's
-    state; after each, rank 0 holds every member's gathered parameters
-    against the one-process gang's.  Last, each member's single sharded
-    run (:func:`_member_raw`) in the group, each round from the same
-    state, against the group gang's member: picks, bit-equality, the
-    scaled distance.  Returns this rank's gang launches, plain calls and
-    peak memory; rank 0's the comparisons."""
+    group, each round from one state, as (c)'s rounds are.  Every run here
+    trains R_r = N / W rows a launch (``_row_block``: ROADMAP Queue C 2),
+    the rows a rank trains of a member, so that training is bit-equal
+    between the group and one process.  Rank 0 first runs the same gang in
+    one process (the group turned off), writing its state after each round
+    but the last for the others to restart from, and each round's
+    yardstick (printed): the round run again from that round's starting
+    state moved by one float32 rounding (x (1 + r 2^-23), r = +-1 from a
+    seeded draw), its distance from the unmoved round, scaled, the largest
+    over the members.  Then the group's gang: round 1 from the initial
+    parameters, each later round from the one-process gang's state, every
+    Krum call of every member held in lockstep with the full-width rule on
+    the same gathered inputs (:func:`_lockstep_check`, tie-aware); after
+    each round rank 0 holds every member's gathered parameters against the
+    one-process gang's, bit for bit.  Last, each member's single sharded
+    run (:func:`_member_raw`) in the group, each round from the same state,
+    against the group gang's member: picks, bit-equality, the scaled
+    distance.  Returns this rank's gang launches, plain calls and peak
+    memory; rank 0's the comparisons and the lockstep checks."""
     import numpy as np
     import torch
 
     from murmura_tpu_torch.config.schema import Config
     from murmura_tpu_torch.parallel.mesh import (
+        active_param_group,
         barrier,
         gather_rows,
         process_group,
@@ -5379,6 +5435,8 @@ def _gang_task(raw: dict, seeds: list, rounds: int) -> dict:
     device = group.device
     cfg = Config.model_validate(raw)
     restart_dir = SMOKE_DIR / "restart" / "gang"
+    block = cfg.topology.num_nodes // group.world
+    c = int(cfg.aggregation.params.get("num_compromised", 0))
 
     def picks_of(gang):
         sinks = [[] for _ in gang.programs]
@@ -5394,7 +5452,8 @@ def _gang_task(raw: dict, seeds: list, rounds: int) -> dict:
     if group.rank == 0:
         set_process_group(None)
         try:
-            gang = build_gang_from_config(cfg, seeds=seeds, device=device)
+            with _row_block(block):
+                gang = build_gang_from_config(cfg, seeds=seeds, device=device)
             dim = gang.program.model_dim
             sinks = picks_of(gang)
             flats = []
@@ -5405,7 +5464,8 @@ def _gang_task(raw: dict, seeds: list, rounds: int) -> dict:
                     _save_restart(gang, restart_dir, r)
             times = list(gang.round_times)
             del gang
-            yard_gang = build_gang_from_config(cfg, seeds=seeds, device=device)
+            with _row_block(block):
+                yard_gang = build_gang_from_config(cfg, seeds=seeds, device=device)
             g = torch.Generator(device=device).manual_seed(0)
             yard = []
             for r in range(rounds):
@@ -5424,18 +5484,28 @@ def _gang_task(raw: dict, seeds: list, rounds: int) -> dict:
             set_process_group(group)
         _free(device)
     barrier(group)
+    checks, lock_peak = [], [0]
+
+    def check(aggregate, args, out_):
+        _lockstep_check(active_param_group(), aggregate, c, args, out_, checks, lock_peak, None)
+
     _counted(reset=True)
     _peak(device, reset=True)
-    gang = build_gang_from_config(cfg, seeds=seeds, device=device)
+    with _row_block(block), _rule_hook(check):
+        gang = build_gang_from_config(cfg, seeds=seeds, device=device)
     sinks = picks_of(gang)
-    dists, finals, peak = [], [], 0
+    dists, bit_equal, finals, peak = [], [], [], 0
     for r in range(rounds):
         start(gang, r)
         gang.train(1)
-        peak = max(peak, _peak(device))
+        peak = max(peak, _peak(device), lock_peak[0])
         whole = gather_rows(gang.flats, gang.group, dst=0, stacked=True)
         if group.rank == 0:
+            dim = ref["flats"][r].shape[-1]
+            host = whole.float().cpu()
             dists.append([_scaled_on(whole[s], ref["flats"][r][s]) for s in range(len(seeds))])
+            bit_equal.append([bool(np.array_equal(host[s, :, :dim].numpy(), ref["flats"][r][s])
+                                   and not host[s, :, dim:].any()) for s in range(len(seeds))])
             finals.append(whole.cpu())
         del whole
     launches, plain = _counted()
@@ -5443,15 +5513,18 @@ def _gang_task(raw: dict, seeds: list, rounds: int) -> dict:
            "rows": tuple(gang.flats.shape)}
     picks = [[x["agg_selected_index"] for x in sk] for sk in sinks]
     if group.rank == 0:
-        out.update(dists=dists, round_times=list(gang.round_times), picks=picks,
-                   layout=gang.group.describe(),
+        out.update(dists=dists, bit_equal=bit_equal, round_times=list(gang.round_times),
+                   picks=picks, layout=gang.group.describe(),
+                   checks=[{k: ch[k] for k in ("ok", "differ", "kappa", "ties", "rows_ok")}
+                           for ch in checks],
                    ref={k: v for k, v in ref.items() if k != "flats"})
     del gang
     _free(device)
     singles = []
     for s, seed in enumerate(seeds):
-        net = build_network_from_config(Config.model_validate(_member_raw(raw, seed)),
-                                        device=device)
+        with _row_block(block):
+            net = build_network_from_config(Config.model_validate(_member_raw(raw, seed)),
+                                            device=device)
         sink = []
         _recording(net.program, ("agg_selected_index",), sink)
         row = {"picks_equal": [], "bit_equal": [], "scaled": []}
@@ -5668,38 +5741,54 @@ def probe_rule_raw(rule: str) -> dict:
 
 def report_sharded_gang(ranks: list, seeds: list) -> dict:
     """(e)'s gates and line.  Every round starts from the one-process
-    gang's state (round 1 from the initial parameters), so each round is a
-    one-round comparison: each member's parameters after it within the
-    yardstick of that round, the distance one float32 rounding of the
-    round's starting state makes in the one-process gang (the config's own
-    sensitivity; a lost or misplaced block moves a member by far more);
-    the same for each member's single sharded run against the member
-    (picks and bit-equality printed); each rank's pairwise launches 2 a
-    member a round, no plain call."""
+    gang's state (round 1 from the initial parameters) and every run trains
+    R_r rows a launch, so training is bit-equal and each round is a
+    one-round comparison of the rule: every Krum call of the group in
+    lockstep with the full-width rule on the same gathered inputs (a
+    differing pick within the tie the distances' measured errors allow,
+    :func:`_krum_lockstep_gate`), and each member's parameters after the
+    round bit-equal to the one-process gang's unless a pick of that member
+    differed there (then its rows are the picked candidates', which the
+    lockstep check holds); each member's single sharded run bit-equal to
+    the member, picks equal; each rank's pairwise launches 2 a member a
+    round, no plain call.  The yardstick (the config's own move under one
+    float32 rounding of the round's starting state) and the scaled
+    distances are printed beside."""
     rec, s_count = ranks[0], len(seeds)
     ref = rec["ref"]
     rounds = len(rec["dists"])
     yard = ref["yardstick"]
-    differ = [sum(int(any(a != b for a, b in zip(rec["picks"][s][r], ref["picks"][s][r])))
-                  for s in range(s_count)) for r in range(rounds)]
-    gang_ok = all(max(d) <= y for d, y in zip(rec["dists"], yard))
+    differ = [[bool(any(a != b for a, b in zip(rec["picks"][s][r], ref["picks"][s][r])))
+               for s in range(s_count)] for r in range(rounds)]
+    checks = rec["checks"]
+    lock_ok = len(checks) == rounds * s_count and all(ch["ok"] for ch in checks)
+    held = all(rec["bit_equal"][r][s] or differ[r][s]
+               for r in range(rounds) for s in range(s_count))
     singles = rec["singles"]
-    singles_ok = all(max(x["scaled"][r] for x in singles) <= yard[r] for r in range(rounds))
+    singles_ok = all(all(x["bit_equal"]) and all(x["picks_equal"]) for x in singles)
     launches = [r["launches"].get("pairwise_sq_distances", 0) for r in ranks]
     each = all(n == 2 * s_count * rounds for n in launches)
     plain = sum(r["plain"] for r in ranks)
-    ok = gang_ok and singles_ok and each and plain == 0
+    ok = lock_ok and held and singles_ok and each and plain == 0
+    ties = [(i // s_count + 1, i % s_count, t) for i, ch in enumerate(checks) for t in ch["ties"]]
     print(f"[sharded:gang] sharded_model.yaml as a gang of {s_count} seeds {seeds} over the "
           f"group of 4 on cuda:0, {rounds} rounds (rounds 2-{rounds} from the one-process "
-          f"gang's state), each rank carrying {rec['rows']} (members, own rows, P_pad): "
-          f"members' parameters against the one-process gang's, scaled, by round "
+          f"gang's state), each rank carrying {rec['rows']} (members, own rows, P_pad), every "
+          f"run training {rec['rows'][1]} rows a launch: Krum calls in lockstep with the "
+          f"full-width rule {[ch['ok'] for ch in checks]} (kappa group / full-width worst "
+          f"{max(ch['kappa'][0] for ch in checks):.3g} / "
+          f"{max(ch['kappa'][1] for ch in checks):.3g}); members whose picks differ from the "
+          f"one-process gang's by round {[sum(d) for d in differ]}"
+          + ("; ties (round, member, node: gap / tolerance) "
+             + ", ".join(f"({r}, {s}, {t['node']}: {t['gap']:.3g} / {t['tol']:.3g})"
+                         for r, s, t in ties) if ties else "")
+          + f"; members bit-equal to the one-process gang's by round {rec['bit_equal']}, "
+          f"scaled "
           + "; ".join(f"{[float(f'{x:.3g}') for x in d]}" for d in rec["dists"])
-          + f", against the yardstick {[float(f'{y:.3g}') for y in yard]}; members whose "
-          f"picks differ by round {differ}; each member's single sharded run against it: "
-          f"scaled {[[float(f'{x:.3g}') for x in row['scaled']] for row in singles]}, picks "
-          f"equal {[row['picks_equal'] for row in singles]}, bit-equal "
-          f"{[row['bit_equal'] for row in singles]}; pairwise launches by rank {launches} "
-          f"(2 a member a round), plain calls {plain}; s a gang round on rank 0 "
+          + f" (the yardstick {[float(f'{y:.3g}') for y in yard]}, printed); each member's "
+          f"single sharded run against it: bit-equal {[row['bit_equal'] for row in singles]}, "
+          f"picks equal {[row['picks_equal'] for row in singles]}; pairwise launches by rank "
+          f"{launches} (2 a member a round), plain calls {plain}; s a gang round on rank 0 "
           f"{[round(t, 4) for t in rec['round_times']]}, one process "
           f"{[round(t, 4) for t in ref['round_times']]}; peak by rank "
           f"{[round(r['peak_bytes'] / 1e9, 3) for r in ranks]} GB; task wall "
@@ -5709,8 +5798,8 @@ def report_sharded_gang(ranks: list, seeds: list) -> dict:
                              "members' single runs")
     return {"launches": {"pairwise_sq_distances": sum(launches)}, "wall": rec["wall"],
             "dists": rec["dists"], "yardstick": yard, "picks_differ": differ,
-            "singles": singles, "round_times": rec["round_times"],
-            "peaks": [r["peak_bytes"] for r in ranks]}
+            "bit_equal": rec["bit_equal"], "singles": singles,
+            "round_times": rec["round_times"], "peaks": [r["peak_bytes"] for r in ranks]}
 
 
 def report_probe_rule(rule: str, ranks: list, wall: float = None) -> dict:
@@ -5791,11 +5880,15 @@ def run_sharded_groups(raw: dict, one: dict) -> dict:
                    one_device=True)
     check_s = max(r["check"]["seconds"] for r in ranks)
     node_s = max(r["node_axis_s"] for r in ranks)
+    seed_s = max(r["seed_axis_s"] for r in ranks)
+    param_s = max(r["param_commands_s"] for r in ranks)
     out["sharded:evidential_trust"] = report_probe_rule(
         "evidential_trust", [r["evidential_trust"] for r in ranks],
-        time.perf_counter() - t0 - check_s - node_s)
+        time.perf_counter() - t0 - check_s - node_s - seed_s - param_s)
     out["check:sharded_ranks"] = [r["check"] for r in ranks]
     out.update(report_node_axis([r["node_axis"] for r in ranks], node_s))
+    out.update(report_seed_axis([r["seed_axis"] for r in ranks], seed_s))
+    out.update(report_param_commands([r["param_commands"] for r in ranks], param_s))
     return out
 
 
@@ -5814,9 +5907,15 @@ def _evidential_and_check_task(raw: dict, rounds: int) -> dict:
     check = sharded_rank_cases(group_cases())
     t2 = time.perf_counter()
     nodes = _node_axis_task(NODE_AXIS_ROUNDS)
+    t3 = time.perf_counter()
+    seeds = _seed_axis_task()
+    t4 = time.perf_counter()
+    params = _param_commands_task()
     return {"evidential_trust": probe,
             "check": {"results": check, "seconds": t2 - t1},
-            "node_axis": nodes, "node_axis_s": time.perf_counter() - t2}
+            "node_axis": nodes, "node_axis_s": t3 - t2,
+            "seed_axis": seeds, "seed_axis_s": t4 - t3,
+            "param_commands": params, "param_commands_s": time.perf_counter() - t4}
 
 
 # Phase 4 (g)'s node axis: the flagship at full width over a node axis of 2
@@ -6168,6 +6267,417 @@ def report_node_axis(ranks: list, wall: float) -> dict:
           f"the node-axis cases took {wall:.1f} s in the ranks", flush=True)
     if failed:
         raise AssertionError(f"the node axis disagrees with one process: {failed}")
+    return out
+
+
+# Phase 4 (g)'s seed axis and the frontier and the grid over a param group,
+# in (g)'s group of 2 on cuda:0: (s1)-(s3) with its ranks re-bound as a seed
+# group, (p1)-(p2) in its param group.  Each case is held against the same
+# command in one process (rank 0, the group turned off first), trained at
+# the rows a launch the group's ranks train (``_row_block``: ROADMAP Queue
+# C 2).
+SEED_AXIS_ROUNDS = 2
+SEED_AXIS_GANG = 4
+SEED_FRONTIER = {"rules": ["krum"], "attacks": ["gaussian"], "topologies": ["dense"],
+                 "points": 2, "seeds": [7, 8], "stages": 2, "rounds": SEED_AXIS_ROUNDS}
+SEED_GRID = {"rules": ["median"], "attacks": ["gaussian"], "topologies": ["dense"],
+             "strengths": [0.5, 1.0], "seeds": [7, 8], "rounds": SEED_AXIS_ROUNDS}
+PARAM_FRONTIER = {"rules": ["krum"], "attacks": ["gaussian"], "topologies": ["dense"],
+                  "points": 2, "seeds": [42], "stages": 1, "rounds": SEED_AXIS_ROUNDS}
+PARAM_GRID = {"rules": ["krum"], "attacks": ["gaussian"], "topologies": ["dense"],
+              "strengths": [0.5, 1.0], "seeds": [42], "rounds": SEED_AXIS_ROUNDS}
+# (label, command, exchange, the kernel each member launches, launches a
+# member a round)
+SEED_AXIS_CASES = (("s1_gang_allgather", "gang", "allgather", "pairwise_sq_distances", 2),
+                   ("s1_gang_ppermute", "gang", "ppermute", "circulant_sq_distances", 2),
+                   ("s2_frontier", "frontier", "allgather", "pairwise_sq_distances", 2),
+                   ("s3_grid", "grid", "ppermute", "candidate_select", 1))
+PARAM_CASES = (("p1_frontier", "frontier"), ("p2_grid", "grid"))
+_WALL_KEYS = ("wall_s", "bucket_wall_s", "mean_round_s")
+
+
+def seed_axis_raw(command: str, exchange: str) -> dict:
+    """(s1)-(s3)'s config: the flagship at full width, ``training.max_samples``
+    GANG_MAX_SAMPLES (a gang needs equal shards), SEED_AXIS_ROUNDS rounds,
+    under a frontier: or grid: block for those commands."""
+    import yaml
+
+    raw = yaml.safe_load(FLAGSHIP.read_text())
+    raw["experiment"].update(rounds=SEED_AXIS_ROUNDS, verbose=False)
+    raw["training"]["max_samples"] = GANG_MAX_SAMPLES
+    raw["tpu"]["exchange"] = exchange
+    if command == "frontier":
+        raw["frontier"] = dict(SEED_FRONTIER)
+    elif command == "grid":
+        raw["grid"] = dict(SEED_GRID)
+    return raw
+
+
+def param_command_raw(command: str) -> dict:
+    """(p1)-(p2)'s config: sharded_model.yaml at ``tpu.param_shards: 2`` under
+    a frontier: or grid: block, SEED_AXIS_ROUNDS rounds."""
+    import yaml
+
+    raw = yaml.safe_load(SHARDED_MODEL.read_text())
+    raw["experiment"].update(rounds=SEED_AXIS_ROUNDS, verbose=False)
+    raw["tpu"]["param_shards"] = 2
+    raw[command] = dict(PARAM_FRONTIER if command == "frontier" else PARAM_GRID)
+    return raw
+
+
+def _gang_command(command: str, path: Path, out_path: Path, device: str = "cuda"):
+    """``command`` through the port's CLI functions on ``device`` in this
+    process's group, or in one process outside one: ``gang`` is ``run
+    --seeds SEED_AXIS_GANG``, else ``frontier`` or ``grid``, each with ``-o
+    out_path``.  Returns (what it returned, each gang it built: the whole
+    state on the host on rank 0, the histories and labels, the rank's
+    members, the wall)."""
+    import io
+
+    from murmura_tpu_torch import cli
+    from murmura_tpu_torch.utils import factories
+
+    real = factories.build_gang_from_config
+    built = []
+
+    def keep(config, *args, **kwargs):
+        gang = real(config, *args, **kwargs)
+        built.append(gang)
+        return gang
+
+    factories.build_gang_from_config = keep
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            if command == "gang":
+                result = cli.run(path, output=out_path, device=device,
+                                 num_seeds=SEED_AXIS_GANG)[0]
+            elif command == "frontier":
+                result = cli.frontier(path, output=out_path, device=device)
+            else:
+                result = cli.grid(path, output=out_path, device=device)
+    finally:
+        factories.build_gang_from_config = real
+    wall = time.perf_counter() - t0
+    gangs = []
+    for gang in built:
+        flat, state = gang._durability_params()
+        gangs.append({"flat": None if flat is None else flat.cpu(),
+                      "state": None if state is None else {k: v.cpu() for k, v in state.items()},
+                      "histories": gang.histories, "labels": [m.label for m in gang.members],
+                      "held": int(gang.flats.shape[0]), "rows": tuple(gang.flats.shape)})
+        del flat, state
+    del built
+    _free(device)
+    return result, gangs, wall
+
+
+def _gangs_equal(got: list, ref: list, part: str = "all") -> list:
+    """Each gang's members bit-equal to the one-process gang's, one flag a
+    gang: ``part`` "all" (histories, parameters and carried state),
+    "state" (parameters and carried state) or "history"."""
+    import torch
+
+    def same(g, r):
+        state = torch.equal(g["flat"], r["flat"]) and all(
+            torch.equal(g["state"][k], v) for k, v in r["state"].items())
+        history = g["histories"] == r["histories"]
+        return {"all": state and history, "state": state, "history": history}[part]
+
+    return [len(got) == len(ref) and g["labels"] == r["labels"] and same(g, r)
+            for g, r in zip(got, ref)]
+
+
+def _history_delta(got: list, ref: list) -> dict:
+    """The gangs' histories against the one-process gangs': decisions
+    (DECISION_KEYS) equal, and the largest scaled distance of the other
+    columns (the dense Krum score apart: its Gram partials sum in another
+    order, PERF.md §2)."""
+    import numpy as np
+
+    equal, worst, score = True, 0.0, 0.0
+    for g, r in zip(got, ref):
+        for hg, hr in zip(g["histories"], r["histories"]):
+            for k, v in hr.items():
+                if k in DECISION_KEYS:
+                    equal = equal and hg[k] == v
+                elif v:
+                    d = _scaled_np(hg[k], v)
+                    if k == "agg_krum_score":
+                        score = max(score, d)
+                    else:
+                        worst = max(worst, d)
+    return {"decisions_equal": equal, "scaled": worst, "krum_score": score}
+
+
+DECISION_KEYS = ("round", "agg_selected_index", "agg_selected_own", "agg_num_candidates",
+                 "agg_alive", "agg_quarantined", "agg_attack_scrubbed", "agg_atk_accept")
+
+
+def _without(x, keys):
+    if isinstance(x, dict):
+        return {k: _without(v, keys) for k, v in x.items() if k not in keys}
+    if isinstance(x, list):
+        return [_without(v, keys) for v in x]
+    return x
+
+
+def _seed_axis_task() -> dict:
+    """Phase 4 (g), (s1)-(s3), a rank's part: (g)'s ranks re-bound as a seed
+    group of 2 (the same ``torch.distributed`` group).  For each case of
+    SEED_AXIS_CASES rank 0 first runs the command in one process (the group
+    turned off), then both ranks run it in the seed group, each holding a
+    block of the members, the kernel counters set to 0 just before and read
+    just after; both sides train 16 rows (one member's nodes) a launch.
+    Returns this rank's launches, plain calls, peak memory, members and
+    wall; rank 0's also the comparisons."""
+    import yaml
+
+    from murmura_tpu_torch.parallel.mesh import (
+        SeedGroup,
+        barrier,
+        process_group,
+        set_process_group,
+    )
+
+    pgroup = process_group()
+    seeds = SeedGroup(pgroup.rank, pgroup.world, pgroup.backend, pgroup.device)
+    device = pgroup.device
+    out = {}
+    for label, command, exchange, _, _ in SEED_AXIS_CASES:
+        raw = seed_axis_raw(command, exchange)
+        path = SMOKE_DIR / f"seed_axis_{label}.yaml"
+        if seeds.rank == 0:
+            path.write_text(yaml.safe_dump(raw, sort_keys=False))
+        barrier(pgroup)
+        block = raw["topology"]["num_nodes"]
+        rec = {}
+        if seeds.rank == 0:
+            set_process_group(None)
+            try:
+                _counted(reset=True)
+                with _row_block(block):
+                    ref, ref_gangs, ref_wall = _gang_command(
+                        command, path, SMOKE_DIR / f"seed_axis_{label}_one.json", device.type)
+                rec["ref_launches"] = _counted()[0]
+            finally:
+                set_process_group(pgroup)
+        barrier(pgroup)
+        set_process_group(seeds)
+        try:
+            _counted(reset=True)
+            _peak(device, reset=True)
+            with _row_block(block):
+                got, gangs, wall = _gang_command(command, path,
+                                                 SMOKE_DIR / f"seed_axis_{label}.json",
+                                                 device.type)
+            launches, plain = _counted()
+            rec.update(launches=launches, plain=plain, peak_bytes=_peak(device), wall=wall,
+                       held=[g["held"] for g in gangs],
+                       compiles=None if command == "gang" else [
+                           c["compiles"] for c in got["cells" if command == "frontier"
+                                                      else "buckets"]])
+            if seeds.rank == 0:
+                layout = SeedGroup(0, seeds.world, seeds.backend, device).bind(
+                    len(gangs[0]["labels"])).describe()
+                rec.update(bit_equal=_gangs_equal(gangs, ref_gangs), layout=layout,
+                           ref_wall=ref_wall, members=[len(g["labels"]) for g in gangs])
+                if command == "gang":
+                    rec["result_equal"] = got == ref
+                elif command == "frontier":
+                    rec["result_equal"] = (_without(got, ("compiles",))
+                                           == _without(ref, ("compiles",)))
+                    rec["stages"] = [c["stages"] for c in got["cells"]]
+                    rec["ref_compiles"] = [c["compiles"] for c in ref["cells"]]
+                else:
+                    rec["result_equal"] = _without(got, _WALL_KEYS) == _without(ref, _WALL_KEYS)
+                    rec["ref_compiles"] = [b["compiles"] for b in ref["buckets"]]
+                del ref, ref_gangs
+            del got, gangs
+        finally:
+            set_process_group(pgroup)
+        _free(device)
+        out[label] = rec
+    return out
+
+
+def report_seed_axis(ranks: list, wall: float) -> dict:
+    """(s1)-(s3)'s gates and lines: every gang's members bit-equal to the
+    one-process run's (histories, parameters, carried state), the command's
+    result equal (the histories; the frontier's artifact apart from
+    ``compiles``; the grid's manifest apart from the walls), every rank's
+    ``compiles`` equal; each rank's launches of the case's kernel that many
+    a member a round it holds (and a stage it ran), summed over the ranks
+    equal to the one-process run's, no other kernel, no plain call."""
+    card = card_line()
+    out, failed = {}, []
+    for label, command, exchange, kernel, per in SEED_AXIS_CASES:
+        recs = [r[label] for r in ranks]
+        rec = recs[0]
+        stages = max(rec.get("stages") or [1])
+        want = [per * sum(r["held"]) * SEED_AXIS_ROUNDS * stages for r in recs]
+        got = [r["launches"].get(kernel, 0) for r in recs]
+        stray = {k: v for r in recs for k, v in r["launches"].items() if v and k != kernel}
+        plain = sum(r["plain"] for r in recs)
+        compiles = [r["compiles"] for r in recs]
+        ok = (all(rec["bit_equal"]) and rec["result_equal"] and got == want
+              and sum(got) == rec["ref_launches"].get(kernel, 0) and not stray and plain == 0
+              and all(c == compiles[0] for c in compiles))
+        print(f"[seed_axis:{label}] the flagship at full width ({card}), {command} "
+              f"({exchange}; {rec['members']} member(s) a gang), {SEED_AXIS_ROUNDS} rounds, "
+              f"over a seed axis of 2 on cuda:0 (gloo, gathers staged through host memory), "
+              f"both sides training one member's nodes a launch: {rec['layout']}; members "
+              f"bit-equal to "
+              f"the one-process run {rec['bit_equal']}, result equal {rec['result_equal']}; "
+              f"{kernel} launches by rank {got} (want {want}), one process "
+              f"{rec['ref_launches'].get(kernel, 0)}, stray {stray}, plain calls {plain}; "
+              f"compiles by rank {compiles}, one process {rec.get('ref_compiles')}; "
+              f"{rec['wall']:.2f} s in the group, {rec['ref_wall']:.2f} s in one process; peak "
+              f"by rank {[round(r['peak_bytes'] / 1e9, 3) for r in recs]} GB: "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            failed.append(label)
+        out[f"seed:{label}"] = {"launches": {kernel: sum(got)}, "wall": rec["wall"],
+                                "ref_wall": rec["ref_wall"], "bit_equal": rec["bit_equal"],
+                                "peaks": [r["peak_bytes"] for r in recs]}
+    print(f"[seed_axis] the seed-axis cases took {wall:.1f} s in the ranks", flush=True)
+    if failed:
+        raise AssertionError(f"the seed axis disagrees with one process: {failed}")
+    return out
+
+
+def _param_commands_task() -> dict:
+    """Phase 4 (g), (p1)-(p2), a rank's part, in (g)'s param group of 2: rank
+    0 first runs the command in one process (the group turned off), then
+    both ranks run it over the group, the kernel counters set to 0 just
+    before and read just after, every Krum call of the group held in
+    lockstep with the full-width rule on the same gathered inputs
+    (:func:`_lockstep_check`, tie-aware); both sides train 8 rows (a rank's
+    node block) a launch.  Returns this rank's launches, plain calls, peak
+    memory and wall; rank 0's also the lockstep checks and the
+    comparisons."""
+    import yaml
+
+    from murmura_tpu_torch.parallel.mesh import (
+        active_param_group,
+        barrier,
+        process_group,
+        set_process_group,
+    )
+
+    group = process_group()
+    device = group.device
+    out = {}
+    for label, command in PARAM_CASES:
+        raw = param_command_raw(command)
+        path = SMOKE_DIR / f"param_{label}.yaml"
+        if group.rank == 0:
+            path.write_text(yaml.safe_dump(raw, sort_keys=False))
+        barrier(group)
+        block = raw["topology"]["num_nodes"] // group.world
+        c = int(raw["aggregation"]["params"].get("num_compromised", 0))
+        rec = {}
+        if group.rank == 0:
+            set_process_group(None)
+            try:
+                with _row_block(block):
+                    ref, ref_gangs, ref_wall = _gang_command(
+                        command, path, SMOKE_DIR / f"param_{label}_one.json", device.type)
+            finally:
+                set_process_group(group)
+        barrier(group)
+        checks, peak = [], [0]
+
+        def check(aggregate, args, out_):
+            _lockstep_check(active_param_group(), aggregate, c, args, out_, checks, peak, None)
+
+        _counted(reset=True)
+        _peak(device, reset=True)
+        with _row_block(block), _rule_hook(check):
+            got, gangs, wall = _gang_command(command, path, SMOKE_DIR / f"param_{label}.json",
+                                             device.type)
+        launches, plain = _counted()
+        rec.update(launches=launches, plain=plain, wall=wall,
+                   peak_bytes=max(peak[0], _peak(device)), members=len(gangs[0]["labels"]),
+                   rows=gangs[0]["rows"])
+        if group.rank == 0:
+            differ = sum(ch["differ"] for ch in checks)
+            rec.update(checks=[{k: ch[k] for k in ("ok", "differ", "kappa", "ties", "rows_ok")}
+                               for ch in checks], ref_wall=ref_wall, block=block,
+                       bit_equal=_gangs_equal(gangs, ref_gangs, "state"),
+                       history_equal=_gangs_equal(gangs, ref_gangs, "history"),
+                       history=_history_delta(gangs, ref_gangs), differ=differ)
+            if command == "frontier":
+                (gc_,), (rc_,) = got["cells"], ref["cells"]
+                rec["result_equal"] = ([p_["strength"] for p_ in gc_["curve"]]
+                                       == [p_["strength"] for p_ in rc_["curve"]]
+                                       and gc_["breaking_point"] == rc_["breaking_point"])
+            else:
+                rec["result_equal"] = ([c_["id"] for c_ in got["cells"]]
+                                       == [c_["id"] for c_ in ref["cells"]])
+            rec["keys_equal"] = (_without(got, _WALL_KEYS).keys()
+                                 == _without(ref, _WALL_KEYS).keys())
+            del ref, ref_gangs
+        del got, gangs
+        _free(device)
+        out[label] = rec
+    return out
+
+
+def report_param_commands(ranks: list, wall: float) -> dict:
+    """(p1)-(p2)'s gates and lines, as (c)'s and (e)'s: every Krum call of the
+    group in lockstep with the full-width rule (a differing pick within its
+    tie); where no pick differed, the members bit-equal to the one-process
+    run's and the artifact's decisions equal; each rank's pairwise launches
+    2 a member a round, no plain call."""
+    card = card_line()
+    out, failed = {}, []
+    for label, command in PARAM_CASES:
+        recs = [r[label] for r in ranks]
+        rec = recs[0]
+        checks = rec["checks"]
+        want = 2 * rec["members"] * SEED_AXIS_ROUNDS
+        got = [r["launches"].get("pairwise_sq_distances", 0) for r in recs]
+        plain = sum(r["plain"] for r in recs)
+        lock_ok = len(checks) == want // 2 and all(ch["ok"] for ch in checks)
+        hist = rec["history"]
+        held = rec["differ"] > 0 or (all(rec["bit_equal"]) and rec["result_equal"]
+                                     and hist["decisions_equal"] and hist["scaled"] <= 1e-4
+                                     and hist["krum_score"] <= 1e-3)
+        ok = lock_ok and held and rec["keys_equal"] and all(g == want for g in got) \
+            and plain == 0
+        ties = [t for ch in checks for t in ch["ties"]]
+        print(f"[sharded:{label}] sharded_model.yaml under a {command}: block at "
+              f"tpu.param_shards 2 ({card}), {rec['members']} members, {SEED_AXIS_ROUNDS} "
+              f"rounds, over (g)'s param group of 2 on cuda:0, each rank carrying {rec['rows']} "
+              f"(members, own rows, P_pad), both sides training {rec['block']} rows a launch: "
+              f"{len(checks)} "
+              f"Krum calls in lockstep with the full-width rule {all(ch['ok'] for ch in checks)} "
+              f"(kappa group / full-width worst "
+              f"{max(ch['kappa'][0] for ch in checks):.3g} / "
+              f"{max(ch['kappa'][1] for ch in checks):.3g}), picks differing {rec['differ']}"
+              + (", ties " + ", ".join(f"node {t['node']}: {t['gap']:.3g} / {t['tol']:.3g}"
+                                       for t in ties) if ties else "")
+              + f"; members' parameters and carried state bit-equal to the one-process run "
+              f"{rec['bit_equal']}, histories bit-equal {rec['history_equal']} (decisions "
+              f"equal {hist['decisions_equal']}, scaled {hist['scaled']:.3g}, the dense Krum "
+              f"score {hist['krum_score']:.3g}), the "
+              f"{'artifact' if command == 'frontier' else 'manifest'}'s keys equal "
+              f"{rec['keys_equal']} and decisions equal {rec['result_equal']}; pairwise "
+              f"launches by rank {got} (want {want}), plain calls {plain}; {rec['wall']:.2f} s "
+              f"in the group, {rec['ref_wall']:.2f} s in one process; peak by rank "
+              f"{[round(r['peak_bytes'] / 1e9, 3) for r in recs]} GB: {'ok' if ok else 'FAILED'}",
+              flush=True)
+        if not ok:
+            failed.append(label)
+        out[f"sharded:{label}"] = {"launches": {"pairwise_sq_distances": sum(got)},
+                                   "wall": rec["wall"], "bit_equal": rec["bit_equal"],
+                                   "differ": rec["differ"],
+                                   "peaks": [r["peak_bytes"] for r in recs]}
+    print(f"[sharded] the param-group frontier and grid took {wall:.1f} s in the ranks",
+          flush=True)
+    if failed:
+        raise AssertionError(f"the param-group commands disagree with one process: {failed}")
     return out
 
 

@@ -46,6 +46,18 @@ vector.  The layout is printed on a line of its own.  ``sweep`` and ``run
 over the JAX gang's lane count) and run the whole gang in each rank
 (core/gang.py).
 
+A gang at ``tpu.param_shards: 1`` (``sweep``, ``run --seeds N``, each
+frontier cell's and grid bucket's) follows the JAX package's
+``make_gang_mesh`` plan (``plan_gang_layout``, over the same devices as a
+run's node axis): a seed factor W above 1 runs W ranks of a seed group,
+rank r holding the members ``block(S, W, r)`` whole, and rank 0 prints and
+writes what the command writes.  The port runs one axis at a time: a node
+factor beside the seed axis, or a seed factor beside the param axis, goes
+unused, and the layout line says so; a plan of seed 1 runs in one process.
+``frontier`` and ``grid`` start their ranks once for the whole command
+(a seed group, or at ``tpu.param_shards`` > 1 a param group), laid out
+for the largest gang they run.
+
 A ``backend: tpu`` config at ``tpu.param_shards: 1`` lays its node axis
 over every planned device, as the JAX package's ``make_mesh`` does (on
 CUDA the visible cards or ``tpu.num_devices`` of them, on the CPU
@@ -132,7 +144,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from murmura_tpu_torch.parallel.mesh import NodeGroup, plan_layout, process_group
+from murmura_tpu_torch.parallel.mesh import NodeGroup, plan_layout, process_group, running_axis
 from murmura_tpu_torch.utils.checkpoint import has_checkpoint
 from murmura_tpu_torch.utils.seed import set_seed
 
@@ -370,15 +382,19 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
 
 
 def _print_layout(config, dev: torch.device, gang: Optional[int] = None):
-    """Print a param-sharded config's layout line (of a gang of ``gang``
-    lanes when given); returns the group's world, the param axis.  At
-    ``tpu.param_shards: 1`` (a single run) it prints the node axis's
-    layout and its group's blocks and exchange instead, after the
-    refusals, and returns (world, axis) of the group to start."""
-    from murmura_tpu_torch.utils.factories import refuse_node_axis
+    """Print a config's layout line, of a gang of ``gang`` lanes (the JAX
+    gang's compiled batch) when given, and return (world, axis) of the group
+    to start (:func:`running_axis`): the param axis where the config asks
+    for ``tpu.param_shards`` above 1, else a gang's seed axis.  A single run at ``tpu.param_shards: 1``
+    prints its node axis's layout and its group's blocks and exchange
+    instead, after the refusals."""
+    from murmura_tpu_torch.utils.factories import ConfigError, refuse_node_axis
 
-    layout, n_dev = plan_layout(config.topology.num_nodes, config.tpu.param_shards,
-                                dev.type, config.tpu.num_devices, gang=gang)
+    try:
+        layout, n_dev = plan_layout(config.topology.num_nodes, config.tpu.param_shards,
+                                    dev.type, config.tpu.num_devices, gang=gang)
+    except ValueError as e:
+        raise ConfigError(str(e)) from None
     if gang is None and config.tpu.param_shards == 1:
         world = layout[1]
         refuse_node_axis(config, dev.type)
@@ -387,14 +403,38 @@ def _print_layout(config, dev: torch.device, gang: Optional[int] = None):
               flush=True)
         print(_node_group_line(config, dev, world), flush=True)
         return world, "nodes"
-    world = layout[2]
-    how = (f"{world} ranks over {'nccl' if dev.type == 'cuda' else 'gloo'}" if world > 1
-           else "one process, unsharded, on the padded flat vector")
-    unused = (f"; the node axis of {layout[1]} goes unused (the port runs one axis at a "
-              "time)" if layout[1] > 1 and world > 1 and gang is None else "")
-    print(f"param layout (seed, nodes, param) {layout} over {n_dev} {dev.type} "
-          f"device(s): {how}{unused}", flush=True)
-    return world if gang is not None else (world, "param")
+    axis, world, unused = running_axis(layout, gang is not None, config.tpu.param_shards)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if axis == "param":
+        how = (f"{world} ranks over {backend}" if world > 1
+               else "one process, unsharded, on the padded flat vector")
+    else:
+        how = (f"{world} ranks of a seed group over {backend}, each holding a block of "
+               "whole members" if world > 1 else "one process")
+    note = ""
+    if unused:
+        names = [f"the {a if a != 'nodes' else 'node'} axis of {n}"
+                 for a, n in (u.split() for u in unused)]
+        note = (f"; {' and '.join(names)} {'goes' if len(names) == 1 else 'go'} unused (the "
+                "port runs one axis at a time)")
+    print(f"{axis} layout (seed, nodes, param) {layout} over {n_dev} {dev.type} "
+          f"device(s): {how}{note}", flush=True)
+    return world, axis
+
+
+def _gang_layout(config, dev: torch.device, lanes: int):
+    """Print the layout of a gang of ``lanes`` members (its JAX batch,
+    ``next_bucket(lanes)`` when the gang buckets) where the config lays
+    one out (``backend: tpu``, with a param axis or more than one device);
+    returns (world, axis) of the group to start, (1, None) otherwise."""
+    from murmura_tpu_torch.core.gang import next_bucket
+    from murmura_tpu_torch.utils.factories import node_axis_of
+
+    if process_group() is not None or config.backend != "tpu" or not (
+            config.tpu.param_shards > 1 or node_axis_of(config, dev.type) > 1):
+        return 1, None
+    bucket = config.sweep.bucket if config.sweep is not None else True
+    return _print_layout(config, dev, gang=next_bucket(lanes) if bucket else lanes)
 
 
 def _node_group_line(config, dev: torch.device, world: int) -> str:
@@ -491,7 +531,7 @@ def run_sweep(config, seeds, output: Optional[Path], dev: torch.device, *,
     its snapshot where asked, train it inside the retry envelope as a
     single run trains, print the members' final round and write their
     histories keyed by member label; returns (that dict, gang)."""
-    from murmura_tpu_torch.core.gang import next_bucket, resolve_members
+    from murmura_tpu_torch.core.gang import resolve_members
     from murmura_tpu_torch.utils.factories import (
         ConfigError,
         build_gang_from_config,
@@ -503,19 +543,16 @@ def run_sweep(config, seeds, output: Optional[Path], dev: torch.device, *,
     checkpoint_dir, checkpoint_every, resume, retries = resolve_durability(
         config, checkpoint_dir, checkpoint_every, resume, retries)
     enforce_require_tpu(config, dev, require_tpu)
-    group = process_group()
-    if group is None and config.backend == "tpu" and config.tpu.param_shards > 1:
-        try:
-            lanes = len(resolve_members(config, seeds))
-        except ValueError as e:
-            raise ConfigError(str(e)) from None
-        bucket = config.sweep.bucket if config.sweep is not None else True
-        world = _print_layout(config, dev, gang=next_bucket(lanes) if bucket else lanes)
-        if world > 1:
-            from murmura_tpu_torch.parallel.launch import launch
+    try:
+        lanes = len(resolve_members(config, seeds))
+    except ValueError as e:
+        raise ConfigError(str(e)) from None
+    world, axis = _gang_layout(config, dev, lanes)
+    if world > 1:
+        from murmura_tpu_torch.parallel.launch import launch
 
-            return launch(_cli_sweep_rank, (config, seeds, output, dev.type, given),
-                          world=world, device_type=dev.type)[0], None
+        return launch(_cli_sweep_rank, (config, seeds, output, dev.type, given),
+                      world=world, device_type=dev.type, axis=axis)[0], None
     gang = build_gang_from_config(config, seeds=seeds, device=dev,
                                   checkpoint_dir=checkpoint_dir if resume else None)
     print(
@@ -545,11 +582,12 @@ def run_sweep(config, seeds, output: Optional[Path], dev: torch.device, *,
     finally:
         for t in _writers(gang):
             t.close()
-    if gang.group is not None:
-        print(gang.group.describe(), flush=True)
+    group = gang.group if gang.seed_group is None else gang.seed_group
+    if group is not None:
+        print(group.describe(), flush=True)
     display_sweep(gang, histories)
     combined = {m.label: h for m, h in zip(gang.members, histories)}
-    if gang.group is not None and gang.group.rank != 0:
+    if group is not None and group.rank != 0:
         return combined, gang
     if output is not None:
         output.parent.mkdir(parents=True, exist_ok=True)
@@ -562,8 +600,9 @@ def run_sweep(config, seeds, output: Optional[Path], dev: torch.device, *,
 
 
 def _cli_sweep_rank(config, seeds, output, device, durability):
-    """One rank of a sharded gang (``sweep``, ``run --seeds``): the same
-    gang, in the rank's group; returns the histories by member label."""
+    """One rank of a gang's group (``sweep``, ``run --seeds``): the same
+    gang, in the rank's param or seed group; returns the histories by
+    member label."""
     return run_sweep(config, seeds, output, resolve_device(device), **durability)[0]
 
 
@@ -584,22 +623,39 @@ def sweep(config_path: Path, seeds: Optional[List[int]] = None,
     return run_sweep(config, seeds, output, dev, **durability)
 
 
+def _rank_zero() -> bool:
+    """Whether this process prints and writes a command's output: outside a
+    group, or rank 0 of one."""
+    group = process_group()
+    return group is None or group.rank == 0
+
+
 def frontier(config_path: Path, output: Path = Path("frontier.json"), device: str = "cuda",
              require_tpu: bool = False) -> dict:
     """Run the config's frontier grid on ``device``, write the artifact to
-    ``output`` and print its table; returns the artifact."""
+    ``output`` and print its table; returns the artifact.  Where the cells'
+    gang plan has a seed or param axis above 1 the whole command runs in the
+    ranks of one group, rank 0 writing."""
     from murmura_tpu_torch.config import load_config
-    from murmura_tpu_torch.frontier import run_frontier, write_frontier
+    from murmura_tpu_torch.frontier import frontier_gang_size, run_frontier, write_frontier
     from murmura_tpu_torch.telemetry.report import render_frontier
 
     dev = resolve_device(device)
     config = load_config(config_path)
     enforce_require_tpu(config, dev, require_tpu)
+    world, axis = _gang_layout(config, dev, frontier_gang_size(config))
+    if world > 1:
+        from murmura_tpu_torch.parallel.launch import launch
+
+        return launch(frontier, (config_path, output, device, require_tpu), world=world,
+                      device_type=dev.type, axis=axis)[0]
     f = config.frontier
     grid = f"{f.rules} x {f.attacks} x {f.topologies}" if f is not None else "default grid"
     print(f"murmura_tpu_torch frontier {config.experiment.name} "
           f"(nodes={config.topology.num_nodes}, {grid}, device={dev})", flush=True)
     artifact = run_frontier(config, progress=lambda line: print(line, flush=True), device=dev)
+    if not _rank_zero():
+        return artifact
     path = write_frontier(artifact, output)
     print(f"Frontier artifact written to {path}")
     render_frontier(artifact)
@@ -638,7 +694,9 @@ def grid(config_path: Path, output: Path = Path("grid.json"), device: str = "cud
          require_tpu: bool = False, plan_only: bool = False) -> Optional[dict]:
     """Run the config's grid on ``device`` (or, with ``plan_only``, print
     its bucket plan and run nothing), write the manifest to ``output`` and
-    print its tables; returns the manifest."""
+    print its tables; returns the manifest.  Where the largest bucket's gang
+    plan has a seed or param axis above 1 the whole grid runs in the ranks
+    of one group, every bucket's gang split over it, rank 0 writing."""
     from murmura_tpu_torch.config import load_config
     from murmura_tpu_torch.serve.scheduler import plan_grid, run_grid, write_grid
     from murmura_tpu_torch.telemetry.report import render_grid
@@ -648,15 +706,25 @@ def grid(config_path: Path, output: Path = Path("grid.json"), device: str = "cud
     enforce_require_tpu(config, dev, require_tpu)
     g = config.grid
     desc = f"{g.rules} x {g.attacks} x {g.topologies}" if g is not None else "default grid"
-    print(f"murmura_tpu_torch grid {config.experiment.name} "
-          f"(nodes={config.topology.num_nodes}, {desc}, device={dev})", flush=True)
+    header = (f"murmura_tpu_torch grid {config.experiment.name} "
+              f"(nodes={config.topology.num_nodes}, {desc}, device={dev})")
+    buckets = plan_grid(config)
     if plan_only:
-        buckets = plan_grid(config)
+        print(header, flush=True)
         for b in buckets:
             print(f"  bucket {b.key} {b.rule} x {b.attack} x {b.topology}: {len(b.cells)} cells")
         print(f"{sum(len(b.cells) for b in buckets)} cells in {len(buckets)} buckets")
         return None
+    world, axis = _gang_layout(config, dev, max(len(b.cells) for b in buckets))
+    if world > 1:
+        from murmura_tpu_torch.parallel.launch import launch
+
+        return launch(grid, (config_path, output, device, require_tpu), world=world,
+                      device_type=dev.type, axis=axis)[0]
+    print(header, flush=True)
     artifact = run_grid(config, progress=lambda line: print(line, flush=True), device=dev)
+    if not _rank_zero():
+        return artifact
     path = write_grid(artifact, output)
     print(f"Grid manifest written to {path} ({artifact['total_cells']} cells, "
           f"{artifact['total_compiles']} compiles)")

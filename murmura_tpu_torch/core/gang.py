@@ -51,6 +51,21 @@ keeps the same histories; rank 0 alone writes telemetry and snapshots,
 the snapshot gathered into the ordinary ``[S, N, P]`` layout with
 ``param_shards`` in its meta.
 
+Over a seed group (the JAX package's ("seed", "nodes") gang mesh laid
+seed-major; parallel/mesh.py ``SeedGroup``) rank r holds the members
+``block(S, W, r)``, each whole, and runs them as the ordinary gang above:
+their data, initial parameters, draws and programs are the rank's alone
+(``programs`` are the block's; an empty block keeps one ``template``
+program for the shapes and runs nothing).  Members are independent
+experiments, so no collective runs inside a round.  After each chunk the
+ranks gather the members' metric rows, so that every rank records every
+member's history in the one-process gang's order (so that the frontier
+and the grid read the same curves on every rank); a member's
+telemetry writer lives on the rank that trains it.  A snapshot gathers the
+members' ``[S_r, N, P]`` stacks to rank 0, which writes the one-process
+gang's snapshot byte for byte; a restore cuts each rank's block out, so a
+snapshot written at one W restores at any other.
+
 A member's learning rate and attack scale are values the gang passes to
 its programs each round, so :meth:`GangNetwork.reset_run` can change them
 without building a program: the stage reset (the frontier's) returns
@@ -96,9 +111,11 @@ from murmura_tpu_torch.core.rounds import (
 )
 from murmura_tpu_torch.ops import _build
 from murmura_tpu_torch.parallel.mesh import (
+    SeedGroup,
     barrier,
     columns_to_rows,
     gather_columns,
+    gather_objects,
     gather_rows,
     rows_to_columns,
 )
@@ -382,6 +399,10 @@ class GangNetwork:
             lane count, ``next_bucket(max(S, min_batch))`` (``S`` without
             ``bucket``); re-tenanting admits 1..batch members.  No lane
             beyond the members' runs.
+        seed_group: this rank's SeedGroup, or None: ``programs`` (and
+            ``telemetry_writers``) are then those of the rank's members
+            ``seed_group.members()`` of ``members``, and ``template`` the
+            program whose shapes an empty block takes.
     """
 
     def __init__(
@@ -399,13 +420,22 @@ class GangNetwork:
         min_batch: int = 1,
         bucket: bool = True,
         mobility=None,
+        seed_group: Optional[SeedGroup] = None,
+        template: Optional[RoundProgram] = None,
     ):
-        if len(programs) != len(members):
-            raise ValueError("one RoundProgram per member required")
-        if not programs:
+        if not members:
             raise ValueError("a gang needs at least one member")
-        check_member_compatible(programs, members)
-        program = programs[0]
+        self.seed_group = None if seed_group is None else seed_group.bind(len(members))
+        self._block = (0, len(members)) if self.seed_group is None else self.seed_group.members()
+        local = list(members)[slice(*self._block)]
+        if len(programs) != len(local):
+            raise ValueError("one RoundProgram per member required")
+        if programs:
+            check_member_compatible(programs, local)
+        elif template is None:
+            raise ValueError("a rank that holds no member needs a template program")
+        program = programs[0] if programs else template
+        self._template = program
         check_exchange_layout(program, topology)
         if mobility is not None and program.sparse:
             raise ValueError(
@@ -436,7 +466,7 @@ class GangNetwork:
         self.transfer_guard = transfer_guard
         self.recompile_guard = recompile_guard
         self.telemetry = list(telemetry_writers or [])
-        if self.telemetry and len(self.telemetry) != self.gang_size:
+        if self.telemetry and len(self.telemetry) != len(local):
             raise ValueError("one telemetry writer per member required")
 
         # One placement for the whole gang (the module docstring).
@@ -451,7 +481,7 @@ class GangNetwork:
         self._base_lr = base_lr
         self._hp = gang_hp_inputs(members)
         self._knobs: Dict[str, Any] = {}
-        self._set_knobs(self.members)
+        self._set_knobs(self._local(self.members))
         self._step = build_gang_step(self._lanes, self._comp, self._knobs)
         self._fused: Dict[Tuple[int, int], Any] = {}
         # Chunk programs built (one a (chunk, eval_every) key); a stage
@@ -473,11 +503,18 @@ class GangNetwork:
 
     @property
     def programs(self) -> List[RoundProgram]:
+        """The RoundPrograms of the members this process trains."""
         return self._lanes["programs"]
 
     @property
     def program(self) -> RoundProgram:
-        return self._lanes["programs"][0]
+        progs = self._lanes["programs"]
+        return progs[0] if progs else self._template
+
+    def _local(self, members: Sequence) -> list:
+        """This rank's part of a whole-gang member list (all of it outside
+        a seed group)."""
+        return list(members)[slice(*self._block)]
 
     @property
     def _data(self) -> Dict[str, torch.Tensor]:
@@ -488,13 +525,17 @@ class GangNetwork:
         data stacked on the node axis (each member's rank rows over a param
         group), their round-0 parameters and carried state (with host
         copies where ``retain_init`` asked for them)."""
-        group = programs[0].group
+        group = self._template.group
         own = slice(None) if group is None else slice(*group.rows)
         self._lanes.update(
-            programs=list(programs), seeds=[m.seed for m in self.members],
+            programs=list(programs), seeds=[m.seed for m in self._local(self.members)],
             data={k: torch.cat([p.data[k][own] for p in programs])
-                  for k in TRAIN_DATA_KEYS + EVAL_DATA_KEYS})
-        self.flats = torch.stack([p.init_flat for p in programs])  # [S, N, P]
+                  for k in TRAIN_DATA_KEYS + EVAL_DATA_KEYS} if programs else {})
+        if programs:
+            self.flats = torch.stack([p.init_flat for p in programs])  # [S, N, P]
+        else:
+            t = self._template.init_flat
+            self.flats = t.new_empty((0,) + tuple(t.shape))
         self.agg_states: List[Dict[str, torch.Tensor]] = [
             dict(p.init_agg_state) for p in programs]
         if self._retain_init:
@@ -517,12 +558,15 @@ class GangNetwork:
 
     @property
     def agg_state(self) -> Dict[str, torch.Tensor]:
+        if not self.agg_states:
+            return {k: v.new_empty((0,) + tuple(v.shape))
+                    for k, v in self._template.init_agg_state.items()}
         return {k: torch.stack([st[k] for st in self.agg_states]) for k in self.agg_states[0]}
 
     @agg_state.setter
     def agg_state(self, stacked: Dict[str, torch.Tensor]) -> None:
         self.agg_states = [{k: v[s] for k, v in stacked.items()}
-                           for s in range(self.gang_size)]
+                           for s in range(self.flats.shape[0])]
 
     @property
     def seed(self) -> List[int]:
@@ -533,10 +577,11 @@ class GangNetwork:
             torch.cuda.synchronize(self.device)
 
     def _set_knobs(self, members: Sequence[GangMember]) -> None:
-        """The per-member values the gang step reads every round: the
-        [S*N] learning rates where some member overrides lr, the attack
-        scales (1.0 where a member sets none) where some member overrides
-        attack_scale; None leaves the programs' own."""
+        """The per-member values the gang step reads every round (of this
+        rank's ``members``): the [S*N] learning rates where some member
+        overrides lr, the attack scales (1.0 where a member sets none) where
+        some member overrides attack_scale; None leaves the programs'
+        own."""
         n = self.flats.shape[1]  # the rows of a member (a rank's, over a group)
         step_lr = scales = None
         if "lr" in self._hp:
@@ -593,7 +638,7 @@ class GangNetwork:
         if len(labels) != len(set(labels)):
             raise ValueError(f"reset_run members are not distinct (labels: {labels})")
         self.members = members
-        self._set_knobs(members)
+        self._set_knobs(self._local(members))
         flats, states = self._init_host
         self.flats = flats.to(self.device)
         self.agg_states = [{k: v.to(self.device) for k, v in st.items()} for st in states]
@@ -617,10 +662,15 @@ class GangNetwork:
         construction check); each brings its data rows, round-0 parameters
         and carried state and its seed's closures, and the gang's lifted
         lr and attack scale become the new members'.  The gang's step and
-        chunk programs are kept: nothing is built."""
+        chunk programs are kept: nothing is built.  Over a seed group
+        ``member_programs`` (and the writers) are the rank's block of the
+        new generation."""
         members = list(members)
         progs = list(member_programs)
-        if len(progs) != len(members):
+        block = (0, len(members))
+        if self.seed_group is not None:
+            block = self.seed_group.bind(len(members)).members()
+        if len(progs) != block[1] - block[0]:
             raise ValueError("one RoundProgram per admitted member required")
         if not 1 <= len(members) <= self.batch:
             raise ValueError(
@@ -629,18 +679,24 @@ class GangNetwork:
                 "(a new compile)"
             )
         # The template (lane 0's program) against every admitted one.
-        check_member_compatible([self.program, *progs], [self.members[0], *members])
+        check_member_compatible([self.program, *progs],
+                                [self.members[0], *members[block[0]:block[1]]])
         writers = self.telemetry if telemetry_writers is None else list(telemetry_writers)
-        if writers and len(writers) != len(members):
+        if writers and len(writers) != len(progs):
             raise ValueError(
-                f"{len(writers)} telemetry writers for {len(members)} admitted members — "
+                f"{len(writers)} telemetry writers for {len(progs)} admitted members — "
                 "pass one writer per member (or an empty list) when re-tenanting"
             )
+        # An empty block keeps the last program for its shapes.
+        self._template = progs[0] if progs else self.program
+        if self.seed_group is not None:
+            self.seed_group = self.seed_group.bind(len(members))
+        self._block = block
         self.members = members
         self.gang_size = len(members)
         self.telemetry = writers
         self._set_lanes(progs)
-        self._set_knobs(members)
+        self._set_knobs(self._local(members))
         # The new programs make their one-time device copies in their first
         # chunk, as a fresh gang's do (tpu.transfer_guard exempts it).
         self._warmed.clear()
@@ -657,9 +713,11 @@ class GangNetwork:
         if not self.member_active[member]:
             return
         self.member_active[member] = False
-        if self.telemetry:
-            self.telemetry[member].emit("backend_degraded", member=self.members[member].label,
-                                        reason=reason, round=self.current_round)
+        lo, hi = self._block
+        if self.telemetry and lo <= member < hi:
+            self.telemetry[member - lo].emit("backend_degraded",
+                                             member=self.members[member].label,
+                                             reason=reason, round=self.current_round)
 
     # ------------------------------------------------------------------
 
@@ -687,7 +745,7 @@ class GangNetwork:
             # What this call built (chunk programs and nvcc builds): the JAX
             # package's compile count in every member's manifest.
             built = self.program_builds + len(_build.STARTED) - builds
-            for t, h in zip(self.telemetry, self.histories):
+            for t, h in zip(self.telemetry, self._local(self.histories)):
                 if built:
                     t.add_counters({"compiles": built})
                 t.finalize(history=h)
@@ -720,11 +778,15 @@ class GangNetwork:
             self._in_degree.update(in_deg)
             guard = (transfer_sanitizer() if self.transfer_guard and not warmup
                      and self.device.type == "cuda" else contextlib.nullcontext())
-            with guard:
-                self.flats, self.agg_states, rows = self._fused[key](
-                    self.flats, self.agg_states, adj_stack, round0, alive_stack=alive_stack)
-            # One device-to-host copy for every member's rows of the chunk.
-            flat_rows = _host_rows([(r, m) for r, ms in rows for m in ms])
+            local = self._block[1] - self._block[0]
+            flat_rows = []
+            if local:
+                with guard:
+                    self.flats, self.agg_states, rows = self._fused[key](
+                        self.flats, self.agg_states, adj_stack, round0,
+                        alive_stack=alive_stack)
+                # One device-to-host copy for every member's rows of the chunk.
+                flat_rows = _host_rows([(r, m) for r, ms in rows for m in ms])
             self._sync()
             elapsed = time.perf_counter() - t0
             self._warmed.add(key)
@@ -738,10 +800,16 @@ class GangNetwork:
                         extra["overlap"] = "pipelined"
                     t.phase_times(round0 + i, mode, elapsed / k, gang=self.gang_size, **extra)
                 t.memory_event(self.current_round - 1, self.device)
-            s_count = self.gang_size
-            for i in range(0, len(flat_rows), s_count):
-                group = flat_rows[i:i + s_count]
-                self._record_all(group[0][0], [m for _, m in group], verbose)
+            evaluated = [r + 1 for r in range(round0, round0 + k) if (r + 1) % eval_every == 0]
+            by_round = [[m for _, m in flat_rows[i * local:(i + 1) * local]]
+                        for i in range(len(evaluated))]
+            if self.seed_group is not None:
+                # Every rank records every member, in member order.
+                parts = gather_objects(by_round, self.seed_group)
+                by_round = [[m for part in parts for m in part[i]]
+                            for i in range(len(evaluated))]
+            for round_num, member_metrics in zip(evaluated, by_round):
+                self._record_all(round_num, member_metrics, verbose)
             if self.recompile_guard and not warmup and len(_build.STARTED) > builds:
                 raise RecompileError(
                     f"tpu.recompile_guard: kernel build(s) {_build.STARTED[builds:]} "
@@ -762,6 +830,7 @@ class GangNetwork:
         if self.telemetry:
             in_deg = self._in_degree.pop(round_num - 1)
             self._in_degree = {r: v for r, v in self._in_degree.items() if r >= round_num}
+        lo, hi = self._block
         for s, metrics in enumerate(member_metrics):
             if not self.member_active[s]:
                 # A frozen lane (freeze_member) computed and is not recorded.
@@ -770,12 +839,20 @@ class GangNetwork:
                                  self.program.evidential, self.attack is not None)
             self._last_stats[s] = {k[len("agg_"):]: v for k, v in metrics.items()
                                    if k.startswith("agg_")}
-            if self.telemetry:
-                self.telemetry[s].round_event(round_num, metrics, in_degree=in_deg)
+            if self.telemetry and lo <= s < hi:
+                self.telemetry[s - lo].round_event(round_num, metrics, in_degree=in_deg)
         if verbose:
             line = ", ".join(f"{m.label}={np.asarray(mm['accuracy']).mean():.4f}"
                              for m, mm in zip(self.members, member_metrics))
             print(f"Round {round_num}: {line}", flush=True)
+
+    def gather_members(self, values: Sequence) -> list:
+        """One value of each of this rank's members -> every member's, in
+        member order, on every rank (``values`` itself outside a seed
+        group)."""
+        if self.seed_group is None:
+            return list(values)
+        return [v for part in gather_objects(list(values), self.seed_group) for v in part]
 
     def get_node_statistics(self, member: int = 0) -> Dict[int, Dict[str, Any]]:
         """Per-node rule statistics of one member's last recorded round."""
@@ -793,7 +870,7 @@ class GangNetwork:
 
         t0 = time.perf_counter()
         nbytes = save_run_snapshot(directory, self)
-        if self.group is not None:
+        if self.group is not None or self.seed_group is not None:
             # Rank 0 writes: no rank goes on before the snapshot is committed.
             barrier(self.group)
         self._log_checkpoint("save", self.current_round, nbytes, time.perf_counter() - t0,
@@ -825,8 +902,14 @@ class GangNetwork:
 
     def _durability_params(self):
         """The [S, N, P] parameters and the stacked carried state; over a
-        param group the row and column blocks gathered to rank 0 (a
-        collective; (None, None) on the other ranks)."""
+        param group the row and column blocks gathered to rank 0, over a
+        seed group the members' stacks (a collective; (None, None) on the
+        other ranks)."""
+        if self.seed_group is not None:
+            flat = gather_rows(self.flats, self.seed_group, dst=0)
+            state = {k: gather_rows(v, self.seed_group, dst=0)
+                     for k, v in self.agg_state.items()}
+            return (flat, state) if self.seed_group.rank == 0 else (None, None)
         if self.group is None:
             return self.flat, self.agg_state
         sharded = self.program.sharded_state_keys
@@ -841,6 +924,11 @@ class GangNetwork:
         from murmura_tpu_torch.durability.snapshot import describe_state
 
         flat_desc, state_desc = describe_state(self.flat, self.agg_state)
+        if self.seed_group is not None:
+            # The whole gang's layout: each rank holds a block of members.
+            return ((self.gang_size,) + flat_desc[0][1:], flat_desc[1]), {
+                k: ((self.gang_size,) + shape[1:], dtype)
+                for k, (shape, dtype) in state_desc.items()}
         if self.group is None:
             return flat_desc, state_desc
         whole = (self.gang_size, self.program.num_nodes, self.program.flat_dim)
@@ -849,7 +937,12 @@ class GangNetwork:
         return (whole, flat_desc[1]), state_desc
 
     def _durability_set_params(self, flat, agg_state) -> None:
-        """Assign a restored snapshot, cut to a param group's blocks."""
+        """Assign a restored snapshot, cut to a param group's blocks or to
+        a seed group's members."""
+        if self.seed_group is not None:
+            lo, hi = self._block
+            flat = flat[lo:hi].contiguous()
+            agg_state = {k: v[lo:hi].contiguous() for k, v in agg_state.items()}
         if self.group is not None:
             lo, hi = self.group.rows
             c0, c1 = self.group.cols
@@ -861,7 +954,8 @@ class GangNetwork:
 
     def _durability_writes(self) -> bool:
         """Whether this process writes the snapshot (rank 0 of a group)."""
-        return self.group is None or self.group.rank == 0
+        group = self.group if self.seed_group is None else self.seed_group
+        return group is None or group.rank == 0
 
     def _durability_history(self):
         return {"gang_members": self.histories, "labels": self._labels()}
@@ -873,8 +967,11 @@ class GangNetwork:
         meta: Dict[str, Any] = {"gang": {"gang_size": self.gang_size,
                                          "labels": self._labels(),
                                          "member_active": list(self.member_active)}}
-        if self.telemetry:
-            meta["telemetry_run_ids"] = [t.run_id for t in self.telemetry]
+        run_ids = [t.run_id for t in self.telemetry]
+        if self.seed_group is not None:
+            run_ids = [i for part in gather_objects(run_ids, self.seed_group) for i in part]
+        if run_ids:
+            meta["telemetry_run_ids"] = run_ids
         if self.program.param_shards > 1:
             meta["param_shards"] = int(self.program.param_shards)
         return {}, meta

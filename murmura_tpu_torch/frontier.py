@@ -26,6 +26,14 @@ inside the cell instead: the gang's chunk programs
 (``GangNetwork.program_builds``, 1 for a cell whose stages all run the
 same fused chunk) plus the ``nvcc`` builds started inside the cell (0 once
 the kernels are built).  A stage reset adds none.
+
+In a group's ranks (cli.py launches them once for the command) each
+cell's gang is split over the group: over a seed group each rank trains a
+block of the members, and the histories and the members' adaptive state
+are gathered, so every rank computes the same curve, the same breaking
+point and the same next stage; over a param group every rank runs every
+member on its own node rows (core/gang.py).  Only rank 0 writes the
+artifact.
 """
 
 import json
@@ -160,6 +168,15 @@ def _members_for(strengths: Sequence[float], seeds: Sequence[int]) -> List[Dict[
     return [{"seed": int(s), "attack_scale": float(g)} for g in strengths for s in seeds]
 
 
+def frontier_gang_size(config: Config) -> int:
+    """The members of every cell's gang: the 0-strength member and
+    ``points`` strengths, each at every seed (a later stage keeps the
+    count)."""
+    f = config.frontier or FrontierConfig()
+    seeds = list(f.seeds) if f.seeds is not None else [config.experiment.seed]
+    return (1 + f.points) * len(seeds)
+
+
 def _honest_final(history: Dict[str, List[float]]) -> float:
     rows = history.get("honest_accuracy") or history.get("mean_accuracy")
     return float(rows[-1]) if rows else float("nan")
@@ -167,7 +184,8 @@ def _honest_final(history: Dict[str, List[float]]) -> float:
 
 def _adaptive_summary(gang, member: int) -> Dict[str, float]:
     """The member's adaptation state, each ``atk_*`` key's mean over the
-    compromised rows: where the attacker converged."""
+    compromised rows: where the attacker converged (``member``: its lane
+    on this rank)."""
     comp = np.asarray(gang.compromised) > 0
     out: Dict[str, float] = {}
     for key, arr in gang.agg_state.items():
@@ -232,12 +250,21 @@ def run_cell(
             gang.reset_run(members)
         histories = gang.train(rounds=rounds, eval_every=rounds, rounds_per_dispatch=rounds)
         comp = np.asarray(gang.compromised) > 0
+        adaptive = []
+        if comp.any():
+            # Over a seed group a rank holds its block of the members: their
+            # adaptation state is summarised there and gathered.
+            seeds_of = getattr(gang, "seed_group", None)
+            held = len(members) if seeds_of is None else len(gang.agg_states)
+            adaptive = [_adaptive_summary(gang, i) for i in range(held)]
+            if seeds_of is not None:
+                adaptive = gang.gather_members(adaptive)
         for i, m in enumerate(members):
             g = float(m.attack_scale)
             rec = cell.curve.setdefault(g, {"per_seed": {}, "adaptive": {}, "stage": stage})
             rec["per_seed"][str(m.seed)] = _honest_final(histories[i])
             if comp.any():
-                rec["adaptive"][str(m.seed)] = _adaptive_summary(gang, i)
+                rec["adaptive"][str(m.seed)] = adaptive[i]
         for rec in cell.curve.values():
             vals = list(rec["per_seed"].values())
             rec["mean"] = float(np.mean(vals))
@@ -295,9 +322,8 @@ def run_frontier(config: Config, progress: Optional[Callable[[str], None]] = Non
                  device="cuda") -> Dict[str, Any]:
     """Run the configured grid on ``device``; returns the artifact dict."""
     from murmura_tpu_torch.aggregation import AGGREGATORS
-    from murmura_tpu_torch.utils.factories import ConfigError, refuse_sharded_command
+    from murmura_tpu_torch.utils.factories import ConfigError
 
-    refuse_sharded_command(config, "frontier", torch.device(device).type)
     say = progress or (lambda s: None)
     f = config.frontier or FrontierConfig()
     unknown = sorted(set(f.rules) - set(AGGREGATORS))

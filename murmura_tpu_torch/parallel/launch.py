@@ -3,8 +3,9 @@ collectives).
 
 :func:`launch` runs ``fn(*args)`` in W spawned ranks of one
 ``torch.distributed`` group and returns every rank's return value; each
-rank's process group is a :class:`ParamGroup` (``axis="param"``) or a
-:class:`NodeGroup` (``axis="nodes"``):
+rank's process group is a :class:`ParamGroup` (``axis="param"``), a
+:class:`NodeGroup` (``axis="nodes"``) or a :class:`SeedGroup`
+(``axis="seed"``):
 
 - the ``spawn`` start method and a ``file://`` rendezvous in a temporary
   directory, so no TCP port is taken;
@@ -26,8 +27,10 @@ other than 0 print nothing.
 
 The CLI's ``run`` launches its ranks (cli.py) when the config's layout has
 a param axis above 1, or a node axis above 1 at ``tpu.param_shards: 1``;
-the tests and ``chip_smoke.py`` launch their own
-module-level functions.
+``sweep``, ``run --seeds``, ``frontier`` and ``grid`` launch theirs, once
+for the command, when the gang plan's param axis or (at
+``tpu.param_shards: 1``) its seed axis is above 1; the tests and
+``chip_smoke.py`` launch their own module-level functions.
 """
 
 import os
@@ -45,10 +48,11 @@ import torch
 from murmura_tpu_torch.parallel.mesh import (
     NodeGroup,
     ParamGroup,
-    plan_layout,
-    process_group,
+    SeedGroup,
     set_process_group,
 )
+
+GROUPS = {"param": ParamGroup, "nodes": NodeGroup, "seed": SeedGroup}
 
 # Seconds a collective may wait for the other ranks.
 GROUP_TIMEOUT_S = 600
@@ -83,8 +87,7 @@ def _rank_main(rank: int, fn: Callable, args: Sequence, world: int, backend: str
         sys.stdout = open(os.devnull, "w")
     dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", rank=rank,
                             world_size=world, timeout=timedelta(seconds=timeout_s))
-    cls = NodeGroup if axis == "nodes" else ParamGroup
-    set_process_group(cls(rank, world, backend, device))
+    set_process_group(GROUPS[axis](rank, world, backend, device))
     try:
         result = fn(*args)
     except BaseException as e:
@@ -100,12 +103,12 @@ def launch(fn: Callable, args: Sequence = (), *, world: int, device_type: str = 
            one_device: bool = False, timeout_s: float = GROUP_TIMEOUT_S,
            axis: str = "param") -> List[Any]:
     """``fn(*args)`` in ``world`` ranks (module-level and picklable, as
-    ``spawn`` needs) of a param or node group (``axis``); returns the
+    ``spawn`` needs) of a param, node or seed group (``axis``); returns the
     ranks' return values in rank order."""
     import torch.multiprocessing as mp
 
-    if axis not in ("param", "nodes"):
-        raise ValueError(f"a group's axis is 'param' or 'nodes', got {axis!r}")
+    if axis not in GROUPS:
+        raise ValueError(f"a group's axis is one of {sorted(GROUPS)}, got {axis!r}")
     if world < 2:
         raise ValueError(f"a {axis} group needs at least 2 ranks, got {world}")
     if device_type == "cuda":
@@ -124,20 +127,20 @@ def launch(fn: Callable, args: Sequence = (), *, world: int, device_type: str = 
                                                  one_device, tmp, timeout_s, axis),
                                nprocs=world, join=True, start_method="spawn")
         except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
-            raise _rank_failure(Path(tmp), e) from None
+            raise _rank_failure(Path(tmp), e, axis) from None
         return [pickle.loads((Path(tmp) / f"result.{r}").read_bytes()) for r in range(world)]
 
 
-def _rank_failure(tmp: Path, exc: Exception) -> Exception:
+def _rank_failure(tmp: Path, exc: Exception, axis: str) -> Exception:
     """The exception the parent raises for a failed rank: the earliest a
     rank recorded (the others' are mostly their collectives failing after
     it; a ConfigError as itself), else the exit."""
     records = sorted((pickle.loads(p.read_bytes()), p.suffix[1:]) for p in tmp.glob("error.*"))
     if not records:
-        return GroupError(f"a rank of the param group failed: {exc}")
+        return GroupError(f"a rank of the {axis} group failed: {exc}")
     (_, name, message, tb), rank = records[0]
     if name == "ConfigError":
         from murmura_tpu_torch.utils.factories import ConfigError
 
         return ConfigError(message)
-    return GroupError(f"rank {rank} of the param group failed:\n{tb}")
+    return GroupError(f"rank {rank} of the {axis} group failed:\n{tb}")

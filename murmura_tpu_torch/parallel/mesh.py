@@ -1,7 +1,8 @@
-# Copy of plan_param_layout and plan_gang_param_layout from
-# murmura_tpu/parallel/mesh.py.
-"""Param-axis sharding and the node axis over a ``torch.distributed``
-process group (the PyTorch counterpart of murmura_tpu/parallel/mesh.py).
+# Copy of plan_param_layout, plan_gang_param_layout and make_gang_mesh's
+# layout policy (plan_gang_layout) from murmura_tpu/parallel/mesh.py.
+"""Param-axis sharding, the node axis and the seed axis over a
+``torch.distributed`` process group (the PyTorch counterpart of
+murmura_tpu/parallel/mesh.py).
 
 The JAX package splits every [N, P] round tensor by columns over the
 ``param`` axis of a ("seed", "nodes", "param") mesh and lets GSPMD place the
@@ -40,11 +41,21 @@ of rows, and the neighbour exchange (:func:`exchange_rows`) is one
 receivers' senders hold (:func:`window_frame`).  The rules run on the block
 while :func:`node_block_scope` is active (aggregation/base.py).
 
+The seed axis (:class:`SeedGroup`, the JAX package's ("seed", "nodes")
+gang mesh laid seed-major) splits a gang's members: rank r holds the
+members ``block(S, W, r)`` whole and runs them as an ordinary gang
+(core/gang.py).  Members are independent experiments, so no collective
+runs inside a round; around the rounds the ranks gather each member's
+metric rows (:func:`gather_objects`) and, for a snapshot, the members'
+``[S_r, N, P]`` stacks to rank 0 (:func:`gather_rows` over the member
+counts).
+
 The launcher (parallel/launch.py) spawns the ranks and sets each one's
 :func:`process_group`.  Over gloo on CUDA tensors (several ranks on one
 card, a check of the collective code) the ``all_to_all`` and ``all_gather``
 steps of both axes are staged through pinned host buffers, since gloo takes
 CUDA tensors for ``all_reduce`` and ``broadcast`` only; NCCL takes them all.
+A seed group's gathers are staged the same way.
 """
 
 import contextlib
@@ -121,6 +132,27 @@ def plan_gang_param_layout(
     )
 
 
+def plan_gang_layout(batch: int, num_nodes: int, n_dev: int) -> Tuple[int, int]:
+    """(seed, nodes) axis sizes of a gang of ``batch`` lanes on ``n_dev``
+    devices (the JAX package's ``make_gang_mesh`` policy): seed-major when
+    the whole gang fits (``batch * num_nodes <= n_dev``), otherwise the
+    largest seed factor that divides both the device count and the gang
+    and leaves a node factor that divides the nodes; seed 1 (every device
+    on the node axis) when no larger one does.  Raises when no
+    factorization fits."""
+    if batch * num_nodes <= n_dev:
+        return batch, num_nodes
+    for s in sorted(range(1, n_dev + 1), reverse=True):
+        if n_dev % s == 0 and s <= batch and batch % s == 0:
+            if num_nodes % (n_dev // s) == 0:
+                return s, n_dev // s
+    raise ValueError(
+        f"cannot lay a gang of {batch} members x {num_nodes} nodes onto "
+        f"{n_dev} devices: no (seed, nodes) factorization divides both "
+        "axes — adjust tpu.num_devices or the gang size"
+    )
+
+
 def layout_devices(device_type: str, param_shards: int, num_devices: Optional[int]) -> int:
     """The devices a layout is planned over.  On CUDA the visible cards, or
     ``tpu.num_devices`` of them (more than are visible is refused, in the
@@ -142,21 +174,47 @@ def plan_layout(num_nodes: int, param_shards: int, device_type: str,
                 num_devices: Optional[int] = None,
                 gang: Optional[int] = None) -> Tuple[Tuple[int, int, int], int]:
     """((seed, nodes, param), devices) of a run, or of a gang of ``gang``
-    lanes (the JAX gang's compiled batch) with :func:`plan_gang_param_layout`.
+    lanes (the JAX gang's compiled batch): :func:`plan_gang_layout` at
+    ``param_shards`` 1, else :func:`plan_gang_param_layout`.
 
     With ``param_shards`` 1 a run's node axis is every planned device, as the
     JAX package's ``make_mesh(tpu.num_devices)`` spans them; whether the
     nodes divide it is checked where the run starts
     (:func:`check_node_axis`).  Above 1 the param axis is the group's world
-    (:func:`plan_param_layout`), and a node axis the plan leaves beside it
-    goes unused: the port runs one axis at a time.  The port runs no seed
-    axis: a gang runs in one process or over a param group."""
+    (:func:`plan_param_layout`).  The port runs one axis at a time: a gang
+    runs its seed axis (a seed group) where the plan's seed factor is above
+    1, and a param group where the param factor is; a factor left beside
+    the axis that runs goes unused (:func:`running_axis`)."""
     n_dev = layout_devices(device_type, param_shards, num_devices)
     if gang is not None:
+        if param_shards == 1:
+            return (*plan_gang_layout(gang, num_nodes, n_dev), 1), n_dev
         return plan_gang_param_layout(gang, num_nodes, param_shards, n_dev), n_dev
     if param_shards == 1:
         return (1, n_dev, 1), n_dev
     return plan_param_layout(num_nodes, param_shards, n_dev), n_dev
+
+
+AXES = ("seed", "nodes", "param")
+
+
+def running_axis(layout: Tuple[int, int, int], gang: bool,
+                 param_shards: int) -> Tuple[str, int, List[str]]:
+    """The axis the port runs of a planned (seed, nodes, param) layout, its
+    world, and the axes above 1 it leaves unused: the param axis where the
+    config asks for ``param_shards`` above 1 (a world of 1 where the plan
+    gives it one device: one process on the padded flat vector), else a
+    gang's seed axis, else a run's node axis (a gang's node factor is never
+    run: ROADMAP Queue A 7)."""
+    if param_shards > 1:
+        axis = "param"
+    elif gang:
+        axis = "seed"
+    else:
+        axis = "nodes"
+    world = dict(zip(AXES, layout))[axis]
+    unused = [f"{a} {n}" for a, n in zip(AXES, layout) if n > 1 and a != axis]
+    return axis, world, unused
 
 
 def check_node_axis(num_nodes: int, world: int) -> None:
@@ -335,6 +393,54 @@ class NodeGroup:
                 f"rank 0 on {self.device}, node blocks {blocks}; {how}")
 
 
+@dataclass(frozen=True)
+class SeedGroup:
+    """One rank's place in a seed group: rank r of W holds the members
+    ``block(S, W, r)`` of a gang of S (:meth:`members`; blocks may be uneven,
+    and a rank may hold none), whole, and trains, attacks, aggregates and
+    evaluates them as an ordinary gang.  ``row_counts`` are the member
+    counts, so :func:`gather_rows` gathers the members' stacks."""
+
+    rank: int
+    world: int
+    backend: str
+    device: torch.device
+    num_members: int = 0
+
+    def bind(self, num_members: int) -> "SeedGroup":
+        """This group over a gang of ``num_members``."""
+        return replace(self, num_members=int(num_members))
+
+    @property
+    def staged(self) -> bool:
+        """gloo over CUDA tensors: the gathers go through host memory."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def members(self, rank: Optional[int] = None) -> Tuple[int, int]:
+        """[lo, hi) of the members ``rank`` (this rank by default) holds."""
+        return block(self.num_members, self.world, self.rank if rank is None else rank)
+
+    def row_counts(self) -> List[int]:
+        """Members of every rank, in rank order."""
+        return [hi - lo for lo, hi in (self.members(r) for r in range(self.world))]
+
+    def describe(self) -> str:
+        """The layout line: world, backend and each rank's members."""
+        blocks = " ".join(f"[{lo},{hi})" for lo, hi in (self.members(r)
+                                                        for r in range(self.world)))
+        staged = ", gathers staged through host memory" if self.staged else ""
+        return (f"seed group: world {self.world}, backend {self.backend}{staged}, "
+                f"rank 0 on {self.device}, members {blocks} of {self.num_members}; "
+                "no collective inside a round")
+
+
+def gather_objects(obj, group) -> list:
+    """Every rank's picklable ``obj``, in rank order, on every rank."""
+    out = [None] * group.world
+    _dist().all_gather_object(out, obj)
+    return out
+
+
 def _ranges(ids: Sequence[int]) -> str:
     """Node ids as runs: ``14-15,0-5``."""
     runs: List[List[int]] = []
@@ -468,16 +574,31 @@ def whole_rows(t: torch.Tensor) -> torch.Tensor:
 
 
 # The group of this process, set once by the launcher in each rank.
-_PROCESS_GROUP: List[Union[ParamGroup, NodeGroup]] = []
+_PROCESS_GROUP: List[Union[ParamGroup, NodeGroup, SeedGroup]] = []
 
 
-def set_process_group(group: Optional[Union[ParamGroup, NodeGroup]]) -> None:
+def set_process_group(group: Optional[Union[ParamGroup, NodeGroup, SeedGroup]]) -> None:
     _PROCESS_GROUP[:] = [] if group is None else [group]
 
 
-def process_group() -> Optional[Union[ParamGroup, NodeGroup]]:
-    """This process's rank in a param or node group, or None outside one."""
+def process_group() -> Optional[Union[ParamGroup, NodeGroup, SeedGroup]]:
+    """This process's rank in a param, node or seed group, or None outside
+    one."""
     return _PROCESS_GROUP[0] if _PROCESS_GROUP else None
+
+
+def round_group() -> Optional[Union[ParamGroup, NodeGroup]]:
+    """The group a round program splits its round over: this process's
+    param or node group; None in a seed group (its members' rounds are whole)
+    and outside a group."""
+    group = process_group()
+    return None if isinstance(group, SeedGroup) else group
+
+
+def seed_group() -> Optional[SeedGroup]:
+    """This process's seed group, or None."""
+    group = process_group()
+    return group if isinstance(group, SeedGroup) else None
 
 
 # The round-time scope: the bound group while a sharded round runs.

@@ -94,8 +94,9 @@ def normalize_submission(raw: Dict[str, Any]) -> Tuple[Config, str]:
     one experiment), the multi-process ``distributed`` backend is refused
     (its lifecycle cannot ride a gang lane), and the telemetry and
     durability sections are dropped: the daemon owns both.  A tenant with
-    ``tpu.param_shards`` > 1 is refused by name: the daemon lays out no
-    param groups.
+    ``tpu.param_shards`` > 1, or whose layout plans a seed or node axis
+    above 1, is refused by name: the daemon lays out neither a seed group
+    nor a param group yet.
     """
     if not isinstance(raw, dict):
         raise SubmissionError(
@@ -141,6 +142,7 @@ class ServeDaemon:
             )
         from murmura_tpu_torch.utils.factories import refuse_sharded_command
 
+        # The daemon lays out neither a seed group nor a param group yet.
         refuse_sharded_command(config, "serve", str(device).split(":")[0])
         s = config.serve
         self.config = config

@@ -35,6 +35,14 @@ first.
 programs (1: the bucket runs its rounds as one fused chunk) plus the
 ``nvcc`` builds started inside it (each kernel builds once a process, in
 the first bucket that launches it).
+
+**In a group.**  ``grid`` (cli.py) runs in the ranks of one group where
+the largest bucket's gang plan has a seed or param axis above 1: each
+bucket's lanes are split over a seed group (the histories gathered, so
+every rank builds the same manifest), or each bucket's gang runs over a
+param group.  The manifest keeps its one-process meaning: ``compiles`` is
+one rank's (every rank builds the same), ``wall_s`` the rank's own, and
+rank 0 writes.
 """
 
 import hashlib
@@ -224,9 +232,8 @@ def plan_grid(config: Config, g: Optional[GridConfig] = None) -> List[GridBucket
     (rule x attack x topology) in the order the cells expand, keyed by the
     fingerprint of the class's config.  Builds nothing."""
     from murmura_tpu_torch.aggregation import AGGREGATORS
-    from murmura_tpu_torch.utils.factories import ConfigError, refuse_sharded_command
+    from murmura_tpu_torch.utils.factories import ConfigError
 
-    refuse_sharded_command(config, "grid")
     g = g or config.grid or GridConfig()
     unknown = sorted(set(g.rules) - set(AGGREGATORS))
     if unknown:

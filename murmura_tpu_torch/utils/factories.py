@@ -22,15 +22,19 @@ for all (each member its own DMTT trust state);
 ``build_gang_member_programs`` builds a generation's member programs alone,
 for a warm gang to admit.  In a rank of a param group the gang's members
 are that rank's sharded programs (core/gang.py), and only rank 0 gets the
-members' telemetry writers.  The frontier, the grid and the serve daemon,
-which build their gangs here too, refuse ``tpu.param_shards`` > 1 by name
-(:func:`refuse_sharded_command`): they do not lay out param groups.
+members' telemetry writers.  In a rank of a seed group both build only the
+rank's members (``SeedGroup.members``): their data, initial parameters,
+draws and programs, and their telemetry writers at the one-process gang's
+run dirs.  The frontier and the grid build their gangs here too, in the
+ranks their command launched; the serve daemon refuses a seed axis, a node
+axis and ``tpu.param_shards`` > 1 by name (:func:`refuse_sharded_command`):
+it lays out no group yet.
 A ``backend: tpu`` run at ``tpu.param_shards: 1`` whose planned node axis
 is above 1 (:func:`node_axis_of`) runs as a node group's ranks
 (parallel/launch.py, from the CLI's ``run``); every section that axis does
-not run yet is refused by name (:func:`node_axis_sections`), and so are the
-gangs, the frontier, the grid and the serve daemon at such a layout.  A node
-axis of 1 refuses nothing.
+not run yet is refused by name (:func:`node_axis_sections`).  A node axis
+of 1 refuses nothing.  A gang follows its own plan (parallel/mesh.py
+``plan_layout(gang=...)``): its seed axis, or its param axis.
 """
 
 import os
@@ -58,7 +62,13 @@ from murmura_tpu_torch.faults.schedule import FaultSchedule, FaultSpec
 from murmura_tpu_torch.models.registry import build_model
 from murmura_tpu_torch.ops.compress import CompressionSpec
 from murmura_tpu_torch.ops.flatten import model_dimension, padded_dim
-from murmura_tpu_torch.parallel.mesh import check_node_axis, layout_devices, process_group
+from murmura_tpu_torch.parallel.mesh import (
+    check_node_axis,
+    layout_devices,
+    process_group,
+    round_group,
+    seed_group,
+)
 from murmura_tpu_torch.population import PopulationNetwork, PopulationSpec
 from murmura_tpu_torch.topology.dynamic import MobilityModel
 from murmura_tpu_torch.topology.generators import create_topology
@@ -74,34 +84,31 @@ class ConfigError(ValueError):
 
 # The commands that param-axis sharding does not run yet (ROADMAP Queue A):
 # the JAX package lays each of their gangs on a ("seed", "nodes", "param")
-# mesh; the port would need a param group inside each cell, bucket or
-# served generation.
+# mesh; the serve daemon's group would have to outlive a generation.
 SHARDING_UNPORTED = {
-    "frontier": "frontier with tpu.param_shards > 1 (each cell's gang over a param group)",
-    "grid": "grid with tpu.param_shards > 1 (each bucket's gang over a param group)",
-    "serve": "serve with tpu.param_shards > 1 (each bucket's gang over a param group)",
+    "serve": "serve with tpu.param_shards > 1 (each bucket's gang over a param group; the "
+             "daemon lays out no group yet)",
 }
 
 
-# The commands the node axis does not run yet (ROADMAP Queue A): each runs
-# gangs, which the JAX package lays on its ("seed", "nodes") mesh.
+# The commands that run no seed or node group yet at a planned layout of more
+# than one device (ROADMAP Queue A): the JAX package lays each bucket's gang
+# on its ("seed", "nodes") mesh.
 NODE_AXIS_UNPORTED = {
-    "frontier": "frontier over a node axis above 1 (each cell's gang over a node group)",
-    "grid": "grid over a node axis above 1 (each bucket's gang over a node group)",
-    "serve": "serve over a node axis above 1 (each bucket's gang over a node group)",
-    "gang": "a gang (sweep, run --seeds) over a node axis above 1",
+    "serve": "serve over a seed axis or a node axis above 1 (each bucket's gang over a seed "
+             "group; the daemon lays out no group yet)",
 }
 
 
 def refuse_sharded_command(config: Config, command: str, device_type=None) -> None:
-    """Refuse ``command`` (frontier, grid, serve, or a gang) on a
-    param-sharded config, or at a planned node axis above 1 (on
-    ``device_type``), by name: it would otherwise run its gangs in one
-    process."""
+    """Refuse ``command`` (the serve daemon) on a param-sharded config, or
+    where more than one device is planned at ``tpu.param_shards: 1`` (on
+    ``device_type``: a seed or node axis above 1), by name: it would
+    otherwise run its gangs in one process."""
     if command in SHARDING_UNPORTED and param_shards_of(config) > 1:
         raise ConfigError("the PyTorch port does not run these config sections yet: "
                           + SHARDING_UNPORTED[command])
-    if node_axis_of(config, device_type) > 1:
+    if command in NODE_AXIS_UNPORTED and node_axis_of(config, device_type) > 1:
         raise ConfigError("the PyTorch port does not run these config sections yet: "
                           + NODE_AXIS_UNPORTED[command])
 
@@ -293,12 +300,13 @@ def default_telemetry_dir(config: Config) -> str:
 
 def build_telemetry_writer(config: Config, resume: bool = False, run_id=None):
     """TelemetryWriter from config.telemetry, or None when off (and on a
-    param group's ranks other than 0).  ``resume``: the run continues from
+    param or node group's ranks other than 0).  ``resume``: the run continues from
     its snapshot, so the writer appends to the run dir's stream instead of
     rotating it.  ``run_id``: the manifest's run id (the distributed
-    Monitor passes its run's), else generated."""
+    Monitor passes its run's), else generated.  A seed group's ranks each
+    write their own members' (``build_gang_from_config``)."""
     t = config.telemetry
-    group = process_group()
+    group = round_group()
     if not t.enabled or (group is not None and group.rank != 0):
         return None
     from murmura_tpu_torch.telemetry.writer import TelemetryWriter
@@ -604,7 +612,7 @@ def build_program(config: Config, topology, attack, seed: int, device, rule=None
             attack_scale=attack_scale,
             dmtt=build_dmtt_params(config),
             param_shards=param_shards_of(config),
-            group=process_group(),
+            group=round_group(),
             init_params=init_params,
         )
     except ValueError as e:
@@ -668,10 +676,11 @@ def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None
 def _gang_members_and_programs(config: Config, device, seeds=None, members=None,
                                init_params=None):
     """The checks a gang's wiring shares with an admission, and the member
-    programs: (members, topology, attack, programs)."""
+    programs: (members, topology, attack, programs, template).  In a seed
+    group ``programs`` are the rank's members' alone, and ``template`` is
+    member 0's program where the rank holds none (else None)."""
     from murmura_tpu_torch.core.gang import gang_hp_inputs, resolve_members
 
-    refuse_sharded_command(config, "gang", torch.device(device).type)
     if config.backend == "distributed":
         raise ConfigError(
             "gang-batched sweeps need the jitted backends; backend: "
@@ -696,8 +705,13 @@ def _gang_members_and_programs(config: Config, device, seeds=None, members=None,
     if init_params is not None and len(init_params) != len(members):
         raise ConfigError(f"{len(init_params)} initial parameter sets for "
                           f"{len(members)} gang members")
+    group = seed_group()
+    lo, hi = (0, len(members)) if group is None else group.bind(len(members)).members()
+    # An empty block builds member 0's program for the gang's shapes.
+    indices = list(range(lo, hi)) or [0]
     programs, rule = [], None
-    for i, member in enumerate(members):
+    for i in indices:
+        member = members[i]
         scale = None
         if "attack_scale" in hp:
             scale = member.attack_scale if member.attack_scale is not None else 1.0
@@ -707,7 +721,9 @@ def _gang_members_and_programs(config: Config, device, seeds=None, members=None,
                                       init_params=None if init_params is None
                                       else init_params[i])
         programs.append(program)
-    return members, topology, attack, programs
+    if hi == lo:
+        return members, topology, attack, [], programs[0]
+    return members, topology, attack, programs, None
 
 
 def build_gang_member_programs(config: Config, members, device="cuda"):
@@ -717,7 +733,8 @@ def build_gang_member_programs(config: Config, members, device="cuda"):
     They are value sources for a warm gang
     (``GangNetwork.reset_run(member_programs=...)``), so they must come from
     a config whose structural fingerprint is the gang's
-    (serve/scheduler.py)."""
+    (serve/scheduler.py).  In a seed group: the rank's members' programs
+    (``SeedGroup.members``)."""
     if config.backend == "distributed":
         raise ConfigError(
             "gang-batched serving needs the jitted backends; backend: "
@@ -746,20 +763,25 @@ def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint
     serve daemon's capacity).  ``init_params``: one node-stacked pytree a
     member (the weight carry-over of ``build_round_program``).  In a rank
     of a param group the members' programs are that rank's, and ranks other
-    than 0 get no telemetry writer."""
+    than 0 get no telemetry writer; in a rank of a seed group the gang holds
+    the rank's members, each with its writer."""
     from murmura_tpu_torch.core.gang import GangNetwork
 
-    members, topology, attack, programs = _gang_members_and_programs(
+    members, topology, attack, programs, template = _gang_members_and_programs(
         config, device, seeds, init_params=init_params)
     writers = None
     group = process_group()
-    if config.telemetry.enabled and (group is None or group.rank == 0):
+    seeds_of = seed_group()
+    if config.telemetry.enabled and (group is None or group.rank == 0 or seeds_of):
         # One run dir a member, <run dir>/<member label>, each of which
-        # ``report`` reads as a single run's.
+        # ``report`` reads as a single run's; over a seed group each rank
+        # writes its own members'.
         resume = checkpoint_dir is not None and has_checkpoint(checkpoint_dir)
         base_dir = default_telemetry_dir(config)
         writers = []
-        for member in members:
+        own = members if seeds_of is None else \
+            members[slice(*seeds_of.bind(len(members)).members())]
+        for member in own:
             mcfg = config.model_copy(deep=True)
             mcfg.experiment.seed = member.seed
             mcfg.telemetry.dir = os.path.join(base_dir, member.label)
@@ -773,7 +795,8 @@ def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint
                            recompile_guard=config.tpu.recompile_guard,
                            telemetry_writers=writers, retain_init=retain_init,
                            min_batch=min_batch, bucket=bucket,
-                           mobility=build_mobility(config))
+                           mobility=build_mobility(config), seed_group=seeds_of,
+                           template=template)
     except ValueError as e:
         # Members that cannot train as one stack (ragged shards).
         raise ConfigError(str(e)) from None

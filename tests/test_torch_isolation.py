@@ -26,10 +26,12 @@ and it never moves to the CPU unless asked to.
   network, eval), and ``check --device cpu`` through the CLI (every family
   module of murmura_tpu_torch/analysis/ imported; the lint, the static
   contracts and the serving and observability families run, the other
-  families in test_torch_analysis_families.py), and a Krum round over a
-  node group of 2 spawned ranks (``launch(..., axis="nodes")``), loads no
+  families in test_torch_analysis_families.py), a Krum round over a
+  node group of 2 spawned ranks (``launch(..., axis="nodes")``), and a
+  gang round of 3 members over a seed group of 2 spawned ranks
+  (``launch(..., axis="seed")``, core/gang.py's seed group), loads no
   ``jax`` and no ``murmura_tpu.*`` module (counted against what the
-  interpreter had loaded at start), and neither does either rank.
+  interpreter had loaded at start), and neither does any rank.
 - Every module of the port imports where ``zmq`` cannot be imported.
 - An AST scan of the port and of chip_smoke.py finds no such import.
 - Without CUDA, ``python -m murmura_tpu_torch run`` without ``--device
@@ -247,6 +249,14 @@ import torch_node_axis_cases
 from murmura_tpu_torch.parallel.launch import launch
 ranks = launch(torch_node_axis_cases.run_cases,
                ([("rule", {"rule": "krum", "exchange": "ppermute"})],), world=2, axis="nodes")
+assert [r["forbidden_modules"] for r in ranks] == [[], []], [r["forbidden_modules"] for r in ranks]
+import torch_seed_axis_cases
+raw = torch_seed_axis_cases.gang_config(tpu={"num_devices": 2})
+raw["experiment"]["rounds"] = 1
+ranks = launch(torch_seed_axis_cases.run_cases,
+               ([("gang", {"raw": raw, "seeds": [7, 8, 9], "rounds": 1})],), world=2,
+               axis="seed")
+assert [r["results"][0]["block"] for r in ranks] == [(0, 1), (1, 3)]
 assert [r["forbidden_modules"] for r in ranks] == [[], []], [r["forbidden_modules"] for r in ranks]
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "murmura_tpu"})

@@ -40,9 +40,9 @@ on the CPU.
   block's training bit-equal to one process's on the card, ROADMAP Queue
   C 2) is bit-equal to training every row at once on this CPU.
 - The refusals: every section the node axis does not run, by name, at a
-  node axis above 1 (the round program's and the config's), the gangs, the
-  frontier, the grid and the daemon over a node axis; and none at a node
-  axis of 1.
+  node axis above 1 (the round program's and the config's), and the daemon
+  over a node axis (a gang, the frontier and the grid follow their gang
+  plan instead); and none at a node axis of 1.
 """
 
 import numpy as np
@@ -451,21 +451,25 @@ def test_the_round_program_refuses_by_name_on_a_node_group(what):
 
 
 def test_gangs_frontier_grid_and_daemon_are_refused_over_a_node_axis(tmp_path):
-    from murmura_tpu_torch.frontier import run_frontier
+    """A gang, the frontier and the grid follow their own gang plan (a seed
+    group, tests/test_torch_seed_axis.py), so a planned node axis refuses
+    none of them; built in a process outside a group, a gang runs there
+    whole.  The serve daemon alone stays refused, its words naming the seed
+    axis beside the node axis."""
     from murmura_tpu_torch.serve.daemon import ServeDaemon
     from murmura_tpu_torch.serve.scheduler import plan_grid
+    from murmura_tpu_torch.utils.factories import refuse_sharded_command
 
     cfg = Config.model_validate(cases.tiny_config())
-    with pytest.raises(ConfigError, match="a gang \\(sweep, run --seeds\\) over a node axis"):
-        build_gang_from_config(cfg, seeds=[7, 8], device="cpu")
-    with pytest.raises(ConfigError, match="frontier over a node axis above 1"):
-        run_frontier(cfg, device="cpu")
+    gang = build_gang_from_config(cfg, seeds=[7, 8], device="cpu")
+    assert gang.seed_group is None and tuple(gang.flats.shape[:2]) == (2, cases.N)
+    for command in ("frontier", "grid", "gang"):
+        refuse_sharded_command(cfg, command, "cpu")
     if torch.cuda.is_available():
-        pytest.skip("plan_grid plans on the visible cards here")
-    with pytest.raises(ConfigError, match="grid over a node axis above 1"):
-        plan_grid(cfg)
+        pytest.skip("plan_grid and the daemon plan on the visible cards here")
+    assert plan_grid(cfg)
     serve = Config.model_validate(cases.tiny_config(serve={"state_dir": str(tmp_path)}))
-    with pytest.raises(ConfigError, match="serve over a node axis above 1"):
+    with pytest.raises(ConfigError, match="serve over a seed axis or a node axis above 1"):
         ServeDaemon(serve, device="cpu")
 
 

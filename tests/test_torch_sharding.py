@@ -661,9 +661,12 @@ def test_unported_sections_names_nothing_for_gangs_and_probe_rules():
 
 @pytest.mark.parametrize("command", ["frontier", "grid", "serve"])
 def test_commands_over_a_param_group_are_refused_by_name(command, tmp_path):
-    from murmura_tpu_torch.frontier import run_frontier
+    """The serve daemon is refused by name at ``tpu.param_shards`` > 1; the
+    frontier and the grid run over a param group
+    (tests/test_torch_seed_axis.py), so they refuse nothing there."""
     from murmura_tpu_torch.serve.daemon import ServeDaemon, SubmissionError, normalize_submission
     from murmura_tpu_torch.serve.scheduler import plan_grid
+    from murmura_tpu_torch.utils.factories import refuse_sharded_command
 
     raw = cases.tiny_config()
     want = f"{command} with tpu.param_shards > 1 (each "
@@ -674,11 +677,8 @@ def test_commands_over_a_param_group_are_refused_by_name(command, tmp_path):
         with pytest.raises(ConfigError, match=re.escape(want)):
             ServeDaemon(daemon, device="cpu")
         return
-    with pytest.raises(ConfigError, match=re.escape(want)):
-        if command == "frontier":
-            run_frontier(Config.model_validate(raw), device="cpu")
-        else:
-            plan_grid(Config.model_validate(raw))
-    # At one shard the same config is planned.
+    refuse_sharded_command(Config.model_validate(raw), command, "cpu")
+    # The same config is planned at four shards and at one.
     if command == "grid":
+        assert plan_grid(Config.model_validate(raw))
         assert plan_grid(Config.model_validate(cases.tiny_config(tpu={"param_shards": 1})))

@@ -276,7 +276,19 @@ Phases, each of which raises (and exits non-zero) on failure:
    (``_param_commands_task``) sharded_model.yaml's frontier cell and Krum
    grid bucket at ``tpu.param_shards: 2``, every Krum call in lockstep
    (tie-aware) and the members bit-equal to one process where no pick
-   differed.  Phase 4 (e)'s gang trains R_r rows a launch on both sides
+   differed.  In the same ranks the serve daemon over a group
+   (``_serve_group_task``): (d1) a flagship-width daemon (Krum allgather,
+   capacity 4) over the seed group of 2 draining generations of 4, 3 (one
+   lane evicted after round 1) and 1 tenant (one rank empty), (d2) a
+   median-under-ppermute tenant pair over the seed group, (d3)
+   sharded_model.yaml tenants at ``tpu.param_shards: 2`` over the param
+   group, 2 rounds each, against the same submissions to a daemon in one
+   process: every tenant's history and the gang's parameters bit-equal
+   ((d3) under the tie-aware lockstep gate), the evicted lane stopped at
+   round 1 on both ranks, generations 2 and 3 building nothing on either
+   rank, the launches summed over the ranks those of one process ((d3):
+   each rank's, its column blocks), no plain call, each rank's peak printed.
+   Phase 4 (e)'s gang trains R_r rows a launch on both sides
    under the same tie-aware gate.  Then (4e,
    ``run_distributed_smoke``) uci_har_byzantine.yaml under ``backend:
    distributed`` (2 rounds) through ``python -m murmura_tpu_torch run``: the
@@ -304,7 +316,7 @@ Phases, each of which raises (and exits non-zero) on failure:
 5. the contract checker (murmura_tpu_torch/analysis/): ``python -m
    murmura_tpu_torch check`` with every executable family off, in a
    subprocess (the lint and the static contracts, on a host with no
-   JAX), started first and waited for last; meanwhile
+   JAX), started before phase 4's sharding and waited for last; then
    ``run_check_detailed(lint=False, contracts=False, device="cuda")`` in
    this process, every family on (durability, adaptive, staleness,
    pipeline, sharded, compose, serve, observe; the sharded family's cells
@@ -314,7 +326,10 @@ Phases, each of which raises (and exits non-zero) on failure:
    family's finding count and seconds printed, each of the four kernels
    launched at least once (the durability cells: the pairwise pass in the
    dense cells, the circulant pass and the candidate select in the
-   circulant ones, the count sketch in Sketchguard's) and no plain call;
+   circulant ones, the count sketch in Sketchguard's) and no plain call.
+   Phase 4e's node processes boot meanwhile, within their grace: its run
+   starts before phase 5, and its checks follow it (so the two exchanges'
+   processes to kill and to resume in phase 4 run side by side);
 6. output: the pipelined flagship's steady seconds a round beside the
    serialized one's, the gangs' beside their members' summed, the resumed
    runs' equality and snapshot costs, population_1m's steady seconds,
@@ -3191,56 +3206,84 @@ def _start_killed(cmd, ckpt: Path, at: int, log_path: Path):
     return thread, rec
 
 
-def run_kill_resume(exchange: str) -> dict:
+def run_kill_resume(exchanges=("allgather", "ppermute")) -> dict:
     """Phase 4, durability on the flagship's Krum under resumable_run.yaml's
     durability:, compression: (int8, error feedback) and telemetry:
-    sections, RESUME_ROUNDS rounds, a snapshot every RESUME_EVERY: first
-    uninterrupted through run_main_path (its kernel counts and snapshot
-    sizes and times), then through ``python -m murmura_tpu_torch run`` in a
-    subprocess, SIGKILLed once meta.json names round RESUME_EVERY or later,
-    and the same command again, which resumes.  The resumed run must launch
-    the distance kernel twice a round for the rounds it ran and no plain
-    version, take Krum's decisions (``agg_selected_index``,
-    ``agg_selected_own``) of the uninterrupted run, and agree with its
-    history to a scaled 1e-4 (cuDNN may pick another algorithm in a new
-    process); whether it is bit-equal is printed, with the telemetry
-    stream's seam (one ``run_resumed``, appended), and each snapshot's bytes
-    and save or restore seconds."""
+    sections, RESUME_ROUNDS rounds, a snapshot every RESUME_EVERY, in each
+    of ``exchanges``: first uninterrupted through run_main_path (its kernel
+    counts and snapshot sizes and times), then through ``python -m
+    murmura_tpu_torch run`` in a subprocess, SIGKILLed once meta.json names
+    round RESUME_EVERY or later, and the same command again, which resumes.
+    The exchanges' processes to kill boot together while the uninterrupted
+    runs run here one after the other, and their resumed processes run
+    together.  Each resumed run must launch the distance kernel twice a
+    round for the rounds it ran and no plain version, take Krum's decisions
+    (``agg_selected_index``, ``agg_selected_own``) of the uninterrupted run,
+    and agree with its history to a scaled 1e-4 (cuDNN may pick another
+    algorithm in a new process); whether it is bit-equal is printed, with
+    the telemetry stream's seam (one ``run_resumed``, appended), and each
+    snapshot's bytes and save or restore seconds."""
+    runs = {}
+    for exchange in exchanges:
+        kernel = "pairwise_sq_distances" if exchange == "allgather" else "circulant_sq_distances"
+        opts = {"rounds": RESUME_ROUNDS, "sections": RESUME_SECTIONS,
+                "checkpoint_every": RESUME_EVERY}
+        name = f"krum_killed_{exchange}"
+        raw, cfg, out = smoke_config(name, FLAGSHIP, exchange, None, opts)
+        ckpt = Path(raw["durability"]["checkpoint_dir"])
+        cmd = [sys.executable, "-c", _CLI_WITH_COUNTS, "run", str(cfg), "--device", "cuda",
+               "-o", str(out)]
+        runs[exchange] = {"kernel": kernel, "opts": opts, "name": name, "out": out,
+                          "ckpt": ckpt, "run_dir": Path(raw["telemetry"]["dir"]), "cmd": cmd,
+                          "killed": _start_killed(cmd, ckpt, RESUME_EVERY,
+                                                  SMOKE_DIR / f"{name}.killed.log")}
+    try:
+        for exchange, r in runs.items():
+            r["ref"] = run_main_path(f"krum:durable_{exchange}", FLAGSHIP, exchange, None,
+                                     {r["kernel"]: (2, "==")}, r["opts"])
+    finally:
+        for r in runs.values():
+            r["killed"][0].join()
+    resumed = {}
+    for exchange, r in runs.items():
+        killed = r["killed"][1]
+        r["stopped"] = _snapshot_round(r["ckpt"])
+        if not killed["running"]:
+            raise AssertionError(f"the {exchange} run exited ({killed['returncode']}) before "
+                                 "it could be killed")
+        r["t0"] = time.perf_counter()
+        with open(SMOKE_DIR / f"{r['name']}.resumed.out", "w") as out_f, \
+                open(SMOKE_DIR / f"{r['name']}.resumed.log", "w") as err_f:
+            resumed[exchange] = subprocess.Popen(r["cmd"], cwd=ROOT, stdout=out_f,
+                                                 stderr=err_f)
+    out = {}
+    for exchange, r in runs.items():
+        returncode = resumed[exchange].wait(timeout=900)
+        resumed_s = time.perf_counter() - r["t0"]
+        stdout = (SMOKE_DIR / f"{r['name']}.resumed.out").read_text()
+        out.update(_check_resumed(exchange, r, stdout, returncode, resumed_s))
+    return out
+
+
+def _check_resumed(exchange, r, stdout, returncode, resumed_s) -> dict:
+    """One exchange's resumed run against its uninterrupted run
+    (:func:`run_kill_resume`)."""
     from murmura_tpu_torch.telemetry.writer import events_of_type
 
-    kernel = "pairwise_sq_distances" if exchange == "allgather" else "circulant_sq_distances"
-    expect = {kernel: (2, "==")}
-    opts = {"rounds": RESUME_ROUNDS, "sections": RESUME_SECTIONS,
-            "checkpoint_every": RESUME_EVERY}
-    name = f"krum_killed_{exchange}"
-    raw, cfg, out = smoke_config(name, FLAGSHIP, exchange, None, opts)
-    ckpt, run_dir = Path(raw["durability"]["checkpoint_dir"]), Path(raw["telemetry"]["dir"])
-    cmd = [sys.executable, "-c", _CLI_WITH_COUNTS, "run", str(cfg), "--device", "cuda",
-           "-o", str(out)]
-    # The process to kill boots while the uninterrupted run runs here.
-    watcher, killed = _start_killed(cmd, ckpt, RESUME_EVERY, SMOKE_DIR / f"{name}.killed.log")
-    try:
-        ref = run_main_path(f"krum:durable_{exchange}", FLAGSHIP, exchange, None, expect, opts)
-    finally:
-        watcher.join()
-    killed_s = killed["seconds"]
-    stopped = _snapshot_round(ckpt)
-    if not killed["running"]:
-        raise AssertionError(f"the run exited ({killed['returncode']}) before it could be killed")
-    t0 = time.perf_counter()
-    resumed = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
-    resumed_s = time.perf_counter() - t0
-    (SMOKE_DIR / f"{name}.resumed.log").write_text(resumed.stdout + resumed.stderr)
-    if resumed.returncode != 0:
-        raise AssertionError(f"the resumed run failed: {resumed.stderr[-3000:]}")
-    if f"Resumed from round {stopped}" not in resumed.stdout:
+    kernel, stopped, ref = r["kernel"], r["stopped"], r["ref"]
+    killed_s = r["killed"][1]["seconds"]
+    if returncode != 0:
+        err = (SMOKE_DIR / f"{r['name']}.resumed.log").read_text()
+        raise AssertionError(f"the resumed run failed: {err[-3000:]}")
+    if f"Resumed from round {stopped}" not in stdout:
         raise AssertionError(f"the run did not resume from round {stopped}")
-    counts = json.loads(resumed.stdout.rsplit("COUNTS ", 1)[1].splitlines()[0])
+    counts = json.loads(stdout.rsplit("COUNTS ", 1)[1].splitlines()[0])
     want = 2 * (RESUME_ROUNDS - stopped)
     stray = {k: v for k, v in counts["launches"].items() if v and k != kernel}
     if counts["launches"][kernel] != want or any(counts["plain"].values()) or stray:
         raise AssertionError(f"the resumed run's counts {counts}, want {kernel} {want}")
-    hist, ref_hist = json.loads(out.read_text()), ref["history"]
+    run_dir = r["run_dir"]
+    hist, ref_hist = json.loads(r["out"].read_text()), ref["history"]
     same = hist == ref_hist
     delta = history_delta(hist, ref_hist)
     decisions = all(hist[k] == ref_hist[k] for k in ("agg_selected_index", "agg_selected_own"))
@@ -3260,11 +3303,11 @@ def run_kill_resume(exchange: str) -> dict:
           f"bit-equal to the uninterrupted run {same}, scaled delta {delta:.3g} (limit 1e-4), "
           f"decisions equal {decisions}; telemetry stream {runs}, one run_resumed and appended: "
           f"{seam}; snapshots of the killed and resumed processes "
-          + ", ".join(f"{a} round {r} {b:,} B in {d:.3f} s" for a, r, b, d in snaps)
+          + ", ".join(f"{a} round {rr} {b:,} B in {d:.3f} s" for a, rr, b, d in snaps)
           + f": {'ok' if ok else 'FAILED'}", flush=True)
     if not ok:
         raise AssertionError("the resumed flagship run differs from the uninterrupted one")
-    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(r["ckpt"], ignore_errors=True)
     shutil.rmtree(SMOKE_DIR / "ckpts" / f"krum_durable_{exchange}", ignore_errors=True)
     return {f"krum:durable_{exchange}": ref,
             f"krum:resumed_{exchange}": {"launches": {kernel: counts["launches"][kernel]},
@@ -5882,13 +5925,15 @@ def run_sharded_groups(raw: dict, one: dict) -> dict:
     node_s = max(r["node_axis_s"] for r in ranks)
     seed_s = max(r["seed_axis_s"] for r in ranks)
     param_s = max(r["param_commands_s"] for r in ranks)
+    serve_s = max(r["serve_group_s"] for r in ranks)
     out["sharded:evidential_trust"] = report_probe_rule(
         "evidential_trust", [r["evidential_trust"] for r in ranks],
-        time.perf_counter() - t0 - check_s - node_s - seed_s - param_s)
+        time.perf_counter() - t0 - check_s - node_s - seed_s - param_s - serve_s)
     out["check:sharded_ranks"] = [r["check"] for r in ranks]
     out.update(report_node_axis([r["node_axis"] for r in ranks], node_s))
     out.update(report_seed_axis([r["seed_axis"] for r in ranks], seed_s))
     out.update(report_param_commands([r["param_commands"] for r in ranks], param_s))
+    out.update(report_serve_group([r["serve_group"] for r in ranks], serve_s))
     return out
 
 
@@ -5911,11 +5956,14 @@ def _evidential_and_check_task(raw: dict, rounds: int) -> dict:
     seeds = _seed_axis_task()
     t4 = time.perf_counter()
     params = _param_commands_task()
+    t5 = time.perf_counter()
+    serve = _serve_group_task()
     return {"evidential_trust": probe,
             "check": {"results": check, "seconds": t2 - t1},
             "node_axis": nodes, "node_axis_s": t3 - t2,
             "seed_axis": seeds, "seed_axis_s": t4 - t3,
-            "param_commands": params, "param_commands_s": time.perf_counter() - t4}
+            "param_commands": params, "param_commands_s": t5 - t4,
+            "serve_group": serve, "serve_group_s": time.perf_counter() - t5}
 
 
 # Phase 4 (g)'s node axis: the flagship at full width over a node axis of 2
@@ -6681,6 +6729,303 @@ def report_param_commands(ranks: list, wall: float) -> dict:
     return out
 
 
+# Phase 4 (g)'s serve daemon over a group, in (g)'s group of 2 on cuda:0:
+# (d1)-(d2) with its ranks re-bound as a seed group, (d3) in its param group.
+# Each case drains the same submissions as a daemon in one process (rank 0,
+# the group turned off first), both sides training the rows a launch the
+# group's ranks train (``_row_block``).  (label, axis, config, capacity,
+# generations as indices into SERVE_TENANTS, the evicted (generation, lane),
+# the kernel, its launches a member a round)
+SERVE_GROUP_ROUNDS = 2
+SERVE_TENANTS = ((7, 1.0), (8, 0.5), (9, 1.0), (10, 0.75))  # (seed, lr factor)
+SERVE_GROUP_CASES = (
+    ("d1_flagship", "seed", "flagship", 4, ((0, 1, 2, 3), (3, 1, 0), (2,)), (1, 1),
+     "pairwise_sq_distances", 2),
+    ("d2_median", "seed", "median", 2, ((0, 1),), None, "candidate_select", 1),
+    ("d3_sharded", "param", "sharded", 2, ((0, 1),), None, "pairwise_sq_distances", 2),
+)
+
+
+def serve_group_raw(kind: str, tenant: int, group: bool) -> dict:
+    """One tenant of a (d1)-(d3) case: the flagship at full width
+    (``training.max_samples`` GANG_MAX_SAMPLES) under Krum allgather
+    (``flagship``) or the median under ppermute (``median``), or
+    sharded_model.yaml at ``tpu.param_shards: 2`` (``sharded``),
+    SERVE_GROUP_ROUNDS rounds, its seed and lr from SERVE_TENANTS.  The seed
+    cases' tenants plan a seed group of 2 at ``tpu.num_devices: 2`` where
+    ``group`` (the one-device seam's 2 ranks stand for 2 cards), one process
+    without it."""
+    import yaml
+
+    seed, lr = SERVE_TENANTS[tenant]
+    raw = yaml.safe_load((SHARDED_MODEL if kind == "sharded" else FLAGSHIP).read_text())
+    raw["experiment"].update(seed=seed, name=f"serve-{kind}-{seed}",
+                             rounds=SERVE_GROUP_ROUNDS, verbose=False)
+    raw["training"]["lr"] = raw["training"]["lr"] * lr
+    if kind == "sharded":
+        raw["tpu"]["param_shards"] = 2
+        return raw
+    raw["training"]["max_samples"] = GANG_MAX_SAMPLES
+    if kind == "median":
+        raw["aggregation"] = {"algorithm": "median", "params": {}}
+        raw["tpu"]["exchange"] = "ppermute"
+    if group:
+        raw["tpu"]["num_devices"] = 2
+    return raw
+
+
+def _serve_generations(raw: dict, generations: list, evict, device) -> list:
+    """A daemon over ``raw`` (a tenant config with a ``serve:`` block) fed
+    ``generations`` (each a list of tenant configs, drained before the next
+    is submitted), in this process's group or in one process; ``evict``:
+    (generation, lane) evicted on rank 0 after round 1.  Returns, a
+    generation: every tenant's history as this rank's gang recorded it, the
+    frozen lanes, what this rank built and held, the wall, and on rank 0 the
+    ledger's records and the gang's whole state on the host."""
+    import torch
+
+    from murmura_tpu_torch.config.schema import Config
+    from murmura_tpu_torch.serve.daemon import ServeDaemon
+
+    daemon = ServeDaemon(Config.model_validate(raw), device=device)
+    out = []
+    for g, tenants in enumerate(generations):
+        ids = [daemon.submit_config(t)["id"] for t in tenants] if daemon._owner else []
+        built = daemon._compile_count()
+        evicting = evict is not None and evict[0] == g
+        if evicting:
+            # Rank 0 evicts the lane once round 1 is recorded; every rank
+            # freezes it at the next chunk boundary.
+            (bucket,) = daemon._buckets.values()
+            gang, lane = bucket["gang"], evict[1]
+            record = gang._record_all
+
+            def recording(round_num, metrics, verbose):
+                record(round_num, metrics, verbose)
+                if round_num == 1 and daemon._owner:
+                    daemon.evict(ids[lane], "chip smoke eviction")
+
+            gang._record_all = recording
+        t0 = time.perf_counter()
+        daemon.drain()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        (bucket,) = daemon._buckets.values()
+        gang = bucket["gang"]
+        if evicting:
+            del gang._record_all
+        flat, state = gang._durability_params()
+        rec = {"histories": gang.histories, "active": list(gang.member_active),
+               "built": daemon._compile_count() - built, "held": int(gang.flats.shape[0]),
+               "block": tuple(gang._block), "wall": wall, "layout": daemon.plan}
+        if daemon._owner:
+            rec.update(flat=flat.cpu(), state={k: v.cpu() for k, v in state.items()},
+                       ledger=[dict(daemon._ledger[i]) for i in ids])
+        del flat, state
+        out.append(rec)
+    # The bucket's snapshots over every generation (count, bytes, seconds).
+    saves = [c for c in gang.checkpoints if c["action"] == "save"]
+    out[-1]["saves"] = (len(saves), sum(c["bytes"] for c in saves),
+                        sum(c["seconds"] for c in saves))
+    if daemon._owner:
+        shutil.rmtree(daemon.state_dir, ignore_errors=True)
+    return out
+
+
+def _serve_group_task() -> dict:
+    """Phase 4 (g), (d1)-(d3), a rank's part: for each case of
+    SERVE_GROUP_CASES rank 0 first drains the submissions through a daemon in
+    one process (the group turned off), then both ranks drain them through
+    a daemon over (g)'s ranks re-bound as a seed group ((d1), (d2)) or over
+    its param group ((d3), every Krum call held in lockstep with the
+    full-width rule, tie-aware), the kernel counters set to 0 just before
+    and read just after; both sides train the group's rows a launch (one
+    member's 16 nodes, or a rank's node block of 8).  The daemons' state
+    dirs (their ledgers and GB-sized snapshots) lie under the temporary
+    directory, one path a case and side on both ranks.  Returns this rank's
+    launches, plain calls, peak memory, blocks, builds and walls; rank 0's
+    also the comparisons."""
+    import tempfile
+
+    from murmura_tpu_torch.parallel.mesh import (
+        SeedGroup,
+        active_param_group,
+        barrier,
+        process_group,
+        set_process_group,
+    )
+
+    pgroup = process_group()
+    device = pgroup.device
+    out = {}
+    for label, axis, kind, capacity, gens, evict, kernel, per in SERVE_GROUP_CASES:
+        group = (SeedGroup(pgroup.rank, pgroup.world, pgroup.backend, device)
+                 if axis == "seed" else pgroup)
+        subs = {side: [[serve_group_raw(kind, i, side == "group") for i in g] for g in gens]
+                for side in ("one", "group")}
+        daemon = {side: dict(subs[side][0][0], serve={
+            "state_dir": str(Path(tempfile.gettempdir()) / f"murmura-smoke-{label}-{side}"),
+            "capacity": capacity, "checkpoint_every": SERVE_GROUP_ROUNDS})
+            for side in ("one", "group")}
+        n = daemon["one"]["topology"]["num_nodes"]
+        block = n if axis == "seed" else n // pgroup.world
+        c = int(daemon["one"]["aggregation"]["params"].get("num_compromised", 0))
+        if pgroup.rank == 0:
+            for side in ("one", "group"):
+                shutil.rmtree(daemon[side]["serve"]["state_dir"], ignore_errors=True)
+        rec = {}
+        if pgroup.rank == 0:
+            set_process_group(None)
+            try:
+                _counted(reset=True)
+                with _row_block(block):
+                    ref = _serve_generations(daemon["one"], subs["one"], None, device.type)
+                rec["ref_launches"], rec["ref_plain"] = _counted()
+            finally:
+                set_process_group(pgroup)
+        barrier(pgroup)
+        checks, peak = [], [0]
+
+        def check(aggregate, args, out_):
+            _lockstep_check(active_param_group(), aggregate, c, args, out_, checks, peak, None)
+
+        set_process_group(group)
+        try:
+            _counted(reset=True)
+            _peak(device, reset=True)
+            hook = _rule_hook(check) if axis == "param" else contextlib.nullcontext()
+            with _row_block(block), hook:
+                got = _serve_generations(daemon["group"], subs["group"], evict, device.type)
+            launches, plain = _counted()
+        finally:
+            set_process_group(pgroup)
+        rec.update(launches=launches, plain=plain, peak_bytes=max(peak[0], _peak(device)),
+                   saves=got[-1]["saves"], gen_walls=[g["wall"] for g in got],
+                   held=[g["held"] for g in got], built=[g["built"] for g in got],
+                   blocks=[g["block"] for g in got], wall=sum(g["wall"] for g in got),
+                   frozen=[g["histories"][evict[1]]["round"] if evict and evict[0] == i
+                           else None for i, g in enumerate(got)],
+                   active=[g["active"] for g in got], layout=got[0]["layout"])
+        if pgroup.rank == 0:
+            rec.update(_serve_group_compare(got, ref, evict), ref_wall=sum(
+                g["wall"] for g in ref), ref_layout=ref[0]["layout"], ref_saves=ref[-1]["saves"],
+                       checks=[{k: ch[k] for k in ("ok", "differ", "kappa", "ties", "rows_ok")}
+                               for ch in checks])
+            rec["differ"] = sum(ch["differ"] for ch in checks)
+            del ref
+        del got
+        _free(device)
+        out[label] = rec
+    return out
+
+
+def _serve_group_compare(got: list, ref: list, evict) -> dict:
+    """Rank 0's comparisons of a (d1)-(d3) case, a generation each: every
+    tenant's ledger history and the gang's parameters and carried state
+    bit-equal to the one-process daemon's (the evicted lane's history its
+    first round's, its ledger record evicted), and the histories' decisions
+    and largest scaled distance (:func:`_history_delta`)."""
+    import torch
+
+    history, state, evicted = [], [], []
+    delta = _history_delta([{"histories": [rec["history"] for rec in g["ledger"]
+                                           if rec["state"] == "done"]} for g in got],
+                           [{"histories": [rec["history"] for rec, mine in
+                                           zip(r["ledger"], g["ledger"])
+                                           if mine["state"] == "done"]}
+                            for g, r in zip(got, ref)])
+    for i, (g, r) in enumerate(zip(got, ref)):
+        lanes = range(len(r["ledger"]))
+        out_lane = evict[1] if evict is not None and evict[0] == i else None
+        history.append(all(
+            (g["ledger"][lane]["history"] == r["ledger"][lane]["history"]) if lane != out_lane
+            else (g["ledger"][lane]["state"] == "evicted"
+                  and g["histories"][lane] == {k: v[:1] for k, v in r["histories"][lane].items()})
+            for lane in lanes))
+        state.append(torch.equal(g["flat"], r["flat"]) and all(
+            torch.equal(g["state"][k], v) for k, v in r["state"].items()))
+        if out_lane is not None:
+            evicted.append(g["ledger"][out_lane]["state"])
+    return {"history_equal": history, "bit_equal": state, "evicted": evicted, "delta": delta}
+
+
+def report_serve_group(ranks: list, wall: float) -> dict:
+    """(d1)-(d3)'s gates and lines: every tenant's history and the gang's
+    parameters bit-equal to the one-process daemon's in every generation
+    ((d3): every Krum call in lockstep, tie-aware, and where no pick
+    differed the parameters bit-equal and the histories' decisions equal, as
+    (p1)'s), the evicted lane frozen at round 1 on both ranks,
+    generations after the first building nothing on either rank, each
+    rank's launches that many a member a round it holds (summed over the
+    ranks those of one process; (d3) each rank's, its column blocks, those
+    of one process), no other kernel, no plain call."""
+    card = card_line()
+    out, failed = {}, []
+    for label, axis, kind, capacity, gens, evict, kernel, per in SERVE_GROUP_CASES:
+        recs = [r[label] for r in ranks]
+        rec = recs[0]
+        one = rec["ref_launches"].get(kernel, 0)
+        if axis == "seed":
+            want = [per * sum(r["held"]) * SERVE_GROUP_ROUNDS for r in recs]
+        else:
+            want = [per * sum(len(g) for g in gens) * SERVE_GROUP_ROUNDS] * len(recs)
+        got = [r["launches"].get(kernel, 0) for r in recs]
+        stray = {k: v for r in recs for k, v in r["launches"].items() if v and k != kernel}
+        plain = sum(r["plain"] for r in recs) + rec["ref_plain"]
+        warm = all(b == 0 for r in recs for b in r["built"][1:])
+        frozen = [r["frozen"] for r in recs]
+        froze = evict is None or all(f[evict[0]] == [1] for f in frozen)
+        counted = (sum(got) == one) if axis == "seed" else all(g == one for g in got)
+        checks = rec["checks"]
+        lock_ok = axis == "seed" or (len(checks) == want[0] // 2
+                                     and all(ch["ok"] for ch in checks))
+        hist = rec["delta"]
+        if axis == "seed":
+            held = all(rec["bit_equal"]) and all(rec["history_equal"])
+        else:
+            # The column blocks' float stats sum their partials in another
+            # order (the dense Krum score): (p1)'s gate.
+            held = rec["differ"] > 0 or (all(rec["bit_equal"]) and hist["decisions_equal"]
+                                         and hist["scaled"] <= 1e-4 and hist["krum_score"] <= 1e-3)
+        ok = (lock_ok and held and warm and froze and got == want and counted and not stray
+              and plain == 0 and rec["layout"][1:] == (axis, 2) and rec["ref_layout"][1:]
+              == (None, 1))
+        ties = [t for ch in checks for t in ch["ties"]]
+        print(f"[serve:{label}] a daemon of {kind} tenants ({card}), capacity {capacity}, "
+              f"generations of {[len(g) for g in gens]} tenants, {SERVE_GROUP_ROUNDS} rounds, "
+              f"over (g)'s {axis} group of 2 on cuda:0, both sides training the group's rows a "
+              f"launch: blocks by rank {[r['blocks'] for r in recs]}; histories bit-equal to the "
+              f"one-process daemon by generation {rec['history_equal']} (decisions equal "
+              f"{hist['decisions_equal']}, scaled {hist['scaled']:.3g}, the dense Krum score "
+              f"{hist['krum_score']:.3g}), parameters and carried state {rec['bit_equal']}"
+              + (f", {len(checks)} Krum calls in lockstep {all(ch['ok'] for ch in checks)}, picks "
+                 f"differing {rec['differ']}" if axis == "param" else "")
+              + (", ties " + ", ".join(f"node {t['node']}: {t['gap']:.3g} / {t['tol']:.3g}"
+                                       for t in ties) if ties else "")
+              + (f"; lane {evict[1]} of generation {evict[0] + 1} evicted after round 1: ledger "
+                 f"{rec['evicted']}, its rounds by rank {[f[evict[0]] for f in frozen]}, lanes "
+                 f"active {[r['active'][evict[0]] for r in recs]}" if evict else "")
+              + f"; built by rank and generation {[r['built'] for r in recs]}; {kernel} launches "
+              f"by rank {got} (want {want}), one process {one}, stray {stray}, plain calls "
+              f"{plain}; {rec['wall']:.2f} s in the group (by generation "
+              f"{[round(w, 2) for w in rec['gen_walls']]}; snapshots "
+              f"{rec['saves'][0]} of {rec['saves'][1] / 1e9:.2f} GB in {rec['saves'][2]:.2f} s), "
+              f"{rec['ref_wall']:.2f} s in one process (snapshots {rec['ref_saves'][0]} of "
+              f"{rec['ref_saves'][1] / 1e9:.2f} GB in {rec['ref_saves'][2]:.2f} s); peak by rank "
+              f"{[round(r['peak_bytes'] / 1e9, 3) for r in recs]} GB: "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            failed.append(label)
+        out[f"serve:{label}"] = {"launches": {kernel: sum(got)}, "wall": rec["wall"],
+                                 "ref_wall": rec["ref_wall"],
+                                 "peaks": [r["peak_bytes"] for r in recs]}
+    print(f"[serve] the group daemons took {wall:.1f} s in the ranks", flush=True)
+    if failed:
+        raise AssertionError(f"the serve daemon over a group disagrees with one process: {failed}")
+    return out
+
+
 def run_sharded_smoke() -> dict:
     """Phase 4, param-axis sharding.  (b) ``python -m murmura_tpu_torch run
     examples/configs/sharded_model.yaml`` as committed in a subprocess:
@@ -7081,7 +7426,59 @@ def _replay_distributed(cfg_path: Path, rounds: int) -> dict:
         torch.set_num_threads(threads)
 
 
-def run_distributed_smoke(card: str = "cuda") -> dict:
+def start_distributed_smoke(card: str = "cuda") -> dict:
+    """Phase 4e's start: spawn ``python -m murmura_tpu_torch run`` of
+    uci_har_byzantine.yaml under ``backend: distributed`` (the monitor and
+    10 node processes on ``card``) and sample nvidia-smi's compute processes
+    from a thread until it exits, so that this process works meanwhile (the
+    nodes boot within DIST_GRACE_S).  Returns what
+    :func:`run_distributed_smoke` reads."""
+    import tempfile
+    import threading
+
+    import yaml
+
+    t0 = time.perf_counter()
+    raw = yaml.safe_load(UCI_HAR_BYZANTINE.read_text())
+    raw["experiment"].update(rounds=DIST_ROUNDS, verbose=False)
+    raw["backend"] = "distributed"
+    work = SMOKE_DIR / "distributed"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ipc = tempfile.mkdtemp(prefix="mzq")
+    raw["distributed"] = {"transport": "ipc", "ipc_dir": ipc,
+                          "round_duration_s": DIST_ROUND_S, "startup_grace_s": DIST_GRACE_S}
+    raw["telemetry"] = {"enabled": True, "dir": str(work / "telemetry")}
+    cfg, out, log_path = work / "card.yaml", work / "card.history.json", work / "card.log"
+    cfg.write_text(yaml.safe_dump(raw))
+    run = {"raw": raw, "cfg": cfg, "out": out, "log": log_path, "work": work, "ipc": ipc,
+           "t0": t0, "before": _compute_apps(), "samples": []}
+    # Appends only: the node processes share this file's offset.
+    with open(log_path, "a") as log:
+        run["proc"] = subprocess.Popen([sys.executable, "-m", "murmura_tpu_torch", "run",
+                                        str(cfg), "--device", card, "-o", str(out)],
+                                       cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+
+    def sample():
+        while run["proc"].poll() is None:
+            run["samples"].append((time.monotonic(), _compute_apps()))
+            time.sleep(0.5)
+
+    run["sampler"] = threading.Thread(target=sample, daemon=True)
+    run["sampler"].start()
+    return run
+
+
+def stop_distributed_smoke(run: dict) -> None:
+    """End phase 4e's processes (a no-op once the run has exited) and remove
+    its ipc directory."""
+    if run["proc"].poll() is None:
+        run["proc"].kill()
+    run["proc"].wait()
+    shutil.rmtree(run["ipc"], ignore_errors=True)
+
+
+def run_distributed_smoke(card: str = "cuda", started=None) -> dict:
     """Phase 4e: uci_har_byzantine.yaml with ``backend: distributed`` (its
     rounds cut to DIST_ROUNDS, the windows DIST_ROUND_S after
     DIST_GRACE_S, ipc transport, telemetry on for the per-node metrics)
@@ -7103,43 +7500,18 @@ def run_distributed_smoke(card: str = "cuda") -> dict:
     rebuilds it, and the eval loss of a node whose picks agree within rtol
     DIST_LOSS_RTOL (round 2 on only while no pick of an earlier round
     differed).  Prints each node's boot (spawn to ready), train and
-    aggregate seconds, the node processes' card memory and the wall."""
-    import tempfile
-
-    import yaml
-
-    t_phase = time.perf_counter()
-    raw = yaml.safe_load(UCI_HAR_BYZANTINE.read_text())
-    raw["experiment"].update(rounds=DIST_ROUNDS, verbose=False)
-    raw["backend"] = "distributed"
-    work = SMOKE_DIR / "distributed"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    ipc = tempfile.mkdtemp(prefix="mzq")
-    raw["distributed"] = {"transport": "ipc", "ipc_dir": ipc,
-                          "round_duration_s": DIST_ROUND_S, "startup_grace_s": DIST_GRACE_S}
-    raw["telemetry"] = {"enabled": True, "dir": str(work / "telemetry")}
-    cfg, out, log_path = work / "card.yaml", work / "card.history.json", work / "card.log"
-    cfg.write_text(yaml.safe_dump(raw))
-    before = _compute_apps()
-    samples = []
-    t0 = time.perf_counter()
-    # Appends only: the node processes share this file's offset.
-    with open(log_path, "a") as log:
-        proc = subprocess.Popen([sys.executable, "-m", "murmura_tpu_torch", "run", str(cfg),
-                                 "--device", card, "-o", str(out)],
-                                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
-        try:
-            while proc.poll() is None:
-                samples.append((time.monotonic(), _compute_apps()))
-                time.sleep(0.5)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-            proc.wait()
-            shutil.rmtree(ipc, ignore_errors=True)
-    run_wall = time.perf_counter() - t0
-    text = log_path.read_text()
+    aggregate seconds, the node processes' card memory and the wall.
+    ``started``: the run :func:`start_distributed_smoke` spawned (else
+    spawned here)."""
+    run = started if started is not None else start_distributed_smoke(card)
+    try:
+        run["sampler"].join()
+    finally:
+        stop_distributed_smoke(run)
+    raw, cfg, out, proc = run["raw"], run["cfg"], run["out"], run["proc"]
+    t_phase, before, samples, work = run["t0"], run["before"], run["samples"], run["work"]
+    run_wall = time.perf_counter() - t_phase
+    text = run["log"].read_text()
     if proc.returncode != 0:
         print(text[-4000:], flush=True)
         raise AssertionError(f"the distributed run ({card}) exited {proc.returncode}")
@@ -7262,18 +7634,11 @@ CHECK_FAMILIES_OFF = ("--no-durability", "--no-adaptive", "--no-staleness", "--n
                       "--no-sharded", "--no-compose", "--no-serve", "--no-observe")
 
 
-def run_check_smoke(sharded_ranks: list) -> dict:
-    """Phase 5: the contract checker (murmura_tpu_torch/analysis/) on the
-    card.  The lint and the static contracts through the CLI in a
-    subprocess, started first; meanwhile every family in this process on
-    cuda, the counters set to 0 around it: no finding, every kernel
-    launched, no plain call.  The sharded family reads ``sharded_ranks``,
-    its cells' records from phase 4's group of 2 (one ``{"results",
-    "seconds"}`` a rank), in place of a group of its own."""
+def start_static_check() -> dict:
+    """Phase 5's lint and static contracts through the CLI in a subprocess
+    (no card: every family off), started before phase 4's sharding so that
+    it runs meanwhile; a thread records its exit code and seconds."""
     import threading
-
-    from murmura_tpu_torch.analysis import format_findings, run_check_detailed
-    from murmura_tpu_torch.analysis import sharded as sharded_check
 
     SMOKE_DIR.mkdir(parents=True, exist_ok=True)
     out_path, err_path = SMOKE_DIR / "check_static.out", SMOKE_DIR / "check_static.err"
@@ -7285,6 +7650,31 @@ def run_check_smoke(sharded_ranks: list) -> dict:
     waiter = threading.Thread(
         target=lambda: ended.update(rc=proc.wait(), s=time.perf_counter() - t0), daemon=True)
     waiter.start()
+    return {"proc": proc, "ended": ended, "waiter": waiter, "out": out_path, "err": err_path}
+
+
+def stop_static_check(static: dict) -> None:
+    """End the static check's subprocess if it still runs."""
+    if static["proc"].poll() is None:
+        static["proc"].kill()
+    static["proc"].wait()
+
+
+def run_check_smoke(sharded_ranks: list, static=None) -> dict:
+    """Phase 5: the contract checker (murmura_tpu_torch/analysis/) on the
+    card.  The lint and the static contracts through the CLI in a
+    subprocess (``static``, :func:`start_static_check`'s, else started
+    here); beside it every family in this process on cuda, the counters set
+    to 0 around it: no finding, every kernel launched, no plain call.  The
+    sharded family reads ``sharded_ranks``, its cells' records from phase
+    4's group of 2 (one ``{"results", "seconds"}`` a rank), in place of a
+    group of its own."""
+    from murmura_tpu_torch.analysis import format_findings, run_check_detailed
+    from murmura_tpu_torch.analysis import sharded as sharded_check
+
+    static = static if static is not None else start_static_check()
+    proc, ended, waiter = static["proc"], static["ended"], static["waiter"]
+    out_path, err_path = static["out"], static["err"]
     try:
         timings: dict = {}
         run_group = sharded_check.run_group
@@ -7301,17 +7691,15 @@ def run_check_smoke(sharded_ranks: list) -> dict:
         launches, plain = _counted()
         waiter.join(timeout=300)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        stop_static_check(static)
     stdout, stderr = out_path.read_text(), err_path.read_text()
     if ended.get("rc") != 0 or stdout.strip() != "murmura check: clean":
         raise RuntimeError(f"check (the lint and the static contracts) exited "
                            f"{proc.returncode}:\n{stdout[-4000:]}\n{stderr[-4000:]}")
     static_s = ended["s"]
     print(f"[check] the lint and the static contracts, python -m murmura_tpu_torch check "
-          f"{' '.join(CHECK_FAMILIES_OFF)}: clean in {static_s:.1f} s of process wall, beside "
-          "the families below", flush=True)
+          f"{' '.join(CHECK_FAMILIES_OFF)}: clean in {static_s:.1f} s of process wall, started "
+          "before phase 4's sharding", flush=True)
     group_s = max(r["seconds"] for r in sharded_ranks)
     for name, (count, secs) in timings.items():
         extra = (f" here, its cells {group_s:.1f} s in the ranks of phase 4's group of 2"
@@ -7397,8 +7785,7 @@ def main() -> int:
     mains.update(timed("4:fused", run_fused_pair))
     mains.update(timed("4:fused", run_fused_pair, "stale_flagship", STALE_SECTIONS))
     mains.update(timed("4:fused", run_fused_pair, "pipelined_flagship", PIPELINE_SECTIONS))
-    for exchange in ("allgather", "ppermute"):
-        mains.update(timed("4:kill_resume", run_kill_resume, exchange))
+    mains.update(timed("4:kill_resume", run_kill_resume))
     gangs = timed("4:gangs", run_gangs)
     mains.update(gangs)
     print_gang_summary(gangs)
@@ -7421,12 +7808,23 @@ def main() -> int:
     flagship_daemon = timed("4:serve", run_flagship_daemon_smoke)
     mains["serve:flagship"] = flagship_daemon
     timed("4:row_count", check_row_count)
-    sharded = timed("4:sharded", run_sharded_smoke)
-    check_ranks = sharded.pop("check:sharded_ranks")
-    mains.update(sharded)
-    distributed = timed("4e:distributed", run_distributed_smoke)
+    # Phase 5's static check runs beside phase 4's sharding, and phase 5
+    # beside phase 4e's node processes, which boot within their grace.
+    static = start_static_check()
+    try:
+        sharded = timed("4:sharded", run_sharded_smoke)
+        check_ranks = sharded.pop("check:sharded_ranks")
+        mains.update(sharded)
+        dist = start_distributed_smoke()
+        try:
+            mains.update(timed("5:check", run_check_smoke, check_ranks, static))
+        except BaseException:
+            stop_distributed_smoke(dist)
+            raise
+        distributed = timed("4e:distributed", run_distributed_smoke, "cuda", dist)
+    finally:
+        stop_static_check(static)
     mains["krum:distributed_uci_har_byzantine"] = distributed
-    mains.update(timed("5:check", run_check_smoke, check_ranks))
     pop, scen, dm = (mains["krum:population_1m"], mains["krum:population_1m_scenario"],
                      mains["fedavg:dmtt_mobility"])
     pop_s, scen_s = float(np.mean(pop["s_per_round"][1:])), float(np.mean(scen["s_per_round"][1:]))

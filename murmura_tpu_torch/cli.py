@@ -100,7 +100,11 @@ directory) and its tables, which ``report --grid`` renders again;
 multi-tenant daemon of the config's ``serve:`` block (serve/daemon.py) on
 its socket (``serve.socket``, default ``<state_dir>/daemon.sock``) until a
 ``shutdown`` request; started again over the same state dir it resumes
-what was running.  ``submit`` hands it one experiment (``--wait``: until
+what was running.  Where its gang plan at ``serve.capacity`` lanes has a
+seed or param axis above 1 it starts that group's ranks once for its whole
+lifetime (rank 0 holds the socket and the ledger, every rank runs its block
+of each generation) and refuses a tenant of another plan at submission.
+``submit`` hands it one experiment (``--wait``: until
 the submission ends).  ``metrics`` prints OpenMetrics text, scraped from a
 daemon's socket or folded from a run directory; ``top`` the daemon's live
 table; ``runs`` the index of every run dir and serve ledger under the
@@ -747,7 +751,10 @@ def report_grid(path: Path, as_json: bool = False) -> None:
 
 
 def serve(config_path: Path, device: str = "cuda", require_tpu: bool = False) -> None:
-    """Run the daemon of the config's ``serve:`` block until a shutdown."""
+    """Run the daemon of the config's ``serve:`` block until a shutdown.
+    Where the daemon's gang plan at ``serve.capacity`` lanes has a seed or
+    param axis above 1 the daemon runs in the ranks of one group for its
+    whole lifetime, rank 0 holding the socket and the ledger."""
     from murmura_tpu_torch.config import load_config
     from murmura_tpu_torch.serve.daemon import ServeDaemon
     from murmura_tpu_torch.utils.factories import ConfigError
@@ -755,18 +762,29 @@ def serve(config_path: Path, device: str = "cuda", require_tpu: bool = False) ->
     dev = resolve_device(device)
     config = load_config(config_path)
     enforce_require_tpu(config, dev, require_tpu)
+    if config.serve is not None:
+        world, axis = _gang_layout(config, dev, int(config.serve.capacity))
+        if world > 1:
+            from murmura_tpu_torch.parallel.launch import launch
+
+            launch(serve, (config_path, device, require_tpu), world=world,
+                   device_type=dev.type, axis=axis)
+            print("murmura_tpu_torch serve: stopped", flush=True)
+            return
     try:
         daemon = ServeDaemon(config, device=dev)
     except ValueError as e:  # no serve: section
         raise ConfigError(str(e)) from None
-    print(f"murmura_tpu_torch serve: listening on {daemon.socket_path} "
-          f"(state_dir={daemon.state_dir}, capacity={daemon.capacity}, device={dev})",
-          flush=True)
+    if _rank_zero():
+        print(f"murmura_tpu_torch serve: listening on {daemon.socket_path} "
+              f"(state_dir={daemon.state_dir}, capacity={daemon.capacity}, device={dev})",
+              flush=True)
     try:
         daemon.serve_forever()
     except KeyboardInterrupt:
         daemon.close()
-    print("murmura_tpu_torch serve: stopped", flush=True)
+    if process_group() is None:
+        print("murmura_tpu_torch serve: stopped", flush=True)
 
 
 def submit(config_path: Path, socket_path: Path, wait: bool = False,

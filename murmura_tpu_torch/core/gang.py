@@ -76,10 +76,15 @@ parameters, carried state and the closures built from its seed), its seed,
 lr and attack scale.  The gang's step and its chunk programs stay; no
 chunk program is built and no kernel compiled.  :meth:`freeze_member`
 stops recording one lane while it keeps computing, as the JAX package's
-vmap lane does.
+vmap lane does.  A serving gang (``boundary_freezes``, the serve daemon's)
+takes the freezes requested from another thread (:meth:`request_freeze`)
+at its chunk boundaries instead, before the chunk's rows are recorded: over
+a group rank 0's requests are broadcast there, so that every rank freezes
+the same lanes before the same round.
 """
 
 import contextlib
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -113,6 +118,7 @@ from murmura_tpu_torch.ops import _build
 from murmura_tpu_torch.parallel.mesh import (
     SeedGroup,
     barrier,
+    broadcast_object,
     columns_to_rows,
     gather_columns,
     gather_objects,
@@ -500,6 +506,11 @@ class GangNetwork:
         self.checkpoints: List[Dict[str, Any]] = []
         # freeze_member: a frozen lane keeps computing and stops recording.
         self.member_active: List[bool] = [True] * self.gang_size
+        # request_freeze: (lane, reason) pairs taken at the next chunk
+        # boundary where boundary_freezes is set (on every rank alike).
+        self.boundary_freezes = False
+        self._freeze_lock = threading.Lock()
+        self._freeze_queue: List[Tuple[int, str]] = []
 
     @property
     def programs(self) -> List[RoundProgram]:
@@ -701,6 +712,9 @@ class GangNetwork:
         # chunk, as a fresh gang's do (tpu.transfer_guard exempts it).
         self._warmed.clear()
         self._clear_run()
+        with self._freeze_lock:
+            # Requests for the last generation's lanes.
+            self._freeze_queue = []
 
     def freeze_member(self, member: int, reason: str) -> None:
         """Degrade one lane gracefully: its history freezes at the current
@@ -718,6 +732,24 @@ class GangNetwork:
             self.telemetry[member - lo].emit("backend_degraded",
                                              member=self.members[member].label,
                                              reason=reason, round=self.current_round)
+
+    def request_freeze(self, member: int, reason: str) -> None:
+        """Queue :meth:`freeze_member` of lane ``member`` for the next chunk
+        boundary of a gang with ``boundary_freezes`` set (safe from another
+        thread; over a group, rank 0's queue is the one taken).  The next
+        admission drops what is still queued."""
+        with self._freeze_lock:
+            self._freeze_queue.append((int(member), str(reason)))
+
+    def _take_freezes(self) -> List[Tuple[int, str]]:
+        """The freezes requested since the last boundary: this process's
+        queue, over a group rank 0's on every rank (a collective)."""
+        with self._freeze_lock:
+            queued, self._freeze_queue = self._freeze_queue, []
+        group = self.seed_group if self.seed_group is not None else self.group
+        if group is not None:
+            queued = broadcast_object(queued, group)
+        return queued
 
     # ------------------------------------------------------------------
 
@@ -808,6 +840,9 @@ class GangNetwork:
                 parts = gather_objects(by_round, self.seed_group)
                 by_round = [[m for part in parts for m in part[i]]
                             for i in range(len(evaluated))]
+            if self.boundary_freezes:
+                for member, reason in self._take_freezes():
+                    self.freeze_member(member, reason)
             for round_num, member_metrics in zip(evaluated, by_round):
                 self._record_all(round_num, member_metrics, verbose)
             if self.recompile_guard and not warmup and len(_build.STARTED) > builds:

@@ -14,6 +14,10 @@ rank's process group is a :class:`ParamGroup` (``axis="param"``), a
 - a rank's exception ends the run: the other ranks are stopped and the
   parent raises with that rank's traceback (a :class:`ConfigError` as a
   ConfigError, which the CLI renders as a message);
+- a rank dies with the process that launched it (:func:`_die_with_parent`:
+  Linux's parent-death signal, else a thread that watches the parent), so
+  that a killed ``serve`` leaves no rank holding its socket, its state
+  directory or a card;
 - on CUDA the kernels are built once, in the parent, before the ranks
   start (otherwise W ranks would run ``nvcc`` at once);
 - each rank sets its card (``torch.cuda.set_device``) before its first
@@ -27,16 +31,20 @@ other than 0 print nothing.
 
 The CLI's ``run`` launches its ranks (cli.py) when the config's layout has
 a param axis above 1, or a node axis above 1 at ``tpu.param_shards: 1``;
-``sweep``, ``run --seeds``, ``frontier`` and ``grid`` launch theirs, once
-for the command, when the gang plan's param axis or (at
-``tpu.param_shards: 1``) its seed axis is above 1; the tests and
-``chip_smoke.py`` launch their own module-level functions.
+``sweep``, ``run --seeds``, ``frontier``, ``grid`` and ``serve`` launch
+theirs, once for the command (``serve``: for the daemon's lifetime), when
+the gang plan's param axis or (at ``tpu.param_shards: 1``) its seed axis is
+above 1; the tests and ``chip_smoke.py`` launch their own module-level
+functions.
 """
 
+import ctypes
 import os
 import pickle
+import signal
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from datetime import timedelta
@@ -69,11 +77,40 @@ def forbidden_modules() -> List[str]:
     return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES)
 
 
+# prctl(2)'s option that arms the parent-death signal.
+_PR_SET_PDEATHSIG = 1
+
+
+def _die_with_parent(parent: int) -> None:
+    """SIGKILL this process when ``parent`` (the launcher) dies: Linux's
+    parent-death signal through ``prctl``, else a thread that polls the
+    parent pid; and at once if the parent is already gone."""
+    armed = False
+    if sys.platform.startswith("linux"):
+        try:
+            libc = ctypes.CDLL(None, use_errno=True)
+            armed = libc.prctl(_PR_SET_PDEATHSIG, int(signal.SIGKILL), 0, 0, 0) == 0
+        except (OSError, AttributeError):
+            armed = False
+    if not armed:
+        def watch():
+            while os.getppid() == parent:
+                time.sleep(0.5)
+            os.kill(os.getpid(), signal.SIGKILL)
+
+        threading.Thread(target=watch, name="murmura-parent-watch", daemon=True).start()
+    if os.getppid() != parent:
+        # The parent died before the signal was armed.
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
 def _rank_main(rank: int, fn: Callable, args: Sequence, world: int, backend: str,
                device_type: str, one_device: bool, tmp: str, timeout_s: float,
-               axis: str = "param") -> None:
+               axis: str = "param", parent: Optional[int] = None) -> None:
     import torch.distributed as dist
 
+    if parent is not None:
+        _die_with_parent(parent)
     if device_type == "cuda":
         index = 0 if one_device else rank
         torch.cuda.set_device(index)
@@ -124,7 +161,7 @@ def launch(fn: Callable, args: Sequence = (), *, world: int, device_type: str = 
     with tempfile.TemporaryDirectory(prefix="murmura-group-") as tmp:
         try:
             mp.start_processes(_rank_main, args=(fn, tuple(args), world, backend, device_type,
-                                                 one_device, tmp, timeout_s, axis),
+                                                 one_device, tmp, timeout_s, axis, os.getpid()),
                                nprocs=world, join=True, start_method="spawn")
         except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
             raise _rank_failure(Path(tmp), e, axis) from None

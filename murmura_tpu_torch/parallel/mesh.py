@@ -50,6 +50,12 @@ metric rows (:func:`gather_objects`) and, for a snapshot, the members'
 ``[S_r, N, P]`` stacks to rank 0 (:func:`gather_rows` over the member
 counts).
 
+The serve daemon (serve/daemon.py) runs over a seed or a param group for its
+whole lifetime: rank 0 sends every rank each generation's composition, the
+idle ticks and the stop with :func:`broadcast_object`, and a gang that
+serves takes its lane freezes from rank 0 the same way at each chunk
+boundary.
+
 The launcher (parallel/launch.py) spawns the ranks and sets each one's
 :func:`process_group`.  Over gloo on CUDA tensors (several ranks on one
 card, a check of the collective code) the ``all_to_all`` and ``all_gather``
@@ -439,6 +445,14 @@ def gather_objects(obj, group) -> list:
     out = [None] * group.world
     _dist().all_gather_object(out, obj)
     return out
+
+
+def broadcast_object(obj, group, src: int = 0):
+    """Rank ``src``'s picklable ``obj`` on every rank (the other ranks'
+    ``obj`` is ignored)."""
+    box = [obj if group.rank == src else None]
+    _dist().broadcast_object_list(box, src=src)
+    return box[0]
 
 
 def _ranges(ids: Sequence[int]) -> str:

@@ -17,7 +17,11 @@ buckets (core/gang.py):
   ``capacity`` queued tenants of one fingerprint form several generations
   through the same bucket.
 - **Eviction = ``freeze_member``.**  An evicted tenant's lane stops
-  recording and keeps computing, so the survivors are untouched.
+  recording and keeps computing, so the survivors are untouched.  The
+  ledger's ``evicted`` is immediate; the lane freezes at the gang's next
+  chunk boundary (``GangNetwork.request_freeze``), before that chunk's rows
+  are recorded, and the tenant's stream gets its ``evicted`` event when
+  the generation ends.
 - **Crash survival is the ledger and the snapshot.**  Every submission is
   a durably written ``submissions/<id>.json`` record (queued -> running
   -> done/failed/evicted); every generation writes its members to
@@ -30,16 +34,33 @@ buckets (core/gang.py):
   running from the recorded tenant configs, restores its snapshot and runs
   the remaining rounds: the histories equal an uninterrupted daemon's (bit
   for bit on the CPU), in whichever generation the kill came.
+- **Over a group.**  Where the daemon config's layout at ``capacity``
+  lanes has a running world W above 1 (``factories.serve_plan``: a seed
+  group, or a param group at ``tpu.param_shards`` > 1), ``serve`` starts W
+  ranks once for the daemon's lifetime and every rank builds a daemon.
+  Rank 0 owns the outside world: the socket, the ledger, the submission
+  records and ``generation.json``.  It sends every rank each generation's
+  composition (its tenants' configs, the template, whether it resumes from
+  a snapshot), and every rank runs the generation as a gang over the
+  group: a seed group's rank its block of the tenants, a param group's rank
+  its column block of every tenant.  A tenant's telemetry writer lives on
+  the rank that trains it (rank 0 over a param group); the ledger's
+  histories are rank 0's, which records every tenant's.  While its queue is
+  empty rank 0 sends a tick every ``serve.poll_interval_s``, so that the
+  other ranks, waiting for its next message, never reach the group's
+  collective timeout; the stop ends them.  A tenant whose own ``tpu``
+  section plans another layout is refused at submission
+  (``factories.check_serve_plan``).  A failed generation ends the group
+  (its ranks could not agree on a retry); the ledger keeps it running, and
+  the restarted daemon recovers it.
 
-Threading: one listener thread owns the unix socket and touches the
-ledger and the queue under the lock.  An eviction of a running tenant also
-clears its lane's host-side active flag (``freeze_member``) and writes the
-eviction into the tenant's event stream, whose writer serialises its lines
-under its own lock (telemetry/writer.py).  Every tensor and every CUDA call
-stays on the thread that runs generations (:meth:`serve_forever` /
-:meth:`drain`).  ``compiles`` (the
-lifetime counter, and ``serve_compiles`` in a tenant's manifest) counts
-what a generation built: chunk programs plus ``nvcc`` builds.
+Threading: one listener thread (rank 0's) owns the unix socket and touches
+the ledger and the queue under the lock; an eviction of a running tenant
+queues its lane's freeze on the gang.  Every tensor, every CUDA call and
+every collective stays on the thread that runs generations
+(:meth:`serve_forever` / :meth:`drain`).  ``compiles`` (the lifetime
+counter, and ``serve_compiles`` in a tenant's manifest) counts what a
+generation built in the process: chunk programs plus ``nvcc`` builds.
 """
 
 import json
@@ -48,7 +69,7 @@ import socket
 import threading
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -85,7 +106,9 @@ class SubmissionError(ValueError):
     """The submitted config cannot be served (refused at admission)."""
 
 
-def normalize_submission(raw: Dict[str, Any]) -> Tuple[Config, str]:
+def normalize_submission(raw: Dict[str, Any],
+                         check: Optional[Callable[[Config], None]] = None
+                         ) -> Tuple[Config, str]:
     """Validate and normalize one submitted config; returns
     ``(config, fingerprint)``.
 
@@ -93,10 +116,9 @@ def normalize_submission(raw: Dict[str, Any]) -> Tuple[Config, str]:
     ``frontier``, ``grid`` and ``serve`` sections are refused (a tenant is
     one experiment), the multi-process ``distributed`` backend is refused
     (its lifecycle cannot ride a gang lane), and the telemetry and
-    durability sections are dropped: the daemon owns both.  A tenant with
-    ``tpu.param_shards`` > 1, or whose layout plans a seed or node axis
-    above 1, is refused by name: the daemon lays out neither a seed group
-    nor a param group yet.
+    durability sections are dropped: the daemon owns both.  ``check`` (the
+    daemon's) refuses a tenant whose planned layout is not the daemon's; its
+    ConfigError becomes the SubmissionError.
     """
     if not isinstance(raw, dict):
         raise SubmissionError(
@@ -120,19 +142,33 @@ def normalize_submission(raw: Dict[str, Any]) -> Tuple[Config, str]:
             "backend=distributed cannot be served — the ZMQ process "
             "lifecycle does not fit a gang lane; submit simulation or tpu"
         )
-    from murmura_tpu_torch.utils.factories import ConfigError, refuse_sharded_command
+    if check is not None:
+        from murmura_tpu_torch.utils.factories import ConfigError
 
-    try:
-        refuse_sharded_command(config, "serve")
-    except ConfigError as e:
-        raise SubmissionError(str(e)) from None
+        try:
+            check(config)
+        except ConfigError as e:
+            raise SubmissionError(str(e)) from None
     config.experiment.verbose = False
     return config, structural_fingerprint(config)
 
 
+def _group_axis(group) -> Tuple[Optional[str], int]:
+    """(axis, world) of the group this process runs in ((None, 1) outside
+    one)."""
+    from murmura_tpu_torch.parallel.mesh import NodeGroup, SeedGroup
+
+    if group is None:
+        return None, 1
+    axis = "seed" if isinstance(group, SeedGroup) else (
+        "nodes" if isinstance(group, NodeGroup) else "param")
+    return axis, group.world
+
+
 class ServeDaemon:
     """The experiment daemon behind ``serve <yaml>``; its gangs run on
-    ``device``."""
+    ``device``, over the seed or param group this process is a rank of
+    (parallel/launch.py), which must be the group the config plans."""
 
     def __init__(self, config: Config, device="cuda"):
         if config.serve is None:
@@ -140,10 +176,9 @@ class ServeDaemon:
                 "murmura serve needs a `serve:` section (state_dir at "
                 "minimum) in the daemon config"
             )
-        from murmura_tpu_torch.utils.factories import refuse_sharded_command
+        from murmura_tpu_torch.parallel.mesh import SeedGroup, process_group
+        from murmura_tpu_torch.utils.factories import check_serve_plan, serve_plan
 
-        # The daemon lays out neither a seed group nor a param group yet.
-        refuse_sharded_command(config, "serve", str(device).split(":")[0])
         s = config.serve
         self.config = config
         self.device = device
@@ -154,8 +189,24 @@ class ServeDaemon:
         self.socket_path = str(
             s.socket if s.socket else self.state_dir / "daemon.sock"
         )
-        (self.state_dir / "submissions").mkdir(parents=True, exist_ok=True)
-        (self.state_dir / "buckets").mkdir(parents=True, exist_ok=True)
+        # The group the daemon runs over: the config's plan at capacity
+        # lanes must be the process's group.  Ranks sharing one card stand
+        # for as many cards (the one-device seam).
+        self.group = process_group()
+        self._device_type = str(device).split(":")[0]
+        self._cards = (self.group.world if self.group is not None and self.group.staged
+                       else None)
+        check_serve_plan(config, self.capacity, self._device_type,
+                         (None, *_group_axis(self.group)), self._cards,
+                         who="the daemon's config",
+                         remedy="start the daemon with `serve`, which launches the ranks of "
+                                "the group its config plans")
+        self.plan = serve_plan(config, self.capacity, self._device_type, self._cards)
+        self._owner = self.group is None or self.group.rank == 0
+        self._seeds = self.group if isinstance(self.group, SeedGroup) else None
+        if self._owner:
+            (self.state_dir / "submissions").mkdir(parents=True, exist_ok=True)
+            (self.state_dir / "buckets").mkdir(parents=True, exist_ok=True)
 
         self._lock = threading.RLock()
         self._ledger: Dict[str, Dict[str, Any]] = {}
@@ -168,16 +219,14 @@ class ServeDaemon:
         self._server = None
         self._seq = 0
         # The observability plane: the process's lifetime counters (ping,
-        # top's header, the metrics op) and the live TelemetryWriter of
-        # each running tenant, so that an eviction lands a lifecycle event
-        # in the tenant's own stream.
+        # top's header, the metrics op).
         self.started_at = time.time()
         self._counters: Dict[str, int] = {
             "admissions": 0, "evictions": 0, "resumes": 0,
             "compiles": 0, "generations": 0,
         }
-        self._tenant_writers: Dict[str, Any] = {}
-        self._load_ledger()
+        if self._owner:
+            self._load_ledger()
 
     # ------------------------------------------------------------------
     # Durable ledger
@@ -216,10 +265,17 @@ class ServeDaemon:
     # ------------------------------------------------------------------
     # Admission
 
+    def _check_tenant(self, config: Config) -> None:
+        """Refuse a tenant whose plan at the daemon's capacity is not the
+        daemon's."""
+        from murmura_tpu_torch.utils.factories import check_serve_plan
+
+        check_serve_plan(config, self.capacity, self._device_type, self.plan, self._cards)
+
     def submit_config(self, raw: Dict[str, Any]) -> Dict[str, Any]:
         """Admit one submission (the in-process twin of the socket
         ``submit`` op); returns the durably-written ledger record."""
-        config, fp = normalize_submission(raw)
+        config, fp = normalize_submission(raw, check=self._check_tenant)
         with self._lock:
             self._seq += 1
             sub_id = f"sub-{self._seq:05d}"
@@ -239,8 +295,9 @@ class ServeDaemon:
 
     def evict(self, sub_id: str, reason: str = "evicted") -> Dict[str, Any]:
         """Evict a submission: a queued tenant never runs; a running
-        tenant's lane is frozen (``GangNetwork.freeze_member``: its history
-        stops, the survivors are untouched)."""
+        tenant's lane freezes at its gang's next chunk boundary
+        (``GangNetwork.request_freeze``: its history stops, the survivors
+        are untouched)."""
         with self._lock:
             rec = self._ledger.get(sub_id)
             if rec is None:
@@ -252,21 +309,44 @@ class ServeDaemon:
             elif rec["state"] == "running":
                 bucket = self._buckets.get(rec["fingerprint"])
                 if bucket is not None and rec.get("lane") is not None:
-                    bucket["gang"].freeze_member(int(rec["lane"]), reason)
-            writer = self._tenant_writers.get(sub_id)
-            if writer is not None:
-                writer.serve_event(
-                    "evicted", reason=reason, gen=rec.get("gen"),
-                    lane=rec.get("lane"),
-                )
+                    bucket["gang"].request_freeze(int(rec["lane"]), reason)
             self._counters["evictions"] += 1
             return dict(self._update(sub_id, state="evicted", error=reason))
 
     # ------------------------------------------------------------------
-    # Buckets and generations
+    # The group: rank 0's messages
 
-    def _tenant_config(self, sub_id: str) -> Config:
-        return Config.model_validate(self._ledger[sub_id]["config"])
+    def _from_owner(self, value):
+        """Rank 0's ``value`` on every rank (``value`` outside a group)."""
+        if self.group is None:
+            return value
+        from murmura_tpu_torch.parallel.mesh import broadcast_object
+
+        return broadcast_object(value, self.group)
+
+    def _follow(self) -> None:
+        """A rank other than 0: run each generation rank 0 announces until
+        its stop (its ticks only keep the group's collectives alive)."""
+        while True:
+            msg = self._from_owner(None)
+            if msg["op"] == "stop":
+                return
+            if msg["op"] == "generation":
+                self._execute(msg)
+
+    def _release(self) -> None:
+        """Rank 0: send the other ranks the stop (nothing outside a group)."""
+        if self.group is not None:
+            self._from_owner({"op": "stop"})
+
+    def _tick(self) -> None:
+        """Rank 0, idle: keep the other ranks' wait short of the group's
+        collective timeout."""
+        if self.group is not None:
+            self._from_owner({"op": "tick"})
+
+    # ------------------------------------------------------------------
+    # Buckets and generations
 
     def _member_for(self, config: Config):
         from murmura_tpu_torch.core.gang import GangMember
@@ -290,18 +370,18 @@ class ServeDaemon:
             resume=resume,
         )
 
-    def _ensure_bucket(self, fp: str, template_id: str) -> Dict[str, Any]:
+    def _ensure_bucket(self, fp: str, template_id: str, template: Config) -> Dict[str, Any]:
         """The warm bucket for fingerprint ``fp``, built on first use from
-        tenant ``template_id``'s config: a 1-member template gang with
-        ``min_batch=capacity``, so that every admission of up to
-        ``capacity`` tenants is value-only."""
+        tenant ``template_id``'s config ``template``: a 1-member template gang
+        with ``min_batch=capacity``, so that every admission of up to
+        ``capacity`` tenants is value-only.  Its freezes are taken at chunk
+        boundaries (``GangNetwork.boundary_freezes``)."""
         from murmura_tpu_torch.utils.factories import build_gang_from_config
 
         with self._lock:
             bucket = self._buckets.get(fp)
             if bucket is not None:
                 return bucket
-            template = self._tenant_config(template_id)
         raw = template.model_dump()
         member = self._member_for(template)
         raw["sweep"] = {
@@ -311,6 +391,7 @@ class ServeDaemon:
         gang = build_gang_from_config(
             template_cfg, device=self.device, min_batch=self.capacity,
         )
+        gang.boundary_freezes = True
         bucket = {"gang": gang, "gen": 0, "lanes": {}, "template": template_id}
         with self._lock:
             self._buckets[fp] = bucket
@@ -342,65 +423,95 @@ class ServeDaemon:
         resume: bool = False,
         template_id: Optional[str] = None,
     ) -> None:
-        """Run one generation of bucket ``fp`` with tenants ``ids``; a
-        bucket not yet built is built from ``template_id``'s config (the
-        recorded template on a recovery), else from the first tenant's.
+        """Run one generation of bucket ``fp`` with tenants ``ids`` (rank 0,
+        or the one process); a bucket not yet built is built from
+        ``template_id``'s config (the recorded template on a recovery), else
+        from the first tenant's.  Over a group the generation's message
+        reaches every rank first, and every rank runs it
+        (:meth:`_execute`)."""
+        with self._lock:
+            bucket = self._buckets.get(fp)
+            if gen is None:
+                gen = (bucket["gen"] if bucket is not None else 0) + 1
+            if bucket is not None:
+                template_id = bucket["template"]
+            template_id = template_id or ids[0]
+            msg = {
+                "op": "generation", "fp": fp, "gen": gen, "ids": list(ids),
+                "configs": [self._ledger[i]["config"] for i in ids],
+                "submitted_at": [self._ledger[i].get("submitted_at") for i in ids],
+                "template": [template_id, self._ledger[template_id]["config"]],
+                "resume": resume,
+                "snapshot": resume and (self._gen_dir(fp, gen) / "meta.json").exists(),
+            }
+        self._execute(self._from_owner(msg))
 
-        The composition record (``generation.json``) is durably written
-        before any training, so that a SIGKILL at any later point leaves
-        enough on disk to rebuild the gang and resume it."""
+    def _block(self, count: int) -> Tuple[int, int]:
+        """[lo, hi) of a generation's tenants this process trains: a seed
+        group's rank its block, otherwise every tenant."""
+        if self._seeds is None:
+            return 0, count
+        return self._seeds.bind(count).members()
+
+    def _execute(self, msg: Dict[str, Any]) -> None:
+        """Run one announced generation (every rank).  The composition
+        record (``generation.json``) is durably written before any
+        training, so that a SIGKILL at any later point leaves enough on
+        disk to rebuild the gang and resume it."""
         from murmura_tpu_torch.utils.checkpoint import durable_replace
         from murmura_tpu_torch.utils.factories import build_gang_member_programs
 
-        ids = list(ids)
-        tenants = [(i, self._tenant_config(i)) for i in ids]
-        bucket = self._ensure_bucket(fp, template_id or ids[0])
+        fp, gen, ids, resume = msg["fp"], int(msg["gen"]), list(msg["ids"]), msg["resume"]
+        configs = [Config.model_validate(c) for c in msg["configs"]]
+        template_id, template = msg["template"]
+        bucket = self._ensure_bucket(fp, template_id, Config.model_validate(template))
         gang = bucket["gang"]
-        if gen is None:
-            gen = bucket["gen"] + 1
         gen_dir = self._gen_dir(fp, gen)
-        gen_dir.mkdir(parents=True, exist_ok=True)
-        rounds = int(tenants[0][1].experiment.rounds)
-
-        members = [self._member_for(cfg) for _, cfg in tenants]
-        if not resume:
-            durable_replace(
-                gen_dir, "generation.json",
-                (json.dumps({
-                    "fingerprint": fp,
-                    "gen": gen,
-                    "rounds": rounds,
-                    "template": bucket["template"],
-                    "submissions": [
-                        {"id": i, "seed": m.seed, "lr": m.lr}
-                        for i, m in zip(ids, members)
-                    ],
-                }, indent=2) + "\n").encode("utf-8"),
-            )
+        rounds = int(configs[0].experiment.rounds)
+        members = [self._member_for(cfg) for cfg in configs]
+        if self._owner:
+            gen_dir.mkdir(parents=True, exist_ok=True)
+            if not resume:
+                durable_replace(
+                    gen_dir, "generation.json",
+                    (json.dumps({
+                        "fingerprint": fp,
+                        "gen": gen,
+                        "rounds": rounds,
+                        "template": bucket["template"],
+                        "submissions": [
+                            {"id": i, "seed": m.seed, "lr": m.lr}
+                            for i, m in zip(ids, members)
+                        ],
+                    }, indent=2) + "\n").encode("utf-8"),
+                )
+            with self._lock:
+                for lane, sub_id in enumerate(ids):
+                    self._update(
+                        sub_id, state="running", bucket=fp, gen=gen, lane=lane,
+                    )
         with self._lock:
             bucket["lanes"] = {lane: i for lane, i in enumerate(ids)}
-            for lane, sub_id in enumerate(ids):
-                self._update(
-                    sub_id, state="running", bucket=fp, gen=gen, lane=lane,
-                )
 
+        lo, hi = self._block(len(ids))
         progs = [
-            build_gang_member_programs(cfg, [m], device=self.device)[0]
-            for (_, cfg), m in zip(tenants, members)
+            build_gang_member_programs(cfg, [m], device=self.device, whole=True,
+                                       attack=gang.attack)[0]
+            for cfg, m in zip(configs[lo:hi], members[lo:hi])
         ]
-        writers = [
-            self._writer(i, cfg, resume=resume) for i, cfg in tenants
-        ]
+        # A tenant's writer lives on the rank that trains it; over a param
+        # group every rank trains every tenant and rank 0 writes.
+        writes = self.group is None or self._seeds is not None or self._owner
+        writers = {lane: self._writer(ids[lane], configs[lane], resume=resume)
+                   for lane in (range(lo, hi) if writes else ())}
         # Lifecycle events through each tenant's own stream: the trace's
         # side of the ledger.  ``submitted`` is backdated to the ledger's
         # submitted_at: the writer exists from admission on, but the time
         # in the queue is real.
         compile_baseline = self._compile_count()
-        for lane, ((sub_id, _cfg), w) in enumerate(zip(tenants, writers)):
-            rec = self._ledger[sub_id]
+        for lane, w in writers.items():
             if not resume:
-                w.serve_event("submitted", _t=rec.get("submitted_at"),
-                              bucket=fp)
+                w.serve_event("submitted", _t=msg["submitted_at"][lane], bucket=fp)
                 w.serve_event("admitted", bucket=fp, gen=gen, lane=lane)
             else:
                 w.serve_event("resumed", bucket=fp, gen=gen, lane=lane)
@@ -409,12 +520,10 @@ class ServeDaemon:
             if resume:
                 self._counters["resumes"] += len(ids)
             self._counters["generations"] += 1
-            self._tenant_writers.update(zip(ids, writers))
         gang.reset_run(
-            members, member_programs=progs, telemetry_writers=writers,
+            members, member_programs=progs, telemetry_writers=list(writers.values()),
         )
-        snapshot_exists = (gen_dir / "meta.json").exists()
-        if resume and snapshot_exists:
+        if msg["snapshot"]:
             gang.restore_checkpoint(str(gen_dir))
 
         def attempt(try_idx: int):
@@ -438,70 +547,84 @@ class ServeDaemon:
             # The envelope's degradations land in every tenant's stream
             # (the metrics fold's murmura_degradations).
             retry_stats.hook(exc, try_idx, delay)
-            for w in writers:
+            for w in writers.values():
                 w.emit(
                     "backend_degraded", kind="retry",
                     reason=retry_stats.last_reason, retry=try_idx,
                     delay_s=delay,
                 )
 
-        try:
-            histories = run_with_retry(
-                attempt,
-                policy=RetryPolicy(max_retries=2, base_delay_s=0.1,
-                                   max_delay_s=1.0, seed=0),
-                classify=classify_error,
-                on_retry=on_retry,
-            )
-        except Exception as e:  # noqa: BLE001 — per-tenant fate recording
-            for sub_id, w in zip(ids, writers):
-                if self._ledger[sub_id]["state"] == "running":
-                    self._update(
-                        sub_id, state="failed",
-                        error=f"{type(e).__name__}: {e}",
-                    )
-                w.serve_event(
-                    "generation_done", gen=gen,
-                    outcome=self._ledger[sub_id]["state"],
+        if self.group is not None:
+            # A failure ends the group: its ranks could not agree on a retry.
+            histories = attempt(0)
+        else:
+            try:
+                histories = run_with_retry(
+                    attempt,
+                    policy=RetryPolicy(max_retries=2, base_delay_s=0.1,
+                                       max_delay_s=1.0, seed=0),
+                    classify=classify_error,
+                    on_retry=on_retry,
                 )
-            self._finish_generation(
-                fp, gen, ids, writers, compile_baseline, retry_stats,
-            )
-            return
+            except Exception as e:  # noqa: BLE001 — per-tenant fate recording
+                for lane, sub_id in enumerate(ids):
+                    if self._ledger[sub_id]["state"] == "running":
+                        self._update(
+                            sub_id, state="failed",
+                            error=f"{type(e).__name__}: {e}",
+                        )
+                    writers[lane].serve_event(
+                        "generation_done", gen=gen,
+                        outcome=self._ledger[sub_id]["state"],
+                    )
+                self._finish_generation(
+                    fp, gen, ids, writers.values(), compile_baseline, retry_stats,
+                )
+                return
 
-        for lane, sub_id in enumerate(ids):
-            if self._ledger[sub_id]["state"] != "running":
-                # Evicted mid-generation: its state is terminal and its
-                # eviction event already landed in the stream.
-                continue
-            hist = histories[lane]
-            mean = hist.get("mean_accuracy") or []
-            honest = hist.get("honest_accuracy") or mean
-            self._update(
-                sub_id,
-                state="done",
-                final_accuracy=float(mean[-1]) if mean else None,
-                honest_accuracy=float(honest[-1]) if honest else None,
-                history=_jsonable(hist),
-                phase_times={
-                    "mode": "gang_per_round",
-                    "rounds": rounds,
-                    "mean_round_s": (
-                        float(np.mean(gang.round_times))
-                        if gang.round_times else 0.0
-                    ),
-                },
-            )
-            writers[lane].serve_event(
-                "generation_done", gen=gen, outcome="done",
-            )
+        # Each tenant's fate, decided once under the lock (an eviction may
+        # arrive until then): evicted (its stream's event now, on the rank
+        # that holds it) or done with rank 0's history.
+        evicted: Dict[int, Any] = {}
+        if self._owner:
+            with self._lock:
+                for lane, sub_id in enumerate(ids):
+                    rec = self._ledger[sub_id]
+                    if rec["state"] != "running":
+                        evicted[lane] = rec.get("error")
+                        continue
+                    hist = histories[lane]
+                    mean = hist.get("mean_accuracy") or []
+                    honest = hist.get("honest_accuracy") or mean
+                    self._update(
+                        sub_id,
+                        state="done",
+                        final_accuracy=float(mean[-1]) if mean else None,
+                        honest_accuracy=float(honest[-1]) if honest else None,
+                        history=_jsonable(hist),
+                        phase_times={
+                            "mode": "gang_per_round",
+                            "rounds": rounds,
+                            "mean_round_s": (
+                                float(np.mean(gang.round_times))
+                                if gang.round_times else 0.0
+                            ),
+                        },
+                    )
+        evicted = self._from_owner(evicted)
+        for lane, w in writers.items():
+            if lane in evicted:
+                w.serve_event("evicted", reason=evicted[lane], gen=gen, lane=lane)
+            else:
+                w.serve_event("generation_done", gen=gen, outcome="done")
         self._finish_generation(
-            fp, gen, ids, writers, compile_baseline, retry_stats,
+            fp, gen, ids, writers.values(), compile_baseline, retry_stats,
         )
 
     def _compile_count(self) -> int:
-        """What this daemon has built: its buckets' chunk programs plus the
-        ``nvcc`` builds started in the process (ops/_build.py)."""
+        """What this process's daemon has built: its buckets' chunk
+        programs plus the ``nvcc`` builds started in the process
+        (ops/_build.py)."""
         from murmura_tpu_torch.ops import _build
 
         with self._lock:
@@ -526,8 +649,6 @@ class ServeDaemon:
                 pass
         with self._lock:
             self._counters["compiles"] += compiled
-            for sub_id in ids:
-                self._tenant_writers.pop(sub_id, None)
             bucket = self._buckets.get(fp)
             if bucket is not None:
                 bucket["gen"] = max(bucket["gen"], gen)
@@ -539,11 +660,15 @@ class ServeDaemon:
     def recover(self) -> List[str]:
         """Resume every generation that was running from its record on
         disk: rebuild the bucket from its recorded template tenant and the
-        generation from the recorded tenant configs, restore
-        the latest snapshot where one exists, and run the remaining rounds
-        (or the whole generation when the kill came before the first
-        snapshot).  The completed histories equal the uninterrupted run's.
-        Returns the recovered submission ids."""
+        generation from the recorded tenant configs, restore the latest
+        snapshot where one exists (on every rank of a group), and run the
+        remaining rounds (or the whole generation when the kill came before
+        the first snapshot).  The completed histories equal the
+        uninterrupted run's.  Returns the recovered submission ids (rank 0's
+        reading of the ledger; a rank other than 0 runs the generations in
+        :meth:`drain` or :meth:`serve_forever` and returns [] here)."""
+        if not self._owner:
+            return []
         in_flight: Dict[Tuple[str, int], List[str]] = {}
         with self._lock:
             for sub_id, rec in self._ledger.items():
@@ -573,17 +698,29 @@ class ServeDaemon:
     # Drive
 
     def drain(self) -> None:
-        """Run generations until the queue is empty (tests, one-shot)."""
+        """Run generations until the queue is empty (tests, one-shot).  Over
+        a group every rank calls it: rank 0 runs the queue (after any
+        :meth:`recover`) and then stops the other ranks, which run what it
+        announces until then."""
+        if not self._owner:
+            self._follow()
+            return
         while True:
             nxt = self._next_generation()
             if nxt is None:
-                return
+                break
             self._run_generation(*nxt)
+        self._release()
 
     def serve_forever(self) -> None:
         """Bind the socket, recover the work that was running, then serve
         until a ``shutdown`` request (graceful: the current generation
-        completes; every state transition is durable anyway)."""
+        completes; every state transition is durable anyway).  Over a group
+        rank 0 does this, ticking while idle, and stops the other ranks at
+        the end; they run what it announces."""
+        if not self._owner:
+            self._follow()
+            return
         self._start_listener()
         try:
             self.recover()
@@ -593,6 +730,8 @@ class ServeDaemon:
                     self._run_generation(*nxt)
                 else:
                     self._stop.wait(self.poll_interval_s)
+                    self._tick()
+            self._release()
         finally:
             self.close()
 

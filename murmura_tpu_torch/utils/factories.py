@@ -26,9 +26,10 @@ members' telemetry writers.  In a rank of a seed group both build only the
 rank's members (``SeedGroup.members``): their data, initial parameters,
 draws and programs, and their telemetry writers at the one-process gang's
 run dirs.  The frontier and the grid build their gangs here too, in the
-ranks their command launched; the serve daemon refuses a seed axis, a node
-axis and ``tpu.param_shards`` > 1 by name (:func:`refuse_sharded_command`):
-it lays out no group yet.
+ranks their command launched, and the serve daemon its buckets, in the
+ranks ``serve`` launched for its lifetime: :func:`serve_plan` is the group
+a daemon and each of its tenants plan, and a tenant of another plan is
+refused at submission (:func:`check_serve_plan`).
 A ``backend: tpu`` run at ``tpu.param_shards: 1`` whose planned node axis
 is above 1 (:func:`node_axis_of`) runs as a node group's ranks
 (parallel/launch.py, from the CLI's ``run``); every section that axis does
@@ -38,7 +39,7 @@ of 1 refuses nothing.  A gang follows its own plan (parallel/mesh.py
 """
 
 import os
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,8 +66,10 @@ from murmura_tpu_torch.ops.flatten import model_dimension, padded_dim
 from murmura_tpu_torch.parallel.mesh import (
     check_node_axis,
     layout_devices,
+    plan_layout,
     process_group,
     round_group,
+    running_axis,
     seed_group,
 )
 from murmura_tpu_torch.population import PopulationNetwork, PopulationSpec
@@ -82,35 +85,56 @@ class ConfigError(ValueError):
     mismatch).  The CLI renders these as messages, not tracebacks."""
 
 
-# The commands that param-axis sharding does not run yet (ROADMAP Queue A):
-# the JAX package lays each of their gangs on a ("seed", "nodes", "param")
-# mesh; the serve daemon's group would have to outlive a generation.
-SHARDING_UNPORTED = {
-    "serve": "serve with tpu.param_shards > 1 (each bucket's gang over a param group; the "
-             "daemon lays out no group yet)",
-}
+def serve_plan(config: Config, lanes: int, device_type: str,
+               cards: Optional[int] = None) -> Tuple[Tuple[int, int, int], Optional[str], int]:
+    """(layout, axis, world) of a gang of ``lanes`` lanes (a serve daemon's
+    capacity, JAX's ``next_bucket`` of it) laid out as the gang commands lay
+    theirs (cli.py ``_gang_layout``): the planned (seed, nodes, param)
+    layout, and the param group at ``tpu.param_shards`` > 1 or else the
+    seed group that runs it; axis None and world 1 where one process runs
+    it (no ``backend: tpu``, or a running factor of 1).  ``cards``: on
+    CUDA, the cards a group of ranks sharing one card stands for (the
+    one-device seam, parallel/launch.py), in place of the visible ones."""
+    from murmura_tpu_torch.core.gang import next_bucket
+
+    if config.backend != "tpu":
+        return (1, 1, 1), None, 1
+    shards, devices = config.tpu.param_shards, config.tpu.num_devices
+    if device_type == "cuda" and cards is not None:
+        if devices is not None and devices > cards:
+            raise ConfigError(f"Requested {devices} devices but only {cards} available")
+        # Planned as the CPU plans: tpu.num_devices, else every card.
+        device_type, devices = "cpu", devices if devices is not None else cards
+    try:
+        layout, _ = plan_layout(config.topology.num_nodes, shards, str(device_type), devices,
+                                gang=next_bucket(lanes))
+    except ValueError as e:
+        raise ConfigError(str(e)) from None
+    axis, world, _ = running_axis(layout, True, shards)
+    return layout, (axis if world > 1 else None), world
 
 
-# The commands that run no seed or node group yet at a planned layout of more
-# than one device (ROADMAP Queue A): the JAX package lays each bucket's gang
-# on its ("seed", "nodes") mesh.
-NODE_AXIS_UNPORTED = {
-    "serve": "serve over a seed axis or a node axis above 1 (each bucket's gang over a seed "
-             "group; the daemon lays out no group yet)",
-}
+def describe_plan(layout: Optional[Tuple[int, int, int]], axis: Optional[str],
+                  world: int) -> str:
+    """A plan of :func:`serve_plan` (or a group a process runs in, with no
+    layout) in words."""
+    where = "one process" if world == 1 else f"a {axis} group of {world}"
+    return where if layout is None else f"{where} (layout (seed, nodes, param) {tuple(layout)})"
 
 
-def refuse_sharded_command(config: Config, command: str, device_type=None) -> None:
-    """Refuse ``command`` (the serve daemon) on a param-sharded config, or
-    where more than one device is planned at ``tpu.param_shards: 1`` (on
-    ``device_type``: a seed or node axis above 1), by name: it would
-    otherwise run its gangs in one process."""
-    if command in SHARDING_UNPORTED and param_shards_of(config) > 1:
-        raise ConfigError("the PyTorch port does not run these config sections yet: "
-                          + SHARDING_UNPORTED[command])
-    if command in NODE_AXIS_UNPORTED and node_axis_of(config, device_type) > 1:
-        raise ConfigError("the PyTorch port does not run these config sections yet: "
-                          + NODE_AXIS_UNPORTED[command])
+def check_serve_plan(config: Config, lanes: int, device_type: str, running: Tuple,
+                     cards: Optional[int] = None, who: str = "the tenant",
+                     remedy: str = "a daemon serves tenants of its own layout only (mixed "
+                                   "layouts in one daemon are not built)") -> None:
+    """Refuse ``config`` (a tenant, or the daemon's own config) whose plan at
+    ``lanes`` lanes (:func:`serve_plan`) runs another axis or another world
+    than ``running``, the daemon's (layout or None, axis, world), in words
+    that name both: a daemon serves the one layout its group runs."""
+    layout, axis, world = serve_plan(config, lanes, device_type, cards)
+    if (axis, world) != tuple(running[1:]):
+        raise ConfigError(
+            f"{who} plans {describe_plan(layout, axis, world)} at {lanes} lanes, and the "
+            f"daemon runs {describe_plan(*running)}: {remedy}")
 
 
 def node_axis_of(config: Config, device_type=None) -> int:
@@ -554,13 +578,15 @@ def build_topology(config: Config):
 
 def build_program(config: Config, topology, attack, seed: int, device, rule=None,
                   lr: Optional[float] = None, attack_scale: Optional[float] = None,
-                  init_params=None):
+                  init_params=None, round_attack=None):
     """The round program of one run (a single run, or one gang member):
     data from ``seed`` with the attack's label poison, and the model and
     rule (``rule``: a (model, agg, probe_size) already built for this
     config, else built here from the data); ``init_params`` replaces the
-    seeded initial parameters (``build_round_program``'s carry-over).
-    Returns (program, rule)."""
+    seeded initial parameters (``build_round_program``'s carry-over);
+    ``round_attack`` (a warm gang's) is the attack the rounds apply in place
+    of ``attack``, whose label poison the data keeps.  Returns (program,
+    rule)."""
     try:
         data = build_federated_data(
             config.data.adapter,
@@ -598,7 +624,7 @@ def build_program(config: Config, topology, attack, seed: int, device, rule=None
             batch_size=config.training.batch_size,
             lr=config.training.lr if lr is None else lr,
             total_rounds=config.experiment.rounds,
-            attack=attack,
+            attack=attack if round_attack is None else round_attack,
             seed=seed,
             probe_size=probe_size,
             param_dtype=resolved_param_dtype(config),
@@ -674,11 +700,12 @@ def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None
 
 
 def _gang_members_and_programs(config: Config, device, seeds=None, members=None,
-                               init_params=None):
+                               init_params=None, whole: bool = False, round_attack=None):
     """The checks a gang's wiring shares with an admission, and the member
     programs: (members, topology, attack, programs, template).  In a seed
-    group ``programs`` are the rank's members' alone, and ``template`` is
-    member 0's program where the rank holds none (else None)."""
+    group (unless ``whole``) ``programs`` are the rank's members' alone, and
+    ``template`` is member 0's program where the rank holds none (else
+    None); ``round_attack``: :func:`build_program`'s."""
     from murmura_tpu_torch.core.gang import gang_hp_inputs, resolve_members
 
     if config.backend == "distributed":
@@ -705,7 +732,7 @@ def _gang_members_and_programs(config: Config, device, seeds=None, members=None,
     if init_params is not None and len(init_params) != len(members):
         raise ConfigError(f"{len(init_params)} initial parameter sets for "
                           f"{len(members)} gang members")
-    group = seed_group()
+    group = None if whole else seed_group()
     lo, hi = (0, len(members)) if group is None else group.bind(len(members)).members()
     # An empty block builds member 0's program for the gang's shapes.
     indices = list(range(lo, hi)) or [0]
@@ -719,28 +746,35 @@ def _gang_members_and_programs(config: Config, device, seeds=None, members=None,
                                       torch.device(device), rule=rule, lr=member.lr,
                                       attack_scale=scale,
                                       init_params=None if init_params is None
-                                      else init_params[i])
+                                      else init_params[i], round_attack=round_attack)
         programs.append(program)
     if hi == lo:
         return members, topology, attack, [], programs[0]
     return members, topology, attack, programs, None
 
 
-def build_gang_member_programs(config: Config, members, device="cuda"):
+def build_gang_member_programs(config: Config, members, device="cuda", whole: bool = False,
+                               attack=None):
     """One generation's member programs (the serve daemon's admission path):
     each member's data, initial parameters and learning rate from its seed,
     exactly as :func:`build_gang_from_config` builds them, without a gang.
     They are value sources for a warm gang
     (``GangNetwork.reset_run(member_programs=...)``), so they must come from
     a config whose structural fingerprint is the gang's
-    (serve/scheduler.py).  In a seed group: the rank's members' programs
-    (``SeedGroup.members``)."""
+    (serve/scheduler.py).  ``attack``: the warm gang's, which the rounds
+    apply (its placement is the gang's), as the JAX package's traced gang
+    step keeps its template's attack; the data keep the config's own label
+    poison, as the JAX package's member programs do.  In a seed group: the
+    rank's members' programs (``SeedGroup.members``), or with ``whole``
+    every member's (the daemon builds its rank's block of tenants one
+    tenant at a time)."""
     if config.backend == "distributed":
         raise ConfigError(
             "gang-batched serving needs the jitted backends; backend: "
             "distributed trains in per-node OS processes"
         )
-    return _gang_members_and_programs(config, device, members=list(members))[3]
+    return _gang_members_and_programs(config, device, members=list(members), whole=whole,
+                                      round_attack=attack)[3]
 
 
 def build_gang_from_config(config: Config, seeds=None, device="cuda", checkpoint_dir=None,

@@ -23,6 +23,8 @@ gang round under mobility, each card against CPU within a scaled 1e-4
 block's kernels (the node axis): the candidate select's window entry,
 bit-equal to its plain version and to the block's rows of the whole
 network's call, and the circulant kernel's offset-0 pieces on a window.
+A group of 2 on the card whose launcher is SIGKILLed leaves no rank
+holding it (parallel/launch.py's parent-death guard).
 Tolerances are chip_smoke.py's: |d2 - plain| <= 1e-5 (|a_i|^2 + |b_j|^2)
 for the pairwise kernel (norms of the centered rows when it takes a
 center), whose Gram identity cancels in float32;
@@ -1302,3 +1304,35 @@ def test_circulant_pieces_on_a_window_match_plain(dev, n, rows, offsets, p):
     assert bool(torch.all((got - ref).abs() <= tol))
     whole = K.circulant_sq_distances_plain(own.cpu(), b.cpu(), offsets).to(dev)[:, lo:hi]
     assert bool(torch.all((got - whole).abs() <= tol))
+
+
+def test_a_killed_launcher_leaves_no_rank_on_the_card(dev, tmp_path):
+    # A group of 2 on cuda:0 (parallel/launch.py's one-device seam), each
+    # rank holding a tensor on the card, whose launcher is SIGKILLed: the
+    # ranks' parent-death guard ends both within 30 s, so that a killed
+    # ``serve`` leaves no rank holding the card.
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    import torch_serve_group_cases as cases
+
+    here = Path(__file__).resolve().parent
+    code = ("import sys; sys.path[:0] = sys.argv[1:3]; import torch_serve_group_cases as c; "
+            "c.launch_and_hold(sys.argv[3])")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(here), str(here.parent),
+                             str(tmp_path)])
+    try:
+        deadline = time.monotonic() + 300
+        while len(list(tmp_path.glob("*.pid"))) < 2 and proc.poll() is None \
+                and time.monotonic() < deadline:
+            time.sleep(0.1)
+        ranks = [int(p.stem) for p in tmp_path.glob("*.pid")]
+        assert len(ranks) == 2 and proc.poll() is None, "the ranks did not reach the card"
+        assert sorted(ranks) == sorted(r for r in cases.children(proc.pid) if r in ranks)
+        assert cases.kill_and_wait(proc.pid, ranks) == []
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()

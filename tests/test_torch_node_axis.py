@@ -451,25 +451,26 @@ def test_the_round_program_refuses_by_name_on_a_node_group(what):
 
 
 def test_gangs_frontier_grid_and_daemon_are_refused_over_a_node_axis(tmp_path):
-    """A gang, the frontier and the grid follow their own gang plan (a seed
-    group, tests/test_torch_seed_axis.py), so a planned node axis refuses
-    none of them; built in a process outside a group, a gang runs there
-    whole.  The serve daemon alone stays refused, its words naming the seed
-    axis beside the node axis."""
+    """A gang, the frontier, the grid and the serve daemon follow their own
+    gang plan (a seed group, tests/test_torch_seed_axis.py and
+    tests/test_torch_serve_group.py), so a planned node axis refuses none of
+    them; built in a process outside a group, a gang runs there whole.  A
+    daemon built outside the seed group its config plans is refused, its
+    words naming the planned group, its layout and the one process it
+    found."""
     from murmura_tpu_torch.serve.daemon import ServeDaemon
     from murmura_tpu_torch.serve.scheduler import plan_grid
-    from murmura_tpu_torch.utils.factories import refuse_sharded_command
 
     cfg = Config.model_validate(cases.tiny_config())
     gang = build_gang_from_config(cfg, seeds=[7, 8], device="cpu")
     assert gang.seed_group is None and tuple(gang.flats.shape[:2]) == (2, cases.N)
-    for command in ("frontier", "grid", "gang"):
-        refuse_sharded_command(cfg, command, "cpu")
     if torch.cuda.is_available():
         pytest.skip("plan_grid and the daemon plan on the visible cards here")
     assert plan_grid(cfg)
     serve = Config.model_validate(cases.tiny_config(serve={"state_dir": str(tmp_path)}))
-    with pytest.raises(ConfigError, match="serve over a seed axis or a node axis above 1"):
+    with pytest.raises(ConfigError, match=r"the daemon's config plans a seed group of 4 \(layout "
+                                          r"\(seed, nodes, param\) \(4, 1, 1\)\) at 4 lanes, and "
+                                          r"the daemon runs one process"):
         ServeDaemon(serve, device="cpu")
 
 

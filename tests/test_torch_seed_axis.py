@@ -48,9 +48,11 @@ CPU.
     carried over and its draws injected: picks equal, parameters and
     histories within rtol 5e-5 / atol 5e-6 (JAX's own sharding tests');
   - no rank loads JAX or the JAX package.
-- The refusals left: the serve daemon at a seed axis above 1 and at
-  ``tpu.param_shards`` > 1, by name; a gang whose plan has seed 1 and a
-  node factor above 1 runs in one process.
+- The serve daemon at a seed axis above 1 and at ``tpu.param_shards`` > 1
+  runs only in its planned group (tests/test_torch_serve_group.py): built
+  outside it, it is refused in words naming both layouts, as a tenant of
+  another layout is; a gang whose plan has seed 1 and a node factor above 1
+  runs in one process.
 """
 
 import numpy as np
@@ -506,23 +508,46 @@ def test_no_rank_loads_jax(runs):
 # refusals
 
 
-def test_the_daemon_is_refused_over_a_seed_axis_by_name(tmp_path):
+def test_the_daemon_is_refused_over_a_seed_axis_by_name(tmp_path, capsys):
+    """The daemon over a seed axis runs in the seed group ``serve`` plans
+    at its capacity (tests/test_torch_serve_group.py); built outside that
+    group it is refused, and so is a tenant of another layout, in words
+    naming both layouts."""
     from murmura_tpu_torch.serve.daemon import ServeDaemon
+    from murmura_tpu_torch.utils.factories import check_serve_plan, serve_plan
 
     if torch.cuda.is_available():
         pytest.skip("the daemon plans on the visible cards here")
     serve = Config.model_validate(cases.gang_config(serve={"state_dir": str(tmp_path)}))
-    with pytest.raises(ConfigError, match="serve over a seed axis or a node axis above 1"):
+    assert cli._gang_layout(serve, torch.device("cpu"), serve.serve.capacity) == (4, "seed")
+    assert "4 ranks of a seed group over gloo" in capsys.readouterr().out
+    with pytest.raises(ConfigError, match=r"the daemon's config plans a seed group of 4 \(layout "
+                                          r"\(seed, nodes, param\) \(4, 1, 1\)\) at 4 lanes, and "
+                                          r"the daemon runs one process"):
         ServeDaemon(serve, device="cpu")
+    running = serve_plan(serve, 4, "cpu")
+    tenant = Config.model_validate(cases.gang_config(tpu={"num_devices": 2}))
+    with pytest.raises(ConfigError, match=r"the tenant plans a seed group of 2 .* and the daemon "
+                                          r"runs a seed group of 4"):
+        check_serve_plan(tenant, 4, "cpu", running)
 
 
 def test_the_daemon_stays_refused_over_a_param_group(tmp_path):
+    """The daemon at ``tpu.param_shards: 4`` runs in a param group of 4
+    (tests/test_torch_serve_group.py); built outside it, it is refused in
+    words naming both layouts, and so is a tenant at one shard."""
     from murmura_tpu_torch.serve.daemon import ServeDaemon
+    from murmura_tpu_torch.utils.factories import check_serve_plan, serve_plan
 
     cfg = Config.model_validate({**_param_base(), "serve": {"state_dir": str(tmp_path)}})
-    with pytest.raises(ConfigError, match=r"serve with tpu.param_shards > 1 \(each bucket's "
-                                          r"gang over a param group; the daemon lays out"):
+    with pytest.raises(ConfigError, match=r"the daemon's config plans a param group of 4 .* "
+                                          r"and the daemon runs one process"):
         ServeDaemon(cfg, device="cpu")
+    running = serve_plan(cfg, 4, "cpu")
+    assert running[1:] == ("param", 4)
+    with pytest.raises(ConfigError, match=r"the tenant plans one process .* and the daemon runs "
+                                          r"a param group of 4"):
+        check_serve_plan(Config.model_validate(_param_base(1)), 4, "cpu", running)
 
 
 def test_a_gang_planned_at_seed_one_runs_in_one_process(capsys):

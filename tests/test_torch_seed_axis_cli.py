@@ -16,8 +16,9 @@
   axis of 2 and run 2 ranks of a param group: the
   artifact's and the manifest's cells those of the same config at one
   shard, every value finite.
-- ``serve`` is refused by name at a seed axis above 1 and at
-  ``tpu.param_shards: 2`` (exit 1, the words naming the axis).
+- ``serve`` at a seed axis of 2 and at ``tpu.param_shards: 2`` prints its
+  layout line and launches its group of 2 once (the group daemon itself:
+  tests/test_torch_serve_group.py).
 """
 
 import json
@@ -160,13 +161,24 @@ def _numbers(x):
     ({"num_devices": 2}, "serve over a seed axis or a node axis above 1"),
     ({"param_shards": 2}, "serve with tpu.param_shards > 1"),
 ])
-def test_serve_is_refused_by_name_on_either_axis(tmp_path, capsys, tpu, words):
+def test_serve_is_refused_by_name_on_either_axis(tmp_path, capsys, monkeypatch, tpu, words):
+    """``serve`` on either axis is no longer refused (``words`` were the
+    refusal's): it prints its layout line and launches the group's 2 ranks
+    once for the daemon (the launcher stood in for here; the group daemon
+    itself runs in tests/test_torch_serve_group.py)."""
+    from murmura_tpu_torch.parallel import launch as launch_mod
+
     raw = _raw()
     raw.pop("sweep"), raw.pop("frontier"), raw.pop("grid")
     raw["tpu"] = {"param_dtype": "float32", **tpu}
-    raw["serve"] = {"state_dir": str(tmp_path / "state")}
+    raw["serve"] = {"state_dir": str(tmp_path / "state"), "capacity": 2}
     cfg = _write(tmp_path / "serve.yaml", raw)
-    with pytest.raises(SystemExit) as exit_:
-        cli.main(["serve", str(cfg), "--device", "cpu"])
-    assert exit_.value.code == 1
-    assert words in capsys.readouterr().err
+    calls = []
+    monkeypatch.setattr(launch_mod, "launch", lambda fn, args, **kw: calls.append((fn, kw)))
+    cli.main(["serve", str(cfg), "--device", "cpu"])
+    out, err = capsys.readouterr()
+    assert words not in err
+    axis = "seed" if "num_devices" in tpu else "param"
+    assert [(fn, kw["world"], kw["axis"]) for fn, kw in calls] == [(cli.serve, 2, axis)]
+    assert f"{axis} layout (seed, nodes, param)" in out
+    assert out.rstrip().endswith("murmura_tpu_torch serve: stopped")

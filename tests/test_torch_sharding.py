@@ -661,23 +661,32 @@ def test_unported_sections_names_nothing_for_gangs_and_probe_rules():
 
 @pytest.mark.parametrize("command", ["frontier", "grid", "serve"])
 def test_commands_over_a_param_group_are_refused_by_name(command, tmp_path):
-    """The serve daemon is refused by name at ``tpu.param_shards`` > 1; the
-    frontier and the grid run over a param group
-    (tests/test_torch_seed_axis.py), so they refuse nothing there."""
+    """The frontier, the grid and the serve daemon run over a param group
+    (tests/test_torch_seed_axis.py, tests/test_torch_serve_group.py), so
+    none is refused at ``tpu.param_shards`` > 1.  A daemon built outside
+    the param group its config plans is refused, and a daemon's tenant of
+    another layout at submission, in words naming both layouts."""
     from murmura_tpu_torch.serve.daemon import ServeDaemon, SubmissionError, normalize_submission
     from murmura_tpu_torch.serve.scheduler import plan_grid
-    from murmura_tpu_torch.utils.factories import refuse_sharded_command
+    from murmura_tpu_torch.utils.factories import check_serve_plan, serve_plan
 
     raw = cases.tiny_config()
-    want = f"{command} with tpu.param_shards > 1 (each "
     if command == "serve":
-        with pytest.raises(SubmissionError, match=re.escape(want)):
-            normalize_submission(raw)
         daemon = Config.model_validate({**raw, "serve": {"state_dir": str(tmp_path)}})
-        with pytest.raises(ConfigError, match=re.escape(want)):
+        with pytest.raises(ConfigError, match=re.escape(
+                "the daemon's config plans a param group of 4 (layout (seed, nodes, param) "
+                "(1, 1, 4)) at 4 lanes, and the daemon runs one process")):
             ServeDaemon(daemon, device="cpu")
+        running = serve_plan(daemon, 4, "cpu")
+        normalize_submission(raw, check=lambda c: check_serve_plan(c, 4, "cpu", running))
+        with pytest.raises(SubmissionError, match=re.escape(
+                "the tenant plans a param group of 2 (layout (seed, nodes, param) (1, 1, 2)) "
+                "at 4 lanes, and the daemon runs a param group of 4")):
+            normalize_submission(cases.tiny_config(tpu={"param_shards": 2}),
+                                 check=lambda c: check_serve_plan(c, 4, "cpu", running))
         return
-    refuse_sharded_command(Config.model_validate(raw), command, "cpu")
+    # Its gangs are laid over a param group of 4, as the daemon's are.
+    assert serve_plan(Config.model_validate(raw), 4, "cpu")[1:] == ("param", 4)
     # The same config is planned at four shards and at one.
     if command == "grid":
         assert plan_grid(Config.model_validate(raw))

@@ -260,11 +260,14 @@ Phases, each of which raises (and exits non-zero) on failure:
    16 rows trained 8 a launch bit-equal to the 8 alone.  In (g)'s ranks, as
    a node group, the node axis (``_node_axis_task``): the flagship at full
    width over a node axis of 2, Krum allgather and ppermute, the median
-   under ppermute and Sketchguard allgather, 2 rounds each, against the
-   same run in one process training 8 rows a launch (decisions equal,
-   parameters within a scaled 1e-4), and the rule alone from the same
-   trained rows (a scaled 1e-4), each rank's launches, peak memory and
-   rows received a round printed.  In the same ranks re-bound as a seed
+   under ppermute and Sketchguard allgather, and (h1)-(h5) UBAR allgather
+   and ppermute, evidential trust at uci_har_evidential_trust.yaml's
+   width, ALIE under Krum ppermute and adaptive IPM under Krum allgather,
+   2 rounds each, against the same run in one process training R_r rows a
+   launch (decisions equal, UBAR's stage 2 equal or flipped on a probe
+   near-tie, parameters within a scaled 1e-4), and the rule alone from the
+   same trained rows (a scaled 1e-4), each rank's launches, peak memory,
+   rows received a round and its other collectives' bytes printed.  In the same ranks re-bound as a seed
    group, the seed axis (``_seed_axis_task``): the flagship at full width
    as a gang of 4 (``run --seeds 4``, allgather and ppermute), one
    flagship-width frontier cell (Krum x gaussian x dense, 3 strengths x 2
@@ -5968,25 +5971,71 @@ def _evidential_and_check_task(raw: dict, rounds: int) -> dict:
 
 # Phase 4 (g)'s node axis: the flagship at full width over a node axis of 2
 # in (g)'s ranks, each case 2 rounds, and its rule once more from the same
-# trained rows on both sides; the decisions each case holds equal.
+# trained rows on both sides; the decisions each case holds equal.  Each
+# case: (label, rule, exchange, attack: None for the config's gaussian);
+# (h1)-(h5) the probe rules and the row-reading attacks, (h3) at
+# uci_har_evidential_trust.yaml's width.
 NODE_AXIS_ROUNDS = 2
-NODE_AXIS_CASES = (("krum", "allgather"), ("krum", "ppermute"), ("median", "ppermute"),
-                   ("sketchguard", "allgather"))
+NODE_AXIS_CASES = (("krum_allgather", "krum", "allgather", None),
+                   ("krum_ppermute", "krum", "ppermute", None),
+                   ("median_ppermute", "median", "ppermute", None),
+                   ("sketchguard_allgather", "sketchguard", "allgather", None),
+                   ("h1_ubar_allgather", "ubar", "allgather", None),
+                   ("h2_ubar_ppermute", "ubar", "ppermute", None),
+                   ("h3_evidential_trust", "evidential_trust", "allgather", None),
+                   ("h4_alie_krum_ppermute", "krum", "ppermute", "alie"),
+                   ("h5_adaptive_ipm_krum_allgather", "krum", "allgather", "adaptive_ipm"))
 NODE_AXIS_DECISIONS = {"krum": ("agg_selected_index",), "median": ("agg_num_candidates",),
-                       "sketchguard": ("agg_acceptance_rate",)}
+                       "sketchguard": ("agg_acceptance_rate",), "ubar": UBAR_STAGES,
+                       "evidential_trust": ("agg_acceptance_rate",)}
+# The kernels each case launches (evidential trust launches none: its
+# probes are forwards, its mean a matmul).
+NODE_AXIS_KERNELS = {"krum_allgather": ("pairwise_sq_distances",),
+                     "krum_ppermute": ("circulant_sq_distances",),
+                     "median_ppermute": ("candidate_select",),
+                     "sketchguard_allgather": ("count_sketch", "pairwise_sq_distances"),
+                     "h1_ubar_allgather": ("pairwise_sq_distances",),
+                     "h2_ubar_ppermute": ("circulant_sq_distances",),
+                     "h3_evidential_trust": (),
+                     "h4_alie_krum_ppermute": ("circulant_sq_distances",),
+                     "h5_adaptive_ipm_krum_allgather": ("pairwise_sq_distances",)}
+# UBAR's stage 2 keeps a neighbour whose probe loss is at most the node's
+# own.  Over the group the self probe runs vmapped over R_r models (one
+# process: all N), which rounds by batch size (one float32 ulp measured on a
+# param group's self probe): a stage-2 decision may flip where a loss lies
+# that close to the own loss.
+UBAR_TIE_RTOL = 1e-5
 
 
-def node_axis_raw(rule: str, exchange: str) -> dict:
-    """The flagship config of one node-axis case: its rule under its
-    exchange, NODE_AXIS_ROUNDS rounds (the node axis comes from the group
-    the rank runs in, not from ``tpu.num_devices``: this card is one)."""
+def node_axis_keys(rule: str, attack) -> tuple:
+    """The decisions a node-axis case holds equal: the rule's, and an
+    adaptive attack's walked state."""
+    return NODE_AXIS_DECISIONS[rule] + (("agg_atk_eps",) if attack == "adaptive_ipm" else ())
+
+
+def node_axis_raw(rule: str, exchange: str, attack=None) -> dict:
+    """The config of one node-axis case: the flagship (evidential trust:
+    uci_har_evidential_trust.yaml on ``backend: tpu``) with its rule under
+    its exchange, ``attack`` (alie, or adaptive_ipm: IPM under
+    attack.adaptive) in place of its gaussian attack, NODE_AXIS_ROUNDS
+    rounds (the node axis comes from the group the rank runs in, not from
+    ``tpu.num_devices``: this card is one)."""
     import yaml
 
-    raw = yaml.safe_load(FLAGSHIP.read_text())
+    if rule == "evidential_trust":
+        raw = yaml.safe_load(UCI_HAR_EVIDENTIAL_TRUST.read_text())
+        raw["backend"] = "tpu"
+        raw["tpu"] = {}
+    else:
+        raw = yaml.safe_load(FLAGSHIP.read_text())
+        if rule != "krum":
+            raw["aggregation"] = {"algorithm": rule, "params": {}}
     raw["experiment"].update(rounds=NODE_AXIS_ROUNDS, verbose=False)
     raw["tpu"]["exchange"] = exchange
-    if rule != "krum":
-        raw["aggregation"] = {"algorithm": rule, "params": {}}
+    if attack is not None:
+        raw["attack"] = {"enabled": True, "type": attack.replace("adaptive_", ""),
+                         "percentage": raw["attack"]["percentage"], "params": {},
+                         "adaptive": {"enabled": attack.startswith("adaptive_")}}
     return raw
 
 
@@ -6023,25 +6072,27 @@ def _row_block(rows):
 def _node_axis_task(rounds: int) -> dict:
     """Phase 4 (g), the node axis, a rank's part, in (g)'s group of 2 on
     cuda:0 (its ranks act as a node group: the same ``torch.distributed``
-    group, rank 0 receivers [0, 8), rank 1 [8, 16)).  For each case of
-    NODE_AXIS_CASES: rank 0 first runs the flagship in one process (the
+    group, rank 0 receivers [0, N/2), rank 1 [N/2, N)).  For each case of
+    NODE_AXIS_CASES: rank 0 first runs the case's config in one process (the
     group turned off) through ``build_network_from_config`` and
-    ``Network.train``, ``rounds`` rounds, training 8 rows a launch as each
+    ``Network.train``, ``rounds`` rounds, training R_r rows a launch as each
     rank does (``_row_block``: ROADMAP Queue C 2; ``check_row_count``
-    shows why), keeping the parameters and the decisions of every round,
-    and the rule alone from ``_spread_trained`` rows (``train_step(...,
-    trained=)``).  Then both ranks run the same over the node group, the
-    kernel counters
-    set to 0 just before and read just after, the parameters gathered to
-    rank 0 after each round.  Returns this rank's launches, plain calls,
-    peak memory, exchange counts and round times; rank 0's also the
+    shows why), keeping the parameters and the decisions of every round
+    (UBAR's probe losses too), and the rule alone from ``_spread_trained``
+    rows (``train_step(..., trained=)``).  Then both ranks run the same
+    over the node group, the kernel counters set to 0 just before and read
+    just after, the parameters gathered to rank 0 after each round.
+    Returns this rank's launches, plain calls, peak memory, exchange and
+    collective counts, round times and UBAR loss blocks; rank 0's also the
     distances and the decisions of both sides."""
     import numpy as np
     import torch
 
+    from murmura_tpu_torch.aggregation import ubar as ubar_mod
     from murmura_tpu_torch.config.schema import Config
     from murmura_tpu_torch.core.rounds import round_generators
     from murmura_tpu_torch.parallel.mesh import (
+        COLLECTIVE_COUNTS,
         EXCHANGE_COUNTS,
         NodeGroup,
         barrier,
@@ -6071,31 +6122,56 @@ def _node_axis_task(rounds: int) -> dict:
         whole = new if prog.group is None else gather_rows(new, prog.group, dst=0)
         return whole, {k: v.float().cpu().numpy() for k, v in metrics.items()}
 
+    real_probes = (ubar_mod.pairwise_probe_eval, ubar_mod.circulant_probe_eval)
+
     def run(config, keys, host=False):
         """``config`` through a Network, ``rounds`` rounds: (the network, each
         round's decisions, the whole parameters after each round on rank 0:
         on the host with ``host``, so that a reference held through the node
-        run stays out of the rank's peak)."""
+        run stays out of the rank's peak; UBAR's probe losses a round (this
+        rank's block over a group); the exchange and the other collectives
+        of the rounds, summed, the widest gathered row the largest)."""
         net = build_network_from_config(config, device=device)
-        stats, flats = [], []
-        _recording(net.program, keys, stats)
-        for _ in range(rounds):
-            net.train(1)
-            flat = net.flat if net.group is None else gather_rows(net.flat, net.group, dst=0)
-            if flat is not None:
-                flats.append(flat.float().cpu() if host else flat.float())
-        return net, stats, flats
+        stats, flats, losses = [], [], []
+        counts = {"exchange": dict.fromkeys(EXCHANGE_COUNTS, 0),
+                  "collectives": dict.fromkeys(COLLECTIVE_COUNTS, 0)}
 
-    for rule, exchange in NODE_AXIS_CASES:
-        label = f"{rule}_{exchange}"
-        config = Config.model_validate(node_axis_raw(rule, exchange))
-        keys = NODE_AXIS_DECISIONS[rule]
+        def keep(real):
+            def probe(*args):
+                res = real(*args)
+                losses.append(res["loss"].float().cpu().numpy())
+                return res
+            return probe
+
+        _recording(net.program, keys, stats)
+        ubar_mod.pairwise_probe_eval, ubar_mod.circulant_probe_eval = map(keep, real_probes)
+        try:
+            for _ in range(rounds):
+                reset_exchange_counts()
+                net.train(1)
+                for part, now in (("exchange", EXCHANGE_COUNTS), ("collectives",
+                                                                  COLLECTIVE_COUNTS)):
+                    for k, v in now.items():
+                        counts[part][k] = (max(counts[part][k], v) if k.endswith("_max")
+                                           else counts[part][k] + v)
+                flat = net.flat if net.group is None else gather_rows(net.flat, net.group,
+                                                                      dst=0)
+                if flat is not None:
+                    flats.append(flat.float().cpu() if host else flat.float())
+        finally:
+            ubar_mod.pairwise_probe_eval, ubar_mod.circulant_probe_eval = real_probes
+        return net, stats, flats, losses, counts
+
+    for label, rule, exchange, attack in NODE_AXIS_CASES:
+        config = Config.model_validate(node_axis_raw(rule, exchange, attack))
+        keys = node_axis_keys(rule, attack)
+        record = keys + (("agg_own_loss",) if rule == "ubar" else ())
         rec = {}
         if nodes.rank == 0:
             set_process_group(None)
             try:
                 with _row_block(config.topology.num_nodes // nodes.world):
-                    net, ref_stats, ref_flats = run(config, keys, host=True)
+                    net, ref_stats, ref_flats, ref_losses, _ = run(config, record, host=True)
                 p = net.program.model_dim
                 trained = _spread_trained(net.program.num_nodes, p, device)
                 seam_ref, seam_ref_stats = seam(net, trained)
@@ -6108,19 +6184,18 @@ def _node_axis_task(rounds: int) -> dict:
         set_process_group(nodes)
         try:
             _counted(reset=True)
-            reset_exchange_counts()
             _peak(device, reset=True)
             t0 = time.perf_counter()
-            net, stats, flats = run(config, keys)
+            net, stats, flats, losses, counts = run(config, record)
             wall = time.perf_counter() - t0
             rec.update(round_times=list(net.round_times), peak_bytes=_peak(device),
-                       exchange=dict(EXCHANGE_COUNTS), rows=tuple(net.flat.shape),
-                       layout=net.group.describe(), wall=wall)
+                       rows=tuple(net.flat.shape), layout=net.group.describe(), wall=wall,
+                       losses=losses, **counts)
             p = net.program.model_dim
             trained = _spread_trained(net.program.num_nodes, p, device)
             seam_got, seam_stats = seam(net, trained)
             launches, plain = _counted()
-            rec.update(launches=launches, plain=plain)
+            rec.update(launches=launches, plain=plain, model_dim=p)
         finally:
             set_process_group(pgroup)
         if nodes.rank == 0:
@@ -6130,6 +6205,10 @@ def _node_axis_task(rounds: int) -> dict:
                 decisions_equal=[all(np.array_equal(a[k], b[k]) for k in keys)
                                  for a, b in zip(stats[:rounds], ref_stats[:rounds])],
                 decisions=[{k: a[k].tolist() for k in keys} for a in stats[:rounds]],
+                ref_decisions=[{k: b[k].tolist() for k in record} for b in ref_stats[:rounds]],
+                own_loss=[a["agg_own_loss"].tolist() for a in stats[:rounds]
+                          if "agg_own_loss" in a],
+                ref_losses=ref_losses,
                 seam_dist=_scaled_on(seam_got.float(), seam_ref.numpy()),
                 seam_decisions_equal=all(np.array_equal(seam_stats[k], seam_ref_stats[k])
                                          for k in keys))
@@ -6138,6 +6217,36 @@ def _node_axis_task(rounds: int) -> dict:
         _free(device)
         out[label] = rec
     return out
+
+
+def _ubar_ties(recs: list, label: str) -> list:
+    """For each round of a UBAR case whose stage rates differ from one
+    process's: every differing node's nearest probe-loss gap |loss_ij -
+    own_i| / |own_i| over its evaluated neighbours j, in the one-process
+    run's losses (the group's, gathered from the ranks' blocks, printed
+    beside): the flip is a near-tie when the gap is within UBAR_TIE_RTOL.
+    Returns [(round, node, gap, group-vs-one-process loss matrix
+    difference relative to its largest entry)]."""
+    import numpy as np
+
+    rec = recs[0]
+    dense = "allgather" in label
+    ties = []
+    for r, ok in enumerate(rec["decisions_equal"]):
+        ref_l = np.asarray(rec["ref_losses"][r])  # [N, N] dense, [k, N] circulant
+        got_l = np.concatenate([np.asarray(x["losses"][r]) for x in recs], axis=0 if dense else 1)
+        mat_rel = float(np.max(np.abs(got_l - ref_l)) / max(1e-30, float(np.max(np.abs(ref_l)))))
+        if ok:
+            ties.append((r, None, 0.0, mat_rel))
+            continue
+        own = np.asarray(rec["ref_decisions"][r]["agg_own_loss"])
+        got, ref = rec["decisions"][r], rec["ref_decisions"][r]
+        rows = ref_l if dense else ref_l.T  # [N, neighbours]
+        for i in sorted({int(i) for k in UBAR_STAGES
+                         for i in np.flatnonzero(np.asarray(got[k]) != np.asarray(ref[k]))}):
+            gap = float(np.min(np.abs(rows[i] - own[i])) / max(abs(float(own[i])), 1e-30))
+            ties.append((r, i, gap, mat_rel))
+    return ties
 
 
 def check_row_count(device: str = "cuda") -> dict:
@@ -6262,46 +6371,68 @@ def check_row_count(device: str = "cuda") -> dict:
 
 def report_node_axis(ranks: list, wall: float) -> dict:
     """Phase 4 (g)'s node-axis gates and lines.  For each case: the
-    decisions equal the one-process run's every round; the parameters after
-    each round within a scaled 1e-4 of the one-process run that trains 8
-    rows a launch as a rank does (bit-equality printed); the rule alone
-    from the same trained rows within a scaled 1e-4, its decisions equal;
-    every kernel of the case launched on both ranks, no plain call.  (A
-    one-process run that trains all 16 rows at once is not the reference:
-    a convolution's bias gradient sums in another order at another row
-    count, ``check_row_count``.)  Returns each case's launches summed over
-    the ranks, for the kernels line."""
+    decisions equal the one-process run's every round (UBAR's stage rates
+    equal, or each differing node's nearest probe-loss gap to its own loss
+    within UBAR_TIE_RTOL: a flip on the self probe's float32 rounding,
+    printed); the parameters after each round within a scaled 1e-4 of the
+    one-process run that trains R_r rows a launch as a rank does
+    (bit-equality printed); the rule alone from the same trained rows
+    within a scaled 1e-4, its decisions equal; every kernel of the case
+    launched on both ranks, no plain call; no gather beside the exchange
+    moving a row of the parameters' width.  (A one-process run that trains
+    all N rows at once is not the reference: a convolution's bias gradient
+    sums in another order at another row count, ``check_row_count``.)
+    Returns each case's launches summed over the ranks, for the kernels
+    line."""
     card = card_line()
-    expect = {"krum_allgather": ("pairwise_sq_distances",),
-              "krum_ppermute": ("circulant_sq_distances",),
-              "median_ppermute": ("candidate_select",),
-              "sketchguard_allgather": ("count_sketch", "pairwise_sq_distances")}
     out, failed = {}, []
-    for label, names in expect.items():
+    for label, _, _, _ in NODE_AXIS_CASES:
+        names = NODE_AXIS_KERNELS[label]
         recs = [r[label] for r in ranks]
         rec = recs[0]
         launched = all(r["launches"].get(k, 0) > 0 for r in recs for k in names)
         plain = sum(r["plain"] for r in recs)
         within = all(d <= 1e-4 for d in rec["dists"])
-        ok = (all(rec["decisions_equal"]) and rec["seam_decisions_equal"]
-              and rec["seam_dist"] <= 1e-4 and within and launched and plain == 0)
+        ties = _ubar_ties(recs, label) if label.startswith(("h1", "h2")) else []
+        flips = [t for t in ties if t[1] is not None]
+        decided = all(rec["decisions_equal"]) or (
+            bool(flips) and all(t[2] <= UBAR_TIE_RTOL for t in flips))
+        narrow = all(r["collectives"]["gather_row_bytes_max"] < 4 * r["model_dim"] for r in recs)
+        ok = (decided and rec["seam_decisions_equal"] and rec["seam_dist"] <= 1e-4 and within
+              and launched and plain == 0 and narrow)
         per_round = [r["exchange"]["rows"] // NODE_AXIS_ROUNDS for r in recs]
         others = [r["exchange"]["bytes"] / NODE_AXIS_ROUNDS / 1e6 for r in recs]
-        print(f"[node_axis:{label}] the flagship at full width over a node axis of 2 on "
-              f"cuda:0 ({card}; gloo, staged through host memory), {NODE_AXIS_ROUNDS} rounds "
-              f"against one process: decisions equal by round {rec['decisions_equal']}; "
-              f"parameters scaled {[float(f'{x:.3g}') for x in rec['dists']]} (gate 1e-4, "
-              f"bit-equal {rec['bit_equal']}) from one process training 8 rows a launch; "
-              f"the rule alone "
-              f"from the same trained rows: scaled {rec['seam_dist']:.3g} (gate 1e-4), "
-              f"decisions equal {rec['seam_decisions_equal']}; launches by rank "
-              f"{[{k: v for k, v in r['launches'].items() if v} for r in recs]}, plain "
-              f"calls {plain}; rows received a round by rank {per_round} ({others[0]:.1f} MB "
-              f"a round from the other rank); peak by rank "
-              f"{[round(r['peak_bytes'] / 1e9, 3) for r in recs]} GB; s a round on rank 0 "
-              f"{[round(t, 4) for t in rec['round_times']]} (2 ranks share one card through "
-              f"host memory: a check of the collective code, not a speed of the node axis): "
-              f"{'ok' if ok else 'FAILED'}", flush=True)
+        coll = [r["collectives"] for r in recs]
+        kernels = {k: [r["launches"].get(k, 0) for r in recs]
+                   for k in ("pairwise_sq_distances", "circulant_sq_distances")}
+        probe = ("; UBAR: the probe loss matrix of the group (its ranks' blocks) against one "
+                 f"process's, relative to its largest entry, by round "
+                 f"{[float(f'{t[3]:.3g}') for t in ties if t[1] is None] or None}; stage-2 "
+                 "flips (round, node, loss gap / own loss) "
+                 + (", ".join(f"({t[0] + 1}, {t[1]}, {t[2]:.3g})" for t in flips) or "none")
+                 + f" (near-tie bound {UBAR_TIE_RTOL})") if ties else ""
+        print(f"[node_axis:{label}] {rec['layout'].split(';')[0]} ({card}; gloo, staged "
+              f"through host memory), {NODE_AXIS_ROUNDS} rounds against one process: decisions "
+              f"equal by round {rec['decisions_equal']}{probe}; parameters scaled "
+              f"{[float(f'{x:.3g}') for x in rec['dists']]} (gate 1e-4, bit-equal "
+              f"{rec['bit_equal']}) from one process training {rec['rows'][0]} rows a launch; "
+              f"the rule alone from the same trained rows: scaled {rec['seam_dist']:.3g} (gate "
+              f"1e-4), decisions equal {rec['seam_decisions_equal']}; pairwise and circulant "
+              f"launches by rank {kernels['pairwise_sq_distances']} and "
+              f"{kernels['circulant_sq_distances']}, all launches by rank "
+              f"{[{k: v for k, v in r['launches'].items() if v} for r in recs]}, plain calls "
+              f"{plain}; rows received a round by rank {per_round} ({others[0]:.1f} MB a round "
+              f"from the other rank); beside the exchange, a round: gathers "
+              f"{[c['gathers'] // NODE_AXIS_ROUNDS for c in coll]} of "
+              f"{[round(c['gather_bytes'] / NODE_AXIS_ROUNDS / 1e3, 1) for c in coll]} kB "
+              f"(widest row {[c['gather_row_bytes_max'] for c in coll]} B, a parameter row "
+              f"{4 * rec['model_dim']:,} B), all-reduces "
+              f"{[c['all_reduces'] // NODE_AXIS_ROUNDS for c in coll]} of "
+              f"{[round(c['all_reduce_bytes'] / NODE_AXIS_ROUNDS / 1e6, 3) for c in coll]} MB; "
+              f"peak by rank {[round(r['peak_bytes'] / 1e9, 3) for r in recs]} GB; s a round "
+              f"on rank 0 {[round(t, 4) for t in rec['round_times']]} (2 ranks share one card "
+              f"through host memory: a check of the collective code, not a speed of the node "
+              f"axis): {'ok' if ok else 'FAILED'}", flush=True)
         if not ok:
             failed.append(label)
         out[f"node:{label}"] = {
@@ -6310,9 +6441,9 @@ def report_node_axis(ranks: list, wall: float) -> dict:
             "dists": rec["dists"], "bit_equal": rec["bit_equal"],
             "seam_dist": rec["seam_dist"], "round_times": rec["round_times"],
             "peaks": [r["peak_bytes"] for r in recs], "rows_a_round": per_round,
-            "mb_from_others_a_round": others}
-    print(f"[node_axis] layout: {ranks[0][NODE_AXIS_CASES[1][0] + '_' + NODE_AXIS_CASES[1][1]]['layout']}; "
-          f"the node-axis cases took {wall:.1f} s in the ranks", flush=True)
+            "mb_from_others_a_round": others, "collectives": coll, "ubar_ties": ties}
+    print(f"[node_axis] layout: {ranks[0]['krum_ppermute']['layout']}; the node-axis cases took "
+          f"{wall:.1f} s in the ranks", flush=True)
     if failed:
         raise AssertionError(f"the node axis disagrees with one process: {failed}")
     return out
@@ -7453,18 +7584,28 @@ def start_distributed_smoke(card: str = "cuda") -> dict:
     cfg.write_text(yaml.safe_dump(raw))
     run = {"raw": raw, "cfg": cfg, "out": out, "log": log_path, "work": work, "ipc": ipc,
            "t0": t0, "before": _compute_apps(), "samples": []}
-    # Appends only: the node processes share this file's offset.
-    with open(log_path, "a") as log:
-        run["proc"] = subprocess.Popen([sys.executable, "-m", "murmura_tpu_torch", "run",
-                                        str(cfg), "--device", card, "-o", str(out)],
-                                       cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    # The monitor and the node processes write into one pipe, whose writes
+    # of a line (under PIPE_BUF) land whole, and one thread copies it into
+    # the log: eleven processes appending to one shared file lost part of a
+    # node's line on a host whose file system does not keep appends whole.
+    run["proc"] = subprocess.Popen([sys.executable, "-m", "murmura_tpu_torch", "run",
+                                    str(cfg), "--device", card, "-o", str(out)],
+                                   cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+    def copy():
+        with open(log_path, "wb") as log:
+            for line in run["proc"].stdout:
+                log.write(line)
+                log.flush()
 
     def sample():
         while run["proc"].poll() is None:
             run["samples"].append((time.monotonic(), _compute_apps()))
             time.sleep(0.5)
 
+    run["copier"] = threading.Thread(target=copy, daemon=True)
     run["sampler"] = threading.Thread(target=sample, daemon=True)
+    run["copier"].start()
     run["sampler"].start()
     return run
 
@@ -7475,6 +7616,9 @@ def stop_distributed_smoke(run: dict) -> None:
     if run["proc"].poll() is None:
         run["proc"].kill()
     run["proc"].wait()
+    # The pipe ends once every node process has closed it; a node left
+    # behind by a killed run would hold it open, so the wait is bounded.
+    run["copier"].join(timeout=30.0)
     shutil.rmtree(run["ipc"], ignore_errors=True)
 
 
@@ -7560,6 +7704,9 @@ def run_distributed_smoke(card: str = "cuda", started=None) -> dict:
                    f"{used:.0f} MiB")
         failures.append(f"the {n} node processes not shown on the card ({on_card}; nodes {off} "
                         f"report no card)")
+        for i in off:
+            print("\n".join(line for line in text.splitlines() if f"[node {i}]" in line),
+                  flush=True)
     launches = {"pairwise_sq_distances": 0}
     for i, v in nodes.items():
         aggs = sum(1 for _, a in v.get("rounds", {}).values() if a > 0)

@@ -27,10 +27,11 @@ from murmura_tpu_torch.aggregation.base import (
     circulant_sender_sum,
     exchange_offsets_of,
     masked_neighbor_mean,
+    network_size,
     pairwise_l2_distances,
     row_norms,
 )
-from murmura_tpu_torch.parallel.mesh import active_node_group, sender_total_
+from murmura_tpu_torch.parallel.mesh import sender_total_
 
 
 def accept_with_closest_fallback(
@@ -100,12 +101,11 @@ def make_balance(
             accepted_count = accept_k.sum(dim=0)
             if ctx.audit:
                 # accept_k[o_idx, i]: receiver i accepted sender (i + o) % n.
-                group = active_node_group()
                 tap_selected_by = circulant_sender_sum(accept_k, offsets)
                 tap_considered_by = (
                     circulant_in_degree(adj, offsets) if sparse_exchange
-                    else torch.full((n if group is None else group.num_nodes,),
-                                    float(len(offsets)), device=own.device))
+                    else torch.full((network_size(n),), float(len(offsets)),
+                                    device=own.device))
         else:
             dist = pairwise_l2_distances(own, bcast)
             accepted = accept_with_closest_fallback(dist, adj, threshold, min_neighbors)

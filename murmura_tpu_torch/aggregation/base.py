@@ -46,6 +46,7 @@ from murmura_tpu_torch.parallel.mesh import (
     all_reduce_sum_,
     columns_to_rows,
     gather_rows,
+    node_rows,
     reduce_partial_,
     sender_total_,
 )
@@ -185,6 +186,13 @@ def circulant_in_degree(edge_k: torch.Tensor, offsets) -> torch.Tensor:
     columns under a node scope): ``edge_k[j, i]`` says receiver i reads
     sender (i + offsets[j]) % N."""
     return circulant_sender_sum(edge_k, offsets)
+
+
+def network_size(rows: int) -> int:
+    """The network's N: ``rows`` in one process, the node group's N under a
+    node scope (where a rule's ``own`` holds the block's R rows)."""
+    group = active_node_group()
+    return rows if group is None else group.num_nodes
 
 
 def self_mask(rows: int, n: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -472,14 +480,16 @@ def self_probe_metrics(
     leading probe dim of 1 is one evaluator batch for every row (the ZMQ
     backend's mini network, distributed/local.py).  Under a param group
     ``own`` is the rank's column block: the rank evaluates its own rows,
-    turned back whole, and the [N] metrics are gathered."""
+    turned back whole, and the [N] metrics are gathered.  Under a node
+    scope ``own`` is the block's [R, P] rows, each on its own probe batch
+    (the block's rows of the whole probe arrays): the block's [R]."""
 
     def one(params_i, x_i, y_i, m_i):
         return metric_fn(ctx.apply_fn(params_i, x_i), y_i, m_i)
 
     n = own.shape[0]
     px, py, pm = (
-        a.expand((n,) + tuple(a.shape[1:])) if a.shape[0] == 1 and n != 1 else a
+        a.expand((n,) + tuple(a.shape[1:])) if a.shape[0] == 1 and n != 1 else node_rows(a)
         for a in (ctx.probe_x, ctx.probe_y, ctx.probe_mask)
     )
     group = active_param_group()

@@ -27,6 +27,12 @@ probe batch from it).  Under the sparse exchange the [k, N] edge mask
 keeps inactive edges from being observed (their state untouched),
 accepted or counted in the statistics.  The dense path reads a DMTT
 round's shared cross-evaluation (``ctx.probe_cross``) where there is one.
+
+Under a node group's scope (aggregation/base.py) a rank runs its block of
+R receivers: the state is the block's [R, N] rows of the edge matrices
+(``state_kind`` "edge", cut by the round program), the neighbourhood
+median's index runs over the network's N columns, and the sender-side
+taps are summed over the group.
 """
 
 from typing import Optional, Sequence
@@ -40,10 +46,13 @@ from murmura_tpu_torch.aggregation.base import (
     AggregatorDef,
     InfluenceDecl,
     blend_with_own,
-    circulant_weighted_sum,
-    masked_neighbor_mean,
     circulant_in_degree,
+    circulant_sender_sum,
+    circulant_weighted_sum,
     exchange_offsets_of,
+    masked_neighbor_mean,
+    network_size,
+    receiver_ids,
 )
 from murmura_tpu_torch.aggregation.probe import (
     circulant_probe_eval,
@@ -101,9 +110,12 @@ def make_evidential_trust(
 
     def aggregate_circulant(own, bcast, adj, round_idx, state, ctx: AggContext):
         n, k = own.shape[0], len(offsets)
-        ar = torch.arange(n, device=own.device)
-        cols = (ar[None, :] + torch.tensor(offsets, device=own.device)[:, None]) % n  # [k, N]
-        rows = ar[None, :].expand(k, n)
+        # The state's [k, N] edges (row: the receiver, column: its sender);
+        # a node block's rows are its own, the senders the network's.
+        ids = receiver_ids(n, own.device)
+        cols = ((ids[None, :] + torch.tensor(offsets, device=own.device)[:, None])
+                % network_size(n))  # [k, N]
+        rows = torch.arange(n, device=own.device)[None, :].expand(k, n)
 
         metrics = circulant_probe_eval(bcast, offsets, ctx, evidential_trust_metric)  # [k, N]
         vacuity = metrics["vacuity"]
@@ -170,21 +182,16 @@ def make_evidential_trust(
         if ctx.audit:
             # Sender-side taps: accepted[o_idx, i] / trust[o_idx, i] are
             # receiver i's verdict on sender (i + o) % n.
-            stats["tap_selected_by"] = sum(
-                torch.roll(accepted[i].to(torch.float32), o) for i, o in enumerate(offsets)
-            )
+            stats["tap_selected_by"] = circulant_sender_sum(accepted, offsets)
             if sparse_exchange:
                 in_deg = circulant_in_degree(adj, offsets)
                 stats["tap_considered_by"] = in_deg
-                stats["tap_trust_received"] = sum(
-                    torch.roll((trust * adj.to(trust.dtype))[i].to(torch.float32), o)
-                    for i, o in enumerate(offsets)
-                ) / torch.clamp(in_deg, min=1.0)
+                stats["tap_trust_received"] = circulant_sender_sum(
+                    trust * adj.to(trust.dtype), offsets) / torch.clamp(in_deg, min=1.0)
             else:
-                stats["tap_considered_by"] = torch.full((n,), float(k), device=own.device)
-                stats["tap_trust_received"] = sum(
-                    torch.roll(trust[i].to(torch.float32), o) for i, o in enumerate(offsets)
-                ) / float(k)
+                stats["tap_considered_by"] = torch.full((network_size(n),), float(k),
+                                                        device=own.device)
+                stats["tap_trust_received"] = circulant_sender_sum(trust, offsets) / float(k)
         return new_flat, new_state, stats
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):
@@ -200,11 +207,12 @@ def make_evidential_trust(
         trust_new = trust_from_metrics(vacuity, metrics["accuracy"])
         if strength_guard:
             # The median of the evaluated neighbourhood: non-neighbours sort
-            # last as +inf, the median index comes from the degree.
+            # last as +inf, the median index comes from the degree (over the
+            # network's N columns: a node block's rows are [R, N]).
             strength = metrics["strength"]
             order = torch.sort(torch.where(adj_b, strength, float("inf")), dim=1).values
             deg = torch.clamp(adj_b.sum(dim=1), min=1)
-            med_idx = torch.clamp((deg - 1) // 2, 0, n - 1)
+            med_idx = torch.clamp((deg - 1) // 2, 0, adj.shape[1] - 1)
             median = torch.gather(order, 1, med_idx[:, None])  # [N, 1]
             trust_new = guard(trust_new, vacuity, strength, median)
 

@@ -15,6 +15,15 @@ probe batch (the probe arrays are whole on every rank), and the small
 metric matrices are gathered over the group.  Each model runs on the same
 samples in the same order as in one process, so the matrices keep the
 one-process bits.
+
+Under a node group's scope (``node_block_scope``) the dense cross-evaluation
+runs the same way, sender-major: rank r evaluates its own senders' rows of
+the gathered broadcast on every node's probe batch, gathers the small [R_r,
+N] metric blocks and keeps its receivers' rows of the turned [N, N], so the
+matrix keeps the one-process bits.  The circulant one reads the block's
+window: at each offset the window's slice of the block's senders runs on
+the block's own receivers' probe batches, [k, R_r] with no collective (the
+window holds every sender a receiver reads, and never the whole broadcast).
 """
 
 from typing import Callable, Dict, Sequence
@@ -25,7 +34,13 @@ from torch.func import vmap
 
 from murmura_tpu_torch.aggregation.base import AggContext
 from murmura_tpu_torch.ops.losses import uncertainty_metrics
-from murmura_tpu_torch.parallel.mesh import active_param_group, columns_to_rows, gather_rows
+from murmura_tpu_torch.parallel.mesh import (
+    active_node_group,
+    active_param_group,
+    columns_to_rows,
+    gather_rows,
+    node_rows,
+)
 
 MetricFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
 
@@ -41,11 +56,19 @@ def pairwise_probe_eval(
     metric row is broadcast to every row.  The ZMQ backend's LocalNode
     (distributed/local.py) uses it: its mini network consumes row 0 only,
     so one probe batch a model (O(M) forwards) replaces the M x M
-    cross-evaluation and gives the same rows."""
+    cross-evaluation and gives the same rows.  Under a node scope ``flat``
+    is the gathered [N, P] broadcast and the result the block's [R, N]
+    receiver rows."""
     n = flat.shape[0]
-    group = active_param_group()
+    nodes = active_node_group()
+    group = active_param_group() if nodes is None else nodes
     # Under a group: whole rows of this rank's own senders.
-    models = flat if group is None else columns_to_rows(flat, group)
+    if group is None:
+        models = flat
+    elif nodes is None:
+        models = columns_to_rows(flat, group)
+    else:
+        models = flat[slice(*nodes.rows)]
     n_eval, b = ctx.probe_x.shape[:2]
     xs = ctx.probe_x.reshape((n_eval * b,) + tuple(ctx.probe_x.shape[2:]))
     per_j = []
@@ -55,9 +78,10 @@ def pairwise_probe_eval(
     if group is None:
         out = {k: torch.stack([m[k] for m in per_j], dim=1) for k in per_j[0]}
     else:
-        # [R_r senders, N_eval] blocks gathered sender-major, then turned.
-        out = {k: gather_rows(torch.stack([m[k] for m in per_j]), group).T.contiguous()
-               for k in per_j[0]}
+        # [R_r senders, N_eval] blocks gathered sender-major, then turned; a
+        # node block keeps its receivers' rows.
+        out = {k: node_rows(gather_rows(torch.stack([m[k] for m in per_j]), group).T)
+               .contiguous() for k in per_j[0]}
     return {k: v.expand(n, n) for k, v in out.items()} if n_eval == 1 else out
 
 
@@ -68,7 +92,9 @@ def circulant_probe_eval(
     """[k, N] metrics: entry [o, i] is the model of node (i + offsets[o]) % N
     on node i's probe batch (k x N forwards instead of N x N).  The offsets
     run one after another, each on one rolled [N, P] copy of ``bcast``,
-    which is freed before the next is made."""
+    which is freed before the next is made.  Under a node scope ``bcast``
+    is the block's window: [k, R], each offset's senders a slice of it, on
+    the block's own probe batches."""
     if not offsets:
         raise ValueError(
             "circulant_probe_eval needs at least one offset: an empty "
@@ -78,6 +104,14 @@ def circulant_probe_eval(
 
     def one(params_i, x_i, y_i, m_i):
         return metric_fn(ctx.apply_fn(params_i, x_i), y_i, m_i)
+
+    nodes = active_node_group()
+    if nodes is not None:
+        rows = nodes.rows[1] - nodes.rows[0]
+        px, py, pm = (node_rows(a) for a in (ctx.probe_x, ctx.probe_y, ctx.probe_mask))
+        per_offset = [vmap(one)(ctx.unravel(bcast[q:q + rows]), px, py, pm)
+                      for q in nodes.positions(offsets)]
+        return {k: torch.stack([m[k] for m in per_offset]) for k in per_offset[0]}
 
     group = active_param_group()
     if group is not None:

@@ -13,6 +13,11 @@ batch ([N, N] losses); the circulant mode (``exchange_offsets``, ``tpu.exchange:
 ppermute``) evaluates only the k circulant neighbours ([k, N]); under the
 sparse exchange the [k, N] edge mask limits the shortlist to live edges
 and sizes it by each node's live degree.
+
+Under a node group's scope a rank runs both modes for its block of
+receivers (aggregation/base.py): the loss probes come from the block's
+senders over every probe batch (dense) or from its window (circulant),
+and the sender-side taps are summed over the group.
 """
 
 from typing import Optional, Sequence
@@ -24,13 +29,15 @@ from murmura_tpu_torch.aggregation.base import (
     AggregatorDef,
     InfluenceDecl,
     blend_with_own,
+    circulant_in_degree,
     circulant_masked_mean,
     circulant_neighbor_distances,
+    circulant_sender_sum,
+    exchange_offsets_of,
     masked_neighbor_mean,
+    network_size,
     pairwise_l2_distances,
     rank_mask,
-    circulant_in_degree,
-    exchange_offsets_of,
     self_probe_metrics,
 )
 from murmura_tpu_torch.aggregation.probe import (
@@ -38,6 +45,7 @@ from murmura_tpu_torch.aggregation.probe import (
     circulant_probe_eval,
     pairwise_probe_eval,
 )
+from murmura_tpu_torch.parallel.mesh import sender_total_
 
 
 def _accept(shortlist: torch.Tensor, losses: torch.Tensor, own_loss: torch.Tensor,
@@ -96,12 +104,10 @@ def make_ubar(
         out = stats(shortlist, accepted, stage1_denom, own_loss, own.dtype)
         if ctx.audit:
             # accepted[i, o_idx]: receiver i accepted sender (i + o) % n.
-            out["tap_selected_by"] = sum(
-                torch.roll(accepted[:, i].to(torch.float32), o) for i, o in enumerate(offsets)
-            )
+            out["tap_selected_by"] = circulant_sender_sum(accepted.T, offsets)
             out["tap_considered_by"] = (
                 circulant_in_degree(adj, offsets) if sparse_exchange
-                else torch.full((n,), float(k), device=own.device))
+                else torch.full((network_size(n),), float(k), device=own.device))
         return new_flat, state, out
 
     def aggregate(own, bcast, adj, round_idx, state, ctx: AggContext):
@@ -123,8 +129,8 @@ def make_ubar(
         out = stats(shortlist, accepted, deg_safe, own_loss, own.dtype)
         if ctx.audit:
             # Sender-side taps: who passed the loss probe, per sender.
-            out["tap_selected_by"] = accepted.to(torch.float32).sum(dim=0)
-            out["tap_considered_by"] = adj.to(torch.float32).sum(dim=0)
+            out["tap_selected_by"] = sender_total_(accepted.to(torch.float32).sum(dim=0))
+            out["tap_considered_by"] = sender_total_(adj.to(torch.float32).sum(dim=0))
         return new_flat, state, out
 
     return AggregatorDef(

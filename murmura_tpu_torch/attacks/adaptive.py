@@ -25,7 +25,10 @@ geometric median, Sketchguard) give the attacker only the fault sentinel's
 scrub and quarantine flags, else a constant "accepted".  A scrubbed or
 quarantined compromised row counts as rejected; a dead row (``alive`` 0)
 is not an observation and its state stays frozen.  Every update is
-elementwise over the [N] node rows.
+elementwise over the [N] node rows.  Over a node group the state stays the
+whole [N] on every rank (its inputs, the sender-side taps and the fault
+flags, are whole there), so a rank's snapshot is one process's; a rank
+applies its block's rows of it.
 """
 
 from dataclasses import dataclass, field
@@ -37,6 +40,7 @@ import torch
 from murmura_tpu_torch.attacks.alie import make_alie_attack, resolve_alie_z
 from murmura_tpu_torch.attacks.base import Attack, check_rows, coalition_stats, honest_mean
 from murmura_tpu_torch.attacks.ipm import make_ipm_attack, resolve_ipm_epsilon
+from murmura_tpu_torch.parallel.mesh import node_rows
 
 # The per-node [N] float32 rows an adaptive attack carries in agg_state.
 # Every adaptive attack's state keys are drawn from this tuple, and together
@@ -159,9 +163,9 @@ def make_adaptive_alie_attack(
         if not comp_count:
             return flat
         mu, var = coalition_stats(flat, compromised_mask, estimator)
-        z_rows = state["atk_z"].to(torch.float32)[:, None]  # [N, 1]
+        z_rows = node_rows(state["atk_z"]).to(torch.float32)[:, None]  # [N, 1]
         malicious = (mu - z_rows * torch.sqrt(var)).to(flat.dtype)
-        return torch.where(compromised_mask[:, None] > 0, malicious, flat)
+        return torch.where(node_rows(compromised_mask)[:, None] > 0, malicious, flat)
 
     def update_attack_state(state, accept, observed, compromised_mask):  # murmura: traced
         return _walk(state, "atk_z", accept, observed, compromised_mask, eta, accept_target,
@@ -212,9 +216,9 @@ def make_adaptive_ipm_attack(
         if not comp_count:
             return flat
         mu = honest_mean(flat, compromised_mask)  # [1, P] float32
-        eps_rows = state["atk_eps"].to(torch.float32)[:, None]  # [N, 1]
+        eps_rows = node_rows(state["atk_eps"]).to(torch.float32)[:, None]  # [N, 1]
         malicious = (-eps_rows * mu).to(flat.dtype)
-        return torch.where(compromised_mask[:, None] > 0, malicious, flat)
+        return torch.where(node_rows(compromised_mask)[:, None] > 0, malicious, flat)
 
     def update_attack_state(state, accept, observed, compromised_mask):  # murmura: traced
         return _walk(state, "atk_eps", accept, observed, compromised_mask, eta, accept_target,
@@ -274,7 +278,7 @@ def make_bisection_attack(
 
     def apply_adaptive(flat, compromised_mask, generator, state, noise=None):  # murmura: traced
         base = inner.apply(flat, compromised_mask, generator, noise=noise)
-        scale = state["atk_scale"].to(torch.float32)[:, None]
+        scale = node_rows(state["atk_scale"]).to(torch.float32)[:, None]
         f32 = flat.to(torch.float32)
         return (f32 + scale * (base.to(torch.float32) - f32)).to(flat.dtype)
 

@@ -25,6 +25,7 @@ from murmura_tpu_torch.attacks.base import (
     coalition_stats,
     select_compromised,
 )
+from murmura_tpu_torch.parallel.mesh import node_rows
 
 
 def alie_z_max(num_nodes: int, num_compromised: int) -> float:
@@ -75,7 +76,7 @@ def make_alie_attack(
             return flat
         mu, var = coalition_stats(flat, compromised_mask, estimator)
         malicious = (mu - z_val * torch.sqrt(var)).to(flat.dtype)  # [1, P]
-        return torch.where(compromised_mask[:, None] > 0, malicious, flat)
+        return torch.where(node_rows(compromised_mask)[:, None] > 0, malicious, flat)
 
     return Attack(
         name="alie",

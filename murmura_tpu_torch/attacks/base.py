@@ -6,6 +6,11 @@ An attack transforms the *outgoing* broadcast states only:
 ``apply(flat[N, P], compromised[N], generator, noise=None) -> flat'``.
 Compromised nodes also skip local training unless the attack says they
 train (``trains_locally``); that mask lives in the round.
+
+Under a node group's scope (parallel/mesh.py) ``flat`` is the rank's [R, P]
+block and ``compromised_mask`` stays the whole [N]: the row-reading
+statistics sum the block's float32 partials over the group (an [1, P]
+all_reduce each), never gathering the [N, P] broadcast.
 """
 
 import random
@@ -15,7 +20,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from murmura_tpu_torch.parallel.mesh import active_node_group
+from murmura_tpu_torch.parallel.mesh import active_node_group, all_reduce_sum_, node_rows
 
 
 def select_compromised(num_nodes: int, percentage: float, seed: int = 42) -> np.ndarray:
@@ -35,6 +40,15 @@ def select_compromised(num_nodes: int, percentage: float, seed: int = 42) -> np.
     return mask
 
 
+def _weighted_rows(f32: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[1, P] sum of the rows of ``f32`` weighted by the whole [N, 1] ``w``
+    (under a node scope the block's rows of it, the partials summed over
+    the group)."""
+    part = (f32 * node_rows(w)).sum(dim=0, keepdim=True)
+    group = active_node_group()
+    return part if group is None else all_reduce_sum_(part, group)
+
+
 def honest_mean(flat: torch.Tensor, compromised_mask: torch.Tensor) -> torch.Tensor:
     """[1, P] mean over the honest rows of the broadcast tensor, reduced in
     float32 whatever the parameter dtype (a bfloat16 sum over N rows would
@@ -42,7 +56,7 @@ def honest_mean(flat: torch.Tensor, compromised_mask: torch.Tensor) -> torch.Ten
     f32 = flat.to(torch.float32)
     hm = (1.0 - compromised_mask.to(torch.float32))[:, None]  # [N, 1]
     cnt = torch.clamp(hm.sum(), min=1.0)
-    return (f32 * hm).sum(dim=0, keepdim=True) / cnt
+    return _weighted_rows(f32, hm) / cnt
 
 
 def coalition_stats(flat: torch.Tensor, compromised_mask: torch.Tensor, estimator: str):
@@ -59,8 +73,8 @@ def coalition_stats(flat: torch.Tensor, compromised_mask: torch.Tensor, estimato
     comp = compromised_mask.to(torch.float32)[:, None]  # [N, 1]
     w = comp if estimator == "coalition" else (1.0 - comp)
     cnt = torch.clamp(w.sum(), min=1.0)
-    mu = (f32 * w).sum(dim=0, keepdim=True) / cnt
-    var = (torch.square(f32 - mu) * w).sum(dim=0, keepdim=True) / cnt
+    mu = _weighted_rows(f32, w) / cnt
+    var = _weighted_rows(torch.square(f32 - mu), w) / cnt
     return mu, var
 
 

@@ -16,6 +16,7 @@ from murmura_tpu_torch.attacks.base import (
     honest_mean,
     select_compromised,
 )
+from murmura_tpu_torch.parallel.mesh import node_rows
 
 DEFAULT_EPSILON = 1.5
 
@@ -45,6 +46,6 @@ def make_ipm_attack(
         if check_rows("ipm", flat, num_nodes) or not compromised.any():  # murmura: ignore[MUR001] check_rows reads shapes; compromised is numpy
             return flat
         malicious = (-eps * honest_mean(flat, compromised_mask)).to(flat.dtype)  # [1, P]
-        return torch.where(compromised_mask[:, None] > 0, malicious, flat)
+        return torch.where(node_rows(compromised_mask)[:, None] > 0, malicious, flat)
 
     return Attack(name="ipm", compromised=compromised, apply=apply)

@@ -523,13 +523,16 @@ class Network:
 
     def _durability_params(self):
         """(flat, agg_state) in the snapshot's layout, the whole [N, P]:
-        a param group's row and column blocks gathered to rank 0 (a
-        collective; (None, None) on the other ranks)."""
+        a param group's row and column blocks, a node group's rows and row
+        blocks of state, gathered to rank 0 (a collective; (None, None) on
+        the other ranks)."""
         if self.group is None:
             return self.flat, self.agg_state
         sharded = self.program.sharded_state_keys
+        by_rows = self.program.row_state_keys
         flat = gather_rows(self.flat, self.group, dst=0)
-        state = {k: gather_columns(v, self.group, dst=0) if k in sharded else v
+        state = {k: gather_columns(v, self.group, dst=0) if k in sharded
+                 else gather_rows(v, self.group, dst=0) if k in by_rows else v
                  for k, v in self.agg_state.items()}
         if self.group.rank != 0:
             return None, None
@@ -546,6 +549,9 @@ class Network:
         whole = (self.program.num_nodes, self.program.flat_dim)
         for k in self.program.sharded_state_keys:
             state_desc[k] = (whole, state_desc[k][1])
+        for k in self.program.row_state_keys:
+            shape, dtype = state_desc[k]
+            state_desc[k] = ((self.program.num_nodes,) + tuple(shape[1:]), dtype)
         return (whole, flat_desc[1]), state_desc
 
     def _durability_set_params(self, flat, agg_state) -> None:
@@ -553,6 +559,8 @@ class Network:
         if self.group is not None:
             lo, hi = self.group.rows
             flat = flat[lo:hi].contiguous()
+            agg_state = {k: v[lo:hi].contiguous() if k in self.program.row_state_keys else v
+                         for k, v in agg_state.items()}
             sharded = self.program.sharded_state_keys
             if sharded:
                 c0, c1 = self.group.cols

@@ -79,9 +79,13 @@ the broadcast rows, or on a circulant rule the window of rows its
 receivers' senders hold; the rule runs under ``node_block_scope`` on the
 rank's rows, its [R_r, N] adjacency rows (or [k, R_r] edge-mask columns)
 and the exchanged broadcast, and its per-node stats are gathered; the
-guards run on the rank's rows.  DMTT, compression, staleness, the
-pipelined round, the adaptive attacks, ALIE and IPM (which read other
-ranks' rows) and the probe rules are refused on it by name.
+guards run on the rank's rows.  ALIE and IPM sum their statistics' [1, P]
+partials over the group; an adaptive attack's state stays the whole [N] on
+every rank (the taps it reads are sender totals, whole there); the probe
+rules evaluate the block's senders (dense) or window (circulant) on the
+whole probe arrays, and a rule's edge state (``state_kind`` "edge") is the
+block's [R_r, N] rows (``RoundProgram.row_state_keys``).  DMTT,
+compression, staleness and the pipelined round are refused on it by name.
 
 ``train_step(..., data=)`` runs the round on other rows of the data
 arrays than the program's own (the population engine's cohort, whose
@@ -188,13 +192,6 @@ from murmura_tpu_torch.parallel.mesh import (
     rows_to_columns,
 )
 
-# The attacks a node block cannot apply alone: each reads statistics of
-# other nodes' rows (ALIE's coalition, IPM's honest mean).
-ROW_READING_ATTACKS = ("alie", "ipm")
-# The rules whose probe forwards a node group does not run yet.
-PROBE_RULES = ("ubar", "evidential_trust")
-
-
 # Eval samples per chunk (the JAX package's default eval_chunk).
 EVAL_CHUNK = 1024
 
@@ -288,6 +285,9 @@ class RoundProgram:
     flat_dim: int = 0
     group: Optional[Union[ParamGroup, NodeGroup]] = None
     sharded_state_keys: Tuple[str, ...] = ()
+    # On the node axis: the agg_state keys held as the rank's [R_r, ...]
+    # row blocks (a rule's edge state), gathered whole for a snapshot.
+    row_state_keys: Tuple[str, ...] = ()
 
     @property
     def sparse(self) -> bool:
@@ -324,8 +324,8 @@ def init_stacked_params(model: Model, n: int, seed: int, device,
     )
 
 
-def check_node_axis_program(nodes: NodeGroup, n: int, param_shards: int, agg, attack,
-                             dmtt, compression, staleness, pipeline) -> None:
+def check_node_axis_program(nodes: NodeGroup, n: int, param_shards: int, dmtt, compression,
+                             staleness, pipeline) -> None:
     """Refuse, by name, what a node group's round does not run yet, and a
     node axis that does not divide the nodes (in the JAX package's words)."""
     from murmura_tpu_torch.parallel.mesh import check_node_axis
@@ -337,10 +337,6 @@ def check_node_axis_program(nodes: NodeGroup, n: int, param_shards: int, agg, at
         ("compression", compression is not None),
         ("bounded staleness (exchange.max_staleness)", staleness is not None),
         ("the pipelined round (exchange.pipeline)", pipeline),
-        ("an adaptive attack (attack.adaptive)", isinstance(attack, AdaptiveAttack)),
-        (f"the {getattr(attack, 'name', '')} attack (it reads other nodes' rows)",
-         attack is not None and attack.name in ROW_READING_ATTACKS),
-        (f"the {agg.name} rule (its probe forwards)", agg.name in PROBE_RULES),
     ) if on]
     if refused:
         raise ValueError("the node axis does not run these yet: " + "; ".join(refused))
@@ -475,8 +471,8 @@ def build_round_program(
     nodes = group if isinstance(group, NodeGroup) else None
     pgroup = None if nodes is not None else group
     if nodes is not None:
-        check_node_axis_program(nodes, n, param_shards, agg, attack, dmtt, compression,
-                                staleness, pipeline)
+        check_node_axis_program(nodes, n, param_shards, dmtt, compression, staleness,
+                                pipeline)
     if pgroup is not None and param_shards % pgroup.world:
         raise ValueError(
             f"the param group's {group.world} ranks do not divide the program's "
@@ -1194,6 +1190,11 @@ def build_round_program(
     init_agg_state = {
         k: torch.as_tensor(np.asarray(v)).to(device) for k, v in agg.init_state(n).items()
     }
+    # A node block holds its receivers' rows of the rule's edge state.
+    row_state_keys = () if nodes is None else tuple(sorted(
+        k for k in init_agg_state if agg.state_kind.get(k) == "edge"))
+    for k in row_state_keys:
+        init_agg_state[k] = init_agg_state[k][own_rows].contiguous()
     if dmtt is not None:
         init_agg_state.update(init_dmtt_state(n, device))
     if compression is not None:
@@ -1264,6 +1265,7 @@ def build_round_program(
         sharded_state_keys=() if pgroup is None else tuple(sorted(
             k for k in (*COMPRESS_STATE_KEYS, STALE_CACHE_KEY, PIPE_OWN_KEY, PIPE_BCAST_KEY)
             if k in init_agg_state)),
+        row_state_keys=row_state_keys,
     )
 
 

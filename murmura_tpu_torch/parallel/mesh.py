@@ -489,11 +489,18 @@ def _window_plan(num_nodes: int, world: int, offsets: Tuple[int, ...], rank: int
 # What this process's exchanges received (rows, bytes), for the tests and
 # the card's report; reset with reset_exchange_counts().
 EXCHANGE_COUNTS: Dict[str, int] = {"calls": 0, "rows": 0, "rows_from_others": 0, "bytes": 0}
+# The other collectives of this process (gather_rows and all_reduce_sum_,
+# the exchange's own all_gather left out): calls, the bytes each brings
+# from the other ranks, and the widest row a gather moved (so a reader sees
+# that no [N, P] gather runs beside the exchange); reset with it.
+COLLECTIVE_COUNTS: Dict[str, int] = {"gathers": 0, "gather_bytes": 0, "gather_row_bytes_max": 0,
+                                     "all_reduces": 0, "all_reduce_bytes": 0}
 
 
 def reset_exchange_counts() -> None:
-    for k in EXCHANGE_COUNTS:
-        EXCHANGE_COUNTS[k] = 0
+    for counts in (EXCHANGE_COUNTS, COLLECTIVE_COUNTS):
+        for k in counts:
+            counts[k] = 0
 
 
 def _count_exchange(rows: int, own: int, row_bytes: int) -> None:
@@ -513,7 +520,7 @@ def exchange_rows(rows: torch.Tensor, group: NodeGroup) -> torch.Tensor:
     row_bytes = rows[0].numel() * rows.element_size() if rows.shape[0] else 0
     lo, hi = group.rows
     if not group.windowed:
-        whole = gather_rows(rows, group)
+        whole = _gather_rows(rows, group, None, counted=False)
         _count_exchange(whole.shape[0], hi - lo, row_bytes)
         return whole
     send_idx, send_counts, recv_counts, recv_pos = _window_plan(
@@ -644,6 +651,8 @@ def _dist():
 def all_reduce_sum_(t: torch.Tensor, group: ParamGroup) -> torch.Tensor:
     """Sum ``t`` over the ranks, in place; float32 on the wire (a lower
     precision is widened for the sum and written back)."""
+    COLLECTIVE_COUNTS["all_reduces"] += 1
+    COLLECTIVE_COUNTS["all_reduce_bytes"] += t.numel() * t.element_size()
     if t.dtype in (torch.float32, torch.float64):
         _dist().all_reduce(t)
         return t
@@ -790,8 +799,21 @@ def gather_rows(rows: torch.Tensor, group: ParamGroup, dst: Optional[int] = None
     if stacked:
         whole = gather_rows(rows.transpose(0, 1).contiguous(), group, dst)
         return None if whole is None else whole.transpose(0, 1).contiguous()
+    return _gather_rows(rows, group, dst, counted=True)
+
+
+def _gather_rows(rows: torch.Tensor, group: ParamGroup, dst: Optional[int],
+                 counted: bool) -> Optional[torch.Tensor]:
+    """:func:`gather_rows` of an [R_r, ...] block; ``counted`` adds it to
+    COLLECTIVE_COUNTS (the exchange's all_gather counts itself)."""
     counts = group.row_counts()
     top = max(counts)
+    if counted:
+        row_bytes = rows[0].numel() * rows.element_size() if rows.shape[0] else 0
+        COLLECTIVE_COUNTS["gathers"] += 1
+        COLLECTIVE_COUNTS["gather_bytes"] += (sum(counts) - rows.shape[0]) * row_bytes
+        COLLECTIVE_COUNTS["gather_row_bytes_max"] = max(
+            COLLECTIVE_COUNTS["gather_row_bytes_max"], row_bytes)
     padded = rows
     if rows.shape[0] < top:
         padded = torch.cat([rows, rows.new_zeros((top - rows.shape[0],) + tuple(rows.shape[1:]))])

@@ -54,7 +54,7 @@ from murmura_tpu_torch.attacks.adaptive import (
 from murmura_tpu_torch.attacks.base import Attack, select_compromised
 from murmura_tpu_torch.config.schema import Config
 from murmura_tpu_torch.core.network import Network
-from murmura_tpu_torch.core.rounds import PROBE_RULES, ROW_READING_ATTACKS, build_round_program
+from murmura_tpu_torch.core.rounds import build_round_program
 from murmura_tpu_torch.core.stale import StalenessSpec
 from murmura_tpu_torch.levers import refusal_reason
 from murmura_tpu_torch.data.registry import build_federated_data
@@ -154,19 +154,11 @@ def node_axis_of(config: Config, device_type=None) -> int:
 def node_axis_sections(config: Config) -> List[str]:
     """The enabled sections of ``config`` that the node axis does not run
     yet (ROADMAP Queue A)."""
-    a = config.attack
-    attack_on = a.enabled and a.type is not None
-    rule = config.aggregation.algorithm
     return [name for name, on in (
-        (f"aggregation.algorithm: {rule} (its probe forwards over a node group)",
-         rule in PROBE_RULES),
         ("dmtt", config.dmtt is not None),
         ("compression", config.compression.algorithm != "none"),
         ("exchange.max_staleness", config.exchange.max_staleness > 0),
         ("exchange.pipeline", config.exchange.pipeline),
-        ("attack.adaptive", attack_on and a.adaptive.enabled),
-        (f"attack.type: {a.type} (it reads other nodes' rows)",
-         attack_on and a.type in ROW_READING_ATTACKS),
         ("population", config.population is not None and config.population.enabled),
     ) if on]
 

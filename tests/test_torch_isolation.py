@@ -26,8 +26,9 @@ and it never moves to the CPU unless asked to.
   network, eval), and ``check --device cpu`` through the CLI (every family
   module of murmura_tpu_torch/analysis/ imported; the lint, the static
   contracts and the serving and observability families run, the other
-  families in test_torch_analysis_families.py), a Krum round over a
-  node group of 2 spawned ranks (``launch(..., axis="nodes")``), and a
+  families in test_torch_analysis_families.py), a Krum, a UBAR and an
+  ALIE round over a node group of 2 spawned ranks (``launch(...,
+  axis="nodes")``), and a
   gang round of 3 members over a seed group of 2 spawned ranks
   (``launch(..., axis="seed")``, core/gang.py's seed group), loads no
   ``jax`` and no ``murmura_tpu.*`` module (counted against what the
@@ -245,10 +246,12 @@ with contextlib.redirect_stdout(out):
               "--no-pipeline", "--no-sharded", "--no-compose"])
 assert out.getvalue().strip() == "murmura check: clean", out.getvalue()
 sys.path.insert(0, "tests")
-import torch_node_axis_cases
+import torch_node_axis_probe_cases
 from murmura_tpu_torch.parallel.launch import launch
-ranks = launch(torch_node_axis_cases.run_cases,
-               ([("rule", {"rule": "krum", "exchange": "ppermute"})],), world=2, axis="nodes")
+ranks = launch(torch_node_axis_probe_cases.run_cases,
+               ([("round", {"rule": r, "exchange": e, "attack": a, "rounds": 1})
+                 for r, e, a in (("krum", "ppermute", "gaussian"), ("ubar", "allgather", "gaussian"),
+                                 ("krum", "allgather", "alie"))],), world=2, axis="nodes")
 assert [r["forbidden_modules"] for r in ranks] == [[], []], [r["forbidden_modules"] for r in ranks]
 import torch_seed_axis_cases
 raw = torch_seed_axis_cases.gang_config(tpu={"num_devices": 2})

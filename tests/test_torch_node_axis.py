@@ -40,7 +40,9 @@ on the CPU.
   block's training bit-equal to one process's on the card, ROADMAP Queue
   C 2) is bit-equal to training every row at once on this CPU.
 - The refusals: every section the node axis does not run, by name, at a
-  node axis above 1 (the round program's and the config's), and the daemon
+  node axis above 1 (the round program's and the config's; the probe rules
+  and the row-reading attacks run there, tests/test_torch_node_axis_probe.py),
+  and the daemon
   over a node axis (a gang, the frontier and the grid follow their gang
   plan instead); and none at a node axis of 1.
 """
@@ -387,18 +389,10 @@ def test_no_rank_loads_jax(runs):
 
 
 REFUSED_SECTIONS = {
-    "aggregation.algorithm: ubar": {"aggregation": {"algorithm": "ubar", "params": {}}},
-    "aggregation.algorithm: evidential_trust": {
-        "aggregation": {"algorithm": "evidential_trust", "params": {}},
-        "model": {"factory": "mlp", "params": {"input_dim": 6, "hidden_dims": [13],
-                                                "num_classes": 3, "evidential": True}}},
     "dmtt": {"dmtt": {"allow_static": True}, "topology": {"type": "fully", "num_nodes": 8}},
     "compression": {"compression": {"algorithm": "int8", "block": 8}},
     "exchange.max_staleness": {"exchange": {"max_staleness": 2}},
     "exchange.pipeline": {"exchange": {"pipeline": True}, "faults": {"enabled": False}},
-    "attack.adaptive": {"attack": {"adaptive": {"enabled": True}}},
-    "attack.type: alie": {"attack": {"type": "alie", "params": {}}},
-    "attack.type: ipm": {"attack": {"type": "ipm", "params": {}}},
     "population": {"population": {"enabled": True, "virtual_size": 32}},
 }
 
@@ -420,30 +414,22 @@ def test_each_unported_section_is_refused_by_name_over_a_node_axis(name):
 
 
 @pytest.mark.parametrize("what", ["DMTT", "compression", "bounded staleness",
-                                  "the pipelined round", "an adaptive attack", "the alie attack",
-                                  "the ubar rule", "tpu.param_shards > 1"])
+                                  "the pipelined round", "tpu.param_shards > 1"])
 def test_the_round_program_refuses_by_name_on_a_node_group(what):
     from murmura_tpu_torch.aggregation import build_aggregator
-    from murmura_tpu_torch.attacks import ATTACKS
-    from murmura_tpu_torch.attacks.adaptive import make_bisection_attack
     from murmura_tpu_torch.core.rounds import build_round_program
     from murmura_tpu_torch.core.stale import StalenessSpec
     from murmura_tpu_torch.dmtt.protocol import DMTTParams
     from murmura_tpu_torch.ops.compress import CompressionSpec
 
     model = cases.tiny_model()
-    gauss = ATTACKS["gaussian"](num_nodes=cases.N, attack_percentage=0.25)
     kw = {"DMTT": dict(dmtt=DMTTParams()),
           "compression": dict(compression=CompressionSpec(algorithm="int8", block=8)),
           "bounded staleness": dict(staleness=StalenessSpec(
               max_staleness=1, discount=0.5, base_mask=np.ones((cases.N, cases.N), np.float32))),
           "the pipelined round": dict(pipeline=True),
-          "an adaptive attack": dict(attack=make_bisection_attack(gauss)),
-          "the alie attack": dict(attack=ATTACKS["alie"](num_nodes=cases.N,
-                                                         attack_percentage=0.25)),
-          "the ubar rule": dict(agg=build_aggregator("ubar", {})),
           "tpu.param_shards > 1": dict(param_shards=2)}[what]
-    agg = kw.pop("agg", build_aggregator("krum", {"num_compromised": 1}))
+    agg = build_aggregator("krum", {"num_compromised": 1})
     group = NodeGroup(0, cases.WORLD, "gloo", torch.device("cpu"))
     with pytest.raises(ValueError, match="the node axis does not run these yet") as err:
         build_round_program(model, agg, cases.tiny_data(), device="cpu", group=group, **kw)

@@ -257,7 +257,11 @@ Phases, each of which raises (and exits non-zero) on failure:
    code; their round times are no speed of sharding.  Before the sharding,
    ``check_row_count`` (ROADMAP Queue C 2): the flagship's local step on 16
    rows against 8, op by op and gradient by gradient, bit for bit, and the
-   16 rows trained 8 a launch bit-equal to the 8 alone.  In (g)'s ranks, as
+   16 rows trained 8 a launch bit-equal to the 8 alone.  (g)'s group of 2
+   is two processes started here that meet at a tcp rendezvous on a free
+   local port (``parallel/launch.join``, the ``tpu.multihost`` entry; one
+   rank each on cuda:0 over gloo; a line names their pids, the coordinator
+   and the world).  In (g)'s ranks, as
    a node group, the node axis (``_node_axis_task``): the flagship at full
    width over a node axis of 2, Krum allgather and ppermute, the median
    under ppermute and Sketchguard allgather, and (h1)-(h5) UBAR allgather
@@ -267,7 +271,19 @@ Phases, each of which raises (and exits non-zero) on failure:
    launch (decisions equal, UBAR's stage 2 equal or flipped on a probe
    near-tie, parameters within a scaled 1e-4), and the rule alone from the
    same trained rows (a scaled 1e-4), each rank's launches, peak memory,
-   rows received a round and its other collectives' bytes printed.  In the same ranks re-bound as a seed
+   rows received a round and its other collectives' bytes printed; then
+   DMTT over the node group (``_node_dmtt_task``): (h6) 03_dmtt.yaml at
+   ``backend: tpu`` (the UCI HAR wearable model, 16 nodes, B = 2, fedavg,
+   the topology liar at 30%) and (h7) the flagship's model and data at full
+   width under dmtt_mobility.yaml's topology, mobility and dmtt sections
+   with Krum at num_compromised 1 (its starts spread), 2 rounds each against
+   one process training R_r rows a launch: the cross-evaluation's
+   accuracies, the exchange and collaborator masks and the agg_dmtt_*
+   counts equal (tie-aware by ``_top_b_margins``), the trust state within
+   DMTT_TRUST_RTOL, the parameters within a scaled 1e-4, (h7)'s pairwise
+   launches a rank and no plain call, each rank's peak, the collaborator
+   mask gather's bytes and the cross-evaluation's share of a round
+   printed.  In the same ranks re-bound as a seed
    group, the seed axis (``_seed_axis_task``): the flagship at full width
    as a gang of 4 (``run --seeds 4``, allgather and ppermute), one
    flagship-width frontier cell (Krum x gaussian x dense, 3 strengths x 2
@@ -354,6 +370,7 @@ import argparse
 import contextlib
 import gc
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -5895,14 +5912,60 @@ def report_probe_rule(rule: str, ranks: list, wall: float = None) -> dict:
             "peaks": [r["peak_bytes"] for r in ranks], "one_process_peak": rec["ref_peak_bytes"]}
 
 
+def _join_process(process_id: int, fn, args, world: int, port: int, out: str,
+                  parent: int, device_type: str) -> None:
+    """Process ``process_id`` of ``world`` joined at tcp://127.0.0.1:``port``
+    (parallel/launch.py ``join``, the tpu.multihost entry), one rank on
+    cuda:0 over gloo (the one-device seam), running ``fn(*args)``; process 0
+    pickles every rank's value to ``out``.  It dies with this script."""
+    import pickle
+
+    from murmura_tpu_torch.parallel.launch import _die_with_parent, join
+
+    _die_with_parent(parent)
+    values = join(fn, args, coordinator=f"127.0.0.1:{port}", num_processes=world,
+                  process_id=process_id, device_type=device_type,
+                  one_device=device_type == "cuda")
+    if process_id == 0:
+        with open(Path(out) / "values", "wb") as f:
+            pickle.dump(values, f)
+
+
+def _join_group(fn, args, world: int, device_type: str = "cuda") -> list:
+    """``fn(*args)`` in ``world`` processes started here that meet at a tcp
+    rendezvous on a free local port, one rank each on cuda:0 (a group of
+    ``world`` ranks as a multihost run forms it; ``device_type`` "cpu" for a
+    rehearsal off the card); returns every rank's value in rank order."""
+    import pickle
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="murmura-smoke-join-") as tmp:
+        ctx = mp.start_processes(_join_process, args=(fn, args, world, port, tmp, os.getpid(),
+                                                      device_type),
+                                 nprocs=world, join=False, start_method="spawn")
+        print(f"[join] {world} processes, pids {ctx.pids()}, joined at tcp://127.0.0.1:{port} "
+              f"as one group of world {world} (one rank each on {device_type}:0 over gloo)",
+              flush=True)
+        while not ctx.join():
+            pass
+        return pickle.loads((Path(tmp) / "values").read_bytes())
+
+
 def run_sharded_groups(raw: dict, one: dict) -> dict:
     """Phase 4 (c) ``raw`` (sharded_model.yaml) in a group of 4 on cuda:0
     against ``one`` (the same at tpu.param_shards 1) in one process, 3
     rounds, rounds 2-3 restarted from its state; in the same ranks (e) the
-    gang and (f) UBAR; then (g) evidential trust in a group of 2, the
-    contract checker's sharded cells in its ranks."""
+    gang and (f) UBAR; then (g) evidential trust in a group of 2 joined from
+    two processes over tcp (:func:`_join_group`), the contract checker's
+    sharded cells, the node axis (with DMTT), the seed axis, the param
+    commands and the serve group in its ranks."""
     from murmura_tpu_torch.config.schema import Config
-    from murmura_tpu_torch.parallel.launch import launch
 
     out = {}
     # (c) the same config in a group of 4 on cuda:0, and in its ranks (e)
@@ -5917,23 +5980,25 @@ def run_sharded_groups(raw: dict, one: dict) -> dict:
     out["sharded:world4"] = w4
     out["sharded:gang"] = report_sharded_gang([t["gang"] for t in w4["tasks"]], seeds)
     out["sharded:ubar"] = report_probe_rule("ubar", [t["ubar"] for t in w4.pop("tasks")])
-    # (g) evidential trust in a group of 2, then in the same ranks the
-    # contract checker's sharded cells (phase 5 reads their records).
+    # (g) evidential trust in a group of 2 joined from two processes over
+    # tcp, then in the same ranks the contract checker's sharded cells
+    # (phase 5 reads their records) and the rest of (g).
     t0 = time.perf_counter()
-    ranks = launch(_evidential_and_check_task,
-                   (probe_rule_raw("evidential_trust"), PROBE_RULE_ROUNDS),
-                   world=PROBE_RULE_SHARDS["evidential_trust"], device_type="cuda",
-                   one_device=True)
+    ranks = _join_group(_evidential_and_check_task,
+                        (probe_rule_raw("evidential_trust"), PROBE_RULE_ROUNDS),
+                        PROBE_RULE_SHARDS["evidential_trust"])
     check_s = max(r["check"]["seconds"] for r in ranks)
     node_s = max(r["node_axis_s"] for r in ranks)
+    dmtt_s = max(r["node_dmtt_s"] for r in ranks)
     seed_s = max(r["seed_axis_s"] for r in ranks)
     param_s = max(r["param_commands_s"] for r in ranks)
     serve_s = max(r["serve_group_s"] for r in ranks)
     out["sharded:evidential_trust"] = report_probe_rule(
         "evidential_trust", [r["evidential_trust"] for r in ranks],
-        time.perf_counter() - t0 - check_s - node_s - seed_s - param_s - serve_s)
+        time.perf_counter() - t0 - check_s - node_s - dmtt_s - seed_s - param_s - serve_s)
     out["check:sharded_ranks"] = [r["check"] for r in ranks]
     out.update(report_node_axis([r["node_axis"] for r in ranks], node_s))
+    out.update(report_node_dmtt([r["node_dmtt"] for r in ranks], dmtt_s))
     out.update(report_seed_axis([r["seed_axis"] for r in ranks], seed_s))
     out.update(report_param_commands([r["param_commands"] for r in ranks], param_s))
     out.update(report_serve_group([r["serve_group"] for r in ranks], serve_s))
@@ -5956,6 +6021,8 @@ def _evidential_and_check_task(raw: dict, rounds: int) -> dict:
     t2 = time.perf_counter()
     nodes = _node_axis_task(NODE_AXIS_ROUNDS)
     t3 = time.perf_counter()
+    dmtt = _node_dmtt_task(NODE_AXIS_ROUNDS)
+    t3d = time.perf_counter()
     seeds = _seed_axis_task()
     t4 = time.perf_counter()
     params = _param_commands_task()
@@ -5964,7 +6031,8 @@ def _evidential_and_check_task(raw: dict, rounds: int) -> dict:
     return {"evidential_trust": probe,
             "check": {"results": check, "seconds": t2 - t1},
             "node_axis": nodes, "node_axis_s": t3 - t2,
-            "seed_axis": seeds, "seed_axis_s": t4 - t3,
+            "node_dmtt": dmtt, "node_dmtt_s": t3d - t3,
+            "seed_axis": seeds, "seed_axis_s": t4 - t3d,
             "param_commands": params, "param_commands_s": t5 - t4,
             "serve_group": serve, "serve_group_s": time.perf_counter() - t5}
 
@@ -6104,7 +6172,8 @@ def _node_axis_task(rounds: int) -> dict:
     from murmura_tpu_torch.utils.factories import build_network_from_config
 
     pgroup = process_group()
-    nodes = NodeGroup(pgroup.rank, pgroup.world, pgroup.backend, pgroup.device)
+    nodes = NodeGroup(pgroup.rank, pgroup.world, pgroup.backend, pgroup.device,
+                      processes=pgroup.processes)
     device = pgroup.device
     out = {}
 
@@ -6449,6 +6518,294 @@ def report_node_axis(ranks: list, wall: float) -> dict:
     return out
 
 
+# Phase 4 (g)'s DMTT over the node axis, in (g)'s ranks: (h6) 03_dmtt.yaml
+# at backend: tpu (its UCI HAR wearable model on the synthetic fallback, 16
+# nodes, B = 2, fedavg, the topology liar at 30%) and (h7) the flagship's
+# model and data at full width under dmtt_mobility.yaml's topology:,
+# mobility: and dmtt: sections with Krum at num_compromised 1, each
+# NODE_AXIS_ROUNDS rounds against the same run in one process training R_r
+# rows a launch (``_row_block``).  (label, the kernels each rank launches.)
+DMTT_03 = ROOT / "experiments" / "paper" / "dmtt" / "03_dmtt.yaml"
+NODE_DMTT_CASES = (("h6_dmtt_03", ()), ("h7_dmtt_flagship_krum", ("pairwise_sq_distances",)))
+NODE_DMTT_COUNTS = ("agg_dmtt_collab_count", "agg_dmtt_received_count")
+TRUST_KEYS = ("dmtt_c_hat", "dmtt_alpha", "dmtt_beta")
+# (h7)'s spread of Krum's starts, a fraction of the CNN's fc1 init scale.
+DMTT_KRUM_SPREAD = 0.005
+
+
+def node_dmtt_raw(label: str) -> dict:
+    """(h6)'s or (h7)'s config, NODE_AXIS_ROUNDS rounds (the node axis comes
+    from the group the rank runs in)."""
+    import yaml
+
+    if label.startswith("h6"):
+        raw = yaml.safe_load(DMTT_03.read_text())
+        raw["backend"] = "tpu"
+        raw["tpu"] = {}
+    else:
+        raw = yaml.safe_load(FLAGSHIP.read_text())
+        mobility = yaml.safe_load(DMTT_MOBILITY.read_text())
+        for section in ("topology", "mobility", "dmtt"):
+            raw[section] = mobility[section]
+        raw["aggregation"] = {"algorithm": "krum", "params": {"num_compromised": 1}}
+        raw["tpu"]["exchange"] = "allgather"
+    raw["experiment"].update(rounds=NODE_AXIS_ROUNDS, verbose=False)
+    return raw
+
+
+def _node_dmtt_task(rounds: int) -> dict:
+    """Phase 4 (g), DMTT over the node axis, a rank's part, in (g)'s group of
+    2 on cuda:0 re-bound as a node group.  For each case of
+    NODE_DMTT_CASES rank 0 first runs the config in one process (the group
+    turned off) through ``build_network_from_config`` and ``Network.train``,
+    ``rounds`` rounds one at a time, training R_r rows a launch; then both
+    ranks run it over the node group, the kernel counters set to 0 just
+    before and read just after.  Each round keeps the decisions, the
+    cross-evaluation's accuracies (this rank's rows over the group), the
+    exchange mask, the trust state and the parameters (whole, rank 0), and
+    the seconds of the cross-evaluation.  Under Krum both sides start from
+    node 0's initial row spread at distinct scales and re-spread each later
+    round's start the same way (the flagship's nodes from their own
+    initialisations, or copies of one winner, put Krum's scores within the
+    Gram identity's float32 noise; ``_spread_trained``'s rows, far from a
+    trained model's scale, make the CNN's training diverge).
+    Returns this rank's launches,
+    plain calls, peak memory, counts and round times; rank 0's also both
+    sides' records."""
+    import torch
+
+    from murmura_tpu_torch.config.schema import Config
+    from murmura_tpu_torch.core import rounds as rounds_mod
+    from murmura_tpu_torch.parallel.mesh import (
+        COLLECTIVE_COUNTS,
+        EXCHANGE_COUNTS,
+        NodeGroup,
+        barrier,
+        gather_rows,
+        process_group,
+        reset_exchange_counts,
+        set_process_group,
+    )
+    from murmura_tpu_torch.utils.factories import build_network_from_config
+
+    pgroup = process_group()
+    nodes = NodeGroup(pgroup.rank, pgroup.world, pgroup.backend, pgroup.device,
+                      processes=pgroup.processes)
+    device = pgroup.device
+    real_probe, real_update = rounds_mod.pairwise_probe_eval, rounds_mod.dmtt_round_update
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def spread_rows(net, n, p, rows, seed, base=None):
+        """[n, p] draws of DMTT_KRUM_SPREAD at distinct scales (around
+        ``base``), cut to ``rows``: the same bits on both sides."""
+        g = torch.Generator(device=device).manual_seed(seed)
+        scale = DMTT_KRUM_SPREAD * (1.0 + torch.arange(n, device=device) / n)
+        out = scale[:, None] * torch.randn((n, p), generator=g, device=device)
+        return (out if base is None else base + out)[rows]
+
+    def run(config, keys, spread):
+        net = build_network_from_config(config, device=device)
+        n, p = net.program.num_nodes, net.program.model_dim
+        rows = slice(None) if net.group is None else slice(*net.group.rows)
+        if spread:
+            # Node 0's own initial row (rank 0's first), spread.
+            base = net.flat[:1].clone()
+            if net.group is not None:
+                torch.distributed.broadcast(base, src=0)
+            net.flat = spread_rows(net, n, p, rows, 2024, base).contiguous()
+        rec = {"stats": [], "cross": [], "masks": [], "states": [], "flats": [],
+               "cross_s": [], "exchange": dict.fromkeys(EXCHANGE_COUNTS, 0),
+               "collectives": dict.fromkeys(COLLECTIVE_COUNTS, 0)}
+
+        def probe(*args):
+            sync()
+            t0 = time.perf_counter()
+            res = real_probe(*args)
+            sync()
+            rec["cross_s"].append(time.perf_counter() - t0)
+            rec["cross"].append(res["accuracy"].float().cpu())
+            return res
+
+        def update(*args):
+            res = real_update(*args)
+            rec["masks"].append(res[0].cpu())
+            return res
+
+        _recording(net.program, keys, rec["stats"])
+        rounds_mod.pairwise_probe_eval, rounds_mod.dmtt_round_update = probe, update
+        try:
+            for r in range(rounds):
+                if spread and r:
+                    # Re-spread the round's start: nodes that copied one
+                    # Krum winner would train into near-copies.
+                    net.flat = net.flat + spread_rows(net, n, p, rows, 2024 + r)
+                reset_exchange_counts()
+                net.train(1)
+                for part, now in (("exchange", EXCHANGE_COUNTS), ("collectives",
+                                                                  COLLECTIVE_COUNTS)):
+                    for k, v in now.items():
+                        rec[part][k] = max(rec[part][k], v) if k.endswith("_max") \
+                            else rec[part][k] + v
+                group = net.group
+                state = {k: (v if group is None or k not in net.program.row_state_keys
+                             else gather_rows(v, group, dst=0))
+                         for k, v in net.agg_state.items() if k.startswith("dmtt_")}
+                flat = net.flat if group is None else gather_rows(net.flat, group, dst=0)
+                if flat is not None:
+                    rec["flats"].append(flat.float().cpu())
+                    rec["states"].append({k: v.cpu() for k, v in state.items()})
+        finally:
+            rounds_mod.pairwise_probe_eval, rounds_mod.dmtt_round_update = real_probe, real_update
+        return net, rec
+
+    out = {}
+    for label, _ in NODE_DMTT_CASES:
+        config = Config.model_validate(node_dmtt_raw(label))
+        krum = config.aggregation.algorithm == "krum"
+        keys = NODE_DMTT_COUNTS + (("agg_selected_index", "agg_krum_score") if krum else ())
+        ref = None
+        if nodes.rank == 0:
+            set_process_group(None)
+            try:
+                with _row_block(config.topology.num_nodes // nodes.world):
+                    net, ref = run(config, keys, krum)
+                ref.update(adj=[net.mobility.adjacency_at(r).astype("float32")
+                                for r in range(rounds)], dmtt=net.program.dmtt,
+                           round_times=list(net.round_times))
+                del net
+            finally:
+                set_process_group(pgroup)
+            _free(device)
+        barrier(pgroup)
+        set_process_group(nodes)
+        try:
+            _counted(reset=True)
+            _peak(device, reset=True)
+            net, got = run(config, keys, krum)
+            launches, plain = _counted()
+            got.update(launches=launches, plain=plain, peak_bytes=_peak(device),
+                       round_times=list(net.round_times), rows=tuple(net.flat.shape),
+                       layout=net.group.describe(), model_dim=net.program.model_dim)
+            del net
+        finally:
+            set_process_group(pgroup)
+        if ref is not None:
+            # The parameters stay here: their distances travel instead.
+            got["dists"] = [_scaled_on(a, b.numpy()) for a, b in zip(got["flats"], ref["flats"])]
+            got["bit_equal"] = [bool(torch.equal(a, b)) for a, b in zip(got["flats"],
+                                                                        ref["flats"])]
+            del ref["flats"]
+        del got["flats"]
+        _free(device)
+        got["ref"] = ref
+        out[label] = got
+    return out
+
+
+def report_node_dmtt(ranks: list, wall: float) -> dict:
+    """Phase 4 (g)'s DMTT gates and lines, (h6)-(h7).  For each case and
+    round against the one-process run: the cross-evaluation's accuracies
+    equal (the ranks' rows put together); the exchange and collaborator
+    masks and the agg_dmtt_* counts (and Krum's picks) equal, or differing
+    only on rows whose TopB scores lie within DMTT_Q_MARGIN at the B-th
+    place (``_top_b_margins``, printed); the trust state within
+    DMTT_TRUST_RTOL; the parameters within a scaled 1e-4; every kernel of
+    the case launched on both ranks, no plain call; no gather beside the
+    exchange moving a row of the parameters' width.  Prints each rank's
+    launches, peak memory, the mask gather's bytes and the
+    cross-evaluation's share of a round.  Returns each case's launches
+    summed over the ranks, for the kernels line."""
+    import numpy as np
+    import torch
+
+    card = card_line()
+    out, failed = {}, []
+    for label, names in NODE_DMTT_CASES:
+        recs = [r[label] for r in ranks]
+        got, ref = recs[0], recs[0]["ref"]
+        acc_equal, masks_equal, counts_equal, tie_rows = [], True, True, 0
+        trust_rel, dists, bit_equal = 0.0, got["dists"], got["bit_equal"]
+        prev = None
+        for r in range(NODE_AXIS_ROUNDS):
+            cross = torch.cat([x["cross"][r] for x in recs])
+            acc_equal.append(bool(torch.equal(cross, ref["cross"][r])))
+            sg, sr = got["states"][r], ref["states"][r]
+            diff = ((sg["dmtt_collab"] != sr["dmtt_collab"]).any(dim=1)
+                    | (got["masks"][r] != ref["masks"][r]).any(dim=1))
+            if diff.any():
+                adj = torch.from_numpy(ref["adj"][r])
+                before = prev if prev is not None else {
+                    "dmtt_selected": torch.zeros(()), "dmtt_collab": torch.zeros_like(adj)}
+                margins = _top_b_margins(before, sr, {"accuracy": ref["cross"][r],
+                                                      "vacuity": torch.zeros_like(adj)},
+                                         adj, ref["dmtt"])
+                tied = all(margins[i] <= DMTT_Q_MARGIN for i in np.flatnonzero(diff.numpy()))
+                masks_equal = masks_equal and tied
+                tie_rows += int(diff.sum())
+            same = {k: np.array_equal(got["stats"][r][k], ref["stats"][r][k])
+                    for k in ref["stats"][r] if k != "agg_krum_score"}
+            counts_equal = counts_equal and (bool(diff.any()) or all(same.values()))
+            if not same.get("agg_selected_index", True):
+                gi, ri = got["stats"][r]["agg_selected_index"], ref["stats"][r]["agg_selected_index"]
+                gs, rs = got["stats"][r]["agg_krum_score"], ref["stats"][r]["agg_krum_score"]
+                print(f"[node_dmtt:{label}] round {r + 1}: Krum picks differ at nodes "
+                      f"{np.flatnonzero(gi != ri).tolist()}: group {gi.tolist()}, one process "
+                      f"{ri.tolist()}; scores group {gs.tolist()}, one process {rs.tolist()}",
+                      flush=True)
+            for k in TRUST_KEYS:
+                trust_rel = max(trust_rel, float(((sg[k] - sr[k]).abs()
+                                                  / sr[k].abs().clamp(min=1e-30)).max()))
+            prev = sr
+        launched = all(x["launches"].get(k, 0) > 0 for x in recs for k in names)
+        plain = sum(x["plain"] for x in recs)
+        narrow = all(x["collectives"]["gather_row_bytes_max"] < 4 * x["model_dim"] for x in recs)
+        within = all(d <= 1e-4 for d in dists) or tie_rows > 0
+        ok = (all(acc_equal) and masks_equal and counts_equal and trust_rel <= DMTT_TRUST_RTOL
+              and within and launched and plain == 0 and narrow)
+        picks = [int((np.asarray(st["agg_selected_index"]) != np.arange(len(st[
+            "agg_selected_index"]))).sum()) for st in got["stats"] if "agg_selected_index" in st]
+        mask_kb = [x["collectives"]["mask_bytes"] / NODE_AXIS_ROUNDS / 1e3 for x in recs]
+        share = [sum(x["cross_s"]) / max(sum(x["round_times"]), 1e-12) for x in recs]
+        print(f"[node_dmtt:{label}] {got['layout'].split(';')[0]} ({card}; gloo, staged "
+              f"through host memory), {NODE_AXIS_ROUNDS} rounds against one process training "
+              f"{got['rows'][0]} rows a launch: cross-evaluation accuracies equal by round "
+              f"{acc_equal}; exchange and collaborator masks equal except {tie_rows} row(s) "
+              f"within the TopB margin {DMTT_Q_MARGIN:g} ({masks_equal}); agg_dmtt_* counts and "
+              f"picks equal {counts_equal}; trust state largest relative difference "
+              f"{trust_rel:.3g} (limit {DMTT_TRUST_RTOL:g}); "
+              + (f"nodes taking a neighbour's row by round {picks}; " if picks else "")
+              + f"parameters scaled "
+              f"{[float(f'{d:.3g}') for d in dists]} (gate 1e-4, bit-equal {bit_equal}); "
+              f"pairwise launches by rank "
+              f"{[x['launches'].get('pairwise_sq_distances', 0) for x in recs]}, plain calls "
+              f"{plain}; the collaborator-mask gather {mask_kb} kB a round by rank (N^2 B); "
+              f"widest other gathered row {[x['collectives']['gather_row_bytes_max'] for x in recs]}"
+              f" B (a parameter row {4 * got['model_dim']:,} B); peak by rank "
+              f"{[round(x['peak_bytes'] / 1e9, 3) for x in recs]} GB; the cross-evaluation "
+              f"{[f'{v:.1%}' for v in share]} of a round by rank "
+              f"({[round(1e3 * sum(x['cross_s']) / NODE_AXIS_ROUNDS, 2) for x in recs]} ms a "
+              f"round); s a round on rank 0 {[round(t, 4) for t in got['round_times']]}, one "
+              f"process {[round(t, 4) for t in ref['round_times']]} (2 ranks share one card "
+              f"through host memory: a check, not a speed): {'ok' if ok else 'FAILED'}",
+              flush=True)
+        if not ok:
+            failed.append(label)
+        out[f"node:{label}"] = {
+            "launches": {k: sum(x["launches"].get(k, 0) for x in recs)
+                         for k in recs[0]["launches"]},
+            "dists": dists, "bit_equal": bit_equal, "trust_rel": trust_rel,
+            "tie_rows": tie_rows, "peaks": [x["peak_bytes"] for x in recs],
+            "mask_bytes_a_round": [x["collectives"]["mask_bytes"] / NODE_AXIS_ROUNDS
+                                   for x in recs], "cross_share": share}
+    print(f"[node_dmtt] the DMTT node-axis cases took {wall:.1f} s in the ranks", flush=True)
+    if failed:
+        raise AssertionError(f"DMTT over the node axis disagrees with one process: {failed}")
+    return out
+
+
 # Phase 4 (g)'s seed axis and the frontier and the grid over a param group,
 # in (g)'s group of 2 on cuda:0: (s1)-(s3) with its ranks re-bound as a seed
 # group, (p1)-(p2) in its param group.  Each case is held against the same
@@ -6620,7 +6977,8 @@ def _seed_axis_task() -> dict:
     )
 
     pgroup = process_group()
-    seeds = SeedGroup(pgroup.rank, pgroup.world, pgroup.backend, pgroup.device)
+    seeds = SeedGroup(pgroup.rank, pgroup.world, pgroup.backend, pgroup.device,
+                      processes=pgroup.processes)
     device = pgroup.device
     out = {}
     for label, command, exchange, _, _ in SEED_AXIS_CASES:
@@ -7489,7 +7847,10 @@ def _node_lines(log: str) -> dict:
     nodes = {}
     for m in re.finditer(r"\[node (\d+)\] pid (\d+) ready ([\d.]+) s after spawn", log):
         nodes.setdefault(int(m[1]), {}).update(pid=int(m[2]), boot_s=float(m[3]))
-    for m in re.finditer(r"\[node (\d+)\] pid \d+ ready [^\n]*? s before round 0, on (\S+)", log):
+    # The device names its type and index and no more: a line that another
+    # process spliced onto this one's end does not swallow its "[node i]".
+    for m in re.finditer(r"\[node (\d+)\] pid \d+ ready [^\n]*? s before round 0, "
+                         r"on ((?:cuda|cpu)(?::\d+)?)", log):
         nodes.setdefault(int(m[1]), {}).update(device=m[2])
     for m in re.finditer(r"\[node (\d+)\] rounds \{(.*?)\}; (?:card memory peak ([\d.]+) MiB; )?"
                          r"kernel launches (\{.*?\}); plain calls (\{.*?\})", log):
@@ -7647,6 +8008,8 @@ def run_distributed_smoke(card: str = "cuda", started=None) -> dict:
     aggregate seconds, the node processes' card memory and the wall.
     ``started``: the run :func:`start_distributed_smoke` spawned (else
     spawned here)."""
+    import re
+
     run = started if started is not None else start_distributed_smoke(card)
     try:
         run["sampler"].join()
@@ -7661,7 +8024,7 @@ def run_distributed_smoke(card: str = "cuda", started=None) -> dict:
         raise AssertionError(f"the distributed run ({card}) exited {proc.returncode}")
     h = json.loads(out.read_text())
     nodes = _node_lines(text)
-    t_start = float(text.split("t_start=", 1)[1].split()[0])
+    t_start = float(re.search(r"t_start=([\d.]+)", text)[1])
     events = _round_events(work / "telemetry")
     t_replay = time.perf_counter()
     replay = _replay_distributed(cfg, DIST_ROUNDS)

@@ -324,12 +324,9 @@ def run(config_path: Path, output: Optional[Path] = None, device: str = "cuda",
             config.tpu.param_shards > 1 or node_axis_of(config, dev.type) > 1):
         world, axis = _print_layout(config, dev)
         if world > 1:
-            from murmura_tpu_torch.parallel.launch import launch
-
             args = (config_path, output, device, verbose, profile, checkpoint_dir,
                     checkpoint_every, resume, require_tpu, retries)
-            return launch(_cli_rank, args, world=world, device_type=dev.type,
-                          axis=axis)[0], None
+            return _start_group(config, dev, _cli_rank, args, world, axis)[0], None
     if config.backend == "distributed":
         return run_distributed(config, output, dev, profile=profile,
                                checkpoint_dir=checkpoint_dir, resume=resume)
@@ -392,22 +389,36 @@ def _print_layout(config, dev: torch.device, gang: Optional[int] = None):
     for ``tpu.param_shards`` above 1, else a gang's seed axis.  A single run at ``tpu.param_shards: 1``
     prints its node axis's layout and its group's blocks and exchange
     instead, after the refusals."""
-    from murmura_tpu_torch.utils.factories import ConfigError, refuse_node_axis
+    from murmura_tpu_torch.utils.factories import (
+        ConfigError,
+        check_multihost_plan,
+        processes_of,
+        refuse_node_axis,
+    )
 
+    procs = processes_of(config)
     try:
         layout, n_dev = plan_layout(config.topology.num_nodes, config.tpu.param_shards,
-                                    dev.type, config.tpu.num_devices, gang=gang)
+                                    dev.type, config.tpu.num_devices, gang=gang,
+                                    processes=procs)
     except ValueError as e:
         raise ConfigError(str(e)) from None
+    # Under tpu.multihost process 0 prints; the devices are every process's.
+    show = procs == 1 or config.tpu.process_id == 0
+    where = (f"{n_dev} {dev.type} device(s)" if procs == 1 else
+             f"{n_dev} {dev.type} device(s) of {procs} processes ({n_dev // procs} each, "
+             f"joined at tcp://{config.tpu.coordinator_address})")
     if gang is None and config.tpu.param_shards == 1:
         world = layout[1]
         refuse_node_axis(config, dev.type)
-        print(f"node layout (seed, nodes, param) {layout} over {n_dev} {dev.type} "
-              f"device(s): {world} ranks over {'nccl' if dev.type == 'cuda' else 'gloo'}",
-              flush=True)
-        print(_node_group_line(config, dev, world), flush=True)
+        check_multihost_plan(config, "nodes", world, n_dev)
+        if show:
+            print(f"node layout (seed, nodes, param) {layout} over {where}: {world} ranks "
+                  f"over {'nccl' if dev.type == 'cuda' else 'gloo'}", flush=True)
+            print(_node_group_line(config, dev, world, procs), flush=True)
         return world, "nodes"
     axis, world, unused = running_axis(layout, gang is not None, config.tpu.param_shards)
+    check_multihost_plan(config, axis, world, n_dev)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if axis == "param":
         how = (f"{world} ranks over {backend}" if world > 1
@@ -421,9 +432,36 @@ def _print_layout(config, dev: torch.device, gang: Optional[int] = None):
                  for a, n in (u.split() for u in unused)]
         note = (f"; {' and '.join(names)} {'goes' if len(names) == 1 else 'go'} unused (the "
                 "port runs one axis at a time)")
-    print(f"{axis} layout (seed, nodes, param) {layout} over {n_dev} {dev.type} "
-          f"device(s): {how}{note}", flush=True)
+    if show:
+        print(f"{axis} layout (seed, nodes, param) {layout} over {where}: {how}{note}",
+              flush=True)
     return world, axis
+
+
+def _start_group(config, dev: torch.device, fn, args, world: int, axis: str):
+    """Run ``fn(*args)`` in the ``world`` ranks of an ``axis`` group and
+    return their values, rank 0's first: spawned here (parallel/launch.py
+    ``launch``), or under ``tpu.multihost`` this process's block of the
+    global ranks, which meet the other processes' at the coordinator
+    (``join``).  A process other than 0 gets its own ranks' values and
+    prints one line naming them."""
+    from murmura_tpu_torch.parallel import launch as launcher
+    from murmura_tpu_torch.utils.factories import processes_of
+
+    procs = processes_of(config)
+    if procs == 1:
+        return launcher.launch(fn, args, world=world, device_type=dev.type, axis=axis)
+    t = config.tpu
+    local = world // procs
+    values = launcher.join(fn, args, coordinator=t.coordinator_address, num_processes=procs,
+                           process_id=t.process_id, local_world=local,
+                           device_type=dev.type, axis=axis)
+    if t.process_id:
+        lo = t.process_id * local
+        print(f"murmura_tpu_torch process {t.process_id} of {procs}: global ranks "
+              f"[{lo}, {lo + local}) of the {axis} group of {world} ran; process 0 prints "
+              "and writes", flush=True)
+    return values
 
 
 def _gang_layout(config, dev: torch.device, lanes: int):
@@ -435,13 +473,14 @@ def _gang_layout(config, dev: torch.device, lanes: int):
     from murmura_tpu_torch.utils.factories import node_axis_of
 
     if process_group() is not None or config.backend != "tpu" or not (
-            config.tpu.param_shards > 1 or node_axis_of(config, dev.type) > 1):
+            config.tpu.param_shards > 1 or node_axis_of(config, dev.type) > 1
+            or config.tpu.multihost):
         return 1, None
     bucket = config.sweep.bucket if config.sweep is not None else True
     return _print_layout(config, dev, gang=next_bucket(lanes) if bucket else lanes)
 
 
-def _node_group_line(config, dev: torch.device, world: int) -> str:
+def _node_group_line(config, dev: torch.device, world: int, processes: int = 1) -> str:
     """The node group's blocks and exchange, as rank 0's
     ``NodeGroup.describe`` will print them."""
     from murmura_tpu_torch.utils.factories import build_topology
@@ -453,7 +492,8 @@ def _node_group_line(config, dev: torch.device, world: int) -> str:
         offsets = topology.circulant_offsets()
     backend = "nccl" if dev.type == "cuda" else "gloo"
     device = torch.device(dev.type, 0) if dev.type == "cuda" else torch.device("cpu")
-    group = NodeGroup(0, world, backend, device).bind(config.topology.num_nodes, offsets)
+    group = NodeGroup(0, world, backend, device, processes=processes).bind(
+        config.topology.num_nodes, offsets)
     return group.describe()
 
 
@@ -553,10 +593,8 @@ def run_sweep(config, seeds, output: Optional[Path], dev: torch.device, *,
         raise ConfigError(str(e)) from None
     world, axis = _gang_layout(config, dev, lanes)
     if world > 1:
-        from murmura_tpu_torch.parallel.launch import launch
-
-        return launch(_cli_sweep_rank, (config, seeds, output, dev.type, given),
-                      world=world, device_type=dev.type, axis=axis)[0], None
+        return _start_group(config, dev, _cli_sweep_rank,
+                            (config, seeds, output, dev.type, given), world, axis)[0], None
     gang = build_gang_from_config(config, seeds=seeds, device=dev,
                                   checkpoint_dir=checkpoint_dir if resume else None)
     print(
@@ -649,10 +687,8 @@ def frontier(config_path: Path, output: Path = Path("frontier.json"), device: st
     enforce_require_tpu(config, dev, require_tpu)
     world, axis = _gang_layout(config, dev, frontier_gang_size(config))
     if world > 1:
-        from murmura_tpu_torch.parallel.launch import launch
-
-        return launch(frontier, (config_path, output, device, require_tpu), world=world,
-                      device_type=dev.type, axis=axis)[0]
+        return _start_group(config, dev, frontier, (config_path, output, device, require_tpu),
+                            world, axis)[0]
     f = config.frontier
     grid = f"{f.rules} x {f.attacks} x {f.topologies}" if f is not None else "default grid"
     print(f"murmura_tpu_torch frontier {config.experiment.name} "
@@ -721,10 +757,8 @@ def grid(config_path: Path, output: Path = Path("grid.json"), device: str = "cud
         return None
     world, axis = _gang_layout(config, dev, max(len(b.cells) for b in buckets))
     if world > 1:
-        from murmura_tpu_torch.parallel.launch import launch
-
-        return launch(grid, (config_path, output, device, require_tpu), world=world,
-                      device_type=dev.type, axis=axis)[0]
+        return _start_group(config, dev, grid, (config_path, output, device, require_tpu),
+                            world, axis)[0]
     print(header, flush=True)
     artifact = run_grid(config, progress=lambda line: print(line, flush=True), device=dev)
     if not _rank_zero():
@@ -765,11 +799,9 @@ def serve(config_path: Path, device: str = "cuda", require_tpu: bool = False) ->
     if config.serve is not None:
         world, axis = _gang_layout(config, dev, int(config.serve.capacity))
         if world > 1:
-            from murmura_tpu_torch.parallel.launch import launch
-
-            launch(serve, (config_path, device, require_tpu), world=world,
-                   device_type=dev.type, axis=axis)
-            print("murmura_tpu_torch serve: stopped", flush=True)
+            _start_group(config, dev, serve, (config_path, device, require_tpu), world, axis)
+            if not config.tpu.multihost or config.tpu.process_id == 0:
+                print("murmura_tpu_torch serve: stopped", flush=True)
             return
     try:
         daemon = ServeDaemon(config, device=dev)
@@ -1154,6 +1186,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     import pydantic
 
     from murmura_tpu_torch.durability.dispatch import BackendRequirementError
+    from murmura_tpu_torch.parallel.launch import GroupError
     from murmura_tpu_torch.utils.factories import ConfigError
 
     try:
@@ -1194,3 +1227,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     except (UsageError, BackendRequirementError) as e:
         print(f"Error: {e}", file=sys.stderr)
         raise SystemExit(2)
+    except GroupError as e:
+        # A rank's failure (its traceback), or a multihost join that did not
+        # assemble (naming the coordinator).
+        print(f"Error: {e}", file=sys.stderr)
+        raise SystemExit(1)

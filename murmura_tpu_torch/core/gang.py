@@ -123,6 +123,7 @@ from murmura_tpu_torch.parallel.mesh import (
     gather_columns,
     gather_objects,
     gather_rows,
+    refuse_transfer_guard_across_processes,
     rows_to_columns,
 )
 from murmura_tpu_torch.utils.checkpoint import committed_bytes
@@ -452,6 +453,7 @@ class GangNetwork:
         if topology.num_nodes != n:
             raise ValueError(f"Topology has {topology.num_nodes} nodes, gang stack has {n}")
         self.group = program.group
+        refuse_transfer_guard_across_processes(self.group or seed_group, transfer_guard)
         if self.group is not None and self.group.staged and transfer_guard:
             raise ValueError(
                 "tpu.transfer_guard does not compose with a gloo param group on CUDA "

@@ -32,7 +32,8 @@ The two runtime guards of the ``tpu:`` section keep their names:
   The staging of the chunk's inputs and its one copy-out stay outside, as
   explicit transfers (the JAX package's ``device_put`` and ``device_get``
   under ``transfer_guard("disallow")``).  On the CPU there is nothing to
-  synchronise and the guard does nothing.
+  synchronise and the guard does nothing.  Over a group joined from several
+  processes (``tpu.multihost``) it is refused, in the JAX package's words.
 - ``recompile_guard``: eager torch compiles no program a round.  Its two
   analogues of a recompile (analysis/sanitizers.py) raise
   :class:`RecompileError`: a new ``build_multi_round`` entry for a key
@@ -55,7 +56,13 @@ from murmura_tpu_torch.attacks.base import Attack
 from murmura_tpu_torch.core.rounds import RoundProgram, build_multi_round
 from murmura_tpu_torch.faults.schedule import FaultSchedule
 from murmura_tpu_torch.ops import _build
-from murmura_tpu_torch.parallel.mesh import NodeGroup, barrier, gather_columns, gather_rows
+from murmura_tpu_torch.parallel.mesh import (
+    NodeGroup,
+    barrier,
+    gather_columns,
+    gather_rows,
+    refuse_transfer_guard_across_processes,
+)
 from murmura_tpu_torch.topology.base import Topology
 from murmura_tpu_torch.topology.sparse import SparseTopology
 from murmura_tpu_torch.utils.checkpoint import committed_bytes
@@ -304,6 +311,7 @@ class Network:
             )
         self.program = program
         self.group = program.group
+        refuse_transfer_guard_across_processes(self.group, transfer_guard)
         if self.group is not None and self.group.staged and transfer_guard:
             raise ValueError(
                 "tpu.transfer_guard does not compose with a gloo param or node group on "

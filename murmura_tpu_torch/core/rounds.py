@@ -84,8 +84,13 @@ partials over the group; an adaptive attack's state stays the whole [N] on
 every rank (the taps it reads are sender totals, whole there); the probe
 rules evaluate the block's senders (dense) or window (circulant) on the
 whole probe arrays, and a rule's edge state (``state_kind`` "edge") is the
-block's [R_r, N] rows (``RoundProgram.row_state_keys``).  DMTT,
-compression, staleness and the pipelined round are refused on it by name.
+block's [R_r, N] rows (``RoundProgram.row_state_keys``).  DMTT runs on
+the block too: its cross-evaluation reads the exchanged broadcast
+sender-major (aggregation/probe.py), its [N, N] trust state is the block's
+[R_r, N] observer rows, and the exchange mask E = C ∧ Cᵀ comes whole from
+one gather of the block's 0/1 collaborator rows (dmtt/protocol.py), its
+rows the rule's adjacency.  Compression, staleness and the pipelined round
+are refused on it by name.
 
 ``train_step(..., data=)`` runs the round on other rows of the data
 arrays than the program's own (the population engine's cohort, whose
@@ -232,6 +237,8 @@ DMTT_STATE_KEYS = (
     "dmtt_collab",
     "dmtt_selected",
 )
+# The [N, N] ones, held as a node block's [R_r, N] observer rows.
+DMTT_EDGE_KEYS = DMTT_STATE_KEYS[:4]
 
 
 def pin_full_float32() -> None:
@@ -324,7 +331,7 @@ def init_stacked_params(model: Model, n: int, seed: int, device,
     )
 
 
-def check_node_axis_program(nodes: NodeGroup, n: int, param_shards: int, dmtt, compression,
+def check_node_axis_program(nodes: NodeGroup, n: int, param_shards: int, compression,
                              staleness, pipeline) -> None:
     """Refuse, by name, what a node group's round does not run yet, and a
     node axis that does not divide the nodes (in the JAX package's words)."""
@@ -333,7 +340,6 @@ def check_node_axis_program(nodes: NodeGroup, n: int, param_shards: int, dmtt, c
     check_node_axis(n, nodes.world)
     refused = [what for what, on in (
         ("tpu.param_shards > 1 (a node axis beside a param axis)", param_shards > 1),
-        ("DMTT (dmtt:)", dmtt is not None),
         ("compression", compression is not None),
         ("bounded staleness (exchange.max_staleness)", staleness is not None),
         ("the pipelined round (exchange.pipeline)", pipeline),
@@ -471,8 +477,7 @@ def build_round_program(
     nodes = group if isinstance(group, NodeGroup) else None
     pgroup = None if nodes is not None else group
     if nodes is not None:
-        check_node_axis_program(nodes, n, param_shards, dmtt, compression, staleness,
-                                pipeline)
+        check_node_axis_program(nodes, n, param_shards, compression, staleness, pipeline)
     if pgroup is not None and param_shards % pgroup.world:
         raise ValueError(
             f"the param group's {group.world} ranks do not divide the program's "
@@ -937,7 +942,10 @@ def build_round_program(
 
     def dmtt_exchange(bcast, adj, compromised, agg_state, rule_ctx):
         """Step 2e: (the exchange mask, agg_state with the new trust state,
-        the context with the shared cross-evaluation, the dmtt stats)."""
+        the context with the shared cross-evaluation, the dmtt stats).  On
+        the node axis ``bcast`` is the exchanged whole broadcast, the
+        cross-evaluation, the trust state and the stats the block's rows,
+        and the exchange mask whole (dmtt/protocol.py)."""
         with record_function(STAGE_EXCHANGE):
             claims = claims_fn(adj, compromised) if claims_fn is not None else adj
             cross = pairwise_probe_eval(bcast, rule_ctx, combined_probe_metric(evidential))
@@ -963,9 +971,13 @@ def build_round_program(
         rule_ctx = step_ctx(data)
         dmtt_stats = None
         if dmtt is not None:
+            # The cross-evaluation reads every sender: on the node axis the
+            # exchanged broadcast, not the block's own rows.
             adj, agg_state, rule_ctx, dmtt_stats = dmtt_exchange(
-                prod["bcast"], adj, compromised, agg_state, rule_ctx)
-            rule_adj = adj
+                bcast, adj, compromised, agg_state, rule_ctx)
+            rule_adj = mine(adj)
+            if nodes is not None:
+                dmtt_stats = gather_block_stats(dmtt_stats)
         rule_state = {k: v for k, v in agg_state.items() if k not in reserved}
         with record_function(STAGE_AGGREGATE):
             new_flat, rule_state, agg_stats = agg.aggregate(
@@ -1190,13 +1202,15 @@ def build_round_program(
     init_agg_state = {
         k: torch.as_tensor(np.asarray(v)).to(device) for k, v in agg.init_state(n).items()
     }
-    # A node block holds its receivers' rows of the rule's edge state.
-    row_state_keys = () if nodes is None else tuple(sorted(
-        k for k in init_agg_state if agg.state_kind.get(k) == "edge"))
-    for k in row_state_keys:
-        init_agg_state[k] = init_agg_state[k][own_rows].contiguous()
     if dmtt is not None:
         init_agg_state.update(init_dmtt_state(n, device))
+    # A node block holds its receivers' rows of the rule's edge state and
+    # its observers' rows of DMTT's trust state.
+    row_state_keys = () if nodes is None else tuple(sorted(
+        k for k in init_agg_state
+        if agg.state_kind.get(k) == "edge" or (dmtt is not None and k in DMTT_EDGE_KEYS)))
+    for k in row_state_keys:
+        init_agg_state[k] = init_agg_state[k][own_rows].contiguous()
     if compression is not None:
         clash = set(COMPRESS_STATE_KEYS) & set(init_agg_state)
         if clash:

@@ -23,6 +23,7 @@ the node's training draws (``train``, distributed/local.py) instead.
 """
 
 import os
+import sys
 import time
 from typing import Dict, List, Optional
 
@@ -69,6 +70,14 @@ def kernel_counts() -> Dict[str, Dict[str, int]]:
     mods = (agg_kernels, candidate_kernels, sketch_kernels)
     return {"launches": {k: v for m in mods for k, v in m.LAUNCHES.items()},
             "plain": {k: v for m in mods for k, v in m.PLAIN_CALLS.items()}}
+
+
+def _say(line: str) -> None:
+    """Print ``line`` and its newline as one write.  Under an unbuffered
+    stdout ``print`` writes the text and the newline apart, and the node
+    processes that share one pipe then splice each other's lines."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
 
 
 class NodeProcess:
@@ -157,8 +166,8 @@ class NodeProcess:
         self._setup_sockets()
         ready = time.monotonic()
         boot = "" if self.spawned_at is None else f"ready {ready - self.spawned_at:.2f} s after spawn, "
-        print(f"[node {self.node_id}] pid {os.getpid()} {boot}{self.t_start - ready:.2f} s "
-              f"before round 0, on {self.device}", flush=True)
+        _say(f"[node {self.node_id}] pid {os.getpid()} {boot}{self.t_start - ready:.2f} s "
+             f"before round 0, on {self.device}")
         try:
             self._run_all_rounds()
         finally:
@@ -176,8 +185,8 @@ class NodeProcess:
         if self.device is not None and self.device.type == "cuda":
             memory = (f"card memory peak "
                       f"{torch.cuda.max_memory_allocated(self.device) / 2**20:.1f} MiB; ")
-        print(f"[node {self.node_id}] rounds {{{rounds}}}; {memory}kernel launches "
-              f"{counts['launches']}; plain calls {counts['plain']}", flush=True)
+        _say(f"[node {self.node_id}] rounds {{{rounds}}}; {memory}kernel launches "
+             f"{counts['launches']}; plain calls {counts['plain']}")
 
     # ------------------------------------------------------------------
 
@@ -347,10 +356,9 @@ class NodeProcess:
         # overran the whole window, or a recovery boot landed late):
         # publish the SKIPPED frame so the monitor stays index-aligned.
         if time.monotonic() >= deadline:
-            print(
+            _say(
                 f"[node {self.node_id}] round {round_idx}: round window "
                 "already elapsed; skipping",
-                flush=True,
             )
             self._send_metrics(round_idx, skipped=True)
             return
@@ -397,21 +405,19 @@ class NodeProcess:
                 max(0.0, deadline - time.monotonic()) + 0.5,
             )
             if delay > 0:
-                print(
+                _say(
                     f"[node {self.node_id}] round {round_idx}: straggling "
                     f"{delay:.2f}s (factor "
                     f"{self.fault_schedule.straggler_factor})",
-                    flush=True,
                 )
                 time.sleep(delay)
 
         # 2. overrun check: skip the exchange if training blew the window
         # (node_process.py:210-218).
         if time.monotonic() >= deadline:
-            print(
+            _say(
                 f"[node {self.node_id}] round {round_idx}: training overran "
                 "the round window; skipping exchange",
-                flush=True,
             )
             self._send_metrics(round_idx, skipped=True)
             return
@@ -430,10 +436,9 @@ class NodeProcess:
             # jitted backends' nan_inject_nodes.
             flat = np.full_like(flat, np.nan)
         if pre_flat is not None and not np.isfinite(flat).all():
-            print(
+            _say(
                 f"[node {self.node_id}] round {round_idx}: non-finite local "
                 "update quarantined; rolling back to the pre-round state",
-                flush=True,
             )
             self.node.set_flat_state(pre_flat)
             self._send_metrics(round_idx, skipped=False)
@@ -478,10 +483,9 @@ class NodeProcess:
             and self.config.faults.nan_quarantine
             and not np.isfinite(state).all()
         ):
-            print(
+            _say(
                 f"[node {self.node_id}] dropped non-finite state from "
                 f"{sender}",
-                flush=True,
             )
             self._counters["nonfinite_drops"] += 1
             return True
@@ -498,10 +502,9 @@ class NodeProcess:
                 self._push_to(neighbor_id).send_multipart(frames, copy=False)
                 return True
             except Exception as e:
-                print(
+                _say(
                     f"[node {self.node_id}] push to {neighbor_id} failed "
                     f"(attempt {attempt + 1}/{attempts}): {e}",
-                    flush=True,
                 )
                 self._counters["send_retries"] += 1
                 self._counters["reconnects"] += 1
@@ -584,11 +587,10 @@ class NodeProcess:
                     prebuffered[sender] = state
         missing = set(peers) - set(coalition)
         if missing:
-            print(
+            _say(
                 f"[node {self.node_id}] {self.attack.name}: coalition "
                 f"sample {len(coalition)}/{len(peers) + 1} "
                 f"(missing {sorted(missing)})",
-                flush=True,
             )
         sample = np.stack(list(coalition.values()))
         p = self.config.attack.params
@@ -643,10 +645,9 @@ class NodeProcess:
                     received[sender] = state
         missing = expected - set(received)
         if missing:
-            print(
+            _say(
                 f"[node {self.node_id}] deadline: aggregating with "
                 f"{len(received)}/{len(expected)} neighbors (missing {sorted(missing)})",
-                flush=True,
             )
         return received
 
@@ -687,10 +688,9 @@ class NodeProcess:
         its round or None."""
         path = self.endpoints.node_checkpoint_path(self.node_id)
         if not os.path.exists(path):
-            print(
+            _say(
                 f"[node {self.node_id}] resume requested but no checkpoint "
                 f"at {path}; rejoining from the initial model",
-                flush=True,
             )
             return None
         with np.load(path) as data:
@@ -700,10 +700,9 @@ class NodeProcess:
                 if key in data:
                     self.node._node_state[k] = np.asarray(data[key])
             restored = int(data["round"])
-        print(
+        _say(
             f"[node {self.node_id}] restored checkpoint from round "
             f"{restored}",
-            flush=True,
         )
         return restored
 
@@ -727,7 +726,7 @@ class NodeProcess:
                 encode(MsgType.METRICS, self.node_id, pack_obj(metrics), round_idx)
             )
         except Exception as e:  # pragma: no cover
-            print(f"[node {self.node_id}] metrics push failed: {e}", flush=True)
+            _say(f"[node {self.node_id}] metrics push failed: {e}")
 
 
 def run_single_node(

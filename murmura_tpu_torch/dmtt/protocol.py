@@ -11,12 +11,23 @@ reaches node i iff j sends to i (i ∈ C_j) and i expects it (j ∈ C_i).
 
 Nothing here synchronises with the host: ``dmtt_selected`` is a carried
 scalar tensor, read with ``torch.where`` on the device.
+
+Under a node group's scope (parallel/mesh.py ``node_block_scope``, the node
+axis) the round runs on the rank's block of observers: the trust state and
+the cross-evaluation are its [R_r, N] rows, while G^t and the claims stay
+whole on every rank (the host's graph, the liar's ``claims_fn``), so each
+subject's claim counts are whole too.  E = C ∧ Cᵀ reads other observers'
+rows: one all_gather of the block's 0/1 collaborator rows
+(``gather_mask_rows``, N² bytes) gives every rank the whole C, hence the
+whole E; the rest is row-local, TopB's stable order included.
 """
 
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import torch
+
+from murmura_tpu_torch.parallel.mesh import active_node_group, gather_mask_rows
 
 State = Dict[str, torch.Tensor]
 
@@ -117,11 +128,17 @@ def dmtt_round_update(
     adjacency (row j subject j's claim), ``probe_accuracy`` and
     ``probe_vacuity`` [N, N] with [i, j] model j on node i's probe batch.
     Returns (the exchange mask E as float, the new state, per-node stats).
+    Under a node scope the state, the probe matrices, the new state and the
+    stats are the block's rows and E is whole (module docstring).
     """
+    group = active_node_group()
+    rows = slice(None) if group is None else slice(*group.rows)
     adj_b = adj > 0
-    collab_eff = torch.where(state["dmtt_selected"] > 0, state["dmtt_collab"], adj)
+    collab_eff = torch.where(state["dmtt_selected"] > 0, state["dmtt_collab"], adj[rows])
     collab_b = collab_eff > 0
-    exchange = collab_b & collab_b.T
+    whole_b = collab_b if group is None else gather_mask_rows(collab_b, group)
+    exchange_whole = whole_b & whole_b.T
+    exchange = exchange_whole[rows]
 
     ack = exchange.to(torch.float32)
     c_hat = torch.where(collab_b, (1.0 - p.rho) * state["dmtt_c_hat"] + p.rho * ack,
@@ -140,7 +157,7 @@ def dmtt_round_update(
     t = topo_trust(alpha, beta, p)
     q = collab_score(s_model, t, c_hat, p)
     eye = torch.eye(adj.shape[0], dtype=torch.bool, device=adj.device)
-    candidates = adj_b & ~eye
+    candidates = (adj_b & ~eye)[rows]
     collab_next = _top_b_mask(q, candidates, p.budget_B)
 
     new_state = {
@@ -156,4 +173,4 @@ def dmtt_round_update(
         "dmtt_received_count": ack.sum(dim=1),
         "dmtt_mean_topo_trust": (t * cand).sum(dim=1) / torch.clamp(cand.sum(dim=1), min=1.0),
     }
-    return ack, new_state, stats
+    return exchange_whole.to(torch.float32), new_state, stats

@@ -36,6 +36,19 @@ theirs, once for the command (``serve``: for the daemon's lifetime), when
 the gang plan's param axis or (at ``tpu.param_shards: 1``) its seed axis is
 above 1; the tests and ``chip_smoke.py`` launch their own module-level
 functions.
+
+:func:`join` is the entry of a run started as P processes (``tpu.multihost``,
+the JAX package's ``init_multihost``): process p of P runs the global ranks
+``p L .. p L + L - 1`` of one group of ``W = P L`` ranks, which meet at
+``tcp://<coordinator_address>`` instead of a rendezvous file.  At ``L = 1``
+the rank runs in the calling process; above, the process spawns its local
+ranks as :func:`launch` does, with the same promises (the group timeout, a
+rank's failure ending the run with its traceback, ranks dying with their
+launcher, the kernels built first, ``cuda:l`` for local rank l over NCCL,
+gloo on the CPU, the ``one_device`` seam).  Process 0 gets every rank's
+return value, gathered over the group before it closes; the others get their
+own ranks'.  A process already in a group ignores a second join, as JAX
+ignores a second ``init_multihost``.
 """
 
 import ctypes
@@ -57,6 +70,7 @@ from murmura_tpu_torch.parallel.mesh import (
     NodeGroup,
     ParamGroup,
     SeedGroup,
+    process_group,
     set_process_group,
 )
 
@@ -104,6 +118,23 @@ def _die_with_parent(parent: int) -> None:
         os.kill(os.getpid(), signal.SIGKILL)
 
 
+def _rank_device(device_type: str, one_device: bool, local: int, local_world: int):
+    """Set and return a rank's device: ``cuda:local`` (``cuda:0`` with
+    ``one_device``), or the CPU with a share of its cores (``local_world``
+    ranks of the machine's thread count would oversubscribe it)."""
+    if device_type == "cuda":
+        index = 0 if one_device else local
+        torch.cuda.set_device(index)
+        return torch.device("cuda", index)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // local_world))
+    return torch.device("cpu")
+
+
+def _record_error(tmp: str, rank: int, e: BaseException) -> None:
+    with open(Path(tmp) / f"error.{rank}", "wb") as f:
+        pickle.dump((time.time(), type(e).__name__, str(e), traceback.format_exc()), f)
+
+
 def _rank_main(rank: int, fn: Callable, args: Sequence, world: int, backend: str,
                device_type: str, one_device: bool, tmp: str, timeout_s: float,
                axis: str = "param", parent: Optional[int] = None) -> None:
@@ -111,15 +142,7 @@ def _rank_main(rank: int, fn: Callable, args: Sequence, world: int, backend: str
 
     if parent is not None:
         _die_with_parent(parent)
-    if device_type == "cuda":
-        index = 0 if one_device else rank
-        torch.cuda.set_device(index)
-        device = torch.device("cuda", index)
-    else:
-        device = torch.device("cpu")
-        # One rank a share of the cores: W ranks of the machine's thread
-        # count would oversubscribe it W times.
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    device = _rank_device(device_type, one_device, rank, world)
     if rank:
         sys.stdout = open(os.devnull, "w")
     dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", rank=rank,
@@ -128,12 +151,31 @@ def _rank_main(rank: int, fn: Callable, args: Sequence, world: int, backend: str
     try:
         result = fn(*args)
     except BaseException as e:
-        with open(Path(tmp) / f"error.{rank}", "wb") as f:
-            pickle.dump((time.time(), type(e).__name__, str(e), traceback.format_exc()), f)
+        _record_error(tmp, rank, e)
         raise
     with open(Path(tmp) / f"result.{rank}", "wb") as f:
         pickle.dump(result, f)
     dist.destroy_process_group()
+
+
+def _prepare(axis: str, world: int, local_world: int, device_type: str,
+             one_device: bool) -> str:
+    """Check a group's request, build the kernels on CUDA (before any rank
+    starts), and return the collective backend."""
+    if axis not in GROUPS:
+        raise ValueError(f"a group's axis is one of {sorted(GROUPS)}, got {axis!r}")
+    if world < 2:
+        raise ValueError(f"a {axis} group needs at least 2 ranks, got {world}")
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available: the group's ranks run on the card")
+        if not one_device and local_world > torch.cuda.device_count():
+            raise ValueError(f"Requested {local_world} devices but only "
+                             f"{torch.cuda.device_count()} available")
+        from murmura_tpu_torch.ops import _build
+
+        _build.build_all()
+    return "nccl" if device_type == "cuda" and not one_device else "gloo"
 
 
 def launch(fn: Callable, args: Sequence = (), *, world: int, device_type: str = "cpu",
@@ -144,20 +186,7 @@ def launch(fn: Callable, args: Sequence = (), *, world: int, device_type: str = 
     ranks' return values in rank order."""
     import torch.multiprocessing as mp
 
-    if axis not in GROUPS:
-        raise ValueError(f"a group's axis is one of {sorted(GROUPS)}, got {axis!r}")
-    if world < 2:
-        raise ValueError(f"a {axis} group needs at least 2 ranks, got {world}")
-    if device_type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("CUDA is not available: the group's ranks run on the card")
-        if not one_device and world > torch.cuda.device_count():
-            raise ValueError(f"Requested {world} devices but only "
-                             f"{torch.cuda.device_count()} available")
-        from murmura_tpu_torch.ops import _build
-
-        _build.build_all()
-    backend = "nccl" if device_type == "cuda" and not one_device else "gloo"
+    backend = _prepare(axis, world, world, device_type, one_device)
     with tempfile.TemporaryDirectory(prefix="murmura-group-") as tmp:
         try:
             mp.start_processes(_rank_main, args=(fn, tuple(args), world, backend, device_type,
@@ -181,3 +210,99 @@ def _rank_failure(tmp: Path, exc: Exception, axis: str) -> Exception:
 
         return ConfigError(message)
     return GroupError(f"rank {rank} of the {axis} group failed:\n{tb}")
+
+
+def _join_rank(local: int, fn: Callable, args: Sequence, coordinator: str, process_id: int,
+               num_processes: int, local_world: int, backend: str, device_type: str,
+               one_device: bool, timeout_s: float, axis: str) -> List[Any]:
+    """Global rank ``process_id * local_world + local`` of a joined group:
+    join at ``tcp://coordinator``, run ``fn(*args)``, gather every rank's
+    value to global rank 0 (which returns them all, in rank order; the
+    others their own, as a list of one), and leave the group."""
+    import torch.distributed as dist
+
+    world = num_processes * local_world
+    rank = process_id * local_world + local
+    device = _rank_device(device_type, one_device, local, local_world)
+    try:
+        dist.init_process_group(backend, init_method=f"tcp://{coordinator}", rank=rank,
+                                world_size=world, timeout=timedelta(seconds=timeout_s))
+    except (RuntimeError, OSError) as e:  # the store's timeout and connection errors
+        raise GroupError(
+            f"process {process_id} of {num_processes} could not join the {axis} group of "
+            f"{world} ranks at tcp://{coordinator} within {timeout_s:g} s (is every "
+            f"process started, with the same coordinator_address?): "
+            f"{type(e).__name__}: {e}") from None
+    stdout = sys.stdout
+    try:
+        if rank:
+            sys.stdout = open(os.devnull, "w")
+        set_process_group(GROUPS[axis](rank, world, backend, device, processes=num_processes))
+        result = fn(*args)
+        values = [None] * world if rank == 0 else None
+        dist.gather_object(result, values, dst=0)
+        return values if rank == 0 else [result]
+    finally:
+        if sys.stdout is not stdout:
+            sys.stdout.close()
+            sys.stdout = stdout
+        set_process_group(None)
+        dist.destroy_process_group()
+
+
+def _join_spawned(local: int, fn: Callable, args: Sequence, coordinator: str, process_id: int,
+                  num_processes: int, local_world: int, backend: str, device_type: str,
+                  one_device: bool, timeout_s: float, axis: str, tmp: str,
+                  parent: int) -> None:
+    """A local rank that :func:`join` spawned: :func:`_join_rank`, its
+    values or its error written for the launcher."""
+    _die_with_parent(parent)
+    try:
+        values = _join_rank(local, fn, args, coordinator, process_id, num_processes,
+                            local_world, backend, device_type, one_device, timeout_s, axis)
+    except BaseException as e:
+        _record_error(tmp, process_id * local_world + local, e)
+        raise
+    with open(Path(tmp) / f"result.{local}", "wb") as f:
+        pickle.dump(values, f)
+
+
+def join(fn: Callable, args: Sequence = (), *, coordinator: str, num_processes: int,
+         process_id: int, local_world: int = 1, device_type: str = "cpu",
+         one_device: bool = False, timeout_s: float = GROUP_TIMEOUT_S,
+         axis: str = "param") -> List[Any]:
+    """``fn(*args)`` in this process's ``local_world`` ranks of a param, node
+    or seed group of ``num_processes * local_world`` ranks spread over
+    ``num_processes`` processes that meet at ``tcp://coordinator`` (``host:port``
+    of process 0, which holds the rendezvous store).  Returns, on process 0,
+    every rank's return value in global rank order; elsewhere this process's
+    ranks' values.  A peer that does not arrive within ``timeout_s`` fails
+    the join with a :class:`GroupError` naming the coordinator.  In a
+    process that is already a rank of a group the join is ignored: ``fn``
+    runs there, and its value comes back alone."""
+    if process_group() is not None:
+        return [fn(*args)]
+    if num_processes < 1 or not 0 <= process_id < num_processes:
+        raise ValueError(f"process_id {process_id} is not in [0, {num_processes})")
+    if local_world < 1:
+        raise ValueError(f"a process runs at least 1 rank, got {local_world}")
+    host, _, port = str(coordinator).rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"coordinator_address must be host:port, got {coordinator!r}")
+    world = num_processes * local_world
+    backend = _prepare(axis, world, local_world, device_type, one_device)
+    common = (fn, tuple(args), coordinator, process_id, num_processes, local_world, backend,
+              device_type, one_device, timeout_s, axis)
+    if local_world == 1:
+        return _join_rank(0, *common)
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="murmura-join-") as tmp:
+        try:
+            mp.start_processes(_join_spawned, args=(*common, tmp, os.getpid()),
+                               nprocs=local_world, join=True, start_method="spawn")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            raise _rank_failure(Path(tmp), e, axis) from None
+        parts = [pickle.loads((Path(tmp) / f"result.{r}").read_bytes())
+                 for r in range(local_world)]
+    return parts[0] if process_id == 0 else [v for part in parts for v in part]

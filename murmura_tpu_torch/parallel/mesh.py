@@ -159,26 +159,39 @@ def plan_gang_layout(batch: int, num_nodes: int, n_dev: int) -> Tuple[int, int]:
     )
 
 
-def layout_devices(device_type: str, param_shards: int, num_devices: Optional[int]) -> int:
+def layout_devices(device_type: str, param_shards: int, num_devices: Optional[int],
+                   processes: int = 1) -> int:
     """The devices a layout is planned over.  On CUDA the visible cards, or
     ``tpu.num_devices`` of them (more than are visible is refused, in the
     JAX package's words); on the CPU ``tpu.num_devices``, else
     ``param_shards`` (one gloo rank a shard, where the JAX package's tests
-    force host devices)."""
+    force host devices).
+
+    A run started as ``processes`` processes (``tpu.multihost``) plans over
+    the global devices, as JAX's ``jax.devices()`` spans every host: on CUDA
+    ``processes`` x the visible cards (``tpu.num_devices``, when given, is
+    global), on the CPU ``tpu.num_devices``, else ``param_shards`` rounded up
+    to a multiple of ``processes``; a global count that ``processes`` does
+    not divide is refused (every process holds as many devices)."""
     if device_type == "cuda":
-        avail = torch.cuda.device_count()
-        if num_devices is not None:
-            if num_devices > avail:
-                raise ValueError(
-                    f"Requested {num_devices} devices but only {avail} available")
-            return int(num_devices)
-        return avail
-    return int(num_devices) if num_devices is not None else int(param_shards)
+        avail = processes * torch.cuda.device_count()
+        if num_devices is not None and num_devices > avail:
+            raise ValueError(f"Requested {num_devices} devices but only {avail} available")
+        n_dev = avail if num_devices is None else int(num_devices)
+    elif num_devices is not None:
+        n_dev = int(num_devices)
+    else:
+        n_dev = processes * -(-int(param_shards) // processes)
+    if n_dev % processes:
+        raise ValueError(
+            f"the global device count {n_dev} is not a multiple of tpu.num_processes="
+            f"{processes}: every process of a multihost run holds as many devices")
+    return n_dev
 
 
 def plan_layout(num_nodes: int, param_shards: int, device_type: str,
-                num_devices: Optional[int] = None,
-                gang: Optional[int] = None) -> Tuple[Tuple[int, int, int], int]:
+                num_devices: Optional[int] = None, gang: Optional[int] = None,
+                processes: int = 1) -> Tuple[Tuple[int, int, int], int]:
     """((seed, nodes, param), devices) of a run, or of a gang of ``gang``
     lanes (the JAX gang's compiled batch): :func:`plan_gang_layout` at
     ``param_shards`` 1, else :func:`plan_gang_param_layout`.
@@ -190,8 +203,9 @@ def plan_layout(num_nodes: int, param_shards: int, device_type: str,
     (:func:`plan_param_layout`).  The port runs one axis at a time: a gang
     runs its seed axis (a seed group) where the plan's seed factor is above
     1, and a param group where the param factor is; a factor left beside
-    the axis that runs goes unused (:func:`running_axis`)."""
-    n_dev = layout_devices(device_type, param_shards, num_devices)
+    the axis that runs goes unused (:func:`running_axis`).  ``processes``:
+    the processes of a multihost run (:func:`layout_devices`)."""
+    n_dev = layout_devices(device_type, param_shards, num_devices, processes)
     if gang is not None:
         if param_shards == 1:
             return (*plan_gang_layout(gang, num_nodes, n_dev), 1), n_dev
@@ -249,6 +263,7 @@ class ParamGroup:
     device: torch.device
     num_nodes: int = 0
     flat_dim: int = 0
+    processes: int = 1
 
     def bind(self, num_nodes: int, flat_dim: int) -> "ParamGroup":
         """This group over ``num_nodes`` nodes of a ``flat_dim``-wide flat
@@ -293,7 +308,7 @@ class ParamGroup:
         c = self.local_cols
         cols = " ".join(f"[{r * c},{(r + 1) * c})" for r in range(self.world))
         staged = ", all_to_all staged through pinned host memory" if self.staged else ""
-        return (f"param group: world {self.world}, backend {self.backend}{staged}, "
+        return (f"param group: world {self.world}{_spread(self)}, backend {self.backend}{staged}, "
                 f"rank 0 on {self.device}, rows {rows}, columns {cols} of {self.flat_dim}")
 
 
@@ -330,6 +345,7 @@ class NodeGroup:
     device: torch.device
     num_nodes: int = 0
     offsets: Tuple[int, ...] = ()
+    processes: int = 1
 
     def bind(self, num_nodes: int, offsets: Optional[Sequence[int]] = None) -> "NodeGroup":
         """This group over ``num_nodes`` nodes (a multiple of the world), the
@@ -395,7 +411,7 @@ class NodeGroup:
                              for r in range(self.world))
             how = (f"window exchange at offsets {list(self.offsets)}, rows received "
                    f"{wins}")
-        return (f"node group: world {self.world}, backend {self.backend}{staged}, "
+        return (f"node group: world {self.world}{_spread(self)}, backend {self.backend}{staged}, "
                 f"rank 0 on {self.device}, node blocks {blocks}; {how}")
 
 
@@ -412,6 +428,7 @@ class SeedGroup:
     backend: str
     device: torch.device
     num_members: int = 0
+    processes: int = 1
 
     def bind(self, num_members: int) -> "SeedGroup":
         """This group over a gang of ``num_members``."""
@@ -435,9 +452,29 @@ class SeedGroup:
         blocks = " ".join(f"[{lo},{hi})" for lo, hi in (self.members(r)
                                                         for r in range(self.world)))
         staged = ", gathers staged through host memory" if self.staged else ""
-        return (f"seed group: world {self.world}, backend {self.backend}{staged}, "
+        return (f"seed group: world {self.world}{_spread(self)}, backend {self.backend}{staged}, "
                 f"rank 0 on {self.device}, members {blocks} of {self.num_members}; "
                 "no collective inside a round")
+
+
+def _spread(group) -> str:
+    """The layout line's note of a group joined from several processes
+    (parallel/launch.py ``join``)."""
+    if group.processes <= 1:
+        return ""
+    return f" over {group.processes} processes of {group.world // group.processes} ranks"
+
+
+def refuse_transfer_guard_across_processes(group, transfer_guard: bool) -> None:
+    """Refuse ``tpu.transfer_guard`` over a group joined from more than one
+    process (``tpu.multihost``), in the JAX package's words."""
+    if transfer_guard and group is not None and group.processes > 1:
+        raise ValueError(
+            "tpu.transfer_guard is single-host only: multi-host "
+            "resident state cannot be explicitly pre-placed with "
+            "jax.device_put, so the guard would flag the legitimate "
+            "cross-process staging"
+        )
 
 
 def gather_objects(obj, group) -> list:
@@ -493,8 +530,12 @@ EXCHANGE_COUNTS: Dict[str, int] = {"calls": 0, "rows": 0, "rows_from_others": 0,
 # the exchange's own all_gather left out): calls, the bytes each brings
 # from the other ranks, and the widest row a gather moved (so a reader sees
 # that no [N, P] gather runs beside the exchange); reset with it.
+# DMTT's collaborator-mask gathers (gather_mask_rows) count among the
+# gathers, and under their own keys with the bytes of the whole mask each
+# assembles.
 COLLECTIVE_COUNTS: Dict[str, int] = {"gathers": 0, "gather_bytes": 0, "gather_row_bytes_max": 0,
-                                     "all_reduces": 0, "all_reduce_bytes": 0}
+                                     "all_reduces": 0, "all_reduce_bytes": 0,
+                                     "mask_gathers": 0, "mask_bytes": 0}
 
 
 def reset_exchange_counts() -> None:
@@ -819,6 +860,15 @@ def _gather_rows(rows: torch.Tensor, group: ParamGroup, dst: Optional[int],
         padded = torch.cat([rows, rows.new_zeros((top - rows.shape[0],) + tuple(rows.shape[1:]))])
     parts = _gather(padded, group, dst)
     return None if parts is None else torch.cat([p[:n] for p, n in zip(parts, counts)])
+
+
+def gather_mask_rows(rows: torch.Tensor, group: NodeGroup) -> torch.Tensor:
+    """Every rank's [R_r, N] 0/1 mask rows -> the whole bool [N, N], on
+    every rank: one all_gather of a byte an entry (N² bytes, nothing
+    parameter-wide)."""
+    COLLECTIVE_COUNTS["mask_gathers"] += 1
+    COLLECTIVE_COUNTS["mask_bytes"] += group.num_nodes * rows.shape[1]
+    return gather_rows((rows > 0).to(torch.uint8), group) > 0
 
 
 def barrier(group: ParamGroup) -> None:

@@ -106,11 +106,13 @@ def serve_plan(config: Config, lanes: int, device_type: str,
         # Planned as the CPU plans: tpu.num_devices, else every card.
         device_type, devices = "cpu", devices if devices is not None else cards
     try:
-        layout, _ = plan_layout(config.topology.num_nodes, shards, str(device_type), devices,
-                                gang=next_bucket(lanes))
+        layout, n_dev = plan_layout(config.topology.num_nodes, shards, str(device_type),
+                                    devices, gang=next_bucket(lanes),
+                                    processes=processes_of(config))
     except ValueError as e:
         raise ConfigError(str(e)) from None
     axis, world, _ = running_axis(layout, True, shards)
+    check_multihost_plan(config, axis, world, n_dev)
     return layout, (axis if world > 1 else None), world
 
 
@@ -137,25 +139,81 @@ def check_serve_plan(config: Config, lanes: int, device_type: str, running: Tupl
             f"daemon runs {describe_plan(*running)}: {remedy}")
 
 
+def processes_of(config: Config) -> int:
+    """The processes a run is started as: ``tpu.num_processes`` under
+    ``tpu.multihost`` on ``backend: tpu`` (the flag is read and ignored on
+    the other backends, as in the JAX package), else 1."""
+    if config.backend != "tpu" or not config.tpu.multihost:
+        return 1
+    check_multihost(config)
+    return int(config.tpu.num_processes)
+
+
+def check_multihost(config: Config) -> None:
+    """Refuse, by name, a ``tpu.multihost`` config (on ``backend: tpu``)
+    whose processes cannot meet: an unset ``coordinator_address``,
+    ``num_processes`` or ``process_id`` (the JAX package then reads JAX's
+    cluster auto-detection, which the port does not have), a coordinator
+    that is not ``host:port``, or a ``process_id`` outside
+    ``[0, num_processes)``."""
+    t = config.tpu
+    if config.backend != "tpu" or not t.multihost:
+        return
+    missing = [f"tpu.{k}" for k in ("coordinator_address", "num_processes", "process_id")
+               if getattr(t, k) is None]
+    if missing:
+        raise ConfigError(
+            "tpu.multihost needs " + ", ".join(missing) + " set: the PyTorch port's processes "
+            "meet at tcp://<coordinator_address> and it has no cluster auto-detection "
+            "(the JAX package falls back to JAX's)")
+    host, _, port = t.coordinator_address.rpartition(":")
+    if not host or not port.isdigit():
+        raise ConfigError(
+            f"tpu.coordinator_address must be host:port (process 0's), got "
+            f"{t.coordinator_address!r}")
+    if t.num_processes < 1 or not 0 <= t.process_id < t.num_processes:
+        raise ConfigError(
+            f"tpu.process_id {t.process_id} is not in [0, tpu.num_processes="
+            f"{t.num_processes})")
+
+
+def check_multihost_plan(config: Config, axis: Optional[str], world: int, n_dev: int) -> None:
+    """Refuse a ``tpu.multihost`` plan whose group (``axis``, ``world``
+    ranks) would leave some process's devices out of the run: the group
+    spans every one of the ``n_dev`` global devices, ``n_dev /
+    num_processes`` ranks a process."""
+    procs = processes_of(config)
+    if procs > 1 and world != n_dev:
+        where = f"a {axis} group of {world}" if world > 1 else "one process"
+        raise ConfigError(
+            f"tpu.multihost: the plan runs {where} over {n_dev} devices of {procs} "
+            f"processes, which leaves devices of some process out of the run: plan a group "
+            f"over every device (tpu.num_devices, tpu.param_shards or the gang size)")
+
+
 def node_axis_of(config: Config, device_type=None) -> int:
     """The planned node axis of a ``backend: tpu`` run at
     ``tpu.param_shards: 1`` on ``device_type`` (parallel/mesh.py
     ``plan_layout``): ``tpu.num_devices``, else the visible cards on CUDA
-    and 1 on the CPU (None: CUDA when a card is visible); 1 otherwise."""
+    and 1 on the CPU (None: CUDA when a card is visible); 1 otherwise.
+    Under ``tpu.multihost`` the devices are global: every process's."""
     if config.backend != "tpu" or config.tpu.param_shards != 1:
         return 1
+    procs = processes_of(config)
     if device_type is None:
         device_type = "cuda" if torch.cuda.is_available() else "cpu"
     if device_type == "cuda" and not torch.cuda.is_available():
-        return 1 if config.tpu.num_devices is None else int(config.tpu.num_devices)
-    return layout_devices(str(device_type), 1, config.tpu.num_devices)
+        return procs if config.tpu.num_devices is None else int(config.tpu.num_devices)
+    try:
+        return layout_devices(str(device_type), 1, config.tpu.num_devices, procs)
+    except ValueError as e:
+        raise ConfigError(str(e)) from None
 
 
 def node_axis_sections(config: Config) -> List[str]:
     """The enabled sections of ``config`` that the node axis does not run
     yet (ROADMAP Queue A)."""
     return [name for name, on in (
-        ("dmtt", config.dmtt is not None),
         ("compression", config.compression.algorithm != "none"),
         ("exchange.max_staleness", config.exchange.max_staleness > 0),
         ("exchange.pipeline", config.exchange.pipeline),
@@ -184,8 +242,6 @@ def refuse_node_axis(config: Config, device_type) -> None:
 def unported_sections(config: Config) -> List[str]:
     """Every enabled part of the config the port does not run yet."""
     out = []
-    if config.tpu.multihost:
-        out.append("tpu.multihost")
     a = config.attack
     if a.enabled and a.type is not None and a.type not in ATTACKS:
         out.append(f"attack.type: {a.type}")
@@ -659,6 +715,7 @@ def build_network_from_config(config: Config, device="cuda", checkpoint_dir=None
     when a snapshot exists there (a resume with no snapshot yet is a fresh
     run).  The caller restores the snapshot (Network.restore_checkpoint)."""
     refuse_unported(config)
+    check_multihost(config)
     refuse_node_axis(config, torch.device(device).type)
     if config.backend == "distributed":
         # An in-process Network would be another backend than the config
@@ -711,6 +768,7 @@ def _gang_members_and_programs(config: Config, device, seeds=None, members=None,
         # population x sweep check never saw this pair.
         raise ConfigError(refusal_reason("population", "sweep"))
     refuse_unported(config)
+    check_multihost(config)
     if members is None:
         try:
             members = resolve_members(config, seeds)

@@ -1336,3 +1336,47 @@ def test_a_killed_launcher_leaves_no_rank_on_the_card(dev, tmp_path):
         if proc.poll() is None:
             proc.kill()
         proc.wait()
+
+
+def test_joined_processes_on_one_card_match_one_process_under_dmtt(dev, tmp_path):
+    # Two processes joined over tcp (parallel/launch.py ``join``, the
+    # tpu.multihost entry), one rank each on cuda:0 over gloo (the one-device
+    # seam), a node group of 2 running one DMTT Krum round under the
+    # topology liar (tests/torch_node_axis_probe_cases.py ``dmtt_case``),
+    # against one process on the card: the masks and Krum's picks equal, the
+    # parameters within a scaled 1e-4, each rank's pairwise kernel launched
+    # (no plain call), no JAX in a process.
+    import pickle
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import torch_node_axis_probe_cases as cases
+
+    here = Path(__file__).resolve().parent
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    plan = [("dmtt", {"rule": "krum", "device": "cuda", "rounds": 1})]
+    code = ("import sys; sys.path[:0] = sys.argv[1:3]; import torch_node_axis_probe_cases as c; "
+            f"c.join_process(int(sys.argv[3]), int(sys.argv[4]), {plan!r}, sys.argv[5])")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(here), str(here.parent), str(p),
+                               str(port), str(tmp_path)]) for p in (0, 1)]
+    assert [p.wait(timeout=600) for p in procs] == [0, 0]
+    ranks = pickle.loads((tmp_path / "0").read_bytes())
+    assert len(ranks) == 2 and len(pickle.loads((tmp_path / "1").read_bytes())) == 1
+    ref = cases.run_cases(plan)["results"][0]
+    got = ranks[0]["results"][0]
+    assert got["rows"][0] == cases.N // 2
+    assert _scaled(torch.from_numpy(got["flat"]), torch.from_numpy(ref["flat"])) <= 1e-4
+    for g, r in zip(got["masks"], ref["masks"]):
+        np.testing.assert_array_equal(g, r)
+    np.testing.assert_array_equal(got["state"]["dmtt_collab"], ref["state"]["dmtt_collab"])
+    for k in ("agg_selected_index", "agg_selected_own", "agg_dmtt_collab_count",
+              "agg_dmtt_received_count"):
+        np.testing.assert_array_equal(got["rounds"][0][k], ref["rounds"][0][k], err_msg=k)
+    for rank in ranks:
+        assert rank["launches"]["pairwise_sq_distances"] == 2
+        assert not any(rank["plain_calls"].values())
+        assert rank["forbidden_modules"] == []

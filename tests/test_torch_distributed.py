@@ -33,6 +33,7 @@ nothing here spawns a process.
   C: the JAX package's ``run-node`` runs the plain node process there).
 """
 
+import sys
 import threading
 import time
 from pathlib import Path
@@ -285,6 +286,27 @@ def test_local_node_refuses_an_unannotated_state_key():
     for name, params in (("sketchguard", {"model_dim": 10}), ("evidential_trust", {})):
         assert (build_aggregator(name, params).state_kind
                 == jax_build_aggregator(name, params, model_dim=10).state_kind)
+
+
+def test_a_node_line_reaches_stdout_in_one_write(monkeypatch):
+    # The node processes share one pipe; a line written as text and newline
+    # apart (print under an unbuffered stdout) lets another process's line
+    # land between the two.
+    from murmura_tpu_torch.distributed import node_process
+
+    writes = []
+
+    class Recorder:
+        def write(self, text):
+            writes.append(text)
+
+        def flush(self):
+            writes.append(None)
+
+    monkeypatch.setattr(sys, "stdout", Recorder())
+    node_process._say("[node 3] pid 7 ready 1.00 s after spawn, 2.00 s before round 0, on cuda:0")
+    assert writes == ["[node 3] pid 7 ready 1.00 s after spawn, 2.00 s before round 0, "
+                      "on cuda:0\n", None]
 
 
 def test_local_node_draws_are_a_function_of_seed_and_round():

@@ -29,8 +29,9 @@ and it never moves to the CPU unless asked to.
   families in test_torch_analysis_families.py), a Krum, a UBAR and an
   ALIE round over a node group of 2 spawned ranks (``launch(...,
   axis="nodes")``), and a
-  gang round of 3 members over a seed group of 2 spawned ranks
-  (``launch(..., axis="seed")``, core/gang.py's seed group), loads no
+  gang round of 3 members over a seed group of 2 ranks joined over tcp
+  (``join(..., axis="seed")``, the ``tpu.multihost`` entry, core/gang.py's
+  seed group), loads no
   ``jax`` and no ``murmura_tpu.*`` module (counted against what the
   interpreter had loaded at start), and neither does any rank.
 - Every module of the port imports where ``zmq`` cannot be imported.
@@ -253,12 +254,18 @@ ranks = launch(torch_node_axis_probe_cases.run_cases,
                  for r, e, a in (("krum", "ppermute", "gaussian"), ("ubar", "allgather", "gaussian"),
                                  ("krum", "allgather", "alie"))],), world=2, axis="nodes")
 assert [r["forbidden_modules"] for r in ranks] == [[], []], [r["forbidden_modules"] for r in ranks]
+import socket
 import torch_seed_axis_cases
+from murmura_tpu_torch.parallel.launch import join
 raw = torch_seed_axis_cases.gang_config(tpu={"num_devices": 2})
 raw["experiment"]["rounds"] = 1
-ranks = launch(torch_seed_axis_cases.run_cases,
-               ([("gang", {"raw": raw, "seeds": [7, 8, 9], "rounds": 1})],), world=2,
-               axis="seed")
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+ranks = join(torch_seed_axis_cases.run_cases,
+             ([("gang", {"raw": raw, "seeds": [7, 8, 9], "rounds": 1})],),
+             coordinator=f"127.0.0.1:{port}", num_processes=1, process_id=0, local_world=2,
+             axis="seed")
 assert [r["results"][0]["block"] for r in ranks] == [(0, 1), (1, 3)]
 assert [r["forbidden_modules"] for r in ranks] == [[], []], [r["forbidden_modules"] for r in ranks]
 new = set(sys.modules) - before

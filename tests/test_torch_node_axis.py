@@ -389,7 +389,6 @@ def test_no_rank_loads_jax(runs):
 
 
 REFUSED_SECTIONS = {
-    "dmtt": {"dmtt": {"allow_static": True}, "topology": {"type": "fully", "num_nodes": 8}},
     "compression": {"compression": {"algorithm": "int8", "block": 8}},
     "exchange.max_staleness": {"exchange": {"max_staleness": 2}},
     "exchange.pipeline": {"exchange": {"pipeline": True}, "faults": {"enabled": False}},
@@ -413,18 +412,16 @@ def test_each_unported_section_is_refused_by_name_over_a_node_axis(name):
     refuse_node_axis(one, "cpu")
 
 
-@pytest.mark.parametrize("what", ["DMTT", "compression", "bounded staleness",
+@pytest.mark.parametrize("what", ["compression", "bounded staleness",
                                   "the pipelined round", "tpu.param_shards > 1"])
 def test_the_round_program_refuses_by_name_on_a_node_group(what):
     from murmura_tpu_torch.aggregation import build_aggregator
     from murmura_tpu_torch.core.rounds import build_round_program
     from murmura_tpu_torch.core.stale import StalenessSpec
-    from murmura_tpu_torch.dmtt.protocol import DMTTParams
     from murmura_tpu_torch.ops.compress import CompressionSpec
 
     model = cases.tiny_model()
-    kw = {"DMTT": dict(dmtt=DMTTParams()),
-          "compression": dict(compression=CompressionSpec(algorithm="int8", block=8)),
+    kw = {"compression": dict(compression=CompressionSpec(algorithm="int8", block=8)),
           "bounded staleness": dict(staleness=StalenessSpec(
               max_staleness=1, discount=0.5, base_mask=np.ones((cases.N, cases.N), np.float32))),
           "the pipelined round": dict(pipeline=True),

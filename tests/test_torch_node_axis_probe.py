@@ -38,12 +38,25 @@ same cases in one process:
   Network: against one process, and a snapshot after round 1 resumed
   bit-equal; the carried attack state replicated, the edge state
   gathered whole into the snapshot;
+- DMTT over the group (the trust protocol on the node block,
+  dmtt/protocol.py): the JAX package's tiny DMTT program under the topology
+  liar, 2 rounds on a mobility model's G^t through ``make_mesh(4)`` and
+  ``shard_step`` against the port's 4-rank rounds (rtol 5e-5, atol 5e-6;
+  the exchange and collaborator masks and the ``agg_dmtt_*`` counts
+  equal); {fedavg, Krum, UBAR sharing the cross-evaluation} under the liar
+  wrapping a gaussian attack against one process (the cross-evaluation,
+  the masks, the counts and the decisions equal, the parameters and the
+  trust state bit-equal, the Krum score within KRUM_SCORE_RTOL); the
+  collaborator-mask gather moving N² bytes a round and no gather a row
+  wider than an [N] metric row; a DMTT Network under mobility against one
+  process, in fused chunks too, and snapshotted after round 1 and resumed
+  bit-equal, its [N, N] trust state gathered whole into the snapshot;
 - no rank loads JAX or the JAX package.
 
 Beside the group: evidential trust's neighbourhood median indexes over the
 network's N columns on a node block whose degree exceeds twice its rows;
 the bundled configs that the node axis refused for these sections plan no
-refusal at ``tpu.num_devices: 2``.
+refusal at ``tpu.num_devices: 2``, the two DMTT configs none at 4.
 """
 
 import functools
@@ -102,6 +115,11 @@ JAX_CASES = (("ubar", None, False), ("evidential_trust", None, True), ("krum", "
 UNREFUSED = ("examples/configs/ubar_attack.yaml",
              "examples/configs/uci_har_evidential_trust.yaml",
              "examples/configs/alie_geometric_median.yaml")
+DMTT_CONFIGS = ("examples/configs/dmtt_mobility.yaml", "experiments/paper/dmtt/03_dmtt.yaml")
+# DMTT's rules over the group: UBAR shares the round's cross-evaluation.
+DMTT_RULES = ("fedavg", "krum", "ubar")
+# The DMTT decisions: equal.
+DMTT_DECISIONS = ("agg_dmtt_collab_count", "agg_dmtt_received_count")
 
 
 def _scaled(got, ref):
@@ -180,11 +198,62 @@ def _jax_tiny_spec(case):
             {k: np.asarray(v) for k, v in state.items()})
 
 
+def _jax_dmtt_spec(rule):
+    """The JAX package's tiny DMTT program of ``rule`` under the topology
+    liar (claims only), 2 rounds on a node mesh of 4 from spread initial
+    parameters: (its spec for the port, its whole [N, P] output, each
+    round's metrics, its carried state)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.flatten_util import ravel_pytree
+
+    from murmura_tpu.analysis.ir import AGG_CASES
+    from murmura_tpu.attacks.topology_liar import make_topology_liar_attack
+    from murmura_tpu.dmtt.protocol import DMTTParams
+    from murmura_tpu.parallel.mesh import make_mesh, shard_step
+    from test_param_sharding import _step_args, _tiny_program
+    from test_torch_node_axis import _u_draw
+
+    attack = make_topology_liar_attack(cases.N, 0.25, seed=cases.SEED)
+    prog = _tiny_program(rule, attack=attack, dmtt=DMTTParams(budget_B=cases.DMTT_B))
+    rng = np.random.default_rng(cases.SEED)
+    init = jax.tree_util.tree_map(lambda a: _spread(a, prog.num_nodes, rng), prog.init_params)
+    step = shard_step(prog.train_step, prog, make_mesh(cases.WORLD), donate=False)
+    args = _step_args(prog)
+    params, state = jax.tree_util.tree_map(jnp.asarray, init), args[1]
+    comp = jnp.asarray(attack.compromised, jnp.float32)
+    graphs = cases.dmtt_graphs(2)
+    us, rounds = [], []
+    for r, adj in enumerate(graphs):
+        key = jax.random.PRNGKey(r)
+        params, state, metrics = step(params, state, key, jnp.asarray(adj), comp,
+                                      jnp.asarray(float(r), jnp.float32), args[6])
+        us.append(_u_draw(key, prog.data_arrays["mask"].shape))
+        rounds.append({k: np.asarray(v) for k, v in metrics.items()})
+    flat = np.asarray(jax.vmap(lambda t: ravel_pytree(t)[0])(params))
+    spec = {"init": init, "u": us, "adj": graphs, "agg_params": dict(AGG_CASES[rule]),
+            "rule": rule, "budget_B": cases.DMTT_B}
+    return spec, flat, rounds, {k: np.asarray(v) for k, v in state.items()}
+
+
+def _dmtt_config(**over):
+    """The tiny config under dmtt_mobility.yaml's sections: G^t of the
+    mobility model, TopB of 5, the topology liar wrapping a gaussian
+    attack, Krum (c = 1), no faults."""
+    return cases.tiny_config(
+        topology={"type": "fully", "num_nodes": cases.N, "k": None},
+        mobility=dict(cases.DMTT_MOBILITY), dmtt={"budget_B": cases.DMTT_B},
+        attack={"type": "topology_liar", "params": {"model_attack_type": "gaussian",
+                                                    "noise_std": 1.0}},
+        faults={"enabled": False}, **over)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every case, in the group of 4 and in one process."""
     tmp = tmp_path_factory.mktemp("node_axis_probe")
     jax_tiny = {_jax_id(c): _jax_tiny_spec(c) for c in JAX_CASES}
+    jax_dmtt = _jax_dmtt_spec("krum")
     adaptive = cases.tiny_config(attack={"type": "alie", "params": {"z": cases.ALIE_Z},
                                          "adaptive": {"enabled": True}})
     evidential = cases.tiny_config(
@@ -199,21 +268,25 @@ def runs(tmp_path_factory):
         "ubar_ppermute": {"raw": cases.tiny_config(
             aggregation={"algorithm": "ubar", "params": {}}, tpu={"exchange": "ppermute"}),
             "rounds": 2},
+        "dmtt_resume": {"raw": _dmtt_config(), "rounds": 2, "resume": True,
+                        "snapshot_dir": str(tmp / "dmtt")},
+        "dmtt_fused": {"raw": _dmtt_config(), "rounds": 2, "rounds_per_dispatch": 2},
     }
     plan = ([("jax_tiny", v[0]) for v in jax_tiny.values()]
             + [("round", {**s, "audit": True}) for s in ROUND_SPECS] + [("probe", {})]
-            + [("network", s) for s in network_specs.values()])
+            + [("network", s) for s in network_specs.values()]
+            + [("jax_dmtt", jax_dmtt[0])] + [("dmtt", {"rule": r}) for r in DMTT_RULES])
     group = launch(cases.run_cases, (plan,), world=cases.WORLD, axis="nodes", timeout_s=300)
     local_plan = [(k, {**s, "snapshot_dir": None}) if k == "network" else (k, s)
                   for k, s in plan]
     local = cases.run_cases(local_plan)
     names = ([f"jax:{k}" for k in jax_tiny] + [_case_id(s) for s in ROUND_SPECS] + ["probe"]
-             + list(network_specs))
+             + list(network_specs) + ["jax:dmtt"] + [f"dmtt-{r}" for r in DMTT_RULES])
     return {"group": [dict(zip(names, g["results"])) for g in group],
             "local": dict(zip(names, local["results"])),
             "forbidden": [g["forbidden_modules"] for g in group],
             "plain": [g["plain_calls"] for g in group],
-            "jax": {k: v[1:] for k, v in jax_tiny.items()}}
+            "jax": {k: v[1:] for k, v in jax_tiny.items()}, "jax_dmtt": jax_dmtt[1:]}
 
 
 @pytest.mark.parametrize("case", JAX_CASES, ids=_jax_id)
@@ -310,7 +383,8 @@ def test_probe_matrices_of_the_node_group_match_one_process(runs):
     assert all(g["probe"]["window_rows"] == cases.N // cases.WORLD + 4 for g in runs["group"])
 
 
-@pytest.mark.parametrize("name", ["adaptive_resume", "evidential_resume", "ubar_ppermute"])
+@pytest.mark.parametrize("name", ["adaptive_resume", "evidential_resume", "ubar_ppermute",
+                                  "dmtt_resume", "dmtt_fused"])
 def test_network_over_the_node_axis_matches_one_process(runs, name):
     got, ref = runs["group"][0][name]["run"], runs["local"][name]["run"]
     assert runs["group"][0][name]["rows"][0] == cases.N // cases.WORLD
@@ -333,7 +407,7 @@ def test_network_over_the_node_axis_matches_one_process(runs, name):
     assert all(g[name]["run"] is None for g in runs["group"][1:])
 
 
-@pytest.mark.parametrize("name", ["adaptive_resume", "evidential_resume"])
+@pytest.mark.parametrize("name", ["adaptive_resume", "evidential_resume", "dmtt_resume"])
 def test_snapshot_after_round_one_resumes_bit_equal(runs, name):
     got = runs["group"][0][name]
     assert got["restored_round"] == 1
@@ -345,6 +419,10 @@ def test_snapshot_after_round_one_resumes_bit_equal(runs, name):
     if name == "adaptive_resume":
         # The walk moved: the snapshot carries a mid-run attacker.
         assert (state["atk_z"] != cases.ALIE_Z).any()
+    elif name == "dmtt_resume":
+        # The trust state whole, a selection made.
+        assert state["dmtt_alpha"].shape == (cases.N, cases.N)
+        assert state["dmtt_selected"] == 1.0 and state["dmtt_collab"].any()
     else:
         assert state["smoothed_trust"].shape == (cases.N, cases.N) and state["trust_seen"].any()
 
@@ -355,6 +433,93 @@ def test_no_rank_loads_jax_and_no_plain_call_is_counted_as_a_launch(runs):
     # dense distances and the window's circulant ones all ran on each rank.
     for plain in runs["plain"]:
         assert plain["pairwise_sq_distances"] > 0 and plain["circulant_sq_distances"] > 0
+
+
+def _dmtt_decisions_equal(got, ref, where):
+    for k in DMTT_DECISIONS:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=f"{k} {where}")
+
+
+def test_jax_dmtt_rounds_match_jax_shard_step(runs):
+    jax_flat, jax_rounds, jax_state = runs["jax_dmtt"]
+    got = runs["group"][0]["jax:dmtt"]
+    np.testing.assert_allclose(got["flat"], jax_flat, rtol=5e-5, atol=5e-6)
+    for r, (g, j) in enumerate(zip(got["rounds"], jax_rounds)):
+        _dmtt_decisions_equal(g, j, r)
+        for k in ("agg_selected_index", "agg_selected_own"):
+            np.testing.assert_array_equal(g[k], j[k], err_msg=f"{k} {r}")
+        for k in ("agg_dmtt_mean_topo_trust", "agg_krum_score"):
+            rtol = KRUM_SCORE_RTOL if k == "agg_krum_score" else 5e-5
+            np.testing.assert_allclose(g[k], j[k], rtol=rtol, atol=5e-6, err_msg=f"{k} {r}")
+    np.testing.assert_array_equal(got["state"]["dmtt_collab"], jax_state["dmtt_collab"])
+    np.testing.assert_array_equal(got["state"]["dmtt_selected"], jax_state["dmtt_selected"])
+    for k in ("dmtt_c_hat", "dmtt_alpha", "dmtt_beta"):
+        np.testing.assert_allclose(got["state"][k], jax_state[k], rtol=5e-5, atol=5e-6,
+                                   err_msg=k)
+    # The second round ran on the first round's selection, and the liars'
+    # claims were contradicted: some beta moved.
+    assert jax_state["dmtt_selected"] == 1.0
+    assert (got["state"]["dmtt_beta"] != 1.0).any()
+    # The exchange masks of the two rounds equal the one process's port.
+    for g, r in zip(got["masks"], runs["local"]["jax:dmtt"]["masks"]):
+        np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.parametrize("rule", DMTT_RULES)
+def test_dmtt_over_the_node_axis_matches_one_process(runs, rule):
+    got, ref = runs["group"][0][f"dmtt-{rule}"], runs["local"][f"dmtt-{rule}"]
+    assert got["rows"][0] == cases.N // cases.WORLD and ref["rows"][0] == cases.N
+    assert got["row_state_keys"] == ("dmtt_alpha", "dmtt_beta", "dmtt_c_hat", "dmtt_collab")
+    for r, (g, l) in enumerate(zip(got["rounds"], ref["rounds"])):
+        assert set(g) == set(l)
+        for k in l:
+            if k == "agg_krum_score":
+                # The dense Krum centre sums the block's partials over the
+                # group (NOT_BIT_EQUAL above).
+                np.testing.assert_allclose(g[k], l[k], rtol=KRUM_SCORE_RTOL, err_msg=k)
+            else:
+                assert g[k].tobytes() == l[k].tobytes(), (k, r)
+    # The cross-evaluation, sender-major over the exchanged broadcast, and
+    # the exchange masks are the one process's.
+    for g, l in zip(got["cross"], ref["cross"]):
+        assert set(g) == set(l) == {"accuracy", "vacuity", "loss"}
+        for k in l:
+            assert g[k].tobytes() == l[k].tobytes(), k
+    for g, l in zip(got["masks"], ref["masks"]):
+        assert g.shape == (cases.N, cases.N) and np.array_equal(g, l)
+    assert got["flat"].tobytes() == ref["flat"].tobytes()
+    for k, v in ref["state"].items():
+        assert got["state"][k].tobytes() == v.tobytes(), k
+    assert ref["state"]["dmtt_collab"].sum(axis=1).max() <= cases.DMTT_B
+    if rule == "krum":
+        assert any(not r["agg_selected_own"].all() for r in ref["rounds"])
+    if rule == "ubar":
+        assert any(r["agg_stage2_acceptance_rate"].any() for r in ref["rounds"])
+
+
+@pytest.mark.parametrize("rule", DMTT_RULES)
+def test_dmtt_mask_gather_moves_n_squared_bytes_and_no_parameter_row(runs, rule):
+    """A round: one all_gather of the [N, P] broadcast (the exchange), one
+    gather of the [R, N] 0/1 collaborator rows (N² bytes), and beside them
+    no gather of a row wider than an [N] float32 metric row."""
+    n = cases.N
+    for rank, res in enumerate(runs["group"]):
+        got = res[f"dmtt-{rule}"]
+        counts, coll = got["exchange"], got["collectives"]
+        assert counts["calls"] == 2 and counts["rows"] == 2 * n, rank
+        assert coll["mask_gathers"] == 2 and coll["mask_bytes"] == 2 * n * n, (rank, coll)
+        assert 0 < coll["gather_row_bytes_max"] <= n * 4, (rank, coll)
+        assert coll["all_reduce_bytes"] < 2 * n * got["dim"] * 4, (rank, coll)
+
+
+@pytest.mark.parametrize("path", DMTT_CONFIGS)
+def test_dmtt_config_plans_no_refusal_over_a_node_axis_of_four(path):
+    raw = yaml.safe_load((ROOT / path).read_text())
+    raw["backend"] = "tpu"
+    raw["tpu"] = {**(raw.get("tpu") or {}), "num_devices": 4, "param_shards": 1}
+    cfg = Config.model_validate(raw)
+    assert node_axis_sections(cfg) == []
+    refuse_node_axis(cfg, "cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The cases of the node-axis tests of the probe rules (UBAR, evidential
-trust) and the row-reading attacks (ALIE, IPM, the adaptive attacks), run
-twice: in the test process, in one process, and in the ranks of a spawned
-node group (``launch(..., axis="nodes")``).  The ranks import this module,
-so it imports neither JAX nor the JAX package.
+trust), the row-reading attacks (ALIE, IPM, the adaptive attacks) and DMTT,
+run twice: in the test process, in one process, and in the ranks of a
+spawned node group (``launch(..., axis="nodes")``).  The ranks import this
+module, so it imports neither JAX nor the JAX package.
 
 Every case returns plain numpy (the whole [N, P] parameters and carried
 state gathered over the group, the round metrics), so that the two runs
@@ -27,7 +27,10 @@ from murmura_tpu_torch.attacks.adaptive import (
 from murmura_tpu_torch.attacks.alie import make_alie_attack
 from murmura_tpu_torch.attacks.gaussian import make_gaussian_attack
 from murmura_tpu_torch.attacks.ipm import make_ipm_attack
+from murmura_tpu_torch.attacks.topology_liar import make_topology_liar_attack
+from murmura_tpu_torch.core import rounds as rounds_mod
 from murmura_tpu_torch.core.rounds import build_round_program, round_generators
+from murmura_tpu_torch.dmtt.protocol import DMTTParams
 from murmura_tpu_torch.ops.flatten import model_dimension
 from murmura_tpu_torch.parallel.launch import forbidden_modules
 from murmura_tpu_torch.parallel.mesh import (
@@ -39,6 +42,7 @@ from murmura_tpu_torch.parallel.mesh import (
     process_group,
     reset_exchange_counts,
 )
+from murmura_tpu_torch.topology.dynamic import MobilityModel
 from murmura_tpu_torch.topology.generators import create_topology
 from torch_node_axis_cases import N, SEED, WORLD, network_case, tiny_config  # noqa: F401
 from torch_sharding_cases import spread_init, tiny_data, tiny_model
@@ -184,13 +188,130 @@ def probe_case(spec):
             "window_rows": window.shape[0]}
 
 
+# DMTT: G^t of a mobility model whose range keeps most of Krum's
+# neighbourhoods above its constraint, TopB of 5.
+DMTT_MOBILITY = {"area_size": 100.0, "comm_range": 60.0, "max_speed": 5.0, "seed": 42}
+DMTT_B = 5
+# UBAR's stage 2 filters at rho 0.8 (ubar_attack.yaml).
+DMTT_RULE_PARAMS = {**RULE_PARAMS, "ubar": {"rho": 0.8}}
+
+
+def dmtt_graphs(rounds: int):
+    """The rounds' G^t, [N, N] float32."""
+    mob = MobilityModel(N, **DMTT_MOBILITY)
+    return [mob.adjacency_at(r).astype(np.float32) for r in range(rounds)]
+
+
+def make_liar(inner: bool = True):
+    """The topology liar at 25%, wrapping a gaussian attack at std 1 (or
+    claims only)."""
+    model_attack = make_gaussian_attack(N, 0.25, noise_std=1.0, seed=SEED) if inner else None
+    return make_topology_liar_attack(N, 0.25, seed=SEED, model_attack=model_attack)
+
+
+class _Recorded:
+    """Record each round's cross-evaluation (the rank's rows) and whole
+    exchange mask by wrapping core/rounds.py's two calls."""
+
+    def __init__(self):
+        self.cross, self.exchange = [], []
+
+    def __enter__(self):
+        probe, update = rounds_mod.pairwise_probe_eval, rounds_mod.dmtt_round_update
+        self._saved = probe, update
+
+        def recording_probe(*a, **k):
+            out = probe(*a, **k)
+            self.cross.append({k2: v.clone() for k2, v in out.items()})
+            return out
+
+        def recording_update(*a, **k):
+            out = update(*a, **k)
+            self.exchange.append(out[0].clone())
+            return out
+
+        rounds_mod.pairwise_probe_eval = recording_probe
+        rounds_mod.dmtt_round_update = recording_update
+        return self
+
+    def __exit__(self, *exc):
+        rounds_mod.pairwise_probe_eval, rounds_mod.dmtt_round_update = self._saved
+
+    def whole(self, group):
+        """The recorded cross-evaluations gathered whole, and the masks."""
+        cross = [{k: (v if group is None else gather_rows(v, group)).cpu().numpy()
+                  for k, v in c.items()} for c in self.cross]
+        return cross, [e.cpu().numpy() for e in self.exchange]
+
+
+def _dmtt_rounds(prog, attack, graphs, draws=None, generators=True):
+    """Run the program's rounds on ``graphs``; returns the final flat and
+    state, each round's host metrics and the recorder."""
+    dev = prog.device
+    comp = torch.from_numpy(attack.compromised.astype(np.float32)).to(dev)
+    flat, state = prog.init_flat, prog.init_agg_state
+    rounds = []
+    with _Recorded() as rec:
+        for r, adj in enumerate(graphs):
+            kw = ({"generators": round_generators(SEED, r, dev)} if generators
+                  else {"draws": draws[r]})
+            flat, state, metrics = prog.train_step(flat, state, torch.from_numpy(adj).to(dev),
+                                                   comp, float(r), **kw)
+            rounds.append(_host({**prog.eval_step(flat), **metrics}))
+    return flat, state, rounds, rec
+
+
+def dmtt_case(spec):
+    """``rounds`` (2) DMTT rounds of one rule (``spec``: rule) under the
+    topology liar on the mobility model's G^t, the tiny MLP from spread
+    initial parameters, audit taps on.  Returns the whole parameters and
+    carried state, each round's metrics, cross-evaluation and exchange
+    mask, and this process's exchange and collective counts."""
+    rule, device = spec["rule"], spec.get("device", "cpu")
+    model = tiny_model()
+    dim = model_dimension(model.init(torch.Generator().manual_seed(0), "cpu"))
+    agg = build_aggregator(rule, dict(DMTT_RULE_PARAMS.get(rule, {})), model_dim=dim)
+    attack = make_liar()
+    prog = build_round_program(
+        model, agg, tiny_data(), batch_size=8, lr=0.05, total_rounds=4, seed=SEED,
+        attack=attack, init_params=spread_init(model), device=device, group=process_group(),
+        dmtt=DMTTParams(budget_B=DMTT_B), audit_taps=True)
+    reset_exchange_counts()
+    flat, state, rounds, rec = _dmtt_rounds(prog, attack, dmtt_graphs(spec.get("rounds", 2)))
+    counts = {"exchange": dict(EXCHANGE_COUNTS), "collectives": dict(COLLECTIVE_COUNTS)}
+    cross, exchange = rec.whole(prog.group)
+    return {"flat": _whole(flat, prog), "state": _whole_state(state, prog), "rounds": rounds,
+            "cross": cross, "masks": exchange, "rows": tuple(flat.shape), "dim": dim,
+            "row_state_keys": prog.row_state_keys, **counts}
+
+
+def jax_dmtt_case(spec):
+    """The JAX package's tiny DMTT program (``spec``: rule, init, one shuffle
+    draw ``u`` a round, the rounds' graphs ``adj``) under the topology liar
+    with claims only (no noise draw), rounds chained."""
+    model = tiny_model()
+    dim = model_dimension(model.init(torch.Generator().manual_seed(0), "cpu"))
+    agg = build_aggregator(spec["rule"], dict(spec["agg_params"]), model_dim=dim)
+    attack = make_liar(inner=False)
+    prog = build_round_program(
+        model, agg, tiny_data(), local_epochs=1, batch_size=8, lr=0.05, total_rounds=4,
+        seed=SEED, init_params=spec["init"], device="cpu", group=process_group(),
+        attack=attack, dmtt=DMTTParams(budget_B=spec["budget_B"]))
+    flat, state, rounds, rec = _dmtt_rounds(prog, attack, spec["adj"],
+                                            draws=[{"u": [u]} for u in spec["u"]],
+                                            generators=False)
+    cross, exchange = rec.whole(prog.group)
+    return {"flat": _whole(flat, prog), "state": _whole_state(state, prog), "rounds": rounds,
+            "masks": exchange, "cross": cross}
+
+
 def run_cases(cases):
     """Every (kind, spec) case in order, with this process's forbidden
     modules and kernel calls; what a node group's ranks run."""
     from murmura_tpu_torch.ops import agg_kernels, candidate_kernels, sketch_kernels
 
     fns = {"round": round_case, "jax_tiny": jax_tiny_case, "probe": probe_case,
-           "network": network_case}
+           "network": network_case, "dmtt": dmtt_case, "jax_dmtt": jax_dmtt_case}
     mods = (agg_kernels, candidate_kernels, sketch_kernels)
     for mod in mods:
         mod.reset_counts()
@@ -198,4 +319,20 @@ def run_cases(cases):
     group = process_group()
     return {"results": results, "forbidden_modules": forbidden_modules(),
             "rank": None if group is None else group.rank,
+            "launches": {k: v for mod in mods for k, v in mod.LAUNCHES.items()},
             "plain_calls": {k: v for mod in mods for k, v in mod.PLAIN_CALLS.items()}}
+
+
+def join_process(process_id: int, port: int, plan, out: str) -> None:
+    """Process ``process_id`` of 2 joined over tcp at 127.0.0.1:``port``,
+    one rank each on cuda:0 over gloo (the one-device seam), running
+    :func:`run_cases` on ``plan`` in a node group of 2; pickles what the
+    join returned to ``out``/``process_id``."""
+    import pickle
+
+    from murmura_tpu_torch.parallel.launch import join
+
+    values = join(run_cases, (plan,), coordinator=f"127.0.0.1:{port}", num_processes=2,
+                  process_id=process_id, device_type="cuda", one_device=True, axis="nodes")
+    with open(f"{out}/{process_id}", "wb") as f:
+        pickle.dump(values, f)
